@@ -1,0 +1,21 @@
+"""review_recommender_tpu_torch — the hybrid query path in PyTorch/CUDA.
+
+A port of `review_recommender_tpu` (the JAX/Pallas reference, which stays
+in the repository unchanged) to PyTorch on an NVIDIA Hopper GPU. Module
+names mirror the JAX package so each counterpart is easy to find:
+
+    device        explicit device resolution (no silent CPU fallback)
+    utils         text + numeric helpers, stage timer
+    index         numpy index dataclasses, synthetic corpus, BM25 stats
+    ops           dense pool, BM25, gate, fusion (plain torch) and the
+                  fused attention (hand-written CUDA kernel, csrc/)
+    models        BERT towers as nn.Modules, flax -> torch weight mapping,
+                  bucketed bi-/cross-encoder wrappers
+    engine        featurizer, host hooks, SearchEngine.run_search
+
+The package imports torch, numpy and the standard library. From the JAX
+package it imports only `review_recommender_tpu.config`, which is
+jax-free; it never imports jax, flax, pandas or pyarrow.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,232 @@
+"""Index bundle schema: numpy dataclasses and their device placement.
+
+Copies the dataclasses of `review_recommender_tpu/index/schema.py`
+(`ProductIndex`, `ReviewIndex`, `IndexBundle`, same fields) without the
+module-level `jax.numpy` import; placement returns torch tensors on an
+explicit device. Array inventory (N_pad rows, L = terms cap, G = gate
+phrases): emb (N_pad, D), n_reviews/avg_stars/doc_len (N_pad,) f32 (stars
+may be NaN), doc_terms (N_pad, L) i32 (0 = PAD), doc_tf (N_pad, L) f32,
+gate_bits (N_pad, G) bool, valid (N_pad,) bool, optional doc_bm25
+(N_pad, L) f32 eager BM25 contributions.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from review_recommender_tpu_torch.utils.text import GATE_PHRASES
+
+logger = logging.getLogger(__name__)
+
+SCHEMA_VERSION = 1
+PAD_TERM_ID = 0
+
+
+def pad_rows(n: int, multiple: int) -> int:
+    """Round n up to a multiple (>= multiple so tiny corpora still tile)."""
+    m = max(int(multiple), 1)
+    return max(((n + m - 1) // m) * m, m)
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+@dataclasses.dataclass
+class ProductIndex:
+    """Corpus arrays (numpy on the host) + host metadata."""
+
+    emb: np.ndarray
+    n_reviews: np.ndarray
+    avg_stars: np.ndarray
+    doc_terms: np.ndarray
+    doc_tf: np.ndarray
+    doc_len: np.ndarray
+    gate_bits: np.ndarray
+    valid: np.ndarray
+    skus: List[str]
+    agg_texts: Sequence[str]
+    vocab: Dict[str, int]
+    idf: np.ndarray  # (V+1,) f32, idf[0] = 0 for PAD
+    df: np.ndarray  # (V+1,) i32
+    avgdl: float
+    n_docs: int
+    doc_tokens: Optional[np.ndarray] = None
+    doc_token_len: Optional[np.ndarray] = None
+    doc_bm25: Optional[np.ndarray] = None
+    last_ts: Optional[List[str]] = None
+
+    @property
+    def n_padded(self) -> int:
+        return int(self.emb.shape[0])
+
+    @property
+    def dim(self) -> int:
+        return int(self.emb.shape[1])
+
+    @property
+    def terms_cap(self) -> int:
+        return int(self.doc_terms.shape[1])
+
+    def device_arrays(self, device: torch.device,
+                      emb_dtype: torch.dtype = torch.bfloat16) -> dict:
+        """The tensors the query path reads. With `doc_bm25` present the
+        eager contributions replace doc_tf/doc_len."""
+        put = lambda a, dt: torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt)
+        out = {
+            "emb": put(self.emb, emb_dtype),
+            "n_reviews": put(self.n_reviews, torch.float32),
+            "avg_stars": put(self.avg_stars, torch.float32),
+            "doc_terms": put(self.doc_terms, torch.int32),
+            "gate_bits": put(self.gate_bits, torch.bool),
+            "valid": put(self.valid, torch.bool),
+        }
+        if self.doc_bm25 is not None:
+            out["doc_bm25"] = put(self.doc_bm25, torch.float32)
+        else:
+            out["doc_tf"] = put(self.doc_tf, torch.float32)
+            out["doc_len"] = put(self.doc_len, torch.float32)
+        if self.doc_tokens is not None:
+            out["doc_tokens"] = put(self.doc_tokens, torch.int32)
+            out["doc_token_len"] = put(self.doc_token_len, torch.int32)
+        return out
+
+    def device_footprint(self, emb_dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+        """Bytes each tensor of device_arrays occupies, from host shapes."""
+        n_pad = self.n_padded
+        out: Dict[str, int] = {"emb": n_pad * self.dim * _itemsize(emb_dtype)}
+        out["n_reviews"] = n_pad * 4
+        out["avg_stars"] = n_pad * 4
+        out["doc_terms"] = n_pad * self.terms_cap * 4
+        out["gate_bits"] = n_pad * len(GATE_PHRASES)
+        out["valid"] = n_pad
+        if self.doc_bm25 is not None:
+            out["doc_bm25"] = n_pad * self.terms_cap * 4
+        else:
+            out["doc_tf"] = n_pad * self.terms_cap * 4
+            out["doc_len"] = n_pad * 4
+        if self.doc_tokens is not None:
+            out["doc_tokens"] = n_pad * self.doc_tokens.shape[1] * 4
+            out["doc_token_len"] = n_pad * 4
+        return out
+
+    def validate(self) -> None:
+        n_pad = self.n_padded
+        checks = [
+            (self.n_docs <= n_pad, "n_docs exceeds the padded rows"),
+            (self.doc_terms.shape == self.doc_tf.shape, "doc_terms/doc_tf shapes differ"),
+            (self.doc_terms.shape[0] == n_pad, "doc_terms rows != n_padded"),
+            (self.gate_bits.shape == (n_pad, len(GATE_PHRASES)), "gate_bits shape"),
+            (len(self.skus) == self.n_docs, "len(skus) != n_docs"),
+            (len(self.agg_texts) == self.n_docs, "len(agg_texts) != n_docs"),
+            (self.idf.shape[0] == len(self.vocab) + 1, "idf length != vocab + 1"),
+            (int(self.valid.sum()) == self.n_docs, "valid rows != n_docs"),
+        ]
+        for name in ("n_reviews", "avg_stars", "doc_len", "valid"):
+            checks.append((getattr(self, name).shape == (n_pad,), f"{name} shape"))
+        for ok, msg in checks:
+            if not ok:
+                raise ValueError(f"invalid ProductIndex: {msg}")
+
+
+@dataclasses.dataclass
+class ReviewIndex:
+    """Per-review embeddings and host metadata (snippet path, not ported)."""
+
+    rev_emb: np.ndarray
+    rev_product: np.ndarray
+    rev_valid: np.ndarray
+    rev_texts: List[str]
+    rev_stars: np.ndarray
+    n_reviews_total: int
+
+    @property
+    def m_padded(self) -> int:
+        return int(self.rev_emb.shape[0])
+
+    def device_footprint(self, emb_dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+        m_pad = self.m_padded
+        dim = int(self.rev_emb.shape[1])
+        return {
+            "rev_emb": m_pad * dim * _itemsize(emb_dtype),
+            "rev_product": m_pad * 4,
+            "rev_valid": m_pad,
+        }
+
+
+@dataclasses.dataclass
+class IndexBundle:
+    """The product index and an optional review index."""
+
+    products: ProductIndex
+    reviews: Optional[ReviewIndex] = None
+    version: int = SCHEMA_VERSION
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    def device_footprint(self, emb_dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+        out = self.products.device_footprint(emb_dtype)
+        if self.reviews is not None:
+            out.update(self.reviews.device_footprint(emb_dtype))
+        return out
+
+
+def footprint_total(bundle: IndexBundle, emb_dtype: torch.dtype = torch.bfloat16,
+                    striped: bool = False) -> tuple[Dict[str, int], int]:
+    """(per-array bytes, total bytes). The striped pool keeps the flat emb
+    and its (s, G, D) slices, so it adds one more corpus of emb."""
+    fp = bundle.device_footprint(emb_dtype)
+    total = sum(fp.values())
+    if striped:
+        total += fp["emb"]
+    return fp, total
+
+
+def device_memory_limit(device: torch.device) -> Optional[int]:
+    """Total memory of a CUDA device in bytes; None for the CPU."""
+    if device.type != "cuda":
+        return None
+    _free, total = torch.cuda.mem_get_info(device)
+    return int(total)
+
+
+def check_hbm_fit(total_bytes: int, device: torch.device, warn_frac: float = 0.8,
+                  limit_bytes: Optional[int] = None) -> Dict:
+    """Fit report of a footprint against the device's memory:
+    {total_bytes, limit_bytes, frac, fits, warn}; callers decide."""
+    limit = device_memory_limit(device) if limit_bytes is None else int(limit_bytes)
+    frac = (int(total_bytes) / limit) if limit else None
+    return {
+        "total_bytes": int(total_bytes),
+        "limit_bytes": limit,
+        "frac": frac,
+        "fits": frac is None or frac <= 1.0,
+        "warn": frac is not None and frac > warn_frac,
+    }
+
+
+def enforce_hbm_fit(bundle: IndexBundle, device: torch.device,
+                    emb_dtype: torch.dtype = torch.bfloat16,
+                    striped: bool = False) -> Dict:
+    """Refuse (RuntimeError) to place a bundle that cannot fit the device;
+    warn above 80%. RRT_IGNORE_HBM_CHECK=true downgrades the refusal to a
+    warning, as in the JAX package."""
+    fp, total = footprint_total(bundle, emb_dtype, striped)
+    rep = check_hbm_fit(total, device)
+    gib = rep["total_bytes"] / 2**30
+    if not rep["fits"]:
+        msg = (f"index bundle needs {gib:.2f} GiB but the device has "
+               f"{rep['limit_bytes'] / 2**30:.2f} GiB (largest arrays: "
+               f"{sorted(fp, key=fp.get, reverse=True)[:3]})")
+        if os.getenv("RRT_IGNORE_HBM_CHECK", "").lower() == "true":
+            logger.warning("%s (RRT_IGNORE_HBM_CHECK=true: continuing)", msg)
+        else:
+            raise RuntimeError(msg)
+    elif rep["warn"]:
+        logger.warning("index bundle uses %.2f GiB (%.0f%% of device memory)",
+                       gib, 100 * rep["frac"])
+    return rep

@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu).
+
+The sources are compiled on first use with nvcc into one shared library with
+a plain C interface, loaded through ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/torch_kernels/librrt_torch_<hash>.so csrc/*.cu
+
+The library name carries a hash of the sources and flags, so an edit
+rebuilds it; `build/` is ignored by git. Nothing here runs at import time:
+the CPU tests import every module without nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_info: dict = {}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
+                       "CUDA kernels of review_recommender_tpu_torch cannot be built")
+
+
+def library_path(extra_flags: tuple = ()) -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + list(extra_flags)).encode())
+    return BUILD_DIR / f"librrt_torch_{h.hexdigest()[:16]}.so"
+
+
+def build(extra_flags: tuple = (), force: bool = False) -> Path:
+    """Compile csrc/*.cu into the hashed library unless it exists (or
+    `force`). Returns its path; `build_info` records the seconds taken and
+    nvcc's output."""
+    out = library_path(extra_flags)
+    if out.exists() and not force:
+        build_info.update(path=str(out), seconds=0.0, cached=True)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
+           *(str(s) for s in _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    build_info.update(path=str(out), seconds=secs, cached=False,
+                      nvcc_output=(proc.stdout + proc.stderr).strip(),
+                      cmd=" ".join(cmd))
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call, with argtypes declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            lib = ctypes.CDLL(str(path if path.exists() else build()))
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.rrt_mha_fwd.argtypes = [I, P, P, P, P, P, I, I, I, I, P]
+            lib.rrt_mha_fwd.restype = I
+            lib.rrt_mha_fwd_smem_bytes.argtypes = [I, I]
+            lib.rrt_mha_fwd_smem_bytes.restype = ctypes.c_longlong
+            _lib = lib
+        return _lib

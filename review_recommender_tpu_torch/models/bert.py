@@ -1,0 +1,220 @@
+"""BERT-family towers as nn.Modules: the bi-encoder (bge-small geometry,
+CLS pooling + L2 norm) and the cross-encoder (MiniLM-L6 geometry, tanh
+pooler + one logit).
+
+Counterpart of `review_recommender_tpu/models/bert.py:33-227`, with the same
+dtype boundaries as the flax modules:
+
+  - embeddings are summed and layer-normed in f32, then cast to `dtype`;
+  - the attention and FFN Linear layers hold `dtype` weights (flax keeps f32
+    params and casts them per call; the port casts once at load);
+  - both residual LayerNorms run in f32 and cast back;
+  - GELU is the tanh approximation (flax.linen.gelu's default), not erf;
+  - pooler and classifier are f32; the bi-encoder output is L2-normalised
+    in f32.
+
+flax's LayerNorm takes the variance as E[x^2] - E[x]^2; torch's layer_norm
+uses a two-pass variance. At f32 and unit-scale activations the two differ
+by ~1e-7 relative per LayerNorm; the parity tests hold towers to 1e-4.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from review_recommender_tpu_torch.ops.attention import multihead_attention
+
+ACT = {
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 384
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 1536
+    max_position: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    hidden_act: str = "gelu"
+    pad_token_id: int = 0
+    ln_dtype: str = "float32"
+
+    @classmethod
+    def bge_small(cls) -> "BertConfig":
+        return cls()
+
+    @classmethod
+    def minilm_l6_cross(cls) -> "BertConfig":
+        return cls(num_layers=6)
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 128) -> "BertConfig":
+        """Small config for tests."""
+        return cls(
+            vocab_size=vocab_size, hidden_size=64, num_layers=2, num_heads=4,
+            intermediate_size=128, max_position=64,
+        )
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype, attn_impl: str = "auto"):
+        super().__init__()
+        h = cfg.hidden_size
+        self.num_heads = cfg.num_heads
+        self.attn_impl = attn_impl
+        self.query = nn.Linear(h, h, dtype=dtype)
+        self.key = nn.Linear(h, h, dtype=dtype)
+        self.value = nn.Linear(h, h, dtype=dtype)
+        self.output_dense = nn.Linear(h, h, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
+        ctx = multihead_attention(self.query(x), self.key(x), self.value(x),
+                                  key_bias, self.num_heads, impl=self.attn_impl)
+        return self.output_dense(ctx)
+
+
+class BertLayer(nn.Module):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype, attn_impl: str = "auto"):
+        super().__init__()
+        if cfg.ln_dtype != "float32":
+            raise NotImplementedError(
+                f"ln_dtype={cfg.ln_dtype!r}: the port runs LayerNorm in float32 only")
+        h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.dtype = dtype
+        self.act = ACT[cfg.hidden_act]
+        self.attention = SelfAttention(cfg, dtype, attn_impl)
+        self.attention_layer_norm = nn.LayerNorm(h, eps=eps, dtype=torch.float32)
+        self.intermediate = nn.Linear(h, cfg.intermediate_size, dtype=dtype)
+        self.output = nn.Linear(cfg.intermediate_size, h, dtype=dtype)
+        self.output_layer_norm = nn.LayerNorm(h, eps=eps, dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
+        attn_out = self.attention(x, attn_bias)
+        x = self.attention_layer_norm((x + attn_out).to(torch.float32)).to(self.dtype)
+        h = self.output(self.act(self.intermediate(x)))
+        return self.output_layer_norm((x + h).to(torch.float32)).to(self.dtype)
+
+
+class BertEncoder(nn.Module):
+    """Token ids -> per-token hidden states (B, S, H) in `dtype`."""
+
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: str = "auto"):
+        super().__init__()
+        h = cfg.hidden_size
+        self.cfg = cfg
+        self.dtype = dtype
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, h, dtype=torch.float32)
+        self.position_embeddings = nn.Embedding(cfg.max_position, h, dtype=torch.float32)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h, dtype=torch.float32)
+        self.embeddings_layer_norm = nn.LayerNorm(h, eps=cfg.layer_norm_eps, dtype=torch.float32)
+        self.layers = nn.ModuleList(
+            BertLayer(cfg, dtype, attn_impl) for _ in range(cfg.num_layers))
+
+    def set_attn_impl(self, impl: str) -> None:
+        for m in self.modules():
+            if isinstance(m, SelfAttention):
+                m.attn_impl = impl
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        _b, s = input_ids.shape
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        positions = torch.arange(s, device=input_ids.device)
+        x = (self.word_embeddings(input_ids)
+             + self.position_embeddings(positions)[None]
+             + self.token_type_embeddings(token_type_ids))
+        x = self.embeddings_layer_norm(x).to(self.dtype)
+        # additive f32 bias over KEY positions: 0 keep, -1e30 drop
+        attn_bias = torch.where(attention_mask.bool(), 0.0, -1e30).to(torch.float32)
+        for layer in self.layers:
+            x = layer(x, attn_bias)
+        return x
+
+
+class BiEncoderModel(nn.Module):
+    """Sentence embedding tower: CLS (or mean) pooling + L2 norm in f32."""
+
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.bfloat16,
+                 pooling: str = "cls", attn_impl: str = "auto"):
+        super().__init__()
+        if pooling not in ("cls", "mean"):
+            raise ValueError(f"pooling must be 'cls' or 'mean', got {pooling!r}")
+        self.pooling = pooling
+        self.encoder = BertEncoder(cfg, dtype, attn_impl)
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None) -> torch.Tensor:
+        hidden = self.encoder(input_ids, attention_mask, token_type_ids).to(torch.float32)
+        if self.pooling == "cls":
+            pooled = hidden[:, 0, :]
+        else:
+            m = attention_mask[:, :, None].to(torch.float32)
+            pooled = (hidden * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1e-9)
+        norm = torch.sqrt((pooled * pooled).sum(dim=-1, keepdim=True))
+        return pooled / torch.clamp(norm, min=1e-12)
+
+
+class CrossEncoderModel(nn.Module):
+    """(query, doc) relevance: BERT -> tanh pooler -> 1 logit, head in f32."""
+
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.bfloat16,
+                 attn_impl: str = "auto"):
+        super().__init__()
+        self.encoder = BertEncoder(cfg, dtype, attn_impl)
+        self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size, dtype=torch.float32)
+        self.classifier = nn.Linear(cfg.hidden_size, 1, dtype=torch.float32)
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None) -> torch.Tensor:
+        hidden = self.encoder(input_ids, attention_mask, token_type_ids).to(torch.float32)
+        pooled = torch.tanh(self.pooler(hidden[:, 0, :]))
+        return self.classifier(pooled)[:, 0]
+
+
+def init_state_dict(cfg: BertConfig, kind: str, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Random f32 CPU weights from a seeded torch.Generator, in the layout of
+    `params_from_flax`: Linear weights normal(0, 1/fan_in) (lecun), biases 0,
+    embeddings normal(0, 1/H), LayerNorm scale 1 and bias 0 (flax's default
+    initialisers, untruncated)."""
+    if kind not in ("biencoder", "crossencoder"):
+        raise ValueError(f"kind must be 'biencoder' or 'crossencoder', got {kind!r}")
+    g = torch.Generator().manual_seed(int(seed))
+    h, ff = cfg.hidden_size, cfg.intermediate_size
+    normal = lambda *shape, std: torch.randn(*shape, generator=g) * std
+    sd: Dict[str, torch.Tensor] = {}
+
+    def linear(name, n_in, n_out):
+        sd[f"{name}.weight"] = normal(n_out, n_in, std=1.0 / math.sqrt(n_in))
+        sd[f"{name}.bias"] = torch.zeros(n_out)
+
+    def layer_norm(name):
+        sd[f"{name}.weight"] = torch.ones(h)
+        sd[f"{name}.bias"] = torch.zeros(h)
+
+    for name, n in (("word_embeddings", cfg.vocab_size),
+                    ("position_embeddings", cfg.max_position),
+                    ("token_type_embeddings", cfg.type_vocab_size)):
+        sd[f"encoder.{name}.weight"] = normal(n, h, std=1.0 / math.sqrt(h))
+    layer_norm("encoder.embeddings_layer_norm")
+    for i in range(cfg.num_layers):
+        p = f"encoder.layers.{i}."
+        for name in ("query", "key", "value", "output_dense"):
+            linear(p + "attention." + name, h, h)
+        layer_norm(p + "attention_layer_norm")
+        linear(p + "intermediate", h, ff)
+        linear(p + "output", ff, h)
+        layer_norm(p + "output_layer_norm")
+    if kind == "crossencoder":
+        linear("pooler", h, h)
+        linear("classifier", h, 1)
+    return sd

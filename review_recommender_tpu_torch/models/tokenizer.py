@@ -1,0 +1,169 @@
+"""Model tokenizers and sequence packing (host side).
+
+A jax-free copy of `basic_tokenize`, `HashTokenizer`, `encode_seqs`,
+`pack_seqs` and `pad_bucket` from `review_recommender_tpu/models/
+tokenizer.py` (the JAX package's `models/__init__.py` loads its flax BERT).
+`WordPieceTokenizer` follows with the checkpoint loader (ROADMAP).
+"""
+from __future__ import annotations
+
+import unicodedata
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+def _is_whitespace(ch: str) -> bool:
+    return ch in " \t\n\r" or unicodedata.category(ch) == "Zs"
+
+
+def _is_control(ch: str) -> bool:
+    if ch in ("\t", "\n", "\r"):
+        return False
+    return unicodedata.category(ch).startswith("C")
+
+
+def _is_punctuation(ch: str) -> bool:
+    cp = ord(ch)
+    if (33 <= cp <= 47) or (58 <= cp <= 64) or (91 <= cp <= 96) or (123 <= cp <= 126):
+        return True
+    return unicodedata.category(ch).startswith("P")
+
+
+def _is_cjk(cp: int) -> bool:
+    return (
+        0x4E00 <= cp <= 0x9FFF or 0x3400 <= cp <= 0x4DBF
+        or 0x20000 <= cp <= 0x2A6DF or 0x2A700 <= cp <= 0x2B73F
+        or 0x2B740 <= cp <= 0x2B81F or 0x2B820 <= cp <= 0x2CEAF
+        or 0xF900 <= cp <= 0xFAFF or 0x2F800 <= cp <= 0x2FA1F
+    )
+
+
+def basic_tokenize(text: str, lowercase: bool = True) -> List[str]:
+    """BERT BasicTokenizer: clean, CJK-isolate, lowercase+strip accents,
+    split on punctuation and whitespace."""
+    out_chars: List[str] = []
+    for ch in text:
+        cp = ord(ch)
+        if cp == 0 or cp == 0xFFFD or _is_control(ch):
+            continue
+        if _is_cjk(cp):
+            out_chars.extend((" ", ch, " "))
+        elif _is_whitespace(ch):
+            out_chars.append(" ")
+        else:
+            out_chars.append(ch)
+    tokens: List[str] = []
+    for tok in "".join(out_chars).split():
+        if lowercase:
+            tok = tok.lower()
+            tok = "".join(
+                c for c in unicodedata.normalize("NFD", tok)
+                if unicodedata.category(c) != "Mn"
+            )
+        cur: List[str] = []
+        for ch in tok:
+            if _is_punctuation(ch):
+                if cur:
+                    tokens.append("".join(cur))
+                    cur = []
+                tokens.append(ch)
+            else:
+                cur.append(ch)
+        if cur:
+            tokens.append("".join(cur))
+    return tokens
+
+
+class HashTokenizer:
+    """Vocab-free tokenizer: basic tokenization + FNV-1a hash ids.
+
+    Ids 0..4 are PAD/UNK/CLS/SEP/MASK; other tokens hash into
+    [5, vocab_size). Deterministic across processes."""
+
+    def __init__(self, vocab_size: int = 30522, lowercase: bool = True):
+        if vocab_size <= 8:
+            raise ValueError(f"vocab_size must be > 8, got {vocab_size}")
+        self.vocab_size = vocab_size
+        self.lowercase = lowercase
+        self.pad_id, self.unk_id, self.cls_id, self.sep_id, self.mask_id = range(5)
+
+    @staticmethod
+    def _fnv1a(s: str) -> int:
+        h = 0xCBF29CE484222325
+        for b in s.encode("utf-8"):
+            h ^= b
+            h = (h * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+        return h
+
+    def tokenize(self, text: str) -> List[str]:
+        return basic_tokenize(text, self.lowercase)
+
+    def token_ids(self, text: str) -> List[int]:
+        span = self.vocab_size - 5
+        return [5 + self._fnv1a(t) % span for t in self.tokenize(text)]
+
+
+def encode_seqs(
+    tokenizer,
+    texts: Sequence[str],
+    pairs: Optional[Sequence[str]] = None,
+    max_len: int = 512,
+) -> List[Tuple[List[int], List[int]]]:
+    """Tokenize texts (optionally as (text, pair) inputs) into per-item
+    (ids, token_types).
+
+    Single: [CLS] A [SEP]            types 0...
+    Pair:   [CLS] A [SEP] B [SEP]    types 0...0 1...1
+    Pair truncation is longest-first (HF 'longest_first'): drop from the
+    longer side, the pair side on ties."""
+    seqs: List[Tuple[List[int], List[int]]] = []
+    for i, text in enumerate(texts):
+        a = tokenizer.token_ids(text)
+        if pairs is not None:
+            b = tokenizer.token_ids(pairs[i])
+            budget = max_len - 3
+            while len(a) + len(b) > budget:
+                if len(a) > len(b):
+                    a = a[:-1]
+                else:
+                    b = b[:-1]
+            ids = [tokenizer.cls_id] + a + [tokenizer.sep_id] + b + [tokenizer.sep_id]
+            types = [0] * (len(a) + 2) + [1] * (len(b) + 1)
+        else:
+            a = a[: max_len - 2]
+            ids = [tokenizer.cls_id] + a + [tokenizer.sep_id]
+            types = [0] * len(ids)
+        seqs.append((ids, types))
+    return seqs
+
+
+def pack_seqs(
+    tokenizer,
+    seqs: Sequence[Tuple[List[int], List[int]]],
+    pad_to: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pack (ids, types) items into padded (input_ids, attention_mask,
+    token_type_ids) int32 arrays."""
+    longest = max((len(s) for s, _ in seqs), default=1)
+    width = pad_to if pad_to is not None else longest
+    if width < longest:
+        raise ValueError(f"pad_to={width} is shorter than the longest item ({longest})")
+
+    n = len(seqs)
+    input_ids = np.full((n, width), tokenizer.pad_id, dtype=np.int32)
+    attn = np.zeros((n, width), dtype=np.int32)
+    ttype = np.zeros((n, width), dtype=np.int32)
+    for i, (ids, types) in enumerate(seqs):
+        input_ids[i, : len(ids)] = ids
+        attn[i, : len(ids)] = 1
+        ttype[i, : len(types)] = types
+    return input_ids, attn, ttype
+
+
+def pad_bucket(n: int, buckets: Sequence[int] = (16, 32, 64, 128, 256, 512)) -> int:
+    """Smallest bucket >= n (the last bucket when n exceeds them all)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]

@@ -1,0 +1,129 @@
+"""Fused multi-head attention for the BERT towers.
+
+Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
+
+  mha_reference        the plain torch version (mha_xla's math: f32 logits
+                       from upcast q and k, f32 softmax, probabilities in
+                       the input dtype, f32-accumulated PV)
+  mha_kernel           the hand-written CUDA kernel (csrc/mha_fwd.cu) that
+                       replaces the TPU kernel `_mha_kernel`
+  multihead_attention  the towers' entry point: impl "auto" launches the
+                       kernel for CUDA tensors and takes the reference for
+                       CPU tensors; "kernel" and "reference" force one
+
+On a CUDA tensor the kernel launches or the call raises; nothing falls back
+to the reference. There is no backward: the towers serve under
+`torch.inference_mode()`, and the kernel raises if a gradient is asked for.
+"""
+from __future__ import annotations
+
+import torch
+
+from review_recommender_tpu_torch import kernels
+
+# Launches of the CUDA kernel in this process; a run reads it before and
+# after its main path to show that the path went through the kernel.
+mha_kernel_launches = 0
+
+MAX_SEQ = 512
+HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  key_bias: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Plain multi-head attention. q/k/v: (B, S, H*D); key_bias: (B, S) f32
+    additive mask over keys. Returns (B, S, H*D) in q.dtype."""
+    b, s, hd = q.shape
+    d = hd // num_heads
+    split = lambda t: t.reshape(b, s, num_heads, d).to(torch.float32)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+    logits = torch.einsum("bqhd,bkhd->bhqk", split(q), split(k)) * scale.to(q.device)
+    logits = logits + key_bias.to(torch.float32)[:, None, None, :]
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    probs = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(torch.float32), split(v))
+    return ctx.to(q.dtype).reshape(b, s, hd)
+
+
+def _check_kernel_args(q, k, v, key_bias, num_heads) -> tuple[int, int, int, int]:
+    if not (q.is_cuda and k.is_cuda and v.is_cuda and key_bias.is_cuda):
+        raise ValueError("mha_kernel needs CUDA tensors (use mha_reference on the CPU)")
+    if len({q.device, k.device, v.device, key_bias.device}) != 1:
+        raise ValueError("mha_kernel: q, k, v and key_bias must be on one device")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"mha_kernel takes bfloat16 or float16 q/k/v, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if key_bias.dtype != torch.float32:
+        raise ValueError(f"mha_kernel: key_bias must be float32, got {key_bias.dtype}")
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"mha_kernel: q, k, v must share a (B, S, H*D) shape, got "
+                         f"{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")
+    b, s, hd = q.shape
+    if key_bias.shape != (b, s):
+        raise ValueError(f"mha_kernel: key_bias must be ({b}, {s}), got {tuple(key_bias.shape)}")
+    if num_heads <= 0 or hd % num_heads:
+        raise ValueError(f"mha_kernel: width {hd} is not a multiple of num_heads={num_heads}")
+    d = hd // num_heads
+    if d not in HEAD_DIMS:
+        raise ValueError(f"mha_kernel: head dim {d} not in {HEAD_DIMS}")
+    if not 0 < s <= MAX_SEQ:
+        raise ValueError(f"mha_kernel: sequence length {s} not in 1..{MAX_SEQ}")
+    if b > 65535 or num_heads > 65535:
+        raise ValueError("mha_kernel: batch and heads must be <= 65535")
+    for name, t in (("q", q), ("k", k), ("v", v), ("key_bias", key_bias)):
+        if not t.is_contiguous():
+            raise ValueError(f"mha_kernel: {name} must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"mha_kernel: {name} must be 16-byte aligned")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("mha_kernel has no backward; call it under "
+                           "torch.inference_mode() or torch.no_grad()")
+    return b, s, num_heads, d
+
+
+def mha_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               key_bias: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The CUDA kernel: same contract as mha_reference, CUDA tensors only.
+    Launches on torch.cuda.current_stream() and raises if the launch fails."""
+    global mha_kernel_launches
+    b, s, h, d = _check_kernel_args(q, k, v, key_bias, num_heads)
+    lib = kernels.load()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rrt_mha_fwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                              v.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
+                              b, s, h, d, stream)
+    if err != 0:
+        raise RuntimeError(f"mha_fwd kernel launch failed: cudaError {err} "
+                           f"at B={b} S={s} H={h} D={d} {q.dtype}")
+    mha_kernel_launches += 1
+    return out
+
+
+def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        key_bias: torch.Tensor, num_heads: int,
+                        impl: str = "auto") -> torch.Tensor:
+    """The towers' attention entry point (see module docstring for impl)."""
+    if impl == "reference":
+        return mha_reference(q, k, v, key_bias, num_heads)
+    if impl == "kernel":
+        return mha_kernel(q, k, v, key_bias, num_heads)
+    if impl != "auto":
+        raise ValueError(f"attn impl must be 'auto', 'kernel' or 'reference', got {impl!r}")
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, key_bias, num_heads)
+    return mha_kernel(q, k, v, key_bias, num_heads)
+
+
+def attention_flops(b: int, s: int, h: int, d: int) -> int:
+    """QK^T plus PV: 2 * (2*B*H*S*S*D)."""
+    return 4 * b * h * s * s * d
+
+
+def attention_bytes(b: int, s: int, h: int, d: int, itemsize: int) -> int:
+    """q, k, v read and out written once, plus the f32 bias."""
+    return 4 * b * s * h * d * itemsize + 4 * b * s

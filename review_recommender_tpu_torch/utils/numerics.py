@@ -1,0 +1,50 @@
+"""Numeric primitives of the fusion, in torch.
+
+Counterparts of `review_recommender_tpu/utils/numerics.py:45-87`, op for op
+in float32 so the port agrees with the JAX package to float32 rounding.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+_BIG = 3.4e38
+
+
+def minmax_normalize_masked(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Min-max over the `valid` positions only; invalid positions give 0.
+    A non-finite bound (a NaN or inf in a valid lane) or a range below
+    1e-12 gives all zeros, as in the reference."""
+    xf = x.to(torch.float32)
+    lo = torch.where(valid, xf, _BIG).min()
+    hi = torch.where(valid, xf, -_BIG).max()
+    good = valid.any() & torch.isfinite(lo) & torch.isfinite(hi) & ((hi - lo) >= 1e-12)
+    scaled = (xf - lo) / (hi - lo + 1e-12)
+    out = torch.where(good, scaled, torch.zeros_like(xf))
+    return torch.where(valid, out, 0.0).to(torch.float32)
+
+
+def bayesian_prior(
+    avg_ratings: torch.Tensor,
+    review_counts: torch.Tensor,
+    prior_strength: Union[float, torch.Tensor] = 20.0,
+    global_mean: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Bayesian-shrunk average rating; global_mean defaults to the nanmean
+    of avg_ratings."""
+    if global_mean is None:
+        global_mean = torch.nanmean(avg_ratings)
+    return ((avg_ratings * review_counts) + (global_mean * prior_strength)) / (
+        review_counts + prior_strength + 1e-9
+    )
+
+
+def trust_score_from_reviews(
+    review_counts: torch.Tensor, min_reviews: int = 8, saturation: int = 50
+) -> torch.Tensor:
+    """Trust: 0.6 * linear ramp + 0.4 * log saturation."""
+    ramp = torch.clamp(review_counts / max(min_reviews, 1), 0, 1)
+    sat = torch.log1p(torch.tensor(float(max(saturation, 1)), dtype=torch.float32))
+    satv = torch.clamp(torch.log1p(review_counts) / sat.to(review_counts.device), max=1.0)
+    return (0.6 * ramp + 0.4 * satv).to(torch.float32)

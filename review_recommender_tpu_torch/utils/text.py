@@ -1,0 +1,99 @@
+"""Query text helpers: tokenizer, attribute vocabularies, gate groups.
+
+A jax-free copy of the parts of `review_recommender_tpu/utils/text.py` that
+the query path calls (the JAX package's `utils/__init__.py` imports its
+numerics module, which loads jax). Pure-Python tokenizer only: the native
+fast path goes through `review_recommender_tpu.native`, which can fall back
+to the jax-loading module. Remove this copy once the JAX package's
+package-level imports are lazy (ROADMAP Queue 1 item 0).
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict, List, Set
+
+TOKEN_RE = re.compile(r"[a-z0-9]+(?:'[a-z0-9]+)?")
+
+STOP_WORDS = {
+    "a", "an", "the", "and", "or", "of", "for", "to", "in", "on", "with",
+    "is", "are", "it", "this", "that",
+}
+
+SYNONYMS: Dict[str, Set[str]] = {
+    "sock": {"sock", "socks"},
+    "headphone": {"headphone", "headphones", "earphone", "earphones",
+                  "earbud", "earbuds", "headset"},
+    "keyboard": {"keyboard", "keyboards"},
+    "wireless": {"wireless", "bluetooth"},
+    "noise": {"noise cancelling", "noise-canceling", "noise canceling", "anc"},
+    "cat": {"cat", "cats", "kitten", "kittens", "kitty"},
+    "dog": {"dog", "dogs", "puppy", "puppies"},
+    "design": {"design", "pattern", "print", "graphic", "artwork", "motif",
+               "theme"},
+}
+
+COLORS: Dict[str, Set[str]] = {
+    "yellow": {"yellow", "mustard", "lemon", "gold", "golden"},
+    "red": {"red", "scarlet", "crimson", "maroon"},
+    "blue": {"blue", "navy", "cobalt", "azure"},
+    "green": {"green", "emerald", "olive"},
+    "black": {"black"},
+    "white": {"white", "ivory"},
+    "pink": {"pink", "rose"},
+    "purple": {"purple", "violet", "lavender"},
+    "orange": {"orange", "amber"},
+    "brown": {"brown", "tan", "beige", "khaki"},
+    "gray": {"gray", "grey", "charcoal", "slate"},
+}
+
+# Bit i of a document's gate bitset is GATE_PHRASES[i]: the order is part of
+# the index format and must match the JAX package's.
+GATE_PHRASES: List[str] = sorted(
+    {p for group in list(SYNONYMS.values()) + list(COLORS.values()) for p in group}
+)
+GATE_PHRASE_ID: Dict[str, int] = {p: i for i, p in enumerate(GATE_PHRASES)}
+
+
+def tokenize_query(query: str) -> List[str]:
+    """Lowercase regex tokens minus the query stop words."""
+    tokens = TOKEN_RE.findall(query.lower())
+    return [t for t in tokens if t not in STOP_WORDS]
+
+
+def build_gate_groups(query: str) -> List[Set[str]]:
+    """Colour groups mentioned anywhere in the query, then synonym groups of
+    known tokens, then singleton groups of tokens with >= 4 characters;
+    deduplicated, capped at 6."""
+    query_lower = query.lower()
+    groups: List[Set[str]] = []
+
+    for _color, color_synonyms in COLORS.items():
+        if any(word in query_lower for word in color_synonyms):
+            groups.append(color_synonyms)
+
+    for token in tokenize_query(query):
+        if token in SYNONYMS:
+            groups.append(SYNONYMS[token])
+        elif len(token) >= 4:
+            groups.append({token})
+
+    unique_groups: List[Set[str]] = []
+    for group in groups:
+        if group not in unique_groups:
+            unique_groups.append(group)
+    return unique_groups[:6]
+
+
+def calculate_gate_factor(
+    text: str, groups: List[Set[str]], penalty: float = 0.5
+) -> tuple[float, int, int]:
+    """Exact host gate: penalty^(#groups with no substring hit in text)."""
+    text_lower = text.lower()
+    hits = 0
+    factor = 1.0
+    for group in groups:
+        if any(syn in text_lower for syn in group):
+            hits += 1
+        else:
+            factor *= penalty
+    return factor, hits, len(groups)

@@ -1,0 +1,101 @@
+"""The port's attention (review_recommender_tpu_torch/ops/attention.py)
+against the JAX package's fused attention.
+
+The same numpy inputs go to `mha_pallas(..., interpret=True)` (the TPU
+kernel run as the JAX package's own tests run it on the CPU), to `mha_xla`
+and to the port's `mha_reference`. Tolerances are those of
+tests/test_attention.py: 1e-5 in float32, 2e-2 in bfloat16 (one bf16 ulp at
+magnitude ~2-4, where the two frameworks may round a probability or an
+output on opposite sides). The CUDA kernel itself is held against
+`mha_reference` on the card (tests/test_torch_gpu.py, chip_smoke.py).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from review_recommender_tpu.ops.pallas.attention_kernel import mha_pallas, mha_xla
+from review_recommender_tpu_torch.ops import attention as tatt
+
+
+def _inputs(seed, b, s, hd, all_masked_row=True):
+    """q, k, v ~ N(0, 1); random key-padding lengths; the last batch row
+    fully masked (a batch-bucket padding row) when b > 1."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, s, hd)).astype(np.float32) for _ in range(3))
+    lens = rng.integers(1, s + 1, size=b)
+    bias = np.where(np.arange(s)[None, :] < lens[:, None], 0.0, -1e30).astype(np.float32)
+    if all_masked_row and b > 1:
+        bias[-1] = -1e30
+    return q, k, v, bias
+
+
+def _jax(arrs, dtype):
+    q, k, v, bias = arrs
+    return (*(jnp.asarray(x, dtype=dtype) for x in (q, k, v)), jnp.asarray(bias))
+
+
+def _torch(arrs, dtype):
+    q, k, v, bias = arrs
+    return (*(torch.from_numpy(x).to(dtype) for x in (q, k, v)), torch.from_numpy(bias))
+
+
+SHAPES = [(2, 16, 4, 32), (3, 64, 12, 32), (1, 128, 6, 64), (4, 32, 2, 16),
+          (2, 64, 2, 128)]
+
+
+@pytest.mark.parametrize("b,s,heads,head_dim", SHAPES)
+def test_reference_f32_matches_jax(b, s, heads, head_dim):
+    arrs = _inputs(b * 100 + s, b, s, heads * head_dim)
+    ref_xla = np.asarray(mha_xla(*_jax(arrs, jnp.float32), heads))
+    ref_pallas = np.asarray(mha_pallas(*_jax(arrs, jnp.float32), heads, interpret=True))
+    got = tatt.mha_reference(*_torch(arrs, torch.float32), heads)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref_pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), ref_xla, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,heads,head_dim", [(2, 64, 4, 32), (2, 128, 2, 64),
+                                                (2, 32, 2, 128)])
+def test_reference_bf16_matches_jax(b, s, heads, head_dim):
+    arrs = _inputs(7 + s, b, s, heads * head_dim)
+    ref = np.asarray(mha_pallas(*_jax(arrs, jnp.bfloat16), heads, interpret=True),
+                     dtype=np.float32)
+    ref_xla = np.asarray(mha_xla(*_jax(arrs, jnp.bfloat16), heads), dtype=np.float32)
+    got = tatt.mha_reference(*_torch(arrs, torch.bfloat16), heads)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got.float().numpy(), ref_xla, rtol=2e-2, atol=2e-2)
+
+
+def test_all_masked_rows_are_uniform():
+    """Every key masked: all logits equal (-1e30 + x == -1e30 in f32), so the
+    softmax is uniform and the output is the mean of V, on both sides."""
+    b, s, heads, d = 2, 32, 4, 16
+    q, k, v, _ = _inputs(3, b, s, heads * d)
+    bias = np.full((b, s), -1e30, np.float32)
+    arrs = (q, k, v, bias)
+    ref = np.asarray(mha_pallas(*_jax(arrs, jnp.float32), heads, interpret=True))
+    got = tatt.mha_reference(*_torch(arrs, torch.float32), heads).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, np.broadcast_to(v.mean(axis=1, keepdims=True), got.shape),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_multihead_attention_takes_reference_on_cpu():
+    arrs = _inputs(11, 2, 32, 4 * 32)
+    q, k, v, bias = _torch(arrs, torch.float32)
+    before = tatt.mha_kernel_launches
+    got = tatt.multihead_attention(q, k, v, bias, 4)
+    assert torch.equal(got, tatt.mha_reference(q, k, v, bias, 4))
+    assert torch.equal(tatt.multihead_attention(q, k, v, bias, 4, impl="reference"), got)
+    assert tatt.mha_kernel_launches == before == 0
+
+
+def test_kernel_refuses_cpu_tensors_and_bad_impl():
+    q, k, v, bias = _torch(_inputs(12, 1, 16, 2 * 32), torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tatt.multihead_attention(q, k, v, bias, 2, impl="kernel")
+    with pytest.raises(ValueError, match="impl"):
+        tatt.multihead_attention(q, k, v, bias, 2, impl="pallas")
+    assert tatt.mha_kernel_launches == 0

@@ -1,0 +1,168 @@
+"""The port's run_search (review_recommender_tpu_torch) against the JAX
+SearchEngine, end to end: query encoder, retrieval, cross-encoder rerank
+lane, gate and fusion.
+
+Both engines get the same corpus (tests/test_engine_parity.make_corpus
+through the JAX package's build_bundle_from_products, its numpy fields
+handed to the port's dataclasses) and the same tiny f32 towers (flax
+parameters carried over by params_from_flax). For the four reference configs x 3 queries, both gate
+modes and both pool modes, the SKU order must be equal and every signal
+column agree to 1e-5 (f32 sums in another order leave ~1e-6 after the
+minmax normalisations). 320 documents with 160 stripes make the striped
+pool's membership differ from the exact pool's.
+"""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from review_recommender_tpu.config import config
+from review_recommender_tpu.engine.search import SearchEngine as JaxEngine
+from review_recommender_tpu.index.build import build_bundle_from_products
+from review_recommender_tpu.models.bert import BertConfig as JaxBertConfig
+from review_recommender_tpu.models.encoder import BiEncoder as JaxBiEncoder
+from review_recommender_tpu.models.encoder import CrossEncoder as JaxCrossEncoder
+from review_recommender_tpu_torch.device import resolve_device
+from review_recommender_tpu_torch.engine.search import SearchEngine
+from review_recommender_tpu_torch.index.schema import IndexBundle, ProductIndex, ReviewIndex
+from review_recommender_tpu_torch.models.bert import BertConfig
+from review_recommender_tpu_torch.models.convert import params_from_flax
+from review_recommender_tpu_torch.models.encoder import BiEncoder, CrossEncoder
+from review_recommender_tpu_torch.models.tokenizer import HashTokenizer
+from review_recommender_tpu_torch.ops import attention
+from tests.test_engine_parity import CONFIGS, QUERIES, make_corpus
+
+REPO = Path(__file__).resolve().parents[1]
+TOL = dict(rtol=1e-5, atol=1e-5)
+SIGNALS = ("_dense", "_bm25", "_rerank", "_prior", "_best", "_trust", "_gate", "_final")
+
+
+def _port_bundle(jb):
+    fields = lambda cls, obj: {f: getattr(obj, f) for f in cls.__dataclass_fields__}
+    return IndexBundle(products=ProductIndex(**fields(ProductIndex, jb.products)),
+                       reviews=ReviewIndex(**fields(ReviewIndex, jb.reviews)))
+
+
+@pytest.fixture(scope="module")
+def engines():
+    products, emb, reviews, remb = make_corpus(n=320, dim=64, seed=0)
+    jb = build_bundle_from_products(products, emb, reviews=reviews, review_embeddings=remb,
+                                    pad_multiple=16, doc_terms_cap=64)
+    cfg = JaxBertConfig.tiny()
+    jbe = JaxBiEncoder.random_init(cfg, seed=1, dtype=jnp.float32)
+    jce = JaxCrossEncoder.random_init(cfg, seed=2, dtype=jnp.float32)
+    tcfg = BertConfig(**vars(cfg))
+    tok = HashTokenizer(cfg.vocab_size)
+    flat = lambda m: jax.tree.map(np.asarray, m.params)
+    tbe = BiEncoder(tcfg, params_from_flax(flat(jbe), cfg, "biencoder"), tok,
+                    device="cpu", dtype=torch.float32)
+    tce = CrossEncoder(tcfg, params_from_flax(flat(jce), cfg, "crossencoder"), tok,
+                       device="cpu", dtype=torch.float32)
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(config, "DENSE_POOL_STRIPES", 160)
+        for pool in ("exact", "striped"):
+            je = JaxEngine(jb, emb_dtype="float32", query_encoder=jbe, cross_encoder=jce,
+                           dense_pool=pool)
+            te = SearchEngine(_port_bundle(jb), device="cpu", emb_dtype="float32",
+                              query_encoder=tbe, cross_encoder=tce, dense_pool=pool)
+            assert je.dense_pool == te.dense_pool == pool
+            out[pool] = (je, te)
+    return out
+
+
+@pytest.mark.integration
+@pytest.mark.parametrize("gate_mode", ["device", "host"])
+@pytest.mark.parametrize("pool", ["exact", "striped"])
+@pytest.mark.parametrize("cfg_name", list(CONFIGS))
+def test_run_search_matches_jax(engines, pool, gate_mode, cfg_name):
+    je, te = engines[pool]
+    je.gate_mode = te.gate_mode = gate_mode
+    for query in QUERIES[:3]:
+        df, _snips, jdbg = je.run_search(query, use_snips=False, **CONFIGS[cfg_name])
+        rows, snips, tdbg = te.run_search(query, use_snips=False, **CONFIGS[cfg_name])
+        ref = df.to_dict(orient="records")
+        assert snips == {}
+        assert [r["sku"] for r in rows] == [r["sku"] for r in ref], query
+        assert list(rows[0]) == list(df.columns)
+        for col in SIGNALS:
+            np.testing.assert_allclose([r[col] for r in rows], [r[col] for r in ref],
+                                       err_msg=f"{query} {col}", **TOL)
+        for r, s in zip(rows, ref):
+            assert (r["n_reviews"], r["avg_stars"], r["agg_text"]) == \
+                (s["n_reviews"], s["avg_stars"], s["agg_text"])
+        for key in ("tokens", "groups", "pool", "gate_mode", "bm25_active"):
+            assert tdbg[key] == jdbg[key], key
+        assert tdbg.get("fused") == jdbg.get("fused")
+    if CONFIGS[cfg_name]["rerank_k"]:
+        assert any(r["_rerank"] > 0 for r in rows)
+    assert attention.mha_kernel_launches == 0
+
+
+def test_striped_pool_membership_differs_from_exact(engines):
+    """At 320 rows over 160 stripes the striped pool is approximate: same
+    exact scores for the rows it keeps, a different row set."""
+    q = torch.from_numpy(engines["exact"][1].encode_query(QUERIES[0]))
+    (es, ei), (ss, si) = (engines[p][1]._dense_topk(engines[p][1].arrays, q, 150)
+                          for p in ("exact", "striped"))
+    assert set(ei.tolist()) != set(si.tolist())
+    exact_by_row = dict(zip(ei.tolist(), es.tolist()))
+    shared = [(exact_by_row[r], s) for r, s in zip(si.tolist(), ss.tolist()) if r in exact_by_row]
+    assert len(shared) > 100
+    np.testing.assert_allclose(*zip(*shared), rtol=1e-6)
+
+
+def test_refuses_what_is_not_ported(engines):
+    _je, te = engines["exact"]
+    with pytest.raises(NotImplementedError, match="item 7"):
+        te.run_search("yellow socks", use_snips=True)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        te.run_search("yellow socks", max_scan=-1)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        SearchEngine(te.bundle, device="cpu", emb_dtype="int8")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        SearchEngine(te.bundle, device="cpu", dense_pool="ivf")
+    assert resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device("cuda")
+
+
+_HYGIENE = """
+import json, sys, torch
+from review_recommender_tpu_torch.engine.search import SearchEngine
+from review_recommender_tpu_torch.index.build import synth_product_index
+from review_recommender_tpu_torch.index.schema import IndexBundle
+from review_recommender_tpu_torch.models.bert import BertConfig
+from review_recommender_tpu_torch.models.encoder import BiEncoder, CrossEncoder
+from review_recommender_tpu_torch.ops import attention
+p = synth_product_index(400, 64, 300, 12, seed=0, text_chars=200)
+cfg = BertConfig.tiny(vocab_size=300)
+eng = SearchEngine(IndexBundle(products=p), device="cpu",
+                   query_encoder=BiEncoder.random_init(cfg, seed=1, device="cpu"),
+                   cross_encoder=CrossEncoder.random_init(cfg, seed=2, device="cpu"))
+n = [len(eng.run_search("t12 t345 t7 t1234", k=10, rerank_k=r)[0]) for r in (0, 50)]
+bad = [m for m in ("jax", "flax", "pandas", "pyarrow", "review_recommender_tpu.native")
+       if m in sys.modules]
+print(json.dumps({"rows": n, "bad": bad, "launches": attention.mha_kernel_launches}))
+"""
+
+
+def test_port_imports_no_jax_pandas_or_pyarrow():
+    """A fresh interpreter imports the port and runs a tiny CPU run_search
+    (bf16 towers and corpus, both rerank settings) without loading jax, flax,
+    pandas, pyarrow or the JAX package's native module."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res == {"rows": [10, 10], "bad": [], "launches": 0}
