@@ -7,11 +7,13 @@ names mirror the JAX package so each counterpart is easy to find:
     device        explicit device resolution (no silent CPU fallback)
     utils         text + numeric helpers, stage timer
     index         numpy index dataclasses, synthetic corpus, BM25 stats
-    ops           dense pool, BM25, gate, fusion (plain torch) and the
-                  fused attention (hand-written CUDA kernel, csrc/)
+    ops           dense pool, BM25, gate, fusion (plain torch); the fused
+                  attention and the full-corpus BM25 scans (hand-written
+                  CUDA kernels, csrc/)
     models        BERT towers as nn.Modules, flax -> torch weight mapping,
                   bucketed bi-/cross-encoder wrappers
-    engine        featurizer, host hooks, SearchEngine.run_search
+    engine        featurizer, host hooks, SearchEngine.run_search,
+                  search_bm25 and search_dense
 
 The package imports torch, numpy and the standard library. From the JAX
 package it imports only `review_recommender_tpu.config`, which is

@@ -15,12 +15,22 @@ Without a live cross-encoder and with the device gate, the whole query runs
 as one device pass with one packed input copy and one (k, 9) result fetch
 (`_fused_packed1`), as in the JAX package's single-program path.
 
+Standalone retrieval (`search_dense`, `search_bm25`; BASELINE configs 1
+and 2) scores the whole corpus. On CUDA, `search_bm25` runs the
+hand-written BM25 scans of ops/bm25_kernel.py: the packed kernel whenever
+the postings pack (eager or classic bundle), else the plain eager scan for
+an eager bundle, else the unpacked kernel. On the CPU it takes the JAX
+package's CPU branches (plain eager scan or plain classic scan). Unlike the
+JAX package, the port does not read USE_PALLAS: on CUDA the kernels are
+the path.
+
 Not ported yet, and refused with NotImplementedError rather than run some
 other way: snippets (use_snips=True, max_scan != 0; ROADMAP Queue 1 item 7),
 the IVF pool (item 10) and the int8 corpus (item 11).
 """
 from __future__ import annotations
 
+import logging
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -35,10 +45,22 @@ from review_recommender_tpu_torch.engine.hooks import (
     assemble_result_rows,
     resolve_search_knobs,
 )
-from review_recommender_tpu_torch.index.schema import IndexBundle, enforce_hbm_fit
+from review_recommender_tpu_torch.index.schema import (
+    IndexBundle,
+    check_hbm_fit,
+    enforce_hbm_fit,
+)
 from review_recommender_tpu_torch.ops.bm25 import (
     bm25_candidate_scores,
     bm25_candidate_scores_eager,
+    bm25_full_scores_eager,
+    bm25_topk,
+    masked_topk,
+)
+from review_recommender_tpu_torch.ops.bm25_kernel import (
+    bm25_topk_packed,
+    bm25_topk_unpacked,
+    pack_postings,
 )
 from review_recommender_tpu_torch.ops.dense import (
     dense_scores,
@@ -49,6 +71,8 @@ from review_recommender_tpu_torch.ops.dense import (
 from review_recommender_tpu_torch.ops.fusion import FusionWeights, final_topk, fuse_candidates
 from review_recommender_tpu_torch.ops.gate import gate_factors_device
 from review_recommender_tpu_torch.utils.profiling import StageTimer
+
+logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -99,6 +123,9 @@ class SearchEngine(SplitPathHooksMixin):
                 self.arrays["emb"], self.arrays["valid"], self.dense_stripes)
         self.avgdl = torch.tensor(self.products.avgdl or 1.0, dtype=torch.float32,
                                   device=self.device)
+        # the same f32 value on the host, for the BM25 kernels' launch argument
+        self.avgdl_h = float(np.float32(self.products.avgdl or 1.0))
+        self._bm25_packed_cache = False  # False = unresolved, None = not packed
         self.featurizer = QueryFeaturizer(self.products,
                                           query_terms_cap=config.QUERY_TERMS_CAP)
 
@@ -186,6 +213,73 @@ class SearchEngine(SplitPathHooksMixin):
         rows, scores, bd = self._fused_impl(self.arrays, qp[:d], *feats, w,
                                             pool=pool, k=k)
         return torch.cat([rows.to(torch.float32)[:, None], scores[:, None], bd], dim=1)
+
+    # ------------------------------------------------- standalone retrieval
+    def search_dense(self, qvec, k: int):
+        """Pure dense retrieval (BASELINE config 1): (row ids, scores)."""
+        q = torch.from_numpy(np.asarray(qvec, dtype=np.float32).reshape(-1)).to(self.device)
+        scores, idx = self._dense_topk(self.arrays, q, min(int(k), self.products.n_padded))
+        return idx, scores
+
+    def search_bm25(self, query: str, k: int):
+        """Sparse retrieval over the full corpus (BASELINE config 2): (row
+        ids, scores), the JAX engine's branch order (see module docstring)."""
+        qf = self.featurizer.featurize(query)
+        a = self.arrays
+        kk = min(int(k), self.products.n_padded)
+        q_terms = torch.from_numpy(qf.q_terms).to(self.device)
+        q_idf = torch.from_numpy(qf.q_idf).to(self.device)
+        packed = self._bm25_packed() if self._kernels_ok() else None
+        if packed is not None:
+            pk_t, dl_p, valid_p = packed
+            scores, idx = bm25_topk_packed(pk_t, dl_p, valid_p, q_terms, q_idf,
+                                           self.avgdl_h, k=kk)
+            # -inf tail slots may index the 512-alignment pad rows; clamp
+            # into the bundle's row space, as the striped pool does
+            idx = torch.clamp(idx, max=self.products.n_padded - 1)
+        elif "doc_bm25" in a:
+            scores, idx = masked_topk(
+                bm25_full_scores_eager(a["doc_terms"], a["doc_bm25"], q_terms), a["valid"], kk)
+        elif self._kernels_ok():
+            scores, idx = bm25_topk_unpacked(a["doc_terms"], a["doc_tf"], a["doc_len"],
+                                             a["valid"], q_terms, q_idf, self.avgdl_h, k=kk)
+        else:
+            scores, idx = bm25_topk(a["doc_terms"], a["doc_tf"], a["doc_len"], a["valid"],
+                                    q_terms, q_idf, self.avgdl, k=kk)
+        return idx, scores
+
+    def _kernels_ok(self) -> bool:
+        """The BM25 kernels run on CUDA tensors, at any corpus size."""
+        return self.device.type == "cuda"
+
+    def _bm25_packed(self):
+        """Lazy packed postings for search_bm25: (packed (L, N_pad) int32,
+        doc_len (N_pad,) f32, valid (N_pad,) bool) on the engine's device,
+        packed on the host from doc_tf/doc_len (which every bundle keeps
+        there). None, logged, when the postings cannot pack losslessly or
+        the extra array would not fit the device; search_bm25 then takes
+        the unpacked branches. A failure to pack or place raises."""
+        if self._bm25_packed_cache is False:
+            self._bm25_packed_cache = None
+            p = self.products
+            pk = pack_postings(p.doc_terms, p.doc_tf)
+            if pk is None:
+                logger.warning("packed BM25 postings unavailable: a tf is not an integer "
+                               "in 0..255 or a term id is >= 2^24; search_bm25 scans "
+                               "the unpacked postings")
+                return None
+            fit = check_hbm_fit(self.hbm_report["total_bytes"] + pk.nbytes, self.device)
+            if not fit["fits"]:
+                logger.warning("skipping packed BM25 postings: +%d MiB would exceed the "
+                               "device memory", pk.nbytes >> 20)
+                return None
+            pad = pk.shape[1] - p.n_padded
+            self._bm25_packed_cache = (
+                torch.from_numpy(pk).to(self.device),
+                torch.from_numpy(np.pad(p.doc_len, (0, pad)).astype(np.float32)).to(self.device),
+                torch.from_numpy(np.pad(p.valid, (0, pad)).astype(bool)).to(self.device),
+            )
+        return self._bm25_packed_cache
 
     # ---------------------------------------------------------------- public
     def encode_query(self, query: str) -> np.ndarray:

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-The sources are compiled on first use with nvcc into one shared library with
-a plain C interface, loaded through ctypes:
+The sources are compiled on first use with nvcc, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, loaded through ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/torch_kernels/librrt_torch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c csrc/<name>.cu -o build/torch_kernels/<name>.<tag>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/torch_kernels/librrt_torch_<hash>.so <the objects>
 
 The library name carries a hash of the sources and flags, so an edit
 rebuilds it; `build/` is ignored by git. Nothing here runs at import time:
@@ -25,8 +28,8 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -59,27 +62,44 @@ def library_path(extra_flags: tuple = ()) -> Path:
 
 def build(extra_flags: tuple = (), force: bool = False) -> Path:
     """Compile csrc/*.cu into the hashed library unless it exists (or
-    `force`). Returns its path; `build_info` records the seconds taken and
-    nvcc's output."""
+    `force`): one nvcc per source in parallel, then one link. Returns its
+    path; `build_info` records the seconds taken and nvcc's output."""
     out = library_path(extra_flags)
     if out.exists() and not force:
         build_info.update(path=str(out), seconds=0.0, cached=True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-           *(str(s) for s in _sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, _obj, proc in jobs:
+        text = proc.communicate()[0]
+        logs.append(f"$ {' '.join(cmd)}\n{text}".strip())
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
+    tmp = out.with_name(f"{tag}.tmp.so")
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for _c, o, _p in jobs)]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(f"$ {' '.join(link)}\n{proc.stdout}{proc.stderr}".strip())
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
     secs = time.perf_counter() - t0
-    if proc.returncode != 0:
+    for _c, obj, _p in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed ({failed}):\n" + "\n".join(logs))
     os.replace(tmp, out)
     build_info.update(path=str(out), seconds=secs, cached=False,
-                      nvcc_output=(proc.stdout + proc.stderr).strip(),
-                      cmd=" ".join(cmd))
+                      nvcc_output="\n".join(logs))
     return out
 
 
@@ -95,5 +115,10 @@ def load() -> ctypes.CDLL:
             lib.rrt_mha_fwd.restype = I
             lib.rrt_mha_fwd_smem_bytes.argtypes = [I, I]
             lib.rrt_mha_fwd_smem_bytes.restype = ctypes.c_longlong
+            F = ctypes.c_float
+            lib.rrt_bm25_packed.argtypes = [P, P, P, P, F, P, I, I, I, P]
+            lib.rrt_bm25_packed.restype = I
+            lib.rrt_bm25_unpacked.argtypes = [P, P, P, P, P, F, P, I, I, I, P]
+            lib.rrt_bm25_unpacked.restype = I
             _lib = lib
         return _lib

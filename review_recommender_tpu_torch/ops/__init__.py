@@ -1,2 +1,3 @@
-"""Query-path ops: plain torch for retrieval and fusion, a CUDA kernel for
-the fused attention (ops/attention.py, csrc/mha_fwd.cu)."""
+"""Query-path ops: plain torch for retrieval and fusion, CUDA kernels for
+the fused attention (ops/attention.py, csrc/mha_fwd.cu) and the
+full-corpus BM25 scans (ops/bm25_kernel.py, csrc/bm25_full.cu)."""

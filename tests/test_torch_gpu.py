@@ -1,4 +1,5 @@
-"""The CUDA attention kernel against its plain torch version, on the card.
+"""The CUDA kernels (fused attention, packed and unpacked BM25) against
+their plain torch versions, on the card.
 
 Needs an NVIDIA Hopper GPU with nvcc; every test skips where
 torch.cuda.is_available() is false. The file imports no jax, so on a
@@ -6,15 +7,18 @@ machine without jax it runs as
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerance 2e-2 in bf16/f16 (tests/test_attention.py's bf16 bound); the
-kernel rounds like the reference except where the f32 sum order moves a
-value across a rounding boundary.
+Attention: tolerance 2e-2 in bf16/f16 (tests/test_attention.py's bf16
+bound); the kernel rounds like the reference except where the f32 sum order
+moves a value across a rounding boundary. BM25: bitwise equal scores (tf_q
+sums integers; every other step is rounded alone, in the reference's order).
 """
 import numpy as np
 import pytest
 import torch
 
 from review_recommender_tpu_torch.ops import attention as tatt
+from review_recommender_tpu_torch.ops import bm25_kernel as tbk
+from review_recommender_tpu_torch.ops.bm25 import bm25_full_scores, masked_topk
 
 pytestmark = pytest.mark.gpu
 
@@ -71,3 +75,73 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     qg = q.clone().requires_grad_(True)
     with pytest.raises(RuntimeError, match="backward"):
         tatt.mha_kernel(qg, k, v, bias, 4)
+
+
+def _postings(seed, n, l, q, device):
+    """(N, L) postings with PAD tails, tf >= 128 lanes, and a query with
+    repeated and PAD (id 0, idf 0) slots; plus the packed (L, N) words."""
+    rng = np.random.default_rng(seed)
+    terms = rng.integers(1, 400, (n, l)).astype(np.int32)
+    terms[:, l - l // 4:] = 0
+    tf = rng.integers(1, 6, (n, l)).astype(np.float32)
+    tf[rng.random((n, l)) < 0.05] = 200.0
+    tf[terms == 0] = 0
+    dl = tf.sum(1).astype(np.float32)
+    qt = rng.integers(1, 400, q).astype(np.int32)
+    qt[0] = terms[0, 0]  # at least one scored lane, even at N=3, L=1
+    qt[1] = qt[0]
+    qt[q - q // 4:] = 0
+    qi = rng.uniform(0.5, 3, q).astype(np.float32)
+    qi[q - q // 4:] = 0
+    packed = (tf.astype(np.int64) << 24 | terms).astype(np.uint32).view(np.int32).T
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (put(terms), put(tf), put(dl), put(qt), put(qi), put(packed),
+            float(np.float32(dl.mean())))
+
+
+@pytest.mark.parametrize("n,l,q", [(200_192, 64, 32), (1000, 64, 32), (777, 33, 5),
+                                   (4096, 512, 32), (3, 1, 64), (513, 100, 17)])
+def test_bm25_kernels_match_reference(cuda, n, l, q):
+    terms, tf, dl, qt, qi, packed, avgdl = _postings(n + l + q, n, l, q, cuda)
+    p0, u0 = tbk.bm25_packed_kernel_launches, tbk.bm25_unpacked_kernel_launches
+    got_p = tbk.bm25_full_scores_packed_kernel(packed, dl, qt, qi, avgdl)
+    got_u = tbk.bm25_full_scores_kernel(terms, tf, dl, qt, qi, avgdl)
+    ref_p = tbk.bm25_full_scores_packed_reference(packed, dl, qt, qi, avgdl)
+    ref_u = bm25_full_scores(terms, tf, dl, qt, qi, avgdl)
+    valid = torch.arange(n, device=cuda) < max(1, n - 7)
+    k = min(n, 50)
+    top_p = tbk.bm25_topk_packed(packed, dl, valid, qt, qi, avgdl, k)  # CUDA: the kernels
+    top_u = tbk.bm25_topk_unpacked(terms, tf, dl, valid, qt, qi, avgdl, k)
+    torch.cuda.synchronize()
+    assert tbk.bm25_packed_kernel_launches == p0 + 2
+    assert tbk.bm25_unpacked_kernel_launches == u0 + 2
+    assert torch.equal(ref_p, ref_u)
+    assert torch.equal(got_p, ref_p)
+    assert torch.equal(got_u, ref_u)
+    assert bool((got_p > 0).any())
+    ref_top = masked_topk(ref_p, valid, k)
+    for top in (top_p, top_u):
+        assert torch.equal(top[1], ref_top[1]) and torch.equal(top[0], ref_top[0])
+
+
+def test_bm25_kernels_reject_what_they_do_not_take(cuda):
+    terms, tf, dl, qt, qi, packed, avgdl = _postings(0, 64, 16, 8, cuda)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tbk.bm25_full_scores_packed_kernel(packed.cpu(), dl.cpu(), qt.cpu(), qi.cpu(), avgdl)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tbk.bm25_full_scores_kernel(terms, tf, dl.cpu(), qt, qi, avgdl)
+    with pytest.raises(ValueError, match="int32"):
+        tbk.bm25_full_scores_packed_kernel(packed.long(), dl, qt, qi, avgdl)
+    with pytest.raises(ValueError, match="float32"):
+        tbk.bm25_full_scores_kernel(terms, tf.double(), dl, qt, qi, avgdl)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbk.bm25_full_scores_packed_kernel(packed.T.contiguous().T, dl, qt, qi, avgdl)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbk.bm25_full_scores_kernel(terms.T.contiguous().T, tf, dl, qt, qi, avgdl)
+    with pytest.raises(ValueError, match="shape"):
+        tbk.bm25_full_scores_kernel(terms, tf[:, :8].contiguous(), dl, qt, qi, avgdl)
+    with pytest.raises(ValueError, match="N=0"):
+        tbk.bm25_full_scores_packed_kernel(packed[:, :0].contiguous(), dl[:0], qt, qi, avgdl)
+    with pytest.raises(ValueError, match="query slots"):
+        long_q = torch.zeros(65, dtype=torch.int32, device=cuda)
+        tbk.bm25_full_scores_packed_kernel(packed, dl, long_q, long_q.float(), avgdl)
