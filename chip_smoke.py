@@ -35,6 +35,26 @@ line, and nothing is caught and passed over:
              percentiles of a first pass over unseen queries and of a
              repeat pass, peak device memory; search_dense against
              dense_scores + stable_topk
+  7 batched_slice  the batched fused query on phase 4's engine, 256 queries
+             as bench.py:_queries draws them, pool 150, k 10, the bench's
+             fusion weights: query_fused_batched QPS over 10 reps
+             (bench.py:_batched_qps) and per-batch p50/p90 at B=32 and
+             B=128; query_fused_batched_pw at B=32 with 4 knob sets in
+             turn; query_fused1 request-response p50/p90 at B=1; every
+             batched row against query_fused of its query (near-tie swaps
+             within 1e-3 only); no kernel launch (the engine does not route
+             through stage A); a profiler window; peak device memory
+  8 stage_a  the fused stage-A kernel as bench.py's stage-A section drives
+             it: phase 4's bf16 corpus (98 tiles of 2048 rows, the tail
+             masked), eager BM25, B=32 with per-query term ids, pool 150.
+             The tile-pass kernel against its plain version (scores within
+             1e-5, a differing id only at a near tie), stage_a_fused
+             against stage_a_fused_reference, a 2-tile case with an
+             exhausted tile (ids equal, repeats included), medians of 50
+             CUDA-event-timed runs behind a device spin (kernel, plain,
+             stage_a_fused, the exact stage A); then the counted main path:
+             stage_a_fused on the 256 queries in batches of 32, with pool
+             recall against the exact stage A (>= 0.99)
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -56,8 +76,9 @@ SHAPES = [(64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128)]
 N_DOCS, DIM, TERMS, VOCAB, TEXT_CHARS = 200_000, 384, 64, 30_000, 2000
 # 100 queries per setting: p90 then has 10 samples beyond it
 N_QUERIES, K, RERANK_K, REPS = 100, 10, 50, 50
-# published H100 SXM dense bf16 peak and HBM3 bandwidth (at the 700 W limit)
-PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+# published H100 SXM dense bf16 peak, HBM3 bandwidth and f32 CUDA-core peak
+# (at the 700 W limit)
+PEAK_BF16_FLOPS, PEAK_HBM_BYTES, PEAK_FP32_FLOPS = 989e12, 3.35e12, 67e12
 # BM25 scan ceilings, at the 1.98 GHz maximum boost clock (assumed: the
 # clock under load is not read). The SASS of csrc/bm25_full.cu spends three
 # instructions per (posting, query slot) compare: ISETP, FSEL, FADD. Each
@@ -73,6 +94,18 @@ DEV = "cuda"  # the BM25 phases' device
 BM25_SHAPES = [(200_192, 64, 32), (1_000_448, 512, 32)]  # (N, L, Q)
 BM25_REL_TOL = 1e-6  # bitwise expected: integer tf_q sums, each step rounded alone
 BM25_TOPN = 100
+# phases 7-8: the bench's headline batch (bench.py:506-532)
+BENCH_QUERIES, BATCHES, POOL, QPS_REPS = 256, (32, 128), 150, 10
+BENCH_W = (0.5, 0.3, 0.0, 0.2, 0.0, 20.0, 8, 1.0)  # FusionWeights.make order
+KNOB_SETS = [  # tests/test_batched.py:105-110
+    (1.0, 0.0, 0.0, 0.0, 0.0, 20.0, 1.0, 1.0),
+    (0.0, 1.0, 0.0, 0.0, 0.0, 20.0, 1.0, 1.0),
+    (0.5, 0.3, 0.0, 0.2, 0.0, 20.0, 5.0, 0.3),
+    (0.4, 0.2, 0.0, 0.1, 0.0, 10.0, 8.0, 0.5),
+]
+SINGLE_RTOL, SINGLE_ATOL, NEAR_TIE = 1e-4, 1e-5, 1e-3  # tests/test_batched.py's allowance
+STAGE_A_TOL = 1e-5  # bf16 products, exact in f32, summed in another order
+STAGE_A_MIN_RECALL = 0.99
 
 
 def emit(obj) -> None:
@@ -175,13 +208,20 @@ def phase_kernel(torch):
     return results
 
 
-def _queries(n_q, dim, vocab, n_terms=5, seed=42):
-    """bench.py:_queries' draws (query vectors are drawn and unused: the
-    bi-encoder encodes the strings)."""
+def _bench_queries(n_q, dim, vocab, n_terms=5, seed=42):
+    """bench.py:_queries' draws: unit query vectors (n_q, D) f32, term ids
+    (n_q, n_terms) int32 and the query strings."""
     rng = np.random.default_rng(seed)
-    rng.standard_normal((n_q, dim))
+    qvecs = rng.standard_normal((n_q, dim)).astype(np.float32)
+    qvecs /= np.linalg.norm(qvecs, axis=1, keepdims=True)
     ids = (rng.zipf(1.3, size=(n_q, n_terms)) % vocab + 1).astype(np.int32)
-    return [" ".join(f"t{t}" for t in row) for row in ids]
+    return qvecs, ids, [" ".join(f"t{t}" for t in row) for row in ids]
+
+
+def _queries(n_q, dim, vocab, n_terms=5, seed=42):
+    """bench.py:_queries' strings (the bi-encoder encodes them; the drawn
+    vectors go unused)."""
+    return _bench_queries(n_q, dim, vocab, n_terms, seed)[2]
 
 
 def _check_rows(rows, phase):
@@ -661,6 +701,319 @@ def _bm25_kernel_entries(rows, launches, err):
     return out
 
 
+def _kernel_modules():
+    from review_recommender_tpu_torch.ops import attention as A
+    from review_recommender_tpu_torch.ops import bm25_kernel as BK
+    from review_recommender_tpu_torch.ops import stage_a as SA
+
+    return {"mha_fwd": (A, "mha_kernel_launches"),
+            "bm25_packed": (BK, "bm25_packed_kernel_launches"),
+            "bm25_unpacked": (BK, "bm25_unpacked_kernel_launches"),
+            "stage_a_fused": (SA, "stage_a_kernel_launches")}
+
+
+def _zero_counts() -> None:
+    for mod, attr in _kernel_modules().values():
+        setattr(mod, attr, 0)
+
+
+def _counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in _kernel_modules().items()}
+
+
+def _pct(lat) -> dict:
+    return {"p50_ms": float(np.percentile(lat, 50)), "p90_ms": float(np.percentile(lat, 90)),
+            "mean_ms": float(np.mean(lat)), "n": len(lat)}
+
+
+def _batched_qps(engine, qvecs, qstrings, w, batch):
+    """bench.py:_batched_qps: QPS_REPS passes over the queries in batches,
+    the results read to the host after the last batch."""
+    t0 = time.perf_counter()
+    outs = []
+    for _ in range(QPS_REPS):
+        for lo in range(0, len(qstrings), batch):
+            outs.append(engine.query_fused_batched(qvecs[lo:lo + batch], qstrings[lo:lo + batch],
+                                                   w, POOL, K))
+    host = [(r.cpu(), s.cpu()) for r, s in outs]
+    qps = QPS_REPS * len(qstrings) / (time.perf_counter() - t0)
+    check(all(r.shape == (min(batch, len(qstrings)), K) for r, _s in host), "batched_slice",
+          f"batch {batch}: result shapes")
+    return qps
+
+
+def _batch_latencies(run, n_q, batch):
+    """Per-batch wall time of run(lo, hi) -> device tensors, each batch read
+    to the host before the next starts; returns (latencies ms, host results)."""
+    lat, res = [], []
+    for lo in range(0, n_q, batch):
+        t0 = time.perf_counter()
+        out = [t.cpu() for t in run(lo, lo + batch)]
+        lat.append((time.perf_counter() - t0) * 1e3)
+        res.append(out)
+    return lat, res
+
+
+def _check_batch_rows(rows, scores, phase):
+    check(bool(scores.isfinite().all()), phase, "non-finite scores")
+    check(bool((scores[:, 1:] <= scores[:, :-1]).all()), phase, "rows not sorted")
+    check(int(rows.min()) >= 0, phase, f"row ids {rows.min()}")
+
+
+def _singles(engine, qvecs, qstrings, w):
+    """query_fused of each query, on the host."""
+    return [tuple(t.cpu().numpy() for t in engine.query_fused(qvecs[i], q, w, POOL, K))
+            for i, q in enumerate(qstrings)]
+
+
+def _against_single(singles, rows, scores):
+    """Each batched row against query_fused of its query: scores within
+    tests/test_batched.py's allowance, a differing id only at a near tie.
+    Returns (max score diff, rank swaps)."""
+    diff, swaps = 0.0, 0
+    for i, (r1, s1) in enumerate(singles):
+        rb, sb = rows[i].numpy(), scores[i].numpy()
+        d = np.abs(sb - s1)
+        check(bool((d <= SINGLE_ATOL + SINGLE_RTOL * np.abs(s1)).all()), "batched_slice",
+              f"query {i}: batched scores {sb} vs single {s1}")
+        bad = (rb != r1) & (np.abs(s1 - sb) >= NEAR_TIE)
+        check(not bad.any(), "batched_slice", f"query {i}: ids {rb} vs {r1} beyond near ties")
+        diff = max(diff, float(d.max()))
+        swaps += int((rb != r1).sum())
+    return diff, swaps
+
+
+def phase_batched_slice(torch, engine):
+    """query_fused_batched / _pw / query_fused1 on phase 4's engine."""
+    from review_recommender_tpu_torch.ops.fusion import FusionWeights
+
+    qvecs, qterms, qstrings = _bench_queries(BENCH_QUERIES, DIM, VOCAB)
+    w = FusionWeights.make(*BENCH_W)
+    torch.cuda.reset_peak_memory_stats()
+    # warm-up (bench.py:551-565), then every query once at each batch size:
+    # the featurizer then holds every token, and the rows feed the cross-check
+    engine.query_fused(qvecs[0], qstrings[0], w, POOL, K)[0].cpu()
+    first = {}
+    for b in BATCHES:
+        first[b] = _batch_latencies(
+            lambda lo, hi: engine.query_fused_batched(qvecs[lo:hi], qstrings[lo:hi], w, POOL, K),
+            BENCH_QUERIES, b)[1]
+    torch.cuda.synchronize()
+
+    _zero_counts()
+    rows = {}
+    for b in BATCHES:
+        qps = _batched_qps(engine, qvecs, qstrings, w, b)
+        lat, res = _batch_latencies(
+            lambda lo, hi: engine.query_fused_batched(qvecs[lo:hi], qstrings[lo:hi], w, POOL, K),
+            BENCH_QUERIES, b)
+        r = torch.cat([x[0] for x in res])
+        sc = torch.cat([x[1] for x in res])
+        _check_batch_rows(r, sc, "batched_slice")
+        check(torch.equal(r, torch.cat([x[0] for x in first[b]])), "batched_slice",
+              f"B={b}: rows differ between two passes")
+        rows[b] = (r, sc)
+        emit({"phase": "batched_slice", "form": "query_fused_batched", "B": b,
+              "queries": BENCH_QUERIES, "pool": POOL, "k": K, "qps": qps, "reps": QPS_REPS,
+              "per_batch": _pct(lat)})
+    pw_w = [KNOB_SETS[i % len(KNOB_SETS)] for i in range(BENCH_QUERIES)]
+    lat, res = _batch_latencies(
+        lambda lo, hi: engine.query_fused_batched_pw(qvecs[lo:hi], qstrings[lo:hi], pw_w[lo:hi],
+                                                     POOL, K), BENCH_QUERIES, BATCHES[0])
+    pw_rows, pw_sc, pw_bd = (torch.cat([x[i] for x in res]) for i in range(3))
+    _check_batch_rows(pw_rows, pw_sc, "batched_slice")
+    check(pw_bd.shape == (BENCH_QUERIES, K, 7), "batched_slice", f"breakdown {pw_bd.shape}")
+    emit({"phase": "batched_slice", "form": "query_fused_batched_pw", "B": BATCHES[0],
+          "knob_sets": len(KNOB_SETS), "per_batch": _pct(lat),
+          "qps": BENCH_QUERIES / (sum(lat) / 1e3)})
+    lat = []
+    for i in range(N_QUERIES):
+        t0 = time.perf_counter()
+        ids, fin = engine.split_fused1(engine.query_fused1(qvecs[i], qstrings[i], w, POOL, K))
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(ids.shape == (K,) and bool(np.isfinite(fin).all()), "batched_slice",
+              f"query_fused1 {i}: {ids} {fin}")
+    emit({"phase": "batched_slice", "form": "query_fused1", "B": 1, **_pct(lat)})
+    launches = _counts()
+    check(not any(launches.values()), "batched_slice",
+          f"kernel launches on a path that has none: {launches}")
+
+    singles = _singles(engine, qvecs, qstrings, w)
+    cross = {b: _against_single(singles, *rows[b]) for b in BATCHES}
+    pw_diff, pw_swaps = 0.0, 0
+    for i in range(8):  # the per-query knobs against query_fused with those knobs
+        one = _singles(engine, qvecs[i:i + 1], qstrings[i:i + 1], FusionWeights.make(*pw_w[i]))
+        d, sw = _against_single(one, pw_rows[i:i + 1], pw_sc[i:i + 1])
+        pw_diff, pw_swaps = max(pw_diff, d), pw_swaps + sw
+    prof = _profile(torch, lambda: [engine.query_fused_batched(
+        qvecs[lo:lo + 32], qstrings[lo:lo + 32], w, POOL, K)[0].cpu()
+        for lo in range(0, BENCH_QUERIES, 32)])
+    emit({"phase": "batched_crosscheck", "against": "query_fused of each query",
+          **{f"B{b}": {"max_score_diff": cross[b][0], "rank_swaps": cross[b][1]}
+             for b in BATCHES},
+          "pw_first_8": {"max_score_diff": pw_diff, "rank_swaps": pw_swaps},
+          "rtol": SINGLE_RTOL, "atol": SINGLE_ATOL, "near_tie": NEAR_TIE,
+          "kernel_launches": launches})
+    emit({"phase": "batched_profile", "batches": BENCH_QUERIES // 32, "B": 32, **prof})
+    emit({"phase": "batched_memory", "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "what": "phase 4's engine and towers + the batched passes at B=32 and B=128"})
+    return qvecs, qterms
+
+
+def _plain_tile_scores(torch, emb, valid, qvecs, local_ids):
+    """The plain version's score at each winner id: (n_tiles, 16, B)."""
+    from review_recommender_tpu_torch.ops import stage_a as SA
+    from review_recommender_tpu_torch.ops.dense import matmul_f32
+
+    n, b = emb.shape[0], qvecs.shape[0]
+    tiles = -(-n // SA.TILE_N)
+    sims = torch.where(valid[:, None], matmul_f32(emb, qvecs.to(emb.dtype).T), SA.NEG)
+    sims = torch.nn.functional.pad(sims, (0, 0, 0, tiles * SA.TILE_N - n), value=SA.NEG)
+    return torch.gather(sims.reshape(tiles, SA.TILE_N, b), 1, local_ids.long())
+
+
+def _tile_winners_diff(torch, emb, valid, qv, phase):
+    """Kernel tile pass against the plain one on the same inputs."""
+    from review_recommender_tpu_torch.ops import stage_a as SA
+
+    ks, ki = SA.stage_a_tile_winners_kernel(emb, valid, qv)
+    ps, pi = SA.stage_a_tile_winners_reference(emb, valid, qv)
+    torch.cuda.synchronize()
+    check(ks.shape == ps.shape and ki.dtype == pi.dtype == torch.int32, phase,
+          f"shapes {tuple(ks.shape)} {tuple(ps.shape)}")
+    differ = ki != pi
+    gap = 0.0
+    if bool(differ.any()):
+        g = (_plain_tile_scores(torch, emb, valid, qv, ki)
+             - _plain_tile_scores(torch, emb, valid, qv, pi))[differ]
+        gap = float(g.abs().max())
+    row = {"ids_equal_share": float((~differ).float().mean()), "ids_differing": int(differ.sum()),
+           "max_abs_err": float((ks - ps).abs().max()), "near_tie_gap": gap,
+           "tol": STAGE_A_TOL}
+    check(row["max_abs_err"] <= STAGE_A_TOL and gap <= STAGE_A_TOL, phase,
+          f"tile pass disagrees with its plain version: {row}")
+    return row, (ks, ki, ps, pi)
+
+
+def _exhausted_case(torch):
+    """2 tiles at D=384 bf16, N = 2048 + 1000 with 10 valid rows in tile 1:
+    from round 10 on, tile 1 returns -3.4e38 and local row 0 (repeats)."""
+    from review_recommender_tpu_torch.ops import stage_a as SA
+
+    rng = np.random.default_rng(8)
+    n = SA.TILE_N + 1000
+    emb = rng.standard_normal((n, DIM)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    valid = np.ones(n, bool)
+    valid[SA.TILE_N:] = False
+    valid[SA.TILE_N + rng.choice(1000, 10, replace=False)] = True
+    qv = rng.standard_normal((8, DIM)).astype(np.float32)
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    t = lambda x: torch.from_numpy(x).cuda()
+    row, (ks, ki, _ps, pi) = _tile_winners_diff(torch, t(emb).to(torch.bfloat16), t(valid),
+                                                t(qv), "stage_a")
+    repeats = bool((ki[1, 10:] == 0).all()) and bool((ks[1, 10:] == SA.NEG).all())
+    check(torch.equal(ki, pi) and repeats, "stage_a",
+          f"exhausted-tile case: ids equal {torch.equal(ki, pi)}, repeats {repeats}")
+    return {"N": n, "B": 8, "valid_in_tile1": 10, "ids_equal": True,
+            "repeats_from_round": 10, "max_abs_err": row["max_abs_err"]}
+
+
+def _recall(a, b) -> float:
+    return float(np.mean([len(set(x.tolist()) & set(y.tolist())) / len(x)
+                          for x, y in zip(a, b)]))
+
+
+def phase_stage_a(torch, engine, qvecs, qterms):
+    """bench.py's fused stage-A section on the port."""
+    from review_recommender_tpu_torch.ops import stage_a as SA
+    from review_recommender_tpu_torch.ops.bm25 import bm25_candidate_scores_eager
+    from review_recommender_tpu_torch.ops.dense import dense_topk_batched
+
+    a = engine.arrays
+    emb, valid, terms, bm25 = a["emb"], a["valid"], a["doc_terms"], a["doc_bm25"]
+    n = emb.shape[0]
+    tiles = -(-n // SA.TILE_N)
+    check(emb.dtype == torch.bfloat16 and tiles == 98, "stage_a", f"{emb.dtype}, {tiles} tiles")
+    b = BATCHES[0]
+    qv = torch.from_numpy(qvecs[:b]).cuda()
+    qt = torch.from_numpy(qterms[:b]).cuda()
+
+    def exact(q, q_terms):  # bench.py:1553-1561
+        d, idx = dense_topk_batched(emb, q, valid, POOL)
+        return d, idx, bm25_candidate_scores_eager(terms[idx], bm25[idx], q_terms)
+
+    tile_row, _ = _tile_winners_diff(torch, emb, valid, qv, "stage_a")
+    kd, ki, kb = SA.stage_a_fused(emb, valid, terms, bm25, qv, qt, POOL)
+    rd, ri, rb = SA.stage_a_fused_reference(emb, valid, terms, bm25, qv, qt, POOL)
+    torch.cuda.synchronize()
+    check(kd.shape == ki.shape == kb.shape == (b, POOL), "stage_a", f"shape {tuple(kd.shape)}")
+    same = ki == ri
+    fused_row = {"ids_equal_share": float(same.float().mean()),
+                 "max_abs_err_dense": float((kd - rd).abs().max()),
+                 "max_abs_err_bm25_same_ids": float((kb - rb)[same].abs().max())}
+    check(fused_row["max_abs_err_dense"] <= STAGE_A_TOL
+          and fused_row["max_abs_err_bm25_same_ids"] <= STAGE_A_TOL, "stage_a",
+          f"stage_a_fused against stage_a_fused_reference: {fused_row}")
+    small = _exhausted_case(torch)
+
+    spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
+    runs = {"kernel": lambda: SA.stage_a_tile_winners_kernel(emb, valid, qv),
+            "plain": lambda: SA.stage_a_tile_winners_reference(emb, valid, qv),
+            "stage_a_fused": lambda: SA.stage_a_fused(emb, valid, terms, bm25, qv, qt, POOL),
+            "exact": lambda: exact(qv, qt)}
+    for fn in runs.values():  # warm-up
+        for _ in range(3):
+            fn()
+    ms = {name: _median_ms(torch, fn, REPS, before=spin) for name, fn in runs.items()}
+    by_b = {}  # how the kernel scales with the batch (its groups of 8 queries)
+    for nb in (1, 8, 128):
+        q_nb = torch.from_numpy(qvecs[:nb]).cuda()
+        SA.stage_a_tile_winners_kernel(emb, valid, q_nb)
+        by_b[nb] = _median_ms(torch, lambda: SA.stage_a_tile_winners_kernel(emb, valid, q_nb),
+                              REPS, before=spin)
+    by_b[b] = ms["kernel"]
+    nbytes = emb.numel() * emb.element_size()
+    flops = 2 * emb.numel() * b
+    emit({"phase": "stage_a", "N": n, "tiles": tiles, "D": emb.shape[1], "B": b, "pool": POOL,
+          "tile_pass": tile_row, "stage_a_fused_vs_reference": fused_row,
+          "exhausted_tile_case": small, **{f"{k}_ms": v for k, v in ms.items()},
+          "kernel_speedup_vs_plain": ms["plain"] / ms["kernel"],
+          "kernel_ms_by_B": {str(k): by_b[k] for k in sorted(by_b)},
+          "kernel_hbm_share": nbytes / PEAK_HBM_BYTES / (ms["kernel"] / 1e3),
+          "kernel_fp32_share": flops / PEAK_FP32_FLOPS / (ms["kernel"] / 1e3),
+          "reps": REPS, "timing": "CUDA events, each run queued behind a 0.1 ms device spin"})
+
+    # the main path, counted: the batch of the batched query, 32 at a time
+    _zero_counts()
+    got = [SA.stage_a_fused(emb, valid, terms, bm25, torch.from_numpy(qvecs[lo:lo + b]).cuda(),
+                            torch.from_numpy(qterms[lo:lo + b]).cuda(), POOL)
+           for lo in range(0, len(qvecs), b)]
+    torch.cuda.synchronize()
+    launches = _counts()
+    ref = [exact(torch.from_numpy(qvecs[lo:lo + b]).cuda(), torch.from_numpy(qterms[lo:lo + b]).cuda())
+           for lo in range(0, len(qvecs), b)]
+    dense = torch.cat([g[0] for g in got]).cpu()
+    ids = torch.cat([g[1] for g in got]).cpu().numpy()
+    ids_x = torch.cat([r[1] for r in ref]).cpu().numpy()
+    recall = _recall(ids_x, ids)
+    check(bool(torch.isfinite(dense).all()) and bool((dense[:, 1:] <= dense[:, :-1]).all()),
+          "stage_a", "stage_a_fused dense scores not finite and sorted")
+    check(bool((torch.cat([g[2] for g in got]) >= 0).all()), "stage_a", "negative BM25")
+    emit({"phase": "stage_a_main", "queries": len(qvecs), "B": b, "pool": POOL,
+          "pool_recall_vs_exact": recall, "min_recall": STAGE_A_MIN_RECALL,
+          "kernel_launches": launches})
+    check(recall >= STAGE_A_MIN_RECALL, "stage_a", f"pool recall {recall} < {STAGE_A_MIN_RECALL}")
+    check(launches["stage_a_fused"] == len(got) and sum(launches.values()) == len(got),
+          "stage_a", f"launches {launches}, expected {len(got)} stage_a_fused")
+    return {"name": "stage_a_fused", "route": "cuda",
+            "source": "review_recommender_tpu_torch/csrc/stage_a_fused.cu",
+            "replaces": "review_recommender_tpu/ops/pallas/stage_a_kernel.py:61",
+            "launches": launches["stage_a_fused"],
+            "max_abs_err": max(tile_row["max_abs_err"], small["max_abs_err"]),
+            "ms": ms["kernel"], "plain_ms": ms["plain"]}
+
+
 def main() -> int:
     import torch
 
@@ -684,6 +1037,8 @@ def main() -> int:
         launches, engine = phase_slice(torch)
         bm25_rows = phase_bm25_kernel(torch)
         bm25_launches, bm25_err = phase_bm25_slice(torch, engine)
+        qvecs, qterms = phase_batched_slice(torch, engine)
+        stage_a_entry = phase_stage_a(torch, engine, qvecs, qterms)
     except PhaseError as exc:
         emit({"phase": "failed", "error": str(exc)})
         return 3
@@ -696,7 +1051,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-    }] + _bm25_kernel_entries(bm25_rows, bm25_launches, bm25_err)})
+    }] + _bm25_kernel_entries(bm25_rows, bm25_launches, bm25_err) + [stage_a_entry]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

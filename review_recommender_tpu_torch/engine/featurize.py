@@ -1,7 +1,8 @@
 """Host-side query featurization: strings -> fixed-shape integer features.
 
 A jax-free copy of `review_recommender_tpu/engine/featurize.py:35-221`
-(`QueryFeatures`, `packed_len`, `QueryFeaturizer`) on the Python path only:
+(`QueryFeatures`, `packed_len`, `QueryFeaturizer` with `featurize_packed`
+and `featurize_packed_batch`) on the Python path only:
 the C++ featurizer is bound through `review_recommender_tpu.native`, which
 can load jax. `unpack_features` is the torch counterpart of the device-side
 inverse of `QueryFeatures.pack`.
@@ -55,17 +56,21 @@ def packed_len(query_terms_cap: int, gate_terms_cap: int) -> int:
 
 
 def unpack_features(packed: torch.Tensor, query_terms_cap: int, gate_terms_cap: int):
-    """Inverse of QueryFeatures.pack on a (packed_len,) f32 tensor. Returns
-    (q_terms i32, q_idf f32, gp_mask bool, gt_ids i32, g_valid bool)."""
+    """Inverse of QueryFeatures.pack on a (..., packed_len) f32 tensor; leading
+    axes are a batch of queries. Returns (q_terms i32, q_idf f32, gp_mask
+    bool, gt_ids i32, g_valid bool), each with the same leading axes."""
     q = query_terms_cap
     g = len(GATE_PHRASES)
     t = gate_terms_cap
+    lead = packed.shape[:-1]
     off = 0
-    q_terms = packed[off : off + q].to(torch.int32); off += q
-    q_idf = packed[off : off + q]; off += q
-    gp = packed[off : off + GROUPS_CAP * g].reshape(GROUPS_CAP, g) > 0; off += GROUPS_CAP * g
-    gt = packed[off : off + GROUPS_CAP * t].reshape(GROUPS_CAP, t).to(torch.int32); off += GROUPS_CAP * t
-    gv = packed[off : off + GROUPS_CAP] > 0
+    q_terms = packed[..., off : off + q].to(torch.int32); off += q
+    q_idf = packed[..., off : off + q]; off += q
+    gp = packed[..., off : off + GROUPS_CAP * g].reshape(*lead, GROUPS_CAP, g) > 0
+    off += GROUPS_CAP * g
+    gt = packed[..., off : off + GROUPS_CAP * t].reshape(*lead, GROUPS_CAP, t).to(torch.int32)
+    off += GROUPS_CAP * t
+    gv = packed[..., off : off + GROUPS_CAP] > 0
     return q_terms, q_idf, gp, gt, gv
 
 
@@ -102,6 +107,14 @@ class QueryFeaturizer:
             self._expand_cache.clear()
         self._expand_cache[token] = ids
         return ids
+
+    def featurize_packed(self, query: str) -> np.ndarray:
+        """Query string -> the packed (packed_len,) f32 feature buffer."""
+        return self.featurize(query).pack()
+
+    def featurize_packed_batch(self, queries) -> np.ndarray:
+        """Batch of queries -> (B, packed_len) f32."""
+        return np.stack([self.featurize_packed(q) for q in queries])
 
     def featurize(self, query: str) -> QueryFeatures:
         tokens = tokenize_query(query)

@@ -2,7 +2,7 @@
 
 Counterpart of `review_recommender_tpu/engine/search.py` (`__init__`,
 `_dense_topk`, `_stage_a_impl`, `_stage_b_impl`, `_fused_impl`,
-`encode_query`, `run_search`). Per query:
+`encode_query`, `run_search`, the fused query forms). Per query:
 
   host    encode the query (bi-encoder hook)               encode_query
   host    featurize: term ids + idf, gate masks             engine/featurize
@@ -15,6 +15,14 @@ Without a live cross-encoder and with the device gate, the whole query runs
 as one device pass with one packed input copy and one (k, 9) result fetch
 (`_fused_packed1`), as in the JAX package's single-program path.
 
+The same pass answers a batch (`query_fused_batched`, and
+`query_fused_batched_pw` with per-query fusion weights, for a server's
+micro-batcher): one (B, D) x (D, N) dense product, then each query's
+pool, BM25, gate and fusion with every statistic reduced within its own
+row, which is what the JAX package gets from vmap. `query_fused` and
+`query_fused1` are the single-query forms. None of them routes through the
+stage-A kernel (ops/stage_a.py), as the JAX engine does not.
+
 Standalone retrieval (`search_dense`, `search_bm25`; BASELINE configs 1
 and 2) scores the whole corpus. On CUDA, `search_bm25` runs the
 hand-written BM25 scans of ops/bm25_kernel.py: the packed kernel whenever
@@ -25,8 +33,9 @@ JAX package, the port does not read USE_PALLAS: on CUDA the kernels are
 the path.
 
 Not ported yet, and refused with NotImplementedError rather than run some
-other way: snippets (use_snips=True, max_scan != 0; ROADMAP Queue 1 item 7),
-the IVF pool (item 10) and the int8 corpus (item 11).
+other way: snippets (use_snips=True with ENABLE_SNIPPETS, max_scan != 0;
+ROADMAP Queue 1 item 7), the IVF pool (item 10) and the int8 corpus (item
+11).
 """
 from __future__ import annotations
 
@@ -143,9 +152,12 @@ class SearchEngine(SplitPathHooksMixin):
 
     # --------------------------------------------------------------- stage A
     def _stage_a_impl(self, a, qvec, q_terms, q_idf, gp_mask, gt_ids, g_valid, *, pool):
+        """Pool, candidate gather, BM25 and gate hit counts for qvec (D,), or
+        for a batch (B, D) whose features carry the same leading axis; every
+        output then has it too."""
         dense_raw, idx = self._dense_topk(a, qvec, pool)
         cand_valid = torch.isfinite(dense_raw)
-        take = lambda arr: arr.index_select(0, idx)
+        take = lambda arr: arr[idx]
         doc_terms = take(a["doc_terms"])
         if "doc_bm25" in a:
             bm25_raw = bm25_candidate_scores_eager(doc_terms, take(a["doc_bm25"]), q_terms)
@@ -163,7 +175,7 @@ class SearchEngine(SplitPathHooksMixin):
             "cand_valid": cand_valid,
             "bm25_raw": bm25_raw,
             "gate_hits": gate_hits,
-            "n_groups": g_valid.to(torch.int32).sum(),
+            "n_groups": g_valid.to(torch.int32).sum(dim=-1, keepdim=True),
             "n_reviews": take(a["n_reviews"]),
             "avg_stars": take(a["avg_stars"]),
         }
@@ -182,37 +194,125 @@ class SearchEngine(SplitPathHooksMixin):
     # ------------------------------------------------------------ fused path
     @staticmethod
     def _breakdown(res, pos) -> torch.Tensor:
-        """(k, 7) signal columns at the winners, SIGNAL_ORDER."""
-        return torch.stack([getattr(res, name)[pos] for name in SIGNAL_ORDER], dim=-1)
+        """(..., k, 7) signal columns at the winners, SIGNAL_ORDER."""
+        return torch.stack([getattr(res, name).gather(-1, pos) for name in SIGNAL_ORDER],
+                           dim=-1)
 
     def _fused_impl(self, a, qvec, q_terms, q_idf, gp_mask, gt_ids, g_valid,
                     w: FusionWeights, *, pool, k):
-        """One pass without the cross-encoder, device gate."""
+        """One pass without the cross-encoder, device gate, for one query or
+        a batch (a leading axis on every query input; `w` shared floats or
+        (B, 1) tensors). Returns (rows (..., k), final (..., k), breakdown
+        (..., k, 7))."""
         st = self._stage_a_impl(a, qvec, q_terms, q_idf, gp_mask, gt_ids, g_valid,
                                 pool=pool)
-        P = st["idx"].shape[0]
-        zeros = torch.zeros(P, dtype=torch.float32, device=self.device)
-        base = torch.tensor(w.gate_penalty, dtype=torch.float32, device=self.device)
+        shape = st["idx"].shape
+        zeros = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        base = torch.as_tensor(w.gate_penalty, dtype=torch.float32, device=self.device)
         gate = torch.pow(base, (st["n_groups"] - st["gate_hits"]).to(torch.float32))
         res = fuse_candidates(
             st["dense_raw"], st["bm25_raw"], zeros,
-            torch.zeros(P, dtype=torch.bool, device=self.device),
+            torch.zeros(shape, dtype=torch.bool, device=self.device),
             zeros, False, st["n_reviews"], st["avg_stars"],
             gate, st["cand_valid"], w,
         )
         scores, pos = final_topk(res, k)
-        return st["idx"][pos], scores, self._breakdown(res, pos)
+        return st["idx"].gather(-1, pos), scores, self._breakdown(res, pos)
+
+    def _fused_packed(self, qp: torch.Tensor, w: FusionWeights, *, pool, k):
+        """The fused query from combined rows [qvec | packed features]: (L,)
+        for one query, (B, L) for a batch with shared weights (the JAX
+        engine's _fused_packed_impl and its vmap, _fused_packed_batch_impl).
+        One input copy per call."""
+        d = self.products.dim
+        feats = unpack_features(qp[..., d:], self.featurizer.query_terms_cap,
+                                self.featurizer.gate_terms_cap)
+        return self._fused_impl(self.arrays, qp[..., :d], *feats, w, pool=pool, k=k)
+
+    def _fused_packed_pw(self, qp: torch.Tensor, *, pool, k):
+        """Per-query fusion weights: each (B, L + 8) row carries its own 8
+        knobs at the tail [qvec | features | weights], in FusionWeights
+        field order, so a batch of requests with different knobs is still
+        one pass with one input copy."""
+        w = FusionWeights(*(qp[:, i - 8, None] for i in range(8)))  # each (B, 1)
+        return self._fused_packed(qp[:, :-8], w, pool=pool, k=k)
+
+    @staticmethod
+    def _result_buffer(rows, scores, bd) -> torch.Tensor:
+        """(k, 9) f32 [row id, final, 7 signals]: one fetch for a query's
+        results (row ids are exact in f32 below 2^24 rows)."""
+        return torch.cat([rows.to(torch.float32)[..., None], scores[..., None], bd], dim=-1)
 
     def _fused_packed1(self, qp: torch.Tensor, w: FusionWeights, *, pool, k):
         """The fused query from ONE input buffer [qvec | packed features] to
-        ONE (k, 9) f32 output [row id, final, 7 signals] (row ids are exact
-        in f32 below 2^24 rows)."""
-        d = self.products.dim
-        feats = unpack_features(qp[d:], self.featurizer.query_terms_cap,
-                                self.featurizer.gate_terms_cap)
-        rows, scores, bd = self._fused_impl(self.arrays, qp[:d], *feats, w,
-                                            pool=pool, k=k)
-        return torch.cat([rows.to(torch.float32)[:, None], scores[:, None], bd], dim=1)
+        ONE (k, 9) f32 output (_result_buffer)."""
+        return self._result_buffer(*self._fused_packed(qp, w, pool=pool, k=k))
+
+    # ------------------------------------------------------------ fused query
+    @staticmethod
+    def _refuse_snippets(use_snips) -> None:
+        if bool(use_snips) and config.ENABLE_SNIPPETS:
+            raise NotImplementedError(
+                "use_snips=True: the snippet lane is not ported yet (ROADMAP Queue 1 item 7)")
+
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(self.device)
+
+    def _combined(self, qvec, packed) -> np.ndarray:
+        qv = np.asarray(qvec, np.float32).reshape(-1)
+        return np.concatenate([qv, packed])
+
+    def query_fused(self, qvec, query: str, w: FusionWeights, pool: int, k: int,
+                    use_snips: bool = False):
+        """Single-pass query (no rerank): (corpus row ids (k,), final scores
+        (k,)) as device tensors. The query vector and all features travel
+        in one buffer, one host->device copy."""
+        self._refuse_snippets(use_snips)
+        qp = self._upload(self._combined(qvec, self.featurizer.featurize_packed(query)))
+        rows, scores, _bd = self._fused_packed(
+            qp, w, pool=min(pool, self.products.n_padded), k=k)
+        return rows, scores
+
+    def query_fused1(self, qvec, query: str, w: FusionWeights, pool: int, k: int,
+                     use_snips: bool = False) -> torch.Tensor:
+        """query_fused returning ONE (k, 9) f32 device tensor [row id, final,
+        7 signals]; split it on the host with split_fused1. One copy in, one
+        read out."""
+        self._refuse_snippets(use_snips)
+        qp = self._upload(self._combined(qvec, self.featurizer.featurize_packed(query)))
+        return self._fused_packed1(qp, w, pool=min(pool, self.products.n_padded), k=k)
+
+    @staticmethod
+    def split_fused1(out):
+        """(k, 9) result, a tensor or a host array -> (row ids (k,) int64,
+        final scores (k,)) on the host."""
+        out = out.cpu().numpy() if torch.is_tensor(out) else np.asarray(out)
+        return out[:, 0].astype(np.int64), out[:, 1]
+
+    def query_fused_batched(self, qvecs, queries: List[str], w: FusionWeights,
+                            pool: int, k: int, use_snips: bool = False):
+        """Batched single-pass hybrid search (no rerank): qvecs (B, D), B
+        query strings -> (row ids (B, k), scores (B, k)), device tensors."""
+        self._refuse_snippets(use_snips)
+        packed = self.featurizer.featurize_packed_batch(queries)
+        qp = self._upload(np.concatenate([np.asarray(qvecs, np.float32), packed], axis=1))
+        rows, scores, _bd = self._fused_packed(
+            qp, w, pool=min(pool, self.products.n_padded), k=k)
+        return rows, scores
+
+    def query_fused_batched_pw(self, qvecs, queries: List[str], weights, pool: int,
+                               k: int, use_snips: bool = False):
+        """Batched fused search with per-query fusion weights (a server's
+        micro-batcher coalesces requests with different knobs): `weights`
+        holds one 8-float sequence per query in FusionWeights field order.
+        Returns (rows (B, k), scores (B, k), breakdown (B, k, 7) [dense,
+        bm25, rerank, prior, best, trust, gate]), device tensors."""
+        self._refuse_snippets(use_snips)
+        packed = self.featurizer.featurize_packed_batch(queries)
+        wmat = np.asarray([tuple(map(float, w)) for w in weights], np.float32)
+        qp = self._upload(np.concatenate([np.asarray(qvecs, np.float32), packed, wmat],
+                                         axis=1))
+        return self._fused_packed_pw(qp, pool=min(pool, self.products.n_padded), k=k)
 
     # ------------------------------------------------- standalone retrieval
     def search_dense(self, qvec, k: int):
@@ -335,7 +435,7 @@ class SearchEngine(SplitPathHooksMixin):
                        and c.ENABLE_RERANKING)
         if self.gate_mode == "device" and not rerank_live:
             with timer.stage("fused_query"):
-                qp = torch.from_numpy(np.concatenate([qvec_h, qf.pack()])).to(self.device)
+                qp = self._upload(self._combined(qvec_h, qf.pack()))
                 out = self._fused_packed1(qp, w, pool=pool, k=min(k, pool))
             with timer.stage("fetch"):
                 buf = out.cpu().numpy()
@@ -365,8 +465,8 @@ class SearchEngine(SplitPathHooksMixin):
                 st, to_dev(rerank_raw), to_dev(rerank_mask), zeros, False, gate, w,
                 k=min(k, P),
             )
-            buf = torch.cat([st["idx"][pos].to(torch.float32)[:, None], scores[:, None],
-                             self._breakdown(res, pos)], dim=1).cpu().numpy()
+            buf = self._result_buffer(st["idx"][pos], scores,
+                                      self._breakdown(res, pos)).cpu().numpy()
         sig = {name: buf[:, 2 + i] for i, name in enumerate(SIGNAL_ORDER)}
         rows = assemble_result_rows(self.products, buf[:, 0], buf[:, 1], sig)
         debug = {

@@ -25,6 +25,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
@@ -120,5 +122,32 @@ def load() -> ctypes.CDLL:
             lib.rrt_bm25_packed.restype = I
             lib.rrt_bm25_unpacked.argtypes = [P, P, P, P, P, F, P, I, I, I, P]
             lib.rrt_bm25_unpacked.restype = I
+            lib.rrt_stage_a_tile_winners.argtypes = [P, I, P, P, P, P, I, I, I, P]
+            lib.rrt_stage_a_tile_winners.restype = I
             _lib = lib
         return _lib
+
+
+def check_tensors(name: str, tensors: dict, dtypes: dict) -> torch.device:
+    """A kernel wrapper's input check: CUDA tensors on one device, of the
+    given dtypes, contiguous and 4-byte aligned. Returns the device."""
+    devs = {t.device for t in tensors.values()}
+    if any(t.device.type != "cuda" for t in tensors.values()):
+        raise ValueError(f"{name} needs CUDA tensors (the plain version runs on the CPU)")
+    if len(devs) != 1:
+        raise ValueError(f"{name}: all inputs must be on one device, got {sorted(map(str, devs))}")
+    for key, t in tensors.items():
+        if t.dtype != dtypes[key]:
+            raise ValueError(f"{name}: {key} must be {dtypes[key]}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name}: {key} must be 4-byte aligned")
+    return devs.pop()
+
+
+def check_launch(name: str, err: int, shape: str) -> None:
+    """Raise if a C entry returned a nonzero cudaError (a refused launch
+    never runs, and a later synchronize does not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} at {shape}")

@@ -84,22 +84,6 @@ def bm25_full_scores_packed_reference(packed_t: torch.Tensor, doc_len: torch.Ten
 
 
 # ------------------------------------------------------------------ kernels
-def _check(name: str, tensors: dict, dtypes: dict) -> torch.device:
-    devs = {t.device for t in tensors.values()}
-    if any(t.device.type != "cuda" for t in tensors.values()):
-        raise ValueError(f"{name} needs CUDA tensors (the plain version runs on the CPU)")
-    if len(devs) != 1:
-        raise ValueError(f"{name}: all inputs must be on one device, got {sorted(map(str, devs))}")
-    for key, t in tensors.items():
-        if t.dtype != dtypes[key]:
-            raise ValueError(f"{name}: {key} must be {dtypes[key]}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-        if t.data_ptr() % 4:
-            raise ValueError(f"{name}: {key} must be 4-byte aligned")
-    return devs.pop()
-
-
 def _check_query(name: str, q_terms: torch.Tensor, q_idf: torch.Tensor) -> int:
     if q_terms.dim() != 1 or q_idf.shape != q_terms.shape:
         raise ValueError(f"{name}: q_terms and q_idf must share a (Q,) shape, got "
@@ -116,11 +100,6 @@ def _check_sizes(name: str, n: int, l: int) -> None:
         raise ValueError(f"{name}: N={n}, L={l} not in 1..2^31-1, 0..2^31-1")
 
 
-def _launched(name: str, err: int, shape: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} at {shape}")
-
-
 def bm25_full_scores_packed_kernel(packed_t: torch.Tensor, doc_len: torch.Tensor,
                                    q_terms: torch.Tensor, q_idf: torch.Tensor,
                                    avgdl) -> torch.Tensor:
@@ -129,9 +108,10 @@ def bm25_full_scores_packed_kernel(packed_t: torch.Tensor, doc_len: torch.Tensor
     host). Launches on the current stream and raises if the launch fails."""
     global bm25_packed_kernel_launches
     name = "bm25_packed"
-    dev = _check(name, dict(packed_t=packed_t, doc_len=doc_len, q_terms=q_terms, q_idf=q_idf),
-                 dict(packed_t=torch.int32, doc_len=torch.float32, q_terms=torch.int32,
-                      q_idf=torch.float32))
+    dev = kernels.check_tensors(
+        name, dict(packed_t=packed_t, doc_len=doc_len, q_terms=q_terms, q_idf=q_idf),
+        dict(packed_t=torch.int32, doc_len=torch.float32, q_terms=torch.int32,
+             q_idf=torch.float32))
     q = _check_query(name, q_terms, q_idf)
     if packed_t.dim() != 2 or doc_len.shape != (packed_t.shape[1],):
         raise ValueError(f"{name}: packed_t must be (L, N) and doc_len (N,), got "
@@ -145,7 +125,7 @@ def bm25_full_scores_packed_kernel(packed_t: torch.Tensor, doc_len: torch.Tensor
         err = lib.rrt_bm25_packed(packed_t.data_ptr(), doc_len.data_ptr(), q_terms.data_ptr(),
                                   q_idf.data_ptr(), float(avgdl), out.data_ptr(), n, l, q,
                                   stream)
-    _launched(name, err, f"L={l} N={n} Q={q}")
+    kernels.check_launch(name, err, f"L={l} N={n} Q={q}")
     bm25_packed_kernel_launches += 1
     return out
 
@@ -157,10 +137,11 @@ def bm25_full_scores_kernel(doc_terms: torch.Tensor, doc_tf: torch.Tensor,
     contract as the plain version, CUDA tensors only, any N."""
     global bm25_unpacked_kernel_launches
     name = "bm25_unpacked"
-    dev = _check(name, dict(doc_terms=doc_terms, doc_tf=doc_tf, doc_len=doc_len,
-                            q_terms=q_terms, q_idf=q_idf),
-                 dict(doc_terms=torch.int32, doc_tf=torch.float32, doc_len=torch.float32,
-                      q_terms=torch.int32, q_idf=torch.float32))
+    dev = kernels.check_tensors(
+        name, dict(doc_terms=doc_terms, doc_tf=doc_tf, doc_len=doc_len, q_terms=q_terms,
+                   q_idf=q_idf),
+        dict(doc_terms=torch.int32, doc_tf=torch.float32, doc_len=torch.float32,
+             q_terms=torch.int32, q_idf=torch.float32))
     q = _check_query(name, q_terms, q_idf)
     if doc_terms.dim() != 2 or doc_tf.shape != doc_terms.shape \
             or doc_len.shape != (doc_terms.shape[0],):
@@ -176,7 +157,7 @@ def bm25_full_scores_kernel(doc_terms: torch.Tensor, doc_tf: torch.Tensor,
         err = lib.rrt_bm25_unpacked(doc_terms.data_ptr(), doc_tf.data_ptr(), doc_len.data_ptr(),
                                     q_terms.data_ptr(), q_idf.data_ptr(), float(avgdl),
                                     out.data_ptr(), n, l, q, stream)
-    _launched(name, err, f"N={n} L={l} Q={q}")
+    kernels.check_launch(name, err, f"N={n} L={l} Q={q}")
     bm25_unpacked_kernel_launches += 1
     return out
 

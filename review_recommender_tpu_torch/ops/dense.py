@@ -40,9 +40,17 @@ def dense_scores(emb: torch.Tensor, qvec: torch.Tensor, valid: torch.Tensor) -> 
 def dense_topk(emb: torch.Tensor, qvec: torch.Tensor, valid: torch.Tensor,
                pool: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-`pool` rows by cosine score: (scores, idx) descending; tail
-    scores are -inf when fewer than `pool` rows are valid."""
+    scores are -inf when fewer than `pool` rows are valid. qvec (D,) or
+    (B, D): one (N, D) x (D, B) product for the batch."""
     sims = dense_scores(emb, qvec, valid)
     return stable_topk(sims, min(int(pool), sims.shape[-1]))
+
+
+def dense_topk_batched(emb: torch.Tensor, qvecs: torch.Tensor, valid: torch.Tensor,
+                       pool: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """qvecs (B, D) -> (B, pool) scores and row ids (`ops/dense.py:
+    dense_topk_batched` of the JAX package): dense_topk on a batch."""
+    return dense_topk(emb, qvecs, valid, pool)
 
 
 def striped_topk(sims: torch.Tensor, pool: int,
@@ -81,17 +89,21 @@ def slice_corpus_for_striped(emb: torch.Tensor, valid: torch.Tensor,
 def dense_striped_topk_scan(emb_s: torch.Tensor, valid_s: torch.Tensor,
                             qvec: torch.Tensor,
                             pool: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Striped pool over the (s, G, D) slices for one query qvec (D,).
+    """Striped pool over the (s, G, D) slices for qvec (D,) or a batch
+    (B, D).
 
     The JAX scan folds slice r into running per-stripe (max, argmax) with a
     strict `>`, so the first slice wins ties and an all-invalid stripe keeps
-    (-inf, 0). Scoring every slice at once and taking argmax over the slice
-    axis (first maximum) gives the same pair. Returns (scores (pool,) f32
-    descending, rows (pool,) int64 with row = r*G + g)."""
+    (-inf, 0). Scoring every slice at once, in one (s*G, D) x (D, B)
+    product, and taking argmax over the slice axis (first maximum) gives
+    the same pair for each query. Returns (scores (..., pool) f32
+    descending, rows (..., pool) int64 with row = r*G + g)."""
     s, g, d = emb_s.shape
-    sims = matmul_f32(emb_s.reshape(s * g, d), qvec.to(emb_s.dtype).reshape(d, 1))
-    sims = torch.where(valid_s, sims.reshape(s, g), NEG_INF)
-    best_r = sims.argmax(dim=0)
+    q = qvec.to(emb_s.dtype).reshape(-1, d)  # (B, D)
+    sims = matmul_f32(emb_s.reshape(s * g, d), q.T).reshape(s, g, -1)
+    sims = torch.where(valid_s[..., None], sims, NEG_INF)
+    best_r = sims.argmax(dim=0)  # (G, B)
     best = torch.gather(sims, 0, best_r[None]).squeeze(0)
-    top, gi = stable_topk(best, min(int(pool), g))
-    return top, best_r[gi] * g + gi
+    top, gi = stable_topk(best.T, min(int(pool), g))  # (B, pool)
+    rows = torch.gather(best_r.T, 1, gi) * g + gi
+    return top.reshape(*qvec.shape[:-1], -1), rows.reshape(*qvec.shape[:-1], -1)

@@ -13,6 +13,11 @@ Counterpart of `review_recommender_tpu/ops/fusion.py:34-150`:
 Statistics run over valid lanes only. A NaN avg_stars in a valid lane makes
 the Bayesian mean NaN and zeroes the prior's minmax lane, as in the JAX
 package and the reference.
+
+Every input may carry leading batch axes, (B, P) for B queries: each
+statistic reduces over the pool axis (the last) of its own row, which is
+what the JAX package gets from vmap. The weights are Python floats shared
+by the batch, or (B, 1) f32 tensors, one set per query.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from review_recommender_tpu_torch.utils.numerics import minmax_normalize_masked
 
 class FusionWeights(NamedTuple):
     """Fusion knobs as plain floats (torch takes Python scalars in f32 ops,
-    so there are no device scalars to cache)."""
+    so there are no device scalars to cache), or as (B, 1) f32 tensors for
+    per-query knobs (engine/search.py:_fused_packed_pw)."""
 
     w_dense: float
     w_bm25: float
@@ -46,7 +52,7 @@ class FusionWeights(NamedTuple):
 
 
 class FusionResult(NamedTuple):
-    final: torch.Tensor  # (P,) f32, -inf on invalid lanes
+    final: torch.Tensor  # (..., P) f32, -inf on invalid lanes
     dense: torch.Tensor
     bm25: torch.Tensor
     rerank: torch.Tensor
@@ -56,11 +62,12 @@ class FusionResult(NamedTuple):
     gate: torch.Tensor
 
 
-def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+def _f32(x, like: torch.Tensor) -> torch.Tensor:
+    """A float or a (B, 1) tensor as f32 on like's device."""
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
 
 
-def _trust(n: torch.Tensor, min_reviews: float, sat: float = 80.0) -> torch.Tensor:
+def _trust(n: torch.Tensor, min_reviews, sat: float = 80.0) -> torch.Tensor:
     """Trust with the engine's saturation of 80 reviews."""
     ramp = torch.clamp(n / torch.clamp(_f32(min_reviews, n), min=1.0), 0.0, 1.0)
     satv = torch.clamp(torch.log1p(n) / torch.log1p(_f32(sat, n)), max=1.0)
@@ -68,16 +75,16 @@ def _trust(n: torch.Tensor, min_reviews: float, sat: float = 80.0) -> torch.Tens
 
 
 def fuse_candidates(
-    dense_raw: torch.Tensor,  # (P,) pool cosine scores
-    bm25_raw: torch.Tensor,  # (P,)
-    rerank_raw: torch.Tensor,  # (P,) cross-encoder scores in the first lanes
-    rerank_mask: torch.Tensor,  # (P,) bool
-    best_raw: torch.Tensor,  # (P,)
+    dense_raw: torch.Tensor,  # (..., P) pool cosine scores
+    bm25_raw: torch.Tensor,  # (..., P)
+    rerank_raw: torch.Tensor,  # (..., P) cross-encoder scores in the first lanes
+    rerank_mask: torch.Tensor,  # (..., P) bool
+    best_raw: torch.Tensor,  # (..., P)
     has_snippets: bool,
-    n_reviews: torch.Tensor,  # (P,) f32
-    avg_stars: torch.Tensor,  # (P,) f32, NaN allowed
-    gate: torch.Tensor,  # (P,) f32
-    cand_valid: torch.Tensor,  # (P,) bool
+    n_reviews: torch.Tensor,  # (..., P) f32
+    avg_stars: torch.Tensor,  # (..., P) f32, NaN allowed
+    gate: torch.Tensor,  # (..., P) f32
+    cand_valid: torch.Tensor,  # (..., P) bool
     w: FusionWeights,
 ) -> FusionResult:
     valid = cand_valid
@@ -86,13 +93,13 @@ def fuse_candidates(
     bm25 = minmax_normalize_masked(bm25_raw, valid)
 
     stars_masked = torch.where(valid, avg_stars, float("nan"))
-    gmean = torch.nanmean(stars_masked)
+    gmean = torch.nanmean(stars_masked, dim=-1, keepdim=True)
     prior_c = _f32(w.prior_c, dense_raw)
     prior_rating = ((avg_stars * n_reviews) + (gmean * prior_c)) / (
         n_reviews + prior_c + 1e-9
     )
     log_n = torch.log1p(n_reviews)
-    max_log_n = torch.where(valid, log_n, 0.0).max()
+    max_log_n = torch.where(valid, log_n, 0.0).amax(dim=-1, keepdim=True)
     prior_volume = log_n / (max_log_n + 1e-9)
     prior = minmax_normalize_masked(prior_rating, valid) * 0.7 + 0.3 * prior_volume
     prior = torch.where(valid, prior, 0.0).to(torch.float32)
@@ -120,7 +127,7 @@ def fuse_candidates(
 
 
 def final_topk(result: FusionResult, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stable descending top-k of the fused scores: ties keep pool order
-    (dense-score order), like pandas' stable sort in the reference and
-    `lax.top_k` in the JAX package."""
-    return stable_topk(result.final, min(int(k), result.final.shape[0]))
+    """Stable descending top-k of the fused scores over the pool axis: ties
+    keep pool order (dense-score order), like pandas' stable sort in the
+    reference and `lax.top_k` in the JAX package."""
+    return stable_topk(result.final, min(int(k), result.final.shape[-1]))

@@ -13,13 +13,16 @@ _BIG = 3.4e38
 
 
 def minmax_normalize_masked(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Min-max over the `valid` positions only; invalid positions give 0.
-    A non-finite bound (a NaN or inf in a valid lane) or a range below
-    1e-12 gives all zeros, as in the reference."""
+    """Min-max over the `valid` positions of the last axis only; invalid
+    positions give 0. A non-finite bound (a NaN or inf in a valid lane) or
+    a range below 1e-12 gives the row all zeros, as in the reference.
+    Leading axes are a batch: each row has its own bounds (the JAX
+    package's vmap)."""
     xf = x.to(torch.float32)
-    lo = torch.where(valid, xf, _BIG).min()
-    hi = torch.where(valid, xf, -_BIG).max()
-    good = valid.any() & torch.isfinite(lo) & torch.isfinite(hi) & ((hi - lo) >= 1e-12)
+    lo = torch.where(valid, xf, _BIG).amin(dim=-1, keepdim=True)
+    hi = torch.where(valid, xf, -_BIG).amax(dim=-1, keepdim=True)
+    good = (valid.any(dim=-1, keepdim=True) & torch.isfinite(lo) & torch.isfinite(hi)
+            & ((hi - lo) >= 1e-12))
     scaled = (xf - lo) / (hi - lo + 1e-12)
     out = torch.where(good, scaled, torch.zeros_like(xf))
     return torch.where(valid, out, 0.0).to(torch.float32)

@@ -136,13 +136,14 @@ def test_refuses_what_is_not_ported(engines):
 
 
 _HYGIENE = """
-import json, sys, torch
+import json, sys, numpy as np, torch
 from review_recommender_tpu_torch.engine.search import SearchEngine
 from review_recommender_tpu_torch.index.build import synth_product_index
 from review_recommender_tpu_torch.index.schema import IndexBundle
 from review_recommender_tpu_torch.models.bert import BertConfig
 from review_recommender_tpu_torch.models.encoder import BiEncoder, CrossEncoder
-from review_recommender_tpu_torch.ops import attention, bm25_kernel
+from review_recommender_tpu_torch.ops import attention, bm25_kernel, stage_a
+from review_recommender_tpu_torch.ops.fusion import FusionWeights
 p = synth_product_index(400, 64, 300, 12, seed=0, text_chars=200)
 cfg = BertConfig.tiny(vocab_size=300)
 eng = SearchEngine(IndexBundle(products=p), device="cpu",
@@ -151,22 +152,32 @@ eng = SearchEngine(IndexBundle(products=p), device="cpu",
 n = [len(eng.run_search("t12 t345 t7 t1234", k=10, rerank_k=r)[0]) for r in (0, 50)]
 idx, scores = eng.search_bm25("t12 t345 t7 t1234", k=10)
 n.append(int((scores > 0).sum()))
+qv = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 64)).astype(np.float32))
+rows, finals = eng.query_fused_batched(qv.numpy(), ["t12 t345", "t7 t1234"],
+                                       FusionWeights.make(), 150, 10)
+n.append(int(torch.isfinite(finals).sum()))
+a = eng.arrays
+_d, ids, _b = stage_a.stage_a_fused(a["emb"], a["valid"], a["doc_terms"], a["doc_bm25"], qv,
+                                    torch.tensor([[12, 345], [7, 1234]], dtype=torch.int32), 16)
+n.append(ids.numel())
 bad = [m for m in ("jax", "flax", "pandas", "pyarrow", "review_recommender_tpu.native")
        if m in sys.modules]
 launches = (attention.mha_kernel_launches + bm25_kernel.bm25_packed_kernel_launches
-            + bm25_kernel.bm25_unpacked_kernel_launches)
+            + bm25_kernel.bm25_unpacked_kernel_launches + stage_a.stage_a_kernel_launches)
 print(json.dumps({"rows": n, "bad": bad, "launches": launches}))
 """
 
 
 def test_port_imports_no_jax_pandas_or_pyarrow():
     """A fresh interpreter imports the port and runs a tiny CPU run_search
-    (bf16 towers and corpus, both rerank settings) and search_bm25 without
-    loading jax, flax, pandas, pyarrow or the JAX package's native module."""
+    (bf16 towers and corpus, both rerank settings), search_bm25,
+    query_fused_batched and stage_a_fused without loading jax, flax,
+    pandas, pyarrow or the JAX package's native module, and without a
+    kernel launch."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert res == {"rows": [10, 10, 10], "bad": [], "launches": 0}
+    assert res == {"rows": [10, 10, 10, 20, 32], "bad": [], "launches": 0}

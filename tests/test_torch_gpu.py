@@ -1,5 +1,5 @@
-"""The CUDA kernels (fused attention, packed and unpacked BM25) against
-their plain torch versions, on the card.
+"""The CUDA kernels (fused attention, packed and unpacked BM25, the fused
+stage-A tile pass) against their plain torch versions, on the card.
 
 Needs an NVIDIA Hopper GPU with nvcc; every test skips where
 torch.cuda.is_available() is false. The file imports no jax, so on a
@@ -11,6 +11,9 @@ Attention: tolerance 2e-2 in bf16/f16 (tests/test_attention.py's bf16
 bound); the kernel rounds like the reference except where the f32 sum order
 moves a value across a rounding boundary. BM25: bitwise equal scores (tf_q
 sums integers; every other step is rounded alone, in the reference's order).
+Stage A: winner scores within 1e-5 (exact bf16/f32 products summed in f32 in
+another order than cuBLAS's); a winner id may differ only where the plain
+version's scores of the two rows are within that tolerance (a near tie).
 """
 import numpy as np
 import pytest
@@ -18,7 +21,9 @@ import torch
 
 from review_recommender_tpu_torch.ops import attention as tatt
 from review_recommender_tpu_torch.ops import bm25_kernel as tbk
+from review_recommender_tpu_torch.ops import stage_a as tsa
 from review_recommender_tpu_torch.ops.bm25 import bm25_full_scores, masked_topk
+from review_recommender_tpu_torch.ops.dense import matmul_f32
 
 pytestmark = pytest.mark.gpu
 
@@ -145,3 +150,69 @@ def test_bm25_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="query slots"):
         long_q = torch.zeros(65, dtype=torch.int32, device=cuda)
         tbk.bm25_full_scores_packed_kernel(packed, dl, long_q, long_q.float(), avgdl)
+
+
+def _stage_a_inputs(seed, n, d, b, dtype, device):
+    """Unit-norm rows and queries; holes in the validity; when there is a
+    second tile, it keeps 5 valid rows only (its later rounds repeat ids)."""
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((n, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    valid = rng.random(n) < 0.97
+    if n > tsa.TILE_N:
+        hi = min(n, 2 * tsa.TILE_N)
+        valid[tsa.TILE_N:hi] = False
+        valid[tsa.TILE_N + rng.choice(hi - tsa.TILE_N, 5, replace=False)] = True
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return (torch.from_numpy(emb).to(device, dtype), torch.from_numpy(valid).to(device),
+            torch.from_numpy(q).to(device))
+
+
+def _plain_tile_scores(emb, valid, qvecs, local_ids):
+    """The plain version's score of each winner id: (n_tiles, 16, B)."""
+    n, b = emb.shape[0], qvecs.shape[0]
+    tiles = -(-n // tsa.TILE_N)
+    sims = torch.where(valid[:, None], matmul_f32(emb, qvecs.to(emb.dtype).T), tsa.NEG)
+    sims = torch.nn.functional.pad(sims, (0, 0, 0, tiles * tsa.TILE_N - n), value=tsa.NEG)
+    return torch.gather(sims.reshape(tiles, tsa.TILE_N, b), 1, local_ids.long())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d,b", [(200_704, 384, 32), (2 * 2048 + 10, 64, 1),
+                                   (10_000, 128, 128)])
+def test_stage_a_kernel_matches_reference(cuda, dtype, n, d, b):
+    emb, valid, qvecs = _stage_a_inputs(n + d + b, n, d, b, dtype, cuda)
+    before = tsa.stage_a_kernel_launches
+    ks, ki = tsa.stage_a_tile_winners_kernel(emb, valid, qvecs)
+    ps, pi = tsa.stage_a_tile_winners_reference(emb, valid, qvecs)
+    torch.cuda.synchronize()
+    assert tsa.stage_a_kernel_launches == before + 1
+    tiles = -(-n // tsa.TILE_N)
+    assert ks.shape == ki.shape == (tiles, tsa.M_PER_TILE, b)
+    assert ks.dtype == torch.float32 and ki.dtype == torch.int32
+    assert (ks - ps).abs().max().item() <= 1e-5
+    differ = ki != pi
+    assert differ.float().mean().item() <= 0.01
+    if differ.any():  # near ties only
+        gap = _plain_tile_scores(emb, valid, qvecs, ki) - _plain_tile_scores(emb, valid, qvecs, pi)
+        assert gap[differ].abs().max().item() <= 1e-5
+    if n > tsa.TILE_N:  # the exhausted tile repeats local row 0, as the plain version does
+        assert torch.equal(ki[1, 5:], pi[1, 5:]) and (ki[1, 5:] == 0).all()
+        assert (ks[1, 5:] == tsa.NEG).all()
+
+
+def test_stage_a_kernel_rejects_what_it_does_not_take(cuda):
+    emb, valid, qvecs = _stage_a_inputs(0, 4096, 64, 8, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tsa.stage_a_tile_winners_kernel(emb.cpu(), valid.cpu(), qvecs.cpu())
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tsa.stage_a_tile_winners_kernel(emb.half(), valid, qvecs)
+    with pytest.raises(ValueError, match="qvecs must be torch.float32"):
+        tsa.stage_a_tile_winners_kernel(emb, valid, qvecs.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        tsa.stage_a_tile_winners_kernel(emb.T.contiguous().T, valid, qvecs)
+    with pytest.raises(ValueError, match="not taken"):
+        tsa.stage_a_tile_winners_kernel(emb[:, :60].contiguous(), valid, qvecs[:, :60].contiguous())
+    with pytest.raises(ValueError, match="shape|must be"):
+        tsa.stage_a_tile_winners_kernel(emb, valid[:100], qvecs)
