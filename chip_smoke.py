@@ -11,7 +11,13 @@ line, and nothing is caught and passed over:
   2 build    compile csrc/*.cu with nvcc for sm_90a (build/torch_kernels/)
   3 kernel   the fused-attention kernel against its plain torch version at
              the main path's shapes: max abs error (tolerance 2e-2, bf16) and
-             the median of 50 CUDA-event-timed runs of each
+             the median of 50 CUDA-event-timed runs of each, from an idle
+             device and behind a device spin; beside them
+             scaled_dot_product_attention with the key bias as an additive
+             mask (a yardstick the port never calls: library_ms, its error
+             against the plain version, the kernel's speed-up over it), the
+             roofline bound and the exponential floor (exp_floor_ms: B*H*S*S
+             exponentials at the MUFU rate)
   4 slice    SearchEngine.run_search at full width: 200k-doc synthetic corpus
              (D=384, 64 Zipf terms/doc, vocab 30k, 2000-char texts), random
              bge-small bi-encoder and MiniLM-L6 cross-encoder in bf16,
@@ -79,6 +85,10 @@ N_QUERIES, K, RERANK_K, REPS = 100, 10, 50, 50
 # published H100 SXM dense bf16 peak, HBM3 bandwidth and f32 CUDA-core peak
 # (at the 700 W limit)
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES, PEAK_FP32_FLOPS = 989e12, 3.35e12, 67e12
+# attention's exponentials: 16 MUFU ex2 per SM per clock (the CUDA C++
+# Programming Guide's throughput table, compute capability 9.0), 132 SMs at
+# the 1.98 GHz maximum boost clock (assumed: the clock under load is not read)
+PEAK_EXP_RATE = 132 * 16 * 1.98e9
 # BM25 scan ceilings, at the 1.98 GHz maximum boost clock (assumed: the
 # clock under load is not read). The SASS of csrc/bm25_full.cu spends three
 # instructions per (posting, query slot) compare: ISETP, FSEL, FADD. Each
@@ -175,35 +185,64 @@ def _median_ms(torch, fn, reps, before=None):
     return float(np.median(times))
 
 
+def _sdpa(torch, q, k, v, bias, h):
+    """The library call that computes mha_kernel's function: q/k/v viewed
+    as (B, H, S, D), the key bias as an additive mask in the input type."""
+    b, s, hd = q.shape
+    split = lambda t: t.view(b, s, h, hd // h).transpose(1, 2)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        split(q), split(k), split(v), attn_mask=bias[:, None, None, :].to(q.dtype))
+    return out.transpose(1, 2).reshape(b, s, hd)
+
+
 def phase_kernel(torch):
+    """Each time twice: from an idle device (the host launch included, as in
+    earlier runs: ms, plain_ms, library_ms) and queued behind a device spin
+    (the device's work only: *device_ms, which the shares use)."""
     from review_recommender_tpu_torch.ops import attention as A
 
+    spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
     results = []
     for i, (b, s, h, d) in enumerate(SHAPES):
         q, k, v, bias = _attn_inputs(torch, 100 + i, b, s, h, d)
         with torch.inference_mode():
             got = A.mha_kernel(q, k, v, bias, h)
             ref = A.mha_reference(q, k, v, bias, h)
+            lib = _sdpa(torch, q, k, v, bias, h)
             torch.cuda.synchronize()
             check(got.shape == ref.shape and got.dtype == torch.bfloat16, "kernel",
                   f"output {tuple(got.shape)} {got.dtype}")
             check(bool(torch.isfinite(got.float()).all()), "kernel", "non-finite output")
             err = float((got.float() - ref.float()).abs().max())
+            lib_err = float((lib.float() - ref.float()).abs().max())
             for _ in range(3):  # warm-up
                 A.mha_kernel(q, k, v, bias, h)
                 A.mha_reference(q, k, v, bias, h)
-            ms = _median_ms(torch, lambda: A.mha_kernel(q, k, v, bias, h), REPS)
-            plain_ms = _median_ms(torch, lambda: A.mha_reference(q, k, v, bias, h), REPS)
+                _sdpa(torch, q, k, v, bias, h)
+            runs = {"": lambda: A.mha_kernel(q, k, v, bias, h),
+                    "plain_": lambda: A.mha_reference(q, k, v, bias, h),
+                    "library_": lambda: _sdpa(torch, q, k, v, bias, h)}
+            times = {}
+            for name, fn in runs.items():
+                times[f"{name}ms"] = _median_ms(torch, fn, REPS)
+                times[f"{name}device_ms"] = _median_ms(torch, fn, REPS, before=spin)
         flops = A.attention_flops(b, s, h, d)
         nbytes = A.attention_bytes(b, s, h, d, q.element_size())
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-        row = {"B": b, "S": s, "H": h, "D": d, "max_abs_err": err, "tol": KERNEL_TOL,
-               "ms": ms, "plain_ms": plain_ms, "kernel_tflops": flops / ms / 1e9,
-               "flops": flops, "bytes": nbytes, "roofline_share": bound_ms / ms,
+        exp_floor_ms = b * h * s * s / PEAK_EXP_RATE * 1e3
+        dev = times["device_ms"]
+        row = {"B": b, "S": s, "H": h, "D": d, "max_abs_err": err, "tol": KERNEL_TOL, **times,
+               "library_max_abs_err": lib_err,
+               "speedup_vs_library": times["library_device_ms"] / dev,
+               "kernel_tflops": flops / dev / 1e9, "flops": flops, "bytes": nbytes,
+               "bound_ms": bound_ms, "roofline_share": bound_ms / dev,
                "bound": "compute" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES
-               else "memory", "reps": REPS}
+               else "memory", "exp_floor_ms": exp_floor_ms,
+               "exp_floor_share": exp_floor_ms / dev, "reps": REPS}
         emit({"phase": "kernel", **row})
         check(err <= KERNEL_TOL, "kernel", f"max abs error {err} > {KERNEL_TOL} at {row}")
+        check(lib_err <= KERNEL_TOL, "kernel",
+              f"scaled_dot_product_attention differs from the plain version by {lib_err}")
         results.append(row)
     return results
 
@@ -686,7 +725,11 @@ def phase_bm25_slice(torch, engine_a):
 def _bm25_kernel_entries(rows, launches, err):
     """The kernels-line entries of the two BM25 kernels: launches of phase
     6's main path, the largest error of every comparison, and the times at
-    the headline shape (the first of BM25_SHAPES)."""
+    the headline shape (the first of BM25_SHAPES). The bound is the posting
+    bytes over HBM bandwidth: the function needs one membership test and one
+    multiply-add per posting, far below any peak (the 3 + 3Q instructions
+    per posting of scan_cost are the kernel's, not the function's). No
+    single PyTorch call computes a BM25 scan: library_ms is null."""
     out = []
     for name, line in (("bm25_packed", 167), ("bm25_unpacked", 35)):
         mine = [r for r in rows if r["kernel"] == name]
@@ -697,6 +740,8 @@ def _bm25_kernel_entries(rows, launches, err):
             "launches": launches[name],
             "max_abs_err": max([err[name]] + [r["max_abs_err"] for r in mine]),
             "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"],
+            "bound_ms": mine[0]["bytes"] / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
+            "library_ms": None,
         })
     return out
 
@@ -974,7 +1019,8 @@ def phase_stage_a(torch, engine, qvecs, qterms):
                               REPS, before=spin)
     by_b[b] = ms["kernel"]
     nbytes = emb.numel() * emb.element_size()
-    flops = 2 * emb.numel() * b
+    flops = 2 * emb.numel() * b  # bf16 products: the tensor-core peak bounds them
+    bound = {"bytes": nbytes / PEAK_HBM_BYTES * 1e3, "operations": flops / PEAK_BF16_FLOPS * 1e3}
     emit({"phase": "stage_a", "N": n, "tiles": tiles, "D": emb.shape[1], "B": b, "pool": POOL,
           "tile_pass": tile_row, "stage_a_fused_vs_reference": fused_row,
           "exhausted_tile_case": small, **{f"{k}_ms": v for k, v in ms.items()},
@@ -1011,7 +1057,9 @@ def phase_stage_a(torch, engine, qvecs, qterms):
             "replaces": "review_recommender_tpu/ops/pallas/stage_a_kernel.py:61",
             "launches": launches["stage_a_fused"],
             "max_abs_err": max(tile_row["max_abs_err"], small["max_abs_err"]),
-            "ms": ms["kernel"], "plain_ms": ms["plain"]}
+            "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get),
+            "library_ms": None}  # no single PyTorch call computes stage A
 
 
 def main() -> int:
@@ -1050,7 +1098,10 @@ def main() -> int:
         "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:64",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "ms": main_shape["device_ms"], "plain_ms": main_shape["plain_device_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": "operations" if main_shape["bound"] == "compute" else "bytes",
+        "library_ms": main_shape["library_device_ms"],
     }] + _bm25_kernel_entries(bm25_rows, bm25_launches, bm25_err) + [stage_a_entry]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""Time one checkout's attention kernel (review_recommender_tpu_torch) on one
+NVIDIA GPU, for an A/B of two versions on the same card.
+
+    python3 examples/torch_attention_ab.py [ROOT] [--tag NAME]
+
+ROOT is the root of a checkout (default: this one). Its port is imported
+from there and its kernels are built there, so two checkouts can be timed
+in turns within one session (A, B, B, A), each run in its own process.
+For each of chip_smoke.py's attention shapes (bf16, the same seeded inputs
+as its phase 3) it prints one JSON line:
+
+  device_ms  median of 50 CUDA-event times of one launch queued behind a
+             0.1 ms device spin: the device's work only
+  idle_ms    median of 50 CUDA-event times of one call from an idle device,
+             host launch included (chip_smoke.py phase 3's "ms")
+  host_us    host wall-clock per call over 200 back-to-back calls, ended by
+             a synchronize (the enqueue rate)
+
+and first a line with the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+SHAPES = [(64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128)]
+REPS, HOST_CALLS, SPIN_CYCLES = 50, 200, 200_000
+
+
+def _median_ms(torch, fn, before=None) -> float:
+    times = []
+    for _ in range(REPS):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--tag", default="")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_attention_ab: needs a CUDA GPU", file=sys.stderr)
+        return 1
+    from review_recommender_tpu_torch import kernels
+    from review_recommender_tpu_torch.ops import attention as A
+
+    if not str(Path(A.__file__).resolve()).startswith(str(root)):
+        print(f"torch_attention_ab: imported {A.__file__}, not from {root}", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    kernels.build()
+    print(json.dumps({"tag": args.tag, "root": str(root), "card": smi}), flush=True)
+    spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
+    for i, (b, s, h, d) in enumerate(SHAPES):
+        rng = np.random.default_rng(100 + i)  # chip_smoke.py:_attn_inputs
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(np.float32))
+                   .to("cuda", torch.bfloat16) for _ in range(3))
+        lens = rng.integers(1, s + 1, size=b)
+        bias = np.where(np.arange(s)[None, :] < lens[:, None], 0.0, -1e30).astype(np.float32)
+        if b > 1:
+            bias[-1] = -1e30
+        bias = torch.from_numpy(bias).to("cuda")
+        run = lambda: A.mha_kernel(q, k, v, bias, h)
+        with torch.inference_mode():
+            for _ in range(3):
+                run()
+            device_ms = _median_ms(torch, run, before=spin)
+            idle_ms = _median_ms(torch, run)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                run()
+            torch.cuda.synchronize()
+            host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+        print(json.dumps({"tag": args.tag, "B": b, "S": s, "H": h, "D": d,
+                          "device_ms": device_ms, "idle_ms": idle_ms, "host_us": host_us,
+                          "reps": REPS}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

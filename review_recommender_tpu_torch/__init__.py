@@ -4,6 +4,8 @@ A port of `review_recommender_tpu` (the JAX/Pallas reference, which stays
 in the repository unchanged) to PyTorch on an NVIDIA Hopper GPU. Module
 names mirror the JAX package so each counterpart is easy to find:
 
+    config        the knobs the engine reads (environment variables, the
+                  JAX package's names and defaults)
     device        explicit device resolution (no silent CPU fallback)
     utils         text + numeric helpers, stage timer
     index         numpy index dataclasses, synthetic corpus, BM25 stats
@@ -15,9 +17,10 @@ names mirror the JAX package so each counterpart is easy to find:
     engine        featurizer, host hooks, SearchEngine.run_search,
                   search_bm25 and search_dense
 
-The package imports torch, numpy and the standard library. From the JAX
-package it imports only `review_recommender_tpu.config`, which is
-jax-free; it never imports jax, flax, pandas or pyarrow.
+The package imports torch, numpy and the standard library, and nothing of
+the JAX package, jax, flax, pandas or pyarrow. Its entry points
+(`SearchEngine`, `BiEncoder`, `CrossEncoder`) run on "cuda" unless the
+caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

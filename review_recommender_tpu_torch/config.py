@@ -1,0 +1,67 @@
+"""The knobs the port reads, from the environment.
+
+The same variable names and defaults as the JAX package's config
+(`review_recommender_tpu/config.py`), limited to what the engine reads:
+embedding dtype, gate and dense-pool modes, the query-term cap, the
+feature flags, the least candidate pool and the search defaults. Each
+knob is read once, when this module is imported; tests patch the
+`config` singleton.
+"""
+from __future__ import annotations
+
+import os
+
+
+def _env_bool(name: str, default: str = "false") -> bool:
+    return os.getenv(name, default).lower() == "true"
+
+
+def _env_int(name: str, default: str) -> int:
+    return int(os.getenv(name, default))
+
+
+def _env_float(name: str, default: str) -> float:
+    return float(os.getenv(name, default))
+
+
+class Config:
+    # device dtype of the corpus embedding matrix
+    EMB_DTYPE = os.getenv("EMB_DTYPE", "bfloat16")
+    # "device" (term-membership gate, no host sync) or "host" (exact
+    # substring semantics, computed on the candidate pool host-side)
+    GATE_MODE = os.getenv("GATE_MODE", "device")
+    # dense candidate pool: "exact", "striped" or "auto" (striped from
+    # DENSE_POOL_AUTO_MIN padded rows on, exact below)
+    DENSE_POOL_MODE = os.getenv("DENSE_POOL_MODE", "auto")
+    DENSE_POOL_AUTO_MIN = _env_int("DENSE_POOL_AUTO_MIN", "65536")
+    DENSE_POOL_STRIPES = _env_int("DENSE_POOL_STRIPES", "8192")
+    # padded query terms for the BM25 and gate device ops
+    QUERY_TERMS_CAP = _env_int("QUERY_TERMS_CAP", "32")
+
+    ENABLE_BM25 = _env_bool("ENABLE_BM25", "true")
+    ENABLE_RERANKING = _env_bool("ENABLE_RERANKING", "true")
+    ENABLE_SNIPPETS = _env_bool("ENABLE_SNIPPETS", "true")
+
+    # least candidate pool of run_search (max with k and rerank_k)
+    DEFAULT_POOL_SIZE = _env_int("DEFAULT_POOL_SIZE", "150")
+    DEFAULT_K = _env_int("DEFAULT_K", "10")
+    DEFAULT_RERANK_K = _env_int("DEFAULT_RERANK_K", "50")
+    DEFAULT_MIN_REVIEWS = _env_int("DEFAULT_MIN_REVIEWS", "8")
+    DEFAULT_W_DENSE = _env_float("DEFAULT_W_DENSE", "0.55")
+    DEFAULT_W_BM25 = _env_float("DEFAULT_W_BM25", "0.20")
+    DEFAULT_W_RERANK = _env_float("DEFAULT_W_RERANK", "0.20")
+    DEFAULT_W_PRIOR = _env_float("DEFAULT_W_PRIOR", "0.20")
+    DEFAULT_W_BEST = _env_float("DEFAULT_W_BEST", "0.10")
+    DEFAULT_GATE_PENALTY = _env_float("DEFAULT_GATE_PENALTY", "0.5")
+    DEFAULT_PRIOR_C = _env_float("DEFAULT_PRIOR_C", "20.0")
+
+    @classmethod
+    def resolve_pool_mode(cls, mode: str, n_padded: int) -> str:
+        """'auto' -> 'striped' from DENSE_POOL_AUTO_MIN padded rows on,
+        'exact' below; any other mode unchanged."""
+        if mode != "auto":
+            return mode
+        return "striped" if n_padded >= cls.DENSE_POOL_AUTO_MIN else "exact"
+
+
+config = Config()

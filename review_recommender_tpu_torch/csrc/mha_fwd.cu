@@ -1,78 +1,337 @@
-// Fused multi-head attention forward for the BERT towers, for Hopper (sm_90a).
+// Fused multi-head attention forward for the BERT towers, for Hopper (sm_90a),
+// on the tensor cores.
 //
 // Replaces the TPU kernel review_recommender_tpu/ops/pallas/attention_kernel.py
 // (_mha_kernel, reached through mha_pallas). For each (batch, head) it computes
 //   softmax(Q K^T * 1/sqrt(d) + key_bias) V
-// in the same order and precision as that kernel and its XLA reference:
-//   1. f32 logits (bf16/f16 products are exact in f32), times 1/sqrt(d);
-//   2. + key_bias in f32 (0 keep, -1e30 drop);
-//   3. row max, exp, sum and divide, all f32;
-//   4. probabilities rounded to the input type;
-//   5. P V accumulated in f32, rounded to the input type on store.
-// A row whose keys are all masked has equal logits (-1e30 + x == -1e30 in f32)
-// and comes out uniform, as on the TPU; no key is skipped.
+// with q, k, v and out (B, S, H*D) row-major, as the Linear layers write them,
+// read in place (no transpose), and key_bias (B, S) f32 (0 keep, -1e30 drop).
 //
-// Layout: q, k, v and out are (B, S, H*D) row-major, as the Linear layers
-// write them; each block finds its head's columns from blockIdx and the row
-// stride H*D, so no transpose to (B, H, S, D) is made. key_bias is (B, S) f32.
+// Design. One CTA of one warpgroup (128 threads) takes 64 query rows of one
+// (b, h) and walks the keys in tiles of 64:
+//   - TMA brings the Q tile once and each K/V tile into a 2-stage ring in
+//     shared memory; an mbarrier per stage reports the bytes. The tensor maps
+//     are 3-D over (B, S, H*D) with a box of (1, 64, min(D, 64)) at column
+//     h*D, so rows from S to the tile edge arrive zero-filled and never come
+//     from the next batch. A row of the box is 64 bytes at D=32 (64B swizzle)
+//     and 128 bytes at D=64 and D=128 (128B swizzle; D=128 is two boxes);
+//     the wgmma descriptors name the same swizzle.
+//   - S = Q K^T: wgmma m64n64k16, Q and K both K-major from shared memory,
+//     f32 accumulators in registers.
+//   - Softmax in one pass over the key tiles, FlashAttention-2 style: a
+//     running row max and row sum in f32, the accumulator rescaled by
+//     exp2(m_old - m_new) when the max moves, one division by the row sum at
+//     the end. Logits are taken in log2 units (scale and bias times log2(e),
+//     then ex2.approx), which moves some roundings by an ulp of f32.
+//   - O += P V: P is the exponentials rounded to the input type, straight
+//     from the S accumulators (their layout is wgmma's A-register layout);
+//     V is the B operand from shared memory, read with the transpose bit
+//     since V is (keys, D) row-major. wgmma m64nDk16.
 //
-// What bounds it: at the cross-encoder's rerank shape (B=64, S=512, H=12,
-// D=32) QK^T and PV are 4*B*H*S*S*D = 25.8 GFLOP against ~100 MB of q, k, v
-// and out, about 256 FLOP per byte -- near the H100's bf16 ridge (~295), so
-// neither HBM nor the tensor cores alone bound a good kernel. This first
-// design keeps everything that is S x S out of device memory (the plain torch
-// version writes and re-reads a (B, H, S, S) f32 tensor, 805 MB at that
-// shape) and spends f32 CUDA-core FMAs on the two contractions, fed from
-// shared memory: it is bound by shared-memory loads and FP32 issue, not by
-// HBM. A block holds 32 query rows' full f32 logit rows (S <= 512 fits), so
-// the softmax needs no online rescaling and rounds like the TPU kernel.
-// Register micro-tiles (4 rows x 2-4 keys or 4 rows x 4 keys per lane) cut the
-// shared-memory loads per FMA; K/V rows use an odd 32-bit word stride so the
-// column walks are bank-conflict free. wgmma/TMA tiling is later work.
+// Rounding against the TPU kernel and the plain version (mha_reference):
+// those divide the exponentials by the row sum in f32 and round the
+// probabilities to the input type before P V. Here the exponentials are
+// rounded before the division, so each probability that meets V differs
+// from theirs by at most one unit in the last place of the input type
+// (bf16: 2^-8 relative); the division by the f32 row sum comes after P V.
+//
+// Semantics kept from the first kernel:
+//   - an all-masked row (the batch-bucket padding row, every bias -1e30)
+//     comes out uniform over the S real keys: (q.k)*scale - 1e30 == -1e30
+//     in f32 (also in log2 units), so its logits are all equal;
+//   - keys from S to the tile edge get logit -inf (probability exactly 0)
+//     and zero-filled V rows, never -1e30, so such a row never spreads its
+//     weight over the padding;
+//   - query rows >= S are not stored.
+//
+// What bounds it, at the cross-encoder's rerank shape (B=64, S=512, H=12,
+// D=32), on an H100 SXM:
+//   tensor cores  4*B*H*S*S*D = 25.8 GFLOP at 989 TFLOP/s          26 us
+//   HBM           q, k, v and out once each, 100.7 MB at 3.35 TB/s  30 us
+//   exponentials  B*H*S*S = 201 M at the MUFU rate of 16 per SM per
+//                 clock, 132 x 16 x 1.98 GHz = 4.2 T/s               48 us
+// At D=32 the exponential rate is the highest floor, not the tensor cores.
+// Several 128-thread CTAs are resident on an SM (~24 KB of shared memory at
+// D=32), so one CTA's softmax overlaps another's wgmma and TMA.
 //
 // The kernel allocates nothing and does not synchronise; it launches on the
 // stream it is given and the C entry returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kRows = 32;  // query rows per block
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = kRows / kWarps;  // 4
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kRows = 64;      // query rows per CTA: wgmma's M
+constexpr int kKeys = 64;      // keys per K/V tile: N of Q K^T
+constexpr int kStages = 2;     // K/V ring
 constexpr int kMaxSeq = 512;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory geometry at head dim D: a tile (64 rows, D columns) is
+// kBoxes boxes of 64 rows x kBoxCols columns, each a swizzle atom column.
+template <int D>
+struct Geo {
+  static constexpr int kBoxCols = D < 64 ? D : 64;
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kRowBytes = kBoxCols * 2;  // 64 or 128
+  static constexpr int kBoxBytes = 64 * kRowBytes;
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;  // 64 x D x 2
+  static constexpr int kKStepsPerBox = kBoxCols / 16;    // k16 steps in one box
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // wgmma: B128 = 1, B64 = 2
+  // Q, the K ring, the V ring, the bias row, 3 mbarriers, and slack to
+  // align the tiles to 1024 bytes (the 128B swizzle's period)
+  static constexpr int kSmemBytes =
+      (1 + 2 * kStages) * kTileBytes + kMaxSeq * 4 + 64 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA box from a 3-D tensor map (column, row, batch) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start, leading and stride byte offsets
+// (16-byte units), layout type in bits 62-63.
+template <uint64_t kLayout>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (kLayout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin register operands of an asynchronous wgmma in program order around
+// wgmma.fence and wgmma.wait_group.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---- wgmma wrappers (m64nNk16, f32 accumulators) ----
+// SS: A and B K-major from shared memory. RS: A from registers, B from
+// shared memory with the transpose bit (N-major).
+
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_f16(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_f16(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_f16(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_f16(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <typename T>
-struct Cvt;
+struct Mma;
 
 template <>
-struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ float2 pair(uint32_t w) {
-    __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w);
-    return __bfloat1622float2(p);
+struct Mma<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ void qk(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+    wgmma_ss_bf16(d, da, db, acc);
   }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
+  template <int N>
+  static __device__ __forceinline__ void pv(float (&d)[N], const uint32_t (&a)[4], uint64_t db) {
+    wgmma_rs_bf16(d, a, db);
   }
   static __device__ __forceinline__ uint32_t pack(float x, float y) {
-    __nv_bfloat162 p = __floats2bfloat162_rn(x, y);
+    __nv_bfloat162 p = __floats2bfloat162_rn(x, y);  // x in the low half
     return *reinterpret_cast<const uint32_t*>(&p);
   }
 };
 
 template <>
-struct Cvt<__half> {
-  static __device__ __forceinline__ float2 pair(uint32_t w) {
-    __half2 p = *reinterpret_cast<const __half2*>(&w);
-    return __half22float2(p);
+struct Mma<__half> {
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ void qk(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+    wgmma_ss_f16(d, da, db, acc);
   }
-  static __device__ __forceinline__ float round(float x) {
-    return __half2float(__float2half_rn(x));
+  template <int N>
+  static __device__ __forceinline__ void pv(float (&d)[N], const uint32_t (&a)[4], uint64_t db) {
+    wgmma_rs_f16(d, a, db);
   }
   static __device__ __forceinline__ uint32_t pack(float x, float y) {
     __half2 p = __floats2half2_rn(x, y);
@@ -80,210 +339,219 @@ struct Cvt<__half> {
   }
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Copy S rows of one head (D values of type T each, 16-byte chunks) from a
-// (B, S, H*D) tensor into shared memory as 32-bit pairs with row stride kvw
-// words; rows S..Sp-1 are zero-filled so padding contributes exactly 0.
-template <int D>
-__device__ __forceinline__ void load_head(uint32_t* dst, const uint16_t* src, long row_stride,
-                                          int S, int Sp, int kvw) {
-  constexpr int kChunks = D / 8;  // uint4 = 8 elements
-  for (int i = threadIdx.x; i < Sp * kChunks; i += kThreads) {
-    const int j = i / kChunks, c = i % kChunks;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (j < S) x = *reinterpret_cast<const uint4*>(src + (long)j * row_stride + c * 8);
-    uint32_t* row = dst + j * kvw + c * 4;
-    row[0] = x.x;
-    row[1] = x.y;
-    row[2] = x.z;
-    row[3] = x.w;
-  }
-}
-
+// Accumulator layout of wgmma m64nN (f32), per thread of the warpgroup:
+// warp w holds rows 16w..16w+15; with g = lane/4 and c = lane%4, element
+// 4i+0/4i+1 is (row g, columns 8i+2c, 8i+2c+1) and 4i+2/4i+3 the same
+// columns of row g+8. Two neighbouring 8-column blocks, packed to pairs of
+// the input type, are the A registers of one k16 step of the next wgmma.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-mha_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-               const uint16_t* __restrict__ v, const float* __restrict__ key_bias,
-               uint16_t* __restrict__ out, int S, int H, float scale) {
-  using C = Cvt<T>;
-  constexpr int kPairs = D / 2;
-  constexpr int kvw = kPairs + 1;  // odd word stride: conflict-free column walks
-  // PV lane layout: lanes cover pairs, and for D = 32 (16 pairs) two lane
-  // groups split each 32-key chunk into halves 16 rows apart (16 * 17 words
-  // = bank offset 16, so the two halves hit disjoint banks).
-  constexpr int kLanesP = kPairs < 32 ? kPairs : 32;
-  constexpr int kPairsPerLane = kPairs / kLanesP;
-  constexpr int kSplit = 32 / kLanesP;  // 1 or 2
-  constexpr int kKeysPerSplit = 32 / kSplit;
+__global__ void __launch_bounds__(kThreads, D == 128 ? 2 : 4)
+mha_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ key_bias,
+               T* __restrict__ out, int S, int H, float scale_log2) {
+  using G = Geo<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t sQ = base;
+  const uint32_t sK = base + G::kTileBytes;               // stage s at + s * kTileBytes
+  const uint32_t sV = sK + kStages * G::kTileBytes;
+  float* bias_s = reinterpret_cast<float*>(gbase + (1 + 2 * kStages) * G::kTileBytes);
+  const uint32_t bar_q = smem_u32(bias_s + kMaxSeq);      // then one per stage, 8 bytes each
+  const uint32_t bar_kv = bar_q + 8;
 
-  const int Sp = (S + 31) & ~31;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* logits = reinterpret_cast<float*>(smem);  // kRows x Sp
-  float* q_s = logits + kRows * Sp;                // kRows x D
-  float* bias_s = q_s + kRows * D;                 // Sp
-  uint32_t* kv = reinterpret_cast<uint32_t*>(bias_s + Sp);  // Sp x kvw
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int ntiles = (S + kKeys - 1) / kKeys;
+  const int col = h * D;
 
-  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  auto load_kv = [&](int stage, int tile) {
+    const uint32_t bar = bar_kv + 8 * stage;
+    mbar_expect_tx(bar, 2 * G::kTileBytes);
+#pragma unroll
+    for (int x = 0; x < G::kBoxes; ++x) {
+      const uint32_t off = stage * G::kTileBytes + x * G::kBoxBytes;
+      tma_load(sK + off, &tm_k, bar, col + x * G::kBoxCols, tile * kKeys, b);
+      tma_load(sV + off, &tm_v, bar, col + x * G::kBoxCols, tile * kKeys, b);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(bar_kv + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the bias row in log2 units; keys from S to the tile edge get -inf
+  for (int j = tid; j < ntiles * kKeys; j += kThreads)
+    bias_s[j] = j < S ? key_bias[(long)b * S + j] * kLog2e : -INFINITY;
+  __syncthreads();
+
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, G::kTileBytes);
+#pragma unroll
+    for (int x = 0; x < G::kBoxes; ++x)
+      tma_load(sQ + x * G::kBoxBytes, &tm_q, bar_q, col + x * G::kBoxCols, qt * kRows, b);
+    for (int t = 0; t < kStages && t < ntiles; ++t) load_kv(t, t);
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g+8
+  mbar_wait(bar_q, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % kStages;
+    mbar_wait(bar_kv + 8 * st, (t / kStages) & 1);
+    const uint32_t k_tile = sK + st * G::kTileBytes, v_tile = sV + st * G::kTileBytes;
+
+    // ---- S = Q K^T, K-major operands, D/16 k-steps ----
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      const uint32_t off = (j / G::kKStepsPerBox) * G::kBoxBytes + (j % G::kKStepsPerBox) * 32;
+      Mma<T>::qk(s, smem_desc<G::kLayout>(sQ + off, 16, 8 * G::kRowBytes),
+                 smem_desc<G::kLayout>(k_tile + off, 16, 8 * G::kRowBytes), j > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // ---- online softmax in log2 units ----
+    const float* bt = bias_s + t * kKeys;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * i + 2 * c);
+      s[4 * i + 0] = fmaf(s[4 * i + 0], scale_log2, bb.x);
+      s[4 * i + 1] = fmaf(s[4 * i + 1], scale_log2, bb.y);
+      s[4 * i + 2] = fmaf(s[4 * i + 2], scale_log2, bb.x);
+      s[4 * i + 3] = fmaf(s[4 * i + 3], scale_log2, bb.y);
+      mx0 = fmaxf(mx0, fmaxf(s[4 * i + 0], s[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    // the first tile always holds key 0 (finite bias), so mx is finite
+    // and exp2(-inf - mx) = 0 clears the empty accumulators
+    const float a0 = ex2(m0 - mx0), a1 = ex2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[4 * i + 0] *= a0;
+      o[4 * i + 1] *= a0;
+      o[4 * i + 2] *= a1;
+      o[4 * i + 3] *= a1;
+    }
+    uint32_t p[16];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float e0 = ex2(s[4 * i + 0] - m0), e1 = ex2(s[4 * i + 1] - m0);
+      const float e2 = ex2(s[4 * i + 2] - m1), e3 = ex2(s[4 * i + 3] - m1);
+      l0 += e0 + e1;
+      l1 += e2 + e3;
+      p[2 * i] = Mma<T>::pack(e0, e1);
+      p[2 * i + 1] = Mma<T>::pack(e2, e3);
+    }
+
+    // ---- O += P V: four k16 steps of 16 keys, V N-major ----
+    fence_regs(o);
+    fence_regs(p);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kKeys / 16; ++j) {
+      const uint32_t a[4] = {p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3]};
+      Mma<T>::pv(o, a, smem_desc<G::kLayout>(v_tile + j * 16 * G::kRowBytes, G::kBoxBytes,
+                                             8 * G::kRowBytes));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+
+    __syncthreads();  // every warp is done with this stage
+    if (tid == 0 && t + kStages < ntiles) load_kv(st, t + kStages);
+  }
+
+  // ---- out = O / l, rows >= S not stored ----
+  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
   const long HD = (long)H * D;
-  const long head0 = (long)b * S * HD + (long)h * D;  // element (b, 0, h*D)
-
-  // ---- stage Q (as f32), the bias row and K ----
-  for (int i = threadIdx.x; i < kRows * (D / 8); i += kThreads) {
-    const int r = i / (D / 8), c = i % (D / 8);
-    float* dst = q_s + r * D + c * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) x = *reinterpret_cast<const uint4*>(q + head0 + (long)(row0 + r) * HD + c * 8);
-    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+  const int r0 = qt * kRows + warp * 16 + g, r1 = r0 + 8;
+  T* ob = out + (long)b * S * HD + col + 2 * c;
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float2 f = C::pair(w[t]);
-      dst[2 * t] = f.x;
-      dst[2 * t + 1] = f.y;
-    }
-  }
-  for (int j = threadIdx.x; j < Sp; j += kThreads) bias_s[j] = j < S ? key_bias[(long)b * S + j] : 0.f;
-  load_head<D>(kv, k + head0, HD, S, Sp, kvw);
-  __syncthreads();
-
-  const int r0 = warp * kRowsPerWarp;  // this warp's first local query row
-
-  // ---- logits = (Q K^T) * scale + bias: one key per lane, 4 rows ----
-  for (int j = lane; j < S; j += 32) {
-    float acc[kRowsPerWarp] = {0.f, 0.f, 0.f, 0.f};
-    const uint32_t* krow = kv + j * kvw;
-#pragma unroll 4
-    for (int p = 0; p < kPairs; p += 2) {
-      const float2 k0 = C::pair(krow[p]);
-      const float2 k1 = C::pair(krow[p + 1]);
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float4 qv = *reinterpret_cast<const float4*>(q_s + (r0 + rr) * D + 2 * p);
-        acc[rr] += qv.x * k0.x;
-        acc[rr] += qv.y * k0.y;
-        acc[rr] += qv.z * k1.x;
-        acc[rr] += qv.w * k1.y;
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr)
-      logits[(r0 + rr) * Sp + j] = __fadd_rn(__fmul_rn(acc[rr], scale), bias_s[j]);
-  }
-  __syncwarp();
-
-  // ---- row softmax in f32; probabilities rounded to T; padding keys 0 ----
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    float* row = logits + (r0 + rr) * Sp;
-    float m = -INFINITY;
-    for (int j = lane; j < S; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < Sp; j += 32) row[j] = j < S ? C::round(__fdiv_rn(row[j], sum)) : 0.f;
-  }
-  __syncthreads();  // every warp is done with K
-
-  load_head<D>(kv, v + head0, HD, S, Sp, kvw);
-  __syncthreads();
-
-  // ---- out = P V: 4 rows x kPairsPerLane pairs per lane, keys by 4 ----
-  const int lp = lane % kLanesP, split = lane / kLanesP;
-  float2 acc[kRowsPerWarp][kPairsPerLane];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr)
-#pragma unroll
-    for (int c = 0; c < kPairsPerLane; ++c) acc[rr][c] = make_float2(0.f, 0.f);
-
-  for (int j0 = 0; j0 < Sp; j0 += 32) {
-#pragma unroll
-    for (int g = 0; g < kKeysPerSplit; g += 4) {
-      const int j = j0 + split * kKeysPerSplit + g;
-      float4 prob[kRowsPerWarp];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr)
-        prob[rr] = *reinterpret_cast<const float4*>(logits + (r0 + rr) * Sp + j);
-#pragma unroll
-      for (int c = 0; c < kPairsPerLane; ++c) {
-        const int p = lp + c * kLanesP;
-        const float2 v0 = C::pair(kv[(j + 0) * kvw + p]);
-        const float2 v1 = C::pair(kv[(j + 1) * kvw + p]);
-        const float2 v2 = C::pair(kv[(j + 2) * kvw + p]);
-        const float2 v3 = C::pair(kv[(j + 3) * kvw + p]);
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-          float2& a = acc[rr][c];
-          a.x += prob[rr].x * v0.x;
-          a.y += prob[rr].x * v0.y;
-          a.x += prob[rr].y * v1.x;
-          a.y += prob[rr].y * v1.y;
-          a.x += prob[rr].z * v2.x;
-          a.y += prob[rr].z * v2.y;
-          a.x += prob[rr].w * v3.x;
-          a.y += prob[rr].w * v3.y;
-        }
-      }
-    }
-  }
-  if (kSplit == 2) {
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr)
-#pragma unroll
-      for (int c = 0; c < kPairsPerLane; ++c) {
-        acc[rr][c].x += __shfl_down_sync(0xffffffffu, acc[rr][c].x, 16);
-        acc[rr][c].y += __shfl_down_sync(0xffffffffu, acc[rr][c].y, 16);
-      }
-  }
-  if (split == 0) {
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int s = row0 + r0 + rr;
-      if (s >= S) continue;
-      uint32_t* orow = reinterpret_cast<uint32_t*>(out + head0 + (long)s * HD);
-#pragma unroll
-      for (int c = 0; c < kPairsPerLane; ++c) {
-        const int p = lp + c * kLanesP;
-        orow[p] = C::pack(acc[rr][c].x, acc[rr][c].y);
-      }
-    }
+  for (int i = 0; i < D / 8; ++i) {
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(ob + r0 * HD + 8 * i) =
+          Mma<T>::pack(o[4 * i + 0] * inv0, o[4 * i + 1] * inv0);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(ob + r1 * HD + 8 * i) =
+          Mma<T>::pack(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
   }
 }
 
-size_t smem_bytes(int S, int D) {
-  const int Sp = (S + 31) & ~31;
-  return sizeof(float) * ((size_t)kRows * Sp + (size_t)kRows * D + Sp) +
-         sizeof(uint32_t) * (size_t)Sp * (D / 2 + 1);
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled (CUDA 12.0 ABI), looked up through the runtime, so
+// that the library does not link against libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over a (B, S, H*D) tensor: innermost H*D columns, then S rows,
+// then B; box (kBoxCols, 64, 1) with the swizzle of a kRowBytes row.
+template <typename T, int D>
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H) {
+  using G = Geo<D>;
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)H * D, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)H * D * sizeof(T), (cuuint64_t)S * H * D * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)G::kBoxCols, 64u, 1u};
+  const cuuint32_t elem[3] = {1u, 1u, 1u};
+  const CUtensorMapSwizzle swz =
+      G::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  return fn(map, Mma<T>::kMapType, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* out,
                    int B, int S, int H, cudaStream_t stream) {
   auto kern = mha_fwd_kernel<T, D>;
-  const size_t smem = smem_bytes(S, D);
-  static size_t smem_set = 0;  // the opt-in is per kernel instance, not per call
-  if (smem > 48 * 1024 && smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr int smem = Geo<D>::kSmemBytes;
+  static bool smem_set = false;  // the opt-in is per kernel instance, not per call
+  if (smem > 48 * 1024 && !smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    smem_set = smem;
+    smem_set = true;
   }
+  CUtensorMap mq, mk, mv;
+  if (!make_map<T, D>(&mq, q, B, S, H) || !make_map<T, D>(&mk, k, B, S, H) ||
+      !make_map<T, D>(&mv, v, B, S, H))
+    return cudaErrorInvalidValue;
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  const float scale = 1.0f / sqrtf((float)D);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), bias, static_cast<uint16_t*>(out), S, H, scale);
+  const float scale_log2 = kLog2e / sqrtf((float)D);
+  kern<<<grid, kThreads, smem, stream>>>(mq, mk, mv, bias, static_cast<T*>(out), S, H, scale_log2);
   return cudaGetLastError();
 }
 
@@ -316,7 +584,3 @@ extern "C" int rrt_mha_fwd(int dtype, const void* q, const void* k, const void* 
     default: return (int)cudaErrorInvalidValue;
   }
 }
-
-// Dynamic shared memory the kernel asks for at (S, D), for the wrapper's
-// checks and reports.
-extern "C" long long rrt_mha_fwd_smem_bytes(int S, int D) { return (long long)smem_bytes(S, D); }

@@ -15,7 +15,7 @@ from typing import List, Set
 import numpy as np
 import torch
 
-from review_recommender_tpu.config import config
+from review_recommender_tpu_torch.config import config
 from review_recommender_tpu_torch.index.schema import ProductIndex
 from review_recommender_tpu_torch.utils.text import (
     GATE_PHRASE_ID,

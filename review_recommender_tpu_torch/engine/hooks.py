@@ -22,7 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from review_recommender_tpu.config import config
+from review_recommender_tpu_torch.config import config
 from review_recommender_tpu_torch.utils.text import calculate_gate_factor
 
 SIGNAL_ORDER = ("dense", "bm25", "rerank", "prior", "best", "trust", "gate")

@@ -45,7 +45,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from review_recommender_tpu.config import config
+from review_recommender_tpu_torch.config import config
 from review_recommender_tpu_torch.device import resolve_device
 from review_recommender_tpu_torch.engine.featurize import QueryFeaturizer, unpack_features
 from review_recommender_tpu_torch.engine.hooks import (
@@ -91,7 +91,7 @@ class SearchEngine(SplitPathHooksMixin):
         self,
         bundle: IndexBundle,
         *,
-        device,
+        device="cuda",
         emb_dtype: Optional[str] = None,
         query_encoder: Optional[Callable[[str], np.ndarray]] = None,
         cross_encoder: Optional[Callable[[str, List[str]], np.ndarray]] = None,

@@ -12,6 +12,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from review_recommender_tpu_torch.device import resolve_device
 from review_recommender_tpu_torch.models.bert import (
     BertConfig,
     BiEncoderModel,
@@ -62,7 +63,7 @@ class _Tower:
     def __init__(self, cfg: BertConfig, tokenizer, device, max_len: int):
         self.cfg = cfg
         self.tokenizer = tokenizer
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # positions past the table would index out of range
         self.max_len = min(max_len, cfg.max_position)
 
@@ -89,7 +90,7 @@ class _Tower:
 class BiEncoder(_Tower):
     """Query/document embedding tower (bge-small semantics: CLS + L2-norm)."""
 
-    def __init__(self, cfg: BertConfig, state_dict, tokenizer, *, device,
+    def __init__(self, cfg: BertConfig, state_dict, tokenizer, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16, pooling: str = "cls",
                  max_len: int = 512, attn_impl: str = "auto"):
         super().__init__(cfg, tokenizer, device, max_len)
@@ -99,11 +100,12 @@ class BiEncoder(_Tower):
 
     @classmethod
     def random_init(cls, cfg: Optional[BertConfig] = None, tokenizer=None,
-                    seed: int = 0, **kw):
+                    seed: int = 0, device="cuda", **kw):
         """Randomly initialised tower (tests, synthetic runs)."""
+        device = resolve_device(device)  # before the weights are drawn
         cfg = cfg or BertConfig.bge_small()
         sd = init_state_dict(cfg, "biencoder", seed)
-        return cls(cfg, sd, tokenizer or HashTokenizer(cfg.vocab_size), **kw)
+        return cls(cfg, sd, tokenizer or HashTokenizer(cfg.vocab_size), device=device, **kw)
 
     @classmethod
     def random_for_dim(cls, dim: int, seed: int = 0, **kw):
@@ -135,7 +137,7 @@ class BiEncoder(_Tower):
 class CrossEncoder(_Tower):
     """(query, doc) relevance scorer (ms-marco MiniLM head)."""
 
-    def __init__(self, cfg: BertConfig, state_dict, tokenizer, *, device,
+    def __init__(self, cfg: BertConfig, state_dict, tokenizer, *, device="cuda",
                  dtype: torch.dtype = torch.bfloat16, max_len: int = 512,
                  batch_size: int = 64, attn_impl: str = "auto"):
         super().__init__(cfg, tokenizer, device, max_len)
@@ -146,10 +148,11 @@ class CrossEncoder(_Tower):
 
     @classmethod
     def random_init(cls, cfg: Optional[BertConfig] = None, tokenizer=None,
-                    seed: int = 0, **kw):
+                    seed: int = 0, device="cuda", **kw):
+        device = resolve_device(device)  # before the weights are drawn
         cfg = cfg or BertConfig.minilm_l6_cross()
         sd = init_state_dict(cfg, "crossencoder", seed)
-        return cls(cfg, sd, tokenizer or HashTokenizer(cfg.vocab_size), **kw)
+        return cls(cfg, sd, tokenizer or HashTokenizer(cfg.vocab_size), device=device, **kw)
 
     def score_pairs(self, queries: Sequence[str], docs: Sequence[str]) -> np.ndarray:
         """(query, doc) pairs -> (N,) f32 logits."""

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from review_recommender_tpu.config import config
+from review_recommender_tpu.config import config as jax_config
 from review_recommender_tpu.engine.featurize import unpack_features as j_unpack
 from review_recommender_tpu.engine.search import SearchEngine as JaxEngine
 from review_recommender_tpu.index.build import build_bundle_from_products
@@ -31,6 +31,7 @@ from review_recommender_tpu.ops import dense as jdense
 from review_recommender_tpu.ops import fusion as jfusion
 from review_recommender_tpu.ops.gate import gate_factors_device as j_gate
 from review_recommender_tpu.utils import text as jtext
+from review_recommender_tpu_torch.config import config as port_config
 from review_recommender_tpu_torch.engine.featurize import unpack_features as t_unpack
 from review_recommender_tpu_torch.engine.search import SearchEngine
 from review_recommender_tpu_torch.index.schema import IndexBundle, ProductIndex
@@ -62,7 +63,8 @@ def engines():
     tp = ProductIndex(**{f: getattr(jb.products, f) for f in ProductIndex.__dataclass_fields__})
     out = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(config, "DENSE_POOL_STRIPES", 160)
+        for c in (jax_config, port_config):  # both engines see 160 stripes
+            mp.setattr(c, "DENSE_POOL_STRIPES", 160)
         for pool in ("exact", "striped"):
             je = JaxEngine(jb, emb_dtype="float32", gate_mode="device", dense_pool=pool)
             je.featurizer._native = None  # the Python path, which the port copies

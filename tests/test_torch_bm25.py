@@ -220,9 +220,11 @@ def test_search_bm25_unpacked_branch_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize("pool", ["exact", "striped"])
 def test_search_dense_matches_jax(monkeypatch, pool):
-    from review_recommender_tpu.config import config
+    from review_recommender_tpu.config import config as jax_config
+    from review_recommender_tpu_torch.config import config as port_config
 
-    monkeypatch.setattr(config, "DENSE_POOL_STRIPES", 24)
+    for c in (jax_config, port_config):  # both engines see 24 stripes
+        monkeypatch.setattr(c, "DENSE_POOL_STRIPES", 24)
     products, emb, _r, _re = make_corpus(n=75, dim=32, seed=4)
     jb = build_bundle_from_products(products, emb, pad_multiple=16, doc_terms_cap=32)
     tp = ProductIndex(**{f.name: getattr(jb.products, f.name)

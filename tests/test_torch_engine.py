@@ -23,12 +23,13 @@ import numpy as np
 import pytest
 import torch
 
-from review_recommender_tpu.config import config
+from review_recommender_tpu.config import config as jax_config
 from review_recommender_tpu.engine.search import SearchEngine as JaxEngine
 from review_recommender_tpu.index.build import build_bundle_from_products
 from review_recommender_tpu.models.bert import BertConfig as JaxBertConfig
 from review_recommender_tpu.models.encoder import BiEncoder as JaxBiEncoder
 from review_recommender_tpu.models.encoder import CrossEncoder as JaxCrossEncoder
+from review_recommender_tpu_torch.config import config as port_config
 from review_recommender_tpu_torch.device import resolve_device
 from review_recommender_tpu_torch.engine.search import SearchEngine
 from review_recommender_tpu_torch.index.schema import IndexBundle, ProductIndex, ReviewIndex
@@ -67,7 +68,8 @@ def engines():
                        device="cpu", dtype=torch.float32)
     out = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(config, "DENSE_POOL_STRIPES", 160)
+        for c in (jax_config, port_config):  # both engines see 160 stripes
+            mp.setattr(c, "DENSE_POOL_STRIPES", 160)
         for pool in ("exact", "striped"):
             je = JaxEngine(jb, emb_dtype="float32", query_encoder=jbe, cross_encoder=jce,
                            dense_pool=pool)
@@ -135,6 +137,23 @@ def test_refuses_what_is_not_ported(engines):
             resolve_device("cuda")
 
 
+
+def test_entry_points_default_to_the_card(engines):
+    """Without a device argument SearchEngine and the towers ask for "cuda":
+    on a machine without CUDA they raise instead of running on the CPU."""
+    bundle, cfg = engines["exact"][1].bundle, BertConfig.tiny()
+    makers = {"SearchEngine": lambda: SearchEngine(bundle),
+              "BiEncoder.random_init": lambda: BiEncoder.random_init(cfg),
+              "BiEncoder.random_for_dim": lambda: BiEncoder.random_for_dim(64),
+              "CrossEncoder.random_init": lambda: CrossEncoder.random_init(cfg)}
+    for name, make in makers.items():
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda", name
+        else:
+            with pytest.raises(RuntimeError, match="cuda"):
+                make()
+
+
 _HYGIENE = """
 import json, sys, numpy as np, torch
 from review_recommender_tpu_torch.engine.search import SearchEngine
@@ -160,8 +179,9 @@ a = eng.arrays
 _d, ids, _b = stage_a.stage_a_fused(a["emb"], a["valid"], a["doc_terms"], a["doc_bm25"], qv,
                                     torch.tensor([[12, 345], [7, 1234]], dtype=torch.int32), 16)
 n.append(ids.numel())
-bad = [m for m in ("jax", "flax", "pandas", "pyarrow", "review_recommender_tpu.native")
-       if m in sys.modules]
+bad = [m for m in ("jax", "flax", "pandas", "pyarrow") if m in sys.modules]
+bad += sorted(m for m in sys.modules
+              if m == "review_recommender_tpu" or m.startswith("review_recommender_tpu."))
 launches = (attention.mha_kernel_launches + bm25_kernel.bm25_packed_kernel_launches
             + bm25_kernel.bm25_unpacked_kernel_launches + stage_a.stage_a_kernel_launches)
 print(json.dumps({"rows": n, "bad": bad, "launches": launches}))
@@ -172,7 +192,7 @@ def test_port_imports_no_jax_pandas_or_pyarrow():
     """A fresh interpreter imports the port and runs a tiny CPU run_search
     (bf16 towers and corpus, both rerank settings), search_bm25,
     query_fused_batched and stage_a_fused without loading jax, flax,
-    pandas, pyarrow or the JAX package's native module, and without a
+    pandas, pyarrow or any module of the JAX package, and without a
     kernel launch."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)

@@ -8,8 +8,9 @@ machine without jax it runs as
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Attention: tolerance 2e-2 in bf16/f16 (tests/test_attention.py's bf16
-bound); the kernel rounds like the reference except where the f32 sum order
-moves a value across a rounding boundary. BM25: bitwise equal scores (tf_q
+bound); the kernel rounds the exponentials to the input type before it
+divides by the row sum, so a probability differs from the reference's by
+at most one unit in the last place of the input type. BM25: bitwise equal scores (tf_q
 sums integers; every other step is rounded alone, in the reference's order).
 Stage A: winner scores within 1e-5 (exact bf16/f32 products summed in f32 in
 another order than cuBLAS's); a winner id may differ only where the plain
@@ -64,6 +65,53 @@ def test_kernel_matches_reference(cuda, dtype, b, s, heads, d):
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 2e-2, err
     assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_all_masked_row_is_uniform(cuda, dtype, d):
+    """A batch-bucket padding row (every key bias -1e30) averages V's first
+    S rows: the padding keys from S to the key-tile edge get nothing."""
+    b, s, heads = 2, 100, 3
+    q, k, v, _ = _inputs(d + s, b, s, heads * d, dtype, cuda)
+    bias = torch.zeros(b, s, device=cuda)
+    bias[1] = -1e30
+    with torch.inference_mode():
+        got = tatt.mha_kernel(q, k, v, bias, heads)
+    torch.cuda.synchronize()
+    mean_v = v[1].float().mean(dim=0)  # (H*D,)
+    err = (got[1].float() - mean_v[None, :]).abs().max().item()
+    assert err <= 2e-2, err
+
+
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_kernel_at_key_tile_edges(cuda, s, d):
+    """S just below, at and above a 64-key tile edge (and the query tile's)."""
+    b, heads = 3, 2
+    q, k, v, bias = _inputs(s * 7 + d, b, s, heads * d, torch.bfloat16, cuda)
+    with torch.inference_mode():
+        got = tatt.mha_kernel(q, k, v, bias, heads)
+        ref = tatt.mha_reference(q, k, v, bias, heads)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2, err
+
+
+def test_kernel_matches_sdpa_at_rerank_shape(cuda):
+    """A second opinion: scaled_dot_product_attention with the key bias as
+    an additive mask, at the cross-encoder's rerank shape."""
+    b, s, heads, d = 64, 512, 12, 32
+    q, k, v, bias = _inputs(7, b, s, heads * d, torch.bfloat16, cuda)
+    split = lambda t: t.view(b, s, heads, d).transpose(1, 2)
+    with torch.inference_mode():
+        got = tatt.mha_kernel(q, k, v, bias, heads)
+        lib = torch.nn.functional.scaled_dot_product_attention(
+            split(q), split(k), split(v), attn_mask=bias[:, None, None, :].to(q.dtype))
+    torch.cuda.synchronize()
+    lib = lib.transpose(1, 2).reshape(b, s, heads * d)
+    err = (got.float() - lib.float()).abs().max().item()
+    assert err <= 2e-2, err
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
