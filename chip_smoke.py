@@ -31,15 +31,17 @@ line, and nothing is caught and passed over:
              torch.Generator (tf >= 128 lanes, PAD query slots): bitwise-equal
              share, max abs/rel error (tolerance 1e-6 relative, bitwise
              expected), top-100 ids, medians of 50 CUDA-event-timed runs
-             (L2 warm, L2 flushed, and from an idle device), HBM-bytes share
-             of the cold time, issue-slot and INT32-pipe shares
+             (L2 warm, L2 flushed, and from an idle device), the bytes bound
+             and its share of the cold time, the issue-slot share of the
+             kernels' SASS instructions per posting
   6 bm25_slice   SearchEngine.search_bm25 on phase 4's corpus, 100 queries,
              k=10, three bundles: (a) eager -> packed kernel, (b) classic ->
              packed kernel, (c) classic with one tf of 300 -> unpacked
              kernel; exact launch counts (100 per bundle, no plain-version
              call), a kernel-vs-plain cross-check on two queries, latency
              percentiles of a first pass over unseen queries and of a
-             repeat pass, peak device memory; search_dense against
+             repeat pass, peak device memory, the profiler window's device
+             time split into scan, sort and the rest; search_dense against
              dense_scores + stable_topk
   7 batched_slice  the batched fused query on phase 4's engine, 256 queries
              as bench.py:_queries draws them, pool 150, k 10, the bench's
@@ -89,15 +91,17 @@ PEAK_BF16_FLOPS, PEAK_HBM_BYTES, PEAK_FP32_FLOPS = 989e12, 3.35e12, 67e12
 # Programming Guide's throughput table, compute capability 9.0), 132 SMs at
 # the 1.98 GHz maximum boost clock (assumed: the clock under load is not read)
 PEAK_EXP_RATE = 132 * 16 * 1.98e9
-# BM25 scan ceilings, at the 1.98 GHz maximum boost clock (assumed: the
-# clock under load is not read). The SASS of csrc/bm25_full.cu spends three
-# instructions per (posting, query slot) compare: ISETP, FSEL, FADD. Each
-# takes an issue slot (one warp instruction per scheduler per clock: 132 SMs
-# x 4 x 32 lanes); ISETP also runs on the INT32 pipe, 64 lanes per SM per
-# clock on compute capability 9.0 (the CUDA C++ Programming Guide's
-# throughput table).
+# BM25 scan instructions per posting, from the SASS of csrc/bm25_full.cu
+# (examples/torch_bm25_breakdown.py's "sass" lines: cuobjdump -sass, the
+# one-probe posting loop from its head to the batch's last add): 585
+# instructions per batch of 32 postings (packed: 8 rows x 4 documents a
+# thread) and 485 per chunk of 16 (unpacked: 16 lanes of a thread's row),
+# loads, copies and loop bookkeeping included. Neither depends on Q. Each
+# takes an issue slot: one warp instruction per scheduler per clock, 132 SMs
+# x 4 x 32 lanes at the 1.98 GHz maximum boost clock (assumed: the clock
+# under load is not read).
+BM25_SASS_PER_POSTING = {"bm25_packed": 585 / 32, "bm25_unpacked": 485 / 16}
 PEAK_ISSUE_OPS = 132 * 4 * 32 * 1.98e9
-PEAK_INT32_OPS = 132 * 64 * 1.98e9
 L2_FLUSH_BYTES = 256 << 20  # > the H100's 50 MB L2
 SPIN_CYCLES = 200_000  # ~0.1 ms of device spin: longer than a kernel's host launch
 DEV = "cuda"  # the BM25 phases' device
@@ -270,10 +274,11 @@ def _check_rows(rows, phase):
     check(all(a >= b for a, b in zip(finals, finals[1:])), phase, "rows not sorted")
 
 
-def _profile(torch, run):
+def _profile(torch, run, classify=None):
     """Device busy share of run() under torch.profiler: the union of CUDA
     kernel intervals over the host wall-clock of the window, and the
-    kernels that take most device time. None when the profiler shows no
+    kernels that take most device time; with `classify` (kernel name ->
+    class), the device time of each class. None when the profiler shows no
     device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -297,9 +302,25 @@ def _profile(torch, run):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_busy_share": busy / wall_us, "kernels": len(spans),
-            "top_kernels_ms": [[name[:60], us / 1e3] for name, us in top]}
+    out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "device_busy_share": busy / wall_us, "kernels": len(spans),
+           "top_kernels_ms": [[name[:60], us / 1e3] for name, us in top]}
+    if classify is not None:
+        by_class = {}
+        for name, us in by_name.items():
+            c = classify(name)
+            by_class[c] = by_class.get(c, 0.0) + us / 1e3
+        out["device_ms_by_class"] = by_class
+    return out
+
+
+def _bm25_device_class(name: str) -> str:
+    """search_bm25's device kernels: the BM25 scan, the stable sort of
+    stable_topk (radix-sort passes), or the rest (masking, gathers, copies)."""
+    low = name.lower()
+    if "bm25" in low:
+        return "scan"
+    return "sort" if "sort" in low or "radix" in low else "rest"
 
 
 def _profile_window(torch, engine, queries, rerank_k):
@@ -466,12 +487,12 @@ def _bm25_postings(torch, n, l, q, seed):
     return terms, tf, doc_len, packed, q_terms, q_idf, avgdl
 
 
-def scan_cost(n: int, l: int, q: int, packed: bool) -> tuple[int, int]:
-    """(bytes read, integer/select operations) of one full BM25 scan: packed
-    N*L*4 + N*8, unpacked N*L*8 + N*8; operations N*L*(3 + 3Q) (bench.py's
-    model)."""
-    nbytes = n * l * (4 if packed else 8) + n * 8
-    return nbytes, n * l * (3 + 3 * q)
+def scan_cost(n: int, l: int, name: str) -> tuple[int, float]:
+    """(bytes, kernel instructions) of one full BM25 scan: each input read
+    once and the scores written once (packed N*L*4 + N*8, unpacked N*L*8 +
+    N*8), and N*L times the kernel's SASS instructions per posting."""
+    nbytes = n * l * (4 if name == "bm25_packed" else 8) + n * 8
+    return nbytes, n * l * BM25_SASS_PER_POSTING[name]
 
 
 def _score_diff(torch, got, ref):
@@ -505,11 +526,11 @@ def phase_bm25_kernel(torch):
         cases = {
             "bm25_packed": (BK.bm25_full_scores_packed_kernel,
                             BK.bm25_full_scores_packed_reference,
-                            (packed, doc_len, qt, qi, avgdl), True),
+                            (packed, doc_len, qt, qi, avgdl)),
             "bm25_unpacked": (BK.bm25_full_scores_kernel, bm25_full_scores,
-                              (terms, tf, doc_len, qt, qi, avgdl), False),
+                              (terms, tf, doc_len, qt, qi, avgdl)),
         }
-        for name, (kern, plain, args, is_packed) in cases.items():
+        for name, (kern, plain, args) in cases.items():
             got = kern(*args)
             ref = plain(*args)
             torch.cuda.synchronize()
@@ -527,15 +548,15 @@ def phase_bm25_kernel(torch):
             plain_ms = _median_ms(torch, lambda: plain(*args), REPS, before=spin)
             cold_ms = _median_ms(torch, lambda: kern(*args), REPS, before=flush)
             idle_ms = _median_ms(torch, lambda: kern(*args), REPS)
-            nbytes, ops = scan_cost(n, l, q, packed=is_packed)
+            nbytes, instrs = scan_cost(n, l, name)
+            bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
             row = {"kernel": name, "N": n, "L": l, "Q": q, **diff, "tol_rel": BM25_REL_TOL,
                    f"top{BM25_TOPN}_ids_equal": ids_equal, "ms": ms, "plain_ms": plain_ms,
-                   "cold_l2_ms": cold_ms, "from_idle_ms": idle_ms, "bytes": nbytes, "ops": ops,
-                   "hbm_share_cold_l2": nbytes / PEAK_HBM_BYTES / (cold_ms / 1e3),
-                   "issue_share": ops / PEAK_ISSUE_OPS / (ms / 1e3),
-                   "int32_pipe_share": n * l * q / PEAK_INT32_OPS / (ms / 1e3),
-                   "bound": "operations" if ops / PEAK_ISSUE_OPS > nbytes / PEAK_HBM_BYTES
-                   else "bytes", "reps": REPS}
+                   "cold_l2_ms": cold_ms, "from_idle_ms": idle_ms, "bytes": nbytes,
+                   "bound_ms": bound_ms, "bound_by": "bytes",
+                   "share_of_bound_cold_l2": bound_ms / cold_ms,
+                   "sass_instructions": instrs,
+                   "issue_share": instrs / PEAK_ISSUE_OPS / (ms / 1e3), "reps": REPS}
             emit({"phase": "bm25_kernel", **row})
             check(diff["max_rel_err"] <= BM25_REL_TOL and ids_equal, "bm25_kernel",
                   f"{name} disagrees with its plain version at {row}")
@@ -653,7 +674,8 @@ def phase_bm25_slice(torch, engine_a):
               "c_unpackable": (0, N_QUERIES)}
     totals = {"bm25_packed": 0, "bm25_unpacked": 0}
     max_err = {"bm25_packed": 0.0, "bm25_unpacked": 0.0}
-    engines = {}
+    engines, split = {}, {}
+    n_prof = 10
     for bundle, products in _bm25_bundles(engine_a.products).items():
         t0 = time.perf_counter()
         engine = engine_a if bundle == "a_eager" else SearchEngine(
@@ -680,7 +702,11 @@ def phase_bm25_slice(torch, engine_a):
         lat_repeat = _bm25_pass(engine, queries, bundle, n_pad)  # expansion cache warm
         totals["bm25_packed"] += launches[0]
         totals["bm25_unpacked"] += launches[1]
-        prof = _profile(torch, lambda: [engine.search_bm25(q, K)[0].cpu() for q in queries[:10]])
+        prof = _profile(torch, lambda: [engine.search_bm25(q, K)[0].cpu()
+                                        for q in queries[:n_prof]], _bm25_device_class)
+        if prof.get("device_ms_by_class") is not None:
+            split[bundle] = {c: prof["device_ms_by_class"].get(c, 0.0) / n_prof * 1e3
+                             for c in ("scan", "sort", "rest")}
         cross = _bm25_crosscheck(torch, engine, queries[1:3], bundle)
         kname = "bm25_unpacked" if bundle == "c_unpackable" else "bm25_packed"
         max_err[kname] = max([max_err[kname]] + [r["max_abs_err"] for r in cross])
@@ -697,6 +723,10 @@ def phase_bm25_slice(torch, engine_a):
               f"{bundle}: launches {launches} (expected {expect[bundle]}), mha {mha}, "
               f"plain calls {plain_calls}")
         engines[bundle] = engine
+    emit({"phase": "bm25_device_split", "queries": n_prof,
+          "what": "search_bm25 device time per query (us) by kernel class, from each "
+                  "bundle's profiler window; null where the profiler saw no device events",
+          "per_query_us": {b: split.get(b) for b in expect}})
 
     # search_dense: exact pool on (b), striped pool on (a)
     rng = np.random.default_rng(7)
@@ -727,9 +757,9 @@ def _bm25_kernel_entries(rows, launches, err):
     6's main path, the largest error of every comparison, and the times at
     the headline shape (the first of BM25_SHAPES). The bound is the posting
     bytes over HBM bandwidth: the function needs one membership test and one
-    multiply-add per posting, far below any peak (the 3 + 3Q instructions
-    per posting of scan_cost are the kernel's, not the function's). No
-    single PyTorch call computes a BM25 scan: library_ms is null."""
+    add per posting, far below any peak (the SASS instructions per posting
+    of scan_cost are the kernel's, not the function's). No single PyTorch
+    call computes a BM25 scan: library_ms is null."""
     out = []
     for name, line in (("bm25_packed", 167), ("bm25_unpacked", 35)):
         mine = [r for r in rows if r["kernel"] == name]
@@ -740,7 +770,7 @@ def _bm25_kernel_entries(rows, launches, err):
             "launches": launches[name],
             "max_abs_err": max([err[name]] + [r["max_abs_err"] for r in mine]),
             "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"],
-            "bound_ms": mine[0]["bytes"] / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
+            "bound_ms": mine[0]["bound_ms"], "bound_by": "bytes",
             "library_ms": None,
         })
     return out

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time one checkout's attention kernel (review_recommender_tpu_torch) on one
-NVIDIA GPU, for an A/B of two versions on the same card.
+"""Time one checkout's attention or BM25 kernels (review_recommender_tpu_torch)
+on one NVIDIA GPU, for an A/B of two versions on the same card.
 
-    python3 examples/torch_attention_ab.py [ROOT] [--tag NAME]
+    python3 examples/torch_attention_ab.py [ROOT] [--tag NAME] [--kernel attention|bm25]
 
 ROOT is the root of a checkout (default: this one). Its port is imported
 from there and its kernels are built there, so two checkouts can be timed
 in turns within one session (A, B, B, A), each run in its own process.
-For each of chip_smoke.py's attention shapes (bf16, the same seeded inputs
-as its phase 3) it prints one JSON line:
+
+--kernel attention (the default): for each of chip_smoke.py's attention
+shapes (bf16, the same seeded inputs as its phase 3) one JSON line:
 
   device_ms  median of 50 CUDA-event times of one launch queued behind a
              0.1 ms device spin: the device's work only
@@ -17,11 +18,18 @@ as its phase 3) it prints one JSON line:
   host_us    host wall-clock per call over 200 back-to-back calls, ended by
              a synchronize (the enqueue rate)
 
-and first a line with the card's name and power limit.
+--kernel bm25: for each of chip_smoke.py's BM25 shapes, the packed and the
+unpacked kernel on phase 5's postings (drawn on the card by this script's
+own chip_smoke.py, so both checkouts get the same inputs), one JSON line
+each: device_ms as above, and cold_l2_ms, each launch queued behind a 256
+MB fill that flushes the 50 MB L2.
+
+The first line has the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -32,6 +40,7 @@ import numpy as np
 
 SHAPES = [(64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128)]
 REPS, HOST_CALLS, SPIN_CYCLES = 50, 200, 200_000
+HERE = Path(__file__).resolve().parents[1]
 
 
 def _median_ms(torch, fn, before=None) -> float:
@@ -48,29 +57,18 @@ def _median_ms(torch, fn, before=None) -> float:
     return float(np.median(times))
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
-    ap.add_argument("--tag", default="")
-    args = ap.parse_args()
-    root = Path(args.root).resolve()
-    sys.path.insert(0, str(root))
+def _own_chip_smoke():
+    """This checkout's chip_smoke.py, loaded by path: its BM25 shapes and
+    postings, whatever ROOT is."""
+    spec = importlib.util.spec_from_file_location("ab_chip_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
-    import torch
 
-    if not torch.cuda.is_available():
-        print("torch_attention_ab: needs a CUDA GPU", file=sys.stderr)
-        return 1
-    from review_recommender_tpu_torch import kernels
+def _attention(torch, tag: str) -> None:
     from review_recommender_tpu_torch.ops import attention as A
 
-    if not str(Path(A.__file__).resolve()).startswith(str(root)):
-        print(f"torch_attention_ab: imported {A.__file__}, not from {root}", file=sys.stderr)
-        return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    kernels.build()
-    print(json.dumps({"tag": args.tag, "root": str(root), "card": smi}), flush=True)
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
     for i, (b, s, h, d) in enumerate(SHAPES):
         rng = np.random.default_rng(100 + i)  # chip_smoke.py:_attn_inputs
@@ -93,9 +91,61 @@ def main() -> int:
                 run()
             torch.cuda.synchronize()
             host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
-        print(json.dumps({"tag": args.tag, "B": b, "S": s, "H": h, "D": d,
+        print(json.dumps({"tag": tag, "B": b, "S": s, "H": h, "D": d,
                           "device_ms": device_ms, "idle_ms": idle_ms, "host_us": host_us,
                           "reps": REPS}), flush=True)
+
+
+def _bm25(torch, tag: str) -> None:
+    from review_recommender_tpu_torch.ops import bm25_kernel as BK
+
+    cs = _own_chip_smoke()
+    spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
+    flush_buf = torch.empty(cs.L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    flush = lambda: flush_buf.fill_(1.0)
+    for i, (n, l, q) in enumerate(cs.BM25_SHAPES):
+        terms, tf, doc_len, packed, qt, qi, avgdl = cs._bm25_postings(torch, n, l, q, 300 + i)
+        cases = (("bm25_packed", BK.bm25_full_scores_packed_kernel,
+                  (packed, doc_len, qt, qi, avgdl)),
+                 ("bm25_unpacked", BK.bm25_full_scores_kernel,
+                  (terms, tf, doc_len, qt, qi, avgdl)))
+        for name, fn, args in cases:
+            for _ in range(3):
+                fn(*args)
+            device_ms = _median_ms(torch, lambda: fn(*args), before=spin)
+            cold_ms = _median_ms(torch, lambda: fn(*args), before=flush)
+            print(json.dumps({"tag": tag, "kernel": name, "N": n, "L": l, "Q": q,
+                              "device_ms": device_ms, "cold_l2_ms": cold_ms, "reps": REPS}),
+                  flush=True)
+        del terms, tf, doc_len, packed, cases, args
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--kernel", choices=("attention", "bm25"), default="attention")
+    args = ap.parse_args()
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_attention_ab: needs a CUDA GPU", file=sys.stderr)
+        return 1
+    from review_recommender_tpu_torch import kernels
+
+    if not str(Path(kernels.__file__).resolve()).startswith(str(root)):
+        print(f"torch_attention_ab: imported {kernels.__file__}, not from {root}", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    kernels.build()
+    print(json.dumps({"tag": args.tag, "root": str(root), "card": smi, "kernel": args.kernel}),
+          flush=True)
+    (_bm25 if args.kernel == "bm25" else _attention)(torch, args.tag)
     return 0
 
 

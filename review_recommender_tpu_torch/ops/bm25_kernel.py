@@ -44,7 +44,7 @@ bm25_unpacked_kernel_launches = 0
 
 TILE_N = 256
 TILE_N_PACKED = 512
-MAX_QUERY_SLOTS = 64  # the kernels keep one tf_q register per slot
+MAX_QUERY_SLOTS = 64  # the kernels' query table and shared tf_q rows hold up to 64 slots
 _TF_BITS = 8
 _TERM_MASK = (1 << 24) - 1
 

@@ -26,6 +26,7 @@ from review_recommender_tpu_torch.index.schema import IndexBundle, ProductIndex
 from review_recommender_tpu_torch.ops import bm25 as tbm25
 from review_recommender_tpu_torch.ops import bm25_kernel as tbk
 from tests.test_engine_parity import QUERIES, make_corpus
+from tests.torch_bm25_cases import CASES, bm25_edge_case, pack
 
 T = torch.from_numpy
 
@@ -77,30 +78,80 @@ def test_pack_postings_guards(terms, tf):
 
 
 # ----------------------------------------------- plain versions vs Pallas
-@pytest.mark.parametrize("n,l", [(256, 64), (700, 96), (1024, 33)])
-def test_packed_reference_matches_pallas(n, l):
-    """N not 512-aligned is padded by the packer; pad rows score exactly 0."""
-    terms, tf, dl, qt, qi, avgdl = _postings(n + l, n, l)
-    pk = tbk.pack_postings(terms, tf)
+def _assert_edge_case(got, pallas, terms, tf, dl, qt, qi, avgdl):
+    """A plain version's scores on an edge case: bitwise equal to the JAX
+    package's XLA scan, and to its Pallas kernel in interpret mode (none at
+    L = 0: the kernel's grid divides by L). At Q = 1 XLA's CPU compile of the
+    interpret-mode kernel rounds one step otherwise (1 ulp on 3 of 777 rows),
+    where the XLA scan and step-by-step numpy f32 agree with the plain
+    version bitwise: there the Pallas kernel is held to 1 ulp."""
+    xla = np.asarray(jbm25.bm25_full_scores(
+        *(jnp.asarray(a) for a in (terms, tf, dl, qt, qi)), jnp.float32(avgdl)))
+    np.testing.assert_array_equal(got, xla)
+    if pallas is None:
+        assert terms.shape[1] == 0
+    elif qt.shape[0] == 1:
+        np.testing.assert_array_max_ulp(got, pallas, maxulp=1)
+    else:
+        np.testing.assert_array_equal(got, pallas)
+
+
+@pytest.mark.parametrize("n,l,case", [
+    pytest.param(256, 64, None, id="256-64"), pytest.param(700, 96, None, id="700-96"),
+    pytest.param(1024, 33, None, id="1024-33")] + [pytest.param(0, 0, c, id=c) for c in CASES])
+def test_packed_reference_matches_pallas(n, l, case):
+    """N not 512-aligned is padded by the packer; pad rows score exactly 0.
+    The lookup's edge cases (tests/torch_bm25_cases.py) too, see
+    _assert_edge_case."""
+    if case is None:
+        terms, tf, dl, qt, qi, avgdl = _postings(n + l, n, l)
+        pk = tbk.pack_postings(terms, tf)
+    else:
+        terms, tf, dl, qt, qi, avgdl = bm25_edge_case(case)
+        n, l = terms.shape
+        pk = pack(terms, tf, -(-n // tbk.TILE_N_PACKED) * tbk.TILE_N_PACKED)
+        if l:
+            np.testing.assert_array_equal(pk, tbk.pack_postings(terms, tf))
     dl_p = np.pad(dl, (0, pk.shape[1] - n))
-    ref = np.asarray(jbk.bm25_full_scores_packed_pallas(
-        jnp.asarray(pk), jnp.asarray(dl_p), jnp.asarray(qt), jnp.asarray(qi),
-        jnp.float32(avgdl), interpret=True))
     got = tbk.bm25_full_scores_packed_reference(T(pk), T(dl_p), T(qt), T(qi), avgdl).numpy()
-    np.testing.assert_array_equal(got, ref)
-    assert not got[n:].any() and got[:n].any()
+    ref = None
+    if l:
+        ref = np.asarray(jbk.bm25_full_scores_packed_pallas(
+            jnp.asarray(pk), jnp.asarray(dl_p), jnp.asarray(qt), jnp.asarray(qi),
+            jnp.float32(avgdl), interpret=True))
+    if case is None:
+        np.testing.assert_array_equal(got, ref)
+    else:
+        _assert_edge_case(got[:n], None if ref is None else ref[:n], terms, tf, dl, qt, qi, avgdl)
+    assert not got[n:].any() and (got[:n].any() or l == 0)
 
 
-@pytest.mark.parametrize("n,l", [(256, 64), (512, 40)])
-def test_unpacked_reference_matches_pallas(n, l):
-    terms, tf, dl, qt, qi, avgdl = _postings(n * 7 + l, n, l)
-    tf[2, 3] = 300.0  # past the packed field: only the unpacked scan takes it
-    dl = tf.sum(1).astype(np.float32)
-    ref = np.asarray(jbk.bm25_full_scores_pallas(
-        jnp.asarray(terms), jnp.asarray(tf), jnp.asarray(dl), jnp.asarray(qt),
-        jnp.asarray(qi), jnp.float32(avgdl), interpret=True))
+@pytest.mark.parametrize("n,l,case", [
+    pytest.param(256, 64, None, id="256-64"), pytest.param(512, 40, None, id="512-40")]
+    + [pytest.param(0, 0, c, id=c) for c in CASES])
+def test_unpacked_reference_matches_pallas(n, l, case):
+    """The edge cases' rows are padded to the Pallas kernel's 256-row tile
+    (pad rows: no lanes in use, doc_len 0); see _assert_edge_case."""
+    if case is None:
+        terms, tf, dl, qt, qi, avgdl = _postings(n * 7 + l, n, l)
+        tf[2, 3] = 300.0  # past the packed field: only the unpacked scan takes it
+        dl = tf.sum(1).astype(np.float32)
+    else:
+        terms, tf, dl, qt, qi, avgdl = bm25_edge_case(case)
+        pad = -terms.shape[0] % tbk.TILE_N
+        terms, tf = (np.pad(a, ((0, pad), (0, 0))) for a in (terms, tf))
+        dl = np.pad(dl, (0, pad))
+        l = terms.shape[1]
     got = tbm25.bm25_full_scores(T(terms), T(tf), T(dl), T(qt), T(qi), avgdl).numpy()
-    np.testing.assert_array_equal(got, ref)
+    ref = None
+    if l:
+        ref = np.asarray(jbk.bm25_full_scores_pallas(
+            *(jnp.asarray(a) for a in (terms, tf, dl, qt, qi)), jnp.float32(avgdl),
+            interpret=True))
+    if case is None:
+        np.testing.assert_array_equal(got, ref)
+    else:
+        _assert_edge_case(got, ref, terms, tf, dl, qt, qi, avgdl)
 
 
 def test_packed_and_unpacked_references_agree():

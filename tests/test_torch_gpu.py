@@ -25,6 +25,7 @@ from review_recommender_tpu_torch.ops import bm25_kernel as tbk
 from review_recommender_tpu_torch.ops import stage_a as tsa
 from review_recommender_tpu_torch.ops.bm25 import bm25_full_scores, masked_topk
 from review_recommender_tpu_torch.ops.dense import matmul_f32
+from tests.torch_bm25_cases import CASES, bm25_edge_case, pack
 
 pytestmark = pytest.mark.gpu
 
@@ -175,6 +176,30 @@ def test_bm25_kernels_match_reference(cuda, n, l, q):
     ref_top = masked_topk(ref_p, valid, k)
     for top in (top_p, top_u):
         assert torch.equal(top[1], ref_top[1]) and torch.equal(top[0], ref_top[0])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_bm25_kernels_lookup_edge_cases(cuda, case):
+    """The query-term lookup's edge cases (tests/torch_bm25_cases.py), the
+    packed postings at the unpadded N: bitwise equal scores, equal top-k."""
+    terms, tf, dl, qt, qi, avgdl = bm25_edge_case(case)
+    n = terms.shape[0]
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    args_p = (put(pack(terms, tf)), put(dl), put(qt), put(qi), float(avgdl))
+    args_u = (put(terms), put(tf), put(dl), put(qt), put(qi), float(avgdl))
+    got_p = tbk.bm25_full_scores_packed_kernel(*args_p)
+    got_u = tbk.bm25_full_scores_kernel(*args_u)
+    ref_p = tbk.bm25_full_scores_packed_reference(*args_p)
+    ref_u = bm25_full_scores(*args_u)
+    torch.cuda.synchronize()
+    assert torch.equal(ref_p, ref_u)
+    assert torch.equal(got_p, ref_p)
+    assert torch.equal(got_u, ref_u)
+    valid = torch.arange(n, device=cuda) < n
+    k = min(n, 50)
+    ref_ids = masked_topk(ref_p, valid, k)[1]
+    for got in (got_p, got_u):
+        assert torch.equal(masked_topk(got, valid, k)[1], ref_ids)
 
 
 def test_bm25_kernels_reject_what_they_do_not_take(cuda):
