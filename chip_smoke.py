@@ -33,7 +33,9 @@ line, and nothing is caught and passed over:
              expected), top-100 ids, medians of 50 CUDA-event-timed runs
              (L2 warm, L2 flushed, and from an idle device), the bytes bound
              and its share of the cold time, the issue-slot share of the
-             kernels' SASS instructions per posting
+             kernels' SASS instructions per posting; then both kernels at
+             Q=128 on 200k (two launches of 64 slots each), bitwise equal to
+             their plain versions
   6 bm25_slice   SearchEngine.search_bm25 on phase 4's corpus, 100 queries,
              k=10, three bundles: (a) eager -> packed kernel, (b) classic ->
              packed kernel, (c) classic with one tf of 300 -> unpacked
@@ -55,14 +57,19 @@ line, and nothing is caught and passed over:
   8 stage_a  the fused stage-A kernel as bench.py's stage-A section drives
              it: phase 4's bf16 corpus (98 tiles of 2048 rows, the tail
              masked), eager BM25, B=32 with per-query term ids, pool 150.
-             The tile-pass kernel against its plain version (scores within
-             1e-5, a differing id only at a near tie), stage_a_fused
-             against stage_a_fused_reference, a 2-tile case with an
-             exhausted tile (ids equal, repeats included), medians of 50
-             CUDA-event-timed runs behind a device spin (kernel, plain,
-             stage_a_fused, the exact stage A); then the counted main path:
-             stage_a_fused on the 256 queries in batches of 32, with pool
-             recall against the exact stage A (>= 0.99)
+             The tile-pass kernel (bf16: csrc/stage_a_wgmma.cu) against its
+             plain version (scores within 1e-5, a differing id only at a
+             near tie), stage_a_fused against stage_a_fused_reference, a
+             2-tile case with an exhausted tile (ids equal, repeats
+             included), medians of 50 CUDA-event-timed runs behind a device
+             spin (plain, stage_a_fused, the exact stage A); the kernel at
+             B = 1, 8, 32, 128 behind the spin and behind an L2 flush, each
+             with its bound (bytes or operations, whichever is larger) and
+             share of it; the f32 route (the CUDA-core kernel) at B=32 on
+             the same corpus in f32, against its plain version and timed;
+             then the counted main path: stage_a_fused on the 256 queries
+             in batches of 32, with pool recall against the exact stage A
+             (>= 0.99), every launch on the bf16 kernel
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -107,6 +114,7 @@ SPIN_CYCLES = 200_000  # ~0.1 ms of device spin: longer than a kernel's host lau
 DEV = "cuda"  # the BM25 phases' device
 BM25_SHAPES = [(200_192, 64, 32), (1_000_448, 512, 32)]  # (N, L, Q)
 BM25_REL_TOL = 1e-6  # bitwise expected: integer tf_q sums, each step rounded alone
+BM25_LONG_Q = 128  # slots past one kernel launch's 64: two launches per call
 BM25_TOPN = 100
 # phases 7-8: the bench's headline batch (bench.py:506-532)
 BENCH_QUERIES, BATCHES, POOL, QPS_REPS = 256, (32, 128), 150, 10
@@ -119,6 +127,7 @@ KNOB_SETS = [  # tests/test_batched.py:105-110
 ]
 SINGLE_RTOL, SINGLE_ATOL, NEAR_TIE = 1e-4, 1e-5, 1e-3  # tests/test_batched.py's allowance
 STAGE_A_TOL = 1e-5  # bf16 products, exact in f32, summed in another order
+STAGE_A_BATCHES = (1, 8, 32, 128)
 STAGE_A_MIN_RECALL = 0.99
 
 
@@ -564,7 +573,35 @@ def phase_bm25_kernel(torch):
         del terms, tf, doc_len, packed, cases, args
         torch.cuda.empty_cache()
     del flush_buf
+    _bm25_long_query(torch)
     return rows
+
+
+def _bm25_long_query(torch):
+    """Both kernels at Q = BM25_LONG_Q on the 200k postings: more slots
+    than one launch takes, so each call is two launches, the second adding
+    to the first's scores. Bitwise equal to the plain versions."""
+    from review_recommender_tpu_torch.ops import bm25_kernel as BK
+    from review_recommender_tpu_torch.ops.bm25 import bm25_full_scores
+
+    n, l, _q = BM25_SHAPES[0]
+    terms, tf, doc_len, packed, qt, qi, avgdl = _bm25_postings(torch, n, l, BM25_LONG_Q, 310)
+    spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
+    for name, kern, plain, args in (
+            ("bm25_packed", BK.bm25_full_scores_packed_kernel,
+             BK.bm25_full_scores_packed_reference, (packed, doc_len, qt, qi, avgdl)),
+            ("bm25_unpacked", BK.bm25_full_scores_kernel, bm25_full_scores,
+             (terms, tf, doc_len, qt, qi, avgdl))):
+        got, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        diff = _score_diff(torch, got, ref)
+        kern(*args)
+        ms = _median_ms(torch, lambda: kern(*args), REPS, before=spin)
+        emit({"phase": "bm25_kernel_long_query", "kernel": name, "N": n, "L": l,
+              "Q": BM25_LONG_Q, "live_slots": int((qi > 0).sum()), **diff, "ms": ms,
+              "launches_per_call": -(-BM25_LONG_Q // 64), "reps": REPS})
+        check(diff["bit_equal_share"] == 1.0 and bool((got > 0).any()), "bm25_kernel",
+              f"{name} at Q={BM25_LONG_Q} disagrees with its plain version: {diff}")
 
 
 def _bm25_bundles(products):
@@ -784,7 +821,8 @@ def _kernel_modules():
     return {"mha_fwd": (A, "mha_kernel_launches"),
             "bm25_packed": (BK, "bm25_packed_kernel_launches"),
             "bm25_unpacked": (BK, "bm25_unpacked_kernel_launches"),
-            "stage_a_fused": (SA, "stage_a_kernel_launches")}
+            "stage_a_fused": (SA, "stage_a_kernel_launches"),
+            "stage_a_f32": (SA, "stage_a_f32_kernel_launches")}
 
 
 def _zero_counts() -> None:
@@ -1033,32 +1071,23 @@ def phase_stage_a(torch, engine, qvecs, qterms):
     small = _exhausted_case(torch)
 
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
-    runs = {"kernel": lambda: SA.stage_a_tile_winners_kernel(emb, valid, qv),
-            "plain": lambda: SA.stage_a_tile_winners_reference(emb, valid, qv),
+    runs = {"plain": lambda: SA.stage_a_tile_winners_reference(emb, valid, qv),
             "stage_a_fused": lambda: SA.stage_a_fused(emb, valid, terms, bm25, qv, qt, POOL),
             "exact": lambda: exact(qv, qt)}
     for fn in runs.values():  # warm-up
         for _ in range(3):
             fn()
     ms = {name: _median_ms(torch, fn, REPS, before=spin) for name, fn in runs.items()}
-    by_b = {}  # how the kernel scales with the batch (its groups of 8 queries)
-    for nb in (1, 8, 128):
-        q_nb = torch.from_numpy(qvecs[:nb]).cuda()
-        SA.stage_a_tile_winners_kernel(emb, valid, q_nb)
-        by_b[nb] = _median_ms(torch, lambda: SA.stage_a_tile_winners_kernel(emb, valid, q_nb),
-                              REPS, before=spin)
-    by_b[b] = ms["kernel"]
-    nbytes = emb.numel() * emb.element_size()
-    flops = 2 * emb.numel() * b  # bf16 products: the tensor-core peak bounds them
-    bound = {"bytes": nbytes / PEAK_HBM_BYTES * 1e3, "operations": flops / PEAK_BF16_FLOPS * 1e3}
+    by_b = _stage_a_by_batch(torch, emb, valid, qvecs)
+    ms["kernel"] = by_b[b]["ms"]
+    f32 = _stage_a_f32_route(torch, emb, valid, qv)
     emit({"phase": "stage_a", "N": n, "tiles": tiles, "D": emb.shape[1], "B": b, "pool": POOL,
           "tile_pass": tile_row, "stage_a_fused_vs_reference": fused_row,
           "exhausted_tile_case": small, **{f"{k}_ms": v for k, v in ms.items()},
           "kernel_speedup_vs_plain": ms["plain"] / ms["kernel"],
-          "kernel_ms_by_B": {str(k): by_b[k] for k in sorted(by_b)},
-          "kernel_hbm_share": nbytes / PEAK_HBM_BYTES / (ms["kernel"] / 1e3),
-          "kernel_fp32_share": flops / PEAK_FP32_FLOPS / (ms["kernel"] / 1e3),
-          "reps": REPS, "timing": "CUDA events, each run queued behind a 0.1 ms device spin"})
+          "kernel_by_B": {str(k): v for k, v in by_b.items()}, "f32_route": f32,
+          "reps": REPS, "timing": "CUDA events, each run queued behind a 0.1 ms device spin "
+                                  "(cold_l2_ms: behind a 256 MB L2 flush)"})
 
     # the main path, counted: the batch of the batched query, 32 at a time
     _zero_counts()
@@ -1078,18 +1107,79 @@ def phase_stage_a(torch, engine, qvecs, qterms):
     check(bool((torch.cat([g[2] for g in got]) >= 0).all()), "stage_a", "negative BM25")
     emit({"phase": "stage_a_main", "queries": len(qvecs), "B": b, "pool": POOL,
           "pool_recall_vs_exact": recall, "min_recall": STAGE_A_MIN_RECALL,
-          "kernel_launches": launches})
+          "kernel_launches": launches, "query_chunk": SA.stage_a_query_chunk(emb.shape[1], b)})
     check(recall >= STAGE_A_MIN_RECALL, "stage_a", f"pool recall {recall} < {STAGE_A_MIN_RECALL}")
+    # every launch of the bf16 main path on the tensor-core kernel, none on the f32 one
     check(launches["stage_a_fused"] == len(got) and sum(launches.values()) == len(got),
           "stage_a", f"launches {launches}, expected {len(got)} stage_a_fused")
     return {"name": "stage_a_fused", "route": "cuda",
-            "source": "review_recommender_tpu_torch/csrc/stage_a_fused.cu",
+            "source": "review_recommender_tpu_torch/csrc/stage_a_wgmma.cu",
             "replaces": "review_recommender_tpu/ops/pallas/stage_a_kernel.py:61",
             "launches": launches["stage_a_fused"],
             "max_abs_err": max(tile_row["max_abs_err"], small["max_abs_err"]),
             "ms": ms["kernel"], "plain_ms": ms["plain"],
-            "bound_ms": max(bound.values()), "bound_by": max(bound, key=bound.get),
+            "bound_ms": by_b[b]["bound_ms"], "bound_by": by_b[b]["bound_by"],
             "library_ms": None}  # no single PyTorch call computes stage A
+
+
+def _stage_a_bound(n, d, b, itemsize, peak_flops):
+    """(bound ms, "bytes" or "operations") of one tile pass: the corpus,
+    valid mask and queries read once and the (tiles, 16, B) scores and ids
+    written once, over HBM bandwidth; 2 N D B product operations over the
+    type's peak."""
+    tiles = -(-n // 2048)
+    nbytes = n * d * itemsize + n + b * d * 4 + tiles * 16 * b * 8
+    bound = {"bytes": nbytes / PEAK_HBM_BYTES * 1e3,
+             "operations": 2 * n * d * b / peak_flops * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by, nbytes
+
+
+def _stage_a_by_batch(torch, emb, valid, qvecs):
+    """The bf16 tile-pass kernel at each of STAGE_A_BATCHES on phase 4's
+    corpus: behind the spin and behind an L2 flush, the query chunk it ran
+    at, its bound and the share of it each time reaches."""
+    from review_recommender_tpu_torch.ops import stage_a as SA
+
+    spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
+    flush_buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    flush = lambda: flush_buf.fill_(1.0)
+    n, d = emb.shape
+    out = {}
+    for nb in STAGE_A_BATCHES:
+        q_nb = torch.from_numpy(qvecs[:nb]).cuda()
+        run = lambda: SA.stage_a_tile_winners_kernel(emb, valid, q_nb)
+        for _ in range(3):
+            run()
+        spun = _median_ms(torch, run, REPS, before=spin)
+        cold = _median_ms(torch, run, REPS, before=flush)
+        bound_ms, by, nbytes = _stage_a_bound(n, d, nb, emb.element_size(), PEAK_BF16_FLOPS)
+        out[nb] = {"ms": spun, "cold_l2_ms": cold, "query_chunk": SA.stage_a_query_chunk(d, nb),
+                   "bound_ms": bound_ms, "bound_by": by, "share_of_bound": bound_ms / spun,
+                   "share_of_bound_cold_l2": bound_ms / cold,
+                   "hbm_share": nbytes / PEAK_HBM_BYTES / (spun / 1e3)}
+    del flush_buf
+    return out
+
+
+def _stage_a_f32_route(torch, emb, valid, qv):
+    """The f32 route at the same shape: the corpus in f32 through the
+    CUDA-core kernel, against its plain version, timed behind the spin."""
+    from review_recommender_tpu_torch.ops import stage_a as SA
+
+    emb32 = emb.float()
+    before = (SA.stage_a_kernel_launches, SA.stage_a_f32_kernel_launches)
+    row, _ = _tile_winners_diff(torch, emb32, valid, qv, "stage_a")
+    check((SA.stage_a_kernel_launches, SA.stage_a_f32_kernel_launches)
+          == (before[0], before[1] + 1), "stage_a", "the f32 corpus did not take the f32 kernel")
+    run = lambda: SA.stage_a_tile_winners_kernel(emb32, valid, qv)
+    run()
+    ms = _median_ms(torch, run, REPS, before=lambda: torch.cuda._sleep(SPIN_CYCLES))
+    bound_ms, by, _ = _stage_a_bound(*emb32.shape, qv.shape[0], 4, PEAK_FP32_FLOPS)
+    del emb32
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": by, "share_of_bound": bound_ms / ms,
+            "max_abs_err": row["max_abs_err"], "ids_equal_share": row["ids_equal_share"]}
 
 
 def main() -> int:

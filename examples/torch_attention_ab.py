@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time one checkout's attention or BM25 kernels (review_recommender_tpu_torch)
-on one NVIDIA GPU, for an A/B of two versions on the same card.
+"""Time one checkout's attention, BM25 or stage-A kernels
+(review_recommender_tpu_torch) on one NVIDIA GPU, for an A/B of two versions
+on the same card.
 
-    python3 examples/torch_attention_ab.py [ROOT] [--tag NAME] [--kernel attention|bm25]
+    python3 examples/torch_attention_ab.py [ROOT] [--tag NAME] [--kernel attention|bm25|stage_a]
 
 ROOT is the root of a checkout (default: this one). Its port is imported
 from there and its kernels are built there, so two checkouts can be timed
@@ -23,6 +24,11 @@ unpacked kernel on phase 5's postings (drawn on the card by this script's
 own chip_smoke.py, so both checkouts get the same inputs), one JSON line
 each: device_ms as above, and cold_l2_ms, each launch queued behind a 256
 MB fill that flushes the 50 MB L2.
+
+--kernel stage_a: the stage-A tile pass (stage_a_tile_winners_kernel) on
+one 200,704 x 384 bf16 corpus of unit rows drawn on the card from a seeded
+torch.Generator (3% of rows invalid), at B = 1, 8, 32 and 128 seeded unit
+queries, one JSON line each: device_ms and cold_l2_ms as above.
 
 The first line has the card's name and power limit.
 """
@@ -121,11 +127,36 @@ def _bm25(torch, tag: str) -> None:
         torch.cuda.empty_cache()
 
 
+def _stage_a(torch, tag: str) -> None:
+    from review_recommender_tpu_torch.ops import stage_a as SA
+
+    n, d = 200_704, 384
+    g = torch.Generator(device="cuda").manual_seed(600)
+    emb = torch.randn(n, d, generator=g, device="cuda")
+    emb = (emb / emb.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    valid = torch.rand(n, generator=g, device="cuda") >= 0.03
+    spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
+    flush_buf = torch.empty((256 << 20) // 4, dtype=torch.float32, device="cuda")
+    flush = lambda: flush_buf.fill_(1.0)
+    rng = np.random.default_rng(601)
+    for b in (1, 8, 32, 128):
+        q = rng.standard_normal((b, d)).astype(np.float32)
+        qv = torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to("cuda")
+        run = lambda: SA.stage_a_tile_winners_kernel(emb, valid, qv)
+        for _ in range(3):
+            run()
+        device_ms = _median_ms(torch, run, before=spin)
+        cold_ms = _median_ms(torch, run, before=flush)
+        print(json.dumps({"tag": tag, "kernel": "stage_a", "N": n, "D": d, "B": b,
+                          "device_ms": device_ms, "cold_l2_ms": cold_ms, "reps": REPS}),
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--kernel", choices=("attention", "bm25"), default="attention")
+    ap.add_argument("--kernel", choices=("attention", "bm25", "stage_a"), default="attention")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -145,7 +176,7 @@ def main() -> int:
     kernels.build()
     print(json.dumps({"tag": args.tag, "root": str(root), "card": smi, "kernel": args.kernel}),
           flush=True)
-    (_bm25 if args.kernel == "bm25" else _attention)(torch, args.tag)
+    {"attention": _attention, "bm25": _bm25, "stage_a": _stage_a}[args.kernel](torch, args.tag)
     return 0
 
 

@@ -1,11 +1,13 @@
-// Fused stage A for Hopper (sm_90a): dense scores of one corpus tile for a
-// group of queries, and each query's 16 best rows of the tile, in one pass.
+// Fused stage A for Hopper (sm_90a) on the CUDA cores, for an f32 corpus:
+// dense scores of one corpus tile for a group of queries, and each query's
+// 16 best rows of the tile, in one pass. A bf16 corpus takes the tensor-core
+// kernel (stage_a_wgmma.cu); wgmma has no f32 input, and TF32 would keep
+// about three digits.
 //
 // Replaces _stage_a_kernel of review_recommender_tpu/ops/pallas/
-// stage_a_kernel.py (stage_a_fused_pallas). For each 2048-row tile t and
-// query b:
-//   score[r] = f32 sum over k of emb[r][k] * q_b[k], with q_b rounded to the
-//              corpus type first (bf16 products are exact in f32);
+// stage_a_kernel.py (stage_a_fused_pallas) for f32. For each 2048-row tile
+// t and query b:
+//   score[r] = f32 sum over k of emb[r][k] * q_b[k];
 //   score[r] = -3.4e38f where valid[r] == 0 or r >= n (the tail of the last
 //              tile, which the TPU function receives as zero padding);
 //   16 rounds: (the largest remaining score, the lowest local index among
@@ -16,14 +18,14 @@
 // do in the TPU kernel. The global merge, the postings gather and the BM25
 // sum stay in torch (ops/stage_a.py), as the JAX package keeps them in XLA.
 //
-// What bounds it: one read of the corpus (N * D * 2 bytes in bf16, 154 MB
-// at N = 200,704, D = 384) against 2 * N * D * B FLOP of products (4.9
-// GFLOP at B = 32): ~46 us of HBM against ~74 us on the f32 CUDA cores at
-// 67 TFLOP/s, so the products bound it. This first design spends CUDA-core
-// FMAs on them (wgmma tiles are later work): a block of 256 threads takes
+// What bounds it: one read of the corpus (N * D * 4 bytes, 308 MB at N =
+// 200,704, D = 384: ~92 us of HBM) against 2 * N * D * B FLOP of products
+// (4.9 GFLOP at B = 32: ~74 us on the f32 CUDA cores at 67 TFLOP/s). This
+// design (the port's first, from when it took bf16 too) spends CUDA-core
+// FMAs on them: a block of 256 threads takes
 // one tile and a group of 8 queries (blockIdx.x = group, so the blocks
 // that share a tile run side by side and all but one read it from L2).
-// The group's rounded query vectors sit in shared memory as f32 (8 * D * 4
+// The group's query vectors sit in shared memory as f32 (8 * D * 4
 // bytes) and are read as broadcast 16-byte loads; each thread scores whole
 // rows with 16-byte loads along the row, four in flight, 8 accumulators.
 // The 2048 x 8 scores go to shared memory (64 KB), and each warp then runs
@@ -34,7 +36,6 @@
 // The kernel allocates nothing and does not synchronise; it launches on the
 // stream it is given and the C entry returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,23 +50,6 @@ constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may take
 
 template <typename T>
 struct Row;
-
-// 16 bytes = 8 bf16 values; widening a bf16 to f32 is exact.
-template <>
-struct Row<__nv_bfloat16> {
-  static constexpr int kPerVec = 8;
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  static __device__ __forceinline__ void widen(const uint4 v, float (&x)[kPerVec]) {
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[2 * i] = __uint_as_float(w[i] << 16);
-      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
 
 // 16 bytes = 4 f32 values.
 template <>
@@ -197,20 +181,16 @@ cudaError_t launch(const void* emb, const void* valid, const void* qvecs, void* 
 
 }  // namespace
 
-// emb (N, D) bf16 (is_bf16 = 1) or f32, 16-byte aligned with D * itemsize a
-// multiple of 16; valid (N,) bool; qvecs (B, D) f32, 16-byte aligned; out_s
-// (n_tiles, 16, B) f32 and out_i (n_tiles, 16, B) int32 with n_tiles =
-// ceil(N / 2048) <= 65535; all contiguous on one device. Returns a
-// cudaError_t (0 = launched).
-extern "C" int rrt_stage_a_tile_winners(const void* emb, int is_bf16, const void* valid,
-                                        const void* qvecs, void* out_s, void* out_i, int n,
-                                        int d, int b, void* stream) {
-  const int esz = is_bf16 ? 2 : 4;
+// emb (N, D) f32, 16-byte aligned with D a multiple of 4; valid (N,) bool;
+// qvecs (B, D) f32, 16-byte aligned; out_s (n_tiles, 16, B) f32 and out_i
+// (n_tiles, 16, B) int32 with n_tiles = ceil(N / 2048) <= 65535; all
+// contiguous on one device. Returns a cudaError_t (0 = launched).
+extern "C" int rrt_stage_a_f32(const void* emb, const void* valid, const void* qvecs,
+                               void* out_s, void* out_i, int n, int d, int b, void* stream) {
   const long long n_tiles = ((long long)n + kTileN - 1) / kTileN;
-  if (n <= 0 || d <= 0 || b <= 0 || (d * esz) % 16 != 0 || n_tiles > 65535 ||
+  if (n <= 0 || d <= 0 || b <= 0 || d % 4 != 0 || n_tiles > 65535 ||
       (long long)kGroup * (d + kTileN) * 4 > kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return (int)launch<__nv_bfloat16>(emb, valid, qvecs, out_s, out_i, n, d, b, st);
-  return (int)launch<float>(emb, valid, qvecs, out_s, out_i, n, d, b, st);
+  return (int)launch<float>(emb, valid, qvecs, out_s, out_i, n, d, b,
+                            static_cast<cudaStream_t>(stream));
 }

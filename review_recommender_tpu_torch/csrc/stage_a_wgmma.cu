@@ -1,0 +1,702 @@
+// Fused stage A for Hopper (sm_90a) on the tensor cores: dense scores of
+// one 2048-row corpus tile for a batch of queries, and each query's 16 best
+// rows of the tile, in one pass.
+//
+// Replaces _stage_a_kernel of review_recommender_tpu/ops/pallas/
+// stage_a_kernel.py (reached through stage_a_fused_pallas) for a bf16
+// corpus. For each 2048-row tile t and query b:
+//   score[r] = f32 sum over k of emb[r][k] * q_b[k], q_b rounded to bf16
+//              first (bf16 products are exact in f32);
+//   rows where valid[r] == 0 or r >= n score -3.4e38f and never win;
+//   16 rounds: (the largest remaining score, the lowest local index among
+//              equal ones), then that row is out;
+//   out_s[t][m][b], out_i[t][m][b] = round m's score and local index.
+// When fewer than 16 rows of the tile are valid, round m >= that count
+// returns (-3.4e38f, 0), as the TPU kernel's rounds do (every score left is
+// -3.4e38f, and row 0 is the lowest index holding it).
+//
+// What bounds it: reading the corpus once, N * D * 2 bytes = 154 MB at N =
+// 200,704, D = 384, over 3.35 TB/s of HBM: 0.0459 ms. The products, 2 * N *
+// D * B = 4.9 GFLOP at B = 32, take 5 us at the 989 TFLOP/s of the bf16
+// tensor cores (20 us at B = 128). The first CUDA design (stage_a_fused.cu,
+// kept for f32 corpora) was CUDA-core FMAs, a corpus read per group of 8
+// queries, one thread per row and 16 rescans of the tile per query.
+//
+// Design, one CTA of 416 threads per (tile, chunk of up to NC queries), the
+// warps specialised (examples/torch_stage_a_breakdown.py times its parts on
+// the card; PERF.md has the numbers):
+//   - Queries. The chunk's NC queries (zero past B and past D) are rounded
+//     to bf16 once and written to shared memory in the layout wgmma reads
+//     its B operand from (N = query, K = the embedding dim, 128-byte rows,
+//     128-byte swizzle). NC is 16, 32, 64 or 128: the smallest that holds
+//     B, halved while the queries, the lists, one score buffer and 4 ring
+//     stages do not fit (every D <= 4096 is taken; at D = 384 one chunk
+//     holds 128 queries). A wider batch is gridDim.y chunks, each reading
+//     the tile again.
+//   - Corpus (a producer warp). The tile streams through a ring of 8 KB TMA
+//     boxes (64 rows x 64 columns, 128-byte swizzle), as many stages as
+//     shared memory leaves (up to 24; 19 at NC = 32, D = 384, so 150 KB are
+//     in flight per SM), each completed on an mbarrier. TMA zero-fills rows
+//     past N and columns past D; the kernel masks the rows itself.
+//   - Products (one MMA warpgroup). wgmma m64nNCk16 (A = a slab of 64
+//     corpus rows, B = the queries, both K-major from shared memory, f32
+//     accumulators in registers), 4 k-steps per box; each box goes back to
+//     the producer once the wgmma that read it is done. A wgmma costs ~80
+//     cycles whatever N is (8 to 64), so the whole chunk is one N: the 24
+//     wgmmas of a slab at D = 384 take ~1.1 us, under the ~1.4 us its bytes
+//     take at the bound. The slab's scores go to a score buffer in shared
+//     memory (query-major, 64 rows; two buffers where they fit, else one),
+//     NaN on invalid rows (no compare passes NaN), -0 made +0 (so that the
+//     key order below is the float order of the plain version).
+//   - Selection without rescans (8 selection warps; warp w owns queries w,
+//     w + 8, ...). Each query keeps a threshold (-inf at first) and a count
+//     in the warp's registers, and a list of candidate keys in shared
+//     memory: order-preserving score bits << 32 | ~row, so one u64 compare
+//     is (score desc, row asc). The warp reads its queries' 64 scores of
+//     the slab (rows lane and lane + 32), hands the buffer back, and appends
+//     the values >= the threshold with a ballot: no atomics, no block-wide
+//     barrier. A list that could not take another 32 is pruned: t = the 16th
+//     largest of the 32 lanes' maxima (a bitonic sort of 32 keys); at least
+//     16 keys are >= t, so none below it is among the 16 best; the rest is
+//     dropped (about 20 keys stay) and the threshold rises to t's score. In
+//     random order about 16 ln(2048 / 16) ~ 80 rows of a tile pass per
+//     query, most in its first slabs. At the end of the tile the warp prunes
+//     once more, sorts what is left (32 or 64 keys) and writes 16 rounds.
+//     Lists hold 128 keys up to NC = 32, 64 at NC = 64 and 128.
+//   - Ties. A value equal to the threshold passes (>=), so a row that ties
+//     the 16th best with a lower index always reaches the sort, which
+//     decides by the full key: the result does not depend on the order in
+//     which rows arrive. 17 or more copies of the best row give the 16
+//     lowest indices.
+// One tile per CTA: at N = 200,704 that is 98 CTAs on 132 SMs. Designs
+// that were measured and replaced: one warpgroup doing products and
+// selection in turn (the selection's latency in series with the wgmmas),
+// and two warpgroups splitting the queries (twice the wgmmas a slab).
+
+// The kernel allocates nothing and does not synchronise; it launches on the
+// stream it is given and the C entry returns cudaGetLastError().
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTileN = 2048;
+constexpr int kRounds = 16;   // M_PER_TILE
+constexpr int kSlab = 64;     // corpus rows per wgmma: its M
+constexpr int kSlabs = kTileN / kSlab;
+constexpr int kBoxCols = 64;  // bf16 columns per box: one 128-byte swizzled row
+constexpr int kBoxBytes = kSlab * kBoxCols * 2;  // 8 KB
+constexpr int kSelWarps = 8;                         // selection warps
+constexpr int kConsumers = 128 + 32 * kSelWarps;     // the MMA warpgroup + them
+constexpr int kThreads = kConsumers + 32;            // + the producer warp
+// Floats a query's 64 slab scores take: 68 spreads the MMA warps' stores
+// over all 32 banks; 66 (2-way conflicts) lets one buffer fit at 128 queries.
+__host__ __device__ constexpr int pitch(int nc) { return nc == 128 ? 66 : 68; }
+constexpr int kHalf = 32;  // rows of a slab a half adds per query at most
+constexpr int kMinStages = 4;
+constexpr int kMaxStages = 24;
+constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may take
+constexpr float kNeg = -3.4e38f;
+
+// Keys a query's candidate list holds: 128 (4 a lane) up to 32 queries a
+// chunk, 64 (2 a lane) from 64, where the queries take 48-96 KB at D = 384.
+__host__ __device__ constexpr int list_cap(int nc) { return nc <= 32 ? 128 : 64; }
+
+// Shared memory (from a 1024-byte aligned base): the queries (kc boxes of
+// nc rows x 128 bytes), the ring, the candidate lists, nbuf slab score
+// buffers (nc x pitch(nc) floats), then a full and an empty mbarrier per stage
+// and per score buffer; 1024 bytes of slack to align the base.
+__host__ __device__ constexpr size_t smem_bytes(int nc, int kc, int stages, int nbuf) {
+  return 1024 + (size_t)kc * nc * 128 + (size_t)stages * kBoxBytes +
+         (size_t)nc * list_cap(nc) * 8 + (size_t)nbuf * nc * pitch(nc) * 4 + (size_t)stages * 16 + 32;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA box of a 2-D tensor map (column, row) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand in 128-byte swizzled
+// rows: start address, leading byte offset 16, stride byte offset 1024 (8
+// rows), layout type 1 (128B swizzle); 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(16 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Pin the accumulators in program order around the asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma m64nNk16, bf16 inputs, f32 accumulators; A and B K-major from
+// shared memory; scale_d = 0 starts the sum.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// Two floats to a bf16 pair, rounded to nearest even (torch's .to(bfloat16)),
+// x in the low half (the lower address).
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// ---- candidate keys: one u64 compare orders (score desc, local row asc) ----
+__device__ __forceinline__ uint64_t make_key(float s, int row) {
+  const uint32_t u = __float_as_uint(s);
+  const uint32_t o = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((uint64_t)o << 32) | (uint32_t)(0xFFFFFFFFu - (uint32_t)row);
+}
+
+__device__ __forceinline__ float key_score(uint64_t key) {
+  const uint32_t o = (uint32_t)(key >> 32);
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
+}
+
+__device__ __forceinline__ int key_row(uint64_t key) {
+  return (int)(0xFFFFFFFFu - (uint32_t)key);
+}
+
+__device__ __forceinline__ uint64_t shfl_xor64(uint64_t v, int m) {
+  const uint32_t lo = __shfl_xor_sync(0xffffffffu, (uint32_t)v, m);
+  const uint32_t hi = __shfl_xor_sync(0xffffffffu, (uint32_t)(v >> 32), m);
+  return ((uint64_t)hi << 32) | lo;
+}
+
+// Bitonic sort of G independent sets of 32 keys, one key of each a lane,
+// into descending order (lane l ends with rank l of each set); the G
+// chains of shuffles are independent, so they overlap.
+template <int G>
+__device__ __forceinline__ void sort32_desc(uint64_t (&x)[G]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      // the lower lane of a pair keeps the larger key in a descending block
+      // ((lane & k) == 0), the upper one in an ascending block
+      const bool keep_max = ((lane & j) == 0) == ((lane & k) == 0);
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const uint64_t p = shfl_xor64(x[q], j);
+        x[q] = keep_max == (x[q] > p) ? x[q] : p;
+      }
+    }
+  }
+}
+
+// The same for 64 keys, element `lane` in a and `lane + 32` in b.
+__device__ __forceinline__ void sort64_desc(uint64_t& a, uint64_t& b) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= 64; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j == 32) {  // partners in one lane; k == 64, a descending block
+        const uint64_t hi = a > b ? a : b, lo = a > b ? b : a;
+        a = hi;
+        b = lo;
+      } else {
+        const uint64_t pa = shfl_xor64(a, j), pb = shfl_xor64(b, j);
+        const int eb = lane + 32;
+        const bool ka = ((lane & j) == 0) == ((lane & k) == 0);
+        const bool kb = ((eb & j) == 0) == ((eb & k) == 0);
+        a = ka == (a > pa) ? a : pa;
+        b = kb == (b > pb) ? b : pb;
+      }
+    }
+  }
+}
+
+// Named barrier 1: every thread but the producer's.
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// Prune G queries' lists across their warp, list q at list0 + q * stride
+// holding n[q] <= 32 P keys (P a lane): t = the 16th largest of the 32
+// lanes' maxima; at least 16 keys are >= t (one in each of 16 lanes), so
+// no key below t is among the 16 best, and the keys >= t (at most 16 P,
+// about 20 on random scores) are kept, packed at the front. The threshold
+// rises to t's score. t is 0 (nothing pruned) while fewer than 16 lanes
+// hold a key. n and th are warp-uniform.
+template <int P, int G>
+__device__ __forceinline__ void prune_lists(uint64_t* list0, int stride, int (&n)[G],
+                                            float (&th)[G]) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // the appends are in shared memory
+  uint64_t k[G][P], mx[G];
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    mx[q] = 0;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      k[q][p] = lane + 32 * p < n[q] ? list0[q * stride + lane + 32 * p] : 0ull;  // 0: below any key
+      mx[q] = k[q][p] > mx[q] ? k[q][p] : mx[q];
+    }
+  }
+  sort32_desc<G>(mx);
+  __syncwarp();
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    const uint64_t t = __shfl_sync(0xffffffffu, mx[q], kRounds - 1);
+    int kept = 0;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const bool keep = k[q][p] != 0 && k[q][p] >= t;
+      const unsigned ball = __ballot_sync(0xffffffffu, keep);
+      if (keep) list0[q * stride + kept + __popc(ball & below)] = k[q][p];
+      kept += __popc(ball);
+    }
+    n[q] = kept;
+    if (t != 0) th[q] = key_score(t);
+  }
+  __syncwarp();
+}
+
+// A query's 16 rounds for the tile: prune, sort what is left, and write
+// out_s / out_i[o + m * stride] for m < 16; rounds past the list's length
+// are (-3.4e38, 0).
+template <int P>
+__device__ __forceinline__ void write_rounds(uint64_t* list, int n, float th, float* out_s,
+                                             int32_t* out_i, size_t o, int stride) {
+  const int lane = threadIdx.x & 31;
+  int nn[1] = {n};
+  float tt[1] = {th};
+  prune_lists<P, 1>(list, 0, nn, tt);
+  n = nn[0];
+  uint64_t a = lane < n ? list[lane] : 0ull;
+  if (n <= 32) {
+    uint64_t x[1] = {a};
+    sort32_desc<1>(x);
+    a = x[0];
+  } else {
+    uint64_t b = lane + 32 < n ? list[lane + 32] : 0ull;
+    sort64_desc(a, b);
+  }
+  if (lane < kRounds) {
+    const bool live = lane < n;
+    out_s[o + (size_t)lane * stride] = live ? key_score(a) : kNeg;
+    out_i[o + (size_t)lane * stride] = live ? key_row(a) : 0;
+  }
+}
+
+// NC queries a chunk (16, 32, 64 or 128): the wgmma's N. nbuf score
+// buffers (2, or 1 where two do not fit beside 8 ring stages): slab s uses
+// buffer s % nbuf.
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __restrict__ valid,
+                     const float* __restrict__ qvecs, float* __restrict__ out_s,
+                     int32_t* __restrict__ out_i, int n, int d, int b, int kc, int stages,
+                     int nbuf) {
+  constexpr int kCap = list_cap(NC), kP = kCap / 32, kPitch = pitch(NC);
+  constexpr int kCols = NC / kSelWarps;  // queries each selection warp owns
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t s_q = base;                      // box x at + x * NC * 128
+  const uint32_t s_ring = s_q + kc * NC * 128;    // stage s at + s * kBoxBytes
+  uint64_t* cand = reinterpret_cast<uint64_t*>(gbase + (size_t)kc * NC * 128 +
+                                               (size_t)stages * kBoxBytes);
+  float* sbuf = reinterpret_cast<float*>(cand + NC * kCap);  // [nbuf][NC][kPitch]
+  const uint32_t bar_full = smem_u32(sbuf + nbuf * NC * kPitch);  // stage s at + 8 s
+  const uint32_t bar_empty = bar_full + 8 * stages;
+  const uint32_t bar_sfull = bar_empty + 8 * stages;  // score buffer u at + 8 u
+  const uint32_t bar_sempty = bar_sfull + 16;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tile = blockIdx.x, q0 = blockIdx.y * NC;
+  const int row0 = tile * kTileN;
+  const int nq = min(NC, b - q0);
+  const int n_slabs = min(kSlabs, (n - row0 + kSlab - 1) / kSlab);
+  const int n_boxes = n_slabs * kc;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4);  // lane 0 of each MMA warp
+    }
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(bar_sfull + 8 * u, 128);                  // every MMA thread
+      mbar_init(bar_sempty + 8 * u, 32 * kSelWarps);      // every selection thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // ---- producer: box t = (slab t / kc, columns (t % kc) * 64)
+    if (lane == 0) {
+      for (int t = 0; t < n_boxes; ++t) {
+        const int st = t % stages, r = t / stages;
+        if (r > 0) mbar_wait(bar_empty + 8 * st, (r - 1) & 1);
+        mbar_expect_tx(bar_full + 8 * st, kBoxBytes);
+        tma_load(s_ring + st * kBoxBytes, &tm, bar_full + 8 * st, (t % kc) * kBoxCols,
+                 row0 + (t / kc) * kSlab);
+      }
+    }
+    return;
+  }
+
+  // ---- the tile's valid flags (0 past N), staged in the list area, which
+  // is free until the first slab's selection
+  uint8_t* v_tile = reinterpret_cast<uint8_t*>(cand);
+  for (int i = tid; i < kTileN; i += kConsumers) v_tile[i] = row0 + i < n ? valid[row0 + i] : 0;
+  // the queries to bf16 in wgmma's B layout: 16-byte piece c8 of query j in
+  // box x at s_q + x * NC * 128 + j * 128 + ((c8 ^ (j & 7)) << 4)
+  {
+    constexpr int kBatch = 4;  // pieces a thread loads before it stores
+    const int pieces = NC * kc * 8;
+    for (int p0 = tid; p0 < pieces; p0 += kConsumers * kBatch) {
+      float4 v[kBatch][2];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int p = p0 + u * kConsumers;
+        const int j = p / (kc * 8), x = (p / 8) % kc, k0 = x * kBoxCols + (p % 8) * 8;
+        if (p < pieces && j < nq && k0 < d) {  // d % 8 == 0: the piece is whole
+          const float4* src = reinterpret_cast<const float4*>(qvecs + (size_t)(q0 + j) * d + k0);
+          v[u][0] = __ldg(src);
+          v[u][1] = __ldg(src + 1);
+        } else {
+          v[u][0] = v[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int p = p0 + u * kConsumers;
+        if (p < pieces) {
+          const int j = p / (kc * 8), x = (p / 8) % kc, c8 = p % 8;
+          *reinterpret_cast<uint4*>(gbase + (size_t)x * NC * 128 + j * 128 +
+                                    ((c8 ^ (j & 7)) << 4)) =
+              make_uint4(pack_bf16(v[u][0].x, v[u][0].y), pack_bf16(v[u][0].z, v[u][0].w),
+                         pack_bf16(v[u][1].x, v[u][1].y), pack_bf16(v[u][1].z, v[u][1].w));
+        }
+      }
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic writes -> wgmma
+  consumers_sync();
+
+  if (warp < 4) {  // ---- the MMA warpgroup: scores of slab s into buffer s % 2
+    const int g = lane >> 2, c = lane & 3;
+    // bit 2 s + h: this thread's row s * 64 + warp * 16 + g + 8 h is valid
+    uint64_t vmask = 0;
+    for (int s = 0; s < kSlabs; ++s) {
+      vmask |= (uint64_t)(v_tile[s * kSlab + warp * 16 + g] != 0) << (2 * s);
+      vmask |= (uint64_t)(v_tile[s * kSlab + warp * 16 + g + 8] != 0) << (2 * s + 1);
+    }
+    float acc[NC / 2] = {};
+    for (int s = 0; s < n_slabs; ++s) {
+      fence_regs(acc);
+      wgmma_fence();
+      for (int x = 0; x < kc; ++x) {
+        const int t = s * kc + x, st = t % stages;
+        mbar_wait(bar_full + 8 * st, (t / stages) & 1);
+        const uint32_t a = s_ring + st * kBoxBytes, bq = s_q + x * NC * 128;
+#pragma unroll
+        for (int kk = 0; kk < kBoxCols / 16; ++kk)
+          Wgmma<NC>::mma(acc, desc_sw128(a + kk * 32), desc_sw128(bq + kk * 32), (x | kk) != 0);
+        wgmma_commit();
+        if (x > 0) {  // the box before this one is read: back to the producer
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(bar_empty + 8 * ((t - 1) % stages));
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(bar_empty + 8 * ((s * kc + kc - 1) % stages));
+      // accumulator element 4i + 2h + e is (row warp * 16 + g + 8h, query
+      // 8i + 2c + e); an invalid row scores NaN, which no compare passes,
+      // and -0 becomes +0 (the key order is then the float order)
+      const int u = s % nbuf;
+      if (s >= nbuf) mbar_wait(bar_sempty + 8 * u, (s / nbuf - 1) & 1);
+      float* out = sbuf + u * NC * kPitch + warp * 16 + g;
+#pragma unroll
+      for (int i = 0; i < NC / 8; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool v = (vmask >> (2 * s + h)) & 1;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            out[(8 * i + 2 * c + e) * kPitch + 8 * h] =
+                v ? __fadd_rn(acc[4 * i + 2 * h + e], 0.0f) : __int_as_float(0x7fc00000);
+        }
+      }
+      mbar_arrive(bar_sfull + 8 * u);
+    }
+    return;
+  }
+
+  // ---- selection warp sw owns queries j = sw + 8 m: their thresholds and
+  // counts (warp-uniform registers) and lists. It reads their 64 scores of
+  // each slab (rows lane and lane + 32), hands the buffer back, then
+  // appends the values >= the threshold in two halves of 32 rows and
+  // prunes a list that could not take another half.
+  // Its queries are pruned in groups of kG (queries sw + 8 (g kG + q)): a
+  // whole group whenever one of its lists is full, the sorts interleaved.
+  constexpr int kG = kCols < 4 ? kCols : 4;
+  const int sw = warp - 4;
+  const unsigned below = (1u << lane) - 1u;
+  float th[kCols / kG][kG];
+  int cnt[kCols / kG][kG];
+#pragma unroll
+  for (int m = 0; m < kCols; ++m) {
+    th[m / kG][m % kG] = -INFINITY;
+    cnt[m / kG][m % kG] = 0;
+  }
+  for (int s = 0; s < n_slabs; ++s) {
+    const int u = s % nbuf;
+    mbar_wait(bar_sfull + 8 * u, (s / nbuf) & 1);
+    float sc[kCols][2];
+#pragma unroll
+    for (int m = 0; m < kCols; ++m) {
+      const float* col = sbuf + (u * NC + sw + 8 * m) * kPitch;
+      sc[m][0] = col[lane];
+      sc[m][1] = col[lane + 32];
+    }
+    mbar_arrive(bar_sempty + 8 * u);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int m = 0; m < kCols; ++m) {
+        const int j = sw + 8 * m;
+        float& t = th[m / kG][m % kG];
+        int& n_j = cnt[m / kG][m % kG];
+        const bool pass = j < nq && sc[m][h] >= t;  // false for NaN (invalid rows)
+        const unsigned ball = __ballot_sync(0xffffffffu, pass);
+        if (ball == 0) continue;
+        if (pass) cand[j * kCap + n_j + __popc(ball & below)] =
+            make_key(sc[m][h], s * kSlab + 32 * h + lane);
+        n_j += __popc(ball);
+      }
+#pragma unroll
+      for (int g = 0; g < kCols / kG; ++g) {
+        bool full = false;
+#pragma unroll
+        for (int q = 0; q < kG; ++q) full = full || cnt[g][q] > kCap - kHalf;
+        if (full) prune_lists<kP, kG>(cand + (sw + 8 * g * kG) * kCap, 8 * kCap, cnt[g], th[g]);
+      }
+    }
+  }
+  // the tile's rounds: out[(tile * 16 + m) * b + q0 + j]
+#pragma unroll
+  for (int m = 0; m < kCols; ++m) {
+    const int j = sw + 8 * m;
+    if (j < nq)
+      write_rounds<kP>(cand + j * kCap, cnt[m / kG][m % kG], th[m / kG][m % kG], out_s, out_i,
+                       (size_t)tile * kRounds * b + q0 + j, b);
+  }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled (CUDA 12.0 ABI), looked up through the runtime, so
+// that the library does not link against libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The corpus (N, D) bf16 as a 2-D map: D columns innermost, N rows; boxes
+// of 64 columns x 64 rows, 128-byte swizzle; zero fill past the edges.
+bool make_map(CUtensorMap* map, const void* emb, int n, int d) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBoxCols, (cuuint32_t)kSlab};
+  const cuuint32_t elem[2] = {1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(emb), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The chunk width for B queries of D dimensions: the smallest of 16, 32, 64,
+// 128 that holds B, halved while 4 ring stages and one score buffer do not
+// fit beside the queries.
+int chunk_width(int d, int b) {
+  const int kc = (d + kBoxCols - 1) / kBoxCols;
+  int nc = 16;
+  while (nc < 128 && nc < b) nc *= 2;
+  while (nc > 16 && smem_bytes(nc, kc, kMinStages, 1) > (size_t)kMaxSmem) nc /= 2;
+  return nc;
+}
+
+template <int NC>
+cudaError_t launch(const CUtensorMap& map, const uint8_t* valid, const float* qvecs, float* out_s,
+                   int32_t* out_i, int n, int d, int b, int kc, cudaStream_t stream) {
+  auto kern = stage_a_wgmma_kernel<NC>;
+  static bool smem_set = false;  // the opt-in is per kernel instance, not per call
+  if (!smem_set) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const int nbuf = smem_bytes(NC, kc, 8, 2) <= (size_t)kMaxSmem ? 2 : 1;
+  const int stages = (int)((kMaxSmem - smem_bytes(NC, kc, 0, nbuf)) / (kBoxBytes + 16));
+  const int st = stages < kMaxStages ? stages : kMaxStages;
+  const dim3 grid((n + kTileN - 1) / kTileN, (b + NC - 1) / NC);
+  kern<<<grid, kThreads, smem_bytes(NC, kc, st, nbuf), stream>>>(map, valid, qvecs, out_s, out_i,
+                                                                n, d, b, kc, st, nbuf);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The queries one CTA takes (its chunk width) for B queries of D dims.
+extern "C" int rrt_stage_a_wgmma_chunk(int d, int b) { return chunk_width(d, b); }
+
+// emb (N, D) bf16, 16-byte aligned with D a multiple of 8, D <= 4096; valid
+// (N,) bool; qvecs (B, D) f32, 16-byte aligned; out_s (n_tiles, 16, B) f32
+// and out_i (n_tiles, 16, B) int32, n_tiles = ceil(N / 2048); all
+// contiguous on one device. Returns a cudaError_t (0 = launched).
+extern "C" int rrt_stage_a_wgmma(const void* emb, const void* valid, const void* qvecs,
+                                 void* out_s, void* out_i, int n, int d, int b, void* stream) {
+  if (n <= 0 || d <= 0 || d > 4096 || d % 8 != 0 || b <= 0) return (int)cudaErrorInvalidValue;
+  const int kc = (d + kBoxCols - 1) / kBoxCols;
+  const int nc = chunk_width(d, b);
+  if ((b + nc - 1) / nc > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (!make_map(&map, emb, n, d)) return (int)cudaErrorInvalidValue;
+  auto v = static_cast<const uint8_t*>(valid);
+  auto q = static_cast<const float*>(qvecs);
+  auto os = static_cast<float*>(out_s);
+  auto oi = static_cast<int32_t*>(out_i);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (nc) {
+    case 16: return (int)launch<16>(map, v, q, os, oi, n, d, b, kc, st);
+    case 32: return (int)launch<32>(map, v, q, os, oi, n, d, b, kc, st);
+    case 64: return (int)launch<64>(map, v, q, os, oi, n, d, b, kc, st);
+    default: return (int)launch<128>(map, v, q, os, oi, n, d, b, kc, st);
+  }
+}

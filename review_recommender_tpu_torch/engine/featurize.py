@@ -2,10 +2,11 @@
 
 A jax-free copy of `review_recommender_tpu/engine/featurize.py:35-221`
 (`QueryFeatures`, `packed_len`, `QueryFeaturizer` with `featurize_packed`
-and `featurize_packed_batch`) on the Python path only:
-the C++ featurizer is bound through `review_recommender_tpu.native`, which
-can load jax. `unpack_features` is the torch counterpart of the device-side
-inverse of `QueryFeatures.pack`.
+and `featurize_packed_batch`) on the Python path only: the JAX package's
+C++ featurizer is bound through its own package, which the port does not
+import; the port's own binding of those sources is ROADMAP Queue 1 item
+16. `unpack_features` is the torch counterpart of the device-side inverse
+of `QueryFeatures.pack`.
 """
 from __future__ import annotations
 

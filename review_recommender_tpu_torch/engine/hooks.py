@@ -11,7 +11,8 @@ engine/hooks.py:42-184` (`_split_host_hooks`, `SIGNAL_ORDER`,
           mode = penalty^misses from the stage-A group-hit counters
 
 The snippet lane is not ported yet (ROADMAP Queue 1 item 7); the engine
-refuses use_snips=True before it gets here.
+refuses use_snips=True before it gets here wherever the JAX engine would
+run that lane, and otherwise runs without it.
 """
 from __future__ import annotations
 

@@ -33,9 +33,11 @@ JAX package, the port does not read USE_PALLAS: on CUDA the kernels are
 the path.
 
 Not ported yet, and refused with NotImplementedError rather than run some
-other way: snippets (use_snips=True with ENABLE_SNIPPETS, max_scan != 0;
-ROADMAP Queue 1 item 7), the IVF pool (item 10) and the int8 corpus (item
-11).
+other way: the snippet lane (use_snips=True with ENABLE_SNIPPETS on a
+bundle with reviews, and max_scan != 0; ROADMAP Queue 1 item 7), the IVF
+pool (item 10) and the int8 corpus (item 11). As in the JAX engine,
+use_snips=True with ENABLE_SNIPPETS off or on a bundle without reviews
+runs as use_snips=False: no snippet lane, empty snippets.
 """
 from __future__ import annotations
 
@@ -67,6 +69,7 @@ from review_recommender_tpu_torch.ops.bm25 import (
     masked_topk,
 )
 from review_recommender_tpu_torch.ops.bm25_kernel import (
+    MAX_QUERY_SLOTS,
     bm25_topk_packed,
     bm25_topk_unpacked,
     pack_postings,
@@ -99,6 +102,11 @@ class SearchEngine(SplitPathHooksMixin):
         dense_pool: Optional[str] = None,
     ):
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and config.QUERY_TERMS_CAP > MAX_QUERY_SLOTS:
+            # every query has QUERY_TERMS_CAP slots; the BM25 kernels take
+            # at most MAX_QUERY_SLOTS, so refuse here rather than at each query
+            raise ValueError(f"QUERY_TERMS_CAP={config.QUERY_TERMS_CAP} is over the BM25 "
+                             f"kernels' {MAX_QUERY_SLOTS} query slots")
         self.bundle = bundle
         self.products = bundle.products
         raw_dtype = emb_dtype or config.EMB_DTYPE
@@ -249,9 +257,11 @@ class SearchEngine(SplitPathHooksMixin):
         return self._result_buffer(*self._fused_packed(qp, w, pool=pool, k=k))
 
     # ------------------------------------------------------------ fused query
-    @staticmethod
-    def _refuse_snippets(use_snips) -> None:
-        if bool(use_snips) and config.ENABLE_SNIPPETS:
+    def _refuse_snippets(self, use_snips) -> None:
+        """Raise where the JAX engine would run its snippet lane (its
+        use_snips_eff): use_snips with ENABLE_SNIPPETS on a bundle with
+        reviews. Anything else runs as use_snips=False."""
+        if bool(use_snips) and config.ENABLE_SNIPPETS and self.bundle.reviews is not None:
             raise NotImplementedError(
                 "use_snips=True: the snippet lane is not ported yet (ROADMAP Queue 1 item 7)")
 
@@ -409,9 +419,7 @@ class SearchEngine(SplitPathHooksMixin):
     ):
         """Hybrid search. Returns (rows, snippets, debug): rows is the list
         of result dicts in rank order, in the JAX package's column order."""
-        if use_snips:
-            raise NotImplementedError(
-                "use_snips=True: the snippet lane is not ported yet (ROADMAP Queue 1 item 7)")
+        self._refuse_snippets(use_snips)
         if int(max_scan or 0) != 0:
             raise NotImplementedError(
                 "max_scan != 0: the exact host snippet scan is not ported yet "

@@ -120,8 +120,12 @@ def load() -> ctypes.CDLL:
             lib.rrt_bm25_packed.restype = I
             lib.rrt_bm25_unpacked.argtypes = [P, P, P, P, P, F, P, I, I, I, P]
             lib.rrt_bm25_unpacked.restype = I
-            lib.rrt_stage_a_tile_winners.argtypes = [P, I, P, P, P, P, I, I, I, P]
-            lib.rrt_stage_a_tile_winners.restype = I
+            lib.rrt_stage_a_wgmma.argtypes = [P, P, P, P, P, I, I, I, P]
+            lib.rrt_stage_a_wgmma.restype = I
+            lib.rrt_stage_a_wgmma_chunk.argtypes = [I, I]
+            lib.rrt_stage_a_wgmma_chunk.restype = I
+            lib.rrt_stage_a_f32.argtypes = [P, P, P, P, P, I, I, I, P]
+            lib.rrt_stage_a_f32.restype = I
             _lib = lib
         return _lib
 

@@ -25,9 +25,11 @@ alone (no FMA contraction, IEEE division), so their scores equal the plain
 versions' bit for bit, and with them the JAX package's.
 
 On a CUDA tensor a kernel launches or the call raises; nothing falls back
-to the plain version. Unlike the TPU kernels, the CUDA ones take any N
-(no 256/512 tile alignment); TILE_N and TILE_N_PACKED keep the JAX
-package's padding contracts for the host packer and the tests.
+to the plain version. A query of Q slots is one launch for Q <= 64, and
+ceil(Q / 64) launches (each a full scan) up to Q = MAX_QUERY_SLOTS; the
+launch counters count calls, not launches. Unlike the TPU kernels, the
+CUDA ones take any N (no 256/512 tile alignment); TILE_N and TILE_N_PACKED
+keep the JAX package's padding contracts for the host packer and the tests.
 """
 from __future__ import annotations
 
@@ -44,7 +46,10 @@ bm25_unpacked_kernel_launches = 0
 
 TILE_N = 256
 TILE_N_PACKED = 512
-MAX_QUERY_SLOTS = 64  # the kernels' query table and shared tf_q rows hold up to 64 slots
+# The kernels take up to 64 query slots a launch (their query table and
+# shared tf_q rows); a longer query runs in launches of 64 slots, each
+# adding to the scores of the one before (csrc/bm25_full.cu), up to this many
+MAX_QUERY_SLOTS = 1024
 _TF_BITS = 8
 _TERM_MASK = (1 << 24) - 1
 

@@ -4,8 +4,12 @@ corpus, then a global merge, the winners' postings and eager BM25.
 Counterpart of `review_recommender_tpu/ops/pallas/stage_a_kernel.py`:
 
   stage_a_tile_winners_reference   plain torch version of the tile pass
-  stage_a_tile_winners_kernel      csrc/stage_a_fused.cu, replacing
-                                   `_stage_a_kernel`
+  stage_a_tile_winners_kernel      the CUDA tile pass, replacing
+                                   `_stage_a_kernel`: a bf16 corpus takes
+                                   csrc/stage_a_wgmma.cu (tensor cores,
+                                   TMA, threshold-filtered selection), an
+                                   f32 corpus csrc/stage_a_fused.cu (CUDA
+                                   cores; wgmma has no f32 input)
   stage_a_fused                    `stage_a_fused_pallas`: the tile pass
                                    (the kernel for CUDA tensors, the plain
                                    version for CPU tensors), then the merge
@@ -46,12 +50,15 @@ from review_recommender_tpu_torch.ops.dense import matmul_f32, stable_topk
 TILE_N = 2048
 M_PER_TILE = 16
 NEG = -3.4e38  # the TPU kernel's mask value, as f32 (-3.3999999521e38)
-MAX_DIM = 4096  # the kernel keeps 8 query vectors beside the tile's scores in shared memory
-MAX_TILES = 65535  # grid.y of the kernel
+MAX_DIM = 4096  # both kernels keep a chunk of the queries in shared memory
+MAX_TILES = 65535  # grid.y of the f32 kernel
 
-# Launches of the CUDA kernel in this process; a run reads it before and
-# after its main path to show that the path went through the kernel.
+# Launches of each CUDA kernel in this process; a run reads them before and
+# after its main path to show that the path went through the kernels:
+# stage_a_kernel_launches the bf16 tensor-core kernel (the main path's),
+# stage_a_f32_kernel_launches the f32 CUDA-core kernel.
 stage_a_kernel_launches = 0
+stage_a_f32_kernel_launches = 0
 
 
 def _n_tiles(n: int) -> int:
@@ -84,11 +91,14 @@ def stage_a_tile_winners_reference(emb: torch.Tensor, valid: torch.Tensor,
 
 def stage_a_tile_winners_kernel(emb: torch.Tensor, valid: torch.Tensor,
                                 qvecs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA tile pass (csrc/stage_a_fused.cu): same contract as the
-    plain version, CUDA tensors only, any N and B; D * itemsize must be a
-    multiple of 16 bytes (16-byte row loads). Launches on the current
-    stream and raises if the launch fails."""
-    global stage_a_kernel_launches
+    """The CUDA tile pass: same contract as the plain version, CUDA tensors
+    only, any N and B; D * itemsize must be a multiple of 16 bytes, D <=
+    4096. The route is the corpus dtype alone: bf16 takes the tensor-core
+    kernel (csrc/stage_a_wgmma.cu), which holds every such shape (its query
+    chunk narrows to 16 at D = 4096, and a wider batch runs as more chunks);
+    f32 takes the CUDA-core kernel (csrc/stage_a_fused.cu). Launches on the
+    current stream and raises if the launch fails; nothing falls back."""
+    global stage_a_kernel_launches, stage_a_f32_kernel_launches
     name = "stage_a_fused"
     if emb.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: emb must be bfloat16 or float32, got {emb.dtype}")
@@ -110,14 +120,26 @@ def stage_a_tile_winners_kernel(emb: torch.Tensor, valid: torch.Tensor,
     tiles = _n_tiles(n)
     out_s = torch.empty((tiles, M_PER_TILE, b), dtype=torch.float32, device=dev)
     out_i = torch.empty((tiles, M_PER_TILE, b), dtype=torch.int32, device=dev)
+    args = (emb.data_ptr(), valid.data_ptr(), qvecs.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), n, d, b)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rrt_stage_a_tile_winners(emb.data_ptr(), int(emb.dtype == torch.bfloat16),
-                                           valid.data_ptr(), qvecs.data_ptr(), out_s.data_ptr(),
-                                           out_i.data_ptr(), n, d, b, stream)
+        bf16 = emb.dtype == torch.bfloat16
+        err = (lib.rrt_stage_a_wgmma if bf16 else lib.rrt_stage_a_f32)(*args, stream)
     kernels.check_launch(name, err, f"N={n} D={d} B={b} {emb.dtype}")
-    stage_a_kernel_launches += 1
+    if bf16:
+        stage_a_kernel_launches += 1
+    else:
+        stage_a_f32_kernel_launches += 1
     return out_s, out_i
+
+
+def stage_a_query_chunk(d: int, b: int) -> int:
+    """The queries one CTA of the bf16 kernel scores from one read of its
+    tile, for B queries of D dims (16, 32, 64 or 128; the rule lives in
+    csrc/stage_a_wgmma.cu). A batch wider than this reads the corpus once
+    per chunk."""
+    return kernels.load().rrt_stage_a_wgmma_chunk(d, b)
 
 
 def _merge(out_s, out_i, doc_terms, doc_bm25, q_terms, pool: int):

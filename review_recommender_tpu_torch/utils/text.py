@@ -2,10 +2,10 @@
 
 A jax-free copy of the parts of `review_recommender_tpu/utils/text.py` that
 the query path calls (the JAX package's `utils/__init__.py` imports its
-numerics module, which loads jax). Pure-Python tokenizer only: the native
-fast path goes through `review_recommender_tpu.native`, which can fall back
-to the jax-loading module. Remove this copy once the JAX package's
-package-level imports are lazy (ROADMAP Queue 1 item 0).
+numerics module, which loads jax). The copy stays: the port imports nothing
+of the JAX package, whose files this round leaves as they are. Pure-Python
+tokenizer only; a native tokenizer for the port is ROADMAP Queue 1 item 16
+(its own binding of the C++ sources).
 """
 from __future__ import annotations
 

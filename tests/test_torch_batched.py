@@ -34,13 +34,13 @@ from review_recommender_tpu.utils import text as jtext
 from review_recommender_tpu_torch.config import config as port_config
 from review_recommender_tpu_torch.engine.featurize import unpack_features as t_unpack
 from review_recommender_tpu_torch.engine.search import SearchEngine
-from review_recommender_tpu_torch.index.schema import IndexBundle, ProductIndex
+from review_recommender_tpu_torch.index.schema import IndexBundle, ProductIndex, ReviewIndex
 from review_recommender_tpu_torch.ops import bm25 as tbm25
 from review_recommender_tpu_torch.ops import dense as tdense
 from review_recommender_tpu_torch.ops import fusion as tfusion
 from review_recommender_tpu_torch.ops.gate import gate_factors_device as t_gate
 from review_recommender_tpu_torch.utils.numerics import minmax_normalize_masked
-from tests.test_engine_parity import QUERIES, make_corpus
+from tests.test_engine_parity import CONFIGS, QUERIES, make_corpus
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SINGLE_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_batched.py's batched-vs-single bound
@@ -164,19 +164,73 @@ def test_run_search_fused_path_is_query_fused1(engines):
     np.testing.assert_array_equal([r["_final"] for r in rows], out[:, 1])
 
 
-def test_refuses_snippets(engines):
-    _je, te = engines["exact"]
+def _fused_forms(engine, w, use_snips):
+    """The four fused forms on one small batch, each with `use_snips`."""
     qv = _qvecs(5, b=2)
-    w = tfusion.FusionWeights.make()
-    calls = [
-        lambda: te.query_fused(qv[0], "yellow socks", w, 150, 10, use_snips=True),
-        lambda: te.query_fused1(qv[0], "yellow socks", w, 150, 10, use_snips=True),
-        lambda: te.query_fused_batched(qv, ["a", "b"], w, 150, 10, use_snips=True),
-        lambda: te.query_fused_batched_pw(qv, ["a", "b"], [w, w], 150, 10, use_snips=True),
-    ]
-    for call in calls:
+    q2 = ["yellow socks", "stainless steel kitchen knife"]
+    return {
+        "query_fused": lambda: engine.query_fused(qv[0], q2[0], w, 150, 10, use_snips=use_snips),
+        "query_fused1": lambda: engine.query_fused1(qv[0], q2[0], w, 150, 10,
+                                                    use_snips=use_snips),
+        "query_fused_batched": lambda: engine.query_fused_batched(qv, q2, w, 150, 10,
+                                                                  use_snips=use_snips),
+        "query_fused_batched_pw": lambda: engine.query_fused_batched_pw(
+            qv, q2, KNOB_SETS[:2], 150, 10, use_snips=use_snips),
+    }
+
+
+def test_refuses_snippets():
+    """Where the JAX engine would run its snippet lane (use_snips=True,
+    ENABLE_SNIPPETS on, a bundle with reviews), the port still refuses:
+    run_search and the four fused forms."""
+    products, emb, reviews, remb = make_corpus(n=64, dim=64, seed=1)
+    jb = build_bundle_from_products(products, emb, reviews=reviews, review_embeddings=remb,
+                                    pad_multiple=16, doc_terms_cap=64)
+    fields = lambda cls, obj: {f: getattr(obj, f) for f in cls.__dataclass_fields__}
+    te = SearchEngine(IndexBundle(products=ProductIndex(**fields(ProductIndex, jb.products)),
+                                  reviews=ReviewIndex(**fields(ReviewIndex, jb.reviews))),
+                      device="cpu", emb_dtype="float32")
+    assert port_config.ENABLE_SNIPPETS
+    calls = dict(_fused_forms(te, tfusion.FusionWeights.make(), True))
+    calls["run_search"] = lambda: te.run_search("yellow socks", use_snips=True,
+                                                qvec=_qvecs(5, b=1)[0])
+    for call in calls.values():
         with pytest.raises(NotImplementedError, match="item 7"):
             call()
+
+
+@pytest.mark.parametrize("enable_snippets", [True, False])
+def test_snippets_without_reviews_match_jax(engines, monkeypatch, enable_snippets):
+    """A bundle without reviews (this file's engines): use_snips=True runs
+    as use_snips=False on both engines, whatever ENABLE_SNIPPETS says (the
+    JAX engine's zero snippet lane). The four fused forms and run_search
+    against the JAX engine: ids equal, scores and signals within 1e-5."""
+    for c in (jax_config, port_config):
+        monkeypatch.setattr(c, "ENABLE_SNIPPETS", enable_snippets)
+    je, te = engines["exact"]
+    assert te.bundle.reviews is None and je.reviews is None
+    jw, tw = _weights(HYBRID)
+    jforms, tforms = _fused_forms(je, jw, True), _fused_forms(te, tw, True)
+    for name, tcall in tforms.items():
+        got, ref = tcall(), jforms[name]()
+        if name == "query_fused1":  # one (k, 9) buffer: row ids in column 0
+            got, ref = (got[:, 0], got), (np.asarray(ref)[:, 0], ref)
+        assert len(got) == len(ref)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]), err_msg=name)
+        for g, r in zip(got[1:], ref[1:]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), err_msg=name, **TOL)
+    qv = _qvecs(6, b=1)[0]
+    for cfg in ("hybrid", "hybrid_rerank"):
+        df, jsnips, jdbg = je.run_search(BATCH[1], use_snips=True, qvec=qv, **CONFIGS[cfg])
+        rows, snips, tdbg = te.run_search(BATCH[1], use_snips=True, qvec=qv, **CONFIGS[cfg])
+        assert snips == jsnips == {}
+        assert [r["sku"] for r in rows] == list(df["sku"])
+        for col in ("_dense", "_bm25", "_best", "_final"):
+            np.testing.assert_allclose([r[col] for r in rows], df[col].to_numpy(), **TOL)
+        assert not any(r["_best"] for r in rows)
+        for key in ("tokens", "groups", "pool", "gate_mode", "bm25_active"):
+            assert tdbg[key] == jdbg[key], key
+        assert tdbg.get("fused") == jdbg.get("fused")
 
 
 # ------------------------------------------------------ shared ops, batched

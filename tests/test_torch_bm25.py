@@ -269,6 +269,57 @@ def test_search_bm25_unpacked_branch_matches_jax(monkeypatch):
     assert "doc_tf" in te.arrays
 
 
+def _long_query(te):
+    """Every distinct word of the corpus in one query (49 words here: more
+    live slots than the default cap of 32)."""
+    return " ".join(sorted({w for text in te.products.agg_texts for w in text.lower().split()}))
+
+
+@pytest.mark.parametrize("branch", ["cpu", "packed", "unpacked"])
+def test_search_bm25_long_queries_match_jax(monkeypatch, branch):
+    """QUERY_TERMS_CAP=80 (more slots than one kernel launch takes): the
+    port's CPU engine does not refuse it, and search_bm25 matches the JAX
+    engine bit for bit on its CPU branch and on the packed and unpacked
+    branches (the Pallas kernels in interpret mode loop over any Q). The
+    kernels' windows of 64 slots are held to their plain versions on the
+    card (tests/test_torch_gpu.py)."""
+    from review_recommender_tpu.config import config as jax_config
+    from review_recommender_tpu_torch.config import config as port_config
+
+    for c in (jax_config, port_config):
+        monkeypatch.setattr(c, "QUERY_TERMS_CAP", 80)
+    kw = dict(pad_multiple=tbk.TILE_N, unpackable=True) if branch == "unpacked" else {}
+    je, te = _engines(**kw)
+    assert te.featurizer.query_terms_cap == je.featurizer.query_terms_cap == 80
+    if branch != "cpu":
+        monkeypatch.setattr(je, "_pallas_ok", lambda: True)
+        monkeypatch.setattr(te, "_kernels_ok", lambda: True)
+        _interpret(monkeypatch, f"bm25_topk_{'packed_' if branch == 'packed' else ''}pallas")
+    query = _long_query(te)
+    qf = te.featurizer.featurize(query)
+    assert qf.q_terms.shape == (80,) and int((qf.q_idf > 0).sum()) > 32
+    for q in (query, QUERIES[0]):
+        for k in (10, 60):
+            ji, js = je.search_bm25(q, k)
+            ti, ts = te.search_bm25(q, k)
+            np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+            np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    cache = te._bm25_packed_cache  # False: never packed; None: cannot pack
+    assert cache is False if branch == "cpu" else (cache is None) == (branch == "unpacked")
+    assert tbk.MAX_QUERY_SLOTS >= 1024
+
+
+def test_cpu_engine_takes_query_terms_cap_above_the_kernel_limit(monkeypatch):
+    """The BM25 kernels' slot limit binds only on CUDA: a CPU engine takes a
+    QUERY_TERMS_CAP above it and answers search_bm25 on the plain scan."""
+    from review_recommender_tpu_torch.config import config as port_config
+
+    monkeypatch.setattr(port_config, "QUERY_TERMS_CAP", tbk.MAX_QUERY_SLOTS + 1)
+    _je, te = _engines()
+    idx, scores = te.search_bm25(QUERIES[0], 10)
+    assert idx.shape == scores.shape == (10,) and bool((scores > 0).any())
+
+
 @pytest.mark.parametrize("pool", ["exact", "striped"])
 def test_search_dense_matches_jax(monkeypatch, pool):
     from review_recommender_tpu.config import config as jax_config

@@ -108,6 +108,56 @@ def test_run_search_matches_jax(engines, pool, gate_mode, cfg_name):
     assert attention.mha_kernel_launches == 0
 
 
+@pytest.mark.parametrize("cfg_name", ["hybrid", "hybrid_rerank"])
+def test_snippets_disabled_match_jax(engines, monkeypatch, cfg_name):
+    """ENABLE_SNIPPETS=false on a bundle with reviews: both engines turn
+    use_snips=True off (the JAX engine's use_snips_eff) and return no
+    snippets. run_search and the four fused forms against the JAX engine:
+    same SKUs and ids, signals within 1e-5."""
+    from review_recommender_tpu.ops.fusion import FusionWeights as JaxWeights
+    from review_recommender_tpu_torch.ops.fusion import FusionWeights
+
+    for c in (jax_config, port_config):
+        monkeypatch.setattr(c, "ENABLE_SNIPPETS", False)
+    je, te = engines["exact"]
+    assert te.bundle.reviews is not None and je.reviews is not None
+    for query in QUERIES[:2]:
+        df, jsnips, jdbg = je.run_search(query, use_snips=True, **CONFIGS[cfg_name])
+        rows, snips, tdbg = te.run_search(query, use_snips=True, **CONFIGS[cfg_name])
+        assert snips == jsnips == {}
+        assert [r["sku"] for r in rows] == list(df["sku"]), query
+        for col in SIGNALS:
+            np.testing.assert_allclose([r[col] for r in rows], df[col].to_numpy(),
+                                       err_msg=f"{query} {col}", **TOL)
+        for key in ("tokens", "groups", "pool", "gate_mode", "bm25_active"):
+            assert tdbg[key] == jdbg[key], key
+        assert tdbg.get("fused") == jdbg.get("fused")
+    knobs = {k: v for k, v in CONFIGS[cfg_name].items() if k not in ("k", "rerank_k")}
+    order = ("w_dense", "w_bm25", "w_rerank", "w_prior", "w_best", "prior_C", "min_reviews",
+             "gate_penalty")
+    jw, tw = JaxWeights.make(*(knobs[k] for k in order)), FusionWeights.make(
+        *(knobs[k] for k in order))
+    qv = np.stack([te.encode_query(q) for q in QUERIES[:2]])
+    jr, js = je.query_fused(qv[0], QUERIES[0], jw, 150, 10, use_snips=True)
+    tr, ts = te.query_fused(qv[0], QUERIES[0], tw, 150, 10, use_snips=True)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), **TOL)
+    j1 = np.asarray(je.query_fused1(qv[1], QUERIES[1], jw, 150, 10, use_snips=True))
+    t1 = te.query_fused1(qv[1], QUERIES[1], tw, 150, 10, use_snips=True).numpy()
+    np.testing.assert_array_equal(t1[:, 0], j1[:, 0])
+    np.testing.assert_allclose(t1, j1, **TOL)
+    jr, js = je.query_fused_batched(qv, QUERIES[:2], jw, 150, 10, use_snips=True)
+    tr, ts = te.query_fused_batched(qv, QUERIES[:2], tw, 150, 10, use_snips=True)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), **TOL)
+    wl = [tuple(knobs[k] for k in order)] * 2
+    jr, js, jbd = je.query_fused_batched_pw(qv, QUERIES[:2], wl, 150, 10, use_snips=True)
+    tr, ts, tbd = te.query_fused_batched_pw(qv, QUERIES[:2], wl, 150, 10, use_snips=True)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), **TOL)
+    np.testing.assert_allclose(tbd.numpy(), np.asarray(jbd), **TOL)
+
+
 def test_striped_pool_membership_differs_from_exact(engines):
     """At 320 rows over 160 stripes the striped pool is approximate: same
     exact scores for the rows it keeps, a different row set."""

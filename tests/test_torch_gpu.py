@@ -14,7 +14,9 @@ at most one unit in the last place of the input type. BM25: bitwise equal scores
 sums integers; every other step is rounded alone, in the reference's order).
 Stage A: winner scores within 1e-5 (exact bf16/f32 products summed in f32 in
 another order than cuBLAS's); a winner id may differ only where the plain
-version's scores of the two rows are within that tolerance (a near tie).
+version's scores of the two rows are within that tolerance (a near tie);
+rounds past a tile's valid rows are exactly (-3.4e38, 0). A bf16 corpus
+takes the tensor-core kernel, an f32 corpus the CUDA-core one.
 """
 import numpy as np
 import pytest
@@ -26,6 +28,8 @@ from review_recommender_tpu_torch.ops import stage_a as tsa
 from review_recommender_tpu_torch.ops.bm25 import bm25_full_scores, masked_topk
 from review_recommender_tpu_torch.ops.dense import matmul_f32
 from tests.torch_bm25_cases import CASES, bm25_edge_case, pack
+from tests.torch_stage_a_cases import CASES as STAGE_A_CASES
+from tests.torch_stage_a_cases import stage_a_case
 
 pytestmark = pytest.mark.gpu
 
@@ -154,7 +158,8 @@ def _postings(seed, n, l, q, device):
 
 
 @pytest.mark.parametrize("n,l,q", [(200_192, 64, 32), (1000, 64, 32), (777, 33, 5),
-                                   (4096, 512, 32), (3, 1, 64), (513, 100, 17)])
+                                   (4096, 512, 32), (3, 1, 64), (513, 100, 17),
+                                   (20_000, 64, 65), (20_000, 64, 128), (5000, 48, 1024)])
 def test_bm25_kernels_match_reference(cuda, n, l, q):
     terms, tf, dl, qt, qi, packed, avgdl = _postings(n + l + q, n, l, q, cuda)
     p0, u0 = tbk.bm25_packed_kernel_launches, tbk.bm25_unpacked_kernel_launches
@@ -178,11 +183,14 @@ def test_bm25_kernels_match_reference(cuda, n, l, q):
         assert torch.equal(top[1], ref_top[1]) and torch.equal(top[0], ref_top[0])
 
 
+@pytest.mark.parametrize("min_q", [0, 130], ids=["q", "q130"])
 @pytest.mark.parametrize("case", CASES)
-def test_bm25_kernels_lookup_edge_cases(cuda, case):
+def test_bm25_kernels_lookup_edge_cases(cuda, case, min_q):
     """The query-term lookup's edge cases (tests/torch_bm25_cases.py), the
-    packed postings at the unpadded N: bitwise equal scores, equal top-k."""
-    terms, tf, dl, qt, qi, avgdl = bm25_edge_case(case)
+    packed postings at the unpadded N: bitwise equal scores, equal top-k;
+    each also with its query lengthened to 130 slots (three launches of
+    64, 64 and 2 slots)."""
+    terms, tf, dl, qt, qi, avgdl = bm25_edge_case(case, min_q)
     n = terms.shape[0]
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
     args_p = (put(pack(terms, tf)), put(dl), put(qt), put(qi), float(avgdl))
@@ -221,8 +229,27 @@ def test_bm25_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="N=0"):
         tbk.bm25_full_scores_packed_kernel(packed[:, :0].contiguous(), dl[:0], qt, qi, avgdl)
     with pytest.raises(ValueError, match="query slots"):
-        long_q = torch.zeros(65, dtype=torch.int32, device=cuda)
+        long_q = torch.zeros(tbk.MAX_QUERY_SLOTS + 1, dtype=torch.int32, device=cuda)
         tbk.bm25_full_scores_packed_kernel(packed, dl, long_q, long_q.float(), avgdl)
+
+
+def test_engine_refuses_query_terms_cap_above_the_kernel_limit(cuda, monkeypatch):
+    """On the card every query has QUERY_TERMS_CAP slots: above the BM25
+    kernels' limit SearchEngine refuses at construction, naming the knob."""
+    from review_recommender_tpu_torch.config import config
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.build import synth_product_index
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+
+    bundle = IndexBundle(products=synth_product_index(300, 64, 200, 8, seed=0, text_chars=50))
+    monkeypatch.setattr(config, "QUERY_TERMS_CAP", tbk.MAX_QUERY_SLOTS + 1)
+    with pytest.raises(ValueError, match="QUERY_TERMS_CAP"):
+        SearchEngine(bundle, device="cuda")
+    monkeypatch.setattr(config, "QUERY_TERMS_CAP", tbk.MAX_QUERY_SLOTS)
+    eng = SearchEngine(bundle, device="cuda")
+    idx, scores = eng.search_bm25("t12 t34 t56", 10)
+    torch.cuda.synchronize()
+    assert idx.shape == (10,) and bool(torch.isfinite(scores).all())
 
 
 def _stage_a_inputs(seed, n, d, b, dtype, device):
@@ -251,16 +278,18 @@ def _plain_tile_scores(emb, valid, qvecs, local_ids):
     return torch.gather(sims.reshape(tiles, tsa.TILE_N, b), 1, local_ids.long())
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n,d,b", [(200_704, 384, 32), (2 * 2048 + 10, 64, 1),
-                                   (10_000, 128, 128)])
-def test_stage_a_kernel_matches_reference(cuda, dtype, n, d, b):
-    emb, valid, qvecs = _stage_a_inputs(n + d + b, n, d, b, dtype, cuda)
-    before = tsa.stage_a_kernel_launches
+def _check_tile_pass(emb, valid, qvecs):
+    """The kernel's tile pass against the plain one; returns both. The
+    launch goes to the dtype's kernel and counts once."""
+    counter = "stage_a_kernel_launches" if emb.dtype == torch.bfloat16 \
+        else "stage_a_f32_kernel_launches"
+    before = getattr(tsa, counter), tsa.stage_a_kernel_launches + tsa.stage_a_f32_kernel_launches
     ks, ki = tsa.stage_a_tile_winners_kernel(emb, valid, qvecs)
     ps, pi = tsa.stage_a_tile_winners_reference(emb, valid, qvecs)
     torch.cuda.synchronize()
-    assert tsa.stage_a_kernel_launches == before + 1
+    assert getattr(tsa, counter) == before[0] + 1
+    assert tsa.stage_a_kernel_launches + tsa.stage_a_f32_kernel_launches == before[1] + 1
+    n, b = emb.shape[0], qvecs.shape[0]
     tiles = -(-n // tsa.TILE_N)
     assert ks.shape == ki.shape == (tiles, tsa.M_PER_TILE, b)
     assert ks.dtype == torch.float32 and ki.dtype == torch.int32
@@ -270,9 +299,44 @@ def test_stage_a_kernel_matches_reference(cuda, dtype, n, d, b):
     if differ.any():  # near ties only
         gap = _plain_tile_scores(emb, valid, qvecs, ki) - _plain_tile_scores(emb, valid, qvecs, pi)
         assert gap[differ].abs().max().item() <= 1e-5
+    exhausted = ps == tsa.NEG  # rounds past a tile's valid rows: exactly (-3.4e38, 0)
+    assert torch.equal(ks == tsa.NEG, exhausted) and (ki[exhausted] == 0).all()
+    return (ks, ki), (ps, pi)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d,b", [(200_704, 384, 32), (2 * 2048 + 10, 64, 1),
+                                   (10_000, 128, 128), (5000, 72, 5), (3000, 8, 3),
+                                   (4100, 4096, 20), (9000, 384, 300)])
+def test_stage_a_kernel_matches_reference(cuda, dtype, n, d, b):
+    emb, valid, qvecs = _stage_a_inputs(n + d + b, n, d, b, dtype, cuda)
+    (ks, ki), (ps, pi) = _check_tile_pass(emb, valid, qvecs)
     if n > tsa.TILE_N:  # the exhausted tile repeats local row 0, as the plain version does
         assert torch.equal(ki[1, 5:], pi[1, 5:]) and (ki[1, 5:] == 0).all()
         assert (ks[1, 5:] == tsa.NEG).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", STAGE_A_CASES)
+def test_stage_a_kernel_on_shared_cases(cuda, case, dtype):
+    """tests/torch_stage_a_cases.py on the card: ties to the lower row
+    across slabs, more than 16 copies of the best row, exhausted and
+    all-invalid tiles, ragged N, B in {1, 5, 33, 130}."""
+    emb, valid, qvecs = (torch.from_numpy(x).to(cuda) for x in stage_a_case(case))
+    (ks, ki), (ps, pi) = _check_tile_pass(emb.to(dtype), valid, qvecs)
+    if case == "dup_best":  # the 16 lowest of the 40 copies, on both sides
+        assert torch.equal(ki[0, :, 0], pi[0, :, 0])
+    if case == "tie_across_slabs":
+        assert int(ki[0, -1, 0]) == 63
+
+
+@pytest.mark.parametrize("b", [1, 8, 32, 128])
+def test_stage_a_kernel_at_main_shape(cuda, b):
+    """The main shape, (200,704, 384) bf16, at each batch width phase 8
+    times; one launch reads the corpus once (a single query chunk)."""
+    emb, valid, qvecs = _stage_a_inputs(b, 200_704, 384, b, torch.bfloat16, cuda)
+    _check_tile_pass(emb, valid, qvecs)
+    assert tsa.stage_a_query_chunk(384, b) >= b
 
 
 def test_stage_a_kernel_rejects_what_it_does_not_take(cuda):
@@ -289,3 +353,6 @@ def test_stage_a_kernel_rejects_what_it_does_not_take(cuda):
         tsa.stage_a_tile_winners_kernel(emb[:, :60].contiguous(), valid, qvecs[:, :60].contiguous())
     with pytest.raises(ValueError, match="shape|must be"):
         tsa.stage_a_tile_winners_kernel(emb, valid[:100], qvecs)
+    with pytest.raises(ValueError, match="not taken"):
+        wide = torch.zeros(64, 4104, dtype=torch.bfloat16, device=cuda)
+        tsa.stage_a_tile_winners_kernel(wide, valid[:64], torch.zeros(2, 4104, device=cuda))

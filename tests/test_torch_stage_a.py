@@ -18,6 +18,7 @@ from review_recommender_tpu.ops.pallas.stage_a_kernel import M_PER_TILE as J_M
 from review_recommender_tpu.ops.pallas.stage_a_kernel import TILE_N as J_TILE
 from review_recommender_tpu.ops.pallas.stage_a_kernel import stage_a_fused_pallas
 from review_recommender_tpu_torch.ops import stage_a as SA
+from tests.torch_stage_a_cases import CASES, stage_a_case
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 N, D, B, L, Q = 2 * SA.TILE_N, 64, 4, 16, 8
@@ -131,6 +132,49 @@ def test_recall_against_exact_topk(data):
     recalls = [len(set(np.argsort(-sims[b])[:pool].tolist()) & set(idx[b].tolist())) / pool
                for b in range(B)]
     assert np.mean(recalls) >= 0.9, recalls
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", CASES)
+def test_plain_tile_pass_matches_pallas_on_shared_cases(case, dtype):
+    """The shared edge cases (tests/torch_stage_a_cases.py), every tile
+    winner in the pool (pool = n_tiles * 16): ids equal, repeats of
+    exhausted tiles included, except between two f32 rows whose exact
+    scores are within 1e-6 (at B = 130 XLA's product and torch's sum in
+    other orders and swap such a pair); dense scores within 1e-5. The JAX
+    function gets the corpus zero-padded to whole tiles with valid=False
+    there."""
+    emb, valid, qvecs = stage_a_case(case)
+    n, b = emb.shape[0], qvecs.shape[0]
+    tiles = -(-n // SA.TILE_N)
+    pool = tiles * SA.M_PER_TILE
+    terms = np.zeros((n, 1), np.int32)
+    bm25 = np.zeros((n, 1), np.float32)
+    q_terms = np.zeros(1, np.int32)
+    pad = lambda a: np.pad(a, [(0, tiles * SA.TILE_N - n)] + [(0, 0)] * (a.ndim - 1))
+    jdt, tdt = DTYPES[dtype]
+    rd, ri, _ = _jax(pad(emb), pad(valid), pad(terms), pad(bm25), qvecs, q_terms, pool, jdt)
+    gd, gi, _ = _port(emb, valid, terms, bm25, qvecs, q_terms, pool, tdt)
+    assert gi.shape == (b, pool)
+    np.testing.assert_allclose(gd, rd, **TOL)
+    differ = gi != ri  # only where two rows' scores tie to f32 summation order
+    assert differ.mean() <= 1e-3, differ.sum()
+    if differ.any():
+        e64 = emb.astype(np.float64)
+        exact = lambda ids: np.take_along_axis(qvecs.astype(np.float64) @ e64.T, ids, axis=1)
+        gap = np.abs(exact(gi.astype(np.int64)) - exact(ri.astype(np.int64)))[differ]
+        assert dtype == "float32" and gap.max() <= 1e-6, gap.max()
+    out_s, out_i = (x.numpy() for x in SA.stage_a_tile_winners_reference(
+        torch.from_numpy(emb).to(tdt), torch.from_numpy(valid), torch.from_numpy(qvecs)))
+    live = [int(valid[t * SA.TILE_N:(t + 1) * SA.TILE_N].sum()) for t in range(tiles)]
+    for t, v in enumerate(live):  # rounds past a tile's valid rows: (-3.4e38, row 0)
+        assert (out_s[t, v:] == np.float32(SA.NEG)).all() and (out_i[t, v:] == 0).all()
+        assert (out_s[t, :v] > np.float32(SA.NEG)).all()
+    if case == "dup_best":  # the 16 lowest indices of the 40 copies
+        copies = np.flatnonzero((emb[:SA.TILE_N] == qvecs[0]).all(axis=1))
+        np.testing.assert_array_equal(out_i[0, :, 0], copies[:SA.M_PER_TILE])
+    if case == "tie_across_slabs":  # the tie at the 16th place goes to row 63
+        assert out_i[0, -1, 0] == 63 and 64 not in out_i[0, :, 0]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors(data):

@@ -40,9 +40,11 @@ def _colliding_ids(base: int, count: int, limit: int = 200_000) -> np.ndarray:
     return np.concatenate([[base], same[same != base][:count - 1]]).astype(np.int32)
 
 
-def bm25_edge_case(name: str):
+def bm25_edge_case(name: str, min_q: int = 0):
     """(terms (N, L) i32, tf (N, L) f32, doc_len (N,) f32, q_terms (Q,) i32,
-    q_idf (Q,) f32, avgdl f32) for one of CASES."""
+    q_idf (Q,) f32, avgdl f32) for one of CASES. With min_q > Q the query
+    is lengthened to min_q slots drawn from the postings' terms (repeats of
+    earlier slots and PAD among them), past one kernel launch's 64."""
     rng = np.random.default_rng(CASES.index(name) + 17)
     n, l, q, vocab = {"same_term": (1000, 64, 32, 400), "q1": (777, 33, 1, 400),
                       "q64_distinct": (4096, 64, 64, 400), "hash_collide": (1000, 64, 32, 0),
@@ -77,7 +79,10 @@ def bm25_edge_case(name: str):
     if name == "all_lanes_hit":
         terms[5] = qt[np.arange(l) % q]
         tf[5] = rng.integers(1, 6, l)
-    qi = rng.uniform(0.5, 3, q).astype(np.float32)
+    if min_q > q:
+        qt = np.concatenate([qt, rng.choice(terms.ravel() if l else qt, min_q - q)])
+        qt = qt.astype(np.int32)
+    qi = rng.uniform(0.5, 3, qt.shape[0]).astype(np.float32)
     qi[qt == 0] = 0.0
     dl = tf.sum(1).astype(np.float32)
     avgdl = np.float32(dl.mean()) if l else np.float32(1.0)
