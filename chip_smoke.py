@@ -22,9 +22,9 @@ line, and nothing is caught and passed over:
              (D=384, 64 Zipf terms/doc, vocab 30k, 2000-char texts), random
              bge-small bi-encoder and MiniLM-L6 cross-encoder in bf16,
              100 queries at rerank_k=0 and rerank_k=50; kernel launch counts
-             (12 per query without rerank, 18 with), a cross-check against
-             reference attention, latency percentiles, stage split and peak
-             device memory
+             (12 per query without rerank, 18 with), every rerank query again
+             on reference attention (the largest _final difference over all
+             100), latency percentiles, stage split and peak device memory
   5 bm25_kernel  the packed and unpacked BM25 kernels against their plain
              torch versions at (N=200,192, L=64, Q=32) and (N=1,000,448,
              L=512, Q=32), postings drawn on the card from a seeded
@@ -70,6 +70,27 @@ line, and nothing is caught and passed over:
              then the counted main path: stage_a_fused on the 256 queries
              in batches of 32, with pool recall against the exact stage A
              (>= 0.99), every launch on the bf16 kernel
+  9 e2e_slice  query_e2e on phase 4's engine and towers (bench.py's
+             fabricated doc tokens: width 254, 128 live): 100 queries at
+             rr_k=0 and rr_k=50, p50/p90, exactly 12 and 18 attention launches
+             per query and no reference-attention call; every query again on
+             reference attention (the largest _final difference over all 100,
+             ROADMAP F3's margin); host preparation per query and a profiler window;
+             then query_e2e against run_search with the same towers on a
+             4,096-product corpus of 600-character texts tokenized by
+             attach_rerank_tokens (no truncation)
+ 10 rerank_coalesce  bench.py's coalesced-rerank measure: 16 riders at
+             rerank_k=50 with the bench's rerank weights, one
+             query_rerank_batched_pw call against 16 one-rider calls,
+             interleaved, 3 repeats, medians; attention launches per call
+             (6 per chunk of 64 pairs); every rider against run_search
+ 11 snippets  a 1,000,000-review table on phase 4's corpus (products drawn
+             in proportion to n_reviews, seeded unit rows, 768 MB in bf16 on
+             the card, stars with 1% NaN): run_search(use_snips=True) at
+             max_scan 0 and -1 (100 queries, p50/p90, stage split),
+             query_fused_batched with snippets at B=32, the review pass alone
+             (profiler and CUDA events, B=1 and 32, with its bytes bound), and
+             the device segment max against numpy on 3 queries (1e-5)
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -87,7 +108,10 @@ import numpy as np
 
 KERNEL_TOL = 2e-2  # bf16: one ulp at magnitude 2-4 (tests/test_attention.py's bound)
 FINAL_TOL = 2e-2  # _final with kernel vs reference attention in both bf16 towers
-SHAPES = [(64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128)]
+# the rerank batch, the query encode, two other head dims, then query_e2e's
+# encode and rerank (287 keys: a ragged last key tile)
+SHAPES = [(64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128),
+          (1, 32, 12, 32), (50, 287, 12, 32)]
 N_DOCS, DIM, TERMS, VOCAB, TEXT_CHARS = 200_000, 384, 64, 30_000, 2000
 # 100 queries per setting: p90 then has 10 samples beyond it
 N_QUERIES, K, RERANK_K, REPS = 100, 10, 50, 50
@@ -129,6 +153,16 @@ SINGLE_RTOL, SINGLE_ATOL, NEAR_TIE = 1e-4, 1e-5, 1e-3  # tests/test_batched.py's
 STAGE_A_TOL = 1e-5  # bf16 products, exact in f32, summed in another order
 STAGE_A_BATCHES = (1, 8, 32, 128)
 STAGE_A_MIN_RECALL = 0.99
+# phases 9-10: bench.py's e2e tokens (bench.py:464-467) and coalesced-rerank
+# settings (bench.py:1336-1400)
+DOC_TOKENS, DOC_TOKEN_LEN = 254, 128
+RERANK_W = (0.4, 0.25, 0.2, 0.1, 0.0, 20.0, 8.0, 1.0)  # FusionWeights.make order
+RERANK_KNOBS = dict(zip(("w_dense", "w_bm25", "w_rerank", "w_prior", "w_best", "prior_C",
+                         "min_reviews", "gate_penalty"), RERANK_W))
+SMALL_DOCS, SMALL_TEXT_CHARS, SMALL_QUERIES = 4096, 600, 10
+RIDERS, COAL_REPS = 16, 3
+# phase 11: the review table
+N_REVIEWS, SNIP_TOL, SNIP_CHECK_QUERIES = 1_000_000, 1e-5, 3
 
 
 def emit(obj) -> None:
@@ -366,6 +400,47 @@ def _tower_times(torch, engine, be, ce, query):
             "biencoder_forward_ms_B1_S16": be_ms}
 
 
+def _synth_doc_tokens(products) -> None:
+    """bench.py:_make_e2e_engine's fabricated rerank tokens: seeded ids in
+    [5, 30000), width 254, 128 of them live in every row (tokenizing 200k
+    2000-character texts on the host would take minutes)."""
+    rng = np.random.default_rng(0)
+    products.doc_tokens = rng.integers(5, 30000, size=(products.n_padded, DOC_TOKENS),
+                                       dtype=np.int32)
+    products.doc_token_len = np.full(products.n_padded, DOC_TOKEN_LEN, np.int32)
+
+
+def _crosscheck(rows_k, rows_r, phase):
+    """Two runs of the same queries (kernel against reference attention, or
+    two query paths), query by query: the largest _final difference of a
+    product in both top-k lists (the margin of ROADMAP F3), and the rank-wise one. A
+    product in one list only must be a near tie at the cut: its final
+    within FINAL_TOL of the other list's last. Emits before it checks."""
+    worst, worst_rank, swapped, cut = 0.0, 0.0, [], []
+    for i, (rk, rr) in enumerate(zip(rows_k, rows_r)):
+        fk = {r["sku"]: r["_final"] for r in rk}
+        fr = {r["sku"]: r["_final"] for r in rr}
+        shared = fk.keys() & fr.keys()
+        worst = max([worst] + [abs(fk[s] - fr[s]) for s in shared])
+        worst_rank = max([worst_rank] + [abs(a["_final"] - b["_final"]) for a, b in zip(rk, rr)])
+        if [r["sku"] for r in rk] != [r["sku"] for r in rr]:
+            swapped.append(i)
+        for mine, other in ((fk, rr), (fr, rk)):
+            for sku in mine.keys() - shared:
+                cut.append({"query": i, "sku": sku, "final": mine[sku],
+                            "other_last": other[-1]["_final"] if other else None})
+    bad_cut = [c for c in cut if c["other_last"] is None
+               or abs(c["final"] - c["other_last"]) > FINAL_TOL]
+    out = {"queries": len(rows_k), "max_final_diff": worst, "tol": FINAL_TOL,
+           "margin": FINAL_TOL - worst, "max_final_diff_by_rank": worst_rank,
+           "queries_with_swaps": swapped, "products_across_the_cut": len(cut),
+           "beyond_a_near_tie": bad_cut[:5]}
+    emit({"phase": phase, **out})
+    check(worst <= FINAL_TOL, phase, f"_final differs by {worst} > {FINAL_TOL}")
+    check(not bad_cut, phase, f"rows differ beyond a near tie at the cut: {bad_cut[:5]}")
+    return out
+
+
 def phase_slice(torch):
     from review_recommender_tpu_torch.engine.search import SearchEngine
     from review_recommender_tpu_torch.index.build import synth_product_index
@@ -377,6 +452,7 @@ def phase_slice(torch):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     products = synth_product_index(N_DOCS, DIM, VOCAB, TERMS, seed=0, text_chars=TEXT_CHARS)
+    _synth_doc_tokens(products)  # query_e2e's (phase 9)
     t_corpus = time.perf_counter() - t0
     t0 = time.perf_counter()
     be = BiEncoder.random_init(BertConfig.bge_small(), seed=1, device="cuda",
@@ -405,14 +481,15 @@ def phase_slice(torch):
     torch.cuda.synchronize()
 
     A.mha_kernel_launches = 0
-    lat, stages, launches = {}, {}, {}
+    lat, stages, launches, kept = {}, {}, {}, {}
     for rk in (0, RERANK_K):
         before = A.mha_kernel_launches
-        lat[rk], stages[rk] = [], {}
+        lat[rk], stages[rk], kept[rk] = [], {}, []
         for q in queries:
             t0 = time.perf_counter()
             rows, _snips, debug = engine.run_search(q, k=K, rerank_k=rk)
             lat[rk].append((time.perf_counter() - t0) * 1e3)
+            kept[rk].append(rows)
             _check_rows(rows, "slice")
             check(bool(debug.get("fused")) == (rk == 0), "slice", f"path {debug}")
             for name, ms in debug["stage_ms"].items():
@@ -437,26 +514,16 @@ def phase_slice(torch):
     for rk in (0, RERANK_K):
         emit({"phase": "profile", **_profile_window(torch, engine, queries[:4], rk)})
 
-    # the same query with both towers on the plain attention
-    rows_k = engine.run_search(queries[1], k=K, rerank_k=RERANK_K)[0]
+    # every query again with both towers on the plain attention (ROADMAP F3)
+    rows_k = kept[RERANK_K]
     be.set_attn_impl("reference")
     ce.set_attn_impl("reference")
     before = A.mha_kernel_launches
-    rows_r = engine.run_search(queries[1], k=K, rerank_k=RERANK_K)[0]
+    rows_r = [engine.run_search(q, k=K, rerank_k=RERANK_K)[0] for q in queries]
     check(A.mha_kernel_launches == before, "crosscheck", "reference run launched the kernel")
     be.set_attn_impl("auto")
     ce.set_attn_impl("auto")
-    _check_rows(rows_r, "crosscheck")
-    fk = np.array([r["_final"] for r in rows_k])
-    fr = np.array([r["_final"] for r in rows_r])
-    same = [a["sku"] == b["sku"] for a, b in zip(rows_k, rows_r)]
-    diff = float(np.abs(fk - fr).max())
-    emit({"phase": "crosscheck", "query": queries[1], "same_rows": all(same),
-          "swapped_ranks": [i for i, s in enumerate(same) if not s],
-          "max_final_diff": diff, "tol": FINAL_TOL})
-    check(diff <= FINAL_TOL, "crosscheck", f"_final differs by {diff}")
-    check(all(s or abs(fk[i] - fr[i]) <= FINAL_TOL for i, s in enumerate(same)),
-          "crosscheck", "rows differ beyond a near-tie swap")
+    _crosscheck(rows_k, rows_r, "crosscheck")
     return total_launches, engine
 
 
@@ -611,10 +678,10 @@ def _bm25_bundles(products):
     doc_tf, doc_len = products.doc_tf.copy(), products.doc_len.copy()
     doc_len[0] += 300.0 - doc_tf[0, 0]
     doc_tf[0, 0] = 300.0
-    return {"a_eager": products,
-            "b_classic": dataclasses.replace(products, doc_bm25=None),
-            "c_unpackable": dataclasses.replace(products, doc_bm25=None, doc_tf=doc_tf,
-                                                doc_len=doc_len)}
+    classic = dataclasses.replace(products, doc_bm25=None, doc_tokens=None,
+                                  doc_token_len=None)
+    return {"a_eager": products, "b_classic": classic,
+            "c_unpackable": dataclasses.replace(classic, doc_tf=doc_tf, doc_len=doc_len)}
 
 
 def _count_plain_calls(modules_and_names):
@@ -1182,6 +1249,311 @@ def _stage_a_f32_route(torch, emb, valid, qv):
             "max_abs_err": row["max_abs_err"], "ids_equal_share": row["ids_equal_share"]}
 
 
+def _e2e_rows(engine, rows, scores):
+    """query_e2e's device result as run_search-like rows (sku, _final)."""
+    return [{"sku": engine.products.skus[int(i)], "_final": float(f)}
+            for i, f in zip(rows.cpu().tolist(), scores.cpu().tolist())]
+
+
+def _e2e_pass(engine, queries, w, rr_k):
+    """query_e2e on each query, read to the host: (latencies ms, rows)."""
+    lat, out = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        rows, scores = engine.query_e2e(q, w, POOL, K, rr_k=rr_k)
+        got = _e2e_rows(engine, rows, scores)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        _check_rows(got, "e2e_slice")
+        out.append(got)
+    return lat, out
+
+
+def _e2e_small_corpus(torch, be, ce, w):
+    """query_e2e against run_search with the same towers on a corpus whose
+    texts do not truncate (600 characters: ~110 tokens of the 254 kept),
+    tokenized for real by attach_rerank_tokens: the device pairs against the
+    host's tokenized pairs. A check, not a timing."""
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.build import (attach_rerank_tokens,
+                                                          synth_product_index)
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+
+    t0 = time.perf_counter()
+    small = synth_product_index(SMALL_DOCS, DIM, VOCAB, TERMS, seed=5, text_chars=SMALL_TEXT_CHARS)
+    attach_rerank_tokens(small, be.tokenizer, max_tokens=DOC_TOKENS)
+    tok_s = time.perf_counter() - t0
+    longest = int(small.doc_token_len.max())
+    check(longest < DOC_TOKENS, "e2e_slice", f"small corpus texts truncate ({longest} tokens)")
+    eng = SearchEngine(IndexBundle(products=small), device=DEV, query_encoder=be,
+                       cross_encoder=ce)
+    eng.attach_models(be, ce)
+    queries = _queries(SMALL_QUERIES, DIM, VOCAB, seed=44)
+    e2e = [_e2e_rows(eng, *eng.query_e2e(q, w, POOL, K, rr_k=RERANK_K)) for q in queries]
+    host = [eng.run_search(q, k=K, rerank_k=RERANK_K, **RERANK_KNOBS)[0] for q in queries]
+    emit({"phase": "e2e_small_corpus", "docs": SMALL_DOCS, "text_chars": SMALL_TEXT_CHARS,
+          "longest_doc_tokens": longest, "tokenize_s": tok_s, "queries": SMALL_QUERIES})
+    return _crosscheck(e2e, host, "e2e_vs_run_search")
+
+
+def phase_e2e_slice(torch, engine):
+    """query_e2e on phase 4's engine and towers: bi-encoder at (1, 32), the
+    pool, the cross-encoder at (rr_k, 287) on pairs built on the device."""
+    from review_recommender_tpu_torch.ops import attention as A
+    from review_recommender_tpu_torch.ops.fusion import FusionWeights
+
+    be, ce = engine.query_encoder, engine.cross_encoder
+    engine.attach_models(be, ce)
+    w = FusionWeights.make(*RERANK_W)
+    queries = _queries(N_QUERIES, DIM, VOCAB)
+    for rk in (0, RERANK_K):  # warm-up
+        _e2e_pass(engine, queries[:1], w, rk)
+    torch.cuda.synchronize()
+
+    counter, restore = _count_plain_calls([(A, "mha_reference")])
+    _zero_counts()
+    lat, kept, launches = {}, {}, {}
+    try:
+        for rk in (0, RERANK_K):
+            before = A.mha_kernel_launches
+            lat[rk], kept[rk] = _e2e_pass(engine, queries, w, rk)
+            launches[rk] = A.mha_kernel_launches - before
+    finally:
+        restore()
+    total = A.mha_kernel_launches
+    for rk in (0, RERANK_K):
+        per_query = launches[rk] / N_QUERIES
+        emit({"phase": "e2e_slice", "rr_k": rk, "queries": N_QUERIES, "k": K, "pool": POOL,
+              **_pct(lat[rk]), "kernel_launches": launches[rk],
+              "launches_per_query": per_query, "reference_attention_calls": counter["calls"],
+              "pair_width": 30 + DOC_TOKENS + 3 if rk else None})
+        check(per_query == (18 if rk else 12) and counter["calls"] == 0, "e2e_slice",
+              f"rr_k={rk}: {launches[rk]} launches, {counter['calls']} reference calls")
+    t0 = time.perf_counter()
+    for q in queries:
+        be.tokenizer.token_ids(q)
+        engine.featurizer.featurize_packed(q)
+    host_ms = (time.perf_counter() - t0) * 1e3 / N_QUERIES
+    prof = _profile(torch, lambda: _e2e_pass(engine, queries[:8], w, RERANK_K))
+
+    # ROADMAP F3 at the new shapes: every query again on the plain attention
+    be.set_attn_impl("reference")
+    ce.set_attn_impl("reference")
+    try:
+        before = A.mha_kernel_launches
+        _lat, rows_r = _e2e_pass(engine, queries, w, RERANK_K)
+        check(A.mha_kernel_launches == before, "e2e_slice", "reference run launched the kernel")
+    finally:
+        be.set_attn_impl("auto")
+        ce.set_attn_impl("auto")
+    emit({"phase": "e2e_host", "host_prep_ms_per_query": host_ms,
+          "what": "query token ids + packed features on the host",
+          "profile_8_queries_rr_k50": prof})
+    _crosscheck(kept[RERANK_K], rows_r, "e2e_crosscheck")
+    _e2e_small_corpus(torch, be, ce, w)
+    return total
+
+
+def _rider_check(engine, qvecs, qstrings, out):
+    """Each coalesced rider against run_search with its knobs and qvec:
+    ids equal up to near-tie swaps (finals within NEAR_TIE), finals within
+    FINAL_TOL (the two paths chunk the same pairs differently)."""
+    rows, scores = out[0].numpy(), out[1].numpy()
+    worst, swaps = 0.0, 0
+    for i, q in enumerate(qstrings):
+        host = engine.run_search(q, qvec=qvecs[i], k=K, rerank_k=RERANK_K, **RERANK_KNOBS)[0]
+        want = np.array([r["_final"] for r in host])
+        d = np.abs(scores[i] - want)
+        same = [engine.products.skus[int(j)] == r["sku"] for j, r in zip(rows[i], host)]
+        check(len(host) == K and all(s or d[j] <= NEAR_TIE for j, s in enumerate(same)),
+              "rerank_coalesce", f"rider {i}: rows differ from run_search beyond a near tie")
+        worst, swaps = max(worst, float(d.max())), swaps + same.count(False)
+    check(worst <= FINAL_TOL, "rerank_coalesce", f"riders' _final differs by {worst}")
+    return {"riders": len(qstrings), "max_final_diff": worst, "rank_swaps": swaps,
+            "near_tie": NEAR_TIE, "tol": FINAL_TOL}
+
+
+def phase_rerank_coalesce(torch, engine, qvecs):
+    """bench.py's coalesced-rerank measure: 16 riders at rerank_k=50 with
+    the bench's weights on phase 4's engine (2000-character texts, so the
+    pairs fill the S=512 bucket), one coalesced call against 16 calls of
+    one rider, interleaved, 3 repeats, medians."""
+    from review_recommender_tpu_torch.ops import attention as A
+
+    _qv, _qt, qstrings = _bench_queries(BENCH_QUERIES, DIM, VOCAB)
+    qv, qs = qvecs[:RIDERS], qstrings[:RIDERS]
+    wts = [RERANK_W] * RIDERS
+
+    def coal():
+        return [t.cpu() for t in engine.query_rerank_batched_pw(
+            qv, qs, wts, [RERANK_K] * RIDERS, POOL, K)]
+
+    def seq():
+        return [[t.cpu() for t in engine.query_rerank_batched_pw(
+            qv[i:i + 1], qs[i:i + 1], wts[:1], [RERANK_K], POOL, K)] for i in range(RIDERS)]
+
+    seq(), coal()  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    t_seq, t_coal, n_seq, n_coal = [], [], [], []
+    for _ in range(COAL_REPS):
+        before = A.mha_kernel_launches
+        t0 = time.perf_counter()
+        seq_out = seq()
+        t_seq.append((time.perf_counter() - t0) * 1e3)
+        n_seq.append(A.mha_kernel_launches - before)
+        before = A.mha_kernel_launches
+        t0 = time.perf_counter()
+        out = coal()
+        t_coal.append((time.perf_counter() - t0) * 1e3)
+        n_coal.append(A.mha_kernel_launches - before)
+    total = A.mha_kernel_launches
+    ms_seq, ms_coal = float(np.median(t_seq)), float(np.median(t_coal))
+    check(out[0].shape == (RIDERS, K) and out[2].shape == (RIDERS, K, 7), "rerank_coalesce",
+          f"shapes {out[0].shape} {out[2].shape}")
+    same_as_single = sum(torch.equal(out[0][i], seq_out[i][0][0]) for i in range(RIDERS))
+    chunks = -(-RIDERS * RERANK_K // 64)
+    emit({"phase": "rerank_coalesce", "riders": RIDERS, "rerank_k": RERANK_K, "pool": POOL,
+          "k": K, "sequential_ms": ms_seq, "coalesced_ms": ms_coal,
+          "speedup": ms_seq / ms_coal, "rerank_qps": RIDERS / (ms_coal / 1e3),
+          "sequential_runs_ms": t_seq, "coalesced_runs_ms": t_coal,
+          "launches_per_coalesced_call": n_coal, "launches_per_sequential_pass": n_seq,
+          "expected_coalesced": 6 * chunks, "reps": COAL_REPS,
+          "riders_equal_to_their_single_call": same_as_single,
+          "rider_check": _rider_check(engine, qv, qs, out)})
+    check(all(n == 6 * chunks for n in n_coal) and all(n == 6 * RIDERS for n in n_seq),
+          "rerank_coalesce", f"launches {n_coal} / {n_seq}")
+    return total
+
+
+class _ReviewTexts:
+    """Review texts built on access from the review's row and product."""
+
+    def __init__(self, prod):
+        self._prod = prod
+
+    def __len__(self):
+        return len(self._prod)
+
+    def __getitem__(self, i):
+        return f"review {int(i)} of S{int(self._prod[i])}: " + " ".join(
+            f"t{(int(i) * 7919 + j * 104729) % VOCAB + 1}" for j in range(24))
+
+
+def _review_index(torch, products):
+    """1,000,000 reviews of phase 4's products, each product drawn in
+    proportion to its n_reviews; seeded unit rows (drawn on the card, kept
+    in f32 on the host for the snippet texts), stars 1-5 with 1% NaN."""
+    from review_recommender_tpu_torch.index.build import build_review_index
+
+    rng = np.random.default_rng(11)
+    n = products.n_docs
+    p = products.n_reviews[:n].astype(np.float64)
+    prod = rng.choice(n, size=N_REVIEWS, p=p / p.sum())
+    stars = rng.integers(1, 6, N_REVIEWS).astype(np.float32)
+    stars[rng.random(N_REVIEWS) < 0.01] = np.nan
+    g = torch.Generator(device=DEV).manual_seed(11)
+    emb = torch.randn(N_REVIEWS, products.dim, generator=g, device=DEV)
+    emb = (emb / emb.norm(dim=1, keepdim=True)).cpu().numpy()
+    skus = products.skus
+    return build_review_index([skus[j] for j in prod], _ReviewTexts(prod), stars, emb, skus)
+
+
+def phase_snippets(torch, engine):
+    """The snippet lane on phase 4's corpus with a 1M-review table."""
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+    from review_recommender_tpu_torch.ops.fusion import FusionWeights
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rev = _review_index(torch, engine.products)
+    eng = SearchEngine(IndexBundle(products=engine.products, reviews=rev), device=DEV,
+                       query_encoder=engine.query_encoder, cross_encoder=engine.cross_encoder)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    m = rev.n_reviews_total
+    check(eng.rev_arrays["rev_emb"].dtype == torch.bfloat16, "snippets", "review table dtype")
+    queries = _queries(N_QUERIES, DIM, VOCAB)
+    qvecs = eng.query_encoder.encode(queries)  # encoded once: the lane is what is timed
+    bq, _bt, bs = _bench_queries(BENCH_QUERIES, DIM, VOCAB)
+    # a new engine has a cold featurizer: expand every token first, so that
+    # the timings below hold the snippet lane and not the vocabulary expansion
+    eng.featurizer.featurize_packed_batch(list(queries) + list(bs))
+    eng.run_search(queries[0], qvec=qvecs[0], k=K, rerank_k=0, use_snips=True)  # warm-up
+
+    out = {}
+    for max_scan in (0, -1):
+        lat, stages, n_snips = [], {}, []
+        for i, q in enumerate(queries):
+            t0 = time.perf_counter()
+            rows, snips, dbg = eng.run_search(q, qvec=qvecs[i], k=K, rerank_k=0,
+                                              use_snips=True, max_scan=max_scan)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            _check_rows(rows, "snippets")
+            check(not dbg.get("fused") and any(r["_best"] > 0 for r in rows), "snippets",
+                  f"max_scan={max_scan}: no snippet lane in {dbg}")
+            n_snips.append(len(snips))
+            for name, ms in dbg["stage_ms"].items():
+                stages.setdefault(name, []).append(ms)
+        out[max_scan] = {**_pct(lat), "stage_ms_mean": {n: float(np.mean(v))
+                                                        for n, v in stages.items()},
+                         "snippets_per_query_mean": float(np.mean(n_snips))}
+    w = FusionWeights.make(*BENCH_W[:4], 0.1, *BENCH_W[5:])  # the bench's, w_best 0.1
+    lat, res = _batch_latencies(
+        lambda lo, hi: eng.query_fused_batched(bq[lo:hi], bs[lo:hi], w, POOL, K, use_snips=True),
+        BENCH_QUERIES, BATCHES[0])
+    r = torch.cat([x[0] for x in res])
+    sc = torch.cat([x[1] for x in res])
+    _check_batch_rows(r, sc, "snippets")
+    plain_lat, plain_res = _batch_latencies(
+        lambda lo, hi: eng.query_fused_batched(bq[lo:hi], bs[lo:hi], w, POOL, K),
+        BENCH_QUERIES, BATCHES[0])
+    check(not torch.equal(plain_res[0][1], sc[:BATCHES[0]]), "snippets",
+          "the batched snippet lane changed no score")
+    prof_b = _profile(torch, lambda: [eng.query_fused_batched(
+        bq[lo:lo + BATCHES[0]], bs[lo:lo + BATCHES[0]], w, POOL, K, use_snips=True)[0].cpu()
+        for lo in range(0, BENCH_QUERIES, BATCHES[0])])
+
+    # the review pass alone: profiler device time and CUDA-event medians
+    q1 = torch.from_numpy(qvecs[0]).to(DEV)
+    q32 = torch.from_numpy(qvecs[:32]).to(DEV)
+    prof = _profile(torch, lambda: [eng._snippet_scores_impl(eng.rev_arrays, q1).cpu()
+                                    for _ in range(10)])
+    spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
+    pass_ms = {f"B{b}": _median_ms(torch, lambda: eng._snippet_scores_impl(eng.rev_arrays, qq),
+                                   REPS, before=spin) for b, qq in ((1, q1), (32, q32))}
+    n = eng.n_docs
+    nbytes = m * eng.products.dim * 2 + m * 5 + n * 4  # rows, ids, flags read; maxima written
+
+    # the device lane against a host segment max on a few queries
+    e16 = torch.from_numpy(rev.rev_emb[:m]).to(torch.bfloat16).float().numpy()
+    seg = rev.rev_product[:m]
+    worst = 0.0
+    for i in range(SNIP_CHECK_QUERIES):
+        q16 = torch.from_numpy(qvecs[i]).to(torch.bfloat16).float().numpy()
+        host = np.full(n + 1, -np.inf, np.float32)
+        np.maximum.at(host, seg, e16 @ q16)
+        dev = eng._snippet_scores_full(qvecs[i]).cpu().numpy()
+        fin = np.isfinite(host[:n])
+        check(bool(np.array_equal(np.isfinite(dev), fin)), "snippets",
+              "products without reviews differ between the device and the host")
+        worst = max(worst, float(np.abs(dev[fin] - host[:n][fin]).max()))
+    check(worst <= SNIP_TOL, "snippets", f"device segment max differs by {worst}")
+    del e16
+    emit({"phase": "snippets", "reviews": m, "products_with_reviews": int(fin.sum()),
+          "setup_s": setup_s, "queries": N_QUERIES, "k": K, "pool": POOL,
+          "run_search_max_scan_0": out[0], "run_search_max_scan_-1": out[-1],
+          "query_fused_batched_B32": {"per_batch": _pct(lat),
+                                      "qps": BENCH_QUERIES / (sum(lat) / 1e3),
+                                      "without_snippets_per_batch": _pct(plain_lat),
+                                      "profile_8_batches": prof_b},
+          "review_pass": {"device_ms_spun": pass_ms, "bytes": nbytes,
+                          "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+                          "profile_10_calls_B1": prof},
+          "host_check": {"queries": SNIP_CHECK_QUERIES, "max_abs_err": worst, "tol": SNIP_TOL},
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
+
+
 def main() -> int:
     import torch
 
@@ -1207,6 +1579,9 @@ def main() -> int:
         bm25_launches, bm25_err = phase_bm25_slice(torch, engine)
         qvecs, qterms = phase_batched_slice(torch, engine)
         stage_a_entry = phase_stage_a(torch, engine, qvecs, qterms)
+        launches += phase_e2e_slice(torch, engine)
+        launches += phase_rerank_coalesce(torch, engine, qvecs)
+        phase_snippets(torch, engine)
     except PhaseError as exc:
         emit({"phase": "failed", "error": str(exc)})
         return 3

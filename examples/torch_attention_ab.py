@@ -44,7 +44,8 @@ from pathlib import Path
 
 import numpy as np
 
-SHAPES = [(64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128)]
+SHAPES = [(64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128),
+          (1, 32, 12, 32), (50, 287, 12, 32)]
 REPS, HOST_CALLS, SPIN_CYCLES = 50, 200, 200_000
 HERE = Path(__file__).resolve().parents[1]
 

@@ -8,14 +8,16 @@ names mirror the JAX package so each counterpart is easy to find:
                   JAX package's names and defaults)
     device        explicit device resolution (no silent CPU fallback)
     utils         text + numeric helpers, stage timer
-    index         numpy index dataclasses, synthetic corpus, BM25 stats
-    ops           dense pool, BM25, gate, fusion (plain torch); the fused
-                  attention and the full-corpus BM25 scans (hand-written
-                  CUDA kernels, csrc/)
+    index         numpy index dataclasses, synthetic corpus, BM25 stats,
+                  rerank tokens, the review index
+    ops           dense pool, BM25, gate, fusion, review segment max (plain
+                  torch); the fused attention, the full-corpus BM25 scans
+                  and the fused stage A (hand-written CUDA kernels, csrc/)
     models        BERT towers as nn.Modules, flax -> torch weight mapping,
                   bucketed bi-/cross-encoder wrappers
-    engine        featurizer, host hooks, SearchEngine.run_search,
-                  search_bm25 and search_dense
+    engine        featurizer, host hooks, snippet recovery, SearchEngine:
+                  run_search, the fused and batched forms, query_e2e,
+                  query_rerank_batched_pw, search_bm25 and search_dense
 
 The package imports torch, numpy and the standard library, and nothing of
 the JAX package, jax, flax, pandas or pyarrow. Its entry points

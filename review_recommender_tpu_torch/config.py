@@ -42,6 +42,10 @@ class Config:
     ENABLE_RERANKING = _env_bool("ENABLE_RERANKING", "true")
     ENABLE_SNIPPETS = _env_bool("ENABLE_SNIPPETS", "true")
 
+    # the snippet scan's row cap of run_search(max_scan=-1) (the exact host
+    # path); the default device path scores every review
+    MAX_REVIEWS_SCAN = _env_int("MAX_REVIEWS_SCAN", "300000")
+
     # least candidate pool of run_search (max with k and rerank_k)
     DEFAULT_POOL_SIZE = _env_int("DEFAULT_POOL_SIZE", "150")
     DEFAULT_K = _env_int("DEFAULT_K", "10")

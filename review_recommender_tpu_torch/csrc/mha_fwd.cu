@@ -18,22 +18,29 @@
 //     the wgmma descriptors name the same swizzle.
 //   - S = Q K^T: wgmma m64n64k16, Q and K both K-major from shared memory,
 //     f32 accumulators in registers.
-//   - Softmax in one pass over the key tiles, FlashAttention-2 style: a
-//     running row max and row sum in f32, the accumulator rescaled by
-//     exp2(m_old - m_new) when the max moves, one division by the row sum at
-//     the end. Logits are taken in log2 units (scale and bias times log2(e),
-//     then ex2.approx), which moves some roundings by an ulp of f32.
-//   - O += P V: P is the exponentials rounded to the input type, straight
-//     from the S accumulators (their layout is wgmma's A-register layout);
-//     V is the B operand from shared memory, read with the transpose bit
-//     since V is (keys, D) row-major. wgmma m64nDk16.
+//   - Softmax in two passes over the key tiles, so that each probability is
+//     rounded as the plain version rounds it. Pass 1 computes S for every
+//     tile and keeps a running row max and row sum in f32 (the sum rescaled
+//     by exp2(m_old - m_new) when the max moves). Pass 2 computes S again
+//     and P = exp2(s - m) / l, the exact probabilities in f32, rounded to
+//     the input type only then. Logits are taken in log2 units (scale and
+//     bias times log2(e), then ex2.approx), which moves some roundings by
+//     an ulp of f32; the division is a multiply by 1/l.
+//   - O += P V (pass 2): P straight from the S accumulators (their layout
+//     is wgmma's A-register layout); V is the B operand from shared
+//     memory, read with the transpose bit since V is (keys, D) row-major.
+//     wgmma m64nDk16. O needs no rescale and no final division.
+//   - The ring streams 2 x ntiles steps: K alone for pass 1, then K and V
+//     for pass 2.
 //
 // Rounding against the TPU kernel and the plain version (mha_reference):
-// those divide the exponentials by the row sum in f32 and round the
-// probabilities to the input type before P V. Here the exponentials are
-// rounded before the division, so each probability that meets V differs
-// from theirs by at most one unit in the last place of the input type
-// (bf16: 2^-8 relative); the division by the f32 row sum comes after P V.
+// both divide the exponentials by the f32 row sum and round the
+// probabilities to the input type before P V, as this kernel does; what
+// differs is the order of the f32 sums and ex2.approx against expf, so a
+// probability differs only where its f32 value lies within an ulp or two of
+// a rounding boundary of the input type. (The single-pass design before
+// rounded the exponentials before the division: up to one ulp of the input
+// type on every probability, which the towers' scores carried through.)
 //
 // Semantics kept from the first kernel:
 //   - an all-masked row (the batch-bucket padding row, every bias -1e30)
@@ -50,7 +57,8 @@
 //   HBM           q, k, v and out once each, 100.7 MB at 3.35 TB/s  30 us
 //   exponentials  B*H*S*S = 201 M at the MUFU rate of 16 per SM per
 //                 clock, 132 x 16 x 1.98 GHz = 4.2 T/s               48 us
-// At D=32 the exponential rate is the highest floor, not the tensor cores.
+// At D=32 the exponential rate is the highest floor, not the tensor cores;
+// the two passes take each exponential twice (96 us) and Q K^T twice.
 // Several 128-thread CTAs are resident on an SM (~24 KB of shared memory at
 // D=32), so one CTA's softmax overlaps another's wgmma and TMA.
 //
@@ -367,14 +375,18 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   const int ntiles = (S + kKeys - 1) / kKeys;
   const int col = h * D;
 
-  auto load_kv = [&](int stage, int tile) {
+  // step u < ntiles: pass 1 over tile u (K only); u >= ntiles: pass 2 over
+  // tile u - ntiles (K and V)
+  auto load_step = [&](int stage, int u) {
     const uint32_t bar = bar_kv + 8 * stage;
-    mbar_expect_tx(bar, 2 * G::kTileBytes);
+    const bool with_v = u >= ntiles;
+    const int tile = with_v ? u - ntiles : u;
+    mbar_expect_tx(bar, (with_v ? 2 : 1) * G::kTileBytes);
 #pragma unroll
     for (int x = 0; x < G::kBoxes; ++x) {
       const uint32_t off = stage * G::kTileBytes + x * G::kBoxBytes;
       tma_load(sK + off, &tm_k, bar, col + x * G::kBoxCols, tile * kKeys, b);
-      tma_load(sV + off, &tm_v, bar, col + x * G::kBoxCols, tile * kKeys, b);
+      if (with_v) tma_load(sV + off, &tm_v, bar, col + x * G::kBoxCols, tile * kKeys, b);
     }
   };
 
@@ -388,23 +400,27 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     bias_s[j] = j < S ? key_bias[(long)b * S + j] * kLog2e : -INFINITY;
   __syncthreads();
 
+  const int nsteps = 2 * ntiles;
   if (tid == 0) {
     mbar_expect_tx(bar_q, G::kTileBytes);
 #pragma unroll
     for (int x = 0; x < G::kBoxes; ++x)
       tma_load(sQ + x * G::kBoxBytes, &tm_q, bar_q, col + x * G::kBoxCols, qt * kRows, b);
-    for (int t = 0; t < kStages && t < ntiles; ++t) load_kv(t, t);
+    for (int u = 0; u < kStages && u < nsteps; ++u) load_step(u, u);
   }
 
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g+8
+  float inv0 = 0.f, inv1 = 0.f;
   mbar_wait(bar_q, 0);
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int st = t % kStages;
-    mbar_wait(bar_kv + 8 * st, (t / kStages) & 1);
+  for (int u = 0; u < nsteps; ++u) {
+    const int st = u % kStages;
+    const bool pass2 = u >= ntiles;
+    const int t = pass2 ? u - ntiles : u;
+    mbar_wait(bar_kv + 8 * st, (u / kStages) & 1);
     const uint32_t k_tile = sK + st * G::kTileBytes, v_tile = sV + st * G::kTileBytes;
 
     // ---- S = Q K^T, K-major operands, D/16 k-steps ----
@@ -420,9 +436,8 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     wgmma_wait_all();
     fence_regs(s);
 
-    // ---- online softmax in log2 units ----
+    // ---- logits in log2 units ----
     const float* bt = bias_s + t * kKeys;
-    float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * i + 2 * c);
@@ -430,56 +445,62 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
       s[4 * i + 1] = fmaf(s[4 * i + 1], scale_log2, bb.y);
       s[4 * i + 2] = fmaf(s[4 * i + 2], scale_log2, bb.x);
       s[4 * i + 3] = fmaf(s[4 * i + 3], scale_log2, bb.y);
-      mx0 = fmaxf(mx0, fmaxf(s[4 * i + 0], s[4 * i + 1]));
-      mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    // the first tile always holds key 0 (finite bias), so mx is finite
-    // and exp2(-inf - mx) = 0 clears the empty accumulators
-    const float a0 = ex2(m0 - mx0), a1 = ex2(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= a0;
-    l1 *= a1;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      o[4 * i + 0] *= a0;
-      o[4 * i + 1] *= a0;
-      o[4 * i + 2] *= a1;
-      o[4 * i + 3] *= a1;
-    }
-    uint32_t p[16];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float e0 = ex2(s[4 * i + 0] - m0), e1 = ex2(s[4 * i + 1] - m0);
-      const float e2 = ex2(s[4 * i + 2] - m1), e3 = ex2(s[4 * i + 3] - m1);
-      l0 += e0 + e1;
-      l1 += e2 + e3;
-      p[2 * i] = Mma<T>::pack(e0, e1);
-      p[2 * i + 1] = Mma<T>::pack(e2, e3);
     }
 
-    // ---- O += P V: four k16 steps of 16 keys, V N-major ----
-    fence_regs(o);
-    fence_regs(p);
-    wgmma_fence();
+    if (!pass2) {
+      // ---- pass 1: running row max and row sum ----
+      float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int j = 0; j < kKeys / 16; ++j) {
-      const uint32_t a[4] = {p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3]};
-      Mma<T>::pv(o, a, smem_desc<G::kLayout>(v_tile + j * 16 * G::kRowBytes, G::kBoxBytes,
-                                             8 * G::kRowBytes));
+      for (int i = 0; i < 8; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * i + 0], s[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      // the first tile always holds key 0 (finite bias), so mx is finite
+      // and exp2(-inf - mx) = 0 clears the empty sums
+      l0 *= ex2(m0 - mx0);
+      l1 *= ex2(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        l0 += ex2(s[4 * i + 0] - m0) + ex2(s[4 * i + 1] - m0);
+        l1 += ex2(s[4 * i + 2] - m1) + ex2(s[4 * i + 3] - m1);
+      }
+      if (u == ntiles - 1) {
+        inv0 = 1.f / quad_sum(l0);
+        inv1 = 1.f / quad_sum(l1);
+      }
+    } else {
+      // ---- pass 2: P = exp2(s - m) / l, rounded; O += P V ----
+      uint32_t p[16];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        p[2 * i] = Mma<T>::pack(ex2(s[4 * i + 0] - m0) * inv0, ex2(s[4 * i + 1] - m0) * inv0);
+        p[2 * i + 1] =
+            Mma<T>::pack(ex2(s[4 * i + 2] - m1) * inv1, ex2(s[4 * i + 3] - m1) * inv1);
+      }
+      // four k16 steps of 16 keys, V N-major
+      fence_regs(o);
+      fence_regs(p);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kKeys / 16; ++j) {
+        const uint32_t a[4] = {p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3]};
+        Mma<T>::pv(o, a, smem_desc<G::kLayout>(v_tile + j * 16 * G::kRowBytes, G::kBoxBytes,
+                                               8 * G::kRowBytes));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(o);
 
     __syncthreads();  // every warp is done with this stage
-    if (tid == 0 && t + kStages < ntiles) load_kv(st, t + kStages);
+    if (tid == 0 && u + kStages < nsteps) load_step(st, u + kStages);
   }
 
-  // ---- out = O / l, rows >= S not stored ----
-  const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+  // ---- out = O (already normalised), rows >= S not stored ----
   const long HD = (long)H * D;
   const int r0 = qt * kRows + warp * 16 + g, r1 = r0 + 8;
   T* ob = out + (long)b * S * HD + col + 2 * c;
@@ -487,10 +508,10 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   for (int i = 0; i < D / 8; ++i) {
     if (r0 < S)
       *reinterpret_cast<uint32_t*>(ob + r0 * HD + 8 * i) =
-          Mma<T>::pack(o[4 * i + 0] * inv0, o[4 * i + 1] * inv0);
+          Mma<T>::pack(o[4 * i + 0], o[4 * i + 1]);
     if (r1 < S)
       *reinterpret_cast<uint32_t*>(ob + r1 * HD + 8 * i) =
-          Mma<T>::pack(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+          Mma<T>::pack(o[4 * i + 2], o[4 * i + 3]);
   }
 }
 

@@ -1,1 +1,2 @@
-"""The query engine: featurizer, host hooks, SearchEngine.run_search."""
+"""The query engine: featurizer, host hooks, snippet recovery, the coalesced
+rerank path and SearchEngine."""

@@ -1,24 +1,24 @@
 """Split-path host hooks, result rows and search knobs.
 
-A jax-free copy of the rerank-lane and gate parts of `review_recommender_tpu/
-engine/hooks.py:42-184` (`_split_host_hooks`, `SIGNAL_ORDER`,
+A jax-free copy of `review_recommender_tpu/engine/hooks.py:38-184`
+(`SNIPPET_NONE`, `_split_host_hooks`, `SIGNAL_ORDER`,
 `assemble_result_rows`, `resolve_search_knobs`). Reference semantics:
 
-  rerank  zero scores still occupy the rerank lanes when the model is
-          missing or disabled; texts are cut to 2000 characters;
-          rr_k = min(rerank_k, n_cand)
-  gate    host mode = exact substring match over text[:6000]; device
-          mode = penalty^misses from the stage-A group-hit counters
-
-The snippet lane is not ported yet (ROADMAP Queue 1 item 7); the engine
-refuses use_snips=True before it gets here wherever the JAX engine would
-run that lane, and otherwise runs without it.
+  rerank    zero scores still occupy the rerank lanes when the model is
+            missing or disabled; texts are cut to 2000 characters;
+            rr_k = min(rerank_k, n_cand)
+  gate      host mode = exact substring match over text[:6000]; device
+            mode = penalty^misses from the stage-A group-hit counters
+  snippets  max_scan > 0 / -1 = the reference's truncated host scan
+            (engine/snippets.py:_exact_snippets); max_scan 0 = the device
+            lane over every review (ops/segment.py), negative sims kept:
+            (best_raw != 0).any() decides whether the lane was computed
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -27,26 +27,40 @@ from review_recommender_tpu_torch.config import config
 from review_recommender_tpu_torch.utils.text import calculate_gate_factor
 
 SIGNAL_ORDER = ("dense", "bm25", "rerank", "prior", "best", "trust", "gate")
+SNIPPET_NONE = -1e30  # sentinel: the product has no scored review
+
+
+def breakdown(res, pos: torch.Tensor) -> torch.Tensor:
+    """(..., k, 7) signal columns of a FusionResult at the winners `pos`,
+    in SIGNAL_ORDER."""
+    return torch.stack([getattr(res, name).gather(-1, pos) for name in SIGNAL_ORDER], dim=-1)
 
 
 class SplitPathHooksMixin:
-    """Requires self.products, self.cross_encoder, self.gate_mode, self.device."""
+    """Requires self.products, self.cross_encoder, self.gate_mode,
+    self.device, HostSnippetsMixin (_exact_snippets, _snippet_texts) and
+    `_snippet_scores_full(qvec) -> (n_docs,) tensor` (each product's best
+    review sim, at or below SNIPPET_NONE where it has none)."""
 
     def _split_host_hooks(
         self,
         query: str,
         groups,
+        qvec: np.ndarray,
         cand_rows: np.ndarray,
         n_pool: int,
         *,
         rerank_k: int,
         gate_pen_h: float,
+        use_snips_eff: bool,
+        max_scan: int,
         gate_hits=None,
         n_groups=None,
         timer=None,
-    ) -> Tuple[np.ndarray, np.ndarray, torch.Tensor]:
-        """Returns (rerank_raw, rerank_mask, gate). `gate_hits`/`n_groups`
-        are the stage-A counters, read only in device-gate mode."""
+    ) -> Tuple[np.ndarray, np.ndarray, torch.Tensor, np.ndarray, bool, Dict]:
+        """Returns (rerank_raw, rerank_mask, gate, best_raw, has_snips,
+        snips). `qvec` is the host query vector; `gate_hits`/`n_groups` are
+        the stage-A counters, read only in device-gate mode."""
         stage = timer.stage if timer is not None else (
             lambda _name: contextlib.nullcontext())
         cand_texts = [self.products.agg_texts[int(i)] for i in cand_rows]
@@ -73,7 +87,26 @@ class SplitPathHooksMixin:
         else:
             base = torch.tensor(gate_pen_h, dtype=torch.float32, device=self.device)
             gate = torch.pow(base, (n_groups - gate_hits).to(torch.float32))
-        return rerank_raw, rerank_mask, gate
+
+        best_raw = np.zeros(n_pool, np.float32)
+        snips: Dict[str, dict] = {}
+        has_snips = False
+        n_cand = len(cand_rows)
+        if use_snips_eff and max_scan != 0:
+            cap = max_scan if max_scan > 0 else config.MAX_REVIEWS_SCAN
+            with stage("snippets_exact"):
+                best_by_row, snips = self._exact_snippets(qvec, cand_rows, cap)
+            best_raw[:n_cand] = [best_by_row.get(int(r), 0.0) for r in cand_rows]
+            has_snips = bool((best_raw != 0).any())
+        elif use_snips_eff:
+            with stage("snippets"):
+                best_full = self._snippet_scores_full(qvec).cpu().numpy()
+                v = best_full[np.asarray(cand_rows, np.int64)]
+                best_raw[:n_cand] = np.where(v > SNIPPET_NONE, v, 0.0)
+                has_snips = bool((best_raw != 0).any())
+                if has_snips:
+                    snips = self._snippet_texts(qvec, cand_rows)
+        return rerank_raw, rerank_mask, gate, best_raw, has_snips, snips
 
 
 def assemble_result_rows(products, row_ids, finals, signals):

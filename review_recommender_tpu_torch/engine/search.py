@@ -2,18 +2,21 @@
 
 Counterpart of `review_recommender_tpu/engine/search.py` (`__init__`,
 `_dense_topk`, `_stage_a_impl`, `_stage_b_impl`, `_fused_impl`,
-`encode_query`, `run_search`, the fused query forms). Per query:
+`encode_query`, `run_search`, the fused query forms, the on-device rerank
+lane `query_e2e` and the coalesced rerank stage A). Per query of
+`run_search`:
 
   host    encode the query (bi-encoder hook)               encode_query
   host    featurize: term ids + idf, gate masks             engine/featurize
   device  dense pool -> candidate gather -> BM25 -> gate    _stage_a_impl
   host    cross-encoder scores for the first rr_k rows,     engine/hooks
-          exact host gate (GATE_MODE=host)
+          exact host gate (GATE_MODE=host), snippets
   device  fusion -> stable top-k                            _stage_b_impl
 
-Without a live cross-encoder and with the device gate, the whole query runs
-as one device pass with one packed input copy and one (k, 9) result fetch
-(`_fused_packed1`), as in the JAX package's single-program path.
+Without a live cross-encoder, snippets or max_scan and with the device
+gate, the whole query runs as one device pass with one packed input copy
+and one (k, 9) result fetch (`_fused_packed1`), as in the JAX package's
+single-program path.
 
 The same pass answers a batch (`query_fused_batched`, and
 `query_fused_batched_pw` with per-query fusion weights, for a server's
@@ -22,6 +25,26 @@ pool, BM25, gate and fusion with every statistic reduced within its own
 row, which is what the JAX package gets from vmap. `query_fused` and
 `query_fused1` are the single-query forms. None of them routes through the
 stage-A kernel (ops/stage_a.py), as the JAX engine does not.
+
+The rerank lane has two more forms. `query_e2e` (after `attach_models`)
+runs the whole query on the device from the query's token ids: the
+bi-encoder forward at (1, 32), the pool, and the cross-encoder over
+[CLS] q [SEP] d [SEP] pairs built on the device (`build_pairs_device`)
+from the document tokens stored at index time
+(index/build.py:attach_rerank_tokens), then fusion; both towers run the
+attention kernel on CUDA. `query_rerank_batched_pw`
+(engine/rerank_coalesce.py) serves concurrent rerank requests with one
+batched stage A (`_rerank_a_impl`), one host cross-encoder pass over every
+rider's pairs and one batched stage B.
+
+The snippet lane (use_snips=True with ENABLE_SNIPPETS on a bundle with
+reviews) scores every review against the query on the device and keeps
+each product's best (ops/segment.py:best_review_scores), in run_search's
+split path and in every fused form; run_search(max_scan > 0 or -1) takes
+the reference's truncated host scan instead (engine/snippets.py). With
+use_snips off no review is touched. On the CPU, in the tests, every form
+runs the plain torch versions; on CUDA the towers launch the attention
+kernel.
 
 Standalone retrieval (`search_dense`, `search_bm25`; BASELINE configs 1
 and 2) scores the whole corpus. On CUDA, `search_bm25` runs the
@@ -33,11 +56,8 @@ JAX package, the port does not read USE_PALLAS: on CUDA the kernels are
 the path.
 
 Not ported yet, and refused with NotImplementedError rather than run some
-other way: the snippet lane (use_snips=True with ENABLE_SNIPPETS on a
-bundle with reviews, and max_scan != 0; ROADMAP Queue 1 item 7), the IVF
-pool (item 10) and the int8 corpus (item 11). As in the JAX engine,
-use_snips=True with ENABLE_SNIPPETS off or on a bundle without reviews
-runs as use_snips=False: no snippet lane, empty snippets.
+other way: the IVF pool (ROADMAP Queue 1 item 10) and the int8 corpus
+(item 11).
 """
 from __future__ import annotations
 
@@ -52,10 +72,14 @@ from review_recommender_tpu_torch.device import resolve_device
 from review_recommender_tpu_torch.engine.featurize import QueryFeaturizer, unpack_features
 from review_recommender_tpu_torch.engine.hooks import (
     SIGNAL_ORDER,
+    SNIPPET_NONE,
     SplitPathHooksMixin,
     assemble_result_rows,
+    breakdown,
     resolve_search_knobs,
 )
+from review_recommender_tpu_torch.engine.rerank_coalesce import RerankCoalesceMixin
+from review_recommender_tpu_torch.engine.snippets import HostSnippetsMixin
 from review_recommender_tpu_torch.index.schema import (
     IndexBundle,
     check_hbm_fit,
@@ -82,14 +106,73 @@ from review_recommender_tpu_torch.ops.dense import (
 )
 from review_recommender_tpu_torch.ops.fusion import FusionWeights, final_topk, fuse_candidates
 from review_recommender_tpu_torch.ops.gate import gate_factors_device
+from review_recommender_tpu_torch.ops.segment import best_review_scores
 from review_recommender_tpu_torch.utils.profiling import StageTimer
 
 logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+E2E_QUERY_TOKENS = 30  # query_e2e's query budget: [CLS] + 30 + [SEP] = 32 lanes
 
 
-class SearchEngine(SplitPathHooksMixin):
+def _query_head(cls_id: int, sep_id: int, q_raw: torch.Tensor, q_len: int,
+                width: int) -> torch.Tensor:
+    """(width,) int32 [CLS] q [SEP] followed by zeros: q_raw's padding past
+    q_len is zeroed BEFORE the sep is placed (the order matters)."""
+    lq = q_raw.shape[0]
+    pos = torch.arange(width, device=q_raw.device)
+    head = torch.zeros(width, dtype=torch.int32, device=q_raw.device)
+    head[0] = cls_id
+    head[1 : 1 + lq] = q_raw
+    head = torch.where((pos > q_len) & (pos < 1 + lq), 0, head)
+    return torch.where(pos == 1 + q_len, sep_id, head)
+
+
+def build_pairs_device(cls_id: int, sep_id: int, q_raw: torch.Tensor, q_len: int,
+                       d_tok: torch.Tensor, d_len: torch.Tensor):
+    """[CLS] q [SEP] d [SEP] for each of R documents in the exact HF layout,
+    without gaps: q_raw (Lq,) int32 query ids (padding past q_len, an int in
+    0..Lq), d_tok (R, Sd) document ids, d_len (R,) their lengths in 0..Sd.
+    Returns (ids, attention mask, token types), each (R, Lq + Sd + 3)
+    int32; token types are 1 on [q_len + 2, total). Batched over the rows
+    with arange comparisons and one gather."""
+    r, sd = d_tok.shape
+    width = q_raw.shape[0] + sd + 3
+    dev = d_tok.device
+    pos = torch.arange(width, device=dev)
+    head = _query_head(cls_id, sep_id, q_raw, q_len, width)
+    # each document zeroed at and past d_len, THEN its sep placed
+    col = torch.arange(sd + 1, device=dev)
+    dl = d_len.to(torch.int64)[:, None]
+    dd = torch.cat([d_tok.to(torch.int32), torch.zeros(r, 1, dtype=torch.int32, device=dev)], 1)
+    dd = torch.where(col >= dl, 0, dd)
+    dd = torch.where(col == dl, sep_id, dd)
+    off = q_len + 2
+    j = pos - off
+    doc = torch.gather(dd, 1, j.clamp(0, sd).expand(r, width))
+    ids = torch.where((j >= 0) & (j <= sd), doc, head)
+    total = off + dl + 1  # (R, 1)
+    mask = (pos < total).to(torch.int32)
+    types = ((pos >= off) & (pos < total)).to(torch.int32)
+    return ids, mask, types
+
+
+def encode_query_ids_device(cls_id: int, sep_id: int, q_raw: torch.Tensor, q_len: int):
+    """[CLS] q [SEP] input of the bi-encoder's query forward: (ids, mask),
+    each (Lq + 2,) int32."""
+    width = q_raw.shape[0] + 2
+    ids = _query_head(cls_id, sep_id, q_raw, q_len, width)
+    mask = (torch.arange(width, device=q_raw.device) < q_len + 2).to(torch.int32)
+    return ids, mask
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    index = lambda d: (d.index if d.index is not None
+                       else torch.cuda.current_device() if d.type == "cuda" else None)
+    return a.type == b.type and index(a) == index(b)
+
+
+class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
     def __init__(
         self,
         bundle: IndexBundle,
@@ -109,6 +192,8 @@ class SearchEngine(SplitPathHooksMixin):
                              f"kernels' {MAX_QUERY_SLOTS} query slots")
         self.bundle = bundle
         self.products = bundle.products
+        self.reviews = bundle.reviews
+        self.n_docs = self.products.n_docs
         raw_dtype = emb_dtype or config.EMB_DTYPE
         if raw_dtype == "int8":
             raise NotImplementedError(
@@ -143,8 +228,13 @@ class SearchEngine(SplitPathHooksMixin):
         # the same f32 value on the host, for the BM25 kernels' launch argument
         self.avgdl_h = float(np.float32(self.products.avgdl or 1.0))
         self._bm25_packed_cache = False  # False = unresolved, None = not packed
+        self.rev_arrays = (self.reviews.device_arrays(self.device, self.dtype)
+                           if self.reviews is not None else None)
+        self._build_rev_csr()  # host CSR over reviews, for the snippet texts
         self.featurizer = QueryFeaturizer(self.products,
                                           query_terms_cap=config.QUERY_TERMS_CAP)
+        self._be = None  # towers of query_e2e (attach_models)
+        self._ce = None
 
     # ------------------------------------------------------------ dense pool
     def _dense_topk(self, a, qvec, pool):
@@ -199,15 +289,47 @@ class SearchEngine(SplitPathHooksMixin):
         scores, pos = final_topk(res, k)
         return res, scores, pos
 
-    # ------------------------------------------------------------ fused path
-    @staticmethod
-    def _breakdown(res, pos) -> torch.Tensor:
-        """(..., k, 7) signal columns at the winners, SIGNAL_ORDER."""
-        return torch.stack([getattr(res, name).gather(-1, pos) for name in SIGNAL_ORDER],
-                           dim=-1)
+    # ------------------------------------------------------------- snippets
+    def _snippet_scores_impl(self, rev, qvec):
+        """(..., n_docs) best review sim per product for qvec (D,) or (B, D)."""
+        return best_review_scores(rev["rev_emb"], rev["rev_product"], rev["rev_valid"], qvec,
+                                  self.n_docs)
 
-    def _fused_impl(self, a, qvec, q_terms, q_idf, gp_mask, gt_ids, g_valid,
-                    w: FusionWeights, *, pool, k):
+    def _snippet_scores_full(self, qvec):
+        """SplitPathHooksMixin hook: (n_docs,) for a host query vector."""
+        q = torch.from_numpy(np.asarray(qvec, np.float32).reshape(-1)).to(self.device)
+        return self._snippet_scores_impl(self.rev_arrays, q)
+
+    def _use_snips(self, use_snips) -> bool:
+        """The JAX engine's snippet switch: use_snips with ENABLE_SNIPPETS on
+        a bundle with reviews; anything else runs as use_snips=False."""
+        return bool(use_snips) and config.ENABLE_SNIPPETS and self.rev_arrays is not None
+
+    def _snippet_lane(self, rev, qvec, idx, use_snips: bool):
+        """(best_raw (..., P), has_snips) for the pool rows idx: each row's
+        best review sim (0 where it has none), and per query whether any is
+        nonzero, a (..., 1) bool tensor. Off: zeros and False, and no review
+        is read."""
+        if not use_snips or rev is None:
+            return torch.zeros(idx.shape, dtype=torch.float32, device=self.device), False
+        best_full = self._snippet_scores_impl(rev, qvec)
+        best_pad = torch.zeros(*idx.shape[:-1], self.products.n_padded, dtype=torch.float32,
+                               device=self.device)
+        best_pad[..., : self.n_docs] = torch.where(best_full > SNIPPET_NONE, best_full, 0.0)
+        best_raw = best_pad.gather(-1, idx)
+        # != 0, not > 0: the split path keeps all-negative sims as a computed
+        # lane ((best_raw != 0).any()) and the fusion minmaxes them
+        return best_raw, (best_raw != 0).any(dim=-1, keepdim=True)
+
+    @staticmethod
+    def _device_gate(gate_penalty, st) -> torch.Tensor:
+        """penalty ** (groups - hits): a float, or (B, 1) per-query penalties."""
+        base = torch.as_tensor(gate_penalty, dtype=torch.float32, device=st["idx"].device)
+        return torch.pow(base, (st["n_groups"] - st["gate_hits"]).to(torch.float32))
+
+    # ------------------------------------------------------------ fused path
+    def _fused_impl(self, a, rev, qvec, q_terms, q_idf, gp_mask, gt_ids, g_valid,
+                    w: FusionWeights, use_snips: bool, *, pool, k):
         """One pass without the cross-encoder, device gate, for one query or
         a batch (a leading axis on every query input; `w` shared floats or
         (B, 1) tensors). Returns (rows (..., k), final (..., k), breakdown
@@ -215,35 +337,41 @@ class SearchEngine(SplitPathHooksMixin):
         st = self._stage_a_impl(a, qvec, q_terms, q_idf, gp_mask, gt_ids, g_valid,
                                 pool=pool)
         shape = st["idx"].shape
-        zeros = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        base = torch.as_tensor(w.gate_penalty, dtype=torch.float32, device=self.device)
-        gate = torch.pow(base, (st["n_groups"] - st["gate_hits"]).to(torch.float32))
+        best_raw, has_snips = self._snippet_lane(rev, qvec, st["idx"], use_snips)
         res = fuse_candidates(
-            st["dense_raw"], st["bm25_raw"], zeros,
+            st["dense_raw"], st["bm25_raw"],
+            torch.zeros(shape, dtype=torch.float32, device=self.device),
             torch.zeros(shape, dtype=torch.bool, device=self.device),
-            zeros, False, st["n_reviews"], st["avg_stars"],
-            gate, st["cand_valid"], w,
+            best_raw, has_snips, st["n_reviews"], st["avg_stars"],
+            self._device_gate(w.gate_penalty, st), st["cand_valid"], w,
         )
         scores, pos = final_topk(res, k)
-        return st["idx"].gather(-1, pos), scores, self._breakdown(res, pos)
+        return st["idx"].gather(-1, pos), scores, breakdown(res, pos)
 
-    def _fused_packed(self, qp: torch.Tensor, w: FusionWeights, *, pool, k):
+    def _unpack(self, packed: torch.Tensor):
+        return unpack_features(packed, self.featurizer.query_terms_cap,
+                               self.featurizer.gate_terms_cap)
+
+    def _fused_packed(self, qp: torch.Tensor, w: FusionWeights, use_snips: bool, *, pool, k):
         """The fused query from combined rows [qvec | packed features]: (L,)
         for one query, (B, L) for a batch with shared weights (the JAX
         engine's _fused_packed_impl and its vmap, _fused_packed_batch_impl).
         One input copy per call."""
         d = self.products.dim
-        feats = unpack_features(qp[..., d:], self.featurizer.query_terms_cap,
-                                self.featurizer.gate_terms_cap)
-        return self._fused_impl(self.arrays, qp[..., :d], *feats, w, pool=pool, k=k)
+        return self._fused_impl(self.arrays, self.rev_arrays, qp[..., :d],
+                                *self._unpack(qp[..., d:]), w, use_snips, pool=pool, k=k)
 
-    def _fused_packed_pw(self, qp: torch.Tensor, *, pool, k):
+    @staticmethod
+    def _row_weights(qp: torch.Tensor) -> FusionWeights:
+        """The 8 per-query knobs at the tail of each (B, L + 8) row, in
+        FusionWeights field order, each as (B, 1)."""
+        return FusionWeights(*(qp[:, i - 8, None] for i in range(8)))
+
+    def _fused_packed_pw(self, qp: torch.Tensor, use_snips: bool, *, pool, k):
         """Per-query fusion weights: each (B, L + 8) row carries its own 8
-        knobs at the tail [qvec | features | weights], in FusionWeights
-        field order, so a batch of requests with different knobs is still
-        one pass with one input copy."""
-        w = FusionWeights(*(qp[:, i - 8, None] for i in range(8)))  # each (B, 1)
-        return self._fused_packed(qp[:, :-8], w, pool=pool, k=k)
+        knobs at the tail [qvec | features | weights], so a batch of requests
+        with different knobs is still one pass with one input copy."""
+        return self._fused_packed(qp[:, :-8], self._row_weights(qp), use_snips, pool=pool, k=k)
 
     @staticmethod
     def _result_buffer(rows, scores, bd) -> torch.Tensor:
@@ -251,20 +379,12 @@ class SearchEngine(SplitPathHooksMixin):
         results (row ids are exact in f32 below 2^24 rows)."""
         return torch.cat([rows.to(torch.float32)[..., None], scores[..., None], bd], dim=-1)
 
-    def _fused_packed1(self, qp: torch.Tensor, w: FusionWeights, *, pool, k):
+    def _fused_packed1(self, qp: torch.Tensor, w: FusionWeights, use_snips: bool, *, pool, k):
         """The fused query from ONE input buffer [qvec | packed features] to
         ONE (k, 9) f32 output (_result_buffer)."""
-        return self._result_buffer(*self._fused_packed(qp, w, pool=pool, k=k))
+        return self._result_buffer(*self._fused_packed(qp, w, use_snips, pool=pool, k=k))
 
     # ------------------------------------------------------------ fused query
-    def _refuse_snippets(self, use_snips) -> None:
-        """Raise where the JAX engine would run its snippet lane (its
-        use_snips_eff): use_snips with ENABLE_SNIPPETS on a bundle with
-        reviews. Anything else runs as use_snips=False."""
-        if bool(use_snips) and config.ENABLE_SNIPPETS and self.bundle.reviews is not None:
-            raise NotImplementedError(
-                "use_snips=True: the snippet lane is not ported yet (ROADMAP Queue 1 item 7)")
-
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(self.device)
 
@@ -277,10 +397,9 @@ class SearchEngine(SplitPathHooksMixin):
         """Single-pass query (no rerank): (corpus row ids (k,), final scores
         (k,)) as device tensors. The query vector and all features travel
         in one buffer, one host->device copy."""
-        self._refuse_snippets(use_snips)
         qp = self._upload(self._combined(qvec, self.featurizer.featurize_packed(query)))
         rows, scores, _bd = self._fused_packed(
-            qp, w, pool=min(pool, self.products.n_padded), k=k)
+            qp, w, self._use_snips(use_snips), pool=min(pool, self.products.n_padded), k=k)
         return rows, scores
 
     def query_fused1(self, qvec, query: str, w: FusionWeights, pool: int, k: int,
@@ -288,9 +407,9 @@ class SearchEngine(SplitPathHooksMixin):
         """query_fused returning ONE (k, 9) f32 device tensor [row id, final,
         7 signals]; split it on the host with split_fused1. One copy in, one
         read out."""
-        self._refuse_snippets(use_snips)
         qp = self._upload(self._combined(qvec, self.featurizer.featurize_packed(query)))
-        return self._fused_packed1(qp, w, pool=min(pool, self.products.n_padded), k=k)
+        return self._fused_packed1(qp, w, self._use_snips(use_snips),
+                                   pool=min(pool, self.products.n_padded), k=k)
 
     @staticmethod
     def split_fused1(out):
@@ -303,11 +422,10 @@ class SearchEngine(SplitPathHooksMixin):
                             pool: int, k: int, use_snips: bool = False):
         """Batched single-pass hybrid search (no rerank): qvecs (B, D), B
         query strings -> (row ids (B, k), scores (B, k)), device tensors."""
-        self._refuse_snippets(use_snips)
         packed = self.featurizer.featurize_packed_batch(queries)
         qp = self._upload(np.concatenate([np.asarray(qvecs, np.float32), packed], axis=1))
         rows, scores, _bd = self._fused_packed(
-            qp, w, pool=min(pool, self.products.n_padded), k=k)
+            qp, w, self._use_snips(use_snips), pool=min(pool, self.products.n_padded), k=k)
         return rows, scores
 
     def query_fused_batched_pw(self, qvecs, queries: List[str], weights, pool: int,
@@ -317,12 +435,107 @@ class SearchEngine(SplitPathHooksMixin):
         holds one 8-float sequence per query in FusionWeights field order.
         Returns (rows (B, k), scores (B, k), breakdown (B, k, 7) [dense,
         bm25, rerank, prior, best, trust, gate]), device tensors."""
-        self._refuse_snippets(use_snips)
         packed = self.featurizer.featurize_packed_batch(queries)
         wmat = np.asarray([tuple(map(float, w)) for w in weights], np.float32)
         qp = self._upload(np.concatenate([np.asarray(qvecs, np.float32), packed, wmat],
                                          axis=1))
-        return self._fused_packed_pw(qp, pool=min(pool, self.products.n_padded), k=k)
+        return self._fused_packed_pw(qp, self._use_snips(use_snips),
+                                     pool=min(pool, self.products.n_padded), k=k)
+
+    # ------------------------------------------------- coalesced rerank, stage A
+    def _rerank_a_impl(self, a, rev, qp: torch.Tensor, use_snips: bool, *, pool):
+        """Batched stage A of the coalesced rerank path: everything the fused
+        pass computes before fusion (pool, BM25, gate, snippet lane), for
+        (B, L + 8) rows [qvec | packed features | 8 weights], as
+        _fused_packed_pw reads them. Returns (st, best_raw, has_snips,
+        gate), each with the batch axis."""
+        d = self.products.dim
+        qvec = qp[:, :d]
+        st = self._stage_a_impl(a, qvec, *self._unpack(qp[:, d:-8]), pool=pool)
+        best_raw, has_snips = self._snippet_lane(rev, qvec, st["idx"], use_snips)
+        gate = self._device_gate(self._row_weights(qp).gate_penalty, st)
+        return st, best_raw, has_snips, gate
+
+    def _rerank_stage_a(self, qp: torch.Tensor, use_snips: bool, pool: int):
+        """RerankCoalesceMixin hook: one batched stage A on this engine's
+        arrays (query_rerank_batched_pw lives in engine/rerank_coalesce.py)."""
+        return self._rerank_a_impl(self.arrays, self.rev_arrays, qp, use_snips, pool=pool)
+
+    # ------------------------------------------------ the rerank lane on device
+    def attach_models(self, biencoder, crossencoder=None) -> None:
+        """Attach the towers of query_e2e: the bi-encoder encodes the query on
+        the device and the cross-encoder reranks pairs built on the device
+        from the index's doc_tokens (index/build.py:attach_rerank_tokens).
+        Also wires them as run_search's hooks where none were given. The
+        towers must live on the engine's device; nothing is moved."""
+        for name, tower in (("biencoder", biencoder), ("crossencoder", crossencoder)):
+            if tower is not None and not _same_device(tower.device, self.device):
+                raise ValueError(f"attach_models: the {name} is on {tower.device}, the engine "
+                                 f"on {self.device}; build the tower on the engine's device")
+        self._be = biencoder
+        self._ce = crossencoder
+        if self.query_encoder is None:
+            self.query_encoder = biencoder
+        if self.cross_encoder is None and crossencoder is not None:
+            self.cross_encoder = crossencoder
+
+    def _build_pairs(self, q_raw, q_len, d_tok, d_len):
+        """Pairs with the bi-encoder's tokenizer ids (the JAX engine's choice)."""
+        tok = self._be.tokenizer
+        return build_pairs_device(tok.cls_id, tok.sep_id, q_raw, q_len, d_tok, d_len)
+
+    def _e2e_impl(self, a, q_raw, q_len: int, packed, w: FusionWeights, *, pool, k, rr_k):
+        """The whole query on the device from the query's token ids: returns
+        (rows (k,), final (k,), qvec (D,))."""
+        tok = self._be.tokenizer
+        b_ids, b_mask = encode_query_ids_device(tok.cls_id, tok.sep_id, q_raw, q_len)
+        qvec = self._be.model(b_ids[None], b_mask[None])[0]
+        st = self._stage_a_impl(a, qvec, *self._unpack(packed), pool=pool)
+        p = st["idx"].shape[0]
+        rerank_raw = torch.zeros(p, dtype=torch.float32, device=self.device)
+        rerank_mask = torch.zeros(p, dtype=torch.bool, device=self.device)
+        if rr_k > 0 and self._ce is not None:
+            rows = st["idx"][:rr_k]
+            d_tok, d_len = a["doc_tokens"][rows], a["doc_token_len"][rows]
+            # the pair [CLS] q [SEP] d [SEP] must fit the cross-encoder's positions
+            sd_max = self._ce.cfg.max_position - q_raw.shape[0] - 3
+            if sd_max < d_tok.shape[1]:
+                d_tok, d_len = d_tok[:, :sd_max], torch.clamp(d_len, max=sd_max)
+            # the (rr_k, Lq + Sd + 3) block as it is: no bucketing, as in JAX
+            rerank_raw[:rr_k] = self._ce.model(*self._build_pairs(q_raw, q_len, d_tok, d_len))
+            rerank_mask = (torch.arange(p, device=self.device) < rr_k) & st["cand_valid"]
+        res = fuse_candidates(
+            st["dense_raw"], st["bm25_raw"], rerank_raw, rerank_mask,
+            torch.zeros(p, dtype=torch.float32, device=self.device), False,
+            st["n_reviews"], st["avg_stars"], self._device_gate(w.gate_penalty, st),
+            st["cand_valid"], w,
+        )
+        scores, pos = final_topk(res, min(k, p))
+        return st["idx"][pos], scores, qvec
+
+    def query_e2e(self, query: str, w: FusionWeights, pool: int, k: int, rr_k: int = 0):
+        """The query on the device from its token ids: bi-encoder forward,
+        pool, BM25, gate, the cross-encoder over the first rr_k candidates
+        (pairs built on the device), fusion, top-k. Needs attach_models();
+        rr_k > 0 needs an index built with attach_rerank_tokens. Returns
+        (row ids (k,), final scores (k,)), device tensors. One host->device
+        copy: the query ids ride in front of the packed features."""
+        if self._be is None:
+            raise RuntimeError("call attach_models(biencoder[, crossencoder]) first")
+        if not config.ENABLE_RERANKING:
+            rr_k = 0
+        if rr_k > 0 and "doc_tokens" not in self.arrays:
+            raise RuntimeError("index has no doc_tokens; build with attach_rerank_tokens()")
+        ids = self._be.tokenizer.token_ids(query)[:E2E_QUERY_TOKENS]
+        q_raw = np.zeros(E2E_QUERY_TOKENS, np.float32)  # ids are exact in f32
+        q_raw[: len(ids)] = ids
+        buf = self._upload(np.concatenate([q_raw, self.featurizer.featurize_packed(query)]))
+        with torch.inference_mode():
+            rows, scores, _q = self._e2e_impl(
+                self.arrays, buf[:E2E_QUERY_TOKENS].to(torch.int32), len(ids),
+                buf[E2E_QUERY_TOKENS:], w, pool=min(pool, self.products.n_padded), k=k,
+                rr_k=int(rr_k))
+        return rows, scores
 
     # ------------------------------------------------- standalone retrieval
     def search_dense(self, qvec, k: int):
@@ -418,17 +631,20 @@ class SearchEngine(SplitPathHooksMixin):
         qvec: Optional[np.ndarray] = None,
     ):
         """Hybrid search. Returns (rows, snippets, debug): rows is the list
-        of result dicts in rank order, in the JAX package's column order."""
-        self._refuse_snippets(use_snips)
-        if int(max_scan or 0) != 0:
-            raise NotImplementedError(
-                "max_scan != 0: the exact host snippet scan is not ported yet "
-                "(ROADMAP Queue 1 item 7)")
+        of result dicts in rank order, in the JAX package's column order;
+        snippets maps a result's sku to its best review {score, text,
+        stars} when the snippet lane ran.
+
+        max_scan: 0 (the default) scores every review on the device;
+        max_scan > 0 takes the reference's truncated host scan (candidate
+        review rows in file order, cut at max_scan), -1 the same at
+        MAX_REVIEWS_SCAN rows."""
         c = config
         k, rerank_k, gate_pen_h, w = resolve_search_knobs(
             k, rerank_k, w_dense, w_bm25, w_rerank, w_prior, w_best,
             prior_C, min_reviews, gate_penalty,
         )
+        max_scan = int(max_scan or 0)
         timer = StageTimer()
         if qvec is None:
             with timer.stage("encode_query"):
@@ -441,10 +657,12 @@ class SearchEngine(SplitPathHooksMixin):
 
         rerank_live = (rerank_k > 0 and self.cross_encoder is not None
                        and c.ENABLE_RERANKING)
-        if self.gate_mode == "device" and not rerank_live:
+        use_snips_eff = bool(use_snips) and c.ENABLE_SNIPPETS and self.reviews is not None
+        if (self.gate_mode == "device" and not rerank_live and not use_snips_eff
+                and max_scan == 0):
             with timer.stage("fused_query"):
                 qp = self._upload(self._combined(qvec_h, qf.pack()))
-                out = self._fused_packed1(qp, w, pool=pool, k=min(k, pool))
+                out = self._fused_packed1(qp, w, False, pool=pool, k=min(k, pool))
             with timer.stage("fetch"):
                 buf = out.cpu().numpy()
             return self._rows_from_fused1(buf, qf, pool, timer)
@@ -462,19 +680,18 @@ class SearchEngine(SplitPathHooksMixin):
         cand_rows = idx[:n_cand]
         P = idx.shape[0]
 
-        rerank_raw, rerank_mask, gate = self._split_host_hooks(
-            query, qf.groups, cand_rows, P, rerank_k=rerank_k, gate_pen_h=gate_pen_h,
+        rerank_raw, rerank_mask, gate, best_raw, has_snips, snips = self._split_host_hooks(
+            query, qf.groups, qvec_h, cand_rows, P, rerank_k=rerank_k,
+            gate_pen_h=gate_pen_h, use_snips_eff=use_snips_eff, max_scan=max_scan,
             gate_hits=st["gate_hits"], n_groups=st["n_groups"], timer=timer,
         )
 
         with timer.stage("fuse"):
-            zeros = torch.zeros(P, dtype=torch.float32, device=self.device)
             res, scores, pos = self._stage_b_impl(
-                st, to_dev(rerank_raw), to_dev(rerank_mask), zeros, False, gate, w,
-                k=min(k, P),
+                st, to_dev(rerank_raw), to_dev(rerank_mask), to_dev(best_raw), has_snips,
+                gate, w, k=min(k, P),
             )
-            buf = self._result_buffer(st["idx"][pos], scores,
-                                      self._breakdown(res, pos)).cpu().numpy()
+            buf = self._result_buffer(st["idx"][pos], scores, breakdown(res, pos)).cpu().numpy()
         sig = {name: buf[:, 2 + i] for i, name in enumerate(SIGNAL_ORDER)}
         rows = assemble_result_rows(self.products, buf[:, 0], buf[:, 1], sig)
         debug = {
@@ -486,7 +703,7 @@ class SearchEngine(SplitPathHooksMixin):
             "n_candidates": n_cand,
             "stage_ms": {name: v["total_ms"] for name, v in timer.summary().items()},
         }
-        return rows, {}, debug
+        return rows, snips, debug
 
     def _rows_from_fused1(self, buf: np.ndarray, qf, pool: int, timer):
         """(k, 9) fused output -> (rows, snippets, debug)."""

@@ -1,18 +1,21 @@
-"""Index build helpers: BM25 statistics and the synthetic corpus.
+"""Index build helpers: BM25 statistics, rerank tokens, the review index
+and the synthetic corpus.
 
-`compute_idf` and `eager_bm25_scores` copy `review_recommender_tpu/index/
-build.py` (that module imports the jax-loading schema). `synth_product_index`
-is a numpy port of `bench.py:_synth_index`: the same random draws in the
-same order, so one seed gives the same corpus in both packages, plus eager
-BM25 contributions and deterministic texts for the rerank lane.
+`compute_idf`, `eager_bm25_scores`, `attach_rerank_tokens` and
+`build_review_index` copy `review_recommender_tpu/index/build.py` (that
+module imports the jax-loading schema). `synth_product_index` is a numpy
+port of `bench.py:_synth_index`: the same random draws in the same order,
+so one seed gives the same corpus in both packages, plus eager BM25
+contributions and deterministic texts for the rerank lane.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
 
-from review_recommender_tpu_torch.index.schema import ProductIndex, pad_rows
+from review_recommender_tpu_torch.index.schema import ProductIndex, ReviewIndex, pad_rows
 from review_recommender_tpu_torch.utils.text import GATE_PHRASES
 
 BM25_K1 = 1.5
@@ -42,6 +45,61 @@ def eager_bm25_scores(
     contrib = (idf[doc_terms] * doc_tf * (BM25_K1 + 1.0)
                / (doc_tf + norm[:, None] + 1e-30))
     return np.where(doc_tf > 0, contrib, 0.0).astype(np.float32)
+
+
+def _l2_normalize_np(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:
+    n = np.linalg.norm(x, axis=1, keepdims=True)
+    return x / np.maximum(n, eps)
+
+
+def attach_rerank_tokens(index: ProductIndex, tokenizer, max_tokens: int = 254,
+                         text_prefix_chars: int = 2000) -> ProductIndex:
+    """Pre-tokenize each agg_text with the model tokenizer into padded
+    doc_tokens (N_pad, max_tokens) int32 and doc_token_len (N_pad,) int32,
+    for the on-device rerank of engine/search.py:query_e2e. Texts are cut
+    to the rerank window (text_prefix_chars, the host path's 2000) before
+    tokenizing; padding is the tokenizer's pad_id."""
+    n_pad = index.n_padded
+    toks = np.full((n_pad, max_tokens), getattr(tokenizer, "pad_id", 0), np.int32)
+    lens = np.zeros(n_pad, np.int32)
+    for i in range(index.n_docs):
+        ids = tokenizer.token_ids(str(index.agg_texts[i])[:text_prefix_chars])[:max_tokens]
+        toks[i, : len(ids)] = ids
+        lens[i] = len(ids)
+    index.doc_tokens = toks
+    index.doc_token_len = lens
+    return index
+
+
+def build_review_index(rev_skus: Sequence[str], rev_texts: Sequence[str],
+                       rev_stars: Sequence[float], rev_embeddings: np.ndarray,
+                       product_skus: Sequence[str], *, pad_multiple: int = 256) -> ReviewIndex:
+    """Per-review unit embeddings (f32, padded to pad_multiple rows) with
+    their product rows as segment ids. A review whose sku is not a product
+    maps to segment len(product_skus), the discard bucket. A list or tuple
+    of texts is copied as str; any other sequence (texts built on access)
+    is kept as given. Stars: None or NaN -> NaN."""
+    m = len(rev_texts)
+    if rev_embeddings.shape[0] != m:
+        raise ValueError(f"{rev_embeddings.shape[0]} review embeddings for {m} texts")
+    sku_to_row = {str(s): i for i, s in enumerate(product_skus)}
+    n_products = len(product_skus)
+    m_pad = pad_rows(m, pad_multiple)
+    emb = np.zeros((m_pad, rev_embeddings.shape[1]), dtype=np.float32)
+    emb[:m] = _l2_normalize_np(np.asarray(rev_embeddings, dtype=np.float32))
+    seg = np.full(m_pad, n_products, dtype=np.int32)
+    seg[:m] = [sku_to_row.get(str(s), n_products) for s in rev_skus]
+    if isinstance(rev_stars, np.ndarray):
+        stars = rev_stars.astype(np.float32)
+    else:
+        stars = np.asarray([np.nan if s is None or (isinstance(s, float) and math.isnan(s))
+                            else float(s) for s in rev_stars], dtype=np.float32)
+    return ReviewIndex(
+        rev_emb=emb, rev_product=seg, rev_valid=np.arange(m_pad) < m,
+        rev_texts=([str(t) for t in rev_texts] if isinstance(rev_texts, (list, tuple))
+                   else rev_texts),
+        rev_stars=stars, n_reviews_total=m,
+    )
 
 
 class SynthTexts(Sequence[str]):

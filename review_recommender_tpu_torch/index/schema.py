@@ -7,7 +7,11 @@ explicit device. Array inventory (N_pad rows, L = terms cap, G = gate
 phrases): emb (N_pad, D), n_reviews/avg_stars/doc_len (N_pad,) f32 (stars
 may be NaN), doc_terms (N_pad, L) i32 (0 = PAD), doc_tf (N_pad, L) f32,
 gate_bits (N_pad, G) bool, valid (N_pad,) bool, optional doc_bm25
-(N_pad, L) f32 eager BM25 contributions.
+(N_pad, L) f32 eager BM25 contributions, optional doc_tokens (N_pad, S_d)
+i32 and doc_token_len (N_pad,) i32 (the rerank lane's pre-tokenized
+documents, index/build.py:attach_rerank_tokens). Reviews (M_pad rows):
+rev_emb (M_pad, D), rev_product (M_pad,) i32 (the product row; n_docs =
+the discard bucket), rev_valid (M_pad,) bool.
 """
 from __future__ import annotations
 
@@ -129,6 +133,15 @@ class ProductIndex:
         ]
         for name in ("n_reviews", "avg_stars", "doc_len", "valid"):
             checks.append((getattr(self, name).shape == (n_pad,), f"{name} shape"))
+        if (self.doc_tokens is None) != (self.doc_token_len is None):
+            checks.append((False, "doc_tokens and doc_token_len come together"))
+        elif self.doc_tokens is not None:
+            checks.append((self.doc_tokens.ndim == 2 and self.doc_tokens.shape[0] == n_pad,
+                           "doc_tokens shape"))
+            checks.append((self.doc_token_len.shape == (n_pad,), "doc_token_len shape"))
+            checks.append((bool((self.doc_token_len >= 0).all())
+                           and int(self.doc_token_len.max(initial=0)) <= self.doc_tokens.shape[1],
+                           "doc_token_len outside 0..doc_tokens width"))
         for ok, msg in checks:
             if not ok:
                 raise ValueError(f"invalid ProductIndex: {msg}")
@@ -136,18 +149,32 @@ class ProductIndex:
 
 @dataclasses.dataclass
 class ReviewIndex:
-    """Per-review embeddings and host metadata (snippet path, not ported)."""
+    """Per-review embeddings and host metadata for the snippet lane: the
+    device scores every review against the query and keeps each product's
+    best (ops/segment.py); the host recovers the text shown for it from
+    rev_texts/rev_stars (engine/snippets.py). rev_emb stays on the host in
+    f32 for that recovery; device_arrays places its device copy."""
 
-    rev_emb: np.ndarray
-    rev_product: np.ndarray
-    rev_valid: np.ndarray
-    rev_texts: List[str]
-    rev_stars: np.ndarray
+    rev_emb: np.ndarray  # (M_pad, D) f32, unit rows
+    rev_product: np.ndarray  # (M_pad,) i32 product row, n_docs = discard bucket
+    rev_valid: np.ndarray  # (M_pad,) bool
+    rev_texts: Sequence[str]
+    rev_stars: np.ndarray  # (M,) f32, NaN allowed
     n_reviews_total: int
 
     @property
     def m_padded(self) -> int:
         return int(self.rev_emb.shape[0])
+
+    def device_arrays(self, device: torch.device,
+                      emb_dtype: torch.dtype = torch.bfloat16) -> dict:
+        """The tensors the snippet lane reads, on `device`."""
+        put = lambda a, dt: torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt)
+        return {
+            "rev_emb": put(self.rev_emb, emb_dtype),
+            "rev_product": put(self.rev_product, torch.int32),
+            "rev_valid": put(self.rev_valid, torch.bool),
+        }
 
     def device_footprint(self, emb_dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
         m_pad = self.m_padded

@@ -7,6 +7,7 @@ Counterpart of `review_recommender_tpu/ops/fusion.py:34-150`:
   prior   = minmax(bayes(avg_stars, n, C)) * 0.7 + 0.3 * log1p(n)/max(log1p(n))
   rerank  = minmax over the rerank lanes, zeros elsewhere
   best    = minmax(best-snippet sims) if snippets were computed else zeros
+            (has_snippets: a bool, or one flag per query of a batch)
   trust   = 0.6*ramp(n/min_reviews) + 0.4*log-saturation(n, 80)
   final   = (w . signals) * trust * gate, -inf on invalid lanes
 
@@ -80,7 +81,7 @@ def fuse_candidates(
     rerank_raw: torch.Tensor,  # (..., P) cross-encoder scores in the first lanes
     rerank_mask: torch.Tensor,  # (..., P) bool
     best_raw: torch.Tensor,  # (..., P)
-    has_snippets: bool,
+    has_snippets,  # bool, or a (..., 1) bool tensor: one flag per query
     n_reviews: torch.Tensor,  # (..., P) f32
     avg_stars: torch.Tensor,  # (..., P) f32, NaN allowed
     gate: torch.Tensor,  # (..., P) f32
@@ -107,7 +108,10 @@ def fuse_candidates(
     rr_mask = rerank_mask & valid
     rerank = torch.where(rr_mask, minmax_normalize_masked(rerank_raw, rr_mask), 0.0)
 
-    if has_snippets:
+    # best snippet: minmax over the whole pool, zero lanes included
+    if isinstance(has_snippets, torch.Tensor):
+        best = torch.where(has_snippets, minmax_normalize_masked(best_raw, valid), 0.0)
+    elif has_snippets:
         best = minmax_normalize_masked(best_raw, valid)
     else:
         best = torch.zeros_like(dense)

@@ -34,7 +34,7 @@ from review_recommender_tpu.utils import text as jtext
 from review_recommender_tpu_torch.config import config as port_config
 from review_recommender_tpu_torch.engine.featurize import unpack_features as t_unpack
 from review_recommender_tpu_torch.engine.search import SearchEngine
-from review_recommender_tpu_torch.index.schema import IndexBundle, ProductIndex, ReviewIndex
+from review_recommender_tpu_torch.index.schema import IndexBundle, ProductIndex
 from review_recommender_tpu_torch.ops import bm25 as tbm25
 from review_recommender_tpu_torch.ops import dense as tdense
 from review_recommender_tpu_torch.ops import fusion as tfusion
@@ -177,26 +177,6 @@ def _fused_forms(engine, w, use_snips):
         "query_fused_batched_pw": lambda: engine.query_fused_batched_pw(
             qv, q2, KNOB_SETS[:2], 150, 10, use_snips=use_snips),
     }
-
-
-def test_refuses_snippets():
-    """Where the JAX engine would run its snippet lane (use_snips=True,
-    ENABLE_SNIPPETS on, a bundle with reviews), the port still refuses:
-    run_search and the four fused forms."""
-    products, emb, reviews, remb = make_corpus(n=64, dim=64, seed=1)
-    jb = build_bundle_from_products(products, emb, reviews=reviews, review_embeddings=remb,
-                                    pad_multiple=16, doc_terms_cap=64)
-    fields = lambda cls, obj: {f: getattr(obj, f) for f in cls.__dataclass_fields__}
-    te = SearchEngine(IndexBundle(products=ProductIndex(**fields(ProductIndex, jb.products)),
-                                  reviews=ReviewIndex(**fields(ReviewIndex, jb.reviews))),
-                      device="cpu", emb_dtype="float32")
-    assert port_config.ENABLE_SNIPPETS
-    calls = dict(_fused_forms(te, tfusion.FusionWeights.make(), True))
-    calls["run_search"] = lambda: te.run_search("yellow socks", use_snips=True,
-                                                qvec=_qvecs(5, b=1)[0])
-    for call in calls.values():
-        with pytest.raises(NotImplementedError, match="item 7"):
-            call()
 
 
 @pytest.mark.parametrize("enable_snippets", [True, False])

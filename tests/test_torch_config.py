@@ -18,7 +18,7 @@ KNOBS = (
     "QUERY_TERMS_CAP", "ENABLE_BM25", "ENABLE_RERANKING", "ENABLE_SNIPPETS", "DEFAULT_K",
     "DEFAULT_RERANK_K", "DEFAULT_MIN_REVIEWS", "DEFAULT_W_DENSE", "DEFAULT_W_BM25",
     "DEFAULT_W_RERANK", "DEFAULT_W_PRIOR", "DEFAULT_W_BEST", "DEFAULT_GATE_PENALTY",
-    "DEFAULT_PRIOR_C", "DEFAULT_POOL_SIZE",
+    "DEFAULT_PRIOR_C", "DEFAULT_POOL_SIZE", "MAX_REVIEWS_SCAN",
 )
 OVERRIDES = {"DENSE_POOL_STRIPES": "77", "GATE_MODE": "host", "ENABLE_BM25": "false",
              "DEFAULT_W_DENSE": "0.3", "DENSE_POOL_AUTO_MIN": "1024"}

@@ -173,10 +173,6 @@ def test_striped_pool_membership_differs_from_exact(engines):
 
 def test_refuses_what_is_not_ported(engines):
     _je, te = engines["exact"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        te.run_search("yellow socks", use_snips=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        te.run_search("yellow socks", max_scan=-1)
     with pytest.raises(NotImplementedError, match="item 11"):
         SearchEngine(te.bundle, device="cpu", emb_dtype="int8")
     with pytest.raises(NotImplementedError, match="item 10"):
@@ -207,7 +203,8 @@ def test_entry_points_default_to_the_card(engines):
 _HYGIENE = """
 import json, sys, numpy as np, torch
 from review_recommender_tpu_torch.engine.search import SearchEngine
-from review_recommender_tpu_torch.index.build import synth_product_index
+from review_recommender_tpu_torch.index.build import (attach_rerank_tokens, build_review_index,
+                                                      synth_product_index)
 from review_recommender_tpu_torch.index.schema import IndexBundle
 from review_recommender_tpu_torch.models.bert import BertConfig
 from review_recommender_tpu_torch.models.encoder import BiEncoder, CrossEncoder
@@ -215,10 +212,25 @@ from review_recommender_tpu_torch.ops import attention, bm25_kernel, stage_a
 from review_recommender_tpu_torch.ops.fusion import FusionWeights
 p = synth_product_index(400, 64, 300, 12, seed=0, text_chars=200)
 cfg = BertConfig.tiny(vocab_size=300)
-eng = SearchEngine(IndexBundle(products=p), device="cpu",
-                   query_encoder=BiEncoder.random_init(cfg, seed=1, device="cpu"),
-                   cross_encoder=CrossEncoder.random_init(cfg, seed=2, device="cpu"))
+be = BiEncoder.random_init(cfg, seed=1, device="cpu")
+ce = CrossEncoder.random_init(cfg, seed=2, device="cpu")
+attach_rerank_tokens(p, be.tokenizer, max_tokens=24)
+rng = np.random.default_rng(1)
+rev = build_review_index([f"S{i % 400}" for i in range(1200)], [f"r{i}" for i in range(1200)],
+                         rng.integers(1, 6, 1200).astype(np.float32),
+                         rng.standard_normal((1200, 64)).astype(np.float32), p.skus)
+eng = SearchEngine(IndexBundle(products=p, reviews=rev), device="cpu",
+                   query_encoder=be, cross_encoder=ce)
+eng.attach_models(be, ce)
 n = [len(eng.run_search("t12 t345 t7 t1234", k=10, rerank_k=r)[0]) for r in (0, 50)]
+rows, snips, _ = eng.run_search("t12 t345 t7 t1234", k=10, rerank_k=0, use_snips=True)
+n += [len(rows), len(snips)]
+w = FusionWeights.make()
+n += [int(torch.isfinite(eng.query_e2e("t12 t345 t7", w, 150, 10, rr_k=r)[1]).sum())
+      for r in (0, 4)]
+qv2 = np.random.default_rng(2).standard_normal((2, 64)).astype(np.float32)
+n.append(int(torch.isfinite(eng.query_rerank_batched_pw(
+    qv2, ["t12 t345", "t7 t1234"], [tuple(w)] * 2, [4, 0], 150, 10)[1]).sum()))
 idx, scores = eng.search_bm25("t12 t345 t7 t1234", k=10)
 n.append(int((scores > 0).sum()))
 qv = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 64)).astype(np.float32))
@@ -240,7 +252,9 @@ print(json.dumps({"rows": n, "bad": bad, "launches": launches}))
 
 def test_port_imports_no_jax_pandas_or_pyarrow():
     """A fresh interpreter imports the port and runs a tiny CPU run_search
-    (bf16 towers and corpus, both rerank settings), search_bm25,
+    (bf16 towers and corpus, both rerank settings, and with snippets on a
+    review index), query_e2e at rr_k 0 and 4 on attach_rerank_tokens'
+    tokens, query_rerank_batched_pw with 2 riders, search_bm25,
     query_fused_batched and stage_a_fused without loading jax, flax,
     pandas, pyarrow or any module of the JAX package, and without a
     kernel launch."""
@@ -250,4 +264,4 @@ def test_port_imports_no_jax_pandas_or_pyarrow():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert res == {"rows": [10, 10, 10, 20, 32], "bad": [], "launches": 0}
+    assert res == {"rows": [10, 10, 10, 150, 10, 10, 20, 10, 20, 32], "bad": [], "launches": 0}

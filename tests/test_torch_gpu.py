@@ -8,9 +8,10 @@ machine without jax it runs as
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Attention: tolerance 2e-2 in bf16/f16 (tests/test_attention.py's bf16
-bound); the kernel rounds the exponentials to the input type before it
-divides by the row sum, so a probability differs from the reference's by
-at most one unit in the last place of the input type. BM25: bitwise equal scores (tf_q
+bound); the kernel divides the exponentials by the f32 row sum before it
+rounds the probabilities to the input type, as the reference does, so a
+probability differs from the reference's only where its f32 value lies
+within an ulp or two of a rounding boundary. BM25: bitwise equal scores (tf_q
 sums integers; every other step is rounded alone, in the reference's order).
 Stage A: winner scores within 1e-5 (exact bf16/f32 products summed in f32 in
 another order than cuBLAS's); a winner id may differ only where the plain
@@ -57,6 +58,7 @@ def _inputs(seed, b, s, hd, dtype, device):
 @pytest.mark.parametrize("b,s,heads,d", [
     (64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128),
     (3, 40, 2, 32), (2, 1, 4, 64), (2, 511, 1, 128), (5, 100, 3, 64),
+    (1, 32, 12, 32), (50, 287, 12, 32),  # query_e2e: encode, then rerank (a ragged key tile)
 ])
 def test_kernel_matches_reference(cuda, dtype, b, s, heads, d):
     q, k, v, bias = _inputs(b * 1000 + s, b, s, heads * d, dtype, cuda)
@@ -250,6 +252,51 @@ def test_engine_refuses_query_terms_cap_above_the_kernel_limit(cuda, monkeypatch
     idx, scores = eng.search_bm25("t12 t34 t56", 10)
     torch.cuda.synchronize()
     assert idx.shape == (10,) and bool(torch.isfinite(scores).all())
+
+
+def _e2e_engine(device):
+    """A 2,000-product engine with attach_rerank_tokens' tokens and 2-layer
+    bf16 towers of 4 heads of 32 (the kernel's head dims), the same seeded
+    weights on either device."""
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.build import (attach_rerank_tokens,
+                                                          synth_product_index)
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+    from review_recommender_tpu_torch.models.bert import BertConfig
+    from review_recommender_tpu_torch.models.encoder import BiEncoder, CrossEncoder
+
+    cfg = BertConfig(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
+                     intermediate_size=256, max_position=128)
+    be = BiEncoder.random_init(cfg, seed=1, device=device, dtype=torch.bfloat16)
+    ce = CrossEncoder.random_init(cfg, seed=2, device=device, dtype=torch.bfloat16)
+    products = synth_product_index(2000, 128, 300, 12, seed=0, text_chars=200)
+    attach_rerank_tokens(products, be.tokenizer, max_tokens=64)
+    eng = SearchEngine(IndexBundle(products=products), device=device)
+    eng.attach_models(be, ce)
+    return eng
+
+
+def test_query_e2e_on_cuda_matches_cpu(cuda):
+    """query_e2e on the card (both towers on the attention kernel: 2 + 2
+    launches a query at rr_k=8) against the port on the CPU (reference
+    attention) with the same weights and corpus: rows equal up to near-tie
+    swaps, finals within 2e-2 (bf16 towers, the phase-4 bound of
+    chip_smoke.py)."""
+    from review_recommender_tpu_torch.ops.fusion import FusionWeights
+
+    w = FusionWeights.make(0.4, 0.25, 0.2, 0.1, 0.0, 20.0, 8.0, 1.0)
+    gpu, cpu = _e2e_engine("cuda"), _e2e_engine("cpu")
+    for query in ("t12 t34 t56", "t7 t250 t3", "t99"):
+        before = tatt.mha_kernel_launches
+        rg, sg = gpu.query_e2e(query, w, 150, 10, rr_k=8)
+        torch.cuda.synchronize()
+        assert tatt.mha_kernel_launches == before + 4
+        rc, sc = cpu.query_e2e(query, w, 150, 10, rr_k=8)
+        sg, sc = sg.cpu().numpy(), sc.numpy()
+        assert np.isfinite(sg).all() and np.abs(sg - sc).max() <= 2e-2, (sg, sc)
+        for i, (a, b) in enumerate(zip(rg.cpu().tolist(), rc.tolist())):
+            if a != b:
+                assert abs(sg[i] - sc[i]) <= 2e-2
 
 
 def _stage_a_inputs(seed, n, d, b, dtype, device):
