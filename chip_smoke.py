@@ -8,7 +8,9 @@ line, and nothing is caught and passed over:
 
   1 device   torch.cuda must be available; card name and power limit
              (nvidia-smi), torch/CUDA/nvcc versions
-  2 build    compile csrc/*.cu with nvcc for sm_90a (build/torch_kernels/)
+  2 build    compile csrc/*.cu with nvcc for sm_90a (build/torch_kernels/) and,
+             alongside, the native host library (native/*.cc with g++:
+             build/torch_native/): its path, build seconds, g++ --version
   3 kernel   the fused-attention kernel against its plain torch version at
              the main path's shapes: max abs error (tolerance 2e-2, bf16) and
              the median of 50 CUDA-event-timed runs of each, from an idle
@@ -44,7 +46,8 @@ line, and nothing is caught and passed over:
              percentiles of a first pass over unseen queries and of a
              repeat pass, peak device memory, the profiler window's device
              time split into scan, sort and the rest; search_dense against
-             dense_scores + stable_topk
+             dense_scores + stable_topk. Every engine runs the native
+             featurizer (printed; the Python route fails the phase)
   7 batched_slice  the batched fused query on phase 4's engine, 256 queries
              as bench.py:_queries draws them, pool 150, k 10, the bench's
              fusion weights: query_fused_batched QPS over 10 reps
@@ -53,7 +56,8 @@ line, and nothing is caught and passed over:
              turn; query_fused1 request-response p50/p90 at B=1; every
              batched row against query_fused of its query (near-tie swaps
              within 1e-3 only); no kernel launch (the engine does not route
-             through stage A); a profiler window; peak device memory
+             through stage A); a profiler window; peak device memory; the
+             native featurizer, as in phase 6
   8 stage_a  the fused stage-A kernel as bench.py's stage-A section drives
              it: phase 4's bf16 corpus (98 tiles of 2048 rows, the tail
              masked), eager BM25, B=32 with per-query term ids, pool 150.
@@ -91,6 +95,22 @@ line, and nothing is caught and passed over:
              query_fused_batched with snippets at B=32, the review pass alone
              (profiler and CUDA events, B=1 and 32, with its bytes bound), and
              the device segment max against numpy on 3 queries (1e-5)
+ 12 serve    both HTTP front ends on phase 4's engine. The stdlib server
+             (serve/api.py, micro-batcher): /healthz, /readyz after warmup,
+             /debug/info, /metrics; 256 /search requests without qvec (the
+             server encodes: 12 attention launches each) from 32 closed-loop
+             clients, bench.py's queries and fusion weights, k=10: requests/s,
+             p50/p90/p99, windows and riders per window, every answer against
+             query_fused of its query (near-tie swaps within 1e-3 only); 16
+             concurrent rerank riders (phase 10's) in fewer than 16 windows,
+             each against run_search; /search_batch of 32 against
+             query_fused_batched; /eval of 10 judged queries against IRMetrics
+             in process; /debug/trace (its CUDA kernels hold attention); 16
+             requests one at a time. Then the native front end
+             (serve/native_server.py): the same 256 requests and 16 one at a
+             time, whose results and snippets must equal the stdlib server's
+             (under load, where windows differ, phase 7's allowance). Host
+             featurize time per query, Python and native, unseen then repeat
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -163,6 +183,9 @@ SMALL_DOCS, SMALL_TEXT_CHARS, SMALL_QUERIES = 4096, 600, 10
 RIDERS, COAL_REPS = 16, 3
 # phase 11: the review table
 N_REVIEWS, SNIP_TOL, SNIP_CHECK_QUERIES = 1_000_000, 1e-5, 3
+# phase 12: the HTTP front ends, 256 closed-loop requests from 32 clients
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_SEQUENTIAL, EVAL_QUERIES, TRACE_N = 256, 32, 16, 10, 8
+SERVE_KNOBS = dict(zip(RERANK_KNOBS, BENCH_W))  # the bench's fusion weights as /search knobs
 
 
 def emit(obj) -> None:
@@ -196,13 +219,26 @@ def phase_device(torch):
 
 
 def phase_build():
-    from review_recommender_tpu_torch import kernels
+    from concurrent.futures import ThreadPoolExecutor
 
-    path = kernels.build(force=True)  # from the checkout's sources, every run
+    from review_recommender_tpu_torch import kernels, native
+
+    # from the checkout's sources, every run: the host library (featurizer,
+    # HTTP front end) with g++ while nvcc builds the kernels
+    with ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(native.build, True)
+        path = kernels.build(force=True)
+        npath = host_lib.result()
+    native_s = native.build_info["seconds"]  # a later cached build() resets it
     kernels.load()
     emit({"phase": "build", "library": str(path.relative_to(kernels.PKG_DIR.parent)),
           "seconds": kernels.build_info["seconds"], "cached": kernels.build_info["cached"],
           "flags": kernels.NVCC_FLAGS})
+    check(native.native_server_available(), "build", "native library lacks the server")
+    gxx = _run([native.CXX, "--version"]).splitlines()
+    emit({"phase": "build_native", "library": str(npath.relative_to(kernels.PKG_DIR.parent)),
+          "seconds": native_s, "flags": native.CXX_FLAGS,
+          "compiler": gxx[0] if gxx else ""})
 
 
 def _attn_inputs(torch, seed, b, s, h, d):
@@ -814,8 +850,10 @@ def phase_bm25_slice(torch, engine_a):
         cross = _bm25_crosscheck(torch, engine, queries[1:3], bundle)
         kname = "bm25_unpacked" if bundle == "c_unpackable" else "bm25_packed"
         max_err[kname] = max([max_err[kname]] + [r["max_abs_err"] for r in cross])
+        check(engine.featurizer.route == "native", "bm25_slice",
+              f"{bundle}: the {engine.featurizer.route} featurizer ran")
         emit({"phase": "bm25_slice", "bundle": bundle, "queries": N_QUERIES, "k": K,
-              "setup_s": setup_s, "p50_ms": float(np.percentile(lat, 50)),
+              "featurizer": engine.featurizer.route, "setup_s": setup_s, "p50_ms": float(np.percentile(lat, 50)),
               "p90_ms": float(np.percentile(lat, 90)), "mean_ms": float(np.mean(lat)),
               "repeat_p50_ms": float(np.percentile(lat_repeat, 50)),
               "repeat_p90_ms": float(np.percentile(lat_repeat, 90)),
@@ -946,18 +984,19 @@ def _singles(engine, qvecs, qstrings, w):
             for i, q in enumerate(qstrings)]
 
 
-def _against_single(singles, rows, scores):
+def _against_single(singles, rows, scores, phase="batched_slice"):
     """Each batched row against query_fused of its query: scores within
     tests/test_batched.py's allowance, a differing id only at a near tie.
     Returns (max score diff, rank swaps)."""
     diff, swaps = 0.0, 0
     for i, (r1, s1) in enumerate(singles):
-        rb, sb = rows[i].numpy(), scores[i].numpy()
+        rb, sb = np.asarray(rows[i]), np.asarray(scores[i])
+        check(rb.shape == r1.shape, phase, f"query {i}: {rb.shape} rows, expected {r1.shape}")
         d = np.abs(sb - s1)
-        check(bool((d <= SINGLE_ATOL + SINGLE_RTOL * np.abs(s1)).all()), "batched_slice",
+        check(bool((d <= SINGLE_ATOL + SINGLE_RTOL * np.abs(s1)).all()), phase,
               f"query {i}: batched scores {sb} vs single {s1}")
         bad = (rb != r1) & (np.abs(s1 - sb) >= NEAR_TIE)
-        check(not bad.any(), "batched_slice", f"query {i}: ids {rb} vs {r1} beyond near ties")
+        check(not bad.any(), phase, f"query {i}: ids {rb} vs {r1} beyond near ties")
         diff = max(diff, float(d.max()))
         swaps += int((rb != r1).sum())
     return diff, swaps
@@ -969,6 +1008,8 @@ def phase_batched_slice(torch, engine):
 
     qvecs, qterms, qstrings = _bench_queries(BENCH_QUERIES, DIM, VOCAB)
     w = FusionWeights.make(*BENCH_W)
+    check(engine.featurizer.route == "native", "batched_slice",
+          f"the {engine.featurizer.route} featurizer ran")
     torch.cuda.reset_peak_memory_stats()
     # warm-up (bench.py:551-565), then every query once at each batch size:
     # the featurizer then holds every token, and the rows feed the cross-check
@@ -994,7 +1035,7 @@ def phase_batched_slice(torch, engine):
               f"B={b}: rows differ between two passes")
         rows[b] = (r, sc)
         emit({"phase": "batched_slice", "form": "query_fused_batched", "B": b,
-              "queries": BENCH_QUERIES, "pool": POOL, "k": K, "qps": qps, "reps": QPS_REPS,
+              "featurizer": engine.featurizer.route, "queries": BENCH_QUERIES, "pool": POOL, "k": K, "qps": qps, "reps": QPS_REPS,
               "per_batch": _pct(lat)})
     pw_w = [KNOB_SETS[i % len(KNOB_SETS)] for i in range(BENCH_QUERIES)]
     lat, res = _batch_latencies(
@@ -1353,21 +1394,22 @@ def phase_e2e_slice(torch, engine):
     return total
 
 
-def _rider_check(engine, qvecs, qstrings, out):
+def _rider_check(engine, qvecs, qstrings, out, phase="rerank_coalesce"):
     """Each coalesced rider against run_search with its knobs and qvec:
     ids equal up to near-tie swaps (finals within NEAR_TIE), finals within
     FINAL_TOL (the two paths chunk the same pairs differently)."""
-    rows, scores = out[0].numpy(), out[1].numpy()
+    rows, scores = np.asarray(out[0]), np.asarray(out[1])
     worst, swaps = 0.0, 0
     for i, q in enumerate(qstrings):
         host = engine.run_search(q, qvec=qvecs[i], k=K, rerank_k=RERANK_K, **RERANK_KNOBS)[0]
         want = np.array([r["_final"] for r in host])
+        check(len(host) == K and len(rows[i]) == K, phase, f"rider {i}: {len(rows[i])} rows")
         d = np.abs(scores[i] - want)
         same = [engine.products.skus[int(j)] == r["sku"] for j, r in zip(rows[i], host)]
-        check(len(host) == K and all(s or d[j] <= NEAR_TIE for j, s in enumerate(same)),
-              "rerank_coalesce", f"rider {i}: rows differ from run_search beyond a near tie")
+        check(all(s or d[j] <= NEAR_TIE for j, s in enumerate(same)),
+              phase, f"rider {i}: rows differ from run_search beyond a near tie")
         worst, swaps = max(worst, float(d.max())), swaps + same.count(False)
-    check(worst <= FINAL_TOL, "rerank_coalesce", f"riders' _final differs by {worst}")
+    check(worst <= FINAL_TOL, phase, f"riders' _final differs by {worst}")
     return {"riders": len(qstrings), "max_final_diff": worst, "rank_swaps": swaps,
             "near_tie": NEAR_TIE, "tol": FINAL_TOL}
 
@@ -1554,6 +1596,274 @@ def phase_snippets(torch, engine):
           "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
 
 
+def _http(port, method, path, obj=None):
+    """One request to a server on this host: (status, body). An error
+    status is returned for the caller to check, not raised."""
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _ok_json(answer, what):
+    check(answer is not None, "serve", f"{what}: no answer")
+    code, body = answer
+    check(code == 200, "serve", f"{what}: HTTP {code} {body[:300]!r}")
+    return json.loads(body)
+
+
+def _concurrent(port, payloads, clients):
+    """`clients` threads in a closed loop: each sends the next payload to
+    /search when its previous answer has arrived. Returns (answers in
+    payload order, latencies ms, wall s)."""
+    import threading
+
+    answers, lat = [None] * len(payloads), [0.0] * len(payloads)
+    order, lock = iter(range(len(payloads))), threading.Lock()
+    start = threading.Barrier(clients)
+
+    def client():
+        start.wait()
+        while True:
+            with lock:
+                i = next(order, None)
+            if i is None:
+                return
+            t0 = time.perf_counter()
+            answers[i] = _http(port, "POST", "/search", payloads[i])
+            lat[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "serve", "a client did not finish")
+    return [_ok_json(a, f"/search {i}") for i, a in enumerate(answers)], lat, wall
+
+
+def _served(outs, sku_row):
+    """Answers -> (row ids (n, K), finals (n, K))."""
+    for i, o in enumerate(outs):
+        check(len(o["results"]) == K, "serve", f"answer {i}: {len(o['results'])} rows")
+    return (np.array([[sku_row[r["sku"]] for r in o["results"]] for o in outs], np.int64),
+            np.array([[r["_final"] for r in o["results"]] for o in outs], np.float32))
+
+
+def _load_run(front, port, payloads, windows, check_against, sku_row):
+    """Step 2 on one front end: the payloads from SERVE_CLIENTS closed-loop
+    clients, each answer checked against query_fused of its query; windows()
+    reads the front end's (windows, riders) counters."""
+    from review_recommender_tpu_torch.ops import attention as A
+
+    w0, r0 = windows()
+    before = A.mha_kernel_launches
+    outs, lat, wall = _concurrent(port, payloads, SERVE_CLIENTS)
+    launches = A.mha_kernel_launches - before
+    w1, r1 = windows()
+    rows, finals = _served(outs, sku_row)
+    diff, swaps = _against_single(check_against, rows, finals, phase="serve")
+    row = {"front_end": front, "requests": len(payloads), "clients": SERVE_CLIENTS,
+           "requests_per_s": len(payloads) / wall, **_pct(lat),
+           "p99_ms": float(np.percentile(lat, 99)), "windows": w1 - w0,
+           "riders_per_window": (r1 - r0) / max(w1 - w0, 1), "attention_launches": launches,
+           "expected_launches": 12 * len(payloads),
+           "vs_query_fused": {"max_score_diff": diff, "rank_swaps": swaps}}
+    emit({"phase": "serve", "step": "load", **row})
+    check(launches == 12 * len(payloads) and r1 - r0 == len(payloads), "serve",
+          f"{front}: {launches} attention launches, {r1 - r0} riders for {len(payloads)} requests")
+    return outs, launches
+
+
+def _sequential(port, payloads):
+    """One request at a time: every window holds one rider."""
+    return [_ok_json(_http(port, "POST", "/search", p), f"sequential /search {i}")
+            for i, p in enumerate(payloads)]
+
+
+def _featurize_times(products, queries):
+    """Host featurize time per query (us), Python and native routes, each
+    on a fresh featurizer: unseen queries first, then the same again."""
+    from review_recommender_tpu_torch.config import config
+    from review_recommender_tpu_torch.engine.featurize import QueryFeaturizer
+
+    out, packed = {}, {}
+    for route in ("python", "native"):
+        f = QueryFeaturizer(products, query_terms_cap=config.QUERY_TERMS_CAP,
+                            native=route == "native")
+        check(f.route == route, "serve", f"featurizer route {f.route}")
+        for pass_ in ("unseen", "repeat"):
+            t0 = time.perf_counter()
+            rows = [f.featurize_packed(q) for q in queries]
+            out[f"{route}_{pass_}_us"] = (time.perf_counter() - t0) * 1e6 / len(queries)
+        packed[route] = np.stack(rows)
+    check(packed["python"].tobytes() == packed["native"].tobytes(), "serve",
+          "the native featurizer's rows differ from the Python route's")
+    return out
+
+
+def phase_serve(torch, engine, qvecs):
+    """Both HTTP front ends on phase 4's engine: the stdlib server with the
+    micro-batcher, then the C++ epoll front end. Returns the attention
+    launches of the served traffic (the in-process checks excluded)."""
+    import threading
+
+    from review_recommender_tpu_torch.ops import attention as A
+    from review_recommender_tpu_torch.ops.fusion import FusionWeights
+    from review_recommender_tpu_torch.serve.api import serve
+    from review_recommender_tpu_torch.serve.native_server import serve_native
+    from review_recommender_tpu_torch.evals.metrics import IRMetrics
+    from review_recommender_tpu_torch.utils.profiling import TRACE_FILE
+
+    _qv, _qt, qstrings = _bench_queries(BENCH_QUERIES, DIM, VOCAB)
+    sku_row = {sku: i for i, sku in enumerate(engine.products.skus)}
+    payloads = [{"query": q, "k": K, "rerank_k": 0, **SERVE_KNOBS}
+                for q in qstrings[:SERVE_REQUESTS]]
+    served = 0
+
+    # 1. start, health, readiness (after warmup), info, metrics
+    t0 = time.perf_counter()
+    srv = serve(engine, host="127.0.0.1", port=0)
+    warm_s = time.perf_counter() - t0
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    port, batcher = srv.server_address[1], srv.service.batcher
+    check(_ok_json(_http(port, "GET", "/healthz"), "/healthz") == {"status": "ok"}, "serve",
+          "/healthz")
+    check(_ok_json(_http(port, "GET", "/readyz"), "/readyz") == {"ready": True}, "serve",
+          "/readyz")
+    info = _ok_json(_http(port, "GET", "/debug/info"), "/debug/info")
+    check(info["n_docs"] == N_DOCS and info["microbatch"] is not None, "serve", f"info {info}")
+    code, metrics = _http(port, "GET", "/metrics")
+    check(code == 200 and b"rrt_ready 1" in metrics, "serve", "/metrics")
+    emit({"phase": "serve", "step": "start", "front_end": "stdlib", "warmup_s": warm_s,
+          "info": {k: info[k] for k in ("n_docs", "dim", "gate_mode", "emb_dtype", "microbatch")}})
+
+    # 2. 256 requests without qvec from 32 closed-loop clients (the
+    # references first: launches of the checks are not counted)
+    encoded = np.stack([engine.encode_query(q) for q in qstrings[:SERVE_REQUESTS]])
+    w = FusionWeights.make(*BENCH_W)
+    singles = _singles(engine, encoded, qstrings[:SERVE_REQUESTS], w)
+    _zero_counts()
+    std_outs, n = _load_run("stdlib", port, payloads,
+                            lambda: (batcher.batches, batcher.coalesced), singles, sku_row)
+    served += n
+
+    # 3. 16 concurrent rerank riders (phase 10's texts, vectors and weights)
+    riders = [{"query": q, "qvec": qvecs[i].tolist(), "k": K, "rerank_k": RERANK_K,
+               **RERANK_KNOBS} for i, q in enumerate(qstrings[:RIDERS])]
+    w0, before = batcher.batches, A.mha_kernel_launches
+    outs, lat, wall = _concurrent(port, riders, RIDERS)
+    launches, windows = A.mha_kernel_launches - before, batcher.batches - w0
+    served += launches
+    rows, finals = _served(outs, sku_row)
+    rider = _rider_check(engine, qvecs[:RIDERS], qstrings[:RIDERS], (rows, finals), "serve")
+    emit({"phase": "serve", "step": "rerank", "riders": RIDERS, "rerank_k": RERANK_K,
+          "windows": windows, "wall_ms": wall * 1e3, **_pct(lat),
+          "attention_launches": launches, "rider_check": rider})
+    check(windows < RIDERS and launches > 0, "serve",
+          f"{RIDERS} rerank riders took {windows} windows, {launches} attention launches")
+
+    # 4. /search_batch of 32 queries, /eval of 10 judged queries
+    batch_q = qstrings[:BATCHES[0]]
+    before = A.mha_kernel_launches
+    got = _ok_json(_http(port, "POST", "/search_batch",
+                         {"queries": batch_q, "k": K, **SERVE_KNOBS}), "/search_batch")
+    served += A.mha_kernel_launches - before
+    check(got["batch"] == len(batch_q), "serve", f"/search_batch answered {got['batch']}")
+    ref_r, ref_s = engine.query_fused_batched(engine.query_encoder.encode(batch_q), batch_q, w,
+                                              POOL, K)
+    ref = list(zip(ref_r.cpu().numpy(), ref_s.cpu().numpy()))
+    b_rows, b_finals = _served([{"results": r} for r in got["results"]], sku_row)
+    b_diff, b_swaps = _against_single(ref, b_rows, b_finals, phase="serve")
+    judged_q = qstrings[BATCHES[0]:BATCHES[0] + EVAL_QUERIES]
+    lists = [[r["sku"] for r in engine.run_search(q, k=K, rerank_k=0)[0]] for q in judged_q]
+    rng = np.random.default_rng(12)
+    judged = [{"id": f"q{i}", "query": q,
+               "relevant_skus": [lists[i][1], lists[i][4], engine.products.skus[
+                   int(rng.integers(N_DOCS))]]} for i, q in enumerate(judged_q)]
+    before = A.mha_kernel_launches
+    ev = _ok_json(_http(port, "POST", "/eval", {"queries": judged, "k": K, "rerank_k": 0}),
+                  "/eval")
+    served += A.mha_kernel_launches - before
+    mine = IRMetrics()
+    for j, ranked in zip(judged, lists):
+        mine.evaluate_query(j["id"], ranked, set(j["relevant_skus"]))
+    want = mine.aggregate_metrics()
+    eval_diff = max(abs(ev["aggregate"][k] - v) for k, v in want.items())
+    emit({"phase": "serve", "step": "batch_and_eval", "search_batch": len(batch_q),
+          "vs_query_fused_batched": {"max_score_diff": b_diff, "rank_swaps": b_swaps},
+          "eval_queries": EVAL_QUERIES, "eval_aggregate": ev["aggregate"],
+          "eval_max_diff_vs_in_process": eval_diff})
+    check(list(ev["aggregate"]) == list(want) and eval_diff <= 1e-12, "serve",
+          f"/eval {ev['aggregate']} vs in-process {want}")
+
+    # 5. /debug/trace: a Chrome trace whose CUDA kernels include attention
+    before = A.mha_kernel_launches
+    tr = _ok_json(_http(port, "POST", "/debug/trace",
+                        {"query": qstrings[0], "n": TRACE_N, "k": K, "rerank_k": 0}),
+                  "/debug/trace")
+    served += A.mha_kernel_launches - before
+    path = f"{tr['log_dir']}/{TRACE_FILE}"
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    attn = sum("mha_fwd_kernel" in k for k in kernels)
+    emit({"phase": "serve", "step": "trace", "trace": path, "queries": TRACE_N,
+          "ms_per_query": tr["ms_per_query"], "cuda_kernels": len(kernels),
+          "attention_kernels": attn})
+    check(attn > 0, "serve", f"the trace's {len(kernels)} CUDA kernels hold no attention kernel")
+
+    sequential = [dict(p, qvec=qvecs[i].tolist()) for i, p in enumerate(payloads[:SERVE_SEQUENTIAL])]
+    std_seq = _sequential(port, sequential)
+    srv.shutdown()
+    srv.server_close()
+    srv.service.close()
+
+    # 6. the same through the native front end
+    t0 = time.perf_counter()
+    nat = serve_native(engine, host="127.0.0.1", port=0)
+    warm_s = time.perf_counter() - t0
+    try:
+        check(_ok_json(_http(nat.port, "GET", "/readyz"), "/readyz") == {"ready": True},
+              "serve", "native /readyz")
+        emit({"phase": "serve", "step": "start", "front_end": "native", "warmup_s": warm_s})
+        bs = nat.batch_stats
+        nat_outs, n = _load_run("native", nat.port, payloads, lambda: (bs.batches, bs.coalesced),
+                                singles, sku_row)
+        served += n
+        nat_seq = _sequential(nat.port, sequential)
+        stats = nat.stats()
+    finally:
+        nat.close()
+    same = lambda a, b: (a["results"], a["snippets"]) == (b["results"], b["snippets"])
+    seq_equal = sum(same(a, b) for a, b in zip(nat_seq, std_seq))
+    load_equal = sum(same(a, b) for a, b in zip(nat_outs, std_outs))
+    n_rows, n_fin = _served(nat_outs, sku_row)
+    s_rows, s_fin = _served(std_outs, sku_row)
+    diff, swaps = _against_single(list(zip(s_rows, s_fin)), n_rows, n_fin, phase="serve")
+    emit({"phase": "serve", "step": "native_vs_stdlib", "native_stats": stats,
+          "sequential_equal": seq_equal, "sequential": len(sequential),
+          "load_equal": load_equal, "load": len(payloads),
+          "load_max_score_diff": diff, "load_rank_swaps": swaps,
+          "what": "results and snippets of each answer; one at a time both front ends run "
+                  "windows of one rider, under load the windows differ"})
+    check(seq_equal == len(sequential), "serve",
+          f"native answers equal the stdlib's for {seq_equal} of {len(sequential)} requests")
+
+    # 7. host featurize time per query, both routes
+    emit({"phase": "serve", "step": "featurize", "queries": SERVE_REQUESTS,
+          **_featurize_times(engine.products, qstrings[:SERVE_REQUESTS])})
+    return served
+
+
 def main() -> int:
     import torch
 
@@ -1582,6 +1892,7 @@ def main() -> int:
         launches += phase_e2e_slice(torch, engine)
         launches += phase_rerank_coalesce(torch, engine, qvecs)
         phase_snippets(torch, engine)
+        launches += phase_serve(torch, engine, qvecs)
     except PhaseError as exc:
         emit({"phase": "failed", "error": str(exc)})
         return 3

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time one checkout's attention, BM25 or stage-A kernels
-(review_recommender_tpu_torch) on one NVIDIA GPU, for an A/B of two versions
-on the same card.
+"""Time one checkout's attention, BM25 or stage-A kernels, or its host
+featurizer on the engine paths (review_recommender_tpu_torch), on one NVIDIA
+GPU, for an A/B of two versions on the same card.
 
-    python3 examples/torch_attention_ab.py [ROOT] [--tag NAME] [--kernel attention|bm25|stage_a]
+    python3 examples/torch_attention_ab.py [ROOT] [--tag NAME]
+        [--kernel attention|bm25|stage_a|featurize]
 
 ROOT is the root of a checkout (default: this one). Its port is imported
 from there and its kernels are built there, so two checkouts can be timed
@@ -29,6 +30,14 @@ MB fill that flushes the 50 MB L2.
 one 200,704 x 384 bf16 corpus of unit rows drawn on the card from a seeded
 torch.Generator (3% of rows invalid), at B = 1, 8, 32 and 128 seeded unit
 queries, one JSON line each: device_ms and cold_l2_ms as above.
+
+--kernel featurize: chip_smoke.py's phase 4 corpus (200k products, D=384)
+in an engine with ROOT's default featurizer (the Python route before the
+native one existed), no towers. Phase 4's 100 queries featurized first (its
+run_search), then phase 6's measure on the eager bundle: search_bm25 over
+100 unseen queries, then the same 100 again (p50, p90 of each pass); then
+phase 7's: query_fused_batched QPS over 10 passes of 256 queries at B=32
+and B=128, after one pass at each B. One JSON line each, with the route.
 
 The first line has the card's name and power limit.
 """
@@ -153,11 +162,44 @@ def _stage_a(torch, tag: str) -> None:
               flush=True)
 
 
+def _featurize(torch, tag: str) -> None:
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.build import synth_product_index
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+    from review_recommender_tpu_torch.ops.fusion import FusionWeights
+
+    cs = _own_chip_smoke()
+    products = synth_product_index(cs.N_DOCS, cs.DIM, cs.VOCAB, cs.TERMS, seed=0,
+                                   text_chars=cs.TEXT_CHARS)
+    engine = SearchEngine(IndexBundle(products=products), device="cuda")
+    route = getattr(engine.featurizer, "route", "python")
+    for q in cs._queries(cs.N_QUERIES, cs.DIM, cs.VOCAB):  # phase 4's run_search
+        engine.featurizer.featurize(q)
+    engine.search_bm25(cs._queries(1, cs.DIM, cs.VOCAB)[0], cs.K)  # phase 6's warm-up
+    torch.cuda.synchronize()
+    queries = cs._queries(cs.N_QUERIES, cs.DIM, cs.VOCAB, seed=43)
+    for pass_ in ("unseen", "repeat"):
+        lat = cs._bm25_pass(engine, queries, "a_eager", products.n_padded)
+        print(json.dumps({"tag": tag, "measure": "search_bm25", "pass": pass_, "route": route,
+                          **cs._pct(lat)}), flush=True)
+    qvecs, _qt, qstrings = cs._bench_queries(cs.BENCH_QUERIES, cs.DIM, cs.VOCAB)
+    w = FusionWeights.make(*cs.BENCH_W)
+    engine.query_fused(qvecs[0], qstrings[0], w, cs.POOL, cs.K)[0].cpu()
+    for b in cs.BATCHES:  # phase 7's first pass at each B
+        cs._batch_latencies(lambda lo, hi: engine.query_fused_batched(
+            qvecs[lo:hi], qstrings[lo:hi], w, cs.POOL, cs.K), cs.BENCH_QUERIES, b)
+    for b in cs.BATCHES:
+        qps = cs._batched_qps(engine, qvecs, qstrings, w, b)
+        print(json.dumps({"tag": tag, "measure": "query_fused_batched", "B": b, "route": route,
+                          "qps": qps, "reps": cs.QPS_REPS}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--kernel", choices=("attention", "bm25", "stage_a"), default="attention")
+    ap.add_argument("--kernel", choices=("attention", "bm25", "stage_a", "featurize"),
+                    default="attention")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -177,7 +219,8 @@ def main() -> int:
     kernels.build()
     print(json.dumps({"tag": args.tag, "root": str(root), "card": smi, "kernel": args.kernel}),
           flush=True)
-    {"attention": _attention, "bm25": _bm25, "stage_a": _stage_a}[args.kernel](torch, args.tag)
+    {"attention": _attention, "bm25": _bm25, "stage_a": _stage_a,
+     "featurize": _featurize}[args.kernel](torch, args.tag)
     return 0
 
 

@@ -18,6 +18,11 @@ names mirror the JAX package so each counterpart is easy to find:
     engine        featurizer, host hooks, snippet recovery, SearchEngine:
                   run_search, the fused and batched forms, query_e2e,
                   query_rerank_batched_pw, search_bm25 and search_dense
+    native        the C++ host library (query featurizer, epoll HTTP
+                  front end), built with g++ on first use, bound by ctypes
+    serve         the HTTP API: stdlib server with the micro-batcher, the
+                  native front end, the web page
+    evals         IR metrics of the /eval route
 
 The package imports torch, numpy and the standard library, and nothing of
 the JAX package, jax, flax, pandas or pyarrow. Its entry points

@@ -3,9 +3,10 @@
 The same variable names and defaults as the JAX package's config
 (`review_recommender_tpu/config.py`), limited to what the engine reads:
 embedding dtype, gate and dense-pool modes, the query-term cap, the
-feature flags, the least candidate pool and the search defaults. Each
-knob is read once, when this module is imported; tests patch the
-`config` singleton.
+feature flags, the least candidate pool, the search defaults, and the
+server's address, log path, environment and micro-batch knobs. Each knob
+is read once, when this module is imported; tests patch the `config`
+singleton.
 """
 from __future__ import annotations
 
@@ -25,6 +26,13 @@ def _env_float(name: str, default: str) -> float:
 
 
 class Config:
+    # "production" disables /debug/trace unless ENABLE_DEBUG_TRACE=true
+    ENVIRONMENT = os.getenv("ENVIRONMENT", "development")
+    APP_HOST = os.getenv("APP_HOST", "0.0.0.0")
+    APP_PORT = _env_int("APP_PORT", "8501")
+    # /debug/trace writes under this file's directory
+    LOG_FILE = os.getenv("LOG_FILE", "logs/app.log")
+
     # device dtype of the corpus embedding matrix
     EMB_DTYPE = os.getenv("EMB_DTYPE", "bfloat16")
     # "device" (term-membership gate, no host sync) or "host" (exact
@@ -41,6 +49,8 @@ class Config:
     ENABLE_BM25 = _env_bool("ENABLE_BM25", "true")
     ENABLE_RERANKING = _env_bool("ENABLE_RERANKING", "true")
     ENABLE_SNIPPETS = _env_bool("ENABLE_SNIPPETS", "true")
+    # the web page's Metrics tab and POST /eval
+    ENABLE_METRICS_TAB = _env_bool("ENABLE_METRICS_TAB", "true")
 
     # the snippet scan's row cap of run_search(max_scan=-1) (the exact host
     # path); the default device path scores every review
@@ -58,6 +68,21 @@ class Config:
     DEFAULT_W_BEST = _env_float("DEFAULT_W_BEST", "0.10")
     DEFAULT_GATE_PENALTY = _env_float("DEFAULT_GATE_PENALTY", "0.5")
     DEFAULT_PRIOR_C = _env_float("DEFAULT_PRIOR_C", "20.0")
+
+    # cross-request micro-batching (serve/api.py:MicroBatcher): concurrent
+    # /search requests within the window share one batched pass
+    ENABLE_MICROBATCH = _env_bool("ENABLE_MICROBATCH", "true")
+    # the CLI's switch to the C++ epoll front end (serve/native_server.py);
+    # the port's CLI waits for the bundle loader (ROADMAP Queue 1 item 15)
+    SERVE_NATIVE = _env_bool("SERVE_NATIVE", "false")
+    MICROBATCH_WINDOW_MS = _env_float("MICROBATCH_WINDOW_MS", "2.0")
+    MICROBATCH_MAX = _env_int("MICROBATCH_MAX", "128")
+    # per-rider wait bound on the coalesced path
+    MICROBATCH_TIMEOUT_S = _env_float("MICROBATCH_TIMEOUT_S", "180.0")
+
+    @classmethod
+    def is_production(cls) -> bool:
+        return cls.ENVIRONMENT.lower() == "production"
 
     @classmethod
     def resolve_pool_mode(cls, mode: str, n_padded: int) -> str:

@@ -2,11 +2,20 @@
 
 A jax-free copy of `review_recommender_tpu/engine/featurize.py:35-221`
 (`QueryFeatures`, `packed_len`, `QueryFeaturizer` with `featurize_packed`
-and `featurize_packed_batch`) on the Python path only: the JAX package's
-C++ featurizer is bound through its own package, which the port does not
-import; the port's own binding of those sources is ROADMAP Queue 1 item
-16. `unpack_features` is the torch counterpart of the device-side inverse
-of `QueryFeatures.pack`.
+and `featurize_packed_batch`). Two routes, chosen by the caller:
+
+  native (default)  the port's C++ featurizer (native/featurizer.cc, its
+                    own copy of the JAX package's source): one FFI crossing
+                    per query or per batch, and the trigram-index probe for
+                    the gate's vocabulary expansion
+  python            `featurize` + `QueryFeatures.pack`, the plain version
+
+As in the JAX package, the native route hands a non-ASCII query, or any
+query while ENABLE_BM25 is off, to the Python code (the handle bakes idf
+in, and a byte scanner cannot see what Unicode lowercasing makes). The
+library builds or the constructor raises: nothing falls back to the
+Python route. `unpack_features` is the torch counterpart of the
+device-side inverse of `QueryFeatures.pack`.
 """
 from __future__ import annotations
 
@@ -77,7 +86,7 @@ def unpack_features(packed: torch.Tensor, query_terms_cap: int, gate_terms_cap: 
 
 class QueryFeaturizer:
     def __init__(self, index: ProductIndex, query_terms_cap: int = 32,
-                 gate_terms_cap: int = 64):
+                 gate_terms_cap: int = 64, native: bool = True):
         self.index = index
         self.query_terms_cap = query_terms_cap
         self.gate_terms_cap = gate_terms_cap
@@ -88,6 +97,27 @@ class QueryFeaturizer:
         terms = sorted(index.vocab.items(), key=lambda kv: kv[1])
         self._vocab_terms = np.array([t for t, _ in terms], dtype=np.str_)
         self._vocab_ids = np.array([i for _, i in terms], dtype=np.int32)
+        self._native = None
+        self._vocab_blob = None
+        if native:
+            from review_recommender_tpu_torch.native import NativeQueryFeaturizer
+
+            # the blob's line i is term id i + 1: the ids must be 1..V
+            if not np.array_equal(self._vocab_ids, np.arange(1, len(terms) + 1)):
+                raise ValueError("the native featurizer needs vocabulary ids 1..V in order")
+            self._vocab_blob = ("\n".join(t for t, _ in terms) + "\n").encode()
+            nat = NativeQueryFeaturizer(self._vocab_blob, index.df, index.idf,
+                                        query_terms_cap, gate_terms_cap)
+            want = packed_len(query_terms_cap, gate_terms_cap)
+            if nat.packed_len != want:
+                raise RuntimeError(f"native featurizer packs {nat.packed_len} floats a query, "
+                                   f"the Python route {want}")
+            self._native = nat
+
+    @property
+    def route(self) -> str:
+        """"native" or "python": which featurizer this instance runs."""
+        return "python" if self._native is None else "native"
 
     def _expand_token(self, token: str) -> np.ndarray:
         """Vocabulary ids whose term contains `token`, most frequent (by
@@ -97,13 +127,20 @@ class QueryFeaturizer:
             return hit
         if len(self._vocab_terms) == 0:
             return np.zeros(0, np.int32)
-        hits = np.char.find(self._vocab_terms, token) >= 0
-        ids = self._vocab_ids[hits]
-        if len(ids) > self.gate_terms_cap:
-            dfs = self.index.df[ids]
-            order = np.argsort(-dfs, kind="stable")[: self.gate_terms_cap]
-            ids = ids[order]
-        ids = ids.astype(np.int32)
+        if self._native is not None and token.isascii():
+            ids = self._native.expand_token(token)  # trigram probe, already df-capped
+        else:
+            if self._native is not None:
+                from review_recommender_tpu_torch.native import substring_scan_native
+
+                ids = substring_scan_native(self._vocab_blob, token)
+            else:
+                ids = self._vocab_ids[np.char.find(self._vocab_terms, token) >= 0]
+            if len(ids) > self.gate_terms_cap:
+                dfs = self.index.df[ids]
+                order = np.argsort(-dfs, kind="stable")[: self.gate_terms_cap]
+                ids = ids[order]
+            ids = ids.astype(np.int32)
         if len(self._expand_cache) >= self._expand_cache_cap:
             self._expand_cache.clear()
         self._expand_cache[token] = ids
@@ -111,10 +148,16 @@ class QueryFeaturizer:
 
     def featurize_packed(self, query: str) -> np.ndarray:
         """Query string -> the packed (packed_len,) f32 feature buffer."""
+        if self._native is not None and query.isascii() and config.ENABLE_BM25:
+            return self._native.featurize_packed(query)
         return self.featurize(query).pack()
 
     def featurize_packed_batch(self, queries) -> np.ndarray:
-        """Batch of queries -> (B, packed_len) f32."""
+        """Batch of queries -> (B, packed_len) f32, one FFI crossing on the
+        native route."""
+        if (self._native is not None and config.ENABLE_BM25
+                and all(q.isascii() for q in queries)):
+            return self._native.featurize_packed_batch(queries)
         return np.stack([self.featurize_packed(q) for q in queries])
 
     def featurize(self, query: str) -> QueryFeatures:

@@ -55,6 +55,9 @@ package's CPU branches (plain eager scan or plain classic scan). Unlike the
 JAX package, the port does not read USE_PALLAS: on CUDA the kernels are
 the path.
 
+The host featurizer is the port's C++ one (engine/featurize.py) unless the
+caller passes featurizer="python", the plain version.
+
 Not ported yet, and refused with NotImplementedError rather than run some
 other way: the IVF pool (ROADMAP Queue 1 item 10) and the int8 corpus
 (item 11).
@@ -183,8 +186,11 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
         cross_encoder: Optional[Callable[[str, List[str]], np.ndarray]] = None,
         gate_mode: Optional[str] = None,
         dense_pool: Optional[str] = None,
+        featurizer: str = "native",
     ):
         self.device = resolve_device(device)
+        if featurizer not in ("native", "python"):
+            raise ValueError(f"featurizer must be 'native' or 'python', got {featurizer!r}")
         if self.device.type == "cuda" and config.QUERY_TERMS_CAP > MAX_QUERY_SLOTS:
             # every query has QUERY_TERMS_CAP slots; the BM25 kernels take
             # at most MAX_QUERY_SLOTS, so refuse here rather than at each query
@@ -231,8 +237,8 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
         self.rev_arrays = (self.reviews.device_arrays(self.device, self.dtype)
                            if self.reviews is not None else None)
         self._build_rev_csr()  # host CSR over reviews, for the snippet texts
-        self.featurizer = QueryFeaturizer(self.products,
-                                          query_terms_cap=config.QUERY_TERMS_CAP)
+        self.featurizer = QueryFeaturizer(self.products, query_terms_cap=config.QUERY_TERMS_CAP,
+                                          native=featurizer == "native")
         self._be = None  # towers of query_e2e (attach_models)
         self._ce = None
 

@@ -17,13 +17,18 @@ to the reference. There is no backward: the towers serve under
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from review_recommender_tpu_torch import kernels
 
 # Launches of the CUDA kernel in this process; a run reads it before and
-# after its main path to show that the path went through the kernel.
+# after its main path to show that the path went through the kernel. A
+# server's handler threads encode concurrently, so the count is bumped
+# under a lock.
 mha_kernel_launches = 0
+_count_lock = threading.Lock()
 
 MAX_SEQ = 512
 HEAD_DIMS = (32, 64, 128)
@@ -100,7 +105,8 @@ def mha_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"mha_fwd kernel launch failed: cudaError {err} "
                            f"at B={b} S={s} H={h} D={d} {q.dtype}")
-    mha_kernel_launches += 1
+    with _count_lock:
+        mha_kernel_launches += 1
     return out
 
 

@@ -1,12 +1,14 @@
-"""Numeric primitives of the fusion, in torch.
+"""Numeric primitives of the fusion, in torch, and the result fetch.
 
 Counterparts of `review_recommender_tpu/utils/numerics.py:45-87`, op for op
-in float32 so the port agrees with the JAX package to float32 rounding.
+in float32 so the port agrees with the JAX package to float32 rounding, and
+of its `device_fetch` (:107-129).
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
+import numpy as np
 import torch
 
 _BIG = 3.4e38
@@ -51,3 +53,23 @@ def trust_score_from_reviews(
     sat = torch.log1p(torch.tensor(float(max(saturation, 1)), dtype=torch.float32))
     satv = torch.clamp(torch.log1p(review_counts) / sat.to(review_counts.device), max=1.0)
     return (0.6 * ramp + 0.4 * satv).to(torch.float32)
+
+
+def device_fetch(*tensors) -> List[np.ndarray]:
+    """Device tensors -> numpy arrays in argument order, with every
+    device->host copy started before the one wait: each CUDA tensor is
+    copied into a pinned host buffer without blocking, then each device's
+    current stream is synchronized once. CPU tensors and other inputs pass
+    through np.asarray."""
+    pending, waits = [], {}
+    for t in tensors:
+        if torch.is_tensor(t) and t.is_cuda:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            waits.setdefault(t.device, torch.cuda.current_stream(t.device))
+            pending.append(host)
+        else:
+            pending.append(t)
+    for stream in waits.values():
+        stream.synchronize()
+    return [t.numpy() if torch.is_tensor(t) else np.asarray(t) for t in pending]

@@ -3,9 +3,10 @@
 A jax-free copy of the parts of `review_recommender_tpu/utils/text.py` that
 the query path calls (the JAX package's `utils/__init__.py` imports its
 numerics module, which loads jax). The copy stays: the port imports nothing
-of the JAX package, whose files this round leaves as they are. Pure-Python
-tokenizer only; a native tokenizer for the port is ROADMAP Queue 1 item 16
-(its own binding of the C++ sources).
+of the JAX package, whose files this round leaves as they are. The query
+featurizer's C++ route (native/featurizer.cc) reads these tables; the
+document tokenizer's native route waits for the index builder (ROADMAP
+Queue 1 item 17).
 """
 from __future__ import annotations
 

@@ -241,6 +241,22 @@ a = eng.arrays
 _d, ids, _b = stage_a.stage_a_fused(a["emb"], a["valid"], a["doc_terms"], a["doc_bm25"], qv,
                                     torch.tensor([[12, 345], [7, 1234]], dtype=torch.int32), 16)
 n.append(ids.numel())
+import threading, urllib.request
+from review_recommender_tpu_torch import native
+from review_recommender_tpu_torch.evals.metrics import IRMetrics
+from review_recommender_tpu_torch.serve.api import serve
+from review_recommender_tpu_torch.serve.native_server import serve_native
+post = lambda port, obj: json.loads(urllib.request.urlopen(urllib.request.Request(
+    f"http://127.0.0.1:{port}/search", data=json.dumps(obj).encode()), timeout=60).read())
+srv = serve(eng, host="127.0.0.1", port=0)
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+n.append(len(post(srv.server_address[1], {"query": "t12 t345", "k": 5, "rerank_k": 4})["results"]))
+srv.shutdown(); srv.service.close()
+nat = serve_native(eng, host="127.0.0.1", port=0)
+n.append(len(post(nat.port, {"query": "t7 t1234", "k": 5, "rerank_k": 0})["results"]))
+nat.close()
+m = IRMetrics(); m.evaluate_query("q", ["S1", "S2"], {"S2"})
+n.append(m.aggregate_metrics()["n_queries"] + int(native.native_server_available()))
 bad = [m for m in ("jax", "flax", "pandas", "pyarrow") if m in sys.modules]
 bad += sorted(m for m in sys.modules
               if m == "review_recommender_tpu" or m.startswith("review_recommender_tpu."))
@@ -255,13 +271,15 @@ def test_port_imports_no_jax_pandas_or_pyarrow():
     (bf16 towers and corpus, both rerank settings, and with snippets on a
     review index), query_e2e at rr_k 0 and 4 on attach_rerank_tokens'
     tokens, query_rerank_batched_pw with 2 riders, search_bm25,
-    query_fused_batched and stage_a_fused without loading jax, flax,
-    pandas, pyarrow or any module of the JAX package, and without a
-    kernel launch."""
+    query_fused_batched and stage_a_fused, then starts the stdlib and the
+    native HTTP servers on that engine (one /search each) and computes IR
+    metrics, without loading jax, flax, pandas, pyarrow or any module of the
+    JAX package, and without a kernel launch."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert res == {"rows": [10, 10, 10, 150, 10, 10, 20, 10, 20, 32], "bad": [], "launches": 0}
+    assert res == {"rows": [10, 10, 10, 150, 10, 10, 20, 10, 20, 32, 5, 5, 2], "bad": [],
+                   "launches": 0}

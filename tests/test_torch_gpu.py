@@ -17,7 +17,9 @@ Stage A: winner scores within 1e-5 (exact bf16/f32 products summed in f32 in
 another order than cuBLAS's); a winner id may differ only where the plain
 version's scores of the two rows are within that tolerance (a near tie);
 rounds past a tile's valid rows are exactly (-3.4e38, 0). A bf16 corpus
-takes the tensor-core kernel, an f32 corpus the CUDA-core one.
+takes the tensor-core kernel, an f32 corpus the CUDA-core one. Serving:
+device_fetch reads CUDA tensors through pinned buffers, and both HTTP
+front ends answer a /search on a small CUDA engine, encoding on the card.
 """
 import numpy as np
 import pytest
@@ -297,6 +299,59 @@ def test_query_e2e_on_cuda_matches_cpu(cuda):
         for i, (a, b) in enumerate(zip(rg.cpu().tolist(), rc.tolist())):
             if a != b:
                 assert abs(sg[i] - sc[i]) <= 2e-2
+
+
+def test_device_fetch_on_cuda(cuda):
+    """device_fetch copies CUDA tensors through pinned buffers and waits
+    once: every value equals a plain .cpu() read, right after a kernel
+    that wrote it."""
+    from review_recommender_tpu_torch.utils.numerics import device_fetch
+
+    a = torch.arange(1 << 20, device=cuda, dtype=torch.float32).mul_(3.0)
+    b = torch.arange(1000, device=cuda).remainder_(7)
+    got_a, got_b, got_c = device_fetch(a, b, np.ones(3))
+    assert got_a.dtype == np.float32 and got_b.dtype == np.int64
+    np.testing.assert_array_equal(got_a, a.cpu().numpy())
+    np.testing.assert_array_equal(got_b, b.cpu().numpy())
+    np.testing.assert_array_equal(got_c, np.ones(3))
+
+
+@pytest.mark.parametrize("front_end", ["stdlib", "native"])
+def test_server_answers_a_search_on_cuda(cuda, front_end):
+    """serve / serve_native on a small CUDA engine: one /search without a
+    query vector encodes on the card (2 attention launches, one per layer)
+    and answers 10 finite, sorted rows."""
+    import json
+    import threading
+    import urllib.request
+
+    from review_recommender_tpu_torch.serve.api import serve
+    from review_recommender_tpu_torch.serve.native_server import serve_native
+
+    eng = _e2e_engine("cuda")
+    if front_end == "stdlib":
+        srv = serve(eng, host="127.0.0.1", port=0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        port = srv.server_address[1]
+    else:
+        srv = serve_native(eng, host="127.0.0.1", port=0)
+        port = srv.port
+    try:
+        before = tatt.mha_kernel_launches
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/search", data=json.dumps(
+            {"query": "t12 t34 t56", "k": 10, "rerank_k": 0}).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            out = json.loads(r.read())
+        assert tatt.mha_kernel_launches == before + 2
+        finals = [row["_final"] for row in out["results"]]
+        assert len(finals) == 10 and all(np.isfinite(finals))
+        assert finals == sorted(finals, reverse=True)
+    finally:
+        if front_end == "stdlib":
+            srv.shutdown()
+            srv.service.close()
+        else:
+            srv.close()
 
 
 def _stage_a_inputs(seed, n, d, b, dtype, device):
