@@ -111,6 +111,23 @@ line, and nothing is caught and passed over:
              time, whose results and snippets must equal the stdlib server's
              (under load, where windows differ, phase 7's allowance). Host
              featurize time per query, Python and native, unseen then repeat
+ 13 offline  the offline path at the quality table's published size:
+             build_corpus(80 themes x 640, 60 judged queries, seed 0) ->
+             BowProjectionEncoder(384, seed 7) -> build_bundle_from_products
+             (native tokenizer, doc_terms_cap 128, pad 256) -> save_bundle
+             (bytes on disk) -> load_bundle, each timed, the reload bit-equal;
+             the bow quality lane on the loaded bundle (host gate, exact pool,
+             idf-weighted overlap rerank, no custom kernel) through
+             run_performance_benchmark, its 12 numbers (nDCG@10, MRR@10,
+             Recall@20 x 4 methods) within 0.01 of the JAX lane's
+             (evals_out/bow/benchmark_results.json, read only), per-method
+             p50 and QPS; the CLI in process on random bge-small / MiniLM-L6
+             towers in bf16: audit, search at rerank_k 50 (exactly 18
+             attention launches, rows equal to run_search), bench, eval of
+             the 60 judged queries (equal to run_performance_benchmark); the
+             CLI as subprocesses: audit, search, and serve on a free port for
+             each front end (/healthz, /readyz, one /search, exit 0 on
+             SIGTERM); phase 4's 200k bundle saved and loaded (seconds, bytes)
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -123,6 +140,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -155,7 +173,7 @@ BM25_SASS_PER_POSTING = {"bm25_packed": 585 / 32, "bm25_unpacked": 485 / 16}
 PEAK_ISSUE_OPS = 132 * 4 * 32 * 1.98e9
 L2_FLUSH_BYTES = 256 << 20  # > the H100's 50 MB L2
 SPIN_CYCLES = 200_000  # ~0.1 ms of device spin: longer than a kernel's host launch
-DEV = "cuda"  # the BM25 phases' device
+DEV = "cuda"  # the device of the BM25 phases and of phase 13
 BM25_SHAPES = [(200_192, 64, 32), (1_000_448, 512, 32)]  # (N, L, Q)
 BM25_REL_TOL = 1e-6  # bitwise expected: integer tf_q sums, each step rounded alone
 BM25_LONG_Q = 128  # slots past one kernel launch's 64: two launches per call
@@ -186,6 +204,13 @@ N_REVIEWS, SNIP_TOL, SNIP_CHECK_QUERIES = 1_000_000, 1e-5, 3
 # phase 12: the HTTP front ends, 256 closed-loop requests from 32 clients
 SERVE_REQUESTS, SERVE_CLIENTS, SERVE_SEQUENTIAL, EVAL_QUERIES, TRACE_N = 256, 32, 16, 10, 8
 SERVE_KNOBS = dict(zip(RERANK_KNOBS, BENCH_W))  # the bench's fusion weights as /search knobs
+# phase 13: the quality table's published size (examples/quality_table.py
+# defaults), its metrics and the JAX lane's numbers they are held to
+QT_THEMES, QT_PER_THEME, QT_QUERIES, QT_SEED = 80, 640, 60, 0
+QT_METRICS, QT_TOL = ("ndcg@10", "mrr", "recall@20"), 0.01
+QT_REFERENCE = "evals_out/bow/benchmark_results.json"  # read, never written
+REPO_DIR = Path(__file__).resolve().parent
+OFFLINE_DIR = REPO_DIR / "build" / "chip_smoke_offline"
 
 
 def emit(obj) -> None:
@@ -1864,6 +1889,261 @@ def phase_serve(torch, engine, qvecs):
     return served
 
 
+def _bundle_diffs(a, b) -> list:
+    """Fields of two bundles that differ: arrays bit for bit (dtype and
+    shape included), host columns by equality."""
+    out = []
+    for name, x, y in (("products", a.products, b.products), ("reviews", a.reviews, b.reviews)):
+        if x is None or y is None:
+            out += [] if x is None and y is None else [name]
+            continue
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if isinstance(u, np.ndarray) or isinstance(v, np.ndarray):
+                same = (isinstance(u, np.ndarray) and isinstance(v, np.ndarray)
+                        and u.dtype == v.dtype and u.shape == v.shape
+                        and np.array_equal(u, v, equal_nan=u.dtype.kind == "f"))
+            elif f.name in ("agg_texts", "rev_texts"):
+                same = len(u) == len(v) and all(str(p) == str(q) for p, q in zip(u, v))
+            else:
+                same = u == v
+            if not same:
+                out.append(f"{name}.{f.name}")
+    return out
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in path.iterdir())
+
+
+def _cli(argv):
+    """cli.main(argv) in process: (exit code, what it printed)."""
+    import contextlib
+    import io
+
+    from review_recommender_tpu_torch.serve import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    return code, buf.getvalue()
+
+
+def _cli_process(args, timeout=600):
+    """`python -m review_recommender_tpu_torch.serve.cli ARGS` from the repo
+    root, run to its end: (exit code, stdout, stderr)."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(REPO_DIR), "LOG_FILE": str(OFFLINE_DIR / "app.log")}
+    proc = subprocess.run([sys.executable, "-m", "review_recommender_tpu_torch.serve.cli", *args],
+                          cwd=REPO_DIR, env=env, capture_output=True, text=True, timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def _serve_process(index_dir, native: bool, query: str) -> dict:
+    """`serve` in a subprocess on a free port: /healthz, /readyz (polled
+    until 200), one /search, then SIGTERM; it must exit 0."""
+    import os
+    import signal
+    import threading
+
+    env = {**os.environ, "PYTHONPATH": str(REPO_DIR), "LOG_FILE": str(OFFLINE_DIR / "app.log")}
+    cmd = [sys.executable, "-m", "review_recommender_tpu_torch.serve.cli", "serve",
+           "--index-dir", str(index_dir), "--host", "127.0.0.1", "--port", "0", "--device", DEV]
+    front = "native" if native else "stdlib"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd + (["--native"] if native else []), cwd=REPO_DIR, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    watchdog = threading.Timer(600, proc.kill)  # a hung start ends the read below
+    watchdog.start()
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("serving on http://127.0.0.1:"):
+            proc.kill()
+            raise PhaseError(f"offline_serve {front}: no 'serving on' line ({line!r}): "
+                             f"{proc.stderr.read()[-1500:]}")
+        port = int(line.split(":")[2].split()[0])
+        bound_s = time.perf_counter() - t0
+        health = _http(port, "GET", "/healthz")[0]
+        check(health == 200, "offline_serve", f"{front} /healthz {health}")
+        deadline = time.time() + 300
+        while _http(port, "GET", "/readyz")[0] != 200:
+            check(time.time() < deadline, "offline_serve", f"{front} not ready after 300 s")
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        code, body = _http(port, "POST", "/search", {"query": query, "k": K, "rerank_k": 0})
+        check(code == 200, "offline_serve", f"{front} /search HTTP {code} {body[:300]!r}")
+        _check_rows(json.loads(body)["results"], "offline_serve")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, "offline_serve", f"{front} exited {rc} after SIGTERM: "
+                                        f"{proc.stderr.read()[-1500:]}")
+        return {"front_end": front, "port": port, "bound_s": bound_s, "ready_s": ready_s,
+                "healthz": health, "readyz": 200, "search_rows": K, "exit_code": rc}
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+def _round_trip(bundle, out_dir, phase):
+    """save_bundle then load_bundle (checksums verified): seconds, bytes on
+    disk, and the fields that differ (none expected)."""
+    from review_recommender_tpu_torch.index.io import load_bundle, save_bundle
+
+    t0 = time.perf_counter()
+    save_bundle(bundle, out_dir)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_bundle(out_dir)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_bundle(out_dir, verify_checksums=True)
+    verified_load_s = time.perf_counter() - t0
+    diffs = _bundle_diffs(bundle, loaded)
+    check(not diffs, phase, f"the reloaded bundle differs in {diffs}")
+    return loaded, {"save_s": save_s, "load_s": load_s, "verified_load_s": verified_load_s,
+                    "bytes": _dir_bytes(out_dir),
+                    "files": {f.name: f.stat().st_size for f in sorted(out_dir.iterdir())},
+                    "bit_equal": True}
+
+
+def phase_offline(torch, engine_200k):
+    """Phase 13: the offline path at the quality table's size, the quality
+    lane on the card, the CLI in process and as a subprocess, and phase 4's
+    bundle saved and loaded. Returns the attention launches of the CLI's
+    counted search."""
+    import shutil
+
+    from review_recommender_tpu_torch.evals import quality_table as QT
+    from review_recommender_tpu_torch.evals.benchmark import run_performance_benchmark
+    from review_recommender_tpu_torch.index.build import build_bundle_from_products
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+    from review_recommender_tpu_torch.models.bow import BowProjectionEncoder
+    from review_recommender_tpu_torch.serve import cli
+
+    card = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    card = card.splitlines()[0] if card else "nvidia-smi: no output"
+    shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
+    OFFLINE_DIR.mkdir(parents=True)
+    bdir = OFFLINE_DIR / "quality_bundle"
+
+    # 1. build, save, load
+    t0 = time.perf_counter()
+    products, queries = QT.build_corpus(QT_THEMES, QT_PER_THEME, QT_QUERIES, seed=QT_SEED)
+    corpus_s = time.perf_counter() - t0
+    encoder = BowProjectionEncoder(dim=QT.BOW_DIM, seed=QT.BOW_SEED)
+    t0 = time.perf_counter()
+    emb = encoder.encode([p["agg_text"] for p in products])
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    built = build_bundle_from_products(products, emb, doc_terms_cap=QT.DOC_TERMS_CAP,
+                                       pad_multiple=QT.PAD_MULTIPLE)
+    build_s = time.perf_counter() - t0
+    loaded, rt = _round_trip(built, bdir, "offline_build")
+    p = loaded.products
+    emit({"phase": "offline_build", "card": card, "products": p.n_docs, "n_padded": p.n_padded,
+          "queries": len(queries), "dim": p.dim, "terms_cap": p.terms_cap,
+          "vocab": len(p.vocab), "corpus_s": corpus_s, "bow_encode_s": encode_s,
+          "build_s": build_s, "tokenizer": "native", **rt})
+
+    # 2. the quality lane on the loaded bundle, on the card
+    with open(REPO_DIR / QT_REFERENCE) as f:
+        reference = json.load(f)
+    _zero_counts()
+    engine, results = QT.run_lane(loaded, encoder, queries, DEV)
+    lane_counts = _counts()
+    floor = next(iter(results.values()))["latency"]["rpc_floor_ms"]
+    table, worst = {}, 0.0
+    for method, res in results.items():
+        row = {}
+        for m in QT_METRICS:
+            got, want = res["aggregate"][m], reference[method]["aggregate"][m]
+            row[m] = {"port": got, "jax": want, "delta": got - want}
+            worst = max(worst, abs(got - want))
+        lat = res["latency"]
+        table[method] = {**row, "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"],
+                         "qps": lat["qps"], "engine_p50_ms": lat["engine_p50_ms"]}
+    emit({"phase": "offline_quality", "card": card, "device": str(engine.device),
+          "gate_mode": engine.gate_mode, "dense_pool": engine.dense_pool,
+          "emb_dtype": str(engine.dtype), "rpc_floor_ms": floor, "reference": QT_REFERENCE,
+          "tol": QT_TOL, "max_abs_delta": worst, "methods": table,
+          "kernel_launches": lane_counts})
+    check(worst <= QT_TOL, "offline_quality",
+          f"a quality number differs from the JAX lane's by {worst} > {QT_TOL}")
+    check(not any(lane_counts.values()), "offline_quality",
+          f"the bow lane launched a custom kernel: {lane_counts}")
+    del engine
+
+    # 3. the CLI in process, on random bge-small / MiniLM-L6 towers in bf16
+    query = queries[0]["query"]
+    dev = ["--device", DEV]
+    code, out = _cli(["audit", "--index-dir", str(bdir), *dev])
+    audit = json.loads(out)
+    check(code == 0 and audit["ok"], "offline_cli", f"audit exit {code}: {audit['checks']}")
+    _zero_counts()
+    code, out = _cli(["search", query, "--index-dir", str(bdir), "--rerank-k", str(RERANK_K),
+                      "--json-out", str(OFFLINE_DIR / "search.json"), *dev])
+    search_counts = _counts()
+    check(code == 0, "offline_cli", f"search exit {code}")
+    cli_rows = json.loads((OFFLINE_DIR / "search.json").read_text())["results"]
+    ref_engine = cli._load_engine(str(bdir), with_rerank=True, device=DEV)
+    rows = ref_engine.run_search(query, k=K, rerank_k=RERANK_K)[0]
+    _check_rows(cli_rows, "offline_cli")
+    worst_row = max(abs(a[c] - b[c]) for a, b in zip(cli_rows, rows)
+                    for c in a if isinstance(a[c], float) and np.isfinite(a[c]))
+    same = json.dumps(cli_rows) == json.dumps(rows)  # every field exact, NaN included
+    want = {**{n: 0 for n in search_counts}, "mha_fwd": 12 + 6}
+    code_b, out_b = _cli(["bench", "--index-dir", str(bdir), "--n-queries", "64", *dev])
+    bench = json.loads(out_b.strip().splitlines()[-1])
+    judged = OFFLINE_DIR / "judged.jsonl"
+    judged.write_text("".join(json.dumps(q) + "\n" for q in queries))
+    code_e, _out_e = _cli(["eval", "--index-dir", str(bdir), "--queries", str(judged),
+                           "--out", str(OFFLINE_DIR / "eval"), *dev])
+    evaluated = json.loads((OFFLINE_DIR / "eval" / "benchmark_results.json").read_text())
+    direct = run_performance_benchmark(ref_engine.run_search, queries, warmup=True)
+    eval_diff = max(abs(evaluated[m]["aggregate"][k] - direct[m]["aggregate"][k])
+                    for m in direct for k in direct[m]["aggregate"])
+    emit({"phase": "offline_cli", "card": card, "query": query, "audit_ok": audit["ok"],
+          "audit_checks": len(audit["checks"]), "search_rows": len(cli_rows),
+          "search_equals_run_search": same, "search_max_abs_diff": worst_row,
+          "search_launches": search_counts, "expected_launches": want,
+          "bench": bench, "bench_exit": code_b, "eval_exit": code_e,
+          "eval_max_abs_diff_vs_run_performance_benchmark": eval_diff,
+          "eval": {m: {k: evaluated[m]["aggregate"][k] for k in QT_METRICS} for m in evaluated}})
+    check(same, "offline_cli", f"CLI search rows differ from run_search (max {worst_row})")
+    check(search_counts == want, "offline_cli", f"search launches {search_counts}, want {want}")
+    check(code_b == 0 and bench["n_docs"] == p.n_docs, "offline_cli", f"bench {code_b} {bench}")
+    check(code_e == 0 and eval_diff == 0.0, "offline_cli",
+          f"eval exit {code_e}, differs from run_performance_benchmark by {eval_diff}")
+    del ref_engine
+
+    # 4. the CLI as a subprocess, then both serve front ends
+    steps = {}
+    for name, args in (("audit", ["audit", "--index-dir", str(bdir), *dev]),
+                       ("search", ["search", query, "--index-dir", str(bdir), *dev])):
+        t0 = time.perf_counter()
+        rc, out, err = _cli_process(args)
+        steps[name] = {"exit_code": rc, "seconds": time.perf_counter() - t0}
+        check(rc == 0, "offline_subprocess", f"{name} exited {rc}: {err[-1500:]}")
+    emit({"phase": "offline_subprocess", "card": card, **steps})
+    for native in (False, True):
+        emit({"phase": "offline_serve", "card": card, **_serve_process(bdir, native, query)})
+
+    # 5. phase 4's 200k bundle saved and loaded: a server's start-up read
+    big = IndexBundle(products=engine_200k.products)
+    _loaded_200k, rt = _round_trip(big, OFFLINE_DIR / "bundle_200k", "offline_200k")
+    emit({"phase": "offline_200k", "card": card, "n_docs": big.products.n_docs,
+          "dim": big.products.dim, "terms_cap": big.products.terms_cap,
+          "has_doc_bm25": big.products.doc_bm25 is not None,
+          "has_doc_tokens": big.products.doc_tokens is not None, **rt})
+    shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
+    return search_counts["mha_fwd"]
+
+
 def main() -> int:
     import torch
 
@@ -1893,6 +2173,7 @@ def main() -> int:
         launches += phase_rerank_coalesce(torch, engine, qvecs)
         phase_snippets(torch, engine)
         launches += phase_serve(torch, engine, qvecs)
+        launches += phase_offline(torch, engine)
     except PhaseError as exc:
         emit({"phase": "failed", "error": str(exc)})
         return 3

@@ -8,26 +8,32 @@ names mirror the JAX package so each counterpart is easy to find:
                   JAX package's names and defaults)
     device        explicit device resolution (no silent CPU fallback)
     utils         text + numeric helpers, stage timer
-    index         numpy index dataclasses, synthetic corpus, BM25 stats,
-                  rerank tokens, the review index
+    index         numpy index dataclasses, the index builder (products ->
+                  bundle), bundle save/load (numpy host columns, a JAX
+                  bundle's parquet where pyarrow is installed), synthetic
+                  corpus, BM25 stats, rerank tokens, the review index
     ops           dense pool, BM25, gate, fusion, review segment max (plain
                   torch); the fused attention, the full-corpus BM25 scans
                   and the fused stage A (hand-written CUDA kernels, csrc/)
     models        BERT towers as nn.Modules, flax -> torch weight mapping,
-                  bucketed bi-/cross-encoder wrappers
+                  bucketed bi-/cross-encoder wrappers, the bag-of-words
+                  encoder and overlap scorer
     engine        featurizer, host hooks, snippet recovery, SearchEngine:
                   run_search, the fused and batched forms, query_e2e,
                   query_rerank_batched_pw, search_bm25 and search_dense
-    native        the C++ host library (query featurizer, epoll HTTP
-                  front end), built with g++ on first use, bound by ctypes
-    serve         the HTTP API: stdlib server with the micro-batcher, the
-                  native front end, the web page
-    evals         IR metrics of the /eval route
+    native        the C++ host library (document tokenizer and postings,
+                  query featurizer, epoll HTTP front end), built with g++ on
+                  first use, bound by ctypes
+    serve         the CLI, the bundle audit, the HTTP API: stdlib server
+                  with the micro-batcher, the native front end, the web page
+    evals         IR metrics, the method configs and judged queries, the
+                  benchmark runner, the quality table's bow lane
 
 The package imports torch, numpy and the standard library, and nothing of
-the JAX package, jax, flax, pandas or pyarrow. Its entry points
-(`SearchEngine`, `BiEncoder`, `CrossEncoder`) run on "cuda" unless the
-caller passes device="cpu".
+the JAX package, jax, flax, pandas or pyarrow (index/io.py imports pyarrow
+only to read a JAX bundle's parquet files). Its entry points
+(`SearchEngine`, `BiEncoder`, `CrossEncoder`, the CLI) run on "cuda"
+unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

@@ -2,15 +2,18 @@
 
 The same variable names and defaults as the JAX package's config
 (`review_recommender_tpu/config.py`), limited to what the engine reads:
-embedding dtype, gate and dense-pool modes, the query-term cap, the
-feature flags, the least candidate pool, the search defaults, and the
-server's address, log path, environment and micro-batch knobs. Each knob
+embedding dtype, gate and dense-pool modes, the query- and document-term
+caps, the feature flags, the least candidate pool, the search defaults,
+the tower directories and mesh width the CLI checks, and the server's
+address, log path and level, environment and micro-batch knobs. Each knob
 is read once, when this module is imported; tests patch the `config`
 singleton.
 """
 from __future__ import annotations
 
+import logging
 import os
+from pathlib import Path
 
 
 def _env_bool(name: str, default: str = "false") -> bool:
@@ -32,6 +35,14 @@ class Config:
     APP_PORT = _env_int("APP_PORT", "8501")
     # /debug/trace writes under this file's directory
     LOG_FILE = os.getenv("LOG_FILE", "logs/app.log")
+    LOG_LEVEL = os.getenv("LOG_LEVEL", "INFO").upper()
+    LOG_FORMAT = os.getenv(
+        "LOG_FORMAT", "%(asctime)s - %(name)s - %(levelname)s - %(message)s")
+
+    # local tower snapshots; the port cannot load them yet (ROADMAP Queue 1
+    # item 5b), so the CLI refuses to start when either is set
+    EMB_MODEL_DIR = os.getenv("EMB_MODEL_DIR", "")
+    RERANK_MODEL_DIR = os.getenv("RERANK_MODEL_DIR", "")
 
     # device dtype of the corpus embedding matrix
     EMB_DTYPE = os.getenv("EMB_DTYPE", "bfloat16")
@@ -45,6 +56,8 @@ class Config:
     DENSE_POOL_STRIPES = _env_int("DENSE_POOL_STRIPES", "8192")
     # padded query terms for the BM25 and gate device ops
     QUERY_TERMS_CAP = _env_int("QUERY_TERMS_CAP", "32")
+    # devices the corpus is sharded over; the port serves one (item 12)
+    MESH_SHARDS = _env_int("MESH_SHARDS", "1")
 
     ENABLE_BM25 = _env_bool("ENABLE_BM25", "true")
     ENABLE_RERANKING = _env_bool("ENABLE_RERANKING", "true")
@@ -72,13 +85,34 @@ class Config:
     # cross-request micro-batching (serve/api.py:MicroBatcher): concurrent
     # /search requests within the window share one batched pass
     ENABLE_MICROBATCH = _env_bool("ENABLE_MICROBATCH", "true")
-    # the CLI's switch to the C++ epoll front end (serve/native_server.py);
-    # the port's CLI waits for the bundle loader (ROADMAP Queue 1 item 15)
+    # the CLI's switch to the C++ epoll front end (serve/native_server.py)
     SERVE_NATIVE = _env_bool("SERVE_NATIVE", "false")
     MICROBATCH_WINDOW_MS = _env_float("MICROBATCH_WINDOW_MS", "2.0")
     MICROBATCH_MAX = _env_int("MICROBATCH_MAX", "128")
     # per-rider wait bound on the coalesced path
     MICROBATCH_TIMEOUT_S = _env_float("MICROBATCH_TIMEOUT_S", "180.0")
+
+    @classmethod
+    def validate(cls) -> None:
+        """Raise ValueError on a knob outside its range (the JAX config's
+        checks of the knobs the port reads)."""
+        if cls.QUERY_TERMS_CAP <= 0:
+            raise ValueError("QUERY_TERMS_CAP must be positive")
+        if cls.GATE_MODE not in ("device", "host"):
+            raise ValueError(f"GATE_MODE must be 'device' or 'host', got {cls.GATE_MODE!r}")
+        if cls.DENSE_POOL_STRIPES <= 0:
+            raise ValueError("DENSE_POOL_STRIPES must be positive")
+        if cls.DENSE_POOL_AUTO_MIN <= 0:
+            raise ValueError("DENSE_POOL_AUTO_MIN must be positive")
+
+    @classmethod
+    def setup_logging(cls) -> None:
+        """Log to LOG_FILE and the console at LOG_LEVEL."""
+        Path(cls.LOG_FILE).parent.mkdir(parents=True, exist_ok=True)
+        logging.basicConfig(
+            level=getattr(logging, cls.LOG_LEVEL, logging.INFO), format=cls.LOG_FORMAT,
+            handlers=[logging.FileHandler(cls.LOG_FILE), logging.StreamHandler()],
+        )
 
     @classmethod
     def is_production(cls) -> bool:

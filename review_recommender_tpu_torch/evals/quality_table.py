@@ -1,0 +1,194 @@
+"""The quality table's bow lane on the port: build a themed synthetic corpus
+with planted relevant families, index it, run the four method configs and
+write the README table.
+
+Counterpart of `examples/quality_table.py --lane bow` (its main, :318-409),
+with its own copy of the corpus generator (`_pseudo_word`, `build_corpus`,
+`keyword_query`, :53-160; a test holds the copy equal to the example):
+
+  - corpus: `themes` x `per_theme` products (80 x 640 = 51,200 by
+    default), each theme a bank of 14 words from a shared pseudo-word
+    vocabulary, plus filler. Each of `queries` anchor products gets 4
+    near-duplicates in its theme that keep ~60% of its tokens; its query
+    is 5 of its keywords, and exactly the 5 family members are relevant.
+  - dense signal: BowProjectionEncoder(dim=384, seed=7); rerank: the
+    idf-weighted OverlapCrossScorer over the index vocabulary (host code,
+    as in the JAX lane; no tower, so no attention launch).
+  - index: doc_terms_cap=128, pad_multiple=256; engine with gate_mode
+    host and the exact pool by default (striped on request; ivf is not
+    ported, ROADMAP Queue 1 item 10). Latencies are warm (one untimed
+    query per method first) and include the measured round trip of a
+    scalar to the device and back.
+
+The trained lane waits for training (ROADMAP Queue 1 item 13).
+
+Run: python -m review_recommender_tpu_torch.evals.quality_table --lane bow
+     [--themes 80 --per-theme 640 --queries 60 --seed 0]
+     [--out build/quality_table/bow] [--device cuda]
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+FILLER = ("great good product quality really nice love works perfect "
+          "recommend value price happy bought using daily sturdy arrived "
+          "fast packaging exactly described month year still").split()
+
+_CONS = list("bcdfghjklmnpqrstvwz")
+_VOW = list("aeiou")
+
+BOW_DIM, BOW_SEED = 384, 7
+DOC_TERMS_CAP, PAD_MULTIPLE = 128, 256
+GATE_MODE, DENSE_POOL = "host", "exact"
+
+
+def _pseudo_word(rng) -> str:
+    n = int(rng.integers(2, 5))
+    return "".join(
+        _CONS[int(rng.integers(len(_CONS)))] + _VOW[int(rng.integers(len(_VOW)))]
+        for _ in range(n)
+    )
+
+
+def build_corpus(n_themes: int, per_theme: int, n_queries: int, family: int = 5,
+                 seed: int = 0):
+    """(products, queries): product row dicts (sku, agg_text, n_reviews,
+    avg_stars) and judged queries (id, query, relevant_skus), draw for draw
+    as examples/quality_table.py:build_corpus without paraphrase."""
+    rng = np.random.default_rng(seed)
+    vocab = sorted({_pseudo_word(rng) for _ in range(3000)})
+    theme_words = [list(rng.choice(vocab, size=14, replace=False)) for _ in range(n_themes)]
+
+    products = []
+    for t in range(n_themes):
+        words = theme_words[t]
+        for j in range(per_theme):
+            n_words = int(rng.integers(24, 64))
+            toks = (list(rng.choice(words, size=n_words // 2))
+                    + list(rng.choice(FILLER, size=n_words // 4))
+                    + list(rng.choice(vocab, size=n_words // 4)))
+            rng.shuffle(toks)
+            products.append({
+                "sku": f"T{t:03d}P{j:04d}",
+                "agg_text": " ".join(toks),
+                "n_reviews": float(rng.integers(3, 300)),
+                "avg_stars": float(np.clip(rng.normal(4.1, 0.6), 1, 5)),
+            })
+
+    # anchor families: the anchor + (family - 1) near-duplicates that keep
+    # ~60% of its tokens, written over other products of its theme
+    queries = []
+    anchor_rows = rng.choice(len(products), size=n_queries, replace=False)
+    for qi, row in enumerate(anchor_rows):
+        anchor = products[int(row)]
+        toks = anchor["agg_text"].split()
+        fam = [anchor["sku"]]
+        theme = int(anchor["sku"][1:4])
+        for v in range(family - 1):
+            victim = theme * per_theme + int(rng.integers(per_theme))
+            while victim == int(row) or "V" in products[victim]["sku"]:
+                victim = theme * per_theme + int(rng.integers(per_theme))
+            keep = rng.random(len(toks)) < 0.6
+            vtoks = ([t for t, k in zip(toks, keep) if k]
+                     + list(rng.choice(theme_words[theme], size=max(1, (~keep).sum() // 2))))
+            rng.shuffle(vtoks)
+            sku = f"T{theme:03d}V{qi:03d}{v}"
+            products[victim] = {**products[victim], "sku": sku, "agg_text": " ".join(vtoks)}
+            fam.append(sku)
+        kw = sorted({t for t in toks if len(t) >= 4})
+        pick = rng.choice(len(kw), size=min(5, len(kw)), replace=False)
+        queries.append({
+            "id": f"q{qi:03d}",
+            "query": " ".join(kw[i] for i in sorted(pick)),
+            "relevant_skus": sorted(set(fam)),
+        })
+    return products, queries
+
+
+def keyword_query(rng, text):
+    """A 5-keyword query for a document, mined as the eval queries are
+    (sorted unique tokens of >= 4 characters, 5 drawn, joined in sorted
+    order); None under 5 such tokens. One rng.choice per usable text."""
+    toks = sorted({t for t in text.split() if len(t) >= 4})
+    if len(toks) < 5:
+        return None
+    pick = rng.choice(len(toks), size=5, replace=False)
+    return " ".join(toks[j] for j in sorted(pick))
+
+
+def overlap_scorer(products):
+    """The lane's rerank: OverlapCrossScorer weighted by the index idf."""
+    from review_recommender_tpu_torch.models.bow import OverlapCrossScorer
+
+    return OverlapCrossScorer(idf={t: float(products.idf[i]) for t, i in products.vocab.items()})
+
+
+def run_lane(bundle, encoder, queries, device="cuda", gate_mode=GATE_MODE,
+             dense_pool=DENSE_POOL):
+    """The lane on a built or loaded bundle: an engine with the encoder's
+    dense signal and the overlap rerank, and run_performance_benchmark of
+    the four configs over `queries`, warm, with the device round trip
+    measured. Returns (engine, results)."""
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.evals.benchmark import (
+        measure_rpc_floor,
+        run_performance_benchmark,
+    )
+
+    engine = SearchEngine(bundle, device=device, query_encoder=encoder,
+                          cross_encoder=overlap_scorer(bundle.products),
+                          gate_mode=gate_mode, dense_pool=dense_pool)
+    results = run_performance_benchmark(engine.run_search, queries, warmup=True,
+                                        rpc_floor_ms=measure_rpc_floor(engine.device))
+    return engine, results
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--themes", type=int, default=80)
+    ap.add_argument("--per-theme", type=int, default=640)
+    ap.add_argument("--queries", type=int, default=60)
+    ap.add_argument("--out", default="build/quality_table/bow")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--gate-mode", default=GATE_MODE, choices=["host", "device"])
+    ap.add_argument("--dense-pool", default=DENSE_POOL, choices=["exact", "striped", "ivf"])
+    ap.add_argument("--lane", default="bow", choices=["bow", "trained"])
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.lane == "trained":
+        raise SystemExit("quality_table: the trained lane needs training, which is not "
+                         "ported yet (ROADMAP Queue 1 item 13)")
+
+    from review_recommender_tpu_torch.evals.benchmark import (
+        format_results_table,
+        save_benchmark_results,
+    )
+    from review_recommender_tpu_torch.index.build import build_bundle_from_products
+    from review_recommender_tpu_torch.models.bow import BowProjectionEncoder
+
+    log = lambda msg: print(msg, file=sys.stderr, flush=True)
+    t0 = time.perf_counter()
+    products, queries = build_corpus(args.themes, args.per_theme, args.queries, seed=args.seed)
+    log(f"corpus: {len(products)} docs, {len(queries)} judged queries "
+        f"({time.perf_counter() - t0:.1f}s)")
+    encoder = BowProjectionEncoder(dim=BOW_DIM, seed=BOW_SEED)
+    t0 = time.perf_counter()
+    emb = encoder.encode([p["agg_text"] for p in products])
+    log(f"encode: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    bundle = build_bundle_from_products(products, emb, doc_terms_cap=DOC_TERMS_CAP,
+                                        pad_multiple=PAD_MULTIPLE)
+    log(f"index: {time.perf_counter() - t0:.1f}s")
+    _engine, results = run_lane(bundle, encoder, queries, args.device, args.gate_mode,
+                                args.dense_pool)
+    save_benchmark_results(results, args.out)
+    print(format_results_table(results))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -14,8 +14,10 @@ that `os.replace` moves into place, so every process loads one complete
 library. Nothing here runs at import time.
 
 There is no fallback: a missing compiler, a failed build or a failed load
-raises with the compiler's output. The Python featurizer runs only when a
-caller asks for it (`QueryFeaturizer(native=False)`).
+raises with the compiler's output. The Python featurizer and document
+tokenizer run only when a caller asks for them
+(`QueryFeaturizer(native=False)`, `tokenize_document(native=False)`,
+`build_product_index(tokenizer="python")`).
 
 Parity contract (as in the JAX package): the native scanners are byte-level
 ASCII, so callers route non-ASCII queries and tokens to the Python path;
@@ -33,7 +35,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 from numpy.ctypeslib import ndpointer
@@ -107,6 +109,16 @@ def build(force: bool = False) -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     """argtypes and restype of every entry the port calls."""
     c_i64, c_p = ctypes.c_int64, ctypes.c_char_p
+    lib.rrt_tokenize_batch.restype = c_i64
+    lib.rrt_tokenize_batch.argtypes = [c_p, ndpointer(np.int64, flags="C"), c_i64, c_p, c_i64,
+                                       c_i64, ndpointer(np.int64, flags="C,W")]
+    lib.rrt_build_postings.restype = c_i64
+    lib.rrt_build_postings.argtypes = [
+        c_p, ndpointer(np.int64, flags="C"), c_i64, c_i64, c_i64,
+        ndpointer(np.int32, flags="C,W"), ndpointer(np.float32, flags="C,W"),
+        ndpointer(np.float32, flags="C,W"), ndpointer(np.int32, flags="C,W"),
+        c_p, c_i64, c_i64, ctypes.POINTER(c_i64),
+    ]
     lib.rrt_substring_scan.restype = c_i64
     lib.rrt_substring_scan.argtypes = [c_p, c_i64, c_p, c_i64,
                                        ndpointer(np.int32, flags="C,W"), c_i64]
@@ -162,6 +174,82 @@ def native_server_available() -> bool:
     """True once the library is built and exports the HTTP front end (a
     failed build raises instead)."""
     return hasattr(_lib(), "rrt_server_start")
+
+
+def _ascii_blobs(texts: Sequence[str], cap: int) -> List[bytes]:
+    """Each text as ASCII bytes for the postings build. A non-ASCII text is
+    tokenized in Python and its tokens joined by spaces: tokens are ASCII
+    ([a-z0-9']), so the byte scanner finds them again in the same order."""
+    from review_recommender_tpu_torch.utils.text import tokenize_document
+
+    return [(t if t.isascii() else " ".join(tokenize_document(t, cap, native=False)))
+            .encode("ascii") for t in map(str, texts)]
+
+
+def _offsets(blobs: List[bytes]) -> np.ndarray:
+    offsets = np.zeros(len(blobs) + 1, np.int64)
+    np.cumsum([len(b) for b in blobs], out=offsets[1:])
+    return offsets
+
+
+def tokenize_document_native(text: str, cap: int = 5000) -> List[str]:
+    """The index tokenizer in C++ (utils/text.py:tokenize_document)."""
+    return tokenize_corpus_native([text], cap)[0]
+
+
+def tokenize_corpus_native(texts: Sequence[str], cap: int = 5000) -> List[List[str]]:
+    """tokenize_document_native of every text, the ASCII ones in one call;
+    a non-ASCII text takes the Python tokenizer (see the module's parity
+    contract)."""
+    from review_recommender_tpu_torch.utils.text import tokenize_document
+
+    texts = [str(t) for t in texts]
+    results: List[Optional[List[str]]] = [
+        None if t.isascii() else tokenize_document(t, cap, native=False) for t in texts]
+    ascii_idx = [i for i, r in enumerate(results) if r is None]
+    if ascii_idx:
+        blobs = [texts[i].encode("ascii") for i in ascii_idx]
+        offsets = _offsets(blobs)
+        out_cap = int(offsets[-1]) + 2 * len(blobs) + 16  # tokens + separators fit
+        out = ctypes.create_string_buffer(out_cap)
+        counts = np.zeros(len(blobs), np.int64)
+        total = _lib().rrt_tokenize_batch(b"".join(blobs), offsets, len(blobs), out, out_cap,
+                                          cap, counts)
+        if total < 0:
+            raise RuntimeError("native tokenizer output buffer overflow")
+        toks = out.value.decode("ascii").split("\n") if total else []
+        start = 0
+        for i, c in zip(ascii_idx, counts.tolist()):
+            results[i] = toks[start: start + c]
+            start += c
+    return results
+
+
+def build_postings_native(texts: Sequence[str], doc_terms_cap: int, cap: int = 5000):
+    """Tokenize, number terms in first-seen order, count tf and df, and pack
+    each document's terms by descending tf (stable) into `doc_terms_cap`
+    lanes, in one C++ pass. Returns (doc_terms (N, L) i32, doc_tf (N, L)
+    f32, doc_len (N,) f32, df (V+1,) i32, vocab {term: id}, number of
+    documents with more than L unique terms)."""
+    lib = _lib()
+    blobs = _ascii_blobs(texts, cap)
+    n, L = len(blobs), int(doc_terms_cap)
+    blob = b"".join(blobs)
+    doc_terms = np.zeros((max(n, 1), L), np.int32)
+    doc_tf = np.zeros((max(n, 1), L), np.float32)
+    doc_len = np.zeros(max(n, 1), np.float32)
+    vocab_cap = max(len(blob) // 2 + 16, 1024)  # a term takes >= 2 bytes + a separator
+    df = np.zeros(vocab_cap + 1, np.int32)
+    vocab_out = ctypes.create_string_buffer(len(blob) + 16)
+    n_trunc = ctypes.c_int64(0)
+    v = lib.rrt_build_postings(blob, _offsets(blobs), n, cap, L, doc_terms, doc_tf, doc_len,
+                               df, vocab_out, len(blob) + 16, vocab_cap, ctypes.byref(n_trunc))
+    if v < 0:
+        raise RuntimeError("native postings build overflowed its buffers")
+    terms = vocab_out.value.decode("ascii").split("\n")[:v] if v else []
+    vocab = {t: i + 1 for i, t in enumerate(terms)}
+    return (doc_terms[:n], doc_tf[:n], doc_len[:n], df[: v + 1].copy(), vocab,
+            int(n_trunc.value))
 
 
 def substring_scan_native(vocab_blob: bytes, token: str, max_hits: int = 4096) -> np.ndarray:

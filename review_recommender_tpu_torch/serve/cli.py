@@ -1,0 +1,337 @@
+"""The command line: one engine behind search / serve / audit / health /
+bench / eval.
+
+Counterpart of `review_recommender_tpu/serve/cli.py`, with its parser's
+arguments and defaults, plus `--device` (default "cuda"; the tests pass
+"cpu"). `_load_engine` reads a bundle through index/io.py (either layout)
+and builds SearchEngine with random towers of the JAX CLI's shapes
+(`BiEncoder.random_for_dim(dim)`: bge-small at 384; `CrossEncoder.
+random_init()`: MiniLM-L6).
+
+  python -m review_recommender_tpu_torch.serve.cli search "query" --index-dir DIR
+  ... serve  --index-dir DIR [--host H --port P] [--native] [--with-rerank]
+  ... audit  --index-dir DIR     (exit code 0/1 gates a deploy)
+  ... health [--url http://host:port]
+  ... bench  --index-dir DIR [--n-queries 64]
+  ... eval   --index-dir DIR --queries judged.jsonl [--out DIR]
+
+What the port cannot do yet exits non-zero and names its ROADMAP Queue 1
+item, where the JAX CLI would run something else: EMB_MODEL_DIR or
+RERANK_MODEL_DIR set (trained towers, item 5b; the JAX CLI loads them, the
+port will not stand a random tower in for them), `--shards` / MESH_SHARDS
+above 1 (item 12), `train` (item 13), `topics` (item 14) and `import`
+(item 18). `serve --native` (or SERVE_NATIVE) raises when the native
+library cannot be built; it never falls back to the stdlib server.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import signal
+import sys
+import threading
+import time
+from pathlib import Path
+from typing import Optional, Sequence
+
+import numpy as np
+
+from review_recommender_tpu_torch.config import config
+
+NOT_PORTED = {
+    "train": "training the towers is not ported yet (ROADMAP Queue 1 item 13)",
+    "topics": "the topic pipeline is not ported yet (ROADMAP Queue 1 item 14)",
+    "import": ("importing a reference deployment's artifacts is not ported yet "
+               "(ROADMAP Queue 1 item 18)"),
+}
+
+
+def _refuse(msg: str):
+    raise SystemExit(f"rrt: {msg}")
+
+
+def _load_engine(index_dir: str, gate_mode: Optional[str] = None, with_models: bool = True,
+                 with_rerank: bool = False, dense_pool: Optional[str] = None,
+                 shards: Optional[int] = None, device="cuda"):
+    """SearchEngine on `device` over the bundle at index_dir, with random
+    towers (or none: with_models=False, with_rerank=False)."""
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.io import load_bundle
+    from review_recommender_tpu_torch.models.encoder import BiEncoder, CrossEncoder
+
+    for name in ("EMB_MODEL_DIR", "RERANK_MODEL_DIR"):
+        if getattr(config, name):
+            _refuse(f"{name} is set, but loading tower checkpoints is not ported yet "
+                    "(ROADMAP Queue 1 item 5b); unset it to serve random towers")
+    n_shards = config.MESH_SHARDS if shards is None else int(shards)
+    if n_shards > 1:
+        _refuse(f"--shards {n_shards}: the sharded engine is not ported yet "
+                "(ROADMAP Queue 1 item 12)")
+    bundle = load_bundle(index_dir)
+    encoder = BiEncoder.random_for_dim(bundle.products.dim, device=device) if with_models else None
+    cross = (CrossEncoder.random_init(device=device)
+             if with_rerank and config.ENABLE_RERANKING else None)
+    return SearchEngine(bundle, device=device, query_encoder=encoder, cross_encoder=cross,
+                        gate_mode=gate_mode, dense_pool=dense_pool)
+
+
+def cmd_search(args) -> int:
+    engine = _load_engine(args.index_dir, args.gate_mode, with_rerank=args.rerank_k > 0,
+                          dense_pool=args.dense_pool, device=args.device)
+    t0 = time.perf_counter()
+    rows, snips, debug = engine.run_search(
+        args.query, k=args.k, rerank_k=args.rerank_k,
+        w_dense=args.w_dense, w_bm25=args.w_bm25, w_rerank=args.w_rerank,
+        w_prior=args.w_prior, w_best=args.w_best, prior_C=args.prior_c,
+        use_snips=args.snippets, min_reviews=args.min_reviews,
+        gate_penalty=args.gate_penalty,
+    )
+    took = time.perf_counter() - t0
+    for rank, row in enumerate(rows, 1):
+        print(f"{rank:2d}. {row['sku']}  final={row['_final']:.4f} "
+              f"dense={row['_dense']:.3f} bm25={row['_bm25']:.3f} "
+              f"prior={row['_prior']:.3f} stars={row['avg_stars']:.2f} "
+              f"n={int(row['n_reviews'])}")
+    print(f"-- {len(rows)} results in {took:.3f}s "
+          f"(pool={debug['pool']}, bm25_active={debug['bm25_active']})")
+    if args.json_out:
+        Path(args.json_out).write_text(json.dumps({
+            "query": args.query, "results": rows, "snippets": snips, "debug": debug,
+            "took_s": took,
+        }, indent=2))
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from review_recommender_tpu_torch import native
+
+    config.setup_logging()
+    use_native = args.native or config.SERVE_NATIVE
+    if use_native:
+        native.native_server_available()  # builds the library now, or raises
+    engine = _load_engine(args.index_dir, args.gate_mode, with_rerank=args.with_rerank,
+                          dense_pool=args.dense_pool, shards=args.shards, device=args.device)
+    if use_native:
+        from review_recommender_tpu_torch.serve.native_server import serve_native
+
+        srv = serve_native(engine, host=args.host, port=args.port, warmup_async=True)
+        port, stop, front = srv.port, srv.close, "native front end"
+    else:
+        from review_recommender_tpu_torch.serve.api import serve
+
+        srv = serve(engine, host=args.host, port=args.port, warmup_async=True)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        port, front = srv.server_address[1], "stdlib server"
+
+        def stop():
+            srv.shutdown()
+            srv.service.close()
+    done = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: done.set())
+    print(f"serving on http://{args.host}:{port} (docs={engine.products.n_docs}, {front}, "
+          f"{engine.device}); warming up in background", flush=True)
+    done.wait()
+    stop()
+    print("stopped", flush=True)
+    return 0
+
+
+def cmd_audit(args) -> int:
+    from review_recommender_tpu_torch.serve.audit import audit_index_dir
+
+    report = audit_index_dir(args.index_dir, device=args.device)
+    print(json.dumps(report, indent=2, default=str))
+    return 0 if report["ok"] else 1
+
+
+def cmd_health(args) -> int:
+    import urllib.error
+    import urllib.request
+
+    url = args.url.rstrip("/") + "/healthz"
+    try:
+        with urllib.request.urlopen(url, timeout=args.timeout) as r:
+            ok = r.status == 200
+    except (urllib.error.URLError, OSError) as e:
+        print(f"health check failed: {e}", file=sys.stderr)
+        return 1
+    print("OK" if ok else "FAIL")
+    return 0 if ok else 1
+
+
+def cmd_bench(args) -> int:
+    from review_recommender_tpu_torch.ops.fusion import FusionWeights
+
+    engine = _load_engine(args.index_dir, gate_mode="device", with_models=False,
+                          dense_pool=args.dense_pool, device=args.device)
+    dim = engine.products.dim
+    rng = np.random.default_rng(0)
+    texts = [t for t in list(engine.products.agg_texts[:64]) if t] or ["test query"]
+    qvecs = rng.standard_normal((args.n_queries, dim)).astype(np.float32)
+    qvecs /= np.linalg.norm(qvecs, axis=1, keepdims=True)
+    w = FusionWeights.make()
+    engine.query_fused(qvecs[0], texts[0], w, pool=150, k=10)[0].cpu()  # first call untimed
+    lat = []
+    for i in range(args.n_queries):
+        t0 = time.perf_counter()
+        rows, _scores = engine.query_fused(qvecs[i], texts[i % len(texts)], w, pool=150, k=10)
+        rows.cpu()
+        lat.append(time.perf_counter() - t0)
+    lat = np.asarray(lat)
+    print(json.dumps({
+        "qps": round(1 / lat.mean(), 2),
+        "p50_ms": round(float(np.percentile(lat, 50)) * 1e3, 3),
+        "p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3),
+        "n_docs": engine.products.n_docs,
+        "device": str(engine.device),
+    }))
+    return 0
+
+
+def read_judged_queries(path) -> list:
+    """JSONL, one {"query", "relevant_skus"[, "id"]} per line."""
+    queries = []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                row = json.loads(line)
+                queries.append({"id": row.get("id", f"q{len(queries)}"), "query": row["query"],
+                                "relevant_skus": row["relevant_skus"]})
+    return queries
+
+
+def cmd_eval(args) -> int:
+    """IR metrics of the bundle's engine over judged queries: the four
+    method configs (or --method) through run_search, printed as the
+    markdown table; --out also writes benchmark_results.json and the CSV."""
+    from review_recommender_tpu_torch.evals.benchmark import (
+        format_results_table,
+        measure_rpc_floor,
+        run_performance_benchmark,
+        save_benchmark_results,
+    )
+    from review_recommender_tpu_torch.evals.queries import BENCHMARK_CONFIGS
+
+    queries = read_judged_queries(args.queries)
+    if not queries:
+        print("eval: no queries in file", file=sys.stderr)
+        return 1
+    method_configs = None
+    if args.method:
+        if args.method not in BENCHMARK_CONFIGS:
+            print(f"eval: unknown method {args.method!r} (have: {sorted(BENCHMARK_CONFIGS)})",
+                  file=sys.stderr)
+            return 1
+        method_configs = {args.method: BENCHMARK_CONFIGS[args.method]}
+    engine = _load_engine(args.index_dir, args.gate_mode, with_rerank=True,
+                          dense_pool=args.dense_pool, device=args.device)
+    results = run_performance_benchmark(engine.run_search, queries,
+                                        method_configs=method_configs,
+                                        warmup=not args.no_warmup,
+                                        rpc_floor_ms=measure_rpc_floor(engine.device))
+    print(format_results_table(results))
+    if args.out:
+        save_benchmark_results(results, args.out)
+        print(f"wrote {args.out}/benchmark_results.json", file=sys.stderr)
+    return 0
+
+
+def cmd_not_ported(args) -> int:
+    _refuse(f"{args.cmd}: {NOT_PORTED[args.cmd]}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="rrt", description="review-recommender CLI (PyTorch port)")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    c = config
+    pools = [None, "auto", "exact", "striped", "ivf"]
+
+    def device_arg(p):
+        p.add_argument("--device", default="cuda",
+                       help="torch device of the engine and towers (default cuda)")
+
+    s = sub.add_parser("search", help="run one query")
+    s.add_argument("query")
+    s.add_argument("--index-dir", required=True)
+    s.add_argument("--k", type=int, default=c.DEFAULT_K)
+    s.add_argument("--rerank-k", type=int, default=0)
+    s.add_argument("--w-dense", type=float, default=c.DEFAULT_W_DENSE)
+    s.add_argument("--w-bm25", type=float, default=c.DEFAULT_W_BM25)
+    s.add_argument("--w-rerank", type=float, default=c.DEFAULT_W_RERANK)
+    s.add_argument("--w-prior", type=float, default=c.DEFAULT_W_PRIOR)
+    s.add_argument("--w-best", type=float, default=c.DEFAULT_W_BEST)
+    s.add_argument("--prior-c", type=float, default=c.DEFAULT_PRIOR_C)
+    s.add_argument("--min-reviews", type=int, default=c.DEFAULT_MIN_REVIEWS)
+    s.add_argument("--gate-penalty", type=float, default=c.DEFAULT_GATE_PENALTY)
+    s.add_argument("--gate-mode", default=None, choices=[None, "host", "device"])
+    s.add_argument("--dense-pool", default=None, choices=pools,
+                   help="exact or striped stage-A pool (default: DENSE_POOL_MODE, auto = "
+                        "striped from DENSE_POOL_AUTO_MIN padded rows up); ivf is not "
+                        "ported yet (item 10)")
+    s.add_argument("--snippets", action="store_true")
+    s.add_argument("--json-out")
+    device_arg(s)
+    s.set_defaults(fn=cmd_search)
+
+    v = sub.add_parser("serve", help="start the HTTP API")
+    v.add_argument("--index-dir", required=True)
+    v.add_argument("--host", default=c.APP_HOST)
+    v.add_argument("--port", type=int, default=c.APP_PORT, help="0 takes a free port")
+    v.add_argument("--gate-mode", default=None)
+    v.add_argument("--dense-pool", default=None, choices=pools)
+    v.add_argument("--with-rerank", action="store_true",
+                   help="load the cross-encoder for rerank_k>0 requests")
+    v.add_argument("--shards", type=int, default=None,
+                   help="corpus shards (default MESH_SHARDS; above 1 is not ported yet)")
+    v.add_argument("--native", action="store_true",
+                   help="the C++ epoll front end (native/server.cc; also SERVE_NATIVE)")
+    device_arg(v)
+    v.set_defaults(fn=cmd_serve)
+
+    a = sub.add_parser("audit", help="validate index artifacts")
+    a.add_argument("--index-dir", required=True)
+    device_arg(a)
+    a.set_defaults(fn=cmd_audit)
+
+    h = sub.add_parser("health", help="probe a running server")
+    h.add_argument("--url", default=f"http://localhost:{c.APP_PORT}")
+    h.add_argument("--timeout", type=float, default=5.0)
+    h.set_defaults(fn=cmd_health)
+
+    b = sub.add_parser("bench", help="QPS/p50 on the loaded index")
+    b.add_argument("--index-dir", required=True)
+    b.add_argument("--n-queries", type=int, default=64)
+    b.add_argument("--dense-pool", default=None, choices=pools)
+    device_arg(b)
+    b.set_defaults(fn=cmd_bench)
+
+    e = sub.add_parser("eval", help="IR metrics over judged queries (JSONL) on an index")
+    e.add_argument("--index-dir", required=True)
+    e.add_argument("--queries", required=True, help='JSONL: {"query", "relevant_skus"} per line')
+    e.add_argument("--method", default=None,
+                   help="run one BENCHMARK_CONFIGS method instead of all 4")
+    e.add_argument("--out", default=None, help="also write benchmark_results.json/CSV here")
+    e.add_argument("--gate-mode", default=None)
+    e.add_argument("--dense-pool", default=None, choices=pools)
+    e.add_argument("--no-warmup", action="store_true")
+    device_arg(e)
+    e.set_defaults(fn=cmd_eval)
+
+    for name, why in NOT_PORTED.items():
+        sub.add_parser(name, help=f"not ported: {why}").set_defaults(fn=cmd_not_ported)
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    parser = build_parser()
+    args, extra = parser.parse_known_args(argv)
+    if extra and args.fn is not cmd_not_ported:  # a refused command's arguments go unread
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    config.validate()
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

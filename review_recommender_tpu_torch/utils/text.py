@@ -1,12 +1,14 @@
-"""Query text helpers: tokenizer, attribute vocabularies, gate groups.
+"""Text helpers: query and document tokenizers, attribute vocabularies,
+gate groups.
 
 A jax-free copy of the parts of `review_recommender_tpu/utils/text.py` that
-the query path calls (the JAX package's `utils/__init__.py` imports its
-numerics module, which loads jax). The copy stays: the port imports nothing
-of the JAX package, whose files this round leaves as they are. The query
-featurizer's C++ route (native/featurizer.cc) reads these tables; the
-document tokenizer's native route waits for the index builder (ROADMAP
-Queue 1 item 17).
+the query path and the index builder call (the JAX package's
+`utils/__init__.py` imports its numerics module, which loads jax). The copy
+stays: the port imports nothing of the JAX package, whose files this round
+leaves as they are. The query featurizer's C++ route
+(native/featurizer.cc) reads these tables. The document tokenizer runs the
+C++ route (native/tokenizer.cc) unless the caller asks for the Python one;
+unlike the JAX package, it never switches route by itself.
 """
 from __future__ import annotations
 
@@ -54,11 +56,44 @@ GATE_PHRASES: List[str] = sorted(
 )
 GATE_PHRASE_ID: Dict[str, int] = {p: i for i, p in enumerate(GATE_PHRASES)}
 
+# the index tokenizer's stop list ("simple_en_v1": larger than the query's)
+DOC_STOP_WORDS = {
+    "a", "an", "and", "the", "is", "are", "am", "be", "been", "to", "for",
+    "of", "in", "on", "at", "by",
+    "it", "its", "this", "that", "with", "from", "as", "or", "if", "but",
+    "than", "then", "so",
+    "i", "you", "he", "she", "we", "they", "my", "your", "our", "their",
+    "me", "him", "her", "us", "them",
+    "was", "were", "will", "would", "should", "could", "may", "might",
+    "can", "cannot", "cant", "won't",
+}
+
+DOC_TOKEN_CAP = 5000  # tokens kept per document
+
 
 def tokenize_query(query: str) -> List[str]:
     """Lowercase regex tokens minus the query stop words."""
     tokens = TOKEN_RE.findall(query.lower())
     return [t for t in tokens if t not in STOP_WORDS]
+
+
+def _tokenize_document_py(text: str, cap: int = DOC_TOKEN_CAP) -> List[str]:
+    toks = [t for t in TOKEN_RE.findall(text.lower())
+            if t not in DOC_STOP_WORDS and len(t) > 1]
+    return toks[:cap]
+
+
+def tokenize_document(text: str, cap: int = DOC_TOKEN_CAP, *, native: bool = True) -> List[str]:
+    """The index tokenizer ("simple_en_v1"): regex tokens of the lowered
+    text, minus DOC_STOP_WORDS and one-character tokens, the first `cap`.
+    native=True (the default) runs the C++ tokenizer, building the port's
+    native library on first use and raising if it cannot; native=False
+    runs the Python version."""
+    if not native:
+        return _tokenize_document_py(text, cap)
+    from review_recommender_tpu_torch.native import tokenize_document_native
+
+    return tokenize_document_native(text, cap)
 
 
 def build_gate_groups(query: str) -> List[Set[str]]:

@@ -22,10 +22,14 @@ KNOBS = (
     # the server's (serve/api.py, serve/native_server.py)
     "APP_HOST", "APP_PORT", "LOG_FILE", "ENVIRONMENT", "ENABLE_METRICS_TAB", "ENABLE_MICROBATCH",
     "SERVE_NATIVE", "MICROBATCH_WINDOW_MS", "MICROBATCH_MAX", "MICROBATCH_TIMEOUT_S",
+    # the CLI's and the index builder's
+    "EMB_MODEL_DIR", "RERANK_MODEL_DIR", "MESH_SHARDS", "LOG_LEVEL", "LOG_FORMAT",
 )
 OVERRIDES = {"DENSE_POOL_STRIPES": "77", "GATE_MODE": "host", "ENABLE_BM25": "false",
              "DEFAULT_W_DENSE": "0.3", "DENSE_POOL_AUTO_MIN": "1024", "APP_PORT": "9123",
-             "MICROBATCH_WINDOW_MS": "5.5", "ENVIRONMENT": "Production", "SERVE_NATIVE": "true"}
+             "MICROBATCH_WINDOW_MS": "5.5", "ENVIRONMENT": "Production", "SERVE_NATIVE": "true",
+             "EMB_MODEL_DIR": "/towers/bi", "MESH_SHARDS": "4",
+             "LOG_LEVEL": "debug"}
 
 _FRESH = """
 import json
@@ -73,5 +77,48 @@ def test_overrides_read_alike_in_a_fresh_interpreter():
     assert res["port"]["ENABLE_BM25"] is False and res["port"]["DEFAULT_W_DENSE"] == 0.3
     assert res["port"]["APP_PORT"] == 9123 and res["port"]["MICROBATCH_WINDOW_MS"] == 5.5
     assert res["port"]["SERVE_NATIVE"] is True and res["production"] == [True, True]
+    assert res["port"]["EMB_MODEL_DIR"] == "/towers/bi"
+    assert res["port"]["MESH_SHARDS"] == 4 and res["port"]["LOG_LEVEL"] == "DEBUG"
     assert all(p == j for p, j in res["modes"])
     assert ["striped", "striped"] in res["modes"] and ["exact", "exact"] in res["modes"]
+
+
+@pytest.mark.parametrize("name,value,ok", [
+    ("QUERY_TERMS_CAP", 0, False), ("GATE_MODE", "hybrid", False),
+    ("DENSE_POOL_STRIPES", 0, False), ("DENSE_POOL_AUTO_MIN", -5, False),
+    ("QUERY_TERMS_CAP", 64, True), ("GATE_MODE", "host", True), ("DENSE_POOL_STRIPES", 128, True)])
+def test_validate_refuses_what_the_jax_config_refuses(monkeypatch, tmp_path, name, value, ok):
+    """The port's validate raises for a knob exactly where the JAX
+    config's does (its production-only and log-directory side left out)."""
+    monkeypatch.setattr(type(jax_config), "LOG_FILE", str(tmp_path / "logs" / "app.log"))
+    monkeypatch.setattr(type(jax_config), "ENVIRONMENT", "development")
+    outcomes = []
+    for c in (port_config, jax_config):
+        monkeypatch.setattr(type(c), name, value)
+        try:
+            c.validate()
+            outcomes.append(None)
+        except ValueError as e:
+            outcomes.append(str(e))
+    assert outcomes[0] == outcomes[1]
+    assert (outcomes[0] is None) == ok
+
+
+def test_setup_logging_writes_to_log_file(monkeypatch, tmp_path):
+    import logging
+
+    log = tmp_path / "logs" / "app.log"
+    monkeypatch.setattr(type(port_config), "LOG_FILE", str(log))
+    root = logging.getLogger()
+    saved = root.handlers[:]
+    root.handlers = []
+    try:
+        port_config.setup_logging()
+        logging.getLogger("rrt.test").warning("hello from the port")
+        for h in root.handlers:
+            h.flush()
+        assert "hello from the port" in log.read_text()
+    finally:
+        for h in root.handlers:
+            h.close()
+        root.handlers = saved

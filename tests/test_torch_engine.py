@@ -257,6 +257,19 @@ n.append(len(post(nat.port, {"query": "t7 t1234", "k": 5, "rerank_k": 0})["resul
 nat.close()
 m = IRMetrics(); m.evaluate_query("q", ["S1", "S2"], {"S2"})
 n.append(m.aggregate_metrics()["n_queries"] + int(native.native_server_available()))
+import tempfile
+from review_recommender_tpu_torch.index.build import build_bundle_from_products
+from review_recommender_tpu_torch.index.io import load_bundle, save_bundle
+from review_recommender_tpu_torch.serve import cli
+prods = [{"sku": f"P{i}", "agg_text": f"yellow socks number {i} t{i}", "n_reviews": 10.0,
+          "avg_stars": 4.0} for i in range(40)]
+bdir = tempfile.mkdtemp()
+save_bundle(build_bundle_from_products(
+    prods, np.random.default_rng(3).standard_normal((40, 64)).astype(np.float32),
+    pad_multiple=16), bdir)
+n.append(load_bundle(bdir, verify_checksums=True).products.n_docs)
+n += [cli.main([cmd, *arg, "--index-dir", bdir, "--device", "cpu"])
+      for cmd, arg in (("search", ["yellow socks", "--k", "5"]), ("audit", []))]
 bad = [m for m in ("jax", "flax", "pandas", "pyarrow") if m in sys.modules]
 bad += sorted(m for m in sys.modules
               if m == "review_recommender_tpu" or m.startswith("review_recommender_tpu."))
@@ -273,7 +286,9 @@ def test_port_imports_no_jax_pandas_or_pyarrow():
     tokens, query_rerank_batched_pw with 2 riders, search_bm25,
     query_fused_batched and stage_a_fused, then starts the stdlib and the
     native HTTP servers on that engine (one /search each) and computes IR
-    metrics, without loading jax, flax, pandas, pyarrow or any module of the
+    metrics, then builds a bundle from products (native tokenizer), saves
+    and loads it in the port's layout and runs the CLI's search and audit
+    on it, without loading jax, flax, pandas, pyarrow or any module of the
     JAX package, and without a kernel launch."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
@@ -281,5 +296,5 @@ def test_port_imports_no_jax_pandas_or_pyarrow():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert res == {"rows": [10, 10, 10, 150, 10, 10, 20, 10, 20, 32, 5, 5, 2], "bad": [],
+    assert res == {"rows": [10, 10, 10, 150, 10, 10, 20, 10, 20, 32, 5, 5, 2, 40, 0, 0], "bad": [],
                    "launches": 0}

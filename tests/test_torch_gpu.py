@@ -20,6 +20,8 @@ rounds past a tile's valid rows are exactly (-3.4e38, 0). A bf16 corpus
 takes the tensor-core kernel, an f32 corpus the CUDA-core one. Serving:
 device_fetch reads CUDA tensors through pinned buffers, and both HTTP
 front ends answer a /search on a small CUDA engine, encoding on the card.
+Offline path: a bundle built, saved and loaded, then the CLI's search on
+it on the card.
 """
 import numpy as np
 import pytest
@@ -352,6 +354,32 @@ def test_server_answers_a_search_on_cuda(cuda, front_end):
             srv.service.close()
         else:
             srv.close()
+
+
+def test_cli_search_on_a_saved_bundle_on_cuda(cuda, tmp_path):
+    """Build a bundle (native tokenizer), save and load it, then the CLI's
+    search on cuda: its rows equal run_search on the engine _load_engine
+    builds, and it launches the attention kernel once per bi-encoder layer
+    (4 at D=64) plus once per cross-encoder layer (6) for 4 rerank pairs."""
+    import json
+
+    from review_recommender_tpu_torch.index.build import build_bundle_from_products
+    from review_recommender_tpu_torch.index.io import load_bundle, save_bundle
+    from review_recommender_tpu_torch.serve import cli
+    from tests.torch_bundle_cases import assert_bundles_equal, corpus
+
+    products, _q, emb = corpus()
+    built = build_bundle_from_products(products, emb, doc_terms_cap=64, pad_multiple=16)
+    save_bundle(built, tmp_path / "b")
+    assert_bundles_equal(load_bundle(tmp_path / "b", verify_checksums=True), built)
+    before = tatt.mha_kernel_launches
+    argv = ["search", "yellow wireless headphones", "--index-dir", str(tmp_path / "b"),
+            "--rerank-k", "4", "--json-out", str(tmp_path / "out.json")]
+    assert cli.main(argv) == 0
+    assert tatt.mha_kernel_launches == before + 4 + 6
+    engine = cli._load_engine(str(tmp_path / "b"), with_rerank=True)
+    rows, _s, _d = engine.run_search("yellow wireless headphones", k=10, rerank_k=4)
+    assert json.loads((tmp_path / "out.json").read_text())["results"] == rows
 
 
 def _stage_a_inputs(seed, n, d, b, dtype, device):
