@@ -128,6 +128,35 @@ line, and nothing is caught and passed over:
              CLI as subprocesses: audit, search, and serve on a free port for
              each front end (/healthz, /readyz, one /search, exit 0 on
              SIGTERM); phase 4's 200k bundle saved and loaded (seconds, bytes)
+ 14 configurations  the serving configurations on phase 4's corpus:
+             EMB_DTYPE=int8 engines, exact and striped (init, corpus bytes
+             on the card, each pool held bit-equal to the same code on the
+             CPU over 16 queries, pool recall against the bf16 exact pool);
+             a DENSE_POOL_MODE=ivf engine at the auto sizes on phase 4's
+             products with bench.py's clustered rows (seeding and k-means
+             seconds, blocks, fill, the init self-check held to
+             IVF_SELFCHECK_MIN, recall at nprobe 64 and 256, the true
+             block bytes beside the bound and JAX's 1.25x estimate,
+             ivf_topk held to its CPU run on the card-built index), then
+             the self-check on the isotropic rows (reported); for each
+             engine run_search at rerank_k 0 (100 queries, 12 attention
+             launches each), search_dense and batched QPS at B=32 and 128
+             with peak memory. Towers from disk: the full-size golden's
+             weights (tests/golden_utils.py) written as an HF snapshot in
+             safetensors (this script's writer, checked against a .bin of
+             the same weights), in .bin and as a native tower, with a
+             30,522-line WordPiece vocab; each loaded through
+             models/load.py (seconds), the bf16 forward on the golden's
+             inputs with the CUDA attention and with mha_reference against
+             the golden's f32 HF outputs (ROADMAP F3 at the full-size
+             layout), forward times at (1, 16), (50, 287), (64, 512);
+             run_search at rerank_k 50 on 200k (20 queries, cut from 100:
+             WordPiece tokenization of 50 pairs a query; 18 launches each,
+             the reference-attention cross-check), and the CLI's
+             _load_engine with EMB_MODEL_DIR / RERANK_MODEL_DIR on a saved
+             4,096-product bundle (its rerank tokens re-tokenized by the
+             loaded cross-encoder), query_e2e and run_search there (20
+             queries each, 18 launches each, against each other)
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -156,6 +185,7 @@ N_QUERIES, K, RERANK_K, REPS = 100, 10, 50, 50
 # published H100 SXM dense bf16 peak, HBM3 bandwidth and f32 CUDA-core peak
 # (at the 700 W limit)
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES, PEAK_FP32_FLOPS = 989e12, 3.35e12, 67e12
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate, same data sheet
 # attention's exponentials: 16 MUFU ex2 per SM per clock (the CUDA C++
 # Programming Guide's throughput table, compute capability 9.0), 132 SMs at
 # the 1.98 GHz maximum boost clock (assumed: the clock under load is not read)
@@ -211,6 +241,20 @@ QT_METRICS, QT_TOL = ("ndcg@10", "mrr", "recall@20"), 0.01
 QT_REFERENCE = "evals_out/bow/benchmark_results.json"  # read, never written
 REPO_DIR = Path(__file__).resolve().parent
 OFFLINE_DIR = REPO_DIR / "build" / "chip_smoke_offline"
+# phase 14: the serving configurations. run_search at rerank_k 0 on each
+# int8 / IVF engine over CFG_QUERIES queries; CFG_CHECK queries' pools held
+# to the plain version on the CPU; IVF pool recall at two probe widths on
+# bench.py's clustered geometry (its IVF section: 256 unit centers, noise of
+# norm 0.7, seed 7); the loaded towers at rerank_k 50 over TOWER_QUERIES
+# queries (cut from 100: host tokenization of 50 2000-character texts per
+# query); the full-size golden's manifest and seeds (tests/golden_utils.py)
+CFG_QUERIES, CFG_CHECK, IVF_NPROBES = 100, 16, (64, 256)
+IVF_CLUSTERS, IVF_NOISE, IVF_SEED = 256, 0.7, 7
+TOWER_QUERIES, WP_VOCAB = 20, 30_522
+TOWER_DIR = REPO_DIR / "build" / "chip_smoke_towers"
+GOLDEN = REPO_DIR / "tests" / "goldens" / "bert_fullsize.npz"
+# kind -> (input/output prefix, manifest prefix, weight seed)
+GOLDEN_SEEDS = {"biencoder": ("be_", "be_man.", 100), "crossencoder": ("ce_", "ce_man.", 200)}
 
 
 def emit(obj) -> None:
@@ -2144,6 +2188,557 @@ def phase_offline(torch, engine_200k):
     return search_counts["mha_fwd"]
 
 
+def _card() -> str:
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    return smi.splitlines()[0] if smi else "nvidia-smi: no output"
+
+
+def _pool_on_cpu(engine, q):
+    """engine._dense_topk on CPU copies of its tensors (the plain version)."""
+    return engine._dense_topk({k: v.cpu() for k, v in engine.arrays.items()}, q.cpu(), POOL)
+
+
+def _exact_bf16_pool(torch, emb, valid, qv):
+    """The exact bf16 pool of qv (B, D) over a placed corpus, on the card."""
+    from review_recommender_tpu_torch.ops.dense import dense_topk
+
+    return dense_topk(emb, torch.from_numpy(qv).to(DEV), valid, POOL)[1].cpu().numpy()
+
+
+def _config_engine_pass(torch, engine, qvecs, qstrings, name, w):
+    """The numbers of one int8 / IVF engine on the main path: run_search at
+    rerank_k 0 (CFG_QUERIES queries, 12 attention launches each),
+    search_dense, query_fused_batched QPS at B = 32 and 128 with the peak
+    device memory of each. Returns the attention launches."""
+    queries = qstrings[:CFG_QUERIES]
+    _check_rows(engine.run_search(queries[0], k=K, rerank_k=0)[0], name)
+    engine.search_dense(qvecs[0], K)[0].cpu()
+    torch.cuda.synchronize()
+    _zero_counts()
+    lat = []
+    for q in queries:
+        t0 = time.perf_counter()
+        rows = engine.run_search(q, k=K, rerank_k=0)[0]
+        lat.append((time.perf_counter() - t0) * 1e3)
+        _check_rows(rows, name)
+    counts = _counts()
+    want = {**{n: 0 for n in counts}, "mha_fwd": 12 * len(queries)}
+    check(counts == want, name, f"run_search launches {counts}, want {want}")
+    dense = []
+    for i in range(CFG_QUERIES):
+        t0 = time.perf_counter()
+        ids, sc = engine.search_dense(qvecs[i], K)
+        ids.cpu()
+        dense.append((time.perf_counter() - t0) * 1e3)
+    qps, peak = {}, {}
+    for b in BATCHES:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        qps[b] = _batched_qps(engine, qvecs, qstrings, w, b)
+        peak[b] = torch.cuda.max_memory_allocated() - base
+    emit({"phase": name, "card": _card(), "dense_pool": engine.dense_pool,
+          "int8": engine.int8_mode, "run_search_rerank_k0": _pct(lat),
+          "search_dense": _pct(dense), "batched_qps": {f"B{b}": qps[b] for b in BATCHES},
+          "peak_bytes_over_resident": {f"B{b}": peak[b] for b in BATCHES},
+          "attention_launches": counts["mha_fwd"], "queries_cut_to": CFG_QUERIES})
+    return counts["mha_fwd"]
+
+
+def _op_row(torch, name, fn, nbytes, ops, peak_ops, reps=20):
+    """One line of device work that is not a Pallas kernel: the median of
+    `reps` CUDA-event-timed calls behind a warm-up, and its bound: the
+    larger of the bytes over the HBM rate and the operations over their
+    type's peak."""
+    fn()
+    torch.cuda.synchronize()
+    ms = _median_ms(torch, fn, reps)
+    by_bytes, by_ops = nbytes / PEAK_HBM_BYTES * 1e3, ops / peak_ops * 1e3
+    return {"op": name, "ms": ms, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": int(nbytes), "ops": int(ops)}
+
+
+def _int8_op_rows(torch, eng, qvecs):
+    """dense_scores_int8 alone (the int8 product, rescale and mask) at
+    B = 1, 32, 128 on the engine's corpus."""
+    from review_recommender_tpu_torch.ops.dense import dense_scores_int8
+
+    a = eng.arrays
+    n, d = a["emb_q"].shape
+    rows = []
+    for b in (1,) + BATCHES:
+        q = torch.from_numpy(qvecs[:b]).to(DEV)
+        q = q[0] if b == 1 else q
+        nbytes = n * d + n * 4 + n + b * d * 4 + b * n * 4
+        rows.append({"B": b, **_op_row(torch, "dense_scores_int8", lambda: dense_scores_int8(
+            a["emb_q"], a["emb_scale"], q, a["valid"]), nbytes, 2 * b * n * d, PEAK_INT8_OPS)})
+    return rows
+
+
+def _ivf_op_rows(torch, eng, cq):
+    """ivf_topk alone at B = 1, 32, 128 (nprobe 64, pool 150), and one
+    k-means assignment of a 65,536-row block against the centroids (f32)."""
+    from review_recommender_tpu_torch.ops.ivf import IVF_KEYS, ivf_topk
+    from review_recommender_tpu_torch.topics.cluster import _assign
+
+    a = eng.arrays
+    dev = tuple(a[k] for k in IVF_KEYS)
+    nb, mb, d = a["ivf_blocks"].shape
+    c = a["ivf_centroids"].shape[0]
+    it = a["ivf_blocks"].element_size()
+    npb = min(eng.ivf_nprobe, nb)
+    rows = []
+    for b in (1,) + BATCHES:
+        q = torch.from_numpy(cq[:b]).to(DEV)
+        q = q[0] if b == 1 else q
+        nbytes = c * d * it + nb * 8 + nb * mb + b * npb * mb * (d * it + 5) + b * d * 4 \
+            + b * POOL * 12
+        ops = 2 * b * c * d + 2 * b * npb * mb * d
+        rows.append({"B": b, "nprobe": npb, **_op_row(
+            torch, "ivf_topk", lambda: ivf_topk(*dev, q, POOL, npb), nbytes, ops,
+            PEAK_BF16_FLOPS)})
+    blk = a["emb"][:65536].float()
+    cen = a["ivf_centroids"].float()
+    ok = torch.ones(blk.shape[0], dtype=torch.bool, device=DEV)
+    r = blk.shape[0]
+    nbytes = r * d * 4 + c * d * 4 + r + r * 8 + c * 4 + c * d * 4
+    rows.append({"rows": r, "centroids": c, **_op_row(
+        torch, "kmeans_assign", lambda: _assign(blk, cen, ok, c), nbytes, 2 * r * c * d,
+        PEAK_FP32_FLOPS, reps=10)})
+    return rows
+
+
+def _int8_configs(torch, engine_bf16, be, qvecs, qstrings, w):
+    """EMB_DTYPE=int8, exact and striped, on phase 4's corpus."""
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+
+    p = engine_bf16.products
+    ref = _exact_bf16_pool(torch, engine_bf16.arrays["emb"], engine_bf16.arrays["valid"], qvecs)
+    launches = 0
+    for pool in ("exact", "striped"):
+        t0 = time.perf_counter()
+        eng = SearchEngine(IndexBundle(products=p), device=DEV, emb_dtype="int8",
+                           dense_pool=pool, query_encoder=be)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        name = f"config_int8_{pool}"
+        check(eng.int8_mode and "emb" not in eng.arrays and eng.dense_pool == pool, name,
+              f"engine {eng.dense_pool} int8={eng.int8_mode} arrays {sorted(eng.arrays)}")
+        corpus = {k: v.numel() * v.element_size() for k, v in eng.arrays.items()
+                  if k in ("emb_q", "emb_scale", "emb_qs", "emb_scale_s", "valid_s")}
+        # held to the plain version on the CPU: ids and scores bit-equal
+        q16 = torch.from_numpy(qvecs[:CFG_CHECK]).to(DEV)
+        s_dev, i_dev = eng._dense_topk(eng.arrays, q16, POOL)
+        s_cpu, i_cpu = _pool_on_cpu(eng, q16)
+        bit_equal = bool(torch.equal(i_dev.cpu(), i_cpu) and torch.equal(s_dev.cpu(), s_cpu))
+        pool_ids = eng._dense_topk(eng.arrays, torch.from_numpy(qvecs).to(DEV), POOL)[1]
+        recall = _recall(ref, pool_ids.cpu().numpy())
+        emit({"phase": f"{name}_setup", "card": _card(), "init_s": init_s,
+              "corpus_device_bytes": corpus, "corpus_total_bytes": sum(corpus.values()),
+              "bf16_emb_bytes": engine_bf16.arrays["emb"].numel() * 2,
+              "hbm_estimate_bytes": eng.hbm_report["total_bytes"],
+              "check_queries": CFG_CHECK, "bit_equal_to_cpu": bit_equal,
+              "max_abs_err": float((s_dev.cpu() - s_cpu).abs().max()),
+              "pool_recall_vs_bf16_exact": recall, "recall_queries": len(qvecs)})
+        check(bit_equal, name, "card pool differs from the plain version on the CPU")
+        if pool == "exact":
+            emit({"phase": "config_device_ops", "card": _card(),
+                  "rows": _int8_op_rows(torch, eng, qvecs)})
+        launches += _config_engine_pass(torch, eng, qvecs, qstrings, name, w)
+        del eng
+    return launches
+
+
+def _clustered_products(torch, products):
+    """Phase 4's products with bench.py's clustered geometry in place of its
+    isotropic rows (same shape; bench.py's IVF section, seed 7: 256 unit
+    centers, noise of norm 0.7 per row), and 256 queries drawn near rows."""
+    rng = np.random.default_rng(IVF_SEED)
+    n, d = products.n_docs, products.dim
+    centers = rng.standard_normal((IVF_CLUSTERS, d)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    emb = centers[rng.integers(0, IVF_CLUSTERS, n)] + (IVF_NOISE / np.sqrt(d)) * \
+        rng.standard_normal((n, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    qs = emb[rng.integers(0, n, BENCH_QUERIES)] + (0.5 / np.sqrt(d)) * \
+        rng.standard_normal((BENCH_QUERIES, d)).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    full = np.zeros_like(products.emb)
+    full[:n] = emb
+    return dataclasses.replace(products, emb=full), qs.astype(np.float32)
+
+
+def _ivf_config(torch, engine_bf16, be, qvecs, qstrings, w):
+    """DENSE_POOL_MODE=ivf at the auto sizes on the clustered corpus, and
+    the self-check on phase 4's isotropic corpus (reported, not held)."""
+    from review_recommender_tpu_torch.config import config
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+    from review_recommender_tpu_torch.ops.ivf import IVF_KEYS, ivf_footprint_bound, ivf_topk
+
+    products, cq = _clustered_products(torch, engine_bf16.products)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = SearchEngine(IndexBundle(products=products), device=DEV, dense_pool="ivf",
+                       query_encoder=be)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base  # engine, k-means, self-check
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    name = "config_ivf"
+    st = eng.ivf.stats
+    a = eng.arrays
+    emb_bytes = a["emb"].numel() * a["emb"].element_size()
+    bound = ivf_footprint_bound(products.n_docs, products.dim, a["emb"].element_size(),
+                                config.IVF_CENTROIDS, config.IVF_BLOCK_ROWS)
+    ref = _exact_bf16_pool(torch, a["emb"], a["valid"], cq)
+    recall = {}
+    for nprobe in IVF_NPROBES:
+        eng.ivf_nprobe = nprobe
+        recall[nprobe] = _recall(ref, eng._dense_topk(a, torch.from_numpy(cq).to(DEV),
+                                                      POOL)[1].cpu().numpy())
+    eng.ivf_nprobe = config.IVF_NPROBE
+    recall_peak = torch.cuda.max_memory_allocated() - base  # B=256 at nprobe 64 and 256
+    # held to ivf_topk's plain version on the CPU, given the card-built index
+    dev = tuple(a[k] for k in IVF_KEYS)
+    q16 = torch.from_numpy(cq[:CFG_CHECK]).to(DEV)
+    s_dev, i_dev = ivf_topk(*dev, q16, POOL, eng.ivf_nprobe)
+    s_cpu, i_cpu = ivf_topk(*(t.cpu() for t in dev), q16.cpu(), POOL, eng.ivf_nprobe)
+    s_dev, i_dev = s_dev.cpu(), i_dev.cpu()
+    err = float((s_dev - s_cpu).abs().max())
+    differ = (i_dev != i_cpu)
+    near = differ & ((s_dev - s_cpu).abs() <= STAGE_A_TOL)
+    emit({"phase": f"{name}_setup", "card": _card(), "corpus": "phase 4's products, "
+          "bench.py's clustered rows (256 centers, noise 0.7, seed 7)",
+          "init_s": init_s, "seed_s": st["seed_s"], "kmeans_iters_s": st["iters_s"],
+          "kmeans_iters": st["iters"], "centroids": st["n_centroids"],
+          "block_rows": st["block_rows"], "blocks": st["n_blocks"], "fill": st["fill"],
+          "nprobe": eng.ivf_nprobe, "selfcheck_recall": eng.ivf_pool_recall,
+          "selfcheck_min": config.IVF_SELFCHECK_MIN,
+          "pool_recall_vs_bf16_exact": {f"nprobe{k}": v for k, v in recall.items()},
+          "ivf_device_bytes": st["device_bytes"], "jax_estimate_bytes": int(1.25 * emb_bytes),
+          "bound_bytes": bound,
+          "emb_bytes": emb_bytes,
+          "init_peak_bytes_over_resident": init_peak,
+          "recall_pass_peak_bytes_over_resident": recall_peak,
+          "check_queries": CFG_CHECK, "max_abs_err_vs_cpu": err,
+          "ids_differ": int(differ.sum()), "ids_differ_beyond_near_tie": int((differ & ~near).sum())})
+    check(eng.ivf_pool_recall >= config.IVF_SELFCHECK_MIN, name,
+          f"self-check recall {eng.ivf_pool_recall} < {config.IVF_SELFCHECK_MIN}")
+    check(err <= STAGE_A_TOL and not (differ & ~near).any(), name,
+          f"card ivf_topk differs from the CPU run: {err}, {int((differ & ~near).sum())} ids")
+    check(st["device_bytes"] <= bound, name, f"IVF bytes {st['device_bytes']} over the bound {bound}")
+    emit({"phase": "config_device_ops", "card": _card(), "rows": _ivf_op_rows(torch, eng, cq)})
+    launches = _config_engine_pass(torch, eng, cq, qstrings, name, w)
+    del eng
+    t0 = time.perf_counter()
+    iso = SearchEngine(IndexBundle(products=engine_bf16.products), device=DEV, dense_pool="ivf")
+    emit({"phase": "config_ivf_isotropic", "card": _card(), "init_s": time.perf_counter() - t0,
+          "corpus": "phase 4's isotropic rows (IVF's worst case)",
+          "selfcheck_recall": iso.ivf_pool_recall, "blocks": iso.ivf.n_blocks,
+          "fill": iso.ivf.stats["fill"], "warned": iso.ivf_pool_recall < config.IVF_SELFCHECK_MIN})
+    del iso
+    return launches
+
+
+def _write_safetensors(path, arrays) -> None:
+    """The safetensors layout, written here rather than by the reader's
+    package: 8-byte little-endian header length, JSON header, raw f32."""
+    header, off, blobs = {}, 0, []
+    for name, arr in arrays.items():
+        b = np.ascontiguousarray(arr, dtype="<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(arr.shape), "data_offsets": [off, off + len(b)]}
+        off += len(b)
+        blobs.append(b)
+    head = json.dumps(header).encode()
+    head += b" " * ((-len(head)) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for b in blobs:
+            f.write(b)
+
+
+def _msgpack(obj) -> bytes:
+    """The msgpack of a tree of dicts with str keys and f32 array leaves, as
+    flax.serialization.to_bytes writes it (an array is ext 1 holding
+    (shape, dtype name, buffer))."""
+    import struct
+
+    def raw(tag, n, small, codes):
+        if n < small:
+            return bytes([tag | n])
+        for width, code in codes:
+            if n < 1 << (8 * width):
+                return bytes([code]) + n.to_bytes(width, "big")
+        raise ValueError(n)
+
+    def pack(x) -> bytes:
+        if isinstance(x, dict):
+            return raw(0x80, len(x), 16, ((2, 0xDE), (4, 0xDF))) + b"".join(
+                pack(k) + pack(v) for k, v in x.items())
+        if isinstance(x, (list, tuple)):
+            return raw(0x90, len(x), 16, ((2, 0xDC), (4, 0xDD))) + b"".join(pack(v) for v in x)
+        if isinstance(x, str):
+            b = x.encode()
+            return raw(0xA0, len(b), 32, ((1, 0xD9), (2, 0xDA), (4, 0xDB))) + b
+        if isinstance(x, bytes):
+            return raw(0, len(x), 0, ((1, 0xC4), (2, 0xC5), (4, 0xC6))) + x
+        if isinstance(x, int) and 0 <= x < 2**32:
+            return bytes([x]) if x < 128 else b"\xce" + struct.pack(">I", x)
+        if isinstance(x, np.ndarray):
+            arr = np.ascontiguousarray(x, dtype=np.float32)
+            body = pack([list(arr.shape), "float32", arr.tobytes()])
+            return raw(0, len(body), 0, ((1, 0xC7), (2, 0xC8), (4, 0xC9))) + b"\x01" + body
+        raise TypeError(type(x))
+
+    return pack(obj)
+
+
+def _golden_vocab(path) -> None:
+    """A 30,522-line WordPiece vocab in bert-base-uncased's layout ([PAD] 0,
+    [unused*], [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103), then the
+    synthetic corpus's words t1..tN whole and the '##' digit pieces that
+    split the rest (t29500 -> t2950 ##0)."""
+    lines = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                               "[MASK]", "t"]
+    lines += [f"##{i}" for i in range(10)] + [f"##{i:02d}" for i in range(100)]
+    lines += [f"##{i:03d}" for i in range(1000)]
+    lines += [f"t{i}" for i in range(1, WP_VOCAB - len(lines) + 1)]
+    Path(path).write_text("\n".join(lines) + "\n", encoding="utf-8")
+
+
+def _write_towers(torch) -> dict:
+    """The full-size golden's towers on disk, from its manifest and seeds
+    (tests/golden_utils.py): per kind an HF snapshot with model.safetensors
+    (written here), one with pytorch_model.bin, and a native tower
+    (params.msgpack, config.json with the rrt-native-v1 marker), each with
+    the 30,522-line vocab. Returns {(kind, layout): dir} and the seconds."""
+    from review_recommender_tpu_torch.models.bert import BertConfig
+    from review_recommender_tpu_torch.models.convert import convert_biencoder, convert_crossencoder
+    from tests.golden_utils import manifest_from_npz, synth_state_arrays
+
+    import shutil
+
+    shutil.rmtree(TOWER_DIR, ignore_errors=True)
+    TOWER_DIR.mkdir(parents=True)
+    g = np.load(GOLDEN)
+    vocab = TOWER_DIR / "vocab.txt"
+    _golden_vocab(vocab)
+    out, secs = {}, {}
+    for kind, (_io, manifest, seed) in GOLDEN_SEEDS.items():
+        t0 = time.perf_counter()
+        sd = synth_state_arrays(manifest_from_npz(g, manifest), seed=seed)
+        cfg = BertConfig.bge_small() if kind == "biencoder" else BertConfig.minilm_l6_cross()
+        hf_cfg = {"vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                  "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+                  "intermediate_size": cfg.intermediate_size,
+                  "max_position_embeddings": cfg.max_position, "type_vocab_size": 2,
+                  "layer_norm_eps": 1e-12, "hidden_act": "gelu", "pad_token_id": 0}
+        for layout in ("safetensors", "bin", "native"):
+            d = TOWER_DIR / f"{kind}_{layout}"
+            d.mkdir()
+            shutil.copy(vocab, d / "vocab.txt")
+            if layout == "safetensors":
+                _write_safetensors(d / "model.safetensors", sd)
+            elif layout == "bin":
+                torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+                           d / "pytorch_model.bin")
+            else:
+                conv = convert_biencoder if kind == "biencoder" else convert_crossencoder
+                (d / "params.msgpack").write_bytes(_msgpack(conv(sd, cfg)))
+                hf = {"format": "rrt-native-v1", "kind": kind, "pooling": "cls",
+                      "tokenizer": {"type": "wordpiece", "lowercase": True},
+                      **dataclasses.asdict(cfg)}
+                (d / "config.json").write_text(json.dumps(hf))
+                out[kind, layout] = d
+                continue
+            (d / "config.json").write_text(json.dumps(hf_cfg))
+            out[kind, layout] = d
+        secs[kind] = time.perf_counter() - t0
+    return out, secs
+
+
+def _golden_forward(torch, tower, kind, g):
+    """The tower's forward on the golden's inputs, f32 numpy."""
+    prefix = GOLDEN_SEEDS[kind][0]
+    ids, mask, tt = (torch.from_numpy(g[f"{prefix}in_{k}"].astype(np.int32)).to(DEV)
+                     for k in ("ids", "mask", "tt"))
+    with torch.inference_mode():
+        return tower.model(ids, mask, tt).float().cpu().numpy()
+
+
+def _tower_configs(torch, engine_bf16, w):
+    """Towers from disk: write the golden's snapshots, load each through
+    models/load.py on the card, F3's measurement against the golden's f32
+    HF outputs, forward times, then run_search and query_e2e at rerank_k
+    50. Returns the attention launches of the counted runs."""
+    from review_recommender_tpu_torch.config import config
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.build import synth_product_index
+    from review_recommender_tpu_torch.index.io import save_bundle
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+    from review_recommender_tpu_torch.models import load
+    from review_recommender_tpu_torch.models.load import read_safetensors
+    from review_recommender_tpu_torch.ops import attention as A
+    from review_recommender_tpu_torch.serve import cli
+
+    import shutil
+
+    card = _card()
+    dirs, write_s = _write_towers(torch)
+    # the writer is not trusted to check itself: its file against the .bin
+    for kind in GOLDEN_SEEDS:
+        st = read_safetensors(dirs[kind, "safetensors"] / "model.safetensors")
+        bn = torch.load(dirs[kind, "bin"] / "pytorch_model.bin", weights_only=True)
+        check(sorted(st) == sorted(bn) and all(np.array_equal(st[k], bn[k].numpy()) for k in st),
+              "config_towers", f"{kind}: safetensors and .bin weights differ")
+    g = np.load(GOLDEN)
+    towers, load_s, golden = {}, {}, {}
+    for kind in GOLDEN_SEEDS:
+        loader = load.load_biencoder if kind == "biencoder" else load.load_crossencoder
+        outs = {}
+        for layout in ("safetensors", "bin", "native"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tower = loader(dirs[kind, layout], device=DEV)
+            torch.cuda.synchronize()
+            load_s[f"{kind}_{layout}"] = time.perf_counter() - t0
+            outs[layout] = _golden_forward(torch, tower, kind, g)
+            towers[kind] = tower
+        check(all(np.array_equal(outs["safetensors"], o) for o in outs.values()),
+              "config_towers", f"{kind}: the three layouts load different towers")
+        tower = towers[kind]
+        want = g[f"{GOLDEN_SEEDS[kind][0]}out"]
+        tower.set_attn_impl("reference")
+        ref = _golden_forward(torch, tower, kind, g)
+        tower.set_attn_impl("auto")
+        golden[kind] = {"kernel_max_abs_diff": float(np.abs(outs["safetensors"] - want).max()),
+                        "reference_max_abs_diff": float(np.abs(ref - want).max()),
+                        "kernel_vs_reference": float(np.abs(outs["safetensors"] - ref).max()),
+                        "hf_out_range": [float(want.min()), float(want.max())]}
+    be, ce = towers["biencoder"], towers["crossencoder"]
+    fwd = {}
+    with torch.inference_mode():
+        for name, tower, (b, s) in (("biencoder_B1_S16", be, (1, 16)),
+                                    ("crossencoder_B50_S287", ce, (50, 287)),
+                                    ("crossencoder_B64_S512", ce, (64, 512))):
+            ids = torch.randint(1000, WP_VOCAB, (b, s), device=DEV, dtype=torch.int32)
+            mask = torch.ones_like(ids)
+            tower.model(ids, mask, mask)
+            fwd[name] = _median_ms(torch, lambda: tower.model(ids, mask, mask), 20)
+    emit({"phase": "config_towers", "card": card, "write_s": write_s, "load_s": load_s,
+          "golden_bf16_vs_hf_f32": golden, "forward_ms": fwd, "dtype": str(be.model.encoder.dtype),
+          "what": "F3 at the full-size layout: the loaded towers in bf16 with the CUDA "
+                  "attention and with mha_reference, against the golden's f32 HF outputs"})
+    check(all(v["kernel_vs_reference"] <= KERNEL_TOL for v in golden.values()), "config_towers",
+          f"kernel and reference attention differ beyond {KERNEL_TOL}: {golden}")
+
+    # run_search at rerank_k 50 on phase 4's corpus with the loaded towers
+    queries = _queries(TOWER_QUERIES, DIM, VOCAB, seed=46)
+    eng = SearchEngine(IndexBundle(products=engine_bf16.products), device=DEV,
+                       query_encoder=be, cross_encoder=ce)
+    _check_rows(eng.run_search(queries[0], k=K, rerank_k=RERANK_K)[0], "config_towers")
+    _zero_counts()
+    lat, kept = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        rows = eng.run_search(q, k=K, rerank_k=RERANK_K)[0]
+        lat.append((time.perf_counter() - t0) * 1e3)
+        _check_rows(rows, "config_towers")
+        kept.append(rows)
+    counts = _counts()
+    want = {**{n: 0 for n in counts}, "mha_fwd": 18 * TOWER_QUERIES}
+    check(counts == want, "config_towers", f"run_search launches {counts}, want {want}")
+    launches = counts["mha_fwd"]
+    be.set_attn_impl("reference")
+    ce.set_attn_impl("reference")
+    try:
+        rows_r = [eng.run_search(q, k=K, rerank_k=RERANK_K)[0] for q in queries]
+    finally:
+        be.set_attn_impl("auto")
+        ce.set_attn_impl("auto")
+    emit({"phase": "config_towers_run_search", "card": card, "n_docs": N_DOCS,
+          "rerank_k": RERANK_K, "run_search": _pct(lat), "attention_launches": launches,
+          "queries_cut_to": TOWER_QUERIES})
+    _crosscheck(kept, rows_r, "config_towers_crosscheck")
+    del eng
+
+    # the CLI's loader: EMB_MODEL_DIR / RERANK_MODEL_DIR on a saved bundle
+    # whose rerank tokens it re-tokenizes, then query_e2e on it
+    small = synth_product_index(SMALL_DOCS, DIM, VOCAB, TERMS, seed=5, text_chars=SMALL_TEXT_CHARS)
+    # another tokenizer's ids, which the loader must replace
+    small.doc_tokens = np.full((small.n_padded, DOC_TOKENS), 7, np.int32)
+    small.doc_token_len = np.full(small.n_padded, 3, np.int32)
+    bdir = TOWER_DIR / "bundle"
+    save_bundle(IndexBundle(products=small), bdir)
+    saved = {n: getattr(config, n) for n in ("EMB_MODEL_DIR", "RERANK_MODEL_DIR")}
+    config.EMB_MODEL_DIR = str(dirs["biencoder", "safetensors"])
+    config.RERANK_MODEL_DIR = str(dirs["crossencoder", "native"])
+    try:
+        t0 = time.perf_counter()
+        cli_eng = cli._load_engine(str(bdir), with_rerank=True, device=DEV)
+        cli_s = time.perf_counter() - t0
+    finally:
+        for n, v in saved.items():
+            setattr(config, n, v)
+    toks = cli_eng.arrays["doc_tokens"].cpu().numpy()
+    lens = cli_eng.arrays["doc_token_len"].cpu().numpy()
+    first = cli_eng._ce.tokenizer.token_ids(str(small.agg_texts[0])[:2000])[:DOC_TOKENS]
+    check(toks[0, :len(first)].tolist() == first and lens[0] == len(first), "config_towers_e2e",
+          "the CLI engine's rerank tokens are not the cross-encoder's")
+    check(int(lens.max()) < DOC_TOKENS, "config_towers_e2e", "rerank tokens truncate")
+    wq = _queries(TOWER_QUERIES, DIM, VOCAB, seed=47)
+    _e2e_rows(cli_eng, *cli_eng.query_e2e(wq[0], w, POOL, K, rr_k=RERANK_K))
+    counter, restore = _count_plain_calls([(A, "mha_reference")])
+    _zero_counts()
+    try:
+        lat_e2e, e2e_rows = [], []
+        for q in wq:
+            t0 = time.perf_counter()
+            e2e_rows.append(_e2e_rows(cli_eng, *cli_eng.query_e2e(q, w, POOL, K, rr_k=RERANK_K)))
+            lat_e2e.append((time.perf_counter() - t0) * 1e3)
+            _check_rows(e2e_rows[-1], "config_towers_e2e")
+        lat_rs, host_rows = [], []
+        for q in wq:
+            t0 = time.perf_counter()
+            host_rows.append(cli_eng.run_search(q, k=K, rerank_k=RERANK_K, **RERANK_KNOBS)[0])
+            lat_rs.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        restore()
+    counts = _counts()
+    want = {**{n: 0 for n in counts}, "mha_fwd": 2 * 18 * TOWER_QUERIES}
+    emit({"phase": "config_towers_e2e", "card": card, "docs": SMALL_DOCS,
+          "emb_model_dir": "biencoder_safetensors", "rerank_model_dir": "crossencoder_native",
+          "load_engine_s": cli_s, "longest_doc_tokens": int(lens.max()),
+          "query_e2e": _pct(lat_e2e), "run_search": _pct(lat_rs),
+          "attention_launches": counts["mha_fwd"], "reference_calls": counter["calls"],
+          "queries_cut_to": TOWER_QUERIES})
+    check(counts == want and counter["calls"] == 0, "config_towers_e2e",
+          f"launches {counts} (want {want}), {counter['calls']} reference calls")
+    _crosscheck(e2e_rows, host_rows, "config_towers_e2e_vs_run_search")
+    del cli_eng
+    shutil.rmtree(TOWER_DIR, ignore_errors=True)
+    return launches + counts["mha_fwd"]
+
+
+def phase_configurations(torch, engine, qvecs):
+    """Phase 14: the int8 corpus (exact, striped) and the IVF pool on phase
+    4's 200k data, and towers loaded from disk. Returns the attention
+    launches of its counted runs."""
+    from review_recommender_tpu_torch.ops.fusion import FusionWeights
+
+    _q, _t, qstrings = _bench_queries(BENCH_QUERIES, DIM, VOCAB)
+    w = FusionWeights.make(*BENCH_W)
+    be = engine.query_encoder
+    launches = _int8_configs(torch, engine, be, qvecs, qstrings, w)
+    launches += _ivf_config(torch, engine, be, qvecs, qstrings, w)
+    launches += _tower_configs(torch, engine, FusionWeights.make(*RERANK_W))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2174,6 +2769,7 @@ def main() -> int:
         phase_snippets(torch, engine)
         launches += phase_serve(torch, engine, qvecs)
         launches += phase_offline(torch, engine)
+        launches += phase_configurations(torch, engine, qvecs)
     except PhaseError as exc:
         emit({"phase": "failed", "error": str(exc)})
         return 3

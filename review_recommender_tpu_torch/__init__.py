@@ -12,12 +12,15 @@ names mirror the JAX package so each counterpart is easy to find:
                   bundle), bundle save/load (numpy host columns, a JAX
                   bundle's parquet where pyarrow is installed), synthetic
                   corpus, BM25 stats, rerank tokens, the review index
-    ops           dense pool, BM25, gate, fusion, review segment max (plain
-                  torch); the fused attention, the full-corpus BM25 scans
-                  and the fused stage A (hand-written CUDA kernels, csrc/)
-    models        BERT towers as nn.Modules, flax -> torch weight mapping,
-                  bucketed bi-/cross-encoder wrappers, the bag-of-words
-                  encoder and overlap scorer
+    ops           dense pool (exact, striped, IVF; float or int8 corpus),
+                  BM25, gate, fusion, review segment max (plain torch); the
+                  fused attention, the full-corpus BM25 scans and the fused
+                  stage A (hand-written CUDA kernels, csrc/)
+    models        BERT towers as nn.Modules, HF and flax -> torch weight
+                  mapping, checkpoint loading (HF snapshots, native towers),
+                  WordPiece and hash tokenizers, bucketed bi-/cross-encoder
+                  wrappers, the bag-of-words encoder and overlap scorer
+    topics        spherical k-means (the IVF pool's clustering)
     engine        featurizer, host hooks, snippet recovery, SearchEngine:
                   run_search, the fused and batched forms, query_e2e,
                   query_rerank_batched_pw, search_bm25 and search_dense
@@ -30,7 +33,7 @@ names mirror the JAX package so each counterpart is easy to find:
                   benchmark runner, the quality table's bow lane
 
 The package imports torch, numpy and the standard library, and nothing of
-the JAX package, jax, flax, pandas or pyarrow (index/io.py imports pyarrow
+the JAX package, jax, flax, msgpack, safetensors, pandas or pyarrow (index/io.py imports pyarrow
 only to read a JAX bundle's parquet files). Its entry points
 (`SearchEngine`, `BiEncoder`, `CrossEncoder`, the CLI) run on "cuda"
 unless the caller passes device="cpu".

@@ -2,8 +2,8 @@
 
 The same variable names and defaults as the JAX package's config
 (`review_recommender_tpu/config.py`), limited to what the engine reads:
-embedding dtype, gate and dense-pool modes, the query- and document-term
-caps, the feature flags, the least candidate pool, the search defaults,
+embedding dtype, gate and dense-pool modes (with the IVF pool's knobs),
+the query- and document-term caps, the feature flags, the least candidate pool, the search defaults,
 the tower directories and mesh width the CLI checks, and the server's
 address, log path and level, environment and micro-batch knobs. Each knob
 is read once, when this module is imported; tests patch the `config`
@@ -39,21 +39,31 @@ class Config:
     LOG_FORMAT = os.getenv(
         "LOG_FORMAT", "%(asctime)s - %(name)s - %(levelname)s - %(message)s")
 
-    # local tower snapshots; the port cannot load them yet (ROADMAP Queue 1
-    # item 5b), so the CLI refuses to start when either is set
+    # tower directories the CLI loads (models/load.py: an HF snapshot or a
+    # native tower); empty = random towers of the JAX CLI's shapes
     EMB_MODEL_DIR = os.getenv("EMB_MODEL_DIR", "")
     RERANK_MODEL_DIR = os.getenv("RERANK_MODEL_DIR", "")
 
-    # device dtype of the corpus embedding matrix
+    # device dtype of the corpus embedding matrix: bfloat16, float32,
+    # float16, or int8 (per-row symmetric, ops/dense.py:quantize_corpus_int8)
     EMB_DTYPE = os.getenv("EMB_DTYPE", "bfloat16")
     # "device" (term-membership gate, no host sync) or "host" (exact
     # substring semantics, computed on the candidate pool host-side)
     GATE_MODE = os.getenv("GATE_MODE", "device")
-    # dense candidate pool: "exact", "striped" or "auto" (striped from
-    # DENSE_POOL_AUTO_MIN padded rows on, exact below)
+    # dense candidate pool: "exact", "striped", "ivf" or "auto" (striped
+    # from DENSE_POOL_AUTO_MIN padded rows on, exact below; never ivf)
     DENSE_POOL_MODE = os.getenv("DENSE_POOL_MODE", "auto")
     DENSE_POOL_AUTO_MIN = _env_int("DENSE_POOL_AUTO_MIN", "65536")
     DENSE_POOL_STRIPES = _env_int("DENSE_POOL_STRIPES", "8192")
+    # the IVF pool (ops/ivf.py): blocks probed per query; rows per block and
+    # centroids, 0 = auto (mean cluster size; ~4*sqrt(N))
+    IVF_NPROBE = _env_int("IVF_NPROBE", "64")
+    IVF_BLOCK_ROWS = _env_int("IVF_BLOCK_ROWS", "0")
+    IVF_CENTROIDS = _env_int("IVF_CENTROIDS", "0")
+    # the engine's init self-check of IVF pool recall against the exact
+    # pool, on this many corpus rows as queries (0 = off); warns below MIN
+    IVF_SELFCHECK_QUERIES = _env_int("IVF_SELFCHECK_QUERIES", "16")
+    IVF_SELFCHECK_MIN = _env_float("IVF_SELFCHECK_MIN", "0.95")
     # padded query terms for the BM25 and gate device ops
     QUERY_TERMS_CAP = _env_int("QUERY_TERMS_CAP", "32")
     # devices the corpus is sharded over; the port serves one (item 12)
@@ -100,8 +110,21 @@ class Config:
             raise ValueError("QUERY_TERMS_CAP must be positive")
         if cls.GATE_MODE not in ("device", "host"):
             raise ValueError(f"GATE_MODE must be 'device' or 'host', got {cls.GATE_MODE!r}")
+        if cls.EMB_DTYPE not in ("bfloat16", "float32", "float16", "int8"):
+            raise ValueError(f"Unsupported EMB_DTYPE: {cls.EMB_DTYPE!r}")
+        if cls.DENSE_POOL_MODE not in ("auto", "exact", "striped", "ivf"):
+            raise ValueError(
+                f"DENSE_POOL_MODE must be 'auto', 'exact', 'striped' or "
+                f"'ivf', got {cls.DENSE_POOL_MODE!r}"
+            )
         if cls.DENSE_POOL_STRIPES <= 0:
             raise ValueError("DENSE_POOL_STRIPES must be positive")
+        if cls.IVF_NPROBE <= 0:
+            raise ValueError("IVF_NPROBE must be positive")
+        if cls.IVF_BLOCK_ROWS < 0 or cls.IVF_CENTROIDS < 0:
+            raise ValueError(
+                "IVF_BLOCK_ROWS and IVF_CENTROIDS must be >= 0 (0 = auto)"
+            )
         if cls.DENSE_POOL_AUTO_MIN <= 0:
             raise ValueError("DENSE_POOL_AUTO_MIN must be positive")
 

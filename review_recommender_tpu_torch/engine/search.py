@@ -58,9 +58,13 @@ the path.
 The host featurizer is the port's C++ one (engine/featurize.py) unless the
 caller passes featurizer="python", the plain version.
 
-Not ported yet, and refused with NotImplementedError rather than run some
-other way: the IVF pool (ROADMAP Queue 1 item 10) and the int8 corpus
-(item 11).
+The dense pool is exact, striped, or IVF (ops/ivf.py: k-means blocks
+built once at init on the engine's device, probed by centroid score; a
+pool-recall self-check against the exact pool warns below
+IVF_SELFCHECK_MIN), over a bf16/f16/f32 corpus or, with EMB_DTYPE=int8, a
+per-row int8 one (ops/dense.py: emb_q + emb_scale in place of emb,
+exact or striped; the rest of the engine's tensors stay bf16). IVF needs a
+float corpus and refuses int8 with ValueError, as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -103,8 +107,11 @@ from review_recommender_tpu_torch.ops.bm25_kernel import (
 )
 from review_recommender_tpu_torch.ops.dense import (
     dense_scores,
+    dense_scores_int8,
     dense_striped_topk_scan,
+    dense_striped_topk_scan_int8,
     slice_corpus_for_striped,
+    slice_corpus_for_striped_int8,
     stable_topk,
 )
 from review_recommender_tpu_torch.ops.fusion import FusionWeights, final_topk, fuse_candidates
@@ -201,34 +208,45 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
         self.reviews = bundle.reviews
         self.n_docs = self.products.n_docs
         raw_dtype = emb_dtype or config.EMB_DTYPE
-        if raw_dtype == "int8":
-            raise NotImplementedError(
-                "EMB_DTYPE=int8 is not ported yet (ROADMAP Queue 1 item 11)")
-        if raw_dtype not in _DTYPES:
+        self.int8_mode = raw_dtype == "int8"
+        if not self.int8_mode and raw_dtype not in _DTYPES:
             raise ValueError(f"unsupported emb_dtype {raw_dtype!r}")
-        self.dtype = _DTYPES[raw_dtype]
+        # an int8 engine keeps everything but the corpus rows in bf16
+        self.dtype = torch.bfloat16 if self.int8_mode else _DTYPES[raw_dtype]
         self.gate_mode = gate_mode or config.GATE_MODE
         if self.gate_mode not in ("device", "host"):
             raise ValueError(f"gate_mode must be 'device' or 'host', got {self.gate_mode!r}")
         self.dense_pool = config.resolve_pool_mode(
             dense_pool or config.DENSE_POOL_MODE, self.products.n_padded)
-        if self.dense_pool == "ivf":
-            raise NotImplementedError(
-                "DENSE_POOL_MODE=ivf is not ported yet (ROADMAP Queue 1 item 10)")
-        if self.dense_pool not in ("exact", "striped"):
+        if self.dense_pool not in ("exact", "striped", "ivf"):
             raise ValueError(f"unknown dense pool mode {self.dense_pool!r}")
+        if self.dense_pool == "ivf" and self.int8_mode:
+            raise ValueError(
+                "DENSE_POOL_MODE=ivf needs a bf16/f32 corpus (the block "
+                "tensor is packed from `emb`); use EMB_DTYPE=bfloat16 or "
+                "the striped pool for int8 corpora")
         self.dense_stripes = config.DENSE_POOL_STRIPES
         self.query_encoder = query_encoder
         self.cross_encoder = cross_encoder
 
         # own the device-memory budget before placing anything
-        self.hbm_report = enforce_hbm_fit(bundle, self.device, self.dtype,
-                                          striped=self.dense_pool == "striped")
-        self.arrays = self.products.device_arrays(self.device, self.dtype)
-        if self.dense_pool == "striped":
+        ivf = self.dense_pool == "ivf"
+        self.hbm_report = enforce_hbm_fit(
+            bundle, self.device, self.dtype, quantize_int8=self.int8_mode,
+            striped=self.dense_pool == "striped", ivf=ivf,
+            ivf_centroids=config.IVF_CENTROIDS, ivf_block_rows=config.IVF_BLOCK_ROWS)
+        self.arrays = self.products.device_arrays(self.device, self.dtype,
+                                                  quantize_int8=self.int8_mode)
+        a = self.arrays
+        if self.dense_pool == "striped" and self.int8_mode:
+            a["emb_qs"], a["emb_scale_s"], a["valid_s"] = slice_corpus_for_striped_int8(
+                a["emb_q"], a["emb_scale"], a["valid"], self.dense_stripes)
+        elif self.dense_pool == "striped":
             # one-time (s, G, D) slicing; the flat emb stays for the exact path
-            self.arrays["emb_s"], self.arrays["valid_s"] = slice_corpus_for_striped(
-                self.arrays["emb"], self.arrays["valid"], self.dense_stripes)
+            a["emb_s"], a["valid_s"] = slice_corpus_for_striped(
+                a["emb"], a["valid"], self.dense_stripes)
+        elif ivf:
+            self._build_ivf()
         self.avgdl = torch.tensor(self.products.avgdl or 1.0, dtype=torch.float32,
                                   device=self.device)
         # the same f32 value on the host, for the BM25 kernels' launch argument
@@ -242,16 +260,71 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
         self._be = None  # towers of query_e2e (attach_models)
         self._ce = None
 
+    def _build_ivf(self) -> None:
+        """One-time k-means and block packing on the engine's device
+        (ops/ivf.py), its tensors added to self.arrays, and the pool-recall
+        self-check against the exact pool (a warning below
+        IVF_SELFCHECK_MIN)."""
+        from review_recommender_tpu_torch.ops.ivf import (
+            IVF_KEYS,
+            build_ivf,
+            ivf_device_arrays,
+            ivf_device_bytes,
+            measure_pool_recall,
+        )
+
+        a = self.arrays
+        self.ivf = build_ivf(self.products.emb, self.products.valid,
+                             n_centroids=config.IVF_CENTROIDS,
+                             block_rows=config.IVF_BLOCK_ROWS, device=self.device)
+        self.ivf_nprobe = config.IVF_NPROBE
+        a.update(ivf_device_arrays(self.ivf, a["emb"]))
+        # the block tensor's real size, beside the bound enforce_hbm_fit used
+        self.ivf.stats["device_bytes"] = ivf_device_bytes(a)
+        logger.info("IVF on %s: %d bytes (%d blocks x %d rows, fill %.2f)", self.device,
+                    self.ivf.stats["device_bytes"], self.ivf.n_blocks, self.ivf.block_rows,
+                    self.ivf.stats["fill"])
+        self.ivf_pool_recall = None
+        if config.IVF_SELFCHECK_QUERIES > 0:
+            self.ivf_pool_recall = measure_pool_recall(
+                a["emb"], a["valid"], tuple(a[k] for k in IVF_KEYS),
+                pool=min(config.DEFAULT_POOL_SIZE, self.products.n_padded),
+                nprobe=self.ivf_nprobe, n_queries=config.IVF_SELFCHECK_QUERIES)
+            if self.ivf_pool_recall < config.IVF_SELFCHECK_MIN:
+                logger.warning(
+                    "IVF pool recall self-check: %.3f < %.2f on this corpus (recall is "
+                    "data-dependent; this embedding space may be weakly clustered). Raise "
+                    "IVF_NPROBE (now %d) or use the exact/striped pool.",
+                    self.ivf_pool_recall, config.IVF_SELFCHECK_MIN, self.ivf_nprobe)
+            else:
+                logger.info("IVF pool recall self-check: %.3f (nprobe=%d)",
+                            self.ivf_pool_recall, self.ivf_nprobe)
+
     # ------------------------------------------------------------ dense pool
     def _dense_topk(self, a, qvec, pool):
-        """Exact (stable top-k over the corpus) or striped pool. Striped ids
-        are clamped into [0, n_padded): -inf tail lanes can carry stripe
-        padding rows past the corpus."""
+        """The pool for qvec (D,) or (B, D): exact (stable top-k over the
+        corpus), striped or IVF, over the float or int8 corpus, by what
+        the arrays hold. Striped and IVF ids are clamped into [0, n_padded):
+        -inf tail lanes can carry padding ids."""
         n_hi = self.products.n_padded - 1
-        if self.dense_pool == "striped":
-            s, i = dense_striped_topk_scan(a["emb_s"], a["valid_s"], qvec, pool)
+        if self.dense_pool == "ivf":
+            from review_recommender_tpu_torch.ops.ivf import ivf_topk
+
+            s, i = ivf_topk(a["ivf_centroids"], a["ivf_blocks"], a["ivf_block_valid"],
+                            a["ivf_block_rows"], a["ivf_block_centroid"], qvec, pool,
+                            self.ivf_nprobe)
             return s, torch.clamp(i, max=n_hi)
-        sims = dense_scores(a["emb"], qvec, a["valid"])
+        if self.dense_pool == "striped":
+            if self.int8_mode:
+                s, i = dense_striped_topk_scan_int8(a["emb_qs"], a["emb_scale_s"],
+                                                    a["valid_s"], qvec, pool)
+            else:
+                s, i = dense_striped_topk_scan(a["emb_s"], a["valid_s"], qvec, pool)
+            return s, torch.clamp(i, max=n_hi)
+        if self.int8_mode:
+            sims = dense_scores_int8(a["emb_q"], a["emb_scale"], qvec, a["valid"])
+        else:
+            sims = dense_scores(a["emb"], qvec, a["valid"])
         return stable_topk(sims, min(int(pool), sims.shape[-1]))
 
     # --------------------------------------------------------------- stage A

@@ -15,8 +15,9 @@ with its own copy of the corpus generator (`_pseudo_word`, `build_corpus`,
     idf-weighted OverlapCrossScorer over the index vocabulary (host code,
     as in the JAX lane; no tower, so no attention launch).
   - index: doc_terms_cap=128, pad_multiple=256; engine with gate_mode
-    host and the exact pool by default (striped on request; ivf is not
-    ported, ROADMAP Queue 1 item 10). Latencies are warm (one untimed
+    host and the exact pool by default (striped, ivf or ivf:N on request:
+    "ivf:128" runs the lane with IVF_NPROBE=128, and the knob is restored
+    when the lane ends, where the JAX example leaves it changed). Latencies are warm (one untimed
     query per method first) and include the measured round trip of a
     scalar to the device and back.
 
@@ -24,7 +25,7 @@ The trained lane waits for training (ROADMAP Queue 1 item 13).
 
 Run: python -m review_recommender_tpu_torch.evals.quality_table --lane bow
      [--themes 80 --per-theme 640 --queries 60 --seed 0]
-     [--out build/quality_table/bow] [--device cuda]
+     [--out build/quality_table/bow] [--device cuda] [--dense-pool ivf:64]
 """
 from __future__ import annotations
 
@@ -132,19 +133,41 @@ def run_lane(bundle, encoder, queries, device="cuda", gate_mode=GATE_MODE,
     """The lane on a built or loaded bundle: an engine with the encoder's
     dense signal and the overlap rerank, and run_performance_benchmark of
     the four configs over `queries`, warm, with the device round trip
-    measured. Returns (engine, results)."""
+    measured. dense_pool "ivf:N" sets IVF_NPROBE=N for this lane only.
+    Returns (engine, results)."""
+    from review_recommender_tpu_torch.config import config
     from review_recommender_tpu_torch.engine.search import SearchEngine
     from review_recommender_tpu_torch.evals.benchmark import (
         measure_rpc_floor,
         run_performance_benchmark,
     )
 
-    engine = SearchEngine(bundle, device=device, query_encoder=encoder,
-                          cross_encoder=overlap_scorer(bundle.products),
-                          gate_mode=gate_mode, dense_pool=dense_pool)
-    results = run_performance_benchmark(engine.run_search, queries, warmup=True,
-                                        rpc_floor_ms=measure_rpc_floor(engine.device))
+    pool_mode, _, nprobe = dense_pool.partition(":")
+    shadowed = vars(config).get("IVF_NPROBE")  # an instance value over the class's
+    if nprobe:
+        config.IVF_NPROBE = int(nprobe)
+    try:
+        engine = SearchEngine(bundle, device=device, query_encoder=encoder,
+                              cross_encoder=overlap_scorer(bundle.products),
+                              gate_mode=gate_mode, dense_pool=pool_mode)
+        results = run_performance_benchmark(engine.run_search, queries, warmup=True,
+                                            rpc_floor_ms=measure_rpc_floor(engine.device))
+    finally:  # the knob as it was before the lane
+        if shadowed is None:
+            vars(config).pop("IVF_NPROBE", None)
+        else:
+            config.IVF_NPROBE = shadowed
     return engine, results
+
+
+def _pool_spec(spec: str) -> str:
+    """argparse type of --dense-pool: exact, striped, ivf or ivf:N."""
+    mode, sep, nprobe = spec.partition(":")
+    if mode not in ("exact", "striped", "ivf") or (sep and not (mode == "ivf"
+                                                               and nprobe.isdigit()
+                                                               and int(nprobe) > 0)):
+        raise argparse.ArgumentTypeError(f"expected exact, striped, ivf or ivf:N, got {spec!r}")
+    return spec
 
 
 def main(argv=None) -> int:
@@ -155,7 +178,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="build/quality_table/bow")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--gate-mode", default=GATE_MODE, choices=["host", "device"])
-    ap.add_argument("--dense-pool", default=DENSE_POOL, choices=["exact", "striped", "ivf"])
+    ap.add_argument("--dense-pool", default=DENSE_POOL, type=_pool_spec,
+                    help="exact, striped, ivf, or ivf:N (IVF_NPROBE=N for the lane)")
     ap.add_argument("--lane", default="bow", choices=["bow", "trained"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)

@@ -11,7 +11,8 @@ gate_bits (N_pad, G) bool, valid (N_pad,) bool, optional doc_bm25
 i32 and doc_token_len (N_pad,) i32 (the rerank lane's pre-tokenized
 documents, index/build.py:attach_rerank_tokens). Reviews (M_pad rows):
 rev_emb (M_pad, D), rev_product (M_pad,) i32 (the product row; n_docs =
-the discard bucket), rev_valid (M_pad,) bool.
+the discard bucket), rev_valid (M_pad,) bool. An int8 engine places
+emb_q (N_pad, D) int8 and emb_scale (N_pad,) f32 in place of emb.
 """
 from __future__ import annotations
 
@@ -77,13 +78,22 @@ class ProductIndex:
     def terms_cap(self) -> int:
         return int(self.doc_terms.shape[1])
 
-    def device_arrays(self, device: torch.device,
-                      emb_dtype: torch.dtype = torch.bfloat16) -> dict:
+    def device_arrays(self, device: torch.device, emb_dtype: torch.dtype = torch.bfloat16,
+                      quantize_int8: bool = False) -> dict:
         """The tensors the query path reads. With `doc_bm25` present the
-        eager contributions replace doc_tf/doc_len."""
+        eager contributions replace doc_tf/doc_len; quantize_int8 places
+        the per-row int8 corpus ("emb_q" int8 + "emb_scale" f32,
+        ops/dense.py:quantize_corpus_int8) in place of "emb"."""
         put = lambda a, dt: torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt)
+        if quantize_int8:
+            from review_recommender_tpu_torch.ops.dense import quantize_corpus_int8
+
+            q, scale = quantize_corpus_int8(self.emb)
+            emb_entries = {"emb_q": put(q, torch.int8), "emb_scale": put(scale, torch.float32)}
+        else:
+            emb_entries = {"emb": put(self.emb, emb_dtype)}
         out = {
-            "emb": put(self.emb, emb_dtype),
+            **emb_entries,
             "n_reviews": put(self.n_reviews, torch.float32),
             "avg_stars": put(self.avg_stars, torch.float32),
             "doc_terms": put(self.doc_terms, torch.int32),
@@ -100,10 +110,16 @@ class ProductIndex:
             out["doc_token_len"] = put(self.doc_token_len, torch.int32)
         return out
 
-    def device_footprint(self, emb_dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+    def device_footprint(self, emb_dtype: torch.dtype = torch.bfloat16,
+                         quantize_int8: bool = False) -> Dict[str, int]:
         """Bytes each tensor of device_arrays occupies, from host shapes."""
         n_pad = self.n_padded
-        out: Dict[str, int] = {"emb": n_pad * self.dim * _itemsize(emb_dtype)}
+        out: Dict[str, int] = {}
+        if quantize_int8:
+            out["emb_q"] = n_pad * self.dim
+            out["emb_scale"] = n_pad * 4
+        else:
+            out["emb"] = n_pad * self.dim * _itemsize(emb_dtype)
         out["n_reviews"] = n_pad * 4
         out["avg_stars"] = n_pad * 4
         out["doc_terms"] = n_pad * self.terms_cap * 4
@@ -195,21 +211,35 @@ class IndexBundle:
     version: int = SCHEMA_VERSION
     meta: dict = dataclasses.field(default_factory=dict)
 
-    def device_footprint(self, emb_dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
-        out = self.products.device_footprint(emb_dtype)
+    def device_footprint(self, emb_dtype: torch.dtype = torch.bfloat16,
+                         quantize_int8: bool = False) -> Dict[str, int]:
+        out = self.products.device_footprint(emb_dtype, quantize_int8)
         if self.reviews is not None:
             out.update(self.reviews.device_footprint(emb_dtype))
         return out
 
 
 def footprint_total(bundle: IndexBundle, emb_dtype: torch.dtype = torch.bfloat16,
-                    striped: bool = False) -> tuple[Dict[str, int], int]:
-    """(per-array bytes, total bytes). The striped pool keeps the flat emb
-    and its (s, G, D) slices, so it adds one more corpus of emb."""
-    fp = bundle.device_footprint(emb_dtype)
+                    quantize_int8: bool = False, striped: bool = False, ivf: bool = False,
+                    ivf_centroids: int = 0,
+                    ivf_block_rows: int = 0) -> tuple[Dict[str, int], int]:
+    """(per-array bytes, total bytes). The striped pool keeps the flat
+    corpus and its (s, G, D) slices, so it adds one more corpus (int8 rows
+    and scales for an int8 engine). The IVF pool adds its block tensor and
+    bookkeeping, "ivf_bound": their true worst case at the centroid and
+    block sizes the build will choose (ops/ivf.py:ivf_footprint_bound;
+    the JAX package's flat 1.25x of the corpus can be exceeded)."""
+    fp = bundle.device_footprint(emb_dtype, quantize_int8)
     total = sum(fp.values())
     if striped:
-        total += fp["emb"]
+        total += fp.get("emb", fp.get("emb_q", 0) + fp.get("emb_scale", 0))
+    if ivf:
+        from review_recommender_tpu_torch.ops.ivf import ivf_footprint_bound
+
+        fp["ivf_bound"] = ivf_footprint_bound(
+            bundle.products.n_docs, bundle.products.dim, _itemsize(emb_dtype),
+            ivf_centroids, ivf_block_rows)
+        total += fp["ivf_bound"]
     return fp, total
 
 
@@ -237,12 +267,14 @@ def check_hbm_fit(total_bytes: int, device: torch.device, warn_frac: float = 0.8
 
 
 def enforce_hbm_fit(bundle: IndexBundle, device: torch.device,
-                    emb_dtype: torch.dtype = torch.bfloat16,
-                    striped: bool = False) -> Dict:
+                    emb_dtype: torch.dtype = torch.bfloat16, quantize_int8: bool = False,
+                    striped: bool = False, ivf: bool = False, ivf_centroids: int = 0,
+                    ivf_block_rows: int = 0) -> Dict:
     """Refuse (RuntimeError) to place a bundle that cannot fit the device;
     warn above 80%. RRT_IGNORE_HBM_CHECK=true downgrades the refusal to a
     warning, as in the JAX package."""
-    fp, total = footprint_total(bundle, emb_dtype, striped)
+    fp, total = footprint_total(bundle, emb_dtype, quantize_int8, striped, ivf,
+                                ivf_centroids, ivf_block_rows)
     rep = check_hbm_fit(total, device)
     gib = rep["total_bytes"] / 2**30
     if not rep["fits"]:

@@ -1,1 +1,2 @@
-"""BERT towers, flax -> torch weight mapping, encoder wrappers, tokenizers."""
+"""BERT towers, HF / flax -> torch weight mapping, checkpoint loading,
+encoder wrappers, tokenizers."""

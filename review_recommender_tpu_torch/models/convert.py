@@ -1,6 +1,26 @@
-"""flax parameter tree -> the port's state_dict.
+"""HF checkpoints and flax parameter trees -> the port's state_dict.
 
-Maps the parameters of the JAX towers (`review_recommender_tpu/models/
+`convert_biencoder` / `convert_crossencoder` / `config_from_hf` are the
+counterparts of `review_recommender_tpu/models/convert.py:46-132`: an HF
+state dict (names -> arrays; a `bert.` prefix dropped, an absent pooler
+ignored by the bi-encoder and a KeyError for the cross-encoder, as there)
+becomes the flax parameter tree of the JAX towers, with numpy leaves:
+
+  embeddings.{word,position,token_type}_embeddings.weight
+                                            encoder/*_embeddings/embedding
+  embeddings.LayerNorm                      encoder/embeddings_layer_norm
+  encoder.layer.I.attention.self.{query,key,value}
+                                            encoder/layer_I/attention/*
+  encoder.layer.I.attention.output.dense    encoder/layer_I/attention/output_dense
+  encoder.layer.I.attention.output.LayerNorm
+                                            encoder/layer_I/attention_layer_norm
+  encoder.layer.I.{intermediate,output}.dense
+                                            encoder/layer_I/{intermediate,output}
+  encoder.layer.I.output.LayerNorm          encoder/layer_I/output_layer_norm
+  pooler.dense, classifier (cross-encoder)  pooler, classifier
+
+(torch Linear (out, in) -> flax Dense kernel (in, out)). `params_from_flax`
+then maps that tree onto the port's modules: the parameters of the JAX towers (`review_recommender_tpu/models/
 bert.py`), given as numpy arrays (`jax.tree.map(np.asarray, params)`), onto
 the nn.Modules of models/bert.py:
 
@@ -33,6 +53,87 @@ KINDS = ("biencoder", "crossencoder")
 
 def _t(a, dtype=torch.float32) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(dtype)
+
+
+def _np(t) -> np.ndarray:
+    """Tensor-like -> float32 numpy."""
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().to(torch.float32).numpy()
+    return np.asarray(t, dtype=np.float32)
+
+
+def _strip_prefix(sd: Mapping[str, object]) -> Dict[str, object]:
+    """Drop a leading 'bert.' (BertForSequenceClassification) prefix."""
+    return {(k[5:] if k.startswith("bert.") else k): v for k, v in sd.items()}
+
+
+def _layer_params(sd: Mapping[str, object], i: int) -> dict:
+    p = f"encoder.layer.{i}."
+    dense = lambda name: {"kernel": _np(sd[p + name + ".weight"]).T,
+                          "bias": _np(sd[p + name + ".bias"])}
+    ln = lambda name: {"scale": _np(sd[p + name + ".weight"]),
+                       "bias": _np(sd[p + name + ".bias"])}
+    return {
+        "attention": {
+            "query": dense("attention.self.query"),
+            "key": dense("attention.self.key"),
+            "value": dense("attention.self.value"),
+            "output_dense": dense("attention.output.dense"),
+        },
+        "attention_layer_norm": ln("attention.output.LayerNorm"),
+        "intermediate": dense("intermediate.dense"),
+        "output": dense("output.dense"),
+        "output_layer_norm": ln("output.LayerNorm"),
+    }
+
+
+def convert_bert_encoder(sd: Mapping[str, object], cfg: BertConfig) -> dict:
+    """HF BertModel state dict -> the flax tree under "encoder"."""
+    sd = _strip_prefix(sd)
+    enc = {
+        name: {"embedding": _np(sd[f"embeddings.{name}.weight"])}
+        for name in ("word_embeddings", "position_embeddings", "token_type_embeddings")
+    }
+    enc["embeddings_layer_norm"] = {"scale": _np(sd["embeddings.LayerNorm.weight"]),
+                                    "bias": _np(sd["embeddings.LayerNorm.bias"])}
+    for i in range(cfg.num_layers):
+        enc[f"layer_{i}"] = _layer_params(sd, i)
+    return enc
+
+
+def convert_biencoder(sd: Mapping[str, object], cfg: BertConfig) -> dict:
+    """HF BertModel state dict -> the bi-encoder's flax tree."""
+    return {"encoder": convert_bert_encoder(sd, cfg)}
+
+
+def convert_crossencoder(sd: Mapping[str, object], cfg: BertConfig) -> dict:
+    """HF BertForSequenceClassification state dict -> the cross-encoder's
+    flax tree (pooler and one-logit classifier)."""
+    stripped = _strip_prefix(sd)
+    return {
+        "encoder": convert_bert_encoder(sd, cfg),
+        "pooler": {"kernel": _np(stripped["pooler.dense.weight"]).T,
+                   "bias": _np(stripped["pooler.dense.bias"])},
+        "classifier": {"kernel": _np(stripped["classifier.weight"]).T,
+                       "bias": _np(stripped["classifier.bias"])},
+    }
+
+
+def config_from_hf(hf_config) -> BertConfig:
+    """A transformers BertConfig (or any object with its fields) ->
+    BertConfig."""
+    return BertConfig(
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.hidden_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        intermediate_size=hf_config.intermediate_size,
+        max_position=hf_config.max_position_embeddings,
+        type_vocab_size=hf_config.type_vocab_size,
+        layer_norm_eps=hf_config.layer_norm_eps,
+        hidden_act=hf_config.hidden_act,
+        pad_token_id=hf_config.pad_token_id,
+    )
 
 
 def params_from_flax(params: Mapping, cfg: BertConfig, kind: str,

@@ -1,16 +1,21 @@
 """Model tokenizers and sequence packing (host side).
 
-A jax-free copy of `basic_tokenize`, `HashTokenizer`, `encode_seqs`,
-`pack_seqs` and `pad_bucket` from `review_recommender_tpu/models/
-tokenizer.py` (the JAX package's `models/__init__.py` loads its flax BERT).
-`WordPieceTokenizer` follows with the checkpoint loader (ROADMAP).
+A jax-free copy of `basic_tokenize`, `wordpiece`, `WordPieceTokenizer`,
+`HashTokenizer`, `encode_seqs`, `pack_seqs` and `pad_bucket` from
+`review_recommender_tpu/models/tokenizer.py` (the JAX package's
+`models/__init__.py` loads its flax BERT). WordPieceTokenizer reads a
+checkpoint's vocab.txt (id = line number) and splits each basic token
+greedily, longest match first, with '##' continuations (BERT uncased).
 """
 from __future__ import annotations
 
 import unicodedata
-from typing import List, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+CLS, SEP, PAD, UNK, MASK = "[CLS]", "[SEP]", "[PAD]", "[UNK]", "[MASK]"
 
 
 def _is_whitespace(ch: str) -> bool:
@@ -73,6 +78,62 @@ def basic_tokenize(text: str, lowercase: bool = True) -> List[str]:
         if cur:
             tokens.append("".join(cur))
     return tokens
+
+
+def wordpiece(token: str, vocab: Dict[str, int], max_chars: int = 100) -> List[str]:
+    """Greedy longest-match-first WordPiece split of one basic token; [UNK]
+    for a token over max_chars or one with a piece the vocab lacks."""
+    if len(token) > max_chars:
+        return [UNK]
+    pieces: List[str] = []
+    start = 0
+    while start < len(token):
+        end = len(token)
+        piece = None
+        while start < end:
+            sub = token[start:end]
+            if start > 0:
+                sub = "##" + sub
+            if sub in vocab:
+                piece = sub
+                break
+            end -= 1
+        if piece is None:
+            return [UNK]
+        pieces.append(piece)
+        start = end
+    return pieces
+
+
+class WordPieceTokenizer:
+    """Vocab-file-backed BERT-uncased tokenizer. mask_id falls back to
+    [UNK] for a vocab without [MASK]."""
+
+    def __init__(self, vocab: Dict[str, int], lowercase: bool = True):
+        self.vocab = vocab
+        self.lowercase = lowercase
+        self.cls_id = vocab[CLS]
+        self.sep_id = vocab[SEP]
+        self.pad_id = vocab[PAD]
+        self.unk_id = vocab[UNK]
+        self.mask_id = vocab.get(MASK, self.unk_id)
+
+    @classmethod
+    def from_vocab_file(cls, path, lowercase: bool = True) -> "WordPieceTokenizer":
+        vocab: Dict[str, int] = {}
+        with open(Path(path), encoding="utf-8") as f:
+            for i, line in enumerate(f):
+                vocab[line.rstrip("\n")] = i
+        return cls(vocab, lowercase)
+
+    def tokenize(self, text: str) -> List[str]:
+        out: List[str] = []
+        for tok in basic_tokenize(text, self.lowercase):
+            out.extend(wordpiece(tok, self.vocab))
+        return out
+
+    def token_ids(self, text: str) -> List[int]:
+        return [self.vocab.get(t, self.unk_id) for t in self.tokenize(text)]
 
 
 class HashTokenizer:

@@ -1,15 +1,24 @@
-"""Dense cosine pool: matmul + stable top-k, exact or striped.
+"""Dense cosine pool: matmul + stable top-k, exact or striped, over a
+bf16/f16/f32 corpus or a per-row int8 one.
 
-Counterparts of `review_recommender_tpu/ops/dense.py:19-139`. The JAX
-package computes these products in XLA outside any Pallas kernel, so here
-they stay library matmuls (a hand-written fused scan comes later). Scores
-are f32: bf16 corpora multiply into an f32 result. Top-k is a stable
-descending sort cut to k, which keeps `lax.top_k`'s order on ties (lower
-index first); `torch.topk` does not promise that.
+Counterparts of `review_recommender_tpu/ops/dense.py:19-228` (the int8
+forms with a global scale, :229-288, are not ported: no serving path
+calls them). The JAX package computes these products in XLA outside any
+Pallas kernel, so here they stay library matmuls: torch.mm for the float
+corpora (f32 result) and torch._int_mm for int8 (int32 result, exact).
+Top-k is a stable descending sort cut to k, which keeps `lax.top_k`'s
+order on ties (lower index first); `torch.topk` does not promise that.
+
+The int8 forms quantize each query symmetrically (round half to even, as
+jnp.round), accumulate int8 x int8 in int32 and rescale as the JAX
+package does, `acc.f32 * (row_scale * q_scale)`, so ids and scores are
+bit-equal to it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 NEG_INF = float("-inf")
 
@@ -106,4 +115,101 @@ def dense_striped_topk_scan(emb_s: torch.Tensor, valid_s: torch.Tensor,
     best = torch.gather(sims, 0, best_r[None]).squeeze(0)
     top, gi = stable_topk(best.T, min(int(pool), g))  # (B, pool)
     rows = torch.gather(best_r.T, 1, gi) * g + gi
+    return top.reshape(*qvec.shape[:-1], -1), rows.reshape(*qvec.shape[:-1], -1)
+
+
+# ------------------------------------------------------------------- int8
+def quantize_corpus_int8(emb) -> tuple:
+    """Symmetric per-row int8 quantization of a unit-row corpus (host):
+    (emb_q (N, D) int8, row_scale (N,) f32) as numpy, op for op the JAX
+    package's."""
+    emb = np.asarray(emb, dtype=np.float32)
+    scale = np.abs(emb).max(axis=1) / 127.0
+    scale = np.maximum(scale, 1e-12)
+    q = np.clip(np.rint(emb / scale[:, None]), -127, 127).astype(np.int8)
+    return q, scale.astype(np.float32)
+
+
+def quantize_query_int8(qvec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """qvec (..., D) -> (q_q (..., D) int8, q_scale (..., 1) f32): one
+    symmetric scale per query."""
+    q = qvec.to(torch.float32)
+    amax = q.abs().amax(dim=-1, keepdim=True)
+    # a tensor divisor: CUDA divides by a Python scalar through its
+    # reciprocal, which can land one ulp away from the JAX package's division
+    q_scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-12)
+    q_q = torch.clamp(torch.round(q / q_scale), -127, 127).to(torch.int8)
+    return q_q, q_scale
+
+
+def int8_matmul(a: torch.Tensor, b_rows: torch.Tensor) -> torch.Tensor:
+    """a (M, K) int8 @ b_rows (N, K).T int8 -> (M, N) int32, exact.
+
+    torch._int_mm (cuBLASLt on CUDA) wants more than 16 rows in a and K, N
+    multiples of 8, so a is padded to 17+ rows and K and N up to multiples
+    of 8 with zeros (which add nothing), on every device; b_rows is read as
+    a column-major (K, N) view, without a copy where no padding is
+    needed."""
+    m, k = a.shape
+    n = b_rows.shape[0]
+    pad_k, pad_n = (-k) % 8, (-n) % 8
+    pad_m = max(17 - m, 0)
+    if pad_m or pad_k:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        b_rows = F.pad(b_rows, (0, pad_k, 0, pad_n))
+    out = torch._int_mm(a, b_rows.T)
+    return out[:m, :n] if (pad_m or pad_n) else out
+
+
+def dense_scores_int8(emb_q: torch.Tensor, row_scale: torch.Tensor, qvec: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """Cosine scores (..., N) f32 over an int8 corpus for qvec (D,) or
+    (B, D): the query quantized, int8 x int8 -> int32, rescaled in f32;
+    padding rows -inf."""
+    q_q, q_scale = quantize_query_int8(qvec.reshape(-1, qvec.shape[-1]))
+    acc = int8_matmul(q_q, emb_q)  # (B, N)
+    sims = acc.to(torch.float32) * (row_scale[None, :] * q_scale)
+    sims = torch.where(valid, sims, NEG_INF)
+    return sims.reshape(*qvec.shape[:-1], -1)
+
+
+def dense_topk_int8(emb_q: torch.Tensor, row_scale: torch.Tensor, qvec: torch.Tensor,
+                    valid: torch.Tensor, pool: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-`pool` rows of dense_scores_int8: (scores, idx) descending."""
+    sims = dense_scores_int8(emb_q, row_scale, qvec, valid)
+    return stable_topk(sims, min(int(pool), sims.shape[-1]))
+
+
+def slice_corpus_for_striped_int8(emb_q: torch.Tensor, row_scale: torch.Tensor,
+                                  valid: torch.Tensor, stripes: int):
+    """int8 slice_corpus_for_striped: (s, G, D) int8 slices, (s, G) row
+    scales and (s, G) validity."""
+    n, d = emb_q.shape
+    g = min(int(stripes), n)
+    s = -(-n // g)
+    pad = s * g - n
+    if pad:
+        emb_q = F.pad(emb_q, (0, 0, 0, pad))
+        row_scale = F.pad(row_scale, (0, pad))
+        valid = F.pad(valid, (0, pad))
+    return emb_q.reshape(s, g, d), row_scale.reshape(s, g), valid.reshape(s, g)
+
+
+def dense_striped_topk_scan_int8(emb_qs: torch.Tensor, scale_s: torch.Tensor,
+                                 valid_s: torch.Tensor, qvec: torch.Tensor,
+                                 pool: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 dense_striped_topk_scan for qvec (D,) or (B, D): the query
+    quantizes once, every slice is scored in one int8 product and rescaled
+    in f32, then each stripe keeps its first maximum over the slices.
+    Returns (scores (..., pool) f32, rows (..., pool) int64, row = r*G+g)."""
+    s, g, d = emb_qs.shape
+    q_q, q_scale = quantize_query_int8(qvec.reshape(-1, d))  # (B, D), (B, 1)
+    acc = int8_matmul(q_q, emb_qs.reshape(s * g, d)).reshape(-1, s, g)
+    sims = acc.to(torch.float32) * (scale_s[None] * q_scale[:, :, None])
+    sims = torch.where(valid_s[None], sims, NEG_INF)
+    best_r = sims.argmax(dim=1)  # (B, G), the first maximum
+    best = torch.gather(sims, 1, best_r[:, None]).squeeze(1)
+    top, gi = stable_topk(best, min(int(pool), g))
+    rows = torch.gather(best_r, 1, gi) * g + gi
     return top.reshape(*qvec.shape[:-1], -1), rows.reshape(*qvec.shape[:-1], -1)

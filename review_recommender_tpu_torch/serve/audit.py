@@ -5,7 +5,9 @@ names: required files, manifest and schema version, review files,
 checksums, the bundle loads (ProductIndex.validate), meta/array row
 alignment, SKU uniqueness, unit embeddings, vocab/idf alignment, term ids
 in range, invalid padding rows, review segments, and the device footprint
-against the device's memory. It reads either bundle layout
+against the device's memory under EMB_DTYPE (int8: emb_q + emb_scale) and
+DENSE_POOL_MODE (striped: one more corpus; ivf: the block tensor's worst
+case, index/schema.py:footprint_total). It reads either bundle layout
 (index/io.py): the port's numpy meta files or a JAX bundle's parquet.
 The footprint is checked on `device` (on the CPU no limit applies).
 
@@ -106,13 +108,16 @@ def audit_index_dir(index_dir, verify_checksums: bool = True, device="cuda") -> 
         check("review_meta_alignment", len(r.rev_texts) == m, f"texts={len(r.rev_texts)} n={m}")
 
     footprint = {"emb_dtype": config.EMB_DTYPE, "dense_pool_mode": config.DENSE_POOL_MODE}
-    dtype = _EMB_DTYPES.get(config.EMB_DTYPE)
+    int8 = config.EMB_DTYPE == "int8"
+    dtype = torch.bfloat16 if int8 else _EMB_DTYPES.get(config.EMB_DTYPE)
     if dtype is None:
-        check("hbm_fit", False,
-              f"EMB_DTYPE={config.EMB_DTYPE} is not ported (ROADMAP Queue 1 item 11)")
+        check("hbm_fit", False, f"unsupported EMB_DTYPE={config.EMB_DTYPE}")
     else:
-        striped = config.resolve_pool_mode(config.DENSE_POOL_MODE, p.n_padded) == "striped"
-        fp, total = footprint_total(bundle, dtype, striped=striped)
+        pool = config.resolve_pool_mode(config.DENSE_POOL_MODE, p.n_padded)
+        fp, total = footprint_total(bundle, dtype, quantize_int8=int8,
+                                    striped=pool == "striped", ivf=pool == "ivf",
+                                    ivf_centroids=config.IVF_CENTROIDS,
+                                    ivf_block_rows=config.IVF_BLOCK_ROWS)
         fit = check_hbm_fit(total, resolve_device(device))
         check("hbm_fit", fit["fits"],
               f"{total / 2**20:.1f} MiB on {device}"

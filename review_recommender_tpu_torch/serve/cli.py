@@ -4,9 +4,16 @@ bench / eval.
 Counterpart of `review_recommender_tpu/serve/cli.py`, with its parser's
 arguments and defaults, plus `--device` (default "cuda"; the tests pass
 "cpu"). `_load_engine` reads a bundle through index/io.py (either layout)
-and builds SearchEngine with random towers of the JAX CLI's shapes
-(`BiEncoder.random_for_dim(dim)`: bge-small at 384; `CrossEncoder.
-random_init()`: MiniLM-L6).
+and builds SearchEngine with the towers of EMB_MODEL_DIR / RERANK_MODEL_DIR
+(models/load.py: an HF snapshot or a native tower), or, where those are
+unset, random towers of the JAX CLI's shapes (`BiEncoder.random_for_dim(
+dim)`: bge-small at 384; `CrossEncoder.random_init()`: MiniLM-L6). A
+bi-encoder whose width is not the bundle's dim, or a directory that does
+not load, exits non-zero naming it. A loaded cross-encoder re-tokenizes
+the bundle's rerank tokens (index/build.py:attach_rerank_tokens) with its
+own tokenizer before the engine places them, so query_e2e never feeds it
+another tokenizer's ids; with both towers loaded the engine has them
+attached for query_e2e.
 
   python -m review_recommender_tpu_torch.serve.cli search "query" --index-dir DIR
   ... serve  --index-dir DIR [--host H --port P] [--native] [--with-rerank]
@@ -16,11 +23,9 @@ random_init()`: MiniLM-L6).
   ... eval   --index-dir DIR --queries judged.jsonl [--out DIR]
 
 What the port cannot do yet exits non-zero and names its ROADMAP Queue 1
-item, where the JAX CLI would run something else: EMB_MODEL_DIR or
-RERANK_MODEL_DIR set (trained towers, item 5b; the JAX CLI loads them, the
-port will not stand a random tower in for them), `--shards` / MESH_SHARDS
-above 1 (item 12), `train` (item 13), `topics` (item 14) and `import`
-(item 18). `serve --native` (or SERVE_NATIVE) raises when the native
+item, where the JAX CLI would run something else: `--shards` /
+MESH_SHARDS above 1 (item 12), `train` (item 13), `topics` (item 14) and
+`import` (item 18). `serve --native` (or SERVE_NATIVE) raises when the native
 library cannot be built; it never falls back to the stdlib server.
 """
 from __future__ import annotations
@@ -50,29 +55,56 @@ def _refuse(msg: str):
     raise SystemExit(f"rrt: {msg}")
 
 
+def _load_tower(kind: str, knob: str, device):
+    """The tower in the directory of config.<knob>, on `device`; exits
+    non-zero naming the knob and directory when it does not load."""
+    from review_recommender_tpu_torch.models import load
+
+    path = getattr(config, knob)
+    loader = load.load_biencoder if kind == "biencoder" else load.load_crossencoder
+    try:
+        return loader(path, device=device)
+    except (OSError, ValueError, KeyError) as e:
+        _refuse(f"{knob}={path}: cannot load a {kind} ({type(e).__name__}: {e})")
+
+
 def _load_engine(index_dir: str, gate_mode: Optional[str] = None, with_models: bool = True,
                  with_rerank: bool = False, dense_pool: Optional[str] = None,
                  shards: Optional[int] = None, device="cuda"):
-    """SearchEngine on `device` over the bundle at index_dir, with random
-    towers (or none: with_models=False, with_rerank=False)."""
+    """SearchEngine on `device` over the bundle at index_dir, with the
+    towers of EMB_MODEL_DIR / RERANK_MODEL_DIR or random ones (or none:
+    with_models=False, with_rerank=False)."""
     from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.build import attach_rerank_tokens
     from review_recommender_tpu_torch.index.io import load_bundle
     from review_recommender_tpu_torch.models.encoder import BiEncoder, CrossEncoder
 
-    for name in ("EMB_MODEL_DIR", "RERANK_MODEL_DIR"):
-        if getattr(config, name):
-            _refuse(f"{name} is set, but loading tower checkpoints is not ported yet "
-                    "(ROADMAP Queue 1 item 5b); unset it to serve random towers")
     n_shards = config.MESH_SHARDS if shards is None else int(shards)
     if n_shards > 1:
         _refuse(f"--shards {n_shards}: the sharded engine is not ported yet "
                 "(ROADMAP Queue 1 item 12)")
     bundle = load_bundle(index_dir)
-    encoder = BiEncoder.random_for_dim(bundle.products.dim, device=device) if with_models else None
-    cross = (CrossEncoder.random_init(device=device)
-             if with_rerank and config.ENABLE_RERANKING else None)
-    return SearchEngine(bundle, device=device, query_encoder=encoder, cross_encoder=cross,
-                        gate_mode=gate_mode, dense_pool=dense_pool)
+    encoder = cross = None
+    if with_models and config.EMB_MODEL_DIR:
+        encoder = _load_tower("biencoder", "EMB_MODEL_DIR", device)
+        if encoder.cfg.hidden_size != bundle.products.dim:
+            _refuse(f"EMB_MODEL_DIR={config.EMB_MODEL_DIR}: the bi-encoder's hidden size "
+                    f"{encoder.cfg.hidden_size} is not the bundle's dim {bundle.products.dim}")
+    elif with_models:
+        encoder = BiEncoder.random_for_dim(bundle.products.dim, device=device)
+    if with_rerank and config.ENABLE_RERANKING and config.RERANK_MODEL_DIR:
+        cross = _load_tower("crossencoder", "RERANK_MODEL_DIR", device)
+        p = bundle.products
+        if p.doc_tokens is not None:
+            attach_rerank_tokens(p, cross.tokenizer, max_tokens=p.doc_tokens.shape[1])
+    elif with_rerank and config.ENABLE_RERANKING:
+        cross = CrossEncoder.random_init(device=device)
+    engine = SearchEngine(bundle, device=device, query_encoder=encoder, cross_encoder=cross,
+                          gate_mode=gate_mode, dense_pool=dense_pool)
+    if encoder is not None and cross is not None and config.EMB_MODEL_DIR \
+            and config.RERANK_MODEL_DIR:  # both loaded: tokens and towers agree
+        engine.attach_models(encoder, cross)
+    return engine
 
 
 def cmd_search(args) -> int:
@@ -267,9 +299,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--gate-penalty", type=float, default=c.DEFAULT_GATE_PENALTY)
     s.add_argument("--gate-mode", default=None, choices=[None, "host", "device"])
     s.add_argument("--dense-pool", default=None, choices=pools,
-                   help="exact or striped stage-A pool (default: DENSE_POOL_MODE, auto = "
-                        "striped from DENSE_POOL_AUTO_MIN padded rows up); ivf is not "
-                        "ported yet (item 10)")
+                   help="exact, striped or ivf stage-A pool (default: DENSE_POOL_MODE, "
+                        "auto = striped from DENSE_POOL_AUTO_MIN padded rows up)")
     s.add_argument("--snippets", action="store_true")
     s.add_argument("--json-out")
     device_arg(s)

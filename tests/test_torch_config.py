@@ -24,12 +24,16 @@ KNOBS = (
     "SERVE_NATIVE", "MICROBATCH_WINDOW_MS", "MICROBATCH_MAX", "MICROBATCH_TIMEOUT_S",
     # the CLI's and the index builder's
     "EMB_MODEL_DIR", "RERANK_MODEL_DIR", "MESH_SHARDS", "LOG_LEVEL", "LOG_FORMAT",
+    # the IVF pool's
+    "IVF_NPROBE", "IVF_BLOCK_ROWS", "IVF_CENTROIDS", "IVF_SELFCHECK_QUERIES", "IVF_SELFCHECK_MIN",
 )
 OVERRIDES = {"DENSE_POOL_STRIPES": "77", "GATE_MODE": "host", "ENABLE_BM25": "false",
              "DEFAULT_W_DENSE": "0.3", "DENSE_POOL_AUTO_MIN": "1024", "APP_PORT": "9123",
              "MICROBATCH_WINDOW_MS": "5.5", "ENVIRONMENT": "Production", "SERVE_NATIVE": "true",
              "EMB_MODEL_DIR": "/towers/bi", "MESH_SHARDS": "4",
-             "LOG_LEVEL": "debug"}
+             "LOG_LEVEL": "debug", "EMB_DTYPE": "int8", "DENSE_POOL_MODE": "ivf",
+             "IVF_NPROBE": "128", "IVF_BLOCK_ROWS": "256", "IVF_CENTROIDS": "900",
+             "IVF_SELFCHECK_QUERIES": "0", "IVF_SELFCHECK_MIN": "0.9"}
 
 _FRESH = """
 import json
@@ -79,6 +83,8 @@ def test_overrides_read_alike_in_a_fresh_interpreter():
     assert res["port"]["SERVE_NATIVE"] is True and res["production"] == [True, True]
     assert res["port"]["EMB_MODEL_DIR"] == "/towers/bi"
     assert res["port"]["MESH_SHARDS"] == 4 and res["port"]["LOG_LEVEL"] == "DEBUG"
+    assert res["port"]["EMB_DTYPE"] == "int8" and res["port"]["DENSE_POOL_MODE"] == "ivf"
+    assert res["port"]["IVF_NPROBE"] == 128 and res["port"]["IVF_SELFCHECK_MIN"] == 0.9
     assert all(p == j for p, j in res["modes"])
     assert ["striped", "striped"] in res["modes"] and ["exact", "exact"] in res["modes"]
 
@@ -86,7 +92,10 @@ def test_overrides_read_alike_in_a_fresh_interpreter():
 @pytest.mark.parametrize("name,value,ok", [
     ("QUERY_TERMS_CAP", 0, False), ("GATE_MODE", "hybrid", False),
     ("DENSE_POOL_STRIPES", 0, False), ("DENSE_POOL_AUTO_MIN", -5, False),
-    ("QUERY_TERMS_CAP", 64, True), ("GATE_MODE", "host", True), ("DENSE_POOL_STRIPES", 128, True)])
+    ("QUERY_TERMS_CAP", 64, True), ("GATE_MODE", "host", True), ("DENSE_POOL_STRIPES", 128, True),
+    ("EMB_DTYPE", "int8", True), ("EMB_DTYPE", "int4", False), ("DENSE_POOL_MODE", "ivf", True),
+    ("DENSE_POOL_MODE", "hnsw", False), ("IVF_NPROBE", 0, False), ("IVF_NPROBE", 1, True),
+    ("IVF_BLOCK_ROWS", -1, False), ("IVF_CENTROIDS", -3, False), ("IVF_CENTROIDS", 0, True)])
 def test_validate_refuses_what_the_jax_config_refuses(monkeypatch, tmp_path, name, value, ok):
     """The port's validate raises for a knob exactly where the JAX
     config's does (its production-only and log-directory side left out)."""

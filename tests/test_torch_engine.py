@@ -172,11 +172,13 @@ def test_striped_pool_membership_differs_from_exact(engines):
 
 
 def test_refuses_what_is_not_ported(engines):
-    _je, te = engines["exact"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        SearchEngine(te.bundle, device="cpu", emb_dtype="int8")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SearchEngine(te.bundle, device="cpu", dense_pool="ivf")
+    """ivf over an int8 corpus raises ValueError, as in the JAX engine (int8
+    and ivf each run: tests/test_torch_int8.py, test_torch_ivf.py)."""
+    je, te = engines["exact"]
+    with pytest.raises(ValueError, match="ivf needs a bf16/f32 corpus"):
+        JaxEngine(je.bundle, emb_dtype="int8", dense_pool="ivf")
+    with pytest.raises(ValueError, match="ivf needs a bf16/f32 corpus"):
+        SearchEngine(te.bundle, device="cpu", emb_dtype="int8", dense_pool="ivf")
     assert resolve_device("cpu") == torch.device("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

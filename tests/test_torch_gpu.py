@@ -21,8 +21,13 @@ takes the tensor-core kernel, an f32 corpus the CUDA-core one. Serving:
 device_fetch reads CUDA tensors through pinned buffers, and both HTTP
 front ends answer a /search on a small CUDA engine, encoding on the card.
 Offline path: a bundle built, saved and loaded, then the CLI's search on
-it on the card.
+it on the card. Serving configurations: the int8 scores and pools
+(torch._int_mm on padded shapes) bit-equal to the CPU int8 path; ivf_topk
+on the card against its CPU run on the same index (scores within 1e-5, ids
+equal but for near ties); a bge-small-shaped tower loaded from disk within
+2e-2 of its CPU f32 forward.
 """
+from pathlib import Path
 import numpy as np
 import pytest
 import torch
@@ -486,3 +491,90 @@ def test_stage_a_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="not taken"):
         wide = torch.zeros(64, 4104, dtype=torch.bfloat16, device=cuda)
         tsa.stage_a_tile_winners_kernel(wide, valid[:64], torch.zeros(2, 4104, device=cuda))
+
+
+# ------------------------------------------------ the int8 corpus, the IVF pool
+def _unit_rows(seed, n, d):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("n,b", [(200_192, 1), (200_192, 16), (200_192, 128), (1003, 5)])
+def test_int8_scores_on_cuda_bit_equal_to_cpu(cuda, n, b):
+    """torch._int_mm on the padded single-query (1 row -> 17) and batched
+    shapes, and N not a multiple of 8: scores, exact and striped pools
+    bit-equal to the CPU int8 path."""
+    from review_recommender_tpu_torch.ops import dense as td
+
+    emb = _unit_rows(0, n, 384)
+    q = torch.from_numpy(_unit_rows(1, b, 384))
+    q = q[0] if b == 1 else q
+    e_q, scale = (torch.from_numpy(a) for a in td.quantize_corpus_int8(emb))
+    valid = torch.arange(n) < n - 7
+    got = td.dense_scores_int8(e_q.to(cuda), scale.to(cuda), q.to(cuda), valid.to(cuda))
+    want = td.dense_scores_int8(e_q, scale, q, valid)
+    assert torch.equal(got.cpu(), want)
+    sl_dev = td.slice_corpus_for_striped_int8(e_q.to(cuda), scale.to(cuda), valid.to(cuda), 8192)
+    sl_cpu = td.slice_corpus_for_striped_int8(e_q, scale, valid, 8192)
+    gs, gi = td.dense_striped_topk_scan_int8(*sl_dev, q.to(cuda), 150)
+    ws, wi = td.dense_striped_topk_scan_int8(*sl_cpu, q, 150)
+    assert torch.equal(gi.cpu(), wi) and torch.equal(gs.cpu(), ws)
+
+
+def test_ivf_topk_on_cuda_matches_cpu(cuda):
+    """ivf_topk on the card against its CPU run on the same index (bf16
+    blocks): scores within 1e-5, an id differing only at a near tie; the
+    batched rows equal their single queries."""
+    from review_recommender_tpu_torch.ops import ivf as tivf
+
+    rng = np.random.default_rng(2)
+    centers = _unit_rows(3, 64, 128)
+    emb = centers[rng.integers(0, 64, 20_000)] + 0.05 * rng.standard_normal((20_000, 128))
+    emb = (emb / np.linalg.norm(emb, axis=1, keepdims=True)).astype(np.float32)
+    valid = np.arange(20_000) < 19_990
+    ix = tivf.build_ivf(emb, valid, device=cuda)
+    dev = tivf.ivf_device_arrays(ix, torch.from_numpy(emb).to(cuda, torch.bfloat16))
+    cpu = {k: v.cpu() for k, v in dev.items()}
+    q = torch.from_numpy(emb[:32] + 0.01)
+    for nprobe in (4, 64, 10_000):
+        gs, gi = tivf.ivf_topk(*(dev[k] for k in tivf.IVF_KEYS), q.to(cuda), 150, nprobe)
+        ws, wi = tivf.ivf_topk(*(cpu[k] for k in tivf.IVF_KEYS), q, 150, nprobe)
+        gs, gi = gs.cpu(), gi.cpu()
+        live = torch.isfinite(ws)
+        assert torch.equal(torch.isfinite(gs), live)  # the same -inf padding
+        gap = torch.where(live, gs - ws, 0.0).abs()
+        assert gap.max().item() <= 1e-5
+        differ = (gi != wi) & live
+        assert (gap[differ] <= 1e-5).all()
+        for i in (0, 31):
+            s1, i1 = tivf.ivf_topk(*(dev[k] for k in tivf.IVF_KEYS), q[i].to(cuda), 150, nprobe)
+            assert torch.equal(i1.cpu(), gi[i])
+
+
+def test_loaded_tower_on_cuda_matches_cpu_f32(cuda, tmp_path):
+    """A bge-small-shaped HF snapshot (the full-size golden's manifest and
+    seed, written as pytorch_model.bin) loaded through models/load.py on the
+    card in bf16, against its CPU f32 forward: within 2e-2; the attention
+    kernel runs once per layer."""
+    import json
+
+    from review_recommender_tpu_torch.models import load
+    from tests.golden_utils import manifest_from_npz, synth_state_arrays
+
+    g = np.load(Path(__file__).parent / "goldens" / "bert_fullsize.npz")
+    sd = synth_state_arrays(manifest_from_npz(g, "be_man."), seed=100)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, tmp_path / "pytorch_model.bin")
+    (tmp_path / "config.json").write_text(json.dumps({
+        "vocab_size": 30522, "hidden_size": 384, "num_hidden_layers": 12,
+        "num_attention_heads": 12, "intermediate_size": 1536}))
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"w{i}" for i in range(30517)]
+    (tmp_path / "vocab.txt").write_text("\n".join(words) + "\n")
+    gpu = load.load_biencoder(tmp_path)
+    cpu = load.load_biencoder(tmp_path, device="cpu", dtype=torch.float32)
+    texts = [" ".join(f"w{i}" for i in range(j, j + 20 * (j + 1))) for j in range(6)]
+    before = tatt.mha_kernel_launches
+    got = gpu.encode(texts)
+    torch.cuda.synchronize()
+    assert tatt.mha_kernel_launches > before
+    assert np.abs(got - cpu.encode(texts)).max() <= 2e-2

@@ -7,8 +7,9 @@ The port's copy of the corpus generator equals the example's (products and
 judged queries, two seeds; keyword_query's draws), and its lane at 8
 themes x 32 products x 12 queries on the CPU gives the JAX lane's
 aggregate metrics exactly for all four methods, with the same table rows
-and CSV columns.
+and CSV columns, under the exact pool and under --dense-pool ivf:8.
 """
+import argparse
 import csv
 import json
 
@@ -62,6 +63,51 @@ def test_bow_lane_matches_the_jax_lane(tmp_path):
     assert rows("port") == rows("jax")
     header = lambda d: next(csv.reader(open(tmp_path / d / "detailed_results.csv")))
     assert header("port") == header("jax")
+
+
+def test_bow_lane_under_ivf_matches_the_jax_lane(tmp_path, monkeypatch):
+    """--dense-pool ivf:8 (IVF_NPROBE=8 for the lane) gives the JAX lane's
+    aggregates and table; the port restores IVF_NPROBE after its lane (the
+    JAX example leaves its knob changed, so it is put back here). The JAX
+    example sets the knob on `review_recommender_tpu.config.config`, which
+    tests/test_config.py replaces by reloading the module while the JAX
+    engine keeps the object it imported, so that module attribute is
+    pointed at the engine's object for this test."""
+    from review_recommender_tpu import config as jax_config_module
+    from review_recommender_tpu.engine import search as jax_search
+    from review_recommender_tpu_torch.config import config as port_config
+
+    jax_config = jax_search.config
+    monkeypatch.setattr(jax_config_module, "config", jax_config)
+
+    args = ["--themes", "8", "--per-theme", "32", "--queries", "12", "--dense-pool", "ivf:8"]
+    knob = lambda: (port_config.IVF_NPROBE, vars(port_config).get("IVF_NPROBE"))
+    before = knob()  # the value, and the instance's own value if it has one
+    jax_before = jax_config.IVF_NPROBE
+    try:
+        assert port_qt.main(args + ["--device", "cpu", "--out", str(tmp_path / "port")]) == 0
+        assert knob() == before
+        assert jax_qt.main(args + ["--lane", "bow", "--out", str(tmp_path / "jax")]) == 0
+        assert jax_config.IVF_NPROBE == 8
+    finally:
+        vars(jax_config).pop("IVF_NPROBE", None)
+    assert jax_config.IVF_NPROBE == jax_before
+    got, want = (json.loads((tmp_path / d / "benchmark_results.json").read_text())
+                 for d in ("port", "jax"))
+    for method in want:
+        assert got[method]["aggregate"] == want[method]["aggregate"], method
+    rows = lambda d: (tmp_path / d / "readme_table.md").read_text().splitlines()[:5]
+    assert rows("port") == rows("jax")
+
+
+@pytest.mark.parametrize("spec,ok", [("ivf:16", True), ("exact", True), ("ivf:0", False),
+                                     ("striped:4", False), ("hnsw", False)])
+def test_dense_pool_spec(spec, ok):
+    if ok:
+        assert port_qt._pool_spec(spec) == spec
+    else:
+        with pytest.raises(argparse.ArgumentTypeError):
+            port_qt._pool_spec(spec)
 
 
 def test_trained_lane_is_refused():
