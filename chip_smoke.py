@@ -157,6 +157,39 @@ line, and nothing is caught and passed over:
              4,096-product bundle (its rerank tokens re-tokenized by the
              loaded cross-encoder), query_e2e and run_search there (20
              queries each, 18 launches each, against each other)
+ 15 training  `rrt train --cross` in process at full width: the golden's
+             bge-small and MiniLM-L6 weights (phase 14's) saved as native
+             towers by models/load.py:save_native_tower with a 30,522-line
+             WordPiece vocab of the corpus's words, as EMB_MODEL_DIR /
+             RERANK_MODEL_DIR, on a 4,096-product bundle of the quality
+             table's generator (pseudo-words: mine_pairs keeps letter
+             words only, so phase 14's synthetic "t123" texts give no pair)
+             with one 10-word review for each of 640 products; batch 32,
+             --max-len 128 (the cross-encoder at 256), one epoch, bf16
+             compute on f32 masters. Per tower: step ms p50/p90 (CUDA
+             events at each optimizer step's end, by torch.optim's global
+             post-step hook; the host's p50 between the same calls),
+             padded tokens/s, the host's tokenization of one batch, and a
+             torch.profiler window of 5 steps: the device's step span,
+             busy time, the attention recompute's kernel time, the host
+             syncs a step by op (none allowed); peak
+             max_memory_allocated; exactly 24 (bi-encoder) and
+             6 (cross-encoder) kernel launches a step and as many backward
+             recomputes. Then 8 steps on one repeated batch from each
+             trained tower (the bi-encoder's loss must fall; all finite),
+             the trained towers loaded through models/load.py serving
+             run_search at rerank_k 50 (20 queries, 18 launches each) and
+             again on reference attention (F3's margin with a trained
+             cross-encoder); the quality table's trained lane at the
+             published corpus size with its depth cut (200 MLM steps, 1,024
+             pairs; printed): its 12 numbers, the three without rerank
+             within 0.01 of the bow lane's. Before all that, the attention
+             at the four shapes the trainers give it (bi-encoder,
+             cross-encoder, the lane's MLM and BCE stages): the kernel
+             forward (held to the plain version within 2e-2), the plain
+             version, SDPA, and the backward recompute (autograd through
+             mha_reference) beside SDPA's forward and backward, each timed
+             behind a device spin, with their bounds
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -255,6 +288,23 @@ TOWER_DIR = REPO_DIR / "build" / "chip_smoke_towers"
 GOLDEN = REPO_DIR / "tests" / "goldens" / "bert_fullsize.npz"
 # kind -> (input/output prefix, manifest prefix, weight seed)
 GOLDEN_SEEDS = {"biencoder": ("be_", "be_man.", 100), "crossencoder": ("ce_", "ce_man.", 200)}
+# phase 15: `rrt train --cross` at full width (bge-small at batch 32 and
+# --max-len 128; MiniLM-L6 at sequence 256) on a 4,096-product bundle whose
+# first TRAIN_REVIEWED products have a review each (a pair each: ~20
+# bi-encoder steps, ~40 cross-encoder steps at one negative a pair); the
+# trained lane at the published corpus size with its depth cut
+TRAIN_DOCS, TRAIN_THEMES, TRAIN_REVIEWED, TRAIN_REVIEW_WORDS, TRAIN_SEED = 4096, 8, 640, 10, 15
+TRAIN_BATCH, TRAIN_MAX_LEN, TRAIN_QUERIES, REPEAT_STEPS = 32, 128, 20, 8
+TRAIN_ARGS = ["--epochs", "1", "--batch-size", str(TRAIN_BATCH), "--max-len", str(TRAIN_MAX_LEN),
+              "--pairs-per-product", "1", "--negatives", "1", "--lr", "5e-5",
+              "--checkpoint-every", "0"]
+TRAIN_DIR = REPO_DIR / "build" / "chip_smoke_training"
+TRAINED_LANE_MLM_STEPS, TRAINED_LANE_PAIRS = 200, 1024  # published: 2,000 and 8,192
+# the attention at the trainers' shapes (B, S, H, D): the bi-encoder's,
+# the cross-encoder's, and the trained lane's MLM (a ragged 96-key tile)
+# and BCE stages
+TRAIN_SHAPES = [(32, 128, 12, 32), (32, 256, 12, 32), (64, 96, 4, 64), (64, 128, 4, 64)]
+TRAINED_LANE_JAX = {"ndcg@10": 0.656, "mrr": 0.880, "recall@20": 0.630}  # evals_out/readme_table.md
 
 
 def emit(obj) -> None:
@@ -2461,42 +2511,6 @@ def _write_safetensors(path, arrays) -> None:
             f.write(b)
 
 
-def _msgpack(obj) -> bytes:
-    """The msgpack of a tree of dicts with str keys and f32 array leaves, as
-    flax.serialization.to_bytes writes it (an array is ext 1 holding
-    (shape, dtype name, buffer))."""
-    import struct
-
-    def raw(tag, n, small, codes):
-        if n < small:
-            return bytes([tag | n])
-        for width, code in codes:
-            if n < 1 << (8 * width):
-                return bytes([code]) + n.to_bytes(width, "big")
-        raise ValueError(n)
-
-    def pack(x) -> bytes:
-        if isinstance(x, dict):
-            return raw(0x80, len(x), 16, ((2, 0xDE), (4, 0xDF))) + b"".join(
-                pack(k) + pack(v) for k, v in x.items())
-        if isinstance(x, (list, tuple)):
-            return raw(0x90, len(x), 16, ((2, 0xDC), (4, 0xDD))) + b"".join(pack(v) for v in x)
-        if isinstance(x, str):
-            b = x.encode()
-            return raw(0xA0, len(b), 32, ((1, 0xD9), (2, 0xDA), (4, 0xDB))) + b
-        if isinstance(x, bytes):
-            return raw(0, len(x), 0, ((1, 0xC4), (2, 0xC5), (4, 0xC6))) + x
-        if isinstance(x, int) and 0 <= x < 2**32:
-            return bytes([x]) if x < 128 else b"\xce" + struct.pack(">I", x)
-        if isinstance(x, np.ndarray):
-            arr = np.ascontiguousarray(x, dtype=np.float32)
-            body = pack([list(arr.shape), "float32", arr.tobytes()])
-            return raw(0, len(body), 0, ((1, 0xC7), (2, 0xC8), (4, 0xC9))) + b"\x01" + body
-        raise TypeError(type(x))
-
-    return pack(obj)
-
-
 def _golden_vocab(path) -> None:
     """A 30,522-line WordPiece vocab in bert-base-uncased's layout ([PAD] 0,
     [unused*], [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103), then the
@@ -2518,6 +2532,7 @@ def _write_towers(torch) -> dict:
     the 30,522-line vocab. Returns {(kind, layout): dir} and the seconds."""
     from review_recommender_tpu_torch.models.bert import BertConfig
     from review_recommender_tpu_torch.models.convert import convert_biencoder, convert_crossencoder
+    from review_recommender_tpu_torch.models.load import write_flax_msgpack
     from tests.golden_utils import manifest_from_npz, synth_state_arrays
 
     import shutil
@@ -2548,7 +2563,7 @@ def _write_towers(torch) -> dict:
                            d / "pytorch_model.bin")
             else:
                 conv = convert_biencoder if kind == "biencoder" else convert_crossencoder
-                (d / "params.msgpack").write_bytes(_msgpack(conv(sd, cfg)))
+                (d / "params.msgpack").write_bytes(write_flax_msgpack(conv(sd, cfg)))
                 hf = {"format": "rrt-native-v1", "kind": kind, "pooling": "cls",
                       "tokenizer": {"type": "wordpiece", "lowercase": True},
                       **dataclasses.asdict(cfg)}
@@ -2739,6 +2754,504 @@ def phase_configurations(torch, engine, qvecs):
     return launches
 
 
+def _training_corpus():
+    """TRAIN_DOCS products of the quality table's generator (pseudo-words,
+    TRAIN_THEMES themes), one review of TRAIN_REVIEW_WORDS words drawn from
+    its product's text for each of the first TRAIN_REVIEWED products, and
+    a WordPiece vocab of WP_VOCAB lines: bert-base-uncased's specials, the
+    corpus's words whole, then unused slots."""
+    from review_recommender_tpu_torch.evals import quality_table as QT
+
+    products, _q = QT.build_corpus(TRAIN_THEMES, TRAIN_DOCS // TRAIN_THEMES, 0, seed=TRAIN_SEED)
+    rng = np.random.default_rng(TRAIN_SEED)
+    step = len(products) // TRAIN_REVIEWED
+    reviews = [{"sku": p["sku"], "stars": 4.0,
+                "text": " ".join(rng.choice(p["agg_text"].split(), size=TRAIN_REVIEW_WORDS))}
+               for p in products[::step][:TRAIN_REVIEWED]]
+    words = sorted({w for p in products for w in p["agg_text"].split()})
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                                "[MASK]"] + words)
+    vocab += [f"[unused{i}]" for i in range(99, 99 + WP_VOCAB - len(vocab))]
+    return products, reviews, {t: i for i, t in enumerate(vocab)}
+
+
+def _golden_native_towers(tokenizer, out_dir):
+    """The full-size golden's bi-encoder (bge-small) and cross-encoder
+    (MiniLM-L6) weights, as phase 14 writes them, saved through the
+    package's save_native_tower with `tokenizer`'s vocab."""
+    from review_recommender_tpu_torch.models.bert import BertConfig
+    from review_recommender_tpu_torch.models.convert import (
+        convert_biencoder,
+        convert_crossencoder,
+        params_from_flax,
+    )
+    from review_recommender_tpu_torch.models.load import save_native_tower
+    from tests.golden_utils import manifest_from_npz, synth_state_arrays
+
+    g = np.load(GOLDEN)
+    dirs = {}
+    for kind, (_io, manifest, seed) in GOLDEN_SEEDS.items():
+        sd = synth_state_arrays(manifest_from_npz(g, manifest), seed=seed)
+        cfg = BertConfig.bge_small() if kind == "biencoder" else BertConfig.minilm_l6_cross()
+        conv = convert_biencoder if kind == "biencoder" else convert_crossencoder
+        dirs[kind] = save_native_tower(out_dir / f"golden_{kind}", kind, cfg,
+                                       params_from_flax(conv(sd, cfg), cfg, kind), tokenizer)
+    return dirs
+
+
+STEP_MARK = "chip_smoke.step_end"
+
+
+def _trace_window(path) -> dict:
+    """What a chrome trace of a few trainer steps shows of their device
+    timeline. A step ends on the device with the last kernel, copy or set
+    launched before its STEP_MARK annotation (the trace's host clock); over
+    the steps between the first marked end and the last: the mean step
+    span, the device's busy time a step (the union of its kernels, copies
+    and sets) and its share of the span, the time a step of the kernels
+    launched inside the attention's backward recompute (the
+    MhaKernelFnBackward autograd node), and the host syncs a step by the
+    innermost op that made them. A launch happens at its runtime call's
+    start."""
+    with open(path) as f:
+        trace = json.load(f)
+    evs = [e for e in (trace["traceEvents"] if isinstance(trace, dict) else trace)
+           if e.get("ph") == "X"]
+    end = lambda e: e["ts"] + e.get("dur", 0)
+    gpu = [e for e in evs if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    runtime = [e for e in evs if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in runtime
+                   if "correlation" in e.get("args", {})}
+    launch = lambda g: launched_at.get(g.get("args", {}).get("correlation"))
+    marks = sorted(e["ts"] for e in evs if e.get("name") == STEP_MARK)
+    bounds = []
+    for m in marks:
+        ends = [end(g) for g in gpu if launch(g) is not None and launch(g) < m]
+        check(bool(ends), "training", f"no device work before a step's end in {path.name}")
+        bounds.append(max(ends))
+    check(len(bounds) >= 2, "training", f"{len(bounds)} marked steps in {path.name}")
+    lo, hi, n = bounds[0], bounds[-1], len(bounds) - 1
+    clip = lambda e: max(0.0, min(end(e), hi) - max(e["ts"], lo))
+    busy, cur = 0.0, None
+    for s_, e_ in sorted((max(g["ts"], lo), min(end(g), hi)) for g in gpu if clip(g) > 0):
+        if cur is None or s_ > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [s_, e_]
+        else:
+            cur[1] = max(cur[1], e_)
+    busy += 0.0 if cur is None else cur[1] - cur[0]
+    recompute = []
+    for a, b in sorted((e["ts"], end(e)) for e in evs
+                       if e.get("cat") == "cpu_op" and e.get("name") == "MhaKernelFnBackward"):
+        if recompute and a <= recompute[-1][1]:
+            recompute[-1][1] = max(recompute[-1][1], b)
+        else:
+            recompute.append([a, b])
+    check(bool(recompute), "training", f"no MhaKernelFnBackward in {path.name}")
+    starts = [r[0] for r in recompute]
+
+    def in_recompute(g):
+        t = launch(g)
+        i = int(np.searchsorted(starts, t, side="right")) - 1 if t is not None else -1
+        return i >= 0 and t <= recompute[i][1]
+
+    rec_us = sum(clip(g) for g in gpu if in_recompute(g))
+    host_lo, host_hi = marks[0], marks[-1]
+    ops = [e for e in evs if e.get("cat") == "cpu_op"]
+    syncs = {}
+    for e in runtime:
+        if ("Synchronize" in e["name"] or e["name"] == "cudaMemcpy") \
+                and host_lo <= e["ts"] <= host_hi:
+            inner = [o for o in ops if o["ts"] <= e["ts"] <= end(o)]
+            name = min(inner, key=lambda o: o.get("dur", 0))["name"] if inner else e["name"]
+            syncs[name] = syncs.get(name, 0) + 1 / n
+    span_ms = (hi - lo) / n / 1e3
+    return {"window_steps": n, "device_step_ms": span_ms, "device_busy_ms": busy / n / 1e3,
+            "device_busy_share": busy / (hi - lo), "recompute_ms": rec_us / n / 1e3,
+            "recompute_share": rec_us / (hi - lo),
+            "host_syncs_per_step": syncs}
+
+
+class _StepWindow:
+    """Step times and one profiler window for each trainer of a run, read
+    with torch's public optimizer hook and nothing changed in the package.
+    torch.optim's global step post-hook records a CUDA event at the end of
+    each optimizer step; trainers are named TOWERS in the order they first
+    step. From the end of a trainer's PROFILE_AFTER-th step, torch.profiler
+    records PROFILE_STEPS steps (the queue drained at both ends), each
+    step's end marked by a STEP_MARK annotation, and _trace_window reads
+    the spans between the marks. Step times are the intervals between
+    consecutive step ends on the device, those touched by the profiler
+    left out."""
+
+    TOWERS, PROFILE_AFTER, PROFILE_STEPS = ("biencoder", "crossencoder"), 4, 5
+
+    def __init__(self, torch, trace_dir):
+        from torch.optim.optimizer import register_optimizer_step_post_hook
+
+        self.torch, self.trace_dir = torch, trace_dir
+        self.tower_of, self.ends, self.host, self.windows, self.prof = {}, {}, {}, {}, None
+        self.handle = register_optimizer_step_post_hook(self._after_step)
+
+    def _after_step(self, opt, _args, _kwargs):
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        if id(opt) not in self.tower_of:
+            check(len(self.tower_of) < len(self.TOWERS), "training",
+                  "more trainers stepped than the run has towers")
+            self.tower_of[id(opt)] = self.TOWERS[len(self.tower_of)]
+        tower = self.tower_of[id(opt)]
+        e = self.torch.cuda.Event(enable_timing=True)
+        e.record()
+        ends = self.ends.setdefault(tower, [])
+        ends.append(e)
+        self.host.setdefault(tower, []).append(time.perf_counter())
+        if self.prof is not None:
+            with record_function(STEP_MARK):
+                pass
+        if len(ends) == self.PROFILE_AFTER:
+            self.torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.start()
+        elif len(ends) == self.PROFILE_AFTER + self.PROFILE_STEPS:
+            self.torch.cuda.synchronize()
+            self.prof.stop()
+            path = self.trace_dir / f"trace_{tower}.json"
+            self.prof.export_chrome_trace(str(path))
+            self.prof = None
+            self.windows[tower] = _trace_window(path)
+            path.unlink()
+
+    def close(self):
+        self.handle.remove()
+        if self.prof is not None:
+            self.prof.stop()
+
+    def report(self, tower, tokens_per_step):
+        """Step interval p50/p90 in ms over the steps the profiler did not
+        touch (on the device; the host's p50 between the same hook calls
+        beside it), padded tokens/s at the p50, and the profiler window's
+        device timeline (_trace_window) with its busy and recompute time
+        over the p50."""
+        self.torch.cuda.synchronize()
+        ends = self.ends[tower]
+        touched = range(self.PROFILE_AFTER, self.PROFILE_AFTER + self.PROFILE_STEPS + 1)
+        steps = [a.elapsed_time(b) for i, (a, b) in enumerate(zip(ends, ends[1:]), 1)
+                 if i not in touched]
+        host = self.host[tower]
+        host_steps = [(b - a) * 1e3 for i, (a, b) in enumerate(zip(host, host[1:]), 1)
+                      if i not in touched]
+        check(tower in self.windows and len(steps) >= 4, "training",
+              f"{tower}: {len(ends)} steps, too few for the profiler window and the timing")
+        p50 = float(np.percentile(steps, 50))
+        w = self.windows[tower]
+        return {"steps": len(ends), "timed_steps": len(steps), "step_ms_p50": p50,
+                "step_ms_p90": float(np.percentile(steps, 90)),
+                "host_step_ms_p50": float(np.percentile(host_steps, 50)),
+                "padded_tokens_per_step": tokens_per_step,
+                "tokens_per_s_at_p50": tokens_per_step / p50 * 1e3,
+                "profiled": w, "device_busy_ms_over_step_p50": w["device_busy_ms"] / p50,
+                "recompute_ms_over_step_p50": w["recompute_ms"] / p50}
+
+
+def _cross_score_range(engine, ce, queries):
+    """The median over queries of the range (max - min) of the
+    cross-encoder's raw scores over a query's first RERANK_K candidates:
+    the spread that the rerank lane's min-max stretches (ROADMAP F3)."""
+    ranges = []
+    for q in queries:
+        rows = engine.run_search(q, k=RERANK_K, rerank_k=0)[0]
+        scores = ce(q, [r["agg_text"][:2000] for r in rows])
+        ranges.append(float(scores.max() - scores.min()))
+    return float(np.median(ranges))
+
+
+def _repeated_batch_losses(trainer_cls, cfg, sd, batch, steps, **kw):
+    """Losses of `steps` trainer steps on one batch (lr 1e-4, constant)."""
+    tr = trainer_cls(cfg, sd, device=DEV, **kw)
+    losses = [tr.train_step(*batch)["loss"] for _ in range(steps)]
+    del tr
+    return losses
+
+
+def _trained_lane(card):
+    """The quality table's trained lane at the published corpus size, its
+    depth cut to TRAINED_LANE_MLM_STEPS MLM steps and TRAINED_LANE_PAIRS
+    pairs: its 12 numbers, the three without rerank held to the bow lane's
+    (the trained lane keeps the BoW dense signal and BM25)."""
+    from review_recommender_tpu_torch.evals import quality_table as QT
+    from review_recommender_tpu_torch.index.build import build_bundle_from_products
+
+    from review_recommender_tpu_torch.ops import attention as A
+
+    t0 = time.perf_counter()
+    products, queries = QT.build_corpus(QT_THEMES, QT_PER_THEME, QT_QUERIES, seed=QT_SEED)
+    lines = []
+    _zero_counts()
+    A.mha_backward_recomputes = 0
+    encoder, cross = QT.build_trained_towers(products, queries, seed=QT_SEED,
+                                             n_pairs=TRAINED_LANE_PAIRS,
+                                             mlm_steps=TRAINED_LANE_MLM_STEPS, device=DEV,
+                                             log=lines.append)
+    train_s = time.perf_counter() - t0
+    emb = encoder.encode([p["agg_text"] for p in products])
+    bundle = build_bundle_from_products(products, emb, doc_terms_cap=QT.DOC_TERMS_CAP,
+                                        pad_multiple=QT.PAD_MULTIPLE)
+    engine, results = QT.run_lane(bundle, encoder, queries, DEV, cross_encoder=cross)
+    lane_counts, recomputes = _counts(), A.mha_backward_recomputes
+    with open(REPO_DIR / QT_REFERENCE) as f:
+        reference = json.load(f)
+    table, worst = {}, 0.0
+    for method, res in results.items():
+        table[method] = {m: res["aggregate"][m] for m in QT_METRICS}
+        if "Rerank" not in method:
+            worst = max([worst] + [abs(res["aggregate"][m] - reference[method]["aggregate"][m])
+                                   for m in QT_METRICS])
+    emit({"phase": "training_lane", "card": card, "corpus": [QT_THEMES, QT_PER_THEME, QT_QUERIES],
+          "mlm_steps": TRAINED_LANE_MLM_STEPS, "mlm_steps_published": 2000,
+          "n_pairs": TRAINED_LANE_PAIRS, "n_pairs_published": 8192, "log": lines,
+          "train_s": train_s, "wall_s": time.perf_counter() - t0, "methods": table,
+          "jax_full_lane_hybrid_rerank": TRAINED_LANE_JAX, "attention_launches": lane_counts,
+          "backward_recomputes": recomputes, "without_rerank_vs_bow_lane": worst})
+    check(all(np.isfinite(v) for row in table.values() for v in row.values()), "training_lane",
+          f"non-finite quality numbers {table}")
+    check(worst <= QT_TOL, "training_lane",
+          f"a method without rerank differs from the bow lane's by {worst} > {QT_TOL}")
+    check(lane_counts["mha_fwd"] > recomputes > 0, "training_lane",
+          f"{lane_counts} launches and {recomputes} recomputes: the lane's training and rerank "
+          "must run the kernel")
+    del engine, cross
+    return lane_counts["mha_fwd"], recomputes
+
+
+def _training_kernel_rows(torch):
+    """The attention at each TRAIN_SHAPES shape, timed behind a device spin
+    (medians of REPS CUDA-event runs): the kernel forward against its plain
+    version and SDPA (row 1), and MhaKernelFn's backward recompute
+    (autograd through mha_reference: its forward and the q, k, v
+    gradients) against SDPA's forward and backward (row 1b). Bounds: the
+    forward's as phase 3's; the backward's operations are the recomputed
+    forward's 4BHS^2D plus 8BHS^2D for dV, dP, dQ, dK, its bytes q, k, v
+    and the upstream gradient read and dq, dk, dv written."""
+    from review_recommender_tpu_torch.ops import attention as A
+
+    spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
+    rows = []
+    for i, (b, s, h, d) in enumerate(TRAIN_SHAPES):
+        rng = np.random.default_rng(300 + i)
+        q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(np.float32))
+                      .to(DEV, torch.bfloat16) for _ in range(4))
+        lens = rng.integers(1, s + 1, size=b)
+        bias = torch.from_numpy(np.where(np.arange(s)[None, :] < lens[:, None], 0.0, -1e30)
+                                .astype(np.float32)).to(DEV)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+        def recompute():
+            with torch.enable_grad():
+                return torch.autograd.grad(A.mha_reference(*leaves, bias, h), leaves, g)
+
+        def sdpa_backward():
+            with torch.enable_grad():
+                return torch.autograd.grad(_sdpa(torch, *leaves, bias, h), leaves, g)
+
+        with torch.no_grad():
+            got = A.mha_kernel(q, k, v, bias, h)
+            err = float((got.float() - A.mha_reference(q, k, v, bias, h).float()).abs().max())
+        runs = {"ms": lambda: A.mha_kernel(q, k, v, bias, h),
+                "plain_ms": lambda: A.mha_reference(q, k, v, bias, h),
+                "library_ms": lambda: _sdpa(torch, q, k, v, bias, h)}
+        times = {}
+        with torch.no_grad():
+            for name, fn in runs.items():
+                fn()
+                times[name] = _median_ms(torch, fn, REPS, before=spin)
+        for name, fn in (("recompute_ms", recompute), ("library_backward_ms", sdpa_backward)):
+            fn()
+            times[name] = _median_ms(torch, fn, REPS, before=spin)
+        flops = A.attention_flops(b, s, h, d)
+        nbytes = A.attention_bytes(b, s, h, d, 2)
+        bwd_flops, bwd_bytes = 3 * flops, 7 * b * s * h * d * 2 + 4 * b * s
+        rows.append({"B": b, "S": s, "H": h, "D": d, "max_abs_err": err, **times,
+                     "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3,
+                     "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES
+                     else "bytes",
+                     "backward_bound_ms": max(bwd_flops / PEAK_BF16_FLOPS,
+                                              bwd_bytes / PEAK_HBM_BYTES) * 1e3,
+                     "backward_bound_by": "operations"
+                     if bwd_flops / PEAK_BF16_FLOPS > bwd_bytes / PEAK_HBM_BYTES else "bytes",
+                     "reps": REPS})
+        check(err <= KERNEL_TOL, "training_kernel", f"max abs error {err} at {rows[-1]}")
+    return rows
+
+
+def phase_training(torch):
+    """Phase 15: `rrt train --cross` at full width from the golden towers on
+    a 4,096-product bundle with reviews, timed per step; the loss on a
+    repeated batch; the trained towers served by run_search at rerank_k 50
+    with the F3 cross-check; the trained lane at a cut depth. Returns the
+    attention launches (of `rrt train`, the counted run_search and the
+    lane) and the backward recomputes (of `rrt train` and the lane)."""
+    import shutil
+
+    from review_recommender_tpu_torch.config import config
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.evals import quality_table as QT
+    from review_recommender_tpu_torch.index.build import build_bundle_from_products
+    from review_recommender_tpu_torch.index.io import load_bundle, save_bundle
+    from review_recommender_tpu_torch.models import load
+    from review_recommender_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from review_recommender_tpu_torch.train import (
+        ContrastiveTrainer,
+        CrossEncoderTrainer,
+        TrainConfig,
+        CrossTrainConfig,
+        make_pair_batch,
+        make_triple_batch,
+        mine_pairs,
+    )
+
+    card = _card()
+    kernel_rows = _training_kernel_rows(torch)
+    for row in kernel_rows:
+        emit({"phase": "training_kernel", "card": card, **row})
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    products, reviews, vocab = _training_corpus()
+    tok = WordPieceTokenizer(vocab)
+    golden = _golden_native_towers(tok, TRAIN_DIR)
+    be = load.load_biencoder(golden["biencoder"], device=DEV)
+    emb = be.encode([p["agg_text"] for p in products])
+    rng = np.random.default_rng(TRAIN_SEED)
+    bdir = TRAIN_DIR / "bundle"
+    save_bundle(build_bundle_from_products(
+        products, emb, reviews=reviews,
+        review_embeddings=rng.standard_normal((len(reviews), DIM)).astype(np.float32),
+        doc_terms_cap=QT.DOC_TERMS_CAP, pad_multiple=QT.PAD_MULTIPLE), bdir)
+    del be
+    setup_s = time.perf_counter() - t0
+
+    # the main path: rrt train --cross, counted and timed per step
+    out = TRAIN_DIR / "towers"
+    saved = {n: getattr(config, n) for n in ("EMB_MODEL_DIR", "RERANK_MODEL_DIR")}
+    config.EMB_MODEL_DIR = str(golden["biencoder"])
+    config.RERANK_MODEL_DIR = str(golden["crossencoder"])
+    clock = _StepWindow(torch, TRAIN_DIR)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()  # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    from review_recommender_tpu_torch.ops import attention as A
+
+    _zero_counts()
+    A.mha_backward_recomputes = 0
+    try:
+        t0 = time.perf_counter()
+        code, printed = _cli(["train", "--index-dir", str(bdir), "--out", str(out), "--cross",
+                              "--device", DEV, *TRAIN_ARGS])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts, recomputes = _counts(), A.mha_backward_recomputes
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        clock.close()
+        for n, v in saved.items():
+            setattr(config, n, v)
+    check(code == 0, "training", f"rrt train exit {code}")
+    line = json.loads(printed.strip().splitlines()[-1])
+    bi_steps, xe_steps = len(clock.ends["biencoder"]), len(clock.ends["crossencoder"])
+    bi = clock.report("biencoder", 2 * TRAIN_BATCH * TRAIN_MAX_LEN)
+    xe = clock.report("crossencoder", TRAIN_BATCH * 2 * TRAIN_MAX_LEN)
+
+    # the host's tokenization of one batch, a part of each step's host work
+    pairs = mine_pairs([r["text"] for r in reviews], [r["sku"] for r in reviews],
+                       [p["sku"] for p in products], [p["agg_text"] for p in products])
+    qs, ds = [q for q, _ in pairs[:TRAIN_BATCH]], [d for _, d in pairs[:TRAIN_BATCH]]
+    labels = [1.0 if i % 2 == 0 else 0.0 for i in range(TRAIN_BATCH)]
+    xdocs = [d if i % 2 == 0 else ds[(i + 7) % len(ds)] for i, d in enumerate(ds)]
+    make_bi = lambda t: make_pair_batch(t, qs, ds, max_len=TRAIN_MAX_LEN, pad_to=TRAIN_MAX_LEN)
+    make_xe = lambda t: make_triple_batch(t, qs, xdocs, labels, max_len=2 * TRAIN_MAX_LEN,
+                                          pad_to=2 * TRAIN_MAX_LEN)
+    for report, make in ((bi, make_bi), (xe, make_xe)):
+        took = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            make(tok)
+            took.append((time.perf_counter() - t0) * 1e3)
+        report["host_tokenize_batch_ms_p50"] = float(np.median(took))
+    want = {**{n: 0 for n in counts}, "mha_fwd": 24 * bi_steps + 6 * xe_steps}
+    emit({"phase": "training", "card": card, "products": len(products),
+          "reviews": len(reviews), "pairs": line["pairs"], "setup_s": setup_s,
+          "train_s": train_s, "biencoder": {"config": "bge_small, bf16, f32 masters",
+                                            "batch": TRAIN_BATCH, "max_len": TRAIN_MAX_LEN, **bi},
+          "crossencoder": {"config": "minilm_l6_cross, bf16, f32 masters",
+                           "batch": TRAIN_BATCH, "max_len": 2 * TRAIN_MAX_LEN, **xe},
+          "peak_allocated_bytes": peak, "resident_bytes": resident,
+          "peak_over_resident_bytes": peak - resident, "attention_launches": counts["mha_fwd"],
+          "backward_recomputes": recomputes, "args": TRAIN_ARGS})
+    check(not bi["profiled"]["host_syncs_per_step"] and not xe["profiled"]["host_syncs_per_step"],
+          "training", f"the trainers' steps sync with the host: {bi['profiled']} {xe['profiled']}")
+    check(counts == want and recomputes == counts["mha_fwd"], "training",
+          f"launches {counts} and {recomputes} recomputes, want {want} and as many recomputes")
+
+    # the loss on a repeated batch, each trained tower
+    cfg_bi, sd_bi, tok_bi, _ = load.load_tower_params(out / "biencoder", "biencoder")
+    cfg_xe, sd_xe, tok_xe, _ = load.load_tower_params(out / "crossencoder", "crossencoder")
+    losses = {
+        "biencoder": _repeated_batch_losses(ContrastiveTrainer, cfg_bi, sd_bi, make_bi(tok_bi),
+                                            REPEAT_STEPS, train_cfg=TrainConfig(learning_rate=1e-4)),
+        "crossencoder": _repeated_batch_losses(
+            CrossEncoderTrainer, cfg_xe, sd_xe, make_xe(tok_xe), REPEAT_STEPS,
+            train_cfg=CrossTrainConfig(learning_rate=1e-4)),
+    }
+    emit({"phase": "training_repeated_batch", "card": card, "steps": REPEAT_STEPS,
+          "losses": losses, "label_base_rate_loss": float(np.log(2)),
+          "what": "the bi-encoder must fall; the cross-encoder from the golden's random "
+                  "trunk sits at the label base rate (train/mlm.py), reported"})
+    check(all(np.isfinite(ls).all() for ls in losses.values()), "training_repeated_batch",
+          f"a non-finite loss: {losses}")
+    ls = losses["biencoder"]
+    check(ls[-1] < ls[0], "training_repeated_batch",
+          f"the bi-encoder's loss does not fall on a repeated batch: {ls}")
+
+    # the trained towers from disk through models/load.py, run_search at
+    # rerank_k 50, and F3's margin with the trained cross-encoder
+    be = load.load_biencoder(out / "biencoder", device=DEV)
+    ce = load.load_crossencoder(out / "crossencoder", device=DEV)
+    engine = SearchEngine(load_bundle(bdir), device=DEV, query_encoder=be, cross_encoder=ce)
+    queries = [q for q, _ in pairs[TRAIN_BATCH:TRAIN_BATCH + TRAIN_QUERIES]]
+    _check_rows(engine.run_search(queries[0], k=K, rerank_k=RERANK_K)[0], "training_serve")
+    _zero_counts()
+    lat, rows_k = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        rows_k.append(engine.run_search(q, k=K, rerank_k=RERANK_K)[0])
+        lat.append((time.perf_counter() - t0) * 1e3)
+        _check_rows(rows_k[-1], "training_serve")
+    serve_counts = _counts()
+    be.set_attn_impl("reference")
+    ce.set_attn_impl("reference")
+    try:
+        rows_r = [engine.run_search(q, k=K, rerank_k=RERANK_K)[0] for q in queries]
+    finally:
+        be.set_attn_impl("auto")
+        ce.set_attn_impl("auto")
+    golden_ce = load.load_crossencoder(golden["crossencoder"], device=DEV)
+    emit({"phase": "training_serve", "card": card, "queries": len(queries),
+          "rerank_k": RERANK_K, "run_search": _pct(lat), "attention_launches": serve_counts,
+          "cross_score_range_median": {"trained": _cross_score_range(engine, ce, queries),
+                                       "golden": _cross_score_range(engine, golden_ce, queries)}})
+    del golden_ce
+    check(serve_counts["mha_fwd"] == 18 * len(queries), "training_serve",
+          f"run_search launches {serve_counts}, want 18 a query")
+    _crosscheck(rows_k, rows_r, "training_f3")
+    del engine, be, ce
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    lane_launches, lane_recomputes = _trained_lane(card)
+    return (counts["mha_fwd"] + serve_counts["mha_fwd"] + lane_launches,
+            recomputes + lane_recomputes)
+
+
 def main() -> int:
     import torch
 
@@ -2770,6 +3283,9 @@ def main() -> int:
         launches += phase_serve(torch, engine, qvecs)
         launches += phase_offline(torch, engine)
         launches += phase_configurations(torch, engine, qvecs)
+        del engine
+        train_launches, recomputes = phase_training(torch)
+        launches += train_launches
     except PhaseError as exc:
         emit({"phase": "failed", "error": str(exc)})
         return 3
@@ -2785,6 +3301,7 @@ def main() -> int:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": "operations" if main_shape["bound"] == "compute" else "bytes",
         "library_ms": main_shape["library_device_ms"],
+        "backward_recomputes": recomputes,
     }] + _bm25_kernel_entries(bm25_rows, bm25_launches, bm25_err) + [stage_a_entry]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

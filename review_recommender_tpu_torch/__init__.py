@@ -16,10 +16,15 @@ names mirror the JAX package so each counterpart is easy to find:
                   BM25, gate, fusion, review segment max (plain torch); the
                   fused attention, the full-corpus BM25 scans and the fused
                   stage A (hand-written CUDA kernels, csrc/)
-    models        BERT towers as nn.Modules, HF and flax -> torch weight
-                  mapping, checkpoint loading (HF snapshots, native towers),
+    models        BERT towers as nn.Modules (bf16 serving weights, or f32
+                  masters for training), HF and flax <-> torch weight
+                  mapping, checkpoint loading (HF snapshots, native towers)
+                  and native tower saving,
                   WordPiece and hash tokenizers, bucketed bi-/cross-encoder
                   wrappers, the bag-of-words encoder and overlap scorer
+    train         contrastive bi-encoder, cross-encoder and MLM trainers on
+                  one device with the JAX trainers' optax chain; pair,
+                  triple and mask mining
     topics        spherical k-means (the IVF pool's clustering)
     engine        featurizer, host hooks, snippet recovery, SearchEngine:
                   run_search, the fused and batched forms, query_e2e,
@@ -27,15 +32,16 @@ names mirror the JAX package so each counterpart is easy to find:
     native        the C++ host library (document tokenizer and postings,
                   query featurizer, epoll HTTP front end), built with g++ on
                   first use, bound by ctypes
-    serve         the CLI, the bundle audit, the HTTP API: stdlib server
+    serve         the CLI (`train` included), the bundle audit, the HTTP API: stdlib server
                   with the micro-batcher, the native front end, the web page
     evals         IR metrics, the method configs and judged queries, the
-                  benchmark runner, the quality table's bow lane
+                  benchmark runner, the quality table's bow and trained
+                  lanes
 
 The package imports torch, numpy and the standard library, and nothing of
 the JAX package, jax, flax, msgpack, safetensors, pandas or pyarrow (index/io.py imports pyarrow
 only to read a JAX bundle's parquet files). Its entry points
-(`SearchEngine`, `BiEncoder`, `CrossEncoder`, the CLI) run on "cuda"
+(`SearchEngine`, `BiEncoder`, `CrossEncoder`, the trainers, the CLI) run on "cuda"
 unless the caller passes device="cpu".
 """
 

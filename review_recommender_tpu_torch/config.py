@@ -6,14 +6,59 @@ embedding dtype, gate and dense-pool modes (with the IVF pool's knobs),
 the query- and document-term caps, the feature flags, the least candidate pool, the search defaults,
 the tower directories and mesh width the CLI checks, and the server's
 address, log path and level, environment and micro-batch knobs. Each knob
-is read once, when this module is imported; tests patch the `config`
-singleton.
+is read once, when this module is imported, after `.env` and then
+`.env.<ENVIRONMENT>` in the working directory are layered into the
+environment as the JAX config layers them (a variable the process already
+has is never overridden); tests patch the `config` singleton.
 """
 from __future__ import annotations
 
 import logging
 import os
 from pathlib import Path
+
+
+def _load_env_file(path: Path, *, override: bool = False) -> None:
+    """KEY=VALUE lines of `path` into os.environ (python-dotenv's simple
+    case): blank lines and '#' comment lines skipped, an optional 'export '
+    prefix, one pair of matching quotes stripped, an inline comment (a '#'
+    at the start or after a blank) cut from an unquoted value, and a
+    variable the process already has kept unless override=True."""
+    if not path.is_file():
+        return
+    try:
+        text = path.read_text(encoding="utf-8")
+    except OSError:
+        return
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#") or "=" not in line:
+            continue
+        if line.startswith("export "):
+            line = line[len("export "):]
+        key, _, value = line.partition("=")
+        key, value = key.strip(), value.strip()
+        if len(value) >= 2 and value[0] == value[-1] and value[0] in "\"'":
+            value = value[1:-1]
+        else:
+            for i, ch in enumerate(value):
+                if ch == "#" and (i == 0 or value[i - 1] in " \t"):
+                    value = value[:i].rstrip()
+                    break
+        if key and (override or key not in os.environ):
+            os.environ[key] = value
+
+
+def load_env_files() -> None:
+    """`.env`, then `.env.<ENVIRONMENT>` when the process or `.env` names an
+    environment, into os.environ; the process's own variables win."""
+    _load_env_file(Path(".env"))
+    env = os.getenv("ENVIRONMENT", "")
+    if env:
+        _load_env_file(Path(f".env.{env.lower()}"))
+
+
+load_env_files()
 
 
 def _env_bool(name: str, default: str = "false") -> bool:
@@ -140,6 +185,10 @@ class Config:
     @classmethod
     def is_production(cls) -> bool:
         return cls.ENVIRONMENT.lower() == "production"
+
+    @classmethod
+    def is_development(cls) -> bool:
+        return cls.ENVIRONMENT.lower() == "development"
 
     @classmethod
     def resolve_pool_mode(cls, mode: str, n_padded: int) -> str:

@@ -6,8 +6,14 @@ Counterpart of `review_recommender_tpu/models/bert.py:33-227`, with the same
 dtype boundaries as the flax modules:
 
   - embeddings are summed and layer-normed in f32, then cast to `dtype`;
-  - the attention and FFN Linear layers hold `dtype` weights (flax keeps f32
-    params and casts them per call; the port casts once at load);
+  - the attention and FFN Linear layers compute in `dtype` from weights
+    stored in `param_dtype` (default: `dtype`). Serving stores them in
+    `dtype`, cast once at load, so a forward adds no cast; training stores
+    f32 masters (`param_dtype=torch.float32`) and casts weight and bias to
+    `dtype` inside each forward, the product flax's Dense computes with its
+    f32 params;
+  - `remat=True` recomputes each layer's activations in the backward
+    (torch.utils.checkpoint per layer, flax's nn.remat);
   - both residual LayerNorms run in f32 and cast back;
   - GELU is the tanh approximation (flax.linen.gelu's default), not erf;
   - pooler and classifier are f32; the bi-encoder output is L2-normalised
@@ -26,6 +32,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from review_recommender_tpu_torch.ops.attention import multihead_attention
 
@@ -66,16 +73,30 @@ class BertConfig:
         )
 
 
+class Dense(nn.Linear):
+    """nn.Linear computing in `dtype` from parameters stored in
+    `param_dtype`; the casts are no-ops where the two agree."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None):
+        super().__init__(n_in, n_out, dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(self.compute_dtype), self.bias.to(self.compute_dtype))
+
+
 class SelfAttention(nn.Module):
-    def __init__(self, cfg: BertConfig, dtype: torch.dtype, attn_impl: str = "auto"):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype, attn_impl: str = "auto",
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         h = cfg.hidden_size
         self.num_heads = cfg.num_heads
         self.attn_impl = attn_impl
-        self.query = nn.Linear(h, h, dtype=dtype)
-        self.key = nn.Linear(h, h, dtype=dtype)
-        self.value = nn.Linear(h, h, dtype=dtype)
-        self.output_dense = nn.Linear(h, h, dtype=dtype)
+        self.query = Dense(h, h, dtype, param_dtype)
+        self.key = Dense(h, h, dtype, param_dtype)
+        self.value = Dense(h, h, dtype, param_dtype)
+        self.output_dense = Dense(h, h, dtype, param_dtype)
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
         ctx = multihead_attention(self.query(x), self.key(x), self.value(x),
@@ -84,7 +105,8 @@ class SelfAttention(nn.Module):
 
 
 class BertLayer(nn.Module):
-    def __init__(self, cfg: BertConfig, dtype: torch.dtype, attn_impl: str = "auto"):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype, attn_impl: str = "auto",
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.ln_dtype != "float32":
             raise NotImplementedError(
@@ -92,10 +114,10 @@ class BertLayer(nn.Module):
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.dtype = dtype
         self.act = ACT[cfg.hidden_act]
-        self.attention = SelfAttention(cfg, dtype, attn_impl)
+        self.attention = SelfAttention(cfg, dtype, attn_impl, param_dtype)
         self.attention_layer_norm = nn.LayerNorm(h, eps=eps, dtype=torch.float32)
-        self.intermediate = nn.Linear(h, cfg.intermediate_size, dtype=dtype)
-        self.output = nn.Linear(cfg.intermediate_size, h, dtype=dtype)
+        self.intermediate = Dense(h, cfg.intermediate_size, dtype, param_dtype)
+        self.output = Dense(cfg.intermediate_size, h, dtype, param_dtype)
         self.output_layer_norm = nn.LayerNorm(h, eps=eps, dtype=torch.float32)
 
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
@@ -109,17 +131,19 @@ class BertEncoder(nn.Module):
     """Token ids -> per-token hidden states (B, S, H) in `dtype`."""
 
     def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.bfloat16,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", param_dtype: Optional[torch.dtype] = None,
+                 remat: bool = False):
         super().__init__()
         h = cfg.hidden_size
         self.cfg = cfg
         self.dtype = dtype
+        self.remat = remat
         self.word_embeddings = nn.Embedding(cfg.vocab_size, h, dtype=torch.float32)
         self.position_embeddings = nn.Embedding(cfg.max_position, h, dtype=torch.float32)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h, dtype=torch.float32)
         self.embeddings_layer_norm = nn.LayerNorm(h, eps=cfg.layer_norm_eps, dtype=torch.float32)
         self.layers = nn.ModuleList(
-            BertLayer(cfg, dtype, attn_impl) for _ in range(cfg.num_layers))
+            BertLayer(cfg, dtype, attn_impl, param_dtype) for _ in range(cfg.num_layers))
 
     def set_attn_impl(self, impl: str) -> None:
         for m in self.modules():
@@ -139,7 +163,10 @@ class BertEncoder(nn.Module):
         # additive f32 bias over KEY positions: 0 keep, -1e30 drop
         attn_bias = torch.where(attention_mask.bool(), 0.0, -1e30).to(torch.float32)
         for layer in self.layers:
-            x = layer(x, attn_bias)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, attn_bias, use_reentrant=False)
+            else:
+                x = layer(x, attn_bias)
         return x
 
 
@@ -147,12 +174,13 @@ class BiEncoderModel(nn.Module):
     """Sentence embedding tower: CLS (or mean) pooling + L2 norm in f32."""
 
     def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.bfloat16,
-                 pooling: str = "cls", attn_impl: str = "auto"):
+                 pooling: str = "cls", attn_impl: str = "auto",
+                 param_dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
         if pooling not in ("cls", "mean"):
             raise ValueError(f"pooling must be 'cls' or 'mean', got {pooling!r}")
         self.pooling = pooling
-        self.encoder = BertEncoder(cfg, dtype, attn_impl)
+        self.encoder = BertEncoder(cfg, dtype, attn_impl, param_dtype, remat)
 
     def forward(self, input_ids, attention_mask, token_type_ids=None) -> torch.Tensor:
         hidden = self.encoder(input_ids, attention_mask, token_type_ids).to(torch.float32)
@@ -169,9 +197,9 @@ class CrossEncoderModel(nn.Module):
     """(query, doc) relevance: BERT -> tanh pooler -> 1 logit, head in f32."""
 
     def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.bfloat16,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.encoder = BertEncoder(cfg, dtype, attn_impl)
+        self.encoder = BertEncoder(cfg, dtype, attn_impl, param_dtype)
         self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size, dtype=torch.float32)
         self.classifier = nn.Linear(cfg.hidden_size, 1, dtype=torch.float32)
 
@@ -183,11 +211,12 @@ class CrossEncoderModel(nn.Module):
 
 def init_state_dict(cfg: BertConfig, kind: str, seed: int = 0) -> Dict[str, torch.Tensor]:
     """Random f32 CPU weights from a seeded torch.Generator, in the layout of
-    `params_from_flax`: Linear weights normal(0, 1/fan_in) (lecun), biases 0,
-    embeddings normal(0, 1/H), LayerNorm scale 1 and bias 0 (flax's default
+    `params_from_flax` (kind "mlm": the trunk and train/mlm.py's head):
+    Linear weights normal(0, 1/fan_in) (lecun), biases 0, embeddings
+    normal(0, 1/H), LayerNorm scale 1 and bias 0 (flax's default
     initialisers, untruncated)."""
-    if kind not in ("biencoder", "crossencoder"):
-        raise ValueError(f"kind must be 'biencoder' or 'crossencoder', got {kind!r}")
+    if kind not in ("biencoder", "crossencoder", "mlm"):
+        raise ValueError(f"kind must be 'biencoder', 'crossencoder' or 'mlm', got {kind!r}")
     g = torch.Generator().manual_seed(int(seed))
     h, ff = cfg.hidden_size, cfg.intermediate_size
     normal = lambda *shape, std: torch.randn(*shape, generator=g) * std
@@ -217,4 +246,8 @@ def init_state_dict(cfg: BertConfig, kind: str, seed: int = 0) -> Dict[str, torc
     if kind == "crossencoder":
         linear("pooler", h, h)
         linear("classifier", h, 1)
+    if kind == "mlm":
+        linear("mlm_transform", h, h)
+        layer_norm("mlm_ln")
+        linear("mlm_decoder", h, cfg.vocab_size)
     return sd

@@ -33,11 +33,16 @@ the nn.Modules of models/bert.py:
                                             encoder.layers.I.*_layer_norm.{weight,bias}
   encoder/layer_I/{intermediate,output}     encoder.layers.I.{intermediate,output}
   pooler, classifier (cross-encoder)        pooler, classifier (f32)
+  mlm_transform, mlm_ln, mlm_decoder (kind "mlm", train/mlm.py's head)
+                                            the same names (f32)
 
 flax Dense kernels are (in, out); torch Linear weights are (out, in). The
-attention and FFN Linear weights are cast to the compute dtype here, once,
-where flax casts them on every call; embeddings, LayerNorms and the
-cross-encoder head stay f32, as in the flax modules.
+attention and FFN Linear weights are cast to `dtype` here (f32 by
+default, a serving wrapper's load casts them once to its compute dtype);
+embeddings, LayerNorms and the heads stay f32, as in the flax modules.
+`flax_from_params` is the way back: a state_dict (the trainers' f32
+parameters, or their gradients) -> the flax tree with f32 numpy leaves,
+which save_native_tower writes and the JAX loaders read.
 """
 from __future__ import annotations
 
@@ -48,7 +53,10 @@ import torch
 
 from review_recommender_tpu_torch.models.bert import BertConfig
 
-KINDS = ("biencoder", "crossencoder")
+KINDS = ("biencoder", "crossencoder", "mlm")
+# the heads outside the trunk: Dense layers, and LayerNorms (scale/bias)
+_HEADS = {"biencoder": ((), ()), "crossencoder": (("pooler", "classifier"), ()),
+          "mlm": (("mlm_transform", "mlm_decoder"), ("mlm_ln",))}
 
 
 def _t(a, dtype=torch.float32) -> torch.Tensor:
@@ -164,7 +172,36 @@ def params_from_flax(params: Mapping, cfg: BertConfig, kind: str,
         dense(p + "intermediate", src["intermediate"], dtype)
         dense(p + "output", src["output"], dtype)
         layer_norm(p + "output_layer_norm", src["output_layer_norm"])
-    if kind == "crossencoder":
-        dense("pooler", params["pooler"], torch.float32)
-        dense("classifier", params["classifier"], torch.float32)
+    dense_heads, ln_heads = _HEADS[kind]
+    for name in dense_heads:
+        dense(name, params[name], torch.float32)
+    for name in ln_heads:
+        layer_norm(name, params[name])
     return sd
+
+
+def flax_from_params(sd: Mapping[str, torch.Tensor], cfg: BertConfig, kind: str) -> dict:
+    """A state_dict in params_from_flax's layout -> the flax tree, f32 numpy."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    arr = lambda name: np.array(_np(sd[name]))  # a copy, never a view of a live tensor
+    dense = lambda name: {"kernel": arr(f"{name}.weight").T.copy(), "bias": arr(f"{name}.bias")}
+    ln = lambda name: {"scale": arr(f"{name}.weight"), "bias": arr(f"{name}.bias")}
+    enc = {name: {"embedding": arr(f"encoder.{name}.weight")}
+           for name in ("word_embeddings", "position_embeddings", "token_type_embeddings")}
+    enc["embeddings_layer_norm"] = ln("encoder.embeddings_layer_norm")
+    for i in range(cfg.num_layers):
+        p = f"encoder.layers.{i}."
+        enc[f"layer_{i}"] = {
+            "attention": {name: dense(p + "attention." + name)
+                          for name in ("query", "key", "value", "output_dense")},
+            "attention_layer_norm": ln(p + "attention_layer_norm"),
+            "intermediate": dense(p + "intermediate"),
+            "output": dense(p + "output"),
+            "output_layer_norm": ln(p + "output_layer_norm"),
+        }
+    tree = {"encoder": enc}
+    dense_heads, ln_heads = _HEADS[kind]
+    tree.update({name: dense(name) for name in dense_heads})
+    tree.update({name: ln(name) for name in ln_heads})
+    return tree

@@ -1,7 +1,8 @@
-"""Tower checkpoints from disk -> serving-ready towers on the engine's device.
+"""Tower checkpoints from disk -> serving-ready towers on the engine's
+device, trainable f32 weights, and native towers written back.
 
-Counterpart of `review_recommender_tpu/models/load.py` (loading only;
-writing native towers belongs to training). Two directory layouts:
+Counterpart of `review_recommender_tpu/models/load.py`. Two directory
+layouts:
 
   an HF snapshot (bge-small-en-v1.5, ms-marco-MiniLM-L-6-v2, ...):
     config.json                       BertConfig fields
@@ -14,7 +15,13 @@ writing native towers belongs to training). Two directory layouts:
     params.msgpack flax.serialization.to_bytes of the parameter tree
     vocab.txt      for a wordpiece tokenizer only
 
-load_biencoder / load_crossencoder sniff the format marker and dispatch.
+load_biencoder / load_crossencoder sniff the format marker and dispatch;
+load_tower_params reads either layout to the f32 state_dict a trainer
+starts from (a serving wrapper holds bf16 weights, and a fine-tune from
+those would start from rounded weights); save_native_tower writes what the
+JAX save_native_tower writes (config.json with the marker, params.msgpack
+through write_flax_msgpack, vocab.txt for WordPiece), so both packages'
+loaders serve the port's trained towers.
 The readers are the port's own and run wherever the port runs: a
 safetensors file is an 8-byte little-endian header length, a JSON header
 and raw little-endian buffers (read with numpy.frombuffer); a .bin is read
@@ -24,6 +31,10 @@ nil/bools, ext 1 = ndarray packed as (shape, dtype name, buffer), ext 3 =
 numpy scalar, and flax's chunked form of arrays over 2^30 bytes). The
 HF state dict becomes the flax tree (models/convert.py:convert_*), and
 the flax tree the port's state_dict (params_from_flax).
+write_flax_msgpack writes a tree of dicts with float32 leaves as
+flax.serialization.to_bytes does (an array is ext 1 holding (shape, dtype
+name, buffer)); arrays stay whole, where flax chunks those over 2^30
+bytes, which the towers never reach.
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ from review_recommender_tpu_torch.models.bert import BertConfig
 from review_recommender_tpu_torch.models.convert import (
     convert_biencoder,
     convert_crossencoder,
+    flax_from_params,
     params_from_flax,
 )
 from review_recommender_tpu_torch.models.encoder import BiEncoder, CrossEncoder
@@ -193,6 +205,41 @@ def read_flax_msgpack(blob: bytes):
     return _unchunk(tree)
 
 
+def write_flax_msgpack(tree) -> bytes:
+    """A tree of dicts (str keys) with numpy leaves -> msgpack bytes that
+    flax.serialization.msgpack_restore (and read_flax_msgpack) read; every
+    array is written as float32."""
+
+    def raw(tag, n, small, codes):
+        if n < small:
+            return bytes([tag | n])
+        for width, code in codes:
+            if n < 1 << (8 * width):
+                return bytes([code]) + n.to_bytes(width, "big")
+        raise ValueError(f"msgpack length {n} too large")
+
+    def pack(x) -> bytes:
+        if isinstance(x, dict):
+            return raw(0x80, len(x), 16, ((2, 0xDE), (4, 0xDF))) + b"".join(
+                pack(k) + pack(v) for k, v in x.items())
+        if isinstance(x, (list, tuple)):
+            return raw(0x90, len(x), 16, ((2, 0xDC), (4, 0xDD))) + b"".join(pack(v) for v in x)
+        if isinstance(x, str):
+            b = x.encode()
+            return raw(0xA0, len(b), 32, ((1, 0xD9), (2, 0xDA), (4, 0xDB))) + b
+        if isinstance(x, bytes):
+            return raw(0, len(x), 0, ((1, 0xC4), (2, 0xC5), (4, 0xC6))) + x
+        if isinstance(x, int) and 0 <= x < 2**32:
+            return bytes([x]) if x < 128 else b"\xce" + struct.pack(">I", x)
+        if isinstance(x, np.ndarray):
+            arr = np.ascontiguousarray(x, dtype=np.float32)
+            body = pack([list(arr.shape), "float32", arr.tobytes()])
+            return raw(0, len(body), 0, ((1, 0xC7), (2, 0xC8), (4, 0xC9))) + b"\x01" + body
+        raise TypeError(f"write_flax_msgpack cannot write {type(x).__name__}")
+
+    return pack(tree)
+
+
 def _load_state_dict(model_dir: Path) -> Dict[str, object]:
     """model.safetensors (the port's reader) or pytorch_model.bin."""
     st = model_dir / "model.safetensors"
@@ -228,16 +275,27 @@ def _tokenizer(model_dir: Path) -> WordPieceTokenizer:
     return WordPieceTokenizer.from_vocab_file(vocab)
 
 
+def load_tower_params(model_dir, kind: str):
+    """An HF snapshot or native tower directory -> (BertConfig, f32 CPU
+    state_dict, tokenizer, pooling: the native config's, else None)."""
+    model_dir = Path(model_dir)
+    if kind not in ("biencoder", "crossencoder"):
+        raise ValueError(f"kind must be 'biencoder' or 'crossencoder', got {kind!r}")
+    if _is_native(model_dir):
+        cfg, sd, tokenizer, meta = _load_native(model_dir, kind)
+        return cfg, sd, tokenizer, meta.get("pooling", "cls")
+    cfg = _config_from_json(model_dir / "config.json")
+    convert = convert_biencoder if kind == "biencoder" else convert_crossencoder
+    params = convert(_load_state_dict(model_dir), cfg)
+    return cfg, params_from_flax(params, cfg, kind), _tokenizer(model_dir), None
+
+
 def load_biencoder(model_dir, pooling: str = "cls", **kw) -> BiEncoder:
     """HF BertModel snapshot or native tower directory -> BiEncoder; kw go
-    to BiEncoder (device, dtype, max_len, attn_impl)."""
-    model_dir = Path(model_dir)
-    if _is_native(model_dir):
-        return load_native_biencoder(model_dir, **kw)
-    cfg = _config_from_json(model_dir / "config.json")
-    params = convert_biencoder(_load_state_dict(model_dir), cfg)
-    tower = BiEncoder(cfg, params_from_flax(params, cfg, "biencoder"), _tokenizer(model_dir),
-                      pooling=pooling, **kw)
+    to BiEncoder (device, dtype, max_len, attn_impl). A native tower pools
+    as its config says; `pooling` is an HF snapshot's."""
+    cfg, sd, tokenizer, native_pooling = load_tower_params(model_dir, "biencoder")
+    tower = BiEncoder(cfg, sd, tokenizer, pooling=native_pooling or pooling, **kw)
     logger.info("loaded bi-encoder from %s (%dL, H=%d)", model_dir, cfg.num_layers,
                 cfg.hidden_size)
     return tower
@@ -246,13 +304,8 @@ def load_biencoder(model_dir, pooling: str = "cls", **kw) -> BiEncoder:
 def load_crossencoder(model_dir, **kw) -> CrossEncoder:
     """HF BertForSequenceClassification snapshot or native tower directory
     -> CrossEncoder."""
-    model_dir = Path(model_dir)
-    if _is_native(model_dir):
-        return load_native_crossencoder(model_dir, **kw)
-    cfg = _config_from_json(model_dir / "config.json")
-    params = convert_crossencoder(_load_state_dict(model_dir), cfg)
-    tower = CrossEncoder(cfg, params_from_flax(params, cfg, "crossencoder"),
-                         _tokenizer(model_dir), **kw)
+    cfg, sd, tokenizer, _pooling = load_tower_params(model_dir, "crossencoder")
+    tower = CrossEncoder(cfg, sd, tokenizer, **kw)
     logger.info("loaded cross-encoder from %s (%dL)", model_dir, cfg.num_layers)
     return tower
 
@@ -266,6 +319,41 @@ def _is_native(model_dir: Path) -> bool:
         return json.loads(cfg_path.read_text()).get("format") == NATIVE_FORMAT
     except (json.JSONDecodeError, OSError):
         return False
+
+
+def _tokenizer_spec(tokenizer) -> dict:
+    if isinstance(tokenizer, HashTokenizer):
+        return {"type": "hash", "vocab_size": tokenizer.vocab_size,
+                "lowercase": tokenizer.lowercase}
+    if isinstance(tokenizer, WordPieceTokenizer):
+        return {"type": "wordpiece", "lowercase": tokenizer.lowercase}
+    raise TypeError(f"unsupported tokenizer: {type(tokenizer).__name__}")
+
+
+def save_native_tower(out_dir, kind: str, cfg: BertConfig, params, tokenizer,
+                      pooling: str = "cls") -> Path:
+    """A trained tower (a trainer's state_dict) -> a native tower directory
+    that load_biencoder / load_crossencoder here and in the JAX package
+    serve. params.msgpack is written to a .tmp file and renamed."""
+    if kind not in ("biencoder", "crossencoder"):
+        raise ValueError(f"kind must be 'biencoder' or 'crossencoder', got {kind!r}")
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    spec = _tokenizer_spec(tokenizer)
+    if spec["type"] == "wordpiece":
+        by_id = sorted(tokenizer.vocab.items(), key=lambda kv: kv[1])
+        if [i for _, i in by_id] != list(range(len(by_id))):
+            raise ValueError("wordpiece vocab ids must be dense 0..V-1")
+        (out_dir / "vocab.txt").write_text("\n".join(t for t, _ in by_id) + "\n",
+                                           encoding="utf-8")
+    meta = {"format": NATIVE_FORMAT, "kind": kind, "pooling": pooling,
+            "tokenizer": spec, **dataclasses.asdict(cfg)}
+    (out_dir / "config.json").write_text(json.dumps(meta, indent=2))
+    tmp = out_dir / "params.msgpack.tmp"
+    tmp.write_bytes(write_flax_msgpack(flax_from_params(params, cfg, kind)))
+    tmp.replace(out_dir / "params.msgpack")
+    logger.info("saved native %s tower to %s", kind, out_dir)
+    return out_dir
 
 
 def _tokenizer_from_spec(spec: dict, model_dir: Path):
@@ -290,22 +378,3 @@ def _load_native(model_dir: Path, expect_kind: str):
     return cfg, params_from_flax(params, cfg, expect_kind), tokenizer, meta
 
 
-def load_native_biencoder(model_dir, **kw) -> BiEncoder:
-    """Native tower directory -> BiEncoder (pooling from its config unless
-    given)."""
-    model_dir = Path(model_dir)
-    cfg, sd, tokenizer, meta = _load_native(model_dir, "biencoder")
-    kw.setdefault("pooling", meta.get("pooling", "cls"))
-    tower = BiEncoder(cfg, sd, tokenizer, **kw)
-    logger.info("loaded native bi-encoder from %s (%dL, H=%d)", model_dir, cfg.num_layers,
-                cfg.hidden_size)
-    return tower
-
-
-def load_native_crossencoder(model_dir, **kw) -> CrossEncoder:
-    """Native tower directory -> CrossEncoder."""
-    model_dir = Path(model_dir)
-    cfg, sd, tokenizer, _meta = _load_native(model_dir, "crossencoder")
-    tower = CrossEncoder(cfg, sd, tokenizer, **kw)
-    logger.info("loaded native cross-encoder from %s (%dL)", model_dir, cfg.num_layers)
-    return tower

@@ -1,7 +1,7 @@
 """Model tokenizers and sequence packing (host side).
 
 A jax-free copy of `basic_tokenize`, `wordpiece`, `WordPieceTokenizer`,
-`HashTokenizer`, `encode_seqs`, `pack_seqs` and `pad_bucket` from
+`HashTokenizer`, `encode_seqs`, `pack_seqs`, `encode_batch` and `pad_bucket` from
 `review_recommender_tpu/models/tokenizer.py` (the JAX package's
 `models/__init__.py` loads its flax BERT). WordPieceTokenizer reads a
 checkpoint's vocab.txt (id = line number) and splits each basic token
@@ -220,6 +220,17 @@ def pack_seqs(
         attn[i, : len(ids)] = 1
         ttype[i, : len(types)] = types
     return input_ids, attn, ttype
+
+
+def encode_batch(
+    tokenizer,
+    texts: Sequence[str],
+    pairs: Optional[Sequence[str]] = None,
+    max_len: int = 512,
+    pad_to: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """encode_seqs + pack_seqs in one call (the trainers' batches)."""
+    return pack_seqs(tokenizer, encode_seqs(tokenizer, texts, pairs, max_len), pad_to)
 
 
 def pad_bucket(n: int, buckets: Sequence[int] = (16, 32, 64, 128, 256, 512)) -> int:

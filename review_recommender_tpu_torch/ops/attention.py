@@ -6,14 +6,19 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        from upcast q and k, f32 softmax, probabilities in
                        the input dtype, f32-accumulated PV)
   mha_kernel           the hand-written CUDA kernel (csrc/mha_fwd.cu) that
-                       replaces the TPU kernel `_mha_kernel`
+                       replaces the TPU kernel `_mha_kernel`; where a
+                       gradient is asked for it runs through MhaKernelFn
   multihead_attention  the towers' entry point: impl "auto" launches the
                        kernel for CUDA tensors and takes the reference for
-                       CPU tensors; "kernel" and "reference" force one
+                       CPU tensors (autograd through its torch ops);
+                       "kernel" and "reference" force one
 
 On a CUDA tensor the kernel launches or the call raises; nothing falls back
-to the reference. There is no backward: the towers serve under
-`torch.inference_mode()`, and the kernel raises if a gradient is asked for.
+to the reference. The gradient follows the JAX custom_vjp
+(attention_kernel.py:132-154): the forward is the kernel, and the backward
+re-runs the reference's torch ops under autograd from the saved q, k, v and
+key bias (one more attention forward, no backward kernel) and returns the
+q, k and v gradients; the key bias, built from the mask, gets none.
 """
 from __future__ import annotations
 
@@ -28,6 +33,11 @@ from review_recommender_tpu_torch import kernels
 # server's handler threads encode concurrently, so the count is bumped
 # under a lock.
 mha_kernel_launches = 0
+# Backward recomputes of MhaKernelFn: one per kernel forward that a
+# training step differentiates. With remat (per-layer checkpointing) the
+# backward first re-runs each layer's forward, so a step launches the
+# kernel twice for each recompute.
+mha_backward_recomputes = 0
 _count_lock = threading.Lock()
 
 MAX_SEQ = 512
@@ -42,8 +52,10 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, hd = q.shape
     d = hd // num_heads
     split = lambda t: t.reshape(b, s, num_heads, d).to(torch.float32)
-    scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
-    logits = torch.einsum("bqhd,bkhd->bhqk", split(q), split(k)) * scale.to(q.device)
+    # the f32 scale as a host number: a host tensor moved to the card is a
+    # blocking copy, which would drain the queue in every training recompute
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
+    logits = torch.einsum("bqhd,bkhd->bhqk", split(q), split(k)) * scale
     logits = logits + key_bias.to(torch.float32)[:, None, None, :]
     m = logits.amax(dim=-1, keepdim=True)
     e = torch.exp(logits - m)
@@ -83,16 +95,10 @@ def _check_kernel_args(q, k, v, key_bias, num_heads) -> tuple[int, int, int, int
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"mha_kernel: {name} must be 16-byte aligned")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError("mha_kernel has no backward; call it under "
-                           "torch.inference_mode() or torch.no_grad()")
     return b, s, num_heads, d
 
 
-def mha_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               key_bias: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """The CUDA kernel: same contract as mha_reference, CUDA tensors only.
-    Launches on torch.cuda.current_stream() and raises if the launch fails."""
+def _launch(q, k, v, key_bias, num_heads: int) -> torch.Tensor:
     global mha_kernel_launches
     b, s, h, d = _check_kernel_args(q, k, v, key_bias, num_heads)
     lib = kernels.load()
@@ -108,6 +114,39 @@ def mha_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with _count_lock:
         mha_kernel_launches += 1
     return out
+
+
+class MhaKernelFn(torch.autograd.Function):
+    """The kernel's forward with the JAX scheme's recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, num_heads):
+        ctx.save_for_backward(q, k, v, key_bias)
+        ctx.num_heads = num_heads
+        return _launch(q, k, v, key_bias, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        global mha_backward_recomputes
+        q, k, v, key_bias = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = mha_reference(*qkv, key_bias, ctx.num_heads)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        with _count_lock:
+            mha_backward_recomputes += 1
+        return dq, dk, dv, None, None
+
+
+def mha_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               key_bias: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The CUDA kernel: same contract as mha_reference, CUDA tensors only.
+    Launches on torch.cuda.current_stream() and raises if the launch fails;
+    where grad mode is on and q, k or v requires a gradient, the launch is
+    MhaKernelFn's forward."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return MhaKernelFn.apply(q, k, v, key_bias, num_heads)
+    return _launch(q, k, v, key_bias, num_heads)
 
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

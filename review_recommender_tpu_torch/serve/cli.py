@@ -21,12 +21,22 @@ attached for query_e2e.
   ... health [--url http://host:port]
   ... bench  --index-dir DIR [--n-queries 64]
   ... eval   --index-dir DIR --queries judged.jsonl [--out DIR]
+  ... train  --index-dir DIR --out TOWERS [--cross] [--mlm-steps N] [--resume]
+
+`train` is the JAX command's flow (review_recommender_tpu/serve/cli.py
+cmd_train) on the port's trainers (train/): pairs mined from the bundle's
+reviews, an optional MLM-pretrained trunk, the bi-encoder fine-tuned from
+EMB_MODEL_DIR (its f32 weights: models/load.py:load_tower_params) or
+trained from scratch, with --cross the cross-encoder from
+RERANK_MODEL_DIR, the MLM trunk grafted in, or from scratch; stage
+checkpoints in --out (--resume continues them), native tower directories
+that this CLI's and the JAX CLI's loaders serve, and one JSON line.
 
 What the port cannot do yet exits non-zero and names its ROADMAP Queue 1
 item, where the JAX CLI would run something else: `--shards` /
-MESH_SHARDS above 1 (item 12), `train` (item 13), `topics` (item 14) and
-`import` (item 18). `serve --native` (or SERVE_NATIVE) raises when the native
-library cannot be built; it never falls back to the stdlib server.
+MESH_SHARDS above 1 (item 12), `topics` (item 14) and `import` (item
+18). `serve --native` (or SERVE_NATIVE) raises when the native library
+cannot be built; it never falls back to the stdlib server.
 """
 from __future__ import annotations
 
@@ -44,7 +54,6 @@ import numpy as np
 from review_recommender_tpu_torch.config import config
 
 NOT_PORTED = {
-    "train": "training the towers is not ported yet (ROADMAP Queue 1 item 13)",
     "topics": "the topic pipeline is not ported yet (ROADMAP Queue 1 item 14)",
     "import": ("importing a reference deployment's artifacts is not ported yet "
                "(ROADMAP Queue 1 item 18)"),
@@ -270,6 +279,144 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def _scratch_cfg(args, hidden: int, intermediate: int, max_position: int):
+    from review_recommender_tpu_torch.models.bert import BertConfig
+
+    return BertConfig(vocab_size=args.vocab_size, hidden_size=hidden, num_layers=args.layers,
+                      num_heads=max(1, hidden // args.head_dim),
+                      intermediate_size=intermediate, max_position=max_position)
+
+
+def cmd_train(args) -> int:
+    """Domain-adapt the towers on the bundle's own reviews and save native
+    tower directories (the JAX cmd_train's stages, flags and output)."""
+    from review_recommender_tpu_torch.index.io import load_bundle
+    from review_recommender_tpu_torch.models.bert import init_state_dict
+    from review_recommender_tpu_torch.models.load import load_tower_params, save_native_tower
+    from review_recommender_tpu_torch.models.tokenizer import HashTokenizer
+    from review_recommender_tpu_torch.train import (
+        ContrastiveTrainer,
+        CrossEncoderTrainer,
+        CrossTrainConfig,
+        MLMTrainConfig,
+        MLMTrainer,
+        TrainConfig,
+        init_mlm,
+        mine_pairs,
+        mine_triples,
+        pretrain_mlm,
+        train_biencoder,
+        train_crossencoder,
+    )
+    from review_recommender_tpu_torch.train.cross_encoder import warm_start_from_biencoder
+
+    config.setup_logging()
+    say = lambda msg: print(msg, file=sys.stderr, flush=True)
+    bundle = load_bundle(args.index_dir)
+    if bundle.reviews is None:
+        say("train: the index bundle has no review texts to mine pairs from "
+            "(rebuild with reviews)")
+        return 1
+    rev, prod = bundle.reviews, bundle.products
+    valid = np.asarray(rev.rev_valid, bool)
+    seg = np.asarray(rev.rev_product, np.int64)
+    review_texts = [t for t, v in zip(rev.rev_texts, valid) if v]
+    review_skus = [prod.skus[int(s)] for s, v in zip(seg, valid) if v]
+    pairs = mine_pairs(review_texts, review_skus, prod.skus, prod.agg_texts,
+                       max_pairs_per_product=args.pairs_per_product, seed=args.seed)
+    if not pairs:
+        say("train: no minable (query, positive) pairs")
+        return 1
+    say(f"mined {len(pairs)} (query, positive) pairs from {len(review_texts)} reviews")
+
+    out = Path(args.out)
+    dev = args.device
+    mlm_trunk = None
+    if args.mlm_steps > 0:  # a from-scratch cross-encoder learns only on a pretrained trunk
+        cfg_mlm = _scratch_cfg(args, args.hidden, 2 * args.hidden, 2 * args.max_len)
+        mtr = MLMTrainer(cfg_mlm, init_mlm(cfg_mlm, seed=args.seed)[1], device=dev,
+                         train_cfg=MLMTrainConfig(learning_rate=args.lr, seed=args.seed,
+                                                  total_steps=args.mlm_steps))
+        ckpt_mlm = out / "mlm_trunk.ckpt"
+        if args.resume and ckpt_mlm.exists():
+            mtr.restore(ckpt_mlm)
+            say(f"mlm: resumed from {ckpt_mlm} at step {mtr.step}")
+        mhist = pretrain_mlm(mtr, prod.agg_texts, HashTokenizer(vocab_size=args.vocab_size),
+                             batch_size=args.batch_size, steps=args.mlm_steps,
+                             max_len=args.max_len, seed=args.seed,
+                             checkpoint_path=str(ckpt_mlm),
+                             checkpoint_every=args.checkpoint_every)
+        if mhist:
+            say(f"mlm pretrain: {len(mhist)} steps (at {mtr.step}/{args.mlm_steps}), masked acc "
+                f"{np.mean([m['masked_acc'] for m in mhist[-100:]]):.3f}")
+        mlm_trunk = mtr.params
+
+    if config.EMB_MODEL_DIR:
+        cfg_bi, params_bi, tok, _pooling = load_tower_params(config.EMB_MODEL_DIR, "biencoder")
+    else:
+        cfg_bi = _scratch_cfg(args, args.hidden, 2 * args.hidden, args.max_len)
+        params_bi = init_state_dict(cfg_bi, "biencoder", args.seed)
+        tok = HashTokenizer(vocab_size=args.vocab_size)
+        if mlm_trunk is not None:
+            params_bi = warm_start_from_biencoder(params_bi, mlm_trunk)
+    trainer = ContrastiveTrainer(cfg_bi, params_bi, device=dev,
+                                 train_cfg=TrainConfig(learning_rate=args.lr, seed=args.seed))
+    ckpt_bi = out / "biencoder.ckpt"
+    if args.resume and ckpt_bi.exists():
+        trainer.restore(ckpt_bi)
+        say(f"bi-encoder: resumed from {ckpt_bi} at step {trainer.step}")
+    hist = train_biencoder(trainer, pairs, tok, batch_size=args.batch_size, epochs=args.epochs,
+                           max_len=args.max_len, seed=args.seed, checkpoint_path=str(ckpt_bi),
+                           checkpoint_every=args.checkpoint_every)
+    if hist:
+        say(f"bi-encoder: {len(hist)} steps, final loss {hist[-1]['loss']:.4f} in-batch acc "
+            f"{hist[-1]['in_batch_acc']:.3f}")
+    save_native_tower(out / "biencoder", "biencoder", cfg_bi, trainer.params, tok)
+
+    if args.cross:
+        triples = mine_triples(pairs, prod.agg_texts, n_negatives=args.negatives,
+                               seed=args.seed + 1)
+        if config.RERANK_MODEL_DIR:
+            cfg_xe, params_xe, tok_xe, _ = load_tower_params(config.RERANK_MODEL_DIR,
+                                                             "crossencoder")
+        elif mlm_trunk is not None:
+            # the trunk's dims and its hash tokenizer: a loaded bi-encoder's
+            # WordPiece ids would come from another id space
+            cfg_xe = _scratch_cfg(args, args.hidden, 2 * args.hidden, 2 * args.max_len)
+            params_xe = warm_start_from_biencoder(
+                init_state_dict(cfg_xe, "crossencoder", args.seed), mlm_trunk)
+            tok_xe = HashTokenizer(vocab_size=args.vocab_size)
+        else:
+            hidden = max(64, args.hidden // 2)
+            cfg_xe = _scratch_cfg(args, hidden, args.hidden, 2 * args.max_len)
+            params_xe = init_state_dict(cfg_xe, "crossencoder", args.seed)
+            tok_xe = tok
+        xtr = CrossEncoderTrainer(cfg_xe, params_xe, device=dev,
+                                  train_cfg=CrossTrainConfig(learning_rate=args.lr,
+                                                             seed=args.seed))
+        ckpt_xe = out / "crossencoder.ckpt"
+        if args.resume and ckpt_xe.exists():
+            xtr.restore(ckpt_xe)
+            say(f"cross-encoder: resumed from {ckpt_xe} at step {xtr.step}")
+        xhist = train_crossencoder(xtr, triples, tok_xe, batch_size=args.batch_size,
+                                   epochs=args.epochs, max_len=2 * args.max_len, seed=args.seed,
+                                   checkpoint_path=str(ckpt_xe),
+                                   checkpoint_every=args.checkpoint_every)
+        if xhist:
+            say(f"cross-encoder: {len(xhist)} steps, final loss {xhist[-1]['loss']:.4f} acc "
+                f"{xhist[-1]['acc']:.3f}")
+        save_native_tower(out / "crossencoder", "crossencoder", cfg_xe, xtr.params, tok_xe)
+
+    print(json.dumps({
+        "pairs": len(pairs),
+        "biencoder": str(out / "biencoder"),
+        "crossencoder": str(out / "crossencoder") if args.cross else None,
+        "serve_env": {"EMB_MODEL_DIR": str(out / "biencoder"),
+                      **({"RERANK_MODEL_DIR": str(out / "crossencoder")} if args.cross else {})},
+    }))
+    return 0
+
+
 def cmd_not_ported(args) -> int:
     _refuse(f"{args.cmd}: {NOT_PORTED[args.cmd]}")
 
@@ -349,6 +496,33 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--no-warmup", action="store_true")
     device_arg(e)
     e.set_defaults(fn=cmd_eval)
+
+    t = sub.add_parser("train", help="domain-adapt the towers on the index's reviews")
+    t.add_argument("--index-dir", required=True)
+    t.add_argument("--out", required=True, help="output dir; writes biencoder/ (+ crossencoder/)")
+    t.add_argument("--cross", action="store_true", help="also train the rerank cross-encoder")
+    t.add_argument("--epochs", type=int, default=2)
+    t.add_argument("--batch-size", type=int, default=64)
+    t.add_argument("--max-len", type=int, default=96)
+    t.add_argument("--lr", type=float, default=3e-4)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--pairs-per-product", type=int, default=4)
+    t.add_argument("--negatives", type=int, default=3)
+    t.add_argument("--vocab-size", type=int, default=8192,
+                   help="hash-tokenizer id space (from-scratch towers)")
+    t.add_argument("--hidden", type=int, default=256)
+    t.add_argument("--head-dim", type=int, default=64,
+                   help="attention head dim of from-scratch towers")
+    t.add_argument("--layers", type=int, default=2)
+    t.add_argument("--mlm-steps", type=int, default=0,
+                   help="MLM-pretrain a trunk on the corpus docs for N steps first "
+                        "(a from-scratch cross-encoder needs it to learn)")
+    t.add_argument("--resume", action="store_true",
+                   help="restore the stage checkpoints in --out and continue")
+    t.add_argument("--checkpoint-every", type=int, default=200,
+                   help="save each stage's checkpoint every N steps (0 = at stage end)")
+    device_arg(t)
+    t.set_defaults(fn=cmd_train)
 
     for name, why in NOT_PORTED.items():
         sub.add_parser(name, help=f"not ported: {why}").set_defaults(fn=cmd_not_ported)

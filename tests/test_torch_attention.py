@@ -99,3 +99,31 @@ def test_kernel_refuses_cpu_tensors_and_bad_impl():
     with pytest.raises(ValueError, match="impl"):
         tatt.multihead_attention(q, k, v, bias, 2, impl="pallas")
     assert tatt.mha_kernel_launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_recompute_backward_equals_autograd_through_the_reference(monkeypatch, dtype):
+    """MhaKernelFn with its launch swapped for mha_reference (the kernel
+    runs only on the card): its q, k, v gradients are autograd's through
+    mha_reference exactly, key_bias gets none, and each backward counts one
+    recompute. With q needing no gradient only k and v get one."""
+    monkeypatch.setattr(tatt, "_launch", tatt.mha_reference)
+    q, k, v, bias = _torch(_inputs(5, 3, 20, 64), dtype)
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal(q.shape).astype(np.float32))
+    for needs in ((True, True, True), (False, True, True)):
+        grads = []
+        for fn in (tatt.MhaKernelFn.apply, tatt.mha_reference):
+            leaves = [t.clone().requires_grad_(n) for t, n in zip((q, k, v), needs)]
+            before = tatt.mha_backward_recomputes
+            fn(*leaves, bias, 2).backward(g.to(dtype))
+            grads.append([t.grad for t in leaves])
+            counted = tatt.mha_backward_recomputes - before
+        assert counted == 0  # the reference's own backward is not a recompute
+        for got, want in zip(*grads):
+            assert (got is None) == (want is None)
+            if got is not None:
+                assert torch.equal(got, want)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = tatt.mha_backward_recomputes
+    tatt.MhaKernelFn.apply(*leaves, bias, 2).sum().backward()
+    assert tatt.mha_backward_recomputes == before + 1

@@ -7,8 +7,12 @@ seeded); `eval` gives run_performance_benchmark's aggregates; `audit`
 exits 0 on a good bundle and 1 on a damaged one; `bench` prints its JSON;
 `serve` in a subprocess answers /healthz, /readyz, /search and `health`,
 and stops on SIGTERM, for both front ends. Every refusal exits non-zero
-and names its ROADMAP item: --shards 2 or MESH_SHARDS=2 (12), train (13),
-topics (14), import (18); --native without a buildable library raises.
+and names its ROADMAP item: --shards 2 or MESH_SHARDS=2 (12), topics
+(14), import (18); --native without a buildable library raises. `train
+--cross --mlm-steps 4` and the JAX CLI's on one JAX-saved bundle with
+reviews mine the same pairs and print the same JSON keys; each one's
+towers load in both packages' loaders and serve the port's `search` at
+rerank_k 8.
 
 Towers from disk: `search` with EMB_MODEL_DIR and RERANK_MODEL_DIR at tiny
 HF snapshots and at native towers (written by transformers and by the JAX
@@ -111,7 +115,6 @@ def test_bench_prints_its_json(bundle_dir, capsys):
 REFUSALS = {
     "shards_2": (["serve", "--shards", "2"], {}, "item 12"),
     "mesh_shards_2": (["serve"], {"MESH_SHARDS": 2}, "item 12"),
-    "train": (["train", "--out", "x"], {}, "item 13"),
     "topics": (["topics"], {}, "item 14"),
     "import": (["import", "--data-dir", "d", "--out", "x"], {}, "item 18"),
 }
@@ -127,6 +130,64 @@ def test_refusals_exit_non_zero_naming_their_item(bundle_dir, monkeypatch, case)
     with pytest.raises(SystemExit, match=item) as exc:
         cli.main(argv)
     assert exc.value.code not in (0, None)
+
+
+TRAIN_ARGV = ["--cross", "--epochs", "1", "--batch-size", "8", "--max-len", "32",
+              "--hidden", "32", "--head-dim", "16", "--layers", "1", "--vocab-size", "512",
+              "--mlm-steps", "4", "--checkpoint-every", "0"]
+
+
+@pytest.fixture(scope="module")
+def train_bundle(tmp_path_factory):
+    """A JAX-saved bundle of dim 32 whose reviews are word samples of their
+    products' texts (mine_pairs needs 4 distinct keywords a review)."""
+    from review_recommender_tpu.index.build import build_bundle_from_products as jax_build
+    from review_recommender_tpu.index.io import save_bundle as jax_save
+
+    products, _queries, emb = corpus(n_themes=4, per_theme=16, n_queries=3, dim=TOWER_DIM)
+    rng = np.random.default_rng(2)
+    rrows = [{"sku": p["sku"], "text": " ".join(rng.choice(p["agg_text"].split(), size=8)),
+              "stars": 4.0} for p in products for _ in range(2)]
+    remb = rng.standard_normal((len(rrows), TOWER_DIM)).astype(np.float32)
+    d = tmp_path_factory.mktemp("train") / "bundle"
+    jax_save(jax_build(products, emb, reviews=rrows, review_embeddings=remb, doc_terms_cap=64,
+                       pad_multiple=16), d)
+    return d
+
+
+def test_train_equals_the_jax_cli_and_both_serve_the_towers(train_bundle, tmp_path,
+                                                             monkeypatch, capsys):
+    from review_recommender_tpu.models import load as jax_load
+    from review_recommender_tpu.serve import cli as jax_cli
+    from review_recommender_tpu_torch.models import load as port_load
+
+    _tower_dirs(monkeypatch, "", "")
+    argv = ["train", "--index-dir", str(train_bundle)] + TRAIN_ARGV
+    assert cli.main(argv + ["--out", str(tmp_path / "port"), "--device", "cpu"]) == 0
+    port = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jax_cli.main(argv + ["--out", str(tmp_path / "jax")]) == 0
+    theirs = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(port) == sorted(theirs) and port["pairs"] == theirs["pairs"] > 8
+    assert sorted(port["serve_env"]) == ["EMB_MODEL_DIR", "RERANK_MODEL_DIR"]
+    for d in (tmp_path / "port", tmp_path / "jax"):
+        bi, ce = d / "biencoder", d / "crossencoder"
+        for load in (jax_load, port_load):
+            kw = {} if load is jax_load else {"device": "cpu"}
+            emb = load.load_biencoder(bi, **kw).encode(["soft yellow socks"])
+            scores = load.load_crossencoder(ce, **kw).score_pairs(["socks"], ["soft socks"])
+            assert emb.shape == (1, TOWER_DIM) and np.isfinite(emb).all()
+            assert np.isfinite(scores).all()
+    search = ["search", QUERY, "--index-dir", str(train_bundle), "--rerank-k", "8",
+              "--device", "cpu"]
+    for trained_by in ("port", "jax"):
+        _tower_dirs(monkeypatch, tmp_path / trained_by / "biencoder",
+                    tmp_path / trained_by / "crossencoder")
+        out = tmp_path / f"{trained_by}_served.json"
+        assert cli.main(search + ["--json-out", str(out)]) == 0
+        rows = json.loads(out.read_text())["results"]
+        assert rows and all(np.isfinite(r["_final"]) for r in rows)
+        assert any(r["_rerank"] != 0 for r in rows)
+    capsys.readouterr()
 
 
 def test_native_serve_without_the_library_raises(bundle_dir, monkeypatch, tmp_path):

@@ -1,6 +1,8 @@
 """The port's config against the JAX package's: every knob the port reads
 has the same value on the same environment, in this process and, with
-overrides set, in a fresh interpreter."""
+overrides set, in a fresh interpreter; and the same `.env` /
+`.env.<ENVIRONMENT>` files read alike by an interpreter that imports only
+the port and one that imports only the JAX config."""
 import json
 import os
 import subprocess
@@ -61,6 +63,61 @@ def test_is_production_matches_jax_config(monkeypatch):
             monkeypatch.setattr(type(c), "ENVIRONMENT", env)
         assert port_config.is_production() == jax_config.is_production() == \
             (env.lower() == "production")
+
+
+def test_is_development_matches_jax_config(monkeypatch):
+    for env in ("development", "DEVELOPMENT", "production", "staging"):
+        for c in (port_config, jax_config):
+            monkeypatch.setattr(type(c), "ENVIRONMENT", env)
+        assert port_config.is_development() == jax_config.is_development() == \
+            (env.lower() == "development")
+
+
+# .env, then .env.<ENVIRONMENT>: full-line and inline comments, 'export ',
+# quotes (a '#' inside quotes kept), a variable the process has (not
+# overridden), one only the layered file sets, and a bare '#' in a value
+ENV_FILES = {
+    ".env": "# deployment knobs\nEMB_DTYPE=int8\nDENSE_POOL_MODE=ivf  # the IVF pool\n"
+            "export IVF_NPROBE=128\nENVIRONMENT=production\nIVF_BLOCK_ROWS=512\n"
+            "LOG_FORMAT='%(message)s # kept'\nGATE_MODE=host\n\n",
+    ".env.production": "GATE_MODE=device\nDENSE_POOL_STRIPES=\"4096\"\nAPP_PORT=9100 #port\n"
+                       "EMB_MODEL_DIR=/towers/a#b\n",
+}
+ENV_KNOBS = ("EMB_DTYPE", "DENSE_POOL_MODE", "IVF_NPROBE", "ENVIRONMENT", "IVF_BLOCK_ROWS",
+             "LOG_FORMAT", "GATE_MODE", "DENSE_POOL_STRIPES", "APP_PORT", "EMB_MODEL_DIR")
+_ONE_CONFIG = """
+import json, sys
+from {module} import config as c
+print(json.dumps({{"knobs": {{k: getattr(c, k) for k in {knobs!r}}},
+                   "development": c.is_development(),
+                   "jax": [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                           or m.startswith("review_recommender_tpu.")]}}))
+"""
+
+
+def test_env_files_read_alike_by_a_port_only_interpreter(tmp_path):
+    """In a directory holding .env and .env.production, a fresh interpreter
+    that imports only the port's config reads what one that imports only
+    the JAX config reads; a variable the process has wins over the files."""
+    for name, text in ENV_FILES.items():
+        (tmp_path / name).write_text(text)
+    env = {k: v for k, v in os.environ.items() if k not in KNOBS + ENV_KNOBS}
+    env.update(PYTHONPATH=str(REPO), IVF_BLOCK_ROWS="256")
+    res = {}
+    for module in ("review_recommender_tpu_torch.config", "review_recommender_tpu.config"):
+        proc = subprocess.run([sys.executable, "-c", _ONE_CONFIG.format(module=module,
+                                                                         knobs=ENV_KNOBS)],
+                              cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        res[module.split(".")[0]] = json.loads(proc.stdout.strip().splitlines()[-1])
+    port, theirs = res["review_recommender_tpu_torch"], res["review_recommender_tpu"]
+    assert port["jax"] == []  # the port's interpreter imported nothing of JAX
+    assert port["knobs"] == theirs["knobs"] and port["development"] is theirs["development"] is False
+    assert port["knobs"] == {
+        "EMB_DTYPE": "int8", "DENSE_POOL_MODE": "ivf", "IVF_NPROBE": 128,
+        "ENVIRONMENT": "production", "IVF_BLOCK_ROWS": 256, "LOG_FORMAT": "%(message)s # kept",
+        "GATE_MODE": "host", "DENSE_POOL_STRIPES": 4096, "APP_PORT": 9100,
+        "EMB_MODEL_DIR": "/towers/a#b"}
 
 
 @pytest.mark.parametrize("mode", ["auto", "exact", "striped"])

@@ -25,7 +25,11 @@ it on the card. Serving configurations: the int8 scores and pools
 (torch._int_mm on padded shapes) bit-equal to the CPU int8 path; ivf_topk
 on the card against its CPU run on the same index (scores within 1e-5, ids
 equal but for near ties); a bge-small-shaped tower loaded from disk within
-2e-2 of its CPU f32 forward.
+2e-2 of its CPU f32 forward. Training: the attention's gradient
+(MhaKernelFn: the kernel forward, the reference's recompute backward)
+against autograd through mha_reference within 2e-2 at the trainers'
+shapes, a row masked but for one key, and an S off the key tile; one bf16
+ContrastiveTrainer step against the CPU f32 step from the same init.
 """
 from pathlib import Path
 import numpy as np
@@ -142,8 +146,152 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="sequence length"):
         tatt.mha_kernel(long_q, long_q, long_q, torch.zeros(1, 513, device=cuda), 2)
     qg = q.clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="backward"):
-        tatt.mha_kernel(qg, k, v, bias, 4)
+    launches, recomputes = tatt.mha_kernel_launches, tatt.mha_backward_recomputes
+    tatt.mha_kernel(qg, k, v, bias, 4).float().sum().backward()
+    torch.cuda.synchronize()
+    assert qg.grad is not None and torch.isfinite(qg.grad.float()).all()
+    assert tatt.mha_kernel_launches == launches + 1
+    assert tatt.mha_backward_recomputes == recomputes + 1
+
+
+def _masked_but_one(bias):
+    """Row 0: every key masked but the last valid one."""
+    bias = bias.clone()
+    bias[0] = -1e30
+    bias[0, 1] = 0.0
+    return bias
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,s,heads,d", [
+    (32, 128, 12, 32), (64, 96, 4, 64), (8, 256, 12, 32),  # bi-encoder, lane, cross-encoder
+    (3, 100, 2, 128),  # S not a multiple of the 64-key tile
+])
+def test_gradients_match_autograd_through_the_reference(cuda, dtype, b, s, heads, d):
+    """MhaKernelFn (the kernel forward, the JAX scheme's recompute backward)
+    through multihead_attention against autograd through mha_reference on
+    the same CUDA tensors: the output and the q, k, v gradients within
+    2e-2, one kernel launch and one recompute, a row with every key masked
+    but one included."""
+    q, k, v, bias = _inputs(b + s + d, b, s, heads * d, dtype, cuda)
+    bias = _masked_but_one(bias)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(s),
+                    device=cuda).to(dtype)
+    outs, grads = [], []
+    launches, recomputes = tatt.mha_kernel_launches, tatt.mha_backward_recomputes
+    for impl in ("auto", "reference"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = tatt.multihead_attention(*leaves, bias, heads, impl=impl)
+        out.backward(g)
+        outs.append(out.detach().float())
+        grads.append([t.grad.float() for t in leaves])
+    torch.cuda.synchronize()
+    assert tatt.mha_kernel_launches == launches + 1
+    assert tatt.mha_backward_recomputes == recomputes + 1
+    assert (outs[0] - outs[1]).abs().max().item() <= 2e-2
+    for name, got, ref in zip("qkv", *grads):
+        assert torch.isfinite(got).all(), name
+        err = (got - ref).abs().max().item()
+        assert err <= 2e-2, (name, err)
+
+
+def _tiny_pair_batch():
+    """A 2-layer, 128-wide bi-encoder init and one 16-pair batch at 32 tokens."""
+    from review_recommender_tpu_torch.models.bert import BertConfig, init_state_dict
+    from review_recommender_tpu_torch.models.tokenizer import HashTokenizer
+    from review_recommender_tpu_torch.train import make_pair_batch
+
+    cfg = BertConfig(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
+                     intermediate_size=256, max_position=64)
+    sd = init_state_dict(cfg, "biencoder", seed=3)
+    rng = np.random.default_rng(0)
+    words = [f"word{i}" for i in range(80)]
+    docs = [" ".join(rng.choice(words, size=20)) for _ in range(16)]
+    queries = [" ".join(d.split()[:4]) for d in docs]
+    return cfg, sd, make_pair_batch(HashTokenizer(512), queries, docs, max_len=32, pad_to=32)
+
+
+def _update_cosine(a, b, sd):
+    """Cosine of two trainers' parameter updates from the init `sd`."""
+    d_a = torch.cat([(a.params[n].cpu() - sd[n]).flatten() for n in sd])
+    d_b = torch.cat([(b.params[n].cpu() - sd[n]).flatten() for n in sd])
+    return torch.nn.functional.cosine_similarity(d_a, d_b, dim=0).item()
+
+
+def test_contrastive_step_on_cuda_matches_the_cpu_f32_step(cuda):
+    """One bf16 ContrastiveTrainer step on the card (attention through the
+    kernel forward and the recompute backward) against the CPU f32 step
+    from the same init: loss within 2e-2 (bf16 products), and the update
+    points the same way (cosine of the two parameter updates >= 0.95; a
+    first AdamW step is lr * g / (|g| + eps), so elements whose gradient is
+    rounding noise take either sign)."""
+    from review_recommender_tpu_torch.train import ContrastiveTrainer, TrainConfig
+
+    cfg, sd, batch = _tiny_pair_batch()
+    tc = TrainConfig(learning_rate=1e-3)
+    cpu = ContrastiveTrainer(cfg, sd, train_cfg=tc, dtype=torch.float32, device="cpu")
+    gpu = ContrastiveTrainer(cfg, sd, train_cfg=tc, device="cuda")
+    launches, recomputes = tatt.mha_kernel_launches, tatt.mha_backward_recomputes
+    m_gpu = gpu.train_step(*batch)
+    assert tatt.mha_kernel_launches == launches + 4  # 2 layers x (queries, docs)
+    assert tatt.mha_backward_recomputes == recomputes + 4
+    m_cpu = cpu.train_step(*batch)
+    assert abs(m_gpu["loss"] - m_cpu["loss"]) <= 2e-2, (m_gpu, m_cpu)
+    cos = _update_cosine(gpu, cpu, sd)
+    assert cos >= 0.95, cos
+    assert all(p.dtype == torch.float32 for p in gpu.params.values())  # f32 masters
+
+
+def test_remat_step_on_cuda_relaunches_the_kernel(cuda):
+    """remat=True (torch.utils.checkpoint per layer) on the card: the
+    backward re-runs each layer's forward, kernel included, before the
+    recompute backward, so a step launches the kernel twice for each
+    recompute (8 launches and 4 recomputes for 2 layers x queries and
+    docs, against 4 and 4 without remat). The step is the same step: the
+    loss within 1e-6 and the cosine of the two parameter updates >= 0.9999
+    (the re-run forward gives the same activations)."""
+    from review_recommender_tpu_torch.train import ContrastiveTrainer, TrainConfig
+
+    cfg, sd, batch = _tiny_pair_batch()
+    counts, trainers, losses = {}, {}, {}
+    for remat in (False, True):
+        tr = ContrastiveTrainer(cfg, sd, train_cfg=TrainConfig(learning_rate=1e-3, remat=remat),
+                                device="cuda")
+        launches, recomputes = tatt.mha_kernel_launches, tatt.mha_backward_recomputes
+        losses[remat] = tr.train_step(*batch)["loss"]
+        counts[remat] = (tatt.mha_kernel_launches - launches,
+                         tatt.mha_backward_recomputes - recomputes)
+        trainers[remat] = tr
+    assert counts == {False: (4, 4), True: (8, 4)}, counts
+    assert abs(losses[True] - losses[False]) <= 1e-6, losses
+    cos = _update_cosine(trainers[True], trainers[False], sd)
+    assert cos >= 0.9999, cos
+
+
+def test_training_steps_do_not_sync_fresh_or_restored(cuda, tmp_path):
+    """A trainer's step (batch upload, forward through the kernel, the
+    recompute backward, clip and AdamW) queues on the device without a
+    host sync (torch's sync debug mode raises on one), fresh and restored
+    from a checkpoint; the restored AdamW step counts stay on the host,
+    where a fresh optimizer keeps them."""
+    from review_recommender_tpu_torch.train import ContrastiveTrainer
+
+    cfg, sd, batch = _tiny_pair_batch()
+    fresh = ContrastiveTrainer(cfg, sd, device="cuda")
+    fresh.train_step(*batch)
+    fresh.save(tmp_path / "ck.pt")
+    restored = ContrastiveTrainer(cfg, sd, device="cuda")
+    restored.restore(tmp_path / "ck.pt")
+    assert all(st["step"].device.type == "cpu" for st in restored.optim.opt.state.values())
+    for tr in (fresh, restored):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = [tr.train_step_async(*batch) for _ in range(2)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert all(np.isfinite(float(m["loss"])) for m in metrics)
+        assert tr.step == 3
 
 
 def _postings(seed, n, l, q, device):

@@ -8,6 +8,10 @@ judged queries, two seeds; keyword_query's draws), and its lane at 8
 themes x 32 products x 12 queries on the CPU gives the JAX lane's
 aggregate metrics exactly for all four methods, with the same table rows
 and CSV columns, under the exact pool and under --dense-pool ivf:8.
+The trained lane at that size (4 MLM steps, 64 pairs) runs on the port and
+in JAX (XLA attention on the CPU): the same training sets, the three
+methods without rerank equal to JAX's, and finite numbers with the port's
+trained cross-encoder; make_family_positives equals the example's.
 """
 import argparse
 import csv
@@ -110,9 +114,43 @@ def test_dense_pool_spec(spec, ok):
             port_qt._pool_spec(spec)
 
 
-def test_trained_lane_is_refused():
-    with pytest.raises(SystemExit, match="item 13"):
-        port_qt.main(["--lane", "trained", "--device", "cpu"])
+def test_family_positives_copy_equals_the_example():
+    from examples.rerank_experiments import make_family_positives
+
+    products, _q = port_qt.build_corpus(4, 16, 2)
+    vocab = sorted({w for p in products[:16] for w in p["agg_text"].split()})
+    for n in (1, 2, 3):
+        r1, r2 = np.random.default_rng(n), np.random.default_rng(n)
+        for p in products[:8]:
+            assert port_qt.make_family_positives(p["agg_text"], vocab, r1, n_variants=n) == \
+                make_family_positives(p["agg_text"], vocab, r2, n_variants=n)
+
+
+def test_trained_lane_runs_beside_the_jax_lane(tmp_path, monkeypatch, capsys):
+    import functools
+
+    few = dict(mlm_steps=4, n_pairs=64)
+    monkeypatch.setattr(port_qt, "build_trained_towers",
+                        functools.partial(port_qt.build_trained_towers, **few))
+    monkeypatch.setattr(jax_qt, "build_trained_towers",
+                        functools.partial(jax_qt.build_trained_towers, **few))
+    args = ["--themes", "8", "--per-theme", "32", "--queries", "12", "--lane", "trained"]
+    assert port_qt.main(args + ["--device", "cpu", "--out", str(tmp_path / "port")]) == 0
+    port_log = capsys.readouterr().err
+    assert jax_qt.main(args + ["--out", str(tmp_path / "jax")]) == 0
+    jax_log = capsys.readouterr().err
+    sizes = lambda log: [line for line in log.splitlines() if "family-variant" in line]
+    assert sizes(port_log) == sizes(jax_log) and len(sizes(port_log)) == 1
+    got, want = (json.loads((tmp_path / d / "benchmark_results.json").read_text())
+                 for d in ("port", "jax"))
+    assert list(got) == list(want) == list(port_queries.BENCHMARK_CONFIGS)
+    for method in want:
+        if "Rerank" not in method:
+            assert got[method]["aggregate"] == want[method]["aggregate"], method
+    rerank = got["Hybrid + Rerank"]["aggregate"]
+    assert all(np.isfinite(rerank[k]) for k in ("ndcg@10", "mrr", "recall@20"))
+    table = (tmp_path / "port" / "readme_table.md").read_text()
+    assert "Hybrid + Rerank" in table and "nan" not in table.lower()
 
 
 def test_benchmark_runner_matches_jax_on_fixed_rankings():
