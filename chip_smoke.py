@@ -190,6 +190,34 @@ line, and nothing is caught and passed over:
              version, SDPA, and the backward recompute (autograd through
              mha_reference) beside SDPA's forward and backward, each timed
              behind a device spin, with their bounds
+ 16 topics_import  the topic pipeline and the reference import. The
+             review set of topics/density.py's docstring: 300,000 x 384 f32
+             rows, 40 planted clusters of 7,250 and 10,000 noise rows, drawn
+             as tests/test_density.py:blobs_with_noise draws them (spread
+             scaled by sqrt(24/384)). knn_graph on the card at k 17, blocks
+             of 1,024 rows, chunks of 32,768 columns: seconds, the
+             profiler's device busy share, peak max_memory_allocated, the
+             bound 2*N^2*D / 67 TFLOP/s and its share; 1,024 sampled rows
+             against one exact full-row product and a stable sort on the
+             card, and a 20,000-row subset against the port's CPU path
+             (similarities within 1e-5, ids equal but for near ties).
+             density_cluster (clusters, noise, eps, core points, the host
+             seconds of graph, union-find, border adoption, renumbering,
+             purity against the planted clusters) and spherical_kmeans
+             (k 24, 25 iterations). rrt topics in process in both lanes
+             with --llm dry on a port bundle of every third of those
+             reviews (pseudo-word texts per cluster; 4,096 products): save seconds and bytes,
+             the TF-IDF naming alone on the density clusters (names all
+             distinct), each lane's seconds, cards, labels and aspect rows.
+             rrt import of a reference data directory in the numpy form
+             written from phase 4's corpus (200,000 products x 384, one
+             token per unique term in product_bm25.pkl, 100,000 reviews):
+             the imported bundle equal to build_product_index on the same
+             columns; then its main path, counted: the CLI's search at
+             rerank_k 50 (18 launches) and, on the engine _load_engine
+             builds, run_search at rerank_k 0 (12 launches each) and
+             search_bm25 (one packed-BM25 launch each) over 20 queries,
+             every row equal to the same calls on the in-process bundle
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3252,6 +3280,372 @@ def phase_training(torch):
             recomputes + lane_recomputes)
 
 
+# ---------------------------------------------------------------- phase 16
+# the reference's review set (topics/density.py's 300k x 384): 40 planted
+# clusters of 7,250 rows and 10,000 isotropic noise rows, drawn as
+# tests/test_density.py:blobs_with_noise draws them, with its spread scaled
+# by sqrt(24 / 384) so a blob keeps the test's geometry at D = 384
+TOPIC_ROWS, TOPIC_CLUSTERS, TOPIC_NOISE, TOPIC_SEED = 300_000, 40, 10_000, 16
+TOPIC_SPREAD = 0.08 * (24 / DIM) ** 0.5
+TOPIC_K, TOPIC_BATCH, TOPIC_CHUNK = 17, 1024, 32_768  # density_cluster's graph: 16 + self
+TOPIC_TOL = 1e-5  # f32 products summed in another order (cuBLAS, the CPU GEMM, the sort)
+TOPIC_SAMPLE, TOPIC_CPU_ROWS = 1024, 20_000
+TOPIC_KMEANS = dict(k=24, iters=25)  # rrt topics' defaults
+TOPIC_WORDS_PER, TOPIC_PRODUCTS = 10, 4096
+# rrt topics' review set: every third of the 300,000 rows (all 40 clusters),
+# cut so that the phase's host stages (bundle save, two lanes) stay near two minutes
+TOPIC_CLI_REVIEWS = 100_000
+# rrt import at phase 4's corpus: skus, n_reviews, avg_stars, embeddings,
+# one token per unique term (no tf repeats, no 2,000-char texts)
+IMPORT_REVIEWS, IMPORT_QUERIES, IMPORT_CAP = 100_000, 20, TERMS
+TOPICS_DIR = REPO_DIR / "build" / "chip_smoke_topics"
+SYLLABLES = ("ba be bi bo bu da de di do du fa fe fi fo fu ga ge gi go gu ka ke ki ko ku "
+             "la le li lo lu ma me mi mo mu na ne ni no nu").split()
+COMMON_WORDS = "really very product item good bought works nice okay great".split()
+
+
+def _topic_rows():
+    """(rows (N, D) f32 unit, truth (N,) int with -1 for noise)."""
+    rng = np.random.default_rng(TOPIC_SEED)
+    centers = rng.standard_normal((TOPIC_CLUSTERS, DIM))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    for i in range(1, TOPIC_CLUSTERS):  # keep blob centers well separated
+        while (centers[:i] @ centers[i]).max() > 0.3:
+            c = rng.standard_normal(DIM)
+            centers[i] = c / np.linalg.norm(c)
+    n_per = (TOPIC_ROWS - TOPIC_NOISE) // TOPIC_CLUSTERS
+    truth = np.concatenate([np.repeat(np.arange(TOPIC_CLUSTERS), n_per),
+                            np.full(TOPIC_NOISE, -1)])
+    rows = np.empty((TOPIC_ROWS, DIM), np.float32)
+    rows[: n_per * TOPIC_CLUSTERS] = (np.repeat(centers, n_per, axis=0)
+                                      + TOPIC_SPREAD * rng.standard_normal((n_per * TOPIC_CLUSTERS,
+                                                                            DIM)))
+    rows[n_per * TOPIC_CLUSTERS:] = rng.standard_normal((TOPIC_NOISE, DIM))
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    return rows, truth
+
+
+def _topic_texts(truth):
+    """Review texts: six of the cluster's ten pseudo-words (Zipf-weighted:
+    the cluster's first syllable, then the word's) and two common words;
+    noise rows take common words only. Stars 1-5 around a per-cluster
+    mean, 1% NaN."""
+    rng = np.random.default_rng(TOPIC_SEED + 1)
+    w = 1.0 / np.arange(1, TOPIC_WORDS_PER + 1)
+    picks = rng.choice(TOPIC_WORDS_PER, size=(len(truth), 6), p=w / w.sum())
+    common = rng.choice(len(COMMON_WORDS), size=(len(truth), 2))
+    texts = []
+    for t, row, cw in zip(truth.tolist(), picks.tolist(), common.tolist()):
+        words = [COMMON_WORDS[c] for c in cw]
+        if t >= 0:
+            words += [SYLLABLES[t] + SYLLABLES[j] + "n" for j in row]
+        else:
+            words += [COMMON_WORDS[j % len(COMMON_WORDS)] for j in row[:3]]
+        texts.append(" ".join(words))
+    mean = rng.uniform(1.5, 4.5, TOPIC_CLUSTERS + 1)[truth]
+    stars = np.clip(np.round(mean + rng.normal(0, 0.8, len(truth))), 1, 5)
+    stars[rng.random(len(truth)) < 0.01] = np.nan
+    return texts, stars
+
+
+def _graph_diff(sims, idx, want_sims, want_idx, sim):
+    """The largest |sim difference|, the ids that differ, and those whose
+    two rows' similarities to the row (sim(r, a, b) -> the gap) are further
+    apart than TOPIC_TOL."""
+    err = float(np.abs(sims - want_sims).max())
+    differ = list(zip(*np.nonzero(idx != want_idx)))
+    bad = sum(sim(int(r), int(idx[r, c]), int(want_idx[r, c])) > TOPIC_TOL for r, c in differ)
+    return err, len(differ), int(bad)
+
+
+def _knn_phase(torch, card, rows):
+    """Phase 16a: the graph on the card, timed, profiled and cross-checked."""
+    from review_recommender_tpu_torch.topics.density import knn_graph
+
+    n = len(rows)
+    kw = dict(k=TOPIC_K, batch_rows=TOPIC_BATCH, col_chunk=TOPIC_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sims, idx = knn_graph(rows, device=DEV, **kw)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile(torch, lambda: knn_graph(rows, device=DEV, **kw))
+    flops = 2.0 * n * n * DIM
+    bound_s = max(flops / PEAK_FP32_FLOPS, (n * DIM * 4 + n * TOPIC_K * 8) / PEAK_HBM_BYTES)
+
+    # 1,024 sampled rows against one exact full-row product and a stable sort on the card
+    pick = np.sort(np.random.default_rng(TOPIC_SEED + 2).choice(n, TOPIC_SAMPLE, replace=False))
+    emb_d = torch.from_numpy(rows).to(DEV)
+    full = emb_d[torch.from_numpy(pick).to(DEV)] @ emb_d.T
+    vals, ids = torch.sort(full, dim=1, descending=True, stable=True)
+    want_s, want_i = vals[:, :TOPIC_K].cpu().numpy(), ids[:, :TOPIC_K].int().cpu().numpy()
+    s_err, s_diff, s_bad = _graph_diff(
+        sims[pick], idx[pick], want_s, want_i,
+        lambda r, a, b: abs(full[r, a].item() - full[r, b].item()))
+    del emb_d, full, vals, ids
+    # a 20,000-row subset on the card against the port's CPU path
+    sub = rows[:: n // TOPIC_CPU_ROWS][:TOPIC_CPU_ROWS]
+    gs, gi = knn_graph(sub, device=DEV, **kw)
+    cs, ci = knn_graph(sub, device="cpu", **kw)
+    e64 = sub.astype(np.float64)
+    c_err, c_diff, c_bad = _graph_diff(gs, gi, cs, ci,
+                                       lambda r, a, b: abs(e64[r] @ (e64[a] - e64[b])))
+    out = {"phase": "topics_knn", "card": card, "rows": n, "dim": DIM, "k": TOPIC_K,
+           "batch_rows": TOPIC_BATCH, "col_chunk": TOPIC_CHUNK, "seconds": seconds,
+           "peak_allocated_bytes": peak, "flops": flops, "bound_s": bound_s,
+           "bound_by": "operations", "share_of_bound": bound_s / seconds,
+           "profiled": prof, "tol": TOPIC_TOL,
+           "sampled_rows": {"rows": TOPIC_SAMPLE, "max_abs_err": s_err, "ids_differ": s_diff,
+                            "ids_differ_beyond_tol": s_bad},
+           "cpu_subset": {"rows": len(sub), "max_abs_err": c_err, "ids_differ": c_diff,
+                          "ids_differ_beyond_tol": c_bad}}
+    emit(out)
+    check(np.isfinite(sims).all() and (idx >= 0).all(), "topics_knn", "a non-finite slot")
+    check(s_err <= TOPIC_TOL and s_bad == 0, "topics_knn",
+          f"sampled rows: {s_err} > {TOPIC_TOL} or {s_bad} ids differ beyond a near tie")
+    check(c_err <= TOPIC_TOL and c_bad == 0, "topics_knn",
+          f"CPU subset: {c_err} > {TOPIC_TOL} or {c_bad} ids differ beyond a near tie")
+    return out
+
+
+def _clusters_phase(card, rows, truth):
+    """Phase 16b: density clustering and k-means on the card's graph."""
+    from review_recommender_tpu_torch.topics.cluster import spherical_kmeans
+    from review_recommender_tpu_torch.topics.density import density_cluster
+
+    stats, kstats = {}, {}
+    t0 = time.perf_counter()
+    labels, info = density_cluster(rows, device=DEV, batch_rows=TOPIC_BATCH,
+                                   col_chunk=TOPIC_CHUNK, stats=stats)
+    density_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids, _centers = spherical_kmeans(rows, device=DEV, stats=kstats, **TOPIC_KMEANS)
+    kmeans_s = time.perf_counter() - t0
+
+    def purity(pred):
+        """Share of clustered rows whose cluster's majority truth is theirs."""
+        keep = (pred >= 0) & (truth >= 0)
+        pairs = pred[keep].astype(np.int64) * (TOPIC_CLUSTERS + 1) + truth[keep]
+        counts = np.bincount(pairs)
+        best = np.zeros(pred.max() + 1, np.int64)
+        np.maximum.at(best, np.arange(len(counts)) // (TOPIC_CLUSTERS + 1), counts)
+        return float(best.sum() / max(keep.sum(), 1))
+
+    noise_kept = float((labels[truth < 0] == -1).mean())
+    out = {"phase": "topics_cluster", "card": card, "density": {
+        **info, "seconds": density_s, "stage_s": stats, "purity": purity(labels),
+        "planted": TOPIC_CLUSTERS, "noise_rows_labelled_noise": noise_kept},
+        "kmeans": {**TOPIC_KMEANS, "seconds": kmeans_s, "stage_s": kstats,
+                   "purity": purity(ids)}}
+    emit(out)
+    check(abs(info["n_clusters"] - TOPIC_CLUSTERS) <= TOPIC_CLUSTERS // 4, "topics_cluster",
+          f"{info['n_clusters']} density clusters for {TOPIC_CLUSTERS} planted")
+    check(out["density"]["purity"] >= 0.95 and noise_kept >= 0.8, "topics_cluster",
+          f"purity {out['density']['purity']}, noise kept {noise_kept}")
+    return labels
+
+
+def _topics_cli_phase(card, rows, truth, density_labels):
+    """Phase 16c: rrt topics in both lanes with --llm dry on a port bundle
+    of these reviews, in process; the naming stage timed alone on the
+    density clusters of phase 16b."""
+    import shutil
+
+    from review_recommender_tpu_torch.index.build import build_bundle_from_products
+    from review_recommender_tpu_torch.index.io import save_bundle
+    from review_recommender_tpu_torch.topics.naming import name_topics, tfidf_topic_terms
+
+    n = TOPIC_CLI_REVIEWS
+    pick = np.arange(0, len(rows), len(rows) // n)[:n]
+    t0 = time.perf_counter()
+    texts, stars = _topic_texts(truth[pick])
+    rng = np.random.default_rng(TOPIC_SEED + 3)
+    products = [{"sku": f"P{i:05d}", "agg_text": f"product {i}", "n_reviews": 10.0,
+                 "avg_stars": 4.0} for i in range(TOPIC_PRODUCTS)]
+    skus = rng.integers(0, TOPIC_PRODUCTS, n)
+    reviews = [{"sku": f"P{s:05d}", "text": t, "stars": float(st)}
+               for s, t, st in zip(skus.tolist(), texts, stars.tolist())]
+    bundle = build_bundle_from_products(
+        products, rng.standard_normal((TOPIC_PRODUCTS, DIM)).astype(np.float32),
+        reviews=reviews, review_embeddings=rows[pick], doc_terms_cap=16)
+    build_s = time.perf_counter() - t0
+    bdir = TOPICS_DIR / "reviews_bundle"
+    t0 = time.perf_counter()
+    save_bundle(bundle, bdir)
+    save_s = time.perf_counter() - t0
+
+    # the naming stage alone, on the density clusters (noise left out, as the lane does)
+    labels = density_labels[pick]
+    keep = np.flatnonzero(labels >= 0)
+    t0 = time.perf_counter()
+    names = name_topics(tfidf_topic_terms([texts[i] for i in keep], labels[keep]))
+    naming_s = time.perf_counter() - t0
+
+    lanes = {"kmeans": ["--k", str(TOPIC_KMEANS["k"]), "--iters", str(TOPIC_KMEANS["iters"])],
+             "density": ["--cluster", "density"]}
+    out = {"phase": "topics_cli", "card": card, "reviews": n, "products": TOPIC_PRODUCTS,
+           "build_s": build_s, "save_s": save_s, "bundle_bytes": _dir_bytes(bdir),
+           "naming_s_density_clusters": naming_s, "tfidf_names_distinct": len(set(names.values())),
+           "tfidf_topics": len(names), "lanes": {}}
+    for lane, extra in lanes.items():
+        lane_dir = TOPICS_DIR / f"topics_{lane}"
+        t0 = time.perf_counter()
+        code, printed = _cli(["topics", "--index-dir", str(bdir), "--out", str(lane_dir),
+                              "--llm", "dry", "--device", DEV, *extra])
+        seconds = time.perf_counter() - t0
+        check(code == 0, "topics_cli", f"{lane}: exit {code}")
+        cards = [json.loads(line) for line in (lane_dir / "topic_cards.jsonl").open()]
+        metrics = json.loads((lane_dir / "aspect_metrics.json").read_text())
+        out["lanes"][lane] = {"seconds": seconds, "cards": len(cards),
+                              "labels_distinct": len({c["label"] for c in cards}),
+                              "aspects": len(metrics),
+                              "reviews_in_metrics": sum(m["n_reviews"] for m in metrics),
+                              "printed": printed.strip().splitlines()[0]}
+        check(len(cards) >= TOPIC_KMEANS["k"] and metrics, "topics_cli",
+              f"{lane}: {len(cards)} cards, {len(metrics)} aspect rows")
+    emit(out)
+    check(out["tfidf_names_distinct"] == len(names), "topics_cli",
+          f"{out['tfidf_names_distinct']} distinct TF-IDF names of {len(names)} topics")
+    shutil.rmtree(bdir, ignore_errors=True)
+    return out
+
+
+def _write_reference_dir(products, ref):
+    """A reference deployment's data directory in the numpy form, from
+    phase 4's corpus: product_emb.npy, product_emb_meta.npz, product_bm25.pkl
+    (one token per unique term), reviews_with_embeddings.npz. Returns the
+    columns for the in-process build."""
+    import pickle
+
+    from review_recommender_tpu_torch.config import config
+    from review_recommender_tpu_torch.data.pipeline import numpy_form, write_numpy_form
+
+    n = products.n_docs
+    ref.mkdir(parents=True)
+    tokens = [[f"t{t}" for t in row if t > 0] for row in products.doc_terms[:n].tolist()]
+    cols = {"sku": list(products.skus[:n]), "agg_text": [" ".join(t) for t in tokens],
+            "n_reviews": products.n_reviews[:n].astype(np.float64),
+            "avg_stars": products.avg_stars[:n].astype(np.float64),
+            "last_ts": [None if i % 50 == 0 else f"2024-{1 + i % 12:02d}-01" for i in range(n)]}
+    np.save(ref / config.PRODUCT_EMB_FILE, products.emb[:n])
+    write_numpy_form(cols, ref / numpy_form(config.PRODUCT_META_FILE))
+    with open(ref / config.BM25_FILE, "wb") as f:
+        pickle.dump({"skus": cols["sku"], "corpus": tokens, "tokenizer": "simple_en_v1"}, f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    rng = np.random.default_rng(TOPIC_SEED + 4)
+    rsku = rng.integers(0, n, IMPORT_REVIEWS)
+    review_cols = {"sku": [cols["sku"][i] for i in rsku.tolist()],
+                   "text": [f"review {i} of {cols['agg_text'][s][:60]}"
+                            for i, s in enumerate(rsku.tolist())],
+                   "stars": rng.integers(1, 6, IMPORT_REVIEWS).astype(np.float64),
+                   "embedding": rng.standard_normal((IMPORT_REVIEWS, DIM)).astype(np.float32)}
+    write_numpy_form(review_cols, ref / numpy_form(config.REVIEWS_EMB_FILE))
+    return cols, tokens, review_cols
+
+
+def _import_phase(torch, card, products):
+    """Phase 16d: rrt import at phase 4's corpus, then the imported
+    bundle's main path (CLI search, run_search, search_bm25: counted)
+    against a bundle built in process from the same columns."""
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.build import build_product_index, build_review_index
+    from review_recommender_tpu_torch.index.io import load_bundle
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+    from review_recommender_tpu_torch.models.encoder import BiEncoder, CrossEncoder
+    from review_recommender_tpu_torch.serve import cli
+
+    ref, bdir = TOPICS_DIR / "reference_data", TOPICS_DIR / "imported"
+    t0 = time.perf_counter()
+    cols, tokens, rcols = _write_reference_dir(products, ref)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    code, printed = _cli(["import", "--data-dir", str(ref), "--out", str(bdir),
+                          "--doc-terms-cap", str(IMPORT_CAP)])
+    import_s = time.perf_counter() - t0
+    check(code == 0, "topics_import", f"import exit {code}")
+    line = json.loads(printed.strip().splitlines()[-1])
+
+    # the same columns built in process: the bundle the import must equal
+    t0 = time.perf_counter()
+    pidx = build_product_index(cols["sku"], cols["agg_text"], cols["n_reviews"].tolist(),
+                               cols["avg_stars"].tolist(), products.emb[: products.n_docs],
+                               doc_terms_cap=IMPORT_CAP, token_lists=tokens,
+                               last_ts=["nan" if t is None else t for t in cols["last_ts"]])
+    ridx = build_review_index(rcols["sku"], rcols["text"], rcols["stars"].tolist(),
+                              rcols["embedding"], pidx.skus)
+    want = IndexBundle(products=pidx, reviews=ridx, meta={"built_from": "reference_artifacts"})
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_bundle(bdir, verify_checksums=True)
+    load_s = time.perf_counter() - t0
+    diffs = _bundle_diffs(want, loaded)
+    check(not diffs, "topics_import", f"the imported bundle differs in {diffs}")
+
+    queries = _queries(IMPORT_QUERIES, DIM, VOCAB, seed=16)
+    _zero_counts()
+    code, _out = _cli(["search", queries[0], "--index-dir", str(bdir), "--rerank-k",
+                       str(RERANK_K), "--json-out", str(TOPICS_DIR / "search.json"),
+                       "--device", DEV])
+    check(code == 0, "topics_import", f"search exit {code}")
+    engine = cli._load_engine(str(bdir), with_rerank=True, device=DEV)
+    rows_imp = [engine.run_search(q, k=K, rerank_k=0)[0] for q in queries]
+    bm25_imp = [engine.search_bm25(q, K) for q in queries]
+    bm25_imp = [(i.cpu().numpy(), s.cpu().numpy()) for i, s in bm25_imp]
+    counts = _counts()
+    want_counts = {**{name: 0 for name in counts}, "mha_fwd": 18 + 12 * IMPORT_QUERIES,
+                   "bm25_packed": IMPORT_QUERIES}
+    cli_rows = json.loads((TOPICS_DIR / "search.json").read_text())["results"]
+    del engine
+
+    ref_engine = SearchEngine(want, device=DEV,
+                              query_encoder=BiEncoder.random_for_dim(DIM, device=DEV),
+                              cross_encoder=CrossEncoder.random_init(device=DEV))
+    same_cli = json.dumps(cli_rows) == json.dumps(
+        ref_engine.run_search(queries[0], k=K, rerank_k=RERANK_K)[0])
+    same_rows = all(json.dumps(a) == json.dumps(ref_engine.run_search(q, k=K, rerank_k=0)[0])
+                    for q, a in zip(queries, rows_imp))
+    same_bm25 = all(np.array_equal(i, ref_engine.search_bm25(q, K)[0].cpu().numpy())
+                    and np.array_equal(s, ref_engine.search_bm25(q, K)[1].cpu().numpy())
+                    for q, (i, s) in zip(queries, bm25_imp))
+    for rows in rows_imp + [cli_rows]:
+        _check_rows(rows, "topics_import")
+    emit({"phase": "topics_import", "card": card, "products": products.n_docs,
+          "reviews": IMPORT_REVIEWS, "dim": DIM, "doc_terms_cap": IMPORT_CAP,
+          "write_reference_dir_s": write_s, "reference_dir_bytes": _dir_bytes(ref),
+          "import_s": import_s, "import_line": line, "bundle_bytes": _dir_bytes(bdir),
+          "build_in_process_s": build_s, "verified_load_s": load_s, "bundle_equal": True,
+          "queries": IMPORT_QUERIES, "cli_search_equal": same_cli,
+          "run_search_equal": same_rows, "search_bm25_equal": same_bm25,
+          "launches": counts, "expected_launches": want_counts})
+    check(same_cli and same_rows and same_bm25, "topics_import",
+          f"imported-bundle rows differ: cli {same_cli}, run_search {same_rows}, "
+          f"search_bm25 {same_bm25}")
+    check(counts == want_counts, "topics_import", f"launches {counts}, want {want_counts}")
+    return counts
+
+
+def phase_topics_import(torch, products):
+    """Phase 16: the topic pipeline and the reference import. Returns the
+    kernel launches of the import's main path."""
+    import shutil
+
+    card = _card()
+    shutil.rmtree(TOPICS_DIR, ignore_errors=True)
+    TOPICS_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    rows, truth = _topic_rows()
+    emit({"phase": "topics_data", "rows": len(rows), "clusters": TOPIC_CLUSTERS,
+          "noise": TOPIC_NOISE, "spread": TOPIC_SPREAD, "seconds": time.perf_counter() - t0})
+    _knn_phase(torch, card, rows)
+    labels = _clusters_phase(card, rows, truth)
+    _topics_cli_phase(card, rows, truth, labels)
+    del rows
+    counts = _import_phase(torch, card, products)
+    shutil.rmtree(TOPICS_DIR, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3283,9 +3677,13 @@ def main() -> int:
         launches += phase_serve(torch, engine, qvecs)
         launches += phase_offline(torch, engine)
         launches += phase_configurations(torch, engine, qvecs)
+        products = engine.products
         del engine
         train_launches, recomputes = phase_training(torch)
         launches += train_launches
+        import_launches = phase_topics_import(torch, products)
+        launches += import_launches["mha_fwd"]
+        bm25_launches["bm25_packed"] += import_launches["bm25_packed"]
     except PhaseError as exc:
         emit({"phase": "failed", "error": str(exc)})
         return 3

@@ -4,7 +4,8 @@ The same variable names and defaults as the JAX package's config
 (`review_recommender_tpu/config.py`), limited to what the engine reads:
 embedding dtype, gate and dense-pool modes (with the IVF pool's knobs),
 the query- and document-term caps, the feature flags, the least candidate pool, the search defaults,
-the tower directories and mesh width the CLI checks, and the server's
+the tower directories and mesh width the CLI checks, the reference
+deployment's artifact names and postings width that `rrt import` reads, and the server's
 address, log path and level, environment and micro-batch knobs. Each knob
 is read once, when this module is imported, after `.env` and then
 `.env.<ENVIRONMENT>` in the working directory are layered into the
@@ -111,6 +112,15 @@ class Config:
     IVF_SELFCHECK_MIN = _env_float("IVF_SELFCHECK_MIN", "0.95")
     # padded query terms for the BM25 and gate device ops
     QUERY_TERMS_CAP = _env_int("QUERY_TERMS_CAP", "32")
+    # padded unique terms per document of an imported bundle's postings;
+    # 0 = auto (index/build.py:derive_doc_terms_cap)
+    DOC_TERMS_CAP = _env_int("DOC_TERMS_CAP", "512")
+    # a reference deployment's artifact names in its data directory
+    # (data/pipeline.py:import_reference_artifacts)
+    PRODUCT_EMB_FILE = os.getenv("PRODUCT_EMB_FILE", "product_emb.npy")
+    PRODUCT_META_FILE = os.getenv("PRODUCT_META_FILE", "product_emb_meta.parquet")
+    REVIEWS_EMB_FILE = os.getenv("REVIEWS_EMB_FILE", "reviews_with_embeddings.parquet")
+    BM25_FILE = os.getenv("BM25_FILE", "product_bm25.pkl")
     # devices the corpus is sharded over; the port serves one (item 12)
     MESH_SHARDS = _env_int("MESH_SHARDS", "1")
 
@@ -151,6 +161,8 @@ class Config:
     def validate(cls) -> None:
         """Raise ValueError on a knob outside its range (the JAX config's
         checks of the knobs the port reads)."""
+        if cls.DOC_TERMS_CAP < 0:
+            raise ValueError("DOC_TERMS_CAP must be >= 0 (0 = auto-derive)")
         if cls.QUERY_TERMS_CAP <= 0:
             raise ValueError("QUERY_TERMS_CAP must be positive")
         if cls.GATE_MODE not in ("device", "host"):

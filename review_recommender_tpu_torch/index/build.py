@@ -13,7 +13,9 @@ the gate bitset records which GATE_PHRASES occur in the first
 GATE_TEXT_PREFIX characters of the lowered text. The postings come from
 the C++ pass of native/tokenizer.cc unless the caller asks for
 tokenizer="python"; the JAX builder's quiet switch to Python when its
-library is missing is not copied.
+library is missing is not copied. Pre-tokenized documents (`token_lists`,
+a reference deployment's BM25 pickle) take the Python pass over their
+tokens, as in JAX.
 
 `synth_product_index` is a numpy port of `bench.py:_synth_index`: the
 same random draws in the same order, so one seed gives the same corpus in
@@ -93,17 +95,15 @@ def attach_eager_bm25(index: ProductIndex) -> ProductIndex:
     return index
 
 
-def _postings_python(agg_texts: Sequence[str], L: int):
-    """build_postings_native's result from the Python tokenizer."""
+def _postings_python(token_lists: Iterable[Sequence[str]], n: int, L: int):
+    """build_postings_native's result from the token lists of n documents."""
     vocab: Dict[str, int] = {}
     df_counts: List[int] = [0]  # index 0 = PAD
-    n = len(agg_texts)
     terms = np.zeros((n, L), np.int32)
     tf = np.zeros((n, L), np.float32)
     doc_lens = np.zeros(n, np.float32)
     truncated = 0
-    for i, text in enumerate(agg_texts):
-        toks = tokenize_document(str(text), native=False)
+    for i, toks in enumerate(token_lists):
         doc_lens[i] = len(toks)
         freqs: Dict[str, int] = {}
         for t in toks:
@@ -137,12 +137,14 @@ def build_product_index(
     pad_multiple: int = 256,
     last_ts: Optional[Sequence] = None,
     tokenizer: str = "native",
+    token_lists: Optional[Sequence[Sequence[str]]] = None,
 ) -> ProductIndex:
     """The ProductIndex of host columns: embeddings L2-normalised and every
     array padded to a multiple of `pad_multiple` rows. doc_terms_cap 0,
     None or "auto" builds at AUTO_CAP_CEILING, then trims the postings to
     derive_doc_terms_cap of the corpus (df and idf count every term).
-    tokenizer: "native" (C++, the default) or "python"."""
+    tokenizer: "native" (C++, the default) or "python"; `token_lists`, one
+    token list per document, takes the place of the tokenizer."""
     n = len(skus)
     if embeddings.shape[0] != n or not (len(agg_texts) == len(n_reviews) == len(avg_stars) == n):
         raise ValueError(f"columns of unequal length: {n} skus, {len(agg_texts)} texts, "
@@ -154,12 +156,17 @@ def build_product_index(
     L = AUTO_CAP_CEILING if auto_cap else int(doc_terms_cap)
     n_pad = pad_rows(n, pad_multiple)
 
-    if tokenizer == "native":
+    if token_lists is not None:
+        if len(token_lists) != n:
+            raise ValueError(f"{len(token_lists)} token lists for {n} documents")
+        nt, ntf, doc_lens, df, vocab, truncated = _postings_python(token_lists, n, L)
+    elif tokenizer == "native":
         from review_recommender_tpu_torch.native import build_postings_native
 
         nt, ntf, doc_lens, df, vocab, truncated = build_postings_native(agg_texts, L)
     else:
-        nt, ntf, doc_lens, df, vocab, truncated = _postings_python(agg_texts, L)
+        nt, ntf, doc_lens, df, vocab, truncated = _postings_python(
+            (tokenize_document(str(t), native=False) for t in agg_texts), n, L)
     terms = np.full((n_pad, L), PAD_TERM_ID, np.int32)
     tf = np.zeros((n_pad, L), np.float32)
     terms[:n] = nt

@@ -22,8 +22,10 @@ either layout, deciding by which meta file exists: the port's on any
 machine, a JAX bundle's parquet only where pyarrow imports (else it raises
 and names the reader). `python -m review_recommender_tpu_torch.index.io
 convert SRC DST` rewrites a JAX bundle into this layout on a machine with
-pyarrow. Remote paths (hf://, s3://, ...) raise: fsspec is not on the
-card's machine (ROADMAP Queue 1 item 18).
+pyarrow. `load_bundle` also reads a bundle at an fsspec URL (hf://, s3://,
+memory://, ...) where fsspec imports, as the JAX one does; where it does
+not (the card's machine), a remote path raises and names the way round.
+Bundles are written to local directories only, as in JAX.
 """
 from __future__ import annotations
 
@@ -57,17 +59,50 @@ def is_remote(path) -> bool:
     return "://" in str(path)
 
 
+def join_path(base, name: str) -> str:
+    """base / name, keeping a URL's scheme (Path() collapses "hf://")."""
+    b = str(base)
+    if is_remote(b):
+        return b.rstrip("/") + "/" + name
+    return str(Path(b) / name)
+
+
+def _fsspec(path):
+    try:
+        import fsspec
+    except ImportError as e:
+        raise RuntimeError(
+            f"{path} is a remote path, and reading it needs fsspec, which is not installed "
+            "here: copy the files to a local directory first") from e
+    return fsspec
+
+
+def open_artifact(path, mode: str = "rb"):
+    """A local file or an fsspec URL opened for reading ("rb", or "r" as
+    UTF-8 text)."""
+    enc = {} if "b" in mode else {"encoding": "utf-8"}
+    if is_remote(path):
+        return _fsspec(path).open(str(path), mode, **enc).open()
+    return open(path, mode, **enc)
+
+
+def artifact_exists(path) -> bool:
+    """Whether a local file or an fsspec URL exists."""
+    if is_remote(path):
+        fs, p = _fsspec(path).core.url_to_fs(str(path))
+        return fs.exists(p)
+    return Path(path).exists()
+
+
 def _local(path) -> Path:
     if is_remote(path):
-        raise ValueError(f"remote bundle {path}: the port reads local directories only "
-                         "(fsspec is not installed on the card's machine; ROADMAP Queue 1 "
-                         "item 18)")
+        raise ValueError(f"{path}: bundles are written to local directories only")
     return Path(path)
 
 
 def _sha256(path) -> str:
     h = hashlib.sha256()
-    with open(path, "rb") as f:
+    with open_artifact(path) as f:
         for chunk in iter(lambda: f.read(1 << 20), b""):
             h.update(chunk)
     return h.hexdigest()
@@ -88,6 +123,18 @@ def _unpack_strings(arrs, name: str) -> List[str]:
     return [raw[a:b].decode("utf-8") for a, b in zip(off[:-1], off[1:])]
 
 
+def pack_nullable_strings(name: str, values: Sequence[Optional[str]]) -> Dict[str, np.ndarray]:
+    """_pack_strings of the values (None as "") with a bool `name_null` mask."""
+    return {**_pack_strings(name, ["" if v is None else v for v in values]),
+            f"{name}_null": np.asarray([v is None for v in values], bool)}
+
+
+def unpack_nullable_strings(arrs, name: str) -> List[Optional[str]]:
+    """The values of pack_nullable_strings, None where the mask is set."""
+    return [None if null else v
+            for v, null in zip(_unpack_strings(arrs, name), arrs[f"{name}_null"].tolist())]
+
+
 def save_bundle(bundle: IndexBundle, out_dir) -> Path:
     """Write `bundle` to `out_dir` in the port's layout; returns the path."""
     out = _local(out_dir)
@@ -105,8 +152,8 @@ def save_bundle(bundle: IndexBundle, out_dir) -> Path:
     meta = {**_pack_strings("sku", [str(s) for s in p.skus]),
             **_pack_strings("agg_text", [str(t) for t in p.agg_texts])}
     if p.last_ts is not None:
-        meta.update(_pack_strings("last_ts", ["" if t is None else str(t) for t in p.last_ts]))
-        meta["last_ts_null"] = np.asarray([t is None for t in p.last_ts], bool)
+        meta.update(pack_nullable_strings("last_ts",
+                                          [None if t is None else str(t) for t in p.last_ts]))
     np.savez_compressed(out / PRODUCT_META, **meta)
     with open(out / "vocab.txt", "w", encoding="utf-8") as f:
         for term, _tid in sorted(p.vocab.items(), key=lambda kv: kv[1]):
@@ -141,46 +188,57 @@ def save_bundle(bundle: IndexBundle, out_dir) -> Path:
     return out
 
 
-def _read_parquet(path: Path, columns: Sequence[str]) -> Dict[str, list]:
-    """Columns of a JAX bundle's parquet meta file, as Python lists."""
+def read_parquet(path, columns: Sequence[str], convert_hint: str):
+    """The columns of a parquet file (local or fsspec) present in it, as a
+    pyarrow Table; without pyarrow, raises with `convert_hint`."""
     try:
         import pyarrow.parquet as pq
     except ImportError as e:
-        raise RuntimeError(
-            f"{path} is a JAX-package bundle's parquet meta file, and reading it needs "
-            "pyarrow, which is not installed here. Convert the bundle on a machine with "
-            "pyarrow: python -m review_recommender_tpu_torch.index.io convert SRC DST") from e
-    table = pq.read_table(path)
-    return {c: table.column(c).to_pylist() for c in columns if c in table.column_names}
+        raise RuntimeError(f"reading {path} needs pyarrow, which is not installed here. "
+                           f"{convert_hint}") from e
+    with open_artifact(path) as f:
+        pf = pq.ParquetFile(f)
+        return pf.read(columns=[c for c in columns if c in pf.schema_arrow.names])
+
+
+def _read_parquet(path, columns: Sequence[str]) -> Dict[str, list]:
+    """Columns of a JAX bundle's parquet meta file, as Python lists."""
+    table = read_parquet(path, columns, "It is a JAX-package bundle's meta file: convert the "
+                         "bundle on a machine with pyarrow: python -m "
+                         "review_recommender_tpu_torch.index.io convert SRC DST")
+    return {c: table.column(c).to_pylist() for c in table.column_names}
 
 
 def _ts(t) -> Optional[str]:
     return None if t is None or (isinstance(t, float) and math.isnan(t)) else str(t)
 
 
-def _product_meta(src: Path) -> tuple:
+def _load_npz(path) -> Dict[str, np.ndarray]:
+    """Every array of a local or fsspec .npz file."""
+    with open_artifact(path) as f, np.load(f) as arrs:
+        return dict(arrs)
+
+
+def _product_meta(src: str) -> tuple:
     """(skus, agg_texts, last_ts or None) from whichever meta file exists."""
-    if (src / PRODUCT_META).exists():
-        with np.load(src / PRODUCT_META) as m:
-            last_ts = None
-            if "last_ts_null" in m.files:
-                last_ts = [None if null else t for t, null in
-                           zip(_unpack_strings(m, "last_ts"), m["last_ts_null"].tolist())]
-            return _unpack_strings(m, "sku"), _unpack_strings(m, "agg_text"), last_ts
-    if (src / JAX_PRODUCT_META).exists():
-        cols = _read_parquet(src / JAX_PRODUCT_META, ("sku", "agg_text", "last_ts"))
+    if artifact_exists(join_path(src, PRODUCT_META)):
+        m = _load_npz(join_path(src, PRODUCT_META))
+        last_ts = unpack_nullable_strings(m, "last_ts") if "last_ts_null" in m else None
+        return _unpack_strings(m, "sku"), _unpack_strings(m, "agg_text"), last_ts
+    if artifact_exists(join_path(src, JAX_PRODUCT_META)):
+        cols = _read_parquet(join_path(src, JAX_PRODUCT_META), ("sku", "agg_text", "last_ts"))
         last_ts = [_ts(t) for t in cols["last_ts"]] if "last_ts" in cols else None
         return ([str(s) for s in cols["sku"]], [str(t) for t in cols["agg_text"]], last_ts)
     raise FileNotFoundError(f"{src}: neither {PRODUCT_META} nor {JAX_PRODUCT_META}")
 
 
-def _review_meta(src: Path) -> tuple:
+def _review_meta(src: str) -> tuple:
     """(texts, stars f32) from whichever review meta file exists."""
-    if (src / REVIEW_META).exists():
-        with np.load(src / REVIEW_META) as m:
-            return _unpack_strings(m, "text"), np.asarray(m["stars"], np.float32)
-    if (src / JAX_REVIEW_META).exists():
-        cols = _read_parquet(src / JAX_REVIEW_META, ("text", "stars"))
+    if artifact_exists(join_path(src, REVIEW_META)):
+        m = _load_npz(join_path(src, REVIEW_META))
+        return _unpack_strings(m, "text"), np.asarray(m["stars"], np.float32)
+    if artifact_exists(join_path(src, JAX_REVIEW_META)):
+        cols = _read_parquet(join_path(src, JAX_REVIEW_META), ("text", "stars"))
         stars = np.asarray([np.nan if s is None else s for s in cols["stars"]], np.float32)
         return [str(t) for t in cols["text"]], stars
     raise FileNotFoundError(f"{src}: neither {REVIEW_META} nor {JAX_REVIEW_META}")
@@ -189,15 +247,15 @@ def _review_meta(src: Path) -> tuple:
 def mismatched_files(src, manifest: dict) -> List[str]:
     """The files of the manifest's checksums whose sha256 differs (a
     missing file is left to the reader that needs it)."""
-    src = Path(src)
     return [f for f, want in manifest.get("checksums", {}).items()
-            if (src / f).exists() and _sha256(src / f) != want]
+            if artifact_exists(join_path(src, f)) and _sha256(join_path(src, f)) != want]
 
 
 def load_bundle(in_dir, verify_checksums: bool = False) -> IndexBundle:
-    """Read a bundle directory of either layout (see the module docstring)."""
-    src = _local(in_dir)
-    with open(src / "manifest.json", encoding="utf-8") as fh:
+    """Read a bundle of either layout (see the module docstring) from a
+    local directory or an fsspec URL."""
+    src = str(in_dir)
+    with open_artifact(join_path(src, "manifest.json"), "r") as fh:
         manifest = json.load(fh)
     if manifest["schema_version"] > SCHEMA_VERSION:
         raise ValueError(f"index bundle schema v{manifest['schema_version']} is newer than "
@@ -207,10 +265,9 @@ def load_bundle(in_dir, verify_checksums: bool = False) -> IndexBundle:
         if bad:
             raise ValueError(f"checksum mismatch for {', '.join(bad)}")
 
-    with np.load(src / "product_arrays.npz") as fh:
-        arrs = dict(fh)
+    arrs = _load_npz(join_path(src, "product_arrays.npz"))
     skus, agg_texts, last_ts = _product_meta(src)
-    with open(src / "vocab.txt", encoding="utf-8") as fh:
+    with open_artifact(join_path(src, "vocab.txt"), "r") as fh:
         vocab = {line.rstrip("\n"): i + 1 for i, line in enumerate(fh) if line}
     p = ProductIndex(
         emb=arrs["emb"], n_reviews=arrs["n_reviews"], avg_stars=arrs["avg_stars"],
@@ -225,8 +282,7 @@ def load_bundle(in_dir, verify_checksums: bool = False) -> IndexBundle:
 
     reviews: Optional[ReviewIndex] = None
     if manifest.get("has_reviews"):
-        with np.load(src / "review_arrays.npz") as fh:
-            rarrs = dict(fh)
+        rarrs = _load_npz(join_path(src, "review_arrays.npz"))
         texts, stars = _review_meta(src)
         reviews = ReviewIndex(rev_emb=rarrs["rev_emb"], rev_product=rarrs["rev_product"],
                               rev_valid=rarrs["rev_valid"], rev_texts=texts, rev_stars=stars,

@@ -1,5 +1,5 @@
 """The command line: one engine behind search / serve / audit / health /
-bench / eval.
+bench / eval / train, with topics and import beside it.
 
 Counterpart of `review_recommender_tpu/serve/cli.py`, with its parser's
 arguments and defaults, plus `--device` (default "cuda"; the tests pass
@@ -22,6 +22,8 @@ attached for query_e2e.
   ... bench  --index-dir DIR [--n-queries 64]
   ... eval   --index-dir DIR --queries judged.jsonl [--out DIR]
   ... train  --index-dir DIR --out TOWERS [--cross] [--mlm-steps N] [--resume]
+  ... topics --index-dir DIR --out D [--cluster kmeans|density] [--llm dry|ollama|openai]
+  ... import --data-dir REF --out DIR [--doc-terms-cap N] [--no-reviews]
 
 `train` is the JAX command's flow (review_recommender_tpu/serve/cli.py
 cmd_train) on the port's trainers (train/): pairs mined from the bundle's
@@ -32,11 +34,22 @@ RERANK_MODEL_DIR, the MLM trunk grafted in, or from scratch; stage
 checkpoints in --out (--resume continues them), native tower directories
 that this CLI's and the JAX CLI's loaders serve, and one JSON line.
 
+`topics` is the JAX cmd_topics on the port's topic modules (topics/):
+the bundle's review embeddings clustered by spherical k-means or, with
+--cluster density, by density clustering (the kNN graph on --device),
+TF-IDF names or an LLM's (--llm), aspect metrics, resume-safe cards in
+topic_cards.jsonl and aspect_metrics.json, and the parquet views
+(topic_cards.parquet, topics.parquet) where pyarrow imports (a line on
+stderr says when they are skipped); --bench times card generation
+instead. `import` is the JAX cmd_import on data/pipeline.py: a reference
+data directory (local or an fsspec URL) into a bundle, each table read
+from its numpy form where that exists, else from parquet.
+
 What the port cannot do yet exits non-zero and names its ROADMAP Queue 1
 item, where the JAX CLI would run something else: `--shards` /
-MESH_SHARDS above 1 (item 12), `topics` (item 14) and `import` (item
-18). `serve --native` (or SERVE_NATIVE) raises when the native library
-cannot be built; it never falls back to the stdlib server.
+MESH_SHARDS above 1 (item 12). `serve --native` (or SERVE_NATIVE) raises
+when the native library cannot be built; it never falls back to the
+stdlib server.
 """
 from __future__ import annotations
 
@@ -52,13 +65,6 @@ from typing import Optional, Sequence
 import numpy as np
 
 from review_recommender_tpu_torch.config import config
-
-NOT_PORTED = {
-    "topics": "the topic pipeline is not ported yet (ROADMAP Queue 1 item 14)",
-    "import": ("importing a reference deployment's artifacts is not ported yet "
-               "(ROADMAP Queue 1 item 18)"),
-}
-
 
 def _refuse(msg: str):
     raise SystemExit(f"rrt: {msg}")
@@ -417,8 +423,179 @@ def cmd_train(args) -> int:
     return 0
 
 
-def cmd_not_ported(args) -> int:
-    _refuse(f"{args.cmd}: {NOT_PORTED[args.cmd]}")
+def cmd_import(args) -> int:
+    """A reference deployment's data directory (local or an fsspec URL)
+    into an index bundle: the artifact names of config.py, each parquet
+    table taken in its numpy form where that exists."""
+    from review_recommender_tpu_torch.data.pipeline import import_reference_artifacts, numpy_form
+    from review_recommender_tpu_torch.index.io import artifact_exists, join_path
+
+    def resolve(name: str, required: bool = False):
+        for cand in dict.fromkeys((numpy_form(name), name)):
+            path = join_path(args.data_dir, cand)
+            if artifact_exists(path):
+                return path
+        if required:
+            raise SystemExit(f"missing required artifact: {join_path(args.data_dir, name)}")
+        return None
+
+    emb = resolve(config.PRODUCT_EMB_FILE, required=True)
+    meta = resolve(config.PRODUCT_META_FILE, required=True)
+    bm25 = resolve(config.BM25_FILE)
+    reviews = resolve(config.REVIEWS_EMB_FILE) if not args.no_reviews else None
+    bundle = import_reference_artifacts(emb, meta, bm25_pkl=bm25, reviews_parquet=reviews,
+                                        out_dir=args.out, doc_terms_cap=args.doc_terms_cap)
+    print(json.dumps({
+        "out": str(args.out),
+        "n_docs": bundle.products.n_docs,
+        "has_bm25_tokens": bm25 is not None,
+        "n_reviews": bundle.reviews.n_reviews_total if bundle.reviews is not None else 0,
+    }))
+    return 0
+
+
+def cmd_topics(args) -> int:
+    """Cluster the bundle's reviews, name the topics, compute aspect metrics
+    and write resume-safe cards (the JAX cmd_topics, flag for flag);
+    --bench prints the card-generation estimate instead."""
+    from review_recommender_tpu_torch.index.io import load_bundle
+    from review_recommender_tpu_torch.topics.cards import (
+        benchmark_generator,
+        generate_topic_cards,
+        parquet_writer,
+        pick_quotes,
+    )
+    from review_recommender_tpu_torch.topics.cluster import spherical_kmeans
+    from review_recommender_tpu_torch.topics.naming import (
+        aspect_metrics,
+        map_label_to_aspect,
+        name_topics,
+        tfidf_topic_terms,
+    )
+
+    if args.cluster == "density" and (args.shards or 1) > 1:  # k-means ignores it, as in JAX
+        _refuse(f"topics --shards {args.shards}: the sharded kNN graph is not ported yet "
+                "(ROADMAP Queue 1 item 12)")
+    bundle = load_bundle(args.index_dir)
+    if bundle.reviews is None:
+        print("topics: index has no review embeddings (build with reviews + review_embeddings)",
+              file=sys.stderr)
+        return 1
+    rev = bundle.reviews
+    m = int(rev.n_reviews_total)  # valid rows come first (index/build.py)
+    emb = np.asarray(rev.rev_emb, np.float32)[:m]
+    texts = list(rev.rev_texts)[:m]
+    stars = np.asarray(rev.rev_stars, np.float32)[:m]
+    if len(texts) == 0:
+        print("topics: no valid reviews in index", file=sys.stderr)
+        return 1
+
+    if args.cluster == "density":
+        from review_recommender_tpu_torch.topics.density import density_cluster
+
+        topic_ids, dinfo = density_cluster(emb, min_samples=args.min_samples,
+                                           min_cluster_size=args.min_cluster_size,
+                                           device=args.device)
+        k = int(dinfo["n_clusters"])
+        print(f"density: {k} clusters, {dinfo['noise']} noise reviews "
+              f"(eps={dinfo['eps']:.4f})", file=sys.stderr)
+        if k == 0:
+            print("topics: density clustering found no clusters (corpus too sparse for "
+                  f"min_cluster_size={args.min_cluster_size})", file=sys.stderr)
+            return 1
+        centers = np.zeros((k, emb.shape[1]), np.float32)
+        for tid in range(k):
+            c = emb[topic_ids == tid].mean(axis=0)
+            centers[tid] = c / max(float(np.linalg.norm(c)), 1e-12)
+        # noise (-1) leaves here: naming, metrics and cards see clustered reviews only
+        clustered = topic_ids >= 0
+        emb = emb[clustered]
+        stars = stars[clustered]
+        texts = [texts[i] for i in np.flatnonzero(clustered)]
+        topic_ids = topic_ids[clustered]
+    else:
+        k = min(int(args.k), len(texts))
+        topic_ids, centers = spherical_kmeans(emb, k=k, iters=args.iters, seed=args.seed,
+                                              device=args.device)
+
+    labels = name_topics(tfidf_topic_terms(texts, topic_ids))
+    topics = []
+    for tid in sorted(labels):  # topics under --min-reviews are dropped
+        mask = topic_ids == tid
+        n = int(mask.sum())
+        if n < args.min_reviews:
+            continue
+        topics.append({
+            "topic_id": int(tid),
+            "label": labels[tid],
+            "aspect": map_label_to_aspect(labels[tid]),
+            "n_reviews": n,
+            "quotes": pick_quotes([texts[i] for i in np.flatnonzero(mask)], emb[mask],
+                                  centers[tid], n_quotes=args.n_quotes),
+        })
+
+    # an LLM's names over the rolled-up topics; the TF-IDF labels stay the fallback
+    llm_aspects = None
+    if args.llm:
+        from review_recommender_tpu_torch.topics.llm_clients import (
+            OllamaClient,
+            from_spec,
+            label_topics,
+        )
+
+        client = from_spec(args.llm, model=args.llm_model)
+        if isinstance(client, OllamaClient):
+            if not client.ping():
+                print(f"topics: can't reach Ollama at {client.host} (start it with "
+                      "'ollama serve')", file=sys.stderr)
+                return 1
+            client.ensure_model()
+        cache = args.llm_cache or str(Path(args.out) / "_llm_topic_cache.json")
+        Path(cache).parent.mkdir(parents=True, exist_ok=True)
+        metas = label_topics(client, {t["topic_id"]: t["quotes"] for t in topics},
+                             cache_path=cache)
+        llm_aspects = {}
+        for t in topics:
+            meta = metas.get(t["topic_id"])
+            if not meta:
+                continue
+            t["label"] = meta["topic_label"]
+            t["aspect"] = meta["aspect"].lower()
+            t["rationale"] = meta.get("rationale", "")
+            llm_aspects[t["topic_id"]] = t["aspect"]
+        labels = {**labels, **{t["topic_id"]: t["label"] for t in topics}}
+        # one vocabulary per run: topics without an LLM answer map into the
+        # LLM taxonomy, not the rule-based one
+        rule_to_llm = {"price": "pricing", "shipping": "shipping", "quality": "quality",
+                       "usability": "usability"}
+        for tid, label in labels.items():
+            if tid not in llm_aspects:
+                llm_aspects[tid] = rule_to_llm.get(map_label_to_aspect(label), "misc")
+
+    metrics = aspect_metrics(topic_ids, stars, labels, aspects=llm_aspects)
+
+    if args.bench:
+        report = benchmark_generator(
+            topics, configs={"default": {}, "fast": {"n_quotes": 1, "max_chars": 120}},
+            n_topics=args.sample_bench, total_topics=len(topics))
+        print(json.dumps({"n_topics": len(topics), "configs": report}, indent=2))
+        return 0
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    cards = generate_topic_cards(topics, out / "topic_cards.jsonl",
+                                 parquet_out=out / "topic_cards.parquet")
+    (out / "aspect_metrics.json").write_text(json.dumps(metrics, indent=2))
+    write = parquet_writer(out / "topics.parquet")
+    if write is not None:
+        write([{k2: t[k2] for k2 in ("topic_id", "label", "aspect", "n_reviews")}
+               for t in topics])
+    print(f"{len(cards)} topic cards -> {out}/topic_cards.jsonl "
+          f"(+parquet, aspects in aspect_metrics.json)")
+    for row in metrics[:5]:
+        print(f"  aspect={row['aspect']:<12} n={row['n_reviews']:<6} "
+              f"avg_stars={row['avg_stars']} lost={row['lost_rating']}")
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -524,16 +701,53 @@ def build_parser() -> argparse.ArgumentParser:
     device_arg(t)
     t.set_defaults(fn=cmd_train)
 
-    for name, why in NOT_PORTED.items():
-        sub.add_parser(name, help=f"not ported: {why}").set_defaults(fn=cmd_not_ported)
+    imp = sub.add_parser("import", help="convert a reference deployment's data dir into an "
+                                        "index bundle (product_emb.npy + product_emb_meta "
+                                        "[+ product_bm25.pkl + reviews_with_embeddings])")
+    imp.add_argument("--data-dir", required=True, help="local dir or fsspec URL (hf://...)")
+    imp.add_argument("--out", required=True, help="bundle output dir")
+    imp.add_argument("--doc-terms-cap", type=int, default=None,
+                     help="postings width (default DOC_TERMS_CAP; 0 = auto)")
+    imp.add_argument("--no-reviews", action="store_true",
+                     help="skip reviews_with_embeddings")
+    imp.set_defaults(fn=cmd_import)
+
+    tp = sub.add_parser("topics", help="cluster reviews into named topics + cards")
+    tp.add_argument("--index-dir", required=True)
+    tp.add_argument("--out", default="topics_out",
+                    help="output dir (cards JSONL/parquet, aspect metrics)")
+    tp.add_argument("--k", type=int, default=24, help="number of clusters")
+    tp.add_argument("--iters", type=int, default=25)
+    tp.add_argument("--seed", type=int, default=0)
+    tp.add_argument("--cluster", choices=("kmeans", "density"), default="kmeans",
+                    help="kmeans: fixed-K spherical k-means; density: HDBSCAN-semantics "
+                         "kNN-graph clustering (data-derived count, noise=-1)")
+    tp.add_argument("--min-samples", type=int, default=10,
+                    help="density: core-point neighbour count")
+    tp.add_argument("--min-cluster-size", type=int, default=40,
+                    help="density: dissolve smaller clusters into noise")
+    tp.add_argument("--shards", type=int, default=None,
+                    help="density: corpus shards of the kNN graph (above 1 is not ported yet)")
+    tp.add_argument("--min-reviews", type=int, default=5, help="drop topics smaller than this")
+    tp.add_argument("--n-quotes", type=int, default=3)
+    tp.add_argument("--bench", action="store_true",
+                    help="time card generation + project the full-run ETA instead of "
+                         "writing cards")
+    tp.add_argument("--sample-bench", type=int, default=8, help="topics to time with --bench")
+    tp.add_argument("--llm", default=None,
+                    help="LLM naming backend: dry | ollama[:url] | openai[:url] (TF-IDF "
+                         "naming when omitted)")
+    tp.add_argument("--llm-model", default=None,
+                    help="model name for --llm (default: OLLAMA_MODEL / LLM_MODEL env)")
+    tp.add_argument("--llm-cache", default=None,
+                    help="resume cache path (default: OUT/_llm_topic_cache.json)")
+    device_arg(tp)
+    tp.set_defaults(fn=cmd_topics)
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if extra and args.fn is not cmd_not_ported:  # a refused command's arguments go unread
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     config.validate()
     return args.fn(args)
 

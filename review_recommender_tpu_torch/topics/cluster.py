@@ -1,8 +1,7 @@
 """Mini-batched spherical k-means on the engine's device.
 
-Counterpart of `review_recommender_tpu/topics/cluster.py:25-105`
-(`_assign`, `spherical_kmeans`); its `kmeans_sanity` belongs to the topic
-tooling and is not ported yet. The farthest-point seeding is the JAX
+Counterpart of `review_recommender_tpu/topics/cluster.py:25-124`
+(`_assign`, `spherical_kmeans`, `kmeans_sanity`). The farthest-point seeding is the JAX
 package's numpy code, so it draws the same `default_rng(seed)` stream and
 picks the same seeds. Assignment and update run in f32 torch on `device`:
 one (rows, D) x (D, k) product per mini-batch (TF32 off, ops/dense.py:
@@ -102,3 +101,23 @@ def spherical_kmeans(embeddings: np.ndarray, k: int = 60, iters: int = 25,
             torch.cuda.synchronize(device)
         stats.update(seed_s=t1 - t0, iters_s=time.perf_counter() - t1, iters=it)
     return ids_out[:n].to(torch.int32).cpu().numpy(), centers.cpu().numpy()
+
+
+def kmeans_sanity(embeddings: np.ndarray, k: int = 60, sample: int = 50000, seed: int = 0,
+                  device="cuda") -> dict:
+    """Cluster-size report of 8 k-means iterations on a subsample of at most
+    `sample` rows: rows, k, non-empty clusters, the largest cluster's share
+    and the median non-empty size."""
+    emb = np.asarray(embeddings, np.float32)
+    rng = np.random.default_rng(seed)
+    if len(emb) > sample:
+        emb = emb[rng.choice(len(emb), sample, replace=False)]
+    ids, _ = spherical_kmeans(emb, k=k, iters=8, seed=seed, device=device)
+    counts = np.bincount(ids, minlength=k)
+    return {
+        "n": int(len(emb)),
+        "k": int(k),
+        "nonempty": int((counts > 0).sum()),
+        "largest_share": float(counts.max() / max(len(emb), 1)),
+        "median_size": float(np.median(counts[counts > 0])) if (counts > 0).any() else 0.0,
+    }

@@ -7,8 +7,9 @@ seeded); `eval` gives run_performance_benchmark's aggregates; `audit`
 exits 0 on a good bundle and 1 on a damaged one; `bench` prints its JSON;
 `serve` in a subprocess answers /healthz, /readyz, /search and `health`,
 and stops on SIGTERM, for both front ends. Every refusal exits non-zero
-and names its ROADMAP item: --shards 2 or MESH_SHARDS=2 (12), topics
-(14), import (18); --native without a buildable library raises. `train
+and names its ROADMAP item: --shards 2 or MESH_SHARDS=2 and topics
+--shards 2 (12); --native without a buildable library raises (`topics`
+and `import` themselves: tests/test_torch_topics.py, test_torch_import.py). `train
 --cross --mlm-steps 4` and the JAX CLI's on one JAX-saved bundle with
 reviews mine the same pairs and print the same JSON keys; each one's
 towers load in both packages' loaders and serve the port's `search` at
@@ -115,8 +116,7 @@ def test_bench_prints_its_json(bundle_dir, capsys):
 REFUSALS = {
     "shards_2": (["serve", "--shards", "2"], {}, "item 12"),
     "mesh_shards_2": (["serve"], {"MESH_SHARDS": 2}, "item 12"),
-    "topics": (["topics"], {}, "item 14"),
-    "import": (["import", "--data-dir", "d", "--out", "x"], {}, "item 18"),
+    "topics-shards": (["topics", "--cluster", "density", "--shards", "2"], {}, "item 12"),
 }
 
 
@@ -125,7 +125,7 @@ def test_refusals_exit_non_zero_naming_their_item(bundle_dir, monkeypatch, case)
     argv, knobs, item = REFUSALS[case]
     for name, value in knobs.items():
         monkeypatch.setattr(type(config), name, value)
-    if argv[0] in ("search", "serve"):
+    if argv[0] in ("search", "serve", "topics"):
         argv = argv + ["--index-dir", str(bundle_dir), "--device", "cpu"]
     with pytest.raises(SystemExit, match=item) as exc:
         cli.main(argv)

@@ -204,6 +204,7 @@ def test_entry_points_default_to_the_card(engines):
 
 _HYGIENE = """
 import json, sys, numpy as np, torch
+sys.modules.update(pandas=None, pyarrow=None, fsspec=None)  # the card's machine: not installed
 from review_recommender_tpu_torch.engine.search import SearchEngine
 from review_recommender_tpu_torch.index.build import (attach_rerank_tokens, build_review_index,
                                                       synth_product_index)
@@ -272,7 +273,31 @@ save_bundle(build_bundle_from_products(
 n.append(load_bundle(bdir, verify_checksums=True).products.n_docs)
 n += [cli.main([cmd, *arg, "--index-dir", bdir, "--device", "cpu"])
       for cmd, arg in (("search", ["yellow socks", "--k", "5"]), ("audit", []))]
-bad = [m for m in ("jax", "flax", "pandas", "pyarrow") if m in sys.modules]
+import pickle
+from review_recommender_tpu_torch import data, topics
+from review_recommender_tpu_torch.data.pipeline import write_numpy_form
+ref, idir, rng = tempfile.mkdtemp(), tempfile.mkdtemp(), np.random.default_rng(4)
+np.save(f"{ref}/product_emb.npy", rng.standard_normal((40, 64)).astype(np.float32))
+write_numpy_form({"sku": [p["sku"] for p in prods], "n_reviews": np.full(40, 10.0),
+                  "avg_stars": np.full(40, 4.0), "last_ts": [None] * 40,
+                  "agg_text": [p["agg_text"] for p in prods]}, f"{ref}/product_emb_meta.npz")
+with open(f"{ref}/product_bm25.pkl", "wb") as f:
+    pickle.dump({"skus": [p["sku"] for p in prods], "tokenizer": "simple_en_v1",
+                 "corpus": [p["agg_text"].split() for p in prods]}, f)
+centers = rng.standard_normal((4, 64))
+write_numpy_form({"sku": [f"P{i % 40}" for i in range(240)],
+                  "text": [f"theme{i // 60} word{i // 60} great {i}" for i in range(240)],
+                  "stars": rng.integers(1, 6, 240).astype(np.float64),
+                  "embedding": (np.repeat(centers, 60, 0)
+                                + 0.1 * rng.standard_normal((240, 64))).astype(np.float32)},
+                 f"{ref}/reviews_with_embeddings.npz")
+n.append(cli.main(["import", "--data-dir", ref, "--out", idir]))
+for lane in (["--k", "4"], ["--cluster", "density", "--min-samples", "5",
+                            "--min-cluster-size", "20", "--llm", "dry"]):
+    out = tempfile.mkdtemp()
+    n.append(cli.main(["topics", "--index-dir", idir, "--out", out, "--device", "cpu", *lane]))
+    n.append(len(open(f"{out}/topic_cards.jsonl").readlines()))
+bad = [m for m in ("jax", "flax", "pandas", "pyarrow", "fsspec") if sys.modules.get(m)]
 bad += sorted(m for m in sys.modules
               if m == "review_recommender_tpu" or m.startswith("review_recommender_tpu."))
 launches = (attention.mha_kernel_launches + bm25_kernel.bm25_packed_kernel_launches
@@ -290,13 +315,17 @@ def test_port_imports_no_jax_pandas_or_pyarrow():
     native HTTP servers on that engine (one /search each) and computes IR
     metrics, then builds a bundle from products (native tokenizer), saves
     and loads it in the port's layout and runs the CLI's search and audit
-    on it, without loading jax, flax, pandas, pyarrow or any module of the
-    JAX package, and without a kernel launch."""
+    on it, then `import`s a reference data directory in the numpy form and
+    runs `topics` on it in both lanes (--llm dry in the density one),
+    where pandas, pyarrow and fsspec cannot be imported (as on the card's
+    machine), without loading jax, flax or any module of the JAX package,
+    and without a kernel launch."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert res == {"rows": [10, 10, 10, 150, 10, 10, 20, 10, 20, 32, 5, 5, 2, 40, 0, 0], "bad": [],
+    assert res == {"rows": [10, 10, 10, 150, 10, 10, 20, 10, 20, 32, 5, 5, 2, 40, 0, 0,
+                            0, 0, 4, 0, 4], "bad": [],
                    "launches": 0}

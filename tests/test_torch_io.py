@@ -7,8 +7,8 @@ port is bit-equal to the bundle saved. A bundle the JAX package saved
 (parquet meta; this machine has pyarrow) reads through the port equal to
 the JAX load_bundle, and `convert` rewrites it into the port's layout with
 equal contents. A tampered file fails verify_checksums, a newer schema
-raises, a remote path raises, and a parquet bundle without pyarrow raises
-naming it. audit_index_dir gives the JAX check names and verdicts on a
+raises, a remote path raises without fsspec (and is never written to),
+and a parquet bundle without pyarrow raises naming it. audit_index_dir gives the JAX check names and verdicts on a
 good bundle, a bundle missing a file and a tampered one, in both layouts.
 """
 import json
@@ -116,9 +116,11 @@ def test_tampered_file_and_newer_schema_are_refused(tmp_path):
 
 
 def test_remote_path_and_missing_reader_are_refused(tmp_path, monkeypatch):
-    for fn in (port_io.load_bundle, lambda p: port_io.save_bundle(None, p)):
-        with pytest.raises(ValueError, match="item 18"):
-            fn("hf://datasets/org/name/index")
+    with pytest.raises(ValueError, match="local directories only"):
+        port_io.save_bundle(None, "hf://datasets/org/name/index")
+    monkeypatch.setitem(sys.modules, "fsspec", None)  # the card's machine: no fsspec
+    with pytest.raises(RuntimeError, match="needs fsspec"):
+        port_io.load_bundle("hf://datasets/org/name/index")
     _tb, jb = _bundles()
     jax_io.save_bundle(jb, tmp_path / "jax")
     monkeypatch.setitem(sys.modules, "pyarrow.parquet", None)
