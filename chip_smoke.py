@@ -218,6 +218,30 @@ line, and nothing is caught and passed over:
              builds, run_search at rerank_k 0 (12 launches each) and
              search_bm25 (one packed-BM25 launch each) over 20 queries,
              every row equal to the same calls on the in-process bundle
+ 17 raw_pipeline  the raw-review pipeline at the SNAP 5-core Electronics
+             shape (26.8 reviews a product; RAW_REVIEWS rows, cut from
+             1,689,188): two dumps drawn from RAW_SEED, a SNAP JSONL (asin,
+             overall, reviewText, unixReviewTime, reviewTime, extra fields)
+             and an Amazon customer-reviews CSV (product_id, star_rating,
+             review_body, review_date, extra columns), with repeats within
+             and across the files, sub-10-character texts, spam, null stars
+             and dates, x.5 stars, all-digit ASINs with a leading zero and a
+             Zipf spread of reviews per sku. run_full_pipeline on a random
+             bge-small bi-encoder in bf16 (shards of 2,048 rows): rows in,
+             after the ETL, after the (sku, text) dedup, products, snippet
+             reviews; seconds of each stage; each encode's host
+             tokenization against the rest; rows/s; peak memory; exactly 12
+             attention launches per forward batch. Two product shards
+             deleted and a torn temp file left: job_status reports them
+             missing, the rebuild launches for those shards only and
+             re-encodes them within 1e-6 (bit-equal expected). The bundle
+             equal to a second build of the same dumps on the host with
+             the card's embeddings. One product and one
+             review shard again under the profiler (device busy share) and
+             on the plain attention (within 2e-2). Warehouse loaded twice
+             with its views against numpy counts. The bundle loaded,
+             audited, 100 run_search at rerank_k 0 and 20 search_bm25
+             (exact launch counts), one CLI search process
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -225,8 +249,10 @@ The script imports no jax and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -237,9 +263,11 @@ import numpy as np
 KERNEL_TOL = 2e-2  # bf16: one ulp at magnitude 2-4 (tests/test_attention.py's bound)
 FINAL_TOL = 2e-2  # _final with kernel vs reference attention in both bf16 towers
 # the rerank batch, the query encode, two other head dims, then query_e2e's
-# encode and rerank (287 keys: a ragged last key tile)
+# encode and rerank (287 keys: a ragged last key tile), then the raw-review
+# pipeline's product and review encodes
 SHAPES = [(64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128),
-          (1, 32, 12, 32), (50, 287, 12, 32)]
+          (1, 32, 12, 32), (50, 287, 12, 32),
+          (256, 512, 12, 32), (256, 64, 12, 32)]  # phase 17's embedding jobs: batch 256
 N_DOCS, DIM, TERMS, VOCAB, TEXT_CHARS = 200_000, 384, 64, 30_000, 2000
 # 100 queries per setting: p90 then has 10 samples beyond it
 N_QUERIES, K, RERANK_K, REPS = 100, 10, 50, 50
@@ -3646,6 +3674,504 @@ def phase_topics_import(torch, products):
     return counts
 
 
+# phase 17: the raw-review pipeline at a SNAP 5-core Electronics shape
+# (1,689,188 reviews over 63,001 products, ~26.8 a product), cut to
+# RAW_REVIEWS raw rows at the same ratio (the phase's host stages bound
+# it: PERF.md §4); every product has the 5-core's 5 reviews, the rest
+# spread Zipf(RAW_ZIPF) over the products, so the largest pass the top-80
+# and the snippet cap; the embedding jobs in data/embed_job.py's shards of
+# 20,000 rows (one of products, eight of reviews: resume deletes two of those)
+SNAP_REVIEWS, SNAP_PRODUCTS = 1_689_188, 63_001
+RAW_REVIEWS, RAW_ZIPF, RAW_JSONL_SHARE, RAW_SEED = 200_000, 0.9, 0.6, 17
+RAW_PRODUCTS = round(RAW_REVIEWS * SNAP_PRODUCTS / SNAP_REVIEWS)
+RAW_BATCH, RAW_WORDS = 256, 20_000
+RAW_QUERIES, RAW_BM25_QUERIES = 100, 20
+# the bf16 bi-encoder's L2-normalised 384-wide rows (a typical element
+# 1/sqrt(384) = 0.051), kernel against plain attention in all 12 layers:
+# about 3x the 3.2e-3 a sound kernel reads at 2,048 rows (PERF.md section 6)
+RAW_EMB_TOL = 1e-2
+RAW_RESUME_TOL = 1e-6  # a re-encoded shard against the first run's
+RAW_DIR = REPO_DIR / "build" / "chip_smoke_raw"
+RAW_EXTRA_DATES = ("2014-02-03T04:05:06Z", "March 5, 2011")  # beside YYYY-MM-DD
+
+
+def _raw_vocab(rng):
+    """RAW_WORDS pseudo-words of 2-4 syllables, Zipf-weighted."""
+    syl = np.array(SYLLABLES)
+    parts = rng.integers(0, len(syl), (RAW_WORDS, 4))
+    lens = rng.integers(2, 5, RAW_WORDS)
+    words = np.array(["".join(syl[p[:n]]) for p, n in zip(parts, lens)] + COMMON_WORDS,
+                     dtype=object)
+    w = 1.0 / np.arange(1, len(words) + 1) ** 1.05
+    return words, w / w.sum()
+
+
+def _raw_texts(rng, n, words, p):
+    """n review texts of lognormal word counts (median 45 words, ~300
+    characters); 2% under 10 characters, 2% spam, 1% with accents."""
+    counts = np.clip(rng.lognormal(np.log(45), 0.7, n).astype(np.int64), 1, 800)
+    flat = words[rng.choice(len(words), int(counts.sum()), p=p)]
+    ends = np.cumsum(counts)
+    texts = [" ".join(flat[e - c:e]) for c, e in zip(counts.tolist(), ends.tolist())]
+    kind = rng.random(n)
+    spam = ["see https://deal.example/x for more", "use promo code SAVE20 today",
+            "wowwwwwwwwwwwww"]
+    for i in np.flatnonzero(kind < 0.05).tolist():
+        if kind[i] < 0.02:
+            texts[i] = ["ok", "Good!", "nice one", "meh"][i % 4]
+        elif kind[i] < 0.04:
+            texts[i] = spam[i % 3] + " " + texts[i]
+        else:
+            texts[i] = "café crème, très bien: " + texts[i]
+    return texts
+
+
+def _raw_dumps(d):
+    """The two raw dumps (SNAP JSONL, customer-reviews CSV) under d, drawn
+    from RAW_SEED: (inputs, the rows of each file)."""
+    import csv
+
+    rng = np.random.default_rng(RAW_SEED)
+    n, p = RAW_REVIEWS, RAW_PRODUCTS
+    alphabet = np.array(list("0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    digits, alnum = rng.integers(0, 10**9, p), rng.integers(0, 36, (p, 8))
+    skus = [f"0{digits[i]:09d}" if i % 8 == 0 else "B0" + "".join(alphabet[alnum[i]])
+            for i in range(p)]  # 1 in 8 all digits with a leading zero (an ISBN)
+    w = 1.0 / np.arange(1, p + 1) ** RAW_ZIPF
+    counts = 5 + rng.multinomial(n - 5 * p, w / w.sum())
+    product = rng.permutation(np.repeat(np.arange(p), counts))
+    words, wp = _raw_vocab(rng)
+    texts = _raw_texts(rng, n, words, wp)
+    stars = rng.choice(5, n, p=[0.07, 0.05, 0.09, 0.2, 0.59]) + 1
+    unix = rng.integers(946_684_800, 1_538_352_000, n)  # 2000-01-01 .. 2018-10-01
+    null_star, null_date = rng.random(n) < 0.03, rng.random(n) < 0.03
+    in_json = rng.random(n) < RAW_JSONL_SHARE
+    # 1% repeat an earlier row of their own file (the same id: dropped by
+    # the ETL), 2% of the CSV repeat a JSON review's sku and text (another
+    # source, so another id: dropped by the (sku, text) dedup)
+    repeat = rng.random(n) < 0.01
+    cross = (~in_json) & (rng.random(n) < 0.02)
+    json_rows = np.flatnonzero(in_json)
+    d.mkdir(parents=True, exist_ok=True)
+    jpath, cpath = d / "snap_electronics.jsonl", d / "amazon_reviews_us.csv"
+    last = {True: None, False: None}
+    n_json = n_csv = 0
+    with open(jpath, "w", encoding="utf-8") as fj, open(cpath, "w", encoding="utf-8",
+                                                          newline="") as fc:
+        wc = csv.writer(fc, lineterminator="\n")
+        wc.writerow(["marketplace", "customer_id", "review_id", "product_id", "product_parent",
+                     "product_title", "product_category", "star_rating", "helpful_votes",
+                     "total_votes", "vine", "verified_purchase", "review_headline",
+                     "review_body", "review_date"])
+        for i in range(n):
+            j = bool(in_json[i])
+            src = last[j] if repeat[i] and last[j] is not None else i
+            if cross[i]:
+                src = int(json_rows[i % len(json_rows)])
+            last[j] = i
+            sku, text = skus[product[src]], texts[src]
+            t = time.gmtime(int(unix[src]))
+            if j:
+                n_json += 1
+                fj.write(json.dumps({
+                    "reviewerID": f"A{i:012d}", "asin": sku, "reviewerName": f"user {i % 997}",
+                    "helpful": [int(i % 7), int(i % 11)], "reviewText": text,
+                    "overall": None if null_star[src] else float(stars[src]),
+                    "summary": text[:24], "verified": bool(i % 3),
+                    "unixReviewTime": None if null_date[src] else int(unix[src]),
+                    "reviewTime": time.strftime("%m %d, %Y", t),
+                    "style": {"Color:": ["Black", "White", "Red"][i % 3]}}) + "\n")
+            else:
+                n_csv += 1
+                star = "" if null_star[src] else (f"{stars[src] - 1}.5" if i % 97 == 0
+                                                  else str(stars[src]))
+                date = "" if null_date[src] else (
+                    RAW_EXTRA_DATES[i % 2] if i % 53 == 0 else time.strftime("%Y-%m-%d", t))
+                wc.writerow(["US", str(10_000_000 + i % 50_000), f"R{i:013d}", sku,
+                             str(100_000_000 + product[src]), f"product {product[src]}",
+                             "Electronics", star, str(i % 5), str(i % 9), "N",
+                             "Y" if i % 4 else "N", text[:30], text, date])
+    return ([(jpath, "jsonl", "snap"), (cpath, "csv", "kaggle")],
+            {"jsonl": n_json, "csv": n_csv})
+
+
+class _TimedTokenizer:
+    """A tokenizer that adds the seconds of each token_ids call to
+    `seconds` (the host tokenization inside an encode)."""
+
+    def __init__(self, inner):
+        self.inner, self.seconds = inner, 0.0
+
+    def token_ids(self, text):
+        t0 = time.perf_counter()
+        ids = self.inner.token_ids(text)
+        self.seconds += time.perf_counter() - t0
+        return ids
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+class _EncodeClock:
+    """The bi-encoder as the embedding jobs call it, each encode call's
+    rows, wall seconds and host tokenization seconds recorded."""
+
+    def __init__(self, encoder, tokenizer):
+        self.encoder, self.tokenizer, self.calls = encoder, tokenizer, []
+        self.cfg = encoder.cfg
+
+    def encode(self, texts, batch_size=256):
+        t0, tok0 = time.perf_counter(), self.tokenizer.seconds
+        out = self.encoder.encode(texts, batch_size=batch_size)
+        self.calls.append((len(texts), time.perf_counter() - t0, self.tokenizer.seconds - tok0))
+        return out
+
+
+def _tokenizer_rates(texts):
+    """Host milliseconds a text of basic_tokenize (one regex pass over the
+    runs of ASCII-only words) and of the character loop it sends each word
+    with a non-ASCII character to, on the same texts; the share of those
+    texts and words that hold a non-ASCII character (the loop's share)."""
+    from review_recommender_tpu_torch.models.tokenizer import (basic_tokenize,
+                                                               basic_tokenize_chars)
+
+    words = [w for t in texts for w in t.split()]
+    out, tokens = {"texts": len(texts), "mean_chars": float(np.mean([len(t) for t in texts])),
+                   "non_ascii_text_share": sum(not t.isascii() for t in texts) / len(texts),
+                   "non_ascii_word_share": sum(not w.isascii() for w in words) / len(words)}, []
+    for name, fn in (("basic_tokenize", basic_tokenize), ("char_loop", basic_tokenize_chars)):
+        t0 = time.perf_counter()
+        tokens.append([fn(t) for t in texts])
+        out[f"{name}_ms_per_text"] = (time.perf_counter() - t0) * 1e3 / len(texts)
+    check(tokens[0] == tokens[1], "raw_pipeline", "basic_tokenize and the character loop differ")
+    return out
+
+
+class _StageClock(logging.Handler):
+    """The seconds of each stage of data/pipeline.py's build, from the
+    record that ends it (its `stage` attribute): the record's time less the
+    previous record's, or less the clock's start; a stage that runs twice
+    (build) adds up."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.t, self.seconds = time.time(), {}
+
+    def emit(self, record):
+        stage = getattr(record, "stage", None)
+        if stage is not None:
+            key = f"{stage}_s"
+            self.seconds[key] = self.seconds.get(key, 0.0) + record.created - self.t
+            self.t = record.created
+
+
+@contextlib.contextmanager
+def _stage_clock():
+    from review_recommender_tpu_torch.data import pipeline as P
+
+    clock, level = _StageClock(), P.logger.level
+    P.logger.addHandler(clock)
+    P.logger.setLevel(logging.INFO)
+    try:
+        yield clock.seconds
+    finally:
+        P.logger.removeHandler(clock)
+        P.logger.setLevel(level)
+
+
+def _raw_batches(rows: int) -> int:
+    """Bi-encoder forwards of an embedding job over `rows` texts."""
+    from review_recommender_tpu_torch.data.embed_job import SHARD_ROWS
+
+    return sum(-(-min(SHARD_ROWS, rows - lo) // RAW_BATCH) for lo in range(0, rows, SHARD_ROWS))
+
+
+def _encode_split(calls, stage_s):
+    """Host tokenization against the rest of an encode stage (forwards,
+    copies and their waits on the device)."""
+    rows, wall, tok = (sum(c[k] for c in calls) for k in range(3))
+    return {"shards": len(calls), "rows": rows, "stage_s": stage_s, "encode_s": wall,
+            "tokenize_s": tok, "forward_s": wall - tok, "tokenize_share": tok / wall,
+            "rows_per_s": rows / wall}
+
+
+def _shard(work, i):
+    return np.load(work / f"emb_shard_{i:05d}.npy")
+
+
+def _raw_kernel_vs_plain(torch, enc, tok, texts, stored, what):
+    """One shard again: tokenized once, the forwards under the profiler on
+    the kernel (bit-equal to the pipeline's shard expected), then on the
+    plain attention (within RAW_EMB_TOL)."""
+    from review_recommender_tpu_torch.models.tokenizer import encode_seqs
+    from review_recommender_tpu_torch.ops import attention as A
+
+    t0 = time.perf_counter()
+    seqs = encode_seqs(tok, texts, max_len=enc.max_len)
+    tokenize_s = time.perf_counter() - t0
+    run = lambda: enc._run(seqs, RAW_BATCH, len(texts), enc.cfg.hidden_size)
+    out = {}
+    before = A.mha_kernel_launches
+    prof = _profile(torch, lambda: out.setdefault("kernel", run()))
+    launches = A.mha_kernel_launches - before
+    enc.set_attn_impl("reference")
+    try:
+        before = A.mha_kernel_launches
+        plain = run()
+        check(A.mha_kernel_launches == before, "raw_pipeline", "the plain encode launched")
+    finally:
+        enc.set_attn_impl("auto")
+    kernel = out["kernel"]
+    busy = prof.get("device_busy_ms")
+    row = {"what": what, "rows": len(texts), "launches": launches,
+           "equal_to_pipeline_shard": bool(np.array_equal(kernel, stored)),
+           "pipeline_shard_max_diff": float(np.abs(kernel - stored).max()),
+           "max_abs_err_vs_plain": float(np.abs(kernel - plain).max()), "tol": RAW_EMB_TOL,
+           "max_cosine_distance_vs_plain": float(1.0 - (kernel * plain).sum(1).min()),
+           "tokenize_s": tokenize_s, "profile": prof,
+           "busy_share_of_encode": None if busy is None else
+           busy / (prof["wall_ms"] + tokenize_s * 1e3)}
+    check(row["pipeline_shard_max_diff"] <= RAW_RESUME_TOL, "raw_pipeline",
+          f"{what}: the shard encoded again differs from the pipeline's by "
+          f"{row['pipeline_shard_max_diff']}")
+    check(row["max_abs_err_vs_plain"] <= RAW_EMB_TOL, "raw_pipeline",
+          f"{what}: kernel vs plain {row['max_abs_err_vs_plain']} > {RAW_EMB_TOL}")
+    check(launches == enc.cfg.num_layers * -(-len(texts) // RAW_BATCH), "raw_pipeline",
+          f"{what}: {launches} kernel launches for {len(texts)} rows")
+    return row
+
+
+def _raw_resume(torch, enc, out):
+    """The review job's last two shards deleted and a torn temp file left:
+    job_status reports them missing without raising, the rebuild encodes
+    exactly those shards (counted; the product job is complete and encodes
+    nothing) and they equal the first run's."""
+    from review_recommender_tpu_torch.data import pipeline as P
+    from review_recommender_tpu_torch.data.embed_job import SHARD_ROWS, job_status
+
+    work = out / "_work" / "review_emb"
+    status = job_status(work)
+    gone = [status["n_shards"] - 2, status["n_shards"] - 1]
+    first = {i: _shard(work, i) for i in gone}
+    for i in gone:
+        (work / f"emb_shard_{i:05d}.npy").unlink()
+    np.save(work / f"emb_shard_{gone[0]:05d}.tmp.npy", first[gone[0]][:3])
+    torn = job_status(work)
+    check(torn["missing"] == gone and not torn["complete"], "raw_pipeline",
+          f"job_status after deleting {gone}: {torn}")
+    merged = P.read_table(out / "_work" / "reviews_merged.npz", None)
+    rows = [len(first[i]) for i in gone]
+    check(rows[0] == SHARD_ROWS, "raw_pipeline", f"the deleted shards hold {rows} rows")
+    want = enc.cfg.num_layers * sum(-(-r // RAW_BATCH) for r in rows)
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _stage_clock() as stages:
+        P.build_index_from_reviews(merged, enc, out)
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    diff = max(float(np.abs(_shard(work, i) - first[i]).max()) for i in gone)
+    bit_equal = all(np.array_equal(_shard(work, i), first[i]) for i in gone)
+    emit({"phase": "raw_resume", "job": "review_emb", "deleted_shards": gone, "rows": rows,
+          "status_after_delete": torn, "status_after": job_status(work), "seconds": seconds,
+          "stages_s": stages, "launches": counts["mha_fwd"], "expected_launches": want,
+          "bit_equal": bit_equal, "max_abs_diff": diff, "tol": RAW_RESUME_TOL})
+    check(counts == {**{k: 0 for k in counts}, "mha_fwd": want}, "raw_pipeline",
+          f"resume launches {counts}, want {want} attention launches")
+    check(diff <= RAW_RESUME_TOL, "raw_pipeline", f"re-encoded shards differ by {diff}")
+    check(job_status(work)["complete"], "raw_pipeline", "the review job is not complete")
+    return counts["mha_fwd"]
+
+
+def _raw_host_tables(inputs, out):
+    """The bundle against the same dumps built again on the host, from the
+    ETL on, with the card's embeddings from the job shards: every array and
+    host column equal."""
+    from review_recommender_tpu_torch.data import etl, prep
+    from review_recommender_tpu_torch.data.pipeline import _resolve_doc_terms_cap, read_table
+    from review_recommender_tpu_torch.index.build import (attach_eager_bm25,
+                                                          build_product_index,
+                                                          build_review_index)
+    from review_recommender_tpu_torch.index.io import load_bundle
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+
+    t0 = time.perf_counter()
+    merged = etl.normalize_merge(inputs, RAW_DIR / "cpu" / "reviews_merged.npz")
+    first = read_table(out / "_work" / "reviews_merged.npz", None)
+    same_merged = all(
+        np.array_equal(first[c], merged[c], equal_nan=True) if c == "stars"
+        else first[c] == merged[c] for c in etl.CANONICAL_COLUMNS)
+    products = prep.build_products(merged)
+    snip = prep.filter_reviews_for_snippets(merged)
+    work = out / "_work"
+    shards = lambda job: np.concatenate([np.load(p) for p in
+                                         sorted((work / job).glob("emb_shard_?????.npy"))])
+    pidx = build_product_index(products["sku"], products["agg_text"],
+                               products["n_reviews"].tolist(), products["avg_stars"].tolist(),
+                               shards("product_emb"), doc_terms_cap=_resolve_doc_terms_cap(None),
+                               last_ts=["nan" if t is None else t for t in products["last_ts"]])
+    attach_eager_bm25(pidx)
+    ridx = build_review_index(["nan" if s is None else s for s in snip["sku"]], snip["text"],
+                              snip["stars"], shards("review_emb"), pidx.skus)
+    seconds = time.perf_counter() - t0
+    diffs = _bundle_diffs(IndexBundle(products=pidx, reviews=ridx), load_bundle(out))
+    emit({"phase": "raw_host_tables", "seconds": seconds, "merged_equal": same_merged,
+          "differing_fields": diffs, "products": pidx.n_docs, "snippet_reviews": len(snip["id"])})
+    check(same_merged and not diffs, "raw_pipeline",
+          f"the host build differs: merged {same_merged}, fields {diffs}")
+    return merged
+
+
+def _raw_warehouse(merged):
+    """Warehouse loaded twice with the merged table: the count, and the two
+    views against numpy counts of the same columns."""
+    from review_recommender_tpu_torch.data.warehouse import make_warehouse
+
+    t0 = time.perf_counter()
+    wh = make_warehouse(RAW_DIR / "warehouse")
+    loads = [wh.load(merged), wh.load(merged)]
+    load_s = time.perf_counter() - t0
+    dist, src = wh.star_distribution(), wh.source_breakdown()
+    stars = np.asarray(merged["stars"])
+    values, counts = np.unique(stars[~np.isnan(stars)], return_counts=True)
+    want_stars = values.tolist() + ([None] if np.isnan(stars).any() else [])
+    want_n = counts.tolist() + ([int(np.isnan(stars).sum())] if np.isnan(stars).any() else [])
+    sources, scount = np.unique(np.asarray(merged["source"]), return_counts=True)
+    order = sorted(range(len(sources)), key=lambda i: (-scount[i], sources[i]))
+    got_stars = [None if np.isnan(s) else s for s in dist["stars"].tolist()]
+    ok = (loads == [len(merged["id"])] * 2 and got_stars == want_stars
+          and dist["n"].tolist() == want_n
+          and src["source"] == [str(sources[i]) for i in order]
+          and src["n"].tolist() == [int(scount[i]) for i in order])
+    emit({"phase": "raw_warehouse", "loads": loads, "load_s": load_s,
+          "star_distribution": [[s, n] for s, n in zip(got_stars, dist["n"].tolist())],
+          "source_breakdown": [[s, n] for s, n in zip(src["source"], src["n"].tolist())],
+          "equal_to_numpy": ok})
+    check(ok, "raw_pipeline", "warehouse counts or views differ from the merged table's")
+
+
+def _raw_serving(torch, enc, out, products):
+    """The built bundle served: audit, RAW_QUERIES run_search at rerank_k 0
+    and RAW_BM25_QUERIES search_bm25 (counted), one CLI search process."""
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.io import load_bundle
+    from review_recommender_tpu_torch.models.encoder import CrossEncoder
+    from review_recommender_tpu_torch.serve.audit import audit_index_dir
+
+    t0 = time.perf_counter()
+    bundle = load_bundle(out, verify_checksums=True)
+    load_s = time.perf_counter() - t0
+    audit = audit_index_dir(out, device=DEV)
+    check(audit["ok"], "raw_pipeline", f"audit: {audit['checks']}")
+    engine = SearchEngine(bundle, device=DEV, query_encoder=enc,
+                          cross_encoder=CrossEncoder.random_init(device=DEV))
+    rng = np.random.default_rng(RAW_SEED + 1)
+    queries = []
+    for row in rng.integers(0, len(products["sku"]), RAW_QUERIES).tolist():
+        words = products["agg_text"][row].split()
+        queries.append(" ".join(words[: int(rng.integers(2, 6))]))
+    _zero_counts()
+    lat = []
+    for q in queries:
+        t1 = time.perf_counter()
+        rows = engine.run_search(q, k=K, rerank_k=0)[0]
+        lat.append((time.perf_counter() - t1) * 1e3)
+        _check_rows(rows, "raw_pipeline")
+    hits = [engine.search_bm25(q, K) for q in queries[:RAW_BM25_QUERIES]]
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = {**{k: 0 for k in counts}, "mha_fwd": enc.cfg.num_layers * RAW_QUERIES,
+            "bm25_packed": RAW_BM25_QUERIES}
+    top_bm25 = sum(int((s > 0).sum().item()) for _i, s in hits)
+    code, stdout, stderr = _cli_process(["search", queries[0], "--index-dir", str(out),
+                                         "--rerank-k", "0", "--k", str(K), "--device", DEV],
+                                        timeout=300)
+    emit({"phase": "raw_serving", "load_s": load_s, "audit_ok": audit["ok"],
+          "audit_checks": len(audit["checks"]), "queries": RAW_QUERIES,
+          "run_search": _pct(lat), "bm25_queries": RAW_BM25_QUERIES,
+          "bm25_positive_scores": top_bm25, "launches": counts, "expected_launches": want,
+          "cli_exit": code, "cli_tail": (stdout or stderr)[-300:]})
+    check(counts == want, "raw_pipeline", f"serving launches {counts}, want {want}")
+    check(top_bm25 > 0, "raw_pipeline", "search_bm25 scored nothing")
+    check(code == 0, "raw_pipeline", f"cli search exit {code}: {stderr[-2000:]}")
+    return counts
+
+
+def phase_raw_pipeline(torch):
+    """Phase 17: raw dumps -> run_full_pipeline on the card -> resume ->
+    kernel against plain -> host tables -> warehouse -> serving. Returns
+    the kernel launches of its main path (pipeline, resume, serving)."""
+    import shutil
+
+    from review_recommender_tpu_torch.data import prep
+    from review_recommender_tpu_torch.data import pipeline as P
+    from review_recommender_tpu_torch.data.embed_job import SHARD_ROWS
+    from review_recommender_tpu_torch.models.bert import BertConfig
+    from review_recommender_tpu_torch.models.encoder import BiEncoder
+    from review_recommender_tpu_torch.models.tokenizer import HashTokenizer
+
+    card = _card()
+    shutil.rmtree(RAW_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    inputs, per_file = _raw_dumps(RAW_DIR / "dumps")
+    emit({"phase": "raw_data", "card": card, "rows": per_file, "products_drawn": RAW_PRODUCTS,
+          "bytes": {p.name: p.stat().st_size for p, _k, _s in inputs},
+          "seconds": time.perf_counter() - t0})
+
+    tok = _TimedTokenizer(HashTokenizer(30522))
+    enc = BiEncoder.random_init(BertConfig.bge_small(), tokenizer=tok, seed=RAW_SEED,
+                                device=DEV)
+    clock = _EncodeClock(enc, tok)
+    out = RAW_DIR / "bundle"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _stage_clock() as stages:
+        bundle = P.run_full_pipeline(inputs, clock, out)
+    total_s = time.perf_counter() - t0
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_products, n_snip = bundle.products.n_docs, bundle.reviews.n_reviews_total
+    want = enc.cfg.num_layers * (_raw_batches(n_products) + _raw_batches(n_snip))
+    n_prod_shards = -(-n_products // SHARD_ROWS)
+    after_etl = len(P.read_table(out / "_work" / "reviews_merged.npz", ["id"])["id"])
+    emit({"phase": "raw_pipeline", "card": card, "rows_in": RAW_REVIEWS,
+          "after_etl": after_etl, "after_dedup": int(np.sum(bundle.products.n_reviews)),
+          "products": n_products, "snippet_reviews": n_snip, "stages_s": stages,
+          "total_s": total_s, "rows_per_s": RAW_REVIEWS / total_s,
+          "product_encode": _encode_split(clock.calls[:n_prod_shards],
+                                          stages["product_encode_s"]),
+          "review_encode": _encode_split(clock.calls[n_prod_shards:],
+                                         stages["review_encode_s"]),
+          "peak_device_gb": peak_gb, "launches": counts, "expected_mha_launches": want,
+          "shard_rows": SHARD_ROWS, "batch": RAW_BATCH})
+    check(counts == {**{k: 0 for k in counts}, "mha_fwd": want}, "raw_pipeline",
+          f"pipeline launches {counts}, want {want} attention launches")
+    mha = counts["mha_fwd"]
+
+    mha += _raw_resume(torch, enc, out)
+    merged = _raw_host_tables(inputs, out)
+    products = prep.build_products(merged)
+    snip = prep.filter_reviews_for_snippets(merged)
+    work = out / "_work"
+    # the product job's first shard and the review job's second, whole: the
+    # encoder length-sorts a shard into its batches, so only a whole shard
+    # is batched as the pipeline batched it
+    review_1 = slice(SHARD_ROWS, 2 * SHARD_ROWS)
+    for what, texts, job, i in (("product", [t[:4000] for t in products["agg_text"][:SHARD_ROWS]],
+                                 "product_emb", 0),
+                                ("review", [t[:4000] for t in snip["text"][review_1]],
+                                 "review_emb", 1)):
+        emit({"phase": "raw_kernel_vs_plain", "card": card, **_raw_kernel_vs_plain(
+            torch, enc, tok, texts, _shard(work / job, i), what)})
+    emit({"phase": "raw_tokenizer", "card": card,
+          **_tokenizer_rates(products["agg_text"][:200])})
+    _raw_warehouse(merged)
+    served = _raw_serving(torch, enc, out, products)
+    shutil.rmtree(RAW_DIR, ignore_errors=True)
+    return {"mha_fwd": mha + served["mha_fwd"], "bm25_packed": served["bm25_packed"]}
+
+
 def main() -> int:
     import torch
 
@@ -3662,33 +4188,55 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    seconds, last = {}, [t0]
+
+    def mark(name):  # the seconds since the previous mark
+        now = time.perf_counter()
+        seconds[name], last[0] = now - last[0], now
+
     try:
         phase_device(torch)
         phase_build()
+        mark("device_build")
         kernel_rows = phase_kernel(torch)
+        mark("kernel")
         launches, engine = phase_slice(torch)
+        mark("slice")
         bm25_rows = phase_bm25_kernel(torch)
         bm25_launches, bm25_err = phase_bm25_slice(torch, engine)
+        mark("bm25")
         qvecs, qterms = phase_batched_slice(torch, engine)
         stage_a_entry = phase_stage_a(torch, engine, qvecs, qterms)
+        mark("batched_stage_a")
         launches += phase_e2e_slice(torch, engine)
         launches += phase_rerank_coalesce(torch, engine, qvecs)
+        mark("e2e_coalesce")
         phase_snippets(torch, engine)
+        mark("snippets")
         launches += phase_serve(torch, engine, qvecs)
+        mark("serve")
         launches += phase_offline(torch, engine)
+        mark("offline")
         launches += phase_configurations(torch, engine, qvecs)
+        mark("configurations")
         products = engine.products
         del engine
         train_launches, recomputes = phase_training(torch)
         launches += train_launches
+        mark("training")
         import_launches = phase_topics_import(torch, products)
         launches += import_launches["mha_fwd"]
         bm25_launches["bm25_packed"] += import_launches["bm25_packed"]
+        mark("topics_import")
+        raw_launches = phase_raw_pipeline(torch)
+        launches += raw_launches["mha_fwd"]
+        bm25_launches["bm25_packed"] += raw_launches["bm25_packed"]
+        mark("raw_pipeline")
     except PhaseError as exc:
         emit({"phase": "failed", "error": str(exc)})
         return 3
     main_shape = kernel_rows[0]
-    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    emit({"phase": "done", "seconds": time.perf_counter() - t0, "phase_seconds": seconds})
     emit({"kernels": [{
         "name": "mha_fwd", "route": "cuda",
         "source": "review_recommender_tpu_torch/csrc/mha_fwd.cu",

@@ -5,7 +5,8 @@ The same variable names and defaults as the JAX package's config
 embedding dtype, gate and dense-pool modes (with the IVF pool's knobs),
 the query- and document-term caps, the feature flags, the least candidate pool, the search defaults,
 the tower directories and mesh width the CLI checks, the reference
-deployment's artifact names and postings width that `rrt import` reads, and the server's
+deployment's artifact names and postings width that `rrt import` reads, the snippet
+index's reviews per product that the offline pipeline keeps, and the server's
 address, log path and level, environment and micro-batch knobs. Each knob
 is read once, when this module is imported, after `.env` and then
 `.env.<ENVIRONMENT>` in the working directory are layered into the
@@ -121,6 +122,9 @@ class Config:
     PRODUCT_META_FILE = os.getenv("PRODUCT_META_FILE", "product_emb_meta.parquet")
     REVIEWS_EMB_FILE = os.getenv("REVIEWS_EMB_FILE", "reviews_with_embeddings.parquet")
     BM25_FILE = os.getenv("BM25_FILE", "product_bm25.pkl")
+    # reviews kept per product for the snippet index
+    # (data/prep.py:filter_reviews_for_snippets); 0 disables the cap
+    SNIPPET_REVIEWS_CAP = _env_int("SNIPPET_REVIEWS_CAP", "256")
     # devices the corpus is sharded over; the port serves one (item 12)
     MESH_SHARDS = _env_int("MESH_SHARDS", "1")
 

@@ -1,9 +1,29 @@
-"""A reference deployment's artifacts -> an index bundle (`rrt import`).
+"""The offline pipeline: raw reviews -> an index bundle, and a reference
+deployment's artifacts -> an index bundle (`rrt import`).
 
 Counterpart of `review_recommender_tpu/data/pipeline.py`:
-`_resolve_doc_terms_cap` :44, the restricted unpickler :54-82 and
-`import_reference_artifacts` :154. The artifacts of a reference data
-directory (names from config.py, as in JAX):
+`_resolve_doc_terms_cap` :44, the restricted unpickler :54-82,
+`build_index_from_reviews` :85, `run_full_pipeline` :142 and
+`import_reference_artifacts` :154.
+
+`run_full_pipeline` runs the JAX stages in order, each checkpointed under
+`out/_work/`: data/etl.py:normalize_merge (raw CSV / JSONL -> the reviews
+table, written as `reviews_merged.npz` in the numpy form below), then
+`build_index_from_reviews`: data/prep.py:build_products, the product
+embedding job (`product_emb/`), the eager BM25 arrays, the snippet filter
+and the review embedding job (`review_emb/`), and save_bundle. Where JAX
+hands pandas values to the builder, the port hands the values they become
+there: a product with no timestamp gets last_ts "nan" (str of NaN, a fault
+of the reference copied and listed in ROADMAP Queue 3). JAX raises on a
+null star (pandas' NA reaches float()): a product whose reviews have no
+star, or a snippet review without one; the port gives NaN (Queue 3).
+Each stage ends with one INFO record of this module's logger (etl,
+aggregate, product_encode, build, snippet_filter, review_encode, build,
+save) with its rows; the record's `stage` attribute names the stage, so a
+handler times the stages from the records' `created`.
+
+The artifacts of a reference data directory (names from config.py, as in
+JAX):
 
   product_emb.npy                  (N, D) float, row-aligned with the meta
   product_emb_meta.parquet         sku, n_reviews, avg_stars[, last_ts, agg_text]
@@ -41,11 +61,18 @@ import logging
 import pickle
 import shutil
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from review_recommender_tpu_torch.index.build import build_product_index, build_review_index
+from review_recommender_tpu_torch.data.embed_job import run_embed_job
+from review_recommender_tpu_torch.data.etl import normalize_merge
+from review_recommender_tpu_torch.data.prep import build_products, filter_reviews_for_snippets
+from review_recommender_tpu_torch.index.build import (
+    attach_eager_bm25,
+    build_product_index,
+    build_review_index,
+)
 from review_recommender_tpu_torch.index.io import (
     artifact_exists,
     join_path,
@@ -59,7 +86,6 @@ from review_recommender_tpu_torch.index.schema import IndexBundle
 
 logger = logging.getLogger(__name__)
 
-TEXT_COLUMNS = ("sku", "agg_text", "last_ts", "text")
 NUMERIC_COLUMNS = ("n_reviews", "avg_stars", "stars")
 META_COLUMNS = ("sku", "n_reviews", "avg_stars", "last_ts", "agg_text")
 REVIEW_COLUMNS = ("sku", "stars", "text", "embedding")
@@ -160,32 +186,46 @@ def _parquet_table(path, columns: Sequence[str]) -> Dict[str, object]:
     return out
 
 
-def _npz_table(path, columns: Sequence[str]) -> Dict[str, object]:
-    """The same columns from a table's numpy form."""
+def table_columns(arrs: Dict[str, np.ndarray]) -> List[str]:
+    """The column names of a numpy form, in the order they were written."""
+    names = []
+    for key in arrs:
+        if key.endswith("_utf8"):
+            names.append(key[: -len("_utf8")])
+        elif not any(key.endswith(s) and key[: -len(s)] + "_utf8" in arrs
+                     for s in ("_offsets", "_null")):
+            names.append(key)
+    return names
+
+
+def _npz_table(path, columns: Optional[Sequence[str]]) -> Dict[str, object]:
+    """The same columns (None: all of them) from a table's numpy form."""
     with open_artifact(path) as f, np.load(f) as z:
         arrs = dict(z)
     out: Dict[str, object] = {}
-    for c in columns:
-        if c in TEXT_COLUMNS and f"{c}_utf8" in arrs:
+    for c in table_columns(arrs) if columns is None else columns:
+        if f"{c}_utf8" in arrs:
             out[c] = unpack_nullable_strings(arrs, c)
         elif c in arrs:
             out[c] = arrs[c]
     return out
 
 
-def read_table(path, columns: Sequence[str]) -> Dict[str, object]:
-    """A reference table (parquet, or its numpy form by the .npz suffix)."""
+def read_table(path, columns: Optional[Sequence[str]]) -> Dict[str, object]:
+    """A reference table (parquet, or its numpy form by the .npz suffix;
+    columns None reads every column of a numpy form)."""
     return (_npz_table if str(path).endswith(".npz") else _parquet_table)(path, columns)
 
 
 def write_numpy_form(table: Dict[str, object], path) -> None:
-    """`read_table`'s columns as the numpy form at `path`."""
+    """A column table as the numpy form at `path`: a list column holds
+    str or None (packed as text), an array column is stored as it is."""
     arrs: Dict[str, np.ndarray] = {}
     for c, values in table.items():
-        if c in TEXT_COLUMNS:
-            arrs.update(pack_nullable_strings(c, values))
+        if isinstance(values, np.ndarray):
+            arrs[c] = values
         else:
-            arrs[c] = np.asarray(values)
+            arrs.update(pack_nullable_strings(c, values))
     np.savez(path, **arrs)
 
 
@@ -194,10 +234,79 @@ def _str_column(values) -> list:
     return ["nan" if v is None else v for v in values]
 
 
+def _stage_done(stage: str, msg: str, *args) -> None:
+    logger.info(f"{stage}: {msg}", *args, extra={"stage": stage})
+
+
 def _column(table: Dict[str, object], name: str, what: str):
     if name not in table:
         raise KeyError(f"{what} has no {name!r} column")
     return table[name]
+
+
+def build_index_from_reviews(
+    reviews: Dict[str, object],
+    encoder,
+    out_dir,
+    *,
+    with_snippets: bool = True,
+    work_dir=None,
+    doc_terms_cap: Optional[int] = None,  # None -> config.DOC_TERMS_CAP (0 = auto)
+    resume: bool = True,
+    eager_bm25: bool = True,
+) -> IndexBundle:
+    """Stages 2-5 on a reviews table (data/etl.py's columns): aggregation,
+    the embedding jobs, the bundle built and saved to `out_dir`.
+
+    eager_bm25 bakes per-(term, doc) BM25 contributions into the index
+    (BM25S-style): query scoring becomes a masked sum."""
+    out = Path(out_dir)
+    work = Path(work_dir) if work_dir else out / "_work"
+    doc_terms_cap = _resolve_doc_terms_cap(doc_terms_cap)
+
+    products = build_products(reviews)
+    _stage_done("aggregate", "%d reviews kept, %d products",
+                int(products["n_reviews"].sum()), len(products["sku"]))
+    prod_emb = run_embed_job(products["agg_text"], encoder, work / "product_emb",
+                             resume=resume)
+    _stage_done("product_encode", "%d rows", len(prod_emb))
+    pidx = build_product_index(
+        products["sku"], products["agg_text"], products["n_reviews"].tolist(),
+        products["avg_stars"].tolist(), prod_emb, doc_terms_cap=doc_terms_cap,
+        last_ts=_str_column(products["last_ts"]),
+    )
+    if eager_bm25:
+        attach_eager_bm25(pidx)
+    _stage_done("build", "product index of %d docs", pidx.n_docs)
+
+    ridx = None
+    if with_snippets and len(reviews["id"]):
+        snip = filter_reviews_for_snippets(reviews)
+        _stage_done("snippet_filter", "%d reviews", len(snip["id"]))
+        rev_emb = run_embed_job(snip["text"], encoder, work / "review_emb", resume=resume)
+        _stage_done("review_encode", "%d rows", len(rev_emb))
+        ridx = build_review_index(_str_column(snip["sku"]), snip["text"],
+                                  np.asarray(snip["stars"], np.float64), rev_emb, pidx.skus)
+        _stage_done("build", "review index of %d reviews", len(snip["id"]))
+
+    bundle = IndexBundle(products=pidx, reviews=ridx, meta={"built_from": "pipeline"})
+    save_bundle(bundle, out)
+    _stage_done("save", "%s", out)
+    return bundle
+
+
+def run_full_pipeline(
+    inputs: Sequence[tuple],  # (path, "csv"|"jsonl", source_tag)
+    encoder,
+    out_dir,
+    **kwargs,
+) -> IndexBundle:
+    """Stage 1 (normalize_merge into out/_work/reviews_merged.npz), then
+    build_index_from_reviews."""
+    out = Path(out_dir)
+    reviews = normalize_merge(inputs, out / "_work" / "reviews_merged.npz")
+    _stage_done("etl", "%d reviews", len(reviews["id"]))
+    return build_index_from_reviews(reviews, encoder, out, **kwargs)
 
 
 def import_reference_artifacts(emb_npy, meta_parquet, bm25_pkl=None, reviews_parquet=None,

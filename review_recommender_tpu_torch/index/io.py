@@ -25,7 +25,9 @@ convert SRC DST` rewrites a JAX bundle into this layout on a machine with
 pyarrow. `load_bundle` also reads a bundle at an fsspec URL (hf://, s3://,
 memory://, ...) where fsspec imports, as the JAX one does; where it does
 not (the card's machine), a remote path raises and names the way round.
-Bundles are written to local directories only, as in JAX.
+Bundles are written to local directories only, as in JAX. The .npz
+files are zip archives deflated at level 1 (`_savez`), which np.load reads
+as it reads np.savez_compressed's (level 6).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import hashlib
 import json
 import logging
 import math
+import zipfile
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -135,6 +138,14 @@ def unpack_nullable_strings(arrs, name: str) -> List[Optional[str]]:
             for v, null in zip(_unpack_strings(arrs, name), arrs[f"{name}_null"].tolist())]
 
 
+def _savez(path, **arrays: np.ndarray) -> None:
+    """np.savez_compressed's archive (one NAME.npy a key) at deflate level 1."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED, compresslevel=1) as zf:
+        for name, arr in arrays.items():
+            with zf.open(f"{name}.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(arr), allow_pickle=False)
+
+
 def save_bundle(bundle: IndexBundle, out_dir) -> Path:
     """Write `bundle` to `out_dir` in the port's layout; returns the path."""
     out = _local(out_dir)
@@ -148,13 +159,13 @@ def save_bundle(bundle: IndexBundle, out_dir) -> Path:
         arrays["doc_token_len"] = p.doc_token_len
     if p.doc_bm25 is not None:
         arrays["doc_bm25"] = p.doc_bm25
-    np.savez_compressed(out / "product_arrays.npz", **arrays)
+    _savez(out / "product_arrays.npz", **arrays)
     meta = {**_pack_strings("sku", [str(s) for s in p.skus]),
             **_pack_strings("agg_text", [str(t) for t in p.agg_texts])}
     if p.last_ts is not None:
         meta.update(pack_nullable_strings("last_ts",
                                           [None if t is None else str(t) for t in p.last_ts]))
-    np.savez_compressed(out / PRODUCT_META, **meta)
+    _savez(out / PRODUCT_META, **meta)
     with open(out / "vocab.txt", "w", encoding="utf-8") as f:
         for term, _tid in sorted(p.vocab.items(), key=lambda kv: kv[1]):
             f.write(term + "\n")
@@ -162,9 +173,9 @@ def save_bundle(bundle: IndexBundle, out_dir) -> Path:
 
     if bundle.reviews is not None:
         r = bundle.reviews
-        np.savez_compressed(out / "review_arrays.npz", rev_emb=r.rev_emb,
+        _savez(out / "review_arrays.npz", rev_emb=r.rev_emb,
                             rev_product=r.rev_product, rev_valid=r.rev_valid)
-        np.savez_compressed(out / REVIEW_META,
+        _savez(out / REVIEW_META,
                             **_pack_strings("text", [str(t) for t in r.rev_texts]),
                             stars=np.asarray(r.rev_stars, np.float32))
         files += ["review_arrays.npz", REVIEW_META]

@@ -9,6 +9,7 @@ greedily, longest match first, with '##' continuations (BERT uncased).
 """
 from __future__ import annotations
 
+import re
 import unicodedata
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -44,9 +45,37 @@ def _is_cjk(cp: int) -> bool:
     )
 
 
+# Words of ASCII characters in one regex pass: the control characters
+# basic_tokenize_chars drops (category Cc but tab, newline and carriage
+# return), then each punctuation character alone and each run of other
+# non-blank characters. A word that holds any other character (split off at
+# ASCII blanks, which the character rules split at too) takes those rules.
+_ASCII_CONTROL = re.compile(r"[\x00-\x08\x0b\x0c\x0e-\x1f\x7f]")
+_ASCII_TOKEN = re.compile(r"[!-/:-@\[-`{-~]|[^ \t\n\r!-/:-@\[-`{-~]+")
+_NON_ASCII_WORD = re.compile(r"(?<![^ \t\n\r])([^ \t\n\r]*[^\x00-\x7f][^ \t\n\r]*)")
+
+
 def basic_tokenize(text: str, lowercase: bool = True) -> List[str]:
     """BERT BasicTokenizer: clean, CJK-isolate, lowercase+strip accents,
-    split on punctuation and whitespace."""
+    split on punctuation and whitespace. The character rules act on each
+    blank-separated word alone, so each run of ASCII-only words takes one
+    regex pass (ASCII has no CJK, accents or other whitespace) and each word
+    with a non-ASCII character goes through basic_tokenize_chars: the same
+    tokens."""
+    tokens: List[str] = []
+    # (an ASCII text holds no such word: the split would return it whole)
+    parts = [text] if text.isascii() else _NON_ASCII_WORD.split(text)
+    for i, part in enumerate(parts):
+        if i % 2:
+            tokens += basic_tokenize_chars(part, lowercase)
+        elif part:
+            part = _ASCII_CONTROL.sub("", part)
+            tokens += _ASCII_TOKEN.findall(part.lower() if lowercase else part)
+    return tokens
+
+
+def basic_tokenize_chars(text: str, lowercase: bool = True) -> List[str]:
+    """basic_tokenize character by character, for any text."""
     out_chars: List[str] = []
     for ch in text:
         cp = ord(ch)
@@ -136,6 +165,9 @@ class WordPieceTokenizer:
         return [self.vocab.get(t, self.unk_id) for t in self.tokenize(text)]
 
 
+_ID_CACHE_MAX = 1 << 20  # tokens whose hash id a HashTokenizer keeps
+
+
 class HashTokenizer:
     """Vocab-free tokenizer: basic tokenization + FNV-1a hash ids.
 
@@ -148,6 +180,7 @@ class HashTokenizer:
         self.vocab_size = vocab_size
         self.lowercase = lowercase
         self.pad_id, self.unk_id, self.cls_id, self.sep_id, self.mask_id = range(5)
+        self._ids: Dict[str, int] = {}  # token -> id, emptied at _ID_CACHE_MAX
 
     @staticmethod
     def _fnv1a(s: str) -> int:
@@ -161,8 +194,16 @@ class HashTokenizer:
         return basic_tokenize(text, self.lowercase)
 
     def token_ids(self, text: str) -> List[int]:
-        span = self.vocab_size - 5
-        return [5 + self._fnv1a(t) % span for t in self.tokenize(text)]
+        span, cache = self.vocab_size - 5, self._ids
+        out = []
+        for t in self.tokenize(text):
+            i = cache.get(t)
+            if i is None:
+                if len(cache) >= _ID_CACHE_MAX:
+                    cache.clear()
+                i = cache[t] = 5 + self._fnv1a(t) % span
+            out.append(i)
+        return out
 
 
 def encode_seqs(

@@ -30,6 +30,8 @@ KNOBS = (
     "IVF_NPROBE", "IVF_BLOCK_ROWS", "IVF_CENTROIDS", "IVF_SELFCHECK_QUERIES", "IVF_SELFCHECK_MIN",
     # rrt import's
     "DOC_TERMS_CAP", "PRODUCT_EMB_FILE", "PRODUCT_META_FILE", "REVIEWS_EMB_FILE", "BM25_FILE",
+    # the raw-review pipeline's (data/prep.py:filter_reviews_for_snippets)
+    "SNIPPET_REVIEWS_CAP",
 )
 OVERRIDES = {"DENSE_POOL_STRIPES": "77", "GATE_MODE": "host", "ENABLE_BM25": "false",
              "DEFAULT_W_DENSE": "0.3", "DENSE_POOL_AUTO_MIN": "1024", "APP_PORT": "9123",
@@ -38,7 +40,8 @@ OVERRIDES = {"DENSE_POOL_STRIPES": "77", "GATE_MODE": "host", "ENABLE_BM25": "fa
              "LOG_LEVEL": "debug", "EMB_DTYPE": "int8", "DENSE_POOL_MODE": "ivf",
              "IVF_NPROBE": "128", "IVF_BLOCK_ROWS": "256", "IVF_CENTROIDS": "900",
              "IVF_SELFCHECK_QUERIES": "0", "IVF_SELFCHECK_MIN": "0.9", "DOC_TERMS_CAP": "0",
-             "PRODUCT_META_FILE": "meta.parquet", "BM25_FILE": "bm25.pkl"}
+             "PRODUCT_META_FILE": "meta.parquet", "BM25_FILE": "bm25.pkl",
+             "SNIPPET_REVIEWS_CAP": "12"}
 
 _FRESH = """
 import json
@@ -147,6 +150,7 @@ def test_overrides_read_alike_in_a_fresh_interpreter():
     assert res["port"]["IVF_NPROBE"] == 128 and res["port"]["IVF_SELFCHECK_MIN"] == 0.9
     assert res["port"]["DOC_TERMS_CAP"] == 0 and res["port"]["BM25_FILE"] == "bm25.pkl"
     assert res["port"]["PRODUCT_META_FILE"] == "meta.parquet"
+    assert res["port"]["SNIPPET_REVIEWS_CAP"] == 12
     assert all(p == j for p, j in res["modes"])
     assert ["striped", "striped"] in res["modes"] and ["exact", "exact"] in res["modes"]
 

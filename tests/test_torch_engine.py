@@ -297,6 +297,27 @@ for lane in (["--k", "4"], ["--cluster", "density", "--min-samples", "5",
     out = tempfile.mkdtemp()
     n.append(cli.main(["topics", "--index-dir", idir, "--out", out, "--device", "cpu", *lane]))
     n.append(len(open(f"{out}/topic_cards.jsonl").readlines()))
+from review_recommender_tpu_torch.data import embed_job, etl, prep, warehouse
+from review_recommender_tpu_torch.data.pipeline import run_full_pipeline
+from review_recommender_tpu_torch.tools import archiver
+raw = tempfile.mkdtemp()
+with open(f"{raw}/r.jsonl", "w") as f:
+    f.writelines(json.dumps({"asin": f"0{i % 6:03d}", "overall": 1 + i % 5,
+                             "reviewText": f"review {i} t{i % 9} t{i % 4} words",
+                             "unixReviewTime": 1400000000 + i}) + "\\n" for i in range(60))
+with open(f"{raw}/r.csv", "w") as f:
+    f.write("product_id,star_rating,review_body,review_date\\n" + "".join(
+        f"P{i % 5},{1 + i % 5},csv review {i} t{i % 7} here,2015-08-{1 + i % 28:02d}\\n"
+        for i in range(40)))
+pb = run_full_pipeline([(f"{raw}/r.jsonl", "jsonl", "snap"), (f"{raw}/r.csv", "csv", "kaggle")],
+                       be, f"{raw}/out", doc_terms_cap=32)
+n += [pb.products.n_docs, pb.reviews.n_reviews_total,
+      embed_job.job_status(f"{raw}/out/_work/product_emb")["done_shards"],
+      len(prep.filter_reviews_for_snippets(etl.normalize_merge(
+          [(f"{raw}/r.jsonl", "jsonl", "snap")], f"{raw}/m.npz"), 4)["id"]),
+      warehouse.make_warehouse(f"{raw}/wh").load(etl.normalize_merge(
+          [(f"{raw}/r.csv", "csv", "kaggle")], f"{raw}/m2.npz")),
+      len(archiver.archive_files(raw, ("*.csv",), dry_run=True))]
 bad = [m for m in ("jax", "flax", "pandas", "pyarrow", "fsspec") if sys.modules.get(m)]
 bad += sorted(m for m in sys.modules
               if m == "review_recommender_tpu" or m.startswith("review_recommender_tpu."))
@@ -317,9 +338,12 @@ def test_port_imports_no_jax_pandas_or_pyarrow():
     and loads it in the port's layout and runs the CLI's search and audit
     on it, then `import`s a reference data directory in the numpy form and
     runs `topics` on it in both lanes (--llm dry in the density one),
-    where pandas, pyarrow and fsspec cannot be imported (as on the card's
-    machine), without loading jax, flax or any module of the JAX package,
-    and without a kernel launch."""
+    then runs the raw-review pipeline (run_full_pipeline on a JSONL and a
+    CSV dump, the snippet filter, the warehouse and the archiver: the
+    modules data.etl, data.prep, data.embed_job, data.warehouse and
+    tools.archiver), where pandas, pyarrow and fsspec cannot be imported
+    (as on the card's machine), without loading jax, flax or any module of
+    the JAX package, and without a kernel launch."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
@@ -327,5 +351,5 @@ def test_port_imports_no_jax_pandas_or_pyarrow():
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res == {"rows": [10, 10, 10, 150, 10, 10, 20, 10, 20, 32, 5, 5, 2, 40, 0, 0,
-                            0, 0, 4, 0, 4], "bad": [],
+                            0, 0, 4, 0, 4, 11, 100, 1, 24, 40, 1], "bad": [],
                    "launches": 0}

@@ -35,7 +35,10 @@ on the duplicate, negative-similarity, ragged-chunk and zero-row cases
 (similarities within 1e-5, ids equal but for near ties), also with TF32
 turned on by the caller; density labels on the card equal the CPU's on a
 well-separated mixture; `rrt topics --device cuda` writes the cards and
-aspect metrics of `--device cpu` in both lanes.
+aspect metrics of `--device cpu` in both lanes. The raw-review pipeline: the
+attention kernel at its embedding jobs' shapes, (256, 512, 12, 32) and
+(256, 64, 12, 32), and a 4-shard embedding job resumed after two shards
+are deleted and a torn temp file left.
 """
 from pathlib import Path
 import numpy as np
@@ -811,3 +814,44 @@ def test_rrt_topics_on_cuda_writes_the_cpu_cards(cuda, tmp_path, capsys):
             assert (tmp_path / f"cuda{i}" / f).read_text() == (tmp_path / f"cpu{i}" / f).read_text()
         assert len((tmp_path / f"cuda{i}" / "topic_cards.jsonl").read_text().splitlines()) >= 3
     capsys.readouterr()
+
+
+@pytest.mark.parametrize("b,s", [(256, 512), (256, 64)])
+def test_embed_job_attention_shapes_match_reference(cuda, b, s):
+    """The raw-review pipeline's embedding jobs run the bi-encoder at batch
+    256: products at 512 keys, reviews at short buckets (12 heads x 32)."""
+    q, k, v, bias = _inputs(b + s, b, s, 12 * 32, torch.bfloat16, cuda)
+    with torch.inference_mode():
+        got = tatt.mha_kernel(q, k, v, bias, 12)
+        ref = tatt.mha_reference(q, k, v, bias, 12)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2, err
+
+
+def test_embed_job_resumes_two_shards_on_cuda(cuda, tmp_path):
+    """A 4-shard job on the card; two shards deleted and a torn temp file
+    left: job_status reports them missing, the resumed job encodes those
+    two shards only (one kernel launch per layer per batch) and returns
+    the first run's embeddings (within 1e-6)."""
+    from review_recommender_tpu_torch.data.embed_job import job_status, run_embed_job
+    from review_recommender_tpu_torch.models.bert import BertConfig
+    from review_recommender_tpu_torch.models.encoder import BiEncoder
+
+    cfg = BertConfig(vocab_size=30522, hidden_size=384, num_layers=2, num_heads=12,
+                     intermediate_size=1536, max_position=512)
+    enc = BiEncoder.random_init(cfg, seed=3, device="cuda")
+    rng = np.random.default_rng(0)
+    texts = [" ".join(f"w{t}" for t in rng.integers(0, 5000, int(rng.integers(3, 700))))
+             for _ in range(70)]
+    first = run_embed_job(texts, enc, tmp_path, shard_rows=20, batch_size=8)
+    for i in (2, 3):
+        (tmp_path / f"emb_shard_{i:05d}.npy").unlink()
+    np.save(tmp_path / "emb_shard_00002.tmp.npy", np.zeros((1, 1), np.float32))
+    assert job_status(tmp_path)["missing"] == [2, 3]
+    before = tatt.mha_kernel_launches
+    again = run_embed_job(texts, enc, tmp_path, shard_rows=20, batch_size=8)
+    # shard 2 (20 rows) is 3 batches of 8, shard 3 (10 rows) 2
+    assert tatt.mha_kernel_launches - before == cfg.num_layers * (3 + 2)
+    assert job_status(tmp_path)["complete"]
+    assert np.abs(again - first).max() <= 1e-6

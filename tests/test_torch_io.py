@@ -15,8 +15,10 @@ import json
 import shutil
 import subprocess
 import sys
+import zipfile
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from review_recommender_tpu.index import io as jax_io
@@ -153,3 +155,20 @@ def test_audit_matches_jax(tmp_path, damage):
     assert _verdicts(audit_index_dir(tmp_path / "port", device="cpu")) == want
     assert _verdicts(audit_index_dir(tmp_path / "jax_read_by_port", device="cpu")) == want
     assert want[1] is (damage == "none")
+
+
+def test_bundle_archives_load_as_savez_compressed_ones(tmp_path):
+    """save_bundle's .npz writer (deflate level 1) gives the arrays, dtypes
+    and entry names np.savez_compressed gives, every entry deflated."""
+    rng = np.random.default_rng(0)
+    arrays = {"emb": rng.standard_normal((300, 16)).astype(np.float32),
+              "doc_terms": rng.integers(0, 500, (300, 8)).astype(np.int32),
+              "valid": rng.random(300) < 0.9, "empty": np.zeros((0, 3), np.float64)}
+    port_io._savez(tmp_path / "fast.npz", **arrays)
+    np.savez_compressed(tmp_path / "ref.npz", **arrays)
+    with np.load(tmp_path / "fast.npz") as fast, np.load(tmp_path / "ref.npz") as ref:
+        assert fast.files == ref.files == list(arrays)
+        for k in arrays:
+            assert fast[k].dtype == ref[k].dtype and np.array_equal(fast[k], ref[k])
+    with zipfile.ZipFile(tmp_path / "fast.npz") as zf:
+        assert {i.compress_type for i in zf.infolist()} == {zipfile.ZIP_DEFLATED}

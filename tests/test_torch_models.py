@@ -37,6 +37,59 @@ def test_hash_tokenizer_ids():
     assert (tt.pad_id, tt.unk_id, tt.cls_id, tt.sep_id, tt.mask_id) == (0, 1, 2, 3, 4)
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_ascii_tokenize_equals_the_character_loop_and_jax(seed):
+    """basic_tokenize's one-pass route for ASCII words against the
+    character loop (which every word with a non-ASCII character takes) and
+    the JAX function, on 20,000 random ASCII strings: every control
+    character, blanks, punctuation."""
+    import random
+
+    rng = random.Random(seed)
+    pool = [chr(i) for i in range(128)] + list("ab cD\t\n.,!'") * 8
+    for _ in range(20_000):
+        text = "".join(rng.choice(pool) for _ in range(rng.randint(0, 30)))
+        for lower in (True, False):
+            want = jtok.basic_tokenize(text, lower)
+            assert ttok.basic_tokenize(text, lower) == want
+            assert ttok.basic_tokenize_chars(text, lower) == want
+
+
+MIXED_EDGES = ["\u0391\u03a3.\u0391 \u0391\u03a3", "cafe\u0301 au lait", "a\u00a0b c",
+               "x\u2028y z", "\u4e2d\u6587abc def", "\u039f\u0394\u039f\u03a3's end",
+               "zero\u200bwidth, ok", "\ufffd\x00a\x1cb \u3000c", "\u201cnice\u201d it's"]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_mixed_text_tokenize_equals_the_character_loop_and_jax(seed):
+    """Text with non-ASCII words among ASCII ones (accents, combining marks,
+    Greek final sigma, CJK, Unicode blanks and controls): basic_tokenize,
+    which sends only those words through the character loop, against the
+    loop over the whole text and the JAX function."""
+    import random
+
+    rng = random.Random(seed)
+    uni = list("\u00e9\u00c9\u00f1\u00df\u0130\u03a3\u03c3\u03c2\u0391\u0301\u0308"
+               "\u00a0\u3000\u200b\ufffd\x85\u4e2d\u6587\uff41\u2026\u201c\u201d\u2019"
+               "\u2013\U0001f600")
+    pool = [chr(i) for i in range(128)] + list("ab cD\t\n.,!'") * 8 + uni * 3
+    texts = MIXED_EDGES + ["".join(rng.choice(pool) for _ in range(rng.randint(0, 40)))
+                           for _ in range(20_000)]
+    for text in texts:
+        for lower in (True, False):
+            want = jtok.basic_tokenize(text, lower)
+            assert ttok.basic_tokenize(text, lower) == want, repr(text)
+            assert ttok.basic_tokenize_chars(text, lower) == want, repr(text)
+
+
+def test_hash_tokenizer_id_cache_is_emptied_at_its_bound(monkeypatch):
+    monkeypatch.setattr(ttok, "_ID_CACHE_MAX", 4)
+    jt, tt = jtok.HashTokenizer(500), ttok.HashTokenizer(500)
+    for text in TEXTS * 2:
+        assert tt.token_ids(text) == jt.token_ids(text)
+        assert len(tt._ids) <= 4
+
+
 @pytest.mark.parametrize("max_len", [512, 24, 9])
 def test_encode_and_pack_seqs(max_len):
     """Pairs past the budget go through longest-first truncation."""
