@@ -200,7 +200,10 @@ line, and nothing is caught and passed over:
              bound 2*N^2*D / 67 TFLOP/s and its share; 1,024 sampled rows
              against one exact full-row product and a stable sort on the
              card, and a 20,000-row subset against the port's CPU path
-             (similarities within 1e-5, ids equal but for near ties).
+             (similarities within 1e-5, ids equal but for near ties);
+             knn_graph_sharded over 4 shards on the card (devices
+             ["cuda"] * 4) against that graph, to the same tolerance,
+             with its seconds and peak memory.
              density_cluster (clusters, noise, eps, core points, the host
              seconds of graph, union-find, border adoption, renumbering,
              purity against the planted clusters) and spherical_kmeans
@@ -242,6 +245,36 @@ line, and nothing is caught and passed over:
              with its views against numpy counts. The bundle loaded,
              audited, 100 run_search at rerank_k 0 and 20 search_bm25
              (exact launch counts), one CLI search process
+ 18 sharded  ShardedSearchEngine with SHARDS=4 shards on the one card
+             (devices ["cuda"] * 4), run after phase 14 on phase 4's
+             products and towers with a 200,000-review snippet table (cut
+             from phase 11's 1,000,000), against SearchEngine over the same
+             bundle: (a) run_search at rerank_k 0, 100 queries, on both
+             exact engines interleaved: rows equal but for near ties,
+             _final within 1e-5, 12 attention launches a query, p50/p90 of
+             each (the cost of four shards on one card); (b) the striped
+             pool's recall against the exact pool beside phase 4's single
+             striped engine's (at most 0.02 below), every pool score
+             within 1e-3 of its row's exact score; (c) the int8 exact pool
+             bit-equal to a single int8 engine's, IVF at the auto sizes on
+             bench.py's clustered rows (build s, each shard's block size,
+             all equal after the repair; recall against the exact pool);
+             (d) bm25_topk on phase 6's packable and unpackable classic
+             bundles, 20 queries: 4 launches a query of the packed or the
+             unpacked kernel, ids and scores bit-equal to search_bm25, and
+             both kernels on shard 0's own postings bit-equal to their
+             plain versions (not counted); (e) query_e2e at rr_k 0 and 50,
+             20 queries: 12 and 12 + 6 * 4 launches a query, each held to
+             the single engine's by _crosscheck; (f) run_search at
+             rerank_k 50 (18 launches a query, _crosscheck) and with
+             use_snips (snippets and the best lane equal); (g)
+             query_fused_batched at B=32 and _pw over 256 queries against
+             the single engine's rows; (h) the stdlib server over each
+             engine, 64 requests from 8 clients, answers equal, and 16
+             rerank riders coalescing in fewer than 16 windows; (i) one
+             `search --shards 4` subprocess on phase 13's saved 200k bundle:
+             the cap to the devices present on stderr, rows equal to
+             --shards 1; peak memory
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -264,10 +297,12 @@ KERNEL_TOL = 2e-2  # bf16: one ulp at magnitude 2-4 (tests/test_attention.py's b
 FINAL_TOL = 2e-2  # _final with kernel vs reference attention in both bf16 towers
 # the rerank batch, the query encode, two other head dims, then query_e2e's
 # encode and rerank (287 keys: a ragged last key tile), then the raw-review
-# pipeline's product and review encodes
+# pipeline's product and review encodes, then one shard's pairs of phase
+# 18's pair-sharded rerank (rr_k 50 over 4 shards: 13 pairs a shard)
 SHAPES = [(64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128),
           (1, 32, 12, 32), (50, 287, 12, 32),
-          (256, 512, 12, 32), (256, 64, 12, 32)]  # phase 17's embedding jobs: batch 256
+          (256, 512, 12, 32), (256, 64, 12, 32),  # phase 17's embedding jobs: batch 256
+          (13, 287, 12, 32)]
 N_DOCS, DIM, TERMS, VOCAB, TEXT_CHARS = 200_000, 384, 64, 30_000, 2000
 # 100 queries per setting: p90 then has 10 samples beyond it
 N_QUERIES, K, RERANK_K, REPS = 100, 10, 50, 50
@@ -1656,20 +1691,21 @@ class _ReviewTexts:
             f"t{(int(i) * 7919 + j * 104729) % VOCAB + 1}" for j in range(24))
 
 
-def _review_index(torch, products):
-    """1,000,000 reviews of phase 4's products, each product drawn in
-    proportion to its n_reviews; seeded unit rows (drawn on the card, kept
-    in f32 on the host for the snippet texts), stars 1-5 with 1% NaN."""
+def _review_index(torch, products, n_reviews=N_REVIEWS):
+    """n_reviews (1,000,000) reviews of phase 4's products, each product
+    drawn in proportion to its n_reviews; seeded unit rows (drawn on the
+    card, kept in f32 on the host for the snippet texts), stars 1-5 with 1%
+    NaN."""
     from review_recommender_tpu_torch.index.build import build_review_index
 
     rng = np.random.default_rng(11)
     n = products.n_docs
     p = products.n_reviews[:n].astype(np.float64)
-    prod = rng.choice(n, size=N_REVIEWS, p=p / p.sum())
-    stars = rng.integers(1, 6, N_REVIEWS).astype(np.float32)
-    stars[rng.random(N_REVIEWS) < 0.01] = np.nan
+    prod = rng.choice(n, size=n_reviews, p=p / p.sum())
+    stars = rng.integers(1, 6, n_reviews).astype(np.float32)
+    stars[rng.random(n_reviews) < 0.01] = np.nan
     g = torch.Generator(device=DEV).manual_seed(11)
-    emb = torch.randn(N_REVIEWS, products.dim, generator=g, device=DEV)
+    emb = torch.randn(n_reviews, products.dim, generator=g, device=DEV)
     emb = (emb / emb.norm(dim=1, keepdim=True)).cpu().numpy()
     skus = products.skus
     return build_review_index([skus[j] for j in prod], _ReviewTexts(prod), stars, emb, skus)
@@ -2290,7 +2326,11 @@ def phase_offline(torch, engine_200k):
           "dim": big.products.dim, "terms_cap": big.products.terms_cap,
           "has_doc_bm25": big.products.doc_bm25 is not None,
           "has_doc_tokens": big.products.doc_tokens is not None, **rt})
-    shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
+    for path in OFFLINE_DIR.iterdir():  # the 200k bundle stays for phase 18's CLI
+        if path.is_dir() and path.name != "bundle_200k":
+            shutil.rmtree(path)
+        elif path.is_file():
+            path.unlink()
     return search_counts["mha_fwd"]
 
 
@@ -3388,7 +3428,7 @@ def _graph_diff(sims, idx, want_sims, want_idx, sim):
 
 def _knn_phase(torch, card, rows):
     """Phase 16a: the graph on the card, timed, profiled and cross-checked."""
-    from review_recommender_tpu_torch.topics.density import knn_graph
+    from review_recommender_tpu_torch.topics.density import knn_graph, knn_graph_sharded
 
     n = len(rows)
     kw = dict(k=TOPIC_K, batch_rows=TOPIC_BATCH, col_chunk=TOPIC_CHUNK)
@@ -3419,6 +3459,17 @@ def _knn_phase(torch, card, rows):
     e64 = sub.astype(np.float64)
     c_err, c_diff, c_bad = _graph_diff(gs, gi, cs, ci,
                                        lambda r, a, b: abs(e64[r] @ (e64[a] - e64[b])))
+    # the graph over SHARDS shards on the one card, against the one-device graph
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shs, shi = knn_graph_sharded(rows, devices=[DEV] * SHARDS, **kw)
+    sharded_s = time.perf_counter() - t0
+    sharded_peak = torch.cuda.max_memory_allocated()
+    h_err, h_diff, h_bad = _graph_diff(
+        shs, shi, sims, idx,
+        lambda r, a, b: abs(float(rows[r].astype(np.float64)
+                                  @ (rows[a].astype(np.float64) - rows[b].astype(np.float64)))))
     out = {"phase": "topics_knn", "card": card, "rows": n, "dim": DIM, "k": TOPIC_K,
            "batch_rows": TOPIC_BATCH, "col_chunk": TOPIC_CHUNK, "seconds": seconds,
            "peak_allocated_bytes": peak, "flops": flops, "bound_s": bound_s,
@@ -3427,13 +3478,18 @@ def _knn_phase(torch, card, rows):
            "sampled_rows": {"rows": TOPIC_SAMPLE, "max_abs_err": s_err, "ids_differ": s_diff,
                             "ids_differ_beyond_tol": s_bad},
            "cpu_subset": {"rows": len(sub), "max_abs_err": c_err, "ids_differ": c_diff,
-                          "ids_differ_beyond_tol": c_bad}}
+                          "ids_differ_beyond_tol": c_bad},
+           "sharded": {"shards": SHARDS, "seconds": sharded_s,
+                       "peak_allocated_bytes": sharded_peak, "max_abs_err": h_err,
+                       "ids_differ": h_diff, "ids_differ_beyond_tol": h_bad}}
     emit(out)
     check(np.isfinite(sims).all() and (idx >= 0).all(), "topics_knn", "a non-finite slot")
     check(s_err <= TOPIC_TOL and s_bad == 0, "topics_knn",
           f"sampled rows: {s_err} > {TOPIC_TOL} or {s_bad} ids differ beyond a near tie")
     check(c_err <= TOPIC_TOL and c_bad == 0, "topics_knn",
           f"CPU subset: {c_err} > {TOPIC_TOL} or {c_bad} ids differ beyond a near tie")
+    check(h_err <= TOPIC_TOL and h_bad == 0, "topics_knn",
+          f"sharded graph: {h_err} > {TOPIC_TOL} or {h_bad} ids differ beyond a near tie")
     return out
 
 
@@ -4172,6 +4228,437 @@ def phase_raw_pipeline(torch):
     return {"mha_fwd": mha + served["mha_fwd"], "bm25_packed": served["bm25_packed"]}
 
 
+# phase 18: the corpus-sharded engine, SHARDS shards on the one card (a
+# device may repeat), against SearchEngine over the same bundle
+SHARDS = 4
+SHARD_QUERIES, SHARD_SMALL = 100, 20  # (a)-(b); (c)-(f): 20 a check
+SHARD_REVIEWS = 200_000  # the snippet table of (f), cut from phase 11's 1,000,000
+SHARD_REQUESTS, SHARD_CLIENTS = 64, 8
+SHARD_FINAL_TOL = 1e-5  # two exact engines: f32 sums over GEMMs of other shapes
+SHARD_RECALL_GAP = 0.02  # (b): sharded striped recall at most this below the single's
+SHARD_SCORE_TOL = 1e-3  # (b): a pool score against its row's exact bf16 score
+
+
+def _near_ties(ids_a, fin_a, ids_b, fin_b, tol, phase, what):
+    """Two rankings of one query: finals within tol rank by rank, and an id
+    differing only where b holds another final within tol of that rank's
+    (a near tie) or at the last rank (a near tie with a row past the cut).
+    Returns (largest final difference, ranks that differ)."""
+    fa, fb = np.asarray(fin_a, np.float64), np.asarray(fin_b, np.float64)
+    check(len(ids_a) == len(ids_b) and len(fb) > 0, phase,
+          f"{what}: {len(ids_a)} against {len(ids_b)} rows")
+    diff = float(np.abs(fa - fb).max())
+    check(diff <= tol, phase, f"{what}: finals differ by {diff} > {tol}")
+    differ = [j for j in range(len(fb)) if ids_a[j] != ids_b[j]]
+    for j in differ:
+        near = j == len(fb) - 1 or float(np.abs(np.delete(fb, j) - fb[j]).min()) <= tol
+        check(near, phase, f"{what}: rank {j} differs beyond a near tie")
+    return diff, len(differ)
+
+
+def _rankings_agree(rows_a, rows_b, tol, phase):
+    """run_search rows of two engines, query by query (_near_ties)."""
+    worst, swaps = 0.0, 0
+    for i, (a, b) in enumerate(zip(rows_a, rows_b)):
+        d, n = _near_ties([r["sku"] for r in a], [r["_final"] for r in a],
+                          [r["sku"] for r in b], [r["_final"] for r in b], tol, phase,
+                          f"query {i}")
+        worst, swaps = max(worst, d), swaps + n
+    return {"queries": len(rows_a), "max_final_diff": worst, "rank_swaps": swaps, "tol": tol}
+
+
+def _shard_kernels_vs_plain(torch, sh_packed, sh_unpacked, queries):
+    """Both BM25 kernels on shard 0's own tensors (the packed (L, per_p) and
+    the unpacked (per, L) postings) against their plain versions: bitwise
+    expected. Not counted: phase 18 zeroes the counts after this. Returns
+    each kernel's largest absolute error."""
+    from review_recommender_tpu_torch.ops import bm25_kernel as BK
+    from review_recommender_tpu_torch.ops.bm25 import bm25_full_scores
+
+    rows = []
+    for query in queries:
+        qf = sh_packed.featurizer.featurize(query)
+        qt, qi = torch.from_numpy(qf.q_terms).to(DEV), torch.from_numpy(qf.q_idf).to(DEV)
+        pk, dl, _valid = sh_packed._bm25_packed()[0]
+        a = sh_unpacked.shards[0].arrays
+        for name, kern, plain, args in (
+                ("bm25_packed", BK.bm25_full_scores_packed_kernel,
+                 BK.bm25_full_scores_packed_reference, (pk, dl, qt, qi, sh_packed.avgdl_h)),
+                ("bm25_unpacked", BK.bm25_full_scores_kernel, bm25_full_scores,
+                 (a["doc_terms"], a["doc_tf"], a["doc_len"], qt, qi, sh_unpacked.avgdl_h))):
+            row = {"kernel": name, "shape": list(args[0].shape),
+                   **_score_diff(torch, kern(*args), plain(*args))}
+            check(row["max_rel_err"] <= BM25_REL_TOL, "sharded_kernels", f"{row}")
+            rows.append(row)
+    emit({"phase": "sharded_kernels", "card": _card(), "tol": BM25_REL_TOL, "rows": rows})
+    return {name: max(r["max_abs_err"] for r in rows if r["kernel"] == name)
+            for name in ("bm25_packed", "bm25_unpacked")}
+
+
+def _shard_exact(torch, sh, one, queries):
+    """(a) run_search at rerank_k 0 on both exact engines, interleaved."""
+    from review_recommender_tpu_torch.ops import attention as A
+
+    for eng in (sh, one):  # warm-up
+        eng.run_search(queries[0], k=K, rerank_k=0)
+    torch.cuda.synchronize()
+    lat, kept, launches = {"sharded": [], "single": []}, {"sharded": [], "single": []}, 0
+    for i, q in enumerate(queries):
+        pair = [("sharded", sh), ("single", one)]
+        for name, eng in pair if i % 2 == 0 else pair[::-1]:
+            before = A.mha_kernel_launches
+            t0 = time.perf_counter()
+            rows, _snips, debug = eng.run_search(q, k=K, rerank_k=0)
+            lat[name].append((time.perf_counter() - t0) * 1e3)
+            _check_rows(rows, "sharded_exact")
+            kept[name].append(rows)
+            if name == "sharded":
+                launches += A.mha_kernel_launches - before
+                check(debug["n_shards"] == SHARDS and debug.get("fused"), "sharded_exact",
+                      f"debug {debug}")
+    agree = _rankings_agree(kept["sharded"], kept["single"], SHARD_FINAL_TOL, "sharded_exact")
+    p50 = {n: float(np.percentile(v, 50)) for n, v in lat.items()}
+    emit({"phase": "sharded_exact", "card": _card(), "shards": SHARDS, "queries": len(queries),
+          **{f"{n}_{k}": v for n in lat for k, v in _pct(lat[n]).items()},
+          "cost_of_shards_p50_ms": p50["sharded"] - p50["single"],
+          "note": "four shards on one card do the pool's work four times and add a merge: "
+                  "a cost, not a gain",
+          "attention_launches": launches, "expected_launches": 12 * len(queries),
+          "vs_single": agree})
+    check(launches == 12 * len(queries), "sharded_exact",
+          f"{launches} attention launches, expected {12 * len(queries)}")
+
+
+def _shard_striped(torch, engine, one, sh_st, qv):
+    """(b) the striped pool over the shards against the exact pool, beside
+    the single striped engine's (phase 4's)."""
+    from review_recommender_tpu_torch.ops.dense import dense_scores
+
+    q = torch.from_numpy(qv).to(DEV)
+    with torch.inference_mode():
+        ex = one._dense_topk(one.arrays, q, POOL)[1].cpu().numpy()
+        single = engine._dense_topk(engine.arrays, q, POOL)[1].cpu().numpy()
+        sh_s, sh_i = sh_st._pool(sh_st._replicate(q), POOL)
+        exact = dense_scores(one.arrays["emb"], q, one.arrays["valid"])
+        at = exact.gather(1, sh_i.clamp(max=exact.shape[1] - 1))
+        fin = torch.isfinite(sh_s)
+        err = float((sh_s - at).abs()[fin].max())
+    rec_sh, rec_one = _recall(ex, sh_i.cpu().numpy()), _recall(ex, single)
+    emit({"phase": "sharded_striped", "card": _card(), "queries": len(qv), "pool": POOL,
+          "stripes_a_shard": sh_st._shard_stripes, "rows_a_shard": sh_st.per,
+          "single_stripes": engine.dense_stripes, "recall_sharded": rec_sh,
+          "recall_single": rec_one, "max_gap": SHARD_RECALL_GAP,
+          "finite_scores": int(fin.sum()), "max_score_err_vs_exact": err,
+          "score_tol": SHARD_SCORE_TOL})
+    check(rec_sh >= rec_one - SHARD_RECALL_GAP, "sharded_striped",
+          f"pool recall {rec_sh} more than {SHARD_RECALL_GAP} below the single's {rec_one}")
+    check(err <= SHARD_SCORE_TOL, "sharded_striped", f"a pool score is {err} from exact")
+
+
+def _shard_int8_ivf(torch, products, devices, qv):
+    """(c) the int8 exact pool bit-equal to the single int8 engine's; IVF
+    at the auto sizes on bench.py's clustered rows."""
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+    from review_recommender_tpu_torch.parallel.sharded import ShardedSearchEngine
+
+    bundle = IndexBundle(products=products)
+    sh8 = ShardedSearchEngine(bundle, devices=devices, emb_dtype="int8", dense_pool="exact")
+    one8 = SearchEngine(bundle, device=DEV, emb_dtype="int8", dense_pool="exact")
+    q = torch.from_numpy(qv).to(DEV)
+    with torch.inference_mode():
+        a_s, a_i = sh8._pool(sh8._replicate(q), POOL)
+        b_s, b_i = one8._dense_topk(one8.arrays, q, POOL)
+    same_ids, same_scores = torch.equal(a_i, b_i), torch.equal(a_s, b_s)
+    del sh8, one8
+    products_c, cq = _clustered_products(torch, products)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shi = ShardedSearchEngine(IndexBundle(products=products_c), devices=devices,
+                              dense_pool="ivf")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    emb = torch.cat([sh.arrays["emb"] for sh in shi.shards])
+    valid = torch.cat([sh.arrays["valid"] for sh in shi.shards])
+    ref = _exact_bf16_pool(torch, emb, valid, cq[:len(qv)])
+    qc = torch.from_numpy(cq[:len(qv)]).to(DEV)
+    recall = {}
+    for nprobe_local in (shi.ivf_nprobe_local, 64):
+        shi.ivf_nprobe_local, before = nprobe_local, shi.ivf_nprobe_local
+        with torch.inference_mode():
+            recall[f"nprobe_{nprobe_local}_a_shard"] = _recall(
+                ref, shi._pool(shi._replicate(qc), POOL)[1].cpu().numpy())
+        shi.ivf_nprobe_local = before
+    emit({"phase": "sharded_int8_ivf", "card": _card(), "queries": len(qv),
+          "int8_ids_equal": same_ids, "int8_scores_bit_equal": same_scores,
+          "ivf_build_s": build_s, "ivf_auto_block_rows": shi.ivf_auto_block_rows,
+          "ivf_block_rows": [iv.block_rows for iv in shi.ivfs],
+          "ivf_blocks": [iv.n_blocks for iv in shi.ivfs],
+          "ivf_centroids": [iv.stats["n_centroids"] for iv in shi.ivfs],
+          "recall_vs_exact": recall, "nprobe_engine": shi.ivf_nprobe_local})
+    check(same_ids and same_scores, "sharded_int8_ivf",
+          "the sharded int8 pool differs from the single int8 engine's")
+    check(len({iv.block_rows for iv in shi.ivfs}) == 1, "sharded_int8_ivf",
+          f"block sizes {[iv.block_rows for iv in shi.ivfs]}")
+
+
+def _shard_bm25(torch, products, devices, queries):
+    """(d) bm25_topk on phase 6's packable and unpackable classic bundles:
+    SHARDS launches of one kernel a query, ids and scores bit-equal to
+    the single engine's search_bm25."""
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+    from review_recommender_tpu_torch.ops import bm25_kernel as BK
+    from review_recommender_tpu_torch.parallel.sharded import ShardedSearchEngine
+
+    bundles = _bm25_bundles(products)
+    engines = {}
+    for name, kernel in (("b_classic", "bm25_packed"), ("c_unpackable", "bm25_unpacked")):
+        bundle = IndexBundle(products=bundles[name])
+        sh = ShardedSearchEngine(bundle, devices=devices, dense_pool="exact")
+        one = SearchEngine(bundle, device=DEV, dense_pool="exact")
+        engines[name] = sh
+        sh.bm25_topk(queries[0], K)  # warm-up (and the lazy pack)
+        one.search_bm25(queries[0], K)
+        torch.cuda.synchronize()
+        before, lat, lat_one, equal = _counts(), [], [], True
+        for q in queries:
+            t0 = time.perf_counter()
+            si, ss = (t.cpu() for t in sh.bm25_topk(q, K))
+            lat.append((time.perf_counter() - t0) * 1e3)
+            mid = _counts()
+            t0 = time.perf_counter()
+            oi, osc = (t.cpu() for t in one.search_bm25(q, K))
+            lat_one.append((time.perf_counter() - t0) * 1e3)
+            after = _counts()
+            check(mid[kernel] - before[kernel] == SHARDS and mid["bm25_packed"]
+                  + mid["bm25_unpacked"] - before["bm25_packed"] - before["bm25_unpacked"]
+                  == SHARDS, "sharded_bm25", f"{name}: launches {before} -> {mid}")
+            before = after
+            equal &= torch.equal(si, oi) and torch.equal(ss, osc)
+        emit({"phase": "sharded_bm25", "card": _card(), "bundle": name, "kernel": kernel,
+              "queries": len(queries), "launches_a_query": SHARDS, **_pct(lat),
+              "single_search_bm25": _pct(lat_one), "bit_equal_to_single": equal})
+        check(equal, "sharded_bm25", f"{name}: ids or scores differ from search_bm25")
+        del one
+    return engines
+
+
+def _shard_e2e(torch, sh, one, queries, w):
+    """(e) query_e2e at rr_k 0 and RERANK_K: 12 and 12 + 6 * SHARDS
+    attention launches a query, each query held to the single engine's."""
+    from review_recommender_tpu_torch.ops import attention as A
+
+    out = {}
+    for rr_k in (0, RERANK_K):
+        before = A.mha_kernel_launches
+        lat_sh, rows_sh = _e2e_pass(sh, queries, w, rr_k)
+        launches = A.mha_kernel_launches - before
+        lat_one, rows_one = _e2e_pass(one, queries, w, rr_k)
+        expect = (12 + (6 * SHARDS if rr_k else 0)) * len(queries)
+        cross = _crosscheck(rows_sh, rows_one, f"sharded_e2e_rr{rr_k}")
+        out[rr_k] = {"launches": launches, "expected": expect, **_pct(lat_sh),
+                     "single": _pct(lat_one), "max_final_diff": cross["max_final_diff"]}
+        check(launches == expect, "sharded_e2e",
+              f"rr_k={rr_k}: {launches} attention launches, expected {expect}")
+    profiles = {name: _profile(torch, lambda eng=eng: [
+        eng.query_e2e(q, w, POOL, K, rr_k=RERANK_K)[0].cpu() for q in queries[:4]])
+        for name, eng in (("sharded", sh), ("single", one))}
+    emit({"phase": "sharded_e2e", "card": _card(), "queries": len(queries),
+          "pairs_a_shard": -(-RERANK_K // SHARDS), **{f"rr_k{k}": v for k, v in out.items()},
+          "profile_4_queries_rr_k50": profiles})
+
+
+def _shard_split(torch, sh, one, queries):
+    """(f) run_search at rerank_k RERANK_K (the split path, the host
+    cross-encoder) and with use_snips, held to the single engine."""
+    from review_recommender_tpu_torch.ops import attention as A
+
+    before = A.mha_kernel_launches
+    rows_sh = [sh.run_search(q, k=K, rerank_k=RERANK_K)[0] for q in queries]
+    launches = A.mha_kernel_launches - before
+    rows_one = [one.run_search(q, k=K, rerank_k=RERANK_K)[0] for q in queries]
+    cross = _crosscheck(rows_sh, rows_one, "sharded_rerank")
+    check(launches == 18 * len(queries), "sharded_rerank",
+          f"{launches} attention launches, expected {18 * len(queries)}")
+    worst_best, snips_equal = 0.0, True
+    for q in queries:
+        a, sa, da = sh.run_search(q, k=K, rerank_k=0, use_snips=True)
+        b, sb, _db = one.run_search(q, k=K, rerank_k=0, use_snips=True)
+        _near_ties([r["sku"] for r in a], [r["_final"] for r in a], [r["sku"] for r in b],
+                   [r["_final"] for r in b], SHARD_FINAL_TOL, "sharded_snippets", q)
+        shared = {r["sku"]: r["_best"] for r in b}
+        worst_best = max([worst_best] + [abs(r["_best"] - shared[r["sku"]]) for r in a
+                                         if r["sku"] in shared])
+        snips_equal &= sorted(sa) == sorted(sb) and all(
+            sa[k]["text"] == sb[k]["text"] and abs(sa[k]["score"] - sb[k]["score"]) <= 1e-6
+            for k in sb)
+        check(da.get("fused") is None and sa, "sharded_snippets", f"debug {da}")
+    emit({"phase": "sharded_rerank_snippets", "card": _card(), "queries": len(queries),
+          "rerank_launches": launches, "rerank_max_final_diff": cross["max_final_diff"],
+          "snippet_reviews": SHARD_REVIEWS, "snippets_equal": snips_equal,
+          "best_lane_max_diff": worst_best, "tol": SHARD_FINAL_TOL})
+    check(snips_equal and worst_best <= SHARD_FINAL_TOL, "sharded_snippets",
+          f"snippets equal {snips_equal}, best lane differs by {worst_best}")
+
+
+def _shard_batched(torch, sh, one, qvecs, qstrings, w):
+    """(g) query_fused_batched at B=32 and _pw over the 256 queries against
+    the single exact engine's batched rows."""
+    b = BATCHES[0]
+    pw_w = [KNOB_SETS[i % len(KNOB_SETS)] for i in range(len(qstrings))]
+    worst, swaps = 0.0, 0
+    for lo in range(0, len(qstrings), b):
+        sl = slice(lo, lo + b)
+        for run in (lambda e: e.query_fused_batched(qvecs[sl], qstrings[sl], w, POOL, K),
+                    lambda e: e.query_fused_batched_pw(qvecs[sl], qstrings[sl], pw_w[sl],
+                                                       POOL, K)[:2]):
+            (ra, fa), (rb, fb) = ([t.cpu().numpy() for t in run(e)] for e in (sh, one))
+            for i in range(len(ra)):
+                d, n = _near_ties(ra[i], fa[i], rb[i], fb[i], SHARD_FINAL_TOL,
+                                  "sharded_batched", f"query {lo + i}")
+                worst, swaps = max(worst, d), swaps + n
+    emit({"phase": "sharded_batched", "card": _card(), "queries": len(qstrings), "B": b,
+          "forms": ["query_fused_batched", "query_fused_batched_pw"],
+          "max_final_diff": worst, "rank_swaps": swaps, "tol": SHARD_FINAL_TOL})
+
+
+def _shard_serve(torch, sh, one, qvecs, qstrings):
+    """(h) the stdlib server over the sharded engine against one over the
+    single engine; 16 rerank riders coalescing on the sharded one."""
+    import threading
+
+    from review_recommender_tpu_torch.serve.api import serve
+
+    srvs = {}
+    for name, eng in (("sharded", sh), ("single", one)):
+        srvs[name] = serve(eng, host="127.0.0.1", port=0)
+        threading.Thread(target=srvs[name].serve_forever, daemon=True).start()
+    try:
+        payloads = [{"query": q, "k": K, "rerank_k": 0, **SERVE_KNOBS}
+                    for q in qstrings[:SHARD_REQUESTS]]
+        outs = {name: _concurrent(srv.server_address[1], payloads, SHARD_CLIENTS)
+                for name, srv in srvs.items()}
+        worst, swaps = 0.0, 0
+        for i, (a, b) in enumerate(zip(outs["sharded"][0], outs["single"][0])):
+            d, n = _near_ties([r["sku"] for r in a["results"]],
+                              [r["_final"] for r in a["results"]],
+                              [r["sku"] for r in b["results"]],
+                              [r["_final"] for r in b["results"]], SHARD_FINAL_TOL,
+                              "sharded_serve", f"request {i}")
+            worst, swaps = max(worst, d), swaps + n
+        batcher = srvs["sharded"].service.batcher
+        riders = [{"query": q, "qvec": qvecs[i].tolist(), "k": K, "rerank_k": RERANK_K,
+                   **RERANK_KNOBS} for i, q in enumerate(qstrings[:RIDERS])]
+        w0 = batcher.batches
+        r_outs, r_lat, _wall = _concurrent(srvs["sharded"].server_address[1], riders, RIDERS)
+        windows = batcher.batches - w0
+        sku_row = {sku: i for i, sku in enumerate(sh.products.skus)}
+        rider = _rider_check(one, qvecs[:RIDERS], qstrings[:RIDERS], _served(r_outs, sku_row),
+                             "sharded_serve")
+    finally:
+        for srv in srvs.values():
+            srv.shutdown()
+            srv.service.close()
+    emit({"phase": "sharded_serve", "card": _card(), "requests": SHARD_REQUESTS,
+          "clients": SHARD_CLIENTS, "sharded": _pct(outs["sharded"][1]),
+          "single": _pct(outs["single"][1]),
+          "sharded_requests_per_s": SHARD_REQUESTS / outs["sharded"][2],
+          "single_requests_per_s": SHARD_REQUESTS / outs["single"][2],
+          "vs_single_server": {"max_final_diff": worst, "rank_swaps": swaps},
+          "riders": RIDERS, "rider_windows": windows, "rider_check": rider})
+    check(windows < RIDERS, "sharded_serve", f"{RIDERS} riders took {windows} windows")
+
+
+def _shard_cli(torch, query):
+    """(i) one `search --shards SHARDS` subprocess on phase 13's saved 200k
+    bundle: the cap to the devices present on stderr, and the rows of
+    --shards 1 (in process)."""
+    import shutil
+
+    bdir = OFFLINE_DIR / "bundle_200k"
+    argv = ["search", query, "--index-dir", str(bdir), "--device", DEV]
+    t0 = time.perf_counter()
+    rc, _out, err = _cli_process(argv + ["--shards", str(SHARDS), "--json-out",
+                                         str(OFFLINE_DIR / "sharded.json")])
+    seconds = time.perf_counter() - t0
+    check(rc == 0, "sharded_cli", f"search --shards {SHARDS} exited {rc}: {err[-1500:]}")
+    cap = [line for line in err.splitlines() if line.startswith(f"--shards {SHARDS} >")]
+    code, _printed = _cli(argv + ["--shards", "1", "--json-out", str(OFFLINE_DIR / "one.json")])
+    check(code == 0, "sharded_cli", f"search --shards 1 exited {code}")
+    got, want = (json.loads((OFFLINE_DIR / f).read_text()) for f in ("sharded.json", "one.json"))
+    same = [r["sku"] for r in got["results"]] == [r["sku"] for r in want["results"]]
+    emit({"phase": "sharded_cli", "card": _card(), "subprocess_s": seconds, "stderr_cap": cap,
+          "n_shards": got["debug"].get("n_shards"), "rows_equal_one_shard": same})
+    check(len(cap) == 1 and cap[0].endswith(f"using {torch.cuda.device_count()}"), "sharded_cli",
+          f"no cap line on stderr: {err[-800:]}")
+    check(same and len(got["results"]) == K, "sharded_cli", "rows differ from --shards 1")
+    shutil.rmtree(OFFLINE_DIR, ignore_errors=True)
+
+
+def phase_sharded(torch, engine, qvecs):
+    """Phase 18: ShardedSearchEngine with SHARDS shards on the one card
+    (devices=[DEV] * SHARDS) on phase 4's products and towers. Returns the
+    kernel launches of its main path and the BM25 kernels' largest errors
+    against their plain versions on one shard's tensors."""
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+    from review_recommender_tpu_torch.ops.fusion import FusionWeights
+    from review_recommender_tpu_torch.parallel.sharded import ShardedSearchEngine
+
+    products, be, ce = engine.products, engine.query_encoder, engine.cross_encoder
+    devices = [DEV] * SHARDS
+    t0 = time.perf_counter()
+    bundle = IndexBundle(products=products, reviews=_review_index(torch, products,
+                                                                  SHARD_REVIEWS))
+    reviews_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sh = ShardedSearchEngine(bundle, devices=devices, dense_pool="exact", query_encoder=be,
+                             cross_encoder=ce)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    one = SearchEngine(bundle, device=DEV, dense_pool="exact", query_encoder=be,
+                       cross_encoder=ce)
+    sh.attach_models(be, ce)
+    one.attach_models(be, ce)
+    check(sh.n_shards == SHARDS and len(set(sh.devices)) == 1
+          and sh.device.type == torch.device(DEV).type
+          and all(t.device == sh.device for s in sh.shards
+                  for t in list(s.arrays.values()) + list(s.rev.values())), "sharded",
+          f"shards on {sh.devices}")
+    emit({"phase": "sharded_setup", "card": _card(), "shards": SHARDS,
+          "devices": [str(d) for d in sh.devices], "rows_a_shard": sh.per,
+          "rows": sh.n_rows, "reviews": SHARD_REVIEWS, "reviews_s": reviews_s,
+          "init_s": init_s, "fit": {k: sh.hbm_report[k] for k in
+                                    ("total_bytes", "per_device_bytes", "frac", "n_shards")}})
+    qv, _qt, qstrings = _bench_queries(BENCH_QUERIES, DIM, VOCAB)
+    queries = _queries(SHARD_QUERIES, DIM, VOCAB)
+    _zero_counts()
+    _shard_exact(torch, sh, one, queries)
+    _shard_striped(torch, engine, one, ShardedSearchEngine(
+        IndexBundle(products=products), devices=devices, dense_pool="striped"),
+        qv[:SHARD_QUERIES])
+    counts = _counts()
+    _zero_counts()
+    _shard_int8_ivf(torch, products, devices, qv[:SHARD_SMALL])
+    bm25 = _shard_bm25(torch, products, devices, queries[:SHARD_SMALL])
+    counts = {k: counts[k] + v for k, v in _counts().items()}
+    errs = _shard_kernels_vs_plain(torch, bm25["b_classic"], bm25["c_unpackable"], queries[:2])
+    del bm25
+    _zero_counts()
+    w = FusionWeights.make(*RERANK_W)
+    _shard_e2e(torch, sh, one, queries[:SHARD_SMALL], w)
+    _shard_split(torch, sh, one, queries[:SHARD_SMALL])
+    _shard_batched(torch, sh, one, qv, qstrings, FusionWeights.make(*BENCH_W))
+    _shard_serve(torch, sh, one, qvecs, qstrings)
+    _shard_cli(torch, queries[0])
+    counts = {k: counts[k] + v for k, v in _counts().items()}
+    emit({"phase": "sharded_memory", "card": _card(), "launches": counts,
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "what": "the resident phases' engines + phase 18's shards and single engines"})
+    return counts, errs
+
+
 def main() -> int:
     import torch
 
@@ -4219,6 +4706,12 @@ def main() -> int:
         mark("offline")
         launches += phase_configurations(torch, engine, qvecs)
         mark("configurations")
+        sharded_launches, sharded_err = phase_sharded(torch, engine, qvecs)
+        launches += sharded_launches["mha_fwd"]
+        for name in ("bm25_packed", "bm25_unpacked"):
+            bm25_launches[name] += sharded_launches[name]
+            bm25_err[name] = max(bm25_err[name], sharded_err[name])
+        mark("sharded")
         products = engine.products
         del engine
         train_launches, recomputes = phase_training(torch)

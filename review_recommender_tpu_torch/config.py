@@ -125,8 +125,11 @@ class Config:
     # reviews kept per product for the snippet index
     # (data/prep.py:filter_reviews_for_snippets); 0 disables the cap
     SNIPPET_REVIEWS_CAP = _env_int("SNIPPET_REVIEWS_CAP", "256")
-    # devices the corpus is sharded over; the port serves one (item 12)
+    # devices the corpus is sharded over (parallel/sharded.py; the CLI's
+    # --shards); "1" = one device
     MESH_SHARDS = _env_int("MESH_SHARDS", "1")
+    # JAX's MESH_AXIS (the shard_map axis name) has no counterpart: the
+    # port has no mesh, its shards are a list of devices
 
     ENABLE_BM25 = _env_bool("ENABLE_BM25", "true")
     ENABLE_RERANKING = _env_bool("ENABLE_RERANKING", "true")

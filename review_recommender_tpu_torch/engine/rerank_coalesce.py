@@ -45,8 +45,8 @@ def _rerank_b_batched(st, rerank_raw, rerank_mask, best_raw, has_snips, gate,
 
 class RerankCoalesceMixin:
     """`query_rerank_batched_pw` for an engine with `_rerank_stage_a`, a
-    featurizer, `arrays`, `products`, `cross_encoder`, `device` and
-    `_upload`."""
+    featurizer, `n_rows` (the rows a pool can take), `products`,
+    `cross_encoder`, `device` and `_upload`."""
 
     def query_rerank_batched_pw(self, qvecs, queries: List[str], weights: List,
                                 rerank_ks: List[int], pool: int, k: int,
@@ -57,7 +57,7 @@ class RerankCoalesceMixin:
         (B, k), scores (B, k), breakdown (B, k, 7)), device tensors."""
         c = config
         use_snips = bool(use_snips) and c.ENABLE_SNIPPETS
-        pool = min(int(pool), int(self.arrays["valid"].shape[0]))
+        pool = min(int(pool), self.n_rows)
         packed = self.featurizer.featurize_packed_batch(list(queries))
         wmat = np.asarray([tuple(map(float, w)) for w in weights], np.float32)
         qp = self._upload(np.concatenate([np.asarray(qvecs, np.float32), packed, wmat], axis=1))

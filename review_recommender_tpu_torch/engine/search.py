@@ -3,8 +3,11 @@
 Counterpart of `review_recommender_tpu/engine/search.py` (`__init__`,
 `_dense_topk`, `_stage_a_impl`, `_stage_b_impl`, `_fused_impl`,
 `encode_query`, `run_search`, the fused query forms, the on-device rerank
-lane `query_e2e` and the coalesced rerank stage A). Per query of
-`run_search`:
+lane `query_e2e` and the coalesced rerank stage A). `run_search`,
+`encode_query`, `query_e2e` and the fused query forms but `query_fused1`
+are written once for this engine and the sharded one
+(engine/query_forms.py), over this engine's `_stage_a_for`,
+`_fused_packed` and `_e2e_impl`. Per query of `run_search`:
 
   host    encode the query (bi-encoder hook)               encode_query
   host    featurize: term ids + idf, gate masks             engine/featurize
@@ -15,7 +18,7 @@ lane `query_e2e` and the coalesced rerank stage A). Per query of
 
 Without a live cross-encoder, snippets or max_scan and with the device
 gate, the whole query runs as one device pass with one packed input copy
-and one (k, 9) result fetch (`_fused_packed1`), as in the JAX package's
+and one (k, 9) result fetch (`_result_buffer`), as in the JAX package's
 single-program path.
 
 The same pass answers a batch (`query_fused_batched`, and
@@ -76,15 +79,9 @@ import torch
 
 from review_recommender_tpu_torch.config import config
 from review_recommender_tpu_torch.device import resolve_device
-from review_recommender_tpu_torch.engine.featurize import QueryFeaturizer, unpack_features
-from review_recommender_tpu_torch.engine.hooks import (
-    SIGNAL_ORDER,
-    SNIPPET_NONE,
-    SplitPathHooksMixin,
-    assemble_result_rows,
-    breakdown,
-    resolve_search_knobs,
-)
+from review_recommender_tpu_torch.engine.featurize import QueryFeaturizer
+from review_recommender_tpu_torch.engine.hooks import SNIPPET_NONE, SplitPathHooksMixin, breakdown
+from review_recommender_tpu_torch.engine.query_forms import QueryFormsMixin
 from review_recommender_tpu_torch.engine.rerank_coalesce import RerankCoalesceMixin
 from review_recommender_tpu_torch.engine.snippets import HostSnippetsMixin
 from review_recommender_tpu_torch.index.schema import (
@@ -117,12 +114,10 @@ from review_recommender_tpu_torch.ops.dense import (
 from review_recommender_tpu_torch.ops.fusion import FusionWeights, final_topk, fuse_candidates
 from review_recommender_tpu_torch.ops.gate import gate_factors_device
 from review_recommender_tpu_torch.ops.segment import best_review_scores
-from review_recommender_tpu_torch.utils.profiling import StageTimer
 
 logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
-E2E_QUERY_TOKENS = 30  # query_e2e's query budget: [CLS] + 30 + [SEP] = 32 lanes
 
 
 def _query_head(cls_id: int, sep_id: int, q_raw: torch.Tensor, q_len: int,
@@ -182,7 +177,8 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and index(a) == index(b)
 
 
-class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
+class SearchEngine(QueryFormsMixin, HostSnippetsMixin, RerankCoalesceMixin,
+                   SplitPathHooksMixin):
     def __init__(
         self,
         bundle: IndexBundle,
@@ -207,6 +203,7 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
         self.products = bundle.products
         self.reviews = bundle.reviews
         self.n_docs = self.products.n_docs
+        self.n_rows = self.products.n_padded  # the rows a pool can take
         raw_dtype = emb_dtype or config.EMB_DTYPE
         self.int8_mode = raw_dtype == "int8"
         if not self.int8_mode and raw_dtype not in _DTYPES:
@@ -328,6 +325,11 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
         return stable_topk(sims, min(int(pool), sims.shape[-1]))
 
     # --------------------------------------------------------------- stage A
+    def _stage_a_for(self, qvec, q_terms, q_idf, gp_mask, gt_ids, g_valid, *, pool):
+        """QueryFormsMixin hook: run_search's stage A on this engine's arrays."""
+        return self._stage_a_impl(self.arrays, qvec, q_terms, q_idf, gp_mask, gt_ids, g_valid,
+                                  pool=pool)
+
     def _stage_a_impl(self, a, qvec, q_terms, q_idf, gp_mask, gt_ids, g_valid, *, pool):
         """Pool, candidate gather, BM25 and gate hit counts for qvec (D,), or
         for a batch (B, D) whose features carry the same leading axis; every
@@ -357,17 +359,6 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
             "avg_stars": take(a["avg_stars"]),
         }
 
-    # --------------------------------------------------------------- stage B
-    def _stage_b_impl(self, st, rerank_raw, rerank_mask, best_raw, has_snippets,
-                      gate, w, *, k):
-        res = fuse_candidates(
-            st["dense_raw"], st["bm25_raw"], rerank_raw, rerank_mask,
-            best_raw, has_snippets, st["n_reviews"], st["avg_stars"],
-            gate, st["cand_valid"], w,
-        )
-        scores, pos = final_topk(res, k)
-        return res, scores, pos
-
     # ------------------------------------------------------------- snippets
     def _snippet_scores_impl(self, rev, qvec):
         """(..., n_docs) best review sim per product for qvec (D,) or (B, D)."""
@@ -378,11 +369,6 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
         """SplitPathHooksMixin hook: (n_docs,) for a host query vector."""
         q = torch.from_numpy(np.asarray(qvec, np.float32).reshape(-1)).to(self.device)
         return self._snippet_scores_impl(self.rev_arrays, q)
-
-    def _use_snips(self, use_snips) -> bool:
-        """The JAX engine's snippet switch: use_snips with ENABLE_SNIPPETS on
-        a bundle with reviews; anything else runs as use_snips=False."""
-        return bool(use_snips) and config.ENABLE_SNIPPETS and self.rev_arrays is not None
 
     def _snippet_lane(self, rev, qvec, idx, use_snips: bool):
         """(best_raw (..., P), has_snips) for the pool rows idx: each row's
@@ -399,12 +385,6 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
         # != 0, not > 0: the split path keeps all-negative sims as a computed
         # lane ((best_raw != 0).any()) and the fusion minmaxes them
         return best_raw, (best_raw != 0).any(dim=-1, keepdim=True)
-
-    @staticmethod
-    def _device_gate(gate_penalty, st) -> torch.Tensor:
-        """penalty ** (groups - hits): a float, or (B, 1) per-query penalties."""
-        base = torch.as_tensor(gate_penalty, dtype=torch.float32, device=st["idx"].device)
-        return torch.pow(base, (st["n_groups"] - st["gate_hits"]).to(torch.float32))
 
     # ------------------------------------------------------------ fused path
     def _fused_impl(self, a, rev, qvec, q_terms, q_idf, gp_mask, gt_ids, g_valid,
@@ -427,10 +407,6 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
         scores, pos = final_topk(res, k)
         return st["idx"].gather(-1, pos), scores, breakdown(res, pos)
 
-    def _unpack(self, packed: torch.Tensor):
-        return unpack_features(packed, self.featurizer.query_terms_cap,
-                               self.featurizer.gate_terms_cap)
-
     def _fused_packed(self, qp: torch.Tensor, w: FusionWeights, use_snips: bool, *, pool, k):
         """The fused query from combined rows [qvec | packed features]: (L,)
         for one query, (B, L) for a batch with shared weights (the JAX
@@ -441,45 +417,16 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
                                 *self._unpack(qp[..., d:]), w, use_snips, pool=pool, k=k)
 
     @staticmethod
-    def _row_weights(qp: torch.Tensor) -> FusionWeights:
-        """The 8 per-query knobs at the tail of each (B, L + 8) row, in
-        FusionWeights field order, each as (B, 1)."""
-        return FusionWeights(*(qp[:, i - 8, None] for i in range(8)))
-
-    def _fused_packed_pw(self, qp: torch.Tensor, use_snips: bool, *, pool, k):
-        """Per-query fusion weights: each (B, L + 8) row carries its own 8
-        knobs at the tail [qvec | features | weights], so a batch of requests
-        with different knobs is still one pass with one input copy."""
-        return self._fused_packed(qp[:, :-8], self._row_weights(qp), use_snips, pool=pool, k=k)
-
-    @staticmethod
-    def _result_buffer(rows, scores, bd) -> torch.Tensor:
-        """(k, 9) f32 [row id, final, 7 signals]: one fetch for a query's
-        results (row ids are exact in f32 below 2^24 rows)."""
-        return torch.cat([rows.to(torch.float32)[..., None], scores[..., None], bd], dim=-1)
+    def split_fused1(out):
+        """(k, 9) result, a tensor or a host array -> (row ids (k,) int64,
+        final scores (k,)) on the host."""
+        out = out.cpu().numpy() if torch.is_tensor(out) else np.asarray(out)
+        return out[:, 0].astype(np.int64), out[:, 1]
 
     def _fused_packed1(self, qp: torch.Tensor, w: FusionWeights, use_snips: bool, *, pool, k):
         """The fused query from ONE input buffer [qvec | packed features] to
         ONE (k, 9) f32 output (_result_buffer)."""
         return self._result_buffer(*self._fused_packed(qp, w, use_snips, pool=pool, k=k))
-
-    # ------------------------------------------------------------ fused query
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(self.device)
-
-    def _combined(self, qvec, packed) -> np.ndarray:
-        qv = np.asarray(qvec, np.float32).reshape(-1)
-        return np.concatenate([qv, packed])
-
-    def query_fused(self, qvec, query: str, w: FusionWeights, pool: int, k: int,
-                    use_snips: bool = False):
-        """Single-pass query (no rerank): (corpus row ids (k,), final scores
-        (k,)) as device tensors. The query vector and all features travel
-        in one buffer, one host->device copy."""
-        qp = self._upload(self._combined(qvec, self.featurizer.featurize_packed(query)))
-        rows, scores, _bd = self._fused_packed(
-            qp, w, self._use_snips(use_snips), pool=min(pool, self.products.n_padded), k=k)
-        return rows, scores
 
     def query_fused1(self, qvec, query: str, w: FusionWeights, pool: int, k: int,
                      use_snips: bool = False) -> torch.Tensor:
@@ -489,37 +436,6 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
         qp = self._upload(self._combined(qvec, self.featurizer.featurize_packed(query)))
         return self._fused_packed1(qp, w, self._use_snips(use_snips),
                                    pool=min(pool, self.products.n_padded), k=k)
-
-    @staticmethod
-    def split_fused1(out):
-        """(k, 9) result, a tensor or a host array -> (row ids (k,) int64,
-        final scores (k,)) on the host."""
-        out = out.cpu().numpy() if torch.is_tensor(out) else np.asarray(out)
-        return out[:, 0].astype(np.int64), out[:, 1]
-
-    def query_fused_batched(self, qvecs, queries: List[str], w: FusionWeights,
-                            pool: int, k: int, use_snips: bool = False):
-        """Batched single-pass hybrid search (no rerank): qvecs (B, D), B
-        query strings -> (row ids (B, k), scores (B, k)), device tensors."""
-        packed = self.featurizer.featurize_packed_batch(queries)
-        qp = self._upload(np.concatenate([np.asarray(qvecs, np.float32), packed], axis=1))
-        rows, scores, _bd = self._fused_packed(
-            qp, w, self._use_snips(use_snips), pool=min(pool, self.products.n_padded), k=k)
-        return rows, scores
-
-    def query_fused_batched_pw(self, qvecs, queries: List[str], weights, pool: int,
-                               k: int, use_snips: bool = False):
-        """Batched fused search with per-query fusion weights (a server's
-        micro-batcher coalesces requests with different knobs): `weights`
-        holds one 8-float sequence per query in FusionWeights field order.
-        Returns (rows (B, k), scores (B, k), breakdown (B, k, 7) [dense,
-        bm25, rerank, prior, best, trust, gate]), device tensors."""
-        packed = self.featurizer.featurize_packed_batch(queries)
-        wmat = np.asarray([tuple(map(float, w)) for w in weights], np.float32)
-        qp = self._upload(np.concatenate([np.asarray(qvecs, np.float32), packed, wmat],
-                                         axis=1))
-        return self._fused_packed_pw(qp, self._use_snips(use_snips),
-                                     pool=min(pool, self.products.n_padded), k=k)
 
     # ------------------------------------------------- coalesced rerank, stage A
     def _rerank_a_impl(self, a, rev, qp: torch.Tensor, use_snips: bool, *, pool):
@@ -563,9 +479,13 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
         tok = self._be.tokenizer
         return build_pairs_device(tok.cls_id, tok.sep_id, q_raw, q_len, d_tok, d_len)
 
-    def _e2e_impl(self, a, q_raw, q_len: int, packed, w: FusionWeights, *, pool, k, rr_k):
+    def _has_rerank_tokens(self) -> bool:
+        return "doc_tokens" in self.arrays
+
+    def _e2e_impl(self, q_raw, q_len: int, packed, w: FusionWeights, *, pool, k, rr_k):
         """The whole query on the device from the query's token ids: returns
         (rows (k,), final (k,), qvec (D,))."""
+        a = self.arrays
         tok = self._be.tokenizer
         b_ids, b_mask = encode_query_ids_device(tok.cls_id, tok.sep_id, q_raw, q_len)
         qvec = self._be.model(b_ids[None], b_mask[None])[0]
@@ -591,30 +511,6 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
         )
         scores, pos = final_topk(res, min(k, p))
         return st["idx"][pos], scores, qvec
-
-    def query_e2e(self, query: str, w: FusionWeights, pool: int, k: int, rr_k: int = 0):
-        """The query on the device from its token ids: bi-encoder forward,
-        pool, BM25, gate, the cross-encoder over the first rr_k candidates
-        (pairs built on the device), fusion, top-k. Needs attach_models();
-        rr_k > 0 needs an index built with attach_rerank_tokens. Returns
-        (row ids (k,), final scores (k,)), device tensors. One host->device
-        copy: the query ids ride in front of the packed features."""
-        if self._be is None:
-            raise RuntimeError("call attach_models(biencoder[, crossencoder]) first")
-        if not config.ENABLE_RERANKING:
-            rr_k = 0
-        if rr_k > 0 and "doc_tokens" not in self.arrays:
-            raise RuntimeError("index has no doc_tokens; build with attach_rerank_tokens()")
-        ids = self._be.tokenizer.token_ids(query)[:E2E_QUERY_TOKENS]
-        q_raw = np.zeros(E2E_QUERY_TOKENS, np.float32)  # ids are exact in f32
-        q_raw[: len(ids)] = ids
-        buf = self._upload(np.concatenate([q_raw, self.featurizer.featurize_packed(query)]))
-        with torch.inference_mode():
-            rows, scores, _q = self._e2e_impl(
-                self.arrays, buf[:E2E_QUERY_TOKENS].to(torch.int32), len(ids),
-                buf[E2E_QUERY_TOKENS:], w, pool=min(pool, self.products.n_padded), k=k,
-                rr_k=int(rr_k))
-        return rows, scores
 
     # ------------------------------------------------- standalone retrieval
     def search_dense(self, qvec, k: int):
@@ -682,120 +578,3 @@ class SearchEngine(HostSnippetsMixin, RerankCoalesceMixin, SplitPathHooksMixin):
                 torch.from_numpy(np.pad(p.valid, (0, pad)).astype(bool)).to(self.device),
             )
         return self._bm25_packed_cache
-
-    # ---------------------------------------------------------------- public
-    def encode_query(self, query: str) -> np.ndarray:
-        if self.query_encoder is None:
-            raise RuntimeError(
-                "No query encoder configured: pass query_encoder= to SearchEngine "
-                "or a precomputed vector as run_search(qvec=...)")
-        v = np.asarray(self.query_encoder(query), dtype=np.float32).reshape(-1)
-        return v / max(np.linalg.norm(v), 1e-12)
-
-    def run_search(
-        self,
-        query: str,
-        k: int = None,
-        rerank_k: int = None,
-        w_dense: float = None,
-        w_bm25: float = None,
-        w_rerank: float = None,
-        w_prior: float = None,
-        w_best: float = None,
-        prior_C: float = None,
-        use_snips: bool = False,
-        max_scan: int = 0,
-        min_reviews: int = None,
-        gate_penalty: float = None,
-        qvec: Optional[np.ndarray] = None,
-    ):
-        """Hybrid search. Returns (rows, snippets, debug): rows is the list
-        of result dicts in rank order, in the JAX package's column order;
-        snippets maps a result's sku to its best review {score, text,
-        stars} when the snippet lane ran.
-
-        max_scan: 0 (the default) scores every review on the device;
-        max_scan > 0 takes the reference's truncated host scan (candidate
-        review rows in file order, cut at max_scan), -1 the same at
-        MAX_REVIEWS_SCAN rows."""
-        c = config
-        k, rerank_k, gate_pen_h, w = resolve_search_knobs(
-            k, rerank_k, w_dense, w_bm25, w_rerank, w_prior, w_best,
-            prior_C, min_reviews, gate_penalty,
-        )
-        max_scan = int(max_scan or 0)
-        timer = StageTimer()
-        if qvec is None:
-            with timer.stage("encode_query"):
-                qvec = self.encode_query(query)
-        qvec_h = np.asarray(qvec, dtype=np.float32).reshape(-1)
-
-        with timer.stage("featurize"):
-            qf = self.featurizer.featurize(query)
-        pool = min(max(k, rerank_k, c.DEFAULT_POOL_SIZE), self.products.n_padded)
-
-        rerank_live = (rerank_k > 0 and self.cross_encoder is not None
-                       and c.ENABLE_RERANKING)
-        use_snips_eff = bool(use_snips) and c.ENABLE_SNIPPETS and self.reviews is not None
-        if (self.gate_mode == "device" and not rerank_live and not use_snips_eff
-                and max_scan == 0):
-            with timer.stage("fused_query"):
-                qp = self._upload(self._combined(qvec_h, qf.pack()))
-                out = self._fused_packed1(qp, w, False, pool=pool, k=min(k, pool))
-            with timer.stage("fetch"):
-                buf = out.cpu().numpy()
-            return self._rows_from_fused1(buf, qf, pool, timer)
-
-        to_dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-        with timer.stage("retrieve"):
-            st = self._stage_a_impl(
-                self.arrays, to_dev(qvec_h), to_dev(qf.q_terms), to_dev(qf.q_idf),
-                to_dev(qf.group_phrase_mask), to_dev(qf.group_term_ids),
-                to_dev(qf.group_valid), pool=pool,
-            )
-            idx = st["idx"].cpu().numpy()
-            cand_valid_h = st["cand_valid"].cpu().numpy()
-        n_cand = int(cand_valid_h.sum())
-        cand_rows = idx[:n_cand]
-        P = idx.shape[0]
-
-        rerank_raw, rerank_mask, gate, best_raw, has_snips, snips = self._split_host_hooks(
-            query, qf.groups, qvec_h, cand_rows, P, rerank_k=rerank_k,
-            gate_pen_h=gate_pen_h, use_snips_eff=use_snips_eff, max_scan=max_scan,
-            gate_hits=st["gate_hits"], n_groups=st["n_groups"], timer=timer,
-        )
-
-        with timer.stage("fuse"):
-            res, scores, pos = self._stage_b_impl(
-                st, to_dev(rerank_raw), to_dev(rerank_mask), to_dev(best_raw), has_snips,
-                gate, w, k=min(k, P),
-            )
-            buf = self._result_buffer(st["idx"][pos], scores, breakdown(res, pos)).cpu().numpy()
-        sig = {name: buf[:, 2 + i] for i, name in enumerate(SIGNAL_ORDER)}
-        rows = assemble_result_rows(self.products, buf[:, 0], buf[:, 1], sig)
-        debug = {
-            "bm25_active": bool(np.any(qf.q_idf > 0)),
-            "tokens": qf.tokens,
-            "groups": [sorted(g) for g in qf.groups],
-            "pool": pool,
-            "gate_mode": self.gate_mode,
-            "n_candidates": n_cand,
-            "stage_ms": {name: v["total_ms"] for name, v in timer.summary().items()},
-        }
-        return rows, snips, debug
-
-    def _rows_from_fused1(self, buf: np.ndarray, qf, pool: int, timer):
-        """(k, 9) fused output -> (rows, snippets, debug)."""
-        sig = {name: buf[:, 2 + i] for i, name in enumerate(SIGNAL_ORDER)}
-        rows = assemble_result_rows(self.products, buf[:, 0], buf[:, 1], sig)
-        debug = {
-            "bm25_active": bool(np.any(qf.q_idf > 0)),
-            "tokens": qf.tokens,
-            "groups": [sorted(g) for g in qf.groups],
-            "pool": pool,
-            "gate_mode": self.gate_mode,
-            "n_results": len(rows),
-            "fused": True,
-            "stage_ms": {name: v["total_ms"] for name, v in timer.summary().items()},
-        }
-        return rows, {}, debug

@@ -16,6 +16,7 @@ emb_q (N_pad, D) int8 and emb_scale (N_pad,) f32 in place of emb.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import os
@@ -251,34 +252,53 @@ def device_memory_limit(device: torch.device) -> Optional[int]:
     return int(total)
 
 
-def check_hbm_fit(total_bytes: int, device: torch.device, warn_frac: float = 0.8,
+def _device_loads(total_bytes: int, device) -> Dict[torch.device, int]:
+    """Bytes each device holds: `device` is one device, or the shard devices
+    of a sharded engine (repeats allowed). A shard holds 1/n of the
+    row-sharded bytes and a device the sum of its shards, so four shards on
+    one card are held to the whole footprint."""
+    devices = [device] if isinstance(device, (str, torch.device)) else list(device)
+    counts = collections.Counter(torch.device(d) for d in devices)
+    return {dev: int(total_bytes) * c // len(devices) for dev, c in counts.items()}
+
+
+def check_hbm_fit(total_bytes: int, device, warn_frac: float = 0.8,
                   limit_bytes: Optional[int] = None) -> Dict:
-    """Fit report of a footprint against the device's memory:
-    {total_bytes, limit_bytes, frac, fits, warn}; callers decide."""
-    limit = device_memory_limit(device) if limit_bytes is None else int(limit_bytes)
-    frac = (int(total_bytes) / limit) if limit else None
+    """Fit report of a footprint against device memory: {total_bytes,
+    per_device_bytes, limit_bytes, frac, fits, warn, n_shards}, read at the
+    most loaded device (_device_loads); callers decide. `device` is a
+    device or a list of shard devices (JAX: total / n_shards per device)."""
+    loads = _device_loads(total_bytes, device)
+    rows = []
+    for dev, load in loads.items():
+        limit = device_memory_limit(dev) if limit_bytes is None else int(limit_bytes)
+        rows.append((load / limit if limit else None, load, limit))
+    frac, per_dev, limit = max(rows, key=lambda r: (r[0] or 0.0, r[1]))
     return {
         "total_bytes": int(total_bytes),
+        "per_device_bytes": per_dev,
         "limit_bytes": limit,
         "frac": frac,
         "fits": frac is None or frac <= 1.0,
         "warn": frac is not None and frac > warn_frac,
+        "n_shards": 1 if isinstance(device, (str, torch.device)) else len(list(device)),
     }
 
 
-def enforce_hbm_fit(bundle: IndexBundle, device: torch.device,
+def enforce_hbm_fit(bundle: IndexBundle, device,
                     emb_dtype: torch.dtype = torch.bfloat16, quantize_int8: bool = False,
                     striped: bool = False, ivf: bool = False, ivf_centroids: int = 0,
                     ivf_block_rows: int = 0) -> Dict:
-    """Refuse (RuntimeError) to place a bundle that cannot fit the device;
+    """Refuse (RuntimeError) to place a bundle that cannot fit the device,
+    or the most loaded of a sharded engine's shard devices (check_hbm_fit);
     warn above 80%. RRT_IGNORE_HBM_CHECK=true downgrades the refusal to a
     warning, as in the JAX package."""
     fp, total = footprint_total(bundle, emb_dtype, quantize_int8, striped, ivf,
                                 ivf_centroids, ivf_block_rows)
     rep = check_hbm_fit(total, device)
-    gib = rep["total_bytes"] / 2**30
+    gib = rep["per_device_bytes"] / 2**30
     if not rep["fits"]:
-        msg = (f"index bundle needs {gib:.2f} GiB but the device has "
+        msg = (f"index bundle needs {gib:.2f} GiB on a device that has "
                f"{rep['limit_bytes'] / 2**30:.2f} GiB (largest arrays: "
                f"{sorted(fp, key=fp.get, reverse=True)[:3]})")
         if os.getenv("RRT_IGNORE_HBM_CHECK", "").lower() == "true":

@@ -33,7 +33,7 @@ from review_recommender_tpu_torch.utils.numerics import minmax_normalize_masked
 class FusionWeights(NamedTuple):
     """Fusion knobs as plain floats (torch takes Python scalars in f32 ops,
     so there are no device scalars to cache), or as (B, 1) f32 tensors for
-    per-query knobs (engine/search.py:_fused_packed_pw)."""
+    per-query knobs (engine/query_forms.py:_fused_packed_pw)."""
 
     w_dense: float
     w_bm25: float

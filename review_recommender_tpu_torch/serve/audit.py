@@ -9,7 +9,11 @@ against the device's memory under EMB_DTYPE (int8: emb_q + emb_scale) and
 DENSE_POOL_MODE (striped: one more corpus; ivf: the block tensor's worst
 case, index/schema.py:footprint_total). It reads either bundle layout
 (index/io.py): the port's numpy meta files or a JAX bundle's parquet.
-The footprint is checked on `device` (on the CPU no limit applies).
+The footprint is checked on `device` (on the CPU no limit applies), per
+device over the MESH_SHARDS shards the CLI would place
+(device.resolve_devices: capped to the CUDA devices present; a device's
+load is the sum of its shards), and the report carries `mesh_shards` and
+`per_device_bytes`, as JAX's does.
 
 Returns a JSON-safe report whose `ok` gates deployment (the CLI's exit code).
 """
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from review_recommender_tpu_torch.config import config
-from review_recommender_tpu_torch.device import resolve_device
+from review_recommender_tpu_torch.device import resolve_devices
 from review_recommender_tpu_torch.index import io
 from review_recommender_tpu_torch.index.schema import (
     SCHEMA_VERSION,
@@ -118,14 +122,18 @@ def audit_index_dir(index_dir, verify_checksums: bool = True, device="cuda") -> 
                                     striped=pool == "striped", ivf=pool == "ivf",
                                     ivf_centroids=config.IVF_CENTROIDS,
                                     ivf_block_rows=config.IVF_BLOCK_ROWS)
-        fit = check_hbm_fit(total, resolve_device(device))
+        shard_devices = resolve_devices(None, max(config.MESH_SHARDS, 1), device)
+        fit = check_hbm_fit(total, shard_devices)
         check("hbm_fit", fit["fits"],
-              f"{total / 2**20:.1f} MiB on {device}"
+              f"{fit['per_device_bytes'] / 2**20:.1f} MiB/device on {device} "
+              f"({len(shard_devices)} shards)"
               + (f" of {fit['limit_bytes'] / 2**20:.0f} MiB ({100 * fit['frac']:.1f}%)"
                  if fit["limit_bytes"] else " (no device memory limit)"))
         footprint.update(
+            mesh_shards=config.MESH_SHARDS,
             bytes_per_array={k: int(v) for k, v in sorted(fp.items(), key=lambda kv: -kv[1])},
-            total_bytes=int(total), hbm_limit_bytes=fit["limit_bytes"])
+            total_bytes=int(total), per_device_bytes=fit["per_device_bytes"],
+            hbm_limit_bytes=fit["limit_bytes"])
 
     return {
         "ok": ok,

@@ -4,7 +4,9 @@ bench / eval / train, with topics and import beside it.
 Counterpart of `review_recommender_tpu/serve/cli.py`, with its parser's
 arguments and defaults, plus `--device` (default "cuda"; the tests pass
 "cpu"). `_load_engine` reads a bundle through index/io.py (either layout)
-and builds SearchEngine with the towers of EMB_MODEL_DIR / RERANK_MODEL_DIR
+and builds SearchEngine, or with --shards / MESH_SHARDS above 1 the
+ShardedSearchEngine (parallel/sharded.py), with the towers of
+EMB_MODEL_DIR / RERANK_MODEL_DIR
 (models/load.py: an HF snapshot or a native tower), or, where those are
 unset, random towers of the JAX CLI's shapes (`BiEncoder.random_for_dim(
 dim)`: bge-small at 384; `CrossEncoder.random_init()`: MiniLM-L6). A
@@ -13,10 +15,12 @@ not load, exits non-zero naming it. A loaded cross-encoder re-tokenizes
 the bundle's rerank tokens (index/build.py:attach_rerank_tokens) with its
 own tokenizer before the engine places them, so query_e2e never feeds it
 another tokenizer's ids; with both towers loaded the engine has them
-attached for query_e2e.
+attached for query_e2e. Above the CUDA devices present the shard count
+is capped to them with a line on stderr, as the JAX CLI caps it to its
+devices; with --device cpu the shards all go on the CPU.
 
-  python -m review_recommender_tpu_torch.serve.cli search "query" --index-dir DIR
-  ... serve  --index-dir DIR [--host H --port P] [--native] [--with-rerank]
+  python -m review_recommender_tpu_torch.serve.cli search "query" --index-dir DIR [--shards N]
+  ... serve  --index-dir DIR [--host H --port P] [--native] [--with-rerank] [--shards N]
   ... audit  --index-dir DIR     (exit code 0/1 gates a deploy)
   ... health [--url http://host:port]
   ... bench  --index-dir DIR [--n-queries 64]
@@ -45,11 +49,10 @@ instead. `import` is the JAX cmd_import on data/pipeline.py: a reference
 data directory (local or an fsspec URL) into a bundle, each table read
 from its numpy form where that exists, else from parquet.
 
-What the port cannot do yet exits non-zero and names its ROADMAP Queue 1
-item, where the JAX CLI would run something else: `--shards` /
-MESH_SHARDS above 1 (item 12). `serve --native` (or SERVE_NATIVE) raises
-when the native library cannot be built; it never falls back to the
-stdlib server.
+`topics --cluster density --shards N` builds the kNN graph over N shards
+(topics/density.py:knn_graph_sharded). `serve --native` (or SERVE_NATIVE)
+raises when the native library cannot be built; it never falls back to
+the stdlib server.
 """
 from __future__ import annotations
 
@@ -83,21 +86,33 @@ def _load_tower(kind: str, knob: str, device):
         _refuse(f"{knob}={path}: cannot load a {kind} ({type(e).__name__}: {e})")
 
 
+def _capped_shards(n_shards: int, device) -> int:
+    """n_shards capped to the devices present (device.shard_count), with
+    the JAX CLI's line on stderr where the cap applies: search, serve and
+    topics alike."""
+    from review_recommender_tpu_torch.device import shard_count
+
+    n, avail = shard_count(n_shards, device)
+    if n < n_shards:
+        print(f"--shards {n_shards} > {avail} available devices; using {avail}", file=sys.stderr)
+    return n
+
+
 def _load_engine(index_dir: str, gate_mode: Optional[str] = None, with_models: bool = True,
                  with_rerank: bool = False, dense_pool: Optional[str] = None,
                  shards: Optional[int] = None, device="cuda"):
-    """SearchEngine on `device` over the bundle at index_dir, with the
-    towers of EMB_MODEL_DIR / RERANK_MODEL_DIR or random ones (or none:
+    """SearchEngine on `device` over the bundle at index_dir, or with
+    `shards` (default MESH_SHARDS) above 1 a ShardedSearchEngine over that
+    many shards, capped to the CUDA devices present; with the towers of
+    EMB_MODEL_DIR / RERANK_MODEL_DIR or random ones (or none:
     with_models=False, with_rerank=False)."""
     from review_recommender_tpu_torch.engine.search import SearchEngine
     from review_recommender_tpu_torch.index.build import attach_rerank_tokens
     from review_recommender_tpu_torch.index.io import load_bundle
     from review_recommender_tpu_torch.models.encoder import BiEncoder, CrossEncoder
 
-    n_shards = config.MESH_SHARDS if shards is None else int(shards)
-    if n_shards > 1:
-        _refuse(f"--shards {n_shards}: the sharded engine is not ported yet "
-                "(ROADMAP Queue 1 item 12)")
+    asked = config.MESH_SHARDS if shards is None else int(shards)
+    n_shards = _capped_shards(asked, device) if asked > 1 else 1
     bundle = load_bundle(index_dir)
     encoder = cross = None
     if with_models and config.EMB_MODEL_DIR:
@@ -114,8 +129,14 @@ def _load_engine(index_dir: str, gate_mode: Optional[str] = None, with_models: b
             attach_rerank_tokens(p, cross.tokenizer, max_tokens=p.doc_tokens.shape[1])
     elif with_rerank and config.ENABLE_RERANKING:
         cross = CrossEncoder.random_init(device=device)
-    engine = SearchEngine(bundle, device=device, query_encoder=encoder, cross_encoder=cross,
-                          gate_mode=gate_mode, dense_pool=dense_pool)
+    kw = dict(query_encoder=encoder, cross_encoder=cross, gate_mode=gate_mode,
+              dense_pool=dense_pool)
+    if asked > 1:  # capped to one device, still the sharded engine (as in JAX)
+        from review_recommender_tpu_torch.parallel.sharded import ShardedSearchEngine
+
+        engine = ShardedSearchEngine(bundle, n_shards=n_shards, device=device, **kw)
+    else:
+        engine = SearchEngine(bundle, device=device, **kw)
     if encoder is not None and cross is not None and config.EMB_MODEL_DIR \
             and config.RERANK_MODEL_DIR:  # both loaded: tokens and towers agree
         engine.attach_models(encoder, cross)
@@ -124,7 +145,7 @@ def _load_engine(index_dir: str, gate_mode: Optional[str] = None, with_models: b
 
 def cmd_search(args) -> int:
     engine = _load_engine(args.index_dir, args.gate_mode, with_rerank=args.rerank_k > 0,
-                          dense_pool=args.dense_pool, device=args.device)
+                          dense_pool=args.dense_pool, shards=args.shards, device=args.device)
     t0 = time.perf_counter()
     rows, snips, debug = engine.run_search(
         args.query, k=args.k, rerank_k=args.rerank_k,
@@ -473,9 +494,9 @@ def cmd_topics(args) -> int:
         tfidf_topic_terms,
     )
 
-    if args.cluster == "density" and (args.shards or 1) > 1:  # k-means ignores it, as in JAX
-        _refuse(f"topics --shards {args.shards}: the sharded kNN graph is not ported yet "
-                "(ROADMAP Queue 1 item 12)")
+    shards = None  # k-means ignores --shards, as in JAX
+    if args.cluster == "density" and (args.shards or 1) > 1:
+        shards = _capped_shards(int(args.shards), args.device)
     bundle = load_bundle(args.index_dir)
     if bundle.reviews is None:
         print("topics: index has no review embeddings (build with reviews + review_embeddings)",
@@ -495,7 +516,7 @@ def cmd_topics(args) -> int:
 
         topic_ids, dinfo = density_cluster(emb, min_samples=args.min_samples,
                                            min_cluster_size=args.min_cluster_size,
-                                           device=args.device)
+                                           n_shards=shards, device=args.device)
         k = int(dinfo["n_clusters"])
         print(f"density: {k} clusters, {dinfo['noise']} noise reviews "
               f"(eps={dinfo['eps']:.4f})", file=sys.stderr)
@@ -627,6 +648,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "auto = striped from DENSE_POOL_AUTO_MIN padded rows up)")
     s.add_argument("--snippets", action="store_true")
     s.add_argument("--json-out")
+    s.add_argument("--shards", type=int, default=None,
+                   help="corpus shards (default MESH_SHARDS; 1 = one device)")
     device_arg(s)
     s.set_defaults(fn=cmd_search)
 
@@ -639,7 +662,7 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--with-rerank", action="store_true",
                    help="load the cross-encoder for rerank_k>0 requests")
     v.add_argument("--shards", type=int, default=None,
-                   help="corpus shards (default MESH_SHARDS; above 1 is not ported yet)")
+                   help="corpus shards (default MESH_SHARDS; 1 = one device)")
     v.add_argument("--native", action="store_true",
                    help="the C++ epoll front end (native/server.cc; also SERVE_NATIVE)")
     device_arg(v)
@@ -727,7 +750,7 @@ def build_parser() -> argparse.ArgumentParser:
     tp.add_argument("--min-cluster-size", type=int, default=40,
                     help="density: dissolve smaller clusters into noise")
     tp.add_argument("--shards", type=int, default=None,
-                    help="density: corpus shards of the kNN graph (above 1 is not ported yet)")
+                    help="density: corpus shards of the kNN graph (knn_graph_sharded)")
     tp.add_argument("--min-reviews", type=int, default=5, help="drop topics smaller than this")
     tp.add_argument("--n-quotes", type=int, default=3)
     tp.add_argument("--bench", action="store_true",

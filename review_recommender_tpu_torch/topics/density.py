@@ -24,19 +24,28 @@ The host stages copy the JAX code operation for operation: the self
 strip (a row whose self lost the tie-break among more than k duplicates
 drops its last column), eps as `np.quantile` of the finite core distances
 (default interpolation), mutual-core edges, the union-find loop, border
-adoption and the size-descending renumbering. The sharded graph
-(`knn_graph_sharded`, a mesh) belongs to ROADMAP Queue 1 item 12.
+adoption and the size-descending renumbering.
+
+`knn_graph_sharded` (JAX `:126-223`) splits the corpus rows over a list
+of devices (a device may repeat), and `knn_graph` is its one-shard case:
+each shard scores the row block (a view of a shard on its device that
+holds the block, else a copy from the host) against its own rows, keeps a local top-k by the
+same keys, and the lead device (shard 0's) merges the shards' keys. A
+shard holds exactly its rows, so no pad row exists to mask (JAX masks
+the last shard's pad rows to -inf inside the program). The keys order
+every candidate, so the merge picks what the one-device graph picks;
+only the f32 sums may round apart, as the products' shapes differ.
 """
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from review_recommender_tpu_torch.device import resolve_device
+from review_recommender_tpu_torch.device import resolve_devices
 from review_recommender_tpu_torch.ops.dense import matmul_f32
 
 _LOW = 2**31 - 1  # low word of a key: _LOW - column, so lower columns rank first
@@ -96,21 +105,56 @@ def knn_graph(embeddings: np.ndarray, k: int = 16, batch_rows: int = 1024,
     """Exact cosine kNN graph of the (L2-normalised here) embeddings on
     `device`: (sims (N, min(k, N)) f32, idx int32), each row sorted by
     descending similarity and including the row itself (callers strip
-    it)."""
-    device = resolve_device(device)
+    it). The one-shard case of knn_graph_sharded."""
+    return knn_graph_sharded(embeddings, k, devices=[device], batch_rows=batch_rows,
+                             col_chunk=col_chunk)
+
+
+def knn_graph_sharded(embeddings: np.ndarray, k: int = 16, devices: Optional[Sequence] = None,
+                      n_shards: Optional[int] = None, batch_rows: int = 1024,
+                      col_chunk: int = 32768, device="cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """knn_graph with the corpus rows split over `devices`, or `n_shards`
+    shards on `device`'s type (device.resolve_devices; n_shards None takes
+    every CUDA device): shard s holds rows [s*per, (s+1)*per), per =
+    ceil(N / n). Per row block, each shard's local top-k (global columns)
+    by order keys, merged on the lead device. Returns knn_graph's (sims,
+    idx)."""
+    devices = resolve_devices(devices, n_shards, device)
     emb = np.asarray(embeddings, np.float32)
     n = emb.shape[0]
     if n == 0:
         return np.zeros((0, k), np.float32), np.zeros((0, k), np.int32)
     emb = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
     k_eff = min(k, n)
-    emb_d = torch.from_numpy(emb).to(device)
-    sims = torch.empty((n, k_eff), dtype=torch.float32, device=device)
-    idx = torch.empty((n, k_eff), dtype=torch.int64, device=device)
+    per = -(-n // len(devices))
+    lead = devices[0]
+    shards = [(lo, torch.from_numpy(emb[lo:lo + per]).to(dev))
+              for lo, dev in zip(range(0, n, per), devices)]
+
+    def block_on(dev, lo, hi):
+        """Rows [lo, hi) on `dev`: a view of a shard there that holds them
+        all, else a copy from the host (no device holds more than its
+        shards and a block)."""
+        for off, rows in shards:
+            if rows.device == dev and off <= lo and hi <= off + rows.shape[0]:
+                return rows[lo - off:hi - off]
+        return torch.from_numpy(emb[lo:hi]).to(dev)
+
+    sims = torch.empty((n, k_eff), dtype=torch.float32, device=lead)
+    idx = torch.empty((n, k_eff), dtype=torch.int64, device=lead)
     with _ieee_f32_matmul():
         for lo in range(0, n, batch_rows):
-            sims[lo : lo + batch_rows], idx[lo : lo + batch_rows] = _knn_block(
-                emb_d, emb_d[lo : lo + batch_rows], k_eff, col_chunk)
+            hi = min(lo + batch_rows, n)
+            blocks = {}
+            keys = []
+            for off, rows in shards:
+                dev = rows.device
+                if dev not in blocks:
+                    blocks[dev] = block_on(dev, lo, hi)
+                v, i = _knn_block(rows, blocks[dev], min(k_eff, rows.shape[0]), col_chunk)
+                keys.append(_order_keys(v, torch.where(i >= 0, i + off, -1)).to(lead))
+            v, i = _from_keys(torch.topk(torch.cat(keys, dim=1), k_eff, dim=1).values)
+            sims[lo:hi], idx[lo:hi] = v, torch.where(torch.isfinite(v), i, -1)
     return sims.cpu().numpy(), idx.to(torch.int32).cpu().numpy()
 
 
@@ -138,17 +182,15 @@ class _UnionFind:
 def density_cluster(embeddings: np.ndarray, min_samples: int = 10, min_cluster_size: int = 40,
                     knn: int = 16, eps: Optional[float] = None, eps_quantile: float = 0.60,
                     batch_rows: int = 1024, col_chunk: int = 32768,
-                    n_shards: Optional[int] = None, mesh=None, device="cuda",
-                    stats: Optional[dict] = None) -> Tuple[np.ndarray, dict]:
+                    n_shards: Optional[int] = None, devices: Optional[Sequence] = None,
+                    device="cuda", stats: Optional[dict] = None) -> Tuple[np.ndarray, dict]:
     """Density clustering with HDBSCAN's output semantics: (labels (N,)
     int32, -1 = noise, clusters numbered 0.. by descending size; info with
-    n_clusters, noise, eps, core_points). The kNN graph runs on `device`.
-    `stats`, when given, receives the seconds of each stage: graph,
-    union_find (edges and roots), border (adoption), renumber."""
-    if mesh is not None or (n_shards or 1) > 1:
-        raise NotImplementedError(
-            f"density_cluster over {n_shards or 'a mesh of'} devices (knn_graph_sharded) is "
-            "not ported yet (ROADMAP Queue 1 item 12)")
+    n_clusters, noise, eps, core_points). The kNN graph runs on `device`,
+    or, with `devices` or n_shards > 1, sharded (knn_graph_sharded); the
+    host stages are the same. `stats`, when given, receives the seconds of
+    each stage: graph, union_find (edges and roots), border (adoption),
+    renumber."""
     emb = np.asarray(embeddings, np.float32)
     n = len(emb)
     if n == 0:
@@ -156,8 +198,10 @@ def density_cluster(embeddings: np.ndarray, min_samples: int = 10, min_cluster_s
 
     t0 = time.perf_counter()
     k_graph = min(max(knn, min_samples) + 1, n)  # +1: self column
-    sims, idx = knn_graph(emb, k=k_graph, batch_rows=batch_rows, col_chunk=col_chunk,
-                          device=device)
+    if devices is None and (n_shards or 1) <= 1:
+        devices = [device]
+    sims, idx = knn_graph_sharded(emb, k=k_graph, devices=devices, n_shards=n_shards,
+                                  batch_rows=batch_rows, col_chunk=col_chunk, device=device)
     t_graph = time.perf_counter()
 
     # strip ONE column per row: the self column where present; a row whose

@@ -6,10 +6,13 @@ engine `_load_engine` builds (random towers of the JAX CLI's shapes,
 seeded); `eval` gives run_performance_benchmark's aggregates; `audit`
 exits 0 on a good bundle and 1 on a damaged one; `bench` prints its JSON;
 `serve` in a subprocess answers /healthz, /readyz, /search and `health`,
-and stops on SIGTERM, for both front ends. Every refusal exits non-zero
-and names its ROADMAP item: --shards 2 or MESH_SHARDS=2 and topics
---shards 2 (12); --native without a buildable library raises (`topics`
-and `import` themselves: tests/test_torch_topics.py, test_torch_import.py). `train
+and stops on SIGTERM, for both front ends, and over 2 shards (--shards
+2); --native without a buildable library raises (`topics`
+and `import` themselves: tests/test_torch_topics.py, test_torch_import.py).
+`search --shards 2` and MESH_SHARDS=2 (on the CPU: no cap) print and write
+what the JAX CLI does with MESH_SHARDS=2 and what the port's --shards 1
+does, on tower directories; `topics --cluster density --shards 2` writes
+what --shards 1 writes. `train
 --cross --mlm-steps 4` and the JAX CLI's on one JAX-saved bundle with
 reviews mine the same pairs and print the same JSON keys; each one's
 towers load in both packages' loaders and serve the port's `search` at
@@ -111,25 +114,6 @@ def test_bench_prints_its_json(bundle_dir, capsys):
                      "--device", "cpu"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["n_docs"] == 64 and line["qps"] > 0 and line["device"] == "cpu"
-
-
-REFUSALS = {
-    "shards_2": (["serve", "--shards", "2"], {}, "item 12"),
-    "mesh_shards_2": (["serve"], {"MESH_SHARDS": 2}, "item 12"),
-    "topics-shards": (["topics", "--cluster", "density", "--shards", "2"], {}, "item 12"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_refusals_exit_non_zero_naming_their_item(bundle_dir, monkeypatch, case):
-    argv, knobs, item = REFUSALS[case]
-    for name, value in knobs.items():
-        monkeypatch.setattr(type(config), name, value)
-    if argv[0] in ("search", "serve", "topics"):
-        argv = argv + ["--index-dir", str(bundle_dir), "--device", "cpu"]
-    with pytest.raises(SystemExit, match=item) as exc:
-        cli.main(argv)
-    assert exc.value.code not in (0, None)
 
 
 TRAIN_ARGV = ["--cross", "--epochs", "1", "--batch-size", "8", "--max-len", "32",
@@ -243,6 +227,44 @@ def test_serve_subprocess_answers_and_stops_on_sigterm(bundle_dir, tmp_path, fro
         proc.stderr.close()
 
 
+
+def test_serve_over_shards_answers_as_one_shard(bundle_dir, tmp_path):
+    """`serve --shards 2` in a subprocess serves the sharded engine: its
+    /search rows equal `search --shards 1` run in process on the same
+    request (MESH_SHARDS=2 reaches the same _load_engine branch:
+    test_sharded_search_equals_the_jax_cli_and_one_shard)."""
+    env = {**os.environ, "PYTHONPATH": str(REPO), "LOG_FILE": str(tmp_path / "app.log")}
+    cmd = [sys.executable, "-m", "review_recommender_tpu_torch.serve.cli", "serve",
+           "--index-dir", str(bundle_dir), "--host", "127.0.0.1", "--port", "0",
+           "--device", "cpu", "--shards", "2"]
+    proc = subprocess.Popen(cmd, cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving on http://127.0.0.1:"), line
+        port = int(line.split(":")[2].split()[0])
+        deadline = time.time() + 120
+        while _get(port, "/readyz")[0] != 200:
+            assert time.time() < deadline, "not ready after 120 s"
+            time.sleep(0.2)
+        code, answer = _get(port, "/search", {"query": QUERY, "k": 5, "rerank_k": 0})
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        proc.stderr.close()
+    out = tmp_path / "one_shard.json"
+    assert cli.main(["search", QUERY, "--index-dir", str(bundle_dir), "--device", "cpu",
+                     "--k", "5", "--shards", "1", "--json-out", str(out)]) == 0
+    want = json.loads(out.read_text())["results"]
+    assert code == 200 and [r["sku"] for r in answer["results"]] == [r["sku"] for r in want]
+    np.testing.assert_allclose([r["_final"] for r in answer["results"]],
+                               [r["_final"] for r in want], rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------------------------ towers from disk
 TOWER_DIM = 32
 
@@ -350,6 +372,72 @@ def test_search_with_tower_dirs_equals_the_jax_cli(tower_case, layout, monkeypat
         assert [r[col] for r in got] == pytest.approx([r[col] for r in want], rel=1e-5,
                                                       abs=1e-5), col
     assert any(r["_rerank"] != 0 for r in got)
+
+
+
+@pytest.mark.parametrize("how", ["flag", "mesh_shards"])
+def test_sharded_search_equals_the_jax_cli_and_one_shard(tower_case, how, monkeypatch,
+                                                          tmp_path, capsys, f32_loaders):
+    """`search --shards 2 --device cpu` (or MESH_SHARDS=2) prints and writes
+    what the JAX CLI does with MESH_SHARDS=2 (its search has no --shards)
+    on the 8 virtual devices, and what the port's --shards 1 does."""
+    from review_recommender_tpu.serve import cli as jax_cli
+
+    bundle, dirs = tower_case
+    _tower_dirs(monkeypatch, *dirs["native"])
+    monkeypatch.setattr(type(jax_cli.config), "MESH_SHARDS", 2)
+    argv = ["search", QUERY, "--index-dir", str(bundle), "--rerank-k", "8", "--k", "10"]
+    port_argv = argv + ["--device", "cpu"]
+    if how == "flag":
+        sharded = port_argv + ["--shards", "2"]
+    else:
+        monkeypatch.setattr(type(config), "MESH_SHARDS", 2)
+        sharded = port_argv
+    runs = {}
+    for name, main, args in (("port", cli.main, sharded), ("jax", jax_cli.main, argv),
+                             ("one", cli.main, port_argv + ["--shards", "1"])):
+        assert main(args + ["--json-out", str(tmp_path / f"{name}.json")]) == 0
+        lines = capsys.readouterr().out.splitlines()
+        doc = json.loads((tmp_path / f"{name}.json").read_text())
+        runs[name] = lines[:-1], doc["results"], doc.get("debug", {})  # last line: time
+    assert runs["port"][2]["n_shards"] == 2 and "n_shards" not in runs["one"][2]
+    for other in ("jax", "one"):
+        assert runs["port"][0] == runs[other][0], other
+        got, want = runs["port"][1], runs[other][1]
+        assert [r["sku"] for r in got] == [r["sku"] for r in want] and len(got) == 10
+        for col in ("_dense", "_bm25", "_rerank", "_prior", "_final"):
+            assert [r[col] for r in got] == pytest.approx([r[col] for r in want], rel=1e-5,
+                                                          abs=1e-5), (other, col)
+    assert any(r["_rerank"] != 0 for r in runs["port"][1])
+
+
+@pytest.fixture(scope="module")
+def topics_bundle_dir(tmp_path_factory):
+    """A bundle whose 180 reviews form four blobs and noise
+    (tests/torch_topic_cases.py:topic_reviews)."""
+    from tests.torch_topic_cases import topic_reviews
+
+    products, _queries, emb = corpus(n_themes=4, per_theme=6, n_queries=1, dim=32)
+    rows, remb = topic_reviews([p["sku"] for p in products])
+    d = tmp_path_factory.mktemp("topics") / "bundle"
+    save_bundle(build_bundle_from_products(products, emb, reviews=rows, review_embeddings=remb,
+                                           doc_terms_cap=32, pad_multiple=8), d)
+    return d
+
+
+def test_topics_density_over_shards_writes_what_one_shard_writes(topics_bundle_dir, tmp_path,
+                                                                 capsys):
+    outs = {}
+    for shards in ("1", "2"):
+        out = tmp_path / f"shards_{shards}"
+        assert cli.main(["topics", "--index-dir", str(topics_bundle_dir), "--out", str(out),
+                         "--cluster", "density", "--min-samples", "5", "--min-cluster-size",
+                         "20", "--min-reviews", "1", "--shards", shards,
+                         "--device", "cpu"]) == 0
+        outs[shards] = out, capsys.readouterr().err
+    assert "density: 4 clusters" in outs["2"][1]
+    for f in ("topic_cards.jsonl", "aspect_metrics.json"):
+        assert (outs["2"][0] / f).read_text() == (outs["1"][0] / f).read_text(), f
 
 
 def test_loaded_cross_tower_retokenizes_the_rerank_tokens(tower_case, monkeypatch, f32_loaders):

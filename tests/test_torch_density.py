@@ -11,8 +11,11 @@ cases are those of tests/test_density.py's single-device classes (exact
 against brute force, self at rank 0, empty, negative-similarity tails,
 the pad leak, n < k, one row, more than k exact duplicates, explicit
 eps, too few neighbours, runts dissolved, size order, the planted
-blobs), at batch and chunk sizes that do not divide N, and the sharded
-forms refused naming ROADMAP item 12.
+blobs), at batch and chunk sizes that do not divide N. The sharded graph
+(`knn_graph_sharded` on ["cpu"] * 8, and at 3 and 8 shards with ragged
+blocks and chunks) against JAX's on the 8 virtual CPU devices and the
+port's one-device graph, to the same tolerance, and density_cluster(n_shards=4) or devices=...
+against n_shards=1.
 """
 import numpy as np
 import pytest
@@ -150,10 +153,38 @@ def test_density_cluster_of_empty_corpus_and_stage_seconds():
     assert stats["edges"] > 0 and all(v >= 0 for v in stats.values())
 
 
-@pytest.mark.parametrize("kw", [{"n_shards": 2}, {"mesh": object()}])
-def test_sharded_density_is_refused_naming_item_12(kw):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_density.density_cluster(rand_rows(10, 8, 0), device="cpu", **kw)
+@pytest.mark.parametrize("case", ["blobs", "negative_tails", "n_below_k"])
+def test_knn_graph_sharded_matches_jax_and_one_device(case):
+    """On ["cpu"] * 8 against JAX's knn_graph_sharded on 8 devices (sims
+    within SIM_TOL, ids but for near ties), and so against the port's own
+    one-device graph at 3 and 8 shards with ragged blocks and chunks (the
+    products' shapes differ, so their f32 sums may round apart)."""
+    emb, k = {"blobs": (blobs_with_noise(seed=9)[0], 11),
+              "negative_tails": (rand_rows(37, 16, 2), 9),
+              "n_below_k": (rand_rows(5, 8, 1), 9)}[case]
+    js, ji = jax_density.knn_graph_sharded(emb, k=k, n_shards=8, batch_rows=48)
+    ts, ti = port_density.knn_graph_sharded(emb, k=k, devices=["cpu"] * 8, batch_rows=48)
+    assert ts.dtype == np.float32 and ti.dtype == np.int32 and ts.shape == js.shape
+    np.testing.assert_array_equal(np.isfinite(ts), np.isfinite(js))
+    np.testing.assert_allclose(ts, js, atol=SIM_TOL, rtol=0)
+    assert_ids_differ_only_at_near_ties(emb, ti, ji, SIM_TOL)
+    one_s, one_i = port_density.knn_graph(emb, k=k, device="cpu", batch_rows=7, col_chunk=5)
+    for n_shards in (3, 8):
+        s, i = port_density.knn_graph_sharded(emb, k=k, n_shards=n_shards, device="cpu",
+                                              batch_rows=7, col_chunk=5)
+        np.testing.assert_array_equal(np.isfinite(s), np.isfinite(one_s))
+        np.testing.assert_allclose(s, one_s, atol=SIM_TOL, rtol=0)
+        assert_ids_differ_only_at_near_ties(emb, i, one_i, SIM_TOL)
+
+
+@pytest.mark.parametrize("kw", [{"n_shards": 4}, {"devices": ["cpu"] * 3}])
+def test_density_cluster_over_shards_equals_one_shard(kw):
+    emb = blobs_with_noise(seed=9)[0]
+    args = dict(min_samples=5, min_cluster_size=20, device="cpu")
+    one = port_density.density_cluster(emb, n_shards=1, **args)
+    got = port_density.density_cluster(emb, **args, **kw)
+    np.testing.assert_array_equal(got[0], one[0])
+    assert got[1] == one[1] and one[1]["n_clusters"] == 3
 
 
 def test_cuda_is_the_default_device():

@@ -35,8 +35,8 @@ from review_recommender_tpu.models.encoder import CrossEncoder as JaxCrossEncode
 from review_recommender_tpu.models.tokenizer import HashTokenizer as JaxHashTokenizer
 from review_recommender_tpu.ops.fusion import FusionWeights as JaxWeights
 from review_recommender_tpu_torch.config import config as port_config
+from review_recommender_tpu_torch.engine.query_forms import E2E_QUERY_TOKENS
 from review_recommender_tpu_torch.engine.search import (
-    E2E_QUERY_TOKENS,
     SearchEngine,
     build_pairs_device,
     encode_query_ids_device,

@@ -38,7 +38,13 @@ well-separated mixture; `rrt topics --device cuda` writes the cards and
 aspect metrics of `--device cpu` in both lanes. The raw-review pipeline: the
 attention kernel at its embedding jobs' shapes, (256, 512, 12, 32) and
 (256, 64, 12, 32), and a 4-shard embedding job resumed after two shards
-are deleted and a torn temp file left.
+are deleted and a torn temp file left. The corpus-sharded engine on
+["cuda:0"] * 4: bm25_topk through the packed and the unpacked kernel per
+shard (4 launches a query) bit-equal to the same engine on ["cpu"] * 4,
+the int8 pools and scores bit-equal CPU against card, and query_e2e's
+attention launches: the bi-encoder's layers once a query, plus the
+cross-encoder's layers once a shard at rr_k > 0 (12 and 12 + 6 * 4 with
+bge-small and MiniLM-L6, chip_smoke.py phase 18; 2 and 2 + 2 * 4 here).
 """
 from pathlib import Path
 import numpy as np
@@ -855,3 +861,78 @@ def test_embed_job_resumes_two_shards_on_cuda(cuda, tmp_path):
     assert tatt.mha_kernel_launches - before == cfg.num_layers * (3 + 2)
     assert job_status(tmp_path)["complete"]
     assert np.abs(again - first).max() <= 1e-6
+
+
+def _sharded_bundle(unpackable=False, seed=0):
+    """A 3,000-product bundle (eager BM25 dropped: the classic postings),
+    with one tf of 300 where it must not pack."""
+    import dataclasses
+
+    from review_recommender_tpu_torch.index.build import synth_product_index
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+
+    p = synth_product_index(3000, 128, 500, 16, seed=seed, text_chars=80)
+    p = dataclasses.replace(p, doc_bm25=None)
+    if unpackable:
+        p.doc_len[0] += 300.0 - p.doc_tf[0, 0]
+        p.doc_tf[0, 0] = 300.0
+    return IndexBundle(products=p)
+
+
+@pytest.mark.parametrize("kind", ["packed", "unpacked"])
+def test_sharded_bm25_kernels_bit_equal_to_cpu_shards(cuda, kind):
+    from review_recommender_tpu_torch.parallel.sharded import ShardedSearchEngine
+
+    bundle = _sharded_bundle(unpackable=kind == "unpacked")
+    gpu = ShardedSearchEngine(bundle, devices=["cuda:0"] * 4, dense_pool="exact")
+    cpu = ShardedSearchEngine(bundle, devices=["cpu"] * 4, dense_pool="exact")
+    assert gpu._kernels_ok() and not cpu._kernels_ok()  # the CPU shards: the plain scans
+    counter = f"bm25_{kind}_kernel_launches"
+    for query in ("t12 t34 t56", "t7 t250 t3 t3", "t99", "zzz"):
+        for k in (10, 100):
+            before = getattr(tbk, counter)
+            gi, gs = gpu.bm25_topk(query, k)
+            assert getattr(tbk, counter) == before + 4
+            ci, cs = cpu.bm25_topk(query, k)
+            assert torch.equal(gs.cpu(), cs) and torch.equal(gi.cpu(), ci)
+    assert (gpu._bm25_packed_cache is None) == (kind == "unpacked")
+
+
+def test_sharded_int8_pools_bit_equal_to_cpu(cuda):
+    from review_recommender_tpu_torch.parallel.sharded import ShardedSearchEngine
+
+    bundle = _sharded_bundle(seed=3)
+    q = torch.from_numpy(_unit_rows(5, 16, 128))
+    for pool in ("exact", "striped"):
+        gpu = ShardedSearchEngine(bundle, devices=["cuda:0"] * 4, emb_dtype="int8",
+                                  dense_pool=pool)
+        cpu = ShardedSearchEngine(bundle, devices=["cpu"] * 4, emb_dtype="int8", dense_pool=pool)
+        for qq in (q[0], q):
+            gs, gi = gpu._pool(gpu._replicate(qq.to(cuda)), 150)
+            cs, ci = cpu._pool(cpu._replicate(qq), 150)
+            assert torch.equal(gs.cpu(), cs) and torch.equal(gi.cpu(), ci), pool
+        gi, gs = gpu.dense_topk(q[3].numpy(), 20)
+        ci, cs = cpu.dense_topk(q[3].numpy(), 20)
+        assert torch.equal(gs.cpu(), cs) and torch.equal(gi.cpu(), ci), pool
+
+
+def test_sharded_query_e2e_launches(cuda):
+    """query_e2e over 4 shards on the card with the kernel's head dims: the
+    query encoded once (2 launches of the 2-layer bi-encoder), each shard's
+    pairs through the 2-layer cross-encoder (2 launches a shard); finals
+    within 2e-2 of the single engine's on the same card."""
+    from review_recommender_tpu_torch.ops.fusion import FusionWeights
+    from review_recommender_tpu_torch.parallel.sharded import ShardedSearchEngine
+
+    single = _e2e_engine("cuda")
+    sh = ShardedSearchEngine(single.bundle, devices=["cuda:0"] * 4)
+    sh.attach_models(single._be, single._ce)
+    w = FusionWeights.make(0.4, 0.25, 0.2, 0.1, 0.0, 20.0, 8.0, 1.0)
+    for rr_k, expect in ((0, 2), (50, 2 + 2 * 4)):
+        for query in ("t12 t34 t56", "t99"):
+            before = tatt.mha_kernel_launches
+            rs, ss = sh.query_e2e(query, w, 150, 10, rr_k=rr_k)
+            torch.cuda.synchronize()
+            assert tatt.mha_kernel_launches == before + expect, rr_k
+            r1, s1 = single.query_e2e(query, w, 150, 10, rr_k=rr_k)
+            assert np.abs(ss.cpu().numpy() - s1.cpu().numpy()).max() <= 2e-2

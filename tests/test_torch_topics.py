@@ -263,11 +263,10 @@ def test_rrt_topics_without_pyarrow_and_resume(jax_bundle_dir, tmp_path, capsys,
 
 
 def test_rrt_topics_refusals(jax_bundle_dir, tmp_path, capsys):
-    with pytest.raises(SystemExit, match="item 12") as exc:
-        port_cli.main(["topics", "--index-dir", str(jax_bundle_dir), "--cluster", "density",
-                       "--shards", "2", "--device", "cpu"])
-    assert exc.value.code not in (0, None)
-    code, io = _run_topics(port_cli, jax_bundle_dir, tmp_path / "none",
-                           ["--cluster", "density", "--min-cluster-size", "1000",
-                            "--device", "cpu"], capsys)
-    assert code == 1 and "no clusters" in io.err
+    """Too large a min cluster size finds no clusters and exits 1, on one
+    shard and over two (the sharded graph, which --shards 2 now builds)."""
+    for shards in ("1", "2"):
+        code, io = _run_topics(port_cli, jax_bundle_dir, tmp_path / "none",
+                               ["--cluster", "density", "--min-cluster-size", "1000",
+                                "--shards", shards, "--device", "cpu"], capsys)
+        assert code == 1 and "no clusters" in io.err, shards

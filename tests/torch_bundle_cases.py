@@ -1,8 +1,11 @@
 """Shared inputs and comparisons of the index-bundle tests of the port
 (tests/test_torch_index_build.py, test_torch_io.py, test_torch_cli.py):
 a small themed corpus from the port's copy of the quality table's
-generator, seeded reviews, and field-by-field bundle equality."""
+generator, seeded reviews, and field-by-field bundle equality; and a
+fixture that runs a module's torch ops on one thread."""
 import numpy as np
+import pytest
+import torch
 
 from review_recommender_tpu_torch.evals.quality_table import build_corpus
 from review_recommender_tpu_torch.models.bow import BowProjectionEncoder
@@ -66,3 +69,15 @@ def assert_bundles_equal(a, b):
         assert list(a.reviews.rev_texts) == list(b.reviews.rev_texts)
         assert a.reviews.n_reviews_total == b.reviews.n_reviews_total
     assert a.version == b.version and a.meta == b.meta
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the importing module's tests: the suite runs
+    files in parallel workers, and a thread pool in every worker
+    oversubscribes the cores, where small ops wait on each other (the
+    shard sweep took 93 s against 11 s under such load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
