@@ -275,6 +275,30 @@ line, and nothing is caught and passed over:
              `search --shards 4` subprocess on phase 13's saved 200k bundle:
              the cap to the devices present on stderr, rows equal to
              --shards 1; peak memory
+ 19 train_mesh  the dp x tp trainers on TrainMesh(["cuda:0"] * 4, 2, 2)
+             (each cell its own slice of the batch and its tp rank's
+             heads): the attention kernel, its plain version and SDPA at
+             the tp shard's shapes (32, 128, 6, 32) and a cell's
+             (16, 128, 6, 32); (a) ContrastiveTrainer from the golden's
+             bge-small at 32 x 128, (b) CrossEncoderTrainer from its
+             MiniLM-L6 at 32 x 256, (c) MLMTrainer on the bge-small trunk
+             (vocab 30,522): each first step's loss against the
+             one-device trainer's (2e-2 in bf16; 1e-4 with
+             dtype=torch.float32, both on the plain attention, as the
+             kernel takes bf16/f16 only); in bf16 exactly 4 launches a
+             layer and tower forward (4 x 24 a bi-encoder step), as many
+             recomputes, mha_reference called only by the recompute; 10
+             (a) and 3 (b, c) bf16 steps timed on the mesh and on one
+             device; (d) an f32
+             checkpoint from one device restored on the mesh and the other
+             way round: state equal, next loss within 1e-4 of the saver's;
+             (e) BiEncoder(devices=["cuda:0"] * 4) on 2,048 of phase 4's
+             texts: 4 x 12 launches a batch, every row's cosine to the
+             one-device encode >= 0.999; (f) the global-scale int8 scan on
+             phase 4's corpus (8,192 stripes, pool 150, 32 queries): equal
+             to its slice-by-slice plain version, pool recall against the
+             exact f32 pool beside the per-row int8 scan's, medians and
+             bounds
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3120,8 +3144,8 @@ def _trained_lane(card):
     return lane_counts["mha_fwd"], recomputes
 
 
-def _training_kernel_rows(torch):
-    """The attention at each TRAIN_SHAPES shape, timed behind a device spin
+def _training_kernel_rows(torch, shapes=TRAIN_SHAPES):
+    """The attention at each of `shapes`, timed behind a device spin
     (medians of REPS CUDA-event runs): the kernel forward against its plain
     version and SDPA (row 1), and MhaKernelFn's backward recompute
     (autograd through mha_reference: its forward and the q, k, v
@@ -3133,7 +3157,7 @@ def _training_kernel_rows(torch):
 
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
     rows = []
-    for i, (b, s, h, d) in enumerate(TRAIN_SHAPES):
+    for i, (b, s, h, d) in enumerate(shapes):
         rng = np.random.default_rng(300 + i)
         q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(np.float32))
                       .to(DEV, torch.bfloat16) for _ in range(4))
@@ -4659,6 +4683,319 @@ def phase_sharded(torch, engine, qvecs):
     return counts, errs
 
 
+# ---------------------------------------------------------------- phase 19
+# the dp x tp trainers on a (MESH_DP, MESH_TP) mesh of the one card at
+# phase 15's widths (bge-small at 32 x 128, MiniLM-L6 at 32 x 256, the MLM
+# head at vocab 30,522), each held to its one-device trainer; the
+# data-parallel encoder on MESH_TEXTS of phase 4's product texts; the
+# global-scale int8 scan on phase 4's corpus
+MESH_DP, MESH_TP, MESH_STEPS, MESH_TEXTS = 2, 2, 10, 2048
+MESH_BATCH, MESH_LEN, MESH_XE_LEN = 32, 128, 256
+MESH_LOSS_TOL = {"bf16": 2e-2, "f32": 1e-4}  # first loss, mesh against one device
+MESH_RESTORE_TOL = 1e-4  # f32: the next loss after a restore across layouts
+MESH_MIN_COSINE = 0.999  # each row of the data-parallel encode against one device
+# (f) reports the global-scale pool's recall against the exact f32 pool;
+# this floor only catches a broken scan (the per-row scan is beside it)
+INT8_GLOBAL_MIN_RECALL = 0.5
+# the attention at the tp shard's heads: the (B, S, H, D) of a mesh of 32
+# rows a step, and the (B / dp) rows a cell runs
+MESH_SHAPES = [(MESH_BATCH, MESH_LEN, 12 // MESH_TP, 32),
+               (MESH_BATCH // MESH_DP, MESH_LEN, 12 // MESH_TP, 32)]
+
+
+def _mesh_towers():
+    """The golden's bge-small and MiniLM-L6 state_dicts (f32, the port's
+    layout), as phase 14 writes them, and an MLM state_dict whose trunk is
+    the bge-small's (train/mlm.py's head at its seeded init)."""
+    from review_recommender_tpu_torch.models.bert import BertConfig, init_state_dict
+    from review_recommender_tpu_torch.models.convert import (
+        convert_biencoder,
+        convert_crossencoder,
+        params_from_flax,
+    )
+    from review_recommender_tpu_torch.train.cross_encoder import warm_start_from_biencoder
+    from tests.golden_utils import manifest_from_npz, synth_state_arrays
+
+    g = np.load(GOLDEN)
+    out = {}
+    for kind, conv, cfg in (("biencoder", convert_biencoder, BertConfig.bge_small()),
+                            ("crossencoder", convert_crossencoder,
+                             BertConfig.minilm_l6_cross())):
+        _io, manifest, seed = GOLDEN_SEEDS[kind]
+        sd = synth_state_arrays(manifest_from_npz(g, manifest), seed=seed)
+        out[kind] = (cfg, params_from_flax(conv(sd, cfg), cfg, kind))
+    cfg, bi = out["biencoder"]
+    out["mlm"] = (cfg, warm_start_from_biencoder(init_state_dict(cfg, "mlm", 19), bi))
+    return out
+
+
+def _mesh_batches(products):
+    """One batch of each trainer from phase 4's texts (HashTokenizer over
+    the full vocab): 32 (query, text) pairs at 128 tokens, 32 labelled
+    pairs at 256, 32 masked texts at 128."""
+    from review_recommender_tpu_torch.models.tokenizer import HashTokenizer
+    from review_recommender_tpu_torch.train import (make_mlm_batch, make_pair_batch,
+                                                    make_triple_batch)
+
+    tok = HashTokenizer(WP_VOCAB)
+    texts = [products.agg_texts[i] for i in range(2 * MESH_BATCH)]
+    qs = [" ".join(t.split()[:8]) for t in texts[:MESH_BATCH]]
+    docs = [texts[i] if i % 2 == 0 else texts[MESH_BATCH + i] for i in range(MESH_BATCH)]
+    labels = [1.0 if i % 2 == 0 else 0.0 for i in range(MESH_BATCH)]
+    return {"biencoder": make_pair_batch(tok, qs, texts[:MESH_BATCH], max_len=MESH_LEN,
+                                         pad_to=MESH_LEN),
+            "crossencoder": make_triple_batch(tok, qs, docs, labels, max_len=MESH_XE_LEN,
+                                              pad_to=MESH_XE_LEN),
+            "mlm": make_mlm_batch(tok, texts[:MESH_BATCH], max_len=MESH_LEN,
+                                  rng=np.random.default_rng(19))}
+
+
+class _PlainCalls:
+    """Counts calls of ops/attention.py:mha_reference while in use (the
+    recompute backward calls it once per kernel forward it differentiates;
+    a forward on the plain version would add more)."""
+
+    def __init__(self):
+        from review_recommender_tpu_torch.ops import attention as A
+
+        self.A, self.fn, self.calls = A, A.mha_reference, 0
+
+    def __enter__(self):
+        def counted(*args, **kw):
+            self.calls += 1
+            return self.fn(*args, **kw)
+
+        self.A.mha_reference = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.A.mha_reference = self.fn
+
+
+def _timed_steps(torch, tr, batch, steps):
+    """ms a step over `steps` train_step_async calls, one sync at the end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m = tr.train_step_async(*batch)
+    float(m["loss"])
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def _mesh_trainer(torch, card, kind, cfg, sd, batch, steps):
+    """One trainer kind: the first step on the mesh and on one device, in
+    bf16 and in f32, from the same weights (losses within MESH_LOSS_TOL);
+    the mesh steps' kernel launches (one a cell, layer and tower forward)
+    and recomputes, no forward on the plain version; then `steps` bf16
+    steps of each timed. Returns (launches, recomputes) of the mesh steps."""
+    from review_recommender_tpu_torch.ops import attention as A
+    from review_recommender_tpu_torch.parallel.mesh import TrainMesh
+    from review_recommender_tpu_torch.train import (ContrastiveTrainer, CrossEncoderTrainer,
+                                                    MLMTrainer)
+
+    cls = {"biencoder": ContrastiveTrainer, "crossencoder": CrossEncoderTrainer,
+           "mlm": MLMTrainer}[kind]
+    cells = MESH_DP * MESH_TP
+    per_step = cells * cfg.num_layers * (2 if kind == "biencoder" else 1)
+    row, launches, recomputes = {"kind": kind, "config": f"{cfg.num_layers}L H={cfg.hidden_size}"
+                                 f" V={cfg.vocab_size}", "batch": list(batch[0].shape)}, 0, 0
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        one = cls(cfg, sd, dtype=dtype, device=DEV)
+        mesh = cls(cfg, sd, dtype=dtype, mesh=TrainMesh([DEV] * cells, MESH_DP, MESH_TP))
+        if name == "f32":  # the kernel takes bf16/f16: f32 holds the mesh's math alone
+            one.set_attn_impl("reference")
+            mesh.set_attn_impl("reference")
+        check(all(p.device.type == torch.device(DEV).type for ps in mesh.shards.values()
+                  for p in ps),
+              "train_mesh", f"{kind}: a master off the card")
+        l_one = one.train_step(*batch)["loss"]
+        _zero_counts()
+        A.mha_backward_recomputes = 0
+        with _PlainCalls() as plain:
+            l_mesh = mesh.train_step(*batch)["loss"]
+            got = (_counts()["mha_fwd"], A.mha_backward_recomputes, plain.calls)
+            timed = {}
+            if name == "bf16":
+                timed["mesh_ms_per_step"] = _timed_steps(torch, mesh, batch, steps)
+                got = (_counts()["mha_fwd"], A.mha_backward_recomputes, plain.calls)
+        timed["one_device_ms_per_step"] = (_timed_steps(torch, one, batch, steps)
+                                           if name == "bf16" else None)
+        n_steps = 1 + (steps if name == "bf16" else 0)
+        want = (per_step * n_steps,) * 3 if name == "bf16" else (0, 0, per_step)
+        row[name] = {"loss_mesh": l_mesh, "loss_one_device": l_one,
+                     "abs_diff": abs(l_mesh - l_one), "tol": MESH_LOSS_TOL[name],
+                     "mesh_steps": n_steps, "launches": got[0], "recomputes": got[1],
+                     "plain_calls": got[2], "launches_per_step": per_step, **timed}
+        check(np.isfinite(l_mesh) and abs(l_mesh - l_one) <= MESH_LOSS_TOL[name], "train_mesh",
+              f"{kind} {name}: first loss {l_mesh} on the mesh, {l_one} on one device")
+        check(got == want, "train_mesh",
+              f"{kind} {name}: (launches, recomputes, plain calls) {got}, want {want}: in "
+              "bf16 the kernel once a cell, layer and tower forward and the plain version "
+              "only in the recompute backward; in f32 the plain version's forwards alone")
+        launches, recomputes = launches + got[0], recomputes + got[1]
+        del one, mesh
+    emit({"phase": "train_mesh", "card": card, "mesh": [MESH_DP, MESH_TP],
+          "devices": [DEV] * cells, **row})
+    return launches, recomputes
+
+
+def _mesh_restores(torch, card, cfg, sd, batch, tmp):
+    """Checkpoints across layouts (f32 bge-small): a one-device trainer's
+    checkpoint restored on the mesh and a mesh trainer's on one device,
+    each state equal to the checkpoint's, the next loss within
+    MESH_RESTORE_TOL of the saving trainer's own next step."""
+    from review_recommender_tpu_torch.parallel.mesh import TrainMesh
+    from review_recommender_tpu_torch.train import ContrastiveTrainer
+
+    cells = MESH_DP * MESH_TP
+    layouts = {"one": {"device": DEV},
+               "mesh": {"mesh": TrainMesh([DEV] * cells, MESH_DP, MESH_TP)}}
+    out = {}
+    for src, dst in (("one", "mesh"), ("mesh", "one")):
+        first = ContrastiveTrainer(cfg, sd, dtype=torch.float32, **layouts[src])
+        first.set_attn_impl("reference")  # the kernel takes bf16/f16
+        first.train_step(*batch)
+        path = tmp / f"{src}.pt"
+        first.save(path)
+        resumed = ContrastiveTrainer(cfg, sd, dtype=torch.float32, **layouts[dst])
+        resumed.set_attn_impl("reference")
+        resumed.restore(path)
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        same = all(torch.equal(t.cpu(), saved["params"][n]) for n, t in resumed.params.items())
+        got = resumed.train_step(*batch)["loss"]
+        want = first.train_step(*batch)["loss"]
+        out[f"{src}_to_{dst}"] = {"state_equal": same, "next_loss": got,
+                                  "saver_next_loss": want, "abs_diff": abs(got - want)}
+        check(same and resumed.step == 2 and abs(got - want) <= MESH_RESTORE_TOL, "train_mesh",
+              f"restore {src} -> {dst}: {out[f'{src}_to_{dst}']}")
+        del first, resumed
+    emit({"phase": "train_mesh_restore", "card": card, "tol": MESH_RESTORE_TOL, **out})
+
+
+def _mesh_encode(torch, card, cfg, sd, products):
+    """BiEncoder(devices=[DEV] * 4) against the one-device encode on
+    MESH_TEXTS of phase 4's texts: cosine per row, attention launches (4
+    slices x 12 layers a batch), wall times."""
+    from review_recommender_tpu_torch.models.encoder import BiEncoder
+    from review_recommender_tpu_torch.models.tokenizer import HashTokenizer
+
+    cells = MESH_DP * MESH_TP
+    texts = [products.agg_texts[i] for i in range(MESH_TEXTS)]
+    one = BiEncoder(cfg, sd, HashTokenizer(WP_VOCAB), device=DEV)
+    dp = BiEncoder(cfg, sd, HashTokenizer(WP_VOCAB), devices=[DEV] * cells)
+    check(len(dp.models) == 1, "train_mesh_encode", f"{len(dp.models)} copies on one card")
+    dp.encode(texts[:8])
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = dp.encode(texts)
+    dp_s = time.perf_counter() - t0
+    launches = _counts()["mha_fwd"]
+    t0 = time.perf_counter()
+    want = one.encode(texts)
+    one_s = time.perf_counter() - t0
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    batches = -(-MESH_TEXTS // 256)
+    emit({"phase": "train_mesh_encode", "card": card, "texts": MESH_TEXTS, "devices": cells,
+          "launches": launches, "expected_launches": batches * cells * cfg.num_layers,
+          "min_cosine": float(cos.min()), "wall_s": dp_s, "one_device_wall_s": one_s})
+    check(got.shape == want.shape and bool(np.isfinite(got).all()), "train_mesh_encode",
+          f"output {got.shape}")
+    check(launches == batches * cells * cfg.num_layers, "train_mesh_encode",
+          f"{launches} launches, want {batches * cells * cfg.num_layers}")
+    check(float(cos.min()) >= MESH_MIN_COSINE, "train_mesh_encode",
+          f"a row's cosine {float(cos.min())} < {MESH_MIN_COSINE}")
+    return launches
+
+
+def _int8_global_plain(torch, emb_qs, valid_s, q, pool, corpus_scale):
+    """The JAX scan written out: slice by slice, strict `>` carries from
+    (INT32_SENTINEL, 0), the winners rescaled once."""
+    from review_recommender_tpu_torch.ops import dense as D
+
+    s, g, _d = emb_qs.shape
+    q_q, q_scale = D.quantize_query_int8(q)
+    best = torch.full((q.shape[0], g), D.INT32_SENTINEL, dtype=torch.int32, device=q.device)
+    best_r = torch.zeros_like(best, dtype=torch.int64)
+    for r in range(s):
+        acc = torch.where(valid_s[r], D.int8_matmul(q_q, emb_qs[r]), D.INT32_SENTINEL)
+        upd = acc > best
+        best, best_r = torch.where(upd, acc, best), torch.where(upd, r, best_r)
+    top, gi = D.stable_topk(best, min(pool, g))
+    scale = torch.full_like(q_scale, float(np.float32(corpus_scale))) * q_scale
+    scores = torch.where(top <= D.INT32_SENTINEL, D.NEG_INF, top.to(torch.float32) * scale)
+    return scores, torch.gather(best_r, 1, gi) * g + gi
+
+
+def _mesh_int8_global(torch, card, products):
+    """dense_striped_topk_scan_int8_global on phase 4's corpus (8,192
+    stripes, pool 150, 32 queries) against its plain version (ids and
+    scores equal) and the exact f32 pool (recall), beside the per-row int8
+    scan; medians of CUDA-event-timed calls and the bound."""
+    from review_recommender_tpu_torch.ops import dense as D
+
+    n, d = products.emb.shape
+    q8, scale = D.quantize_corpus_int8_global(products.emb)
+    r8, rscale = D.quantize_corpus_int8(products.emb)
+    valid = torch.from_numpy(products.valid).to(DEV)
+    g_qs, _unused, g_valid = D.slice_corpus_for_striped_int8(
+        torch.from_numpy(q8).to(DEV), torch.zeros(n, device=DEV), valid, 8192)
+    r_sl = D.slice_corpus_for_striped_int8(torch.from_numpy(r8).to(DEV),
+                                           torch.from_numpy(rscale).to(DEV), valid, 8192)
+    q = torch.from_numpy(_bench_queries(MESH_BATCH, d, VOCAB)[0]).to(DEV)
+    got_s, got_i = D.dense_striped_topk_scan_int8_global(g_qs, g_valid, q, POOL, scale)
+    want_s, want_i = _int8_global_plain(torch, g_qs, g_valid, q, POOL, scale)
+    emb = torch.from_numpy(products.emb).to(DEV)
+    exact = D.dense_topk(emb, q, valid, POOL)[1].cpu().numpy()
+    row_i = D.dense_striped_topk_scan_int8(*r_sl, q, POOL)[1].cpu().numpy()
+    recall = lambda ids: float(np.mean([len(set(a) & set(b)) / POOL
+                                        for a, b in zip(ids, exact)]))
+    equal = bool(torch.equal(got_i, want_i)) and bool(torch.equal(got_s, want_s))
+    b = q.shape[0]
+    nbytes, ops = n * d + n + b * d * 4 + b * POOL * 12, 2 * b * n * d
+    rows = [_op_row(torch, "int8_global_scan", lambda: D.dense_striped_topk_scan_int8_global(
+                g_qs, g_valid, q, POOL, scale), nbytes, ops, PEAK_INT8_OPS),
+            _op_row(torch, "int8_global_plain_loop", lambda: _int8_global_plain(
+                torch, g_qs, g_valid, q, POOL, scale), nbytes, ops, PEAK_INT8_OPS),
+            _op_row(torch, "int8_per_row_scan", lambda: D.dense_striped_topk_scan_int8(
+                *r_sl, q, POOL), nbytes + 4 * n, ops, PEAK_INT8_OPS)]
+    emit({"phase": "train_mesh_int8_global", "card": card, "rows": n, "stripes": 8192,
+          "pool": POOL, "queries": b, "corpus_scale": scale, "equal_to_plain": equal,
+          "recall_vs_exact_f32": recall(got_i.cpu().numpy()),
+          "per_row_int8_recall": recall(row_i), "ops": rows})
+    check(equal, "train_mesh_int8_global", "the scan differs from its plain version")
+    check(recall(got_i.cpu().numpy()) >= INT8_GLOBAL_MIN_RECALL, "train_mesh_int8_global",
+          f"pool recall {recall(got_i.cpu().numpy())} against the exact f32 pool")
+    del emb, g_qs, r_sl
+
+
+def phase_train_mesh(torch, products):
+    """Phase 19: the dp x tp trainers on TrainMesh([DEV] * 4, 2, 2), the
+    data-parallel encoder, the global-scale int8 scan, and the attention
+    kernel at the tp shard's shapes. Returns the attention launches of the
+    mesh steps and the dp encode, and the mesh steps' recomputes."""
+    import shutil
+
+    card = _card()
+    for row in _training_kernel_rows(torch, MESH_SHAPES):
+        emit({"phase": "train_mesh_kernel", "card": card, **row})
+    towers = _mesh_towers()
+    batches = _mesh_batches(products)
+    launches = recomputes = 0
+    for kind, steps in (("biencoder", MESH_STEPS), ("crossencoder", 3), ("mlm", 3)):
+        cfg, sd = towers[kind]
+        l, r = _mesh_trainer(torch, card, kind, cfg, sd, batches[kind], steps)
+        launches, recomputes = launches + l, recomputes + r
+    tmp = REPO_DIR / "build" / "chip_smoke_mesh"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    cfg, sd = towers["biencoder"]
+    _mesh_restores(torch, card, cfg, sd, batches["biencoder"], tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches += _mesh_encode(torch, card, cfg, sd, products)
+    _mesh_int8_global(torch, card, products)
+    return launches, recomputes
+
+
 def main() -> int:
     import torch
 
@@ -4725,6 +5062,10 @@ def main() -> int:
         launches += raw_launches["mha_fwd"]
         bm25_launches["bm25_packed"] += raw_launches["bm25_packed"]
         mark("raw_pipeline")
+        mesh_launches, mesh_recomputes = phase_train_mesh(torch, products)
+        launches += mesh_launches
+        recomputes += mesh_recomputes
+        mark("train_mesh")
     except PhaseError as exc:
         emit({"phase": "failed", "error": str(exc)})
         return 3

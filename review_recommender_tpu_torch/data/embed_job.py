@@ -8,6 +8,11 @@ shard is written to a temp file and renamed, so a killed job resumes at
 the first missing shard. A `job.json` manifest records the row and shard
 counts; a manifest for other counts restarts the job.
 
+For an offline build over several devices, construct the encoder with a
+device list (`BiEncoder(..., devices=["cuda:0", "cuda:1", ...])`, the
+JAX package's `BiEncoder(mesh=...)`): each batch splits into one equal
+slice a device, pure data parallelism.
+
 `job_status` counts only complete shard files (`emb_shard_NNNNN.npy`). The
 JAX function's glob also matches the temp name `emb_shard_NNNNN.tmp.npy`
 that a killed job leaves and raises on it (ROADMAP Queue 3); here such a

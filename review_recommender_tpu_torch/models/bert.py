@@ -14,7 +14,11 @@ dtype boundaries as the flax modules:
     f32 params;
   - `remat=True` recomputes each layer's activations in the backward
     (torch.utils.checkpoint per layer, flax's nn.remat);
-  - both residual LayerNorms run in f32 and cast back;
+  - both residual LayerNorms take (x + h) in `dtype`, rounded to
+    `cfg.ln_dtype`, and reduce and apply scale and bias in f32, as flax's
+    LayerNorm(dtype=ln_dtype, param_dtype=f32) does; the result is rounded
+    to ln_dtype, then cast to `dtype`. "float32" (the default) is the JAX
+    package's HF-parity setting, "bfloat16" its serving knob;
   - GELU is the tanh approximation (flax.linen.gelu's default), not erf;
   - pooler and classifier are f32; the bi-encoder output is L2-normalised
     in f32.
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +77,34 @@ class BertConfig:
         )
 
 
+LN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def ln_dtype_of(cfg: "BertConfig") -> torch.dtype:
+    """The residual LayerNorms' dtype; any other name than the two raises,
+    as the JAX layer does (a typo would silently change the numerics)."""
+    if cfg.ln_dtype not in LN_DTYPES:
+        raise ValueError(f"ln_dtype={cfg.ln_dtype!r} (expected 'float32'/'bfloat16') "
+                         "— a typo here would silently degrade LayerNorm numerics")
+    return LN_DTYPES[cfg.ln_dtype]
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """flax's Dense(dtype=dtype): weight and bias cast to `dtype`, the
+    product in `dtype` (no-op casts where they are stored in it)."""
+    return F.linear(x, weight.to(dtype), bias.to(dtype))
+
+
+def residual_layer_norm(x: torch.Tensor, h: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor, eps: float, ln_dtype: torch.dtype) -> torch.Tensor:
+    """LayerNorm(x + h) as BertLayer takes it: the sum in x's dtype, rounded
+    to ln_dtype, statistics, scale and bias in f32, the result rounded to
+    ln_dtype and returned in x's dtype."""
+    y = (x + h).to(ln_dtype).to(torch.float32)
+    return F.layer_norm(y, (y.shape[-1],), weight, bias, eps).to(ln_dtype).to(x.dtype)
+
+
 class Dense(nn.Linear):
     """nn.Linear computing in `dtype` from parameters stored in
     `param_dtype`; the casts are no-ops where the two agree."""
@@ -83,7 +115,7 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(self.compute_dtype), self.bias.to(self.compute_dtype))
+        return dense(x, self.weight, self.bias, self.compute_dtype)
 
 
 class SelfAttention(nn.Module):
@@ -108,11 +140,10 @@ class BertLayer(nn.Module):
     def __init__(self, cfg: BertConfig, dtype: torch.dtype, attn_impl: str = "auto",
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.ln_dtype != "float32":
-            raise NotImplementedError(
-                f"ln_dtype={cfg.ln_dtype!r}: the port runs LayerNorm in float32 only")
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.dtype = dtype
+        self.ln_dtype = ln_dtype_of(cfg)
+        self.eps = eps
         self.act = ACT[cfg.hidden_act]
         self.attention = SelfAttention(cfg, dtype, attn_impl, param_dtype)
         self.attention_layer_norm = nn.LayerNorm(h, eps=eps, dtype=torch.float32)
@@ -120,11 +151,18 @@ class BertLayer(nn.Module):
         self.output = Dense(cfg.intermediate_size, h, dtype, param_dtype)
         self.output_layer_norm = nn.LayerNorm(h, eps=eps, dtype=torch.float32)
 
+    def _ln(self, ln: nn.LayerNorm, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        return residual_layer_norm(x, h, ln.weight, ln.bias, self.eps, self.ln_dtype)
+
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
-        attn_out = self.attention(x, attn_bias)
-        x = self.attention_layer_norm((x + attn_out).to(torch.float32)).to(self.dtype)
+        x = self._ln(self.attention_layer_norm, x, self.attention(x, attn_bias))
         h = self.output(self.act(self.intermediate(x)))
-        return self.output_layer_norm((x + h).to(torch.float32)).to(self.dtype)
+        return self._ln(self.output_layer_norm, x, h)
+
+
+def key_bias(attention_mask: torch.Tensor) -> torch.Tensor:
+    """The additive f32 bias over KEY positions: 0 keep, -1e30 drop."""
+    return torch.where(attention_mask.bool(), 0.0, -1e30).to(torch.float32)
 
 
 class BertEncoder(nn.Module):
@@ -150,18 +188,24 @@ class BertEncoder(nn.Module):
             if isinstance(m, SelfAttention):
                 m.attn_impl = impl
 
+    def embed(self, param: Callable[[str], torch.Tensor], word: torch.Tensor,
+              token_type_ids: Optional[torch.Tensor]) -> torch.Tensor:
+        """The looked-up word embeddings (B, S, H) f32 plus positions and
+        token types, layer-normed in f32, in `dtype`; `param` gives each of
+        this module's other parameters by name."""
+        if token_type_ids is None:
+            token_type_ids = torch.zeros(word.shape[:2], dtype=torch.int64, device=word.device)
+        positions = torch.arange(word.shape[1], device=word.device)
+        x = (word + F.embedding(positions, param("position_embeddings.weight"))[None]
+             + F.embedding(token_type_ids, param("token_type_embeddings.weight")))
+        return F.layer_norm(x, (x.shape[-1],), param("embeddings_layer_norm.weight"),
+                            param("embeddings_layer_norm.bias"), self.cfg.layer_norm_eps
+                            ).to(self.dtype)
+
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        _b, s = input_ids.shape
-        if token_type_ids is None:
-            token_type_ids = torch.zeros_like(input_ids)
-        positions = torch.arange(s, device=input_ids.device)
-        x = (self.word_embeddings(input_ids)
-             + self.position_embeddings(positions)[None]
-             + self.token_type_embeddings(token_type_ids))
-        x = self.embeddings_layer_norm(x).to(self.dtype)
-        # additive f32 bias over KEY positions: 0 keep, -1e30 drop
-        attn_bias = torch.where(attention_mask.bool(), 0.0, -1e30).to(torch.float32)
+        x = self.embed(self.get_parameter, self.word_embeddings(input_ids), token_type_ids)
+        attn_bias = key_bias(attention_mask)
         for layer in self.layers:
             if self.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, attn_bias, use_reentrant=False)
@@ -182,8 +226,9 @@ class BiEncoderModel(nn.Module):
         self.pooling = pooling
         self.encoder = BertEncoder(cfg, dtype, attn_impl, param_dtype, remat)
 
-    def forward(self, input_ids, attention_mask, token_type_ids=None) -> torch.Tensor:
-        hidden = self.encoder(input_ids, attention_mask, token_type_ids).to(torch.float32)
+    def head(self, param, hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+        """f32 hidden states -> the pooled, L2-normalised embedding (no
+        parameters; `param` is the other heads' signature)."""
         if self.pooling == "cls":
             pooled = hidden[:, 0, :]
         else:
@@ -191,6 +236,10 @@ class BiEncoderModel(nn.Module):
             pooled = (hidden * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1e-9)
         norm = torch.sqrt((pooled * pooled).sum(dim=-1, keepdim=True))
         return pooled / torch.clamp(norm, min=1e-12)
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None) -> torch.Tensor:
+        hidden = self.encoder(input_ids, attention_mask, token_type_ids).to(torch.float32)
+        return self.head(self.get_parameter, hidden, attention_mask)
 
 
 class CrossEncoderModel(nn.Module):
@@ -203,10 +252,16 @@ class CrossEncoderModel(nn.Module):
         self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size, dtype=torch.float32)
         self.classifier = nn.Linear(cfg.hidden_size, 1, dtype=torch.float32)
 
+    def head(self, param, hidden: torch.Tensor, attention_mask=None) -> torch.Tensor:
+        """f32 hidden states -> one logit a row, from the pooler and
+        classifier parameters that `param` gives by name."""
+        pooled = torch.tanh(F.linear(hidden[:, 0, :], param("pooler.weight"),
+                                     param("pooler.bias")))
+        return F.linear(pooled, param("classifier.weight"), param("classifier.bias"))[:, 0]
+
     def forward(self, input_ids, attention_mask, token_type_ids=None) -> torch.Tensor:
         hidden = self.encoder(input_ids, attention_mask, token_type_ids).to(torch.float32)
-        pooled = torch.tanh(self.pooler(hidden[:, 0, :]))
-        return self.classifier(pooled)[:, 0]
+        return self.head(self.get_parameter, hidden, attention_mask)
 
 
 def init_state_dict(cfg: BertConfig, kind: str, seed: int = 0) -> Dict[str, torch.Tensor]:

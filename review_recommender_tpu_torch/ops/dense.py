@@ -1,10 +1,11 @@
 """Dense cosine pool: matmul + stable top-k, exact or striped, over a
 bf16/f16/f32 corpus or a per-row int8 one.
 
-Counterparts of `review_recommender_tpu/ops/dense.py:19-228` (the int8
-forms with a global scale, :229-288, are not ported: no serving path
-calls them). The JAX package computes these products in XLA outside any
-Pallas kernel, so here they stay library matmuls: torch.mm for the float
+Counterparts of `review_recommender_tpu/ops/dense.py:19-288`, the int8
+forms with one corpus-wide scale (`:229-288`, which the JAX package's
+examples/int8_scan_tuning.py and examples/roofline.py measure) included.
+The JAX package computes these products in XLA outside any Pallas
+kernel, so here they stay library matmuls: torch.mm for the float
 corpora (f32 result) and torch._int_mm for int8 (int32 result, exact).
 Top-k is a stable descending sort cut to k, which keeps `lax.top_k`'s
 order on ties (lower index first); `torch.topk` does not promise that.
@@ -213,3 +214,48 @@ def dense_striped_topk_scan_int8(emb_qs: torch.Tensor, scale_s: torch.Tensor,
     top, gi = stable_topk(best, min(int(pool), g))
     rows = torch.gather(best_r, 1, gi) * g + gi
     return top.reshape(*qvec.shape[:-1], -1), rows.reshape(*qvec.shape[:-1], -1)
+
+
+# ------------------------------------------------------- int8, one scale
+# the accumulator of an invalid row and the carries' start (JAX's
+# _INT32_MIN): one above int32's minimum, below any real accumulator
+INT32_SENTINEL = -2**31 + 1
+
+
+def quantize_corpus_int8_global(emb) -> tuple:
+    """Symmetric int8 quantization with ONE corpus-wide scale (host): (emb_q
+    (N, D) int8 numpy, scale float), op for op the JAX package's. Coarser
+    than the per-row scheme, but the scan's stripe carries can then compare
+    raw int32 accumulators."""
+    emb = np.asarray(emb, dtype=np.float32)
+    scale = max(float(np.abs(emb).max()) / 127.0, 1e-12)
+    q = np.clip(np.rint(emb / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def dense_striped_topk_scan_int8_global(emb_qs: torch.Tensor, valid_s: torch.Tensor,
+                                        qvec: torch.Tensor, pool: int,
+                                        corpus_scale) -> tuple[torch.Tensor, torch.Tensor]:
+    """Global-scale int8 striped pool for qvec (D,) or (B, D) over the
+    (s, G, D) int8 slices of slice_corpus_for_striped_int8 (its row scales
+    unused) and their (s, G) validity.
+
+    The JAX scan folds slice r's int32 accumulators, INT32_SENTINEL where
+    the row is invalid, into per-stripe (max, argmax) carries that start at
+    (INT32_SENTINEL, 0) under a strict `>`; here every slice is scored in
+    one int8 product and each stripe takes its first maximum over the
+    slices, the same pair. Only the pool's winners convert to float: a
+    sentinel becomes -inf, any other accumulator acc.f32 * (f32(corpus_scale)
+    * q_scale). Returns (scores (..., pool) f32, rows (..., pool) int64,
+    row = r*G + g)."""
+    s, g, d = emb_qs.shape
+    q_q, q_scale = quantize_query_int8(qvec.reshape(-1, d))  # (B, D), (B, 1)
+    acc = int8_matmul(q_q, emb_qs.reshape(s * g, d)).reshape(-1, s, g)
+    acc = torch.where(valid_s[None], acc, INT32_SENTINEL)
+    best_r = acc.argmax(dim=1)  # (B, G), the first maximum
+    best = torch.gather(acc, 1, best_r[:, None]).squeeze(1)
+    top, gi = stable_topk(best, min(int(pool), g))
+    scale = torch.full_like(q_scale, float(np.float32(corpus_scale))) * q_scale
+    scores = torch.where(top <= INT32_SENTINEL, NEG_INF, top.to(torch.float32) * scale)
+    rows = torch.gather(best_r, 1, gi) * g + gi
+    return scores.reshape(*qvec.shape[:-1], -1), rows.reshape(*qvec.shape[:-1], -1)

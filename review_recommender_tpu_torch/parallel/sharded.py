@@ -111,7 +111,7 @@ def _tower_on(tower, device: torch.device):
         return tower
     moved = copy.copy(tower)
     moved.model = copy.deepcopy(tower.model).to(device)
-    moved.device = device
+    moved.device, moved.devices, moved.models = device, [device], {device: moved.model}
     return moved
 
 

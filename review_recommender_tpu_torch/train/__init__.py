@@ -1,11 +1,13 @@
-"""Training on one device: contrastive bi-encoder, pointwise cross-encoder
-and MLM pretraining, with the optax chain of the JAX trainers
-(train/optim.py). The mesh parts (param_specs, shard_params, mesh=) are
-ROADMAP Queue 1 item 12."""
+"""Training: contrastive bi-encoder, pointwise cross-encoder and MLM
+pretraining, with the optax chain of the JAX trainers (train/optim.py),
+on one device or over a dp x tp mesh (mesh=TrainMesh(...),
+parallel/mesh.py; the tp layout in parallel/tp_bert.py)."""
 from review_recommender_tpu_torch.train.contrastive import (  # noqa: F401
     ContrastiveTrainer,
     TrainConfig,
     make_pair_batch,
+    param_specs,
+    shard_params,
 )
 from review_recommender_tpu_torch.train.cross_encoder import (  # noqa: F401
     CrossEncoderTrainer,

@@ -1,12 +1,21 @@
-"""Contrastive bi-encoder training: symmetric in-batch-negative InfoNCE.
+"""Contrastive bi-encoder training: symmetric in-batch-negative InfoNCE,
+on one device or over a dp x tp mesh.
 
-Counterpart of `review_recommender_tpu/train/contrastive.py` on one
-device: TrainConfig, ContrastiveTrainer (loss `:176-186`, train_step,
-train_step_async, save, restore) and make_pair_batch. The tower computes
-in `dtype` (bf16 by default, as in JAX) from f32 master weights; on a CUDA
-device its attention is the fused kernel forward with the recompute
-backward (ops/attention.py). The mesh (param_specs, shard_params, mesh=)
-is ROADMAP Queue 1 item 12.
+Counterpart of `review_recommender_tpu/train/contrastive.py`: TrainConfig,
+ContrastiveTrainer (loss `:149-159`, train_step, train_step_async, save,
+restore), make_pair_batch, and the tp layout TP_RULES, param_specs and
+shard_params (defined in parallel/tp_bert.py, in torch orientation). The
+tower computes in `dtype` (bf16 by default, as in JAX) from f32 master
+weights; on a CUDA device its attention is the fused kernel forward with
+the recompute backward (ops/attention.py).
+
+With `mesh=TrainMesh(devices, dp, tp)` (parallel/mesh.py) each dp row
+encodes its slice of the queries and documents on its tp cells, and the
+(B, H) embeddings of every row are gathered to the lead device, where the
+(B, B) logits of the global batch give the loss, as JAX's all-gather over
+dp does. Unlike JAX, which pins XLA attention on a mesh (GSPMD cannot
+partition a pallas_call over the tp-sharded heads), each cell runs the
+attention kernel over its own heads.
 """
 from __future__ import annotations
 
@@ -18,6 +27,11 @@ import torch.nn.functional as F
 
 from review_recommender_tpu_torch.models.bert import BertConfig, BiEncoderModel
 from review_recommender_tpu_torch.models.tokenizer import encode_batch
+from review_recommender_tpu_torch.parallel.tp_bert import (  # noqa: F401
+    TP_RULES,
+    param_specs,
+    shard_params,
+)
 from review_recommender_tpu_torch.train.optim import Trainer
 
 
@@ -37,7 +51,7 @@ class TrainConfig:
 
 class ContrastiveTrainer(Trainer):
     """InfoNCE trainer for the BiEncoderModel tower; `params` is a full
-    state_dict (f32 on any device)."""
+    state_dict (f32 on any device); `mesh` a TrainMesh or None."""
 
     metric = "in_batch_acc"
 
@@ -51,9 +65,10 @@ class ContrastiveTrainer(Trainer):
                                    param_dtype=torch.float32, remat=tc.remat)
         super().__init__(model, params, tc, device, mesh)
 
-    def _loss(self, q_ids, q_mask, d_ids, d_mask):
-        zq = self.model(q_ids, q_mask)  # (B, H), L2-normalised in f32
-        zd = self.model(d_ids, d_mask)
+    def _outputs(self, tower, q_ids, q_mask, d_ids, d_mask):
+        return tower(q_ids, q_mask), tower(d_ids, d_mask)  # (B, H), L2-normalised in f32
+
+    def _loss_from(self, zq, zd):
         logits = (zq @ zd.T) / self.tc.temperature  # (B, B)
         labels = torch.arange(logits.shape[0], device=logits.device)
         loss = 0.5 * (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels))

@@ -1,9 +1,11 @@
 """Pointwise cross-encoder training: sigmoid BCE over (query, doc, label)
 triples.
 
-Counterpart of `review_recommender_tpu/train/cross_encoder.py` on one
-device: CrossTrainConfig, CrossEncoderTrainer (BCE on the one relevance
-logit, accuracy of the logit's sign), warm_start_from_biencoder (the
+Counterpart of `review_recommender_tpu/train/cross_encoder.py`:
+CrossTrainConfig, CrossEncoderTrainer (BCE on the one relevance logit,
+accuracy of the logit's sign; with `mesh=` each dp row scores its slice on
+its tp cells and the (B,) logits are gathered to the lead device, as in
+JAX `:90-96`), warm_start_from_biencoder (the
 trunk of a bi-encoder or an MLM model grafted in, `:147-181`),
 make_triple_batch and train_crossencoder (its shuffle stream and resume
 skip as in JAX). A from-scratch cross-encoder needs a pretrained trunk to
@@ -39,7 +41,7 @@ class CrossTrainConfig:
 
 class CrossEncoderTrainer(Trainer):
     """BCE trainer for the CrossEncoderModel pair scorer; `params` is a
-    full state_dict (f32 on any device)."""
+    full state_dict (f32 on any device); `mesh` a TrainMesh or None."""
 
     metric = "acc"
 
@@ -51,8 +53,10 @@ class CrossEncoderTrainer(Trainer):
             model = CrossEncoderModel(cfg, dtype=dtype, param_dtype=torch.float32)
         super().__init__(model, params, train_cfg or CrossTrainConfig(), device, mesh)
 
-    def _loss(self, ids, mask, ttype, labels):
-        logits = self.model(ids, mask, ttype)
+    def _outputs(self, tower, ids, mask, ttype, labels):
+        return tower(ids, mask, ttype), labels
+
+    def _loss_from(self, logits, labels):
         labels = labels.to(torch.float32)
         loss = F.binary_cross_entropy_with_logits(logits, labels)
         acc = ((logits > 0) == (labels > 0.5)).to(torch.float32).mean()

@@ -1,11 +1,12 @@
 """Masked-language-model pretraining of the BERT trunk.
 
-Counterpart of `review_recommender_tpu/train/mlm.py` on one device:
-MLMModel (the trunk, a dense transform with tanh GELU, a LayerNorm and an
+Counterpart of `review_recommender_tpu/train/mlm.py`: MLMModel (the trunk, a dense transform with tanh GELU, a LayerNorm and an
 untied vocab decoder, the head in f32), init_mlm, MLMTrainConfig,
 make_mlm_batch (host masking: of the sampled positions 80% [MASK], 10% a
 random id, 10% kept; the same arrays as JAX for the same
-numpy Generator), MLMTrainer (masked-position cross-entropy) and
+numpy Generator), MLMTrainer (masked-position cross-entropy; with
+`mesh=` each dp row sends its three sums to the lead device, which
+combines them as JAX `:145-151` does over the global batch) and
 pretrain_mlm (each step's texts and mask drawn from default_rng((seed,
 step)), so a restored trainer continues the killed run's stream). A
 from-scratch cross-encoder learns only from a trunk pretrained this way
@@ -42,10 +43,18 @@ class MLMModel(nn.Module):
         self.mlm_ln = nn.LayerNorm(h, eps=cfg.layer_norm_eps, dtype=torch.float32)
         self.mlm_decoder = nn.Linear(h, cfg.vocab_size, dtype=torch.float32)
 
+    def head(self, param, hidden: torch.Tensor, attention_mask=None) -> torch.Tensor:
+        """f32 hidden states -> f32 vocab logits, from the head's parameters
+        that `param` gives by name."""
+        h = ACT["gelu"](F.linear(hidden, param("mlm_transform.weight"),
+                                 param("mlm_transform.bias")))
+        h = F.layer_norm(h, (h.shape[-1],), param("mlm_ln.weight"), param("mlm_ln.bias"),
+                         self.mlm_ln.eps)
+        return F.linear(h, param("mlm_decoder.weight"), param("mlm_decoder.bias"))
+
     def forward(self, input_ids, attention_mask, token_type_ids=None) -> torch.Tensor:
         hidden = self.encoder(input_ids, attention_mask, token_type_ids).to(torch.float32)
-        h = self.mlm_ln(ACT["gelu"](self.mlm_transform(hidden)))
-        return self.mlm_decoder(h)
+        return self.head(self.get_parameter, hidden, attention_mask)
 
 
 def init_mlm(cfg: BertConfig, seed: int = 0, dtype: torch.dtype = torch.bfloat16):
@@ -95,7 +104,7 @@ def make_mlm_batch(tokenizer, texts: Sequence[str], *, max_len: int,
 
 class MLMTrainer(Trainer):
     """Masked-token cross-entropy trainer for the MLMModel; `params` is a
-    full state_dict (f32 on any device)."""
+    full state_dict (f32 on any device); `mesh` a TrainMesh or None."""
 
     metric = "masked_acc"
 
@@ -106,15 +115,19 @@ class MLMTrainer(Trainer):
             model = MLMModel(cfg, dtype=dtype, param_dtype=torch.float32)
         super().__init__(model, params, train_cfg or MLMTrainConfig(), device, mesh)
 
-    def _loss(self, ids, mask, labels, weights):
-        logits = self.model(ids, mask)
+    def _outputs(self, tower, ids, mask, labels, weights):
+        """The slice's sum(ce * w), sum(correct * w) and sum(w), each (1,):
+        its (B, S, V) logits never leave its device."""
+        logits = tower(ids, mask)
         labels = labels.to(torch.int64)
         ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
                              reduction="none").reshape(labels.shape)
+        correct = (logits.argmax(dim=-1) == labels).to(torch.float32)
+        return (ce * weights).sum()[None], (correct * weights).sum()[None], weights.sum()[None]
+
+    def _loss_from(self, ce, correct, weights):
         denom = torch.clamp(weights.sum(), min=1.0)
-        loss = (ce * weights).sum() / denom
-        acc = ((logits.argmax(dim=-1) == labels).to(torch.float32) * weights).sum() / denom
-        return loss, acc
+        return ce.sum() / denom, correct.sum() / denom
 
 
 def pretrain_mlm(trainer: MLMTrainer, texts: Sequence[str], tokenizer, *,

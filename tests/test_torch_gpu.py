@@ -45,6 +45,13 @@ the int8 pools and scores bit-equal CPU against card, and query_e2e's
 attention launches: the bi-encoder's layers once a query, plus the
 cross-encoder's layers once a shard at rr_k > 0 (12 and 12 + 6 * 4 with
 bge-small and MiniLM-L6, chip_smoke.py phase 18; 2 and 2 + 2 * 4 here).
+The dp x tp trainers on TrainMesh(["cuda:0"] * 4, 2, 2): one bf16 step of
+each against the f32 step of the same mesh on the CPU (loss within
+2e-2), the attention
+kernel once per cell, layer and tower forward (and as many recomputes),
+no host sync in a mesh step, fresh or restored; BiEncoder(devices=
+["cuda:0"] * 4) against the one-device encode; the global-scale int8 scan
+on the card bit-equal to the CPU.
 """
 from pathlib import Path
 import numpy as np
@@ -936,3 +943,108 @@ def test_sharded_query_e2e_launches(cuda):
             assert tatt.mha_kernel_launches == before + expect, rr_k
             r1, s1 = single.query_e2e(query, w, 150, 10, rr_k=rr_k)
             assert np.abs(ss.cpu().numpy() - s1.cpu().numpy()).max() <= 2e-2
+
+
+# ------------------------------------------------ dp x tp training, the dp encoder
+def _mesh_batches():
+    """The tiny 2-layer config of _tiny_pair_batch and one batch of each
+    trainer (16 rows)."""
+    from review_recommender_tpu_torch.models.tokenizer import HashTokenizer
+    from review_recommender_tpu_torch.train import make_mlm_batch, make_triple_batch
+
+    cfg, _sd, pairs = _tiny_pair_batch()
+    rng = np.random.default_rng(1)
+    words = [f"word{i}" for i in range(80)]
+    docs = [" ".join(rng.choice(words, size=20)) for _ in range(16)]
+    tok = HashTokenizer(512)
+    triples = make_triple_batch(tok, [d[:24] for d in docs], docs,
+                                (np.arange(16) % 2).astype(np.float32), max_len=48, pad_to=48)
+    mlm = make_mlm_batch(tok, docs, max_len=32, rng=rng)
+    return cfg, {"biencoder": pairs, "crossencoder": triples, "mlm": mlm}
+
+
+@pytest.mark.parametrize("kind", ["biencoder", "crossencoder", "mlm"])
+def test_mesh_step_on_cuda_matches_the_cpu_mesh(cuda, kind):
+    """One bf16 step of each trainer on a (2, 2) mesh of one card against
+    the f32 step of the same mesh of CPUs from the same init: loss within
+    2e-2 (bf16 products); 4 kernel launches (the 4 cells) per layer and
+    tower forward, as many recomputes."""
+    from review_recommender_tpu_torch.models.bert import init_state_dict
+    from review_recommender_tpu_torch.parallel.mesh import TrainMesh
+    from review_recommender_tpu_torch.train import (ContrastiveTrainer, CrossEncoderTrainer,
+                                                    MLMTrainer)
+
+    cls = {"biencoder": ContrastiveTrainer, "crossencoder": CrossEncoderTrainer,
+           "mlm": MLMTrainer}[kind]
+    cfg, batches = _mesh_batches()
+    sd = init_state_dict(cfg, kind, seed=4)
+    cpu = cls(cfg, sd, dtype=torch.float32, mesh=TrainMesh(["cpu"] * 4, 2, 2))
+    gpu = cls(cfg, sd, mesh=TrainMesh([cuda] * 4, 2, 2))
+    assert all(p.is_cuda for ps in gpu.shards.values() for p in ps)
+    launches, recomputes = tatt.mha_kernel_launches, tatt.mha_backward_recomputes
+    m_gpu = gpu.train_step(*batches[kind])
+    towers = 2 if kind == "biencoder" else 1
+    assert tatt.mha_kernel_launches - launches == 4 * cfg.num_layers * towers
+    assert tatt.mha_backward_recomputes - recomputes == 4 * cfg.num_layers * towers
+    m_cpu = cpu.train_step(*batches[kind])
+    assert abs(m_gpu["loss"] - m_cpu["loss"]) <= 2e-2, (m_gpu, m_cpu)
+
+
+def test_mesh_steps_do_not_sync_fresh_or_restored(cuda, tmp_path):
+    """A bf16 mesh step (dp slices up from pinned memory, the cells'
+    copies, the gathers, the clip over the shards, AdamW) queues without a
+    host sync, fresh and restored from a one-device checkpoint."""
+    from review_recommender_tpu_torch.parallel.mesh import TrainMesh
+    from review_recommender_tpu_torch.train import ContrastiveTrainer
+
+    cfg, sd, batch = _tiny_pair_batch()
+    one = ContrastiveTrainer(cfg, sd, device="cuda")
+    one.train_step(*batch)
+    one.save(tmp_path / "ck.pt")
+    fresh = ContrastiveTrainer(cfg, sd, mesh=TrainMesh([cuda] * 4, 2, 2))
+    restored = ContrastiveTrainer(cfg, sd, mesh=TrainMesh([cuda] * 4, 2, 2))
+    restored.restore(tmp_path / "ck.pt")
+    fresh.train_step(*batch)
+    for tr in (fresh, restored):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = [tr.train_step_async(*batch) for _ in range(2)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert all(np.isfinite(float(m["loss"])) for m in metrics)
+        assert tr.step == 3
+
+
+def test_data_parallel_encode_on_cuda_matches_one_device(cuda):
+    """BiEncoder(devices=[cuda] * 4): every batch in 4 slices, each slice's
+    forward through the kernel (2 layers x 4 slices a batch), equal to the
+    one-device encode within 2e-2 (bf16; other batch shapes)."""
+    from review_recommender_tpu_torch.models.bert import BertConfig
+    from review_recommender_tpu_torch.models.encoder import BiEncoder
+
+    cfg = BertConfig(vocab_size=512, hidden_size=128, num_layers=2, num_heads=4,
+                     intermediate_size=256, max_position=64)
+    texts = [" ".join(f"w{(i * 5 + j) % 70}" for j in range(i % 23 + 1)) for i in range(40)]
+    one = BiEncoder.random_init(cfg, seed=5, device="cuda")
+    dp = BiEncoder.random_init(cfg, seed=5, devices=[cuda] * 4)
+    launches = tatt.mha_kernel_launches
+    got = dp.encode(texts, batch_size=16)
+    assert tatt.mha_kernel_launches - launches == 3 * 4 * cfg.num_layers  # 3 batches
+    want = one.encode(texts, batch_size=16)
+    assert np.abs(got - want).max() <= 2e-2
+
+
+def test_global_int8_scan_on_cuda_bit_equal_to_cpu(cuda):
+    from review_recommender_tpu_torch.ops import dense as td
+
+    emb = _unit_rows(0, 200_192, 384)
+    q = torch.from_numpy(_unit_rows(1, 16, 384))
+    e_q, scale = td.quantize_corpus_int8_global(emb)
+    valid = torch.arange(200_192) < 200_192 - 9
+    sl_cpu = td.slice_corpus_for_striped_int8(torch.from_numpy(e_q), torch.zeros(200_192),
+                                              valid, 8192)
+    sl_dev = [t.to(cuda) for t in sl_cpu]
+    gs, gi = td.dense_striped_topk_scan_int8_global(sl_dev[0], sl_dev[2], q.to(cuda), 150, scale)
+    ws, wi = td.dense_striped_topk_scan_int8_global(sl_cpu[0], sl_cpu[2], q, 150, scale)
+    assert torch.equal(gi.cpu(), wi) and torch.equal(gs.cpu(), ws)

@@ -167,11 +167,6 @@ def test_make_lr_equals_the_optax_schedule(tc):
     assert mine(0) == 0.0  # the first update's lr under a warmup
 
 
-def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pcon.ContrastiveTrainer(C.CFG, {}, mesh=object(), device="cpu")
-
-
 def test_remat_changes_nothing():
     params = params_from_flax(C.flax_init("contrastive"), C.CFG, "biencoder")
     losses, trees = [], []
