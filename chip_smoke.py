@@ -11,15 +11,21 @@ line, and nothing is caught and passed over:
   2 build    compile csrc/*.cu with nvcc for sm_90a (build/torch_kernels/) and,
              alongside, the native host library (native/*.cc with g++:
              build/torch_native/): its path, build seconds, g++ --version
-  3 kernel   the fused-attention kernel against its plain torch version at
-             the main path's shapes: max abs error (tolerance 2e-2, bf16) and
-             the median of 50 CUDA-event-timed runs of each, from an idle
+  3 kernel   the fused-attention kernels against their plain torch version
+             at the main path's shapes (bf16, the tensor-core route) and at
+             the generic route's (f32 at (64, 512, 12, 32), TinyBERT-4L's
+             bf16 (64, 512, 12, 26), the tiny config's (2, 16, 4, 16) in
+             bf16 and f32), then the tensor-core route past 512 keys (bf16
+             (8, 1024, 12, 32)): max abs error (tolerance 2e-2 in bf16, 1e-5
+             in f32), the route and one launch of its kernel, and the
+             median of 50 CUDA-event-timed runs of each, from an idle
              device and behind a device spin; beside them
              scaled_dot_product_attention with the key bias as an additive
              mask (a yardstick the port never calls: library_ms, its error
              against the plain version, the kernel's speed-up over it), the
-             roofline bound and the exponential floor (exp_floor_ms: B*H*S*S
-             exponentials at the MUFU rate)
+             roofline bound (f32 rows at the CUDA cores' f32 rate) and the
+             exponential floor (exp_floor_ms: B*H*S*S exponentials at the
+             MUFU rate)
   4 slice    SearchEngine.run_search at full width: 200k-doc synthetic corpus
              (D=384, 64 Zipf terms/doc, vocab 30k, 2000-char texts), random
              bge-small bi-encoder and MiniLM-L6 cross-encoder in bf16,
@@ -284,14 +290,15 @@ line, and nothing is caught and passed over:
              MiniLM-L6 at 32 x 256, (c) MLMTrainer on the bge-small trunk
              (vocab 30,522): each first step's loss against the
              one-device trainer's (2e-2 in bf16; 1e-4 with
-             dtype=torch.float32, both on the plain attention, as the
-             kernel takes bf16/f16 only); in bf16 exactly 4 launches a
-             layer and tower forward (4 x 24 a bi-encoder step), as many
-             recomputes, mha_reference called only by the recompute; 10
+             dtype=torch.float32); exactly 4 launches a layer and tower
+             forward (4 x 24 a bi-encoder step) of the tensor-core kernel
+             in bf16 and of the generic one in f32, as many recomputes,
+             mha_reference called only by the recompute; 10
              (a) and 3 (b, c) bf16 steps timed on the mesh and on one
              device; (d) an f32
              checkpoint from one device restored on the mesh and the other
-             way round: state equal, next loss within 1e-4 of the saver's;
+             way round: state equal, next loss within 1e-4 of the saver's,
+             every step's attention on the generic kernel (counted);
              (e) BiEncoder(devices=["cuda:0"] * 4) on 2,048 of phase 4's
              texts: 4 x 12 launches a batch, every row's cosine to the
              one-device encode >= 0.999; (f) the global-scale int8 scan on
@@ -299,6 +306,20 @@ line, and nothing is caught and passed over:
              to its slice-by-slice plain version, pool recall against the
              exact f32 pool beside the per-row int8 scan's, medians and
              bounds
+ 20 generic_route  the towers that only the generic attention kernel
+             (csrc/mha_generic.cu) runs, through run_search on phase 4's
+             corpus and engine construction, 20 queries a setting (cut
+             from 100: the rerank's host tokenization): (a) random
+             bge-small and MiniLM-L6 towers in f32 (TF32 off) at rerank_k
+             0 and 50, exactly 12 and 18 generic launches a query and none
+             of the tensor-core kernel, every query again on reference
+             attention: _final within 1e-4, rows in the same order but for
+             swaps within it; (b) a bf16 cross-encoder at
+             huawei-noah/TinyBERT_General_4L_312D's published widths
+             (hidden 312, 4 layers, 12 heads: D = 26, intermediate 1200,
+             vocab 30,522) beside phase 4's bf16 bge-small at rerank_k 50:
+             12 tensor-core and 4 generic launches a query, held to
+             reference attention within 2e-2; p50 of each setting
 
 The last two lines are the kernels summary and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -318,6 +339,7 @@ from pathlib import Path
 import numpy as np
 
 KERNEL_TOL = 2e-2  # bf16: one ulp at magnitude 2-4 (tests/test_attention.py's bound)
+F32_KERNEL_TOL = 1e-5  # f32: full f32 FMA summed in another order (its f32 bound)
 FINAL_TOL = 2e-2  # _final with kernel vs reference attention in both bf16 towers
 # the rerank batch, the query encode, two other head dims, then query_e2e's
 # encode and rerank (287 keys: a ragged last key tile), then the raw-review
@@ -327,6 +349,14 @@ SHAPES = [(64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128),
           (1, 32, 12, 32), (50, 287, 12, 32),
           (256, 512, 12, 32), (256, 64, 12, 32),  # phase 17's embedding jobs: batch 256
           (13, 287, 12, 32)]
+# phase 3's rows beyond the main path's bf16 shapes, (B, S, H, D, dtype, tol):
+# phase 20's f32 rerank shape and TinyBERT-4L-312D's bf16 one (D = 26), the
+# tiny config's (D = 16) in both types (all on the generic kernel), and the
+# tensor-core route past 512 keys
+ROUTE_SHAPES = [(64, 512, 12, 32, "float32", F32_KERNEL_TOL),
+                (64, 512, 12, 26, "bfloat16", KERNEL_TOL),
+                (2, 16, 4, 16, "bfloat16", KERNEL_TOL), (2, 16, 4, 16, "float32", F32_KERNEL_TOL),
+                (8, 1024, 12, 32, "bfloat16", KERNEL_TOL)]
 N_DOCS, DIM, TERMS, VOCAB, TEXT_CHARS = 200_000, 384, 64, 30_000, 2000
 # 100 queries per setting: p90 then has 10 samples beyond it
 N_QUERIES, K, RERANK_K, REPS = 100, 10, 50, 50
@@ -475,10 +505,10 @@ def phase_build():
           "compiler": gxx[0] if gxx else ""})
 
 
-def _attn_inputs(torch, seed, b, s, h, d):
+def _attn_inputs(torch, seed, b, s, h, d, dtype=None):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(np.float32))
-               .to("cuda", torch.bfloat16) for _ in range(3))
+               .to("cuda", dtype or torch.bfloat16) for _ in range(3))
     lens = rng.integers(1, s + 1, size=b)
     bias = np.where(np.arange(s)[None, :] < lens[:, None], 0.0, -1e30).astype(np.float32)
     if b > 1:
@@ -515,19 +545,30 @@ def _sdpa(torch, q, k, v, bias, h):
 def phase_kernel(torch):
     """Each time twice: from an idle device (the host launch included, as in
     earlier runs: ms, plain_ms, library_ms) and queued behind a device spin
-    (the device's work only: *device_ms, which the shares use)."""
+    (the device's work only: *device_ms, which the shares use). Each row
+    names its route; its first call must launch that route's kernel once
+    and the other not at all."""
     from review_recommender_tpu_torch.ops import attention as A
 
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
+    counters = {"wgmma": "mha_fwd", "generic": "mha_generic"}
+    rows = [(*shape, "bfloat16", KERNEL_TOL) for shape in SHAPES] + ROUTE_SHAPES
     results = []
-    for i, (b, s, h, d) in enumerate(SHAPES):
-        q, k, v, bias = _attn_inputs(torch, 100 + i, b, s, h, d)
+    for i, (b, s, h, d, dtype_name, tol) in enumerate(rows):
+        dtype = getattr(torch, dtype_name)
+        q, k, v, bias = _attn_inputs(torch, 100 + i, b, s, h, d, dtype)
+        route = A.kernel_route(dtype, d, s)
         with torch.inference_mode():
+            _zero_counts()
             got = A.mha_kernel(q, k, v, bias, h)
+            launched = _counts()
             ref = A.mha_reference(q, k, v, bias, h)
             lib = _sdpa(torch, q, k, v, bias, h)
             torch.cuda.synchronize()
-            check(got.shape == ref.shape and got.dtype == torch.bfloat16, "kernel",
+            want = {**{n: 0 for n in launched}, counters[route]: 1}
+            check(launched == want, "kernel", f"{route} route at {(b, s, h, d, dtype_name)}: "
+                  f"launches {launched}, want {want}")
+            check(got.shape == ref.shape and got.dtype == dtype, "kernel",
                   f"output {tuple(got.shape)} {got.dtype}")
             check(bool(torch.isfinite(got.float()).all()), "kernel", "non-finite output")
             err = float((got.float() - ref.float()).abs().max())
@@ -545,19 +586,23 @@ def phase_kernel(torch):
                 times[f"{name}device_ms"] = _median_ms(torch, fn, REPS, before=spin)
         flops = A.attention_flops(b, s, h, d)
         nbytes = A.attention_bytes(b, s, h, d, q.element_size())
-        bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+        # f32 runs in full f32 on the CUDA cores; bf16 rows take the
+        # tensor-core rate, the exponential floor beside it
+        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        bound_ms = max(flops / peak, nbytes / PEAK_HBM_BYTES) * 1e3
         exp_floor_ms = b * h * s * s / PEAK_EXP_RATE * 1e3
         dev = times["device_ms"]
-        row = {"B": b, "S": s, "H": h, "D": d, "max_abs_err": err, "tol": KERNEL_TOL, **times,
+        row = {"B": b, "S": s, "H": h, "D": d, "dtype": dtype_name, "route": route,
+               "max_abs_err": err, "tol": tol, **times,
                "library_max_abs_err": lib_err,
                "speedup_vs_library": times["library_device_ms"] / dev,
                "kernel_tflops": flops / dev / 1e9, "flops": flops, "bytes": nbytes,
-               "bound_ms": bound_ms, "roofline_share": bound_ms / dev,
-               "bound": "compute" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES
+               "peak_flops": peak, "bound_ms": bound_ms, "roofline_share": bound_ms / dev,
+               "bound": "compute" if flops / peak > nbytes / PEAK_HBM_BYTES
                else "memory", "exp_floor_ms": exp_floor_ms,
                "exp_floor_share": exp_floor_ms / dev, "reps": REPS}
         emit({"phase": "kernel", **row})
-        check(err <= KERNEL_TOL, "kernel", f"max abs error {err} > {KERNEL_TOL} at {row}")
+        check(err <= tol, "kernel", f"max abs error {err} > {tol} at {row}")
         check(lib_err <= KERNEL_TOL, "kernel",
               f"scaled_dot_product_attention differs from the plain version by {lib_err}")
         results.append(row)
@@ -680,12 +725,14 @@ def _synth_doc_tokens(products) -> None:
     products.doc_token_len = np.full(products.n_padded, DOC_TOKEN_LEN, np.int32)
 
 
-def _crosscheck(rows_k, rows_r, phase):
+def _crosscheck(rows_k, rows_r, phase, tol=FINAL_TOL, by_rank=False):
     """Two runs of the same queries (kernel against reference attention, or
     two query paths), query by query: the largest _final difference of a
     product in both top-k lists (the margin of ROADMAP F3), and the rank-wise one. A
     product in one list only must be a near tie at the cut: its final
-    within FINAL_TOL of the other list's last. Emits before it checks."""
+    within `tol` of the other list's last. With `by_rank` the rank-wise
+    difference must be within `tol` too: two rows may trade places only
+    where their finals are that close. Emits before it checks."""
     worst, worst_rank, swapped, cut = 0.0, 0.0, [], []
     for i, (rk, rr) in enumerate(zip(rows_k, rows_r)):
         fk = {r["sku"]: r["_final"] for r in rk}
@@ -700,14 +747,16 @@ def _crosscheck(rows_k, rows_r, phase):
                 cut.append({"query": i, "sku": sku, "final": mine[sku],
                             "other_last": other[-1]["_final"] if other else None})
     bad_cut = [c for c in cut if c["other_last"] is None
-               or abs(c["final"] - c["other_last"]) > FINAL_TOL]
-    out = {"queries": len(rows_k), "max_final_diff": worst, "tol": FINAL_TOL,
-           "margin": FINAL_TOL - worst, "max_final_diff_by_rank": worst_rank,
+               or abs(c["final"] - c["other_last"]) > tol]
+    out = {"queries": len(rows_k), "max_final_diff": worst, "tol": tol,
+           "margin": tol - worst, "max_final_diff_by_rank": worst_rank,
            "queries_with_swaps": swapped, "products_across_the_cut": len(cut),
            "beyond_a_near_tie": bad_cut[:5]}
     emit({"phase": phase, **out})
-    check(worst <= FINAL_TOL, phase, f"_final differs by {worst} > {FINAL_TOL}")
+    check(worst <= tol, phase, f"_final differs by {worst} > {tol}")
     check(not bad_cut, phase, f"rows differ beyond a near tie at the cut: {bad_cut[:5]}")
+    check(not by_rank or worst_rank <= tol, phase,
+          f"rows trade places {worst_rank} apart in _final, beyond {tol}")
     return out
 
 
@@ -1158,6 +1207,7 @@ def _kernel_modules():
     from review_recommender_tpu_torch.ops import stage_a as SA
 
     return {"mha_fwd": (A, "mha_kernel_launches"),
+            "mha_generic": (A, "mha_generic_kernel_launches"),
             "bm25_packed": (BK, "bm25_packed_kernel_launches"),
             "bm25_unpacked": (BK, "bm25_unpacked_kernel_launches"),
             "stage_a_fused": (SA, "stage_a_kernel_launches"),
@@ -4785,9 +4835,11 @@ def _timed_steps(torch, tr, batch, steps):
 def _mesh_trainer(torch, card, kind, cfg, sd, batch, steps):
     """One trainer kind: the first step on the mesh and on one device, in
     bf16 and in f32, from the same weights (losses within MESH_LOSS_TOL);
-    the mesh steps' kernel launches (one a cell, layer and tower forward)
-    and recomputes, no forward on the plain version; then `steps` bf16
-    steps of each timed. Returns (launches, recomputes) of the mesh steps."""
+    the mesh steps' kernel launches (one a cell, layer and tower forward:
+    the tensor-core kernel in bf16, the generic one in f32, never the
+    other) and recomputes, no forward on the plain version; then `steps`
+    bf16 steps of each timed. Returns the mesh steps' launches and
+    recomputes by kernel."""
     from review_recommender_tpu_torch.ops import attention as A
     from review_recommender_tpu_torch.parallel.mesh import TrainMesh
     from review_recommender_tpu_torch.train import (ContrastiveTrainer, CrossEncoderTrainer,
@@ -4797,14 +4849,13 @@ def _mesh_trainer(torch, card, kind, cfg, sd, batch, steps):
            "mlm": MLMTrainer}[kind]
     cells = MESH_DP * MESH_TP
     per_step = cells * cfg.num_layers * (2 if kind == "biencoder" else 1)
-    row, launches, recomputes = {"kind": kind, "config": f"{cfg.num_layers}L H={cfg.hidden_size}"
-                                 f" V={cfg.vocab_size}", "batch": list(batch[0].shape)}, 0, 0
-    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    row = {"kind": kind, "config": f"{cfg.num_layers}L H={cfg.hidden_size} V={cfg.vocab_size}",
+           "batch": list(batch[0].shape)}
+    launches, recomputes = {}, {}
+    for name, dtype, kernel in (("bf16", torch.bfloat16, "mha_fwd"),
+                                ("f32", torch.float32, "mha_generic")):
         one = cls(cfg, sd, dtype=dtype, device=DEV)
         mesh = cls(cfg, sd, dtype=dtype, mesh=TrainMesh([DEV] * cells, MESH_DP, MESH_TP))
-        if name == "f32":  # the kernel takes bf16/f16: f32 holds the mesh's math alone
-            one.set_attn_impl("reference")
-            mesh.set_attn_impl("reference")
         check(all(p.device.type == torch.device(DEV).type for ps in mesh.shards.values()
                   for p in ps),
               "train_mesh", f"{kind}: a master off the card")
@@ -4813,26 +4864,28 @@ def _mesh_trainer(torch, card, kind, cfg, sd, batch, steps):
         A.mha_backward_recomputes = 0
         with _PlainCalls() as plain:
             l_mesh = mesh.train_step(*batch)["loss"]
-            got = (_counts()["mha_fwd"], A.mha_backward_recomputes, plain.calls)
             timed = {}
             if name == "bf16":
                 timed["mesh_ms_per_step"] = _timed_steps(torch, mesh, batch, steps)
-                got = (_counts()["mha_fwd"], A.mha_backward_recomputes, plain.calls)
+            counts = _counts()
+            got = (counts[kernel], A.mha_backward_recomputes, plain.calls)
         timed["one_device_ms_per_step"] = (_timed_steps(torch, one, batch, steps)
                                            if name == "bf16" else None)
         n_steps = 1 + (steps if name == "bf16" else 0)
-        want = (per_step * n_steps,) * 3 if name == "bf16" else (0, 0, per_step)
+        want = (per_step * n_steps,) * 3
+        others = {n: c for n, c in counts.items() if n != kernel and c}
         row[name] = {"loss_mesh": l_mesh, "loss_one_device": l_one,
                      "abs_diff": abs(l_mesh - l_one), "tol": MESH_LOSS_TOL[name],
-                     "mesh_steps": n_steps, "launches": got[0], "recomputes": got[1],
-                     "plain_calls": got[2], "launches_per_step": per_step, **timed}
+                     "mesh_steps": n_steps, "kernel": kernel, "launches": got[0],
+                     "recomputes": got[1], "plain_calls": got[2],
+                     "launches_per_step": per_step, **timed}
         check(np.isfinite(l_mesh) and abs(l_mesh - l_one) <= MESH_LOSS_TOL[name], "train_mesh",
               f"{kind} {name}: first loss {l_mesh} on the mesh, {l_one} on one device")
-        check(got == want, "train_mesh",
-              f"{kind} {name}: (launches, recomputes, plain calls) {got}, want {want}: in "
-              "bf16 the kernel once a cell, layer and tower forward and the plain version "
-              "only in the recompute backward; in f32 the plain version's forwards alone")
-        launches, recomputes = launches + got[0], recomputes + got[1]
+        check(got == want and not others, "train_mesh",
+              f"{kind} {name}: (launches, recomputes, plain calls) {got}, want {want}, other "
+              f"kernels {others}: the {kernel} kernel once a cell, layer and tower forward "
+              "and the plain version only in the recompute backward")
+        launches[kernel], recomputes[kernel] = got[0], got[1]
         del one, mesh
     emit({"phase": "train_mesh", "card": card, "mesh": [MESH_DP, MESH_TP],
           "devices": [DEV] * cells, **row})
@@ -4843,22 +4896,24 @@ def _mesh_restores(torch, card, cfg, sd, batch, tmp):
     """Checkpoints across layouts (f32 bge-small): a one-device trainer's
     checkpoint restored on the mesh and a mesh trainer's on one device,
     each state equal to the checkpoint's, the next loss within
-    MESH_RESTORE_TOL of the saving trainer's own next step."""
+    MESH_RESTORE_TOL of the saving trainer's own next step. Every step's
+    attention runs the generic kernel (counted, exact). Returns its
+    launches."""
     from review_recommender_tpu_torch.parallel.mesh import TrainMesh
     from review_recommender_tpu_torch.train import ContrastiveTrainer
 
     cells = MESH_DP * MESH_TP
     layouts = {"one": {"device": DEV},
                "mesh": {"mesh": TrainMesh([DEV] * cells, MESH_DP, MESH_TP)}}
+    per_step = {"one": 2 * cfg.num_layers, "mesh": cells * 2 * cfg.num_layers}
     out = {}
+    _zero_counts()
     for src, dst in (("one", "mesh"), ("mesh", "one")):
         first = ContrastiveTrainer(cfg, sd, dtype=torch.float32, **layouts[src])
-        first.set_attn_impl("reference")  # the kernel takes bf16/f16
         first.train_step(*batch)
         path = tmp / f"{src}.pt"
         first.save(path)
         resumed = ContrastiveTrainer(cfg, sd, dtype=torch.float32, **layouts[dst])
-        resumed.set_attn_impl("reference")
         resumed.restore(path)
         saved = torch.load(path, map_location="cpu", weights_only=True)
         same = all(torch.equal(t.cpu(), saved["params"][n]) for n, t in resumed.params.items())
@@ -4869,7 +4924,13 @@ def _mesh_restores(torch, card, cfg, sd, batch, tmp):
         check(same and resumed.step == 2 and abs(got - want) <= MESH_RESTORE_TOL, "train_mesh",
               f"restore {src} -> {dst}: {out[f'{src}_to_{dst}']}")
         del first, resumed
-    emit({"phase": "train_mesh_restore", "card": card, "tol": MESH_RESTORE_TOL, **out})
+    counts = _counts()
+    want = {**{n: 0 for n in counts},  # two steps of each saver, one of each resumed
+            "mha_generic": 3 * (per_step["one"] + per_step["mesh"])}
+    emit({"phase": "train_mesh_restore", "card": card, "tol": MESH_RESTORE_TOL,
+          "launches": counts, "expected_launches": want, **out})
+    check(counts == want, "train_mesh", f"restores: launches {counts}, want {want}")
+    return counts["mha_generic"]
 
 
 def _mesh_encode(torch, card, cfg, sd, products):
@@ -4972,7 +5033,8 @@ def phase_train_mesh(torch, products):
     """Phase 19: the dp x tp trainers on TrainMesh([DEV] * 4, 2, 2), the
     data-parallel encoder, the global-scale int8 scan, and the attention
     kernel at the tp shard's shapes. Returns the attention launches of the
-    mesh steps and the dp encode, and the mesh steps' recomputes."""
+    mesh steps, the restores and the dp encode, and the mesh steps'
+    recomputes, each by kernel ("mha_fwd", "mha_generic")."""
     import shutil
 
     card = _card()
@@ -4980,20 +5042,109 @@ def phase_train_mesh(torch, products):
         emit({"phase": "train_mesh_kernel", "card": card, **row})
     towers = _mesh_towers()
     batches = _mesh_batches(products)
-    launches = recomputes = 0
+    launches = {"mha_fwd": 0, "mha_generic": 0}
+    recomputes = dict(launches)
     for kind, steps in (("biencoder", MESH_STEPS), ("crossencoder", 3), ("mlm", 3)):
         cfg, sd = towers[kind]
         l, r = _mesh_trainer(torch, card, kind, cfg, sd, batches[kind], steps)
-        launches, recomputes = launches + l, recomputes + r
+        for name in launches:
+            launches[name] += l[name]
+            recomputes[name] += r[name]
     tmp = REPO_DIR / "build" / "chip_smoke_mesh"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
     cfg, sd = towers["biencoder"]
-    _mesh_restores(torch, card, cfg, sd, batches["biencoder"], tmp)
+    launches["mha_generic"] += _mesh_restores(torch, card, cfg, sd, batches["biencoder"], tmp)
     shutil.rmtree(tmp, ignore_errors=True)
-    launches += _mesh_encode(torch, card, cfg, sd, products)
+    launches["mha_fwd"] += _mesh_encode(torch, card, cfg, sd, products)
     _mesh_int8_global(torch, card, products)
     return launches, recomputes
+
+
+# phase 20: the towers only the generic attention kernel runs. (a) phase
+# 4's towers (seeds 1, 2) in f32; (b) a bf16 cross-encoder at
+# huawei-noah/TinyBERT_General_4L_312D's published widths (its config.json:
+# hidden_size 312, num_hidden_layers 4, num_attention_heads 12,
+# intermediate_size 1200, vocab_size 30522, max_position_embeddings 512;
+# D = 26), random weights from seed 3. 20 queries a setting, cut from 100
+# as phase 14 cuts its tower queries (the rerank's host tokenization).
+GENERIC_QUERIES = 20
+F32_FINAL_TOL = 1e-4  # _final, f32 towers on the kernels against reference attention
+TINYBERT_4L_312D = dict(vocab_size=30_522, hidden_size=312, num_layers=4, num_heads=12,
+                        intermediate_size=1200, max_position=512)
+
+
+def _generic_setting(torch, engine, towers, queries, rerank_k, want, tol, by_rank, name):
+    """run_search over `queries` on the kernels (launches counted, exact),
+    then again with every tower on reference attention (no launch), held
+    together by _crosscheck (with `by_rank`, rows trade places only within
+    `tol`). Returns the kernel pass's launches."""
+    _zero_counts()
+    lat, rows_k = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        rows = engine.run_search(q, k=K, rerank_k=rerank_k)[0]
+        lat.append((time.perf_counter() - t0) * 1e3)
+        _check_rows(rows, "generic_route")
+        rows_k.append(rows)
+    counts = _counts()
+    for t in towers:
+        t.set_attn_impl("reference")
+    try:
+        _zero_counts()
+        rows_r = [engine.run_search(q, k=K, rerank_k=rerank_k)[0] for q in queries]
+        ref_counts = _counts()
+    finally:
+        for t in towers:
+            t.set_attn_impl("auto")
+    want = {**{n: 0 for n in counts}, **want}
+    emit({"phase": "generic_route", "setting": name, "card": _card(), "rerank_k": rerank_k,
+          "queries": len(queries), **_pct(lat), "launches": counts, "expected_launches": want})
+    check(counts == want, "generic_route", f"{name}: launches {counts}, want {want}")
+    check(not any(ref_counts.values()), "generic_route",
+          f"{name}: reference attention launched {ref_counts}")
+    _crosscheck(rows_k, rows_r, f"generic_route_{name}", tol=tol, by_rank=by_rank)
+    return counts
+
+
+def phase_generic_route(torch, products):
+    """Phase 20: run_search with f32 towers and with a TinyBERT-width bf16
+    cross-encoder on phase 4's corpus, each engine built as phase 4 builds
+    its own. Returns the attention launches by kernel."""
+    from review_recommender_tpu_torch.engine.search import SearchEngine
+    from review_recommender_tpu_torch.index.schema import IndexBundle
+    from review_recommender_tpu_torch.models.bert import BertConfig
+    from review_recommender_tpu_torch.models.encoder import BiEncoder, CrossEncoder
+
+    queries = _queries(GENERIC_QUERIES, DIM, VOCAB)
+    n = len(queries)
+    total = {"mha_fwd": 0, "mha_generic": 0}
+    f32, bf16 = torch.float32, torch.bfloat16
+    be = BiEncoder.random_init(BertConfig.bge_small(), seed=1, device=DEV, dtype=f32)
+    ce = CrossEncoder.random_init(BertConfig.minilm_l6_cross(), seed=2, device=DEV, dtype=f32)
+    be16 = BiEncoder.random_init(BertConfig.bge_small(), seed=1, device=DEV, dtype=bf16)
+    tiny = CrossEncoder.random_init(BertConfig(**TINYBERT_4L_312D), seed=3, device=DEV,
+                                    dtype=bf16)
+    layers = lambda t: t.cfg.num_layers * n  # one launch a layer and query
+    # (name, towers, tolerance, rank-wise too, [(rerank_k, launches)]): f32
+    # held rank by rank; bf16 as phase 4's F3 cross-check holds it
+    groups = [("f32", (be, ce), F32_FINAL_TOL, True,
+               [(0, {"mha_generic": layers(be)}),
+                (RERANK_K, {"mha_generic": layers(be) + layers(ce)})]),
+              ("tinybert_4l_312d_bf16", (be16, tiny), FINAL_TOL, False,
+               [(RERANK_K, {"mha_fwd": layers(be16), "mha_generic": layers(tiny)})])]
+    for name, towers, tol, by_rank, cases in groups:
+        engine = SearchEngine(IndexBundle(products=products), device=DEV,
+                              query_encoder=towers[0], cross_encoder=towers[1])
+        for rk in (0, RERANK_K):  # warm-up: cuBLAS handles, allocator, first launches
+            engine.run_search(queries[0], k=K, rerank_k=rk)
+        for rk, want in cases:
+            counts = _generic_setting(torch, engine, towers, queries, rk, want, tol, by_rank,
+                                      f"{name}_rerank_k{rk}")
+            for kernel in total:
+                total[kernel] += counts[kernel]
+        del engine  # one engine on the card at a time
+    return total
 
 
 def main() -> int:
@@ -5063,26 +5214,42 @@ def main() -> int:
         bm25_launches["bm25_packed"] += raw_launches["bm25_packed"]
         mark("raw_pipeline")
         mesh_launches, mesh_recomputes = phase_train_mesh(torch, products)
-        launches += mesh_launches
-        recomputes += mesh_recomputes
+        launches += mesh_launches["mha_fwd"]
+        recomputes += mesh_recomputes["mha_fwd"]
+        generic_launches = mesh_launches["mha_generic"]
+        generic_recomputes = mesh_recomputes["mha_generic"]
         mark("train_mesh")
+        route_launches = phase_generic_route(torch, products)
+        launches += route_launches["mha_fwd"]
+        generic_launches += route_launches["mha_generic"]
+        mark("generic_route")
     except PhaseError as exc:
         emit({"phase": "failed", "error": str(exc)})
         return 3
-    main_shape = kernel_rows[0]
     emit({"phase": "done", "seconds": time.perf_counter() - t0, "phase_seconds": seconds})
-    emit({"kernels": [{
-        "name": "mha_fwd", "route": "cuda",
-        "source": "review_recommender_tpu_torch/csrc/mha_fwd.cu",
-        "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:64",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
-        "ms": main_shape["device_ms"], "plain_ms": main_shape["plain_device_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": "operations" if main_shape["bound"] == "compute" else "bytes",
-        "library_ms": main_shape["library_device_ms"],
-        "backward_recomputes": recomputes,
-    }] + _bm25_kernel_entries(bm25_rows, bm25_launches, bm25_err) + [stage_a_entry]})
+    # each attention kernel's numbers at its main path's shape: the bf16
+    # rerank shape for the tensor-core kernel, the same shape in f32 (phase
+    # 20's f32 cross-encoder) for the generic one
+    attention = [("mha_fwd", "wgmma", "bfloat16", launches, recomputes),
+                 ("mha_generic", "generic", "float32", generic_launches, generic_recomputes)]
+    entries = []
+    for name, route, dtype, n, rc in attention:
+        rows = [r for r in kernel_rows if r["route"] == route]
+        main_shape = next(r for r in rows if r["dtype"] == dtype)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"review_recommender_tpu_torch/csrc/{name}.cu",
+            "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:64",
+            "launches": n,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_shape["device_ms"], "plain_ms": main_shape["plain_device_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": "operations" if main_shape["bound"] == "compute" else "bytes",
+            "library_ms": main_shape["library_device_ms"],
+            "backward_recomputes": rc,
+        })
+    emit({"kernels": entries + _bm25_kernel_entries(bm25_rows, bm25_launches, bm25_err)
+          + [stage_a_entry]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -32,6 +32,15 @@
 //     wgmma m64nDk16. O needs no rescale and no final division.
 //   - The ring streams 2 x ntiles steps: K alone for pass 1, then K and V
 //     for pass 2.
+//   - The key bias (in log2 units) comes from shared memory. Up to
+//     kMaxRow = 512 keys the whole row is stored once, before the first
+//     step. Longer rows (the TPU kernel takes any length) take the kRing
+//     instance: a second ring of the K/V ring's depth holds each step's
+//     64 biases, stored by threads 0-63 from global memory two steps
+//     ahead, at the end of a step, so shared memory does not grow with S.
+//     The ring alone would serve every S, but at S <= 512 it cost 7-17% in
+//     A/Bs on an H100 (the loop's registers and scheduling), so those
+//     shapes keep the whole row.
 //
 // Rounding against the TPU kernel and the plain version (mha_reference):
 // both divide the exponentials by the f32 row sum and round the
@@ -80,12 +89,13 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr int kRows = 64;      // query rows per CTA: wgmma's M
 constexpr int kKeys = 64;      // keys per K/V tile: N of Q K^T
 constexpr int kStages = 2;     // K/V ring
-constexpr int kMaxSeq = 512;
+constexpr int kMaxRow = 512;  // longest key row kept whole in shared memory
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory geometry at head dim D: a tile (64 rows, D columns) is
 // kBoxes boxes of 64 rows x kBoxCols columns, each a swizzle atom column.
-template <int D>
+// kRing: the bias ring (S > kMaxRow) instead of the whole row.
+template <int D, bool kRing>
 struct Geo {
   static constexpr int kBoxCols = D < 64 ? D : 64;
   static constexpr int kBoxes = D / kBoxCols;
@@ -94,10 +104,11 @@ struct Geo {
   static constexpr int kTileBytes = kBoxes * kBoxBytes;  // 64 x D x 2
   static constexpr int kKStepsPerBox = kBoxCols / 16;    // k16 steps in one box
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // wgmma: B128 = 1, B64 = 2
-  // Q, the K ring, the V ring, the bias row, 3 mbarriers, and slack to
-  // align the tiles to 1024 bytes (the 128B swizzle's period)
+  static constexpr int kBiasFloats = kRing ? kStages * kKeys : kMaxRow;
+  // Q, the K ring, the V ring, the bias row or ring, 3 mbarriers, and
+  // slack to align the tiles to 1024 bytes (the 128B swizzle's period)
   static constexpr int kSmemBytes =
-      (1 + 2 * kStages) * kTileBytes + kMaxSeq * 4 + 64 + 1024;
+      (1 + 2 * kStages) * kTileBytes + kBiasFloats * 4 + 64 + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -352,12 +363,12 @@ struct Mma<__half> {
 // 4i+0/4i+1 is (row g, columns 8i+2c, 8i+2c+1) and 4i+2/4i+3 the same
 // columns of row g+8. Two neighbouring 8-column blocks, packed to pairs of
 // the input type, are the A registers of one k16 step of the next wgmma.
-template <typename T, int D>
+template <typename T, int D, bool kRing>
 __global__ void __launch_bounds__(kThreads, D == 128 ? 2 : 4)
 mha_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ key_bias,
                T* __restrict__ out, int S, int H, float scale_log2) {
-  using G = Geo<D>;
+  using G = Geo<D, kRing>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -366,7 +377,7 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   const uint32_t sK = base + G::kTileBytes;               // stage s at + s * kTileBytes
   const uint32_t sV = sK + kStages * G::kTileBytes;
   float* bias_s = reinterpret_cast<float*>(gbase + (1 + 2 * kStages) * G::kTileBytes);
-  const uint32_t bar_q = smem_u32(bias_s + kMaxSeq);      // then one per stage, 8 bytes each
+  const uint32_t bar_q = smem_u32(bias_s + G::kBiasFloats);  // then one per stage, 8 bytes each
   const uint32_t bar_kv = bar_q + 8;
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -395,9 +406,18 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     for (int s = 0; s < kStages; ++s) mbar_init(bar_kv + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the bias row in log2 units; keys from S to the tile edge get -inf
-  for (int j = tid; j < ntiles * kKeys; j += kThreads)
-    bias_s[j] = j < S ? key_bias[(long)b * S + j] * kLog2e : -INFINITY;
+  // the bias in log2 units; keys from S to the tile edge get -inf
+  if constexpr (kRing) {
+    // steps 0 .. kStages-1 read tiles 0 .. kStages-1 (S > kMaxRow: ntiles
+    // > kStages); one key a thread (kKeys <= kThreads)
+    for (int u = 0; u < kStages; ++u) {
+      const int j = u * kKeys + tid;
+      if (tid < kKeys) bias_s[u * kKeys + tid] = key_bias[(long)b * S + j] * kLog2e;
+    }
+  } else {
+    for (int j = tid; j < ntiles * kKeys; j += kThreads)
+      bias_s[j] = j < S ? key_bias[(long)b * S + j] * kLog2e : -INFINITY;
+  }
   __syncthreads();
 
   const int nsteps = 2 * ntiles;
@@ -437,7 +457,7 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
     fence_regs(s);
 
     // ---- logits in log2 units ----
-    const float* bt = bias_s + t * kKeys;
+    const float* bt = bias_s + (kRing ? st : t) * kKeys;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * i + 2 * c);
@@ -498,6 +518,13 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
 
     __syncthreads();  // every warp is done with this stage
     if (tid == 0 && u + kStages < nsteps) load_step(st, u + kStages);
+    if constexpr (kRing) {
+      // step u + kStages's tile bias, read after the barrier that ends
+      // step u + 1
+      const int v = u + kStages, j = (v >= ntiles ? v - ntiles : v) * kKeys + tid;
+      if (tid < kKeys && v < nsteps)
+        bias_s[st * kKeys + tid] = j < S ? key_bias[(long)b * S + j] * kLog2e : -INFINITY;
+    }
   }
 
   // ---- out = O (already normalised), rows >= S not stored ----
@@ -541,7 +568,7 @@ EncodeTiled encode_tiled() {
 // then B; box (kBoxCols, 64, 1) with the swizzle of a kRowBytes row.
 template <typename T, int D>
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H) {
-  using G = Geo<D>;
+  using G = Geo<D, false>;  // the box does not depend on the bias layout
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)H * D, (cuuint64_t)S, (cuuint64_t)B};
@@ -555,11 +582,11 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int H) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRing>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* bias, void* out,
                    int B, int S, int H, cudaStream_t stream) {
-  auto kern = mha_fwd_kernel<T, D>;
-  constexpr int smem = Geo<D>::kSmemBytes;
+  auto kern = mha_fwd_kernel<T, D, kRing>;
+  constexpr int smem = Geo<D, kRing>::kSmemBytes;
   static bool smem_set = false;  // the opt-in is per kernel instance, not per call
   if (smem > 48 * 1024 && !smem_set) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -576,13 +603,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t dispatch_s(const void* q, const void* k, const void* v, const float* bias, void* out,
+                       int B, int S, int H, cudaStream_t stream) {
+  return S <= kMaxRow ? launch<T, D, false>(q, k, v, bias, out, B, S, H, stream)
+                      : launch<T, D, true>(q, k, v, bias, out, B, S, H, stream);
+}
+
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, const float* bias, void* out,
                        int B, int S, int H, int D, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, bias, out, B, S, H, stream);
-    case 64: return launch<T, 64>(q, k, v, bias, out, B, S, H, stream);
-    case 128: return launch<T, 128>(q, k, v, bias, out, B, S, H, stream);
+    case 32: return dispatch_s<T, 32>(q, k, v, bias, out, B, S, H, stream);
+    case 64: return dispatch_s<T, 64>(q, k, v, bias, out, B, S, H, stream);
+    case 128: return dispatch_s<T, 128>(q, k, v, bias, out, B, S, H, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -595,7 +629,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const float*
 extern "C" int rrt_mha_fwd(int dtype, const void* q, const void* k, const void* v,
                            const void* key_bias, void* out, int B, int S, int H, int D,
                            void* stream) {
-  if (B <= 0 || S <= 0 || S > kMaxSeq || H <= 0 || B > 65535 || H > 65535)
+  if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const float* bias = static_cast<const float*>(key_bias);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

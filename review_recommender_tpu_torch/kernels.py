@@ -115,6 +115,8 @@ def load() -> ctypes.CDLL:
             P, I = ctypes.c_void_p, ctypes.c_int
             lib.rrt_mha_fwd.argtypes = [I, P, P, P, P, P, I, I, I, I, P]
             lib.rrt_mha_fwd.restype = I
+            lib.rrt_mha_generic.argtypes = [I, P, P, P, P, P, I, I, I, I, P]
+            lib.rrt_mha_generic.restype = I
             F = ctypes.c_float
             lib.rrt_bm25_packed.argtypes = [P, P, P, P, F, P, I, I, I, P]
             lib.rrt_bm25_packed.restype = I

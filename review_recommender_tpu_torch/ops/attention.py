@@ -4,17 +4,25 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
 
   mha_reference        the plain torch version (mha_xla's math: f32 logits
                        from upcast q and k, f32 softmax, probabilities in
-                       the input dtype, f32-accumulated PV)
-  mha_kernel           the hand-written CUDA kernel (csrc/mha_fwd.cu) that
-                       replaces the TPU kernel `_mha_kernel`; where a
-                       gradient is asked for it runs through MhaKernelFn
+                       the input dtype, f32-accumulated PV), of both routes
+  kernel_route         which hand-written kernel takes (dtype, D, S):
+                       "wgmma" = csrc/mha_fwd.cu (tensor cores, TMA;
+                       bf16/f16 at D in {32, 64, 128}), "generic" =
+                       csrc/mha_generic.cu (CUDA cores, full f32 FMA;
+                       f32, bf16 and f16 at any D from 1 to 256); any
+                       S >= 1 on both. Together they replace the TPU kernel
+                       `_mha_kernel`, which takes any float type, head
+                       width and length
+  mha_kernel           the route's CUDA kernel; where a gradient is asked
+                       for it runs through MhaKernelFn
   multihead_attention  the towers' entry point: impl "auto" launches the
                        kernel for CUDA tensors and takes the reference for
                        CPU tensors (autograd through its torch ops);
                        "kernel" and "reference" force one
 
-On a CUDA tensor the kernel launches or the call raises; nothing falls back
-to the reference. The gradient follows the JAX custom_vjp
+On a CUDA tensor the route's kernel launches or the call raises (a head
+wider than 256 raises); the route depends on dtype and shape alone, and
+nothing falls back to the reference. The gradient follows the JAX custom_vjp
 (attention_kernel.py:132-154): the forward is the kernel, and the backward
 re-runs the reference's torch ops under autograd from the saved q, k, v and
 key bias (one more attention forward, no backward kernel) and returns the
@@ -28,11 +36,12 @@ import torch
 
 from review_recommender_tpu_torch import kernels
 
-# Launches of the CUDA kernel in this process; a run reads it before and
-# after its main path to show that the path went through the kernel. A
-# server's handler threads encode concurrently, so the count is bumped
-# under a lock.
+# Launches of each CUDA kernel in this process (the tensor-core route's,
+# then the generic route's); a run reads them before and after its main
+# path to show that the path went through the kernels. A server's handler
+# threads encode concurrently, so the counts are bumped under a lock.
 mha_kernel_launches = 0
+mha_generic_kernel_launches = 0
 # Backward recomputes of MhaKernelFn: one per kernel forward that a
 # training step differentiates. With remat (per-layer checkpointing) the
 # backward first re-runs each layer's forward, so a step launches the
@@ -40,9 +49,26 @@ mha_kernel_launches = 0
 mha_backward_recomputes = 0
 _count_lock = threading.Lock()
 
-MAX_SEQ = 512
-HEAD_DIMS = (32, 64, 128)
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+WGMMA_HEAD_DIMS = (32, 64, 128)  # csrc/mha_fwd.cu's TMA boxes and wgmma k-steps
+MAX_HEAD_DIM = 256  # csrc/mha_generic.cu's widest bucket; no public BERT is wider
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def kernel_route(dtype: torch.dtype, d: int, s: int) -> str:
+    """The hand-written kernel that takes attention over q/k/v of `dtype`
+    with head width `d` and `s` keys: "wgmma" (csrc/mha_fwd.cu) for
+    bf16/f16 at d in WGMMA_HEAD_DIMS, "generic" (csrc/mha_generic.cu) for
+    every other f32, bf16 or f16 case with 1 <= d <= MAX_HEAD_DIM. Any
+    s >= 1 runs on both. Raises ValueError for anything else."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"mha_kernel takes float32, bfloat16 or float16, got {dtype}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"mha_kernel: head dim {d} not in 1..{MAX_HEAD_DIM}")
+    if s < 1:
+        raise ValueError(f"mha_kernel: sequence length {s} < 1")
+    if dtype != torch.float32 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "generic"
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,12 +91,14 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_kernel_args(q, k, v, key_bias, num_heads) -> tuple[int, int, int, int]:
+    """The checks both routes share: CUDA tensors on one device, one q/k/v
+    dtype, an f32 key bias, (B, S, H*D) shapes, contiguity."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda and key_bias.is_cuda):
         raise ValueError("mha_kernel needs CUDA tensors (use mha_reference on the CPU)")
     if len({q.device, k.device, v.device, key_bias.device}) != 1:
         raise ValueError("mha_kernel: q, k, v and key_bias must be on one device")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"mha_kernel takes bfloat16 or float16 q/k/v, got "
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"mha_kernel: q, k, v must share a dtype, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     if key_bias.dtype != torch.float32:
         raise ValueError(f"mha_kernel: key_bias must be float32, got {key_bias.dtype}")
@@ -82,37 +110,38 @@ def _check_kernel_args(q, k, v, key_bias, num_heads) -> tuple[int, int, int, int
         raise ValueError(f"mha_kernel: key_bias must be ({b}, {s}), got {tuple(key_bias.shape)}")
     if num_heads <= 0 or hd % num_heads:
         raise ValueError(f"mha_kernel: width {hd} is not a multiple of num_heads={num_heads}")
-    d = hd // num_heads
-    if d not in HEAD_DIMS:
-        raise ValueError(f"mha_kernel: head dim {d} not in {HEAD_DIMS}")
-    if not 0 < s <= MAX_SEQ:
-        raise ValueError(f"mha_kernel: sequence length {s} not in 1..{MAX_SEQ}")
     if b > 65535 or num_heads > 65535:
         raise ValueError("mha_kernel: batch and heads must be <= 65535")
     for name, t in (("q", q), ("k", k), ("v", v), ("key_bias", key_bias)):
         if not t.is_contiguous():
             raise ValueError(f"mha_kernel: {name} must be contiguous")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"mha_kernel: {name} must be 16-byte aligned")
-    return b, s, num_heads, d
+    return b, s, num_heads, hd // num_heads
 
 
 def _launch(q, k, v, key_bias, num_heads: int) -> torch.Tensor:
-    global mha_kernel_launches
+    global mha_kernel_launches, mha_generic_kernel_launches
     b, s, h, d = _check_kernel_args(q, k, v, key_bias, num_heads)
+    route = kernel_route(q.dtype, d, s)
+    if route == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:  # TMA's global address
+                raise ValueError(f"mha_kernel: {name} must be 16-byte aligned")
     lib = kernels.load()
+    entry, name = ((lib.rrt_mha_fwd, "mha_fwd") if route == "wgmma"
+                   else (lib.rrt_mha_generic, "mha_generic"))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rrt_mha_fwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                              v.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
-                              b, s, h, d, stream)
+        err = entry(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    key_bias.data_ptr(), out.data_ptr(), b, s, h, d, stream)
     if err != 0:
-        raise RuntimeError(f"mha_fwd kernel launch failed: cudaError {err} "
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
                            f"at B={b} S={s} H={h} D={d} {q.dtype}")
     with _count_lock:
-        mha_kernel_launches += 1
+        if route == "wgmma":
+            mha_kernel_launches += 1
+        else:
+            mha_generic_kernel_launches += 1
     return out
 
 
@@ -140,8 +169,9 @@ class MhaKernelFn(torch.autograd.Function):
 
 def mha_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                key_bias: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """The CUDA kernel: same contract as mha_reference, CUDA tensors only.
-    Launches on torch.cuda.current_stream() and raises if the launch fails;
+    """The route's CUDA kernel (kernel_route): same contract as
+    mha_reference, CUDA tensors only. Launches on
+    torch.cuda.current_stream() and raises if the launch fails;
     where grad mode is on and q, k or v requires a gradient, the launch is
     MhaKernelFn's forward."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

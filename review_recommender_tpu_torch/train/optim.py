@@ -162,9 +162,9 @@ class Trainer:
         return gather_params(self.shards, self.device)
 
     def set_attn_impl(self, impl: str) -> None:
-        """The towers' attention: "auto" (the kernel on CUDA), "kernel" or
-        "reference" (the plain version; the kernel takes bf16/f16 only, so
-        an f32 trainer on CUDA needs it)."""
+        """The towers' attention: "auto" (the kernel on CUDA: the tensor-core
+        route in bf16/f16, the generic CUDA-core route in f32), "kernel" or
+        "reference" (the plain version)."""
         if self.mesh is None:
             self.model.encoder.set_attn_impl(impl)
         else:

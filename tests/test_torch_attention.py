@@ -6,15 +6,22 @@ kernel run as the JAX package's own tests run it on the CPU), to `mha_xla`
 and to the port's `mha_reference`. Tolerances are those of
 tests/test_attention.py: 1e-5 in float32, 2e-2 in bfloat16 (one bf16 ulp at
 magnitude ~2-4, where the two frameworks may round a probability or an
-output on opposite sides). The CUDA kernel itself is held against
-`mha_reference` on the card (tests/test_torch_gpu.py, chip_smoke.py).
+output on opposite sides). The shapes include the head widths and lengths
+that only the generic CUDA route takes (D = 16, 26, 50; S = 600), and
+towers at TinyBERT_General_4L_312D's widths (D = 26) held to flax in f32.
+The CUDA kernels themselves are held against `mha_reference` on the card
+(tests/test_torch_gpu.py, chip_smoke.py).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from review_recommender_tpu.models import bert as jbert
 from review_recommender_tpu.ops.pallas.attention_kernel import mha_pallas, mha_xla
+from review_recommender_tpu_torch.models import bert as tbert
+from review_recommender_tpu_torch.models.convert import params_from_flax
 from review_recommender_tpu_torch.ops import attention as tatt
 
 
@@ -66,6 +73,90 @@ def test_reference_bf16_matches_jax(b, s, heads, head_dim):
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=2e-2, atol=2e-2)
     np.testing.assert_allclose(got.float().numpy(), ref_xla, rtol=2e-2, atol=2e-2)
+
+
+# (head width, length): BertConfig.tiny()'s D = 16, TinyBERT-4L-312D's
+# D = 26, random_for_dim(100)'s D = 50, and 600 keys (past the first
+# kernel's 512)
+GENERIC_SHAPES = [(16, 64), (26, 40), (50, 70), (32, 600)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head_dim,s", GENERIC_SHAPES)
+def test_reference_matches_jax_at_generic_route_shapes(dtype, head_dim, s):
+    """The plain version of both CUDA routes against the TPU kernel in
+    interpret mode and mha_xla, at the widths and lengths only the generic
+    route (and, at S = 600, the wgmma route past 512 keys) takes."""
+    b, heads = 2, (2 if s > 512 else 3)
+    arrs = _inputs(head_dim * 1000 + s, b, s, heads * head_dim)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = np.asarray(mha_pallas(*_jax(arrs, jdt), heads, interpret=True), dtype=np.float32)
+    ref_xla = np.asarray(mha_xla(*_jax(arrs, jdt), heads), dtype=np.float32)
+    got = tatt.mha_reference(*_torch(arrs, tdt), heads)
+    assert got.dtype == tdt and got.shape == (b, s, heads * head_dim)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.float().numpy(), ref_xla, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [1, 16, 26, 31, 32, 33, 64, 96, 128, 129, 256])
+def test_kernel_route_by_dtype_and_head_width(dtype, d):
+    """bf16/f16 take the tensor-core route at D = 32, 64, 128 only; f32
+    takes the generic route at every width; the length never matters."""
+    want = "wgmma" if d in (32, 64, 128) else "generic"
+    for s in (1, 63, 64, 65, 512, 513, 1024, 4096):
+        assert tatt.kernel_route(dtype, d, s) == want
+        assert tatt.kernel_route(torch.float32, d, s) == "generic"
+
+
+def test_kernel_route_refusals():
+    for d in (0, 257, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match="head dim"):
+                tatt.kernel_route(dtype, d, 16)
+    for dtype in (torch.float64, torch.int32, torch.float8_e4m3fn):
+        with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+            tatt.kernel_route(dtype, 32, 16)
+    with pytest.raises(ValueError, match="sequence length"):
+        tatt.kernel_route(torch.bfloat16, 32, 0)
+    assert tatt.MAX_HEAD_DIM == 256 and tatt.WGMMA_HEAD_DIMS == (32, 64, 128)
+
+
+def _tinybert_cfg():
+    """huawei-noah/TinyBERT_General_4L_312D's widths (config.json: hidden
+    312, 12 heads, intermediate 1200), cut to 2 layers and a 128-word
+    vocab."""
+    return jbert.BertConfig(vocab_size=128, hidden_size=312, num_layers=2, num_heads=12,
+                            intermediate_size=1200, max_position=64)
+
+
+@pytest.mark.parametrize("kind", ["biencoder", "crossencoder"])
+def test_tinybert_width_towers_match_flax(kind):
+    """Both towers at D = 26 (the generic route's width on the card) through
+    the port's CPU path against flax with the TPU kernel in interpret mode,
+    in f32, with the flax weights carried over by params_from_flax: within
+    1e-4 (tests/test_torch_models.py's tower bound)."""
+    cfg = _tinybert_cfg()
+    init = jbert.init_biencoder if kind == "biencoder" else jbert.init_crossencoder
+    _, params = init(cfg, seed=26, dtype=jnp.float32)
+    params = jax.tree.map(np.asarray, params)
+    rng = np.random.default_rng(312)
+    b, s = 3, 40
+    ids = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    lens = np.array([s, 17, 1])
+    mask = (np.arange(s)[None, :] < lens[:, None]).astype(np.int32)
+    tt = (np.arange(s)[None, :] >= lens[:, None] // 2).astype(np.int32) * mask
+    jcls = jbert.BiEncoderModel if kind == "biencoder" else jbert.CrossEncoderModel
+    ref = jcls(cfg, dtype=jnp.float32, attn_impl="pallas").apply(
+        {"params": params}, ids, mask, tt)
+    tcls = tbert.BiEncoderModel if kind == "biencoder" else tbert.CrossEncoderModel
+    model = tcls(tbert.BertConfig(**vars(cfg)), dtype=torch.float32)
+    model.load_state_dict(params_from_flax(params, cfg, kind), strict=True)
+    with torch.inference_mode():
+        got = model.eval()(*(torch.from_numpy(x) for x in (ids, mask, tt)))
+    assert got.shape == ((b, 312) if kind == "biencoder" else (b,))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
 
 
 def test_all_masked_rows_are_uniform():

@@ -8,10 +8,13 @@ machine without jax it runs as
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Attention: tolerance 2e-2 in bf16/f16 (tests/test_attention.py's bf16
-bound); the kernel divides the exponentials by the f32 row sum before it
-rounds the probabilities to the input type, as the reference does, so a
-probability differs from the reference's only where its f32 value lies
-within an ulp or two of a rounding boundary. BM25: bitwise equal scores (tf_q
+bound) and 1e-5 in f32 (its f32 bound: the generic route's full f32 FMA
+sums in another order than the reference's einsum); both kernels divide
+the exponentials by the f32 row sum before they round the probabilities to
+the input type, as the reference does, so a probability differs from the
+reference's only where its f32 value lies within an ulp or two of a
+rounding boundary. The tensor-core route (bf16/f16 at D = 32, 64, 128) runs
+past 512 keys; the generic route takes f32/bf16/f16 at any D from 1 to 256. BM25: bitwise equal scores (tf_q
 sums integers; every other step is rounded alone, in the reference's order).
 Stage A: winner scores within 1e-5 (exact bf16/f32 products summed in f32 in
 another order than cuBLAS's); a winner id may differ only where the plain
@@ -156,17 +159,39 @@ def test_kernel_matches_sdpa_at_rerank_shape(cuda):
     assert err <= 2e-2, err
 
 
+def _launches():
+    return tatt.mha_kernel_launches, tatt.mha_generic_kernel_launches
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
+    """D = 16, f32 and S = 513, refused by the first kernel, now run (the
+    generic route, the generic route, the tensor-core route past 512 keys);
+    a non-contiguous input and a head wider than 256 are refused."""
     q, k, v, bias = _inputs(0, 2, 16, 4 * 32, torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        tatt.mha_kernel(q, k, v, bias, 8)  # D = 16
-    with pytest.raises(ValueError, match="bfloat16 or float16"):
-        tatt.mha_kernel(q.float(), k.float(), v.float(), bias, 4)
+    for args, heads, tol, route in (((q, k, v), 8, 2e-2, "generic"),  # D = 16
+                                    ((q.float(), k.float(), v.float()), 4, 1e-5, "generic")):
+        before = _launches()
+        with torch.inference_mode():
+            got = tatt.mha_kernel(*args, bias, heads)
+            ref = tatt.mha_reference(*args, bias, heads)
+        torch.cuda.synchronize()
+        assert got.dtype == args[0].dtype
+        assert (got.float() - ref.float()).abs().max().item() <= tol
+        assert _launches() == (before[0], before[1] + 1)
     with pytest.raises(ValueError, match="contiguous"):
         tatt.mha_kernel(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, bias, 4)
-    long_q = torch.zeros(1, 513, 64, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="sequence length"):
-        tatt.mha_kernel(long_q, long_q, long_q, torch.zeros(1, 513, device=cuda), 2)
+    long_q, long_b = _inputs(1, 1, 513, 64, torch.bfloat16, cuda)[0], torch.zeros(1, 513, device=cuda)
+    before = _launches()
+    with torch.inference_mode():
+        got = tatt.mha_kernel(long_q, long_q, long_q, long_b, 2)
+        ref = tatt.mha_reference(long_q, long_q, long_q, long_b, 2)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    assert _launches() == (before[0] + 1, before[1])
+    wide = torch.zeros(1, 4, 257, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tatt.mha_kernel(wide, wide, wide, torch.zeros(1, 4, device=cuda), 1)
+    assert _launches() == (before[0] + 1, before[1])
     qg = q.clone().requires_grad_(True)
     launches, recomputes = tatt.mha_kernel_launches, tatt.mha_backward_recomputes
     tatt.mha_kernel(qg, k, v, bias, 4).float().sum().backward()
@@ -177,11 +202,60 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 
 def _masked_but_one(bias):
-    """Row 0: every key masked but the last valid one."""
+    """Row 0: every key masked but one (key 1, or key 0 where S = 1)."""
     bias = bias.clone()
     bias[0] = -1e30
-    bias[0, 1] = 0.0
+    bias[0, min(1, bias.shape[1] - 1)] = 0.0
     return bias
+
+
+GENERIC_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [8, 16, 26, 50, 96, 256])
+@pytest.mark.parametrize("s", [1, 63, 65, 287, 1024])
+def test_generic_kernel_matches_reference(cuda, dtype, d, s):
+    """The generic route (csrc/mha_generic.cu) against mha_reference: row 0
+    masked but one key, row 2 every key masked (uniform over the S keys),
+    row 1 a random length; one launch of the generic kernel, none of the
+    tensor-core one."""
+    b, heads = 3, 2
+    q, k, v, bias = _inputs(d * 7919 + s, b, s, heads * d, dtype, cuda)
+    bias = _masked_but_one(bias)
+    assert tatt.kernel_route(dtype, d, s) == "generic"
+    before = _launches()
+    with torch.inference_mode():
+        got = tatt.multihead_attention(q, k, v, bias, heads)
+        ref = tatt.mha_reference(q, k, v, bias, heads)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1] + 1)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= GENERIC_TOL[dtype], err
+    mean_v = v[2].float().mean(dim=0)
+    assert (got[2].float() - mean_v[None, :]).abs().max().item() <= 2 * GENERIC_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [513, 1024, 2048])
+def test_wgmma_kernel_past_512_keys(cuda, dtype, d, s):
+    """The tensor-core route past the first kernel's 512 keys (its key bias
+    now read a tile at a time), a row masked but one and an all-masked row
+    included."""
+    b, heads = 3, 2
+    q, k, v, bias = _inputs(s + d, b, s, heads * d, dtype, cuda)
+    bias = _masked_but_one(bias)
+    before = _launches()
+    with torch.inference_mode():
+        got = tatt.multihead_attention(q, k, v, bias, heads)
+        ref = tatt.mha_reference(q, k, v, bias, heads)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0] + 1, before[1])
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2, err
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -215,6 +289,39 @@ def test_gradients_match_autograd_through_the_reference(cuda, dtype, b, s, heads
         assert torch.isfinite(got).all(), name
         err = (got - ref).abs().max().item()
         assert err <= 2e-2, (name, err)
+
+
+@pytest.mark.parametrize("dtype,b,s,heads,d", [
+    (torch.float32, 8, 128, 12, 32),  # an f32 bi-encoder step's shape
+    (torch.float32, 2, 600, 4, 16),
+    (torch.bfloat16, 4, 70, 12, 26),  # TinyBERT-4L-312D's heads
+    (torch.float16, 3, 40, 2, 50),
+])
+def test_gradients_through_the_generic_route(cuda, dtype, b, s, heads, d):
+    """MhaKernelFn on the generic route: the forward is the generic kernel,
+    the backward the reference's recompute, so the q, k, v gradients are
+    autograd's through mha_reference on the same inputs (within the
+    route's tolerance) and the output within it too."""
+    q, k, v, bias = _inputs(b * s + d, b, s, heads * d, dtype, cuda)
+    bias = _masked_but_one(bias)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d),
+                    device=cuda).to(dtype)
+    outs, grads = [], []
+    before, recomputes = _launches(), tatt.mha_backward_recomputes
+    for impl in ("auto", "reference"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = tatt.multihead_attention(*leaves, bias, heads, impl=impl)
+        out.backward(g)
+        outs.append(out.detach().float())
+        grads.append([t.grad.float() for t in leaves])
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1] + 1)
+    assert tatt.mha_backward_recomputes == recomputes + 1
+    tol = GENERIC_TOL[dtype]
+    assert (outs[0] - outs[1]).abs().max().item() <= tol
+    for name, got, ref in zip("qkv", *grads):
+        assert torch.isfinite(got).all(), name
+        assert (got - ref).abs().max().item() <= tol, name
 
 
 def _tiny_pair_batch():
