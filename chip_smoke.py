@@ -23,9 +23,11 @@ line, and nothing is caught and passed over:
              scaled_dot_product_attention with the key bias as an additive
              mask (a yardstick the port never calls: library_ms, its error
              against the plain version, the kernel's speed-up over it), the
-             roofline bound (f32 rows at the CUDA cores' f32 rate) and the
-             exponential floor (exp_floor_ms: B*H*S*S exponentials at the
-             MUFU rate)
+             roofline bound (f32 rows at the card's best f32-exact rate,
+             three TF32 products per product: 495 / 3 TFLOP/s, whatever
+             implements them; fma_bound_ms beside it at the CUDA cores' 67
+             TFLOP/s) and the exponential floor (exp_floor_ms: B*H*S*S
+             exponentials at the MUFU rate)
   4 slice    SearchEngine.run_search at full width: 200k-doc synthetic corpus
              (D=384, 64 Zipf terms/doc, vocab 30k, 2000-char texts), random
              bge-small bi-encoder and MiniLM-L6 cross-encoder in bf16,
@@ -339,7 +341,7 @@ from pathlib import Path
 import numpy as np
 
 KERNEL_TOL = 2e-2  # bf16: one ulp at magnitude 2-4 (tests/test_attention.py's bound)
-F32_KERNEL_TOL = 1e-5  # f32: full f32 FMA summed in another order (its f32 bound)
+F32_KERNEL_TOL = 1e-5  # f32: 3xTF32 products summed in another order (its f32 bound)
 FINAL_TOL = 2e-2  # _final with kernel vs reference attention in both bf16 towers
 # the rerank batch, the query encode, two other head dims, then query_e2e's
 # encode and rerank (287 keys: a ragged last key tile), then the raw-review
@@ -363,6 +365,9 @@ N_QUERIES, K, RERANK_K, REPS = 100, 10, 50, 50
 # published H100 SXM dense bf16 peak, HBM3 bandwidth and f32 CUDA-core peak
 # (at the 700 W limit)
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES, PEAK_FP32_FLOPS = 989e12, 3.35e12, 67e12
+# the f32-exact rate of the tensor cores: the dense TF32 peak over the three
+# TF32 products (lo*hi + hi*lo + hi*hi) that one f32 product takes
+PEAK_F32_EXACT_FLOPS = 495e12 / 3
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate, same data sheet
 # attention's exponentials: 16 MUFU ex2 per SM per clock (the CUDA C++
 # Programming Guide's throughput table, compute capability 9.0), 132 SMs at
@@ -586,10 +591,13 @@ def phase_kernel(torch):
                 times[f"{name}device_ms"] = _median_ms(torch, fn, REPS, before=spin)
         flops = A.attention_flops(b, s, h, d)
         nbytes = A.attention_bytes(b, s, h, d, q.element_size())
-        # f32 runs in full f32 on the CUDA cores; bf16 rows take the
-        # tensor-core rate, the exponential floor beside it
-        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        # f32 rows at the card's best f32-exact rate (3xTF32 on the tensor
+        # cores), the CUDA cores' FMA rate beside it; bf16 rows at the
+        # tensor-core rate; the exponential floor beside both
+        peak = PEAK_F32_EXACT_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
         bound_ms = max(flops / peak, nbytes / PEAK_HBM_BYTES) * 1e3
+        fma_bound_ms = (max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+                        if dtype == torch.float32 else None)
         exp_floor_ms = b * h * s * s / PEAK_EXP_RATE * 1e3
         dev = times["device_ms"]
         row = {"B": b, "S": s, "H": h, "D": d, "dtype": dtype_name, "route": route,
@@ -598,6 +606,7 @@ def phase_kernel(torch):
                "speedup_vs_library": times["library_device_ms"] / dev,
                "kernel_tflops": flops / dev / 1e9, "flops": flops, "bytes": nbytes,
                "peak_flops": peak, "bound_ms": bound_ms, "roofline_share": bound_ms / dev,
+               "fma_bound_ms": fma_bound_ms,
                "bound": "compute" if flops / peak > nbytes / PEAK_HBM_BYTES
                else "memory", "exp_floor_ms": exp_floor_ms,
                "exp_floor_share": exp_floor_ms / dev, "reps": REPS}

@@ -11,7 +11,9 @@ from there and its kernels are built there, so two checkouts can be timed
 in turns within one session (A, B, B, A), each run in its own process.
 
 --kernel attention (the default): for each of chip_smoke.py's attention
-shapes (bf16, the same seeded inputs as its phase 3) one JSON line:
+shapes (bf16), then each of its ROUTE_SHAPES in its own dtype (this
+checkout's chip_smoke.py, the same seeded inputs as its phase 3), one JSON
+line with the dtype and the route (ops/attention.py:kernel_route):
 
   device_ms  median of 50 CUDA-event times of one launch queued behind a
              0.1 ms device spin: the device's work only
@@ -19,6 +21,9 @@ shapes (bf16, the same seeded inputs as its phase 3) one JSON line:
              host launch included (chip_smoke.py phase 3's "ms")
   host_us    host wall-clock per call over 200 back-to-back calls, ended by
              a synchronize (the enqueue rate)
+  library_device_ms  scaled_dot_product_attention on the same inputs,
+             timed as device_ms (chip_smoke.py's yardstick; the port never
+             calls it)
 
 --kernel bm25: for each of chip_smoke.py's BM25 shapes, the packed and the
 unpacked kernel on phase 5's postings (drawn on the card by this script's
@@ -85,31 +90,41 @@ def _own_chip_smoke():
 def _attention(torch, tag: str) -> None:
     from review_recommender_tpu_torch.ops import attention as A
 
+    cs = _own_chip_smoke()
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
-    for i, (b, s, h, d) in enumerate(SHAPES):
-        rng = np.random.default_rng(100 + i)  # chip_smoke.py:_attn_inputs
+    # phase 3's rows and seeds: its bf16 shapes, then its route shapes
+    rows = [(100 + i, b, s, h, d, "bfloat16") for i, (b, s, h, d) in enumerate(SHAPES)]
+    rows += [(100 + len(cs.SHAPES) + j, b, s, h, d, dtype_name)
+             for j, (b, s, h, d, dtype_name, _tol) in enumerate(cs.ROUTE_SHAPES)]
+    for seed, b, s, h, d, dtype_name in rows:
+        dtype = getattr(torch, dtype_name)
+        rng = np.random.default_rng(seed)  # chip_smoke.py:_attn_inputs
         q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(np.float32))
-                   .to("cuda", torch.bfloat16) for _ in range(3))
+                   .to("cuda", dtype) for _ in range(3))
         lens = rng.integers(1, s + 1, size=b)
         bias = np.where(np.arange(s)[None, :] < lens[:, None], 0.0, -1e30).astype(np.float32)
         if b > 1:
             bias[-1] = -1e30
         bias = torch.from_numpy(bias).to("cuda")
         run = lambda: A.mha_kernel(q, k, v, bias, h)
+        lib = lambda: cs._sdpa(torch, q, k, v, bias, h)
         with torch.inference_mode():
             for _ in range(3):
                 run()
+                lib()
             device_ms = _median_ms(torch, run, before=spin)
             idle_ms = _median_ms(torch, run)
+            library_ms = _median_ms(torch, lib, before=spin)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(HOST_CALLS):
                 run()
             torch.cuda.synchronize()
             host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
-        print(json.dumps({"tag": tag, "B": b, "S": s, "H": h, "D": d,
-                          "device_ms": device_ms, "idle_ms": idle_ms, "host_us": host_us,
-                          "reps": REPS}), flush=True)
+        print(json.dumps({"tag": tag, "B": b, "S": s, "H": h, "D": d, "dtype": dtype_name,
+                          "route": A.kernel_route(dtype, d, s), "device_ms": device_ms,
+                          "idle_ms": idle_ms, "host_us": host_us,
+                          "library_device_ms": library_ms, "reps": REPS}), flush=True)
 
 
 def _bm25(torch, tag: str) -> None:

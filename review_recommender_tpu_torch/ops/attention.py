@@ -8,11 +8,13 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
   kernel_route         which hand-written kernel takes (dtype, D, S):
                        "wgmma" = csrc/mha_fwd.cu (tensor cores, TMA;
                        bf16/f16 at D in {32, 64, 128}), "generic" =
-                       csrc/mha_generic.cu (CUDA cores, full f32 FMA;
-                       f32, bf16 and f16 at any D from 1 to 256); any
-                       S >= 1 on both. Together they replace the TPU kernel
-                       `_mha_kernel`, which takes any float type, head
-                       width and length
+                       csrc/mha_generic.cu (f32, bf16 and f16 at any D
+                       from 1 to 256: up to D = 128 on the tensor cores
+                       from zero-padded tiles, f32 as 3xTF32 in one online
+                       softmax pass, bf16/f16 in two; D of 129-256 on the
+                       CUDA cores in full f32 FMA); any S >= 1 on both.
+                       Together they replace the TPU kernel `_mha_kernel`,
+                       which takes any float type, head width and length
   mha_kernel           the route's CUDA kernel; where a gradient is asked
                        for it runs through MhaKernelFn
   multihead_attention  the towers' entry point: impl "auto" launches the
@@ -50,7 +52,7 @@ mha_backward_recomputes = 0
 _count_lock = threading.Lock()
 
 WGMMA_HEAD_DIMS = (32, 64, 128)  # csrc/mha_fwd.cu's TMA boxes and wgmma k-steps
-MAX_HEAD_DIM = 256  # csrc/mha_generic.cu's widest bucket; no public BERT is wider
+MAX_HEAD_DIM = 256  # csrc/mha_generic.cu's widest instance; no public BERT is wider
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
@@ -58,8 +60,10 @@ def kernel_route(dtype: torch.dtype, d: int, s: int) -> str:
     """The hand-written kernel that takes attention over q/k/v of `dtype`
     with head width `d` and `s` keys: "wgmma" (csrc/mha_fwd.cu) for
     bf16/f16 at d in WGMMA_HEAD_DIMS, "generic" (csrc/mha_generic.cu) for
-    every other f32, bf16 or f16 case with 1 <= d <= MAX_HEAD_DIM. Any
-    s >= 1 runs on both. Raises ValueError for anything else."""
+    every other f32, bf16 or f16 case with 1 <= d <= MAX_HEAD_DIM (on the
+    tensor cores up to d = 128, f32 as three TF32 products a product; on
+    the CUDA cores beyond, a choice the kernel makes by d at compile time).
+    Any s >= 1 runs on both. Raises ValueError for anything else."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"mha_kernel takes float32, bfloat16 or float16, got {dtype}")
     if not 1 <= d <= MAX_HEAD_DIM:

@@ -99,6 +99,67 @@ def test_reference_matches_jax_at_generic_route_shapes(dtype, head_dim, s):
     np.testing.assert_allclose(got.float().numpy(), ref_xla, rtol=tol, atol=tol)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest, ties away from
+    zero: cvt.rna.tf32.f32 on the card."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
+    """einsum(eq, a, b) as csrc/mha_generic.cu's f32 route forms it on the
+    tensor cores: hi = tf32(x), lo = tf32(x - hi), lo*hi + hi*lo first, then
+    hi*hi, in f32 (TF32 products are exact in f32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + torch.einsum(eq, ah, bh)
+
+
+def _mha_3xtf32(q, k, v, bias, heads, mm=_mm_3xtf32):
+    """The f32 route's arithmetic in torch: 3xTF32 products, one online
+    softmax pass over key tiles of 64 (32 at D > 64, as the kernel's), O
+    rescaled by exp(m_old - m_new) and divided by the row sum at the end."""
+    b, s, hd = q.shape
+    d = hd // heads
+    split = lambda t: t.reshape(b, s, heads, d).permute(0, 2, 1, 3)  # (B, H, S, D)
+    qh, kh, vh = split(q), split(k), split(v)
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
+    tile = 32 if d > 64 else 64
+    m = torch.full((b, heads, s, 1), float("-inf"))
+    l = torch.zeros(b, heads, s, 1)
+    o = torch.zeros(b, heads, s, d)
+    for k0 in range(0, s, tile):
+        logits = mm(qh, kh[:, :, k0:k0 + tile], "bhqd,bhkd->bhqk") * scale
+        logits = logits + bias[:, None, None, k0:k0 + tile]
+        mx = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - mx)
+        m = mx
+        p = torch.exp(logits - m)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + mm(p, vh[:, :, k0:k0 + tile], "bhqk,bhkd->bhqd")
+    return (o / l).permute(0, 2, 1, 3).reshape(b, s, hd)
+
+
+@pytest.mark.parametrize("head_dim,s", [(16, 64), (26, 40), (50, 70), (256, 129), (26, 600)])
+def test_3xtf32_split_holds_the_f32_tolerance(head_dim, s):
+    """The f32 route's 3xTF32 products and online softmax, emulated in torch
+    on the CPU, against mha_reference within the route's 1e-5 (no card is
+    needed to show that the split can hold it), a row masked but one key
+    and an all-masked row included; plain single TF32 products do not hold
+    it."""
+    b, heads = 2, (2 if s > 512 else 3)
+    q, k, v, bias = _torch(_inputs(head_dim * 31 + s, b, s, heads * head_dim), torch.float32)
+    bias[0] = -1e30
+    bias[0, 1] = 0.0
+    ref = tatt.mha_reference(q, k, v, bias, heads)
+    got = _mha_3xtf32(q, k, v, bias, heads)
+    assert (got - ref).abs().max().item() <= 1e-5
+    mean_v = v[1].mean(dim=0)
+    assert (got[1] - mean_v[None, :]).abs().max().item() <= 1e-5
+    one = _mha_3xtf32(q, k, v, bias, heads,
+                      mm=lambda a, c, eq: torch.einsum(eq, _tf32(a), _tf32(c)))
+    assert (one - ref).abs().max().item() > 1e-5
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [1, 16, 26, 31, 32, 33, 64, 96, 128, 129, 256])
 def test_kernel_route_by_dtype_and_head_width(dtype, d):

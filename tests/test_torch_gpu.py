@@ -8,8 +8,9 @@ machine without jax it runs as
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Attention: tolerance 2e-2 in bf16/f16 (tests/test_attention.py's bf16
-bound) and 1e-5 in f32 (its f32 bound: the generic route's full f32 FMA
-sums in another order than the reference's einsum); both kernels divide
+bound) and 1e-5 in f32 (its f32 bound: the generic route's 3xTF32 products,
+and full f32 FMA past D = 128, sum in another order than the reference's
+einsum); both kernels divide
 the exponentials by the f32 row sum before they round the probabilities to
 the input type, as the reference does, so a probability differs from the
 reference's only where its f32 value lies within an ulp or two of a
@@ -212,18 +213,11 @@ def _masked_but_one(bias):
 GENERIC_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [8, 16, 26, 50, 96, 256])
-@pytest.mark.parametrize("s", [1, 63, 65, 287, 1024])
-def test_generic_kernel_matches_reference(cuda, dtype, d, s):
-    """The generic route (csrc/mha_generic.cu) against mha_reference: row 0
-    masked but one key, row 2 every key masked (uniform over the S keys),
-    row 1 a random length; one launch of the generic kernel, none of the
-    tensor-core one."""
-    b, heads = 3, 2
-    q, k, v, bias = _inputs(d * 7919 + s, b, s, heads * d, dtype, cuda)
-    bias = _masked_but_one(bias)
-    assert tatt.kernel_route(dtype, d, s) == "generic"
+def _check_generic(q, k, v, bias, heads):
+    """One generic launch, none of the tensor-core one; within the route's
+    tolerance of mha_reference; batch row 2 (all keys masked) the mean of
+    its V rows."""
+    dtype = q.dtype
     before = _launches()
     with torch.inference_mode():
         got = tatt.multihead_attention(q, k, v, bias, heads)
@@ -236,6 +230,63 @@ def test_generic_kernel_matches_reference(cuda, dtype, d, s):
     assert err <= GENERIC_TOL[dtype], err
     mean_v = v[2].float().mean(dim=0)
     assert (got[2].float() - mean_v[None, :]).abs().max().item() <= 2 * GENERIC_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [8, 16, 26, 50, 96, 256])
+@pytest.mark.parametrize("s", [1, 63, 65, 287, 1024])
+def test_generic_kernel_matches_reference(cuda, dtype, d, s):
+    """The generic route (csrc/mha_generic.cu) against mha_reference: row 0
+    masked but one key, row 2 every key masked (uniform over the S keys),
+    row 1 a random length; one launch of the generic kernel, none of the
+    tensor-core one."""
+    b, heads = 3, 2
+    q, k, v, bias = _inputs(d * 7919 + s, b, s, heads * d, dtype, cuda)
+    bias = _masked_but_one(bias)
+    assert tatt.kernel_route(dtype, d, s) == "generic"
+    _check_generic(q, k, v, bias, heads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [1, 15, 17, 31, 33, 127, 129, 256])
+@pytest.mark.parametrize("s", [1, 64, 65, 129, 1024])
+def test_generic_kernel_at_pipeline_edges(cuda, dtype, d, s):
+    """The generic kernel's edges: S at and past one 64-key tile and over
+    three or more tiles (the 2-stage ring of key tiles wraps); D at the pad
+    boundaries of its 16/32/64/128-wide tiles and in the 129-256 CUDA-core
+    instance. Row 0 masked but one key, row 2 every key masked (uniform
+    over the S keys); one generic launch."""
+    b, heads = 3, 2
+    q, k, v, bias = _inputs(d * 131 + s, b, s, heads * d, dtype, cuda)
+    bias = _masked_but_one(bias)
+    assert tatt.kernel_route(dtype, d, s) == "generic"
+    _check_generic(q, k, v, bias, heads)
+
+
+@pytest.mark.parametrize("dtype,d,offset", [
+    (torch.float16, 25, 0),  # 50-byte heads: 2-byte alignment only, element loads
+    (torch.bfloat16, 26, 0),  # 4-byte copies
+    (torch.float32, 26, 0),  # 8-byte copies
+    (torch.float32, 32, 1), (torch.float32, 32, 2),  # q, k, v 4 / 8 bytes into a line
+    (torch.bfloat16, 40, 1),  # 16-byte heads, 2 bytes in: element loads
+    (torch.bfloat16, 48, 4),  # 8 bytes in: 8-byte copies
+])
+def test_generic_kernel_copy_granules(cuda, dtype, d, offset):
+    """Each copy width of the generic kernel's loads, which the head's byte
+    width and the tensors' addresses decide: q, k and v are views that
+    start `offset` elements into their storage."""
+    b, s, heads = 3, 100, 2
+    _q, _k, _v, bias = _inputs(d + offset, b, s, heads * d, dtype, cuda)
+    rng = np.random.default_rng(offset * 1000 + d)
+    n = b * s * heads * d
+
+    def shifted():
+        buf = torch.from_numpy(rng.standard_normal(n + offset).astype(np.float32))
+        return buf.to(device=cuda, dtype=dtype)[offset:].view(b, s, heads * d)
+
+    q, k, v = shifted(), shifted(), shifted()
+    assert q.is_contiguous() and q.storage_offset() == offset
+    _check_generic(q, k, v, _masked_but_one(bias), heads)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
