@@ -179,11 +179,12 @@ line, and nothing is caught and passed over:
              post-step hook; the host's p50 between the same calls),
              padded tokens/s, the host's tokenization of one batch, and a
              torch.profiler window of 5 steps: the device's step span,
-             busy time, the attention recompute's kernel time, the host
+             busy time, the attention backward's kernel time, the host
              syncs a step by op (none allowed); peak
              max_memory_allocated; exactly 24 (bi-encoder) and
-             6 (cross-encoder) kernel launches a step and as many backward
-             recomputes. Then 8 steps on one repeated batch from each
+             6 (cross-encoder) kernel launches a step, as many launches of
+             the backward kernel (csrc/mha_bwd.cu) and no call of either
+             plain version. Then 8 steps on one repeated batch from each
              trained tower (the bi-encoder's loss must fall; all finite),
              the trained towers loaded through models/load.py serving
              run_search at rerank_k 50 (20 queries, 18 launches each) and
@@ -195,8 +196,10 @@ line, and nothing is caught and passed over:
              at the four shapes the trainers give it (bi-encoder,
              cross-encoder, the lane's MLM and BCE stages): the kernel
              forward (held to the plain version within 2e-2), the plain
-             version, SDPA, and the backward recompute (autograd through
-             mha_reference) beside SDPA's forward and backward, each timed
+             version, SDPA; the backward kernel (its q, k, v gradients held
+             to mha_backward_reference within 2e-2 of max(1, max |ref|)),
+             its plain version (the recompute it replaced: autograd through
+             mha_reference) and SDPA's forward and backward; each timed
              behind a device spin, with their bounds
  16 topics_import  the topic pipeline and the reference import. The
              review set of topics/density.py's docstring: 300,000 x 384 f32
@@ -285,17 +288,19 @@ line, and nothing is caught and passed over:
              --shards 1; peak memory
  19 train_mesh  the dp x tp trainers on TrainMesh(["cuda:0"] * 4, 2, 2)
              (each cell its own slice of the batch and its tp rank's
-             heads): the attention kernel, its plain version and SDPA at
-             the tp shard's shapes (32, 128, 6, 32) and a cell's
-             (16, 128, 6, 32); (a) ContrastiveTrainer from the golden's
+             heads): the attention kernel and the backward kernel, their
+             plain versions and SDPA at the tp shard's shapes (32, 128, 6,
+             32) and a cell's (16, 128, 6, 32), and the f32 backward (FMA
+             route) at the shard's shape; (a) ContrastiveTrainer from the golden's
              bge-small at 32 x 128, (b) CrossEncoderTrainer from its
              MiniLM-L6 at 32 x 256, (c) MLMTrainer on the bge-small trunk
              (vocab 30,522): each first step's loss against the
              one-device trainer's (2e-2 in bf16; 1e-4 with
              dtype=torch.float32); exactly 4 launches a layer and tower
              forward (4 x 24 a bi-encoder step) of the tensor-core kernel
-             in bf16 and of the generic one in f32, as many recomputes,
-             mha_reference called only by the recompute; 10
+             in bf16 and of the generic one in f32, as many of the backward
+             kernel's tensor-core route (bf16) or FMA route (f32), no call
+             of a plain version; 10
              (a) and 3 (b, c) bf16 steps timed on the mesh and on one
              device; (d) an f32
              checkpoint from one device restored on the mesh and the other
@@ -323,7 +328,8 @@ line, and nothing is caught and passed over:
              12 tensor-core and 4 generic launches a query, held to
              reference attention within 2e-2; p50 of each setting
 
-The last two lines are the kernels summary and
+The last two lines are the kernels summary (the backward kernel by route:
+mha_bwd the tensor-core one, mha_bwd_fma the FMA one) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no jax and nothing of the JAX package.
 """
@@ -1217,6 +1223,8 @@ def _kernel_modules():
 
     return {"mha_fwd": (A, "mha_kernel_launches"),
             "mha_generic": (A, "mha_generic_kernel_launches"),
+            "mha_bwd": (A, "mha_backward_kernel_launches"),
+            "mha_bwd_fma": (A, "mha_backward_fma_launches"),
             "bm25_packed": (BK, "bm25_packed_kernel_launches"),
             "bm25_unpacked": (BK, "bm25_unpacked_kernel_launches"),
             "stage_a_fused": (SA, "stage_a_kernel_launches"),
@@ -2988,9 +2996,9 @@ def _trace_window(path) -> dict:
     the steps between the first marked end and the last: the mean step
     span, the device's busy time a step (the union of its kernels, copies
     and sets) and its share of the span, the time a step of the kernels
-    launched inside the attention's backward recompute (the
-    MhaKernelFnBackward autograd node), and the host syncs a step by the
-    innermost op that made them. A launch happens at its runtime call's
+    launched inside the attention's backward (the MhaKernelFnBackward
+    autograd node: the backward kernel's two launches), and the host syncs
+    a step by the innermost op that made them. A launch happens at its runtime call's
     start."""
     with open(path) as f:
         trace = json.load(f)
@@ -3019,22 +3027,22 @@ def _trace_window(path) -> dict:
         else:
             cur[1] = max(cur[1], e_)
     busy += 0.0 if cur is None else cur[1] - cur[0]
-    recompute = []
+    backward = []
     for a, b in sorted((e["ts"], end(e)) for e in evs
                        if e.get("cat") == "cpu_op" and e.get("name") == "MhaKernelFnBackward"):
-        if recompute and a <= recompute[-1][1]:
-            recompute[-1][1] = max(recompute[-1][1], b)
+        if backward and a <= backward[-1][1]:
+            backward[-1][1] = max(backward[-1][1], b)
         else:
-            recompute.append([a, b])
-    check(bool(recompute), "training", f"no MhaKernelFnBackward in {path.name}")
-    starts = [r[0] for r in recompute]
+            backward.append([a, b])
+    check(bool(backward), "training", f"no MhaKernelFnBackward in {path.name}")
+    starts = [r[0] for r in backward]
 
-    def in_recompute(g):
+    def in_backward(g):
         t = launch(g)
         i = int(np.searchsorted(starts, t, side="right")) - 1 if t is not None else -1
-        return i >= 0 and t <= recompute[i][1]
+        return i >= 0 and t <= backward[i][1]
 
-    rec_us = sum(clip(g) for g in gpu if in_recompute(g))
+    bwd_us = sum(clip(g) for g in gpu if in_backward(g))
     host_lo, host_hi = marks[0], marks[-1]
     ops = [e for e in evs if e.get("cat") == "cpu_op"]
     syncs = {}
@@ -3046,8 +3054,8 @@ def _trace_window(path) -> dict:
             syncs[name] = syncs.get(name, 0) + 1 / n
     span_ms = (hi - lo) / n / 1e3
     return {"window_steps": n, "device_step_ms": span_ms, "device_busy_ms": busy / n / 1e3,
-            "device_busy_share": busy / (hi - lo), "recompute_ms": rec_us / n / 1e3,
-            "recompute_share": rec_us / (hi - lo),
+            "device_busy_share": busy / (hi - lo), "backward_ms": bwd_us / n / 1e3,
+            "backward_share": bwd_us / (hi - lo),
             "host_syncs_per_step": syncs}
 
 
@@ -3110,8 +3118,8 @@ class _StepWindow:
         """Step interval p50/p90 in ms over the steps the profiler did not
         touch (on the device; the host's p50 between the same hook calls
         beside it), padded tokens/s at the p50, and the profiler window's
-        device timeline (_trace_window) with its busy and recompute time
-        over the p50."""
+        device timeline (_trace_window) with its busy and attention
+        backward time over the p50."""
         self.torch.cuda.synchronize()
         ends = self.ends[tower]
         touched = range(self.PROFILE_AFTER, self.PROFILE_AFTER + self.PROFILE_STEPS + 1)
@@ -3130,7 +3138,7 @@ class _StepWindow:
                 "padded_tokens_per_step": tokens_per_step,
                 "tokens_per_s_at_p50": tokens_per_step / p50 * 1e3,
                 "profiled": w, "device_busy_ms_over_step_p50": w["device_busy_ms"] / p50,
-                "recompute_ms_over_step_p50": w["recompute_ms"] / p50}
+                "backward_ms_over_step_p50": w["backward_ms"] / p50}
 
 
 def _cross_score_range(engine, ce, queries):
@@ -3161,13 +3169,10 @@ def _trained_lane(card):
     from review_recommender_tpu_torch.evals import quality_table as QT
     from review_recommender_tpu_torch.index.build import build_bundle_from_products
 
-    from review_recommender_tpu_torch.ops import attention as A
-
     t0 = time.perf_counter()
     products, queries = QT.build_corpus(QT_THEMES, QT_PER_THEME, QT_QUERIES, seed=QT_SEED)
     lines = []
     _zero_counts()
-    A.mha_backward_recomputes = 0
     encoder, cross = QT.build_trained_towers(products, queries, seed=QT_SEED,
                                              n_pairs=TRAINED_LANE_PAIRS,
                                              mlm_steps=TRAINED_LANE_MLM_STEPS, device=DEV,
@@ -3177,7 +3182,7 @@ def _trained_lane(card):
     bundle = build_bundle_from_products(products, emb, doc_terms_cap=QT.DOC_TERMS_CAP,
                                         pad_multiple=QT.PAD_MULTIPLE)
     engine, results = QT.run_lane(bundle, encoder, queries, DEV, cross_encoder=cross)
-    lane_counts, recomputes = _counts(), A.mha_backward_recomputes
+    lane_counts = _counts()
     with open(REPO_DIR / QT_REFERENCE) as f:
         reference = json.load(f)
     table, worst = {}, 0.0
@@ -3191,35 +3196,43 @@ def _trained_lane(card):
           "n_pairs": TRAINED_LANE_PAIRS, "n_pairs_published": 8192, "log": lines,
           "train_s": train_s, "wall_s": time.perf_counter() - t0, "methods": table,
           "jax_full_lane_hybrid_rerank": TRAINED_LANE_JAX, "attention_launches": lane_counts,
-          "backward_recomputes": recomputes, "without_rerank_vs_bow_lane": worst})
+          "without_rerank_vs_bow_lane": worst})
     check(all(np.isfinite(v) for row in table.values() for v in row.values()), "training_lane",
           f"non-finite quality numbers {table}")
     check(worst <= QT_TOL, "training_lane",
           f"a method without rerank differs from the bow lane's by {worst} > {QT_TOL}")
-    check(lane_counts["mha_fwd"] > recomputes > 0, "training_lane",
-          f"{lane_counts} launches and {recomputes} recomputes: the lane's training and rerank "
-          "must run the kernel")
+    check(lane_counts["mha_fwd"] > lane_counts["mha_bwd"] > 0, "training_lane",
+          f"{lane_counts} launches: the lane's training and rerank must run the kernels")
     del engine, cross
-    return lane_counts["mha_fwd"], recomputes
+    return lane_counts["mha_fwd"], lane_counts["mha_bwd"]
 
 
-def _training_kernel_rows(torch, shapes=TRAIN_SHAPES):
-    """The attention at each of `shapes`, timed behind a device spin
-    (medians of REPS CUDA-event runs): the kernel forward against its plain
-    version and SDPA (row 1), and MhaKernelFn's backward recompute
-    (autograd through mha_reference: its forward and the q, k, v
-    gradients) against SDPA's forward and backward (row 1b). Bounds: the
-    forward's as phase 3's; the backward's operations are the recomputed
-    forward's 4BHS^2D plus 8BHS^2D for dV, dP, dQ, dK, its bytes q, k, v
-    and the upstream gradient read and dq, dk, dv written."""
+def _training_kernel_rows(torch, shapes=TRAIN_SHAPES, dtype=None):
+    """The attention at each of `shapes` in bf16 (or `dtype`), timed behind
+    a device spin (medians of REPS CUDA-event runs): the kernel forward
+    against its plain version and SDPA (row 1), and the backward kernel
+    (csrc/mha_bwd.cu: backward_ms) against its plain version, the
+    recompute it replaced (autograd through mha_reference:
+    plain_backward_ms), and SDPA's forward and backward
+    (library_backward_ms) (row 1b). Every q, k, v gradient of the kernel is
+    held to mha_backward_reference within 2e-2 (bf16) or 1e-4 (f32) of
+    max(1, max |ref|). Bounds: the forward's as phase 3's; the backward's
+    attention_backward_flops (the five products it needs, 2.5 times the
+    forward's) over the tensor-core peak (f32: the 3xTF32 rate) against
+    attention_backward_bytes (q, k, v and the upstream gradient read, dq,
+    dk, dv written)."""
     from review_recommender_tpu_torch.ops import attention as A
 
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    peak = PEAK_F32_EXACT_FLOPS if f32 else PEAK_BF16_FLOPS
+    fwd_tol, bwd_tol = (F32_KERNEL_TOL, 1e-4) if f32 else (KERNEL_TOL, KERNEL_TOL)
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
     rows = []
     for i, (b, s, h, d) in enumerate(shapes):
         rng = np.random.default_rng(300 + i)
         q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(np.float32))
-                      .to(DEV, torch.bfloat16) for _ in range(4))
+                      .to(DEV, dtype) for _ in range(4))
         lens = rng.integers(1, s + 1, size=b)
         bias = torch.from_numpy(np.where(np.arange(s)[None, :] < lens[:, None], 0.0, -1e30)
                                 .astype(np.float32)).to(DEV)
@@ -3236,30 +3249,43 @@ def _training_kernel_rows(torch, shapes=TRAIN_SHAPES):
         with torch.no_grad():
             got = A.mha_kernel(q, k, v, bias, h)
             err = float((got.float() - A.mha_reference(q, k, v, bias, h).float()).abs().max())
+            grads = A._launch_bwd(q, k, v, bias, g, h)
+            plain = A.mha_backward_reference(q, k, v, bias, g, h)
+        bwd_err, bwd_rel = 0.0, 0.0
+        for x, r in zip(grads, plain):
+            e = float((x.float() - r.float()).abs().max())
+            bwd_err = max(bwd_err, e)
+            bwd_rel = max(bwd_rel, e / max(1.0, float(r.float().abs().max())))
         runs = {"ms": lambda: A.mha_kernel(q, k, v, bias, h),
                 "plain_ms": lambda: A.mha_reference(q, k, v, bias, h),
-                "library_ms": lambda: _sdpa(torch, q, k, v, bias, h)}
+                "library_ms": lambda: _sdpa(torch, q, k, v, bias, h),
+                "backward_ms": lambda: A._launch_bwd(q, k, v, bias, g, h)}
         times = {}
         with torch.no_grad():
             for name, fn in runs.items():
                 fn()
                 times[name] = _median_ms(torch, fn, REPS, before=spin)
-        for name, fn in (("recompute_ms", recompute), ("library_backward_ms", sdpa_backward)):
+        for name, fn in (("plain_backward_ms", recompute), ("library_backward_ms", sdpa_backward)):
             fn()
             times[name] = _median_ms(torch, fn, REPS, before=spin)
         flops = A.attention_flops(b, s, h, d)
-        nbytes = A.attention_bytes(b, s, h, d, 2)
-        bwd_flops, bwd_bytes = 3 * flops, 7 * b * s * h * d * 2 + 4 * b * s
-        rows.append({"B": b, "S": s, "H": h, "D": d, "max_abs_err": err, **times,
-                     "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3,
-                     "bound_by": "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_HBM_BYTES
+        nbytes = A.attention_bytes(b, s, h, d, q.element_size())
+        bwd_flops = A.attention_backward_flops(b, s, h, d)
+        bwd_bytes = A.attention_backward_bytes(b, s, h, d, q.element_size())
+        rows.append({"B": b, "S": s, "H": h, "D": d, "dtype": str(dtype).split(".")[-1],
+                     "max_abs_err": err, "backward_route": A.backward_route(dtype, d, s),
+                     "backward_max_abs_err": bwd_err, "backward_err_over_max_ref": bwd_rel,
+                     **times,
+                     "bound_ms": max(flops / peak, nbytes / PEAK_HBM_BYTES) * 1e3,
+                     "bound_by": "operations" if flops / peak > nbytes / PEAK_HBM_BYTES
                      else "bytes",
-                     "backward_bound_ms": max(bwd_flops / PEAK_BF16_FLOPS,
-                                              bwd_bytes / PEAK_HBM_BYTES) * 1e3,
+                     "backward_bound_ms": max(bwd_flops / peak, bwd_bytes / PEAK_HBM_BYTES) * 1e3,
                      "backward_bound_by": "operations"
-                     if bwd_flops / PEAK_BF16_FLOPS > bwd_bytes / PEAK_HBM_BYTES else "bytes",
+                     if bwd_flops / peak > bwd_bytes / PEAK_HBM_BYTES else "bytes",
                      "reps": REPS})
-        check(err <= KERNEL_TOL, "training_kernel", f"max abs error {err} at {rows[-1]}")
+        check(err <= fwd_tol, "training_kernel", f"max abs error {err} at {rows[-1]}")
+        check(bwd_rel <= bwd_tol and all(bool(torch.isfinite(x.float()).all()) for x in grads),
+              "training_kernel", f"backward error {bwd_rel} of max(1, max |ref|) at {rows[-1]}")
     return rows
 
 
@@ -3269,7 +3295,8 @@ def phase_training(torch):
     repeated batch; the trained towers served by run_search at rerank_k 50
     with the F3 cross-check; the trained lane at a cut depth. Returns the
     attention launches (of `rrt train`, the counted run_search and the
-    lane) and the backward recomputes (of `rrt train` and the lane)."""
+    lane), the backward kernel's (of `rrt train` and the lane) and the
+    kernel rows at the trainers' shapes."""
     import shutil
 
     from review_recommender_tpu_torch.config import config
@@ -3319,17 +3346,15 @@ def phase_training(torch):
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()  # what earlier phases still hold
     torch.cuda.reset_peak_memory_stats()
-    from review_recommender_tpu_torch.ops import attention as A
-
     _zero_counts()
-    A.mha_backward_recomputes = 0
     try:
         t0 = time.perf_counter()
-        code, printed = _cli(["train", "--index-dir", str(bdir), "--out", str(out), "--cross",
-                              "--device", DEV, *TRAIN_ARGS])
+        with _PlainCalls() as plain:
+            code, printed = _cli(["train", "--index-dir", str(bdir), "--out", str(out), "--cross",
+                                  "--device", DEV, *TRAIN_ARGS])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        counts, recomputes = _counts(), A.mha_backward_recomputes
+        counts = _counts()
         peak = torch.cuda.max_memory_allocated()
     finally:
         clock.close()
@@ -3357,7 +3382,8 @@ def phase_training(torch):
             make(tok)
             took.append((time.perf_counter() - t0) * 1e3)
         report["host_tokenize_batch_ms_p50"] = float(np.median(took))
-    want = {**{n: 0 for n in counts}, "mha_fwd": 24 * bi_steps + 6 * xe_steps}
+    per_run = 24 * bi_steps + 6 * xe_steps
+    want = {**{n: 0 for n in counts}, "mha_fwd": per_run, "mha_bwd": per_run}
     emit({"phase": "training", "card": card, "products": len(products),
           "reviews": len(reviews), "pairs": line["pairs"], "setup_s": setup_s,
           "train_s": train_s, "biencoder": {"config": "bge_small, bf16, f32 masters",
@@ -3366,11 +3392,12 @@ def phase_training(torch):
                            "batch": TRAIN_BATCH, "max_len": 2 * TRAIN_MAX_LEN, **xe},
           "peak_allocated_bytes": peak, "resident_bytes": resident,
           "peak_over_resident_bytes": peak - resident, "attention_launches": counts["mha_fwd"],
-          "backward_recomputes": recomputes, "args": TRAIN_ARGS})
+          "backward_kernel_launches": counts["mha_bwd"], "plain_calls": plain.calls,
+          "args": TRAIN_ARGS})
     check(not bi["profiled"]["host_syncs_per_step"] and not xe["profiled"]["host_syncs_per_step"],
           "training", f"the trainers' steps sync with the host: {bi['profiled']} {xe['profiled']}")
-    check(counts == want and recomputes == counts["mha_fwd"], "training",
-          f"launches {counts} and {recomputes} recomputes, want {want} and as many recomputes")
+    check(counts == want and plain.calls == 0, "training",
+          f"launches {counts} and {plain.calls} plain-version calls, want {want} and none")
 
     # the loss on a repeated batch, each trained tower
     cfg_bi, sd_bi, tok_bi, _ = load.load_tower_params(out / "biencoder", "biencoder")
@@ -3426,9 +3453,9 @@ def phase_training(torch):
     del engine, be, ce
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
-    lane_launches, lane_recomputes = _trained_lane(card)
+    lane_launches, lane_backward = _trained_lane(card)
     return (counts["mha_fwd"] + serve_counts["mha_fwd"] + lane_launches,
-            recomputes + lane_recomputes)
+            counts["mha_bwd"] + lane_backward, kernel_rows)
 
 
 # ---------------------------------------------------------------- phase 16
@@ -4810,25 +4837,31 @@ def _mesh_batches(products):
 
 
 class _PlainCalls:
-    """Counts calls of ops/attention.py:mha_reference while in use (the
-    recompute backward calls it once per kernel forward it differentiates;
-    a forward on the plain version would add more)."""
+    """Counts calls of the attention's plain versions, ops/attention.py's
+    mha_reference and mha_backward_reference, while in use: on the card's
+    training path neither runs (the kernel forward, the backward kernel)."""
+
+    NAMES = ("mha_reference", "mha_backward_reference")
 
     def __init__(self):
         from review_recommender_tpu_torch.ops import attention as A
 
-        self.A, self.fn, self.calls = A, A.mha_reference, 0
+        self.A, self.fns, self.calls = A, {n: getattr(A, n) for n in self.NAMES}, 0
 
     def __enter__(self):
-        def counted(*args, **kw):
-            self.calls += 1
-            return self.fn(*args, **kw)
+        def counted(fn):
+            def call(*args, **kw):
+                self.calls += 1
+                return fn(*args, **kw)
+            return call
 
-        self.A.mha_reference = counted
+        for n, fn in self.fns.items():
+            setattr(self.A, n, counted(fn))
         return self
 
     def __exit__(self, *exc):
-        self.A.mha_reference = self.fn
+        for n, fn in self.fns.items():
+            setattr(self.A, n, fn)
 
 
 def _timed_steps(torch, tr, batch, steps):
@@ -4846,10 +4879,9 @@ def _mesh_trainer(torch, card, kind, cfg, sd, batch, steps):
     bf16 and in f32, from the same weights (losses within MESH_LOSS_TOL);
     the mesh steps' kernel launches (one a cell, layer and tower forward:
     the tensor-core kernel in bf16, the generic one in f32, never the
-    other) and recomputes, no forward on the plain version; then `steps`
-    bf16 steps of each timed. Returns the mesh steps' launches and
-    recomputes by kernel."""
-    from review_recommender_tpu_torch.ops import attention as A
+    other; as many of the backward kernel's tensor-core route in bf16 and
+    FMA route in f32), no call of a plain version; then `steps` bf16 steps
+    of each timed. Returns the mesh steps' launches by kernel."""
     from review_recommender_tpu_torch.parallel.mesh import TrainMesh
     from review_recommender_tpu_torch.train import (ContrastiveTrainer, CrossEncoderTrainer,
                                                     MLMTrainer)
@@ -4860,9 +4892,9 @@ def _mesh_trainer(torch, card, kind, cfg, sd, batch, steps):
     per_step = cells * cfg.num_layers * (2 if kind == "biencoder" else 1)
     row = {"kind": kind, "config": f"{cfg.num_layers}L H={cfg.hidden_size} V={cfg.vocab_size}",
            "batch": list(batch[0].shape)}
-    launches, recomputes = {}, {}
-    for name, dtype, kernel in (("bf16", torch.bfloat16, "mha_fwd"),
-                                ("f32", torch.float32, "mha_generic")):
+    launches = {}
+    for name, dtype, kernel, bwd in (("bf16", torch.bfloat16, "mha_fwd", "mha_bwd"),
+                                     ("f32", torch.float32, "mha_generic", "mha_bwd_fma")):
         one = cls(cfg, sd, dtype=dtype, device=DEV)
         mesh = cls(cfg, sd, dtype=dtype, mesh=TrainMesh([DEV] * cells, MESH_DP, MESH_TP))
         check(all(p.device.type == torch.device(DEV).type for ps in mesh.shards.values()
@@ -4870,35 +4902,34 @@ def _mesh_trainer(torch, card, kind, cfg, sd, batch, steps):
               "train_mesh", f"{kind}: a master off the card")
         l_one = one.train_step(*batch)["loss"]
         _zero_counts()
-        A.mha_backward_recomputes = 0
         with _PlainCalls() as plain:
             l_mesh = mesh.train_step(*batch)["loss"]
             timed = {}
             if name == "bf16":
                 timed["mesh_ms_per_step"] = _timed_steps(torch, mesh, batch, steps)
             counts = _counts()
-            got = (counts[kernel], A.mha_backward_recomputes, plain.calls)
+            got = (counts[kernel], counts[bwd], plain.calls)
         timed["one_device_ms_per_step"] = (_timed_steps(torch, one, batch, steps)
                                            if name == "bf16" else None)
         n_steps = 1 + (steps if name == "bf16" else 0)
-        want = (per_step * n_steps,) * 3
-        others = {n: c for n, c in counts.items() if n != kernel and c}
+        want = (per_step * n_steps, per_step * n_steps, 0)
+        others = {n: c for n, c in counts.items() if n not in (kernel, bwd) and c}
         row[name] = {"loss_mesh": l_mesh, "loss_one_device": l_one,
                      "abs_diff": abs(l_mesh - l_one), "tol": MESH_LOSS_TOL[name],
                      "mesh_steps": n_steps, "kernel": kernel, "launches": got[0],
-                     "recomputes": got[1], "plain_calls": got[2],
+                     "backward_kernel": bwd, "backward_launches": got[1], "plain_calls": got[2],
                      "launches_per_step": per_step, **timed}
         check(np.isfinite(l_mesh) and abs(l_mesh - l_one) <= MESH_LOSS_TOL[name], "train_mesh",
               f"{kind} {name}: first loss {l_mesh} on the mesh, {l_one} on one device")
         check(got == want and not others, "train_mesh",
-              f"{kind} {name}: (launches, recomputes, plain calls) {got}, want {want}, other "
-              f"kernels {others}: the {kernel} kernel once a cell, layer and tower forward "
-              "and the plain version only in the recompute backward")
-        launches[kernel], recomputes[kernel] = got[0], got[1]
+              f"{kind} {name}: (launches, backward launches, plain calls) {got}, want {want}, "
+              f"other kernels {others}: the {kernel} kernel and the {bwd} backward once a "
+              "cell, layer and tower forward, and no plain version")
+        launches[kernel], launches[bwd] = got[0], got[1]
         del one, mesh
     emit({"phase": "train_mesh", "card": card, "mesh": [MESH_DP, MESH_TP],
           "devices": [DEV] * cells, **row})
-    return launches, recomputes
+    return launches
 
 
 def _mesh_restores(torch, card, cfg, sd, batch, tmp):
@@ -4906,8 +4937,8 @@ def _mesh_restores(torch, card, cfg, sd, batch, tmp):
     checkpoint restored on the mesh and a mesh trainer's on one device,
     each state equal to the checkpoint's, the next loss within
     MESH_RESTORE_TOL of the saving trainer's own next step. Every step's
-    attention runs the generic kernel (counted, exact). Returns its
-    launches."""
+    attention runs the generic kernel and the backward kernel's FMA route
+    (counted, exact). Returns the launches by kernel."""
     from review_recommender_tpu_torch.parallel.mesh import TrainMesh
     from review_recommender_tpu_torch.train import ContrastiveTrainer
 
@@ -4934,12 +4965,12 @@ def _mesh_restores(torch, card, cfg, sd, batch, tmp):
               f"restore {src} -> {dst}: {out[f'{src}_to_{dst}']}")
         del first, resumed
     counts = _counts()
-    want = {**{n: 0 for n in counts},  # two steps of each saver, one of each resumed
-            "mha_generic": 3 * (per_step["one"] + per_step["mesh"])}
+    steps = 3 * (per_step["one"] + per_step["mesh"])  # two steps of each saver, one of each resumed
+    want = {**{n: 0 for n in counts}, "mha_generic": steps, "mha_bwd_fma": steps}
     emit({"phase": "train_mesh_restore", "card": card, "tol": MESH_RESTORE_TOL,
           "launches": counts, "expected_launches": want, **out})
     check(counts == want, "train_mesh", f"restores: launches {counts}, want {want}")
-    return counts["mha_generic"]
+    return counts
 
 
 def _mesh_encode(torch, card, cfg, sd, products):
@@ -5041,33 +5072,36 @@ def _mesh_int8_global(torch, card, products):
 def phase_train_mesh(torch, products):
     """Phase 19: the dp x tp trainers on TrainMesh([DEV] * 4, 2, 2), the
     data-parallel encoder, the global-scale int8 scan, and the attention
-    kernel at the tp shard's shapes. Returns the attention launches of the
-    mesh steps, the restores and the dp encode, and the mesh steps'
-    recomputes, each by kernel ("mha_fwd", "mha_generic")."""
+    kernels at the tp shard's shapes (the f32 backward at the shard's).
+    Returns the attention launches of the mesh steps, the restores and the
+    dp encode by kernel ("mha_fwd", "mha_generic", "mha_bwd",
+    "mha_bwd_fma"), and the f32 kernel rows."""
     import shutil
 
     card = _card()
     for row in _training_kernel_rows(torch, MESH_SHAPES):
         emit({"phase": "train_mesh_kernel", "card": card, **row})
+    f32_rows = _training_kernel_rows(torch, MESH_SHAPES[:1], torch.float32)
+    for row in f32_rows:
+        emit({"phase": "train_mesh_kernel", "card": card, **row})
     towers = _mesh_towers()
     batches = _mesh_batches(products)
-    launches = {"mha_fwd": 0, "mha_generic": 0}
-    recomputes = dict(launches)
+    launches = dict.fromkeys(("mha_fwd", "mha_generic", "mha_bwd", "mha_bwd_fma"), 0)
     for kind, steps in (("biencoder", MESH_STEPS), ("crossencoder", 3), ("mlm", 3)):
         cfg, sd = towers[kind]
-        l, r = _mesh_trainer(torch, card, kind, cfg, sd, batches[kind], steps)
-        for name in launches:
-            launches[name] += l[name]
-            recomputes[name] += r[name]
+        for name, n in _mesh_trainer(torch, card, kind, cfg, sd, batches[kind], steps).items():
+            launches[name] += n
     tmp = REPO_DIR / "build" / "chip_smoke_mesh"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
     cfg, sd = towers["biencoder"]
-    launches["mha_generic"] += _mesh_restores(torch, card, cfg, sd, batches["biencoder"], tmp)
+    restored = _mesh_restores(torch, card, cfg, sd, batches["biencoder"], tmp)
+    for name in ("mha_generic", "mha_bwd_fma"):
+        launches[name] += restored[name]
     shutil.rmtree(tmp, ignore_errors=True)
     launches["mha_fwd"] += _mesh_encode(torch, card, cfg, sd, products)
     _mesh_int8_global(torch, card, products)
-    return launches, recomputes
+    return launches, f32_rows
 
 
 # phase 20: the towers only the generic attention kernel runs. (a) phase
@@ -5211,7 +5245,7 @@ def main() -> int:
         mark("sharded")
         products = engine.products
         del engine
-        train_launches, recomputes = phase_training(torch)
+        train_launches, bwd_launches, train_rows = phase_training(torch)
         launches += train_launches
         mark("training")
         import_launches = phase_topics_import(torch, products)
@@ -5222,11 +5256,11 @@ def main() -> int:
         launches += raw_launches["mha_fwd"]
         bm25_launches["bm25_packed"] += raw_launches["bm25_packed"]
         mark("raw_pipeline")
-        mesh_launches, mesh_recomputes = phase_train_mesh(torch, products)
+        mesh_launches, f32_train_rows = phase_train_mesh(torch, products)
         launches += mesh_launches["mha_fwd"]
-        recomputes += mesh_recomputes["mha_fwd"]
         generic_launches = mesh_launches["mha_generic"]
-        generic_recomputes = mesh_recomputes["mha_generic"]
+        bwd_launches += mesh_launches["mha_bwd"]
+        bwd_fma_launches = mesh_launches["mha_bwd_fma"]
         mark("train_mesh")
         route_launches = phase_generic_route(torch, products)
         launches += route_launches["mha_fwd"]
@@ -5239,10 +5273,10 @@ def main() -> int:
     # each attention kernel's numbers at its main path's shape: the bf16
     # rerank shape for the tensor-core kernel, the same shape in f32 (phase
     # 20's f32 cross-encoder) for the generic one
-    attention = [("mha_fwd", "wgmma", "bfloat16", launches, recomputes),
-                 ("mha_generic", "generic", "float32", generic_launches, generic_recomputes)]
+    attention = [("mha_fwd", "wgmma", "bfloat16", launches),
+                 ("mha_generic", "generic", "float32", generic_launches)]
     entries = []
-    for name, route, dtype, n, rc in attention:
+    for name, route, dtype, n in attention:
         rows = [r for r in kernel_rows if r["route"] == route]
         main_shape = next(r for r in rows if r["dtype"] == dtype)
         entries.append({
@@ -5255,7 +5289,19 @@ def main() -> int:
             "bound_ms": main_shape["bound_ms"],
             "bound_by": "operations" if main_shape["bound"] == "compute" else "bytes",
             "library_ms": main_shape["library_device_ms"],
-            "backward_recomputes": rc,
+        })
+    # the backward kernel by route, at its main path's shape: the
+    # bi-encoder trainer's (phase 15's first row) for the tensor-core route,
+    # a tp shard's in f32 (phase 19) for the FMA route
+    for name, rows, n in (("mha_bwd", train_rows, bwd_launches),
+                          ("mha_bwd_fma", f32_train_rows, bwd_fma_launches)):
+        entries.append({
+            "name": name, "route": "cuda", "source": "review_recommender_tpu_torch/csrc/mha_bwd.cu",
+            "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:142",
+            "launches": n, "max_abs_err": max(r["backward_max_abs_err"] for r in rows),
+            "ms": rows[0]["backward_ms"], "plain_ms": rows[0]["plain_backward_ms"],
+            "bound_ms": rows[0]["backward_bound_ms"], "bound_by": rows[0]["backward_bound_by"],
+            "library_ms": rows[0]["library_backward_ms"],
         })
     emit({"kernels": entries + _bm25_kernel_entries(bm25_rows, bm25_launches, bm25_err)
           + [stage_a_entry]})

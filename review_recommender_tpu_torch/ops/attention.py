@@ -17,6 +17,13 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        which takes any float type, head width and length
   mha_kernel           the route's CUDA kernel; where a gradient is asked
                        for it runs through MhaKernelFn
+  mha_backward_reference  the plain torch version of the backward kernel's
+                       formula: the q, k, v gradients from the saved
+                       inputs and the upstream gradient, written out with
+                       the roundings of autograd through mha_reference
+  backward_route       which route of csrc/mha_bwd.cu takes (dtype, D, S):
+                       "wgmma" (bf16/f16 at D <= 128) or "fma" (f32 at any
+                       D, bf16/f16 at D 129-256)
   multihead_attention  the towers' entry point: impl "auto" launches the
                        kernel for CUDA tensors and takes the reference for
                        CPU tensors (autograd through its torch ops);
@@ -25,10 +32,11 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
 On a CUDA tensor the route's kernel launches or the call raises (a head
 wider than 256 raises); the route depends on dtype and shape alone, and
 nothing falls back to the reference. The gradient follows the JAX custom_vjp
-(attention_kernel.py:132-154): the forward is the kernel, and the backward
-re-runs the reference's torch ops under autograd from the saved q, k, v and
-key bias (one more attention forward, no backward kernel) and returns the
-q, k and v gradients; the key bias, built from the mask, gets none.
+(attention_kernel.py:132-154) in what it returns, the q, k and v gradients
+(the key bias, built from the mask, gets none), but not in how: where JAX
+re-runs the plain attention under jax.vjp, MhaKernelFn's backward is the
+hand-written kernel csrc/mha_bwd.cu on CUDA tensors and
+mha_backward_reference on CPU tensors.
 """
 from __future__ import annotations
 
@@ -44,15 +52,17 @@ from review_recommender_tpu_torch import kernels
 # threads encode concurrently, so the counts are bumped under a lock.
 mha_kernel_launches = 0
 mha_generic_kernel_launches = 0
-# Backward recomputes of MhaKernelFn: one per kernel forward that a
-# training step differentiates. With remat (per-layer checkpointing) the
-# backward first re-runs each layer's forward, so a step launches the
-# kernel twice for each recompute.
-mha_backward_recomputes = 0
+# Launches of the backward kernel (csrc/mha_bwd.cu), by route: one per
+# kernel forward that a training step differentiates. With remat (per-layer
+# checkpointing) the backward first re-runs each layer's forward, so a step
+# launches the forward twice for each backward.
+mha_backward_kernel_launches = 0
+mha_backward_fma_launches = 0
 _count_lock = threading.Lock()
 
 WGMMA_HEAD_DIMS = (32, 64, 128)  # csrc/mha_fwd.cu's TMA boxes and wgmma k-steps
 MAX_HEAD_DIM = 256  # csrc/mha_generic.cu's widest instance; no public BERT is wider
+WGMMA_BWD_MAX_HEAD_DIM = 128  # csrc/mha_bwd.cu's widest tensor-core instance
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
@@ -64,15 +74,31 @@ def kernel_route(dtype: torch.dtype, d: int, s: int) -> str:
     tensor cores up to d = 128, f32 as three TF32 products a product; on
     the CUDA cores beyond, a choice the kernel makes by d at compile time).
     Any s >= 1 runs on both. Raises ValueError for anything else."""
+    _check_domain(dtype, d, s)
+    if dtype != torch.float32 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "generic"
+
+
+def backward_route(dtype: torch.dtype, d: int, s: int) -> str:
+    """The route of csrc/mha_bwd.cu that takes the backward of attention
+    over q/k/v of `dtype` with head width `d` and `s` keys: "wgmma" for
+    bf16/f16 at d <= WGMMA_BWD_MAX_HEAD_DIM (tensor cores), "fma" for f32
+    at any d and bf16/f16 at d up to MAX_HEAD_DIM (CUDA cores, full f32).
+    Same domain as kernel_route; raises ValueError outside it."""
+    _check_domain(dtype, d, s)
+    if dtype != torch.float32 and d <= WGMMA_BWD_MAX_HEAD_DIM:
+        return "wgmma"
+    return "fma"
+
+
+def _check_domain(dtype: torch.dtype, d: int, s: int) -> None:
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"mha_kernel takes float32, bfloat16 or float16, got {dtype}")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"mha_kernel: head dim {d} not in 1..{MAX_HEAD_DIM}")
     if s < 1:
         raise ValueError(f"mha_kernel: sequence length {s} < 1")
-    if dtype != torch.float32 and d in WGMMA_HEAD_DIMS:
-        return "wgmma"
-    return "generic"
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -82,16 +108,48 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, hd = q.shape
     d = hd // num_heads
     split = lambda t: t.reshape(b, s, num_heads, d).to(torch.float32)
-    # the f32 scale as a host number: a host tensor moved to the card is a
-    # blocking copy, which would drain the queue in every training recompute
-    scale = float(1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
-    logits = torch.einsum("bqhd,bkhd->bhqk", split(q), split(k)) * scale
-    logits = logits + key_bias.to(torch.float32)[:, None, None, :]
-    m = logits.amax(dim=-1, keepdim=True)
-    e = torch.exp(logits - m)
-    probs = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+    probs = _probs(split(q), split(k), key_bias, d).to(q.dtype)
     ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(torch.float32), split(v))
     return ctx.to(q.dtype).reshape(b, s, hd)
+
+
+def _probs(qf: torch.Tensor, kf: torch.Tensor, key_bias: torch.Tensor, d: int) -> torch.Tensor:
+    """softmax(q k^T * scale + key_bias) in f32, (B, H, S, S), from f32
+    (B, S, H, D) heads: the exponentials divided by the f32 row sum."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * _scale(d)
+    logits = logits + key_bias.to(torch.float32)[:, None, None, :]
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _scale(d: int) -> float:
+    # the f32 1/sqrt(d) as a host number: a host tensor moved to the card
+    # is a blocking copy, which would drain the queue in every call
+    return float(1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
+
+
+def mha_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           key_bias: torch.Tensor, g: torch.Tensor,
+                           num_heads: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The q, k and v gradients of mha_reference at (q, k, v, key_bias)
+    against the upstream gradient `g`, written out (no autograd) as
+    csrc/mha_bwd.cu computes them, with the roundings of autograd through
+    mha_reference: P in f32; dV from P rounded to the input type; dP =
+    g V^T rounded to the input type (the backward of the probabilities'
+    cast); Delta = sum over the keys of P * dP; dS = P * (dP - Delta) in
+    f32 times the scale; each gradient rounded to the input type once.
+    Returns (dq, dk, dv), (B, S, H*D) each."""
+    b, s, hd = q.shape
+    d = hd // num_heads
+    split = lambda t: t.reshape(b, s, num_heads, d).to(torch.float32)
+    qf, kf, vf, gf = split(q), split(k), split(v), split(g)
+    p = _probs(qf, kf, key_bias, d)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).to(torch.float32), gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf).to(q.dtype).to(torch.float32)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True)) * _scale(d)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return tuple(t.to(q.dtype).reshape(b, s, hd) for t in (dq, dk, dv))
 
 
 def _check_kernel_args(q, k, v, key_bias, num_heads) -> tuple[int, int, int, int]:
@@ -149,8 +207,41 @@ def _launch(q, k, v, key_bias, num_heads: int) -> torch.Tensor:
     return out
 
 
+def _launch_bwd(q, k, v, key_bias, g, num_heads: int):
+    """csrc/mha_bwd.cu on CUDA tensors: (dq, dk, dv) of attention at (q, k,
+    v, key_bias) against the upstream gradient `g` (contiguous, q's dtype
+    and shape). Launches on torch.cuda.current_stream(); raises if the
+    launch fails, never falls back to the reference."""
+    global mha_backward_kernel_launches, mha_backward_fma_launches
+    b, s, h, d = _check_kernel_args(q, k, v, key_bias, num_heads)
+    route = backward_route(q.dtype, d, s)
+    if g.device != q.device or g.dtype != q.dtype or g.shape != q.shape:
+        raise ValueError(f"mha_bwd: g must be {q.dtype} of shape {tuple(q.shape)} on "
+                         f"{q.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+    if not g.is_contiguous():
+        raise ValueError("mha_bwd: g must be contiguous")
+    lib = kernels.load()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    ws = torch.empty(3 * b * h * s, dtype=torch.float32, device=q.device)  # m, l, Delta
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rrt_mha_bwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              key_bias.data_ptr(), g.data_ptr(), dq.data_ptr(),
+                              dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), b, s, h, d, stream)
+    if err != 0:
+        raise RuntimeError(f"mha_bwd kernel launch failed: cudaError {err} "
+                           f"at B={b} S={s} H={h} D={d} {q.dtype} ({route} route)")
+    with _count_lock:
+        if route == "wgmma":
+            mha_backward_kernel_launches += 1
+        else:
+            mha_backward_fma_launches += 1
+    return dq, dk, dv
+
+
 class MhaKernelFn(torch.autograd.Function):
-    """The kernel's forward with the JAX scheme's recompute backward."""
+    """The kernel's forward and the backward kernel (csrc/mha_bwd.cu) as
+    one autograd node; CPU tensors take mha_backward_reference."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, num_heads):
@@ -160,14 +251,10 @@ class MhaKernelFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        global mha_backward_recomputes
         q, k, v, key_bias = ctx.saved_tensors
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            out = mha_reference(*qkv, key_bias, ctx.num_heads)
-            dq, dk, dv = torch.autograd.grad(out, qkv, g)
-        with _count_lock:
-            mha_backward_recomputes += 1
+        # g may be expanded (stride 0) or a view: the kernel reads it dense
+        fn = _launch_bwd if q.is_cuda else mha_backward_reference
+        dq, dk, dv = fn(q, k, v, key_bias, g.contiguous(), ctx.num_heads)
         return dq, dk, dv, None, None
 
 
@@ -206,3 +293,15 @@ def attention_flops(b: int, s: int, h: int, d: int) -> int:
 def attention_bytes(b: int, s: int, h: int, d: int, itemsize: int) -> int:
     """q, k, v read and out written once, plus the f32 bias."""
     return 4 * b * s * h * d * itemsize + 4 * b * s
+
+
+def attention_backward_flops(b: int, s: int, h: int, d: int) -> int:
+    """The five products the backward needs (Q K^T again, dV, dP, dQ, dK):
+    2.5 times attention_flops."""
+    return 10 * b * h * s * s * d
+
+
+def attention_backward_bytes(b: int, s: int, h: int, d: int, itemsize: int) -> int:
+    """q, k, v and the upstream gradient read and dq, dk, dv written once,
+    plus the f32 bias."""
+    return 7 * b * s * h * d * itemsize + 4 * b * s

@@ -7,7 +7,7 @@ restore), make_pair_batch, and the tp layout TP_RULES, param_specs and
 shard_params (defined in parallel/tp_bert.py, in torch orientation). The
 tower computes in `dtype` (bf16 by default, as in JAX) from f32 master
 weights; on a CUDA device its attention is the fused kernel forward with
-the recompute backward (ops/attention.py).
+the backward kernel (ops/attention.py:MhaKernelFn, csrc/mha_bwd.cu).
 
 With `mesh=TrainMesh(devices, dp, tp)` (parallel/mesh.py) each dp row
 encodes its slice of the queries and documents on its tp cells, and the

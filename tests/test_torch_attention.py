@@ -255,27 +255,39 @@ def test_kernel_refuses_cpu_tensors_and_bad_impl():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_recompute_backward_equals_autograd_through_the_reference(monkeypatch, dtype):
-    """MhaKernelFn with its launch swapped for mha_reference (the kernel
-    runs only on the card): its q, k, v gradients are autograd's through
-    mha_reference exactly, key_bias gets none, and each backward counts one
-    recompute. With q needing no gradient only k and v get one."""
+    """MhaKernelFn with its forward launch swapped for mha_reference (the
+    kernels run only on the card) and its backward launch refused: on CPU
+    tensors the backward is mha_backward_reference, whose q, k, v gradients
+    are autograd's through mha_reference within 1e-5 (f32) / 2e-2 (bf16)
+    of max(1, max |ref|); key_bias gets none, no backward kernel launch is
+    counted, and with q needing no gradient only k and v get one. An
+    expanded (stride 0) upstream gradient, as .sum().backward() gives,
+    yields the dense one's gradients exactly."""
+    def refuse(*_args):
+        raise AssertionError("the backward kernel's launch on CPU tensors")
+
     monkeypatch.setattr(tatt, "_launch", tatt.mha_reference)
+    monkeypatch.setattr(tatt, "_launch_bwd", refuse)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}[dtype]
     q, k, v, bias = _torch(_inputs(5, 3, 20, 64), dtype)
     g = torch.from_numpy(np.random.default_rng(6).standard_normal(q.shape).astype(np.float32))
+    before = (tatt.mha_backward_kernel_launches, tatt.mha_backward_fma_launches)
     for needs in ((True, True, True), (False, True, True)):
         grads = []
         for fn in (tatt.MhaKernelFn.apply, tatt.mha_reference):
             leaves = [t.clone().requires_grad_(n) for t, n in zip((q, k, v), needs)]
-            before = tatt.mha_backward_recomputes
-            fn(*leaves, bias, 2).backward(g.to(dtype))
+            b_leaf = bias.clone().requires_grad_(False)
+            fn(*leaves, b_leaf, 2).backward(g.to(dtype))
             grads.append([t.grad for t in leaves])
-            counted = tatt.mha_backward_recomputes - before
-        assert counted == 0  # the reference's own backward is not a recompute
+            assert b_leaf.grad is None
         for got, want in zip(*grads):
             assert (got is None) == (want is None)
             if got is not None:
-                assert torch.equal(got, want)
+                assert got.dtype == want.dtype == dtype
+                err = (got.float() - want.float()).abs().max().item()
+                assert err <= tol * max(1.0, want.float().abs().max().item()), err
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    before = tatt.mha_backward_recomputes
     tatt.MhaKernelFn.apply(*leaves, bias, 2).sum().backward()
-    assert tatt.mha_backward_recomputes == before + 1
+    dense = tatt.mha_backward_reference(q, k, v, bias, torch.ones_like(q), 2)
+    assert all(torch.equal(leaf.grad, want) for leaf, want in zip(leaves, dense))
+    assert (tatt.mha_backward_kernel_launches, tatt.mha_backward_fma_launches) == before

@@ -30,10 +30,13 @@ it on the card. Serving configurations: the int8 scores and pools
 on the card against its CPU run on the same index (scores within 1e-5, ids
 equal but for near ties); a bge-small-shaped tower loaded from disk within
 2e-2 of its CPU f32 forward. Training: the attention's gradient
-(MhaKernelFn: the kernel forward, the reference's recompute backward)
-against autograd through mha_reference within 2e-2 at the trainers'
-shapes, a row masked but for one key, and an S off the key tile; one bf16
-ContrastiveTrainer step against the CPU f32 step from the same init.
+(MhaKernelFn: the kernel forward, the backward kernel csrc/mha_bwd.cu)
+against mha_backward_reference and autograd through mha_reference within
+2e-2 (bf16/f16) and 1e-4 (f32) of max(1, max |ref|) at the trainers'
+shapes, a row masked but for one key, and an S off the key tile; the
+backward kernel at the pad edges of D, S from 1 to 1,024, every dtype,
+and bit-equal from launch to launch; one bf16 ContrastiveTrainer step
+against the CPU f32 step from the same init.
 Topics: the kNN graph on the card against its CPU path at 5,000 x 384 and
 on the duplicate, negative-similarity, ragged-chunk and zero-row cases
 (similarities within 1e-5, ids equal but for near ties), also with TF32
@@ -52,7 +55,8 @@ bge-small and MiniLM-L6, chip_smoke.py phase 18; 2 and 2 + 2 * 4 here).
 The dp x tp trainers on TrainMesh(["cuda:0"] * 4, 2, 2): one bf16 step of
 each against the f32 step of the same mesh on the CPU (loss within
 2e-2), the attention
-kernel once per cell, layer and tower forward (and as many recomputes),
+kernel once per cell, layer and tower forward (and as many backward
+kernel launches),
 no host sync in a mesh step, fresh or restored; BiEncoder(devices=
 ["cuda:0"] * 4) against the one-device encode; the global-scale int8 scan
 on the card bit-equal to the CPU.
@@ -194,12 +198,51 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         tatt.mha_kernel(wide, wide, wide, torch.zeros(1, 4, device=cuda), 1)
     assert _launches() == (before[0] + 1, before[1])
     qg = q.clone().requires_grad_(True)
-    launches, recomputes = tatt.mha_kernel_launches, tatt.mha_backward_recomputes
-    tatt.mha_kernel(qg, k, v, bias, 4).float().sum().backward()
+    launches, backward = tatt.mha_kernel_launches, _bwd_launches()
+    tatt.mha_kernel(qg, k, v, bias, 4).float().sum().backward()  # an expanded (stride 0) g
     torch.cuda.synchronize()
     assert qg.grad is not None and torch.isfinite(qg.grad.float()).all()
     assert tatt.mha_kernel_launches == launches + 1
-    assert tatt.mha_backward_recomputes == recomputes + 1
+    assert _bwd_launches() == (backward[0] + 1, backward[1])
+    want = tatt.mha_backward_reference(q, k, v, bias, torch.ones_like(q), 4)[0]
+    assert (qg.grad.float() - want.float()).abs().max().item() <= 2e-2 * max(
+        1.0, want.float().abs().max().item())
+
+
+def _bwd_launches():
+    """The backward kernel's launches: (tensor-core route, FMA route)."""
+    return tatt.mha_backward_kernel_launches, tatt.mha_backward_fma_launches
+
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+def _check_grads(got, refs, dtype, what):
+    """Each of the kernel's q, k, v gradients within BWD_TOL of
+    max(1, max |ref|) of each reference's."""
+    for ref_name, ref in refs.items():
+        for name, x, r in zip("qkv", got, ref):
+            x, r = x.float(), r.float()
+            assert torch.isfinite(x).all(), (what, name)
+            err = (x - r).abs().max().item()
+            assert err <= BWD_TOL[dtype] * max(1.0, r.abs().max().item()), (what, ref_name, name, err)
+
+
+def _grads_three_ways(q, k, v, bias, heads, g):
+    """(outputs, grads) of multihead_attention with impl "auto" (the kernel
+    forward and the backward kernel) and "reference" (autograd through
+    mha_reference), and mha_backward_reference's gradients, on the same
+    CUDA tensors."""
+    outs, grads = [], []
+    for impl in ("auto", "reference"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = tatt.multihead_attention(*leaves, bias, heads, impl=impl)
+        out.backward(g)
+        outs.append(out.detach().float())
+        grads.append([t.grad for t in leaves])
+    plain = tatt.mha_backward_reference(q, k, v, bias, g, heads)
+    torch.cuda.synchronize()
+    return outs, grads[0], {"autograd": grads[1], "plain": plain}
 
 
 def _masked_but_one(bias):
@@ -315,31 +358,22 @@ def test_wgmma_kernel_past_512_keys(cuda, dtype, d, s):
     (3, 100, 2, 128),  # S not a multiple of the 64-key tile
 ])
 def test_gradients_match_autograd_through_the_reference(cuda, dtype, b, s, heads, d):
-    """MhaKernelFn (the kernel forward, the JAX scheme's recompute backward)
-    through multihead_attention against autograd through mha_reference on
-    the same CUDA tensors: the output and the q, k, v gradients within
-    2e-2, one kernel launch and one recompute, a row with every key masked
-    but one included."""
+    """MhaKernelFn (the kernel forward, the backward kernel) through
+    multihead_attention against mha_backward_reference and autograd through
+    mha_reference on the same CUDA tensors: the output within 2e-2, the q,
+    k, v gradients within 2e-2 of max(1, max |ref|), one forward launch and
+    one backward launch on the tensor-core route, a row with every key
+    masked but one included."""
     q, k, v, bias = _inputs(b + s + d, b, s, heads * d, dtype, cuda)
     bias = _masked_but_one(bias)
     g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(s),
                     device=cuda).to(dtype)
-    outs, grads = [], []
-    launches, recomputes = tatt.mha_kernel_launches, tatt.mha_backward_recomputes
-    for impl in ("auto", "reference"):
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        out = tatt.multihead_attention(*leaves, bias, heads, impl=impl)
-        out.backward(g)
-        outs.append(out.detach().float())
-        grads.append([t.grad.float() for t in leaves])
-    torch.cuda.synchronize()
+    launches, backward = tatt.mha_kernel_launches, _bwd_launches()
+    outs, got, refs = _grads_three_ways(q, k, v, bias, heads, g)
     assert tatt.mha_kernel_launches == launches + 1
-    assert tatt.mha_backward_recomputes == recomputes + 1
+    assert _bwd_launches() == (backward[0] + 1, backward[1])
     assert (outs[0] - outs[1]).abs().max().item() <= 2e-2
-    for name, got, ref in zip("qkv", *grads):
-        assert torch.isfinite(got).all(), name
-        err = (got - ref).abs().max().item()
-        assert err <= 2e-2, (name, err)
+    _check_grads(got, refs, dtype, (b, s, heads, d))
 
 
 @pytest.mark.parametrize("dtype,b,s,heads,d", [
@@ -350,29 +384,76 @@ def test_gradients_match_autograd_through_the_reference(cuda, dtype, b, s, heads
 ])
 def test_gradients_through_the_generic_route(cuda, dtype, b, s, heads, d):
     """MhaKernelFn on the generic route: the forward is the generic kernel,
-    the backward the reference's recompute, so the q, k, v gradients are
-    autograd's through mha_reference on the same inputs (within the
-    route's tolerance) and the output within it too."""
+    the backward the backward kernel's route for the dtype and width (FMA
+    for f32, tensor cores for bf16/f16 up to D = 128), held to
+    mha_backward_reference and autograd through mha_reference on the same
+    inputs (within 1e-4 in f32, 2e-2 in bf16/f16, of max(1, max |ref|)),
+    and the output within the forward's tolerance."""
     q, k, v, bias = _inputs(b * s + d, b, s, heads * d, dtype, cuda)
     bias = _masked_but_one(bias)
     g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d),
                     device=cuda).to(dtype)
-    outs, grads = [], []
-    before, recomputes = _launches(), tatt.mha_backward_recomputes
-    for impl in ("auto", "reference"):
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        out = tatt.multihead_attention(*leaves, bias, heads, impl=impl)
-        out.backward(g)
-        outs.append(out.detach().float())
-        grads.append([t.grad.float() for t in leaves])
-    torch.cuda.synchronize()
+    before, backward = _launches(), _bwd_launches()
+    outs, got, refs = _grads_three_ways(q, k, v, bias, heads, g)
     assert _launches() == (before[0], before[1] + 1)
-    assert tatt.mha_backward_recomputes == recomputes + 1
-    tol = GENERIC_TOL[dtype]
-    assert (outs[0] - outs[1]).abs().max().item() <= tol
-    for name, got, ref in zip("qkv", *grads):
-        assert torch.isfinite(got).all(), name
-        assert (got - ref).abs().max().item() <= tol, name
+    fma = tatt.backward_route(dtype, d, s) == "fma"
+    assert _bwd_launches() == (backward[0] + (not fma), backward[1] + fma)
+    assert (outs[0] - outs[1]).abs().max().item() <= GENERIC_TOL[dtype]
+    _check_grads(got, refs, dtype, (b, s, heads, d))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("d", [1, 15, 17, 31, 33, 127, 129, 256])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 129, 600, 1024])
+def test_backward_kernel_edge_cases(cuda, dtype, d, s):
+    """The backward kernel alone (_launch_bwd) at the pad edges of D (each
+    tensor-core instance's and the FMA route's), S at and around the
+    64-row tiles, past 512 keys and S = 1, in every dtype: its q, k, v
+    gradients against mha_backward_reference and autograd through
+    mha_reference. Row 0 is masked but for one key (P = 1: dS = 0 exactly
+    in the reference), the last row fully masked (the batch-bucket padding
+    row: P = 1/S, gradients flowing uniformly), keys past S in a tile give
+    P = 0, query rows past S in a tile add nothing to dK and dV."""
+    b, heads = 3, 2 if d < 128 else 1
+    q, k, v, bias = _inputs(7 * s + d, b, s, heads * d, dtype, cuda)
+    bias = _masked_but_one(bias)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(s + d),
+                    device=cuda).to(dtype)
+    backward = _bwd_launches()
+    got = tatt._launch_bwd(q, k, v, bias, g, heads)
+    fma = tatt.backward_route(dtype, d, s) == "fma"
+    assert _bwd_launches() == (backward[0] + (not fma), backward[1] + fma)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tatt.mha_reference(*leaves, bias, heads).backward(g)
+    plain = tatt.mha_backward_reference(q, k, v, bias, g, heads)
+    torch.cuda.synchronize()
+    _check_grads(got, {"autograd": [t.grad for t in leaves], "plain": plain}, dtype, (s, d))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 32), (torch.float16, 26),
+                                     (torch.float32, 64), (torch.bfloat16, 200)])
+def test_backward_kernel_is_deterministic(cuda, dtype, d):
+    """Two backward launches on the same inputs give bit-equal gradients
+    (no atomics: kernel A writes dQ and the row statistics, kernel B dK and
+    dV, each element by one thread)."""
+    q, k, v, bias = _inputs(d, 4, 300, 4 * d, dtype, cuda)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d),
+                    device=cuda).to(dtype)
+    first = tatt._launch_bwd(q, k, v, bias, g, 4)
+    second = tatt._launch_bwd(q, k, v, bias, g, 4)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_backward_kernel_refuses_what_it_does_not_take(cuda):
+    """A gradient of another dtype, shape or device, or a non-contiguous
+    one, is refused at the launch (MhaKernelFn makes it contiguous)."""
+    q, k, v, bias = _inputs(3, 2, 16, 64, torch.bfloat16, cuda)
+    g = torch.ones_like(q)
+    for bad, match in ((g.float(), "g must be"), (g[:1], "g must be"), (g.cpu(), "g must be"),
+                       (g.transpose(0, 1).contiguous().transpose(0, 1), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            tatt._launch_bwd(q, k, v, bias, bad, 2)
 
 
 def _tiny_pair_batch():
@@ -400,7 +481,7 @@ def _update_cosine(a, b, sd):
 
 def test_contrastive_step_on_cuda_matches_the_cpu_f32_step(cuda):
     """One bf16 ContrastiveTrainer step on the card (attention through the
-    kernel forward and the recompute backward) against the CPU f32 step
+    kernel forward and the backward kernel) against the CPU f32 step
     from the same init: loss within 2e-2 (bf16 products), and the update
     points the same way (cosine of the two parameter updates >= 0.95; a
     first AdamW step is lr * g / (|g| + eps), so elements whose gradient is
@@ -411,10 +492,10 @@ def test_contrastive_step_on_cuda_matches_the_cpu_f32_step(cuda):
     tc = TrainConfig(learning_rate=1e-3)
     cpu = ContrastiveTrainer(cfg, sd, train_cfg=tc, dtype=torch.float32, device="cpu")
     gpu = ContrastiveTrainer(cfg, sd, train_cfg=tc, device="cuda")
-    launches, recomputes = tatt.mha_kernel_launches, tatt.mha_backward_recomputes
+    launches, backward = tatt.mha_kernel_launches, _bwd_launches()
     m_gpu = gpu.train_step(*batch)
     assert tatt.mha_kernel_launches == launches + 4  # 2 layers x (queries, docs)
-    assert tatt.mha_backward_recomputes == recomputes + 4
+    assert _bwd_launches() == (backward[0] + 4, backward[1])
     m_cpu = cpu.train_step(*batch)
     assert abs(m_gpu["loss"] - m_cpu["loss"]) <= 2e-2, (m_gpu, m_cpu)
     cos = _update_cosine(gpu, cpu, sd)
@@ -425,8 +506,8 @@ def test_contrastive_step_on_cuda_matches_the_cpu_f32_step(cuda):
 def test_remat_step_on_cuda_relaunches_the_kernel(cuda):
     """remat=True (torch.utils.checkpoint per layer) on the card: the
     backward re-runs each layer's forward, kernel included, before the
-    recompute backward, so a step launches the kernel twice for each
-    recompute (8 launches and 4 recomputes for 2 layers x queries and
+    backward kernel, so a step launches the forward twice for each
+    backward (8 forward and 4 backward launches for 2 layers x queries and
     docs, against 4 and 4 without remat). The step is the same step: the
     loss within 1e-6 and the cosine of the two parameter updates >= 0.9999
     (the re-run forward gives the same activations)."""
@@ -437,10 +518,9 @@ def test_remat_step_on_cuda_relaunches_the_kernel(cuda):
     for remat in (False, True):
         tr = ContrastiveTrainer(cfg, sd, train_cfg=TrainConfig(learning_rate=1e-3, remat=remat),
                                 device="cuda")
-        launches, recomputes = tatt.mha_kernel_launches, tatt.mha_backward_recomputes
+        launches, backward = tatt.mha_kernel_launches, sum(_bwd_launches())
         losses[remat] = tr.train_step(*batch)["loss"]
-        counts[remat] = (tatt.mha_kernel_launches - launches,
-                         tatt.mha_backward_recomputes - recomputes)
+        counts[remat] = (tatt.mha_kernel_launches - launches, sum(_bwd_launches()) - backward)
         trainers[remat] = tr
     assert counts == {False: (4, 4), True: (8, 4)}, counts
     assert abs(losses[True] - losses[False]) <= 1e-6, losses
@@ -450,7 +530,7 @@ def test_remat_step_on_cuda_relaunches_the_kernel(cuda):
 
 def test_training_steps_do_not_sync_fresh_or_restored(cuda, tmp_path):
     """A trainer's step (batch upload, forward through the kernel, the
-    recompute backward, clip and AdamW) queues on the device without a
+    backward kernel, clip and AdamW) queues on the device without a
     host sync (torch's sync debug mode raises on one), fresh and restored
     from a checkpoint; the restored AdamW step counts stay on the host,
     where a fresh optimizer keeps them."""
@@ -1126,7 +1206,7 @@ def test_mesh_step_on_cuda_matches_the_cpu_mesh(cuda, kind):
     """One bf16 step of each trainer on a (2, 2) mesh of one card against
     the f32 step of the same mesh of CPUs from the same init: loss within
     2e-2 (bf16 products); 4 kernel launches (the 4 cells) per layer and
-    tower forward, as many recomputes."""
+    tower forward, as many backward kernel launches."""
     from review_recommender_tpu_torch.models.bert import init_state_dict
     from review_recommender_tpu_torch.parallel.mesh import TrainMesh
     from review_recommender_tpu_torch.train import (ContrastiveTrainer, CrossEncoderTrainer,
@@ -1139,11 +1219,11 @@ def test_mesh_step_on_cuda_matches_the_cpu_mesh(cuda, kind):
     cpu = cls(cfg, sd, dtype=torch.float32, mesh=TrainMesh(["cpu"] * 4, 2, 2))
     gpu = cls(cfg, sd, mesh=TrainMesh([cuda] * 4, 2, 2))
     assert all(p.is_cuda for ps in gpu.shards.values() for p in ps)
-    launches, recomputes = tatt.mha_kernel_launches, tatt.mha_backward_recomputes
+    launches, backward = tatt.mha_kernel_launches, _bwd_launches()
     m_gpu = gpu.train_step(*batches[kind])
     towers = 2 if kind == "biencoder" else 1
     assert tatt.mha_kernel_launches - launches == 4 * cfg.num_layers * towers
-    assert tatt.mha_backward_recomputes - recomputes == 4 * cfg.num_layers * towers
+    assert _bwd_launches() == (backward[0] + 4 * cfg.num_layers * towers, backward[1])
     m_cpu = cpu.train_step(*batches[kind])
     assert abs(m_gpu["loss"] - m_cpu["loss"]) <= 2e-2, (m_gpu, m_cpu)
 
