@@ -290,8 +290,10 @@ line, and nothing is caught and passed over:
              (each cell its own slice of the batch and its tp rank's
              heads): the attention kernel and the backward kernel, their
              plain versions and SDPA at the tp shard's shapes (32, 128, 6,
-             32) and a cell's (16, 128, 6, 32), and the f32 backward (FMA
-             route) at the shard's shape; (a) ContrastiveTrainer from the golden's
+             32) and a cell's (16, 128, 6, 32), the f32 backward (3xTF32
+             route) at the shard's shape, and the backward kernel's FMA
+             route at (32, 128, 2, 192) in bf16 and f32 (the shape of
+             (g)); (a) ContrastiveTrainer from the golden's
              bge-small at 32 x 128, (b) CrossEncoderTrainer from its
              MiniLM-L6 at 32 x 256, (c) MLMTrainer on the bge-small trunk
              (vocab 30,522): each first step's loss against the
@@ -299,7 +301,7 @@ line, and nothing is caught and passed over:
              dtype=torch.float32); exactly 4 launches a layer and tower
              forward (4 x 24 a bi-encoder step) of the tensor-core kernel
              in bf16 and of the generic one in f32, as many of the backward
-             kernel's tensor-core route (bf16) or FMA route (f32), no call
+             kernel's wgmma route (bf16) or 3xTF32 route (f32), no call
              of a plain version; 10
              (a) and 3 (b, c) bf16 steps timed on the mesh and on one
              device; (d) an f32
@@ -312,7 +314,10 @@ line, and nothing is caught and passed over:
              phase 4's corpus (8,192 stripes, pool 150, 32 queries): equal
              to its slice-by-slice plain version, pool recall against the
              exact f32 pool beside the per-row int8 scan's, medians and
-             bounds
+             bounds; (g) the bge-small trunk with 2 heads of 192 (a head
+             width past 128): one bf16 and one f32 ContrastiveTrainer step
+             on one device, 24 generic-kernel forward launches and 24 of
+             the backward kernel's FMA route a step, finite losses
  20 generic_route  the towers that only the generic attention kernel
              (csrc/mha_generic.cu) runs, through run_search on phase 4's
              corpus and engine construction, 20 queries a setting (cut
@@ -329,7 +334,8 @@ line, and nothing is caught and passed over:
              reference attention within 2e-2; p50 of each setting
 
 The last two lines are the kernels summary (the backward kernel by route:
-mha_bwd the tensor-core one, mha_bwd_fma the FMA one) and
+mha_bwd the bf16/f16 wgmma one, mha_bwd_tf32 the f32 3xTF32 one, mha_bwd_fma
+the CUDA-core one past D = 128) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no jax and nothing of the JAX package.
 """
@@ -1224,6 +1230,7 @@ def _kernel_modules():
     return {"mha_fwd": (A, "mha_kernel_launches"),
             "mha_generic": (A, "mha_generic_kernel_launches"),
             "mha_bwd": (A, "mha_backward_kernel_launches"),
+            "mha_bwd_tf32": (A, "mha_backward_tf32_launches"),
             "mha_bwd_fma": (A, "mha_backward_fma_launches"),
             "bm25_packed": (BK, "bm25_packed_kernel_launches"),
             "bm25_unpacked": (BK, "bm25_unpacked_kernel_launches"),
@@ -3207,6 +3214,15 @@ def _trained_lane(card):
     return lane_counts["mha_fwd"], lane_counts["mha_bwd"]
 
 
+def _backward_exps(b, s, h, d, dtype) -> int:
+    """The exponentials csrc/mha_bwd.cu's route evaluates on the B*H*S*S
+    scores: three passes (kernel A's two and kernel B's) on the wgmma and
+    FMA routes, two on the 3xTF32 route (its kernel A takes one pass)."""
+    from review_recommender_tpu_torch.ops import attention as A
+
+    return (2 if A.backward_route(dtype, d, s) == "tf32" else 3) * b * h * s * s
+
+
 def _training_kernel_rows(torch, shapes=TRAIN_SHAPES, dtype=None):
     """The attention at each of `shapes` in bf16 (or `dtype`), timed behind
     a device spin (medians of REPS CUDA-event runs): the kernel forward
@@ -3220,7 +3236,8 @@ def _training_kernel_rows(torch, shapes=TRAIN_SHAPES, dtype=None):
     attention_backward_flops (the five products it needs, 2.5 times the
     forward's) over the tensor-core peak (f32: the 3xTF32 rate) against
     attention_backward_bytes (q, k, v and the upstream gradient read, dq,
-    dk, dv written)."""
+    dk, dv written), and beside it the exponential floor (the route's
+    exponentials, _backward_exps, at PEAK_EXP_RATE)."""
     from review_recommender_tpu_torch.ops import attention as A
 
     dtype = dtype or torch.bfloat16
@@ -3282,6 +3299,8 @@ def _training_kernel_rows(torch, shapes=TRAIN_SHAPES, dtype=None):
                      "backward_bound_ms": max(bwd_flops / peak, bwd_bytes / PEAK_HBM_BYTES) * 1e3,
                      "backward_bound_by": "operations"
                      if bwd_flops / peak > bwd_bytes / PEAK_HBM_BYTES else "bytes",
+                     "backward_exp_floor_ms":
+                     _backward_exps(b, s, h, d, dtype) / PEAK_EXP_RATE * 1e3,
                      "reps": REPS})
         check(err <= fwd_tol, "training_kernel", f"max abs error {err} at {rows[-1]}")
         check(bwd_rel <= bwd_tol and all(bool(torch.isfinite(x.float()).all()) for x in grads),
@@ -3843,12 +3862,14 @@ def phase_topics_import(torch, products):
 # phase 17: the raw-review pipeline at a SNAP 5-core Electronics shape
 # (1,689,188 reviews over 63,001 products, ~26.8 a product), cut to
 # RAW_REVIEWS raw rows at the same ratio (the phase's host stages bound
-# it: PERF.md §4); every product has the 5-core's 5 reviews, the rest
-# spread Zipf(RAW_ZIPF) over the products, so the largest pass the top-80
-# and the snippet cap; the embedding jobs in data/embed_job.py's shards of
-# 20,000 rows (one of products, eight of reviews: resume deletes two of those)
+# it, and the script's time limit its size: 200,000 took 242-302 s,
+# 100,000 183 s; PERF.md §4); every product has the 5-core's 5 reviews,
+# the rest spread Zipf(RAW_ZIPF) over the products, so the largest pass the
+# top-80 and the snippet cap; the embedding jobs in data/embed_job.py's
+# shards of 20,000 rows (one of products, three of reviews: resume deletes
+# the last two)
 SNAP_REVIEWS, SNAP_PRODUCTS = 1_689_188, 63_001
-RAW_REVIEWS, RAW_ZIPF, RAW_JSONL_SHARE, RAW_SEED = 200_000, 0.9, 0.6, 17
+RAW_REVIEWS, RAW_ZIPF, RAW_JSONL_SHARE, RAW_SEED = 60_000, 0.9, 0.6, 17
 RAW_PRODUCTS = round(RAW_REVIEWS * SNAP_PRODUCTS / SNAP_REVIEWS)
 RAW_BATCH, RAW_WORDS = 256, 20_000
 RAW_QUERIES, RAW_BM25_QUERIES = 100, 20
@@ -4787,6 +4808,11 @@ INT8_GLOBAL_MIN_RECALL = 0.5
 # rows a step, and the (B / dp) rows a cell runs
 MESH_SHAPES = [(MESH_BATCH, MESH_LEN, 12 // MESH_TP, 32),
                (MESH_BATCH // MESH_DP, MESH_LEN, 12 // MESH_TP, 32)]
+# (g): the bi-encoder trunk with 2 heads of 192, a head width past the
+# tensor-core routes' 128 that only the backward kernel's FMA route takes;
+# its attention shape one device gives it
+WIDE_HEADS = 2
+WIDE_SHAPE = (MESH_BATCH, MESH_LEN, WIDE_HEADS, 384 // WIDE_HEADS)
 
 
 def _mesh_towers():
@@ -4879,8 +4905,8 @@ def _mesh_trainer(torch, card, kind, cfg, sd, batch, steps):
     bf16 and in f32, from the same weights (losses within MESH_LOSS_TOL);
     the mesh steps' kernel launches (one a cell, layer and tower forward:
     the tensor-core kernel in bf16, the generic one in f32, never the
-    other; as many of the backward kernel's tensor-core route in bf16 and
-    FMA route in f32), no call of a plain version; then `steps` bf16 steps
+    other; as many of the backward kernel's wgmma route in bf16 and 3xTF32
+    route in f32), no call of a plain version; then `steps` bf16 steps
     of each timed. Returns the mesh steps' launches by kernel."""
     from review_recommender_tpu_torch.parallel.mesh import TrainMesh
     from review_recommender_tpu_torch.train import (ContrastiveTrainer, CrossEncoderTrainer,
@@ -4894,7 +4920,7 @@ def _mesh_trainer(torch, card, kind, cfg, sd, batch, steps):
            "batch": list(batch[0].shape)}
     launches = {}
     for name, dtype, kernel, bwd in (("bf16", torch.bfloat16, "mha_fwd", "mha_bwd"),
-                                     ("f32", torch.float32, "mha_generic", "mha_bwd_fma")):
+                                     ("f32", torch.float32, "mha_generic", "mha_bwd_tf32")):
         one = cls(cfg, sd, dtype=dtype, device=DEV)
         mesh = cls(cfg, sd, dtype=dtype, mesh=TrainMesh([DEV] * cells, MESH_DP, MESH_TP))
         check(all(p.device.type == torch.device(DEV).type for ps in mesh.shards.values()
@@ -4937,8 +4963,8 @@ def _mesh_restores(torch, card, cfg, sd, batch, tmp):
     checkpoint restored on the mesh and a mesh trainer's on one device,
     each state equal to the checkpoint's, the next loss within
     MESH_RESTORE_TOL of the saving trainer's own next step. Every step's
-    attention runs the generic kernel and the backward kernel's FMA route
-    (counted, exact). Returns the launches by kernel."""
+    attention runs the generic kernel and the backward kernel's 3xTF32
+    route (counted, exact). Returns the launches by kernel."""
     from review_recommender_tpu_torch.parallel.mesh import TrainMesh
     from review_recommender_tpu_torch.train import ContrastiveTrainer
 
@@ -4966,7 +4992,7 @@ def _mesh_restores(torch, card, cfg, sd, batch, tmp):
         del first, resumed
     counts = _counts()
     steps = 3 * (per_step["one"] + per_step["mesh"])  # two steps of each saver, one of each resumed
-    want = {**{n: 0 for n in counts}, "mha_generic": steps, "mha_bwd_fma": steps}
+    want = {**{n: 0 for n in counts}, "mha_generic": steps, "mha_bwd_tf32": steps}
     emit({"phase": "train_mesh_restore", "card": card, "tol": MESH_RESTORE_TOL,
           "launches": counts, "expected_launches": want, **out})
     check(counts == want, "train_mesh", f"restores: launches {counts}, want {want}")
@@ -5069,24 +5095,57 @@ def _mesh_int8_global(torch, card, products):
     del emb, g_qs, r_sl
 
 
+def _wide_head_steps(torch, card, cfg, sd, batch):
+    """(g) The bi-encoder trunk with WIDE_HEADS heads (D = 192): one bf16
+    and one f32 ContrastiveTrainer step on one device. Each forward runs the
+    generic kernel's CUDA-core instance and each backward the backward
+    kernel's FMA route (counted, exact), no plain version; finite losses.
+    Returns the launches by kernel."""
+    from review_recommender_tpu_torch.train import ContrastiveTrainer
+
+    wide = dataclasses.replace(cfg, num_heads=WIDE_HEADS)
+    per_step = 2 * wide.num_layers
+    losses = {}
+    _zero_counts()
+    with _PlainCalls() as plain:
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            tr = ContrastiveTrainer(wide, sd, dtype=dtype, device=DEV)
+            losses[name] = tr.train_step(*batch)["loss"]
+            del tr
+        counts = _counts()
+    want = {**{n: 0 for n in counts}, "mha_generic": 2 * per_step, "mha_bwd_fma": 2 * per_step}
+    emit({"phase": "train_mesh_wide_heads", "card": card, "heads": WIDE_HEADS,
+          "head_dim": wide.hidden_size // WIDE_HEADS, "losses": losses, "launches": counts,
+          "expected_launches": want, "plain_calls": plain.calls})
+    check(counts == want and plain.calls == 0 and all(np.isfinite(v) for v in losses.values()),
+          "train_mesh", f"wide heads: launches {counts} (want {want}), {plain.calls} plain "
+          f"calls, losses {losses}")
+    return counts
+
+
 def phase_train_mesh(torch, products):
     """Phase 19: the dp x tp trainers on TrainMesh([DEV] * 4, 2, 2), the
     data-parallel encoder, the global-scale int8 scan, and the attention
-    kernels at the tp shard's shapes (the f32 backward at the shard's).
-    Returns the attention launches of the mesh steps, the restores and the
-    dp encode by kernel ("mha_fwd", "mha_generic", "mha_bwd",
-    "mha_bwd_fma"), and the f32 kernel rows."""
+    kernels at the tp shard's shapes (the f32 backward at the shard's) and
+    at WIDE_SHAPE (the backward kernel's FMA route, bf16 and f32). Returns
+    the attention launches of the mesh steps, the restores, the wide-head
+    steps and the dp encode by kernel ("mha_fwd", "mha_generic", "mha_bwd",
+    "mha_bwd_tf32", "mha_bwd_fma"), the f32 kernel rows and the
+    WIDE_SHAPE rows."""
     import shutil
 
     card = _card()
     for row in _training_kernel_rows(torch, MESH_SHAPES):
         emit({"phase": "train_mesh_kernel", "card": card, **row})
     f32_rows = _training_kernel_rows(torch, MESH_SHAPES[:1], torch.float32)
-    for row in f32_rows:
+    wide_rows = (_training_kernel_rows(torch, [WIDE_SHAPE])
+                 + _training_kernel_rows(torch, [WIDE_SHAPE], torch.float32))
+    for row in f32_rows + wide_rows:
         emit({"phase": "train_mesh_kernel", "card": card, **row})
     towers = _mesh_towers()
     batches = _mesh_batches(products)
-    launches = dict.fromkeys(("mha_fwd", "mha_generic", "mha_bwd", "mha_bwd_fma"), 0)
+    launches = dict.fromkeys(("mha_fwd", "mha_generic", "mha_bwd", "mha_bwd_tf32",
+                              "mha_bwd_fma"), 0)
     for kind, steps in (("biencoder", MESH_STEPS), ("crossencoder", 3), ("mlm", 3)):
         cfg, sd = towers[kind]
         for name, n in _mesh_trainer(torch, card, kind, cfg, sd, batches[kind], steps).items():
@@ -5096,12 +5155,15 @@ def phase_train_mesh(torch, products):
     tmp.mkdir(parents=True)
     cfg, sd = towers["biencoder"]
     restored = _mesh_restores(torch, card, cfg, sd, batches["biencoder"], tmp)
-    for name in ("mha_generic", "mha_bwd_fma"):
+    for name in ("mha_generic", "mha_bwd_tf32"):
         launches[name] += restored[name]
     shutil.rmtree(tmp, ignore_errors=True)
+    wide = _wide_head_steps(torch, card, cfg, sd, batches["biencoder"])
+    for name in ("mha_generic", "mha_bwd_fma"):
+        launches[name] += wide[name]
     launches["mha_fwd"] += _mesh_encode(torch, card, cfg, sd, products)
     _mesh_int8_global(torch, card, products)
-    return launches, f32_rows
+    return launches, f32_rows, wide_rows
 
 
 # phase 20: the towers only the generic attention kernel runs. (a) phase
@@ -5256,10 +5318,11 @@ def main() -> int:
         launches += raw_launches["mha_fwd"]
         bm25_launches["bm25_packed"] += raw_launches["bm25_packed"]
         mark("raw_pipeline")
-        mesh_launches, f32_train_rows = phase_train_mesh(torch, products)
+        mesh_launches, f32_train_rows, wide_train_rows = phase_train_mesh(torch, products)
         launches += mesh_launches["mha_fwd"]
         generic_launches = mesh_launches["mha_generic"]
         bwd_launches += mesh_launches["mha_bwd"]
+        bwd_tf32_launches = mesh_launches["mha_bwd_tf32"]
         bwd_fma_launches = mesh_launches["mha_bwd_fma"]
         mark("train_mesh")
         route_launches = phase_generic_route(torch, products)
@@ -5291,10 +5354,13 @@ def main() -> int:
             "library_ms": main_shape["library_device_ms"],
         })
     # the backward kernel by route, at its main path's shape: the
-    # bi-encoder trainer's (phase 15's first row) for the tensor-core route,
-    # a tp shard's in f32 (phase 19) for the FMA route
+    # bi-encoder trainer's (phase 15's first row) for the wgmma route, a tp
+    # shard's in f32 (phase 19) for the 3xTF32 route, the wide-head step's
+    # (phase 19 (g); bf16 first, its f32 row's error included) for the FMA
+    # route
     for name, rows, n in (("mha_bwd", train_rows, bwd_launches),
-                          ("mha_bwd_fma", f32_train_rows, bwd_fma_launches)):
+                          ("mha_bwd_tf32", f32_train_rows, bwd_tf32_launches),
+                          ("mha_bwd_fma", wide_train_rows, bwd_fma_launches)):
         entries.append({
             "name": name, "route": "cuda", "source": "review_recommender_tpu_torch/csrc/mha_bwd.cu",
             "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:142",

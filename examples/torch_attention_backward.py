@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """The attention backward kernel (csrc/mha_bwd.cu) on the card: its
 registers, its gradients against the plain versions at the trainers'
-shapes and at the edge cases, and its time beside the recompute it
-replaced and SDPA's backward.
+shapes and at the edge cases, its time beside the recompute it replaced
+and SDPA's backward, where the time of its bf16 route goes, and an A/B
+against another checkout's kernel.
 
-    python3 examples/torch_attention_backward.py [--no-time]
+    python3 examples/torch_attention_backward.py [--no-time] [--breakdown]
+        [--parent ROOT] [--sass]
 
 Lines, after the card's name and power limit:
 
   registers  per kernel instance of csrc/mha_bwd.cu: registers a thread,
-             spill stores and loads, shared memory (nvcc -Xptxas -v)
+             spill stores and loads, stack frame, shared memory (nvcc
+             -Xptxas -v), and any ptxas warning about wgmma
   check      per case (dtype, B, S, H, D, masks): the kernel's dq, dk, dv
              against mha_backward_reference and against autograd through
              mha_reference on the same CUDA tensors, as the largest error
@@ -24,25 +27,75 @@ Lines, after the card's name and power limit:
              times behind a 0.1 ms device spin of the forward and the
              backward kernel (backward_ms) beside the recompute it
              replaced (plain_backward_ms), SDPA's forward and backward
-             (library_backward_ms) and the bounds
+             (library_backward_ms) and the bounds; then phase 19's f32 row
+             at a tp shard's (32, 128, 6, 32)
+  breakdown  (--breakdown [NAMES]) copies of csrc/mha_bwd.cu made by text
+             edits (the script finds its places by text and fails loudly
+             when they move), built into build/attention_backward/, each
+             timed through its own rrt_mha_bwd (the inputs of the time
+             lines): device ms behind a spin, each kernel's device µs from
+             a torch.profiler window, host µs a call. bf16 copies at the
+             trainers' four shapes, f32 ones at the tp shard's, "full" at
+             all five. A name is "full" or edits joined by "+"; the
+             knobs (csrc/mha_bwd.cu's constexprs) and the parts taken out:
+               no_overlap     bf16: kernel A waits on dP before its work on
+                              S, kernel B on both halves' products before
+                              the first half's work
+               min1           bf16 kernel A with no register cap
+               a_min5, b_min5 bf16 kernel A / B capped for 5 CTAs an SM up
+                              to DP = 32; b_min1 kernel B with no cap
+               no_pdl         kernel B launched after kernel A completes
+                              (no programmatic dependent launch)
+               no_exp         ex2.approx replaced by its argument
+               softmax_only   the bf16 products out: no wgmma
+               no_loads       the bf16 rings' copies of the next tiles out
+               a_only         kernel A alone; kernel B's time is full less
+                              a_only
+               f32_a_min1     f32 kernel A with no register cap
+               f32_b_min4     f32 kernel B for 4 CTAs an SM up to DP = 32
+               f32_roll       the f32 S / dP k-step loops not unrolled
+               f32_lo_trunc   the split's lo fed to the tensor cores
+                              unrounded (they drop its low 13 bits)
+               f32_a_bt16     f32 kernel A's key tiles at 16 rows
+               f32_b_bt32     f32 kernel B's query tiles at 32 rows
+               f32_no_lo      3xTF32 down to its hi*hi products
+               f32_no_split   the landed f32 tiles not split into hi, lo
+               f32_no_loads   the f32 rings' copies of the next tiles out
+               f32_prof       the f32 kernels with clock64 stamps: a "prof"
+                              line with each kernel's cycles a CTA in each
+                              phase of its steps (waits and barriers,
+                              copies, split, products, the rest)
+             (every edit but the knobs leaves the results wrong)
+  sass       (--sass) static SASS instructions per kernel by opcode
+             (cuobjdump -sass of the "full" copy)
+  ab         (--parent ROOT) ROOT's csrc/mha_bwd.cu (another checkout,
+             e.g. the parent unpacked by git archive into build/) built
+             beside this one's, both through rrt_mha_bwd on the same
+             inputs in the order parent, change, change, parent at the four
+             bf16 shapes and the f32 tp shape: each run's median device ms
+             and the mean of each side
 
 Exits non-zero if a check fails. Needs one NVIDIA Hopper GPU with nvcc.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-SRC = ROOT / "review_recommender_tpu_torch" / "csrc" / "mha_bwd.cu"
+CSRC = Path("review_recommender_tpu_torch") / "csrc" / "mha_bwd.cu"
+SRC = ROOT / CSRC
+OUT = ROOT / "build" / "attention_backward"
 
 
 def _chip_smoke():
@@ -62,32 +115,394 @@ CASES = ([("bfloat16", *s) for s in CS.TRAIN_SHAPES]
             ("float32", 2, 600, 4, 16), ("bfloat16", 2, 1, 2, 1), ("bfloat16", 3, 63, 2, 15),
             ("float16", 3, 129, 2, 17), ("bfloat16", 2, 600, 1, 31), ("float16", 2, 64, 2, 33),
             ("bfloat16", 2, 1024, 2, 127), ("float16", 2, 65, 1, 129), ("bfloat16", 2, 129, 1, 256),
-            ("float32", 3, 65, 2, 1), ("float32", 2, 129, 1, 256), ("float32", 2, 1024, 1, 33)])
+            ("float32", 3, 65, 2, 1), ("float32", 2, 129, 1, 256), ("float32", 2, 1024, 1, 33),
+            ("float32", 4, 200, 2, 128), ("float32", 2, 300, 3, 64)])
 TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
+DTYPE_CODE = {"bfloat16": 0, "float16": 1, "float32": 2}
+REPS, SPIN_CYCLES = 50, 200_000
 
 
-def registers() -> list:
-    from review_recommender_tpu_torch import kernels
-
-    out = ROOT / "build" / "attention_backward"
-    out.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-                           str(SRC), "-o", str(out / "mha_bwd.o")], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise SystemExit(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+def _ptxas_rows(log: str) -> list:
+    """Per kernel entry in nvcc -Xptxas -v output: registers, spills, stack
+    frame, shared memory; and ptxas's warnings about wgmma."""
     rows, name = [], None
-    for line in (proc.stdout + proc.stderr).splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and name:
-            rows.append({"kernel": name, "spill_stores": int(m.group(1)),
-                         "spill_loads": int(m.group(2))})
-        m = re.search(r"Used (\d+) registers", line)
-        if m and rows and name:
+            rows.append({"kernel": name})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and rows:
+            rows[-1].update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and rows:
             rows[-1]["registers"] = int(m.group(1))
+        if "wgmma" in line and ("warning" in line.lower() or "serialized" in line):
+            rows.append({"ptxas_warning": line.strip()})
     return rows
+
+
+SECTIONS = {"tc": ("// ---- the tensor-core route", "// ---- the 3xTF32 route"),
+            "tf32": ("// ---- the 3xTF32 route", "// ---- the FMA route"),
+            "launch_tc": ("cudaError_t launch_tc(", "cudaError_t launch_tf32(")}
+
+
+def _sub(text: str, old: str, new: str, section: str = None) -> str:
+    """text with `old` replaced by `new`, where `old` occurs once (in
+    SECTIONS[section] when given); raises if the source moved."""
+    lo, hi = 0, len(text)
+    if section:
+        lo, hi = text.index(SECTIONS[section][0]), text.index(SECTIONS[section][1])
+    part = text[lo:hi]
+    if part.count(old) != 1:
+        raise RuntimeError(f"{SRC.name} changed: {old!r} found {part.count(old)} times")
+    return text[:lo] + part.replace(old, new) + text[hi:]
+
+
+def _knob(old: str, new: str):
+    return lambda src: _sub(src, old, new)
+
+
+def _no_exp(src: str) -> str:
+    """ex2.approx replaced by its argument (results wrong)."""
+    return _sub(src, '  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));', "  y = x;")
+
+
+def _softmax_only(src: str) -> str:
+    src = _sub(src, "    wgmma_ss_bf16(d, da, db, acc);\n", "")
+    return _sub(src, "    wgmma_rs_bf16(d, a, db);\n", "")
+
+
+def _no_loads(src: str) -> str:
+    old, new = "    if (u + 1 < {}) load_step(u + 1);", "    if (u + 1 < 0) load_step(u + 1);"
+    return _sub(_sub(src, old.format("nsteps"), new, "tc"), old.format("ntiles"), new, "tc")
+
+
+def _a_only(src: str) -> str:
+    old = "  return launch_after(kb, grid, P::kBytesB, a.stream,"
+    return _sub(src, old, "  if (a.B > 0) return cudaGetLastError();\n" + old, "launch_tc")
+
+
+def _f32_no_lo(src: str) -> str:
+    """3xTF32 down to its hi*hi products (results less exact)."""
+    for old in ("wgmma_ss_tf32(x_lo, dal + 16 * j, db + 16 * j, j > 0);",
+                "wgmma_ss_tf32(x_lo, da + 16 * j, dbl + 16 * j, 1);",
+                "    wgmma_rs_tf32(acc_lo, a, db + 16 * j);",
+                "    wgmma_rs_tf32(acc_lo, a, dbl + 16 * j);"):
+        src = _sub(src, old, ";")
+    return src
+
+
+def _f32_no_split(src: str) -> str:
+    return _sub(src, "  for (int off = 16 * tid; off < kBytes; off += 16 * kThreads) {",
+                "  for (int off = 16 * tid; off < 0; off += 16 * kThreads) {")
+
+
+def _replace_n(src: str, old: str, new: str, n: int, section: str = "tf32") -> str:
+    """_sub for an `old` that occurs exactly n times in the section."""
+    lo, hi = src.index(SECTIONS[section][0]), src.index(SECTIONS[section][1])
+    if src[lo:hi].count(old) != n:
+        raise RuntimeError(f"{SRC.name} changed: {old!r} not found {n} times")
+    return src[:lo] + src[lo:hi].replace(old, new) + src[hi:]
+
+
+def _f32_no_loads(src: str) -> str:
+    return _replace_n(src, "    if (u + 1 < ntiles) load_step(u + 1);",
+                      "    if (u + 1 < 0) load_step(u + 1);", 2)
+
+
+def _f32_roll(src: str) -> str:
+    old = "#pragma unroll\n  for (int j = 0; j < DP / 8; ++j) wgmma_ss_tf32("
+    return _replace_n(src, old, old.replace("unroll", "unroll 1"), 3)
+
+
+PROF_PHASES = ["wait_barrier", "copies", "split", "fence_barrier", "products_issue", "rest",
+               "wait_s"]
+
+
+def _f32_prof(src: str) -> str:
+    """The f32 kernels with clock64 stamps: per phase of a step, cycles
+    summed over the steps of thread 0 of every CTA, added into g_prof
+    (kernel A at 0, B at 16; the CTA count at 8 and 24), read by
+    rrt_prof_read and cleared by rrt_prof_reset."""
+    def tick(i):
+        return f"    {{ const long long n_ = clock64(); pf[{i}] += n_ - pt; pt = n_; }}\n"
+
+    def flush(at):
+        return ("  if (threadIdx.x == 0) {\n    for (int i_ = 0; i_ < 8; ++i_)\n"
+                f"      atomicAdd(&g_prof[{at} + i_], (unsigned long long)pf[i_]);\n"
+                f"    atomicAdd(&g_prof[{at} + 8], 1ull);\n  }}\n")
+
+    def mark(src, anchor, before="", after=""):
+        return _sub(src, anchor, before + anchor + after, "tf32")
+
+    decl = "  long long pf[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n  long long pt = clock64();\n"
+    src = _sub(src, "namespace {\n",
+               "__device__ unsigned long long g_prof[32];\n"
+               'extern "C" int rrt_prof_read(void* out) {\n'
+               "  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));\n}\n"
+               'extern "C" int rrt_prof_reset() {\n  unsigned long long z[32] = {};\n'
+               "  return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));\n}\n\nnamespace {\n")
+    wait_bar = "    cp_async_wait<0>();\n    fence_async_smem();\n    __syncthreads();"
+    # kernel A
+    src = mark(src, "  allow_dependent_launch();\n", after=decl)
+    src = mark(src, wait_bar + "  // tile u is in; every thread is done with tile u - 1\n",
+               before=tick(5), after=tick(0))
+    src = mark(src, "    if (u + 1 < ntiles) load_step(u + 1);\n    cp_async_commit();\n"
+               "    const int st_off = P::kStage0 + (u % kRingTf32) * P::kStageA;\n", after=tick(1))
+    src = mark(src, "    fence_async_smem();\n    __syncthreads();  // hi and lo of this tile are stored\n",
+               before=tick(2), after=tick(3))
+    src = mark(src, "base + st_off + P::kTile, base + kVlo);\n    wgmma_commit();\n", after=tick(4))
+    src = mark(src, "    wgmma_wait<1>();\n    fence_regs(s);\n    fence_regs(s_lo);\n\n    // logits",
+               before=tick(6))
+    src = mark(src, "  // the row sums, Delta = sum_k P dP, and dQ", before=tick(5) + flush(0))
+    # kernel B
+    src = mark(src, "acc_v[i] = acc_v_lo[i] = acc_k[i] = acc_k_lo[i] = 0.f;\n", after=decl)
+    load_b = ("\n    if (u + 1 < ntiles) load_step(u + 1);\n    cp_async_commit();\n"
+              "    const int st_off = P::kStage0 + (u % kRingTf32) * P::kStageB;\n")
+    src = mark(src, wait_bar + load_b, before=tick(5), after=tick(1))
+    src = _sub(src, wait_bar + load_b, wait_bar + "\n" + tick(0) + load_b[1:], "tf32")
+    split_b = "                                 tid);\n"
+    src = mark(src, split_b + "    fence_async_smem();\n    __syncthreads();\n", after=tick(3))
+    src = mark(src, split_b, after=tick(2))
+    src = mark(src, "base + kOlo);\n    wgmma_commit();\n", after=tick(4))
+    src = mark(src, "    fence_regs(s);\n    fence_regs(s_lo);\n    // P^T, each query column",
+               before=tick(6))
+    return mark(src, "  // dK = (acc_k + acc_k_lo) * scale,", before=tick(5) + flush(16))
+
+
+def _no_overlap(src: str) -> str:
+    """bf16: kernel A waits on dP before its work on S, kernel B on both
+    halves' products before the first half's work."""
+    src = _sub(src, "    wgmma_wait<1>();  // S; dP stays in flight", "    wgmma_wait<0>();", "tc")
+    old = "      // previous half's dV and dK products (hf = 1)\n      wgmma_wait<1>();"
+    return _sub(src, old, old.replace("<1>", "<0>"), "tc")
+
+
+EDITS = {
+    "f32_prof": _f32_prof,
+    "no_overlap": _no_overlap,
+    "min1": _knob("constexpr int kMinBlocksA = DP <= 64 ? 4 : 1;", "constexpr int kMinBlocksA = 1;"),
+    "a_min5": _knob("constexpr int kMinBlocksA = DP <= 64 ? 4 : 1;",
+                    "constexpr int kMinBlocksA = DP <= 32 ? 5 : DP <= 64 ? 4 : 1;"),
+    "b_min5": _knob("constexpr int kMinBlocksB = DP <= 32 ? 4 : 1;",
+                    "constexpr int kMinBlocksB = DP <= 32 ? 5 : 1;"),
+    "b_min1": _knob("constexpr int kMinBlocksB = DP <= 32 ? 4 : 1;",
+                    "constexpr int kMinBlocksB = 1;"),
+    "no_pdl": _knob("  cfg.numAttrs = 1;", "  cfg.numAttrs = 0;"),
+    "no_exp": _no_exp, "softmax_only": _softmax_only, "no_loads": _no_loads, "a_only": _a_only,
+    "f32_a_min1": _knob("constexpr int kMinBlocksTf32A = DP <= 32 ? 3 : 1;",
+                        "constexpr int kMinBlocksTf32A = 1;"),
+    "f32_b_min4": _knob("constexpr int kMinBlocksTf32B = DP <= 32 ? 3 : 1;",
+                        "constexpr int kMinBlocksTf32B = DP <= 32 ? 4 : 1;"),
+    "f32_a_bt16": _knob("constexpr int kBtA = DP <= 32 ? 32 : 16;",
+                        "constexpr int kBtA = DP == 16 ? 32 : 16;"),
+    "f32_b_bt32": _knob("constexpr int kBtB = DP == 16 ? 32 : 16;",
+                        "constexpr int kBtB = DP <= 32 ? 32 : 16;"),
+    "f32_roll": _f32_roll,
+    "f32_lo_trunc": lambda src: _sub(src, "      l[e] = tf32_rna(x[e] - __uint_as_float(h[e]));",
+                                     "      l[e] = __float_as_uint(x[e] - __uint_as_float(h[e]));"),
+    "f32_no_lo": _f32_no_lo, "f32_no_split": _f32_no_split, "f32_no_loads": _f32_no_loads,
+}
+BREAKDOWN = ["no_overlap", "no_pdl", "no_exp", "softmax_only", "no_loads", "a_only",
+             "f32_no_lo", "f32_no_split", "f32_no_loads"]
+
+
+def variants(src: str, names: list) -> dict:
+    """The breakdown's copies of mha_bwd.cu: each name is "full" or edits
+    joined by "+" (e.g. "no_overlap+a_only")."""
+    out = {}
+    for name in names:
+        text = src
+        if name != "full":
+            for edit in name.split("+"):
+                text = EDITS[edit](text)
+        out[name] = text
+    return out
+
+
+def sass_counts(lib_path: Path) -> dict:
+    """Static SASS instructions per kernel of a built library, by opcode
+    class (cuobjdump -sass)."""
+    from review_recommender_tpu_torch import kernels
+
+    tool = Path(kernels.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"(mha_bwd_\w+?kernel)I(\w*?)Li(\d+)E", m.group(1))
+            name = f"{k.group(1)} {k.group(2)[-6:]} DP={k.group(3)}" if k else None
+            if name:
+                counts[name] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and name:
+            op = m.group(1)
+            counts[name][op] = counts[name].get(op, 0) + 1
+    return counts
+
+
+def build(texts: dict) -> dict:
+    """One nvcc per copy, all started together, each into its own library
+    under OUT; returns (ctypes library, ptxas rows) by name."""
+    from review_recommender_tpu_torch import kernels
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
+        cu.write_text(text)
+        procs[name] = subprocess.Popen(
+            [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", str(so),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.rrt_mha_bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P]
+        lib.rrt_mha_bwd.restype = I
+        out[name] = (lib, _ptxas_rows(log))
+    return out
+
+
+def _launch(torch, lib, q, k, v, bias, g, h):
+    """(dq, dk, dv) from one library's rrt_mha_bwd, as ops/attention.py's
+    _launch_bwd calls it."""
+    b, s, hd = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    ws = torch.empty(3 * b * h * s, dtype=torch.float32, device=q.device)
+    err = lib.rrt_mha_bwd(DTYPE_CODE[str(q.dtype).split(".")[1]], q.data_ptr(), k.data_ptr(),
+                          v.data_ptr(), bias.data_ptr(), g.data_ptr(), dq.data_ptr(),
+                          dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), b, s, h, hd // h,
+                          torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"rrt_mha_bwd: cudaError {err}")
+    return dq, dk, dv
+
+
+def _timing_inputs(torch, i, b, s, h, d, dtype):
+    """_training_kernel_rows' inputs for its i-th shape: seeded normal q,
+    k, v and upstream gradient, random key lengths."""
+    rng = np.random.default_rng(300 + i)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(np.float32))
+                  .to("cuda", dtype) for _ in range(4))
+    lens = rng.integers(1, s + 1, size=b)
+    bias = torch.from_numpy(np.where(np.arange(s)[None, :] < lens[:, None], 0.0, -1e30)
+                            .astype(np.float32)).to("cuda")
+    return q, k, v, bias, g
+
+
+def _device_ms(torch, fn) -> float:
+    for _ in range(3):
+        fn()
+    return CS._median_ms(torch, fn, REPS, before=lambda: torch.cuda._sleep(SPIN_CYCLES))
+
+
+def _timed_shapes(torch):
+    """(name, shape, inputs): the trainers' four bf16 shapes (seeds of
+    phase 15's rows) and the f32 tp shard's (phase 19's f32 row)."""
+    rows = [("bfloat16", shape, _timing_inputs(torch, i, *shape, torch.bfloat16))
+            for i, shape in enumerate(CS.TRAIN_SHAPES)]
+    f32 = CS.MESH_SHAPES[0]
+    return rows + [("float32", f32, _timing_inputs(torch, 0, *f32, torch.float32))]
+
+
+def _kernel_us(torch, fn, n=20) -> dict:
+    """Device µs a call of each csrc/mha_bwd.cu kernel fn launches, from a
+    torch.profiler window of n calls (the kernels' own durations: no host
+    gap between launches counts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        m = re.search(r"(mha_bwd_\w*?kernel)", e.key)
+        if t and m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + t / n
+    return out
+
+
+def _host_us(torch, fn, n=50) -> float:
+    """Host µs a call takes to enqueue, over n calls ended by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def _prof_cycles(torch, lib, fn, n=20) -> dict:
+    """An f32_prof copy's clock64 phases: cycles a CTA of each kernel spends
+    in each phase, summed over its steps, averaged over the CTAs of n calls."""
+    lib.rrt_prof_reset.restype = lib.rrt_prof_read.restype = ctypes.c_int
+    lib.rrt_prof_read.argtypes = [ctypes.c_void_p]
+    torch.cuda.synchronize()
+    lib.rrt_prof_reset()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * 32)()
+    lib.rrt_prof_read(buf)
+    out = {}
+    for kern, at in (("A", 0), ("B", 16)):
+        ctas = max(1, buf[at + 8])
+        out[kern] = {ph: buf[at + i] / ctas for i, ph in enumerate(PROF_PHASES)}
+        out[kern]["ctas"] = ctas
+    return out
+
+
+def breakdown(torch, libs: dict) -> None:
+    """Each copy at the shapes of its dtype ("f32" copies at the f32 tp
+    shape, the others at the four bf16 shapes, "full" at all five): device
+    ms behind a spin, each kernel's device µs from the profiler, host µs."""
+    for name, shape, (q, k, v, bias, g) in _timed_shapes(torch):
+        for variant, (lib, _rows) in libs.items():
+            if variant not in ("full", "parent") and ("f32" in variant) != (name == "float32"):
+                continue
+            fn = lambda lib=lib: _launch(torch, lib, q, k, v, bias, g, shape[2])
+            print(json.dumps({"breakdown": variant, "dtype": name, "B": shape[0], "S": shape[1],
+                              "H": shape[2], "D": shape[3], "device_ms": _device_ms(torch, fn),
+                              "kernel_us": _kernel_us(torch, fn), "host_us": _host_us(torch, fn),
+                              "reps": REPS}), flush=True)
+            if "prof" in variant:
+                print(json.dumps({"prof": variant, "D": shape[3], **_prof_cycles(torch, lib, fn)}),
+                      flush=True)
+
+
+def ab(torch, parent, change) -> None:
+    """parent, change, change, parent at each timed shape; the gradients of
+    both held to each other (bit-equal is not expected across designs)."""
+    for name, shape, (q, k, v, bias, g) in _timed_shapes(torch):
+        h = shape[2]
+        times = {}
+        for side, lib in (("parent", parent), ("change", change), ("change", change),
+                          ("parent", parent)):
+            times.setdefault(side, []).append(
+                _device_ms(torch, lambda lib=lib: _launch(torch, lib, q, k, v, bias, g, h)))
+        a, b = _launch(torch, parent, q, k, v, bias, g, h), _launch(torch, change, q, k, v, bias, g, h)
+        diff = max(float((x.float() - y.float()).abs().max()) / max(1.0, float(x.float().abs().max()))
+                   for x, y in zip(a, b))
+        print(json.dumps({"ab": name, "B": shape[0], "S": shape[1], "H": h, "D": shape[3],
+                          "parent_ms": times["parent"], "change_ms": times["change"],
+                          "parent_mean_ms": float(np.mean(times["parent"])),
+                          "change_mean_ms": float(np.mean(times["change"])),
+                          "change_over_parent": float(np.mean(times["change"]) / np.mean(times["parent"])),
+                          "grads_diff_over_max": diff, "reps": REPS}), flush=True)
 
 
 def _inputs(torch, seed, b, s, h, d, dtype):
@@ -113,7 +528,7 @@ def check(torch, case) -> dict:
     dtype = getattr(torch, name)
     q, k, v, bias, g = _inputs(torch, b * s + d, b, s, h, d, dtype)
     route = A.backward_route(dtype, d, s)
-    counter = "mha_backward_kernel_launches" if route == "wgmma" else "mha_backward_fma_launches"
+    counter = A.BACKWARD_COUNTERS[route]
     before = getattr(A, counter)
     got = A._launch_bwd(q, k, v, bias, g, h)
     again = A._launch_bwd(q, k, v, bias, g, h)
@@ -163,6 +578,10 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-time", action="store_true", help="checks only")
+    ap.add_argument("--breakdown", nargs="?", const=",".join(BREAKDOWN), default=None,
+                    help="time these copies (comma-separated; default: %(const)s)")
+    ap.add_argument("--parent", type=Path, help="root of a checkout to A/B against")
+    ap.add_argument("--sass", action="store_true", help="SASS opcode counts per kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -171,8 +590,26 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output", flush=True)
-    for row in registers():
+    src = SRC.read_text()
+    texts = variants(src, ["full"] + (args.breakdown.split(",") if args.breakdown else []))
+    if args.parent:
+        texts["parent"] = (args.parent / CSRC).read_text()
+    libs = build(texts)
+    if args.sass:
+        for name, ops in sass_counts(OUT / "full.so").items():
+            if "fma" not in name:
+                print(json.dumps({"sass": name, "total": sum(ops.values()),
+                                  **dict(sorted(ops.items(), key=lambda kv: -kv[1]))}), flush=True)
+    for row in libs["full"][1]:
         print(json.dumps({"registers": row}), flush=True)
+    for name, (_lib, rows) in libs.items():  # each copy's tensor-core kernels, compactly
+        brief = {}
+        for r in rows:
+            m = re.search(r"(mha_bwd_\w+?kernel)I(\w*?)Li(\d+)E", r.get("kernel", ""))
+            if m:
+                brief[f"{m.group(1)} {m.group(2)[-6:]} DP={m.group(3)}"] = [
+                    r.get("registers"), r.get("spill_stores")]
+        print(json.dumps({"variant_registers": name, **brief}), flush=True)
     failed = 0
     for case in CASES:
         row = check(torch, case)
@@ -180,8 +617,14 @@ def main() -> int:
         print(json.dumps({"check": row}), flush=True)
     for row in delta_rows(torch):
         print(json.dumps({"delta": row}), flush=True)
+    if args.parent:
+        ab(torch, libs["parent"][0], libs["full"][0])
+    if args.breakdown:
+        breakdown(torch, libs)
     if not args.no_time:
         for row in CS._training_kernel_rows(torch):
+            print(json.dumps({"time": row}), flush=True)
+        for row in CS._training_kernel_rows(torch, CS.MESH_SHAPES[:1], torch.float32):
             print(json.dumps({"time": row}), flush=True)
     print(json.dumps({"failed_checks": failed}), flush=True)
     return 1 if failed else 0

@@ -28,57 +28,97 @@
 //
 // Two kernels a call, deterministic (no atomics), in the order A, B on one
 // stream; a workspace of 3 * B * H * S floats carries each query row's m,
-// 1/l (f32 route: l) and Delta from A to B.
+// 1/l and Delta from A to B.
 //   A (per (b, h, 64 query rows)): pass 1 over the key tiles computes S
-//     and dP and keeps the running row max, the row sum of e = exp(s - m)
-//     and the row sum of e * dP, both rescaled by exp(m_old - m_new) when
+//     and dP and keeps the running row max, the row sum of e = 2^(s - m)
+//     and the row sum of e * dP, both rescaled by 2^(m_old - m_new) when
 //     the max moves (Delta = the second over the first); pass 2 computes S,
 //     P, dP and dS again per key tile and dQ += dS K. Writes dQ and the row
 //     statistics.
 //   B (per (b, h, 64 key rows)): walks the query tiles with their stored
 //     statistics: S^T = K Q^T, P^T, dV += round_T(P^T) dO, dP^T = V dO^T,
 //     dS^T, dK += dS^T Q. Writes dK and dV.
-// The two kernels take nine products of the forward's size between them
-// (A's pass 1 computes Q K^T and dO V^T for the statistics), 18 * B*H*S*S*D
-// operations against the 10 * B*H*S*S*D of the five products the backward
-// needs.
+// Kernel B is a programmatic dependent launch (launch_after): its CTAs
+// start as kernel A's last ones finish, load (f32: and split) their K and
+// V rows, and wait (griddepcontrol.wait) only before they read kernel A's
+// statistics.
 //
 // What bounds it on an H100 SXM (published peaks at 700 W), at the
 // cross-encoder trainer's shape (B=32, S=256, H=12, D=32, bf16): q, k, v,
 // dout read and dq, dk, dv written once, 44.0 MB at 3.35 TB/s, 13 us;
-// the five products, 8.1 GFLOP at 989 TFLOP/s, 8.1 us; this design's
-// exponentials, 3 * B*H*S*S = 75 M at 16 per SM per clock (4.2 T/s), 18
-// us. At D = 32 the exponentials and the softmax's elementwise work in
-// registers are the floor, not the tensor cores.
+// the five products the backward needs, 8.1 GFLOP at 989 TFLOP/s, 8.1 us
+// (the two kernels take nine); this design's exponentials, 3 * B*H*S*S =
+// 75 M at 16 per SM per clock (4.2 T/s), 18 us. At D = 32 no unit is near
+// its peak: each CTA walks 2-16 tiles one after another and 3-4 CTAs an SM
+// hide each other's latencies (examples/torch_attention_backward.py's
+// breakdown: taking out the products, the exponentials or the next tile's
+// copies each saves 5-20%, and the f32 kernels' clock64 phases put 40-50%
+// of a step in the copies and the hi/lo split, 13-21% in issuing the
+// products). So the design keeps each kernel at the registers that fit
+// 3-4 CTAs an SM (kMinBlocksA / B, kMinBlocksTf32A / B), overlaps softmax
+// work with products only where that costs no registers, and starts kernel
+// B during kernel A's tail.
 //
 // Tensor-core route, bf16/f16 at D <= 128 (mha_bwd_dq_kernel,
 // mha_bwd_dkv_kernel): one CTA of one warpgroup, 64 rows, tiles of 64 in
 // shared memory in wgmma's canonical no-swizzle layout with columns padded
-// from D to DP in {16, 32, 64, 128} (zeroed once, never written again), a
+// from D to DP in {16, 32, 64, 128} (zeroed once where D < DP), a
 // 2-stage ring filled by cp.async in the widest granule the pointers allow,
 // as mha_generic.cu's mha_tc_kernel. Every tile serves as a K-major operand
-// (S = Q K^T, dP = dO V^T: wgmma m64n64k16, both operands from shared
+// (S = Q K^T, dP = dO V^T: wgmma m64nNk16, both operands from shared
 // memory) and through the transpose bit as an N-major one (dQ += dS K,
 // dV += P^T dO, dK += dS^T Q: wgmma m64nDPk16 with the left operand, P or
 // dS rounded to T, straight from the S / dP accumulators in registers).
+// The products of a tile are issued so that softmax work runs while the
+// tensor cores do: kernel A commits S apart from dP and works on S (the
+// row max, the exponentials) while dP is in flight; kernel B issues each
+// query tile as two halves of 32 queries, a commit group each, the second
+// half's S^T and dP^T in flight during the first half's work, and each
+// half's dV and dK products in flight during the next half's work.
 // Logits are in log2 units as in the forward (one FMA with scale*log2(e)
 // and bias*log2(e), ex2.approx, a multiply by 1/l): an f32 probability
 // moves by an ulp or two. dS is rounded to T for the tensor cores (one
 // rounding of a product's operand that the f32 plain version does not
-// make); the scale is applied to dQ and dK in f32 at the end.
-// Kernel B's row statistics for query rows >= S are m = +inf and 1/l = 0,
-// so zero-filled Q and dO rows give P = 0 and add nothing to dK or dV.
+// make); the scale is applied to dQ and dK in f32 at the end. Kernel B's
+// row statistics for query rows >= S are m = +inf and 1/l = 0, so
+// zero-filled Q and dO rows give P = 0 and add nothing to dK or dV.
 //
-// FMA route, f32 at any D and bf16/f16 at D 129-256 (mha_bwd_dq_fma_kernel,
-// mha_bwd_dkv_fma_kernel): the same two kernels on the CUDA cores in full
-// f32 FMA (no TF32), as mha_generic.cu's mha_fma_kernel: 128 threads as 16
-// x 8, 64 rows a CTA (32 at D > 128) against tiles of 32, synchronous loads
-// converted to f32 in shared memory at DP in {32, 64, 128, 256}; the
-// plain version's op order for the logits ((q . k) * scale, then + bias,
-// each rounded), expf and IEEE divisions; dS * scale in f32 before its
-// products, as autograd applies it.
+// 3xTF32 route, f32 at D <= 128 (mha_bwd_dq_tf32_kernel,
+// mha_bwd_dkv_tf32_kernel): the two kernels on wgmma, kernel A in one
+// pass over the keys (dQ by linearity, at the kernel), with each f32
+// product taken as three TF32 ones, as mha_generic.cu's f32 route: every
+// operand x split as hi = tf32(x) and lo = tf32(x - hi), both rounded to
+// nearest with ties away from zero (lo by cvt.rna; hi by adding half the
+// dropped bits' weight and clearing them, which is cvt.rna's result for
+// every x but a NaN, whose lo is then a NaN), a product as lo*hi + hi*lo
+// (in accumulators of their own) + hi*hi, the lo*lo term (2^-22 of the
+// product) dropped. TF32 wgmma reads both operands K-major (there is no
+// transpose bit), so the N-major operands of the gradient products (K in
+// kernel A, Q and dO in kernel B) are staged transposed: the split of a
+// landed row tile writes its hi and lo a second time, transposed, in the
+// key order the S accumulators hand their columns to the A registers of a
+// tf32 product (split_rows, tf32_frags). Streamed tiles of 32 keys
+// (kernel A) or 16 queries (kernel B, whose four dK / dV accumulators leave
+// fewer registers; 32 at DP = 16), dK and dV columns in chunks of 64 a CTA
+// above DP = 64 (the accumulators' registers), hi in place and one work
+// area for the lo halves and the transposed tiles, so that each kernel
+// keeps 3 CTAs an SM at DP = 32. Logits in log2 units with ex2.approx and a
+// multiply by 1/l, as the 16-bit route (an f32 probability moves by an ulp
+// or two; the gradients stay within 1e-4 of max(1, max |ref|) of the plain
+// version, 2.6e-6 in the example's checks); dP and P are not rounded (f32
+// is the input type); the scale is applied to dQ and dK at the end.
 //
-// Semantics, both routes:
+// FMA route, D 129-256 in every dtype (mha_bwd_dq_fma_kernel,
+// mha_bwd_dkv_fma_kernel): O-sized accumulators of 64 rows x 256 columns
+// would not fit a warpgroup's registers beside S and P, so these widths run
+// the same two kernels on the CUDA cores in full f32 FMA (no TF32), as
+// mha_generic.cu's mha_fma_kernel: 128 threads as 16 x 8, 32 rows a CTA
+// against tiles of 32, synchronous loads converted to f32 in shared memory;
+// the plain version's op order for the logits ((q . k) * scale, then +
+// bias, each rounded), expf and IEEE divisions; dS * scale in f32 before
+// its products, as autograd applies it.
+//
+// Semantics, every route:
 //   - an all-masked row (every bias -1e30) has equal logits, P = 1/S over
 //     the S real keys (m = -1e30, l = S), and its gradients flow uniformly;
 //   - keys from S to the tile edge get logit -inf, P = 0 and zero K and V
@@ -100,7 +140,7 @@ namespace {
 
 constexpr int kThreads = 128;  // one warpgroup
 constexpr int kRows = 64;      // rows a CTA and a tile on the tensor-core route: wgmma's M and N
-constexpr int kStages = 2;     // tile ring
+constexpr int kStages = 2;     // tile ring of the 16-bit route
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxHeadDim = 256;
 
@@ -170,8 +210,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N of the warpgroup's committed product groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Pin register operands of an asynchronous wgmma in program order around
@@ -190,6 +232,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero;
+// the low 13 bits of the result are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
   return y;
 }
 
@@ -233,6 +283,30 @@ __device__ __forceinline__ void wgmma_ss_f16(float (&d)[32], uint64_t da, uint64
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// SS at N = 32: one half of a 64-row tile.
+
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_f16(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -357,6 +431,72 @@ __device__ __forceinline__ void wgmma_rs_f16(float (&d)[64], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// ---- wgmma wrappers, tf32 with f32 accumulators (k8; both operands
+// K-major: tf32 has no transpose bit) ----
+
+// SS, S = Q K^T, dP = dO V^T and their transposes, N = the streamed tile's rows.
+
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// RS, dQ += dS K, dV += P^T dO, dK += dS^T Q: A from registers, B the
+// transposed tile (K^T, dO^T, Q^T) K-major, N = the gradient columns.
+
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // qk: the SS products; pv: the RS products; pack: two f32 into the A
 // registers' two 16-bit halves.
 template <typename T>
@@ -364,7 +504,8 @@ struct Mma;
 
 template <>
 struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void qk(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  template <int N>
+  static __device__ __forceinline__ void qk(float (&d)[N], uint64_t da, uint64_t db, int acc) {
     wgmma_ss_bf16(d, da, db, acc);
   }
   template <int N>
@@ -379,7 +520,8 @@ struct Mma<__nv_bfloat16> {
 
 template <>
 struct Mma<__half> {
-  static __device__ __forceinline__ void qk(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  template <int N>
+  static __device__ __forceinline__ void qk(float (&d)[N], uint64_t da, uint64_t db, int acc) {
     wgmma_ss_f16(d, da, db, acc);
   }
   template <int N>
@@ -497,14 +639,25 @@ __device__ __forceinline__ float row_sum(float x) {
 
 // ---- the tensor-core route: bf16/f16 at D <= 128 ----
 
+// Each kernel's resident CTAs an SM by head width, chosen from the
+// breakdown (examples/torch_attention_backward.py): a register cap where it
+// pays (ptxas given no minimum raises kernel B to 178 registers at DP = 32,
+// 2 CTAs an SM, while at DP = 64 its 187 registers ran faster than a cap).
+template <int DP>
+constexpr int kMinBlocksA = DP <= 64 ? 4 : 1;
+template <int DP>
+constexpr int kMinBlocksB = DP <= 32 ? 4 : 1;
+
 // Shared-memory plan at padded head width DP. A tile of 64 rows x DP
 // columns is 8 groups of kGroup bytes; row r, 16-byte chunk c at
-// (r / 8) * kGroup + c * 128 + (r % 8) * 16. Kernel A: Q | dO | kStages x
-// (K, V, the tile's 64 key biases); kernel B: K | V | kStages x (Q, dO, the
-// tile's 64 m, 1/l and Delta).
+// (r / 8) * kGroup + c * 128 + (r % 8) * 16; rows 32..63 (the second half)
+// start 4 groups in. Kernel A: Q | dO | kStages x (K, V, the tile's 64 key
+// biases); kernel B: K | V | kStages x (Q, dO, the tile's 64 m, 1/l and
+// Delta).
 template <typename T, int DP>
 struct BwdPlan {
   static constexpr int kGroup = 8 * DP * sizeof(T);
+  static constexpr int kHalf = 4 * kGroup;  // rows 32..63 of a tile
   static constexpr int kTile = kRows * DP * sizeof(T);
   static constexpr int kStage0 = 2 * kTile;
   static constexpr int kStageA = 2 * kTile + kRows * 4;
@@ -514,13 +667,14 @@ struct BwdPlan {
   static_assert(kTile % 2048 == 0 && kStageA % 128 == 0 && kStageB % 128 == 0, "tile alignment");
 };
 
-// A query tile's row statistics into shared memory: m, 1/l and Delta of
-// rows [q0, q0 + 64) from the workspace (at `stats`, `bhs` floats apart);
-// rows >= S get m = +inf, 1/l = 0 and Delta = 0 (P = 0).
+// A tile's row statistics into shared memory: m, 1/l and Delta of rows
+// [q0, q0 + R) from the workspace (at `stats`, `bhs` floats apart); rows >=
+// S get m = +inf, 1/l = 0 and Delta = 0, so that P = 0.
+template <int R>
 __device__ __forceinline__ void load_stats(uint32_t dst, const float* stats, long long bhs,
                                            int q0, int S, int tid) {
-  for (int j = tid; j < 3 * kRows; j += kThreads) {
-    const int which = j / kRows, row = q0 + j % kRows;
+  for (int j = tid; j < 3 * R; j += kThreads) {
+    const int which = j / R, row = q0 + j % R;
     if (row < S) {
       cp_async<4>(dst + 4 * j, stats + which * bhs + row, 4);
     } else {
@@ -530,13 +684,25 @@ __device__ __forceinline__ void load_stats(uint32_t dst, const float* stats, lon
   }
 }
 
+// Kernel B launches while kernel A finishes (programmatic dependent launch,
+// launch_after): kernel A lets it in at its start, and kernel B waits here,
+// before its first read of the row statistics, for kernel A's grid to
+// complete and its writes to be visible. Launched in the ordinary way,
+// both are no-ops.
+__device__ __forceinline__ void allow_dependent_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // Kernel A: dQ and the row statistics of 64 query rows of one (b, h).
 // Accumulator layout of wgmma m64nN (f32), per thread of the warpgroup:
 // warp w holds rows 16w..16w+15; with g = lane/4 and c = lane%4, element
 // 4i+0/4i+1 is (row g, columns 8i+2c, 8i+2c+1) and 4i+2/4i+3 the same
 // columns of row g+8.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocksA<DP>)
 mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const float* __restrict__ key_bias, const T* __restrict__ dout,
                   T* __restrict__ dq, float* __restrict__ ws, int S, int H, int D, int gran,
@@ -544,6 +710,7 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   using P = BwdPlan<T, DP>;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
+  allow_dependent_launch();
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -556,9 +723,11 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int ntiles = (S + kRows - 1) / kRows;
   const int nsteps = 2 * ntiles;  // pass 1, pass 2: K and V each
 
-  for (int i = tid; i < P::kBytesA / 16; i += kThreads)
-    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
-  __syncthreads();
+  if (D < DP) {  // the pad columns, zeroed once (copies fill the rest)
+    for (int i = tid; i < P::kBytesA / 16; i += kThreads)
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
 
   auto load_step = [&](int u) {
     const uint32_t st = base + P::kStage0 + (u % kStages) * P::kStageA;
@@ -578,117 +747,127 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   // rows g and g+8: max, sum of e, sum of e * dP (then Delta), 1/l
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, dl0 = 0.f, dl1 = 0.f;
   float i0 = 0.f, i1 = 0.f;
+  // wgmma descriptors of Q and dO; a descriptor's address field is the
+  // byte address / 16, so an offset of n bytes adds n / 16
+  const uint64_t dq_ = smem_desc(base, 128, P::kGroup);
+  const uint64_t do_ = smem_desc(base + P::kTile, 128, P::kGroup);
 
-  for (int u = 0; u < nsteps; ++u) {
+  // Step u: its tile in, the next one's copies issued; S = Q K^T, then
+  // dP = dO V^T, a commit group each, so that the work on S runs while dP
+  // is in flight. Returns the stage's offset.
+  auto begin_step = [&](int u, float (&s)[32], float (&dp)[32]) {
     cp_async_wait<0>();
     fence_async_smem();
     __syncthreads();  // step u's tile is in; every thread is done with step u - 1
     if (u + 1 < nsteps) load_step(u + 1);
     cp_async_commit();
     const int st_off = P::kStage0 + (u % kStages) * P::kStageA;
-    const uint32_t kt = base + st_off, vt = kt + P::kTile;
-    const float* bt = reinterpret_cast<const float*>(smem + st_off + 2 * P::kTile);
-    const bool pass2 = u >= ntiles;
-
-    // S = Q K^T and dP = dO V^T, dP rounded to T
-    float s[32], dp[32];
+    const uint64_t dk = smem_desc(base + st_off, 128, P::kGroup);
+    const uint64_t dv = smem_desc(base + st_off + P::kTile, 128, P::kGroup);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < DP / 16; ++j)
-      Mma<T>::qk(s, smem_desc(base + 256 * j, 128, P::kGroup), smem_desc(kt + 256 * j, 128, P::kGroup),
-                 j > 0);
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j)
-      Mma<T>::qk(dp, smem_desc(base + P::kTile + 256 * j, 128, P::kGroup),
-                 smem_desc(vt + 256 * j, 128, P::kGroup), j > 0);
+    for (int j = 0; j < DP / 16; ++j) Mma<T>::qk(s, dq_ + 16 * j, dk + 16 * j, j > 0);
     wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-    fence_regs(dp);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dp[i] = to_f32(from_f32<T>(dp[i]));
-
-    // logits in log2 units: (q . k) * scale*log2(e) + bias*log2(e)
+    for (int j = 0; j < DP / 16; ++j) Mma<T>::qk(dp, do_ + 16 * j, dv + 16 * j, j > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S; dP stays in flight
+    fence_regs(s);
+    return st_off;
+  };
+  // logits in log2 units, (q . k) * scale*log2(e) + bias*log2(e), in
+  // registers of their own (a product's accumulators are written by
+  // nothing else)
+  auto logits = [&](const float (&s)[32], const float* bt, float (&x)[32]) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * i + 2 * c);
       const float b0 = bb.x * kLog2e, b1 = bb.y * kLog2e;
-      s[4 * i + 0] = fmaf(s[4 * i + 0], scale, b0);
-      s[4 * i + 1] = fmaf(s[4 * i + 1], scale, b1);
-      s[4 * i + 2] = fmaf(s[4 * i + 2], scale, b0);
-      s[4 * i + 3] = fmaf(s[4 * i + 3], scale, b1);
+      x[4 * i + 0] = fmaf(s[4 * i + 0], scale, b0);
+      x[4 * i + 1] = fmaf(s[4 * i + 1], scale, b1);
+      x[4 * i + 2] = fmaf(s[4 * i + 2], scale, b0);
+      x[4 * i + 3] = fmaf(s[4 * i + 3], scale, b1);
     }
+  };
 
-    if (!pass2) {
-      // running row max, sum of e and sum of e * dP; tile 0 holds key 0
-      // (finite bias), so the max is finite and 2^(-inf - mx) = 0 clears
-      // the empty sums
-      float mx0 = m0, mx1 = m1;
+  // pass 1: the running row max, sum of e and sum of e * dP; tile 0 holds
+  // key 0 (finite bias), so the max is finite and 2^(-inf - mx) = 0 clears
+  // the empty sums
+  for (int u = 0; u < ntiles; ++u) {
+    float s[32], dp[32], x[32];
+    const int st_off = begin_step(u, s, dp);
+    logits(s, reinterpret_cast<const float*>(smem + st_off + 2 * P::kTile), x);
+    float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        mx0 = fmaxf(mx0, fmaxf(s[4 * i + 0], s[4 * i + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
-      }
-      mx0 = quad_max(mx0);
-      mx1 = quad_max(mx1);
-      const float a0 = ex2_approx(m0 - mx0), a1 = ex2_approx(m1 - mx1);
-      l0 *= a0;
-      dl0 *= a0;
-      l1 *= a1;
-      dl1 *= a1;
-      m0 = mx0;
-      m1 = mx1;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = ex2_approx(s[4 * i + e] - (e < 2 ? m0 : m1));
-          if (e < 2) {
-            l0 += x;
-            dl0 = fmaf(x, dp[4 * i + e], dl0);
-          } else {
-            l1 += x;
-            dl1 = fmaf(x, dp[4 * i + e], dl1);
-          }
-        }
-      if (u == ntiles - 1) {
-        l0 = quad_sum(l0);
-        l1 = quad_sum(l1);
-        i0 = 1.f / l0;
-        i1 = 1.f / l1;
-        dl0 = quad_sum(dl0) * i0;
-        dl1 = quad_sum(dl1) * i1;
-      }
-      continue;
+    for (int i = 0; i < 8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(x[4 * i + 0], x[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(x[4 * i + 2], x[4 * i + 3]));
     }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float a0 = ex2_approx(m0 - mx0), a1 = ex2_approx(m1 - mx1);
+    l0 *= a0;
+    dl0 *= a0;
+    l1 *= a1;
+    dl1 *= a1;
+    m0 = mx0;
+    m1 = mx1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      x[i] = ex2_approx(x[i] - ((i & 2) ? m1 : m0));  // e
+      if (i & 2) l1 += x[i];
+      else l0 += x[i];
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {  // dP rounded to T
+      const float y = to_f32(from_f32<T>(dp[i]));
+      if (i & 2) dl1 = fmaf(x[i], y, dl1);
+      else dl0 = fmaf(x[i], y, dl0);
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  i0 = 1.f / l0;
+  i1 = 1.f / l1;
+  dl0 = quad_sum(dl0) * i0;
+  dl1 = quad_sum(dl1) * i1;
 
-    // pass 2: P = 2^(s - m) / l, dS = P (dP - Delta) rounded to T as the A
-    // registers of dQ += dS K
+  // pass 2: P = 2^(s - m) / l, dS = P (dP - Delta) rounded to T as the A
+  // registers of dQ += dS K
+  for (int u = ntiles; u < nsteps; ++u) {
+    float s[32], dp[32], x[32];
+    const int st_off = begin_step(u, s, dp);
+    logits(s, reinterpret_cast<const float*>(smem + st_off + 2 * P::kTile), x);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      x[i] = ex2_approx(x[i] - ((i & 2) ? m1 : m0)) * ((i & 2) ? i1 : i0);  // P
+    wgmma_wait<0>();
+    fence_regs(dp);
     uint32_t a[16];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      float x[4];
+      float z[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool top = e < 2;
-        const float p = ex2_approx(s[4 * i + e] - (top ? m0 : m1)) * (top ? i0 : i1);
-        x[e] = p * (dp[4 * i + e] - (top ? dl0 : dl1));
-      }
-      a[2 * i] = Mma<T>::pack(x[0], x[1]);
-      a[2 * i + 1] = Mma<T>::pack(x[2], x[3]);
+      for (int e = 0; e < 4; ++e)
+        z[e] = x[4 * i + e] * (to_f32(from_f32<T>(dp[4 * i + e])) - (e < 2 ? dl0 : dl1));
+      a[2 * i] = Mma<T>::pack(z[0], z[1]);
+      a[2 * i + 1] = Mma<T>::pack(z[2], z[3]);
     }
     // K as the N-major B operand (transpose bit): LBO steps 8 keys, SBO 8
     // columns; four k-steps of 16 keys
+    const uint64_t dkt = smem_desc(base + st_off, P::kGroup, 128);
     fence_regs(acc);
     fence_regs(a);
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const uint32_t aj[4] = {a[4 * j], a[4 * j + 1], a[4 * j + 2], a[4 * j + 3]};
-      Mma<T>::pv(acc, aj, smem_desc(kt + 2 * j * P::kGroup, P::kGroup, 128));
+      Mma<T>::pv(acc, aj, dkt + ((2 * j * P::kGroup) >> 4));
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc);
   }
 
@@ -718,10 +897,11 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 }
 
-// Kernel B: dK and dV of 64 key rows of one (b, h), over the query tiles.
-// The accumulators' rows are keys and their columns queries (S^T, dP^T).
+// Kernel B: dK and dV of 64 key rows of one (b, h), over the query tiles,
+// each in two halves of 32 queries. The accumulators' rows are keys and
+// their columns queries (S^T, dP^T).
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocksB<DP>)
 mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const float* __restrict__ key_bias, const T* __restrict__ dout,
                    T* __restrict__ dk, T* __restrict__ dv, const float* __restrict__ ws, int S,
@@ -739,98 +919,117 @@ mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const float* stats = ws + ((long long)b * H + h) * S;
   const int ntiles = (S + kRows - 1) / kRows;
 
-  for (int i = tid; i < P::kBytesB / 16; i += kThreads)
-    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
-  __syncthreads();
+  if (D < DP) {  // the pad columns, zeroed once (copies fill the rest)
+    for (int i = tid; i < P::kBytesB / 16; i += kThreads)
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
 
   auto load_step = [&](int u) {
     const uint32_t st = base + P::kStage0 + (u % kStages) * P::kStageB;
     load_rows<T, DP, kRows>(gran, st, q + head, HD, u * kRows, S, D, tid);
     load_rows<T, DP, kRows>(gran, st + P::kTile, dout + head, HD, u * kRows, S, D, tid);
-    load_stats(st + 2 * P::kTile, stats, bhs, u * kRows, S, tid);
+    load_stats<kRows>(st + 2 * P::kTile, stats, bhs, u * kRows, S, tid);
   };
-  load_rows<T, DP, kRows>(gran, base, k + head, HD, kt * kRows, S, D, tid);
-  load_rows<T, DP, kRows>(gran, base + P::kTile, v + head, HD, kt * kRows, S, D, tid);
-  load_step(0);
-  cp_async_commit();
-
   // this thread's key rows and their biases in log2 units (-inf past S)
   const int r0 = kt * kRows + warp * 16 + g, r1 = r0 + 8;
   const float kb0 = r0 < S ? key_bias[(long long)b * S + r0] * kLog2e : -INFINITY;
   const float kb1 = r1 < S ? key_bias[(long long)b * S + r1] * kLog2e : -INFINITY;
+  load_rows<T, DP, kRows>(gran, base, k + head, HD, kt * kRows, S, D, tid);
+  load_rows<T, DP, kRows>(gran, base + P::kTile, v + head, HD, kt * kRows, S, D, tid);
+  wait_for_prior_grid();  // kernel A's row statistics
+  load_step(0);
+  cp_async_commit();
 
   float acc_v[DP / 2], acc_k[DP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc_v[i] = acc_k[i] = 0.f;
+  // wgmma descriptors of K and V (an offset of n bytes adds n / 16)
+  const uint64_t dk_ = smem_desc(base, 128, P::kGroup);
+  const uint64_t dv_ = smem_desc(base + P::kTile, 128, P::kGroup);
 
   for (int u = 0; u < ntiles; ++u) {
     cp_async_wait<0>();
     fence_async_smem();
-    __syncthreads();
+    __syncthreads();  // tile u is in; every thread is done with tile u - 1
     if (u + 1 < ntiles) load_step(u + 1);
     cp_async_commit();
     const int st_off = P::kStage0 + (u % kStages) * P::kStageB;
     const uint32_t qs = base + st_off, os = qs + P::kTile;
     const float* sm = reinterpret_cast<const float*>(smem + st_off + 2 * P::kTile);
 
-    // S^T = K Q^T and dP^T = V dO^T, K-major operands from shared memory
-    float s[32], dp[32];
+    // S^T = K Q^T and dP^T = V dO^T by halves of 32 queries, a commit group
+    // each: the second half's products run during the first half's work
+    float s[2][16], dp[2][16];
+    const uint64_t dqs = smem_desc(qs, 128, P::kGroup), dos = smem_desc(os, 128, P::kGroup);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < DP / 16; ++j)
-      Mma<T>::qk(s, smem_desc(base + 256 * j, 128, P::kGroup), smem_desc(qs + 256 * j, 128, P::kGroup),
-                 j > 0);
+    for (int hf = 0; hf < 2; ++hf) {
 #pragma unroll
-    for (int j = 0; j < DP / 16; ++j)
-      Mma<T>::qk(dp, smem_desc(base + P::kTile + 256 * j, 128, P::kGroup),
-                 smem_desc(os + 256 * j, 128, P::kGroup), j > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-    fence_regs(dp);
+      for (int j = 0; j < DP / 16; ++j)
+        Mma<T>::qk(s[hf], dk_ + 16 * j, dqs + (hf * P::kHalf >> 4) + 16 * j, j > 0);
+#pragma unroll
+      for (int j = 0; j < DP / 16; ++j)
+        Mma<T>::qk(dp[hf], dv_ + 16 * j, dos + (hf * P::kHalf >> 4) + 16 * j, j > 0);
+      wgmma_commit();
+    }
+    // dO and Q as N-major B operands (transpose bit)
+    const uint64_t dot = smem_desc(os, P::kGroup, 128), dqt = smem_desc(qs, P::kGroup, 128);
 
-    // P^T rounded to T (the A registers of dV += P^T dO) and dS^T (of
-    // dK += dS^T Q), each query column with its own statistics
-    uint32_t ap[16], ad[16];
+    uint32_t ap[2][8], ad[2][8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int col = 8 * i + 2 * c;
-      const float2 mm = *reinterpret_cast<const float2*>(sm + col);
-      const float2 il = *reinterpret_cast<const float2*>(sm + kRows + col);
-      const float2 dl = *reinterpret_cast<const float2*>(sm + 2 * kRows + col);
-      float p[4], x[4];
+    for (int hf = 0; hf < 2; ++hf) {
+      // in flight after this: the next half's products (hf = 0) or the
+      // previous half's dV and dK products (hf = 1)
+      wgmma_wait<1>();
+      fence_regs(s[hf]);
+      fence_regs(dp[hf]);
+      // P^T rounded to T (the A registers of dV += P^T dO), each query
+      // column with its own statistics; then dS^T, dP^T rounded to T (of
+      // dK += dS^T Q)
+      float p[16];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool odd = e & 1;
-        const float logit = fmaf(s[4 * i + e], scale, e < 2 ? kb0 : kb1);
-        p[e] = ex2_approx(logit - (odd ? mm.y : mm.x)) * (odd ? il.y : il.x);
-        const float dpr = to_f32(from_f32<T>(dp[4 * i + e]));
-        x[e] = p[e] * (dpr - (odd ? dl.y : dl.x));
+      for (int i = 0; i < 4; ++i) {
+        const int col = 32 * hf + 8 * i + 2 * c;
+        const float2 mm = *reinterpret_cast<const float2*>(sm + col);
+        const float2 il = *reinterpret_cast<const float2*>(sm + kRows + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool odd = e & 1;
+          const float logit = fmaf(s[hf][4 * i + e], scale, e < 2 ? kb0 : kb1);
+          p[4 * i + e] = ex2_approx(logit - (odd ? mm.y : mm.x)) * (odd ? il.y : il.x);
+        }
+        ap[hf][2 * i] = Mma<T>::pack(p[4 * i + 0], p[4 * i + 1]);
+        ap[hf][2 * i + 1] = Mma<T>::pack(p[4 * i + 2], p[4 * i + 3]);
       }
-      ap[2 * i] = Mma<T>::pack(p[0], p[1]);
-      ap[2 * i + 1] = Mma<T>::pack(p[2], p[3]);
-      ad[2 * i] = Mma<T>::pack(x[0], x[1]);
-      ad[2 * i + 1] = Mma<T>::pack(x[2], x[3]);
-    }
-    // dO and Q as N-major B operands (transpose bit): four k-steps of 16
-    // queries
-    fence_regs(acc_v);
-    fence_regs(acc_k);
-    fence_regs(ap);
-    fence_regs(ad);
-    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t aj[4] = {ap[4 * j], ap[4 * j + 1], ap[4 * j + 2], ap[4 * j + 3]};
-      Mma<T>::pv(acc_v, aj, smem_desc(os + 2 * j * P::kGroup, P::kGroup, 128));
-    }
+      for (int i = 0; i < 4; ++i) {
+        const float2 dl = *reinterpret_cast<const float2*>(sm + 2 * kRows + 32 * hf + 8 * i + 2 * c);
+        float x[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t aj[4] = {ad[4 * j], ad[4 * j + 1], ad[4 * j + 2], ad[4 * j + 3]};
-      Mma<T>::pv(acc_k, aj, smem_desc(qs + 2 * j * P::kGroup, P::kGroup, 128));
+        for (int e = 0; e < 4; ++e)
+          x[e] = p[4 * i + e] * (to_f32(from_f32<T>(dp[hf][4 * i + e])) - ((e & 1) ? dl.y : dl.x));
+        ad[hf][2 * i] = Mma<T>::pack(x[0], x[1]);
+        ad[hf][2 * i + 1] = Mma<T>::pack(x[2], x[3]);
+      }
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      fence_regs(ap[hf]);
+      fence_regs(ad[hf]);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {  // the half's two k-steps of 16 queries
+        const uint32_t aj[4] = {ap[hf][4 * j], ap[hf][4 * j + 1], ap[hf][4 * j + 2], ap[hf][4 * j + 3]};
+        Mma<T>::pv(acc_v, aj, dot + ((2 * (2 * hf + j) * P::kGroup) >> 4));
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint32_t aj[4] = {ad[hf][4 * j], ad[hf][4 * j + 1], ad[hf][4 * j + 2], ad[hf][4 * j + 3]};
+        Mma<T>::pv(acc_k, aj, dqt + ((2 * (2 * hf + j) * P::kGroup) >> 4));
+      }
+      wgmma_commit();
     }
-    wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc_v);
     fence_regs(acc_k);
   }
@@ -849,6 +1048,522 @@ mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       if (r1 < S) {
         dk[head + r1 * HD + d] = from_f32<T>(acc_k[4 * i + 2 + e] * dscale);
         dv[head + r1 * HD + d] = from_f32<T>(acc_v[4 * i + 2 + e]);
+      }
+    }
+}
+
+// ---- the 3xTF32 route: f32 at D <= 128 ----
+
+constexpr int kRingTf32 = 2;  // streamed-tile ring
+
+// Streamed tiles' rows: keys in kernel A, queries in kernel B, whose four
+// dK / dV accumulators leave fewer registers (16 rows; 32 at DP = 16, the
+// least a tile of 16-byte granules at that width takes).
+template <int DP>
+constexpr int kBtA = DP <= 32 ? 32 : 16;
+template <int DP>
+constexpr int kBtB = DP == 16 ? 32 : 16;
+
+// Geometry at padded head width DP and streamed tiles of BT rows: NC
+// gradient columns a CTA (DP / NC CTAs a 64-row block, for the
+// accumulators' registers). Shared memory: the CTA's 64-row tiles, split
+// once (hi in place, lo beside); a ring of the streamed tiles (K-major rows
+// x DP, for S and dP) with the tile's key bias or row statistics; and one
+// work area that each step's split fills: the streamed tiles' lo halves and
+// their NC columns transposed (hi and lo; the K-major B operand of the
+// gradient products).
+//   A: Q | Q lo | dO | dO lo | 2 x (K, V, bias) | K lo, V lo, K^T, K^T lo
+//   B: K | K lo | V | V lo | 2 x (Q, dO, m, 1/l, Delta) |
+//      Q lo, dO lo, Q^T, Q^T lo, dO^T, dO^T lo
+template <int DP, int BT_>
+struct Tf32Plan {
+  static constexpr int NC = DP < 64 ? DP : 64;
+  static constexpr int NCH = DP / NC;
+  static constexpr int BT = BT_;
+  static constexpr int kGroup = 8 * DP * 4;   // 8-row group of a K-major tile
+  static constexpr int kRowTile = kRows * DP * 4;
+  static constexpr int kTile = BT * DP * 4;
+  static constexpr int kTTile = NC * BT * 4;
+  static constexpr int kStage0 = 4 * kRowTile;
+  static constexpr int kStageA = 2 * kTile + BT * 4;
+  static constexpr int kLoA = kStage0 + kRingTf32 * kStageA;
+  static constexpr int kBytesA = kLoA + 2 * kTile + 2 * kTTile;
+  static constexpr int kStageB = 2 * kTile + 3 * BT * 4;
+  static constexpr int kLoB = kStage0 + kRingTf32 * kStageB;
+  static constexpr int kBytesB = kLoB + 2 * kTile + 4 * kTTile;
+  static_assert(kBytesA <= 232448 && kBytesB <= 232448, "shared memory of one block");
+  static_assert((BT * 4) % 16 == 0 && kTile % 16 == 0 && kTTile % 16 == 0, "16-byte tiles");
+};
+
+// tf32(x) of cvt.rna for every x but a NaN: round half away from zero on
+// the magnitude (add half the weight of the 13 dropped bits, clear them);
+// carries into the exponent as the rounding does. A NaN may come out as
+// another value, but lo = tf32_rna(x - hi) is then a NaN, so a NaN input
+// still makes every product it enters a NaN.
+__device__ __forceinline__ uint32_t tf32_hi(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// An f32 K-major tile of R rows x DP columns at `at` split in place into
+// hi = tf32(x), with lo = tf32(x - hi) at `lo`. With kT, its columns
+// [c0, c0 + NC) also go transposed, hi to `t_hi` and lo to `t_lo`: a
+// K-major tile of NC rows (the columns) x R (the rows), within each group of
+// 8 rows K position kk holding row 2*kk (kk < 4) or 2*(kk-4) + 1, the order
+// in which an S accumulator hands its columns to the A registers of a tf32
+// product (tf32_frags). Each thread takes 16-byte chunks (4 columns of one
+// row) and writes their 4 transposed elements.
+template <int R, int DP, int NC, bool kT>
+__device__ __forceinline__ void split_rows(unsigned char* at, unsigned char* lo, unsigned char* t_hi,
+                                           unsigned char* t_lo, int c0, int tid) {
+  constexpr int kBytes = R * DP * 4, kGroup = 8 * DP * 4;
+#pragma unroll 2
+  for (int off = 16 * tid; off < kBytes; off += 16 * kThreads) {
+    const float4 x4 = *reinterpret_cast<const float4*>(at + off);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[e] = tf32_hi(x[e]);
+      l[e] = tf32_rna(x[e] - __uint_as_float(h[e]));
+    }
+    *reinterpret_cast<uint4*>(at + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+    if constexpr (kT) {
+      const int row = (off / kGroup) * 8 + (off % 128) / 16;
+      const int d0 = ((off % kGroup) / 128) * 4 - c0;  // the chunk's first column in the part
+      if (d0 >= 0 && d0 < NC) {
+        const int r8 = row % 8;
+        const int at_t = (row / 8) * 256 + (r8 & 1) * 128 + (r8 >> 1) * 4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int dd = d0 + e, t = (dd / 8) * (8 * R * 4) + at_t + (dd % 8) * 16;
+          *reinterpret_cast<uint32_t*>(t_hi + t) = h[e];
+          *reinterpret_cast<uint32_t*>(t_lo + t) = l[e];
+        }
+      }
+    }
+  }
+}
+
+// X = A B^T as 3xTF32 over the DP/8 k-steps: A (64 rows) hi at `a`, lo at
+// `alo`; B (BT rows) hi at `bh`, lo at `blo`; the small terms lo*hi +
+// hi*lo in x_lo, hi*hi in x (each accumulator starts at zero). No commit.
+template <int DP, int N>
+__device__ __forceinline__ void tf32_ss3(float (&x)[N], float (&x_lo)[N], uint32_t a, uint32_t alo,
+                                         uint32_t bh, uint32_t blo) {
+  constexpr int G = 8 * DP * 4;
+  const uint64_t da = smem_desc(a, 128, G), dal = smem_desc(alo, 128, G);
+  const uint64_t db = smem_desc(bh, 128, G), dbl = smem_desc(blo, 128, G);
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) wgmma_ss_tf32(x_lo, dal + 16 * j, db + 16 * j, j > 0);
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) wgmma_ss_tf32(x_lo, da + 16 * j, dbl + 16 * j, 1);
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) wgmma_ss_tf32(x, da + 16 * j, db + 16 * j, j > 0);
+}
+
+// The A registers of a tf32 product from the f32 values of an m64nK
+// accumulator: k-step j's (row g, K c), (g+8, c), (g, c+4), (g+8, c+4) are
+// columns 8j+2c and 8j+2c+1 (split_rows' transposed order), split into hi
+// and lo.
+template <int K>
+__device__ __forceinline__ void tf32_frags(const float (&x)[K / 2], uint32_t (&hi)[K / 2],
+                                           uint32_t (&lo)[K / 2]) {
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const float y[4] = {x[4 * j + 0], x[4 * j + 2], x[4 * j + 1], x[4 * j + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      hi[4 * j + e] = tf32_hi(y[e]);
+      lo[4 * j + e] = tf32_rna(y[e] - __uint_as_float(hi[4 * j + e]));
+    }
+  }
+}
+
+// acc += A B as 3xTF32 over K/8 k-steps, A from registers (hi, lo), B K
+// columns of a transposed tile of BT columns (hi at `bh`, lo at `blo`):
+// small terms into acc_lo, hi*hi into acc. No commit.
+template <int K, int BT, int N>
+__device__ __forceinline__ void tf32_rs3(float (&acc)[N], float (&acc_lo)[N],
+                                         const uint32_t (&hi)[K / 2], const uint32_t (&lo)[K / 2],
+                                         uint32_t bh, uint32_t blo) {
+  constexpr int G = 8 * BT * 4;
+  const uint64_t db = smem_desc(bh, 128, G), dbl = smem_desc(blo, 128, G);
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const uint32_t a[4] = {lo[4 * j], lo[4 * j + 1], lo[4 * j + 2], lo[4 * j + 3]};
+    wgmma_rs_tf32(acc_lo, a, db + 16 * j);
+  }
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const uint32_t a[4] = {hi[4 * j], hi[4 * j + 1], hi[4 * j + 2], hi[4 * j + 3]};
+    wgmma_rs_tf32(acc_lo, a, dbl + 16 * j);
+  }
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const uint32_t a[4] = {hi[4 * j], hi[4 * j + 1], hi[4 * j + 2], hi[4 * j + 3]};
+    wgmma_rs_tf32(acc, a, db + 16 * j);
+  }
+}
+
+// Each kernel's resident CTAs an SM (a register cap).
+template <int DP>
+constexpr int kMinBlocksTf32B = DP <= 32 ? 3 : 1;
+template <int DP>
+constexpr int kMinBlocksTf32A = DP <= 32 ? 3 : 1;
+
+// Kernel A in 3xTF32: dQ (columns [c0, c0 + NC)) and the row statistics
+// (m, 1/l, Delta; stored by column chunk 0) of 64 query rows of one (b, h),
+// in one pass over the key tiles. dQ = sum_k dS_k K_k with dS = P (dP -
+// Delta) is taken by linearity as (X - Delta Y) / l, X = sum_k e_k dP_k K_k
+// and Y = sum_k e_k K_k (e = 2^(s - m), unnormalised; X, Y, l and the sum
+// of e * dP rescaled by 2^(m_old - m_new) when the running max moves), so
+// that Delta is not needed before the last tile and each key tile is
+// loaded, split and multiplied once. X and Y hold their small terms in
+// accumulators of their own; their difference carries the f32 rounding of
+// both (examples/torch_attention_backward.py's f32 checks: within 2.6e-6
+// of max(1, max |ref|) of the plain version and autograd).
+// Logits in log2 units and ex2.approx, as the 16-bit route.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, kMinBlocksTf32A<DP>)
+mha_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ key_bias,
+                       const float* __restrict__ dout, float* __restrict__ dq,
+                       float* __restrict__ ws, int S, int H, int D, int gran, float scale,
+                       float dscale) {
+  using P = Tf32Plan<DP, kBtA<DP>>;
+  constexpr int BT = P::BT, NC = P::NC;
+  constexpr int kQ = 0, kQlo = P::kRowTile, kO = 2 * P::kRowTile, kOlo = 3 * P::kRowTile;
+  constexpr int kKlo = P::kLoA, kVlo = kKlo + P::kTile, kKT = kVlo + P::kTile;
+  constexpr int kKTlo = kKT + P::kTTile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  allow_dependent_launch();
+
+  const int qt = blockIdx.x / P::NCH, c0 = (blockIdx.x % P::NCH) * NC;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const long long HD = (long long)H * D;
+  const long long head = (long long)b * S * HD + (long long)h * D;
+  const float* brow = key_bias + (long long)b * S;
+  const long long bhs = (long long)gridDim.z * H * S;
+  float* stats = ws + ((long long)b * H + h) * S;  // m; 1/l and Delta bhs apart
+  const int ntiles = (S + BT - 1) / BT;
+
+  if (D < DP) {  // the pad columns, zeroed once (copies fill the rest)
+    for (int i = tid; i < P::kBytesA / 16; i += kThreads)
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
+
+  auto load_step = [&](int u) {
+    const uint32_t st = base + P::kStage0 + (u % kRingTf32) * P::kStageA;
+    load_rows<float, DP, BT>(gran, st, k + head, HD, u * BT, S, D, tid);
+    load_rows<float, DP, BT>(gran, st + P::kTile, v + head, HD, u * BT, S, D, tid);
+    load_bias<BT>(st + 2 * P::kTile, brow, u * BT, S, tid);
+  };
+  load_rows<float, DP, kRows>(gran, base + kQ, q + head, HD, qt * kRows, S, D, tid);
+  load_rows<float, DP, kRows>(gran, base + kO, dout + head, HD, qt * kRows, S, D, tid);
+  load_step(0);
+  cp_async_commit();
+
+  // X and Y (columns [c0, c0 + NC)), hi*hi and small terms apart
+  float xa[NC / 2], xa_lo[NC / 2], ya[NC / 2], ya_lo[NC / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) xa[i] = xa_lo[i] = ya[i] = ya_lo[i] = 0.f;
+  // rows g and g+8: max, sum of e, sum of e * dP
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, dl0 = 0.f, dl1 = 0.f;
+
+  for (int u = 0; u < ntiles; ++u) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();  // tile u is in; every thread is done with tile u - 1
+    if (u + 1 < ntiles) load_step(u + 1);
+    cp_async_commit();
+    const int st_off = P::kStage0 + (u % kRingTf32) * P::kStageA;
+    const float* bt = reinterpret_cast<const float*>(smem + st_off + 2 * P::kTile);
+    if (u == 0) {
+      split_rows<kRows, DP, NC, false>(smem + kQ, smem + kQlo, nullptr, nullptr, 0, tid);
+      split_rows<kRows, DP, NC, false>(smem + kO, smem + kOlo, nullptr, nullptr, 0, tid);
+    }
+    split_rows<BT, DP, NC, true>(smem + st_off, smem + kKlo, smem + kKT, smem + kKTlo, c0, tid);
+    split_rows<BT, DP, NC, false>(smem + st_off + P::kTile, smem + kVlo, nullptr, nullptr, 0, tid);
+    fence_async_smem();
+    __syncthreads();  // hi and lo of this tile are stored
+
+    // S = Q K^T, then dP = dO V^T, a commit group each: the work on S runs
+    // while dP is in flight
+    float s[BT / 2], s_lo[BT / 2], dp[BT / 2], dp_lo[BT / 2];
+    wgmma_fence();
+    tf32_ss3<DP>(s, s_lo, base + kQ, base + kQlo, base + st_off, base + kKlo);
+    wgmma_commit();
+    tf32_ss3<DP>(dp, dp_lo, base + kO, base + kOlo, base + st_off + P::kTile, base + kVlo);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    fence_regs(s_lo);
+
+    // logits in log2 units, (q . k) * scale*log2(e) + bias*log2(e); the
+    // running max, and X, Y, l and the sum of e * dP rescaled to it; tile 0
+    // holds key 0 (finite bias): the max is finite, 2^(-inf - mx) = 0
+    float e[BT / 2];
+#pragma unroll
+    for (int i = 0; i < BT / 8; ++i) {
+      const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * i + 2 * c);
+      const float b0 = bb.x * kLog2e, b1 = bb.y * kLog2e;
+      e[4 * i + 0] = fmaf(s[4 * i + 0] + s_lo[4 * i + 0], scale, b0);
+      e[4 * i + 1] = fmaf(s[4 * i + 1] + s_lo[4 * i + 1], scale, b1);
+      e[4 * i + 2] = fmaf(s[4 * i + 2] + s_lo[4 * i + 2], scale, b0);
+      e[4 * i + 3] = fmaf(s[4 * i + 3] + s_lo[4 * i + 3], scale, b1);
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < BT / 8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(e[4 * i + 0], e[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(e[4 * i + 2], e[4 * i + 3]));
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float a0 = ex2_approx(m0 - mx0), a1 = ex2_approx(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= a0;
+    dl0 *= a0;
+    l1 *= a1;
+    dl1 *= a1;
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) {
+      const float a = (i & 2) ? a1 : a0;
+      xa[i] *= a;
+      xa_lo[i] *= a;
+      ya[i] *= a;
+      ya_lo[i] *= a;
+    }
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) {
+      e[i] = ex2_approx(e[i] - ((i & 2) ? m1 : m0));
+      if (i & 2) l1 += e[i];
+      else l0 += e[i];
+    }
+
+    // dP: f = e * dP, its sum, and X += f K, Y += e K (K^T the B operand)
+    wgmma_wait<0>();
+    fence_regs(dp);
+    fence_regs(dp_lo);
+    float f[BT / 2];
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) {
+      f[i] = e[i] * (dp[i] + dp_lo[i]);
+      if (i & 2) dl1 += f[i];
+      else dl0 += f[i];
+    }
+    uint32_t fh[BT / 2], fl[BT / 2], eh[BT / 2], el[BT / 2];
+    tf32_frags<BT>(f, fh, fl);
+    tf32_frags<BT>(e, eh, el);
+    fence_regs(xa);
+    fence_regs(xa_lo);
+    fence_regs(ya);
+    fence_regs(ya_lo);
+    fence_regs(fh);
+    fence_regs(fl);
+    fence_regs(eh);
+    fence_regs(el);
+    wgmma_fence();
+    tf32_rs3<BT, BT>(xa, xa_lo, fh, fl, base + kKT, base + kKTlo);
+    tf32_rs3<BT, BT>(ya, ya_lo, eh, el, base + kKT, base + kKTlo);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(xa);
+    fence_regs(xa_lo);
+    fence_regs(ya);
+    fence_regs(ya_lo);
+  }
+
+  // the row sums, Delta = sum_k P dP, and dQ = (X - Delta Y) / l * scale;
+  // rows >= S and columns >= D not stored; the row statistics by one
+  // thread of each quad of column chunk 0
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  dl0 = quad_sum(dl0) * i0;
+  dl1 = quad_sum(dl1) * i1;
+  const int r0 = qt * kRows + warp * 16 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int i = 0; i < NC / 8; ++i)
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int d = c0 + 8 * i + 2 * c + e2, j0 = 4 * i + e2, j1 = j0 + 2;
+      if (d >= D) continue;
+      if (r0 < S)
+        dq[head + r0 * HD + d] = (xa[j0] + xa_lo[j0] - dl0 * (ya[j0] + ya_lo[j0])) * (i0 * dscale);
+      if (r1 < S)
+        dq[head + r1 * HD + d] = (xa[j1] + xa_lo[j1] - dl1 * (ya[j1] + ya_lo[j1])) * (i1 * dscale);
+    }
+  if (c == 0 && c0 == 0) {
+    if (r0 < S) {
+      stats[r0] = m0;
+      stats[bhs + r0] = i0;
+      stats[2 * bhs + r0] = dl0;
+    }
+    if (r1 < S) {
+      stats[r1] = m1;
+      stats[bhs + r1] = i1;
+      stats[2 * bhs + r1] = dl1;
+    }
+  }
+}
+
+// Kernel B in 3xTF32: dK and dV (columns [c0, c0 + NC)) of 64 key rows of
+// one (b, h), over the query tiles with their stored statistics. The
+// accumulators' rows are keys and their columns queries (S^T, dP^T).
+template <int DP>
+__global__ void __launch_bounds__(kThreads, kMinBlocksTf32B<DP>)
+mha_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ key_bias,
+                        const float* __restrict__ dout, float* __restrict__ dk,
+                        float* __restrict__ dv, const float* __restrict__ ws, int S, int H,
+                        int D, int gran, float scale, float dscale) {
+  using P = Tf32Plan<DP, kBtB<DP>>;
+  constexpr int BT = P::BT, NC = P::NC;
+  constexpr int kK = 0, kKlo = P::kRowTile, kV = 2 * P::kRowTile, kVlo = 3 * P::kRowTile;
+  constexpr int kQlo = P::kLoB, kOlo = kQlo + P::kTile, kQT = kOlo + P::kTile;
+  constexpr int kQTlo = kQT + P::kTTile, kOT = kQTlo + P::kTTile, kOTlo = kOT + P::kTTile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+
+  const int kt = blockIdx.x / P::NCH, c0 = (blockIdx.x % P::NCH) * NC;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const long long HD = (long long)H * D;
+  const long long head = (long long)b * S * HD + (long long)h * D;
+  const long long bhs = (long long)gridDim.z * H * S;
+  const float* stats = ws + ((long long)b * H + h) * S;
+  const int ntiles = (S + BT - 1) / BT;
+
+  if (D < DP) {  // the pad columns, zeroed once (copies fill the rest)
+    for (int i = tid; i < P::kBytesB / 16; i += kThreads)
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
+
+  auto load_step = [&](int u) {
+    const uint32_t st = base + P::kStage0 + (u % kRingTf32) * P::kStageB;
+    const int q0 = u * BT;
+    load_rows<float, DP, BT>(gran, st, q + head, HD, q0, S, D, tid);
+    load_rows<float, DP, BT>(gran, st + P::kTile, dout + head, HD, q0, S, D, tid);
+    load_stats<BT>(st + 2 * P::kTile, stats, bhs, q0, S, tid);
+  };
+  // this thread's key rows and their biases in log2 units (-inf past S)
+  const int r0 = kt * kRows + warp * 16 + g, r1 = r0 + 8;
+  const float kb0 = r0 < S ? key_bias[(long long)b * S + r0] * kLog2e : -INFINITY;
+  const float kb1 = r1 < S ? key_bias[(long long)b * S + r1] * kLog2e : -INFINITY;
+  // K and V in and split before kernel A's statistics are waited on
+  load_rows<float, DP, kRows>(gran, base + kK, k + head, HD, kt * kRows, S, D, tid);
+  load_rows<float, DP, kRows>(gran, base + kV, v + head, HD, kt * kRows, S, D, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  split_rows<kRows, DP, NC, false>(smem + kK, smem + kKlo, nullptr, nullptr, 0, tid);
+  split_rows<kRows, DP, NC, false>(smem + kV, smem + kVlo, nullptr, nullptr, 0, tid);
+  wait_for_prior_grid();
+  load_step(0);
+  cp_async_commit();
+
+  float acc_v[NC / 2], acc_v_lo[NC / 2], acc_k[NC / 2], acc_k_lo[NC / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) acc_v[i] = acc_v_lo[i] = acc_k[i] = acc_k_lo[i] = 0.f;
+
+  for (int u = 0; u < ntiles; ++u) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (u + 1 < ntiles) load_step(u + 1);
+    cp_async_commit();
+    const int st_off = P::kStage0 + (u % kRingTf32) * P::kStageB;
+    const uint32_t qs = base + st_off, os = qs + P::kTile, qts = base + kQT, ots = base + kOT;
+    const float* sm = reinterpret_cast<const float*>(smem + st_off + 2 * P::kTile);
+    split_rows<BT, DP, NC, true>(smem + st_off, smem + kQlo, smem + kQT, smem + kQTlo, c0, tid);
+    split_rows<BT, DP, NC, true>(smem + st_off + P::kTile, smem + kOlo, smem + kOT, smem + kOTlo, c0,
+                                 tid);
+    fence_async_smem();
+    __syncthreads();
+
+    // S^T = K Q^T, then dP^T = V dO^T, a commit group each: the work on
+    // S^T runs while dP^T is in flight
+    float s[BT / 2], s_lo[BT / 2], dp[BT / 2], dp_lo[BT / 2];
+    wgmma_fence();
+    tf32_ss3<DP>(s, s_lo, base + kK, base + kKlo, qs, base + kQlo);
+    wgmma_commit();
+    tf32_ss3<DP>(dp, dp_lo, base + kV, base + kVlo, os, base + kOlo);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    fence_regs(s_lo);
+    // P^T, each query column with its own statistics, in registers of its
+    // own
+    float pt[BT / 2];
+#pragma unroll
+    for (int i = 0; i < BT / 8; ++i) {
+      const int col = 8 * i + 2 * c;
+      const float2 mm = *reinterpret_cast<const float2*>(sm + col);
+      const float2 il = *reinterpret_cast<const float2*>(sm + BT + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool odd = e & 1;
+        const float logit = fmaf(s[4 * i + e] + s_lo[4 * i + e], scale, e < 2 ? kb0 : kb1);
+        pt[4 * i + e] = ex2_approx(logit - (odd ? mm.y : mm.x)) * (odd ? il.y : il.x);
+      }
+    }
+    uint32_t ph[BT / 2], pl[BT / 2], dh[BT / 2], dl[BT / 2];
+    tf32_frags<BT>(pt, ph, pl);
+    wgmma_wait<0>();
+    fence_regs(dp);
+    fence_regs(dp_lo);
+    // dS^T = P^T (dP^T - Delta)
+#pragma unroll
+    for (int i = 0; i < BT / 8; ++i) {
+      const float2 dd = *reinterpret_cast<const float2*>(sm + 2 * BT + 8 * i + 2 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pt[4 * i + e] *= dp[4 * i + e] + dp_lo[4 * i + e] - ((e & 1) ? dd.y : dd.x);
+    }
+    tf32_frags<BT>(pt, dh, dl);
+    fence_regs(acc_v);
+    fence_regs(acc_v_lo);
+    fence_regs(acc_k);
+    fence_regs(acc_k_lo);
+    fence_regs(ph);
+    fence_regs(pl);
+    fence_regs(dh);
+    fence_regs(dl);
+    wgmma_fence();
+    tf32_rs3<BT, BT>(acc_v, acc_v_lo, ph, pl, ots, base + kOTlo);
+    tf32_rs3<BT, BT>(acc_k, acc_k_lo, dh, dl, qts, base + kQTlo);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_v);
+    fence_regs(acc_v_lo);
+    fence_regs(acc_k);
+    fence_regs(acc_k_lo);
+  }
+
+  // dK = (acc_k + acc_k_lo) * scale, dV = acc_v + acc_v_lo; key rows >= S
+  // and columns >= D not stored
+#pragma unroll
+  for (int i = 0; i < NC / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = c0 + 8 * i + 2 * c + e;
+      if (d >= D) continue;
+      if (r0 < S) {
+        dk[head + r0 * HD + d] = (acc_k[4 * i + e] + acc_k_lo[4 * i + e]) * dscale;
+        dv[head + r0 * HD + d] = acc_v[4 * i + e] + acc_v_lo[4 * i + e];
+      }
+      if (r1 < S) {
+        dk[head + r1 * HD + d] = (acc_k[4 * i + 2 + e] + acc_k_lo[4 * i + 2 + e]) * dscale;
+        dv[head + r1 * HD + d] = acc_v[4 * i + 2 + e] + acc_v_lo[4 * i + 2 + e];
       }
     }
 }
@@ -974,6 +1689,7 @@ mha_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   using C = FmaPlan<DP>;
   constexpr int RM = C::RM, BC = C::BC;
   extern __shared__ float4 smem4[];
+  allow_dependent_launch();
   float* sQt = reinterpret_cast<float*>(smem4);
   float* sOt = sQt + C::kA_Ot;
   float* sKt = sQt + C::kA_Kt;
@@ -1139,6 +1855,7 @@ mha_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     const int row = r0 + ty * RM + i;
     kb[i] = row < S ? key_bias[(long long)b * S + row] : -INFINITY;
   }
+  wait_for_prior_grid();  // kernel A's row statistics
 
   float acc_k[RM][C::CPT], acc_v[RM][C::CPT];
 #pragma unroll
@@ -1189,6 +1906,25 @@ mha_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 
 // ---- launches ----
 
+// Kernel B on the stream after kernel A, as a programmatic dependent
+// launch: its CTAs may start while kernel A's last ones run, and wait in
+// wait_for_prior_grid for kernel A's results.
+template <typename... Params, typename... Args>
+cudaError_t launch_after(void (*kern)(Params...), dim3 grid, int smem_bytes, cudaStream_t stream,
+                         Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
 template <typename Kern>
 cudaError_t allow_smem(Kern kern, int bytes) {
   // set on every call: the opt-in belongs to the current device
@@ -1205,6 +1941,13 @@ struct Args {
   cudaStream_t stream;
 };
 
+// the widest copy granule every row of q, k, v and dout starts on
+inline int granule(const Args& a, size_t itemsize) {
+  const uintptr_t w = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)a.dout |
+                      (uintptr_t)(a.D * itemsize) | 16u;
+  return (int)(w & (~w + 1));
+}
+
 template <typename T, int DP>
 cudaError_t launch_tc(const Args& a) {
   using P = BwdPlan<T, DP>;
@@ -1213,10 +1956,7 @@ cudaError_t launch_tc(const Args& a) {
   cudaError_t err = allow_smem(ka, P::kBytesA);
   if (err == cudaSuccess) err = allow_smem(kb, P::kBytesB);
   if (err != cudaSuccess) return err;
-  // the widest copy granule every row of q, k, v and dout starts on
-  const uintptr_t w = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)a.dout |
-                      (uintptr_t)(a.D * sizeof(T)) | 16u;
-  const int gran = (int)(w & (~w + 1));
+  const int gran = granule(a, sizeof(T));
   const dim3 grid((a.S + kRows - 1) / kRows, a.H, a.B);
   const float scale = kLog2e / sqrtf((float)a.D), dscale = 1.0f / sqrtf((float)a.D);
   const T* q = static_cast<const T*>(a.q);
@@ -1224,13 +1964,36 @@ cudaError_t launch_tc(const Args& a) {
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   ka<<<grid, kThreads, P::kBytesA, a.stream>>>(q, k, v, a.bias, dout, static_cast<T*>(a.dq), a.ws,
-                                                a.S, a.H, a.D, gran, scale, dscale);
+                                                 a.S, a.H, a.D, gran, scale, dscale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kb<<<grid, kThreads, P::kBytesB, a.stream>>>(q, k, v, a.bias, dout, static_cast<T*>(a.dk),
-                                                static_cast<T*>(a.dv), a.ws, a.S, a.H, a.D, gran,
-                                                scale, dscale);
-  return cudaGetLastError();
+  return launch_after(kb, grid, P::kBytesB, a.stream, q, k, v, a.bias, dout, static_cast<T*>(a.dk),
+                      static_cast<T*>(a.dv), a.ws, a.S, a.H, a.D, gran, scale, dscale);
+}
+
+template <int DP>
+cudaError_t launch_tf32(const Args& a) {
+  using PA = Tf32Plan<DP, kBtA<DP>>;
+  using PB = Tf32Plan<DP, kBtB<DP>>;
+  auto ka = mha_bwd_dq_tf32_kernel<DP>;
+  auto kb = mha_bwd_dkv_tf32_kernel<DP>;
+  cudaError_t err = allow_smem(ka, PA::kBytesA);
+  if (err == cudaSuccess) err = allow_smem(kb, PB::kBytesB);
+  if (err != cudaSuccess) return err;
+  const int gran = granule(a, sizeof(float));
+  const dim3 grid(((a.S + kRows - 1) / kRows) * PA::NCH, a.H, a.B);
+  const float scale = kLog2e / sqrtf((float)a.D), dscale = 1.0f / sqrtf((float)a.D);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  ka<<<grid, kThreads, PA::kBytesA, a.stream>>>(q, k, v, a.bias, dout, static_cast<float*>(a.dq),
+                                                a.ws, a.S, a.H, a.D, gran, scale, dscale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_after(kb, grid, PB::kBytesB, a.stream, q, k, v, a.bias, dout,
+                      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.ws, a.S, a.H, a.D,
+                      gran, scale, dscale);
 }
 
 template <typename T, int DP>
@@ -1251,9 +2014,8 @@ cudaError_t launch_fma(const Args& a) {
                                                 a.S, a.H, a.D, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kb<<<grid, kThreads, C::kBytesB, a.stream>>>(q, k, v, a.bias, dout, static_cast<T*>(a.dk),
-                                                static_cast<T*>(a.dv), a.ws, a.S, a.H, a.D, scale);
-  return cudaGetLastError();
+  return launch_after(kb, grid, C::kBytesB, a.stream, q, k, v, a.bias, dout, static_cast<T*>(a.dk),
+                      static_cast<T*>(a.dv), a.ws, a.S, a.H, a.D, scale);
 }
 
 template <typename T>
@@ -1263,22 +2025,23 @@ cudaError_t dispatch_d(const Args& a) {
     if (a.D <= 32) return launch_tc<T, 32>(a);
     if (a.D <= 64) return launch_tc<T, 64>(a);
     if (a.D <= 128) return launch_tc<T, 128>(a);
-    return launch_fma<T, 256>(a);
   } else {
-    if (a.D <= 32) return launch_fma<T, 32>(a);
-    if (a.D <= 64) return launch_fma<T, 64>(a);
-    if (a.D <= 128) return launch_fma<T, 128>(a);
-    return launch_fma<T, 256>(a);
+    if (a.D <= 16) return launch_tf32<16>(a);
+    if (a.D <= 32) return launch_tf32<32>(a);
+    if (a.D <= 64) return launch_tf32<64>(a);
+    if (a.D <= 128) return launch_tf32<128>(a);
   }
+  return launch_fma<T, 256>(a);
 }
 
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float16, 2 = float32. q, k, v, dout (the
-// gradient of the forward's output), dq, dk, dv: (B, S, H*D) contiguous; key_bias (B, S) f32 contiguous; ws: 3 * B * H * S floats of
-// scratch. 1 <= D <= 256. Route: bf16/f16 at D <= 128 on the tensor cores,
-// everything else on the CUDA cores (ops/attention.py:backward_route).
-// Returns a cudaError_t (0 = launched).
+// gradient of the forward's output), dq, dk, dv: (B, S, H*D) contiguous;
+// key_bias (B, S) f32 contiguous; ws: 3 * B * H * S floats of scratch.
+// 1 <= D <= 256. Route (ops/attention.py:backward_route): D <= 128 on the
+// tensor cores (bf16/f16 on wgmma, f32 as 3xTF32), D 129-256 on the CUDA
+// cores. Returns a cudaError_t (0 = launched).
 extern "C" int rrt_mha_bwd(int dtype, const void* q, const void* k, const void* v,
                            const void* key_bias, const void* dout, void* dq, void* dk, void* dv,
                            void* ws, int B, int S, int H, int D, void* stream) {

@@ -22,8 +22,10 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        inputs and the upstream gradient, written out with
                        the roundings of autograd through mha_reference
   backward_route       which route of csrc/mha_bwd.cu takes (dtype, D, S):
-                       "wgmma" (bf16/f16 at D <= 128) or "fma" (f32 at any
-                       D, bf16/f16 at D 129-256)
+                       "wgmma" (bf16/f16 at D <= 128: wgmma, products
+                       in flight during the softmax work), "tf32" (f32 at
+                       D <= 128: wgmma as 3xTF32) or "fma" (D 129-256,
+                       every dtype: the CUDA cores in full f32)
   multihead_attention  the towers' entry point: impl "auto" launches the
                        kernel for CUDA tensors and takes the reference for
                        CPU tensors (autograd through its torch ops);
@@ -52,17 +54,21 @@ from review_recommender_tpu_torch import kernels
 # threads encode concurrently, so the counts are bumped under a lock.
 mha_kernel_launches = 0
 mha_generic_kernel_launches = 0
-# Launches of the backward kernel (csrc/mha_bwd.cu), by route: one per
-# kernel forward that a training step differentiates. With remat (per-layer
-# checkpointing) the backward first re-runs each layer's forward, so a step
-# launches the forward twice for each backward.
+# Launches of the backward kernel (csrc/mha_bwd.cu), by route (backward_route:
+# "wgmma", "tf32", "fma"): one per kernel forward that a training step
+# differentiates. With remat (per-layer checkpointing) the backward first
+# re-runs each layer's forward, so a step launches the forward twice for
+# each backward.
 mha_backward_kernel_launches = 0
+mha_backward_tf32_launches = 0
 mha_backward_fma_launches = 0
 _count_lock = threading.Lock()
 
 WGMMA_HEAD_DIMS = (32, 64, 128)  # csrc/mha_fwd.cu's TMA boxes and wgmma k-steps
 MAX_HEAD_DIM = 256  # csrc/mha_generic.cu's widest instance; no public BERT is wider
-WGMMA_BWD_MAX_HEAD_DIM = 128  # csrc/mha_bwd.cu's widest tensor-core instance
+WGMMA_BWD_MAX_HEAD_DIM = 128  # csrc/mha_bwd.cu's widest tensor-core instance (both types)
+BACKWARD_COUNTERS = {"wgmma": "mha_backward_kernel_launches", "tf32": "mha_backward_tf32_launches",
+                     "fma": "mha_backward_fma_launches"}  # backward_route -> counter
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
@@ -82,14 +88,15 @@ def kernel_route(dtype: torch.dtype, d: int, s: int) -> str:
 
 def backward_route(dtype: torch.dtype, d: int, s: int) -> str:
     """The route of csrc/mha_bwd.cu that takes the backward of attention
-    over q/k/v of `dtype` with head width `d` and `s` keys: "wgmma" for
-    bf16/f16 at d <= WGMMA_BWD_MAX_HEAD_DIM (tensor cores), "fma" for f32
-    at any d and bf16/f16 at d up to MAX_HEAD_DIM (CUDA cores, full f32).
-    Same domain as kernel_route; raises ValueError outside it."""
+    over q/k/v of `dtype` with head width `d` and `s` keys. Up to
+    d = WGMMA_BWD_MAX_HEAD_DIM on the tensor cores: "wgmma" for bf16/f16,
+    "tf32" for f32 (each product as three TF32 ones); "fma" for d up to
+    MAX_HEAD_DIM in every dtype (CUDA cores, full f32). Same domain as
+    kernel_route; raises ValueError outside it."""
     _check_domain(dtype, d, s)
-    if dtype != torch.float32 and d <= WGMMA_BWD_MAX_HEAD_DIM:
-        return "wgmma"
-    return "fma"
+    if d > WGMMA_BWD_MAX_HEAD_DIM:
+        return "fma"
+    return "tf32" if dtype == torch.float32 else "wgmma"
 
 
 def _check_domain(dtype: torch.dtype, d: int, s: int) -> None:
@@ -212,7 +219,7 @@ def _launch_bwd(q, k, v, key_bias, g, num_heads: int):
     v, key_bias) against the upstream gradient `g` (contiguous, q's dtype
     and shape). Launches on torch.cuda.current_stream(); raises if the
     launch fails, never falls back to the reference."""
-    global mha_backward_kernel_launches, mha_backward_fma_launches
+    global mha_backward_kernel_launches, mha_backward_tf32_launches, mha_backward_fma_launches
     b, s, h, d = _check_kernel_args(q, k, v, key_bias, num_heads)
     route = backward_route(q.dtype, d, s)
     if g.device != q.device or g.dtype != q.dtype or g.shape != q.shape:
@@ -234,6 +241,8 @@ def _launch_bwd(q, k, v, key_bias, g, num_heads: int):
     with _count_lock:
         if route == "wgmma":
             mha_backward_kernel_launches += 1
+        elif route == "tf32":
+            mha_backward_tf32_launches += 1
         else:
             mha_backward_fma_launches += 1
     return dq, dk, dv

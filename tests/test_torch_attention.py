@@ -271,7 +271,8 @@ def test_recompute_backward_equals_autograd_through_the_reference(monkeypatch, d
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}[dtype]
     q, k, v, bias = _torch(_inputs(5, 3, 20, 64), dtype)
     g = torch.from_numpy(np.random.default_rng(6).standard_normal(q.shape).astype(np.float32))
-    before = (tatt.mha_backward_kernel_launches, tatt.mha_backward_fma_launches)
+    counts = lambda: [getattr(tatt, name) for name in tatt.BACKWARD_COUNTERS.values()]
+    before = counts()
     for needs in ((True, True, True), (False, True, True)):
         grads = []
         for fn in (tatt.MhaKernelFn.apply, tatt.mha_reference):
@@ -290,4 +291,4 @@ def test_recompute_backward_equals_autograd_through_the_reference(monkeypatch, d
     tatt.MhaKernelFn.apply(*leaves, bias, 2).sum().backward()
     dense = tatt.mha_backward_reference(q, k, v, bias, torch.ones_like(q), 2)
     assert all(torch.equal(leaf.grad, want) for leaf, want in zip(leaves, dense))
-    assert (tatt.mha_backward_kernel_launches, tatt.mha_backward_fma_launches) == before
+    assert counts() == before

@@ -106,12 +106,13 @@ def test_masked_key_gets_no_value_gradient():
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 32, "wgmma"), (torch.float16, 64, "wgmma"), (torch.bfloat16, 26, "wgmma"),
     (torch.bfloat16, 1, "wgmma"), (torch.float16, 128, "wgmma"), (torch.bfloat16, 129, "fma"),
-    (torch.float16, 256, "fma"), (torch.float32, 32, "fma"), (torch.float32, 1, "fma"),
-    (torch.float32, 256, "fma"),
+    (torch.float16, 256, "fma"), (torch.float32, 32, "tf32"), (torch.float32, 1, "tf32"),
+    (torch.float32, 128, "tf32"), (torch.float32, 129, "fma"), (torch.float32, 256, "fma"),
 ])
 def test_backward_route_table(dtype, d, route):
     assert tatt.backward_route(dtype, d, 1) == route
     assert tatt.backward_route(dtype, d, 4096) == route
+    assert tatt.BACKWARD_COUNTERS[route].startswith("mha_backward_")
 
 
 def test_backward_route_refuses_what_the_forward_refuses():

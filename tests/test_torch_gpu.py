@@ -203,15 +203,21 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     torch.cuda.synchronize()
     assert qg.grad is not None and torch.isfinite(qg.grad.float()).all()
     assert tatt.mha_kernel_launches == launches + 1
-    assert _bwd_launches() == (backward[0] + 1, backward[1])
+    assert _bwd_launches() == _bwd_plus(backward, "wgmma")
     want = tatt.mha_backward_reference(q, k, v, bias, torch.ones_like(q), 4)[0]
     assert (qg.grad.float() - want.float()).abs().max().item() <= 2e-2 * max(
         1.0, want.float().abs().max().item())
 
 
 def _bwd_launches():
-    """The backward kernel's launches: (tensor-core route, FMA route)."""
-    return tatt.mha_backward_kernel_launches, tatt.mha_backward_fma_launches
+    """The backward kernel's launches by route: (wgmma, tf32, fma)."""
+    return (tatt.mha_backward_kernel_launches, tatt.mha_backward_tf32_launches,
+            tatt.mha_backward_fma_launches)
+
+
+def _bwd_plus(counts, route, n=1):
+    """`counts` (of _bwd_launches) with n more launches of `route`."""
+    return tuple(c + n * (r == route) for c, r in zip(counts, ("wgmma", "tf32", "fma")))
 
 
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -371,7 +377,7 @@ def test_gradients_match_autograd_through_the_reference(cuda, dtype, b, s, heads
     launches, backward = tatt.mha_kernel_launches, _bwd_launches()
     outs, got, refs = _grads_three_ways(q, k, v, bias, heads, g)
     assert tatt.mha_kernel_launches == launches + 1
-    assert _bwd_launches() == (backward[0] + 1, backward[1])
+    assert _bwd_launches() == _bwd_plus(backward, "wgmma")
     assert (outs[0] - outs[1]).abs().max().item() <= 2e-2
     _check_grads(got, refs, dtype, (b, s, heads, d))
 
@@ -384,8 +390,8 @@ def test_gradients_match_autograd_through_the_reference(cuda, dtype, b, s, heads
 ])
 def test_gradients_through_the_generic_route(cuda, dtype, b, s, heads, d):
     """MhaKernelFn on the generic route: the forward is the generic kernel,
-    the backward the backward kernel's route for the dtype and width (FMA
-    for f32, tensor cores for bf16/f16 up to D = 128), held to
+    the backward the backward kernel's route for the dtype and width (3xTF32
+    for f32, wgmma for bf16/f16, both up to D = 128), held to
     mha_backward_reference and autograd through mha_reference on the same
     inputs (within 1e-4 in f32, 2e-2 in bf16/f16, of max(1, max |ref|)),
     and the output within the forward's tolerance."""
@@ -396,8 +402,7 @@ def test_gradients_through_the_generic_route(cuda, dtype, b, s, heads, d):
     before, backward = _launches(), _bwd_launches()
     outs, got, refs = _grads_three_ways(q, k, v, bias, heads, g)
     assert _launches() == (before[0], before[1] + 1)
-    fma = tatt.backward_route(dtype, d, s) == "fma"
-    assert _bwd_launches() == (backward[0] + (not fma), backward[1] + fma)
+    assert _bwd_launches() == _bwd_plus(backward, tatt.backward_route(dtype, d, s))
     assert (outs[0] - outs[1]).abs().max().item() <= GENERIC_TOL[dtype]
     _check_grads(got, refs, dtype, (b, s, heads, d))
 
@@ -407,7 +412,7 @@ def test_gradients_through_the_generic_route(cuda, dtype, b, s, heads, d):
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 129, 600, 1024])
 def test_backward_kernel_edge_cases(cuda, dtype, d, s):
     """The backward kernel alone (_launch_bwd) at the pad edges of D (each
-    tensor-core instance's and the FMA route's), S at and around the
+    wgmma and 3xTF32 instance's and the FMA route's), S at and around the
     64-row tiles, past 512 keys and S = 1, in every dtype: its q, k, v
     gradients against mha_backward_reference and autograd through
     mha_reference. Row 0 is masked but for one key (P = 1: dS = 0 exactly
@@ -421,8 +426,7 @@ def test_backward_kernel_edge_cases(cuda, dtype, d, s):
                     device=cuda).to(dtype)
     backward = _bwd_launches()
     got = tatt._launch_bwd(q, k, v, bias, g, heads)
-    fma = tatt.backward_route(dtype, d, s) == "fma"
-    assert _bwd_launches() == (backward[0] + (not fma), backward[1] + fma)
+    assert _bwd_launches() == _bwd_plus(backward, tatt.backward_route(dtype, d, s))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     tatt.mha_reference(*leaves, bias, heads).backward(g)
     plain = tatt.mha_backward_reference(q, k, v, bias, g, heads)
@@ -431,11 +435,14 @@ def test_backward_kernel_edge_cases(cuda, dtype, d, s):
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 32), (torch.float16, 26),
-                                     (torch.float32, 64), (torch.bfloat16, 200)])
+                                     (torch.float32, 64), (torch.float32, 128),
+                                     (torch.bfloat16, 200)])
 def test_backward_kernel_is_deterministic(cuda, dtype, d):
     """Two backward launches on the same inputs give bit-equal gradients
     (no atomics: kernel A writes dQ and the row statistics, kernel B dK and
-    dV, each element by one thread)."""
+    dV, each element by one thread), on every route: wgmma (bf16 at 32,
+    f16 at 26), tf32 (f32 at 64, and 128 in two column halves) and fma
+    (bf16 at 200)."""
     q, k, v, bias = _inputs(d, 4, 300, 4 * d, dtype, cuda)
     g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d),
                     device=cuda).to(dtype)
@@ -495,7 +502,7 @@ def test_contrastive_step_on_cuda_matches_the_cpu_f32_step(cuda):
     launches, backward = tatt.mha_kernel_launches, _bwd_launches()
     m_gpu = gpu.train_step(*batch)
     assert tatt.mha_kernel_launches == launches + 4  # 2 layers x (queries, docs)
-    assert _bwd_launches() == (backward[0] + 4, backward[1])
+    assert _bwd_launches() == _bwd_plus(backward, "wgmma", 4)
     m_cpu = cpu.train_step(*batch)
     assert abs(m_gpu["loss"] - m_cpu["loss"]) <= 2e-2, (m_gpu, m_cpu)
     cos = _update_cosine(gpu, cpu, sd)
@@ -1223,7 +1230,7 @@ def test_mesh_step_on_cuda_matches_the_cpu_mesh(cuda, kind):
     m_gpu = gpu.train_step(*batches[kind])
     towers = 2 if kind == "biencoder" else 1
     assert tatt.mha_kernel_launches - launches == 4 * cfg.num_layers * towers
-    assert _bwd_launches() == (backward[0] + 4 * cfg.num_layers * towers, backward[1])
+    assert _bwd_launches() == _bwd_plus(backward, "wgmma", 4 * cfg.num_layers * towers)
     m_cpu = cpu.train_step(*batches[kind])
     assert abs(m_gpu["loss"] - m_cpu["loss"]) <= 2e-2, (m_gpu, m_cpu)
 
