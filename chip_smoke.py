@@ -77,11 +77,17 @@ line, and nothing is caught and passed over:
              spin (plain, stage_a_fused, the exact stage A); the kernel at
              B = 1, 8, 32, 128 behind the spin and behind an L2 flush, each
              with its bound (bytes or operations, whichever is larger) and
-             share of it; the f32 route (the CUDA-core kernel) at B=32 on
-             the same corpus in f32, against its plain version and timed;
-             then the counted main path: stage_a_fused on the 256 queries
-             in batches of 32, with pool recall against the exact stage A
-             (>= 0.99), every launch on the bf16 kernel
+             share of it; then the counted main path: stage_a_fused on the
+             256 queries in batches of 32, with pool recall against the
+             exact stage A (>= 0.99), every launch on the bf16 kernel. The
+             f32 routes, each with a counted main path of its own: tf32
+             (csrc/stage_a_wgmma.cu, 3xTF32) on the same corpus in f32 and
+             on a seeded unit f32 corpus of its shape, the exhausted-tile
+             case in f32, B = 1, 32, 128 timed against their 3xTF32 bound,
+             stage_a_fused on the 256 queries (8 tf32 launches, pool recall
+             against the exact f32 stage A >= 0.99); fma
+             (csrc/stage_a_fused.cu) on a seeded unit corpus of 200,704 x
+             3,072 f32 at B = 32, timed, and 2 counted batches
   9 e2e_slice  query_e2e on phase 4's engine and towers (bench.py's
              fabricated doc tokens: width 254, 128 live): 100 queries at
              rr_k=0 and rr_k=50, p50/p90, exactly 12 and 18 attention launches
@@ -416,6 +422,12 @@ SINGLE_RTOL, SINGLE_ATOL, NEAR_TIE = 1e-4, 1e-5, 1e-3  # tests/test_batched.py's
 STAGE_A_TOL = 1e-5  # bf16 products, exact in f32, summed in another order
 STAGE_A_BATCHES = (1, 8, 32, 128)
 STAGE_A_MIN_RECALL = 0.99
+# the f32 routes (phase 8): the tf32 route's batch widths, the fma route's
+# width (past the tf32 route's 2,912: OpenAI text-embedding-3-large's 3,072)
+# and the seed of their card-drawn corpora and queries
+STAGE_A_F32_BATCHES = (1, 32, 128)
+STAGE_A_FMA_DIM = 3072
+STAGE_A_F32_SEED = 620
 # phases 9-10: bench.py's e2e tokens (bench.py:464-467) and coalesced-rerank
 # settings (bench.py:1336-1400)
 DOC_TOKENS, DOC_TOKEN_LEN = 254, 128
@@ -1235,7 +1247,8 @@ def _kernel_modules():
             "bm25_packed": (BK, "bm25_packed_kernel_launches"),
             "bm25_unpacked": (BK, "bm25_unpacked_kernel_launches"),
             "stage_a_fused": (SA, "stage_a_kernel_launches"),
-            "stage_a_f32": (SA, "stage_a_f32_kernel_launches")}
+            "stage_a_tf32": (SA, "stage_a_tf32_kernel_launches"),
+            "stage_a_fma": (SA, "stage_a_fma_kernel_launches")}
 
 
 def _zero_counts() -> None:
@@ -1424,9 +1437,10 @@ def _tile_winners_diff(torch, emb, valid, qv, phase):
     return row, (ks, ki, ps, pi)
 
 
-def _exhausted_case(torch):
-    """2 tiles at D=384 bf16, N = 2048 + 1000 with 10 valid rows in tile 1:
-    from round 10 on, tile 1 returns -3.4e38 and local row 0 (repeats)."""
+def _exhausted_case(torch, dtype):
+    """2 tiles at D=384 in `dtype`, N = 2048 + 1000 with 10 valid rows in
+    tile 1: from round 10 on, tile 1 returns -3.4e38 and local row 0
+    (repeats)."""
     from review_recommender_tpu_torch.ops import stage_a as SA
 
     rng = np.random.default_rng(8)
@@ -1439,8 +1453,8 @@ def _exhausted_case(torch):
     qv = rng.standard_normal((8, DIM)).astype(np.float32)
     qv /= np.linalg.norm(qv, axis=1, keepdims=True)
     t = lambda x: torch.from_numpy(x).cuda()
-    row, (ks, ki, _ps, pi) = _tile_winners_diff(torch, t(emb).to(torch.bfloat16), t(valid),
-                                                t(qv), "stage_a")
+    row, (ks, ki, _ps, pi) = _tile_winners_diff(torch, t(emb).to(dtype), t(valid), t(qv),
+                                                "stage_a")
     repeats = bool((ki[1, 10:] == 0).all()) and bool((ks[1, 10:] == SA.NEG).all())
     check(torch.equal(ki, pi) and repeats, "stage_a",
           f"exhausted-tile case: ids equal {torch.equal(ki, pi)}, repeats {repeats}")
@@ -1484,7 +1498,7 @@ def phase_stage_a(torch, engine, qvecs, qterms):
     check(fused_row["max_abs_err_dense"] <= STAGE_A_TOL
           and fused_row["max_abs_err_bm25_same_ids"] <= STAGE_A_TOL, "stage_a",
           f"stage_a_fused against stage_a_fused_reference: {fused_row}")
-    small = _exhausted_case(torch)
+    small = _exhausted_case(torch, torch.bfloat16)
 
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
     runs = {"plain": lambda: SA.stage_a_tile_winners_reference(emb, valid, qv),
@@ -1494,14 +1508,13 @@ def phase_stage_a(torch, engine, qvecs, qterms):
         for _ in range(3):
             fn()
     ms = {name: _median_ms(torch, fn, REPS, before=spin) for name, fn in runs.items()}
-    by_b = _stage_a_by_batch(torch, emb, valid, qvecs)
+    by_b = _stage_a_by_batch(torch, emb, valid, qvecs, STAGE_A_BATCHES)
     ms["kernel"] = by_b[b]["ms"]
-    f32 = _stage_a_f32_route(torch, emb, valid, qv)
     emit({"phase": "stage_a", "N": n, "tiles": tiles, "D": emb.shape[1], "B": b, "pool": POOL,
           "tile_pass": tile_row, "stage_a_fused_vs_reference": fused_row,
           "exhausted_tile_case": small, **{f"{k}_ms": v for k, v in ms.items()},
           "kernel_speedup_vs_plain": ms["plain"] / ms["kernel"],
-          "kernel_by_B": {str(k): v for k, v in by_b.items()}, "f32_route": f32,
+          "kernel_by_B": {str(k): v for k, v in by_b.items()},
           "reps": REPS, "timing": "CUDA events, each run queued behind a 0.1 ms device spin "
                                   "(cold_l2_ms: behind a 256 MB L2 flush)"})
 
@@ -1528,14 +1541,15 @@ def phase_stage_a(torch, engine, qvecs, qterms):
     # every launch of the bf16 main path on the tensor-core kernel, none on the f32 one
     check(launches["stage_a_fused"] == len(got) and sum(launches.values()) == len(got),
           "stage_a", f"launches {launches}, expected {len(got)} stage_a_fused")
-    return {"name": "stage_a_fused", "route": "cuda",
-            "source": "review_recommender_tpu_torch/csrc/stage_a_wgmma.cu",
-            "replaces": "review_recommender_tpu/ops/pallas/stage_a_kernel.py:61",
-            "launches": launches["stage_a_fused"],
-            "max_abs_err": max(tile_row["max_abs_err"], small["max_abs_err"]),
-            "ms": ms["kernel"], "plain_ms": ms["plain"],
-            "bound_ms": by_b[b]["bound_ms"], "bound_by": by_b[b]["bound_by"],
-            "library_ms": None}  # no single PyTorch call computes stage A
+    bf16_entry = {"name": "stage_a_fused", "route": "cuda",
+                  "source": "review_recommender_tpu_torch/csrc/stage_a_wgmma.cu",
+                  "replaces": "review_recommender_tpu/ops/pallas/stage_a_kernel.py:61",
+                  "launches": launches["stage_a_fused"],
+                  "max_abs_err": max(tile_row["max_abs_err"], small["max_abs_err"]),
+                  "ms": ms["kernel"], "plain_ms": ms["plain"],
+                  "bound_ms": by_b[b]["bound_ms"], "bound_by": by_b[b]["bound_by"],
+                  "library_ms": None}  # no single PyTorch call computes stage A
+    return [bf16_entry, *_stage_a_f32_routes(torch, engine, qvecs, qterms)]
 
 
 def _stage_a_bound(n, d, b, itemsize, peak_flops):
@@ -1551,10 +1565,11 @@ def _stage_a_bound(n, d, b, itemsize, peak_flops):
     return bound[by], by, nbytes
 
 
-def _stage_a_by_batch(torch, emb, valid, qvecs):
-    """The bf16 tile-pass kernel at each of STAGE_A_BATCHES on phase 4's
-    corpus: behind the spin and behind an L2 flush, the query chunk it ran
-    at, its bound and the share of it each time reaches."""
+def _stage_a_by_batch(torch, emb, valid, qvecs, batches):
+    """The tile-pass kernel on `emb` at each batch width: behind the spin
+    and behind an L2 flush, the query chunk it ran at, its bound (the
+    products at the route's rate: bf16 tensor cores, 3xTF32, or the f32
+    CUDA cores) and the share of it each time reaches."""
     from review_recommender_tpu_torch.ops import stage_a as SA
 
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
@@ -1562,15 +1577,18 @@ def _stage_a_by_batch(torch, emb, valid, qvecs):
     flush = lambda: flush_buf.fill_(1.0)
     n, d = emb.shape
     out = {}
-    for nb in STAGE_A_BATCHES:
+    for nb in batches:
         q_nb = torch.from_numpy(qvecs[:nb]).cuda()
         run = lambda: SA.stage_a_tile_winners_kernel(emb, valid, q_nb)
         for _ in range(3):
             run()
         spun = _median_ms(torch, run, REPS, before=spin)
         cold = _median_ms(torch, run, REPS, before=flush)
-        bound_ms, by, nbytes = _stage_a_bound(n, d, nb, emb.element_size(), PEAK_BF16_FLOPS)
-        out[nb] = {"ms": spun, "cold_l2_ms": cold, "query_chunk": SA.stage_a_query_chunk(d, nb),
+        route = SA.stage_a_route(emb.dtype, d, nb)
+        peak = {"wgmma": PEAK_BF16_FLOPS, "tf32": PEAK_F32_EXACT_FLOPS, "fma": PEAK_FP32_FLOPS}[route]
+        bound_ms, by, nbytes = _stage_a_bound(n, d, nb, emb.element_size(), peak)
+        out[nb] = {"route": route, "ms": spun, "cold_l2_ms": cold,
+                   "query_chunk": SA.stage_a_query_chunk(d, nb, emb.dtype),
                    "bound_ms": bound_ms, "bound_by": by, "share_of_bound": bound_ms / spun,
                    "share_of_bound_cold_l2": bound_ms / cold,
                    "hbm_share": nbytes / PEAK_HBM_BYTES / (spun / 1e3)}
@@ -1578,24 +1596,121 @@ def _stage_a_by_batch(torch, emb, valid, qvecs):
     return out
 
 
-def _stage_a_f32_route(torch, emb, valid, qv):
-    """The f32 route at the same shape: the corpus in f32 through the
-    CUDA-core kernel, against its plain version, timed behind the spin."""
+def _stage_a_f32_routes(torch, engine, qvecs, qterms):
+    """The f32 routes of the tile pass, each held to its plain version,
+    timed and driven as a main path of its own (counts zeroed just before,
+    read just after):
+      tf32  phase 4's corpus in f32 (D = 384): the tile pass at B = 32 on it
+            and on a seeded unit corpus of the same shape drawn on the card
+            (full f32 mantissas), the exhausted-tile case; B = 1, 32, 128
+            timed, and the exact f32 stage A at B = 32; stage_a_fused on
+            the 256 queries in batches of 32, pool recall against the
+            exact f32 stage A;
+      fma   a seeded unit corpus at D = STAGE_A_FMA_DIM (past the tf32
+            route's widest) over phase 4's rows, validity, postings and
+            query terms: the tile pass and the exact stage A at B = 32,
+            timed, and stage_a_fused on two batches of 32.
+    Returns the kernels line's entries of both routes."""
     from review_recommender_tpu_torch.ops import stage_a as SA
+    from review_recommender_tpu_torch.ops.bm25 import bm25_candidate_scores_eager
+    from review_recommender_tpu_torch.ops.dense import dense_topk_batched
 
-    emb32 = emb.float()
-    before = (SA.stage_a_kernel_launches, SA.stage_a_f32_kernel_launches)
-    row, _ = _tile_winners_diff(torch, emb32, valid, qv, "stage_a")
-    check((SA.stage_a_kernel_launches, SA.stage_a_f32_kernel_launches)
-          == (before[0], before[1] + 1), "stage_a", "the f32 corpus did not take the f32 kernel")
-    run = lambda: SA.stage_a_tile_winners_kernel(emb32, valid, qv)
-    run()
-    ms = _median_ms(torch, run, REPS, before=lambda: torch.cuda._sleep(SPIN_CYCLES))
-    bound_ms, by, _ = _stage_a_bound(*emb32.shape, qv.shape[0], 4, PEAK_FP32_FLOPS)
-    del emb32
+    a = engine.arrays
+    valid, terms, bm25 = a["valid"], a["doc_terms"], a["doc_bm25"]
+    emb32 = a["emb"].float()
+    n, d = emb32.shape
+    b = BATCHES[0]
+    qv = torch.from_numpy(qvecs[:b]).cuda()
+    spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
+    g = torch.Generator(device=valid.device).manual_seed(STAGE_A_F32_SEED)
+
+    def unit(rows, dim):
+        x = torch.randn(rows, dim, generator=g, device=valid.device)
+        return x / x.norm(dim=1, keepdim=True)
+
+    def exact_ms(emb, q):  # the exact stage A on this corpus (bench.py:1553-1561), timed
+        qt = torch.from_numpy(qterms[:b]).cuda()
+
+        def run():
+            _d, idx = dense_topk_batched(emb, q, valid, POOL)
+            return bm25_candidate_scores_eager(terms[idx], bm25[idx], qt)
+        run()
+        return _median_ms(torch, run, REPS, before=spin)
+
+    def counted(route, emb, queries, k):  # stage_a_fused on k batches of b queries
+        _zero_counts()
+        got = [SA.stage_a_fused(emb, valid, terms, bm25,
+                                torch.from_numpy(queries[lo:lo + b]).cuda(),
+                                torch.from_numpy(qterms[lo:lo + b]).cuda(), POOL)
+               for lo in range(0, k * b, b)]
+        torch.cuda.synchronize()
+        launches = _counts()
+        name = {"tf32": "stage_a_tf32", "fma": "stage_a_fma"}[route]
+        check(launches[name] == k and sum(launches.values()) == k, "stage_a",
+              f"f32 main path ({route}): launches {launches}, expected {k} {name}")
+        dense = torch.cat([x[0] for x in got])
+        check(bool(torch.isfinite(dense).all()) and bool((dense[:, 1:] <= dense[:, :-1]).all()),
+              "stage_a", f"{route}: stage_a_fused dense scores not finite and sorted")
+        return launches[name], got
+
+    # ---- tf32: phase 8's corpus in f32
+    rows = {"phase4_f32": _tile_winners_diff(torch, emb32, valid, qv, "stage_a")[0]}
+    full = unit(n, d)
+    rows["unit_f32"] = _tile_winners_diff(torch, full, valid, qv, "stage_a")[0]
+    del full
+    rows["exhausted_tile"] = _exhausted_case(torch, torch.float32)
+    by_b = _stage_a_by_batch(torch, emb32, valid, qvecs, STAGE_A_F32_BATCHES)
+    check(all(r["route"] == "tf32" for r in by_b.values()), "stage_a", "f32 at D=384 not on tf32")
+    run_plain = lambda: SA.stage_a_tile_winners_reference(emb32, valid, qv)
+    run_plain()
+    plain_ms = _median_ms(torch, run_plain, REPS, before=spin)
+    tf32_exact_ms = exact_ms(emb32, qv)
+    tf32_launches, got = counted("tf32", emb32, qvecs, len(qvecs) // b)
+    exact = [dense_topk_batched(emb32, torch.from_numpy(qvecs[lo:lo + b]).cuda(), valid, POOL)[1]
+             for lo in range(0, len(qvecs), b)]
+    recall = _recall(torch.cat(exact).cpu().numpy(), torch.cat([x[1] for x in got]).cpu().numpy())
+    check(recall >= STAGE_A_MIN_RECALL, "stage_a", f"tf32 pool recall {recall}")
+    err = max(r["max_abs_err"] for r in rows.values())
+    tf32 = {"name": "stage_a_tf32", "route": "cuda",
+            "source": "review_recommender_tpu_torch/csrc/stage_a_wgmma.cu",
+            "replaces": "review_recommender_tpu/ops/pallas/stage_a_kernel.py:61",
+            "launches": tf32_launches, "max_abs_err": err,
+            "ms": by_b[b]["ms"], "plain_ms": plain_ms,
+            "bound_ms": by_b[b]["bound_ms"], "bound_by": by_b[b]["bound_by"], "library_ms": None}
+    emit({"phase": "stage_a_f32", "route": "tf32", "N": n, "D": d, "checks": rows,
+          "kernel_by_B": {str(k): v for k, v in by_b.items()}, "plain_ms": plain_ms,
+          "exact_ms": tf32_exact_ms, "main_path_batches": len(got),
+          "pool_recall_vs_exact": recall, "reps": REPS})
+    del emb32, got, exact
     torch.cuda.empty_cache()
-    return {"ms": ms, "bound_ms": bound_ms, "bound_by": by, "share_of_bound": bound_ms / ms,
-            "max_abs_err": row["max_abs_err"], "ids_equal_share": row["ids_equal_share"]}
+
+    # ---- fma: a corpus past the tf32 route's widest D
+    wide = unit(n, STAGE_A_FMA_DIM)
+    qw_np = np.random.default_rng(STAGE_A_F32_SEED).standard_normal(
+        (b, STAGE_A_FMA_DIM)).astype(np.float32)
+    qw_np /= np.linalg.norm(qw_np, axis=1, keepdims=True)
+    qw = torch.from_numpy(qw_np).cuda()
+    check(SA.stage_a_route(wide.dtype, STAGE_A_FMA_DIM, b) == "fma", "stage_a",
+          f"D={STAGE_A_FMA_DIM} f32 not on the fma route")
+    wide_row, _ = _tile_winners_diff(torch, wide, valid, qw, "stage_a")
+    fma_ms = _stage_a_by_batch(torch, wide, valid, qw_np, (b,))[b]
+    run_plain = lambda: SA.stage_a_tile_winners_reference(wide, valid, qw)
+    run_plain()
+    fma_plain_ms = _median_ms(torch, run_plain, REPS, before=spin)
+    fma_exact_ms = exact_ms(wide, qw)
+    fma_launches, _got = counted("fma", wide, np.concatenate([qw_np, qw_np[::-1]]), 2)
+    emit({"phase": "stage_a_f32", "route": "fma", "N": n, "D": STAGE_A_FMA_DIM,
+          "check": wide_row, "kernel": fma_ms, "plain_ms": fma_plain_ms,
+          "exact_ms": fma_exact_ms, "reps": REPS})
+    del wide, _got
+    torch.cuda.empty_cache()
+    fma = {"name": "stage_a_fma", "route": "cuda",
+           "source": "review_recommender_tpu_torch/csrc/stage_a_fused.cu",
+           "replaces": "review_recommender_tpu/ops/pallas/stage_a_kernel.py:61",
+           "launches": fma_launches, "max_abs_err": wide_row["max_abs_err"],
+           "ms": fma_ms["ms"], "plain_ms": fma_plain_ms,
+           "bound_ms": fma_ms["bound_ms"], "bound_by": fma_ms["bound_by"], "library_ms": None}
+    return [tf32, fma]
 
 
 def _e2e_rows(engine, rows, scores):
@@ -5286,7 +5401,7 @@ def main() -> int:
         bm25_launches, bm25_err = phase_bm25_slice(torch, engine)
         mark("bm25")
         qvecs, qterms = phase_batched_slice(torch, engine)
-        stage_a_entry = phase_stage_a(torch, engine, qvecs, qterms)
+        stage_a_entries = phase_stage_a(torch, engine, qvecs, qterms)
         mark("batched_stage_a")
         launches += phase_e2e_slice(torch, engine)
         launches += phase_rerank_coalesce(torch, engine, qvecs)
@@ -5370,7 +5485,7 @@ def main() -> int:
             "library_ms": rows[0]["library_backward_ms"],
         })
     emit({"kernels": entries + _bm25_kernel_entries(bm25_rows, bm25_launches, bm25_err)
-          + [stage_a_entry]})
+          + stage_a_entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -4,7 +4,7 @@ featurizer on the engine paths (review_recommender_tpu_torch), on one NVIDIA
 GPU, for an A/B of two versions on the same card.
 
     python3 examples/torch_attention_ab.py [ROOT] [--tag NAME]
-        [--kernel attention|bm25|stage_a|featurize]
+        [--kernel attention|bm25|stage_a|featurize] [--parent PARENT]
 
 ROOT is the root of a checkout (default: this one). Its port is imported
 from there and its kernels are built there, so two checkouts can be timed
@@ -32,9 +32,16 @@ each: device_ms as above, and cold_l2_ms, each launch queued behind a 256
 MB fill that flushes the 50 MB L2.
 
 --kernel stage_a: the stage-A tile pass (stage_a_tile_winners_kernel) on
-one 200,704 x 384 bf16 corpus of unit rows drawn on the card from a seeded
-torch.Generator (3% of rows invalid), at B = 1, 8, 32 and 128 seeded unit
-queries, one JSON line each: device_ms and cold_l2_ms as above.
+one 200,704 x 384 corpus of unit rows drawn on the card from a seeded
+torch.Generator (3% of rows invalid), in bf16 and then in f32, at B = 1, 8,
+32 and 128 seeded unit queries, one JSON line each with the route
+(ops/stage_a.py:stage_a_route): device_ms and cold_l2_ms as above. With
+--parent PARENT (another checkout, e.g. a `git archive` of the parent
+commit unpacked under build/), PARENT's csrc/stage_a_*.cu are built into
+build/stage_a_ab/ and called through their own C entries
+(rrt_stage_a_wgmma for bf16, rrt_stage_a_tf32 or else rrt_stage_a_f32 for
+f32) in the same process, in the order parent, change, change, parent:
+device_ms of each, their ratio and the largest score difference.
 
 --kernel featurize: chip_smoke.py's phase 4 corpus (200k products, D=384)
 in an engine with ROOT's default featurizer (the Python route before the
@@ -152,29 +159,69 @@ def _bm25(torch, tag: str) -> None:
         torch.cuda.empty_cache()
 
 
-def _stage_a(torch, tag: str) -> None:
+def _parent_stage_a(parent: Path):
+    """PARENT's stage-A kernels in a library of their own, with the C entry
+    each corpus type goes to there."""
+    import ctypes
+
+    from review_recommender_tpu_torch import kernels
+
+    csrc = parent / "review_recommender_tpu_torch" / "csrc"
+    out = HERE / "build" / "stage_a_ab" / "parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [kernels.nvcc_path(), *kernels.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+           "-I", str(csrc), "-shared", "-o", str(out), *map(str, sorted(csrc.glob("stage_a_*.cu")))]
+    subprocess.run(cmd, check=True)
+    lib = ctypes.CDLL(str(out))
+    f32 = getattr(lib, "rrt_stage_a_tf32", None) or lib.rrt_stage_a_f32
+    for fn in (lib.rrt_stage_a_wgmma, f32):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return {"bfloat16": lib.rrt_stage_a_wgmma, "float32": f32}
+
+
+def _stage_a(torch, tag: str, parent=None) -> None:
     from review_recommender_tpu_torch.ops import stage_a as SA
 
     n, d = 200_704, 384
     g = torch.Generator(device="cuda").manual_seed(600)
-    emb = torch.randn(n, d, generator=g, device="cuda")
-    emb = (emb / emb.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    emb32 = torch.randn(n, d, generator=g, device="cuda")
+    emb32 = emb32 / emb32.norm(dim=1, keepdim=True)
     valid = torch.rand(n, generator=g, device="cuda") >= 0.03
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
     flush_buf = torch.empty((256 << 20) // 4, dtype=torch.float32, device="cuda")
     flush = lambda: flush_buf.fill_(1.0)
-    rng = np.random.default_rng(601)
-    for b in (1, 8, 32, 128):
-        q = rng.standard_normal((b, d)).astype(np.float32)
-        qv = torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to("cuda")
-        run = lambda: SA.stage_a_tile_winners_kernel(emb, valid, qv)
-        for _ in range(3):
-            run()
-        device_ms = _median_ms(torch, run, before=spin)
-        cold_ms = _median_ms(torch, run, before=flush)
-        print(json.dumps({"tag": tag, "kernel": "stage_a", "N": n, "D": d, "B": b,
-                          "device_ms": device_ms, "cold_l2_ms": cold_ms, "reps": REPS}),
-              flush=True)
+    entries = _parent_stage_a(Path(parent).resolve()) if parent else None
+    tiles = -(-n // 2048)
+    for dtype in ("bfloat16", "float32"):
+        emb = emb32.to(getattr(torch, dtype))
+        rng = np.random.default_rng(601)
+        for b in (1, 8, 32, 128):
+            q = rng.standard_normal((b, d)).astype(np.float32)
+            qv = torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to("cuda")
+            run = lambda: SA.stage_a_tile_winners_kernel(emb, valid, qv)
+            row = {"tag": tag, "kernel": "stage_a", "dtype": dtype, "N": n, "D": d, "B": b,
+                   "route": SA.stage_a_route(emb.dtype, d, b), "reps": REPS}
+            for _ in range(3):
+                got = run()
+            if entries is None:
+                row.update(device_ms=_median_ms(torch, run, before=spin),
+                           cold_l2_ms=_median_ms(torch, run, before=flush))
+            else:
+                out_s = torch.empty(tiles, 16, b, device="cuda")
+                out_i = torch.empty(tiles, 16, b, dtype=torch.int32, device="cuda")
+                stream = torch.cuda.current_stream().cuda_stream
+                fn = entries[dtype]
+                prun = lambda: fn(emb.data_ptr(), valid.data_ptr(), qv.data_ptr(),
+                                  out_s.data_ptr(), out_i.data_ptr(), n, d, b, stream)
+                for _ in range(3):
+                    if prun() != 0:
+                        raise SystemExit(f"parent stage A failed to launch ({dtype}, B={b})")
+                t = [_median_ms(torch, f, before=spin) for f in (prun, run, run, prun)]
+                row.update(parent_ms=[t[0], t[3]], change_ms=[t[1], t[2]],
+                           change_over_parent=(t[1] + t[2]) / (t[0] + t[3]),
+                           max_abs_diff_vs_parent=float((got[0] - out_s).abs().max()))
+            print(json.dumps(row), flush=True)
 
 
 def _featurize(torch, tag: str) -> None:
@@ -215,6 +262,9 @@ def main() -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--kernel", choices=("attention", "bm25", "stage_a", "featurize"),
                     default="attention")
+    ap.add_argument("--parent", default=None,
+                    help="--kernel stage_a: a checkout whose stage-A kernels run in turns "
+                         "with ROOT's in this process")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -234,8 +284,11 @@ def main() -> int:
     kernels.build()
     print(json.dumps({"tag": args.tag, "root": str(root), "card": smi, "kernel": args.kernel}),
           flush=True)
-    {"attention": _attention, "bm25": _bm25, "stage_a": _stage_a,
-     "featurize": _featurize}[args.kernel](torch, args.tag)
+    if args.kernel == "stage_a":
+        _stage_a(torch, args.tag, args.parent)
+    else:
+        {"attention": _attention, "bm25": _bm25,
+         "featurize": _featurize}[args.kernel](torch, args.tag)
     return 0
 
 

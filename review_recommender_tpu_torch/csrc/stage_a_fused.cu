@@ -1,8 +1,9 @@
-// Fused stage A for Hopper (sm_90a) on the CUDA cores, for an f32 corpus:
-// dense scores of one corpus tile for a group of queries, and each query's
-// 16 best rows of the tile, in one pass. A bf16 corpus takes the tensor-core
-// kernel (stage_a_wgmma.cu); wgmma has no f32 input, and TF32 would keep
-// about three digits.
+// Fused stage A for Hopper (sm_90a) on the CUDA cores, for an f32 corpus
+// wider than the tensor-core kernel takes: dense scores of one corpus tile
+// for a group of queries, and each query's 16 best rows of the tile, in one
+// pass. A bf16 corpus, and an f32 one of D <= 2,912, take
+// stage_a_wgmma.cu (the f32 products as 3xTF32), whose queries (hi and lo
+// copies) no longer fit its shared memory beyond that width.
 //
 // Replaces _stage_a_kernel of review_recommender_tpu/ops/pallas/
 // stage_a_kernel.py (stage_a_fused_pallas) for f32. For each 2048-row tile
@@ -18,13 +19,14 @@
 // do in the TPU kernel. The global merge, the postings gather and the BM25
 // sum stay in torch (ops/stage_a.py), as the JAX package keeps them in XLA.
 //
-// What bounds it: one read of the corpus (N * D * 4 bytes, 308 MB at N =
-// 200,704, D = 384: ~92 us of HBM) against 2 * N * D * B FLOP of products
-// (4.9 GFLOP at B = 32: ~74 us on the f32 CUDA cores at 67 TFLOP/s). This
-// design (the port's first, from when it took bf16 too) spends CUDA-core
-// FMAs on them: a block of 256 threads takes
-// one tile and a group of 8 queries (blockIdx.x = group, so the blocks
-// that share a tile run side by side and all but one read it from L2).
+// What bounds it: one read of the corpus (N * D * 4 bytes, 2.47 GB at N =
+// 200,704, D = 3,072: ~0.74 ms of HBM) against 2 * N * D * B FLOP of
+// products (39.5 GFLOP at B = 32: ~0.59 ms on the f32 CUDA cores at 67
+// TFLOP/s). This design (the port's first, from when it took bf16 and
+// every f32 width too) spends CUDA-core FMAs on them: a block of 256
+// threads takes one tile and a group of 8 queries (blockIdx.x = group, so
+// the blocks that share a tile run side by side and all but one read it
+// from L2).
 // The group's query vectors sit in shared memory as f32 (8 * D * 4
 // bytes) and are read as broadcast 16-byte loads; each thread scores whole
 // rows with 16-byte loads along the row, four in flight, 8 accumulators.
@@ -47,6 +49,9 @@ constexpr int kGroup = 8;    // queries per block, one selecting warp each
 constexpr int kThreads = kGroup * 32;
 constexpr float kNeg = -3.4e38f;
 constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may take
+// The widest f32 corpus stage_a_wgmma.cu takes (rrt_stage_a_tf32_max_dim);
+// this route takes the wider ones only.
+constexpr int kTf32MaxDim = 2912;
 
 template <typename T>
 struct Row;
@@ -181,14 +186,15 @@ cudaError_t launch(const void* emb, const void* valid, const void* qvecs, void* 
 
 }  // namespace
 
-// emb (N, D) f32, 16-byte aligned with D a multiple of 4; valid (N,) bool;
+// emb (N, D) f32, 16-byte aligned with D a multiple of 4 and D > 2,912
+// (narrower corpora take rrt_stage_a_tf32); valid (N,) bool;
 // qvecs (B, D) f32, 16-byte aligned; out_s (n_tiles, 16, B) f32 and out_i
 // (n_tiles, 16, B) int32 with n_tiles = ceil(N / 2048) <= 65535; all
 // contiguous on one device. Returns a cudaError_t (0 = launched).
-extern "C" int rrt_stage_a_f32(const void* emb, const void* valid, const void* qvecs,
+extern "C" int rrt_stage_a_fma(const void* emb, const void* valid, const void* qvecs,
                                void* out_s, void* out_i, int n, int d, int b, void* stream) {
   const long long n_tiles = ((long long)n + kTileN - 1) / kTileN;
-  if (n <= 0 || d <= 0 || b <= 0 || d % 4 != 0 || n_tiles > 65535 ||
+  if (n <= 0 || d <= kTf32MaxDim || b <= 0 || d % 4 != 0 || n_tiles > 65535 ||
       (long long)kGroup * (d + kTileN) * 4 > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   return (int)launch<float>(emb, valid, qvecs, out_s, out_i, n, d, b,

@@ -1,12 +1,14 @@
 // Fused stage A for Hopper (sm_90a) on the tensor cores: dense scores of
 // one 2048-row corpus tile for a batch of queries, and each query's 16 best
-// rows of the tile, in one pass.
+// rows of the tile, in one pass. One kernel template takes a bf16 corpus
+// (rrt_stage_a_wgmma) and an f32 one (rrt_stage_a_tf32, the products as
+// 3xTF32).
 //
 // Replaces _stage_a_kernel of review_recommender_tpu/ops/pallas/
-// stage_a_kernel.py (reached through stage_a_fused_pallas) for a bf16
-// corpus. For each 2048-row tile t and query b:
-//   score[r] = f32 sum over k of emb[r][k] * q_b[k], q_b rounded to bf16
-//              first (bf16 products are exact in f32);
+// stage_a_kernel.py (reached through stage_a_fused_pallas). For each
+// 2048-row tile t and query b:
+//   score[r] = f32 sum over k of emb[r][k] * q_b[k] (q_b rounded to bf16
+//              first for a bf16 corpus; bf16 products are exact in f32);
 //   rows where valid[r] == 0 or r >= n score -3.4e38f and never win;
 //   16 rounds: (the largest remaining score, the lowest local index among
 //              equal ones), then that row is out;
@@ -15,39 +17,70 @@
 // returns (-3.4e38f, 0), as the TPU kernel's rounds do (every score left is
 // -3.4e38f, and row 0 is the lowest index holding it).
 //
-// What bounds it: reading the corpus once, N * D * 2 bytes = 154 MB at N =
-// 200,704, D = 384, over 3.35 TB/s of HBM: 0.0459 ms. The products, 2 * N *
-// D * B = 4.9 GFLOP at B = 32, take 5 us at the 989 TFLOP/s of the bf16
-// tensor cores (20 us at B = 128). The first CUDA design (stage_a_fused.cu,
-// kept for f32 corpora) was CUDA-core FMAs, a corpus read per group of 8
-// queries, one thread per row and 16 rescans of the tile per query.
+// What bounds it at N = 200,704, D = 384: reading the corpus once, N * D *
+// itemsize bytes over 3.35 TB/s of HBM, 0.0459 ms in bf16 and 0.0920 ms in
+// f32. The products, 2 * N * D * B = 4.9 GFLOP at B = 32, take 5 us at the
+// 989 TFLOP/s of the bf16 tensor cores (20 us at B = 128) and 30 us at the
+// f32-exact rate of 3xTF32, 495 / 3 TFLOP/s (0.120 ms at B = 128, above the
+// bytes). The first CUDA design (stage_a_fused.cu, kept for f32 corpora
+// wider than this kernel takes) was CUDA-core FMAs, a corpus read per group
+// of 8 queries, one thread per row and 16 rescans of the tile per query.
 //
 // Design, one CTA of 416 threads per (tile, chunk of up to NC queries), the
 // warps specialised (examples/torch_stage_a_breakdown.py times its parts on
 // the card; PERF.md has the numbers):
-//   - Queries. The chunk's NC queries (zero past B and past D) are rounded
-//     to bf16 once and written to shared memory in the layout wgmma reads
-//     its B operand from (N = query, K = the embedding dim, 128-byte rows,
-//     128-byte swizzle). NC is 16, 32, 64 or 128: the smallest that holds
-//     B, halved while the queries, the lists, one score buffer and 4 ring
-//     stages do not fit (every D <= 4096 is taken; at D = 384 one chunk
-//     holds 128 queries). A wider batch is gridDim.y chunks, each reading
-//     the tile again.
+//   - Queries. The chunk's NC queries (zero past B and past D) are written
+//     once to shared memory in the layout wgmma reads its B operand from (N
+//     = query, K = the embedding dim, 128-byte rows, 128-byte swizzle): in
+//     bf16, rounded to bf16; in f32, split (below). bf16: NC is 16, 32, 64
+//     or 128, the smallest that holds B, halved while the queries, the
+//     lists, one score buffer and 4 ring stages do not fit (every D <= 4096
+//     is taken; at D = 384 one chunk holds 128 queries). A wider batch is
+//     more chunks, each reading the tile again.
 //   - Corpus (a producer warp). The tile streams through a ring of 8 KB TMA
-//     boxes (64 rows x 64 columns, 128-byte swizzle), as many stages as
-//     shared memory leaves (up to 24; 19 at NC = 32, D = 384, so 150 KB are
-//     in flight per SM), each completed on an mbarrier. TMA zero-fills rows
-//     past N and columns past D; the kernel masks the rows itself.
-//   - Products (one MMA warpgroup). wgmma m64nNCk16 (A = a slab of 64
+//     boxes (64 rows x one 128-byte swizzled row: 64 bf16 or 32 f32
+//     columns), as many stages as shared memory leaves (up to 24; 19 at NC
+//     = 32, D = 384 in bf16, so 150 KB are in flight per SM), each
+//     completed on an mbarrier. TMA zero-fills rows past N and columns past
+//     D; the kernel masks the rows itself.
+//   - Products, bf16 (one MMA warpgroup). wgmma m64nNCk16 (A = a slab of 64
 //     corpus rows, B = the queries, both K-major from shared memory, f32
 //     accumulators in registers), 4 k-steps per box; each box goes back to
 //     the producer once the wgmma that read it is done. A wgmma costs ~80
 //     cycles whatever N is (8 to 64), so the whole chunk is one N: the 24
 //     wgmmas of a slab at D = 384 take ~1.1 us, under the ~1.4 us its bytes
-//     take at the bound. The slab's scores go to a score buffer in shared
-//     memory (query-major, 64 rows; two buffers where they fit, else one),
-//     NaN on invalid rows (no compare passes NaN), -0 made +0 (so that the
-//     key order below is the float order of the plain version).
+//     take at the bound.
+//   - Products, f32 (3xTF32). A product is hi*q_hi + hi*q_lo + lo*q_hi (the
+//     lo*lo term, under 2^-20 of the product, is dropped), 4 k-steps of wgmma
+//     m64nNk8 a box. The queries are split once a CTA, q_hi = tf32(q) and q_lo
+//     = tf32(q - q_hi) (cvt.rna): each box holds the chunk's NC hi rows, then
+//     its NC lo rows. The corpus is not split in shared memory: the tensor
+//     cores read the box's f32 values as TF32 by their top 10 mantissa bits, so
+//     hi = trunc(x) costs nothing, and one wgmma with A = the box (shared
+//     memory) and N = 2 NC takes hi*q_hi and hi*q_lo. lo = x - trunc(x) (exact
+//     in f32; the tensor cores read its top 10 bits too, which costs at most
+//     2^-20 |x|) is formed in registers and feeds a wgmma with A from registers
+//     (the RS form) and N = NC: lo*q_hi. Each MMA thread loads its two rows (g,
+//     g + 8) of the box, columns 8kk + c and 8kk + c + 4 for k-step kk (4-byte
+//     loads, no bank conflict); the next box's lo is formed while a box's
+//     products run, and a box goes back to the producer once they are done. (On
+//     the card, trunc matches the hardware's reading: rounding there would
+//     leave single-TF32 errors, above 1e-5 at D = 384, and the tile pass's
+//     largest error is 4.9e-7.) The tensor cores truncate each sum they add, so
+//     the small terms have accumulators of their own, apart from hi*q_hi (in
+//     the attention kernel, one accumulator for the three terms moved an f32
+//     search's scores by 1.1e-4). The first f32 design split hi and lo in
+//     registers and fed both as A (two RS wgmmas a k-step): 0.213 ms at B = 32
+//     against 0.150 for this one (PERF.md). The two copies of the queries take
+//     2 * NC * D * 4 bytes, so NC is 8 (B <= 8, or where 16 do not fit), 16 or
+//     32 (32 at D = 384: 96 KB) and D at most 2,912 (91 boxes at NC = 8 beside
+//     4 ring stages); a wider f32 corpus takes stage_a_fused.cu. The chunks of
+//     a tile are neighbours in the grid (blockIdx.x), so they run side by side
+//     and all but one read the tile from L2.
+//   - Scores. Each slab's scores go to a score buffer in shared memory
+//     (query-major, 64 rows; two buffers where they fit, else one), NaN on
+//     invalid rows (no compare passes NaN), -0 made +0 (so that the key
+//     order below is the float order of the plain version).
 //   - Selection without rescans (8 selection warps; warp w owns queries w,
 //     w + 8, ...). Each query keeps a threshold (-inf at first) and a count
 //     in the warp's registers, and a list of candidate keys in shared
@@ -82,14 +115,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_wgmma.cuh"
+
 namespace {
 
 constexpr int kTileN = 2048;
 constexpr int kRounds = 16;   // M_PER_TILE
 constexpr int kSlab = 64;     // corpus rows per wgmma: its M
 constexpr int kSlabs = kTileN / kSlab;
-constexpr int kBoxCols = 64;  // bf16 columns per box: one 128-byte swizzled row
-constexpr int kBoxBytes = kSlab * kBoxCols * 2;  // 8 KB
+constexpr int kBoxBytes = kSlab * 128;  // 8 KB: one 128-byte swizzled row a corpus row
 constexpr int kSelWarps = 8;                         // selection warps
 constexpr int kConsumers = 128 + 32 * kSelWarps;     // the MMA warpgroup + them
 constexpr int kThreads = kConsumers + 32;            // + the producer warp
@@ -102,16 +136,33 @@ constexpr int kMaxStages = 24;
 constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may take
 constexpr float kNeg = -3.4e38f;
 
+// What the corpus type decides: the columns of a box (one 128-byte row),
+// the copies of the queries in shared memory (f32: hi and lo), the
+// narrowest and the widest chunk (f32: 8, for wide D, and 32, for
+// registers and shared memory) and the TMA element type.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kBoxCols = 64, kCopies = 1, kMinChunk = 16, kMaxChunk = 128;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Elem<float> {
+  static constexpr int kBoxCols = 32, kCopies = 2, kMinChunk = 8, kMaxChunk = 32;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+
 // Keys a query's candidate list holds: 128 (4 a lane) up to 32 queries a
 // chunk, 64 (2 a lane) from 64, where the queries take 48-96 KB at D = 384.
 __host__ __device__ constexpr int list_cap(int nc) { return nc <= 32 ? 128 : 64; }
 
 // Shared memory (from a 1024-byte aligned base): the queries (kc boxes of
-// nc rows x 128 bytes), the ring, the candidate lists, nbuf slab score
-// buffers (nc x pitch(nc) floats), then a full and an empty mbarrier per stage
-// and per score buffer; 1024 bytes of slack to align the base.
-__host__ __device__ constexpr size_t smem_bytes(int nc, int kc, int stages, int nbuf) {
-  return 1024 + (size_t)kc * nc * 128 + (size_t)stages * kBoxBytes +
+// copies * nc rows x 128 bytes), the ring, the candidate lists, nbuf slab
+// score buffers (nc x pitch(nc) floats), then a full and an empty mbarrier
+// per stage and per score buffer; 1024 bytes of slack to align the base.
+__host__ __device__ constexpr size_t smem_bytes(int nc, int kc, int stages, int nbuf, int copies) {
+  return 1024 + (size_t)kc * copies * nc * 128 + (size_t)stages * kBoxBytes +
          (size_t)nc * list_cap(nc) * 8 + (size_t)nbuf * nc * pitch(nc) * 4 + (size_t)stages * 16 + 32;
 }
 
@@ -171,13 +222,6 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int kPending>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Pin the accumulators in program order around the asynchronous wgmma.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // wgmma m64nNk16, bf16 inputs, f32 accumulators; A and B K-major from
@@ -396,24 +440,27 @@ __device__ __forceinline__ void write_rounds(uint64_t* list, int n, float th, fl
   }
 }
 
-// NC queries a chunk (16, 32, 64 or 128): the wgmma's N. nbuf score
-// buffers (2, or 1 where two do not fit beside 8 ring stages): slab s uses
-// buffer s % nbuf.
-template <int NC>
+// A CTA of T's corpus and NC queries (bf16: 16, 32, 64 or 128; f32: 8, 16
+// or 32). nbuf score buffers (2, or 1 where two do not fit beside 8 ring
+// stages): slab s uses buffer s % nbuf.
+template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads, 1)
 stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __restrict__ valid,
                      const float* __restrict__ qvecs, float* __restrict__ out_s,
                      int32_t* __restrict__ out_i, int n, int d, int b, int kc, int stages,
                      int nbuf) {
+  constexpr bool kF32 = Elem<T>::kCopies == 2;
+  constexpr int kBoxCols = Elem<T>::kBoxCols;
+  constexpr int kQRows = Elem<T>::kCopies * NC;  // query rows of a box
   constexpr int kCap = list_cap(NC), kP = kCap / 32, kPitch = pitch(NC);
-  constexpr int kCols = NC / kSelWarps;  // queries each selection warp owns
+  constexpr int kOwn = NC / kSelWarps;  // queries each selection warp owns
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* gbase = smem_raw + (base - raw);
-  const uint32_t s_q = base;                      // box x at + x * NC * 128
-  const uint32_t s_ring = s_q + kc * NC * 128;    // stage s at + s * kBoxBytes
-  uint64_t* cand = reinterpret_cast<uint64_t*>(gbase + (size_t)kc * NC * 128 +
+  const uint32_t s_q = base;                        // box x at + x * kQRows * 128
+  const uint32_t s_ring = s_q + kc * kQRows * 128;  // stage s at + s * kBoxBytes
+  uint64_t* cand = reinterpret_cast<uint64_t*>(gbase + (size_t)kc * kQRows * 128 +
                                                (size_t)stages * kBoxBytes);
   float* sbuf = reinterpret_cast<float*>(cand + NC * kCap);  // [nbuf][NC][kPitch]
   const uint32_t bar_full = smem_u32(sbuf + nbuf * NC * kPitch);  // stage s at + 8 s
@@ -422,7 +469,9 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
   const uint32_t bar_sempty = bar_sfull + 16;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tile = blockIdx.x, q0 = blockIdx.y * NC;
+  // f32: a tile's chunks are neighbours in the grid, so they run side by side
+  const int tile = kF32 ? blockIdx.y : blockIdx.x;
+  const int q0 = (kF32 ? blockIdx.x : blockIdx.y) * NC;
   const int row0 = tile * kTileN;
   const int nq = min(NC, b - q0);
   const int n_slabs = min(kSlabs, (n - row0 + kSlab - 1) / kSlab);
@@ -431,7 +480,9 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(bar_full + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, 4);  // lane 0 of each MMA warp
+      // bf16: lane 0 of each MMA warp; f32: every MMA thread (no divergent
+      // path among the wgmmas in flight)
+      mbar_init(bar_empty + 8 * s, kF32 ? 128 : 4);
     }
     for (int u = 0; u < 2; ++u) {
       mbar_init(bar_sfull + 8 * u, 128);                  // every MMA thread
@@ -441,7 +492,7 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
   }
   __syncthreads();
 
-  if (warp == kConsumers / 32) {  // ---- producer: box t = (slab t / kc, columns (t % kc) * 64)
+  if (warp == kConsumers / 32) {  // ---- producer: box t = (slab t / kc, column box t % kc)
     if (lane == 0) {
       for (int t = 0; t < n_boxes; ++t) {
         const int st = t % stages, r = t / stages;
@@ -458,9 +509,30 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
   // is free until the first slab's selection
   uint8_t* v_tile = reinterpret_cast<uint8_t*>(cand);
   for (int i = tid; i < kTileN; i += kConsumers) v_tile[i] = row0 + i < n ? valid[row0 + i] : 0;
-  // the queries to bf16 in wgmma's B layout: 16-byte piece c8 of query j in
-  // box x at s_q + x * NC * 128 + j * 128 + ((c8 ^ (j & 7)) << 4)
-  {
+  if constexpr (kF32) {
+    // the queries split in wgmma's B layout: 16-byte piece p of query j in
+    // box x (columns x * 32 + 4p .. + 3), its hi at s_q + x * kQRows * 128 +
+    // j * 128 + ((p ^ (j & 7)) << 4), its lo NC rows further
+    const int pieces = NC * kc * 8;
+    for (int i = tid; i < pieces; i += kConsumers) {
+      const int j = i / (kc * 8), x = (i / 8) % kc, p = i % 8, k0 = x * 32 + 4 * p;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < nq && k0 < d)  // d % 4 == 0: the piece is whole
+        v = __ldg(reinterpret_cast<const float4*>(qvecs + (size_t)(q0 + j) * d + k0));
+      const float e[4] = {v.x, v.y, v.z, v.w};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        hi[t] = tf32_rna(e[t]);
+        lo[t] = tf32_rna(e[t] - __uint_as_float(hi[t]));
+      }
+      unsigned char* at = gbase + (size_t)x * kQRows * 128 + j * 128 + ((p ^ (j & 7)) << 4);
+      *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(at + NC * 128) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  } else {
+    // the queries to bf16 in wgmma's B layout: 16-byte piece c8 of query j in
+    // box x at s_q + x * NC * 128 + j * 128 + ((c8 ^ (j & 7)) << 4)
     constexpr int kBatch = 4;  // pieces a thread loads before it stores
     const int pieces = NC * kc * 8;
     for (int p0 = tid; p0 < pieces; p0 += kConsumers * kBatch) {
@@ -493,7 +565,7 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic writes -> wgmma
   consumers_sync();
 
-  if (warp < 4) {  // ---- the MMA warpgroup: scores of slab s into buffer s % 2
+  if (warp < 4) {  // ---- the MMA warpgroup: scores of slab s into buffer s % nbuf
     const int g = lane >> 2, c = lane & 3;
     // bit 2 s + h: this thread's row s * 64 + warp * 16 + g + 8 h is valid
     uint64_t vmask = 0;
@@ -501,29 +573,93 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
       vmask |= (uint64_t)(v_tile[s * kSlab + warp * 16 + g] != 0) << (2 * s);
       vmask |= (uint64_t)(v_tile[s * kSlab + warp * 16 + g + 8] != 0) << (2 * s + 1);
     }
-    float acc[NC / 2] = {};
-    for (int s = 0; s < n_slabs; ++s) {
-      fence_regs(acc);
-      wgmma_fence();
-      for (int x = 0; x < kc; ++x) {
-        const int t = s * kc + x, st = t % stages;
-        mbar_wait(bar_full + 8 * st, (t / stages) & 1);
-        const uint32_t a = s_ring + st * kBoxBytes, bq = s_q + x * NC * 128;
+    // bf16: NC columns; f32: 2 NC (hi*q_hi, then hi*q_lo) and acc_lo's NC (lo*q_hi)
+    float acc[kF32 ? NC : NC / 2] = {};
+    float acc_lo[kF32 ? NC / 2 : 1] = {};
+    // f32: lo = x - trunc(x) of box t's rows g and g + 8 into A registers
+    // for k-steps kk = 0..3: (row g, K c), (g + 8, c), (g, c + 4), (g + 8,
+    // c + 4) are columns 8kk + c and 8kk + c + 4 (4-byte loads, no bank
+    // conflict); trunc(x) clears the 13 low mantissa bits, so lo is exact
+    auto split_lo = [&](uint32_t (&lo)[16], int st) {
+      const unsigned char* box = gbase + (s_ring - base) + st * kBoxBytes;
 #pragma unroll
-        for (int kk = 0; kk < kBoxCols / 16; ++kk)
-          Wgmma<NC>::mma(acc, desc_sw128(a + kk * 32), desc_sw128(bq + kk * 32), (x | kk) != 0);
-        wgmma_commit();
-        if (x > 0) {  // the box before this one is read: back to the producer
-          wgmma_wait<1>();
-          if (lane == 0) mbar_arrive(bar_empty + 8 * ((t - 1) % stages));
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // (row g, K c), (g + 8, c), (g, c + 4), (g + 8, c + 4)
+          const int h = e & 1, col4 = e >> 1;
+          const unsigned char* row = box + (warp * 16 + g + 8 * h) * 128;  // (row & 7) == g
+          const float v = *reinterpret_cast<const float*>(
+              row + (((2 * kk + col4) ^ g) << 4) + 4 * c);
+          lo[4 * kk + e] = __float_as_uint(v - __uint_as_float(__float_as_uint(v) & 0xFFFFE000u));
         }
       }
-      wgmma_wait<0>();
+    };
+    // f32: box x's products, one group: trunc(x) * [q_hi; q_lo] from shared
+    // memory (the tensor cores read the box's f32 as TF32, dropping the 13
+    // low mantissa bits) and lo * q_hi from registers
+    auto mma_box = [&](uint32_t (&lo)[16], int x, int st) {
+      const uint32_t a = s_ring + st * kBoxBytes, bq = s_q + x * kQRows * 128;
+      fence_regs(lo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc_sw128(bq + kk * 32);
+        const uint32_t al[4] = {lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3]};
+        if constexpr (kF32) {
+          wgmma_ss_tf32(acc, desc_sw128(a + kk * 32), db, (x | kk) != 0);  // N = 2 NC
+          wgmma_rs_tf32(acc_lo, al, db, (x | kk) != 0);                     // N = NC
+        }
+      }
+      wgmma_commit();
+    };
+    uint32_t lo0[16], lo1[16];
+    for (int s = 0; s < n_slabs; ++s) {
       fence_regs(acc);
-      if (lane == 0) mbar_arrive(bar_empty + 8 * ((s * kc + kc - 1) % stages));
+      fence_regs(acc_lo);
+      if constexpr (kF32) {
+        // box x's lo is split while box x - 1's products run; a box goes back
+        // to the producer once the products that read it are done
+        auto step = [&](uint32_t (&lo)[16], int x) {
+          const int t = s * kc + x, st = t % stages;
+          mbar_wait(bar_full + 8 * st, (t / stages) & 1);
+          split_lo(lo, st);
+          mma_box(lo, x, st);
+          if (x > 0) {
+            wgmma_wait<1>();
+            mbar_arrive(bar_empty + 8 * ((t - 1) % stages));
+          }
+        };
+        for (int x = 0; x < kc; x += 2) {
+          step(lo0, x);
+          if (x + 1 < kc) step(lo1, x + 1);
+        }
+        wgmma_wait<0>();
+        mbar_arrive(bar_empty + 8 * ((s * kc + kc - 1) % stages));
+      } else {
+        wgmma_fence();
+        for (int x = 0; x < kc; ++x) {
+          const int t = s * kc + x, st = t % stages;
+          mbar_wait(bar_full + 8 * st, (t / stages) & 1);
+          const uint32_t a = s_ring + st * kBoxBytes, bq = s_q + x * NC * 128;
+#pragma unroll
+          for (int kk = 0; kk < kBoxCols / 16; ++kk)
+            Wgmma<NC>::mma(acc, desc_sw128(a + kk * 32), desc_sw128(bq + kk * 32), (x | kk) != 0);
+          wgmma_commit();
+          if (x > 0) {  // the box before this one is read: back to the producer
+            wgmma_wait<1>();
+            if (lane == 0) mbar_arrive(bar_empty + 8 * ((t - 1) % stages));
+          }
+        }
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * ((s * kc + kc - 1) % stages));
+      }
+      fence_regs(acc);
+      fence_regs(acc_lo);
       // accumulator element 4i + 2h + e is (row warp * 16 + g + 8h, query
-      // 8i + 2c + e); an invalid row scores NaN, which no compare passes,
-      // and -0 becomes +0 (the key order is then the float order)
+      // 8i + 2c + e; f32: its hi*q_lo is element 4i + 2h + e + NC / 2 and
+      // its lo*q_hi acc_lo's 4i + 2h + e); an invalid row scores NaN, which
+      // no compare passes, and -0 becomes +0 (the key order is then the
+      // float order)
       const int u = s % nbuf;
       if (s >= nbuf) mbar_wait(bar_sempty + 8 * u, (s / nbuf - 1) & 1);
       float* out = sbuf + u * NC * kPitch + warp * 16 + g;
@@ -533,9 +669,13 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
         for (int h = 0; h < 2; ++h) {
           const bool v = (vmask >> (2 * s + h)) & 1;
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
+          for (int e = 0; e < 2; ++e) {
+            const int k = 4 * i + 2 * h + e;
+            float sc = acc[k];
+            if constexpr (kF32) sc += acc[k + NC / 2] + acc_lo[k];
             out[(8 * i + 2 * c + e) * kPitch + 8 * h] =
-                v ? __fadd_rn(acc[4 * i + 2 * h + e], 0.0f) : __int_as_float(0x7fc00000);
+                v ? __fadd_rn(sc, 0.0f) : __int_as_float(0x7fc00000);
+          }
         }
       }
       mbar_arrive(bar_sfull + 8 * u);
@@ -550,22 +690,22 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
   // prunes a list that could not take another half.
   // Its queries are pruned in groups of kG (queries sw + 8 (g kG + q)): a
   // whole group whenever one of its lists is full, the sorts interleaved.
-  constexpr int kG = kCols < 4 ? kCols : 4;
+  constexpr int kG = kOwn < 4 ? kOwn : 4;
   const int sw = warp - 4;
   const unsigned below = (1u << lane) - 1u;
-  float th[kCols / kG][kG];
-  int cnt[kCols / kG][kG];
+  float th[kOwn / kG][kG];
+  int cnt[kOwn / kG][kG];
 #pragma unroll
-  for (int m = 0; m < kCols; ++m) {
+  for (int m = 0; m < kOwn; ++m) {
     th[m / kG][m % kG] = -INFINITY;
     cnt[m / kG][m % kG] = 0;
   }
   for (int s = 0; s < n_slabs; ++s) {
     const int u = s % nbuf;
     mbar_wait(bar_sfull + 8 * u, (s / nbuf) & 1);
-    float sc[kCols][2];
+    float sc[kOwn][2];
 #pragma unroll
-    for (int m = 0; m < kCols; ++m) {
+    for (int m = 0; m < kOwn; ++m) {
       const float* col = sbuf + (u * NC + sw + 8 * m) * kPitch;
       sc[m][0] = col[lane];
       sc[m][1] = col[lane + 32];
@@ -574,7 +714,7 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
-      for (int m = 0; m < kCols; ++m) {
+      for (int m = 0; m < kOwn; ++m) {
         const int j = sw + 8 * m;
         float& t = th[m / kG][m % kG];
         int& n_j = cnt[m / kG][m % kG];
@@ -586,7 +726,7 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
         n_j += __popc(ball);
       }
 #pragma unroll
-      for (int g = 0; g < kCols / kG; ++g) {
+      for (int g = 0; g < kOwn / kG; ++g) {
         bool full = false;
 #pragma unroll
         for (int q = 0; q < kG; ++q) full = full || cnt[g][q] > kCap - kHalf;
@@ -596,7 +736,7 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
   }
   // the tile's rounds: out[(tile * 16 + m) * b + q0 + j]
 #pragma unroll
-  for (int m = 0; m < kCols; ++m) {
+  for (int m = 0; m < kOwn; ++m) {
     const int j = sw + 8 * m;
     if (j < nq)
       write_rounds<kP>(cand + j * kCap, cnt[m / kG][m % kG], th[m / kG][m % kG], out_s, out_i,
@@ -626,35 +766,51 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The corpus (N, D) bf16 as a 2-D map: D columns innermost, N rows; boxes
-// of 64 columns x 64 rows, 128-byte swizzle; zero fill past the edges.
+// The corpus (N, D) of T as a 2-D map: D columns innermost, N rows; boxes
+// of one 128-byte row (64 bf16 or 32 f32 columns) x 64 rows, 128-byte
+// swizzle; zero fill past the edges.
+template <typename T>
 bool make_map(CUtensorMap* map, const void* emb, int n, int d) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBoxCols, (cuuint32_t)kSlab};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)Elem<T>::kBoxCols, (cuuint32_t)kSlab};
   const cuuint32_t elem[2] = {1u, 1u};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(emb), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, Elem<T>::kMap, 2, const_cast<void*>(emb), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The chunk width for B queries of D dimensions: the smallest of 16, 32, 64,
-// 128 that holds B, halved while 4 ring stages and one score buffer do not
-// fit beside the queries.
+template <typename T>
+int boxes(int d) { return (d + Elem<T>::kBoxCols - 1) / Elem<T>::kBoxCols; }
+
+// Whether the narrowest chunk of queries of D dimensions fits beside 4 ring
+// stages and one score buffer: every D <= 4096 in bf16, D <= 2,912 in f32.
+template <typename T>
+bool takes_dim(int d) {
+  return smem_bytes(Elem<T>::kMinChunk, boxes<T>(d), kMinStages, 1, Elem<T>::kCopies) <=
+         (size_t)kMaxSmem;
+}
+
+// The chunk width for B queries of D dimensions: the smallest of 16, 32, ...
+// up to the type's widest that holds B (f32: 8 at B <= 8), halved while 4
+// ring stages and one score buffer do not fit beside the queries.
+template <typename T>
 int chunk_width(int d, int b) {
-  const int kc = (d + kBoxCols - 1) / kBoxCols;
-  int nc = 16;
-  while (nc < 128 && nc < b) nc *= 2;
-  while (nc > 16 && smem_bytes(nc, kc, kMinStages, 1) > (size_t)kMaxSmem) nc /= 2;
+  const int kc = boxes<T>(d);
+  int nc = Elem<T>::kMinChunk;
+  while (nc < Elem<T>::kMaxChunk && nc < b) nc *= 2;
+  while (nc > Elem<T>::kMinChunk &&
+         smem_bytes(nc, kc, kMinStages, 1, Elem<T>::kCopies) > (size_t)kMaxSmem)
+    nc /= 2;
   return nc;
 }
 
-template <int NC>
+template <typename T, int NC>
 cudaError_t launch(const CUtensorMap& map, const uint8_t* valid, const float* qvecs, float* out_s,
                    int32_t* out_i, int n, int d, int b, int kc, cudaStream_t stream) {
-  auto kern = stage_a_wgmma_kernel<NC>;
+  auto kern = stage_a_wgmma_kernel<T, NC>;
   static bool smem_set = false;  // the opt-in is per kernel instance, not per call
   if (!smem_set) {
     cudaError_t err =
@@ -662,19 +818,55 @@ cudaError_t launch(const CUtensorMap& map, const uint8_t* valid, const float* qv
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  const int nbuf = smem_bytes(NC, kc, 8, 2) <= (size_t)kMaxSmem ? 2 : 1;
-  const int stages = (int)((kMaxSmem - smem_bytes(NC, kc, 0, nbuf)) / (kBoxBytes + 16));
+  constexpr int copies = Elem<T>::kCopies;
+  const int nbuf = smem_bytes(NC, kc, 8, 2, copies) <= (size_t)kMaxSmem ? 2 : 1;
+  const int stages = (int)((kMaxSmem - smem_bytes(NC, kc, 0, nbuf, copies)) / (kBoxBytes + 16));
   const int st = stages < kMaxStages ? stages : kMaxStages;
-  const dim3 grid((n + kTileN - 1) / kTileN, (b + NC - 1) / NC);
-  kern<<<grid, kThreads, smem_bytes(NC, kc, st, nbuf), stream>>>(map, valid, qvecs, out_s, out_i,
-                                                                n, d, b, kc, st, nbuf);
+  const int tiles = (n + kTileN - 1) / kTileN, chunks = (b + NC - 1) / NC;
+  const dim3 grid = copies == 2 ? dim3(chunks, tiles) : dim3(tiles, chunks);
+  kern<<<grid, kThreads, smem_bytes(NC, kc, st, nbuf, copies), stream>>>(
+      map, valid, qvecs, out_s, out_i, n, d, b, kc, st, nbuf);
   return cudaGetLastError();
+}
+
+template <typename T>
+int run(const void* emb, const void* valid, const void* qvecs, void* out_s, void* out_i, int n,
+        int d, int b, void* stream) {
+  const int kc = boxes<T>(d);
+  const int nc = chunk_width<T>(d, b);
+  const long long tiles = ((long long)n + kTileN - 1) / kTileN, chunks = (b + nc - 1) / nc;
+  if ((Elem<T>::kCopies == 2 ? tiles : chunks) > 65535) return (int)cudaErrorInvalidValue;  // grid.y
+  CUtensorMap map;
+  if (!make_map<T>(&map, emb, n, d)) return (int)cudaErrorInvalidValue;
+  auto v = static_cast<const uint8_t*>(valid);
+  auto q = static_cast<const float*>(qvecs);
+  auto os = static_cast<float*>(out_s);
+  auto oi = static_cast<int32_t*>(out_i);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (Elem<T>::kMinChunk == 8) {
+    if (nc == 8) return (int)launch<T, 8>(map, v, q, os, oi, n, d, b, kc, st);
+  }
+  if (nc == 16) return (int)launch<T, 16>(map, v, q, os, oi, n, d, b, kc, st);
+  if constexpr (Elem<T>::kMaxChunk == 128) {
+    if (nc == 64) return (int)launch<T, 64>(map, v, q, os, oi, n, d, b, kc, st);
+    if (nc == 128) return (int)launch<T, 128>(map, v, q, os, oi, n, d, b, kc, st);
+  }
+  return (int)launch<T, 32>(map, v, q, os, oi, n, d, b, kc, st);
 }
 
 }  // namespace
 
-// The queries one CTA takes (its chunk width) for B queries of D dims.
-extern "C" int rrt_stage_a_wgmma_chunk(int d, int b) { return chunk_width(d, b); }
+// The queries one CTA takes (its chunk width) for B queries of D dims: bf16,
+// f32.
+extern "C" int rrt_stage_a_wgmma_chunk(int d, int b) { return chunk_width<__nv_bfloat16>(d, b); }
+extern "C" int rrt_stage_a_tf32_chunk(int d, int b) { return chunk_width<float>(d, b); }
+
+// The widest f32 corpus rrt_stage_a_tf32 takes (ops/stage_a.py:TF32_MAX_DIM).
+extern "C" int rrt_stage_a_tf32_max_dim() {
+  int d = 0;
+  while (takes_dim<float>(d + 32)) d += 32;
+  return d;
+}
 
 // emb (N, D) bf16, 16-byte aligned with D a multiple of 8, D <= 4096; valid
 // (N,) bool; qvecs (B, D) f32, 16-byte aligned; out_s (n_tiles, 16, B) f32
@@ -683,20 +875,14 @@ extern "C" int rrt_stage_a_wgmma_chunk(int d, int b) { return chunk_width(d, b);
 extern "C" int rrt_stage_a_wgmma(const void* emb, const void* valid, const void* qvecs,
                                  void* out_s, void* out_i, int n, int d, int b, void* stream) {
   if (n <= 0 || d <= 0 || d > 4096 || d % 8 != 0 || b <= 0) return (int)cudaErrorInvalidValue;
-  const int kc = (d + kBoxCols - 1) / kBoxCols;
-  const int nc = chunk_width(d, b);
-  if ((b + nc - 1) / nc > 65535) return (int)cudaErrorInvalidValue;
-  CUtensorMap map;
-  if (!make_map(&map, emb, n, d)) return (int)cudaErrorInvalidValue;
-  auto v = static_cast<const uint8_t*>(valid);
-  auto q = static_cast<const float*>(qvecs);
-  auto os = static_cast<float*>(out_s);
-  auto oi = static_cast<int32_t*>(out_i);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (nc) {
-    case 16: return (int)launch<16>(map, v, q, os, oi, n, d, b, kc, st);
-    case 32: return (int)launch<32>(map, v, q, os, oi, n, d, b, kc, st);
-    case 64: return (int)launch<64>(map, v, q, os, oi, n, d, b, kc, st);
-    default: return (int)launch<128>(map, v, q, os, oi, n, d, b, kc, st);
-  }
+  return run<__nv_bfloat16>(emb, valid, qvecs, out_s, out_i, n, d, b, stream);
+}
+
+// The same for emb (N, D) f32, 16-byte aligned with D a multiple of 4, D <=
+// rrt_stage_a_tf32_max_dim() (2,912); n_tiles <= 65535.
+extern "C" int rrt_stage_a_tf32(const void* emb, const void* valid, const void* qvecs,
+                                void* out_s, void* out_i, int n, int d, int b, void* stream) {
+  if (n <= 0 || d <= 0 || d % 4 != 0 || !takes_dim<float>(d) || b <= 0)
+    return (int)cudaErrorInvalidValue;
+  return run<float>(emb, valid, qvecs, out_s, out_i, n, d, b, stream);
 }

@@ -1,14 +1,17 @@
-"""IR quality metrics: DCG/nDCG@k, MRR, Recall@k, Precision@k and the
-per-query accumulator.
+"""IR quality metrics: DCG/nDCG@k, MRR, Recall@k, Precision@k, the
+per-query accumulator and the sweep of ranking methods.
 
-A pandas-free copy of `review_recommender_tpu/evals/metrics.py:19-121`:
+A pandas-free copy of `review_recommender_tpu/evals/metrics.py:19-152`:
 the same DCG (rel / log2(rank + 1) over 1-indexed ranks), the same ideal
 DCG from the full judgment set in IRMetrics, and `aggregate_metrics` with
-the same keys (numpy means over the per-query rows, `n_queries`).
+the same keys (numpy means over the per-query rows, `n_queries`). Where the
+JAX package hands back a pandas DataFrame (`detailed_report`, the sweep's
+"detail"), the port hands back the list of per-query row dicts that the
+DataFrame is built from.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Mapping, Sequence
 
 import numpy as np
 
@@ -91,5 +94,36 @@ class IRMetrics:
         out["n_queries"] = len(self.rows)
         return out
 
+    def detailed_report(self) -> List[Dict]:
+        """The per-query rows, one dict each (the JAX package's DataFrame
+        rows)."""
+        return [dict(r) for r in self.rows]
+
     def reset(self) -> None:
         self.rows = []
+
+
+def evaluate_ranking_methods(
+    search_fn: Callable[..., Sequence[str]],
+    queries: Sequence[Mapping],
+    method_configs: Mapping[str, Mapping],
+    k_values: Sequence[int] = (5, 10, 20),
+) -> Dict[str, Dict]:
+    """Sweep method configs x queries: {method: {"aggregate": the means,
+    "detail": the per-query rows}}. search_fn(query_text, **config) returns
+    ranked ids, a tuple whose first item is them, or the port's search rows
+    (dicts with a "sku" key, as `run_search` returns). Each query mapping
+    needs "query" and "relevant_skus"; "id" names it (the query text
+    otherwise)."""
+    results: Dict[str, Dict] = {}
+    for method, cfg in method_configs.items():
+        metrics = IRMetrics(k_values)
+        for q in queries:
+            ranked = search_fn(q["query"], **dict(cfg))
+            if isinstance(ranked, tuple):
+                ranked = ranked[0]
+            ranked = [r["sku"] if isinstance(r, Mapping) else r for r in ranked]
+            metrics.evaluate_query(q.get("id", q["query"]), ranked, set(q["relevant_skus"]))
+        results[method] = {"aggregate": metrics.aggregate_metrics(),
+                           "detail": metrics.detailed_report()}
+    return results

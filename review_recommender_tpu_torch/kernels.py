@@ -5,13 +5,14 @@ all started together, and linked into one shared library with a plain C
 interface, loaded through ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         -Xcompiler -fPIC -c csrc/<name>.cu -o build/torch_kernels/<name>.<tag>.o
+         -Xcompiler -fPIC -I csrc -c csrc/<name>.cu -o build/torch_kernels/<name>.<tag>.o
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
          -o build/torch_kernels/librrt_torch_<hash>.so <the objects>
 
-The library name carries a hash of the sources and flags, so an edit
-rebuilds it; `build/` is ignored by git. Nothing here runs at import time:
-the CPU tests import every module without nvcc.
+The library name carries a hash of the sources, the shared headers
+(csrc/*.cuh) and the flags, so an edit rebuilds it; `build/` is ignored
+by git. Nothing here runs at import time: the CPU tests import every
+module without nvcc.
 """
 from __future__ import annotations
 
@@ -31,7 +32,9 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# -I csrc: the sources include their shared header (tf32_wgmma.cuh), also
+# when a copy of one is built from another directory
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-I", str(CSRC_DIR)]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -55,7 +58,7 @@ def nvcc_path() -> str:
 
 def library_path(extra_flags: tuple = ()) -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS + list(extra_flags)).encode())
@@ -128,8 +131,14 @@ def load() -> ctypes.CDLL:
             lib.rrt_stage_a_wgmma.restype = I
             lib.rrt_stage_a_wgmma_chunk.argtypes = [I, I]
             lib.rrt_stage_a_wgmma_chunk.restype = I
-            lib.rrt_stage_a_f32.argtypes = [P, P, P, P, P, I, I, I, P]
-            lib.rrt_stage_a_f32.restype = I
+            lib.rrt_stage_a_tf32.argtypes = [P, P, P, P, P, I, I, I, P]
+            lib.rrt_stage_a_tf32.restype = I
+            lib.rrt_stage_a_tf32_chunk.argtypes = [I, I]
+            lib.rrt_stage_a_tf32_chunk.restype = I
+            lib.rrt_stage_a_tf32_max_dim.argtypes = []
+            lib.rrt_stage_a_tf32_max_dim.restype = I
+            lib.rrt_stage_a_fma.argtypes = [P, P, P, P, P, I, I, I, P]
+            lib.rrt_stage_a_fma.restype = I
             _lib = lib
         return _lib
 

@@ -5,11 +5,12 @@ Counterpart of `review_recommender_tpu/ops/pallas/stage_a_kernel.py`:
 
   stage_a_tile_winners_reference   plain torch version of the tile pass
   stage_a_tile_winners_kernel      the CUDA tile pass, replacing
-                                   `_stage_a_kernel`: a bf16 corpus takes
-                                   csrc/stage_a_wgmma.cu (tensor cores,
-                                   TMA, threshold-filtered selection), an
-                                   f32 corpus csrc/stage_a_fused.cu (CUDA
-                                   cores; wgmma has no f32 input)
+                                   `_stage_a_kernel`, on the route that
+                                   `stage_a_route` picks: bf16 and f32 up
+                                   to D = 2,912 on csrc/stage_a_wgmma.cu
+                                   (tensor cores, TMA, threshold-filtered
+                                   selection; f32 as 3xTF32), wider f32 on
+                                   csrc/stage_a_fused.cu (CUDA cores)
   stage_a_fused                    `stage_a_fused_pallas`: the tile pass
                                    (the kernel for CUDA tensors, the plain
                                    version for CPU tensors), then the merge
@@ -50,37 +51,61 @@ from review_recommender_tpu_torch.ops.dense import matmul_f32, stable_topk
 TILE_N = 2048
 M_PER_TILE = 16
 NEG = -3.4e38  # the TPU kernel's mask value, as f32 (-3.3999999521e38)
-MAX_DIM = 4096  # both kernels keep a chunk of the queries in shared memory
-MAX_TILES = 65535  # grid.y of the f32 kernel
+MAX_DIM = 4096  # every route keeps a chunk of the queries in shared memory
+MAX_TILES = 65535  # grid.y of the f32 routes
+# The widest f32 corpus the tensor-core route takes: its queries' hi and lo
+# copies (8 of them, 91 boxes of 32 columns) beside 4 ring stages fill
+# shared memory (csrc/stage_a_wgmma.cu:rrt_stage_a_tf32_max_dim computes it;
+# the card tests hold the two equal).
+TF32_MAX_DIM = 2912
 
-# Launches of each CUDA kernel in this process; a run reads them before and
-# after its main path to show that the path went through the kernels:
-# stage_a_kernel_launches the bf16 tensor-core kernel (the main path's),
-# stage_a_f32_kernel_launches the f32 CUDA-core kernel.
+# Launches of each route's CUDA kernel in this process; a run reads them
+# before and after its main path to show that the path went through the
+# kernels: stage_a_kernel_launches the bf16 tensor-core route (the main
+# path's), stage_a_tf32_kernel_launches the f32 one (3xTF32),
+# stage_a_fma_kernel_launches the f32 CUDA-core route past TF32_MAX_DIM.
 stage_a_kernel_launches = 0
-stage_a_f32_kernel_launches = 0
+stage_a_tf32_kernel_launches = 0
+stage_a_fma_kernel_launches = 0
+ROUTE_COUNTERS = {"wgmma": "stage_a_kernel_launches", "tf32": "stage_a_tf32_kernel_launches",
+                  "fma": "stage_a_fma_kernel_launches"}
 
 
 def _n_tiles(n: int) -> int:
     return -(-n // TILE_N)
 
 
-def stage_a_tile_winners_reference(emb: torch.Tensor, valid: torch.Tensor,
-                                   qvecs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain tile pass: emb (N, D) bf16/f32, valid (N,) bool, qvecs (B, D)
-    -> (scores (n_tiles, 16, B) f32, local ids (n_tiles, 16, B) int32).
-    `max` over a dim returns the first of equal maxima, as argmax does in
-    the Pallas kernel."""
-    n = emb.shape[0]
-    b = qvecs.shape[0]
+def stage_a_route(dtype: torch.dtype, d: int, b: int) -> str:
+    """The kernel a CUDA tile pass of B queries over an (N, D) corpus of
+    `dtype` runs: "wgmma" (bf16, csrc/stage_a_wgmma.cu), "tf32" (f32 at D
+    <= TF32_MAX_DIM, the same kernel with the products as 3xTF32) or "fma"
+    (wider f32, csrc/stage_a_fused.cu). Raises for what no route takes:
+    another dtype, D outside 1..MAX_DIM or D * itemsize not a multiple of
+    16 bytes, B < 1."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"stage_a_fused: emb must be bfloat16 or float32, got {dtype}")
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    if not (0 < d <= MAX_DIM and d * itemsize % 16 == 0 and b >= 1):
+        raise ValueError(f"stage_a_fused: D={d}, B={b} not taken (D in 1..{MAX_DIM} with "
+                         "D * itemsize a multiple of 16, B >= 1)")
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "tf32" if d <= TF32_MAX_DIM else "fma"
+
+
+def stage_a_tile_rounds(sims: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rounds of the plain tile pass over given scores: sims (N, B) f32,
+    valid (N,) bool -> (scores (n_tiles, 16, B) f32, local ids (n_tiles,
+    16, B) int32). `max` over a dim returns the first of equal maxima, as
+    argmax does in the Pallas kernel."""
+    n, b = sims.shape
     tiles = _n_tiles(n)
-    sims = matmul_f32(emb, qvecs.to(emb.dtype).T)  # (N, B)
     sims = torch.where(valid[:, None], sims, NEG)
     if tiles * TILE_N != n:
         sims = torch.nn.functional.pad(sims, (0, 0, 0, tiles * TILE_N - n), value=NEG)
     x = sims.reshape(tiles, TILE_N, b)  # our own tensor: masked in place
-    out_s = torch.empty((tiles, M_PER_TILE, b), dtype=torch.float32, device=emb.device)
-    out_i = torch.empty((tiles, M_PER_TILE, b), dtype=torch.int32, device=emb.device)
+    out_s = torch.empty((tiles, M_PER_TILE, b), dtype=torch.float32, device=sims.device)
+    out_i = torch.empty((tiles, M_PER_TILE, b), dtype=torch.int32, device=sims.device)
     for m in range(M_PER_TILE):
         best, arg = x.max(dim=1)  # (tiles, B)
         out_s[:, m] = best
@@ -89,19 +114,25 @@ def stage_a_tile_winners_reference(emb: torch.Tensor, valid: torch.Tensor,
     return out_s, out_i
 
 
+def stage_a_tile_winners_reference(emb: torch.Tensor, valid: torch.Tensor,
+                                   qvecs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain tile pass: emb (N, D) bf16/f32, valid (N,) bool, qvecs (B, D)
+    -> (scores (n_tiles, 16, B) f32, local ids (n_tiles, 16, B) int32)."""
+    return stage_a_tile_rounds(matmul_f32(emb, qvecs.to(emb.dtype).T), valid)
+
+
 def stage_a_tile_winners_kernel(emb: torch.Tensor, valid: torch.Tensor,
                                 qvecs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The CUDA tile pass: same contract as the plain version, CUDA tensors
     only, any N and B; D * itemsize must be a multiple of 16 bytes, D <=
-    4096. The route is the corpus dtype alone: bf16 takes the tensor-core
-    kernel (csrc/stage_a_wgmma.cu), which holds every such shape (its query
-    chunk narrows to 16 at D = 4096, and a wider batch runs as more chunks);
-    f32 takes the CUDA-core kernel (csrc/stage_a_fused.cu). Launches on the
-    current stream and raises if the launch fails; nothing falls back."""
-    global stage_a_kernel_launches, stage_a_f32_kernel_launches
+    4096. `stage_a_route` picks the kernel from the dtype and D: bf16 and
+    f32 up to TF32_MAX_DIM on the tensor cores (csrc/stage_a_wgmma.cu; its
+    query chunk narrows to 16 at the widest D, and a wider batch runs as
+    more chunks), wider f32 on the CUDA cores (csrc/stage_a_fused.cu).
+    Launches on the current stream and raises if the launch fails; nothing
+    falls back to another route or to the plain version."""
+    global stage_a_kernel_launches, stage_a_tf32_kernel_launches, stage_a_fma_kernel_launches
     name = "stage_a_fused"
-    if emb.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"{name}: emb must be bfloat16 or float32, got {emb.dtype}")
     dev = kernels.check_tensors(name, dict(emb=emb, valid=valid, qvecs=qvecs),
                                 dict(emb=emb.dtype, valid=torch.bool, qvecs=torch.float32))
     if emb.dim() != 2 or valid.shape != (emb.shape[0],) or qvecs.dim() != 2 \
@@ -110,10 +141,9 @@ def stage_a_tile_winners_kernel(emb: torch.Tensor, valid: torch.Tensor,
                          f"{tuple(emb.shape)}/{tuple(valid.shape)}/{tuple(qvecs.shape)}")
     n, d = emb.shape
     b = qvecs.shape[0]
-    if not (0 < n and 0 < b and _n_tiles(n) <= MAX_TILES and 0 < d <= MAX_DIM
-            and d * emb.element_size() % 16 == 0):
-        raise ValueError(f"{name}: N={n}, D={d}, B={b} not taken (N in 1..{MAX_TILES * TILE_N}, "
-                         f"D in 1..{MAX_DIM} with D * itemsize a multiple of 16, B >= 1)")
+    if not (0 < n and _n_tiles(n) <= MAX_TILES):
+        raise ValueError(f"{name}: N={n} not taken (N in 1..{MAX_TILES * TILE_N})")
+    route = stage_a_route(emb.dtype, d, b)
     if emb.data_ptr() % 16 or qvecs.data_ptr() % 16:
         raise ValueError(f"{name}: emb and qvecs must be 16-byte aligned")
     lib = kernels.load()
@@ -122,24 +152,31 @@ def stage_a_tile_winners_kernel(emb: torch.Tensor, valid: torch.Tensor,
     out_i = torch.empty((tiles, M_PER_TILE, b), dtype=torch.int32, device=dev)
     args = (emb.data_ptr(), valid.data_ptr(), qvecs.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(), n, d, b)
+    launch = {"wgmma": lib.rrt_stage_a_wgmma, "tf32": lib.rrt_stage_a_tf32,
+              "fma": lib.rrt_stage_a_fma}[route]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        bf16 = emb.dtype == torch.bfloat16
-        err = (lib.rrt_stage_a_wgmma if bf16 else lib.rrt_stage_a_f32)(*args, stream)
-    kernels.check_launch(name, err, f"N={n} D={d} B={b} {emb.dtype}")
-    if bf16:
+        err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check_launch(name, err, f"N={n} D={d} B={b} {emb.dtype} ({route})")
+    if route == "wgmma":
         stage_a_kernel_launches += 1
+    elif route == "tf32":
+        stage_a_tf32_kernel_launches += 1
     else:
-        stage_a_f32_kernel_launches += 1
+        stage_a_fma_kernel_launches += 1
     return out_s, out_i
 
 
-def stage_a_query_chunk(d: int, b: int) -> int:
-    """The queries one CTA of the bf16 kernel scores from one read of its
-    tile, for B queries of D dims (16, 32, 64 or 128; the rule lives in
-    csrc/stage_a_wgmma.cu). A batch wider than this reads the corpus once
-    per chunk."""
-    return kernels.load().rrt_stage_a_wgmma_chunk(d, b)
+def stage_a_query_chunk(d: int, b: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The queries one CTA of the route's kernel scores from one read of its
+    tile, for B queries of D dims: bf16 16, 32, 64 or 128, f32 on the
+    tensor cores 8, 16 or 32 (the rules live in csrc/stage_a_wgmma.cu), f32
+    on the CUDA cores 8. A batch wider than this reads the corpus once per
+    chunk."""
+    route = stage_a_route(dtype, d, b)
+    if route == "fma":
+        return 8
+    lib = kernels.load()
+    return (lib.rrt_stage_a_wgmma_chunk if route == "wgmma" else lib.rrt_stage_a_tf32_chunk)(d, b)
 
 
 def _merge(out_s, out_i, doc_terms, doc_bm25, q_terms, pool: int):

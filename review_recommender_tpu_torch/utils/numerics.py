@@ -1,17 +1,38 @@
 """Numeric primitives of the fusion, in torch, and the result fetch.
 
-Counterparts of `review_recommender_tpu/utils/numerics.py:45-87`, op for op
-in float32 so the port agrees with the JAX package to float32 rounding, and
-of its `device_fetch` (:107-129).
+Counterparts of `review_recommender_tpu/utils/numerics.py:22-104`, op for
+op in float32 so the port agrees with the JAX package to float32 rounding,
+and of its `device_fetch` (:107-129).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from review_recommender_tpu_torch.ops.dense import matmul_f32, stable_topk
+
 _BIG = 3.4e38
+
+
+def l2_normalize(x: torch.Tensor, axis: int = 1, eps: float = 1e-12) -> torch.Tensor:
+    """L2 normalize along `axis` with an epsilon floor on the norm."""
+    n = torch.linalg.vector_norm(x, dim=axis, keepdim=True)
+    return x / torch.clamp(n, min=eps)
+
+
+def minmax_normalize(x: torch.Tensor) -> torch.Tensor:
+    """Min-max normalize to [0, 1] in float32; all zeros on degenerate input
+    (every value equal within 1e-12, or a non-finite min or max). An empty
+    input comes back empty, as float32."""
+    xf = x.to(torch.float32)
+    if xf.numel() == 0:
+        return xf
+    lo, hi = xf.min(), xf.max()
+    good = torch.isfinite(lo) & torch.isfinite(hi) & ((hi - lo) >= 1e-12)
+    scaled = (xf - lo) / (hi - lo + 1e-12)
+    return torch.where(good, scaled, torch.zeros_like(xf))
 
 
 def minmax_normalize_masked(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -53,6 +74,18 @@ def trust_score_from_reviews(
     sat = torch.log1p(torch.tensor(float(max(saturation, 1)), dtype=torch.float32))
     satv = torch.clamp(torch.log1p(review_counts) / sat.to(review_counts.device), max=1.0)
     return (0.6 * ramp + 0.4 * satv).to(torch.float32)
+
+
+def cosine_similarity_search(query_vector: torch.Tensor, embeddings_matrix: torch.Tensor,
+                             top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Brute-force cosine top-k: (indices int32, scores f32), descending,
+    ties in index order (`lax.top_k`'s), top_k clamped to N. The query is cast to
+    the matrix's dtype and the products summed in f32 (a library matmul, as
+    JAX leaves `jnp.dot` to XLA)."""
+    q = query_vector.to(embeddings_matrix.dtype)
+    sims = matmul_f32(embeddings_matrix, q[:, None])[:, 0]
+    scores, idx = stable_topk(sims, min(int(top_k), sims.shape[0]))
+    return idx.to(torch.int32), scores
 
 
 def device_fetch(*tensors) -> List[np.ndarray]:

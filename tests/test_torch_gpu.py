@@ -21,7 +21,10 @@ Stage A: winner scores within 1e-5 (exact bf16/f32 products summed in f32 in
 another order than cuBLAS's); a winner id may differ only where the plain
 version's scores of the two rows are within that tolerance (a near tie);
 rounds past a tile's valid rows are exactly (-3.4e38, 0). A bf16 corpus
-takes the tensor-core kernel, an f32 corpus the CUDA-core one. Serving:
+and an f32 one up to D = 2,912 take the tensor-core kernel (f32 as
+3xTF32), a wider f32 corpus the CUDA-core one; each launch moves its
+route's counter by one, at the f32 chunk edges (B = 32, 33, 65 at D = 384)
+and at the widest D of the tensor-core route and the next one. Serving:
 device_fetch reads CUDA tensors through pinned buffers, and both HTTP
 front ends answer a /search on a small CUDA engine, encoding on the card.
 Offline path: a bundle built, saved and loaded, then the CLI's search on
@@ -828,17 +831,21 @@ def _plain_tile_scores(emb, valid, qvecs, local_ids):
     return torch.gather(sims.reshape(tiles, tsa.TILE_N, b), 1, local_ids.long())
 
 
-def _check_tile_pass(emb, valid, qvecs):
+def _stage_a_counts():
+    return {route: getattr(tsa, counter) for route, counter in tsa.ROUTE_COUNTERS.items()}
+
+
+def _check_tile_pass(emb, valid, qvecs, route=None):
     """The kernel's tile pass against the plain one; returns both. The
-    launch goes to the dtype's kernel and counts once."""
-    counter = "stage_a_kernel_launches" if emb.dtype == torch.bfloat16 \
-        else "stage_a_f32_kernel_launches"
-    before = getattr(tsa, counter), tsa.stage_a_kernel_launches + tsa.stage_a_f32_kernel_launches
+    launch goes to the route of the dtype and D (`route` when given) and
+    moves that route's counter, and no other, by one."""
+    want = tsa.stage_a_route(emb.dtype, emb.shape[1], qvecs.shape[0])
+    assert route in (None, want)
+    before = _stage_a_counts()
     ks, ki = tsa.stage_a_tile_winners_kernel(emb, valid, qvecs)
     ps, pi = tsa.stage_a_tile_winners_reference(emb, valid, qvecs)
     torch.cuda.synchronize()
-    assert getattr(tsa, counter) == before[0] + 1
-    assert tsa.stage_a_kernel_launches + tsa.stage_a_f32_kernel_launches == before[1] + 1
+    assert _stage_a_counts() == {r: n + (r == want) for r, n in before.items()}
     n, b = emb.shape[0], qvecs.shape[0]
     tiles = -(-n // tsa.TILE_N)
     assert ks.shape == ki.shape == (tiles, tsa.M_PER_TILE, b)
@@ -889,6 +896,30 @@ def test_stage_a_kernel_at_main_shape(cuda, b):
     assert tsa.stage_a_query_chunk(384, b) >= b
 
 
+@pytest.mark.parametrize("n,d,b,route", [
+    (200_704, 384, 1, "tf32"), (200_704, 384, 128, "tf32"),  # phase 8's f32 widths
+    (9000, 384, 32, "tf32"), (9000, 384, 33, "tf32"), (9000, 384, 65, "tf32"),  # chunk edges
+    (5000, 1536, 9, "tf32"), (5000, 2912, 17, "tf32"), (5000, 2916, 17, "fma"),
+    (5000, 3072, 3, "fma")])
+def test_stage_a_f32_routes_at_their_edges(cuda, n, d, b, route):
+    """The f32 routes: the tensor-core route's chunks of 32 queries at D =
+    384 (B = NC, NC + 1, 2 NC + 1), its widest D (chunks of 8) and the next
+    multiple of 4, which takes the CUDA-core route; the route's counter
+    moves by one."""
+    emb, valid, qvecs = _stage_a_inputs(n + d + b, n, d, b, torch.float32, cuda)
+    _check_tile_pass(emb, valid, qvecs, route)
+    if route == "tf32" and d == 384:
+        assert tsa.stage_a_query_chunk(d, b, torch.float32) == (8 if b <= 8 else 16 if b <= 16
+                                                                else 32)
+
+
+def test_stage_a_tf32_width_limit_matches_the_kernel(cuda):
+    from review_recommender_tpu_torch import kernels
+
+    assert kernels.load().rrt_stage_a_tf32_max_dim() == tsa.TF32_MAX_DIM
+    assert tsa.stage_a_query_chunk(tsa.TF32_MAX_DIM, 100, torch.float32) == 8
+
+
 def test_stage_a_kernel_rejects_what_it_does_not_take(cuda):
     emb, valid, qvecs = _stage_a_inputs(0, 4096, 64, 8, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -906,6 +937,17 @@ def test_stage_a_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="not taken"):
         wide = torch.zeros(64, 4104, dtype=torch.bfloat16, device=cuda)
         tsa.stage_a_tile_winners_kernel(wide, valid[:64], torch.zeros(2, 4104, device=cuda))
+    # each C entry refuses the widths of the other f32 route
+    from review_recommender_tpu_torch import kernels
+
+    lib = kernels.load()
+    for fn, d in ((lib.rrt_stage_a_tf32, tsa.TF32_MAX_DIM + 4), (lib.rrt_stage_a_fma, 384)):
+        e = torch.zeros(64, d, device=cuda)
+        q = torch.zeros(2, d, device=cuda)
+        out_s = torch.empty(1, 16, 2, device=cuda)
+        out_i = torch.empty(1, 16, 2, dtype=torch.int32, device=cuda)
+        assert fn(e.data_ptr(), valid.data_ptr(), q.data_ptr(), out_s.data_ptr(),
+                  out_i.data_ptr(), 64, d, 2, torch.cuda.current_stream().cuda_stream) != 0
 
 
 # ------------------------------------------------ the int8 corpus, the IVF pool
