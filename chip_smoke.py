@@ -80,14 +80,17 @@ line, and nothing is caught and passed over:
              share of it; then the counted main path: stage_a_fused on the
              256 queries in batches of 32, with pool recall against the
              exact stage A (>= 0.99), every launch on the bf16 kernel. The
-             f32 routes, each with a counted main path of its own: tf32
-             (csrc/stage_a_wgmma.cu, 3xTF32) on the same corpus in f32 and
-             on a seeded unit f32 corpus of its shape, the exhausted-tile
-             case in f32, B = 1, 32, 128 timed against their 3xTF32 bound,
+             f32 route of csrc/stage_a_wgmma.cu with a counted main path of
+             its own: tf32 (3xTF32) on the same corpus in f32 and on a
+             seeded unit f32 corpus of its shape, the exhausted-tile case in
+             f32, B = 1, 32, 128 timed against their 3xTF32 bound,
              stage_a_fused on the 256 queries (8 tf32 launches, pool recall
-             against the exact f32 stage A >= 0.99); fma
-             (csrc/stage_a_fused.cu) on a seeded unit corpus of 200,704 x
-             3,072 f32 at B = 32, timed, and 2 counted batches
+             against the exact f32 stage A >= 0.99); both routes on a
+             seeded unit corpus of 200,704 x 3,072 in f32 and in bf16 at B
+             = 32, each checked, timed and run as 2 counted batches; then
+             widths TMA cannot take, bf16 D = 60 and 100 and f32 D = 6 and
+             38 at 20,000 rows (the copy loader, in one box and in two),
+             checked and timed
   9 e2e_slice  query_e2e on phase 4's engine and towers (bench.py's
              fabricated doc tokens: width 254, 128 live): 100 queries at
              rr_k=0 and rr_k=50, p50/p90, exactly 12 and 18 attention launches
@@ -422,11 +425,15 @@ SINGLE_RTOL, SINGLE_ATOL, NEAR_TIE = 1e-4, 1e-5, 1e-3  # tests/test_batched.py's
 STAGE_A_TOL = 1e-5  # bf16 products, exact in f32, summed in another order
 STAGE_A_BATCHES = (1, 8, 32, 128)
 STAGE_A_MIN_RECALL = 0.99
-# the f32 routes (phase 8): the tf32 route's batch widths, the fma route's
-# width (past the tf32 route's 2,912: OpenAI text-embedding-3-large's 3,072)
-# and the seed of their card-drawn corpora and queries
+# the other paths (phase 8): the tf32 route's batch widths, a wide corpus
+# (OpenAI text-embedding-3-large's 3,072: past the widths of the first f32
+# layout, whose queries stayed in shared memory), widths whose rows TMA
+# cannot take (bf16 120 and 200 bytes, f32 24 and 152: one box and two)
+# at a small N, and the seed of their card-drawn corpora and queries
 STAGE_A_F32_BATCHES = (1, 32, 128)
-STAGE_A_FMA_DIM = 3072
+STAGE_A_WIDE_DIM = 3072
+STAGE_A_UNALIGNED = (("bfloat16", 60), ("float32", 6), ("bfloat16", 100), ("float32", 38))
+STAGE_A_SMALL_N = 20_000
 STAGE_A_F32_SEED = 620
 # phases 9-10: bench.py's e2e tokens (bench.py:464-467) and coalesced-rerank
 # settings (bench.py:1336-1400)
@@ -1247,8 +1254,7 @@ def _kernel_modules():
             "bm25_packed": (BK, "bm25_packed_kernel_launches"),
             "bm25_unpacked": (BK, "bm25_unpacked_kernel_launches"),
             "stage_a_fused": (SA, "stage_a_kernel_launches"),
-            "stage_a_tf32": (SA, "stage_a_tf32_kernel_launches"),
-            "stage_a_fma": (SA, "stage_a_fma_kernel_launches")}
+            "stage_a_tf32": (SA, "stage_a_tf32_kernel_launches")}
 
 
 def _zero_counts() -> None:
@@ -1549,7 +1555,7 @@ def phase_stage_a(torch, engine, qvecs, qterms):
                   "ms": ms["kernel"], "plain_ms": ms["plain"],
                   "bound_ms": by_b[b]["bound_ms"], "bound_by": by_b[b]["bound_by"],
                   "library_ms": None}  # no single PyTorch call computes stage A
-    return [bf16_entry, *_stage_a_f32_routes(torch, engine, qvecs, qterms)]
+    return [bf16_entry, *_stage_a_other_routes(torch, engine, qvecs, qterms)]
 
 
 def _stage_a_bound(n, d, b, itemsize, peak_flops):
@@ -1568,8 +1574,8 @@ def _stage_a_bound(n, d, b, itemsize, peak_flops):
 def _stage_a_by_batch(torch, emb, valid, qvecs, batches):
     """The tile-pass kernel on `emb` at each batch width: behind the spin
     and behind an L2 flush, the query chunk it ran at, its bound (the
-    products at the route's rate: bf16 tensor cores, 3xTF32, or the f32
-    CUDA cores) and the share of it each time reaches."""
+    products at the route's rate: bf16 tensor cores or 3xTF32) and the
+    share of it each time reaches."""
     from review_recommender_tpu_torch.ops import stage_a as SA
 
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
@@ -1585,7 +1591,7 @@ def _stage_a_by_batch(torch, emb, valid, qvecs, batches):
         spun = _median_ms(torch, run, REPS, before=spin)
         cold = _median_ms(torch, run, REPS, before=flush)
         route = SA.stage_a_route(emb.dtype, d, nb)
-        peak = {"wgmma": PEAK_BF16_FLOPS, "tf32": PEAK_F32_EXACT_FLOPS, "fma": PEAK_FP32_FLOPS}[route]
+        peak = PEAK_BF16_FLOPS if emb.dtype == torch.bfloat16 else PEAK_F32_EXACT_FLOPS
         bound_ms, by, nbytes = _stage_a_bound(n, d, nb, emb.element_size(), peak)
         out[nb] = {"route": route, "ms": spun, "cold_l2_ms": cold,
                    "query_chunk": SA.stage_a_query_chunk(d, nb, emb.dtype),
@@ -1596,21 +1602,27 @@ def _stage_a_by_batch(torch, emb, valid, qvecs, batches):
     return out
 
 
-def _stage_a_f32_routes(torch, engine, qvecs, qterms):
-    """The f32 routes of the tile pass, each held to its plain version,
-    timed and driven as a main path of its own (counts zeroed just before,
-    read just after):
-      tf32  phase 4's corpus in f32 (D = 384): the tile pass at B = 32 on it
-            and on a seeded unit corpus of the same shape drawn on the card
-            (full f32 mantissas), the exhausted-tile case; B = 1, 32, 128
-            timed, and the exact f32 stage A at B = 32; stage_a_fused on
-            the 256 queries in batches of 32, pool recall against the
-            exact f32 stage A;
-      fma   a seeded unit corpus at D = STAGE_A_FMA_DIM (past the tf32
-            route's widest) over phase 4's rows, validity, postings and
-            query terms: the tile pass and the exact stage A at B = 32,
-            timed, and stage_a_fused on two batches of 32.
-    Returns the kernels line's entries of both routes."""
+def _stage_a_other_routes(torch, engine, qvecs, qterms):
+    """The tile pass's routes past phase 8's bf16 one, each held to its
+    plain version, timed and driven as a main path of its own (counts
+    zeroed just before, read just after):
+      tf32          phase 4's corpus in f32 (D = 384): the tile pass at B =
+                    32 on it and on a seeded unit corpus of the same shape
+                    drawn on the card (full f32 mantissas), the
+                    exhausted-tile case; B = 1, 32, 128 timed, and the exact
+                    f32 stage A at B = 32; stage_a_fused on the 256 queries
+                    in batches of 32, pool recall against the exact f32
+                    stage A;
+      tf32, wgmma   a seeded unit corpus at D = STAGE_A_WIDE_DIM (past the
+                    widths of the first f32 layout, whose queries stayed in
+                    shared memory) over phase 4's rows, validity, postings
+                    and query terms, in f32 and in bf16: the tile pass and
+                    the exact stage A at B = 32, timed, and stage_a_fused on
+                    two batches of 32 (kernels-line entries of their own,
+                    "<counter>_d3072", counted on the route's counter);
+    then STAGE_A_UNALIGNED at STAGE_A_SMALL_N rows (ragged, holes), B = 32:
+    both routes with the corpus copied by cp.async, checked and timed.
+    Returns the kernels line's entries of the three paths."""
     from review_recommender_tpu_torch.ops import stage_a as SA
     from review_recommender_tpu_torch.ops.bm25 import bm25_candidate_scores_eager
     from review_recommender_tpu_torch.ops.dense import dense_topk_batched
@@ -1623,10 +1635,15 @@ def _stage_a_f32_routes(torch, engine, qvecs, qterms):
     qv = torch.from_numpy(qvecs[:b]).cuda()
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
     g = torch.Generator(device=valid.device).manual_seed(STAGE_A_F32_SEED)
+    names = {"tf32": "stage_a_tf32", "wgmma": "stage_a_fused"}  # the routes' counters
 
     def unit(rows, dim):
         x = torch.randn(rows, dim, generator=g, device=valid.device)
         return x / x.norm(dim=1, keepdim=True)
+
+    def unit_queries(dim):
+        q = np.random.default_rng(STAGE_A_F32_SEED + dim).standard_normal((b, dim))
+        return (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
 
     def exact_ms(emb, q):  # the exact stage A on this corpus (bench.py:1553-1561), timed
         qt = torch.from_numpy(qterms[:b]).cuda()
@@ -1634,6 +1651,11 @@ def _stage_a_f32_routes(torch, engine, qvecs, qterms):
         def run():
             _d, idx = dense_topk_batched(emb, q, valid, POOL)
             return bm25_candidate_scores_eager(terms[idx], bm25[idx], qt)
+        run()
+        return _median_ms(torch, run, REPS, before=spin)
+
+    def plain_ms(emb, q, mask=valid):
+        run = lambda: SA.stage_a_tile_winners_reference(emb, mask, q)
         run()
         return _median_ms(torch, run, REPS, before=spin)
 
@@ -1645,13 +1667,21 @@ def _stage_a_f32_routes(torch, engine, qvecs, qterms):
                for lo in range(0, k * b, b)]
         torch.cuda.synchronize()
         launches = _counts()
-        name = {"tf32": "stage_a_tf32", "fma": "stage_a_fma"}[route]
+        name = names[route]
         check(launches[name] == k and sum(launches.values()) == k, "stage_a",
-              f"f32 main path ({route}): launches {launches}, expected {k} {name}")
+              f"main path ({route}): launches {launches}, expected {k} {name}")
         dense = torch.cat([x[0] for x in got])
         check(bool(torch.isfinite(dense).all()) and bool((dense[:, 1:] <= dense[:, :-1]).all()),
               "stage_a", f"{route}: stage_a_fused dense scores not finite and sorted")
         return launches[name], got
+
+    def entry(name, launches, err, timed, plain):
+        return {"name": name, "route": "cuda",
+                "source": "review_recommender_tpu_torch/csrc/stage_a_wgmma.cu",
+                "replaces": "review_recommender_tpu/ops/pallas/stage_a_kernel.py:61",
+                "launches": launches, "max_abs_err": err, "ms": timed["ms"], "plain_ms": plain,
+                "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+                "library_ms": None}  # no single PyTorch call computes stage A
 
     # ---- tf32: phase 8's corpus in f32
     rows = {"phase4_f32": _tile_winners_diff(torch, emb32, valid, qv, "stage_a")[0]}
@@ -1661,56 +1691,61 @@ def _stage_a_f32_routes(torch, engine, qvecs, qterms):
     rows["exhausted_tile"] = _exhausted_case(torch, torch.float32)
     by_b = _stage_a_by_batch(torch, emb32, valid, qvecs, STAGE_A_F32_BATCHES)
     check(all(r["route"] == "tf32" for r in by_b.values()), "stage_a", "f32 at D=384 not on tf32")
-    run_plain = lambda: SA.stage_a_tile_winners_reference(emb32, valid, qv)
-    run_plain()
-    plain_ms = _median_ms(torch, run_plain, REPS, before=spin)
+    tf32_plain_ms = plain_ms(emb32, qv)
     tf32_exact_ms = exact_ms(emb32, qv)
     tf32_launches, got = counted("tf32", emb32, qvecs, len(qvecs) // b)
     exact = [dense_topk_batched(emb32, torch.from_numpy(qvecs[lo:lo + b]).cuda(), valid, POOL)[1]
              for lo in range(0, len(qvecs), b)]
     recall = _recall(torch.cat(exact).cpu().numpy(), torch.cat([x[1] for x in got]).cpu().numpy())
     check(recall >= STAGE_A_MIN_RECALL, "stage_a", f"tf32 pool recall {recall}")
-    err = max(r["max_abs_err"] for r in rows.values())
-    tf32 = {"name": "stage_a_tf32", "route": "cuda",
-            "source": "review_recommender_tpu_torch/csrc/stage_a_wgmma.cu",
-            "replaces": "review_recommender_tpu/ops/pallas/stage_a_kernel.py:61",
-            "launches": tf32_launches, "max_abs_err": err,
-            "ms": by_b[b]["ms"], "plain_ms": plain_ms,
-            "bound_ms": by_b[b]["bound_ms"], "bound_by": by_b[b]["bound_by"], "library_ms": None}
+    entries = [entry("stage_a_tf32", tf32_launches, max(r["max_abs_err"] for r in rows.values()),
+                     by_b[b], tf32_plain_ms)]
     emit({"phase": "stage_a_f32", "route": "tf32", "N": n, "D": d, "checks": rows,
-          "kernel_by_B": {str(k): v for k, v in by_b.items()}, "plain_ms": plain_ms,
+          "kernel_by_B": {str(k): v for k, v in by_b.items()}, "plain_ms": tf32_plain_ms,
           "exact_ms": tf32_exact_ms, "main_path_batches": len(got),
           "pool_recall_vs_exact": recall, "reps": REPS})
     del emb32, got, exact
     torch.cuda.empty_cache()
 
-    # ---- fma: a corpus past the tf32 route's widest D
-    wide = unit(n, STAGE_A_FMA_DIM)
-    qw_np = np.random.default_rng(STAGE_A_F32_SEED).standard_normal(
-        (b, STAGE_A_FMA_DIM)).astype(np.float32)
-    qw_np /= np.linalg.norm(qw_np, axis=1, keepdims=True)
+    # ---- widths whose rows TMA cannot describe (the copy loader):
+    # STAGE_A_SMALL_N rows, holes, a ragged last tile
+    small = {}
+    rng = np.random.default_rng(STAGE_A_F32_SEED)
+    mask = torch.from_numpy(rng.random(STAGE_A_SMALL_N) >= 0.05).cuda()
+    for dtype_name, dim in STAGE_A_UNALIGNED:
+        emb = unit(STAGE_A_SMALL_N, dim).to(getattr(torch, dtype_name))
+        q_np = unit_queries(dim)
+        q = torch.from_numpy(q_np).cuda()
+        row, _ = _tile_winners_diff(torch, emb, mask, q, "stage_a")
+        timed = _stage_a_by_batch(torch, emb, mask, q_np, (b,))[b]
+        small[f"{dtype_name}_{dim}"] = {"N": STAGE_A_SMALL_N, "D": dim, "dtype": dtype_name,
+                                        "check": row, **timed, "plain_ms": plain_ms(emb, q, mask)}
+    emit({"phase": "stage_a_unaligned", "B": b, "rows": small, "reps": REPS})
+
+    # ---- both routes at D = STAGE_A_WIDE_DIM, f32 then bf16
+    wide32 = unit(n, STAGE_A_WIDE_DIM)
+    qw_np = unit_queries(STAGE_A_WIDE_DIM)
     qw = torch.from_numpy(qw_np).cuda()
-    check(SA.stage_a_route(wide.dtype, STAGE_A_FMA_DIM, b) == "fma", "stage_a",
-          f"D={STAGE_A_FMA_DIM} f32 not on the fma route")
-    wide_row, _ = _tile_winners_diff(torch, wide, valid, qw, "stage_a")
-    fma_ms = _stage_a_by_batch(torch, wide, valid, qw_np, (b,))[b]
-    run_plain = lambda: SA.stage_a_tile_winners_reference(wide, valid, qw)
-    run_plain()
-    fma_plain_ms = _median_ms(torch, run_plain, REPS, before=spin)
-    fma_exact_ms = exact_ms(wide, qw)
-    fma_launches, _got = counted("fma", wide, np.concatenate([qw_np, qw_np[::-1]]), 2)
-    emit({"phase": "stage_a_f32", "route": "fma", "N": n, "D": STAGE_A_FMA_DIM,
-          "check": wide_row, "kernel": fma_ms, "plain_ms": fma_plain_ms,
-          "exact_ms": fma_exact_ms, "reps": REPS})
-    del wide, _got
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        wide = wide32.to(dtype)
+        route = SA.stage_a_route(dtype, STAGE_A_WIDE_DIM, b)
+        wide_row, _ = _tile_winners_diff(torch, wide, valid, qw, "stage_a")
+        timed = _stage_a_by_batch(torch, wide, valid, qw_np, (b,))[b]
+        wide_plain_ms = plain_ms(wide, qw)
+        wide_exact_ms = exact_ms(wide, qw)
+        launches, _got = counted(route, wide, np.concatenate([qw_np, qw_np[::-1]]), 2)
+        small_err = max(r["check"]["max_abs_err"] for r in small.values()
+                        if r["dtype"] == dtype_name)
+        emit({"phase": "stage_a_wide", "route": route, "N": n, "D": STAGE_A_WIDE_DIM,
+              "check": wide_row, "kernel": timed, "plain_ms": wide_plain_ms,
+              "exact_ms": wide_exact_ms, "main_path_launches": launches, "reps": REPS})
+        entries.append(entry(f"{names[route]}_d{STAGE_A_WIDE_DIM}", launches,
+                             max(wide_row["max_abs_err"], small_err), timed, wide_plain_ms))
+        del wide, _got
+    del wide32
     torch.cuda.empty_cache()
-    fma = {"name": "stage_a_fma", "route": "cuda",
-           "source": "review_recommender_tpu_torch/csrc/stage_a_fused.cu",
-           "replaces": "review_recommender_tpu/ops/pallas/stage_a_kernel.py:61",
-           "launches": fma_launches, "max_abs_err": wide_row["max_abs_err"],
-           "ms": fma_ms["ms"], "plain_ms": fma_plain_ms,
-           "bound_ms": fma_ms["bound_ms"], "bound_by": fma_ms["bound_by"], "library_ms": None}
-    return [tf32, fma]
+    return entries
 
 
 def _e2e_rows(engine, rows, scores):

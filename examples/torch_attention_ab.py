@@ -4,7 +4,7 @@ featurizer on the engine paths (review_recommender_tpu_torch), on one NVIDIA
 GPU, for an A/B of two versions on the same card.
 
     python3 examples/torch_attention_ab.py [ROOT] [--tag NAME]
-        [--kernel attention|bm25|stage_a|featurize] [--parent PARENT]
+        [--kernel attention|wide_heads|bm25|stage_a|featurize] [--parent PARENT]
 
 ROOT is the root of a checkout (default: this one). Its port is imported
 from there and its kernels are built there, so two checkouts can be timed
@@ -25,6 +25,15 @@ line with the dtype and the route (ops/attention.py:kernel_route):
              timed as device_ms (chip_smoke.py's yardstick; the port never
              calls it)
 
+--kernel wide_heads: the attention routes for head widths 129-256, at
+chip_smoke.py phase 19 (g)'s WIDE_SHAPE (32, 128, 2, 192) and at (64, 512,
+2, 192), in bf16 and f32: its _training_kernel_rows (the forward kernel,
+csrc/mha_generic.cu's CUDA-core route, against its plain version and SDPA's
+forward; the backward kernel, mha_bwd_fma, against the recompute and SDPA's
+forward and backward together; the bounds), and beside them SDPA's
+backward alone (autograd.grad through one saved SDPA forward,
+sdpa_backward_ms), all behind a 0.1 ms spin.
+
 --kernel bm25: for each of chip_smoke.py's BM25 shapes, the packed and the
 unpacked kernel on phase 5's postings (drawn on the card by this script's
 own chip_smoke.py, so both checkouts get the same inputs), one JSON line
@@ -32,16 +41,31 @@ each: device_ms as above, and cold_l2_ms, each launch queued behind a 256
 MB fill that flushes the 50 MB L2.
 
 --kernel stage_a: the stage-A tile pass (stage_a_tile_winners_kernel) on
-one 200,704 x 384 corpus of unit rows drawn on the card from a seeded
-torch.Generator (3% of rows invalid), in bf16 and then in f32, at B = 1, 8,
-32 and 128 seeded unit queries, one JSON line each with the route
-(ops/stage_a.py:stage_a_route): device_ms and cold_l2_ms as above. With
---parent PARENT (another checkout, e.g. a `git archive` of the parent
-commit unpacked under build/), PARENT's csrc/stage_a_*.cu are built into
-build/stage_a_ab/ and called through their own C entries
-(rrt_stage_a_wgmma for bf16, rrt_stage_a_tf32 or else rrt_stage_a_f32 for
-f32) in the same process, in the order parent, change, change, parent:
-device_ms of each, their ratio and the largest score difference.
+corpora of 200,704 unit rows drawn on the card from a seeded
+torch.Generator (3% of rows invalid), at each (dtype, D, batches) of
+STAGE_A_CELLS: phase 8's D = 384 in bf16 and f32 at B = 1, 8, 32, 128;
+f32 at D = 3,072 and 4,096 at B = 1, 32, 128; widths the first routes
+refused, bf16 D = 60 and 5,000 and f32 D = 6 and 4,100, at B = 32; and
+widths where the first layout (queries resident in shared memory) ran
+narrowed chunks, f32 D = 768 and 1,536 at B = 32 and 128 and bf16 D =
+1,024 and 4,096 at B = 128. One
+JSON line each with the route (ops/stage_a.py:stage_a_route): device_ms
+and cold_l2_ms as above, plain_ms (the plain tile pass, behind the spin),
+bound_ms (the corpus, mask and queries read once and the winners written
+once over 3.35 TB/s, against 2 N D B products at 989 TFLOP/s in bf16 or
+495 / 3 in f32) and share_of_bound. With --parent PARENT (another
+checkout, e.g. a `git archive` of the parent commit unpacked under
+build/), PARENT's csrc/stage_a_*.cu are built into build/stage_a_ab/ and
+called through their own C entries (bf16 rrt_stage_a_wgmma; f32
+rrt_stage_a_tf32, or rrt_stage_a_fma at the widths that one took, or else
+rrt_stage_a_f32; with a workspace where PARENT's entries take one) in the
+same process, in the order parent, change,
+change, parent: device_ms of each, their ratio and the largest score
+difference (and whether the winners are bit-equal); where no entry of
+PARENT takes the width, the change alone. --dims D [D ...] keeps the cells
+of those widths only; --phase4 times chip_smoke.py phase 4's corpus
+instead (200,192 synthetic rows of D = 384 in bf16, and cast to f32 as
+phase 8 does, at B = 1, 32, 128 of its bench queries).
 
 --kernel featurize: chip_smoke.py's phase 4 corpus (200k products, D=384)
 in an engine with ROOT's default featurizer (the Python route before the
@@ -159,10 +183,26 @@ def _bm25(torch, tag: str) -> None:
         torch.cuda.empty_cache()
 
 
+# (dtype, D, batch widths) of --kernel stage_a
+STAGE_A_CELLS = [("bfloat16", 384, (1, 8, 32, 128)), ("float32", 384, (1, 8, 32, 128)),
+                 ("float32", 3072, (1, 32, 128)), ("float32", 4096, (1, 32, 128)),
+                 ("bfloat16", 60, (32,)), ("bfloat16", 5000, (32,)), ("float32", 6, (32,)),
+                 ("float32", 4100, (32,)), ("float32", 768, (32, 128)),
+                 ("float32", 1536, (32, 128)), ("bfloat16", 1024, (128,)),
+                 ("bfloat16", 4096, (128,))]
+PEAK_HBM, PEAK_BF16, PEAK_F32_EXACT = 3.35e12, 989e12, 495e12 / 3
+
+
 def _parent_stage_a(parent: Path):
-    """PARENT's stage-A kernels in a library of their own, with the C entry
-    each corpus type goes to there."""
+    """PARENT's stage-A kernels in a library of their own: a function of
+    (dtype, D) giving a call (emb, valid, qvecs, out_s, out_i, N, D, B,
+    stream) -> cudaError of PARENT's C entry that takes that width, or
+    None. Entries of three generations: with a workspace sized by PARENT's
+    rrt_stage_a_*_workspace (any D), or without one (bf16 and f32 up to
+    rrt_stage_a_tf32_max_dim, then rrt_stage_a_fma, or rrt_stage_a_f32)."""
     import ctypes
+
+    import torch
 
     from review_recommender_tpu_torch import kernels
 
@@ -173,55 +213,152 @@ def _parent_stage_a(parent: Path):
            "-I", str(csrc), "-shared", "-o", str(out), *map(str, sorted(csrc.glob("stage_a_*.cu")))]
     subprocess.run(cmd, check=True)
     lib = ctypes.CDLL(str(out))
-    f32 = getattr(lib, "rrt_stage_a_tf32", None) or lib.rrt_stage_a_f32
-    for fn in (lib.rrt_stage_a_wgmma, f32):
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return {"bfloat16": lib.rrt_stage_a_wgmma, "float32": f32}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    if hasattr(lib, "rrt_stage_a_wgmma_workspace"):
+        def with_workspace(entry: str):
+            fn, size = getattr(lib, f"rrt_stage_a_{entry}"), getattr(lib, f"rrt_stage_a_{entry}_workspace")
+            fn.argtypes, fn.restype = [P] * 6 + [I] * 3 + [P], I
+            size.argtypes, size.restype = [I, I], ctypes.c_longlong
+
+            def call(emb, valid, qv, out_s, out_i, n, d, b, stream):
+                ws = torch.empty(max(size(d, b), 16), dtype=torch.uint8, device="cuda")
+                return fn(emb, valid, qv, ws.data_ptr(), out_s, out_i, n, d, b, stream)
+            return call
+        calls = {"bfloat16": with_workspace("wgmma"), "float32": with_workspace("tf32")}
+        return lambda dtype, d: calls[dtype]
+    tf32 = getattr(lib, "rrt_stage_a_tf32", None)
+    fma = getattr(lib, "rrt_stage_a_fma", None)
+    f32 = getattr(lib, "rrt_stage_a_f32", None)
+    for fn in (lib.rrt_stage_a_wgmma, tf32, fma, f32):
+        if fn is not None:
+            fn.argtypes = [P] * 5 + [I] * 3 + [P]
+            fn.restype = I
+    tf32_max = lib.rrt_stage_a_tf32_max_dim() if tf32 is not None else 0
+
+    def entry(dtype: str, d: int):
+        if dtype == "bfloat16":
+            return lib.rrt_stage_a_wgmma if d % 8 == 0 and d <= 4096 else None
+        if d % 4 or d > 4096:
+            return None
+        if tf32 is not None:
+            return tf32 if d <= tf32_max else fma
+        return f32
+    return entry
 
 
-def _stage_a(torch, tag: str, parent=None) -> None:
+def _stage_a_corpora(torch, dims=None, phase4=False):
+    """(corpus, dtype, emb, valid, batch widths, queries of a width) for each
+    cell: STAGE_A_CELLS on seeded unit rows, or chip_smoke.py phase 4's
+    corpus (bf16, then cast to f32 as its phase 8 does) and its bench
+    queries."""
+    if phase4:
+        from review_recommender_tpu_torch.engine.search import SearchEngine
+        from review_recommender_tpu_torch.index.build import synth_product_index
+        from review_recommender_tpu_torch.index.schema import IndexBundle
+
+        cs = _own_chip_smoke()
+        products = synth_product_index(cs.N_DOCS, cs.DIM, cs.VOCAB, cs.TERMS, seed=0,
+                                       text_chars=cs.TEXT_CHARS)
+        arrays = SearchEngine(IndexBundle(products=products), device="cuda").arrays
+        qvecs = cs._bench_queries(cs.BENCH_QUERIES, cs.DIM, cs.VOCAB)[0]
+        for dtype in ("bfloat16", "float32"):
+            yield ("phase4", dtype, arrays["emb"].to(getattr(torch, dtype)), arrays["valid"],
+                   (1, 32, 128), lambda b: qvecs[:b])
+        return
+    n = 200_704
+    for dtype, d, batches in STAGE_A_CELLS:
+        if dims and d not in dims:
+            continue
+        g = torch.Generator(device="cuda").manual_seed(600 if d == 384 else 600 + d)
+        emb = torch.randn(n, d, generator=g, device="cuda")
+        emb = emb / emb.norm(dim=1, keepdim=True)
+        valid = torch.rand(n, generator=g, device="cuda") >= 0.03
+        rng = np.random.default_rng(601)
+
+        def queries(b, rng=rng, d=d):  # drawn in turn, as the cell's widths come
+            q = rng.standard_normal((b, d)).astype(np.float32)
+            return q / np.linalg.norm(q, axis=1, keepdims=True)
+        yield "unit", dtype, emb.to(getattr(torch, dtype)), valid, batches, queries
+        del emb, valid
+        torch.cuda.empty_cache()
+
+
+def _stage_a(torch, tag: str, parent=None, dims=None, phase4=False) -> None:
     from review_recommender_tpu_torch.ops import stage_a as SA
 
-    n, d = 200_704, 384
-    g = torch.Generator(device="cuda").manual_seed(600)
-    emb32 = torch.randn(n, d, generator=g, device="cuda")
-    emb32 = emb32 / emb32.norm(dim=1, keepdim=True)
-    valid = torch.rand(n, generator=g, device="cuda") >= 0.03
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
     flush_buf = torch.empty((256 << 20) // 4, dtype=torch.float32, device="cuda")
     flush = lambda: flush_buf.fill_(1.0)
-    entries = _parent_stage_a(Path(parent).resolve()) if parent else None
-    tiles = -(-n // 2048)
-    for dtype in ("bfloat16", "float32"):
-        emb = emb32.to(getattr(torch, dtype))
-        rng = np.random.default_rng(601)
-        for b in (1, 8, 32, 128):
-            q = rng.standard_normal((b, d)).astype(np.float32)
-            qv = torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to("cuda")
+    entry = _parent_stage_a(Path(parent).resolve()) if parent else None
+    for corpus, dtype, emb, valid, batches, queries in _stage_a_corpora(torch, dims, phase4):
+        n, d = emb.shape
+        tiles = -(-n // 2048)
+        itemsize = emb.element_size()
+        fn = entry(dtype, d) if entry else None
+        for b in batches:
+            qv = torch.from_numpy(np.ascontiguousarray(queries(b))).to("cuda")
             run = lambda: SA.stage_a_tile_winners_kernel(emb, valid, qv)
-            row = {"tag": tag, "kernel": "stage_a", "dtype": dtype, "N": n, "D": d, "B": b,
-                   "route": SA.stage_a_route(emb.dtype, d, b), "reps": REPS}
+            plain = lambda: SA.stage_a_tile_winners_reference(emb, valid, qv)
+            nbytes = n * d * itemsize + n + b * d * 4 + tiles * 16 * b * 8
+            bounds = {"bytes": nbytes / PEAK_HBM * 1e3,
+                      "operations": 2 * n * d * b / (PEAK_BF16 if dtype == "bfloat16"
+                                                     else PEAK_F32_EXACT) * 1e3}
+            by = max(bounds, key=bounds.get)
+            row = {"tag": tag, "kernel": "stage_a", "corpus": corpus, "dtype": dtype, "N": n,
+                   "D": d, "B": b, "route": SA.stage_a_route(emb.dtype, d, b),
+                   "query_chunk": SA.stage_a_query_chunk(d, b, emb.dtype),
+                   "bound_ms": bounds[by], "bound_by": by, "reps": REPS}
             for _ in range(3):
                 got = run()
-            if entries is None:
+                plain()
+            if fn is None:
                 row.update(device_ms=_median_ms(torch, run, before=spin),
                            cold_l2_ms=_median_ms(torch, run, before=flush))
             else:
                 out_s = torch.empty(tiles, 16, b, device="cuda")
                 out_i = torch.empty(tiles, 16, b, dtype=torch.int32, device="cuda")
                 stream = torch.cuda.current_stream().cuda_stream
-                fn = entries[dtype]
                 prun = lambda: fn(emb.data_ptr(), valid.data_ptr(), qv.data_ptr(),
                                   out_s.data_ptr(), out_i.data_ptr(), n, d, b, stream)
                 for _ in range(3):
                     if prun() != 0:
-                        raise SystemExit(f"parent stage A failed to launch ({dtype}, B={b})")
+                        raise SystemExit(f"parent stage A failed to launch ({dtype}, D={d}, B={b})")
                 t = [_median_ms(torch, f, before=spin) for f in (prun, run, run, prun)]
                 row.update(parent_ms=[t[0], t[3]], change_ms=[t[1], t[2]],
+                           device_ms=(t[1] + t[2]) / 2,
                            change_over_parent=(t[1] + t[2]) / (t[0] + t[3]),
-                           max_abs_diff_vs_parent=float((got[0] - out_s).abs().max()))
+                           max_abs_diff_vs_parent=float((got[0] - out_s).abs().max()),
+                           equal_to_parent=bool(torch.equal(got[0], out_s)
+                                                and torch.equal(got[1], out_i)))
+            row["plain_ms"] = _median_ms(torch, plain, before=spin)
+            row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+            row["max_abs_err_vs_plain"] = float((got[0] - plain()[0]).abs().max())
             print(json.dumps(row), flush=True)
+
+
+WIDE_HEAD_SHAPES = [(32, 128, 2, 192), (64, 512, 2, 192)]
+
+
+def _wide_heads(torch, tag: str) -> None:
+    cs = _own_chip_smoke()
+    spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
+    for dtype in (torch.bfloat16, torch.float32):
+        rows = cs._training_kernel_rows(torch, WIDE_HEAD_SHAPES, dtype)
+        for i, row in enumerate(rows):
+            b, s, h, d = WIDE_HEAD_SHAPES[i]
+            rng = np.random.default_rng(300 + i)  # _training_kernel_rows' inputs
+            q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(np.float32))
+                          .to("cuda", dtype) for _ in range(4))
+            lens = rng.integers(1, s + 1, size=b)
+            bias = torch.from_numpy(np.where(np.arange(s)[None, :] < lens[:, None], 0.0, -1e30)
+                                    .astype(np.float32)).to("cuda")
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            with torch.enable_grad():
+                out = cs._sdpa(torch, *leaves, bias, h)
+                backward = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+                backward()
+                row["sdpa_backward_ms"] = _median_ms(torch, backward, before=spin)
+            print(json.dumps({"tag": tag, "kernel": "wide_heads", **row}), flush=True)
 
 
 def _featurize(torch, tag: str) -> None:
@@ -260,11 +397,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--kernel", choices=("attention", "bm25", "stage_a", "featurize"),
+    ap.add_argument("--kernel", choices=("attention", "wide_heads", "bm25", "stage_a", "featurize"),
                     default="attention")
     ap.add_argument("--parent", default=None,
                     help="--kernel stage_a: a checkout whose stage-A kernels run in turns "
                          "with ROOT's in this process")
+    ap.add_argument("--dims", type=int, nargs="+", default=None,
+                    help="--kernel stage_a: only the cells of these widths")
+    ap.add_argument("--phase4", action="store_true",
+                    help="--kernel stage_a: chip_smoke.py phase 4's corpus in place of the cells")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -285,9 +426,9 @@ def main() -> int:
     print(json.dumps({"tag": args.tag, "root": str(root), "card": smi, "kernel": args.kernel}),
           flush=True)
     if args.kernel == "stage_a":
-        _stage_a(torch, args.tag, args.parent)
+        _stage_a(torch, args.tag, args.parent, args.dims, args.phase4)
     else:
-        {"attention": _attention, "bm25": _bm25,
+        {"attention": _attention, "wide_heads": _wide_heads, "bm25": _bm25,
          "featurize": _featurize}[args.kernel](torch, args.tag)
     return 0
 

@@ -13,8 +13,9 @@ build/stage_a_breakdown/ and loaded on its own:
   no_select     the selection warps read each slab's scores and hand the
                 buffer back, but append nothing (no lists, no pruning;
                 both types)
-  loads_only    no_select without the wgmmas: the TMA stream and the
-                handshakes alone, the floor of this structure (in f32
+  loads_only    no_select without the wgmmas: the loads (corpus boxes by
+                TMA, query boxes by bulk copy), the query-box kernel and
+                the handshakes alone, the floor of this structure (in f32
                 also the loads of lo into registers and its split, which
                 stay: the registers are pinned); no_select less
                 loads_only is the products' time (without them every
@@ -100,7 +101,7 @@ def build(texts: dict) -> dict:
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
         P, I = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.rrt_stage_a_wgmma, lib.rrt_stage_a_tf32):
-            fn.argtypes = [P, P, P, P, P, I, I, I, P]
+            fn.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
             fn.restype = I
         libs[name] = lib
     return libs
@@ -120,7 +121,10 @@ def main() -> int:
     emb32 = torch.randn(N, D, generator=g, device="cuda")
     emb32 = emb32 / emb32.norm(dim=1, keepdim=True)
     valid = torch.rand(N, generator=g, device="cuda") >= 0.03
+    from review_recommender_tpu_torch.ops import stage_a as SA
+
     tiles = -(-N // 2048)
+    ws = torch.empty(1 << 20, dtype=torch.uint8, device="cuda")  # the query boxes: 393 KB at most
     for dtype, names in COPIES.items():
         emb = emb32.to(getattr(torch, dtype))
         rng = np.random.default_rng(601)
@@ -131,18 +135,22 @@ def main() -> int:
             out_i = torch.empty(tiles, 16, b, dtype=torch.int32, device="cuda")
             row = {"dtype": dtype, "B": b}
             for name in names:
-                row[f"{name}_ms"] = _time(torch, libs[name], dtype, emb, valid, qv, out_s, out_i)
+                nc = SA.stage_a_query_chunk(D, b, emb.dtype)
+                nc = min(nc, 64) if name == "chunk64" else nc
+                row[f"{name}_ms"] = _time(torch, libs[name], dtype, emb, valid, qv, nc, ws,
+                                          out_s, out_i)
             print(json.dumps(row), flush=True)
     return 0
 
 
-def _time(torch, lib, dtype, emb, valid, qv, out_s, out_i) -> float:
-    """Median of REPS CUDA-event times of one launch behind the spin."""
+def _time(torch, lib, dtype, emb, valid, qv, nc, ws, out_s, out_i) -> float:
+    """Median of REPS CUDA-event times of one launch, in chunks of nc
+    queries, behind the spin."""
     fn = lib.rrt_stage_a_wgmma if dtype == "bfloat16" else lib.rrt_stage_a_tf32
     stream = torch.cuda.current_stream().cuda_stream
     b = qv.shape[0]
-    run = lambda: fn(emb.data_ptr(), valid.data_ptr(), qv.data_ptr(), out_s.data_ptr(),
-                     out_i.data_ptr(), N, D, b, stream)
+    run = lambda: fn(emb.data_ptr(), valid.data_ptr(), qv.data_ptr(), ws.data_ptr(),
+                     out_s.data_ptr(), out_i.data_ptr(), N, D, b, nc, stream)
     for _ in range(3):
         if run() != 0:
             raise RuntimeError(f"{dtype}: launch failed at B={b}")

@@ -2,7 +2,7 @@
 // one 2048-row corpus tile for a batch of queries, and each query's 16 best
 // rows of the tile, in one pass. One kernel template takes a bf16 corpus
 // (rrt_stage_a_wgmma) and an f32 one (rrt_stage_a_tf32, the products as
-// 3xTF32).
+// 3xTF32), at any D >= 1.
 //
 // Replaces _stage_a_kernel of review_recommender_tpu/ops/pallas/
 // stage_a_kernel.py (reached through stage_a_fused_pallas). For each
@@ -17,32 +17,52 @@
 // returns (-3.4e38f, 0), as the TPU kernel's rounds do (every score left is
 // -3.4e38f, and row 0 is the lowest index holding it).
 //
-// What bounds it at N = 200,704, D = 384: reading the corpus once, N * D *
-// itemsize bytes over 3.35 TB/s of HBM, 0.0459 ms in bf16 and 0.0920 ms in
-// f32. The products, 2 * N * D * B = 4.9 GFLOP at B = 32, take 5 us at the
-// 989 TFLOP/s of the bf16 tensor cores (20 us at B = 128) and 30 us at the
-// f32-exact rate of 3xTF32, 495 / 3 TFLOP/s (0.120 ms at B = 128, above the
-// bytes). The first CUDA design (stage_a_fused.cu, kept for f32 corpora
-// wider than this kernel takes) was CUDA-core FMAs, a corpus read per group
-// of 8 queries, one thread per row and 16 rescans of the tile per query.
+// What bounds it: reading the corpus once, N * D * itemsize bytes over 3.35
+// TB/s of HBM: at N = 200,704, D = 384 0.0459 ms in bf16 and 0.0920 ms in
+// f32, at D = 3,072 in f32 0.735 ms. The products, 2 * N * D * B, at the
+// 989 TFLOP/s of the bf16 tensor cores or the f32-exact rate of 3xTF32, 495
+// / 3 TFLOP/s, stay under the bytes up to B of about 32 in f32 (at B = 128
+// they bound it: 0.120 ms at D = 384, 0.96 ms at D = 3,072). The port's
+// first design was CUDA-core FMAs, a corpus read per group of 8 queries:
+// 5.151 ms at D = 3,072, B = 32, slower than its plain version (PERF.md).
 //
-// Design, one CTA of 416 threads per (tile, chunk of up to NC queries), the
-// warps specialised (examples/torch_stage_a_breakdown.py times its parts on
-// the card; PERF.md has the numbers):
-//   - Queries. The chunk's NC queries (zero past B and past D) are written
-//     once to shared memory in the layout wgmma reads its B operand from (N
-//     = query, K = the embedding dim, 128-byte rows, 128-byte swizzle): in
-//     bf16, rounded to bf16; in f32, split (below). bf16: NC is 16, 32, 64
-//     or 128, the smallest that holds B, halved while the queries, the
-//     lists, one score buffer and 4 ring stages do not fit (every D <= 4096
-//     is taken; at D = 384 one chunk holds 128 queries). A wider batch is
-//     more chunks, each reading the tile again.
-//   - Corpus (a producer warp). The tile streams through a ring of 8 KB TMA
+// Design, one CTA of 416 threads per (tile, chunk of NC queries), the warps
+// specialised (examples/torch_stage_a_breakdown.py times its parts on the
+// card; PERF.md has the numbers):
+//   - Queries. A chunk is the smallest NC that holds B (bf16 16, 32, 64 or
+//     128; f32 8, 16 or 32, for registers), zero past B and past D; a wider
+//     batch is more chunks, each reading the tile again. A first kernel
+//     (stage_a_query_boxes) writes every chunk's queries to a workspace
+//     once a call, box by box, in the layout wgmma reads its B operand from
+//     (N = query, K = the embedding dim, 128-byte rows, 128-byte swizzle):
+//     in bf16 rounded to bf16, in f32 split (below). Each ring stage
+//     carries the chunk's query box (NC x 128 bytes, f32 2 NC) beside the
+//     corpus box it multiplies, one bulk copy from L2 beside the box's
+//     load. Shared memory then holds the ring, the lists and the score
+//     buffers whatever D is, so every chunk fits at every D, and a tile is
+//     read once for 32 f32 or 128 bf16 queries. The main kernel is a
+//     programmatic dependent launch: its CTAs set up while the first
+//     kernel runs, and the producer waits for that kernel's writes before
+//     its first load. (The port's first layout kept the chunk's queries in
+//     shared memory for the whole D: past 2,912 f32 columns only chunks of
+//     8 fit, past 4,096 bf16 columns none; PERF.md has the A/B of the two
+//     at D = 384.)
+//   - Corpus (a producer warp). The tile streams through a ring of 8 KB
 //     boxes (64 rows x one 128-byte swizzled row: 64 bf16 or 32 f32
-//     columns), as many stages as shared memory leaves (up to 24; 19 at NC
-//     = 32, D = 384 in bf16, so 150 KB are in flight per SM), each
-//     completed on an mbarrier. TMA zero-fills rows past N and columns past
-//     D; the kernel masks the rows itself.
+//     columns) and their query boxes, as many stages as shared memory
+//     leaves (ring_stages: 20, 14, 9 and 5 at bf16 NC = 16 to 128; 21, 16
+//     and 11 at f32 NC = 8 to 32), each completed on an mbarrier. TMA loads each box
+//     where the rows start on 16 bytes (D * itemsize a multiple of 16) and
+//     zero-fills rows past N and columns past D. Other widths (bf16 D = 60:
+//     120-byte rows) cannot be described to TMA; there the producer's 32
+//     lanes copy the box by cp.async in the widest granule the rows allow
+//     (8 or 4 bytes; 2 by loads and stores), into the same swizzled layout,
+//     zeros past N and D, kCopyDepth = 3 boxes in flight a lane; each lane
+//     fences its copies for the async proxy and arrives on a box once its
+//     copies of it are done, which is after it has issued the copies of the
+//     third box on. The MMA warpgroup frees box t - 1 only once box t is
+//     full, so the ring needs kCopyDepth + 2 stages (static_assert in
+//     launch). No copy of the corpus is made.
 //   - Products, bf16 (one MMA warpgroup). wgmma m64nNCk16 (A = a slab of 64
 //     corpus rows, B = the queries, both K-major from shared memory, f32
 //     accumulators in registers), 4 k-steps per box; each box goes back to
@@ -52,8 +72,8 @@
 //     take at the bound.
 //   - Products, f32 (3xTF32). A product is hi*q_hi + hi*q_lo + lo*q_hi (the
 //     lo*lo term, under 2^-20 of the product, is dropped), 4 k-steps of wgmma
-//     m64nNk8 a box. The queries are split once a CTA, q_hi = tf32(q) and q_lo
-//     = tf32(q - q_hi) (cvt.rna): each box holds the chunk's NC hi rows, then
+//     m64nNk8 a box. The queries are split once, q_hi = tf32(q) and q_lo =
+//     tf32(q - q_hi) (cvt.rna): each box holds the chunk's NC hi rows, then
 //     its NC lo rows. The corpus is not split in shared memory: the tensor
 //     cores read the box's f32 values as TF32 by their top 10 mantissa bits, so
 //     hi = trunc(x) costs nothing, and one wgmma with A = the box (shared
@@ -69,14 +89,11 @@
 //     largest error is 4.9e-7.) The tensor cores truncate each sum they add, so
 //     the small terms have accumulators of their own, apart from hi*q_hi (in
 //     the attention kernel, one accumulator for the three terms moved an f32
-//     search's scores by 1.1e-4). The first f32 design split hi and lo in
-//     registers and fed both as A (two RS wgmmas a k-step): 0.213 ms at B = 32
-//     against 0.150 for this one (PERF.md). The two copies of the queries take
-//     2 * NC * D * 4 bytes, so NC is 8 (B <= 8, or where 16 do not fit), 16 or
-//     32 (32 at D = 384: 96 KB) and D at most 2,912 (91 boxes at NC = 8 beside
-//     4 ring stages); a wider f32 corpus takes stage_a_fused.cu. The chunks of
-//     a tile are neighbours in the grid (blockIdx.x), so they run side by side
-//     and all but one read the tile from L2.
+//     search's scores by 1.1e-4). The first f32 design split hi and lo in registers and fed
+//     both as A (two RS wgmmas a k-step): 0.213 ms at B = 32 against 0.150
+//     for this one (PERF.md). The chunks of a tile are neighbours in the
+//     grid (blockIdx.x), so they run side by side and all but one read the
+//     tile from L2.
 //   - Scores. Each slab's scores go to a score buffer in shared memory
 //     (query-major, 64 rows; two buffers where they fit, else one), NaN on
 //     invalid rows (no compare passes NaN), -0 made +0 (so that the key
@@ -95,7 +112,8 @@
 //     random order about 16 ln(2048 / 16) ~ 80 rows of a tile pass per
 //     query, most in its first slabs. At the end of the tile the warp prunes
 //     once more, sorts what is left (32 or 64 keys) and writes 16 rounds.
-//     Lists hold 128 keys up to NC = 32, 64 at NC = 64 and 128.
+//     Lists hold 128 keys up to NC = 32, 64 at NC = 64 and 128, where the
+//     query boxes take 8-16 KB a stage.
 //   - Ties. A value equal to the threshold passes (>=), so a row that ties
 //     the 16th best with a lower index always reaches the sort, which
 //     decides by the full key: the result does not depend on the order in
@@ -104,7 +122,10 @@
 // One tile per CTA: at N = 200,704 that is 98 CTAs on 132 SMs. Designs
 // that were measured and replaced: one warpgroup doing products and
 // selection in turn (the selection's latency in series with the wgmmas),
-// and two warpgroups splitting the queries (twice the wgmmas a slab).
+// two warpgroups splitting the queries (twice the wgmmas a slab), and the
+// queries resident in shared memory (above), which for wide f32 corpora
+// meant chunks narrowed to 8 queries (D <= 2,912) and the CUDA-core kernel
+// beyond.
 
 // The kernel allocates nothing and does not synchronise; it launches on the
 // stream it is given and the C entry returns cudaGetLastError().
@@ -114,6 +135,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tf32_wgmma.cuh"
 
@@ -131,15 +154,14 @@ constexpr int kThreads = kConsumers + 32;            // + the producer warp
 // over all 32 banks; 66 (2-way conflicts) lets one buffer fit at 128 queries.
 __host__ __device__ constexpr int pitch(int nc) { return nc == 128 ? 66 : 68; }
 constexpr int kHalf = 32;  // rows of a slab a half adds per query at most
-constexpr int kMinStages = 4;
 constexpr int kMaxStages = 24;
+constexpr int kCopyDepth = 3;  // boxes of copies a producer lane keeps in flight
 constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may take
 constexpr float kNeg = -3.4e38f;
 
 // What the corpus type decides: the columns of a box (one 128-byte row),
-// the copies of the queries in shared memory (f32: hi and lo), the
-// narrowest and the widest chunk (f32: 8, for wide D, and 32, for
-// registers and shared memory) and the TMA element type.
+// the copies of the queries (f32: hi and lo), the narrowest and the widest
+// chunk (f32: 8, and 32, for registers) and the TMA element type.
 template <typename T>
 struct Elem;
 template <>
@@ -154,16 +176,33 @@ struct Elem<float> {
 };
 
 // Keys a query's candidate list holds: 128 (4 a lane) up to 32 queries a
-// chunk, 64 (2 a lane) from 64, where the queries take 48-96 KB at D = 384.
+// chunk, 64 (2 a lane) from 64.
 __host__ __device__ constexpr int list_cap(int nc) { return nc <= 32 ? 128 : 64; }
 
-// Shared memory (from a 1024-byte aligned base): the queries (kc boxes of
-// copies * nc rows x 128 bytes), the ring, the candidate lists, nbuf slab
-// score buffers (nc x pitch(nc) floats), then a full and an empty mbarrier
-// per stage and per score buffer; 1024 bytes of slack to align the base.
-__host__ __device__ constexpr size_t smem_bytes(int nc, int kc, int stages, int nbuf, int copies) {
-  return 1024 + (size_t)kc * copies * nc * 128 + (size_t)stages * kBoxBytes +
-         (size_t)nc * list_cap(nc) * 8 + (size_t)nbuf * nc * pitch(nc) * 4 + (size_t)stages * 16 + 32;
+// A ring stage: the corpus box and the chunk's query rows of the same 32
+// or 64 columns (copies * nc rows x 128 bytes).
+__host__ __device__ constexpr int stage_bytes(int nc, int copies) {
+  return kBoxBytes + copies * nc * 128;
+}
+
+// Shared memory (from a 1024-byte aligned base): the ring, the candidate
+// lists, nbuf slab score buffers (nc x pitch(nc) floats), then a full and
+// an empty mbarrier per stage and per score buffer; 1024 bytes of slack to
+// align the base.
+__host__ __device__ constexpr int smem_bytes(int nc, int stages, int nbuf, int copies) {
+  return 1024 + stages * stage_bytes(nc, copies) + nc * list_cap(nc) * 8 +
+         nbuf * nc * pitch(nc) * 4 + stages * 16 + 32;
+}
+
+// Score buffers: 2 where they fit beside 8 ring stages, else 1; then as
+// many ring stages as the rest of shared memory holds, up to kMaxStages.
+__host__ __device__ constexpr int score_buffers(int nc, int copies) {
+  return smem_bytes(nc, 8, 2, copies) <= kMaxSmem ? 2 : 1;
+}
+__host__ __device__ constexpr int ring_stages(int nc, int copies) {
+  const int fit = (kMaxSmem - smem_bytes(nc, 0, score_buffers(nc, copies), copies)) /
+                  (stage_bytes(nc, copies) + 16);
+  return fit < kMaxStages ? fit : kMaxStages;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -193,6 +232,42 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) from global memory, 16-byte aligned, into
+// shared memory, completed on an mbarrier (a bulk copy, no tensor map).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// G bytes (8 or 4) from global to shared memory by cp.async; in == false
+// writes G zero bytes and reads nothing.
+template <int G>
+__device__ __forceinline__ void copy_granule(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(G),
+               "r"(in ? G : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Order this thread's generic-proxy writes to shared memory (st.shared,
+// cp.async) before the async proxy's reads (wgmma's operands).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // One TMA box of a 2-D tensor map (column, row) into shared memory.
@@ -366,6 +441,17 @@ __device__ __forceinline__ void sort64_desc(uint64_t& a, uint64_t& b) {
   }
 }
 
+// The main kernel launches while stage_a_query_boxes runs (a programmatic
+// dependent launch, launch()): the first kernel lets it in at its start,
+// and the main kernel's producer waits here, before its first read of the
+// query boxes, for that grid to complete and its writes to be visible.
+__device__ __forceinline__ void allow_dependent_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // Named barrier 1: every thread but the producer's.
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
@@ -440,32 +526,96 @@ __device__ __forceinline__ void write_rounds(uint64_t* list, int n, float th, fl
   }
 }
 
+// The producer warp where TMA cannot describe the corpus rows (D * itemsize
+// not a multiple of 16 bytes): each lane copies its G-byte granules (8 or 4
+// by cp.async, 2 by loads and stores) of box t (rows in turn, zeros past N
+// and past D) into the 128-byte swizzled layout TMA gives, keeps kCopyDepth
+// boxes of copies in flight, and arrives on box t's full barrier once its
+// copies of it are done and fenced for wgmma. Lane 0 arms the stage first
+// with the box's query bytes, by a bulk copy: 33 arrivals a stage.
+template <int G>
+__device__ void produce_rows(const unsigned char* emb, size_t row_bytes, int n, int row0, int kc,
+                             int n_boxes, int stages, uint32_t s_ring, uint32_t stage_b,
+                             uint32_t bar_full, uint32_t bar_empty, const unsigned char* qsrc,
+                             uint32_t qbytes) {
+  constexpr int kPerRow = 128 / G;  // granules of a box row
+  constexpr int kIters = kSlab * kPerRow / 32;
+  constexpr int kBatch = G == 2 ? 8 : 1;  // 2-byte loads a lane has in flight before it stores
+  const int lane = threadIdx.x & 31;
+  for (int t = 0; t < n_boxes; ++t) {
+    const int st = t % stages, r = t / stages;
+    if (r > 0) mbar_wait(bar_empty + 8 * st, (r - 1) & 1);
+    const uint32_t dst0 = s_ring + st * stage_b;
+    if (lane == 0) {
+      mbar_expect_tx(bar_full + 8 * st, qbytes);
+      bulk_load(dst0 + kBoxBytes, qsrc + (size_t)(t % kc) * qbytes, qbytes, bar_full + 8 * st);
+    }
+    const int slab_row = row0 + (t / kc) * kSlab;
+    const size_t col = (size_t)(t % kc) * 128;  // the box's first byte in a corpus row
+    for (int i0 = 0; i0 < kIters; i0 += kBatch) {
+      uint32_t dst[kBatch];
+      const unsigned char* src[kBatch];
+      bool in[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int u = lane + 32 * (i0 + k), rr = u / kPerRow, gb = (u % kPerRow) * G;
+        in[k] = slab_row + rr < n && col + gb < row_bytes;
+        src[k] = in[k] ? emb + (size_t)(slab_row + rr) * row_bytes + col + gb : emb;
+        dst[k] = dst0 + rr * 128 + (((gb >> 4) ^ (rr & 7)) << 4) + (gb & 15);
+      }
+      if constexpr (G == 2) {
+        unsigned short v[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)
+          v[k] = in[k] ? __ldg(reinterpret_cast<const unsigned short*>(src[k])) : 0;
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)
+          asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst[k]), "h"(v[k]) : "memory");
+      } else {
+        copy_granule<G>(dst[0], src[0], in[0]);
+      }
+    }
+    cp_async_commit();
+    if (t >= kCopyDepth) {
+      cp_async_wait<kCopyDepth>();
+      fence_async_smem();
+      mbar_arrive(bar_full + 8 * ((t - kCopyDepth) % stages));
+    }
+  }
+  cp_async_wait<0>();
+  fence_async_smem();
+  for (int t = n_boxes > kCopyDepth ? n_boxes - kCopyDepth : 0; t < n_boxes; ++t)
+    mbar_arrive(bar_full + 8 * (t % stages));
+}
+
 // A CTA of T's corpus and NC queries (bf16: 16, 32, 64 or 128; f32: 8, 16
-// or 32). nbuf score buffers (2, or 1 where two do not fit beside 8 ring
-// stages): slab s uses buffer s % nbuf.
+// or 32). The queries come with each corpus box through the ring from
+// `qbox` (stage_a_query_boxes' layout). gran: 0 where TMA loads the corpus
+// (map `tm`), else the granule (8, 4 or 2 bytes) in which the producer warp
+// copies it from `emb`. Slab s's scores use score buffer s % kNbuf.
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads, 1)
-stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __restrict__ valid,
-                     const float* __restrict__ qvecs, float* __restrict__ out_s,
-                     int32_t* __restrict__ out_i, int n, int d, int b, int kc, int stages,
-                     int nbuf) {
+stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const T* __restrict__ emb, int gran,
+                     const uint8_t* __restrict__ valid, const unsigned char* __restrict__ qbox,
+                     float* __restrict__ out_s, int32_t* __restrict__ out_i, int n, int d, int b,
+                     int kc) {
   constexpr bool kF32 = Elem<T>::kCopies == 2;
   constexpr int kBoxCols = Elem<T>::kBoxCols;
-  constexpr int kQRows = Elem<T>::kCopies * NC;  // query rows of a box
+  constexpr int kQBytes = Elem<T>::kCopies * NC * 128;  // a box's query rows
+  constexpr int kStage = stage_bytes(NC, Elem<T>::kCopies);
+  constexpr int kStages = ring_stages(NC, Elem<T>::kCopies);
+  constexpr int kNbuf = score_buffers(NC, Elem<T>::kCopies);
   constexpr int kCap = list_cap(NC), kP = kCap / 32, kPitch = pitch(NC);
   constexpr int kOwn = NC / kSelWarps;  // queries each selection warp owns
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  unsigned char* gbase = smem_raw + (base - raw);
-  const uint32_t s_q = base;                        // box x at + x * kQRows * 128
-  const uint32_t s_ring = s_q + kc * kQRows * 128;  // stage s at + s * kBoxBytes
-  uint64_t* cand = reinterpret_cast<uint64_t*>(gbase + (size_t)kc * kQRows * 128 +
-                                               (size_t)stages * kBoxBytes);
-  float* sbuf = reinterpret_cast<float*>(cand + NC * kCap);  // [nbuf][NC][kPitch]
-  const uint32_t bar_full = smem_u32(sbuf + nbuf * NC * kPitch);  // stage s at + 8 s
-  const uint32_t bar_empty = bar_full + 8 * stages;
-  const uint32_t bar_sfull = bar_empty + 8 * stages;  // score buffer u at + 8 u
+  const uint32_t s_ring = (raw + 1023u) & ~1023u;  // stage s at + s * kStage
+  unsigned char* gring = smem_raw + (s_ring - raw);
+  uint64_t* cand = reinterpret_cast<uint64_t*>(gring + kStages * kStage);
+  float* sbuf = reinterpret_cast<float*>(cand + NC * kCap);  // [kNbuf][NC][kPitch]
+  const uint32_t bar_full = smem_u32(sbuf + kNbuf * NC * kPitch);  // stage s at + 8 s
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const uint32_t bar_sfull = bar_empty + 8 * kStages;  // score buffer u at + 8 u
   const uint32_t bar_sempty = bar_sfull + 16;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -478,11 +628,11 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
   const int n_boxes = n_slabs * kc;
 
   if (tid == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(bar_full + 8 * s, 1);
-      // bf16: lane 0 of each MMA warp; f32: every MMA thread (no divergent
-      // path among the wgmmas in flight)
-      mbar_init(bar_empty + 8 * s, kF32 ? 128 : 4);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, gran == 0 ? 1 : 33);  // lane 0's loads; or lane 0 and 32 copiers
+      // every MMA thread: no divergent path among the wgmmas in flight (one
+      // made ptxas serialize them, C7520)
+      mbar_init(bar_empty + 8 * s, 128);
     }
     for (int u = 0; u < 2; ++u) {
       mbar_init(bar_sfull + 8 * u, 128);                  // every MMA thread
@@ -493,14 +643,32 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
   __syncthreads();
 
   if (warp == kConsumers / 32) {  // ---- producer: box t = (slab t / kc, column box t % kc)
-    if (lane == 0) {
-      for (int t = 0; t < n_boxes; ++t) {
-        const int st = t % stages, r = t / stages;
-        if (r > 0) mbar_wait(bar_empty + 8 * st, (r - 1) & 1);
-        mbar_expect_tx(bar_full + 8 * st, kBoxBytes);
-        tma_load(s_ring + st * kBoxBytes, &tm, bar_full + 8 * st, (t % kc) * kBoxCols,
-                 row0 + (t / kc) * kSlab);
+    // the chunk's query boxes: box x at + x * kQBytes, written by the kernel
+    // this one was launched after
+    const unsigned char* qsrc = qbox + (size_t)(q0 / NC) * kc * kQBytes;
+    wait_for_prior_grid();
+    if (gran == 0) {
+      if (lane == 0) {
+        for (int t = 0; t < n_boxes; ++t) {
+          const int st = t % kStages, r = t / kStages;
+          if (r > 0) mbar_wait(bar_empty + 8 * st, (r - 1) & 1);
+          mbar_expect_tx(bar_full + 8 * st, kStage);
+          tma_load(s_ring + st * kStage, &tm, bar_full + 8 * st, (t % kc) * kBoxCols,
+                   row0 + (t / kc) * kSlab);
+          bulk_load(s_ring + st * kStage + kBoxBytes, qsrc + (size_t)(t % kc) * kQBytes, kQBytes,
+                    bar_full + 8 * st);
+        }
       }
+    } else {
+      auto rows = reinterpret_cast<const unsigned char*>(emb);
+      const size_t row_bytes = (size_t)d * sizeof(T);
+      auto produce = [&](auto g) {
+        produce_rows<decltype(g)::value>(rows, row_bytes, n, row0, kc, n_boxes, kStages, s_ring,
+                                         kStage, bar_full, bar_empty, qsrc, kQBytes);
+      };
+      if (gran == 8) produce(std::integral_constant<int, 8>());
+      else if (gran == 4) produce(std::integral_constant<int, 4>());
+      else produce(std::integral_constant<int, 2>());
     }
     return;
   }
@@ -509,63 +677,9 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
   // is free until the first slab's selection
   uint8_t* v_tile = reinterpret_cast<uint8_t*>(cand);
   for (int i = tid; i < kTileN; i += kConsumers) v_tile[i] = row0 + i < n ? valid[row0 + i] : 0;
-  if constexpr (kF32) {
-    // the queries split in wgmma's B layout: 16-byte piece p of query j in
-    // box x (columns x * 32 + 4p .. + 3), its hi at s_q + x * kQRows * 128 +
-    // j * 128 + ((p ^ (j & 7)) << 4), its lo NC rows further
-    const int pieces = NC * kc * 8;
-    for (int i = tid; i < pieces; i += kConsumers) {
-      const int j = i / (kc * 8), x = (i / 8) % kc, p = i % 8, k0 = x * 32 + 4 * p;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (j < nq && k0 < d)  // d % 4 == 0: the piece is whole
-        v = __ldg(reinterpret_cast<const float4*>(qvecs + (size_t)(q0 + j) * d + k0));
-      const float e[4] = {v.x, v.y, v.z, v.w};
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        hi[t] = tf32_rna(e[t]);
-        lo[t] = tf32_rna(e[t] - __uint_as_float(hi[t]));
-      }
-      unsigned char* at = gbase + (size_t)x * kQRows * 128 + j * 128 + ((p ^ (j & 7)) << 4);
-      *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(at + NC * 128) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    }
-  } else {
-    // the queries to bf16 in wgmma's B layout: 16-byte piece c8 of query j in
-    // box x at s_q + x * NC * 128 + j * 128 + ((c8 ^ (j & 7)) << 4)
-    constexpr int kBatch = 4;  // pieces a thread loads before it stores
-    const int pieces = NC * kc * 8;
-    for (int p0 = tid; p0 < pieces; p0 += kConsumers * kBatch) {
-      float4 v[kBatch][2];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int p = p0 + u * kConsumers;
-        const int j = p / (kc * 8), x = (p / 8) % kc, k0 = x * kBoxCols + (p % 8) * 8;
-        if (p < pieces && j < nq && k0 < d) {  // d % 8 == 0: the piece is whole
-          const float4* src = reinterpret_cast<const float4*>(qvecs + (size_t)(q0 + j) * d + k0);
-          v[u][0] = __ldg(src);
-          v[u][1] = __ldg(src + 1);
-        } else {
-          v[u][0] = v[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int p = p0 + u * kConsumers;
-        if (p < pieces) {
-          const int j = p / (kc * 8), x = (p / 8) % kc, c8 = p % 8;
-          *reinterpret_cast<uint4*>(gbase + (size_t)x * NC * 128 + j * 128 +
-                                    ((c8 ^ (j & 7)) << 4)) =
-              make_uint4(pack_bf16(v[u][0].x, v[u][0].y), pack_bf16(v[u][0].z, v[u][0].w),
-                         pack_bf16(v[u][1].x, v[u][1].y), pack_bf16(v[u][1].z, v[u][1].w));
-        }
-      }
-    }
-  }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic writes -> wgmma
   consumers_sync();
 
-  if (warp < 4) {  // ---- the MMA warpgroup: scores of slab s into buffer s % nbuf
+  if (warp < 4) {  // ---- the MMA warpgroup: scores of slab s into buffer s % kNbuf
     const int g = lane >> 2, c = lane & 3;
     // bit 2 s + h: this thread's row s * 64 + warp * 16 + g + 8 h is valid
     uint64_t vmask = 0;
@@ -581,7 +695,7 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
     // c + 4) are columns 8kk + c and 8kk + c + 4 (4-byte loads, no bank
     // conflict); trunc(x) clears the 13 low mantissa bits, so lo is exact
     auto split_lo = [&](uint32_t (&lo)[16], int st) {
-      const unsigned char* box = gbase + (s_ring - base) + st * kBoxBytes;
+      const unsigned char* box = gring + st * kStage;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -598,7 +712,7 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
     // memory (the tensor cores read the box's f32 as TF32, dropping the 13
     // low mantissa bits) and lo * q_hi from registers
     auto mma_box = [&](uint32_t (&lo)[16], int x, int st) {
-      const uint32_t a = s_ring + st * kBoxBytes, bq = s_q + x * kQRows * 128;
+      const uint32_t a = s_ring + st * kStage, bq = a + kBoxBytes;  // bq: the box's queries
       fence_regs(lo);
       wgmma_fence();
 #pragma unroll
@@ -620,13 +734,13 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
         // box x's lo is split while box x - 1's products run; a box goes back
         // to the producer once the products that read it are done
         auto step = [&](uint32_t (&lo)[16], int x) {
-          const int t = s * kc + x, st = t % stages;
-          mbar_wait(bar_full + 8 * st, (t / stages) & 1);
+          const int t = s * kc + x, st = t % kStages;
+          mbar_wait(bar_full + 8 * st, (t / kStages) & 1);
           split_lo(lo, st);
           mma_box(lo, x, st);
           if (x > 0) {
             wgmma_wait<1>();
-            mbar_arrive(bar_empty + 8 * ((t - 1) % stages));
+            mbar_arrive(bar_empty + 8 * ((t - 1) % kStages));
           }
         };
         for (int x = 0; x < kc; x += 2) {
@@ -634,24 +748,25 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
           if (x + 1 < kc) step(lo1, x + 1);
         }
         wgmma_wait<0>();
-        mbar_arrive(bar_empty + 8 * ((s * kc + kc - 1) % stages));
+        mbar_arrive(bar_empty + 8 * ((s * kc + kc - 1) % kStages));
       } else {
-        wgmma_fence();
         for (int x = 0; x < kc; ++x) {
-          const int t = s * kc + x, st = t % stages;
-          mbar_wait(bar_full + 8 * st, (t / stages) & 1);
-          const uint32_t a = s_ring + st * kBoxBytes, bq = s_q + x * NC * 128;
+          const int t = s * kc + x, st = t % kStages;
+          mbar_wait(bar_full + 8 * st, (t / kStages) & 1);
+          const uint32_t a = s_ring + st * kStage, bq = a + kBoxBytes;  // bq: the box's queries
+          fence_regs(acc);
+          wgmma_fence();  // after the wait's branch, so ptxas needs no fence of its own there
 #pragma unroll
           for (int kk = 0; kk < kBoxCols / 16; ++kk)
             Wgmma<NC>::mma(acc, desc_sw128(a + kk * 32), desc_sw128(bq + kk * 32), (x | kk) != 0);
           wgmma_commit();
           if (x > 0) {  // the box before this one is read: back to the producer
             wgmma_wait<1>();
-            if (lane == 0) mbar_arrive(bar_empty + 8 * ((t - 1) % stages));
+            mbar_arrive(bar_empty + 8 * ((t - 1) % kStages));
           }
         }
         wgmma_wait<0>();
-        if (lane == 0) mbar_arrive(bar_empty + 8 * ((s * kc + kc - 1) % stages));
+        mbar_arrive(bar_empty + 8 * ((s * kc + kc - 1) % kStages));
       }
       fence_regs(acc);
       fence_regs(acc_lo);
@@ -660,8 +775,8 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
       // its lo*q_hi acc_lo's 4i + 2h + e); an invalid row scores NaN, which
       // no compare passes, and -0 becomes +0 (the key order is then the
       // float order)
-      const int u = s % nbuf;
-      if (s >= nbuf) mbar_wait(bar_sempty + 8 * u, (s / nbuf - 1) & 1);
+      const int u = s % kNbuf;
+      if (s >= kNbuf) mbar_wait(bar_sempty + 8 * u, (s / kNbuf - 1) & 1);
       float* out = sbuf + u * NC * kPitch + warp * 16 + g;
 #pragma unroll
       for (int i = 0; i < NC / 8; ++i) {
@@ -701,8 +816,8 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
     cnt[m / kG][m % kG] = 0;
   }
   for (int s = 0; s < n_slabs; ++s) {
-    const int u = s % nbuf;
-    mbar_wait(bar_sfull + 8 * u, (s / nbuf) & 1);
+    const int u = s % kNbuf;
+    mbar_wait(bar_sfull + 8 * u, (s / kNbuf) & 1);
     float sc[kOwn][2];
 #pragma unroll
     for (int m = 0; m < kOwn; ++m) {
@@ -744,6 +859,46 @@ stage_a_wgmma_kernel(const __grid_constant__ CUtensorMap tm, const uint8_t* __re
   }
 }
 
+// The queries, once a call: chunk c's box x (columns x * kBoxCols ..) at
+// ws + (c * kc + x) * kQRows * 128, in the layout wgmma reads from shared
+// memory (query j's 16-byte piece p at row j, ((p ^ (j & 7)) << 4); f32: hi
+// at row j and lo at row NC + j), so that one bulk copy puts it beside its
+// corpus box. Zero past B and past D; any D (element loads). One thread a
+// 16-byte piece of a row. It lets the main kernel launch at once
+// (stage_a_wgmma_kernel waits for its writes in wait_for_prior_grid).
+template <typename T, int NC>
+__global__ void stage_a_query_boxes(const float* __restrict__ qvecs, unsigned char* __restrict__ ws,
+                                    int d, int b, int kc, long long pieces) {
+  allow_dependent_launch();
+  constexpr bool kF32 = Elem<T>::kCopies == 2;
+  constexpr int kQRows = Elem<T>::kCopies * NC;
+  constexpr int kPer = 16 / sizeof(T);  // columns a piece holds: 4 f32, 8 bf16
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < pieces; i += stride) {
+    const int p = (int)(i % 8), j = (int)(i / 8 % NC);
+    const long long cx = i / (8 * NC);  // c * kc + x
+    const int q = (int)(cx / kc) * NC + j, k0 = (int)(cx % kc) * Elem<T>::kBoxCols + p * kPer;
+    float e[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      e[u] = q < b && k0 + u < d ? __ldg(qvecs + (size_t)q * d + k0 + u) : 0.f;
+    unsigned char* at = ws + cx * kQRows * 128 + j * 128 + ((p ^ (j & 7)) << 4);
+    if constexpr (kF32) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        hi[u] = tf32_rna(e[u]);
+        lo[u] = tf32_rna(e[u] - __uint_as_float(hi[u]));
+      }
+      *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(at + NC * 128) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    } else {
+      *reinterpret_cast<uint4*>(at) = make_uint4(pack_bf16(e[0], e[1]), pack_bf16(e[2], e[3]),
+                                                 pack_bf16(e[4], e[5]), pack_bf16(e[6], e[7]));
+    }
+  }
+}
+
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
 
 // cuTensorMapEncodeTiled (CUDA 12.0 ABI), looked up through the runtime, so
@@ -782,107 +937,104 @@ bool make_map(CUtensorMap* map, const void* emb, int n, int d) {
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The chunk widths the kernel has an instance for: powers of 2 from the
+// type's narrowest to its widest.
 template <typename T>
-int boxes(int d) { return (d + Elem<T>::kBoxCols - 1) / Elem<T>::kBoxCols; }
-
-// Whether the narrowest chunk of queries of D dimensions fits beside 4 ring
-// stages and one score buffer: every D <= 4096 in bf16, D <= 2,912 in f32.
-template <typename T>
-bool takes_dim(int d) {
-  return smem_bytes(Elem<T>::kMinChunk, boxes<T>(d), kMinStages, 1, Elem<T>::kCopies) <=
-         (size_t)kMaxSmem;
+bool chunk_taken(int nc) {
+  return nc >= Elem<T>::kMinChunk && nc <= Elem<T>::kMaxChunk && (nc & (nc - 1)) == 0;
 }
 
-// The chunk width for B queries of D dimensions: the smallest of 16, 32, ...
-// up to the type's widest that holds B (f32: 8 at B <= 8), halved while 4
-// ring stages and one score buffer do not fit beside the queries.
-template <typename T>
-int chunk_width(int d, int b) {
-  const int kc = boxes<T>(d);
-  int nc = Elem<T>::kMinChunk;
-  while (nc < Elem<T>::kMaxChunk && nc < b) nc *= 2;
-  while (nc > Elem<T>::kMinChunk &&
-         smem_bytes(nc, kc, kMinStages, 1, Elem<T>::kCopies) > (size_t)kMaxSmem)
-    nc /= 2;
-  return nc;
-}
-
+// The query boxes, then the main kernel as a programmatic dependent launch
+// on the same stream.
 template <typename T, int NC>
-cudaError_t launch(const CUtensorMap& map, const uint8_t* valid, const float* qvecs, float* out_s,
-                   int32_t* out_i, int n, int d, int b, int kc, cudaStream_t stream) {
+cudaError_t launch(const CUtensorMap& map, const T* emb, int gran, const uint8_t* valid,
+                   const float* qvecs, unsigned char* ws, float* out_s, int32_t* out_i, int n,
+                   int d, int b, int kc, cudaStream_t stream) {
+  constexpr int copies = Elem<T>::kCopies;
+  constexpr int smem = smem_bytes(NC, ring_stages(NC, copies), score_buffers(NC, copies), copies);
+  static_assert(smem <= kMaxSmem, "shared memory");
+  // the copy loader arrives on box t after issuing box t + kCopyDepth, and
+  // the MMA warpgroup frees box t - 1 after box t is full
+  static_assert(ring_stages(NC, copies) >= kCopyDepth + 2, "the copy loader needs the stages");
+  const int chunks = (b + NC - 1) / NC;
+  const long long pieces = (long long)chunks * kc * NC * 8;
+  const int blocks = (int)(pieces < 256LL * 4096 ? (pieces + 255) / 256 : 4096);
+  stage_a_query_boxes<T, NC><<<blocks, 256, 0, stream>>>(qvecs, ws, d, b, kc, pieces);
+  if (cudaError_t err = cudaGetLastError(); err != cudaSuccess) return err;
   auto kern = stage_a_wgmma_kernel<T, NC>;
   static bool smem_set = false;  // the opt-in is per kernel instance, not per call
   if (!smem_set) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  constexpr int copies = Elem<T>::kCopies;
-  const int nbuf = smem_bytes(NC, kc, 8, 2, copies) <= (size_t)kMaxSmem ? 2 : 1;
-  const int stages = (int)((kMaxSmem - smem_bytes(NC, kc, 0, nbuf, copies)) / (kBoxBytes + 16));
-  const int st = stages < kMaxStages ? stages : kMaxStages;
-  const int tiles = (n + kTileN - 1) / kTileN, chunks = (b + NC - 1) / NC;
-  const dim3 grid = copies == 2 ? dim3(chunks, tiles) : dim3(tiles, chunks);
-  kern<<<grid, kThreads, smem_bytes(NC, kc, st, nbuf, copies), stream>>>(
-      map, valid, qvecs, out_s, out_i, n, d, b, kc, st, nbuf);
-  return cudaGetLastError();
+  const int tiles = (n + kTileN - 1) / kTileN;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = copies == 2 ? dim3(chunks, tiles) : dim3(tiles, chunks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, map, emb, gran, valid,
+                            static_cast<const unsigned char*>(ws), out_s, out_i, n, d, b, kc);
 }
 
 template <typename T>
-int run(const void* emb, const void* valid, const void* qvecs, void* out_s, void* out_i, int n,
-        int d, int b, void* stream) {
-  const int kc = boxes<T>(d);
-  const int nc = chunk_width<T>(d, b);
+int run(const void* emb, const void* valid, const void* qvecs, void* ws, void* out_s, void* out_i,
+        int n, int d, int b, int nc, void* stream) {
+  if (n <= 0 || d <= 0 || b <= 0 || !chunk_taken<T>(nc) || ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int kc = (d + Elem<T>::kBoxCols - 1) / Elem<T>::kBoxCols;
   const long long tiles = ((long long)n + kTileN - 1) / kTileN, chunks = (b + nc - 1) / nc;
   if ((Elem<T>::kCopies == 2 ? tiles : chunks) > 65535) return (int)cudaErrorInvalidValue;  // grid.y
-  CUtensorMap map;
-  if (!make_map<T>(&map, emb, n, d)) return (int)cudaErrorInvalidValue;
+  // TMA where the rows start on 16 bytes, else copies in the widest
+  // granule the row width allows
+  if ((uintptr_t)emb % 16 || (uintptr_t)ws % 16) return (int)cudaErrorInvalidValue;
+  const size_t row_bytes = (size_t)d * sizeof(T);
+  const int low = (int)((row_bytes | 16u) & (~(row_bytes | 16u) + 1));
+  const int gran = low == 16 ? 0 : low;
+  CUtensorMap map{};
+  if (gran == 0 && !make_map<T>(&map, emb, n, d)) return (int)cudaErrorInvalidValue;
+  auto e = static_cast<const T*>(emb);
   auto v = static_cast<const uint8_t*>(valid);
   auto q = static_cast<const float*>(qvecs);
+  auto w = static_cast<unsigned char*>(ws);
   auto os = static_cast<float*>(out_s);
   auto oi = static_cast<int32_t*>(out_i);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (Elem<T>::kMinChunk == 8) {
-    if (nc == 8) return (int)launch<T, 8>(map, v, q, os, oi, n, d, b, kc, st);
+    if (nc == 8) return (int)launch<T, 8>(map, e, gran, v, q, w, os, oi, n, d, b, kc, st);
   }
-  if (nc == 16) return (int)launch<T, 16>(map, v, q, os, oi, n, d, b, kc, st);
+  if (nc == 16) return (int)launch<T, 16>(map, e, gran, v, q, w, os, oi, n, d, b, kc, st);
   if constexpr (Elem<T>::kMaxChunk == 128) {
-    if (nc == 64) return (int)launch<T, 64>(map, v, q, os, oi, n, d, b, kc, st);
-    if (nc == 128) return (int)launch<T, 128>(map, v, q, os, oi, n, d, b, kc, st);
+    if (nc == 64) return (int)launch<T, 64>(map, e, gran, v, q, w, os, oi, n, d, b, kc, st);
+    if (nc == 128) return (int)launch<T, 128>(map, e, gran, v, q, w, os, oi, n, d, b, kc, st);
   }
-  return (int)launch<T, 32>(map, v, q, os, oi, n, d, b, kc, st);
+  return (int)launch<T, 32>(map, e, gran, v, q, w, os, oi, n, d, b, kc, st);
 }
 
 }  // namespace
 
-// The queries one CTA takes (its chunk width) for B queries of D dims: bf16,
-// f32.
-extern "C" int rrt_stage_a_wgmma_chunk(int d, int b) { return chunk_width<__nv_bfloat16>(d, b); }
-extern "C" int rrt_stage_a_tf32_chunk(int d, int b) { return chunk_width<float>(d, b); }
-
-// The widest f32 corpus rrt_stage_a_tf32 takes (ops/stage_a.py:TF32_MAX_DIM).
-extern "C" int rrt_stage_a_tf32_max_dim() {
-  int d = 0;
-  while (takes_dim<float>(d + 32)) d += 32;
-  return d;
+// emb (N, D) bf16, any D >= 1, 16-byte aligned; valid (N,) bool; qvecs (B,
+// D) f32; nc the chunk width (16, 32, 64 or 128 queries a CTA); ws a
+// workspace of ceil(B / nc) * nc * ceil(D / 64) * 128 bytes, 16-byte
+// aligned, for the query boxes; out_s (n_tiles, 16, B) f32 and out_i
+// (n_tiles, 16, B) int32, n_tiles = ceil(N / 2048); all contiguous on one
+// device. Returns a cudaError_t (0 = launched).
+extern "C" int rrt_stage_a_wgmma(const void* emb, const void* valid, const void* qvecs, void* ws,
+                                 void* out_s, void* out_i, int n, int d, int b, int nc,
+                                 void* stream) {
+  return run<__nv_bfloat16>(emb, valid, qvecs, ws, out_s, out_i, n, d, b, nc, stream);
 }
 
-// emb (N, D) bf16, 16-byte aligned with D a multiple of 8, D <= 4096; valid
-// (N,) bool; qvecs (B, D) f32, 16-byte aligned; out_s (n_tiles, 16, B) f32
-// and out_i (n_tiles, 16, B) int32, n_tiles = ceil(N / 2048); all
-// contiguous on one device. Returns a cudaError_t (0 = launched).
-extern "C" int rrt_stage_a_wgmma(const void* emb, const void* valid, const void* qvecs,
-                                 void* out_s, void* out_i, int n, int d, int b, void* stream) {
-  if (n <= 0 || d <= 0 || d > 4096 || d % 8 != 0 || b <= 0) return (int)cudaErrorInvalidValue;
-  return run<__nv_bfloat16>(emb, valid, qvecs, out_s, out_i, n, d, b, stream);
-}
-
-// The same for emb (N, D) f32, 16-byte aligned with D a multiple of 4, D <=
-// rrt_stage_a_tf32_max_dim() (2,912); n_tiles <= 65535.
-extern "C" int rrt_stage_a_tf32(const void* emb, const void* valid, const void* qvecs,
-                                void* out_s, void* out_i, int n, int d, int b, void* stream) {
-  if (n <= 0 || d <= 0 || d % 4 != 0 || !takes_dim<float>(d) || b <= 0)
-    return (int)cudaErrorInvalidValue;
-  return run<float>(emb, valid, qvecs, out_s, out_i, n, d, b, stream);
+// The same for emb (N, D) f32 (the products as 3xTF32): nc 8, 16 or 32, ws
+// ceil(B / nc) * nc * ceil(D / 32) * 256 bytes (hi and lo); n_tiles <= 65535.
+extern "C" int rrt_stage_a_tf32(const void* emb, const void* valid, const void* qvecs, void* ws,
+                                void* out_s, void* out_i, int n, int d, int b, int nc,
+                                void* stream) {
+  return run<float>(emb, valid, qvecs, ws, out_s, out_i, n, d, b, nc, stream);
 }

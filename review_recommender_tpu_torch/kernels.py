@@ -127,18 +127,9 @@ def load() -> ctypes.CDLL:
             lib.rrt_bm25_packed.restype = I
             lib.rrt_bm25_unpacked.argtypes = [P, P, P, P, P, F, P, I, I, I, P]
             lib.rrt_bm25_unpacked.restype = I
-            lib.rrt_stage_a_wgmma.argtypes = [P, P, P, P, P, I, I, I, P]
-            lib.rrt_stage_a_wgmma.restype = I
-            lib.rrt_stage_a_wgmma_chunk.argtypes = [I, I]
-            lib.rrt_stage_a_wgmma_chunk.restype = I
-            lib.rrt_stage_a_tf32.argtypes = [P, P, P, P, P, I, I, I, P]
-            lib.rrt_stage_a_tf32.restype = I
-            lib.rrt_stage_a_tf32_chunk.argtypes = [I, I]
-            lib.rrt_stage_a_tf32_chunk.restype = I
-            lib.rrt_stage_a_tf32_max_dim.argtypes = []
-            lib.rrt_stage_a_tf32_max_dim.restype = I
-            lib.rrt_stage_a_fma.argtypes = [P, P, P, P, P, I, I, I, P]
-            lib.rrt_stage_a_fma.restype = I
+            for fn in (lib.rrt_stage_a_wgmma, lib.rrt_stage_a_tf32):
+                fn.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
+                fn.restype = I
             _lib = lib
         return _lib
 

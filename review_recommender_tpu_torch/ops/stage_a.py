@@ -5,12 +5,9 @@ Counterpart of `review_recommender_tpu/ops/pallas/stage_a_kernel.py`:
 
   stage_a_tile_winners_reference   plain torch version of the tile pass
   stage_a_tile_winners_kernel      the CUDA tile pass, replacing
-                                   `_stage_a_kernel`, on the route that
-                                   `stage_a_route` picks: bf16 and f32 up
-                                   to D = 2,912 on csrc/stage_a_wgmma.cu
-                                   (tensor cores, TMA, threshold-filtered
-                                   selection; f32 as 3xTF32), wider f32 on
-                                   csrc/stage_a_fused.cu (CUDA cores)
+                                   `_stage_a_kernel`: csrc/stage_a_wgmma.cu
+                                   (tensor cores, threshold-filtered
+                                   selection; f32 as 3xTF32) at any D
   stage_a_fused                    `stage_a_fused_pallas`: the tile pass
                                    (the kernel for CUDA tensors, the plain
                                    version for CPU tensors), then the merge
@@ -51,24 +48,20 @@ from review_recommender_tpu_torch.ops.dense import matmul_f32, stable_topk
 TILE_N = 2048
 M_PER_TILE = 16
 NEG = -3.4e38  # the TPU kernel's mask value, as f32 (-3.3999999521e38)
-MAX_DIM = 4096  # every route keeps a chunk of the queries in shared memory
 MAX_TILES = 65535  # grid.y of the f32 routes
-# The widest f32 corpus the tensor-core route takes: its queries' hi and lo
-# copies (8 of them, 91 boxes of 32 columns) beside 4 ring stages fill
-# shared memory (csrc/stage_a_wgmma.cu:rrt_stage_a_tf32_max_dim computes it;
-# the card tests hold the two equal).
-TF32_MAX_DIM = 2912
 
 # Launches of each route's CUDA kernel in this process; a run reads them
 # before and after its main path to show that the path went through the
-# kernels: stage_a_kernel_launches the bf16 tensor-core route (the main
-# path's), stage_a_tf32_kernel_launches the f32 one (3xTF32),
-# stage_a_fma_kernel_launches the f32 CUDA-core route past TF32_MAX_DIM.
+# kernels. The routes are csrc/stage_a_wgmma.cu's two instances: bf16
+# (stage_a_kernel_launches, the main path's) and f32 as 3xTF32
+# (stage_a_tf32_kernel_launches).
 stage_a_kernel_launches = 0
 stage_a_tf32_kernel_launches = 0
-stage_a_fma_kernel_launches = 0
-ROUTE_COUNTERS = {"wgmma": "stage_a_kernel_launches", "tf32": "stage_a_tf32_kernel_launches",
-                  "fma": "stage_a_fma_kernel_launches"}
+ROUTE_COUNTERS = {"wgmma": "stage_a_kernel_launches", "tf32": "stage_a_tf32_kernel_launches"}
+
+# Per corpus dtype: the narrowest and the widest query chunk the kernel has
+# an instance for, and the columns of one of its 128-byte boxes.
+_CHUNKS = {torch.bfloat16: (16, 128, 64), torch.float32: (8, 32, 32)}
 
 
 def _n_tiles(n: int) -> int:
@@ -77,20 +70,34 @@ def _n_tiles(n: int) -> int:
 
 def stage_a_route(dtype: torch.dtype, d: int, b: int) -> str:
     """The kernel a CUDA tile pass of B queries over an (N, D) corpus of
-    `dtype` runs: "wgmma" (bf16, csrc/stage_a_wgmma.cu), "tf32" (f32 at D
-    <= TF32_MAX_DIM, the same kernel with the products as 3xTF32) or "fma"
-    (wider f32, csrc/stage_a_fused.cu). Raises for what no route takes:
-    another dtype, D outside 1..MAX_DIM or D * itemsize not a multiple of
-    16 bytes, B < 1."""
-    if dtype not in (torch.bfloat16, torch.float32):
+    `dtype` runs, both in csrc/stage_a_wgmma.cu: "wgmma" (bf16) or "tf32"
+    (f32, the products as 3xTF32), at any D. Raises for another dtype, D <
+    1 or B < 1."""
+    if dtype not in _CHUNKS:
         raise ValueError(f"stage_a_fused: emb must be bfloat16 or float32, got {dtype}")
-    itemsize = 2 if dtype == torch.bfloat16 else 4
-    if not (0 < d <= MAX_DIM and d * itemsize % 16 == 0 and b >= 1):
-        raise ValueError(f"stage_a_fused: D={d}, B={b} not taken (D in 1..{MAX_DIM} with "
-                         "D * itemsize a multiple of 16, B >= 1)")
-    if dtype == torch.bfloat16:
-        return "wgmma"
-    return "tf32" if d <= TF32_MAX_DIM else "fma"
+    if d < 1 or b < 1:
+        raise ValueError(f"stage_a_fused: D={d}, B={b} not taken (D >= 1, B >= 1)")
+    return "tf32" if dtype == torch.float32 else "wgmma"
+
+
+def stage_a_query_chunk(d: int, b: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The queries one CTA of the kernel scores from one read of its tile,
+    for B queries of D dims: the smallest of bf16 16, 32, 64, 128 or f32 8,
+    16, 32 that holds B (the widest otherwise). A batch wider than this
+    reads the corpus once per chunk."""
+    stage_a_route(dtype, d, b)
+    nc, widest, _cols = _CHUNKS[dtype]
+    while nc < widest and nc < b:
+        nc *= 2
+    return nc
+
+
+def _workspace_bytes(dtype: torch.dtype, d: int, b: int, nc: int) -> int:
+    """The query boxes the kernel reads: every chunk's queries, 128 bytes a
+    query and box of columns (f32: a hi and a lo copy)."""
+    cols = _CHUNKS[dtype][2]
+    copies = 2 if dtype == torch.float32 else 1
+    return -(-b // nc) * nc * -(-d // cols) * copies * 128
 
 
 def stage_a_tile_rounds(sims: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -124,14 +131,11 @@ def stage_a_tile_winners_reference(emb: torch.Tensor, valid: torch.Tensor,
 def stage_a_tile_winners_kernel(emb: torch.Tensor, valid: torch.Tensor,
                                 qvecs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The CUDA tile pass: same contract as the plain version, CUDA tensors
-    only, any N and B; D * itemsize must be a multiple of 16 bytes, D <=
-    4096. `stage_a_route` picks the kernel from the dtype and D: bf16 and
-    f32 up to TF32_MAX_DIM on the tensor cores (csrc/stage_a_wgmma.cu; its
-    query chunk narrows to 16 at the widest D, and a wider batch runs as
-    more chunks), wider f32 on the CUDA cores (csrc/stage_a_fused.cu).
-    Launches on the current stream and raises if the launch fails; nothing
-    falls back to another route or to the plain version."""
-    global stage_a_kernel_launches, stage_a_tf32_kernel_launches, stage_a_fma_kernel_launches
+    only, bf16 or f32, any N, D and B. csrc/stage_a_wgmma.cu on the tensor
+    cores, in chunks of `stage_a_query_chunk` queries, whose boxes a
+    workspace holds, made by the same call. Launches on the current stream
+    and raises if the launch fails; nothing falls back to another route or
+    to the plain version."""
     name = "stage_a_fused"
     dev = kernels.check_tensors(name, dict(emb=emb, valid=valid, qvecs=qvecs),
                                 dict(emb=emb.dtype, valid=torch.bool, qvecs=torch.float32))
@@ -144,39 +148,22 @@ def stage_a_tile_winners_kernel(emb: torch.Tensor, valid: torch.Tensor,
     if not (0 < n and _n_tiles(n) <= MAX_TILES):
         raise ValueError(f"{name}: N={n} not taken (N in 1..{MAX_TILES * TILE_N})")
     route = stage_a_route(emb.dtype, d, b)
-    if emb.data_ptr() % 16 or qvecs.data_ptr() % 16:
-        raise ValueError(f"{name}: emb and qvecs must be 16-byte aligned")
+    if emb.data_ptr() % 16:
+        raise ValueError(f"{name}: emb must be 16-byte aligned")
+    nc = stage_a_query_chunk(d, b, emb.dtype)
     lib = kernels.load()
+    ws = torch.empty(_workspace_bytes(emb.dtype, d, b, nc), dtype=torch.uint8, device=dev)
     tiles = _n_tiles(n)
     out_s = torch.empty((tiles, M_PER_TILE, b), dtype=torch.float32, device=dev)
     out_i = torch.empty((tiles, M_PER_TILE, b), dtype=torch.int32, device=dev)
-    args = (emb.data_ptr(), valid.data_ptr(), qvecs.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), n, d, b)
-    launch = {"wgmma": lib.rrt_stage_a_wgmma, "tf32": lib.rrt_stage_a_tf32,
-              "fma": lib.rrt_stage_a_fma}[route]
+    launch = lib.rrt_stage_a_tf32 if route == "tf32" else lib.rrt_stage_a_wgmma
     with torch.cuda.device(dev):
-        err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check_launch(name, err, f"N={n} D={d} B={b} {emb.dtype} ({route})")
-    if route == "wgmma":
-        stage_a_kernel_launches += 1
-    elif route == "tf32":
-        stage_a_tf32_kernel_launches += 1
-    else:
-        stage_a_fma_kernel_launches += 1
+        err = launch(emb.data_ptr(), valid.data_ptr(), qvecs.data_ptr(), ws.data_ptr(),
+                     out_s.data_ptr(), out_i.data_ptr(), n, d, b, nc,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check_launch(name, err, f"N={n} D={d} B={b} {emb.dtype} ({route}, {nc} a chunk)")
+    globals()[ROUTE_COUNTERS[route]] += 1
     return out_s, out_i
-
-
-def stage_a_query_chunk(d: int, b: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """The queries one CTA of the route's kernel scores from one read of its
-    tile, for B queries of D dims: bf16 16, 32, 64 or 128, f32 on the
-    tensor cores 8, 16 or 32 (the rules live in csrc/stage_a_wgmma.cu), f32
-    on the CUDA cores 8. A batch wider than this reads the corpus once per
-    chunk."""
-    route = stage_a_route(dtype, d, b)
-    if route == "fma":
-        return 8
-    lib = kernels.load()
-    return (lib.rrt_stage_a_wgmma_chunk if route == "wgmma" else lib.rrt_stage_a_tf32_chunk)(d, b)
 
 
 def _merge(out_s, out_i, doc_terms, doc_bm25, q_terms, pool: int):

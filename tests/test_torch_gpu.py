@@ -20,11 +20,13 @@ sums integers; every other step is rounded alone, in the reference's order).
 Stage A: winner scores within 1e-5 (exact bf16/f32 products summed in f32 in
 another order than cuBLAS's); a winner id may differ only where the plain
 version's scores of the two rows are within that tolerance (a near tie);
-rounds past a tile's valid rows are exactly (-3.4e38, 0). A bf16 corpus
-and an f32 one up to D = 2,912 take the tensor-core kernel (f32 as
-3xTF32), a wider f32 corpus the CUDA-core one; each launch moves its
-route's counter by one, at the f32 chunk edges (B = 32, 33, 65 at D = 384)
-and at the widest D of the tensor-core route and the next one. Serving:
+rounds past a tile's valid rows are exactly (-3.4e38, 0). Every D >= 1 of
+both types runs on the tensor cores (f32 as 3xTF32), the chunk's queries
+streamed through the ring (ops/stage_a.py:stage_a_route); each launch
+moves its route's counter by one, at the f32 chunk edges (B = 32, 33, 65
+at D = 384), at the widths each loader takes (rows of 16-byte multiples by
+TMA, others by cp.async or 2-byte loads, in one box or many), past 4,096
+and with an all-invalid tile. Serving:
 device_fetch reads CUDA tensors through pinned buffers, and both HTTP
 front ends answer a /search on a small CUDA engine, encoding on the card.
 Offline path: a bundle built, saved and loaded, then the CLI's search on
@@ -822,6 +824,17 @@ def _stage_a_inputs(seed, n, d, b, dtype, device):
             torch.from_numpy(q).to(device))
 
 
+WIDE_N = 3 * 2048 - 1000  # tile 0 with holes, tile 1 with 5 valid rows, tile 2 ragged
+
+
+def _wide_inputs(seed, d, b, dtype, device):
+    """_stage_a_inputs at WIDE_N with its third (ragged) tile all invalid:
+    every round of that tile is (-3.4e38, 0)."""
+    emb, valid, qvecs = _stage_a_inputs(seed, WIDE_N, d, b, dtype, device)
+    valid[2 * tsa.TILE_N:] = False
+    return emb, valid, qvecs
+
+
 def _plain_tile_scores(emb, valid, qvecs, local_ids):
     """The plain version's score of each winner id: (n_tiles, 16, B)."""
     n, b = emb.shape[0], qvecs.shape[0]
@@ -896,28 +909,78 @@ def test_stage_a_kernel_at_main_shape(cuda, b):
     assert tsa.stage_a_query_chunk(384, b) >= b
 
 
-@pytest.mark.parametrize("n,d,b,route", [
-    (200_704, 384, 1, "tf32"), (200_704, 384, 128, "tf32"),  # phase 8's f32 widths
-    (9000, 384, 32, "tf32"), (9000, 384, 33, "tf32"), (9000, 384, 65, "tf32"),  # chunk edges
-    (5000, 1536, 9, "tf32"), (5000, 2912, 17, "tf32"), (5000, 2916, 17, "fma"),
-    (5000, 3072, 3, "fma")])
-def test_stage_a_f32_routes_at_their_edges(cuda, n, d, b, route):
-    """The f32 routes: the tensor-core route's chunks of 32 queries at D =
-    384 (B = NC, NC + 1, 2 NC + 1), its widest D (chunks of 8) and the next
-    multiple of 4, which takes the CUDA-core route; the route's counter
-    moves by one."""
-    emb, valid, qvecs = _stage_a_inputs(n + d + b, n, d, b, torch.float32, cuda)
-    _check_tile_pass(emb, valid, qvecs, route)
-    if route == "tf32" and d == 384:
+@pytest.mark.parametrize("n,d,b", [
+    (200_704, 384, 1), (200_704, 384, 128),  # phase 8's f32 widths
+    (9000, 384, 32), (9000, 384, 33), (9000, 384, 65),  # chunk edges
+    (5000, 1536, 9), (5000, 2912, 17), (5000, 2916, 17), (5000, 3072, 3)] + [
+    (WIDE_N, d, b) for d in (4, 6, 2912, 2916, 3072, 4096, 4100, 8192)
+    for b in (1, 8, 32, 33, 128)])
+def test_stage_a_f32_routes_at_their_edges(cuda, n, d, b):
+    """The f32 route: chunks of 32 queries at D = 384 (B = NC, NC + 1, 2 NC
+    + 1), D = 2,912 (the widest the first layout, queries resident in
+    shared memory, took) and past it, widths TMA cannot take (D = 6:
+    24-byte rows, by cp.async), past 4,096 and at every chunk width, with
+    an all-invalid tile at WIDE_N; the route's counter moves by one."""
+    if n == WIDE_N:
+        emb, valid, qvecs = _wide_inputs(d + b, d, b, torch.float32, cuda)
+    else:
+        emb, valid, qvecs = _stage_a_inputs(n + d + b, n, d, b, torch.float32, cuda)
+    _check_tile_pass(emb, valid, qvecs, "tf32")
+    if d == 384:
         assert tsa.stage_a_query_chunk(d, b, torch.float32) == (8 if b <= 8 else 16 if b <= 16
                                                                 else 32)
 
 
+@pytest.mark.parametrize("b", [1, 8, 32, 33, 128])
+@pytest.mark.parametrize("d", [7, 8, 60, 4096, 4104, 5000])
+def test_stage_a_bf16_at_every_width(cuda, d, b):
+    """bf16 past 4,096 and at widths TMA cannot take (D = 7: 2-byte
+    granules; D = 60: 120-byte rows, 8-byte granules), with an all-invalid
+    tile at a ragged N; the route's counter moves by one."""
+    emb, valid, qvecs = _wide_inputs(d * b, d, b, torch.bfloat16, cuda)
+    _check_tile_pass(emb, valid, qvecs, "wgmma")
+
+
+@pytest.mark.parametrize("b", [1, 32, 128])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 100), (torch.bfloat16, 4100),
+                                     (torch.float32, 38), (torch.float32, 4097)])
+def test_stage_a_copy_loader_across_boxes(cuda, dtype, d, b):
+    """The cp.async loader where a row spans more than one 128-byte box:
+    bf16 D = 100 (2 boxes) and 4,100 (65), f32 D = 38 (2) and 4,097 (129,
+    4-byte granules), so box x > 0's column offset, the swizzle past the
+    first 128 bytes and the ring's turns (boxes past its stages, the
+    producer arriving kCopyDepth boxes late) all run; chunks of every width
+    from the narrowest to the widest (bf16 NC = 128: the ring's fewest
+    stages), with an all-invalid tile at a ragged N."""
+    emb, valid, qvecs = _wide_inputs(d + 7 * b, d, b, dtype, cuda)
+    _check_tile_pass(emb, valid, qvecs, "tf32" if dtype == torch.float32 else "wgmma")
+
+
 def test_stage_a_tf32_width_limit_matches_the_kernel(cuda):
+    """The C entries take what the wrapper passes and refuse the rest: a
+    chunk width of the type with no instance (f32 64, bf16 8, 0, 48), a
+    missing workspace, D < 1; the wrapper's chunk is an instance at every
+    width and batch of both types (no limit on D: the first f32 route
+    ended at 2,912)."""
     from review_recommender_tpu_torch import kernels
 
-    assert kernels.load().rrt_stage_a_tf32_max_dim() == tsa.TF32_MAX_DIM
-    assert tsa.stage_a_query_chunk(tsa.TF32_MAX_DIM, 100, torch.float32) == 8
+    lib = kernels.load()
+    emb, valid, qvecs = _stage_a_inputs(0, 4096, 64, 8, torch.float32, cuda)
+    out_s = torch.empty(2, 16, 8, device=cuda)
+    out_i = torch.empty(2, 16, 8, dtype=torch.int32, device=cuda)
+    ws = torch.empty(1 << 16, dtype=torch.uint8, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, fn, taken in ((torch.bfloat16, lib.rrt_stage_a_wgmma, (16, 32, 64, 128)),
+                             (torch.float32, lib.rrt_stage_a_tf32, (8, 16, 32))):
+        x = emb.to(dtype)
+        for nc, ws_ptr, d in [(nc, ws.data_ptr(), 64) for nc in (0, 8, 48, 64)
+                              if nc not in taken] + [(taken[0], 0, 64), (taken[0], ws.data_ptr(), 0)]:
+            assert fn(x.data_ptr(), valid.data_ptr(), qvecs.data_ptr(), ws_ptr, out_s.data_ptr(),
+                      out_i.data_ptr(), 4096, d, 8, nc, stream) != 0, (dtype, nc, ws_ptr, d)
+        for d in (1, 6, 384, 2912, 2916, 4096, 8192):
+            for b in (1, 8, 9, 16, 17, 32, 33, 64, 65, 128, 129, 300):
+                assert tsa.stage_a_query_chunk(d, b, dtype) in taken, (dtype, d, b)
+    torch.cuda.synchronize()
 
 
 def test_stage_a_kernel_rejects_what_it_does_not_take(cuda):
@@ -926,28 +989,33 @@ def test_stage_a_kernel_rejects_what_it_does_not_take(cuda):
         tsa.stage_a_tile_winners_kernel(emb.cpu(), valid.cpu(), qvecs.cpu())
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         tsa.stage_a_tile_winners_kernel(emb.half(), valid, qvecs)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        tsa.stage_a_tile_winners_kernel(emb.double(), valid, qvecs)
     with pytest.raises(ValueError, match="qvecs must be torch.float32"):
         tsa.stage_a_tile_winners_kernel(emb, valid, qvecs.to(torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         tsa.stage_a_tile_winners_kernel(emb.T.contiguous().T, valid, qvecs)
     with pytest.raises(ValueError, match="not taken"):
-        tsa.stage_a_tile_winners_kernel(emb[:, :60].contiguous(), valid, qvecs[:, :60].contiguous())
+        tsa.stage_a_tile_winners_kernel(emb, valid, qvecs[:0])
+    with pytest.raises(ValueError, match="not taken"):
+        tsa.stage_a_tile_winners_kernel(emb[:, :0].contiguous(), valid, qvecs[:, :0].contiguous())
     with pytest.raises(ValueError, match="shape|must be"):
         tsa.stage_a_tile_winners_kernel(emb, valid[:100], qvecs)
-    with pytest.raises(ValueError, match="not taken"):
-        wide = torch.zeros(64, 4104, dtype=torch.bfloat16, device=cuda)
-        tsa.stage_a_tile_winners_kernel(wide, valid[:64], torch.zeros(2, 4104, device=cuda))
-    # each C entry refuses the widths of the other f32 route
+    # each C entry refuses an empty shape, and a call without its workspace
     from review_recommender_tpu_torch import kernels
 
     lib = kernels.load()
-    for fn, d in ((lib.rrt_stage_a_tf32, tsa.TF32_MAX_DIM + 4), (lib.rrt_stage_a_fma, 384)):
-        e = torch.zeros(64, d, device=cuda)
-        q = torch.zeros(2, d, device=cuda)
-        out_s = torch.empty(1, 16, 2, device=cuda)
-        out_i = torch.empty(1, 16, 2, dtype=torch.int32, device=cuda)
-        assert fn(e.data_ptr(), valid.data_ptr(), q.data_ptr(), out_s.data_ptr(),
-                  out_i.data_ptr(), 64, d, 2, torch.cuda.current_stream().cuda_stream) != 0
+    for fn, dtype in ((lib.rrt_stage_a_wgmma, torch.bfloat16), (lib.rrt_stage_a_tf32, torch.float32)):
+        e = torch.zeros(64, 3072, dtype=dtype, device=cuda)
+        q = torch.zeros(32, 3072, device=cuda)
+        ws = torch.empty(1 << 20, dtype=torch.uint8, device=cuda)
+        out_s = torch.empty(1, 16, 32, device=cuda)
+        out_i = torch.empty(1, 16, 32, dtype=torch.int32, device=cuda)
+        stream = torch.cuda.current_stream().cuda_stream
+        for n, d, b, w in ((0, 3072, 32, ws), (64, 0, 32, ws), (64, 3072, 0, ws),
+                           (64, 3072, 32, None)):
+            assert fn(e.data_ptr(), valid.data_ptr(), q.data_ptr(), None if w is None else w.data_ptr(),
+                      out_s.data_ptr(), out_i.data_ptr(), n, d, b, 32, stream) != 0
 
 
 # ------------------------------------------------ the int8 corpus, the IVF pool

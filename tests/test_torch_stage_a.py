@@ -183,3 +183,35 @@ def test_kernel_wrapper_refuses_cpu_tensors(data):
     with pytest.raises(ValueError, match="CUDA tensors"):
         SA.stage_a_tile_winners_kernel(t(emb), t(valid), t(qvecs))
     assert SA.stage_a_kernel_launches == 0
+
+
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 60), ("bfloat16", 5000), ("float32", 6),
+                                     ("float32", 4100)])
+def test_stage_a_fused_matches_pallas_at_every_width(dtype, d):
+    """Widths the Pallas kernel takes (its blocks hold the whole D) that the
+    card's first routes refused: rows of 120 and 24 bytes (not a multiple
+    of 16) and D past 4,096. Two tiles, the second exhausted after 5 rounds,
+    every winner in the pool (pool = 32): ids equal, repeats included, and
+    dense scores within 1e-5 (unit rows and queries, f32 sums of up to
+    5,000 products in another order than XLA's)."""
+    rng = np.random.default_rng(d)
+    emb = rng.standard_normal((N, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    valid = np.ones(N, bool)
+    valid[SA.TILE_N:] = False
+    valid[SA.TILE_N + rng.choice(SA.TILE_N, LIVE_IN_TILE1, replace=False)] = True
+    valid[rng.choice(SA.TILE_N, 40, replace=False)] = False
+    qvecs = rng.standard_normal((B, d)).astype(np.float32)
+    qvecs /= np.linalg.norm(qvecs, axis=1, keepdims=True)
+    terms = rng.integers(1, 500, (N, L)).astype(np.int32)
+    bm25 = rng.random((N, L)).astype(np.float32)
+    q_terms = terms[:B, 0].copy()
+    pool = 2 * SA.M_PER_TILE
+    jdt, tdt = DTYPES[dtype]
+    rd, ri, rb = _jax(emb, valid, terms, bm25, qvecs, q_terms, pool, jdt)
+    gd, gi, gb = _port(emb, valid, terms, bm25, qvecs, q_terms, pool, tdt)
+    np.testing.assert_array_equal(gi, ri)
+    np.testing.assert_allclose(gd, rd, **TOL)
+    np.testing.assert_allclose(gb, rb, **TOL)
+    assert (gd[:, -(SA.M_PER_TILE - LIVE_IN_TILE1):] == np.float32(SA.NEG)).all()
+    assert all(len(set(row[-4:].tolist())) < 4 for row in gi)  # repeated ids

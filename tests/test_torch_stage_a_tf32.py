@@ -15,7 +15,8 @@ tile pass, which tests/test_torch_stage_a.py holds to
 `stage_a_fused_pallas(interpret=True)`: scores within 1e-5, at most 1% of
 ids differing and those only at near ties within 1e-5, rounds past a
 tile's valid rows exactly (-3.4e38, 0). Plain single TF32 products do not
-hold 1e-5 at D = 384, so the bar tells the two apart.
+hold 1e-5 at D = 384, so the bar tells the two apart; the 3xTF32 sums hold
+it at D = 3,072 and 4,096 too.
 """
 import numpy as np
 import pytest
@@ -126,21 +127,41 @@ def test_3xtf32_tile_pass_at_the_main_width():
     assert err > TOL
 
 
+@pytest.mark.parametrize("d", [3072, 4096])
+def test_3xtf32_tile_pass_past_the_resident_width(d):
+    """One tile at D = 3,072 and 4,096 (past the widths at which the first
+    f32 route held its queries in shared memory; the kernel adds the same
+    products in the same order, box by box), B = 33,
+    holes in the validity: the bar holds over sums 8 to 11 times longer
+    than at the main width."""
+    rng = np.random.default_rng(d)
+    n, b = SA.TILE_N, 33
+    emb = rng.standard_normal((n, d)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    _check(emb, rng.random(n) < 0.97, q)
+
+
 @pytest.mark.parametrize("dtype,d,b,route", [
     (torch.bfloat16, 384, 32, "wgmma"), (torch.bfloat16, 8, 1, "wgmma"),
     (torch.bfloat16, 4096, 300, "wgmma"), (torch.float32, 4, 1, "tf32"),
     (torch.float32, 384, 33, "tf32"), (torch.float32, 1536, 64, "tf32"),
-    (torch.float32, SA.TF32_MAX_DIM, 1, "tf32"),
-    (torch.float32, SA.TF32_MAX_DIM + 4, 1, "fma"), (torch.float32, 4096, 20, "fma")])
+    (torch.float32, 2912, 1, "tf32"),
+    (torch.float32, 2916, 1, "tf32"), (torch.float32, 4096, 20, "tf32"),
+    # widths the Pallas kernel takes (its blocks hold the whole D) that TMA
+    # cannot describe (D * itemsize not a multiple of 16 bytes) or past 4,096
+    (torch.bfloat16, 60, 1, "wgmma"), (torch.float32, 6, 1, "tf32"),
+    (torch.bfloat16, 4104, 1, "wgmma"), (torch.float32, 4100, 1, "tf32")])
 def test_stage_a_route(dtype, d, b, route):
     assert SA.stage_a_route(dtype, d, b) == route
-    assert SA.TF32_MAX_DIM == 2912 and SA.TF32_MAX_DIM % 32 == 0
+    narrowest, widest = (8, 32) if dtype == torch.float32 else (16, 128)
+    chunk = next(c for c in (8, 16, 32, 64, 128) if c >= max(narrowest, min(b, widest)))
+    assert SA.stage_a_query_chunk(d, b, dtype) == chunk
 
 
 @pytest.mark.parametrize("dtype,d,b,match", [
     (torch.float16, 64, 1, "bfloat16 or float32"), (torch.float64, 64, 1, "bfloat16 or float32"),
-    (torch.bfloat16, 60, 1, "not taken"), (torch.float32, 6, 1, "not taken"),
-    (torch.bfloat16, 4104, 1, "not taken"), (torch.float32, 4100, 1, "not taken"),
     (torch.float32, 0, 1, "not taken"), (torch.float32, 64, 0, "not taken")])
 def test_stage_a_route_refuses_what_the_wrapper_refuses(dtype, d, b, match):
     with pytest.raises(ValueError, match=match):
