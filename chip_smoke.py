@@ -16,7 +16,8 @@ line, and nothing is caught and passed over:
              the generic route's (f32 at (64, 512, 12, 32), TinyBERT-4L's
              bf16 (64, 512, 12, 26), the tiny config's (2, 16, 4, 16) in
              bf16 and f32), then the tensor-core route past 512 keys (bf16
-             (8, 1024, 12, 32)): max abs error (tolerance 2e-2 in bf16, 1e-5
+             (8, 1024, 12, 32)) and the generic route's widest bf16 heads
+             (64, 512, 2, 192): max abs error (tolerance 2e-2 in bf16, 1e-5
              in f32), the route and one launch of its kernel, and the
              median of 50 CUDA-event-timed runs of each, from an idle
              device and behind a device spin; beside them
@@ -300,9 +301,10 @@ line, and nothing is caught and passed over:
              heads): the attention kernel and the backward kernel, their
              plain versions and SDPA at the tp shard's shapes (32, 128, 6,
              32) and a cell's (16, 128, 6, 32), the f32 backward (3xTF32
-             route) at the shard's shape, and the backward kernel's FMA
-             route at (32, 128, 2, 192) in bf16 and f32 (the shape of
-             (g)); (a) ContrastiveTrainer from the golden's
+             route) at the shard's shape, and both kernels at (32, 128, 2,
+             192), the shape of (g), in bf16 (their tensor-core instances
+             at 192 columns) and f32 (their CUDA-core routes); (a)
+             ContrastiveTrainer from the golden's
              bge-small at 32 x 128, (b) CrossEncoderTrainer from its
              MiniLM-L6 at 32 x 256, (c) MLMTrainer on the bge-small trunk
              (vocab 30,522): each first step's loss against the
@@ -325,8 +327,9 @@ line, and nothing is caught and passed over:
              exact f32 pool beside the per-row int8 scan's, medians and
              bounds; (g) the bge-small trunk with 2 heads of 192 (a head
              width past 128): one bf16 and one f32 ContrastiveTrainer step
-             on one device, 24 generic-kernel forward launches and 24 of
-             the backward kernel's FMA route a step, finite losses
+             on one device, each counted from zero: 24 generic-kernel
+             forward launches a step, and 24 of the backward kernel's
+             wgmma route (bf16) or FMA route (f32), finite losses
  20 generic_route  the towers that only the generic attention kernel
              (csrc/mha_generic.cu) runs, through run_search on phase 4's
              corpus and engine construction, 20 queries a setting (cut
@@ -344,7 +347,8 @@ line, and nothing is caught and passed over:
 
 The last two lines are the kernels summary (the backward kernel by route:
 mha_bwd the bf16/f16 wgmma one, mha_bwd_tf32 the f32 3xTF32 one, mha_bwd_fma
-the CUDA-core one past D = 128) and
+the f32 CUDA-core one past D = 128; mha_generic_d192 and mha_bwd_d192 the
+bf16 kernels at 2 heads of 192, phase 19 (g)'s) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no jax and nothing of the JAX package.
 """
@@ -374,12 +378,14 @@ SHAPES = [(64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128),
           (13, 287, 12, 32)]
 # phase 3's rows beyond the main path's bf16 shapes, (B, S, H, D, dtype, tol):
 # phase 20's f32 rerank shape and TinyBERT-4L-312D's bf16 one (D = 26), the
-# tiny config's (D = 16) in both types (all on the generic kernel), and the
-# tensor-core route past 512 keys
+# tiny config's (D = 16) in both types (all on the generic kernel), the
+# tensor-core route past 512 keys, and the generic kernel's widest bf16 heads
+# (bge-small's width in 2 heads of 192) at the rerank batch
 ROUTE_SHAPES = [(64, 512, 12, 32, "float32", F32_KERNEL_TOL),
                 (64, 512, 12, 26, "bfloat16", KERNEL_TOL),
                 (2, 16, 4, 16, "bfloat16", KERNEL_TOL), (2, 16, 4, 16, "float32", F32_KERNEL_TOL),
-                (8, 1024, 12, 32, "bfloat16", KERNEL_TOL)]
+                (8, 1024, 12, 32, "bfloat16", KERNEL_TOL),
+                (64, 512, 2, 192, "bfloat16", KERNEL_TOL)]
 N_DOCS, DIM, TERMS, VOCAB, TEXT_CHARS = 200_000, 384, 64, 30_000, 2000
 # 100 queries per setting: p90 then has 10 samples beyond it
 N_QUERIES, K, RERANK_K, REPS = 100, 10, 50, 50
@@ -3367,10 +3373,16 @@ def _trained_lane(card):
 def _backward_exps(b, s, h, d, dtype) -> int:
     """The exponentials csrc/mha_bwd.cu's route evaluates on the B*H*S*S
     scores: three passes (kernel A's two and kernel B's) on the wgmma and
-    FMA routes, two on the 3xTF32 route (its kernel A takes one pass)."""
+    FMA routes, two on the 3xTF32 route (its kernel A takes one pass); on
+    the wgmma route past D = 128 each of kernel B's column chunks takes a
+    pass (two at D <= 192, four beyond)."""
     from review_recommender_tpu_torch.ops import attention as A
 
-    return (2 if A.backward_route(dtype, d, s) == "tf32" else 3) * b * h * s * s
+    route = A.backward_route(dtype, d, s)
+    passes = 2 if route == "tf32" else 3
+    if route == "wgmma" and d > 128:
+        passes = 2 + (2 if d <= 192 else 4)
+    return passes * b * h * s * s
 
 
 def _training_kernel_rows(torch, shapes=TRAIN_SHAPES, dtype=None):
@@ -4958,9 +4970,9 @@ INT8_GLOBAL_MIN_RECALL = 0.5
 # rows a step, and the (B / dp) rows a cell runs
 MESH_SHAPES = [(MESH_BATCH, MESH_LEN, 12 // MESH_TP, 32),
                (MESH_BATCH // MESH_DP, MESH_LEN, 12 // MESH_TP, 32)]
-# (g): the bi-encoder trunk with 2 heads of 192, a head width past the
-# tensor-core routes' 128 that only the backward kernel's FMA route takes;
-# its attention shape one device gives it
+# (g): the bi-encoder trunk with 2 heads of 192, a head width past 128
+# that in bf16 only the kernels' widest tensor-core instances take and in
+# f32 only their CUDA-core routes; its attention shape one device gives it
 WIDE_HEADS = 2
 WIDE_SHAPE = (MESH_BATCH, MESH_LEN, WIDE_HEADS, 384 // WIDE_HEADS)
 
@@ -5247,23 +5259,27 @@ def _mesh_int8_global(torch, card, products):
 
 def _wide_head_steps(torch, card, cfg, sd, batch):
     """(g) The bi-encoder trunk with WIDE_HEADS heads (D = 192): one bf16
-    and one f32 ContrastiveTrainer step on one device. Each forward runs the
-    generic kernel's CUDA-core instance and each backward the backward
-    kernel's FMA route (counted, exact), no plain version; finite losses.
-    Returns the launches by kernel."""
+    and one f32 ContrastiveTrainer step on one device, the counts set to 0
+    before each step and read after it. The bf16 step's forwards run the
+    generic kernel's tensor-core instance at 192 columns and its backwards
+    the backward kernel's wgmma route; the f32 step's the generic kernel's
+    and the backward kernel's CUDA-core routes (counted, exact); no plain
+    version; finite losses. Returns the launches by kernel of each step,
+    {"bf16": {...}, "f32": {...}}."""
     from review_recommender_tpu_torch.train import ContrastiveTrainer
 
     wide = dataclasses.replace(cfg, num_heads=WIDE_HEADS)
     per_step = 2 * wide.num_layers
-    losses = {}
-    _zero_counts()
+    losses, counts, want = {}, {}, {}
     with _PlainCalls() as plain:
-        for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for name, dtype, bwd in (("bf16", torch.bfloat16, "mha_bwd"),
+                                 ("f32", torch.float32, "mha_bwd_fma")):
             tr = ContrastiveTrainer(wide, sd, dtype=dtype, device=DEV)
+            _zero_counts()
             losses[name] = tr.train_step(*batch)["loss"]
+            counts[name] = _counts()
+            want[name] = {**{n: 0 for n in counts[name]}, "mha_generic": per_step, bwd: per_step}
             del tr
-        counts = _counts()
-    want = {**{n: 0 for n in counts}, "mha_generic": 2 * per_step, "mha_bwd_fma": 2 * per_step}
     emit({"phase": "train_mesh_wide_heads", "card": card, "heads": WIDE_HEADS,
           "head_dim": wide.hidden_size // WIDE_HEADS, "losses": losses, "launches": counts,
           "expected_launches": want, "plain_calls": plain.calls})
@@ -5277,11 +5293,11 @@ def phase_train_mesh(torch, products):
     """Phase 19: the dp x tp trainers on TrainMesh([DEV] * 4, 2, 2), the
     data-parallel encoder, the global-scale int8 scan, and the attention
     kernels at the tp shard's shapes (the f32 backward at the shard's) and
-    at WIDE_SHAPE (the backward kernel's FMA route, bf16 and f32). Returns
-    the attention launches of the mesh steps, the restores, the wide-head
-    steps and the dp encode by kernel ("mha_fwd", "mha_generic", "mha_bwd",
-    "mha_bwd_tf32", "mha_bwd_fma"), the f32 kernel rows and the
-    WIDE_SHAPE rows."""
+    at WIDE_SHAPE (bf16, then f32). Returns the attention launches of the
+    mesh steps, the restores, the wide-head steps and the dp encode by
+    kernel ("mha_fwd", "mha_generic", "mha_bwd", "mha_bwd_tf32",
+    "mha_bwd_fma"), the f32 kernel rows, the WIDE_SHAPE rows and the
+    wide-head steps' launches by dtype."""
     import shutil
 
     card = _card()
@@ -5309,11 +5325,11 @@ def phase_train_mesh(torch, products):
         launches[name] += restored[name]
     shutil.rmtree(tmp, ignore_errors=True)
     wide = _wide_head_steps(torch, card, cfg, sd, batches["biencoder"])
-    for name in ("mha_generic", "mha_bwd_fma"):
-        launches[name] += wide[name]
+    for name in ("mha_generic", "mha_bwd", "mha_bwd_fma"):
+        launches[name] += wide["bf16"][name] + wide["f32"][name]
     launches["mha_fwd"] += _mesh_encode(torch, card, cfg, sd, products)
     _mesh_int8_global(torch, card, products)
-    return launches, f32_rows, wide_rows
+    return launches, f32_rows, wide_rows, wide
 
 
 # phase 20: the towers only the generic attention kernel runs. (a) phase
@@ -5468,7 +5484,8 @@ def main() -> int:
         launches += raw_launches["mha_fwd"]
         bm25_launches["bm25_packed"] += raw_launches["bm25_packed"]
         mark("raw_pipeline")
-        mesh_launches, f32_train_rows, wide_train_rows = phase_train_mesh(torch, products)
+        mesh_launches, f32_train_rows, wide_train_rows, wide_launches = phase_train_mesh(
+            torch, products)
         launches += mesh_launches["mha_fwd"]
         generic_launches = mesh_launches["mha_generic"]
         bwd_launches += mesh_launches["mha_bwd"]
@@ -5503,14 +5520,28 @@ def main() -> int:
             "bound_by": "operations" if main_shape["bound"] == "compute" else "bytes",
             "library_ms": main_shape["library_device_ms"],
         })
+    # the bf16 forward at 2 heads of 192 (the generic kernel's tensor-core
+    # instance at 192 columns), at phase 19 (g)'s shape and with its bf16
+    # step's launches
+    wide_bf16, wide_f32 = wide_train_rows
+    entries.append({
+        "name": "mha_generic_d192", "route": "cuda",
+        "source": "review_recommender_tpu_torch/csrc/mha_generic.cu",
+        "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:64",
+        "launches": wide_launches["bf16"]["mha_generic"], "max_abs_err": wide_bf16["max_abs_err"],
+        "ms": wide_bf16["ms"], "plain_ms": wide_bf16["plain_ms"],
+        "bound_ms": wide_bf16["bound_ms"], "bound_by": wide_bf16["bound_by"],
+        "library_ms": wide_bf16["library_ms"],
+    })
     # the backward kernel by route, at its main path's shape: the
     # bi-encoder trainer's (phase 15's first row) for the wgmma route, a tp
-    # shard's in f32 (phase 19) for the 3xTF32 route, the wide-head step's
-    # (phase 19 (g); bf16 first, its f32 row's error included) for the FMA
-    # route
+    # shard's in f32 (phase 19) for the 3xTF32 route, the wide-head steps'
+    # (phase 19 (g)) for the wgmma route at 192 columns (bf16) and the FMA
+    # route (f32)
     for name, rows, n in (("mha_bwd", train_rows, bwd_launches),
                           ("mha_bwd_tf32", f32_train_rows, bwd_tf32_launches),
-                          ("mha_bwd_fma", wide_train_rows, bwd_fma_launches)):
+                          ("mha_bwd_d192", [wide_bf16], wide_launches["bf16"]["mha_bwd"]),
+                          ("mha_bwd_fma", [wide_f32], bwd_fma_launches)):
         entries.append({
             "name": name, "route": "cuda", "source": "review_recommender_tpu_torch/csrc/mha_bwd.cu",
             "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:142",

@@ -28,11 +28,13 @@ line with the dtype and the route (ops/attention.py:kernel_route):
 --kernel wide_heads: the attention routes for head widths 129-256, at
 chip_smoke.py phase 19 (g)'s WIDE_SHAPE (32, 128, 2, 192) and at (64, 512,
 2, 192), in bf16 and f32: its _training_kernel_rows (the forward kernel,
-csrc/mha_generic.cu's CUDA-core route, against its plain version and SDPA's
-forward; the backward kernel, mha_bwd_fma, against the recompute and SDPA's
-forward and backward together; the bounds), and beside them SDPA's
-backward alone (autograd.grad through one saved SDPA forward,
-sdpa_backward_ms), all behind a 0.1 ms spin.
+csrc/mha_generic.cu at 192 columns, against its plain version and SDPA's
+forward; the backward kernel, csrc/mha_bwd.cu by backward_route, against
+the recompute and SDPA's forward and backward together; the bounds), and
+beside them SDPA's backward alone (autograd.grad through one saved SDPA
+forward, sdpa_backward_ms), all behind a 0.1 ms spin. Each row names its
+backward route: a checkout before bf16 went to the tensor cores at these
+widths reports "fma" for both dtypes.
 
 --kernel bm25: for each of chip_smoke.py's BM25 shapes, the packed and the
 unpacked kernel on phase 5's postings (drawn on the card by this script's

@@ -35,8 +35,9 @@ Lines, after the card's name and power limit:
              timed through its own rrt_mha_bwd (the inputs of the time
              lines): device ms behind a spin, each kernel's device µs from
              a torch.profiler window, host µs a call. bf16 copies at the
-             trainers' four shapes, f32 ones at the tp shard's, "full" at
-             all five. A name is "full" or edits joined by "+"; the
+             trainers' four shapes and at 2 heads of 192 ((32, 128, 2, 192),
+             (64, 512, 2, 192)), f32 ones at the tp shard's, "full" at all
+             seven. A name is "full" or edits joined by "+"; the
              knobs (csrc/mha_bwd.cu's constexprs) and the parts taken out:
                no_overlap     bf16: kernel A waits on dP before its work on
                               S, kernel B on both halves' products before
@@ -51,6 +52,8 @@ Lines, after the card's name and power limit:
                no_loads       the bf16 rings' copies of the next tiles out
                a_only         kernel A alone; kernel B's time is full less
                               a_only
+               one_warpgroup  bf16 above DP = 128: one warpgroup a CTA in
+                              both kernels, each copying its ring's tiles
                f32_a_min1     f32 kernel A with no register cap
                f32_b_min4     f32 kernel B for 4 CTAs an SM up to DP = 32
                f32_roll       the f32 S / dP k-step loops not unrolled
@@ -117,6 +120,9 @@ CASES = ([("bfloat16", *s) for s in CS.TRAIN_SHAPES]
             ("bfloat16", 2, 1024, 2, 127), ("float16", 2, 65, 1, 129), ("bfloat16", 2, 129, 1, 256),
             ("float32", 3, 65, 2, 1), ("float32", 2, 129, 1, 256), ("float32", 2, 1024, 1, 33),
             ("float32", 4, 200, 2, 128), ("float32", 2, 300, 3, 64)])
+# bf16 at 2 heads of 192, past the 128 columns of one warpgroup's tiles:
+# phase 19 (g)'s shape and the rerank batch's
+WIDE_SHAPES = [(32, 128, 2, 192), (64, 512, 2, 192)]
 TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 DTYPE_CODE = {"bfloat16": 0, "float16": 1, "float32": 2}
 REPS, SPIN_CYCLES = 50, 200_000
@@ -181,8 +187,16 @@ def _no_loads(src: str) -> str:
 
 
 def _a_only(src: str) -> str:
-    old = "  return launch_after(kb, grid, P::kBytesB, a.stream,"
+    old = "  return launch_after(kb, grid_b, kThreads * P::WGB, P::kBytesB, a.stream,"
     return _sub(src, old, "  if (a.B > 0) return cudaGetLastError();\n" + old, "launch_tc")
+
+
+def _one_warpgroup(src: str) -> str:
+    """bf16/f16 above DP = 128: one warpgroup a CTA in both kernels, each
+    CTA copying every tile of its ring itself."""
+    src = _sub(src, "  static constexpr int WGA = DP > 128 ? 2 : 1;", "  static constexpr int WGA = 1;")
+    return _sub(src, "  static constexpr int WGB = DP > 128 && 4 * kTile + kStages * kStageB <= 232448"
+                " ? 2 : 1;", "  static constexpr int WGB = 1;")
 
 
 def _f32_no_lo(src: str) -> str:
@@ -293,6 +307,7 @@ EDITS = {
                     "constexpr int kMinBlocksB = 1;"),
     "no_pdl": _knob("  cfg.numAttrs = 1;", "  cfg.numAttrs = 0;"),
     "no_exp": _no_exp, "softmax_only": _softmax_only, "no_loads": _no_loads, "a_only": _a_only,
+    "one_warpgroup": _one_warpgroup,
     "f32_a_min1": _knob("constexpr int kMinBlocksTf32A = DP <= 32 ? 3 : 1;",
                         "constexpr int kMinBlocksTf32A = 1;"),
     "f32_b_min4": _knob("constexpr int kMinBlocksTf32B = DP <= 32 ? 3 : 1;",
@@ -307,7 +322,7 @@ EDITS = {
     "f32_no_lo": _f32_no_lo, "f32_no_split": _f32_no_split, "f32_no_loads": _f32_no_loads,
 }
 BREAKDOWN = ["no_overlap", "no_pdl", "no_exp", "softmax_only", "no_loads", "a_only",
-             "f32_no_lo", "f32_no_split", "f32_no_loads"]
+             "a_only+no_loads", "one_warpgroup", "f32_no_lo", "f32_no_split", "f32_no_loads"]
 
 
 def variants(src: str, names: list) -> dict:
@@ -407,9 +422,10 @@ def _device_ms(torch, fn) -> float:
 
 def _timed_shapes(torch):
     """(name, shape, inputs): the trainers' four bf16 shapes (seeds of
-    phase 15's rows) and the f32 tp shard's (phase 19's f32 row)."""
+    phase 15's rows), bf16 at 2 heads of 192 (WIDE_SHAPES: phase 19 (g)'s
+    and the rerank batch's) and the f32 tp shard's (phase 19's f32 row)."""
     rows = [("bfloat16", shape, _timing_inputs(torch, i, *shape, torch.bfloat16))
-            for i, shape in enumerate(CS.TRAIN_SHAPES)]
+            for i, shape in enumerate(CS.TRAIN_SHAPES + WIDE_SHAPES)]
     f32 = CS.MESH_SHAPES[0]
     return rows + [("float32", f32, _timing_inputs(torch, 0, *f32, torch.float32))]
 

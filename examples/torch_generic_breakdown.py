@@ -19,16 +19,21 @@ build/generic_breakdown/ and loaded on its own:
   exp_ieee         bf16/f16: the exponentials by expf and the division by
                    the row sum an IEEE one, as the f32 route and the plain
                    version take them, not ex2.approx and a multiply
+  one_warpgroup    bf16/f16 above DP = 128: one warpgroup of 64 query rows
+                   a CTA, each CTA copying every key tile itself (timed at
+                   the D = 192 shapes only)
 
 Lines, after the card's name and power limit:
 
-  registers  each copy's registers a thread, per instance (ptxas -v)
+  registers  each copy's registers a thread and spill stores in bytes,
+             per instance (ptxas -v)
   time       per copy and shape, the median of 50 CUDA-event times of one
              launch queued behind a 0.1 ms device spin, and the largest
              error against mha_reference, at (64, 512, 12, 32) and (64, 512,
-             12, 64) in f32 and (64, 512, 12, 26) and (64, 512, 12, 50) in
-             bf16 (chip_smoke.py's _attn_inputs: seeded normal q, k, v,
-             random lengths, an all-masked row)
+             12, 64) in f32, (64, 512, 12, 26) and (64, 512, 12, 50) in
+             bf16, and bf16 at 2 heads of 192, (64, 512, 2, 192) and (32,
+             128, 2, 192) (chip_smoke.py's _attn_inputs: seeded normal q,
+             k, v, random lengths, an all-masked row)
   accuracy   for full and one_accumulator: chip_smoke.py phase 20's f32
              bge-small (seed 1) and its 20 queries. The query vectors
              against reference attention (largest and mean difference, and
@@ -56,7 +61,8 @@ sys.path.insert(0, str(ROOT))
 SRC = ROOT / "review_recommender_tpu_torch" / "csrc" / "mha_generic.cu"
 OUT = ROOT / "build" / "generic_breakdown"
 SHAPES = [(64, 512, 12, 32, "float32"), (64, 512, 12, 64, "float32"),
-          (64, 512, 12, 26, "bfloat16"), (64, 512, 12, 50, "bfloat16")]
+          (64, 512, 12, 26, "bfloat16"), (64, 512, 12, 50, "bfloat16"),
+          (64, 512, 2, 192, "bfloat16"), (32, 128, 2, 192, "bfloat16")]
 REPS, SPIN_CYCLES = 50, 200_000
 DTYPE_CODE = {"bfloat16": 0, "float16": 1, "float32": 2}
 
@@ -99,7 +105,9 @@ def variants() -> dict:
     return {"full": src,
             "no_loads": _sub(src, "    if (u + kStages - 1 < nsteps) load_step(u + kStages - 1);",
                              "    if (u + kStages - 1 < 0) load_step(u + kStages - 1);"),
-            "no_split": no_split, "one_accumulator": one, "exp_ieee": ieee}
+            "no_split": no_split, "one_accumulator": one, "exp_ieee": ieee,
+            "one_warpgroup": _sub(src, "  static constexpr int WG = kWide ? 2 : 1;",
+                                  "  static constexpr int WG = 1;")}
 
 
 def build(texts: dict) -> dict:
@@ -120,15 +128,18 @@ def build(texts: dict) -> dict:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        regs, entry = {}, None
+        regs, entry, spill = {}, None, 0
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 entry = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m and entry and "mha_tc_kernel" in entry:
                 t = "f32" if "IfLi" in entry else ("bf16" if "bfloat16" in entry else "f16")
-                regs[f"{t} DP={re.search(r'Li(\d+)E', entry).group(1)}"] = int(m.group(1))
+                regs[f"{t} DP={re.search(r'Li(\d+)E', entry).group(1)}"] = [int(m.group(1)), spill]
         print(json.dumps({"variant": name, "registers": regs}), flush=True)
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
         P, I = ctypes.c_void_p, ctypes.c_int
@@ -232,6 +243,8 @@ def main() -> int:
                     continue  # the f32 route takes expf and IEEE divisions already
                 if dtype != torch.float32 and name in ("no_split", "one_accumulator"):
                     continue  # f32 only
+                if name == "one_warpgroup" and d <= 128:
+                    continue  # the same kernel as full at these widths
                 run = lambda: _launch(torch, lib, q, k, v, bias, h)
                 err = float((run().float() - ref).abs().max())
                 for _ in range(3):

@@ -59,16 +59,32 @@
 // work with products only where that costs no registers, and starts kernel
 // B during kernel A's tail.
 //
-// Tensor-core route, bf16/f16 at D <= 128 (mha_bwd_dq_kernel,
+// Tensor-core route, bf16/f16 at every D (mha_bwd_dq_kernel,
 // mha_bwd_dkv_kernel): one CTA of one warpgroup, 64 rows, tiles of 64 in
 // shared memory in wgmma's canonical no-swizzle layout with columns padded
-// from D to DP in {16, 32, 64, 128} (zeroed once where D < DP), a
+// from D to DP in {16, 32, 64, 128, 192, 256} (zeroed once where D < DP), a
 // 2-stage ring filled by cp.async in the widest granule the pointers allow,
 // as mha_generic.cu's mha_tc_kernel. Every tile serves as a K-major operand
 // (S = Q K^T, dP = dO V^T: wgmma m64nNk16, both operands from shared
 // memory) and through the transpose bit as an N-major one (dQ += dS K,
-// dV += P^T dO, dK += dS^T Q: wgmma m64nDPk16 with the left operand, P or
-// dS rounded to T, straight from the S / dP accumulators in registers).
+// dV += P^T dO, dK += dS^T Q: wgmma m64nNk16 over the gradient's columns,
+// at most 128 a product, with the left operand, P or dS rounded to T,
+// straight from the S / dP accumulators in registers). Above DP = 128 the
+// accumulators set the plan (BwdPlan): kernel A's dQ takes DP/2 registers
+// a thread (96 or 128), so its key tiles are 32 rows (S, dP and their
+// logits 16 each); kernel B's dK and dV would take DP together, so each
+// CTA of a 64-row block takes NC of their columns, 96 at DP = 192 and 64 at
+// DP = 256 (two or four CTAs a block, each computing S^T and dP^T over the
+// whole D again: 6 or 10 products' work where one CTA would do 4, against
+// no atomics and no register spills). Each kernel's streamed tiles come
+// from L2 (a head's K and V, or Q and dO, are read by every block of its
+// rows), so above DP = 128 two warpgroups a CTA, each with 64 rows of its
+// own, share one ring, and each tile is read once for 128 rows (kernel B
+// keeps one warpgroup at DP = 256, where two would need 257.5 KB): at (64,
+// 512, 2, 192) kernels A and B take 330 and 484 us, 232 and 350 without
+// the next tile's copies, 456 and 653 with one warpgroup a CTA
+// (examples/torch_attention_backward.py --breakdown, H100). Shared memory:
+// kernel A 147,712 / 196,864 bytes at DP = 192 / 256, kernel B 198,144.
 // The products of a tile are issued so that softmax work runs while the
 // tensor cores do: kernel A commits S apart from dP and works on S (the
 // row max, the exponentials) while dP is in flight; kernel B issues each
@@ -108,12 +124,12 @@
 // version, 2.6e-6 in the example's checks); dP and P are not rounded (f32
 // is the input type); the scale is applied to dQ and dK at the end.
 //
-// FMA route, D 129-256 in every dtype (mha_bwd_dq_fma_kernel,
-// mha_bwd_dkv_fma_kernel): O-sized accumulators of 64 rows x 256 columns
-// would not fit a warpgroup's registers beside S and P, so these widths run
-// the same two kernels on the CUDA cores in full f32 FMA (no TF32), as
-// mha_generic.cu's mha_fma_kernel: 128 threads as 16 x 8, 32 rows a CTA
-// against tiles of 32, synchronous loads converted to f32 in shared memory;
+// FMA route, f32 at D 129-256 (mha_bwd_dq_fma_kernel,
+// mha_bwd_dkv_fma_kernel): the 3xTF32 route keeps Q, Q lo, dO and dO lo
+// resident in kernel A, 256 KB at DP = 256, more than a block's 227 KB, so
+// these widths run the same two kernels on the CUDA cores in full f32 FMA
+// (no TF32), as mha_generic.cu's mha_fma_kernel: 128 threads as 16 x 8, 32
+// rows a CTA against tiles of 32, synchronous loads into shared memory;
 // the plain version's op order for the logits ((q . k) * scale, then +
 // bias, each rounded), expf and IEEE divisions; dS * scale in f32 before
 // its products, as autograd applies it.
@@ -457,6 +473,21 @@ struct Mma<__half> {
   }
 };
 
+// d += A B at N = 2M columns, as products of at most 128 columns: the
+// accumulator elements of columns [2j, 2j + 2P) are d[j, j + P), and B's
+// 8-column groups of an N-major tile are 128 bytes apart (P/4 of them in P
+// elements), so the rest's descriptor starts 32P bytes further.
+template <typename T, int M>
+__device__ __forceinline__ void pv_wide(float (&d)[M], const uint32_t (&a)[4], uint64_t db) {
+  constexpr int P = M >= 64 ? 64 : M >= 32 ? 32 : M >= 16 ? 16 : 8;
+  if constexpr (P == M) {
+    Mma<T>::pv(d, a, db);
+  } else {
+    Mma<T>::pv(*reinterpret_cast<float(*)[P]>(&d[0]), a, db);
+    pv_wide<T, M - P>(*reinterpret_cast<float(*)[M - P]>(&d[P]), a, db + ((32 * P) >> 4));
+  }
+}
+
 // Rows [r0, r0 + R) of one head (row stride HD elements from `src`, the
 // head's row 0) into a K-major tile at `dst`, in G-byte granules; rows >= S
 // zero-filled, columns >= D never written. The 128 threads stand as 8 rows
@@ -560,7 +591,7 @@ __device__ __forceinline__ float row_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-// ---- the tensor-core route: bf16/f16 at D <= 128 ----
+// ---- the tensor-core route: bf16/f16 at every D ----
 
 // Each kernel's resident CTAs an SM by head width, chosen from the
 // breakdown (examples/torch_attention_backward.py): a register cap where it
@@ -571,32 +602,47 @@ constexpr int kMinBlocksA = DP <= 64 ? 4 : 1;
 template <int DP>
 constexpr int kMinBlocksB = DP <= 32 ? 4 : 1;
 
-// Shared-memory plan at padded head width DP. A tile of 64 rows x DP
-// columns is 8 groups of kGroup bytes; row r, 16-byte chunk c at
-// (r / 8) * kGroup + c * 128 + (r % 8) * 16; rows 32..63 (the second half)
-// start 4 groups in. Kernel A: Q | dO | kStages x (K, V, the tile's 64 key
-// biases); kernel B: K | V | kStages x (Q, dO, the tile's 64 m, 1/l and
-// Delta).
+// Shared-memory plan at padded head width DP. A tile of R rows x DP
+// columns is R/8 groups of kGroup bytes; row r, 16-byte chunk c at
+// (r / 8) * kGroup + c * 128 + (r % 8) * 16; rows 32..63 of a 64-row tile
+// (the second half) start 4 groups in. Kernel A: Q | dO | kStages x (K, V,
+// the tile's BKA key biases), key tiles of BKA rows (32 above DP = 128, for
+// the dQ accumulator's registers); kernel B: K | V | kStages x (Q, dO, the
+// tile's 64 m, 1/l and Delta), NC gradient columns a CTA (96 at DP = 192, 64
+// at DP = 256, for the dK and dV accumulators' registers: NCH CTAs a block
+// of rows; 128 columns at DP = 256 spilled). Above DP = 128, WGA / WGB
+// warpgroups a CTA (each with its own 64 rows and resident tiles, Q | dO or
+// K | V, one after the other) share one ring, which halves the bytes each
+// row streams from L2; kernel B keeps one at DP = 256, where two would
+// need 257.5 KB.
 template <typename T, int DP>
 struct BwdPlan {
+  static constexpr int BKA = DP > 128 ? 32 : 64;
+  static constexpr int NC = DP > 192 ? 64 : DP > 128 ? DP / 2 : DP;
+  static constexpr int NCH = DP / NC;
   static constexpr int kGroup = 8 * DP * sizeof(T);
   static constexpr int kHalf = 4 * kGroup;  // rows 32..63 of a tile
   static constexpr int kTile = kRows * DP * sizeof(T);
-  static constexpr int kStage0 = 2 * kTile;
-  static constexpr int kStageA = 2 * kTile + kRows * 4;
+  static constexpr int kKeyTile = BKA * DP * sizeof(T);  // kernel A's K or V tile
+  static constexpr int kStageA = 2 * kKeyTile + BKA * 4;
   static constexpr int kStageB = 2 * kTile + 3 * kRows * 4;
-  static constexpr int kBytesA = kStage0 + kStages * kStageA;
-  static constexpr int kBytesB = kStage0 + kStages * kStageB;
+  static constexpr int WGA = DP > 128 ? 2 : 1;
+  static constexpr int WGB = DP > 128 && 4 * kTile + kStages * kStageB <= 232448 ? 2 : 1;
+  static constexpr int kStage0A = WGA * 2 * kTile;
+  static constexpr int kStage0B = WGB * 2 * kTile;
+  static constexpr int kBytesA = kStage0A + kStages * kStageA;
+  static constexpr int kBytesB = kStage0B + kStages * kStageB;
   static_assert(kTile % 2048 == 0 && kStageA % 128 == 0 && kStageB % 128 == 0, "tile alignment");
+  static_assert(kBytesA <= 232448 && kBytesB <= 232448, "shared memory of one block");
 };
 
 // A tile's row statistics into shared memory: m, 1/l and Delta of rows
 // [q0, q0 + R) from the workspace (at `stats`, `bhs` floats apart); rows >=
-// S get m = +inf, 1/l = 0 and Delta = 0, so that P = 0.
-template <int R>
+// S get m = +inf, 1/l = 0 and Delta = 0, so that P = 0. NT threads copy.
+template <int R, int NT>
 __device__ __forceinline__ void load_stats(uint32_t dst, const float* stats, long long bhs,
                                            int q0, int S, int tid) {
-  for (int j = tid; j < 3 * R; j += kThreads) {
+  for (int j = tid; j < 3 * R; j += NT) {
     const int which = j / R, row = q0 + j % R;
     if (row < S) {
       cp_async<4>(dst + 4 * j, stats + which * bhs + row, 4);
@@ -625,42 +671,51 @@ __device__ __forceinline__ void wait_for_prior_grid() {
 // 4i+0/4i+1 is (row g, columns 8i+2c, 8i+2c+1) and 4i+2/4i+3 the same
 // columns of row g+8.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads, kMinBlocksA<DP>)
+__global__ void __launch_bounds__(kThreads * BwdPlan<T, DP>::WGA, kMinBlocksA<DP>)
 mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const float* __restrict__ key_bias, const T* __restrict__ dout,
                   T* __restrict__ dq, float* __restrict__ ws, int S, int H, int D, int gran,
                   float scale, float dscale) {
   using P = BwdPlan<T, DP>;
+  constexpr int BK = P::BKA, WG = P::WGA;  // keys a tile, warpgroups
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
   allow_dependent_launch();
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the warpgroup and its thread (compile-time 0 and tid with one warpgroup)
+  const int tid = threadIdx.x, wg = WG > 1 ? tid / kThreads : 0;
+  const int wtid = WG > 1 ? tid % kThreads : tid, warp = wtid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
   const long long HD = (long long)H * D;
   const long long head = (long long)b * S * HD + (long long)h * D;  // (b, row 0, head h)
   const float* brow = key_bias + (long long)b * S;
   const long long bhs = (long long)gridDim.z * H * S;
   float* stats = ws + ((long long)b * H + h) * S;  // this head's m; 1/l and Delta bhs apart
-  const int ntiles = (S + kRows - 1) / kRows;
+  const int ntiles = (S + BK - 1) / BK;
   const int nsteps = 2 * ntiles;  // pass 1, pass 2: K and V each
 
   if (D < DP) {  // the pad columns, zeroed once (copies fill the rest)
-    for (int i = tid; i < P::kBytesA / 16; i += kThreads)
+    for (int i = tid; i < P::kBytesA / 16; i += kThreads * WG)
       reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
   }
 
+  // each warpgroup copies RW of a key tile's rows, and its own query rows
+  constexpr int RW = BK / WG;
+  const uint32_t rows_at = wg * (RW / 8) * P::kGroup;
   auto load_step = [&](int u) {
-    const uint32_t st = base + P::kStage0 + (u % kStages) * P::kStageA;
-    const int k0 = (u >= ntiles ? u - ntiles : u) * kRows;
-    load_rows<T, DP, kRows>(gran, st, k + head, HD, k0, S, D, tid);
-    load_rows<T, DP, kRows>(gran, st + P::kTile, v + head, HD, k0, S, D, tid);
-    load_bias<kRows>(st + 2 * P::kTile, brow, k0, S, tid);
+    const uint32_t st = base + P::kStage0A + (u % kStages) * P::kStageA;
+    const int k0 = (u >= ntiles ? u - ntiles : u) * BK;
+    load_rows<T, DP, RW>(gran, st + rows_at, k + head, HD, k0 + wg * RW, S, D, wtid);
+    load_rows<T, DP, RW>(gran, st + P::kKeyTile + rows_at, v + head, HD, k0 + wg * RW, S, D,
+                         wtid);
+    load_bias<BK>(st + 2 * P::kKeyTile, brow, k0, S, tid);
   };
-  load_rows<T, DP, kRows>(gran, base, q + head, HD, qt * kRows, S, D, tid);
-  load_rows<T, DP, kRows>(gran, base + P::kTile, dout + head, HD, qt * kRows, S, D, tid);
+  const int q0 = (qt * WG + wg) * kRows;  // this warpgroup's query rows
+  const uint32_t own = base + wg * 2 * P::kTile;
+  load_rows<T, DP, kRows>(gran, own, q + head, HD, q0, S, D, wtid);
+  load_rows<T, DP, kRows>(gran, own + P::kTile, dout + head, HD, q0, S, D, wtid);
   load_step(0);
   cp_async_commit();
 
@@ -672,21 +727,21 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   float i0 = 0.f, i1 = 0.f;
   // wgmma descriptors of Q and dO; a descriptor's address field is the
   // byte address / 16, so an offset of n bytes adds n / 16
-  const uint64_t dq_ = smem_desc(base, 128, P::kGroup);
-  const uint64_t do_ = smem_desc(base + P::kTile, 128, P::kGroup);
+  const uint64_t dq_ = smem_desc(own, 128, P::kGroup);
+  const uint64_t do_ = smem_desc(own + P::kTile, 128, P::kGroup);
 
   // Step u: its tile in, the next one's copies issued; S = Q K^T, then
   // dP = dO V^T, a commit group each, so that the work on S runs while dP
   // is in flight. Returns the stage's offset.
-  auto begin_step = [&](int u, float (&s)[32], float (&dp)[32]) {
+  auto begin_step = [&](int u, float (&s)[BK / 2], float (&dp)[BK / 2]) {
     cp_async_wait<0>();
     fence_async_smem();
     __syncthreads();  // step u's tile is in; every thread is done with step u - 1
     if (u + 1 < nsteps) load_step(u + 1);
     cp_async_commit();
-    const int st_off = P::kStage0 + (u % kStages) * P::kStageA;
+    const int st_off = P::kStage0A + (u % kStages) * P::kStageA;
     const uint64_t dk = smem_desc(base + st_off, 128, P::kGroup);
-    const uint64_t dv = smem_desc(base + st_off + P::kTile, 128, P::kGroup);
+    const uint64_t dv = smem_desc(base + st_off + P::kKeyTile, 128, P::kGroup);
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < DP / 16; ++j) Mma<T>::qk(s, dq_ + 16 * j, dk + 16 * j, j > 0);
@@ -701,9 +756,9 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   // logits in log2 units, (q . k) * scale*log2(e) + bias*log2(e), in
   // registers of their own (a product's accumulators are written by
   // nothing else)
-  auto logits = [&](const float (&s)[32], const float* bt, float (&x)[32]) {
+  auto logits = [&](const float (&s)[BK / 2], const float* bt, float (&x)[BK / 2]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < BK / 8; ++i) {
       const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * i + 2 * c);
       const float b0 = bb.x * kLog2e, b1 = bb.y * kLog2e;
       x[4 * i + 0] = fmaf(s[4 * i + 0], scale, b0);
@@ -717,12 +772,12 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   // key 0 (finite bias), so the max is finite and 2^(-inf - mx) = 0 clears
   // the empty sums
   for (int u = 0; u < ntiles; ++u) {
-    float s[32], dp[32], x[32];
+    float s[BK / 2], dp[BK / 2], x[BK / 2];
     const int st_off = begin_step(u, s, dp);
-    logits(s, reinterpret_cast<const float*>(smem + st_off + 2 * P::kTile), x);
+    logits(s, reinterpret_cast<const float*>(smem + st_off + 2 * P::kKeyTile), x);
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < BK / 8; ++i) {
       mx0 = fmaxf(mx0, fmaxf(x[4 * i + 0], x[4 * i + 1]));
       mx1 = fmaxf(mx1, fmaxf(x[4 * i + 2], x[4 * i + 3]));
     }
@@ -736,7 +791,7 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     m0 = mx0;
     m1 = mx1;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
+    for (int i = 0; i < BK / 2; ++i) {
       x[i] = ex2_approx(x[i] - ((i & 2) ? m1 : m0));  // e
       if (i & 2) l1 += x[i];
       else l0 += x[i];
@@ -744,7 +799,7 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     wgmma_wait<0>();
     fence_regs(dp);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {  // dP rounded to T
+    for (int i = 0; i < BK / 2; ++i) {  // dP rounded to T
       const float y = to_f32(from_f32<T>(dp[i]));
       if (i & 2) dl1 = fmaf(x[i], y, dl1);
       else dl0 = fmaf(x[i], y, dl0);
@@ -760,17 +815,17 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   // pass 2: P = 2^(s - m) / l, dS = P (dP - Delta) rounded to T as the A
   // registers of dQ += dS K
   for (int u = ntiles; u < nsteps; ++u) {
-    float s[32], dp[32], x[32];
+    float s[BK / 2], dp[BK / 2], x[BK / 2];
     const int st_off = begin_step(u, s, dp);
-    logits(s, reinterpret_cast<const float*>(smem + st_off + 2 * P::kTile), x);
+    logits(s, reinterpret_cast<const float*>(smem + st_off + 2 * P::kKeyTile), x);
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
+    for (int i = 0; i < BK / 2; ++i)
       x[i] = ex2_approx(x[i] - ((i & 2) ? m1 : m0)) * ((i & 2) ? i1 : i0);  // P
     wgmma_wait<0>();
     fence_regs(dp);
-    uint32_t a[16];
+    uint32_t a[BK / 4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < BK / 8; ++i) {
       float z[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
@@ -779,15 +834,15 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       a[2 * i + 1] = Mma<T>::pack(z[2], z[3]);
     }
     // K as the N-major B operand (transpose bit): LBO steps 8 keys, SBO 8
-    // columns; four k-steps of 16 keys
+    // columns; k-steps of 16 keys
     const uint64_t dkt = smem_desc(base + st_off, P::kGroup, 128);
     fence_regs(acc);
     fence_regs(a);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < BK / 16; ++j) {
       const uint32_t aj[4] = {a[4 * j], a[4 * j + 1], a[4 * j + 2], a[4 * j + 3]};
-      Mma<T>::pv(acc, aj, dkt + ((2 * j * P::kGroup) >> 4));
+      pv_wide<T>(acc, aj, dkt + ((2 * j * P::kGroup) >> 4));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -796,7 +851,7 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 
   // dQ = acc * scale; rows >= S and columns >= D not stored; the row
   // statistics by one thread of each quad
-  const int r0 = qt * kRows + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
 #pragma unroll
   for (int i = 0; i < DP / 8; ++i)
 #pragma unroll
@@ -820,21 +875,26 @@ mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 }
 
-// Kernel B: dK and dV of 64 key rows of one (b, h), over the query tiles,
-// each in two halves of 32 queries. The accumulators' rows are keys and
-// their columns queries (S^T, dP^T).
+// Kernel B: dK and dV of 64 key rows of one (b, h), columns [c0, c0 + NC),
+// over the query tiles, each in two halves of 32 queries. The accumulators'
+// rows are keys and their columns queries (S^T, dP^T, over all DP columns
+// in every CTA of a 64-row block).
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads, kMinBlocksB<DP>)
+__global__ void __launch_bounds__(kThreads * BwdPlan<T, DP>::WGB, kMinBlocksB<DP>)
 mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const float* __restrict__ key_bias, const T* __restrict__ dout,
                    T* __restrict__ dk, T* __restrict__ dv, const float* __restrict__ ws, int S,
                    int H, int D, int gran, float scale, float dscale) {
   using P = BwdPlan<T, DP>;
+  constexpr int NC = P::NC, WG = P::WGB;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
 
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kt = blockIdx.x / P::NCH, c0 = (blockIdx.x % P::NCH) * NC;
+  const int h = blockIdx.y, b = blockIdx.z;
+  // the warpgroup and its thread (compile-time 0 and tid with one warpgroup)
+  const int tid = threadIdx.x, wg = WG > 1 ? tid / kThreads : 0;
+  const int wtid = WG > 1 ? tid % kThreads : tid, warp = wtid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
   const long long HD = (long long)H * D;
   const long long head = (long long)b * S * HD + (long long)h * D;
@@ -843,33 +903,39 @@ mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const int ntiles = (S + kRows - 1) / kRows;
 
   if (D < DP) {  // the pad columns, zeroed once (copies fill the rest)
-    for (int i = tid; i < P::kBytesB / 16; i += kThreads)
+    for (int i = tid; i < P::kBytesB / 16; i += kThreads * WG)
       reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
   }
 
+  // each warpgroup copies RW of a query tile's rows, and its own key rows
+  constexpr int RW = kRows / WG;
+  const uint32_t rows_at = wg * (RW / 8) * P::kGroup;
   auto load_step = [&](int u) {
-    const uint32_t st = base + P::kStage0 + (u % kStages) * P::kStageB;
-    load_rows<T, DP, kRows>(gran, st, q + head, HD, u * kRows, S, D, tid);
-    load_rows<T, DP, kRows>(gran, st + P::kTile, dout + head, HD, u * kRows, S, D, tid);
-    load_stats<kRows>(st + 2 * P::kTile, stats, bhs, u * kRows, S, tid);
+    const uint32_t st = base + P::kStage0B + (u % kStages) * P::kStageB;
+    const int r = u * kRows + wg * RW;
+    load_rows<T, DP, RW>(gran, st + rows_at, q + head, HD, r, S, D, wtid);
+    load_rows<T, DP, RW>(gran, st + P::kTile + rows_at, dout + head, HD, r, S, D, wtid);
+    load_stats<kRows, kThreads * WG>(st + 2 * P::kTile, stats, bhs, u * kRows, S, tid);
   };
   // this thread's key rows and their biases in log2 units (-inf past S)
-  const int r0 = kt * kRows + warp * 16 + g, r1 = r0 + 8;
+  const int k0 = (kt * WG + wg) * kRows;  // this warpgroup's key rows
+  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
   const float kb0 = r0 < S ? key_bias[(long long)b * S + r0] * kLog2e : -INFINITY;
   const float kb1 = r1 < S ? key_bias[(long long)b * S + r1] * kLog2e : -INFINITY;
-  load_rows<T, DP, kRows>(gran, base, k + head, HD, kt * kRows, S, D, tid);
-  load_rows<T, DP, kRows>(gran, base + P::kTile, v + head, HD, kt * kRows, S, D, tid);
+  const uint32_t own = base + wg * 2 * P::kTile;
+  load_rows<T, DP, kRows>(gran, own, k + head, HD, k0, S, D, wtid);
+  load_rows<T, DP, kRows>(gran, own + P::kTile, v + head, HD, k0, S, D, wtid);
   wait_for_prior_grid();  // kernel A's row statistics
   load_step(0);
   cp_async_commit();
 
-  float acc_v[DP / 2], acc_k[DP / 2];
+  float acc_v[NC / 2], acc_k[NC / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc_v[i] = acc_k[i] = 0.f;
+  for (int i = 0; i < NC / 2; ++i) acc_v[i] = acc_k[i] = 0.f;
   // wgmma descriptors of K and V (an offset of n bytes adds n / 16)
-  const uint64_t dk_ = smem_desc(base, 128, P::kGroup);
-  const uint64_t dv_ = smem_desc(base + P::kTile, 128, P::kGroup);
+  const uint64_t dk_ = smem_desc(own, 128, P::kGroup);
+  const uint64_t dv_ = smem_desc(own + P::kTile, 128, P::kGroup);
 
   for (int u = 0; u < ntiles; ++u) {
     cp_async_wait<0>();
@@ -877,7 +943,7 @@ mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     __syncthreads();  // tile u is in; every thread is done with tile u - 1
     if (u + 1 < ntiles) load_step(u + 1);
     cp_async_commit();
-    const int st_off = P::kStage0 + (u % kStages) * P::kStageB;
+    const int st_off = P::kStage0B + (u % kStages) * P::kStageB;
     const uint32_t qs = base + st_off, os = qs + P::kTile;
     const float* sm = reinterpret_cast<const float*>(smem + st_off + 2 * P::kTile);
 
@@ -896,8 +962,10 @@ mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
         Mma<T>::qk(dp[hf], dv_ + 16 * j, dos + (hf * P::kHalf >> 4) + 16 * j, j > 0);
       wgmma_commit();
     }
-    // dO and Q as N-major B operands (transpose bit)
-    const uint64_t dot = smem_desc(os, P::kGroup, 128), dqt = smem_desc(qs, P::kGroup, 128);
+    // dO and Q as N-major B operands (transpose bit) from column c0 (8
+    // columns a 128-byte step: c0 * 16 bytes, c0 in the descriptor)
+    const uint64_t dot = smem_desc(os, P::kGroup, 128) + c0;
+    const uint64_t dqt = smem_desc(qs, P::kGroup, 128) + c0;
 
     uint32_t ap[2][8], ad[2][8];
 #pragma unroll
@@ -943,12 +1011,12 @@ mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
       for (int j = 0; j < 2; ++j) {  // the half's two k-steps of 16 queries
         const uint32_t aj[4] = {ap[hf][4 * j], ap[hf][4 * j + 1], ap[hf][4 * j + 2], ap[hf][4 * j + 3]};
-        Mma<T>::pv(acc_v, aj, dot + ((2 * (2 * hf + j) * P::kGroup) >> 4));
+        pv_wide<T>(acc_v, aj, dot + ((2 * (2 * hf + j) * P::kGroup) >> 4));
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const uint32_t aj[4] = {ad[hf][4 * j], ad[hf][4 * j + 1], ad[hf][4 * j + 2], ad[hf][4 * j + 3]};
-        Mma<T>::pv(acc_k, aj, dqt + ((2 * (2 * hf + j) * P::kGroup) >> 4));
+        pv_wide<T>(acc_k, aj, dqt + ((2 * (2 * hf + j) * P::kGroup) >> 4));
       }
       wgmma_commit();
     }
@@ -959,10 +1027,10 @@ mha_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
   // dK = acc_k * scale, dV = acc_v; key rows >= S and columns >= D not stored
 #pragma unroll
-  for (int i = 0; i < DP / 8; ++i)
+  for (int i = 0; i < NC / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int d = 8 * i + 2 * c + e;
+      const int d = c0 + 8 * i + 2 * c + e;
       if (d >= D) continue;
       if (r0 < S) {
         dk[head + r0 * HD + d] = from_f32<T>(acc_k[4 * i + e] * dscale);
@@ -1376,7 +1444,7 @@ mha_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k
     const int q0 = u * BT;
     load_rows<float, DP, BT>(gran, st, q + head, HD, q0, S, D, tid);
     load_rows<float, DP, BT>(gran, st + P::kTile, dout + head, HD, q0, S, D, tid);
-    load_stats<BT>(st + 2 * P::kTile, stats, bhs, q0, S, tid);
+    load_stats<BT, kThreads>(st + 2 * P::kTile, stats, bhs, q0, S, tid);
   };
   // this thread's key rows and their biases in log2 units (-inf past S)
   const int r0 = kt * kRows + warp * 16 + g, r1 = r0 + 8;
@@ -1491,7 +1559,7 @@ mha_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k
     }
 }
 
-// ---- the FMA route: f32 at any D, bf16/f16 at D 129-256 ----
+// ---- the FMA route: f32 at D 129-256 ----
 
 constexpr int kTX = 8;   // threads across a tile's columns and the output columns
 constexpr int kTY = 16;  // threads across rows
@@ -1524,15 +1592,15 @@ struct FmaPlan {
   static_assert(kBytesA <= 232448 && kBytesB <= 232448, "shared memory of one block");
 };
 
-// Rows [r0, r0 + R) of one head into shared memory as f32, zero past S and
-// D: transposed (element (r, d) at dst[d * ld + r]) or row-major (at
+// Rows [r0, r0 + R) of one head into shared memory, zero past S and D:
+// transposed (element (r, d) at dst[d * ld + r]) or row-major (at
 // dst[r * DP + d]).
-template <typename T, int DP, bool kTransposed>
-__device__ __forceinline__ void load_f32(float* dst, int ld, const T* src, long long HD, int r0,
-                                         int R, int S, int D, int tid) {
+template <int DP, bool kTransposed>
+__device__ __forceinline__ void load_f32(float* dst, int ld, const float* src, long long HD,
+                                         int r0, int R, int S, int D, int tid) {
   for (int i = tid; i < R * DP; i += kThreads) {
     const int r = i / DP, d = i % DP, row = r0 + r;
-    const float x = (row < S && d < D) ? to_f32(src[row * HD + d]) : 0.f;
+    const float x = (row < S && d < D) ? src[row * HD + d] : 0.f;
     if constexpr (kTransposed) dst[d * ld + r] = x;
     else dst[r * DP + d] = x;
   }
@@ -1580,12 +1648,11 @@ __device__ __forceinline__ void acc_tile(float (&acc)[FmaPlan<DP>::RM][FmaPlan<D
   }
 }
 
-// Rows [r0, r0 + BR) of a gradient from acc * mul, rows >= S and columns
-// >= D not stored.
-template <typename T, int DP>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[FmaPlan<DP>::RM][FmaPlan<DP>::CPT],
-                                           float mul, long long HD, int r0, int S, int D, int ty,
-                                           int tx) {
+// Rows [r0, r0 + BR) of a gradient, rows >= S and columns >= D not stored.
+template <int DP>
+__device__ __forceinline__ void store_rows(float* dst,
+                                           const float (&acc)[FmaPlan<DP>::RM][FmaPlan<DP>::CPT],
+                                           long long HD, int r0, int S, int D, int ty, int tx) {
   using C = FmaPlan<DP>;
 #pragma unroll
   for (int i = 0; i < C::RM; ++i) {
@@ -1596,19 +1663,19 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[FmaPlan<DP
 #pragma unroll
       for (int e = 0; e < C::VW; ++e) {
         const int d = 8 * C::VW * cj + C::VW * tx + e;
-        if (d < D) dst[row * HD + d] = from_f32<T>(acc[i][C::VW * cj + e] * mul);
+        if (d < D) dst[row * HD + d] = acc[i][C::VW * cj + e];
       }
   }
 }
 
 // Kernel A on the CUDA cores: dQ and the row statistics (m, l, Delta) of
 // BR query rows of one (b, h).
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-mha_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const float* __restrict__ key_bias, const T* __restrict__ dout,
-                      T* __restrict__ dq, float* __restrict__ ws, int S, int H, int D,
-                      float scale) {
+mha_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ key_bias,
+                      const float* __restrict__ dout, float* __restrict__ dq,
+                      float* __restrict__ ws, int S, int H, int D, float scale) {
   using C = FmaPlan<DP>;
   constexpr int RM = C::RM, BC = C::BC;
   extern __shared__ float4 smem4[];
@@ -1629,14 +1696,14 @@ mha_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   float* stats = ws + ((long long)b * H + h) * S;
   const int ntiles = (S + BC - 1) / BC;
 
-  load_f32<T, DP, true>(sQt, C::RS, q + head, HD, r0, C::BR, S, D, tid);
-  load_f32<T, DP, true>(sOt, C::RS, dout + head, HD, r0, C::BR, S, D, tid);
+  load_f32<DP, true>(sQt, C::RS, q + head, HD, r0, C::BR, S, D, tid);
+  load_f32<DP, true>(sOt, C::RS, dout + head, HD, r0, C::BR, S, D, tid);
 
   auto load_tile = [&](int t, bool pass2) {
     const int k0 = t * BC;
-    load_f32<T, DP, true>(sKt, C::CS, k + head, HD, k0, BC, S, D, tid);
-    load_f32<T, DP, true>(sVt, C::CS, v + head, HD, k0, BC, S, D, tid);
-    if (pass2) load_f32<T, DP, false>(sK, 0, k + head, HD, k0, BC, S, D, tid);
+    load_f32<DP, true>(sKt, C::CS, k + head, HD, k0, BC, S, D, tid);
+    load_f32<DP, true>(sVt, C::CS, v + head, HD, k0, BC, S, D, tid);
+    if (pass2) load_f32<DP, false>(sK, 0, k + head, HD, k0, BC, S, D, tid);
     for (int j = tid; j < BC; j += kThreads)
       sB[j] = k0 + j < S ? key_bias[(long long)b * S + k0 + j] : -INFINITY;
   };
@@ -1651,13 +1718,9 @@ mha_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
       for (int e = 0; e < 4; ++e) s[i][e] = __fadd_rn(__fmul_rn(s[i][e], scale), bb[e]);
   };
 
-  // dP = dO V^T of this tile, rounded to T
+  // dP = dO V^T of this tile
   auto grad_logits = [&](float (&dp)[RM][4]) {
     dot_tile<RM>(dp, sOt, C::RS, sVt, C::CS, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[i][e] = to_f32(from_f32<T>(dp[i][e]));
   };
 
   // ---- pass 1: running row max, sum of e = exp(s - m), sum of e * dP ----
@@ -1727,7 +1790,7 @@ mha_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     acc_tile<DP>(acc, sDs, sK, ty, tx);
   }
 
-  store_rows<T, DP>(dq + head, acc, 1.f, HD, r0, S, D, ty, tx);
+  store_rows<DP>(dq + head, acc, HD, r0, S, D, ty, tx);
   if (tx == 0) {
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
@@ -1743,12 +1806,13 @@ mha_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 
 // Kernel B on the CUDA cores: dK and dV of BR key rows of one (b, h), over
 // the query tiles with their stored statistics.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-mha_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       const float* __restrict__ key_bias, const T* __restrict__ dout,
-                       T* __restrict__ dk, T* __restrict__ dv, const float* __restrict__ ws,
-                       int S, int H, int D, float scale) {
+mha_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ key_bias,
+                       const float* __restrict__ dout, float* __restrict__ dk,
+                       float* __restrict__ dv, const float* __restrict__ ws, int S, int H, int D,
+                       float scale) {
   using C = FmaPlan<DP>;
   constexpr int RM = C::RM, BC = C::BC;
   extern __shared__ float4 smem4[];
@@ -1770,8 +1834,8 @@ mha_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   const float* stats = ws + ((long long)b * H + h) * S;
   const int ntiles = (S + BC - 1) / BC;
 
-  load_f32<T, DP, true>(sKt, C::RS, k + head, HD, r0, C::BR, S, D, tid);
-  load_f32<T, DP, true>(sVt, C::RS, v + head, HD, r0, C::BR, S, D, tid);
+  load_f32<DP, true>(sKt, C::RS, k + head, HD, r0, C::BR, S, D, tid);
+  load_f32<DP, true>(sVt, C::RS, v + head, HD, r0, C::BR, S, D, tid);
   float kb[RM];  // this thread's key rows' biases, -inf past S
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
@@ -1789,10 +1853,10 @@ mha_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
   for (int t = 0; t < ntiles; ++t) {
     const int q0 = t * BC;
     __syncthreads();  // the previous tile is read
-    load_f32<T, DP, true>(sQt, C::CS, q + head, HD, q0, BC, S, D, tid);
-    load_f32<T, DP, true>(sOt, C::CS, dout + head, HD, q0, BC, S, D, tid);
-    load_f32<T, DP, false>(sQ, 0, q + head, HD, q0, BC, S, D, tid);
-    load_f32<T, DP, false>(sO, 0, dout + head, HD, q0, BC, S, D, tid);
+    load_f32<DP, true>(sQt, C::CS, q + head, HD, q0, BC, S, D, tid);
+    load_f32<DP, true>(sOt, C::CS, dout + head, HD, q0, BC, S, D, tid);
+    load_f32<DP, false>(sQ, 0, q + head, HD, q0, BC, S, D, tid);
+    load_f32<DP, false>(sO, 0, dout + head, HD, q0, BC, S, D, tid);
     for (int j = tid; j < 3 * BC; j += kThreads) {
       const int which = j / BC, row = q0 + j % BC;
       sSt[j] = row < S ? stats[which * bhs + row] : (which == 1 ? 1.f : 0.f);
@@ -1810,10 +1874,8 @@ mha_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
         const float logit = __fadd_rn(__fmul_rn(s[i][e], scale), kb[i]);
-        const float p = in ? __fdiv_rn(expf(logit - mm), ll) : 0.f;
-        const float dpr = to_f32(from_f32<T>(dp[i][e]));
-        pr[i] = to_f32(from_f32<T>(p));
-        x[i] = __fmul_rn(p * (dpr - dd), scale);
+        pr[i] = in ? __fdiv_rn(expf(logit - mm), ll) : 0.f;
+        x[i] = __fmul_rn(pr[i] * (dp[i][e] - dd), scale);
       }
       sts<RM>(sP + col * C::RS + ty * RM, pr);
       sts<RM>(sDs + col * C::RS + ty * RM, x);
@@ -1823,8 +1885,8 @@ mha_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     acc_tile<DP>(acc_k, sDs, sQ, ty, tx);
   }
 
-  store_rows<T, DP>(dk + head, acc_k, 1.f, HD, r0, S, D, ty, tx);
-  store_rows<T, DP>(dv + head, acc_v, 1.f, HD, r0, S, D, ty, tx);
+  store_rows<DP>(dk + head, acc_k, HD, r0, S, D, ty, tx);
+  store_rows<DP>(dv + head, acc_v, HD, r0, S, D, ty, tx);
 }
 
 // ---- launches ----
@@ -1833,11 +1895,11 @@ mha_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 // launch: its CTAs may start while kernel A's last ones run, and wait in
 // wait_for_prior_grid for kernel A's results.
 template <typename... Params, typename... Args>
-cudaError_t launch_after(void (*kern)(Params...), dim3 grid, int smem_bytes, cudaStream_t stream,
-                         Args... args) {
+cudaError_t launch_after(void (*kern)(Params...), dim3 grid, int threads, int smem_bytes,
+                         cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -1880,18 +1942,20 @@ cudaError_t launch_tc(const Args& a) {
   if (err == cudaSuccess) err = allow_smem(kb, P::kBytesB);
   if (err != cudaSuccess) return err;
   const int gran = granule(a, sizeof(T));
-  const dim3 grid((a.S + kRows - 1) / kRows, a.H, a.B);
+  const dim3 grid((a.S + kRows * P::WGA - 1) / (kRows * P::WGA), a.H, a.B);
+  const dim3 grid_b((a.S + kRows * P::WGB - 1) / (kRows * P::WGB) * P::NCH, a.H, a.B);
   const float scale = kLog2e / sqrtf((float)a.D), dscale = 1.0f / sqrtf((float)a.D);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
-  ka<<<grid, kThreads, P::kBytesA, a.stream>>>(q, k, v, a.bias, dout, static_cast<T*>(a.dq), a.ws,
-                                                 a.S, a.H, a.D, gran, scale, dscale);
+  ka<<<grid, kThreads * P::WGA, P::kBytesA, a.stream>>>(
+      q, k, v, a.bias, dout, static_cast<T*>(a.dq), a.ws, a.S, a.H, a.D, gran, scale, dscale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_after(kb, grid, P::kBytesB, a.stream, q, k, v, a.bias, dout, static_cast<T*>(a.dk),
-                      static_cast<T*>(a.dv), a.ws, a.S, a.H, a.D, gran, scale, dscale);
+  return launch_after(kb, grid_b, kThreads * P::WGB, P::kBytesB, a.stream, q, k, v, a.bias, dout,
+                      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.ws, a.S, a.H, a.D, gran,
+                      scale, dscale);
 }
 
 template <int DP>
@@ -1914,31 +1978,31 @@ cudaError_t launch_tf32(const Args& a) {
                                                 a.ws, a.S, a.H, a.D, gran, scale, dscale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_after(kb, grid, PB::kBytesB, a.stream, q, k, v, a.bias, dout,
+  return launch_after(kb, grid, kThreads, PB::kBytesB, a.stream, q, k, v, a.bias, dout,
                       static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.ws, a.S, a.H, a.D,
                       gran, scale, dscale);
 }
 
-template <typename T, int DP>
 cudaError_t launch_fma(const Args& a) {
-  using C = FmaPlan<DP>;
-  auto ka = mha_bwd_dq_fma_kernel<T, DP>;
-  auto kb = mha_bwd_dkv_fma_kernel<T, DP>;
+  using C = FmaPlan<kMaxHeadDim>;
+  auto ka = mha_bwd_dq_fma_kernel<kMaxHeadDim>;
+  auto kb = mha_bwd_dkv_fma_kernel<kMaxHeadDim>;
   cudaError_t err = allow_smem(ka, C::kBytesA);
   if (err == cudaSuccess) err = allow_smem(kb, C::kBytesB);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + C::BR - 1) / C::BR, a.H, a.B);
   const float scale = 1.0f / sqrtf((float)a.D);  // the plain version's f32 1/sqrt(d)
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  ka<<<grid, kThreads, C::kBytesA, a.stream>>>(q, k, v, a.bias, dout, static_cast<T*>(a.dq), a.ws,
-                                                a.S, a.H, a.D, scale);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  ka<<<grid, kThreads, C::kBytesA, a.stream>>>(q, k, v, a.bias, dout, static_cast<float*>(a.dq),
+                                                a.ws, a.S, a.H, a.D, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_after(kb, grid, C::kBytesB, a.stream, q, k, v, a.bias, dout, static_cast<T*>(a.dk),
-                      static_cast<T*>(a.dv), a.ws, a.S, a.H, a.D, scale);
+  return launch_after(kb, grid, kThreads, C::kBytesB, a.stream, q, k, v, a.bias, dout,
+                      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.ws, a.S, a.H, a.D,
+                      scale);
 }
 
 template <typename T>
@@ -1948,13 +2012,15 @@ cudaError_t dispatch_d(const Args& a) {
     if (a.D <= 32) return launch_tc<T, 32>(a);
     if (a.D <= 64) return launch_tc<T, 64>(a);
     if (a.D <= 128) return launch_tc<T, 128>(a);
+    if (a.D <= 192) return launch_tc<T, 192>(a);
+    return launch_tc<T, 256>(a);
   } else {
     if (a.D <= 16) return launch_tf32<16>(a);
     if (a.D <= 32) return launch_tf32<32>(a);
     if (a.D <= 64) return launch_tf32<64>(a);
     if (a.D <= 128) return launch_tf32<128>(a);
+    return launch_fma(a);
   }
-  return launch_fma<T, 256>(a);
 }
 
 }  // namespace
@@ -1962,9 +2028,9 @@ cudaError_t dispatch_d(const Args& a) {
 // dtype: 0 = bfloat16, 1 = float16, 2 = float32. q, k, v, dout (the
 // gradient of the forward's output), dq, dk, dv: (B, S, H*D) contiguous;
 // key_bias (B, S) f32 contiguous; ws: 3 * B * H * S floats of scratch.
-// 1 <= D <= 256. Route (ops/attention.py:backward_route): D <= 128 on the
-// tensor cores (bf16/f16 on wgmma, f32 as 3xTF32), D 129-256 on the CUDA
-// cores. Returns a cudaError_t (0 = launched).
+// 1 <= D <= 256. Route (ops/attention.py:backward_route): bf16/f16 on
+// wgmma at every D; f32 as 3xTF32 at D <= 128, on the CUDA cores at D
+// 129-256. Returns a cudaError_t (0 = launched).
 extern "C" int rrt_mha_bwd(int dtype, const void* q, const void* k, const void* v,
                            const void* key_bias, const void* dout, void* dq, void* dk, void* dv,
                            void* ws, int B, int S, int H, int D, void* stream) {

@@ -25,15 +25,21 @@
 //     which is the real floor; the tensor cores at D padded to 32 take
 //     0.032 ms.
 //
-// Design for D <= 128 (mha_tc_kernel). One CTA of one warpgroup (128
-// threads) takes 64 query rows of one (b, h) and walks the keys in tiles of
-// BK = 64 (32 in f32 at D > 64, for shared memory):
+//   - bf16 at 2 heads of 192 (64, 512, 2, 192): q, k, v and out 100.7 MB,
+//     0.030 ms; the two passes' three products, 38.7 GFLOP at 989 TFLOP/s,
+//     0.039 ms.
+//
+// Design (mha_tc_kernel): bf16/f16 at every D, f32 at D <= 128. One CTA of
+// one warpgroup (128 threads; two above DP = 128, below) takes 64 query
+// rows of one (b, h) a warpgroup and walks the keys in tiles of BK = 64 (32
+// in f32 at D > 64, for shared memory):
 //   - Tiles live in shared memory in wgmma's canonical no-swizzle layout:
 //     core matrices of 8 rows x 16 bytes, 128 contiguous bytes each, the
 //     16-byte column chunks of an 8-row group 128 bytes apart, the groups
 //     8 * DP * itemsize apart. Columns are padded from D to DP in {16, 32,
-//     64, 128}; the pad is zeroed once at kernel start and never written
-//     again, so it adds zeros to Q K^T and fills discarded columns of P V.
+//     64, 128, 192, 256}; the pad is zeroed once at kernel start and never
+//     written again, so it adds zeros to Q K^T and fills discarded columns
+//     of P V.
 //     (TMA cannot read such a head: its box rows are multiples of 16
 //     bytes, and D = 26 in bf16 is 52; copies into shared memory can.)
 //   - Loads: a 2-stage ring of key tiles (K, V and the tile's key bias),
@@ -48,12 +54,24 @@
 //     that P = exp(s - m) / l is rounded to the input type before P V as
 //     the plain version rounds it: pass 1 keeps the running row max and
 //     sum (the sum rescaled by exp(m_old - m_new)), pass 2 computes S again
-//     and O += P V by wgmma m64nDPk16, P from the S accumulators in
-//     registers, V from shared memory N-major through the transpose bit.
+//     and O += P V by wgmma m64nDPk16 (above DP = 128 as products of 128
+//     columns and the rest), P from the S accumulators in registers, V
+//     from shared memory N-major through the transpose bit.
 //     As in mha_fwd.cu the logits are taken in log2 units (one FMA:
 //     (q . k) * log2(e)/sqrt(d) + bias * log2(e)), exponentials by
 //     ex2.approx and the division as a multiply by 1/l, which moves an f32
 //     probability by an ulp or two before it is rounded to 16 bits.
+//   - bf16/f16 at D 129-256 (DP 192 or 256, so that D = 192 pads nothing):
+//     O takes DP/2 f32 registers a thread (96 or 128) beside S (32) and P
+//     (16). Two warpgroups a CTA, each with 64 query rows and its own Q
+//     tile, share one ring of 64-key tiles (147,968 / 197,120 bytes of
+//     shared memory, one CTA an SM), each warpgroup copying half of every
+//     tile. The ring's tiles come from L2, read again by every block of a
+//     head's query rows, and those copies bound the kernel: at (64, 512,
+//     2, 192) it takes 0.2367 ms, 0.1522 with the next tile's copies taken
+//     out, and 0.3765 with one warpgroup a CTA copying every tile itself
+//     (examples/torch_generic_breakdown.py, H100). At (32, 128, 2, 192)
+//     the 64 CTAs of 128 rows leave SMs idle: 0.0267 against 0.0247.
 //   - f32 (3xTF32): each operand x is split as hi = tf32(x), lo = tf32(x -
 //     hi) (cvt.rna); a product is lo*hi + hi*lo + hi*hi, the small terms
 //     first, in f32 accumulators (the lo*lo term, 2^-22 of the product, is
@@ -79,12 +97,11 @@
 //     search's fused scores by 1.1e-4. The logits keep the plain version's op order: (q . k) * scale, then
 //     + bias, each rounded alone, expf (not ex2.approx) and IEEE divisions.
 //
-// Design for D in 129-256 (mha_fma_kernel, chosen by D at compile time, in
-// every type): O for 64 rows x 256 columns would take 128 f32 registers a
-// thread of one warpgroup beside S and P, so these widths stay on the CUDA
-// cores in full f32 FMA with synchronous loads: 128 threads as 16 x 8, 32
-// query rows a CTA, 32-key tiles converted to f32 in shared memory, the same
-// two passes and op order.
+// Design for f32 at D in 129-256 (mha_fma_kernel): 3xTF32 keeps Q and its
+// lo half resident, 128 KB at DP = 256 before any key tile, so these widths
+// stay on the CUDA cores in full f32 FMA with synchronous loads: 128
+// threads as 16 x 8, 32 query rows a CTA, 32-key tiles in shared memory,
+// the plain version's op order.
 //
 // Semantics, every route:
 //   - an all-masked row (every bias -1e30) comes out uniform over the S
@@ -108,14 +125,10 @@
 namespace {
 
 constexpr int kThreads = 128;  // one warpgroup
-constexpr int kRows = 64;      // query rows a CTA of mha_tc_kernel: wgmma's M
+constexpr int kRows = 64;      // query rows a warpgroup of mha_tc_kernel: wgmma's M
 constexpr int kStages = 2;     // key-tile ring
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxHeadDim = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -394,23 +407,43 @@ struct Mma<__half> {
   }
 };
 
-// ---- mha_tc_kernel: D <= 128 on the tensor cores ----
+// d += A B at N = 2M columns, as products of at most 128 columns: the
+// accumulator elements of columns [2j, 2j + 2P) are d[j, j + P), and B's
+// 8-column groups of an N-major tile are 128 bytes apart (P/4 of them in P
+// elements), so the rest's descriptor starts 32P bytes further.
+template <typename T, int M>
+__device__ __forceinline__ void pv_wide(float (&d)[M], const uint32_t (&a)[4], uint64_t db) {
+  constexpr int P = M >= 64 ? 64 : M >= 32 ? 32 : M >= 16 ? 16 : 8;
+  if constexpr (P == M) {
+    Mma<T>::pv(d, a, db);
+  } else {
+    Mma<T>::pv(*reinterpret_cast<float(*)[P]>(&d[0]), a, db);
+    pv_wide<T, M - P>(*reinterpret_cast<float(*)[M - P]>(&d[P]), a, db + ((32 * P) >> 4));
+  }
+}
+
+// ---- mha_tc_kernel: bf16/f16 at every D, f32 at D <= 128, on the tensor
+// cores ----
 
 // Shared-memory plan at padded head width DP. A K-major tile of R rows x
 // DP columns is R/8 groups of kGroup bytes; row r, 16-byte chunk c at
-// (r / 8) * kGroup + c * 128 + (r % 8) * 16. Q | Q lo (f32) | kStages x
-// (K, V or V^T, bias) | K lo, V^T lo (f32).
+// (r / 8) * kGroup + c * 128 + (r % 8) * 16. Q (a 64-row tile a warpgroup)
+// | Q lo (f32) | kStages x (K, V or V^T, bias) | K lo, V^T lo (f32). WG
+// warpgroups a CTA share the ring, each with its own 64 query rows.
 template <typename T, int DP>
 struct Plan {
   static constexpr bool kTF32 = std::is_same<T, float>::value;
+  static constexpr bool kWide = !kTF32 && DP > 128;
   static constexpr int E = sizeof(T);
+  static constexpr int WG = kWide ? 2 : 1;
+  static constexpr int kCtaThreads = WG * kThreads;
   static constexpr int BK = (kTF32 && DP >= 64) ? 32 : 64;  // keys a tile
   static constexpr int kGroup = 8 * DP * E;                 // Q, K (V: 16-bit) row groups
   static constexpr int kQBytes = kRows * DP * E;
   static constexpr int kTileBytes = BK * DP * E;
   static constexpr int kStageBytes = 2 * kTileBytes + BK * 4;
   static constexpr int kQ = 0;
-  static constexpr int kQlo = kQBytes;
+  static constexpr int kQlo = WG * kQBytes;
   static constexpr int kStage0 = kQlo + (kTF32 ? kQBytes : 0);
   static constexpr int kKlo = kStage0 + kStages * kStageBytes;
   static constexpr int kVlo = kKlo + kTileBytes;
@@ -535,18 +568,20 @@ __device__ __forceinline__ void split_tf32(unsigned char* at, unsigned char* lo,
 // 4i+0/4i+1 is (row g, columns 8i+2c, 8i+2c+1) and 4i+2/4i+3 the same
 // columns of row g+8.
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Plan<T, DP>::kCtaThreads)
 mha_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const float* __restrict__ key_bias, T* __restrict__ out, int S, int H, int D,
               int gran, float scale) {
   using P = Plan<T, DP>;
-  constexpr int BK = P::BK;
+  constexpr int BK = P::BK, WG = P::WG;
   constexpr bool kTF32 = P::kTF32;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t base = smem_u32(smem);
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the warpgroup and its thread (compile-time 0 and tid with one warpgroup)
+  const int tid = threadIdx.x, wg = WG > 1 ? tid / kThreads : 0;
+  const int wtid = WG > 1 ? tid % kThreads : tid, warp = wtid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
   const long long HD = (long long)H * D;
   const long long head = (long long)b * S * HD + (long long)h * D;  // (b, row 0, head h)
@@ -556,22 +591,28 @@ mha_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int nsteps = kTF32 ? ntiles : 2 * ntiles;
 
   // zero the pad columns (and everything else) once
-  for (int i = tid; i < P::kBytes / 16; i += kThreads)
+  for (int i = tid; i < P::kBytes / 16; i += P::kCtaThreads)
     reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
 
+  // each warpgroup copies RW of a tile's rows, and its own query rows
+  constexpr int RW = BK / WG;
+  const uint32_t rows_at = wg * (RW / 8) * P::kGroup;
   auto load_step = [&](int u) {
     const uint32_t st = base + P::kStage0 + (u % kStages) * P::kStageBytes;
     const int k0 = (u >= ntiles ? u - ntiles : u) * BK;
-    load_rows<T, DP, BK>(gran, st, k + head, HD, k0, S, D, tid);
+    load_rows<T, DP, RW>(gran, st + rows_at, k + head, HD, k0 + wg * RW, S, D, wtid);
     if constexpr (kTF32) {
       load_vt<DP, BK>(st + P::kTileBytes, v + head, HD, k0, S, D, tid);
     } else {
-      if (u >= ntiles) load_rows<T, DP, BK>(gran, st + P::kTileBytes, v + head, HD, k0, S, D, tid);
+      if (u >= ntiles)
+        load_rows<T, DP, RW>(gran, st + P::kTileBytes + rows_at, v + head, HD, k0 + wg * RW, S,
+                             D, wtid);
     }
     load_bias<BK>(st + 2 * P::kTileBytes, brow, k0, S, tid);
   };
-  load_rows<T, DP, kRows>(gran, base + P::kQ, q + head, HD, qt * kRows, S, D, tid);
+  const uint32_t q_at = base + P::kQ + wg * P::kQBytes;
+  load_rows<T, DP, kRows>(gran, q_at, q + head, HD, (qt * WG + wg) * kRows, S, D, wtid);
 #pragma unroll
   for (int u = 0; u < kStages - 1; ++u) {
     if (u < nsteps) load_step(u);
@@ -628,7 +669,7 @@ mha_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     } else {
 #pragma unroll
       for (int j = 0; j < DP / 16; ++j)
-        Mma<T>::qk(s, smem_desc(base + P::kQ + 256 * j, 128, P::kGroup),
+        Mma<T>::qk(s, smem_desc(q_at + 256 * j, 128, P::kGroup),
                    smem_desc(kt + 256 * j, 128, P::kGroup), j > 0);
       wgmma_commit();
       wgmma_wait_all();
@@ -755,7 +796,7 @@ mha_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
         for (int j = 0; j < BK / 16; ++j) {
           const uint32_t a[4] = {p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3]};
-          Mma<T>::pv(o, a, smem_desc(vt + 2 * j * P::kGroup, P::kGroup, 128));
+          pv_wide<T>(o, a, smem_desc(vt + 2 * j * P::kGroup, P::kGroup, 128));
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -769,7 +810,7 @@ mha_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     l0 = quad_sum(l0);
     l1 = quad_sum(l1);
   }
-  const int r0 = qt * kRows + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = (qt * WG + wg) * kRows + warp * 16 + g, r1 = r0 + 8;
   T* ob = out + head;
 #pragma unroll
   for (int i = 0; i < DP / 8; ++i)
@@ -787,7 +828,7 @@ mha_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     }
 }
 
-// ---- mha_fma_kernel: D in 129-256 on the CUDA cores, full f32 FMA ----
+// ---- mha_fma_kernel: f32 at D in 129-256 on the CUDA cores, full f32 FMA ----
 
 constexpr int kTX = 8;   // threads across keys and output columns
 constexpr int kTY = 16;  // threads across query rows
@@ -855,11 +896,11 @@ struct Cfg {
   static constexpr int kSmemBytes = kFloats * 4;
 };
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
-mha_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const float* __restrict__ key_bias, T* __restrict__ out, int S, int H, int D,
-               float scale) {
+mha_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ key_bias,
+               float* __restrict__ out, int S, int H, int D, float scale) {
   using C = Cfg<DP>;
   constexpr int RM = C::RM, BQ = C::BQ, BK = C::BK;
   extern __shared__ float4 smem4[];
@@ -879,7 +920,7 @@ mha_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   // Q^T: element (row r, column d) at sQ[d * QS + r], zero past S and D
   for (int i = tid; i < BQ * DP; i += kThreads) {
     const int r = i / DP, d = i % DP, row = q0 + r;
-    sQ[d * C::QS + r] = (row < S && d < D) ? to_f32(q[base + row * HD + d]) : 0.f;
+    sQ[d * C::QS + r] = (row < S && d < D) ? q[base + row * HD + d] : 0.f;
   }
 
   // one key tile into shared memory: K^T, V (pass 2) and the bias, with
@@ -890,8 +931,8 @@ mha_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       const int j = i / DP, d = i % DP, key = k0 + j;
       const bool in = key < S && d < D;
       const long long at = base + key * HD + d;
-      sK[d * C::KS + j] = in ? to_f32(k[at]) : 0.f;
-      if (with_v) sV[j * DP + d] = in ? to_f32(v[at]) : 0.f;
+      sK[d * C::KS + j] = in ? k[at] : 0.f;
+      if (with_v) sV[j * DP + d] = in ? v[at] : 0.f;
     }
     for (int j = tid; j < BK; j += kThreads) {
       const int key = k0 + j;
@@ -963,7 +1004,7 @@ mha_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
   for (int i = 0; i < RM; ++i) l[i] = row_sum(l[i]);
 
-  // ---- pass 2: P = exp(s - m) / l, rounded to T; O += P V ----
+  // ---- pass 2: P = exp(s - m) / l; O += P V ----
   float o[RM][C::CPT];
 #pragma unroll
   for (int i = 0; i < RM; ++i)
@@ -979,8 +1020,7 @@ mha_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     for (int c = 0; c < C::KPT; ++c) {
       float p[RM];
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
-        p[i] = to_f32(from_f32<T>(__fdiv_rn(expf(s[i][c] - m[i]), l[i])));
+      for (int i = 0; i < RM; ++i) p[i] = __fdiv_rn(expf(s[i][c] - m[i]), l[i]);
       const int key = 32 * (c / 4) + 4 * tx + c % 4;
       sts<RM>(sP + key * C::QS + ty * RM, p);
     }
@@ -1007,13 +1047,13 @@ mha_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   for (int i = 0; i < RM; ++i) {
     const int row = q0 + ty * RM + i;
     if (row >= S) continue;
-    T* orow = out + base + row * HD;
+    float* orow = out + base + row * HD;
 #pragma unroll
     for (int cj = 0; cj < C::CJ; ++cj)
 #pragma unroll
       for (int e = 0; e < C::VW; ++e) {
         const int d = 8 * C::VW * cj + C::VW * tx + e;
-        if (d < D) orow[d] = from_f32<T>(o[i][C::VW * cj + e]);
+        if (d < D) orow[d] = o[i][C::VW * cj + e];
       }
   }
 }
@@ -1028,20 +1068,20 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((S + kRows - 1) / kRows, H, B);
+  constexpr int rows = Plan<T, DP>::WG * kRows;  // query rows a CTA
+  const dim3 grid((S + rows - 1) / rows, H, B);
   // f32: the plain version's f32 1/sqrt(d); 16-bit: log2(e)/sqrt(d)
   const float scale = (std::is_same<T, float>::value ? 1.0f : kLog2e) / sqrtf((float)D);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                         static_cast<const T*>(v), bias, static_cast<T*>(out), S,
-                                         H, D, gran, scale);
+  kern<<<grid, Plan<T, DP>::kCtaThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+      static_cast<T*>(out), S, H, D, gran, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, const float* bias, void* out,
                        int B, int S, int H, int D, cudaStream_t stream) {
   using C = Cfg<kMaxHeadDim>;
-  auto kern = mha_fma_kernel<T, kMaxHeadDim>;
+  auto kern = mha_fma_kernel<kMaxHeadDim>;
   if (C::kSmemBytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            C::kSmemBytes);
@@ -1050,8 +1090,8 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, const float*
   const dim3 grid((S + C::BQ - 1) / C::BQ, H, B);
   const float scale = 1.0f / sqrtf((float)D);
   kern<<<grid, kThreads, C::kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<T*>(out), S, H, D, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      bias, static_cast<float*>(out), S, H, D, scale);
   return cudaGetLastError();
 }
 
@@ -1071,7 +1111,12 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const float*
   if (D <= 32) return launch_tc<T, 32>(q, k, v, bias, out, B, S, H, D, gran, stream);
   if (D <= 64) return launch_tc<T, 64>(q, k, v, bias, out, B, S, H, D, gran, stream);
   if (D <= 128) return launch_tc<T, 128>(q, k, v, bias, out, B, S, H, D, gran, stream);
-  return launch_fma<T>(q, k, v, bias, out, B, S, H, D, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    return launch_fma(q, k, v, bias, out, B, S, H, D, stream);
+  } else {
+    if (D <= 192) return launch_tc<T, 192>(q, k, v, bias, out, B, S, H, D, gran, stream);
+    return launch_tc<T, 256>(q, k, v, bias, out, B, S, H, D, gran, stream);
+  }
 }
 
 }  // namespace

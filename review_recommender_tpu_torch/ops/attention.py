@@ -9,10 +9,11 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        "wgmma" = csrc/mha_fwd.cu (tensor cores, TMA;
                        bf16/f16 at D in {32, 64, 128}), "generic" =
                        csrc/mha_generic.cu (f32, bf16 and f16 at any D
-                       from 1 to 256: up to D = 128 on the tensor cores
-                       from zero-padded tiles, f32 as 3xTF32 in one online
-                       softmax pass, bf16/f16 in two; D of 129-256 on the
-                       CUDA cores in full f32 FMA); any S >= 1 on both.
+                       from 1 to 256: bf16/f16 at every D on the tensor
+                       cores from zero-padded tiles, in two softmax passes;
+                       f32 as 3xTF32 in one online pass up to D = 128, on
+                       the CUDA cores in full f32 FMA at D 129-256); any
+                       S >= 1 on both.
                        Together they replace the TPU kernel `_mha_kernel`,
                        which takes any float type, head width and length
   mha_kernel           the route's CUDA kernel; where a gradient is asked
@@ -22,10 +23,10 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        inputs and the upstream gradient, written out with
                        the roundings of autograd through mha_reference
   backward_route       which route of csrc/mha_bwd.cu takes (dtype, D, S):
-                       "wgmma" (bf16/f16 at D <= 128: wgmma, products
-                       in flight during the softmax work), "tf32" (f32 at
-                       D <= 128: wgmma as 3xTF32) or "fma" (D 129-256,
-                       every dtype: the CUDA cores in full f32)
+                       "wgmma" (bf16/f16 at every D: wgmma, products in
+                       flight during the softmax work), "tf32" (f32 at
+                       D <= 128: wgmma as 3xTF32) or "fma" (f32 at D
+                       129-256: the CUDA cores in full f32)
   multihead_attention  the towers' entry point: impl "auto" launches the
                        kernel for CUDA tensors and takes the reference for
                        CPU tensors (autograd through its torch ops);
@@ -66,7 +67,9 @@ _count_lock = threading.Lock()
 
 WGMMA_HEAD_DIMS = (32, 64, 128)  # csrc/mha_fwd.cu's TMA boxes and wgmma k-steps
 MAX_HEAD_DIM = 256  # csrc/mha_generic.cu's widest instance; no public BERT is wider
-WGMMA_BWD_MAX_HEAD_DIM = 128  # csrc/mha_bwd.cu's widest tensor-core instance (both types)
+# csrc/mha_bwd.cu's widest 3xTF32 instance: past it the f32 kernels' resident
+# hi and lo tiles outgrow a block's shared memory, and f32 runs on the CUDA cores
+TF32_BWD_MAX_HEAD_DIM = 128
 BACKWARD_COUNTERS = {"wgmma": "mha_backward_kernel_launches", "tf32": "mha_backward_tf32_launches",
                      "fma": "mha_backward_fma_launches"}  # backward_route -> counter
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
@@ -78,7 +81,7 @@ def kernel_route(dtype: torch.dtype, d: int, s: int) -> str:
     bf16/f16 at d in WGMMA_HEAD_DIMS, "generic" (csrc/mha_generic.cu) for
     every other f32, bf16 or f16 case with 1 <= d <= MAX_HEAD_DIM (on the
     tensor cores up to d = 128, f32 as three TF32 products a product; on
-    the CUDA cores beyond, a choice the kernel makes by d at compile time).
+    the CUDA cores beyond in f32, a choice the kernel makes by d).
     Any s >= 1 runs on both. Raises ValueError for anything else."""
     _check_domain(dtype, d, s)
     if dtype != torch.float32 and d in WGMMA_HEAD_DIMS:
@@ -88,15 +91,15 @@ def kernel_route(dtype: torch.dtype, d: int, s: int) -> str:
 
 def backward_route(dtype: torch.dtype, d: int, s: int) -> str:
     """The route of csrc/mha_bwd.cu that takes the backward of attention
-    over q/k/v of `dtype` with head width `d` and `s` keys. Up to
-    d = WGMMA_BWD_MAX_HEAD_DIM on the tensor cores: "wgmma" for bf16/f16,
-    "tf32" for f32 (each product as three TF32 ones); "fma" for d up to
-    MAX_HEAD_DIM in every dtype (CUDA cores, full f32). Same domain as
-    kernel_route; raises ValueError outside it."""
+    over q/k/v of `dtype` with head width `d` and `s` keys: "wgmma" for
+    bf16/f16 at every d; for f32, "tf32" (each product as three TF32 ones
+    on the tensor cores) up to d = TF32_BWD_MAX_HEAD_DIM and "fma" (CUDA
+    cores, full f32) beyond. Same domain as kernel_route; raises ValueError
+    outside it."""
     _check_domain(dtype, d, s)
-    if d > WGMMA_BWD_MAX_HEAD_DIM:
-        return "fma"
-    return "tf32" if dtype == torch.float32 else "wgmma"
+    if dtype != torch.float32:
+        return "wgmma"
+    return "tf32" if d <= TF32_BWD_MAX_HEAD_DIM else "fma"
 
 
 def _check_domain(dtype: torch.dtype, d: int, s: int) -> None:

@@ -76,9 +76,10 @@ def test_reference_bf16_matches_jax(b, s, heads, head_dim):
 
 
 # (head width, length): BertConfig.tiny()'s D = 16, TinyBERT-4L-312D's
-# D = 26, random_for_dim(100)'s D = 50, and 600 keys (past the first
-# kernel's 512)
-GENERIC_SHAPES = [(16, 64), (26, 40), (50, 70), (32, 600)]
+# D = 26, random_for_dim(100)'s D = 50, 600 keys (past the first kernel's
+# 512), and the widest heads, D = 192 (bge-small's width in 2 heads) and
+# 256, which the generic kernel pads to 192 / 256 columns in bf16/f16
+GENERIC_SHAPES = [(16, 64), (26, 40), (50, 70), (32, 600), (192, 40), (256, 33)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

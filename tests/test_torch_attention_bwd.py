@@ -51,7 +51,7 @@ def _assert_close(got, ref, tol, what):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s", [1, 20, 65, 130])
-@pytest.mark.parametrize("d", [16, 26, 32, 64])
+@pytest.mark.parametrize("d", [16, 26, 32, 64, 192, 256])  # 192, 256: the widest heads
 def test_backward_reference_matches_jax_mha_bwd(dtype, s, d):
     heads, b = 2, 3
     arrs = _inputs(1000 * d + s, b, s, heads * d)
@@ -105,8 +105,8 @@ def test_masked_key_gets_no_value_gradient():
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 32, "wgmma"), (torch.float16, 64, "wgmma"), (torch.bfloat16, 26, "wgmma"),
-    (torch.bfloat16, 1, "wgmma"), (torch.float16, 128, "wgmma"), (torch.bfloat16, 129, "fma"),
-    (torch.float16, 256, "fma"), (torch.float32, 32, "tf32"), (torch.float32, 1, "tf32"),
+    (torch.bfloat16, 1, "wgmma"), (torch.float16, 128, "wgmma"), (torch.bfloat16, 129, "wgmma"),
+    (torch.float16, 256, "wgmma"), (torch.float32, 32, "tf32"), (torch.float32, 1, "tf32"),
     (torch.float32, 128, "tf32"), (torch.float32, 129, "fma"), (torch.float32, 256, "fma"),
 ])
 def test_backward_route_table(dtype, d, route):

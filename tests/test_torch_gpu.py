@@ -287,7 +287,7 @@ def _check_generic(q, k, v, bias, heads):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [8, 16, 26, 50, 96, 256])
+@pytest.mark.parametrize("d", [8, 16, 26, 50, 96, 129, 192, 193, 256])
 @pytest.mark.parametrize("s", [1, 63, 65, 287, 1024])
 def test_generic_kernel_matches_reference(cuda, dtype, d, s):
     """The generic route (csrc/mha_generic.cu) against mha_reference: row 0
@@ -302,14 +302,16 @@ def test_generic_kernel_matches_reference(cuda, dtype, d, s):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [1, 15, 17, 31, 33, 127, 129, 256])
-@pytest.mark.parametrize("s", [1, 64, 65, 129, 1024])
+@pytest.mark.parametrize("d", [1, 15, 17, 31, 33, 127, 129, 192, 193, 256])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 129, 600, 1024])
 def test_generic_kernel_at_pipeline_edges(cuda, dtype, d, s):
     """The generic kernel's edges: S at and past one 64-key tile and over
-    three or more tiles (the 2-stage ring of key tiles wraps); D at the pad
-    boundaries of its 16/32/64/128-wide tiles and in the 129-256 CUDA-core
-    instance. Row 0 masked but one key, row 2 every key masked (uniform
-    over the S keys); one generic launch."""
+    three or more tiles (the 2-stage ring of key tiles wraps; above D = 128
+    in bf16/f16 two warpgroups of 64 query rows share it, the second with
+    no real row at S <= 64); D at the pad boundaries of its
+    16/32/64/128/192/256-wide tiles (bf16/f16) and in the f32 CUDA-core
+    instance past 128. Row 0 masked but one key, row 2 every key masked
+    (uniform over the S keys); one generic launch."""
     b, heads = 3, 2
     q, k, v, bias = _inputs(d * 131 + s, b, s, heads * d, dtype, cuda)
     bias = _masked_but_one(bias)
@@ -324,6 +326,8 @@ def test_generic_kernel_at_pipeline_edges(cuda, dtype, d, s):
     (torch.float32, 32, 1), (torch.float32, 32, 2),  # q, k, v 4 / 8 bytes into a line
     (torch.bfloat16, 40, 1),  # 16-byte heads, 2 bytes in: element loads
     (torch.bfloat16, 48, 4),  # 8 bytes in: 8-byte copies
+    (torch.float16, 129, 0),  # 258-byte heads past 128: element loads
+    (torch.bfloat16, 200, 4),  # 400-byte heads, 8 bytes in: 8-byte copies
 ])
 def test_generic_kernel_copy_granules(cuda, dtype, d, offset):
     """Each copy width of the generic kernel's loads, which the head's byte
@@ -392,11 +396,13 @@ def test_gradients_match_autograd_through_the_reference(cuda, dtype, b, s, heads
     (torch.float32, 2, 600, 4, 16),
     (torch.bfloat16, 4, 70, 12, 26),  # TinyBERT-4L-312D's heads
     (torch.float16, 3, 40, 2, 50),
+    (torch.bfloat16, 4, 70, 2, 192),  # bge-small's width in 2 heads
+    (torch.float16, 3, 40, 1, 256),
 ])
 def test_gradients_through_the_generic_route(cuda, dtype, b, s, heads, d):
     """MhaKernelFn on the generic route: the forward is the generic kernel,
     the backward the backward kernel's route for the dtype and width (3xTF32
-    for f32, wgmma for bf16/f16, both up to D = 128), held to
+    for f32 up to D = 128, wgmma for bf16/f16 at every D), held to
     mha_backward_reference and autograd through mha_reference on the same
     inputs (within 1e-4 in f32, 2e-2 in bf16/f16, of max(1, max |ref|)),
     and the output within the forward's tolerance."""
@@ -413,12 +419,14 @@ def test_gradients_through_the_generic_route(cuda, dtype, b, s, heads, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-@pytest.mark.parametrize("d", [1, 15, 17, 31, 33, 127, 129, 256])
+@pytest.mark.parametrize("d", [1, 15, 17, 31, 33, 127, 129, 192, 193, 256])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 129, 600, 1024])
 def test_backward_kernel_edge_cases(cuda, dtype, d, s):
     """The backward kernel alone (_launch_bwd) at the pad edges of D (each
-    wgmma and 3xTF32 instance's and the FMA route's), S at and around the
-    64-row tiles, past 512 keys and S = 1, in every dtype: its q, k, v
+    wgmma instance's, to DP = 256 with kernel B's columns in chunks past
+    128, each 3xTF32 instance's and the f32 FMA route's), S at and around
+    the 64-row tiles (kernel A's 32-key tiles past D = 128), past 512 keys
+    and S = 1, in every dtype: its q, k, v
     gradients against mha_backward_reference and autograd through
     mha_reference. Row 0 is masked but for one key (P = 1: dS = 0 exactly
     in the reference), the last row fully masked (the batch-bucket padding
@@ -441,13 +449,13 @@ def test_backward_kernel_edge_cases(cuda, dtype, d, s):
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 32), (torch.float16, 26),
                                      (torch.float32, 64), (torch.float32, 128),
-                                     (torch.bfloat16, 200)])
+                                     (torch.bfloat16, 200), (torch.float32, 200)])
 def test_backward_kernel_is_deterministic(cuda, dtype, d):
     """Two backward launches on the same inputs give bit-equal gradients
     (no atomics: kernel A writes dQ and the row statistics, kernel B dK and
     dV, each element by one thread), on every route: wgmma (bf16 at 32,
-    f16 at 26), tf32 (f32 at 64, and 128 in two column halves) and fma
-    (bf16 at 200)."""
+    f16 at 26, bf16 at 200 with kernel B's columns in chunks), tf32
+    (f32 at 64, and 128 in two column halves) and fma (f32 at 200)."""
     q, k, v, bias = _inputs(d, 4, 300, 4 * d, dtype, cuda)
     g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d),
                     device=cuda).to(dtype)
