@@ -16,8 +16,8 @@ line, and nothing is caught and passed over:
              the generic route's (f32 at (64, 512, 12, 32), TinyBERT-4L's
              bf16 (64, 512, 12, 26), the tiny config's (2, 16, 4, 16) in
              bf16 and f32), then the tensor-core route past 512 keys (bf16
-             (8, 1024, 12, 32)) and the generic route's widest bf16 heads
-             (64, 512, 2, 192): max abs error (tolerance 2e-2 in bf16, 1e-5
+             (8, 1024, 12, 32)) and the generic route's widest heads (64,
+             512, 2, 192) in bf16 and f32: max abs error (tolerance 2e-2 in bf16, 1e-5
              in f32), the route and one launch of its kernel, and the
              median of 50 CUDA-event-timed runs of each, from an idle
              device and behind a device spin; beside them
@@ -329,7 +329,8 @@ line, and nothing is caught and passed over:
              width past 128): one bf16 and one f32 ContrastiveTrainer step
              on one device, each counted from zero: 24 generic-kernel
              forward launches a step, and 24 of the backward kernel's
-             wgmma route (bf16) or FMA route (f32), finite losses
+             wgmma route (bf16) or 3xTF32 route (f32), no plain-version
+             call, finite losses
  20 generic_route  the towers that only the generic attention kernel
              (csrc/mha_generic.cu) runs, through run_search on phase 4's
              corpus and engine construction, 20 queries a setting (cut
@@ -346,9 +347,10 @@ line, and nothing is caught and passed over:
              reference attention within 2e-2; p50 of each setting
 
 The last two lines are the kernels summary (the backward kernel by route:
-mha_bwd the bf16/f16 wgmma one, mha_bwd_tf32 the f32 3xTF32 one, mha_bwd_fma
-the f32 CUDA-core one past D = 128; mha_generic_d192 and mha_bwd_d192 the
-bf16 kernels at 2 heads of 192, phase 19 (g)'s) and
+mha_bwd the bf16/f16 wgmma one, mha_bwd_tf32 the f32 3xTF32 one; at 2 heads
+of 192, phase 19 (g)'s, mha_generic_d192 and mha_bwd_d192 the bf16
+instances and mha_generic_f32_d192 and mha_bwd_tf32_d192 the f32 ones,
+which split their 64-row tiles in registers) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no jax and nothing of the JAX package.
 """
@@ -379,13 +381,14 @@ SHAPES = [(64, 512, 12, 32), (1, 16, 12, 32), (8, 128, 6, 64), (4, 256, 3, 128),
 # phase 3's rows beyond the main path's bf16 shapes, (B, S, H, D, dtype, tol):
 # phase 20's f32 rerank shape and TinyBERT-4L-312D's bf16 one (D = 26), the
 # tiny config's (D = 16) in both types (all on the generic kernel), the
-# tensor-core route past 512 keys, and the generic kernel's widest bf16 heads
-# (bge-small's width in 2 heads of 192) at the rerank batch
+# tensor-core route past 512 keys, and the generic kernel's widest heads
+# (bge-small's width in 2 heads of 192) at the rerank batch in both types
 ROUTE_SHAPES = [(64, 512, 12, 32, "float32", F32_KERNEL_TOL),
                 (64, 512, 12, 26, "bfloat16", KERNEL_TOL),
                 (2, 16, 4, 16, "bfloat16", KERNEL_TOL), (2, 16, 4, 16, "float32", F32_KERNEL_TOL),
                 (8, 1024, 12, 32, "bfloat16", KERNEL_TOL),
-                (64, 512, 2, 192, "bfloat16", KERNEL_TOL)]
+                (64, 512, 2, 192, "bfloat16", KERNEL_TOL),
+                (64, 512, 2, 192, "float32", F32_KERNEL_TOL)]
 N_DOCS, DIM, TERMS, VOCAB, TEXT_CHARS = 200_000, 384, 64, 30_000, 2000
 # 100 queries per setting: p90 then has 10 samples beyond it
 N_QUERIES, K, RERANK_K, REPS = 100, 10, 50, 50
@@ -1256,7 +1259,6 @@ def _kernel_modules():
             "mha_generic": (A, "mha_generic_kernel_launches"),
             "mha_bwd": (A, "mha_backward_kernel_launches"),
             "mha_bwd_tf32": (A, "mha_backward_tf32_launches"),
-            "mha_bwd_fma": (A, "mha_backward_fma_launches"),
             "bm25_packed": (BK, "bm25_packed_kernel_launches"),
             "bm25_unpacked": (BK, "bm25_unpacked_kernel_launches"),
             "stage_a_fused": (SA, "stage_a_kernel_launches"),
@@ -3372,8 +3374,8 @@ def _trained_lane(card):
 
 def _backward_exps(b, s, h, d, dtype) -> int:
     """The exponentials csrc/mha_bwd.cu's route evaluates on the B*H*S*S
-    scores: three passes (kernel A's two and kernel B's) on the wgmma and
-    FMA routes, two on the 3xTF32 route (its kernel A takes one pass); on
+    scores: three passes (kernel A's two and kernel B's) on the wgmma
+    route, two on the 3xTF32 route (its kernel A takes one pass); on
     the wgmma route past D = 128 each of kernel B's column chunks takes a
     pass (two at D <= 192, four beyond)."""
     from review_recommender_tpu_torch.ops import attention as A
@@ -5263,8 +5265,9 @@ def _wide_head_steps(torch, card, cfg, sd, batch):
     before each step and read after it. The bf16 step's forwards run the
     generic kernel's tensor-core instance at 192 columns and its backwards
     the backward kernel's wgmma route; the f32 step's the generic kernel's
-    and the backward kernel's CUDA-core routes (counted, exact); no plain
-    version; finite losses. Returns the launches by kernel of each step,
+    3xTF32 instance at 192 columns and the backward kernel's 3xTF32 route
+    (counted, exact); no plain version; finite losses. Returns the launches
+    by kernel of each step,
     {"bf16": {...}, "f32": {...}}."""
     from review_recommender_tpu_torch.train import ContrastiveTrainer
 
@@ -5273,7 +5276,7 @@ def _wide_head_steps(torch, card, cfg, sd, batch):
     losses, counts, want = {}, {}, {}
     with _PlainCalls() as plain:
         for name, dtype, bwd in (("bf16", torch.bfloat16, "mha_bwd"),
-                                 ("f32", torch.float32, "mha_bwd_fma")):
+                                 ("f32", torch.float32, "mha_bwd_tf32")):
             tr = ContrastiveTrainer(wide, sd, dtype=dtype, device=DEV)
             _zero_counts()
             losses[name] = tr.train_step(*batch)["loss"]
@@ -5295,8 +5298,8 @@ def phase_train_mesh(torch, products):
     kernels at the tp shard's shapes (the f32 backward at the shard's) and
     at WIDE_SHAPE (bf16, then f32). Returns the attention launches of the
     mesh steps, the restores, the wide-head steps and the dp encode by
-    kernel ("mha_fwd", "mha_generic", "mha_bwd", "mha_bwd_tf32",
-    "mha_bwd_fma"), the f32 kernel rows, the WIDE_SHAPE rows and the
+    kernel ("mha_fwd", "mha_generic", "mha_bwd", "mha_bwd_tf32"), the f32
+    kernel rows, the WIDE_SHAPE rows and the
     wide-head steps' launches by dtype."""
     import shutil
 
@@ -5310,8 +5313,7 @@ def phase_train_mesh(torch, products):
         emit({"phase": "train_mesh_kernel", "card": card, **row})
     towers = _mesh_towers()
     batches = _mesh_batches(products)
-    launches = dict.fromkeys(("mha_fwd", "mha_generic", "mha_bwd", "mha_bwd_tf32",
-                              "mha_bwd_fma"), 0)
+    launches = dict.fromkeys(("mha_fwd", "mha_generic", "mha_bwd", "mha_bwd_tf32"), 0)
     for kind, steps in (("biencoder", MESH_STEPS), ("crossencoder", 3), ("mlm", 3)):
         cfg, sd = towers[kind]
         for name, n in _mesh_trainer(torch, card, kind, cfg, sd, batches[kind], steps).items():
@@ -5325,7 +5327,7 @@ def phase_train_mesh(torch, products):
         launches[name] += restored[name]
     shutil.rmtree(tmp, ignore_errors=True)
     wide = _wide_head_steps(torch, card, cfg, sd, batches["biencoder"])
-    for name in ("mha_generic", "mha_bwd", "mha_bwd_fma"):
+    for name in ("mha_generic", "mha_bwd", "mha_bwd_tf32"):
         launches[name] += wide["bf16"][name] + wide["f32"][name]
     launches["mha_fwd"] += _mesh_encode(torch, card, cfg, sd, products)
     _mesh_int8_global(torch, card, products)
@@ -5490,7 +5492,6 @@ def main() -> int:
         generic_launches = mesh_launches["mha_generic"]
         bwd_launches += mesh_launches["mha_bwd"]
         bwd_tf32_launches = mesh_launches["mha_bwd_tf32"]
-        bwd_fma_launches = mesh_launches["mha_bwd_fma"]
         mark("train_mesh")
         route_launches = phase_generic_route(torch, products)
         launches += route_launches["mha_fwd"]
@@ -5520,28 +5521,29 @@ def main() -> int:
             "bound_by": "operations" if main_shape["bound"] == "compute" else "bytes",
             "library_ms": main_shape["library_device_ms"],
         })
-    # the bf16 forward at 2 heads of 192 (the generic kernel's tensor-core
-    # instance at 192 columns), at phase 19 (g)'s shape and with its bf16
-    # step's launches
+    # the forward at 2 heads of 192 (the generic kernel's instances at 192
+    # columns), at phase 19 (g)'s shape and with its bf16 and f32 steps'
+    # launches
     wide_bf16, wide_f32 = wide_train_rows
-    entries.append({
-        "name": "mha_generic_d192", "route": "cuda",
-        "source": "review_recommender_tpu_torch/csrc/mha_generic.cu",
-        "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:64",
-        "launches": wide_launches["bf16"]["mha_generic"], "max_abs_err": wide_bf16["max_abs_err"],
-        "ms": wide_bf16["ms"], "plain_ms": wide_bf16["plain_ms"],
-        "bound_ms": wide_bf16["bound_ms"], "bound_by": wide_bf16["bound_by"],
-        "library_ms": wide_bf16["library_ms"],
-    })
+    for name, row, n in (("mha_generic_d192", wide_bf16, wide_launches["bf16"]["mha_generic"]),
+                         ("mha_generic_f32_d192", wide_f32, wide_launches["f32"]["mha_generic"])):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "review_recommender_tpu_torch/csrc/mha_generic.cu",
+            "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:64",
+            "launches": n, "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
     # the backward kernel by route, at its main path's shape: the
     # bi-encoder trainer's (phase 15's first row) for the wgmma route, a tp
     # shard's in f32 (phase 19) for the 3xTF32 route, the wide-head steps'
-    # (phase 19 (g)) for the wgmma route at 192 columns (bf16) and the FMA
-    # route (f32)
+    # (phase 19 (g)) for both routes at 192 columns
     for name, rows, n in (("mha_bwd", train_rows, bwd_launches),
                           ("mha_bwd_tf32", f32_train_rows, bwd_tf32_launches),
                           ("mha_bwd_d192", [wide_bf16], wide_launches["bf16"]["mha_bwd"]),
-                          ("mha_bwd_fma", [wide_f32], bwd_fma_launches)):
+                          ("mha_bwd_tf32_d192", [wide_f32], wide_launches["f32"]["mha_bwd_tf32"])):
         entries.append({
             "name": name, "route": "cuda", "source": "review_recommender_tpu_torch/csrc/mha_bwd.cu",
             "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:142",

@@ -26,15 +26,23 @@ line with the dtype and the route (ops/attention.py:kernel_route):
              calls it)
 
 --kernel wide_heads: the attention routes for head widths 129-256, at
-chip_smoke.py phase 19 (g)'s WIDE_SHAPE (32, 128, 2, 192) and at (64, 512,
-2, 192), in bf16 and f32: its _training_kernel_rows (the forward kernel,
-csrc/mha_generic.cu at 192 columns, against its plain version and SDPA's
-forward; the backward kernel, csrc/mha_bwd.cu by backward_route, against
-the recompute and SDPA's forward and backward together; the bounds), and
-beside them SDPA's backward alone (autograd.grad through one saved SDPA
-forward, sdpa_backward_ms), all behind a 0.1 ms spin. Each row names its
-backward route: a checkout before bf16 went to the tensor cores at these
-widths reports "fma" for both dtypes.
+chip_smoke.py phase 19 (g)'s WIDE_SHAPE (32, 128, 2, 192), at (64, 512,
+2, 192) and at (64, 512, 1, 256), in bf16 and f32: its
+_training_kernel_rows (the forward kernel, csrc/mha_generic.cu at 192 or
+256 columns, against its plain version and SDPA's forward; the backward
+kernel, csrc/mha_bwd.cu by backward_route, against the recompute and
+SDPA's forward and backward together; the bounds), and beside them SDPA's
+backward alone (autograd.grad through one saved SDPA forward,
+sdpa_backward_ms), all behind a 0.1 ms spin. Each row names the routes it
+ran: backward_route (a checkout before bf16 went to the tensor cores at
+these widths reports "fma" for both dtypes, one before f32 did for f32),
+and the padded width of the instances the forward and the backward
+launched (forward_dp, backward_dp: rrt_mha_generic_last_dp and
+rrt_mha_bwd_last_dp; null in a checkout that does not export them, whose
+f32 forward at these widths is the CUDA-core kernel). For an A/B, run it
+once with ROOT a `git archive` of the parent unpacked under build/ and
+once on this checkout, in the order parent, change, change, parent, in
+one call.
 
 --kernel bm25: for each of chip_smoke.py's BM25 shapes, the packed and the
 unpacked kernel on phase 5's postings (drawn on the card by this script's
@@ -82,6 +90,7 @@ The first line has the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import subprocess
@@ -202,8 +211,6 @@ def _parent_stage_a(parent: Path):
     None. Entries of three generations: with a workspace sized by PARENT's
     rrt_stage_a_*_workspace (any D), or without one (bf16 and f32 up to
     rrt_stage_a_tf32_max_dim, then rrt_stage_a_fma, or rrt_stage_a_f32)."""
-    import ctypes
-
     import torch
 
     from review_recommender_tpu_torch import kernels
@@ -338,11 +345,26 @@ def _stage_a(torch, tag: str, parent=None, dims=None, phase4=False) -> None:
             print(json.dumps(row), flush=True)
 
 
-WIDE_HEAD_SHAPES = [(32, 128, 2, 192), (64, 512, 2, 192)]
+WIDE_HEAD_SHAPES = [(32, 128, 2, 192), (64, 512, 2, 192), (64, 512, 1, 256)]
+
+
+def _last_dp(lib, name: str):
+    """The padded width of the instance the last call of a C entry
+    launched, where the library exports it (None where not)."""
+    try:
+        fn = getattr(lib, name)
+    except AttributeError:
+        return None
+    fn.restype = ctypes.c_int
+    return int(fn())
 
 
 def _wide_heads(torch, tag: str) -> None:
+    from review_recommender_tpu_torch import kernels
+    from review_recommender_tpu_torch.ops import attention as A
+
     cs = _own_chip_smoke()
+    lib = kernels.load()
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
     for dtype in (torch.bfloat16, torch.float32):
         rows = cs._training_kernel_rows(torch, WIDE_HEAD_SHAPES, dtype)
@@ -354,6 +376,11 @@ def _wide_heads(torch, tag: str) -> None:
             lens = rng.integers(1, s + 1, size=b)
             bias = torch.from_numpy(np.where(np.arange(s)[None, :] < lens[:, None], 0.0, -1e30)
                                     .astype(np.float32)).to("cuda")
+            with torch.no_grad():
+                A.mha_kernel(q, k, v, bias, h)
+                row["forward_dp"] = _last_dp(lib, "rrt_mha_generic_last_dp")
+                A._launch_bwd(q, k, v, bias, g, h)
+                row["backward_dp"] = _last_dp(lib, "rrt_mha_bwd_last_dp")
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
             with torch.enable_grad():
                 out = cs._sdpa(torch, *leaves, bias, h)

@@ -36,8 +36,9 @@ Lines, after the card's name and power limit:
              lines): device ms behind a spin, each kernel's device µs from
              a torch.profiler window, host µs a call. bf16 copies at the
              trainers' four shapes and at 2 heads of 192 ((32, 128, 2, 192),
-             (64, 512, 2, 192)), f32 ones at the tp shard's, "full" at all
-             seven. A name is "full" or edits joined by "+"; the
+             (64, 512, 2, 192)), f32 ones at the tp shard's, wide ones at f32
+             (64, 512, 2, 192) and (64, 512, 1, 256), "full" at all nine. A
+             name is "full" or edits joined by "+"; the
              knobs (csrc/mha_bwd.cu's constexprs) and the parts taken out:
                no_overlap     bf16: kernel A waits on dP before its work on
                               S, kernel B on both halves' products before
@@ -68,6 +69,18 @@ Lines, after the card's name and power limit:
                               line with each kernel's cycles a CTA in each
                               phase of its steps (waits and barriers,
                               copies, split, products, the rest)
+               wide_no_loads  f32 above 128 columns: the rings' copies of
+                              the next tiles out
+               wide_no_split  f32 above 128 columns: the landed tiles not
+                              split (the 64-row tiles' k-steps still are)
+               wide_no_sdp    f32 above 128 columns: no S / dP (S^T / dP^T)
+                              products, their accumulators zero
+               wide_no_grad   f32 above 128 columns: no X, Y (dK, dV)
+                              products
+               wide_a_only    f32 above 128 columns: kernel A alone
+               wide_kc1, wide_kc4  f32 above 128 columns: one or four
+                              k-steps a commit group of the split products
+                              (two in the kernel)
              (every edit but the knobs leaves the results wrong)
   sass       (--sass) static SASS instructions per kernel by opcode
              (cuobjdump -sass of the "full" copy)
@@ -119,10 +132,14 @@ CASES = ([("bfloat16", *s) for s in CS.TRAIN_SHAPES]
             ("float16", 3, 129, 2, 17), ("bfloat16", 2, 600, 1, 31), ("float16", 2, 64, 2, 33),
             ("bfloat16", 2, 1024, 2, 127), ("float16", 2, 65, 1, 129), ("bfloat16", 2, 129, 1, 256),
             ("float32", 3, 65, 2, 1), ("float32", 2, 129, 1, 256), ("float32", 2, 1024, 1, 33),
-            ("float32", 4, 200, 2, 128), ("float32", 2, 300, 3, 64)])
+            ("float32", 4, 200, 2, 128), ("float32", 2, 300, 3, 64),
+            ("float32", 2, 1, 1, 129), ("float32", 4, 70, 2, 192), ("float32", 3, 40, 1, 256),
+            ("float32", 2, 300, 1, 193), ("float32", 2, 1024, 1, 200)])
 # bf16 at 2 heads of 192, past the 128 columns of one warpgroup's tiles:
 # phase 19 (g)'s shape and the rerank batch's
 WIDE_SHAPES = [(32, 128, 2, 192), (64, 512, 2, 192)]
+# f32 above 128 columns: the rerank batch at 2 heads of 192 and at one of 256
+F32_WIDE_SHAPES = [(64, 512, 2, 192), (64, 512, 1, 256)]
 TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 DTYPE_CODE = {"bfloat16": 0, "float16": 1, "float32": 2}
 REPS, SPIN_CYCLES = 50, 200_000
@@ -150,8 +167,10 @@ def _ptxas_rows(log: str) -> list:
     return rows
 
 
-SECTIONS = {"tc": ("// ---- the tensor-core route", "// ---- the 3xTF32 route"),
-            "tf32": ("// ---- the 3xTF32 route", "// ---- the FMA route"),
+SECTIONS = {"tc": ("// ---- the tensor-core route", "// ---- the 3xTF32 route: f32 at D <= 128"),
+            "tf32": ("// ---- the 3xTF32 route: f32 at D <= 128",
+                     "// ---- the 3xTF32 route above 128 columns"),
+            "wide": ("// ---- the 3xTF32 route above 128 columns", "// ---- launches"),
             "launch_tc": ("cudaError_t launch_tc(", "cudaError_t launch_tf32(")}
 
 
@@ -225,6 +244,24 @@ def _replace_n(src: str, old: str, new: str, n: int, section: str = "tf32") -> s
 def _f32_no_loads(src: str) -> str:
     return _replace_n(src, "    if (u + 1 < ntiles) load_step(u + 1);",
                       "    if (u + 1 < 0) load_step(u + 1);", 2)
+
+
+WIDE_FAKE_SPLIT = """
+template <int DP, int KC, int N>
+__device__ __forceinline__ void no_products(float (&x)[N], float (&x_lo)[N], const unsigned char*,
+                                            uint64_t, uint64_t, int) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = x_lo[i] = 0.f;
+}
+"""
+
+
+def _wide_no_sdp(src: str) -> str:
+    """f32 above DP = 128: S and dP (S^T and dP^T) not multiplied, their
+    accumulators zero (results wrong; the time of the rest)."""
+    src = _sub(src, '#include "tf32_wgmma.cuh"\n', '#include "tf32_wgmma.cuh"\n' + WIDE_FAKE_SPLIT)
+    return _replace_n(src, "tf32_rs3_split<DP, kSplitSteps>(", "no_products<DP, kSplitSteps>(",
+                      2, "wide")
 
 
 def _f32_roll(src: str) -> str:
@@ -320,9 +357,22 @@ EDITS = {
     "f32_lo_trunc": lambda src: _sub(src, "      l[e] = tf32_rna(x[e] - __uint_as_float(h[e]));",
                                      "      l[e] = __float_as_uint(x[e] - __uint_as_float(h[e]));"),
     "f32_no_lo": _f32_no_lo, "f32_no_split": _f32_no_split, "f32_no_loads": _f32_no_loads,
+    "wide_no_loads": lambda src: _replace_n(src, "    if (u + 1 < ntiles) load_step(u + 1);",
+                                            "    if (u + 1 < 0) load_step(u + 1);", 2, "wide"),
+    "wide_no_split": lambda src: _replace_n(src, "      split_rows<BT, DP, DP, ",
+                                            "      if (0) split_rows<BT, DP, DP, ", 4, "wide"),
+    "wide_no_sdp": _wide_no_sdp,
+    "wide_no_grad": lambda src: _replace_n(src, "    tf32_rs3_cols<BT, BT, DP>(",
+                                           "    if (0) tf32_rs3_cols<BT, BT, DP>(", 2, "wide"),
+    "wide_kc1": _knob("constexpr int kSplitSteps = 2;", "constexpr int kSplitSteps = 1;"),
+    "wide_kc4": _knob("constexpr int kSplitSteps = 2;", "constexpr int kSplitSteps = 4;"),
+    "wide_a_only": lambda src: _sub(src, "  return launch_after(kb, grid, 2 * kThreads,",
+                                    "  if (a.B > 0) return cudaGetLastError();\n"
+                                    "  return launch_after(kb, grid, 2 * kThreads,"),
 }
 BREAKDOWN = ["no_overlap", "no_pdl", "no_exp", "softmax_only", "no_loads", "a_only",
-             "a_only+no_loads", "one_warpgroup", "f32_no_lo", "f32_no_split", "f32_no_loads"]
+             "a_only+no_loads", "one_warpgroup", "f32_no_lo", "f32_no_split", "f32_no_loads",
+             "wide_no_loads", "wide_no_split", "wide_no_sdp", "wide_no_grad", "wide_a_only"]
 
 
 def variants(src: str, names: list) -> dict:
@@ -361,15 +411,22 @@ def sass_counts(lib_path: Path) -> dict:
     return counts
 
 
-def build(texts: dict) -> dict:
+def build(texts: dict, headers: dict = None) -> dict:
     """One nvcc per copy, all started together, each into its own library
-    under OUT; returns (ctypes library, ptxas rows) by name."""
+    under OUT; returns (ctypes library, ptxas rows) by name. A copy named in
+    `headers` is built beside that directory's csrc/*.cuh (another
+    checkout's), which its quoted includes then find first."""
     from review_recommender_tpu_torch import kernels
 
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in texts.items():
         cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
+        if name in (headers or {}):
+            cu = OUT / name / f"{name}.cu"
+            cu.parent.mkdir(exist_ok=True)
+            for h in headers[name].glob("*.cuh"):
+                (cu.parent / h.name).write_text(h.read_text())
         cu.write_text(text)
         procs[name] = subprocess.Popen(
             [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", str(so),
@@ -423,11 +480,20 @@ def _device_ms(torch, fn) -> float:
 def _timed_shapes(torch):
     """(name, shape, inputs): the trainers' four bf16 shapes (seeds of
     phase 15's rows), bf16 at 2 heads of 192 (WIDE_SHAPES: phase 19 (g)'s
-    and the rerank batch's) and the f32 tp shard's (phase 19's f32 row)."""
+    and the rerank batch's), the f32 tp shard's (phase 19's f32 row) and
+    f32 at the wide shapes (F32_WIDE_SHAPES)."""
     rows = [("bfloat16", shape, _timing_inputs(torch, i, *shape, torch.bfloat16))
             for i, shape in enumerate(CS.TRAIN_SHAPES + WIDE_SHAPES)]
     f32 = CS.MESH_SHAPES[0]
-    return rows + [("float32", f32, _timing_inputs(torch, 0, *f32, torch.float32))]
+    rows.append(("float32", f32, _timing_inputs(torch, 0, *f32, torch.float32)))
+    return rows + [("float32", shape, _timing_inputs(torch, i, *shape, torch.float32))
+                   for i, shape in enumerate(F32_WIDE_SHAPES)]
+
+
+def _family(name: str, shape) -> str:
+    """The variants a timed shape serves: "wide" (f32 above 128 columns),
+    "f32" or "bf16"."""
+    return "wide" if name == "float32" and shape[3] > 128 else "f32" if name == "float32" else "bf16"
 
 
 def _kernel_us(torch, fn, n=20) -> dict:
@@ -488,7 +554,8 @@ def breakdown(torch, libs: dict) -> None:
     ms behind a spin, each kernel's device µs from the profiler, host µs."""
     for name, shape, (q, k, v, bias, g) in _timed_shapes(torch):
         for variant, (lib, _rows) in libs.items():
-            if variant not in ("full", "parent") and ("f32" in variant) != (name == "float32"):
+            fam = variant.split("_")[0] if variant.startswith(("f32", "wide")) else "bf16"
+            if variant not in ("full", "parent") and fam != _family(name, shape):
                 continue
             fn = lambda lib=lib: _launch(torch, lib, q, k, v, bias, g, shape[2])
             print(json.dumps({"breakdown": variant, "dtype": name, "B": shape[0], "S": shape[1],
@@ -610,12 +677,11 @@ def main() -> int:
     texts = variants(src, ["full"] + (args.breakdown.split(",") if args.breakdown else []))
     if args.parent:
         texts["parent"] = (args.parent / CSRC).read_text()
-    libs = build(texts)
+    libs = build(texts, {"parent": (args.parent / CSRC).parent} if args.parent else None)
     if args.sass:
         for name, ops in sass_counts(OUT / "full.so").items():
-            if "fma" not in name:
-                print(json.dumps({"sass": name, "total": sum(ops.values()),
-                                  **dict(sorted(ops.items(), key=lambda kv: -kv[1]))}), flush=True)
+            print(json.dumps({"sass": name, "total": sum(ops.values()),
+                              **dict(sorted(ops.items(), key=lambda kv: -kv[1]))}), flush=True)
     for row in libs["full"][1]:
         print(json.dumps({"registers": row}), flush=True)
     for name, (_lib, rows) in libs.items():  # each copy's tensor-core kernels, compactly

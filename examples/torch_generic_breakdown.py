@@ -13,15 +13,17 @@ build/generic_breakdown/ and loaded on its own:
   no_loads         the next key tile is never copied: the ring's copies go
                    (results wrong; the time without the loads)
   no_split         f32: the landed tiles are not split into hi and lo
-                   (results wrong; the time without the split pass)
-  one_accumulator  f32: lo*hi, hi*lo and hi*hi of Q K^T, and of a tile's
-                   P V, summed in one accumulator each, small terms first
+                   (results wrong; the time without the split pass; above
+                   128 columns Q's k-steps are still split in registers)
+  one_accumulator  f32: lo*hi, hi*lo and hi*hi of Q K^T (up to 128
+                   columns), and of a tile's P V, summed in one accumulator
+                   each, small terms first
   exp_ieee         bf16/f16: the exponentials by expf and the division by
                    the row sum an IEEE one, as the f32 route and the plain
                    version take them, not ex2.approx and a multiply
-  one_warpgroup    bf16/f16 above DP = 128: one warpgroup of 64 query rows
-                   a CTA, each CTA copying every key tile itself (timed at
-                   the D = 192 shapes only)
+  one_warpgroup    above DP = 128: one warpgroup of 64 query rows a CTA,
+                   each CTA copying (f32: and splitting) every key tile
+                   itself (timed at the D = 192 and 256 shapes only)
 
 Lines, after the card's name and power limit:
 
@@ -31,8 +33,9 @@ Lines, after the card's name and power limit:
              launch queued behind a 0.1 ms device spin, and the largest
              error against mha_reference, at (64, 512, 12, 32) and (64, 512,
              12, 64) in f32, (64, 512, 12, 26) and (64, 512, 12, 50) in
-             bf16, and bf16 at 2 heads of 192, (64, 512, 2, 192) and (32,
-             128, 2, 192) (chip_smoke.py's _attn_inputs: seeded normal q,
+             bf16, bf16 at 2 heads of 192, (64, 512, 2, 192) and (32, 128,
+             2, 192), and f32 at (64, 512, 2, 192) and (64, 512, 1, 256)
+             (chip_smoke.py's _attn_inputs: seeded normal q,
              k, v, random lengths, an all-masked row)
   accuracy   for full and one_accumulator: chip_smoke.py phase 20's f32
              bge-small (seed 1) and its 20 queries. The query vectors
@@ -62,7 +65,8 @@ SRC = ROOT / "review_recommender_tpu_torch" / "csrc" / "mha_generic.cu"
 OUT = ROOT / "build" / "generic_breakdown"
 SHAPES = [(64, 512, 12, 32, "float32"), (64, 512, 12, 64, "float32"),
           (64, 512, 12, 26, "bfloat16"), (64, 512, 12, 50, "bfloat16"),
-          (64, 512, 2, 192, "bfloat16"), (32, 128, 2, 192, "bfloat16")]
+          (64, 512, 2, 192, "bfloat16"), (32, 128, 2, 192, "bfloat16"),
+          (64, 512, 2, 192, "float32"), (64, 512, 1, 256, "float32")]
 REPS, SPIN_CYCLES = 50, 200_000
 DTYPE_CODE = {"bfloat16": 0, "float16": 1, "float32": 2}
 
@@ -75,9 +79,8 @@ def _sub(text: str, old: str, new: str) -> str:
 
 def variants() -> dict:
     src = SRC.read_text()
-    no_split = _sub(src, "      split_tf32<P::kTileBytes>(smem + st_off, smem + P::kKlo, tid);\n"
-                         "      split_tf32<P::kTileBytes>(smem + st_off + P::kTileBytes, smem + P::kVlo,"
-                         " tid);\n", "")
+    no_split = _sub(src, "  for (int off = 16 * tid; off < N; off += 16 * kThreads) {",
+                    "  for (int off = 16 * tid; off < 0; off += 16 * kThreads) {")
     one = src
     for old, new in (
             ("        wgmma_ss_tf32(s, smem_desc(base + P::kQ + 256 * j, 128, P::kGroup),\n"
@@ -88,16 +91,20 @@ def variants() -> dict:
              "        wgmma_ss_tf32(s, smem_desc(base + P::kQlo"),
             ("        wgmma_ss_tf32(s_lo, smem_desc(base + P::kQ + 256 * j",
              "        wgmma_ss_tf32(s, smem_desc(base + P::kQ + 256 * j"),
-            ("      for (int i = 0; i < BK / 2; ++i) s[i] += s_lo[i];", ""),
-            ("          wgmma_rs_tf32(pv, a, smem_desc(vt + 256 * j, 128, kVtGroup), j > 0);",
-             "          wgmma_rs_tf32(pv, a, smem_desc(vt + 256 * j, 128, kVtGroup));"),
-            ("          wgmma_rs_tf32(pv_lo, a, smem_desc(vt + 256 * j, 128, kVtGroup), j > 0);",
-             "          wgmma_rs_tf32(pv, a, smem_desc(vt + 256 * j, 128, kVtGroup), j > 0);"),
-            ("          wgmma_rs_tf32(pv_lo, a, smem_desc(base + P::kVlo",
-             "          wgmma_rs_tf32(pv, a, smem_desc(base + P::kVlo")):
+            ("      wgmma_commit();\n      wgmma_wait_all();\n      fence_regs(s_lo);\n"
+             "      fence_regs(s);\n#pragma unroll\n"
+             "      for (int i = 0; i < BK / 2; ++i) s[i] += s_lo[i];",
+             "      wgmma_commit();\n      wgmma_wait_all();\n      fence_regs(s);"),
+            ("            wgmma_rs_tf32(pv, a, smem_desc(vc + 256 * j, 128, kVtGroup), j > 0);",
+             "            wgmma_rs_tf32(pv, a, smem_desc(vc + 256 * j, 128, kVtGroup));"),
+            ("            wgmma_rs_tf32(pv_lo, a, smem_desc(vc + 256 * j, 128, kVtGroup), j > 0);",
+             "            wgmma_rs_tf32(pv, a, smem_desc(vc + 256 * j, 128, kVtGroup), j > 0);"),
+            ("            wgmma_rs_tf32(pv_lo, a, smem_desc(vlc + 256 * j",
+             "            wgmma_rs_tf32(pv, a, smem_desc(vlc + 256 * j")):
         one = _sub(one, old, new)
     for i in range(4):
         one = _sub(one, f"pv[4 * i + {i}] + pv_lo[4 * i + {i}]", f"pv[4 * i + {i}]")
+    one = _sub(one, "          fence_regs(pv_lo);\n", "")
     ieee = _sub(src, "  else return ex2_approx(x);", "  else return expf(x * 0.6931471805599453f);")
     for e, (m, inv, l) in enumerate((("m0", "i0", "l0"),) * 2 + (("m1", "i1", "l1"),) * 2):
         ieee = _sub(ieee, f"exp_<kTF32>(s[4 * i + {e}] - {m}) * {inv}",
@@ -106,7 +113,7 @@ def variants() -> dict:
             "no_loads": _sub(src, "    if (u + kStages - 1 < nsteps) load_step(u + kStages - 1);",
                              "    if (u + kStages - 1 < 0) load_step(u + kStages - 1);"),
             "no_split": no_split, "one_accumulator": one, "exp_ieee": ieee,
-            "one_warpgroup": _sub(src, "  static constexpr int WG = kWide ? 2 : 1;",
+            "one_warpgroup": _sub(src, "  static constexpr int WG = kWide || kSplitQ ? 2 : 1;",
                                   "  static constexpr int WG = 1;")}
 
 

@@ -124,15 +124,33 @@
 // version, 2.6e-6 in the example's checks); dP and P are not rounded (f32
 // is the input type); the scale is applied to dQ and dK at the end.
 //
-// FMA route, f32 at D 129-256 (mha_bwd_dq_fma_kernel,
-// mha_bwd_dkv_fma_kernel): the 3xTF32 route keeps Q, Q lo, dO and dO lo
-// resident in kernel A, 256 KB at DP = 256, more than a block's 227 KB, so
-// these widths run the same two kernels on the CUDA cores in full f32 FMA
-// (no TF32), as mha_generic.cu's mha_fma_kernel: 128 threads as 16 x 8, 32
-// rows a CTA against tiles of 32, synchronous loads into shared memory;
-// the plain version's op order for the logits ((q . k) * scale, then +
-// bias, each rounded), expf and IEEE divisions; dS * scale in f32 before
-// its products, as autograd applies it.
+// 3xTF32 route, f32 at D 129-256 (mha_bwd_dq_tf32_wide_kernel,
+// mha_bwd_dkv_tf32_wide_kernel; Tf32WidePlan): the D <= 128 plan keeps four
+// resident 64-row tiles (Q, Q lo, dO, dO lo), 192 / 256 KB at DP = 192 /
+// 256, and its 64 gradient columns a CTA would compute S and dP three or
+// four times over for one block of rows. Here one CTA of two warpgroups
+// takes a 64-row block and all DP columns. Its 64-row tiles stay raw f32,
+// the A operands of S and dP (S^T and dP^T in kernel B): each k-step's A
+// elements are loaded from the raw tile and split in registers with the
+// rounding above (tf32_wgmma.cuh:tf32_rs3_split, two k-steps a commit
+// group, each group waited on before its registers are reused); the
+// streamed tiles (16 rows, 8 at DP = 256) keep hi in place, lo and the
+// transposed copies in the work area. Warpgroup 0 computes S (S^T) while
+// warpgroup 1 computes dP (dP^T); the probabilities cross to warpgroup 1
+// through shared memory; in kernel A warpgroup 0 accumulates Y = sum e K
+// and warpgroup 1 X = sum e dP K (Y crosses at the end), in kernel B
+// warpgroup 0 dV and warpgroup 1 dK, each over all DP columns in one
+// accumulator with the three terms in it (two would not fit beside the
+// tile's products: DP/2 registers a thread each). Shared memory: kernel A
+// 203,904 / 201,792 bytes, kernel B 225,664 / 215,232. At (64, 512, 2,
+// 192) the two kernels take 2.905-2.907 ms against the CUDA-core kernels
+// they replaced at 18.27-18.40, the recompute at 4.60-4.69 and SDPA's
+// backward alone at 2.48-2.55 (examples/torch_attention_ab.py --kernel
+// wide_heads, H100); the S and dP products take 1.09 ms of kernel A's and
+// B's 2.86 and the split of the streamed tiles 0.55
+// (examples/torch_attention_backward.py --breakdown). At (64, 512, 1, 256)
+// the 8-row tiles leave the pair at 2.63, slower than the recompute's
+// 2.43-2.52.
 //
 // Semantics, every route:
 //   - an all-masked row (every bias -1e30) has equal logits, P = 1/S over
@@ -551,44 +569,6 @@ __device__ __forceinline__ void load_bias(uint32_t dst, const float* brow, int k
       asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(dst + 4 * j), "f"(-INFINITY) : "memory");
     }
   }
-}
-
-// N consecutive floats from shared memory (N in {1, 2, 4}, aligned to N).
-template <int N>
-__device__ __forceinline__ void lds(float (&dst)[N], const float* src) {
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(src);
-    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(src);
-    dst[0] = t.x; dst[1] = t.y;
-  } else {
-    dst[0] = src[0];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void sts(float* dst, const float (&src)[N]) {
-  if constexpr (N == 4) {
-    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
-  } else {
-    dst[0] = src[0];
-  }
-}
-
-// Reduce over the 8 threads of a row (lanes differing in their low 3 bits).
-__device__ __forceinline__ float row_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
 // ---- the tensor-core route: bf16/f16 at every D ----
@@ -1086,15 +1066,6 @@ struct Tf32Plan {
   static_assert((BT * 4) % 16 == 0 && kTile % 16 == 0 && kTTile % 16 == 0, "16-byte tiles");
 };
 
-// tf32(x) of cvt.rna for every x but a NaN: round half away from zero on
-// the magnitude (add half the weight of the 13 dropped bits, clear them);
-// carries into the exponent as the rounding does. A NaN may come out as
-// another value, but lo = tf32_rna(x - hi) is then a NaN, so a NaN input
-// still makes every product it enters a NaN.
-__device__ __forceinline__ uint32_t tf32_hi(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
 // An f32 K-major tile of R rows x DP columns at `at` split in place into
 // hi = tf32(x), with lo = tf32(x - hi) at `lo`. With kT, its columns
 // [c0, c0 + NC) also go transposed, hi to `t_hi` and lo to `t_lo`: a
@@ -1559,334 +1530,431 @@ mha_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k
     }
 }
 
-// ---- the FMA route: f32 at D 129-256 ----
+// ---- the 3xTF32 route above 128 columns: f32 at D 129-256 ----
 
-constexpr int kTX = 8;   // threads across a tile's columns and the output columns
-constexpr int kTY = 16;  // threads across rows
-
-// Geometry at padded head width DP: RM rows a thread, BR rows a CTA (query
-// rows in kernel A, key rows in kernel B), tiles of BC columns (keys in A,
-// queries in B), 4 a thread. Shared memory in floats, a transposed tile
-// (DP, R + 4) keeping rows 16-byte aligned:
-//   A: Q^T, dO^T (DP, RS); K^T, V^T (DP, CS); K (BC, DP); dS^T (BC, RS);
-//      the tile's key bias (BC);
-//   B: K^T, V^T (DP, RS); Q^T, dO^T (DP, CS); Q, dO (BC, DP); P^T, dS^T
-//      (BC, RS); the tile's m, l and Delta (BC each).
+// Streamed tiles' rows above DP = 128 (8 at DP = 256, for shared memory).
 template <int DP>
-struct FmaPlan {
-  static constexpr int RM = DP == 256 ? 2 : 4;
-  static constexpr int BR = kTY * RM;
-  static constexpr int BC = 4 * kTX;
-  static constexpr int RS = BR + 4;
-  static constexpr int CS = BC + 4;
-  static constexpr int CPT = DP / kTX;  // output columns a thread
-  static constexpr int VW = CPT < 4 ? CPT : 4;
-  static constexpr int CJ = CPT / VW;
-  static constexpr int kA_Ot = DP * RS, kA_Kt = 2 * DP * RS, kA_Vt = kA_Kt + DP * CS;
-  static constexpr int kA_K = kA_Vt + DP * CS, kA_Ds = kA_K + BC * DP, kA_B = kA_Ds + BC * RS;
-  static constexpr int kBytesA = (kA_B + BC) * 4;
-  static constexpr int kB_Vt = DP * RS, kB_Qt = 2 * DP * RS, kB_Ot = kB_Qt + DP * CS;
-  static constexpr int kB_Q = kB_Ot + DP * CS, kB_O = kB_Q + BC * DP, kB_P = kB_O + BC * DP;
-  static constexpr int kB_Ds = kB_P + BC * RS, kB_St = kB_Ds + BC * RS;
-  static constexpr int kBytesB = (kB_St + 3 * BC) * 4;
+constexpr int kBtWide = DP == 256 ? 8 : 16;
+// k-steps a commit group of the products whose A is split in registers
+constexpr int kSplitSteps = 2;
+
+// Geometry at DP = 192 / 256: one CTA of two warpgroups takes a 64-row
+// block and all DP gradient columns. The 64-row tiles stay raw f32 (no lo
+// tile): they are the A operands of S and dP (S^T and dP^T), each k-step's
+// A elements split in registers (tf32_rs3_split, the same rounding as
+// split_rows). Warpgroup 0 takes S (S^T), warpgroup 1 dP (dP^T), at once;
+// the probabilities cross to warpgroup 1 through shared memory; each
+// warpgroup then owns one gradient accumulator over all DP columns.
+//   A: Q | dO | 2 x (K, V, bias) | K lo, V lo, K^T, K^T lo | e, the rescale
+//      (warpgroup 0 -> 1), the row statistics at the end
+//   B: K | V | 2 x (Q, dO, m, 1/l, Delta) | Q lo, dO lo, Q^T, Q^T lo, dO^T,
+//      dO^T lo | P^T (warpgroup 0 -> 1)
+// Bytes at DP = 192 / 256: A 203,904 / 201,792, B 225,664 / 215,232.
+template <int DP>
+struct Tf32WidePlan {
+  static constexpr int BT = kBtWide<DP>;
+  static constexpr int kGroup = 8 * DP * 4;
+  static constexpr int kRowTile = kRows * DP * 4;
+  static constexpr int kTile = BT * DP * 4;  // a streamed tile, and its transpose
+  static constexpr int kStage0 = 2 * kRowTile;
+  static constexpr int kX = kRows * BT * 4;  // a tile's probabilities, one float a thread each
+  static constexpr int kStageA = 2 * kTile + BT * 4;
+  static constexpr int kLoA = kStage0 + kRingTf32 * kStageA;
+  static constexpr int kXA = kLoA + 4 * kTile;
+  static constexpr int kBytesA = kXA + kX + 2 * kThreads * 4 + 4 * kThreads * 4;
+  static constexpr int kStageB = 2 * kTile + 3 * BT * 4;
+  static constexpr int kLoB = kStage0 + kRingTf32 * kStageB;
+  static constexpr int kXB = kLoB + 6 * kTile;
+  static constexpr int kBytesB = kXB + kX;
   static_assert(kBytesA <= 232448 && kBytesB <= 232448, "shared memory of one block");
+  static_assert((BT * 4) % 16 == 0 && kTile % 128 == 0, "16-byte tiles");
 };
 
-// Rows [r0, r0 + R) of one head into shared memory, zero past S and D:
-// transposed (element (r, d) at dst[d * ld + r]) or row-major (at
-// dst[r * DP + d]).
-template <int DP, bool kTransposed>
-__device__ __forceinline__ void load_f32(float* dst, int ld, const float* src, long long HD,
-                                         int r0, int R, int S, int D, int tid) {
-  for (int i = tid; i < R * DP; i += kThreads) {
-    const int r = i / DP, d = i % DP, row = r0 + r;
-    const float x = (row < S && d < D) ? src[row * HD + d] : 0.f;
-    if constexpr (kTransposed) dst[d * ld + r] = x;
-    else dst[r * DP + d] = x;
-  }
-}
-
-// out[i][e] = sum over d < D of At[d][ty*RM + i] * Bt[d][4*tx + e]
-template <int RM>
-__device__ __forceinline__ void dot_tile(float (&out)[RM][4], const float* At, int as,
-                                         const float* Bt, int bs, int D, int ty, int tx) {
+// acc += A B over K/8 k-steps as 3xTF32 into one accumulator (lo*hi and
+// hi*lo, then hi*hi): A from registers (hi, lo), B the NCOLS columns of a
+// transposed tile of BT columns (hi at `bh`, lo at `blo`), as products of
+// 64 columns (a chunk's accumulators are acc[32 ch, 32 ch + 32); its 8-row
+// groups of the transposed tile 64 * BT * 4 bytes further on). No commit.
+template <int K, int BT, int NCOLS>
+__device__ __forceinline__ void tf32_rs3_cols(float (&acc)[NCOLS / 2], const uint32_t (&hi)[K / 2],
+                                              const uint32_t (&lo)[K / 2], uint32_t bh,
+                                              uint32_t blo) {
+  constexpr int G = 8 * BT * 4;
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+  for (int ch = 0; ch < NCOLS / 64; ++ch) {
+    float(&d)[32] = *reinterpret_cast<float(*)[32]>(&acc[32 * ch]);
+    const uint64_t db = smem_desc(bh + ch * 64 * BT * 4, 128, G);
+    const uint64_t dbl = smem_desc(blo + ch * 64 * BT * 4, 128, G);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) out[i][e] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[RM], bb[4];
-    lds<RM>(a, At + d * as + ty * RM);
-    lds<4>(bb, Bt + d * bs + 4 * tx);
+    for (int j = 0; j < K / 8; ++j) {
+      const uint32_t a[4] = {lo[4 * j], lo[4 * j + 1], lo[4 * j + 2], lo[4 * j + 3]};
+      wgmma_rs_tf32(d, a, db + 16 * j);
+    }
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int j = 0; j < K / 8; ++j) {
+      const uint32_t a[4] = {hi[4 * j], hi[4 * j + 1], hi[4 * j + 2], hi[4 * j + 3]};
+      wgmma_rs_tf32(d, a, dbl + 16 * j);
+    }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) out[i][e] = fmaf(a[i], bb[e], out[i][e]);
-  }
-}
-
-// acc[i][VW*cj + e] += sum over j < BC of Pt[j][ty*RM + i] * X[j][8*VW*cj + VW*tx + e]
-template <int DP>
-__device__ __forceinline__ void acc_tile(float (&acc)[FmaPlan<DP>::RM][FmaPlan<DP>::CPT],
-                                         const float* Pt, const float* X, int ty, int tx) {
-  using C = FmaPlan<DP>;
-#pragma unroll 4
-  for (int j = 0; j < C::BC; ++j) {
-    float p[C::RM];
-    lds<C::RM>(p, Pt + j * C::RS + ty * C::RM);
-#pragma unroll
-    for (int cj = 0; cj < C::CJ; ++cj) {
-      float x[C::VW];
-      lds<C::VW>(x, X + j * DP + 8 * C::VW * cj + C::VW * tx);
-#pragma unroll
-      for (int i = 0; i < C::RM; ++i)
-#pragma unroll
-        for (int e = 0; e < C::VW; ++e)
-          acc[i][C::VW * cj + e] = fmaf(p[i], x[e], acc[i][C::VW * cj + e]);
+    for (int j = 0; j < K / 8; ++j) {
+      const uint32_t a[4] = {hi[4 * j], hi[4 * j + 1], hi[4 * j + 2], hi[4 * j + 3]};
+      wgmma_rs_tf32(d, a, db + 16 * j);
     }
   }
 }
 
-// Rows [r0, r0 + BR) of a gradient, rows >= S and columns >= D not stored.
+// Kernel A above 128 columns: dQ (all DP columns) and the row statistics of
+// 64 query rows of one (b, h), in one pass over the key tiles, dQ by
+// linearity as (X - Delta Y) / l as mha_bwd_dq_tf32_kernel. Warpgroup 0
+// computes S, the running max, l and e = 2^(s - m) and accumulates Y =
+// sum e K; warpgroup 1 computes dP, takes e and the rescale from shared
+// memory, and accumulates X = sum e dP K and the sum of e * dP. X and Y
+// keep their three terms in one accumulator each (two would not fit in a
+// thread's registers beside the tile's products); Y crosses to warpgroup
+// 1 at the end.
 template <int DP>
-__device__ __forceinline__ void store_rows(float* dst,
-                                           const float (&acc)[FmaPlan<DP>::RM][FmaPlan<DP>::CPT],
-                                           long long HD, int r0, int S, int D, int ty, int tx) {
-  using C = FmaPlan<DP>;
-#pragma unroll
-  for (int i = 0; i < C::RM; ++i) {
-    const int row = r0 + ty * C::RM + i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int cj = 0; cj < C::CJ; ++cj)
-#pragma unroll
-      for (int e = 0; e < C::VW; ++e) {
-        const int d = 8 * C::VW * cj + C::VW * tx + e;
-        if (d < D) dst[row * HD + d] = acc[i][C::VW * cj + e];
-      }
-  }
-}
-
-// Kernel A on the CUDA cores: dQ and the row statistics (m, l, Delta) of
-// BR query rows of one (b, h).
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-mha_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ key_bias,
-                      const float* __restrict__ dout, float* __restrict__ dq,
-                      float* __restrict__ ws, int S, int H, int D, float scale) {
-  using C = FmaPlan<DP>;
-  constexpr int RM = C::RM, BC = C::BC;
-  extern __shared__ float4 smem4[];
+__global__ void __launch_bounds__(2 * kThreads, 1)
+mha_bwd_dq_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ key_bias,
+                            const float* __restrict__ dout, float* __restrict__ dq,
+                            float* __restrict__ ws, int S, int H, int D, int gran, float scale,
+                            float dscale) {
+  using P = Tf32WidePlan<DP>;
+  constexpr int BT = P::BT;
+  constexpr int kQ = 0, kO = P::kRowTile;
+  constexpr int kKlo = P::kLoA, kVlo = kKlo + P::kTile, kKT = kVlo + P::kTile;
+  constexpr int kKTlo = kKT + P::kTile, kXe = P::kXA, kXa = kXe + P::kX;
+  constexpr int kXs = kXa + 2 * kThreads * 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
   allow_dependent_launch();
-  float* sQt = reinterpret_cast<float*>(smem4);
-  float* sOt = sQt + C::kA_Ot;
-  float* sKt = sQt + C::kA_Kt;
-  float* sVt = sQt + C::kA_Vt;
-  float* sK = sQt + C::kA_K;
-  float* sDs = sQt + C::kA_Ds;
-  float* sB = sQt + C::kA_B;
 
-  const int r0 = blockIdx.x * C::BR, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / kThreads, wtid = tid % kThreads;
+  const int warp = wtid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
   const long long HD = (long long)H * D;
   const long long head = (long long)b * S * HD + (long long)h * D;
+  const float* brow = key_bias + (long long)b * S;
   const long long bhs = (long long)gridDim.z * H * S;
-  float* stats = ws + ((long long)b * H + h) * S;
-  const int ntiles = (S + BC - 1) / BC;
+  float* stats = ws + ((long long)b * H + h) * S;  // m; 1/l and Delta bhs apart
+  const int ntiles = (S + BT - 1) / BT;
+  float* xe = reinterpret_cast<float*>(smem + kXe);
+  float* xa = reinterpret_cast<float*>(smem + kXa);
+  float* xs = reinterpret_cast<float*>(smem + kXs);
 
-  load_f32<DP, true>(sQt, C::RS, q + head, HD, r0, C::BR, S, D, tid);
-  load_f32<DP, true>(sOt, C::RS, dout + head, HD, r0, C::BR, S, D, tid);
-
-  auto load_tile = [&](int t, bool pass2) {
-    const int k0 = t * BC;
-    load_f32<DP, true>(sKt, C::CS, k + head, HD, k0, BC, S, D, tid);
-    load_f32<DP, true>(sVt, C::CS, v + head, HD, k0, BC, S, D, tid);
-    if (pass2) load_f32<DP, false>(sK, 0, k + head, HD, k0, BC, S, D, tid);
-    for (int j = tid; j < BC; j += kThreads)
-      sB[j] = k0 + j < S ? key_bias[(long long)b * S + k0 + j] : -INFINITY;
-  };
-  // the plain version's logits: (q . k) * scale, then + bias, each rounded
-  auto logits = [&](float (&s)[RM][4]) {
-    dot_tile<RM>(s, sQt, C::RS, sKt, C::CS, D, ty, tx);
-    float bb[4];
-    lds<4>(bb, sB + 4 * tx);
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = __fadd_rn(__fmul_rn(s[i][e], scale), bb[e]);
-  };
-
-  // dP = dO V^T of this tile
-  auto grad_logits = [&](float (&dp)[RM][4]) {
-    dot_tile<RM>(dp, sOt, C::RS, sVt, C::CS, D, ty, tx);
-  };
-
-  // ---- pass 1: running row max, sum of e = exp(s - m), sum of e * dP ----
-  float m[RM], l[RM], dl[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = -INFINITY;
-    l[i] = dl[i] = 0.f;
-  }
-  for (int t = 0; t < ntiles; ++t) {
-    __syncthreads();  // the previous tile is read (and, before tile 0, Q and dO are stored)
-    load_tile(t, false);
+  if (D < DP) {  // the pad columns, zeroed once (copies fill the rest)
+    for (int i = tid; i < P::kBytesA / 16; i += 2 * kThreads)
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
-    float s[RM][4], dp[RM][4];
-    logits(s);
-    grad_logits(dp);
+  }
+
+  // warpgroup 0 copies K and the bias, warpgroup 1 V
+  auto load_step = [&](int u) {
+    const uint32_t st = base + P::kStage0 + (u % kRingTf32) * P::kStageA;
+    if (wg == 0) {
+      load_rows<float, DP, BT>(gran, st, k + head, HD, u * BT, S, D, wtid);
+      load_bias<BT>(st + 2 * P::kTile, brow, u * BT, S, wtid);
+    } else {
+      load_rows<float, DP, BT>(gran, st + P::kTile, v + head, HD, u * BT, S, D, wtid);
+    }
+  };
+  load_rows<float, DP, kRows>(gran, base + (wg ? kO : kQ), (wg ? dout : q) + head, HD,
+                              qt * kRows, S, D, wtid);
+  load_step(0);
+  cp_async_commit();
+
+  // warpgroup 0: Y, row max and sum of e; warpgroup 1: X, sum of e * dP
+  float acc[DP / 2];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float mx = m[i];
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int u = 0; u < ntiles; ++u) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();  // tile u is in; every thread is done with tile u - 1
+    if (u + 1 < ntiles) load_step(u + 1);
+    cp_async_commit();
+    const int st_off = P::kStage0 + (u % kRingTf32) * P::kStageA;
+    if (wg == 0)
+      split_rows<BT, DP, DP, true>(smem + st_off, smem + kKlo, smem + kKT, smem + kKTlo, 0, wtid);
+    else
+      split_rows<BT, DP, DP, false>(smem + st_off + P::kTile, smem + kVlo, nullptr, nullptr, 0,
+                                    wtid);
+    fence_async_smem();
+    __syncthreads();  // hi and lo of this tile are stored
+
+    // warpgroup 0: S = Q K^T; warpgroup 1: dP = dO V^T
+    float x[BT / 2], x_lo[BT / 2];
+    {
+      constexpr int G = P::kGroup;
+      const uint32_t bh = base + st_off + (wg ? P::kTile : 0), blo = base + (wg ? kVlo : kKlo);
+      tf32_rs3_split<DP, kSplitSteps>(x, x_lo, smem + (wg ? kO : kQ), smem_desc(bh, 128, G),
+                                      smem_desc(blo, 128, G), tid);
+      wgmma_wait<0>();
+      fence_regs(x);
+      fence_regs(x_lo);
+    }
+    float e[BT / 2], a0, a1;
+    if (wg == 0) {
+      // logits in log2 units, (q . k) * scale*log2(e) + bias*log2(e); the
+      // running max, l rescaled to it; tile 0 holds key 0 (finite bias): the
+      // max is finite, 2^(-inf - mx) = 0
+      const float* bt = reinterpret_cast<const float*>(smem + st_off + 2 * P::kTile);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) mx = fmaxf(mx, s[i][e]);
-      mx = row_max(mx);
-      // tile 0 holds key 0 (finite bias): mx is finite, exp(-inf - mx) = 0
-      const float a = expf(m[i] - mx);
-      l[i] *= a;
-      dl[i] *= a;
-      m[i] = mx;
+      for (int i = 0; i < BT / 8; ++i) {
+        const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * i + 2 * c);
+        const float b0 = bb.x * kLog2e, b1 = bb.y * kLog2e;
+        e[4 * i + 0] = fmaf(x[4 * i + 0] + x_lo[4 * i + 0], scale, b0);
+        e[4 * i + 1] = fmaf(x[4 * i + 1] + x_lo[4 * i + 1], scale, b1);
+        e[4 * i + 2] = fmaf(x[4 * i + 2] + x_lo[4 * i + 2], scale, b0);
+        e[4 * i + 3] = fmaf(x[4 * i + 3] + x_lo[4 * i + 3], scale, b1);
+      }
+      float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = expf(s[i][e] - mx);
-        l[i] += x;
-        dl[i] = fmaf(x, dp[i][e], dl[i]);
+      for (int i = 0; i < BT / 8; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(e[4 * i + 0], e[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(e[4 * i + 2], e[4 * i + 3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      a0 = ex2_approx(m0 - mx0);
+      a1 = ex2_approx(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) {
+        e[i] = ex2_approx(e[i] - ((i & 2) ? m1 : m0));
+        if (i & 2) l1 += e[i];
+        else l0 += e[i];
+        xe[i * kThreads + wtid] = e[i];
+      }
+      xa[wtid] = a0;
+      xa[kThreads + wtid] = a1;
+    }
+    __syncthreads();  // e and the rescale of tile u are in shared memory
+    if (wg == 1) {
+      // f = e * dP and its row sums (l0, l1 hold them in warpgroup 1)
+      a0 = xa[wtid];
+      a1 = xa[kThreads + wtid];
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) {
+        e[i] = xe[i * kThreads + wtid] * (x[i] + x_lo[i]);
+        if (i & 2) l1 += e[i];
+        else l0 += e[i];
       }
     }
-  }
-  // the row sums, and Delta = sum_k P dP
+    // acc = acc * 2^(m_old - m_new) + (e or f) K, K^T the B operand
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    l[i] = row_sum(l[i]);
-    dl[i] = __fdiv_rn(row_sum(dl[i]), l[i]);
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= (i & 2) ? a1 : a0;
+    uint32_t eh[BT / 2], el[BT / 2];
+    tf32_frags<BT>(e, eh, el);
+    fence_regs(acc);
+    fence_regs(eh);
+    fence_regs(el);
+    wgmma_fence();
+    tf32_rs3_cols<BT, BT, DP>(acc, eh, el, base + kKT, base + kKTlo);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
   }
 
-  // ---- pass 2: dS = P (dP - Delta) * scale; dQ += dS K ----
-  float acc[RM][C::CPT];
+  // Y and the row max and sum cross to warpgroup 1 (Q's tile is free: only
+  // warpgroup 0 read it); there Delta = sum_k P dP and dQ = (X - Delta Y)
+  // / l * scale, rows >= S and columns >= D not stored, and the row
+  // statistics by one thread of each quad
+  float* xy = reinterpret_cast<float*>(smem + kQ);
+  if (wg == 0) {
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+    for (int i = 0; i < DP / 2; ++i) xy[i * kThreads + wtid] = acc[i];
+    xs[wtid] = m0;
+    xs[kThreads + wtid] = m1;
+    xs[2 * kThreads + wtid] = l0;
+    xs[3 * kThreads + wtid] = l1;
+  }
+  __syncthreads();
+  if (wg == 0) return;
+  m0 = xs[wtid];
+  m1 = xs[kThreads + wtid];
+  const float i0 = 1.f / xs[2 * kThreads + wtid], i1 = 1.f / xs[3 * kThreads + wtid];
+  const float dl0 = quad_sum(l0) * i0, dl1 = quad_sum(l1) * i1;
+  const int r0 = qt * kRows + warp * 16 + g, r1 = r0 + 8;
 #pragma unroll
-    for (int c = 0; c < C::CPT; ++c) acc[i][c] = 0.f;
-  for (int t = 0; t < ntiles; ++t) {
-    __syncthreads();
-    load_tile(t, true);
-    __syncthreads();
-    float s[RM][4], dp[RM][4];
-    logits(s);
-    grad_logits(dp);
+  for (int i = 0; i < DP / 8; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float p = __fdiv_rn(expf(s[i][e] - m[i]), l[i]);
-        x[i] = __fmul_rn(p * (dp[i][e] - dl[i]), scale);
-      }
-      sts<RM>(sDs + (4 * tx + e) * C::RS + ty * RM, x);
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int d = 8 * i + 2 * c + e2, j0 = 4 * i + e2, j1 = j0 + 2;
+      if (d >= D) continue;
+      if (r0 < S) dq[head + r0 * HD + d] = (acc[j0] - dl0 * xy[j0 * kThreads + wtid]) * (i0 * dscale);
+      if (r1 < S) dq[head + r1 * HD + d] = (acc[j1] - dl1 * xy[j1 * kThreads + wtid]) * (i1 * dscale);
     }
-    __syncthreads();
-    acc_tile<DP>(acc, sDs, sK, ty, tx);
-  }
-
-  store_rows<DP>(dq + head, acc, HD, r0, S, D, ty, tx);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int row = r0 + ty * RM + i;
-      if (row < S) {
-        stats[row] = m[i];
-        stats[bhs + row] = l[i];
-        stats[2 * bhs + row] = dl[i];
-      }
+  if (c == 0) {
+    if (r0 < S) {
+      stats[r0] = m0;
+      stats[bhs + r0] = i0;
+      stats[2 * bhs + r0] = dl0;
+    }
+    if (r1 < S) {
+      stats[r1] = m1;
+      stats[bhs + r1] = i1;
+      stats[2 * bhs + r1] = dl1;
     }
   }
 }
 
-// Kernel B on the CUDA cores: dK and dV of BR key rows of one (b, h), over
-// the query tiles with their stored statistics.
+// Kernel B above 128 columns: dK and dV (all DP columns) of 64 key rows of
+// one (b, h), over the query tiles with their stored statistics.
+// Warpgroup 0 computes S^T and P^T and accumulates dV = sum P^T dO;
+// warpgroup 1 computes dP^T, takes P^T from shared memory and accumulates
+// dK = sum dS^T Q, dS^T = P^T (dP^T - Delta). One accumulator each, the
+// three terms in it.
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-mha_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, const float* __restrict__ key_bias,
-                       const float* __restrict__ dout, float* __restrict__ dk,
-                       float* __restrict__ dv, const float* __restrict__ ws, int S, int H, int D,
-                       float scale) {
-  using C = FmaPlan<DP>;
-  constexpr int RM = C::RM, BC = C::BC;
-  extern __shared__ float4 smem4[];
-  float* sKt = reinterpret_cast<float*>(smem4);
-  float* sVt = sKt + C::kB_Vt;
-  float* sQt = sKt + C::kB_Qt;
-  float* sOt = sKt + C::kB_Ot;
-  float* sQ = sKt + C::kB_Q;
-  float* sO = sKt + C::kB_O;
-  float* sP = sKt + C::kB_P;
-  float* sDs = sKt + C::kB_Ds;
-  float* sSt = sKt + C::kB_St;  // m | l | Delta
+__global__ void __launch_bounds__(2 * kThreads, 1)
+mha_bwd_dkv_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ key_bias,
+                             const float* __restrict__ dout, float* __restrict__ dk,
+                             float* __restrict__ dv, const float* __restrict__ ws, int S, int H,
+                             int D, int gran, float scale, float dscale) {
+  using P = Tf32WidePlan<DP>;
+  constexpr int BT = P::BT;
+  constexpr int kK = 0, kV = P::kRowTile;
+  constexpr int kQlo = P::kLoB, kOlo = kQlo + P::kTile, kQT = kOlo + P::kTile;
+  constexpr int kQTlo = kQT + P::kTile, kOT = kQTlo + P::kTile, kOTlo = kOT + P::kTile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
 
-  const int r0 = blockIdx.x * C::BR, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / kThreads, wtid = tid % kThreads;
+  const int warp = wtid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
   const long long HD = (long long)H * D;
   const long long head = (long long)b * S * HD + (long long)h * D;
   const long long bhs = (long long)gridDim.z * H * S;
   const float* stats = ws + ((long long)b * H + h) * S;
-  const int ntiles = (S + BC - 1) / BC;
+  const int ntiles = (S + BT - 1) / BT;
+  float* xp = reinterpret_cast<float*>(smem + P::kXB);
 
-  load_f32<DP, true>(sKt, C::RS, k + head, HD, r0, C::BR, S, D, tid);
-  load_f32<DP, true>(sVt, C::RS, v + head, HD, r0, C::BR, S, D, tid);
-  float kb[RM];  // this thread's key rows' biases, -inf past S
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = r0 + ty * RM + i;
-    kb[i] = row < S ? key_bias[(long long)b * S + row] : -INFINITY;
-  }
-  wait_for_prior_grid();  // kernel A's row statistics
-
-  float acc_k[RM][C::CPT], acc_v[RM][C::CPT];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int c = 0; c < C::CPT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int q0 = t * BC;
-    __syncthreads();  // the previous tile is read
-    load_f32<DP, true>(sQt, C::CS, q + head, HD, q0, BC, S, D, tid);
-    load_f32<DP, true>(sOt, C::CS, dout + head, HD, q0, BC, S, D, tid);
-    load_f32<DP, false>(sQ, 0, q + head, HD, q0, BC, S, D, tid);
-    load_f32<DP, false>(sO, 0, dout + head, HD, q0, BC, S, D, tid);
-    for (int j = tid; j < 3 * BC; j += kThreads) {
-      const int which = j / BC, row = q0 + j % BC;
-      sSt[j] = row < S ? stats[which * bhs + row] : (which == 1 ? 1.f : 0.f);
-    }
+  if (D < DP) {  // the pad columns, zeroed once (copies fill the rest)
+    for (int i = tid; i < P::kBytesB / 16; i += 2 * kThreads)
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
-    float s[RM][4], dp[RM][4];
-    dot_tile<RM>(s, sKt, C::RS, sQt, C::CS, D, ty, tx);
-    dot_tile<RM>(dp, sVt, C::RS, sOt, C::CS, D, ty, tx);
+  }
+
+  // warpgroup 0 copies Q and the statistics, warpgroup 1 dO
+  auto load_step = [&](int u) {
+    const uint32_t st = base + P::kStage0 + (u % kRingTf32) * P::kStageB;
+    const int q0 = u * BT;
+    if (wg == 0) {
+      load_rows<float, DP, BT>(gran, st, q + head, HD, q0, S, D, wtid);
+      load_stats<BT, kThreads>(st + 2 * P::kTile, stats, bhs, q0, S, wtid);
+    } else {
+      load_rows<float, DP, BT>(gran, st + P::kTile, dout + head, HD, q0, S, D, wtid);
+    }
+  };
+  // this thread's key rows and their biases in log2 units (-inf past S)
+  const int r0 = kt * kRows + warp * 16 + g, r1 = r0 + 8;
+  const float kb0 = r0 < S ? key_bias[(long long)b * S + r0] * kLog2e : -INFINITY;
+  const float kb1 = r1 < S ? key_bias[(long long)b * S + r1] * kLog2e : -INFINITY;
+  // K and V in before kernel A's statistics are waited on
+  load_rows<float, DP, kRows>(gran, base + (wg ? kV : kK), (wg ? v : k) + head, HD, kt * kRows,
+                              S, D, wtid);
+  cp_async_commit();
+  wait_for_prior_grid();
+  load_step(0);
+  cp_async_commit();
+
+  // warpgroup 0: dV; warpgroup 1: dK
+  float acc[DP / 2];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 4 * tx + e;
-      const bool in = q0 + col < S;  // query rows >= S: P = 0
-      const float mm = sSt[col], ll = sSt[BC + col], dd = sSt[2 * BC + col];
-      float pr[RM], x[RM];
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  for (int u = 0; u < ntiles; ++u) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    if (u + 1 < ntiles) load_step(u + 1);
+    cp_async_commit();
+    const int st_off = P::kStage0 + (u % kRingTf32) * P::kStageB;
+    const float* sm = reinterpret_cast<const float*>(smem + st_off + 2 * P::kTile);
+    if (wg == 0)
+      split_rows<BT, DP, DP, true>(smem + st_off, smem + kQlo, smem + kQT, smem + kQTlo, 0, wtid);
+    else
+      split_rows<BT, DP, DP, true>(smem + st_off + P::kTile, smem + kOlo, smem + kOT,
+                                   smem + kOTlo, 0, wtid);
+    fence_async_smem();
+    __syncthreads();
+
+    // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T
+    float x[BT / 2], x_lo[BT / 2];
+    {
+      constexpr int G = P::kGroup;
+      const uint32_t bh = base + st_off + (wg ? P::kTile : 0), blo = base + (wg ? kOlo : kQlo);
+      tf32_rs3_split<DP, kSplitSteps>(x, x_lo, smem + (wg ? kV : kK), smem_desc(bh, 128, G),
+                                      smem_desc(blo, 128, G), tid);
+      wgmma_wait<0>();
+      fence_regs(x);
+      fence_regs(x_lo);
+    }
+    float pt[BT / 2];
+    if (wg == 0) {
+      // P^T, each query column with its own statistics
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float logit = __fadd_rn(__fmul_rn(s[i][e], scale), kb[i]);
-        pr[i] = in ? __fdiv_rn(expf(logit - mm), ll) : 0.f;
-        x[i] = __fmul_rn(pr[i] * (dp[i][e] - dd), scale);
+      for (int i = 0; i < BT / 8; ++i) {
+        const int col = 8 * i + 2 * c;
+        const float2 mm = *reinterpret_cast<const float2*>(sm + col);
+        const float2 il = *reinterpret_cast<const float2*>(sm + BT + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool odd = e & 1;
+          const float logit = fmaf(x[4 * i + e] + x_lo[4 * i + e], scale, e < 2 ? kb0 : kb1);
+          pt[4 * i + e] = ex2_approx(logit - (odd ? mm.y : mm.x)) * (odd ? il.y : il.x);
+          xp[(4 * i + e) * kThreads + wtid] = pt[4 * i + e];
+        }
       }
-      sts<RM>(sP + col * C::RS + ty * RM, pr);
-      sts<RM>(sDs + col * C::RS + ty * RM, x);
     }
-    __syncthreads();
-    acc_tile<DP>(acc_v, sP, sO, ty, tx);
-    acc_tile<DP>(acc_k, sDs, sQ, ty, tx);
+    __syncthreads();  // P^T of tile u is in shared memory
+    if (wg == 1) {
+      // dS^T = P^T (dP^T - Delta)
+#pragma unroll
+      for (int i = 0; i < BT / 8; ++i) {
+        const float2 dd = *reinterpret_cast<const float2*>(sm + 2 * BT + 8 * i + 2 * c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pt[4 * i + e] = xp[(4 * i + e) * kThreads + wtid] *
+                          (x[4 * i + e] + x_lo[4 * i + e] - ((e & 1) ? dd.y : dd.x));
+      }
+    }
+    // warpgroup 0: dV += P^T dO (dO^T the B operand); 1: dK += dS^T Q (Q^T)
+    uint32_t ph[BT / 2], pl[BT / 2];
+    tf32_frags<BT>(pt, ph, pl);
+    fence_regs(acc);
+    fence_regs(ph);
+    fence_regs(pl);
+    wgmma_fence();
+    tf32_rs3_cols<BT, BT, DP>(acc, ph, pl, base + (wg ? kQT : kOT), base + (wg ? kQTlo : kOTlo));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
   }
 
-  store_rows<DP>(dk + head, acc_k, HD, r0, S, D, ty, tx);
-  store_rows<DP>(dv + head, acc_v, HD, r0, S, D, ty, tx);
+  // dV = acc (warpgroup 0), dK = acc * scale (warpgroup 1); key rows >= S
+  // and columns >= D not stored
+  float* out = wg ? dk : dv;
+  const float mul = wg ? dscale : 1.f;
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = 8 * i + 2 * c + e;
+      if (d >= D) continue;
+      if (r0 < S) out[head + r0 * HD + d] = acc[4 * i + e] * mul;
+      if (r1 < S) out[head + r1 * HD + d] = acc[4 * i + 2 + e] * mul;
+    }
 }
 
 // ---- launches ----
@@ -1933,6 +2001,10 @@ inline int granule(const Args& a, size_t itemsize) {
   return (int)(w & (~w + 1));
 }
 
+// the padded head width of the instance the last call launched (host side;
+// read by rrt_mha_bwd_last_dp)
+int g_last_dp = 0;
+
 template <typename T, int DP>
 cudaError_t launch_tc(const Args& a) {
   using P = BwdPlan<T, DP>;
@@ -1953,6 +2025,7 @@ cudaError_t launch_tc(const Args& a) {
       q, k, v, a.bias, dout, static_cast<T*>(a.dq), a.ws, a.S, a.H, a.D, gran, scale, dscale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  g_last_dp = DP;
   return launch_after(kb, grid_b, kThreads * P::WGB, P::kBytesB, a.stream, q, k, v, a.bias, dout,
                       static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.ws, a.S, a.H, a.D, gran,
                       scale, dscale);
@@ -1978,31 +2051,36 @@ cudaError_t launch_tf32(const Args& a) {
                                                 a.ws, a.S, a.H, a.D, gran, scale, dscale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  g_last_dp = DP;
   return launch_after(kb, grid, kThreads, PB::kBytesB, a.stream, q, k, v, a.bias, dout,
                       static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.ws, a.S, a.H, a.D,
                       gran, scale, dscale);
 }
 
-cudaError_t launch_fma(const Args& a) {
-  using C = FmaPlan<kMaxHeadDim>;
-  auto ka = mha_bwd_dq_fma_kernel<kMaxHeadDim>;
-  auto kb = mha_bwd_dkv_fma_kernel<kMaxHeadDim>;
-  cudaError_t err = allow_smem(ka, C::kBytesA);
-  if (err == cudaSuccess) err = allow_smem(kb, C::kBytesB);
+template <int DP>
+cudaError_t launch_tf32_wide(const Args& a) {
+  using P = Tf32WidePlan<DP>;
+  auto ka = mha_bwd_dq_tf32_wide_kernel<DP>;
+  auto kb = mha_bwd_dkv_tf32_wide_kernel<DP>;
+  cudaError_t err = allow_smem(ka, P::kBytesA);
+  if (err == cudaSuccess) err = allow_smem(kb, P::kBytesB);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + C::BR - 1) / C::BR, a.H, a.B);
-  const float scale = 1.0f / sqrtf((float)a.D);  // the plain version's f32 1/sqrt(d)
+  const int gran = granule(a, sizeof(float));
+  const dim3 grid((a.S + kRows - 1) / kRows, a.H, a.B);
+  const float scale = kLog2e / sqrtf((float)a.D), dscale = 1.0f / sqrtf((float)a.D);
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
   const float* dout = static_cast<const float*>(a.dout);
-  ka<<<grid, kThreads, C::kBytesA, a.stream>>>(q, k, v, a.bias, dout, static_cast<float*>(a.dq),
-                                                a.ws, a.S, a.H, a.D, scale);
+  ka<<<grid, 2 * kThreads, P::kBytesA, a.stream>>>(q, k, v, a.bias, dout,
+                                                   static_cast<float*>(a.dq), a.ws, a.S, a.H,
+                                                   a.D, gran, scale, dscale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_after(kb, grid, kThreads, C::kBytesB, a.stream, q, k, v, a.bias, dout,
+  g_last_dp = DP;
+  return launch_after(kb, grid, 2 * kThreads, P::kBytesB, a.stream, q, k, v, a.bias, dout,
                       static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.ws, a.S, a.H, a.D,
-                      scale);
+                      gran, scale, dscale);
 }
 
 template <typename T>
@@ -2019,7 +2097,8 @@ cudaError_t dispatch_d(const Args& a) {
     if (a.D <= 32) return launch_tf32<32>(a);
     if (a.D <= 64) return launch_tf32<64>(a);
     if (a.D <= 128) return launch_tf32<128>(a);
-    return launch_fma(a);
+    if (a.D <= 192) return launch_tf32_wide<192>(a);
+    return launch_tf32_wide<256>(a);
   }
 }
 
@@ -2029,8 +2108,8 @@ cudaError_t dispatch_d(const Args& a) {
 // gradient of the forward's output), dq, dk, dv: (B, S, H*D) contiguous;
 // key_bias (B, S) f32 contiguous; ws: 3 * B * H * S floats of scratch.
 // 1 <= D <= 256. Route (ops/attention.py:backward_route): bf16/f16 on
-// wgmma at every D; f32 as 3xTF32 at D <= 128, on the CUDA cores at D
-// 129-256. Returns a cudaError_t (0 = launched).
+// wgmma at every D; f32 as 3xTF32 on wgmma at every D. Returns a
+// cudaError_t (0 = launched).
 extern "C" int rrt_mha_bwd(int dtype, const void* q, const void* k, const void* v,
                            const void* key_bias, const void* dout, void* dq, void* dk, void* dv,
                            void* ws, int B, int S, int H, int D, void* stream) {
@@ -2045,3 +2124,7 @@ extern "C" int rrt_mha_bwd(int dtype, const void* q, const void* k, const void* 
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// The padded head width DP of the kernels (route, DP) that the last
+// rrt_mha_bwd call launched (0 before any).
+extern "C" int rrt_mha_bwd_last_dp() { return g_last_dp; }

@@ -29,10 +29,10 @@
 //     0.030 ms; the two passes' three products, 38.7 GFLOP at 989 TFLOP/s,
 //     0.039 ms.
 //
-// Design (mha_tc_kernel): bf16/f16 at every D, f32 at D <= 128. One CTA of
-// one warpgroup (128 threads; two above DP = 128, below) takes 64 query
-// rows of one (b, h) a warpgroup and walks the keys in tiles of BK = 64 (32
-// in f32 at D > 64, for shared memory):
+// Design (mha_tc_kernel): every dtype and D. One CTA of one warpgroup (128
+// threads; two above DP = 128, below) takes 64 query rows of one (b, h) a
+// warpgroup and walks the keys in tiles of BK = 64 (32 in f32 at D > 32, 16
+// in f32 above DP = 128, for shared memory):
 //   - Tiles live in shared memory in wgmma's canonical no-swizzle layout:
 //     core matrices of 8 rows x 16 bytes, 128 contiguous bytes each, the
 //     16-byte column chunks of an 8-row group 128 bytes apart, the groups
@@ -97,11 +97,26 @@
 //     search's fused scores by 1.1e-4. The logits keep the plain version's op order: (q . k) * scale, then
 //     + bias, each rounded alone, expf (not ex2.approx) and IEEE divisions.
 //
-// Design for f32 at D in 129-256 (mha_fma_kernel): 3xTF32 keeps Q and its
-// lo half resident, 128 KB at DP = 256 before any key tile, so these widths
-// stay on the CUDA cores in full f32 FMA with synchronous loads: 128
-// threads as 16 x 8, 32 query rows a CTA, 32-key tiles in shared memory,
-// the plain version's op order.
+//   - f32 at D 129-256 (DP 192 or 256): Q and its lo half resident would
+//     take 96 / 128 KB a warpgroup, so Q stays raw f32 and each k-step of
+//     S = Q K^T loads its A elements from the raw tile (32 consecutive
+//     words a warp load, no bank conflict) and splits them in registers,
+//     hi = tf32(x) by adding half the dropped bits' weight and clearing
+//     them (cvt.rna's result but for a NaN) and lo = cvt.rna(x - hi): the
+//     same three RS products (tf32_wgmma.cuh:tf32_rs3_split), two k-steps a
+//     commit group, each group waited on before its A registers are reused.
+//     Two warpgroups a CTA, 64 query rows each, share one ring of 16-key
+//     tiles (warpgroup 0 copies and splits K, 1 transposes and splits V;
+//     172,160 / 229,504 bytes, one CTA an SM). O takes DP/2 registers a
+//     thread, so a tile's P V is taken in chunks of 64 columns (kPvCols),
+//     each in its own pv / pv_lo accumulators of 32 registers, added to O
+//     by FMA before the next chunk is issued: the accumulators stay apart
+//     as the accuracy needs. At (64, 512, 2, 192) this takes 0.661-0.663
+//     ms against the CUDA-core kernel it replaced at 3.63-3.64, its plain
+//     version at 1.49-1.52 and SDPA at 0.76-0.81 (examples/
+//     torch_attention_ab.py --kernel wide_heads, parent and change in one
+//     call, H100); one warpgroup a CTA, each copying and splitting every
+//     tile itself, takes 1.057 (examples/torch_generic_breakdown.py).
 //
 // Semantics, every route:
 //   - an all-masked row (every bias -1e30) comes out uniform over the S
@@ -429,27 +444,40 @@ __device__ __forceinline__ void pv_wide(float (&d)[M], const uint32_t (&a)[4], u
 // DP columns is R/8 groups of kGroup bytes; row r, 16-byte chunk c at
 // (r / 8) * kGroup + c * 128 + (r % 8) * 16. Q (a 64-row tile a warpgroup)
 // | Q lo (f32) | kStages x (K, V or V^T, bias) | K lo, V^T lo (f32). WG
-// warpgroups a CTA share the ring, each with its own 64 query rows.
+// warpgroups a CTA share the ring, each with its own 64 query rows. f32
+// above DP = 128 (kSplitQ) keeps Q raw, with no Q lo: each k-step of S
+// splits its A elements in registers (tf32_rs3_split); two warpgroups a
+// CTA on 16-key tiles, 172,160 bytes at DP = 192, 229,504 at DP = 256.
 template <typename T, int DP>
 struct Plan {
   static constexpr bool kTF32 = std::is_same<T, float>::value;
   static constexpr bool kWide = !kTF32 && DP > 128;
+  static constexpr bool kSplitQ = kTF32 && DP > 128;
   static constexpr int E = sizeof(T);
-  static constexpr int WG = kWide ? 2 : 1;
+  static constexpr int WG = kWide || kSplitQ ? 2 : 1;
   static constexpr int kCtaThreads = WG * kThreads;
-  static constexpr int BK = (kTF32 && DP >= 64) ? 32 : 64;  // keys a tile
+  // keys a tile
+  static constexpr int BK = kSplitQ ? 16 : (kTF32 && DP >= 64) ? 32 : 64;
   static constexpr int kGroup = 8 * DP * E;                 // Q, K (V: 16-bit) row groups
   static constexpr int kQBytes = kRows * DP * E;
   static constexpr int kTileBytes = BK * DP * E;
   static constexpr int kStageBytes = 2 * kTileBytes + BK * 4;
   static constexpr int kQ = 0;
   static constexpr int kQlo = WG * kQBytes;
-  static constexpr int kStage0 = kQlo + (kTF32 ? kQBytes : 0);
+  static constexpr int kStage0 = kQlo + (kTF32 && !kSplitQ ? kQBytes : 0);
   static constexpr int kKlo = kStage0 + kStages * kStageBytes;
   static constexpr int kVlo = kKlo + kTileBytes;
   static constexpr int kBytes = kTF32 ? kVlo + kTileBytes : kKlo;
   static_assert(kTileBytes % 2048 == 0 && kQBytes % 2048 == 0, "split loop granularity");
+  static_assert(kBytes <= 232448, "shared memory of one block");
 };
+
+// f32 above DP = 128: the tile's P V in chunks of this many columns, each
+// in accumulators of its own (two of 32 registers a thread), so that P V's
+// accumulators and O (DP/2) fit in a thread's 255 registers
+constexpr int kPvCols = 64;
+// k-steps a commit group of S = Q K^T where Q is split in registers
+constexpr int kSplitSteps = 2;
 
 // Rows [r0, r0 + R) of one head (row stride HD elements from `src`, the
 // head's row 0) into a K-major tile at `dst`, in G-byte granules; rows >= S
@@ -602,7 +630,12 @@ mha_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const uint32_t st = base + P::kStage0 + (u % kStages) * P::kStageBytes;
     const int k0 = (u >= ntiles ? u - ntiles : u) * BK;
     load_rows<T, DP, RW>(gran, st + rows_at, k + head, HD, k0 + wg * RW, S, D, wtid);
-    if constexpr (kTF32) {
+    if constexpr (kTF32 && WG > 1) {
+      // each warpgroup transposes half of V's columns
+      constexpr int H2 = DP / 2;
+      load_vt<H2, BK>(st + P::kTileBytes + wg * (H2 / 8) * (8 * BK * 4), v + head + wg * H2, HD,
+                      k0, S, D - wg * H2, wtid);
+    } else if constexpr (kTF32) {
       load_vt<DP, BK>(st + P::kTileBytes, v + head, HD, k0, S, D, tid);
     } else {
       if (u >= ntiles)
@@ -634,9 +667,14 @@ mha_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const uint32_t kt = base + st_off, vt = kt + P::kTileBytes;
     const float* bt = reinterpret_cast<const float*>(smem + st_off + 2 * P::kTileBytes);
     if constexpr (kTF32) {
-      if (u == 0) split_tf32<P::kQBytes>(smem + P::kQ, smem + P::kQlo, tid);
-      split_tf32<P::kTileBytes>(smem + st_off, smem + P::kKlo, tid);
-      split_tf32<P::kTileBytes>(smem + st_off + P::kTileBytes, smem + P::kVlo, tid);
+      if constexpr (WG > 1) {  // warpgroup 0 splits K, 1 V^T
+        if (wg == 0) split_tf32<P::kTileBytes>(smem + st_off, smem + P::kKlo, wtid);
+        else split_tf32<P::kTileBytes>(smem + st_off + P::kTileBytes, smem + P::kVlo, wtid);
+      } else {
+        if (!P::kSplitQ && u == 0) split_tf32<P::kQBytes>(smem + P::kQ, smem + P::kQlo, tid);
+        split_tf32<P::kTileBytes>(smem + st_off, smem + P::kKlo, tid);
+        split_tf32<P::kTileBytes>(smem + st_off + P::kTileBytes, smem + P::kVlo, tid);
+      }
       fence_async_smem();
       __syncthreads();  // hi and lo of this tile are stored
     }
@@ -644,7 +682,18 @@ mha_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     // ---- S = Q K^T ----
     float s[BK / 2];
     wgmma_fence();
-    if constexpr (kTF32) {
+    if constexpr (P::kSplitQ) {
+      // Q split a k-step at a time in registers; the same three products
+      float s_lo[BK / 2];
+      tf32_rs3_split<DP, kSplitSteps>(s, s_lo, smem + P::kQ + wg * P::kQBytes,
+                                      smem_desc(kt, 128, P::kGroup),
+                                      smem_desc(base + P::kKlo, 128, P::kGroup), tid);
+      wgmma_wait_all();
+      fence_regs(s_lo);
+      fence_regs(s);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] += s_lo[i];
+    } else if constexpr (kTF32) {
       // lo*hi and hi*lo in accumulators of their own, hi*hi in s; summed
       // after the wait
       float s_lo[BK / 2];
@@ -743,37 +792,46 @@ mha_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         }
         // the tile's P V in accumulators of its own (pv_lo: lo*hi and
         // hi*lo, pv: hi*hi), summed after the wait and added to O by FMA;
-        // V^T's 8-column groups are 8 * BK * 4 bytes apart
+        // V^T's 8-column groups are 8 * BK * 4 bytes apart. Above DP = 128
+        // in chunks of kPvCols columns (a chunk's 8 groups further on in
+        // V^T and V^T lo; its accumulators are O's elements [NP*ch, NP*ch +
+        // NP)), each chunk added to O before the next is issued.
         constexpr int kVtGroup = 8 * BK * 4;
-        float pv[DP / 2], pv_lo[DP / 2];
+        constexpr int NCOL = DP > 128 ? kPvCols : DP, NP = NCOL / 2;
         fence_regs(ph);
         fence_regs(pl);
-        wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-          const uint32_t a[4] = {pl[4 * j], pl[4 * j + 1], pl[4 * j + 2], pl[4 * j + 3]};
-          wgmma_rs_tf32(pv_lo, a, smem_desc(vt + 256 * j, 128, kVtGroup), j > 0);
-        }
+        for (int ch = 0; ch < DP / NCOL; ++ch) {
+          const uint32_t vc = vt + ch * NCOL * BK * 4, vlc = base + P::kVlo + ch * NCOL * BK * 4;
+          float pv[NP], pv_lo[NP];
+          wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-          const uint32_t a[4] = {ph[4 * j], ph[4 * j + 1], ph[4 * j + 2], ph[4 * j + 3]};
-          wgmma_rs_tf32(pv_lo, a, smem_desc(base + P::kVlo + 256 * j, 128, kVtGroup));
-        }
+          for (int j = 0; j < BK / 8; ++j) {
+            const uint32_t a[4] = {pl[4 * j], pl[4 * j + 1], pl[4 * j + 2], pl[4 * j + 3]};
+            wgmma_rs_tf32(pv_lo, a, smem_desc(vc + 256 * j, 128, kVtGroup), j > 0);
+          }
 #pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-          const uint32_t a[4] = {ph[4 * j], ph[4 * j + 1], ph[4 * j + 2], ph[4 * j + 3]};
-          wgmma_rs_tf32(pv, a, smem_desc(vt + 256 * j, 128, kVtGroup), j > 0);
-        }
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(pv_lo);
-        fence_regs(pv);
+          for (int j = 0; j < BK / 8; ++j) {
+            const uint32_t a[4] = {ph[4 * j], ph[4 * j + 1], ph[4 * j + 2], ph[4 * j + 3]};
+            wgmma_rs_tf32(pv_lo, a, smem_desc(vlc + 256 * j, 128, kVtGroup));
+          }
 #pragma unroll
-        for (int i = 0; i < DP / 8; ++i) {
-          o[4 * i + 0] = fmaf(o[4 * i + 0], a0, pv[4 * i + 0] + pv_lo[4 * i + 0]);
-          o[4 * i + 1] = fmaf(o[4 * i + 1], a0, pv[4 * i + 1] + pv_lo[4 * i + 1]);
-          o[4 * i + 2] = fmaf(o[4 * i + 2], a1, pv[4 * i + 2] + pv_lo[4 * i + 2]);
-          o[4 * i + 3] = fmaf(o[4 * i + 3], a1, pv[4 * i + 3] + pv_lo[4 * i + 3]);
+          for (int j = 0; j < BK / 8; ++j) {
+            const uint32_t a[4] = {ph[4 * j], ph[4 * j + 1], ph[4 * j + 2], ph[4 * j + 3]};
+            wgmma_rs_tf32(pv, a, smem_desc(vc + 256 * j, 128, kVtGroup), j > 0);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(pv_lo);
+          fence_regs(pv);
+#pragma unroll
+          for (int i = 0; i < NP / 4; ++i) {
+            const int at = NP * ch + 4 * i;
+            o[at + 0] = fmaf(o[at + 0], a0, pv[4 * i + 0] + pv_lo[4 * i + 0]);
+            o[at + 1] = fmaf(o[at + 1], a0, pv[4 * i + 1] + pv_lo[4 * i + 1]);
+            o[at + 2] = fmaf(o[at + 2], a1, pv[4 * i + 2] + pv_lo[4 * i + 2]);
+            o[at + 3] = fmaf(o[at + 3], a1, pv[4 * i + 3] + pv_lo[4 * i + 3]);
+          }
         }
       }
     } else {
@@ -828,235 +886,9 @@ mha_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     }
 }
 
-// ---- mha_fma_kernel: f32 at D in 129-256 on the CUDA cores, full f32 FMA ----
-
-constexpr int kTX = 8;   // threads across keys and output columns
-constexpr int kTY = 16;  // threads across query rows
-
-// N consecutive floats from shared memory (N in {1, 2, 4}, aligned to N).
-template <int N>
-__device__ __forceinline__ void lds(float (&dst)[N], const float* src) {
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(src);
-    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(src);
-    dst[0] = t.x; dst[1] = t.y;
-  } else {
-    dst[0] = src[0];
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void sts(float* dst, const float (&src)[N]) {
-  if constexpr (N == 4) {
-    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
-  } else {
-    dst[0] = src[0];
-  }
-}
-
-// Reduce over the 8 threads of a row (lanes differing in their low 3 bits).
-__device__ __forceinline__ float row_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
-// Tile geometry at padded head width DP: RM query rows a thread, BK keys a
-// tile. Shared memory in floats: Q^T (DP, BQ+4), K^T (DP, BK+4), V (BK, DP),
-// P^T (BK, BQ+4), the tile's bias (BK). The +4 keeps rows 16-byte aligned
-// and spreads the transposing stores over more banks.
-template <int DP>
-struct Cfg {
-  static constexpr int RM = DP == 256 ? 2 : 4;
-  static constexpr int BQ = kTY * RM;
-  static constexpr int BK = DP >= 128 ? 32 : 64;
-  static constexpr int KJ = BK / 32;          // float4 groups of keys a thread
-  static constexpr int KPT = 4 * KJ;          // keys a thread
-  static constexpr int CPT = DP / kTX;        // output columns a thread
-  static constexpr int VW = CPT < 4 ? CPT : 4;
-  static constexpr int CJ = CPT / VW;
-  static constexpr int QS = BQ + 4;
-  static constexpr int KS = BK + 4;
-  static constexpr int kQ = 0;
-  static constexpr int kK = kQ + DP * QS;
-  static constexpr int kV = kK + DP * KS;
-  static constexpr int kP = kV + BK * DP;
-  static constexpr int kB = kP + BK * QS;
-  static constexpr int kFloats = kB + BK;
-  static constexpr int kSmemBytes = kFloats * 4;
-};
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-mha_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ key_bias,
-               float* __restrict__ out, int S, int H, int D, float scale) {
-  using C = Cfg<DP>;
-  constexpr int RM = C::RM, BQ = C::BQ, BK = C::BK;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sQ = smem + C::kQ;
-  float* sK = smem + C::kK;
-  float* sV = smem + C::kV;
-  float* sP = smem + C::kP;
-  float* sB = smem + C::kB;
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
-  const long long HD = (long long)H * D;
-  const long long base = (long long)b * S * HD + (long long)h * D;  // (b, row 0, head h)
-  const int ntiles = (S + BK - 1) / BK;
-
-  // Q^T: element (row r, column d) at sQ[d * QS + r], zero past S and D
-  for (int i = tid; i < BQ * DP; i += kThreads) {
-    const int r = i / DP, d = i % DP, row = q0 + r;
-    sQ[d * C::QS + r] = (row < S && d < D) ? q[base + row * HD + d] : 0.f;
-  }
-
-  // one key tile into shared memory: K^T, V (pass 2) and the bias, with
-  // keys past S zero in K and V and -inf in the bias
-  auto load_tile = [&](int t, bool with_v) {
-    const int k0 = t * BK;
-    for (int i = tid; i < BK * DP; i += kThreads) {
-      const int j = i / DP, d = i % DP, key = k0 + j;
-      const bool in = key < S && d < D;
-      const long long at = base + key * HD + d;
-      sK[d * C::KS + j] = in ? k[at] : 0.f;
-      if (with_v) sV[j * DP + d] = in ? v[at] : 0.f;
-    }
-    for (int j = tid; j < BK; j += kThreads) {
-      const int key = k0 + j;
-      sB[j] = key < S ? key_bias[(long long)b * S + key] : -INFINITY;
-    }
-  };
-
-  // S = Q K^T for this thread's RM rows and KPT keys, as logits
-  auto logits = [&](float (&s)[RM][C::KPT]) {
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int c = 0; c < C::KPT; ++c) s[i][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float qv[RM], kv[C::KPT];
-      lds<RM>(qv, sQ + d * C::QS + ty * RM);
-#pragma unroll
-      for (int j = 0; j < C::KJ; ++j) {
-        float t4[4];
-        lds<4>(t4, sK + d * C::KS + 32 * j + 4 * tx);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) kv[4 * j + e] = t4[e];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int c = 0; c < C::KPT; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-    }
-#pragma unroll
-    for (int j = 0; j < C::KJ; ++j) {
-      float bb[4];
-      lds<4>(bb, sB + 32 * j + 4 * tx);
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[i][4 * j + e] = __fadd_rn(__fmul_rn(s[i][4 * j + e], scale), bb[e]);
-    }
-  };
-
-  // ---- pass 1: running row max and row sum ----
-  float m[RM], l[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  for (int t = 0; t < ntiles; ++t) {
-    __syncthreads();  // the previous tile is read (and, before tile 0, Q is stored)
-    load_tile(t, false);
-    __syncthreads();
-    float s[RM][C::KPT];
-    logits(s);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int c = 0; c < C::KPT; ++c) mx = fmaxf(mx, s[i][c]);
-      mx = row_max(mx);
-      // tile 0 holds key 0 (finite bias), so mx is finite and
-      // exp(-inf - mx) = 0 clears the empty sum
-      l[i] *= expf(m[i] - mx);
-      m[i] = mx;
-#pragma unroll
-      for (int c = 0; c < C::KPT; ++c) l[i] += expf(s[i][c] - mx);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i) l[i] = row_sum(l[i]);
-
-  // ---- pass 2: P = exp(s - m) / l; O += P V ----
-  float o[RM][C::CPT];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int c = 0; c < C::CPT; ++c) o[i][c] = 0.f;
-  for (int t = 0; t < ntiles; ++t) {
-    __syncthreads();
-    load_tile(t, true);
-    __syncthreads();
-    float s[RM][C::KPT];
-    logits(s);
-#pragma unroll
-    for (int c = 0; c < C::KPT; ++c) {
-      float p[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) p[i] = __fdiv_rn(expf(s[i][c] - m[i]), l[i]);
-      const int key = 32 * (c / 4) + 4 * tx + c % 4;
-      sts<RM>(sP + key * C::QS + ty * RM, p);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pv[RM];
-      lds<RM>(pv, sP + j * C::QS + ty * RM);
-#pragma unroll
-      for (int cj = 0; cj < C::CJ; ++cj) {
-        float vv[C::VW];
-        lds<C::VW>(vv, sV + j * DP + 8 * C::VW * cj + C::VW * tx);
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int e = 0; e < C::VW; ++e)
-            o[i][C::VW * cj + e] = fmaf(pv[i], vv[e], o[i][C::VW * cj + e]);
-      }
-    }
-  }
-
-  // ---- out = O, rows >= S and columns >= D not stored ----
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = q0 + ty * RM + i;
-    if (row >= S) continue;
-    float* orow = out + base + row * HD;
-#pragma unroll
-    for (int cj = 0; cj < C::CJ; ++cj)
-#pragma unroll
-      for (int e = 0; e < C::VW; ++e) {
-        const int d = 8 * C::VW * cj + C::VW * tx + e;
-        if (d < D) orow[d] = o[i][C::VW * cj + e];
-      }
-  }
-}
+// the padded head width of the instance the last launch ran (host side;
+// read by rrt_mha_generic_last_dp)
+int g_last_dp = 0;
 
 template <typename T, int DP>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* bias, void* out,
@@ -1075,23 +907,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const float* 
   kern<<<grid, Plan<T, DP>::kCtaThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
       static_cast<T*>(out), S, H, D, gran, scale);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_fma(const void* q, const void* k, const void* v, const float* bias, void* out,
-                       int B, int S, int H, int D, cudaStream_t stream) {
-  using C = Cfg<kMaxHeadDim>;
-  auto kern = mha_fma_kernel<kMaxHeadDim>;
-  if (C::kSmemBytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           C::kSmemBytes);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((S + C::BQ - 1) / C::BQ, H, B);
-  const float scale = 1.0f / sqrtf((float)D);
-  kern<<<grid, kThreads, C::kSmemBytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      bias, static_cast<float*>(out), S, H, D, scale);
+  g_last_dp = DP;
   return cudaGetLastError();
 }
 
@@ -1111,12 +927,8 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, const float*
   if (D <= 32) return launch_tc<T, 32>(q, k, v, bias, out, B, S, H, D, gran, stream);
   if (D <= 64) return launch_tc<T, 64>(q, k, v, bias, out, B, S, H, D, gran, stream);
   if (D <= 128) return launch_tc<T, 128>(q, k, v, bias, out, B, S, H, D, gran, stream);
-  if constexpr (std::is_same<T, float>::value) {
-    return launch_fma(q, k, v, bias, out, B, S, H, D, stream);
-  } else {
-    if (D <= 192) return launch_tc<T, 192>(q, k, v, bias, out, B, S, H, D, gran, stream);
-    return launch_tc<T, 256>(q, k, v, bias, out, B, S, H, D, gran, stream);
-  }
+  if (D <= 192) return launch_tc<T, 192>(q, k, v, bias, out, B, S, H, D, gran, stream);
+  return launch_tc<T, 256>(q, k, v, bias, out, B, S, H, D, gran, stream);
 }
 
 }  // namespace
@@ -1138,3 +950,8 @@ extern "C" int rrt_mha_generic(int dtype, const void* q, const void* k, const vo
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// The padded head width DP of the mha_tc_kernel instance (T, DP) that the
+// last rrt_mha_generic call launched (0 before any): every dtype and D runs
+// on the tensor cores, f32 as 3xTF32.
+extern "C" int rrt_mha_generic_last_dp() { return g_last_dp; }

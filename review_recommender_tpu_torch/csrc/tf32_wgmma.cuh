@@ -3,7 +3,10 @@
 // the rounding of an f32 value to TF32 and wgmma m64nNk8 with f32
 // accumulators, A and B K-major from shared memory (N = 16, 32, 64) or A
 // from registers (N = 8, 16, 32, 64, 128); the size of the accumulator array
-// picks N.
+// picks N. tf32_rs3_split: a 3xTF32 product whose A is a raw f32 tile in
+// shared memory, split into hi and lo in registers a k-step at a time (the
+// attention kernels' route above 128 columns, where a resident lo tile does
+// not fit).
 #pragma once
 
 #include <stdint.h>
@@ -137,6 +140,65 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[64], const uint32_t (&a
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// tf32(x) of cvt.rna for every x but a NaN: round half away from zero on
+// the magnitude (add half the weight of the 13 dropped bits, clear them);
+// carries into the exponent as the rounding does. A NaN may come out as
+// another value, but lo = tf32_rna(x - hi) is then a NaN, so a NaN input
+// still makes every product it enters a NaN.
+__device__ __forceinline__ uint32_t tf32_hi(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// X = A B^T as 3xTF32 over the DP/8 k-steps, A a raw f32 tile of 64 rows x
+// DP columns in shared memory (K-major, no swizzle: row r, column x at
+// (r / 8) * 32 DP + (x / 4) * 128 + (r % 8) * 16 + (x % 4) * 4 bytes), B's
+// hi and lo halves K-major in shared memory (descriptors db, dbl; a k-step
+// is 256 bytes, 16 units, further). Each k-step, every thread loads its
+// four A elements, (row g, K c), (g + 8, c), (g, c + 4), (g + 8, c + 4) of
+// its warp's 16 rows (g = lane / 4, c = lane % 4: 32 consecutive words a
+// load, no bank conflict), splits them into hi = tf32(x) and lo = tf32(x -
+// hi) in registers, and issues lo*hi and hi*lo into x_lo and hi*hi into x
+// (each accumulator starts at zero). The A registers of an issued wgmma may
+// not change until it completes, so KC k-steps make one commit group and
+// each group's issue ends with a wait for the group before it: two groups'
+// registers are live, the newest group is in flight on return.
+template <int DP, int KC, int N>
+__device__ __forceinline__ void tf32_rs3_split(float (&x)[N], float (&x_lo)[N],
+                                               const unsigned char* a_tile, uint64_t db,
+                                               uint64_t dbl, int tid) {
+  static_assert((DP / 8) % KC == 0, "whole commit groups");
+  constexpr int G = 8 * DP * 4;  // bytes of an 8-row group
+  const int warp = (tid / 32) % 4, lane = tid % 32;
+  const float* a = reinterpret_cast<const float*>(a_tile + 2 * warp * G + (lane / 4) * 16 +
+                                                  (lane % 4) * 4);
+#pragma unroll
+  for (int j0 = 0; j0 < DP / 8; j0 += KC) {
+    uint32_t hi[KC][4], lo[KC][4];
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      const float* p = a + (j0 + kk) * 64;  // 256 bytes a k-step
+      const float y[4] = {p[0], p[G / 4], p[32], p[G / 4 + 32]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hi[kk][e] = tf32_hi(y[e]);
+        lo[kk][e] = tf32_rna(y[e] - __uint_as_float(hi[kk][e]));
+      }
+      fence_regs(hi[kk]);
+      fence_regs(lo[kk]);
+    }
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      const int j = j0 + kk;
+      wgmma_rs_tf32(x_lo, lo[kk], db + 16 * j, j > 0);
+      wgmma_rs_tf32(x_lo, hi[kk], dbl + 16 * j, 1);
+      wgmma_rs_tf32(x, hi[kk], db + 16 * j, j > 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  }
 }
 
 }  // namespace

@@ -122,6 +122,9 @@ def load() -> ctypes.CDLL:
             lib.rrt_mha_generic.restype = I
             lib.rrt_mha_bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P]
             lib.rrt_mha_bwd.restype = I
+            for fn in (lib.rrt_mha_generic_last_dp, lib.rrt_mha_bwd_last_dp):
+                fn.argtypes = []
+                fn.restype = I
             F = ctypes.c_float
             lib.rrt_bm25_packed.argtypes = [P, P, P, P, F, P, I, I, I, P]
             lib.rrt_bm25_packed.restype = I

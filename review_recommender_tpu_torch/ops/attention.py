@@ -9,11 +9,10 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        "wgmma" = csrc/mha_fwd.cu (tensor cores, TMA;
                        bf16/f16 at D in {32, 64, 128}), "generic" =
                        csrc/mha_generic.cu (f32, bf16 and f16 at any D
-                       from 1 to 256: bf16/f16 at every D on the tensor
-                       cores from zero-padded tiles, in two softmax passes;
-                       f32 as 3xTF32 in one online pass up to D = 128, on
-                       the CUDA cores in full f32 FMA at D 129-256); any
-                       S >= 1 on both.
+                       from 1 to 256, on the tensor cores from tiles
+                       zero-padded to padded_head_dim(D): bf16/f16 in two
+                       softmax passes, f32 as 3xTF32 in one online pass);
+                       any S >= 1 on both.
                        Together they replace the TPU kernel `_mha_kernel`,
                        which takes any float type, head width and length
   mha_kernel           the route's CUDA kernel; where a gradient is asked
@@ -24,9 +23,12 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        the roundings of autograd through mha_reference
   backward_route       which route of csrc/mha_bwd.cu takes (dtype, D, S):
                        "wgmma" (bf16/f16 at every D: wgmma, products in
-                       flight during the softmax work), "tf32" (f32 at
-                       D <= 128: wgmma as 3xTF32) or "fma" (f32 at D
-                       129-256: the CUDA cores in full f32)
+                       flight during the softmax work) or "tf32" (f32 at
+                       every D: wgmma as 3xTF32)
+  padded_head_dim      the padded width of the generic and backward
+                       kernels' instance for a head width (the C entries
+                       rrt_mha_generic_last_dp / rrt_mha_bwd_last_dp report
+                       the instance a launch ran)
   multihead_attention  the towers' entry point: impl "auto" launches the
                        kernel for CUDA tensors and takes the reference for
                        CPU tensors (autograd through its torch ops);
@@ -56,22 +58,20 @@ from review_recommender_tpu_torch import kernels
 mha_kernel_launches = 0
 mha_generic_kernel_launches = 0
 # Launches of the backward kernel (csrc/mha_bwd.cu), by route (backward_route:
-# "wgmma", "tf32", "fma"): one per kernel forward that a training step
+# "wgmma", "tf32"): one per kernel forward that a training step
 # differentiates. With remat (per-layer checkpointing) the backward first
 # re-runs each layer's forward, so a step launches the forward twice for
 # each backward.
 mha_backward_kernel_launches = 0
 mha_backward_tf32_launches = 0
-mha_backward_fma_launches = 0
 _count_lock = threading.Lock()
 
 WGMMA_HEAD_DIMS = (32, 64, 128)  # csrc/mha_fwd.cu's TMA boxes and wgmma k-steps
 MAX_HEAD_DIM = 256  # csrc/mha_generic.cu's widest instance; no public BERT is wider
-# csrc/mha_bwd.cu's widest 3xTF32 instance: past it the f32 kernels' resident
-# hi and lo tiles outgrow a block's shared memory, and f32 runs on the CUDA cores
-TF32_BWD_MAX_HEAD_DIM = 128
-BACKWARD_COUNTERS = {"wgmma": "mha_backward_kernel_launches", "tf32": "mha_backward_tf32_launches",
-                     "fma": "mha_backward_fma_launches"}  # backward_route -> counter
+# the padded widths of the instances of csrc/mha_generic.cu and csrc/mha_bwd.cu
+PADDED_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+BACKWARD_COUNTERS = {"wgmma": "mha_backward_kernel_launches",
+                     "tf32": "mha_backward_tf32_launches"}  # backward_route -> counter
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
@@ -80,9 +80,9 @@ def kernel_route(dtype: torch.dtype, d: int, s: int) -> str:
     with head width `d` and `s` keys: "wgmma" (csrc/mha_fwd.cu) for
     bf16/f16 at d in WGMMA_HEAD_DIMS, "generic" (csrc/mha_generic.cu) for
     every other f32, bf16 or f16 case with 1 <= d <= MAX_HEAD_DIM (on the
-    tensor cores up to d = 128, f32 as three TF32 products a product; on
-    the CUDA cores beyond in f32, a choice the kernel makes by d).
-    Any s >= 1 runs on both. Raises ValueError for anything else."""
+    tensor cores at every d, f32 as three TF32 products a product, in the
+    instance of padded_head_dim(d) columns). Any s >= 1 runs on both.
+    Raises ValueError for anything else."""
     _check_domain(dtype, d, s)
     if dtype != torch.float32 and d in WGMMA_HEAD_DIMS:
         return "wgmma"
@@ -92,14 +92,22 @@ def kernel_route(dtype: torch.dtype, d: int, s: int) -> str:
 def backward_route(dtype: torch.dtype, d: int, s: int) -> str:
     """The route of csrc/mha_bwd.cu that takes the backward of attention
     over q/k/v of `dtype` with head width `d` and `s` keys: "wgmma" for
-    bf16/f16 at every d; for f32, "tf32" (each product as three TF32 ones
-    on the tensor cores) up to d = TF32_BWD_MAX_HEAD_DIM and "fma" (CUDA
-    cores, full f32) beyond. Same domain as kernel_route; raises ValueError
-    outside it."""
+    bf16/f16 and "tf32" for f32 (each product as three TF32 ones on the
+    tensor cores; above 128 columns the 64-row tiles split a k-step at a
+    time in registers), both at every d, in the instance of
+    padded_head_dim(d) columns. Same domain as kernel_route; raises
+    ValueError outside it."""
     _check_domain(dtype, d, s)
-    if dtype != torch.float32:
-        return "wgmma"
-    return "tf32" if d <= TF32_BWD_MAX_HEAD_DIM else "fma"
+    return "wgmma" if dtype != torch.float32 else "tf32"
+
+
+def padded_head_dim(d: int) -> int:
+    """The padded head width DP of the instance of csrc/mha_generic.cu and
+    csrc/mha_bwd.cu that takes head width d (1 <= d <= MAX_HEAD_DIM): the
+    least of PADDED_HEAD_DIMS that holds d. Raises ValueError outside."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"mha_kernel: head dim {d} not in 1..{MAX_HEAD_DIM}")
+    return next(w for w in PADDED_HEAD_DIMS if d <= w)
 
 
 def _check_domain(dtype: torch.dtype, d: int, s: int) -> None:
@@ -222,7 +230,7 @@ def _launch_bwd(q, k, v, key_bias, g, num_heads: int):
     v, key_bias) against the upstream gradient `g` (contiguous, q's dtype
     and shape). Launches on torch.cuda.current_stream(); raises if the
     launch fails, never falls back to the reference."""
-    global mha_backward_kernel_launches, mha_backward_tf32_launches, mha_backward_fma_launches
+    global mha_backward_kernel_launches, mha_backward_tf32_launches
     b, s, h, d = _check_kernel_args(q, k, v, key_bias, num_heads)
     route = backward_route(q.dtype, d, s)
     if g.device != q.device or g.dtype != q.dtype or g.shape != q.shape:
@@ -244,10 +252,8 @@ def _launch_bwd(q, k, v, key_bias, g, num_heads: int):
     with _count_lock:
         if route == "wgmma":
             mha_backward_kernel_launches += 1
-        elif route == "tf32":
-            mha_backward_tf32_launches += 1
         else:
-            mha_backward_fma_launches += 1
+            mha_backward_tf32_launches += 1
     return dq, dk, dv
 
 

@@ -163,7 +163,7 @@ class Trainer:
 
     def set_attn_impl(self, impl: str) -> None:
         """The towers' attention: "auto" (the kernel on CUDA: the tensor-core
-        route in bf16/f16, the generic CUDA-core route in f32), "kernel" or
+        route in bf16/f16, the generic route's 3xTF32 in f32), "kernel" or
         "reference" (the plain version)."""
         if self.mesh is None:
             self.model.encoder.set_attn_impl(impl)

@@ -117,14 +117,15 @@ def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
 
 def _mha_3xtf32(q, k, v, bias, heads, mm=_mm_3xtf32):
     """The f32 route's arithmetic in torch: 3xTF32 products, one online
-    softmax pass over key tiles of 64 (32 at D > 64, as the kernel's), O
-    rescaled by exp(m_old - m_new) and divided by the row sum at the end."""
+    softmax pass over key tiles of 64 (32 at D > 32, 16 at D > 128, as the
+    kernel's Plan), O rescaled by exp(m_old - m_new) and divided by the row
+    sum at the end."""
     b, s, hd = q.shape
     d = hd // heads
     split = lambda t: t.reshape(b, s, heads, d).permute(0, 2, 1, 3)  # (B, H, S, D)
     qh, kh, vh = split(q), split(k), split(v)
     scale = float(1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
-    tile = 32 if d > 64 else 64
+    tile = 16 if d > 128 else 32 if d > 32 else 64
     m = torch.full((b, heads, s, 1), float("-inf"))
     l = torch.zeros(b, heads, s, 1)
     o = torch.zeros(b, heads, s, d)
@@ -140,7 +141,8 @@ def _mha_3xtf32(q, k, v, bias, heads, mm=_mm_3xtf32):
     return (o / l).permute(0, 2, 1, 3).reshape(b, s, hd)
 
 
-@pytest.mark.parametrize("head_dim,s", [(16, 64), (26, 40), (50, 70), (256, 129), (26, 600)])
+@pytest.mark.parametrize("head_dim,s", [(16, 64), (26, 40), (50, 70), (256, 129), (26, 600),
+                                        (192, 130), (129, 65)])
 def test_3xtf32_split_holds_the_f32_tolerance(head_dim, s):
     """The f32 route's 3xTF32 products and online softmax, emulated in torch
     on the CPU, against mha_reference within the route's 1e-5 (no card is

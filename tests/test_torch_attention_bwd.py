@@ -9,7 +9,9 @@ as the largest error over max(1, max |ref|): 1e-5 in f32 (sums in another
 order), 2e-2 in bf16 (one bf16 ulp at magnitude 2-4: the frameworks may
 round dP, P and the gradients on opposite sides). The kernel
 itself is held to the same function on the card (tests/test_torch_gpu.py,
-chip_smoke.py phase 15).
+chip_smoke.py phase 15); its f32 route's arithmetic (3xTF32 products,
+log2 units, kernel A's one pass and kernel B's query tiles) is emulated
+in torch here and held to the card tests' 1e-4.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 
 from review_recommender_tpu.ops.pallas.attention_kernel import _mha_bwd
 from review_recommender_tpu_torch.ops import attention as tatt
+from tests.test_torch_attention import _mm_3xtf32, _tf32
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -107,12 +110,115 @@ def test_masked_key_gets_no_value_gradient():
     (torch.bfloat16, 32, "wgmma"), (torch.float16, 64, "wgmma"), (torch.bfloat16, 26, "wgmma"),
     (torch.bfloat16, 1, "wgmma"), (torch.float16, 128, "wgmma"), (torch.bfloat16, 129, "wgmma"),
     (torch.float16, 256, "wgmma"), (torch.float32, 32, "tf32"), (torch.float32, 1, "tf32"),
-    (torch.float32, 128, "tf32"), (torch.float32, 129, "fma"), (torch.float32, 256, "fma"),
+    (torch.float32, 128, "tf32"), (torch.float32, 129, "tf32"), (torch.float32, 256, "tf32"),
 ])
 def test_backward_route_table(dtype, d, route):
     assert tatt.backward_route(dtype, d, 1) == route
     assert tatt.backward_route(dtype, d, 4096) == route
     assert tatt.BACKWARD_COUNTERS[route].startswith("mha_backward_")
+
+
+def _bwd_tiles(d: int) -> tuple[int, int]:
+    """csrc/mha_bwd.cu's streamed tiles at head width d (kBtA, kBtB at the
+    padded width DP): key rows a tile of kernel A, query rows of kernel B."""
+    dp = tatt.padded_head_dim(d)
+    bt_a = 32 if dp <= 32 else 8 if dp == 256 else 16
+    bt_b = 32 if dp == 16 else 8 if dp == 256 else 16
+    return bt_a, bt_b
+
+
+def _mha_bwd_3xtf32(q, k, v, bias, g, heads, mm=_mm_3xtf32):
+    """The f32 route of csrc/mha_bwd.cu in torch: logits in log2 units, 3xTF32
+    products. Kernel A walks the key tiles once: the running max m, l = sum
+    of e = 2^(s - m) and the sum of e * dP, X = sum e dP K and Y = sum e K
+    (each rescaled by 2^(m_old - m_new)); Delta = sum(e dP) / l and dQ = (X -
+    Delta Y) / l * scale. Kernel B walks the query tiles with those row
+    statistics: P^T = 2^(s - m) / l, dV += P^T dO, dS^T = P^T (dP^T - Delta),
+    dK += dS^T Q * scale. Returns (dq, dk, dv), (B, S, H*D)."""
+    b, s, hd = q.shape
+    d = hd // heads
+    split = lambda t: t.reshape(b, s, heads, d).permute(0, 2, 1, 3)  # (B, H, S, D)
+    qh, kh, vh, gh = split(q), split(k), split(v), split(g)
+    log2e = 1.4426950408889634
+    scale = torch.tensor(log2e, dtype=torch.float32) / torch.sqrt(torch.tensor(float(d)))
+    dscale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+    kb = (bias * log2e)[:, None, None, :]  # (B, 1, 1, S): the keys' bias, log2 units
+    bt_a, bt_b = _bwd_tiles(d)
+    m = torch.full((b, heads, s, 1), float("-inf"))
+    l = torch.zeros(b, heads, s, 1)
+    dl = torch.zeros(b, heads, s, 1)
+    x = torch.zeros(b, heads, s, d)
+    y = torch.zeros(b, heads, s, d)
+    for k0 in range(0, s, bt_a):
+        kt, vt = kh[:, :, k0:k0 + bt_a], vh[:, :, k0:k0 + bt_a]
+        logit = mm(qh, kt, "bhqd,bhkd->bhqk") * scale + kb[..., k0:k0 + bt_a]
+        dp = mm(gh, vt, "bhqd,bhkd->bhqk")
+        mx = torch.maximum(m, logit.amax(dim=-1, keepdim=True))
+        a = torch.exp2(m - mx)
+        m = mx
+        e = torch.exp2(logit - m)
+        f = e * dp
+        l = l * a + e.sum(dim=-1, keepdim=True)
+        dl = dl * a + f.sum(dim=-1, keepdim=True)
+        x = x * a + mm(f, kt, "bhqk,bhkd->bhqd")
+        y = y * a + mm(e, kt, "bhqk,bhkd->bhqd")
+    inv_l = 1.0 / l
+    delta = dl * inv_l
+    dq = (x - delta * y) * (inv_l * dscale)
+    dk = torch.zeros(b, heads, s, d)
+    dv = torch.zeros(b, heads, s, d)
+    for q0 in range(0, s, bt_b):
+        qt, gt = qh[:, :, q0:q0 + bt_b], gh[:, :, q0:q0 + bt_b]
+        st = mm(kh, qt, "bhkd,bhqd->bhkq") * scale + kb.transpose(-1, -2)
+        mt, it, dt = (t[:, :, q0:q0 + bt_b].transpose(-1, -2) for t in (m, inv_l, delta))
+        pt = torch.exp2(st - mt) * it
+        dv = dv + mm(pt, gt, "bhkq,bhqd->bhkd")
+        dst = pt * (mm(vh, gt, "bhkd,bhqd->bhkq") - dt)
+        dk = dk + mm(dst, qt, "bhkq,bhqd->bhkd")
+    dk = dk * dscale
+    join = lambda t: t.permute(0, 2, 1, 3).reshape(b, s, hd)
+    return join(dq), join(dk), join(dv)
+
+
+@pytest.mark.parametrize("s", [1, 65, 130])
+@pytest.mark.parametrize("d", [129, 192, 256])
+def test_3xtf32_backward_holds_the_f32_tolerance(d, s):
+    """The f32 route of csrc/mha_bwd.cu at head widths 129-256 (the key and
+    query tiles its plans take there), emulated in torch on the CPU, against
+    mha_backward_reference and JAX's _mha_bwd within the card tests' 1e-4 of
+    max(1, max |ref|), a row masked but one key and an all-masked row
+    included; single TF32 products miss that bar."""
+    heads, b = 2, 3
+    arrs = _inputs(700 * d + s, b, s, heads * d)
+    q, k, v, bias, g = _torch(arrs, torch.float32)
+    got = _mha_bwd_3xtf32(q, k, v, bias, g, heads)
+    plain = tatt.mha_backward_reference(q, k, v, bias, g, heads)
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (arrs[0], arrs[1], arrs[2], arrs[4]))
+    jax_ref = _mha_bwd(heads, True, (jq, jk, jv, jnp.asarray(arrs[3])), jg)
+    for name, x, r, jr in zip("qkv", got, plain, jax_ref[:3]):
+        assert torch.isfinite(x).all()
+        _assert_close(x.numpy(), r.numpy(), 1e-4, name)
+        _assert_close(x.numpy(), np.asarray(jr), 1e-4, name)
+    one = _mha_bwd_3xtf32(q, k, v, bias, g, heads,
+                          mm=lambda a, c, eq: torch.einsum(eq, _tf32(a), _tf32(c)))
+    worst = max(float((x - r).abs().max()) / max(1.0, float(r.abs().max()))
+                for x, r in zip(one, plain))
+    assert worst > 1e-4
+
+
+@pytest.mark.parametrize("d,dp", [(1, 16), (16, 16), (17, 32), (26, 32), (33, 64), (64, 64),
+                                  (65, 128), (128, 128), (129, 192), (192, 192), (193, 256),
+                                  (256, 256)])
+def test_padded_head_dim(d, dp):
+    """The padded width of the instance of both kernels that takes head
+    width d (the C entries' rrt_*_last_dp report it on the card)."""
+    assert tatt.padded_head_dim(d) == dp
+
+
+def test_padded_head_dim_refuses_what_the_kernels_refuse():
+    for d in (0, -1, 257, 512):
+        with pytest.raises(ValueError, match="head dim"):
+            tatt.padded_head_dim(d)
 
 
 def test_backward_route_refuses_what_the_forward_refuses():

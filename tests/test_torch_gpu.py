@@ -215,14 +215,13 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 
 def _bwd_launches():
-    """The backward kernel's launches by route: (wgmma, tf32, fma)."""
-    return (tatt.mha_backward_kernel_launches, tatt.mha_backward_tf32_launches,
-            tatt.mha_backward_fma_launches)
+    """The backward kernel's launches by route: (wgmma, tf32)."""
+    return (tatt.mha_backward_kernel_launches, tatt.mha_backward_tf32_launches)
 
 
 def _bwd_plus(counts, route, n=1):
     """`counts` (of _bwd_launches) with n more launches of `route`."""
-    return tuple(c + n * (r == route) for c, r in zip(counts, ("wgmma", "tf32", "fma")))
+    return tuple(c + n * (r == route) for c, r in zip(counts, ("wgmma", "tf32")))
 
 
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -309,8 +308,9 @@ def test_generic_kernel_at_pipeline_edges(cuda, dtype, d, s):
     three or more tiles (the 2-stage ring of key tiles wraps; above D = 128
     in bf16/f16 two warpgroups of 64 query rows share it, the second with
     no real row at S <= 64); D at the pad boundaries of its
-    16/32/64/128/192/256-wide tiles (bf16/f16) and in the f32 CUDA-core
-    instance past 128. Row 0 masked but one key, row 2 every key masked
+    16/32/64/128/192/256-wide tiles (two warpgroups sharing the ring past
+    128 in every dtype, f32 on 16-key tiles split in registers). Row 0
+    masked but one key, row 2 every key masked
     (uniform over the S keys); one generic launch."""
     b, heads = 3, 2
     q, k, v, bias = _inputs(d * 131 + s, b, s, heads * d, dtype, cuda)
@@ -398,11 +398,13 @@ def test_gradients_match_autograd_through_the_reference(cuda, dtype, b, s, heads
     (torch.float16, 3, 40, 2, 50),
     (torch.bfloat16, 4, 70, 2, 192),  # bge-small's width in 2 heads
     (torch.float16, 3, 40, 1, 256),
+    (torch.float32, 4, 70, 2, 192),  # the same in f32: the split-in-registers instances
+    (torch.float32, 3, 40, 1, 256),
 ])
 def test_gradients_through_the_generic_route(cuda, dtype, b, s, heads, d):
     """MhaKernelFn on the generic route: the forward is the generic kernel,
     the backward the backward kernel's route for the dtype and width (3xTF32
-    for f32 up to D = 128, wgmma for bf16/f16 at every D), held to
+    for f32, wgmma for bf16/f16, at every D), held to
     mha_backward_reference and autograd through mha_reference on the same
     inputs (within 1e-4 in f32, 2e-2 in bf16/f16, of max(1, max |ref|)),
     and the output within the forward's tolerance."""
@@ -424,7 +426,8 @@ def test_gradients_through_the_generic_route(cuda, dtype, b, s, heads, d):
 def test_backward_kernel_edge_cases(cuda, dtype, d, s):
     """The backward kernel alone (_launch_bwd) at the pad edges of D (each
     wgmma instance's, to DP = 256 with kernel B's columns in chunks past
-    128, each 3xTF32 instance's and the f32 FMA route's), S at and around
+    128, and each 3xTF32 instance's, to DP = 256 with two warpgroups a CTA
+    past 128), S at and around
     the 64-row tiles (kernel A's 32-key tiles past D = 128), past 512 keys
     and S = 1, in every dtype: its q, k, v
     gradients against mha_backward_reference and autograd through
@@ -454,8 +457,10 @@ def test_backward_kernel_is_deterministic(cuda, dtype, d):
     """Two backward launches on the same inputs give bit-equal gradients
     (no atomics: kernel A writes dQ and the row statistics, kernel B dK and
     dV, each element by one thread), on every route: wgmma (bf16 at 32,
-    f16 at 26, bf16 at 200 with kernel B's columns in chunks), tf32
-    (f32 at 64, and 128 in two column halves) and fma (f32 at 200)."""
+    f16 at 26, bf16 at 200 with kernel B's columns in chunks) and tf32 (f32
+    at 64, 128 in two column halves, and 200 on the instance at 256
+    columns, two warpgroups a CTA that hand the probabilities from one to
+    the other through shared memory)."""
     q, k, v, bias = _inputs(d, 4, 300, 4 * d, dtype, cuda)
     g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d),
                     device=cuda).to(dtype)
@@ -463,6 +468,33 @@ def test_backward_kernel_is_deterministic(cuda, dtype, d):
     second = tatt._launch_bwd(q, k, v, bias, g, 4)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.parametrize("d,dp", [(129, 192), (160, 192), (192, 192), (193, 256), (256, 256)])
+def test_f32_wide_heads_launch_the_tensor_core_instances(cuda, d, dp):
+    """f32 at head widths 129-256 runs on the tensor cores, forward and
+    backward: the C entries report the padded width of the mha_tc_kernel /
+    3xTF32 instance each launch ran (padded_head_dim), the launch counters
+    name the generic kernel and the tf32 backward route, and nothing else
+    is launched."""
+    from review_recommender_tpu_torch import kernels
+
+    b, s, heads = 2, 70, 2
+    q, k, v, bias = _inputs(d, b, s, heads * d, torch.float32, cuda)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d), device=cuda)
+    lib = kernels.load()
+    assert tatt.padded_head_dim(d) == dp
+    assert tatt.kernel_route(torch.float32, d, s) == "generic"
+    assert tatt.backward_route(torch.float32, d, s) == "tf32"
+    before, backward = _launches(), _bwd_launches()
+    with torch.inference_mode():
+        tatt.mha_kernel(q, k, v, bias, heads)
+    assert lib.rrt_mha_generic_last_dp() == dp
+    tatt._launch_bwd(q, k, v, bias, g, heads)
+    assert lib.rrt_mha_bwd_last_dp() == dp
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1] + 1)
+    assert _bwd_launches() == _bwd_plus(backward, "tf32")
 
 
 def test_backward_kernel_refuses_what_it_does_not_take(cuda):
