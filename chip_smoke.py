@@ -16,9 +16,14 @@ line, and nothing is caught and passed over:
              the generic route's (f32 at (64, 512, 12, 32), TinyBERT-4L's
              bf16 (64, 512, 12, 26), the tiny config's (2, 16, 4, 16) in
              bf16 and f32), then the tensor-core route past 512 keys (bf16
-             (8, 1024, 12, 32)) and the generic route's widest heads (64,
-             512, 2, 192) in bf16 and f32: max abs error (tolerance 2e-2 in bf16, 1e-5
-             in f32), the route and one launch of its kernel, and the
+             (8, 1024, 12, 32)), the generic route's widest heads (64,
+             512, 2, 192) in bf16 and f32, and the wide route's heads past
+             256 (csrc/mha_wide.cu): bge-small's width in one head (64,
+             512, 1, 384) in bf16 and f32, an odd width with a partial key
+             tile (4, 200, 2, 257) in f16 (2-byte copies) and several column
+             chunks (2, 64, 1, 1024) in bf16: max abs error (tolerance 2e-2
+             in bf16/f16, 1e-5 in f32), the route and one launch of its
+             kernel, and the
              median of 50 CUDA-event-timed runs of each, from an idle
              device and behind a device spin; beside them
              scaled_dot_product_attention with the key bias as an additive
@@ -330,7 +335,14 @@ line, and nothing is caught and passed over:
              on one device, each counted from zero: 24 generic-kernel
              forward launches a step, and 24 of the backward kernel's
              wgmma route (bf16) or 3xTF32 route (f32), no plain-version
-             call, finite losses
+             call, finite losses; (h) the same trunk in one head of 384
+             (rrt train --hidden 384 --head-dim 384 --layers 12's tower):
+             one bf16 and one f32 step, each counted from zero, 24 launches
+             of the wide forward (csrc/mha_wide.cu) and 24 of the wide
+             backward's route (csrc/mha_wide_bwd.cu: wide in bf16,
+             wide_tf32 in f32), no plain-version call, finite losses; both
+             kernels at (64, 512, 1, 384) in bf16 and f32 (kernel, plain,
+             SDPA forward and backward alone)
  20 generic_route  the towers that only the generic attention kernel
              (csrc/mha_generic.cu) runs, through run_search on phase 4's
              corpus and engine construction, 20 queries a setting (cut
@@ -344,13 +356,21 @@ line, and nothing is caught and passed over:
              (hidden 312, 4 layers, 12 heads: D = 26, intermediate 1200,
              vocab 30,522) beside phase 4's bf16 bge-small at rerank_k 50:
              12 tensor-core and 4 generic launches a query, held to
-             reference attention within 2e-2; p50 of each setting
+             reference attention within 2e-2; (c) a bf16 cross-encoder at
+             MiniLM-L6's published widths in one head of 384 (hidden 384, 6
+             layers, intermediate 1,536, vocab 30,522) beside phase 4's bf16
+             bge-small at rerank_k 50: 12 tensor-core and 6 wide launches
+             (csrc/mha_wide.cu) a query, held to reference attention within
+             2e-2; p50 of each setting
 
 The last two lines are the kernels summary (the backward kernel by route:
 mha_bwd the bf16/f16 wgmma one, mha_bwd_tf32 the f32 3xTF32 one; at 2 heads
 of 192, phase 19 (g)'s, mha_generic_d192 and mha_bwd_d192 the bf16
 instances and mha_generic_f32_d192 and mha_bwd_tf32_d192 the f32 ones,
-which split their 64-row tiles in registers) and
+which split their 64-row tiles in registers; at one head of 384, phase 19
+(h)'s and phase 20 (c)'s, mha_wide_d384 / mha_wide_f32_d384 the wide
+forward and mha_bwd_wide_d384 / mha_bwd_wide_tf32_d384 the wide backward
+in bf16 and f32) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no jax and nothing of the JAX package.
 """
@@ -388,7 +408,14 @@ ROUTE_SHAPES = [(64, 512, 12, 32, "float32", F32_KERNEL_TOL),
                 (2, 16, 4, 16, "bfloat16", KERNEL_TOL), (2, 16, 4, 16, "float32", F32_KERNEL_TOL),
                 (8, 1024, 12, 32, "bfloat16", KERNEL_TOL),
                 (64, 512, 2, 192, "bfloat16", KERNEL_TOL),
-                (64, 512, 2, 192, "float32", F32_KERNEL_TOL)]
+                (64, 512, 2, 192, "float32", F32_KERNEL_TOL),
+                # the wide route (csrc/mha_wide.cu) past 256 columns: one
+                # head of 384 in both types, an odd width (2-byte copies)
+                # with a partial key tile, and several column chunks
+                (64, 512, 1, 384, "bfloat16", KERNEL_TOL),
+                (64, 512, 1, 384, "float32", F32_KERNEL_TOL),
+                (4, 200, 2, 257, "float16", KERNEL_TOL),
+                (2, 64, 1, 1024, "bfloat16", KERNEL_TOL)]
 N_DOCS, DIM, TERMS, VOCAB, TEXT_CHARS = 200_000, 384, 64, 30_000, 2000
 # 100 queries per setting: p90 then has 10 samples beyond it
 N_QUERIES, K, RERANK_K, REPS = 100, 10, 50, 50
@@ -596,7 +623,7 @@ def phase_kernel(torch):
     from review_recommender_tpu_torch.ops import attention as A
 
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
-    counters = {"wgmma": "mha_fwd", "generic": "mha_generic"}
+    counters = {"wgmma": "mha_fwd", "generic": "mha_generic", "wide": "mha_wide"}
     rows = [(*shape, "bfloat16", KERNEL_TOL) for shape in SHAPES] + ROUTE_SHAPES
     results = []
     for i, (b, s, h, d, dtype_name, tol) in enumerate(rows):
@@ -617,7 +644,11 @@ def phase_kernel(torch):
                   f"output {tuple(got.shape)} {got.dtype}")
             check(bool(torch.isfinite(got.float()).all()), "kernel", "non-finite output")
             err = float((got.float() - ref.float()).abs().max())
-            lib_err = float((lib.float() - ref.float()).abs().max())
+            # in f16 the mask's -1e30 is -inf, and SDPA gives an all-masked
+            # row zeros where the plain version gives the mean of V: the
+            # yardstick is held to it on the rows with a key in them
+            live = (bias > -1e29).any(dim=1) if dtype == torch.float16 else slice(None)
+            lib_err = float((lib.float() - ref.float())[live].abs().max())
             for _ in range(3):  # warm-up
                 A.mha_kernel(q, k, v, bias, h)
                 A.mha_reference(q, k, v, bias, h)
@@ -1257,8 +1288,11 @@ def _kernel_modules():
 
     return {"mha_fwd": (A, "mha_kernel_launches"),
             "mha_generic": (A, "mha_generic_kernel_launches"),
+            "mha_wide": (A, "mha_wide_kernel_launches"),
             "mha_bwd": (A, "mha_backward_kernel_launches"),
             "mha_bwd_tf32": (A, "mha_backward_tf32_launches"),
+            "mha_bwd_wide": (A, "mha_backward_wide_launches"),
+            "mha_bwd_wide_tf32": (A, "mha_backward_wide_tf32_launches"),
             "bm25_packed": (BK, "bm25_packed_kernel_launches"),
             "bm25_unpacked": (BK, "bm25_unpacked_kernel_launches"),
             "stage_a_fused": (SA, "stage_a_kernel_launches"),
@@ -3373,14 +3407,19 @@ def _trained_lane(card):
 
 
 def _backward_exps(b, s, h, d, dtype) -> int:
-    """The exponentials csrc/mha_bwd.cu's route evaluates on the B*H*S*S
+    """The exponentials the backward route evaluates on the B*H*S*S
     scores: three passes (kernel A's two and kernel B's) on the wgmma
     route, two on the 3xTF32 route (its kernel A takes one pass); on
     the wgmma route past D = 128 each of kernel B's column chunks takes a
-    pass (two at D <= 192, four beyond)."""
+    pass (two at D <= 192, four beyond); on the wide routes
+    (csrc/mha_wide_bwd.cu) the statistics pass and one a column chunk of
+    the dQ and of the dK / dV kernel."""
     from review_recommender_tpu_torch.ops import attention as A
 
     route = A.backward_route(dtype, d, s)
+    if route in ("wide", "wide_tf32"):
+        _fwd, dq, dkv = A.wide_column_chunks(dtype, d)
+        return (1 + -(-d // dq) + -(-d // dkv)) * b * h * s * s
     passes = 2 if route == "tf32" else 3
     if route == "wgmma" and d > 128:
         passes = 2 + (2 if d <= 192 else 4)
@@ -4977,6 +5016,9 @@ MESH_SHAPES = [(MESH_BATCH, MESH_LEN, 12 // MESH_TP, 32),
 # f32 only their CUDA-core routes; its attention shape one device gives it
 WIDE_HEADS = 2
 WIDE_SHAPE = (MESH_BATCH, MESH_LEN, WIDE_HEADS, 384 // WIDE_HEADS)
+# phase 19 (h)'s kernel rows: one head of 384 at the rerank batch, the work
+# of (64, 512, 2, 192)
+WIDE384_SHAPE = (64, 512, 1, 384)
 
 
 def _mesh_towers():
@@ -5259,36 +5301,42 @@ def _mesh_int8_global(torch, card, products):
     del emb, g_qs, r_sl
 
 
-def _wide_head_steps(torch, card, cfg, sd, batch):
-    """(g) The bi-encoder trunk with WIDE_HEADS heads (D = 192): one bf16
-    and one f32 ContrastiveTrainer step on one device, the counts set to 0
-    before each step and read after it. The bf16 step's forwards run the
-    generic kernel's tensor-core instance at 192 columns and its backwards
-    the backward kernel's wgmma route; the f32 step's the generic kernel's
-    3xTF32 instance at 192 columns and the backward kernel's 3xTF32 route
-    (counted, exact); no plain version; finite losses. Returns the launches
-    by kernel of each step,
-    {"bf16": {...}, "f32": {...}}."""
+def _wide_head_steps(torch, card, cfg, sd, batch, heads=WIDE_HEADS):
+    """(g) The bi-encoder trunk with WIDE_HEADS heads (D = 192), or (h)
+    with one head of 384: one bf16 and one f32 ContrastiveTrainer step on
+    one device, the counts set to 0 before each step and read after it. At
+    D = 192 the bf16 step's forwards run the generic kernel's tensor-core
+    instance at 192 columns and its backwards the backward kernel's wgmma
+    route; the f32 step's the generic kernel's 3xTF32 instance at 192
+    columns and the backward kernel's 3xTF32 route. At D = 384 every
+    forward runs the wide kernel (csrc/mha_wide.cu) and every backward the
+    wide backward (csrc/mha_wide_bwd.cu) on its wide (bf16) or wide_tf32
+    (f32) route. Counted, exact; no plain version; finite losses. Returns
+    the launches by kernel of each step, {"bf16": {...}, "f32": {...}}."""
     from review_recommender_tpu_torch.train import ContrastiveTrainer
 
-    wide = dataclasses.replace(cfg, num_heads=WIDE_HEADS)
+    wide = dataclasses.replace(cfg, num_heads=heads)
+    head_dim = wide.hidden_size // heads
     per_step = 2 * wide.num_layers
+    fwd = "mha_wide" if head_dim > 256 else "mha_generic"
+    bwds = (("mha_bwd_wide", "mha_bwd_wide_tf32") if head_dim > 256
+            else ("mha_bwd", "mha_bwd_tf32"))
     losses, counts, want = {}, {}, {}
     with _PlainCalls() as plain:
-        for name, dtype, bwd in (("bf16", torch.bfloat16, "mha_bwd"),
-                                 ("f32", torch.float32, "mha_bwd_tf32")):
+        for name, dtype, bwd in (("bf16", torch.bfloat16, bwds[0]),
+                                 ("f32", torch.float32, bwds[1])):
             tr = ContrastiveTrainer(wide, sd, dtype=dtype, device=DEV)
             _zero_counts()
             losses[name] = tr.train_step(*batch)["loss"]
             counts[name] = _counts()
-            want[name] = {**{n: 0 for n in counts[name]}, "mha_generic": per_step, bwd: per_step}
+            want[name] = {**{n: 0 for n in counts[name]}, fwd: per_step, bwd: per_step}
             del tr
-    emit({"phase": "train_mesh_wide_heads", "card": card, "heads": WIDE_HEADS,
-          "head_dim": wide.hidden_size // WIDE_HEADS, "losses": losses, "launches": counts,
+    emit({"phase": "train_mesh_wide_heads", "card": card, "heads": heads,
+          "head_dim": head_dim, "losses": losses, "launches": counts,
           "expected_launches": want, "plain_calls": plain.calls})
     check(counts == want and plain.calls == 0 and all(np.isfinite(v) for v in losses.values()),
-          "train_mesh", f"wide heads: launches {counts} (want {want}), {plain.calls} plain "
-          f"calls, losses {losses}")
+          "train_mesh", f"wide heads ({heads} of {head_dim}): launches {counts} (want {want}), "
+          f"{plain.calls} plain calls, losses {losses}")
     return counts
 
 
@@ -5296,11 +5344,12 @@ def phase_train_mesh(torch, products):
     """Phase 19: the dp x tp trainers on TrainMesh([DEV] * 4, 2, 2), the
     data-parallel encoder, the global-scale int8 scan, and the attention
     kernels at the tp shard's shapes (the f32 backward at the shard's) and
-    at WIDE_SHAPE (bf16, then f32). Returns the attention launches of the
-    mesh steps, the restores, the wide-head steps and the dp encode by
-    kernel ("mha_fwd", "mha_generic", "mha_bwd", "mha_bwd_tf32"), the f32
-    kernel rows, the WIDE_SHAPE rows and the
-    wide-head steps' launches by dtype."""
+    at WIDE_SHAPE and WIDE384_SHAPE (bf16, then f32). Returns the attention
+    launches of the mesh steps, the restores, the wide-head steps and the
+    dp encode by kernel ("mha_fwd", "mha_generic", "mha_bwd",
+    "mha_bwd_tf32"), the f32 kernel rows, the WIDE_SHAPE rows, the
+    wide-head steps' launches by dtype (g), and the WIDE384_SHAPE rows and
+    the one-head-of-384 steps' launches by dtype (h)."""
     import shutil
 
     card = _card()
@@ -5309,7 +5358,9 @@ def phase_train_mesh(torch, products):
     f32_rows = _training_kernel_rows(torch, MESH_SHAPES[:1], torch.float32)
     wide_rows = (_training_kernel_rows(torch, [WIDE_SHAPE])
                  + _training_kernel_rows(torch, [WIDE_SHAPE], torch.float32))
-    for row in f32_rows + wide_rows:
+    wide384_rows = (_training_kernel_rows(torch, [WIDE384_SHAPE])
+                    + _training_kernel_rows(torch, [WIDE384_SHAPE], torch.float32))
+    for row in f32_rows + wide_rows + wide384_rows:
         emit({"phase": "train_mesh_kernel", "card": card, **row})
     towers = _mesh_towers()
     batches = _mesh_batches(products)
@@ -5329,9 +5380,10 @@ def phase_train_mesh(torch, products):
     wide = _wide_head_steps(torch, card, cfg, sd, batches["biencoder"])
     for name in ("mha_generic", "mha_bwd", "mha_bwd_tf32"):
         launches[name] += wide["bf16"][name] + wide["f32"][name]
+    wide384 = _wide_head_steps(torch, card, cfg, sd, batches["biencoder"], heads=1)
     launches["mha_fwd"] += _mesh_encode(torch, card, cfg, sd, products)
     _mesh_int8_global(torch, card, products)
-    return launches, f32_rows, wide_rows, wide
+    return launches, f32_rows, wide_rows, wide, wide384_rows, wide384
 
 
 # phase 20: the towers only the generic attention kernel runs. (a) phase
@@ -5345,6 +5397,12 @@ GENERIC_QUERIES = 20
 F32_FINAL_TOL = 1e-4  # _final, f32 towers on the kernels against reference attention
 TINYBERT_4L_312D = dict(vocab_size=30_522, hidden_size=312, num_layers=4, num_heads=12,
                         intermediate_size=1200, max_position=512)
+# (c) phase 4's cross-encoder, BertConfig.minilm_l6_cross (the published
+# MiniLM-L6 widths: hidden_size 384, num_hidden_layers 6, intermediate_size
+# 1536, vocab_size 30522), in one head of 384, the wide route's width;
+# random weights from seed 4
+MINILM_L6_ONE_HEAD = dict(vocab_size=30_522, hidden_size=384, num_layers=6, num_heads=1,
+                          intermediate_size=1536, max_position=512)
 
 
 def _generic_setting(torch, engine, towers, queries, rerank_k, want, tol, by_rank, name):
@@ -5381,9 +5439,10 @@ def _generic_setting(torch, engine, towers, queries, rerank_k, want, tol, by_ran
 
 
 def phase_generic_route(torch, products):
-    """Phase 20: run_search with f32 towers and with a TinyBERT-width bf16
-    cross-encoder on phase 4's corpus, each engine built as phase 4 builds
-    its own. Returns the attention launches by kernel."""
+    """Phase 20: run_search with f32 towers, with a TinyBERT-width bf16
+    cross-encoder and with a bf16 cross-encoder in one head of 384 on phase
+    4's corpus, each engine built as phase 4 builds its own. Returns the
+    attention launches by kernel."""
     from review_recommender_tpu_torch.engine.search import SearchEngine
     from review_recommender_tpu_torch.index.schema import IndexBundle
     from review_recommender_tpu_torch.models.bert import BertConfig
@@ -5391,13 +5450,15 @@ def phase_generic_route(torch, products):
 
     queries = _queries(GENERIC_QUERIES, DIM, VOCAB)
     n = len(queries)
-    total = {"mha_fwd": 0, "mha_generic": 0}
+    total = {"mha_fwd": 0, "mha_generic": 0, "mha_wide": 0}
     f32, bf16 = torch.float32, torch.bfloat16
     be = BiEncoder.random_init(BertConfig.bge_small(), seed=1, device=DEV, dtype=f32)
     ce = CrossEncoder.random_init(BertConfig.minilm_l6_cross(), seed=2, device=DEV, dtype=f32)
     be16 = BiEncoder.random_init(BertConfig.bge_small(), seed=1, device=DEV, dtype=bf16)
     tiny = CrossEncoder.random_init(BertConfig(**TINYBERT_4L_312D), seed=3, device=DEV,
                                     dtype=bf16)
+    one_head = CrossEncoder.random_init(BertConfig(**MINILM_L6_ONE_HEAD), seed=4, device=DEV,
+                                        dtype=bf16)
     layers = lambda t: t.cfg.num_layers * n  # one launch a layer and query
     # (name, towers, tolerance, rank-wise too, [(rerank_k, launches)]): f32
     # held rank by rank; bf16 as phase 4's F3 cross-check holds it
@@ -5405,7 +5466,9 @@ def phase_generic_route(torch, products):
                [(0, {"mha_generic": layers(be)}),
                 (RERANK_K, {"mha_generic": layers(be) + layers(ce)})]),
               ("tinybert_4l_312d_bf16", (be16, tiny), FINAL_TOL, False,
-               [(RERANK_K, {"mha_fwd": layers(be16), "mha_generic": layers(tiny)})])]
+               [(RERANK_K, {"mha_fwd": layers(be16), "mha_generic": layers(tiny)})]),
+              ("minilm_l6_one_head_384_bf16", (be16, one_head), FINAL_TOL, False,
+               [(RERANK_K, {"mha_fwd": layers(be16), "mha_wide": layers(one_head)})])]
     for name, towers, tol, by_rank, cases in groups:
         engine = SearchEngine(IndexBundle(products=products), device=DEV,
                               query_encoder=towers[0], cross_encoder=towers[1])
@@ -5486,8 +5549,8 @@ def main() -> int:
         launches += raw_launches["mha_fwd"]
         bm25_launches["bm25_packed"] += raw_launches["bm25_packed"]
         mark("raw_pipeline")
-        mesh_launches, f32_train_rows, wide_train_rows, wide_launches = phase_train_mesh(
-            torch, products)
+        (mesh_launches, f32_train_rows, wide_train_rows, wide_launches, wide384_rows,
+         wide384_launches) = phase_train_mesh(torch, products)
         launches += mesh_launches["mha_fwd"]
         generic_launches = mesh_launches["mha_generic"]
         bwd_launches += mesh_launches["mha_bwd"]
@@ -5496,6 +5559,9 @@ def main() -> int:
         route_launches = phase_generic_route(torch, products)
         launches += route_launches["mha_fwd"]
         generic_launches += route_launches["mha_generic"]
+        wide_fwd_launches = {"bf16": wide384_launches["bf16"]["mha_wide"]
+                             + route_launches["mha_wide"],
+                             "f32": wide384_launches["f32"]["mha_wide"]}
         mark("generic_route")
     except PhaseError as exc:
         emit({"phase": "failed", "error": str(exc)})
@@ -5535,6 +5601,34 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+        })
+    # the wide kernels (csrc/mha_wide.cu, csrc/mha_wide_bwd.cu) at one head
+    # of 384 (WIDE384_SHAPE), with phase 19 (h)'s steps' launches and phase
+    # 20 (c)'s rerank forwards
+    w384_bf16, w384_f32 = wide384_rows
+    for name, row, dtype, n in (("mha_wide_d384", w384_bf16, "bfloat16", wide_fwd_launches["bf16"]),
+                                ("mha_wide_f32_d384", w384_f32, "float32", wide_fwd_launches["f32"])):
+        errs = [r["max_abs_err"] for r in kernel_rows
+                if r["route"] == "wide" and r["dtype"] == dtype]
+        entries.append({
+            "name": name, "route": "cuda", "source": "review_recommender_tpu_torch/csrc/mha_wide.cu",
+            "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:64",
+            "launches": n, "max_abs_err": max(errs + [row["max_abs_err"]]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    for name, row, n in (("mha_bwd_wide_d384", w384_bf16, wide384_launches["bf16"]["mha_bwd_wide"]),
+                         ("mha_bwd_wide_tf32_d384", w384_f32,
+                          wide384_launches["f32"]["mha_bwd_wide_tf32"])):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "review_recommender_tpu_torch/csrc/mha_wide_bwd.cu",
+            "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:142",
+            "launches": n, "max_abs_err": row["backward_max_abs_err"],
+            "ms": row["backward_ms"], "plain_ms": row["plain_backward_ms"],
+            "bound_ms": row["backward_bound_ms"], "bound_by": row["backward_bound_by"],
+            "library_ms": row["library_backward_ms"],
         })
     # the backward kernel by route, at its main path's shape: the
     # bi-encoder trainer's (phase 15's first row) for the wgmma route, a tp

@@ -25,21 +25,35 @@ line with the dtype and the route (ops/attention.py:kernel_route):
              timed as device_ms (chip_smoke.py's yardstick; the port never
              calls it)
 
---kernel wide_heads: the attention routes for head widths 129-256, at
+--kernel wide_heads: the attention routes for head widths past 128, at
 chip_smoke.py phase 19 (g)'s WIDE_SHAPE (32, 128, 2, 192), at (64, 512,
-2, 192) and at (64, 512, 1, 256), in bf16 and f32: its
+2, 192), at (64, 512, 1, 256), and past 256 at (64, 512, 1, 384) (phase
+19 (h)'s kernel rows) and (2, 64, 1, 1,024), in bf16 and f32: its
 _training_kernel_rows (the forward kernel, csrc/mha_generic.cu at 192 or
-256 columns, against its plain version and SDPA's forward; the backward
-kernel, csrc/mha_bwd.cu by backward_route, against the recompute and
-SDPA's forward and backward together; the bounds), and beside them SDPA's
+256 columns or csrc/mha_wide.cu past 256, against its plain version and
+SDPA's forward; the backward kernel, csrc/mha_bwd.cu or
+csrc/mha_wide_bwd.cu by backward_route, against the recompute and SDPA's
+forward and backward together; the bounds), and beside them SDPA's
 backward alone (autograd.grad through one saved SDPA forward,
-sdpa_backward_ms), all behind a 0.1 ms spin. Each row names the routes it
-ran: backward_route (a checkout before bf16 went to the tensor cores at
-these widths reports "fma" for both dtypes, one before f32 did for f32),
-and the padded width of the instances the forward and the backward
-launched (forward_dp, backward_dp: rrt_mha_generic_last_dp and
-rrt_mha_bwd_last_dp; null in a checkout that does not export them, whose
-f32 forward at these widths is the CUDA-core kernel). For an A/B, run it
+sdpa_backward_ms), all behind a 0.1 ms spin, with the backend SDPA took
+(sdpa_backend: the kernels a torch.profiler window of its forward and
+backward saw, flash, efficient, cudnn or math; flash takes no head past
+256) and each kernel's device µs of the forward and of the backward
+(forward_kernel_us, backward_kernel_us: a profiler window of 20 calls);
+first, ptxas's registers and spill stores of each instance of the wide
+kernels (a side build with -Xptxas -v).
+Each row names the routes it ran: backward_route (a checkout before bf16
+went to the tensor cores at these widths reports "fma" for both dtypes,
+one before f32 did for f32), and the padded width of the instances the
+forward and the backward launched (forward_dp, backward_dp:
+rrt_mha_generic_last_dp and rrt_mha_bwd_last_dp; null in a checkout that
+does not export them, whose f32 forward at these widths is the CUDA-core
+kernel) or, past 256 columns, the wide kernels' column chunks
+(forward_dc, backward_dc: rrt_mha_wide_last_dc and
+rrt_mha_wide_bwd_last_dc, dQ's and dK / dV's) and which of their passes
+kept the CTA's own rows resident in shared memory (forward_resident,
+backward_resident: bit masks, rrt_mha_wide_last_resident and
+rrt_mha_wide_bwd_last_resident). For an A/B, run it
 once with ROOT a `git archive` of the parent unpacked under build/ and
 once on this checkout, in the order parent, change, change, parent, in
 one call.
@@ -345,7 +359,8 @@ def _stage_a(torch, tag: str, parent=None, dims=None, phase4=False) -> None:
             print(json.dumps(row), flush=True)
 
 
-WIDE_HEAD_SHAPES = [(32, 128, 2, 192), (64, 512, 2, 192), (64, 512, 1, 256)]
+WIDE_HEAD_SHAPES = [(32, 128, 2, 192), (64, 512, 2, 192), (64, 512, 1, 256), (64, 512, 1, 384),
+                    (2, 64, 1, 1024)]
 
 
 def _last_dp(lib, name: str):
@@ -359,17 +374,90 @@ def _last_dp(lib, name: str):
     return int(fn())
 
 
+def _kernel_us(torch, fn, n=20) -> dict:
+    """Device µs a call of fn spends in each CUDA kernel it launches, from a
+    torch.profiler window of n calls, by kernel name (template arguments
+    kept: the wide kernels' passes differ only there)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if t:
+            key = re.sub(r"\(.*$", "", e.key.replace("(anonymous namespace)::", ""))[-80:]
+            out[key] = out.get(key, 0.0) + t / n
+    return out
+
+
+def _sdpa_backend(names) -> str:
+    """The SDPA backend whose kernels a profiler window saw."""
+    text = " ".join(names).lower()
+    for backend, marks in (("flash", ("flash",)), ("cudnn", ("cudnn",)),
+                           ("efficient", ("fmha", "efficient", "mem_eff"))):
+        if any(m in text for m in marks):
+            return backend
+    return "math"
+
+
+def _wide_registers(tag: str) -> None:
+    """ptxas's registers and spills for each instance of the wide kernels
+    (csrc/mha_wide*.cu), from a side build with -Xptxas -v (a library of
+    its own name; the timed one is not touched). A checkout without the
+    wide kernels prints nothing."""
+    import re
+
+    from review_recommender_tpu_torch import kernels
+
+    kernels.build(extra_flags=("-Xptxas", "-v"))
+    name = None
+    for line in kernels.build_info.get("nvcc_output", "").splitlines():
+        m = re.search(r"Compiling entry function '(\w*mha_wide\w*)'", line)
+        if m:
+            k = re.search(r"(mha_wide_(?:fwd|bwd)_kernel)I(\w*?)Li(\d+)E(?:Li(\d+)E)?Lb(\d)",
+                          m.group(1))
+            dtype = ("" if not k else "bfloat16" if "bfloat16" in k.group(2)
+                     else "float16" if "half" in k.group(2) else "float32")
+            name = (f"{k.group(1)} {dtype} {'KIND=' + k.group(3) + ' DC=' + k.group(4) if k.group(4) else 'DC=' + k.group(3)} RES={k.group(5)}"
+                    if k else m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            print(json.dumps({"tag": tag, "kernel": "wide_heads", "instance": name,
+                              "registers": int(m.group(1)), "spill_stores": spills}), flush=True)
+            name = None
+
+
 def _wide_heads(torch, tag: str) -> None:
     from review_recommender_tpu_torch import kernels
     from review_recommender_tpu_torch.ops import attention as A
 
     cs = _own_chip_smoke()
+    _wide_registers(tag)
     lib = kernels.load()
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
     for dtype in (torch.bfloat16, torch.float32):
-        rows = cs._training_kernel_rows(torch, WIDE_HEAD_SHAPES, dtype)
+        shapes = []  # the widths ROOT's port takes (a checkout before the wide route: <= 256)
+        for shape in WIDE_HEAD_SHAPES:
+            try:
+                A.kernel_route(dtype, shape[3], shape[1])
+                shapes.append(shape)
+            except ValueError:
+                print(json.dumps({"tag": tag, "kernel": "wide_heads", "skipped": shape,
+                                  "dtype": str(dtype)}), flush=True)
+        rows = cs._training_kernel_rows(torch, shapes, dtype)
         for i, row in enumerate(rows):
-            b, s, h, d = WIDE_HEAD_SHAPES[i]
+            b, s, h, d = shapes[i]
             rng = np.random.default_rng(300 + i)  # _training_kernel_rows' inputs
             q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(np.float32))
                           .to("cuda", dtype) for _ in range(4))
@@ -381,12 +469,25 @@ def _wide_heads(torch, tag: str) -> None:
                 row["forward_dp"] = _last_dp(lib, "rrt_mha_generic_last_dp")
                 A._launch_bwd(q, k, v, bias, g, h)
                 row["backward_dp"] = _last_dp(lib, "rrt_mha_bwd_last_dp")
+                if d > 256:
+                    row["forward_dc"] = _last_dp(lib, "rrt_mha_wide_last_dc")
+                    row["forward_resident"] = _last_dp(lib, "rrt_mha_wide_last_resident")
+                    A._launch_bwd(q, k, v, bias, g, h)
+                    wide_bwd = lib.rrt_mha_wide_bwd_last_dc
+                    row["backward_dc"] = [wide_bwd(0), wide_bwd(1)]
+                    row["backward_resident"] = _last_dp(lib, "rrt_mha_wide_bwd_last_resident")
+                row["forward_kernel_us"] = _kernel_us(torch, lambda: A.mha_kernel(q, k, v, bias, h))
+                row["backward_kernel_us"] = _kernel_us(
+                    torch, lambda: A._launch_bwd(q, k, v, bias, g, h))
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
             with torch.enable_grad():
                 out = cs._sdpa(torch, *leaves, bias, h)
                 backward = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
                 backward()
                 row["sdpa_backward_ms"] = _median_ms(torch, backward, before=spin)
+                row["sdpa_backend"] = _sdpa_backend(_kernel_us(
+                    torch, lambda: torch.autograd.grad(cs._sdpa(torch, *leaves, bias, h), leaves,
+                                                       g), n=2))
             print(json.dumps({"tag": tag, "kernel": "wide_heads", **row}), flush=True)
 
 

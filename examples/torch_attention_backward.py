@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The attention backward kernel (csrc/mha_bwd.cu) on the card: its
-registers, its gradients against the plain versions at the trainers'
-shapes and at the edge cases, its time beside the recompute it replaced
-and SDPA's backward, where the time of its bf16 route goes, and an A/B
-against another checkout's kernel.
+"""The attention backward kernels (csrc/mha_bwd.cu; past 256 columns
+csrc/mha_wide_bwd.cu) on the card: their registers, their gradients
+against the plain versions at the trainers' shapes and at the edge cases,
+their time beside the recompute they replaced and SDPA's backward, where
+the time goes, and an A/B against another checkout's kernel.
 
     python3 examples/torch_attention_backward.py [--no-time] [--breakdown]
         [--parent ROOT] [--sass]
@@ -81,6 +81,16 @@ Lines, after the card's name and power limit:
                wide_kc1, wide_kc4  f32 above 128 columns: one or four
                               k-steps a commit group of the split products
                               (two in the kernel)
+             and copies of csrc/mha_wide_bwd.cu (D > 256), each through its
+             own rrt_mha_wide_bwd at one head of 384 ((64, 512, 1, 384),
+             the work of (64, 512, 2, 192)) in bf16 and f32, their three
+             kernels' device µs apart (wide_stats, wide_dq, wide_dkv):
+               widebwd_full      the source as it is
+               widebwd_no_loads  the ring's next steps' copies out
+               widebwd_no_sdp    the S and dP (S^T, dP^T) products out
+               widebwd_no_grad   the dQ, dK and dV products out
+               widebwd_no_split  f32: the landed sub-tiles and chunks not
+                              split into hi and lo
              (every edit but the knobs leaves the results wrong)
   sass       (--sass) static SASS instructions per kernel by opcode
              (cuobjdump -sass of the "full" copy)
@@ -111,6 +121,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 CSRC = Path("review_recommender_tpu_torch") / "csrc" / "mha_bwd.cu"
 SRC = ROOT / CSRC
+WIDE_SRC = ROOT / "review_recommender_tpu_torch" / "csrc" / "mha_wide_bwd.cu"
 OUT = ROOT / "build" / "attention_backward"
 
 
@@ -134,12 +145,17 @@ CASES = ([("bfloat16", *s) for s in CS.TRAIN_SHAPES]
             ("float32", 3, 65, 2, 1), ("float32", 2, 129, 1, 256), ("float32", 2, 1024, 1, 33),
             ("float32", 4, 200, 2, 128), ("float32", 2, 300, 3, 64),
             ("float32", 2, 1, 1, 129), ("float32", 4, 70, 2, 192), ("float32", 3, 40, 1, 256),
-            ("float32", 2, 300, 1, 193), ("float32", 2, 1024, 1, 200)])
+            ("float32", 2, 300, 1, 193), ("float32", 2, 1024, 1, 200),
+            # past 256 columns: csrc/mha_wide_bwd.cu
+            ("bfloat16", 2, 130, 1, 384), ("float16", 3, 65, 2, 257), ("float32", 2, 130, 1, 384),
+            ("float32", 2, 63, 1, 1024), ("bfloat16", 2, 513, 1, 512)])
 # bf16 at 2 heads of 192, past the 128 columns of one warpgroup's tiles:
 # phase 19 (g)'s shape and the rerank batch's
 WIDE_SHAPES = [(32, 128, 2, 192), (64, 512, 2, 192)]
 # f32 above 128 columns: the rerank batch at 2 heads of 192 and at one of 256
 F32_WIDE_SHAPES = [(64, 512, 2, 192), (64, 512, 1, 256)]
+# past 256 columns (the widebwd copies): one head of 384, both types
+WIDE384_SHAPE = (64, 512, 1, 384)
 TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 DTYPE_CODE = {"bfloat16": 0, "float16": 1, "float32": 2}
 REPS, SPIN_CYCLES = 50, 200_000
@@ -372,14 +388,48 @@ EDITS = {
 }
 BREAKDOWN = ["no_overlap", "no_pdl", "no_exp", "softmax_only", "no_loads", "a_only",
              "a_only+no_loads", "one_warpgroup", "f32_no_lo", "f32_no_split", "f32_no_loads",
-             "wide_no_loads", "wide_no_split", "wide_no_sdp", "wide_no_grad", "wide_a_only"]
+             "wide_no_loads", "wide_no_split", "wide_no_sdp", "wide_no_grad", "wide_a_only",
+             "widebwd_full", "widebwd_no_loads", "widebwd_no_sdp", "widebwd_no_grad",
+             "widebwd_no_split"]
+
+
+def _wide_cut(src: str, lines: list) -> str:
+    """csrc/mha_wide_bwd.cu with each of `lines` (whole lines, each found
+    exactly once) taken out; raises if the source moved."""
+    for line in lines:
+        if src.count(line) != 1:
+            raise RuntimeError(f"{WIDE_SRC.name} changed: {line!r} found {src.count(line)} times")
+        src = src.replace(line, "")
+    return src
+
+
+WIDE_EDITS = {
+    "widebwd_full": lambda src: src,
+    "widebwd_no_loads": lambda src: _wide_cut(
+        src, ["    if (u + stages - 1 < nsteps) load_step(u + stages - 1);\n"]),
+    "widebwd_no_sdp": lambda src: _wide_cut(src, [
+        "    chunk_product<T, KC>(s, s_lo, smem, base, a1, st + P::kB1, P::kLo1, j == 0, wtid);\n",
+        "    chunk_product<T, KC>(dp, dp_lo, smem, base, a2, st + P::kB2, P::kLo2, j == 0, wtid);\n"]),
+    "widebwd_no_grad": lambda src: _wide_cut(src, [
+        "      grad_product<T, BT>(acc1, x, base + ch, base + clo);\n",
+        "      grad_product<T, BT>(acc2, x, base + ch + P::kCTile, base + clo + P::kCTile);\n",
+        "      grad_product<T, BT>(acc1, y, base + ch, base + clo);\n"]),
+    "widebwd_no_split": lambda src: _wide_cut(src, [
+        "      if (first) split_tf32<P::kSubB>(smem + st + P::kB1, smem + P::kLo1, wtid);\n",
+        "      if (last) split_tf32<P::kSubB>(smem + st + P::kB2, smem + P::kLo2, wtid);\n",
+        "        if (j == nk - 1) split_tf32<P::kWgChunks>(smem + ch, smem + clo, wtid);\n"]),
+}
 
 
 def variants(src: str, names: list) -> dict:
     """The breakdown's copies of mha_bwd.cu: each name is "full" or edits
-    joined by "+" (e.g. "no_overlap+a_only")."""
+    joined by "+" (e.g. "no_overlap+a_only"); a "widebwd" name is a copy of
+    csrc/mha_wide_bwd.cu (WIDE_EDITS)."""
     out = {}
     for name in names:
+        if name.startswith("widebwd"):
+            out[name] = WIDE_EDITS[name](WIDE_SRC.read_text())
+            continue
         text = src
         if name != "full":
             for edit in name.split("+"):
@@ -438,24 +488,25 @@ def build(texts: dict, headers: dict = None) -> dict:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.rrt_mha_bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P]
-        lib.rrt_mha_bwd.restype = I
+        entry = lib.rrt_mha_wide_bwd if name.startswith("widebwd") else lib.rrt_mha_bwd
+        entry.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P]
+        entry.restype = I
         out[name] = (lib, _ptxas_rows(log))
     return out
 
 
-def _launch(torch, lib, q, k, v, bias, g, h):
-    """(dq, dk, dv) from one library's rrt_mha_bwd, as ops/attention.py's
-    _launch_bwd calls it."""
+def _launch(torch, lib, q, k, v, bias, g, h, entry="rrt_mha_bwd"):
+    """(dq, dk, dv) from one library's rrt_mha_bwd (or rrt_mha_wide_bwd), as
+    ops/attention.py's _launch_bwd calls it."""
     b, s, hd = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     ws = torch.empty(3 * b * h * s, dtype=torch.float32, device=q.device)
-    err = lib.rrt_mha_bwd(DTYPE_CODE[str(q.dtype).split(".")[1]], q.data_ptr(), k.data_ptr(),
+    err = getattr(lib, entry)(DTYPE_CODE[str(q.dtype).split(".")[1]], q.data_ptr(), k.data_ptr(),
                           v.data_ptr(), bias.data_ptr(), g.data_ptr(), dq.data_ptr(),
                           dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), b, s, h, hd // h,
                           torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"rrt_mha_bwd: cudaError {err}")
+        raise RuntimeError(f"{entry}: cudaError {err}")
     return dq, dk, dv
 
 
@@ -511,9 +562,12 @@ def _kernel_us(torch, fn, n=20) -> dict:
     out = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        wide = re.search(r"mha_wide_bwd_kernel<[^,]+, (\d)", e.key)
         m = re.search(r"(mha_bwd_\w*?kernel)", e.key)
-        if t and m:
-            out[m.group(1)] = out.get(m.group(1), 0.0) + t / n
+        name = (("wide_stats", "wide_dq", "wide_dkv")[int(wide.group(1))] if wide
+                else m.group(1) if m else None)
+        if t and name:
+            out[name] = out.get(name, 0.0) + t / n
     return out
 
 
@@ -554,6 +608,8 @@ def breakdown(torch, libs: dict) -> None:
     ms behind a spin, each kernel's device µs from the profiler, host µs."""
     for name, shape, (q, k, v, bias, g) in _timed_shapes(torch):
         for variant, (lib, _rows) in libs.items():
+            if variant.startswith("widebwd"):
+                continue
             fam = variant.split("_")[0] if variant.startswith(("f32", "wide")) else "bf16"
             if variant not in ("full", "parent") and fam != _family(name, shape):
                 continue
@@ -565,6 +621,19 @@ def breakdown(torch, libs: dict) -> None:
             if "prof" in variant:
                 print(json.dumps({"prof": variant, "D": shape[3], **_prof_cycles(torch, lib, fn)}),
                       flush=True)
+    for name in ("bfloat16", "float32"):  # the copies of csrc/mha_wide_bwd.cu
+        q, k, v, bias, g = _timing_inputs(torch, 0, *WIDE384_SHAPE, getattr(torch, name))
+        for variant, (lib, _rows) in libs.items():
+            if not variant.startswith("widebwd") or (variant.endswith("split")
+                                                     and name != "float32"):
+                continue
+            fn = lambda lib=lib: _launch(torch, lib, q, k, v, bias, g, WIDE384_SHAPE[2],
+                                         entry="rrt_mha_wide_bwd")
+            b, s, h, d = WIDE384_SHAPE
+            print(json.dumps({"breakdown": variant, "dtype": name, "B": b, "S": s, "H": h,
+                              "D": d, "device_ms": _device_ms(torch, fn),
+                              "kernel_us": _kernel_us(torch, fn), "host_us": _host_us(torch, fn),
+                              "reps": REPS}), flush=True)
 
 
 def ab(torch, parent, change) -> None:
@@ -691,6 +760,10 @@ def main() -> int:
             if m:
                 brief[f"{m.group(1)} {m.group(2)[-6:]} DP={m.group(3)}"] = [
                     r.get("registers"), r.get("spill_stores")]
+            m = re.search(r"mha_wide_bwd_kernelI(\w*?)Li(\d)ELi(\d+)E", r.get("kernel", ""))
+            if m:
+                brief[f"mha_wide_bwd_kernel {m.group(1)[-6:]} KIND={m.group(2)} "
+                      f"DC={m.group(3)}"] = [r.get("registers"), r.get("spill_stores")]
         print(json.dumps({"variant_registers": name, **brief}), flush=True)
     failed = 0
     for case in CASES:

@@ -7,7 +7,8 @@
 // gradients of q, k, v (and of the key bias, which the towers build from
 // the mask and never differentiate: none here). Its domain is the
 // forward's (mha_fwd.cu, mha_generic.cu): f32, bf16 and f16, any head
-// width D from 1 to 256, any S >= 1, q, k, v, dout and the gradients
+// width D from 1 to 256 (wider heads are csrc/mha_wide_bwd.cu's), any S >=
+// 1, q, k, v, dout and the gradients
 // (B, S, H*D) row-major, read and written in place, key_bias (B, S) f32
 // (0 keep, -1e30 drop).
 //

@@ -7,7 +7,8 @@
 // type for any float type, head width and length. mha_fwd.cu takes bf16/f16
 // at D in {32, 64, 128}; ops/attention.py:kernel_route sends the rest here:
 //   - f32, bf16 and f16 inputs;
-//   - any head width D from 1 to 256 and any H*D row stride;
+//   - any head width D from 1 to 256 (wider heads are csrc/mha_wide.cu's)
+//     and any H*D row stride;
 //   - any S >= 1.
 // For each (batch, head) it computes softmax(Q K^T * 1/sqrt(d) + key_bias)
 // V with q, k, v and out (B, S, H*D) row-major, read in place, and key_bias

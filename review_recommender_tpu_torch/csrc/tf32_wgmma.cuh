@@ -1,5 +1,6 @@
 // TF32 helpers of the port's Hopper kernels that run f32 on the tensor cores
-// as 3xTF32 (csrc/mha_generic.cu, csrc/mha_bwd.cu, csrc/stage_a_wgmma.cu):
+// as 3xTF32 (csrc/mha_generic.cu, csrc/mha_bwd.cu, csrc/mha_wide.cuh's
+// kernels, csrc/stage_a_wgmma.cu):
 // the rounding of an f32 value to TF32 and wgmma m64nNk8 with f32
 // accumulators, A and B K-major from shared memory (N = 16, 32, 64) or A
 // from registers (N = 8, 16, 32, 64, 128); the size of the accumulator array
@@ -160,14 +161,15 @@ __device__ __forceinline__ uint32_t tf32_hi(float x) {
 // its warp's 16 rows (g = lane / 4, c = lane % 4: 32 consecutive words a
 // load, no bank conflict), splits them into hi = tf32(x) and lo = tf32(x -
 // hi) in registers, and issues lo*hi and hi*lo into x_lo and hi*hi into x
-// (each accumulator starts at zero). The A registers of an issued wgmma may
+// (each accumulator starts at zero, or, with first false, adds to what it
+// holds: a contraction taken in chunks). The A registers of an issued wgmma may
 // not change until it completes, so KC k-steps make one commit group and
 // each group's issue ends with a wait for the group before it: two groups'
 // registers are live, the newest group is in flight on return.
 template <int DP, int KC, int N>
 __device__ __forceinline__ void tf32_rs3_split(float (&x)[N], float (&x_lo)[N],
                                                const unsigned char* a_tile, uint64_t db,
-                                               uint64_t dbl, int tid) {
+                                               uint64_t dbl, int tid, bool first = true) {
   static_assert((DP / 8) % KC == 0, "whole commit groups");
   constexpr int G = 8 * DP * 4;  // bytes of an 8-row group
   const int warp = (tid / 32) % 4, lane = tid % 32;
@@ -192,9 +194,9 @@ __device__ __forceinline__ void tf32_rs3_split(float (&x)[N], float (&x_lo)[N],
 #pragma unroll
     for (int kk = 0; kk < KC; ++kk) {
       const int j = j0 + kk;
-      wgmma_rs_tf32(x_lo, lo[kk], db + 16 * j, j > 0);
+      wgmma_rs_tf32(x_lo, lo[kk], db + 16 * j, !first || j > 0);
       wgmma_rs_tf32(x_lo, hi[kk], dbl + 16 * j, 1);
-      wgmma_rs_tf32(x, hi[kk], db + 16 * j, j > 0);
+      wgmma_rs_tf32(x, hi[kk], db + 16 * j, !first || j > 0);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");

@@ -32,8 +32,8 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-# -I csrc: the sources include their shared header (tf32_wgmma.cuh), also
-# when a copy of one is built from another directory
+# -I csrc: the sources include their shared headers (tf32_wgmma.cuh,
+# mha_wide.cuh), also when a copy of one is built from another directory
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-I", str(CSRC_DIR)]
 
 _lock = threading.Lock()
@@ -122,9 +122,17 @@ def load() -> ctypes.CDLL:
             lib.rrt_mha_generic.restype = I
             lib.rrt_mha_bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P]
             lib.rrt_mha_bwd.restype = I
-            for fn in (lib.rrt_mha_generic_last_dp, lib.rrt_mha_bwd_last_dp):
+            for fn in (lib.rrt_mha_generic_last_dp, lib.rrt_mha_bwd_last_dp,
+                       lib.rrt_mha_wide_last_dc, lib.rrt_mha_wide_last_resident,
+                       lib.rrt_mha_wide_bwd_last_resident):
                 fn.argtypes = []
                 fn.restype = I
+            lib.rrt_mha_wide.argtypes = [I, P, P, P, P, P, P, I, I, I, I, P]
+            lib.rrt_mha_wide.restype = I
+            lib.rrt_mha_wide_bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P]
+            lib.rrt_mha_wide_bwd.restype = I
+            lib.rrt_mha_wide_bwd_last_dc.argtypes = [I]
+            lib.rrt_mha_wide_bwd_last_dc.restype = I
             F = ctypes.c_float
             lib.rrt_bm25_packed.argtypes = [P, P, P, P, F, P, I, I, I, P]
             lib.rrt_bm25_packed.restype = I

@@ -11,8 +11,12 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        csrc/mha_generic.cu (f32, bf16 and f16 at any D
                        from 1 to 256, on the tensor cores from tiles
                        zero-padded to padded_head_dim(D): bf16/f16 in two
-                       softmax passes, f32 as 3xTF32 in one online pass);
-                       any S >= 1 on both.
+                       softmax passes, f32 as 3xTF32 in one online pass),
+                       "wide" = csrc/mha_wide.cu (f32, bf16 and f16 at
+                       every D past 256: a statistics pass, then one CTA a
+                       64-row block and pair of output column chunks, the
+                       scores contracted over the whole D in chunks of 128
+                       columns, 64 in f32); any S >= 1 on all three.
                        Together they replace the TPU kernel `_mha_kernel`,
                        which takes any float type, head width and length
   mha_kernel           the route's CUDA kernel; where a gradient is asked
@@ -21,22 +25,32 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        formula: the q, k, v gradients from the saved
                        inputs and the upstream gradient, written out with
                        the roundings of autograd through mha_reference
-  backward_route       which route of csrc/mha_bwd.cu takes (dtype, D, S):
-                       "wgmma" (bf16/f16 at every D: wgmma, products in
-                       flight during the softmax work) or "tf32" (f32 at
-                       every D: wgmma as 3xTF32)
+  backward_route       which backward kernel takes (dtype, D, S): up to
+                       D = 256 csrc/mha_bwd.cu, "wgmma" (bf16/f16: wgmma,
+                       products in flight during the softmax work) or
+                       "tf32" (f32: wgmma as 3xTF32); past 256
+                       csrc/mha_wide_bwd.cu, "wide" (bf16/f16) or
+                       "wide_tf32" (f32), gradient columns in chunks
   padded_head_dim      the padded width of the generic and backward
-                       kernels' instance for a head width (the C entries
-                       rrt_mha_generic_last_dp / rrt_mha_bwd_last_dp report
-                       the instance a launch ran)
+                       kernels' instance for a head width up to 256 (the C
+                       entries rrt_mha_generic_last_dp / rrt_mha_bwd_last_dp
+                       report the instance a launch ran)
+  wide_column_chunks   the column chunks of the wide kernels for a head
+                       width past 256: the forward's output columns, the
+                       dQ kernel's and the dK / dV kernel's a CTA (the C
+                       entries rrt_mha_wide_last_dc / rrt_mha_wide_bwd_last_dc
+                       report the last launch's)
   multihead_attention  the towers' entry point: impl "auto" launches the
                        kernel for CUDA tensors and takes the reference for
                        CPU tensors (autograd through its torch ops);
                        "kernel" and "reference" force one
 
-On a CUDA tensor the route's kernel launches or the call raises (a head
-wider than 256 raises); the route depends on dtype and shape alone, and
-nothing falls back to the reference. The gradient follows the JAX custom_vjp
+On a CUDA tensor the route's kernel launches or the call raises; the route
+depends on dtype and shape alone, every head width D >= 1 has one, and
+nothing falls back to the reference. A batch past the kernels' grid limit
+of 65,535 runs as launches on contiguous slices of at most 65,535 rows
+(each slice a launch, counted); more than 65,535 heads are refused (the
+TPU kernel's grid takes them, no tower has them). The gradient follows the JAX custom_vjp
 (attention_kernel.py:132-154) in what it returns, the q, k and v gradients
 (the key bias, built from the mask, gets none), but not in how: where JAX
 re-runs the plain attention under jax.vjp, MhaKernelFn's backward is the
@@ -57,6 +71,7 @@ from review_recommender_tpu_torch import kernels
 # threads encode concurrently, so the counts are bumped under a lock.
 mha_kernel_launches = 0
 mha_generic_kernel_launches = 0
+mha_wide_kernel_launches = 0  # csrc/mha_wide.cu: a call's two kernels count one
 # Launches of the backward kernel (csrc/mha_bwd.cu), by route (backward_route:
 # "wgmma", "tf32"): one per kernel forward that a training step
 # differentiates. With remat (per-layer checkpointing) the backward first
@@ -64,14 +79,22 @@ mha_generic_kernel_launches = 0
 # each backward.
 mha_backward_kernel_launches = 0
 mha_backward_tf32_launches = 0
+# csrc/mha_wide_bwd.cu past D = 256: a call's three kernels count one
+mha_backward_wide_launches = 0
+mha_backward_wide_tf32_launches = 0
 _count_lock = threading.Lock()
 
 WGMMA_HEAD_DIMS = (32, 64, 128)  # csrc/mha_fwd.cu's TMA boxes and wgmma k-steps
-MAX_HEAD_DIM = 256  # csrc/mha_generic.cu's widest instance; no public BERT is wider
+# the widest head of the padded instances of csrc/mha_generic.cu and
+# csrc/mha_bwd.cu; wider heads take the wide kernels' column chunks
+MAX_HEAD_DIM = 256
 # the padded widths of the instances of csrc/mha_generic.cu and csrc/mha_bwd.cu
 PADDED_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+MAX_GRID_BATCH = 65535  # the kernels' grid.z: larger batches launch by slices
 BACKWARD_COUNTERS = {"wgmma": "mha_backward_kernel_launches",
-                     "tf32": "mha_backward_tf32_launches"}  # backward_route -> counter
+                     "tf32": "mha_backward_tf32_launches",
+                     "wide": "mha_backward_wide_launches",
+                     "wide_tf32": "mha_backward_wide_tf32_launches"}  # backward_route -> counter
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
@@ -81,40 +104,65 @@ def kernel_route(dtype: torch.dtype, d: int, s: int) -> str:
     bf16/f16 at d in WGMMA_HEAD_DIMS, "generic" (csrc/mha_generic.cu) for
     every other f32, bf16 or f16 case with 1 <= d <= MAX_HEAD_DIM (on the
     tensor cores at every d, f32 as three TF32 products a product, in the
-    instance of padded_head_dim(d) columns). Any s >= 1 runs on both.
-    Raises ValueError for anything else."""
+    instance of padded_head_dim(d) columns), "wide" (csrc/mha_wide.cu) for
+    all three at d > MAX_HEAD_DIM (output columns in wide_column_chunks).
+    Any s >= 1 runs on all three. Raises ValueError for another dtype, d < 1
+    or s < 1."""
     _check_domain(dtype, d, s)
+    if d > MAX_HEAD_DIM:
+        return "wide"
     if dtype != torch.float32 and d in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "generic"
 
 
 def backward_route(dtype: torch.dtype, d: int, s: int) -> str:
-    """The route of csrc/mha_bwd.cu that takes the backward of attention
-    over q/k/v of `dtype` with head width `d` and `s` keys: "wgmma" for
-    bf16/f16 and "tf32" for f32 (each product as three TF32 ones on the
-    tensor cores; above 128 columns the 64-row tiles split a k-step at a
-    time in registers), both at every d, in the instance of
-    padded_head_dim(d) columns. Same domain as kernel_route; raises
-    ValueError outside it."""
+    """The backward kernel's route for attention over q/k/v of `dtype` with
+    head width `d` and `s` keys. Up to d = MAX_HEAD_DIM csrc/mha_bwd.cu:
+    "wgmma" for bf16/f16 and "tf32" for f32 (each product as three TF32
+    ones on the tensor cores; above 128 columns the 64-row tiles split a
+    k-step at a time in registers), in the instance of padded_head_dim(d)
+    columns. Past it csrc/mha_wide_bwd.cu: "wide" for bf16/f16 and
+    "wide_tf32" for f32, gradient columns in wide_column_chunks. Same
+    domain as kernel_route; raises ValueError outside it."""
     _check_domain(dtype, d, s)
+    if d > MAX_HEAD_DIM:
+        return "wide" if dtype != torch.float32 else "wide_tf32"
     return "wgmma" if dtype != torch.float32 else "tf32"
 
 
 def padded_head_dim(d: int) -> int:
     """The padded head width DP of the instance of csrc/mha_generic.cu and
     csrc/mha_bwd.cu that takes head width d (1 <= d <= MAX_HEAD_DIM): the
-    least of PADDED_HEAD_DIMS that holds d. Raises ValueError outside."""
+    least of PADDED_HEAD_DIMS that holds d. Raises ValueError outside
+    (wider heads take the wide kernels: wide_column_chunks)."""
     if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"mha_kernel: head dim {d} not in 1..{MAX_HEAD_DIM}")
+        raise ValueError(f"mha_kernel: head dim {d} not in 1..{MAX_HEAD_DIM} of the padded "
+                         f"instances (past it the wide route: wide_column_chunks)")
     return next(w for w in PADDED_HEAD_DIMS if d <= w)
+
+
+def wide_column_chunks(dtype: torch.dtype, d: int) -> tuple[int, int, int]:
+    """The column chunks of the wide kernels at head width d > MAX_HEAD_DIM,
+    one chunk a CTA: (the forward's output columns, the dQ kernel's, the
+    dK / dV kernel's). bf16/f16 forward: the fewest chunks of at most 256
+    columns, 192 wide where they hold d; backward 192 and 128. f32: 192,
+    128 and 128. A CTA takes two chunks side by side. Raises ValueError for
+    d <= MAX_HEAD_DIM or another dtype."""
+    _check_domain(dtype, d, 1)
+    if d <= MAX_HEAD_DIM:
+        raise ValueError(f"mha_kernel: head dim {d} takes a padded instance (padded_head_dim)")
+    if dtype == torch.float32:
+        return 192, 128, 128
+    n = -(-d // 256)
+    return (192 if d <= 192 * n else 256), 192, 128
 
 
 def _check_domain(dtype: torch.dtype, d: int, s: int) -> None:
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"mha_kernel takes float32, bfloat16 or float16, got {dtype}")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"mha_kernel: head dim {d} not in 1..{MAX_HEAD_DIM}")
+    if d < 1:
+        raise ValueError(f"mha_kernel: head dim {d} < 1")
     if s < 1:
         raise ValueError(f"mha_kernel: sequence length {s} < 1")
 
@@ -171,8 +219,9 @@ def mha_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_kernel_args(q, k, v, key_bias, num_heads) -> tuple[int, int, int, int]:
-    """The checks both routes share: CUDA tensors on one device, one q/k/v
-    dtype, an f32 key bias, (B, S, H*D) shapes, contiguity."""
+    """The checks every route shares: CUDA tensors on one device, one q/k/v
+    dtype, an f32 key bias, (B, S, H*D) shapes, contiguity, at most 65,535
+    heads (the kernels' grid.y; any batch runs, by slices of grid.z)."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda and key_bias.is_cuda):
         raise ValueError("mha_kernel needs CUDA tensors (use mha_reference on the CPU)")
     if len({q.device, k.device, v.device, key_bias.device}) != 1:
@@ -190,16 +239,25 @@ def _check_kernel_args(q, k, v, key_bias, num_heads) -> tuple[int, int, int, int
         raise ValueError(f"mha_kernel: key_bias must be ({b}, {s}), got {tuple(key_bias.shape)}")
     if num_heads <= 0 or hd % num_heads:
         raise ValueError(f"mha_kernel: width {hd} is not a multiple of num_heads={num_heads}")
-    if b > 65535 or num_heads > 65535:
-        raise ValueError("mha_kernel: batch and heads must be <= 65535")
+    if num_heads > 65535:
+        raise ValueError("mha_kernel: heads must be <= 65535")
     for name, t in (("q", q), ("k", k), ("v", v), ("key_bias", key_bias)):
         if not t.is_contiguous():
             raise ValueError(f"mha_kernel: {name} must be contiguous")
     return b, s, num_heads, hd // num_heads
 
 
+def _batch_slices(b: int) -> list[tuple[int, int]]:
+    """[b0, b1) slices of at most MAX_GRID_BATCH rows that cover a batch."""
+    return [(b0, min(b, b0 + MAX_GRID_BATCH)) for b0 in range(0, b, MAX_GRID_BATCH)]
+
+
+_FORWARD = {"wgmma": ("rrt_mha_fwd", "mha_kernel_launches"),
+            "generic": ("rrt_mha_generic", "mha_generic_kernel_launches"),
+            "wide": ("rrt_mha_wide", "mha_wide_kernel_launches")}  # route -> entry, counter
+
+
 def _launch(q, k, v, key_bias, num_heads: int) -> torch.Tensor:
-    global mha_kernel_launches, mha_generic_kernel_launches
     b, s, h, d = _check_kernel_args(q, k, v, key_bias, num_heads)
     route = kernel_route(q.dtype, d, s)
     if route == "wgmma":
@@ -207,30 +265,31 @@ def _launch(q, k, v, key_bias, num_heads: int) -> torch.Tensor:
             if t.data_ptr() % 16:  # TMA's global address
                 raise ValueError(f"mha_kernel: {name} must be 16-byte aligned")
     lib = kernels.load()
-    entry, name = ((lib.rrt_mha_fwd, "mha_fwd") if route == "wgmma"
-                   else (lib.rrt_mha_generic, "mha_generic"))
+    entry_name, counter = _FORWARD[route]
+    entry = getattr(lib, entry_name)
     out = torch.empty_like(q)
+    # the wide route's row statistics (m, 1/l), reused by each slice in turn
+    ws = ([torch.empty(2 * min(b, MAX_GRID_BATCH) * h * s, dtype=torch.float32,
+                       device=q.device)] if route == "wide" else [])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = entry(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    key_bias.data_ptr(), out.data_ptr(), b, s, h, d, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
-                           f"at B={b} S={s} H={h} D={d} {q.dtype}")
-    with _count_lock:
-        if route == "wgmma":
-            mha_kernel_launches += 1
-        else:
-            mha_generic_kernel_launches += 1
+        for b0, b1 in _batch_slices(b):
+            ptrs = [t[b0:b1].data_ptr() for t in (q, k, v, key_bias, out)]
+            ptrs += [w.data_ptr() for w in ws]
+            err = entry(_DTYPE_CODE[q.dtype], *ptrs, b1 - b0, s, h, d, stream)
+            kernels.check_launch(entry_name[4:], err,
+                                 f"B={b1 - b0} (rows {b0}-{b1} of {b}) S={s} H={h} D={d} {q.dtype}")
+            with _count_lock:
+                globals()[counter] += 1
     return out
 
 
 def _launch_bwd(q, k, v, key_bias, g, num_heads: int):
     """csrc/mha_bwd.cu on CUDA tensors: (dq, dk, dv) of attention at (q, k,
     v, key_bias) against the upstream gradient `g` (contiguous, q's dtype
-    and shape). Launches on torch.cuda.current_stream(); raises if the
-    launch fails, never falls back to the reference."""
-    global mha_backward_kernel_launches, mha_backward_tf32_launches
+    and shape); csrc/mha_wide_bwd.cu past D = 256. Launches on
+    torch.cuda.current_stream(), by batch slices of at most MAX_GRID_BATCH
+    rows; raises if a launch fails, never falls back to the reference."""
     b, s, h, d = _check_kernel_args(q, k, v, key_bias, num_heads)
     route = backward_route(q.dtype, d, s)
     if g.device != q.device or g.dtype != q.dtype or g.shape != q.shape:
@@ -239,21 +298,20 @@ def _launch_bwd(q, k, v, key_bias, g, num_heads: int):
     if not g.is_contiguous():
         raise ValueError("mha_bwd: g must be contiguous")
     lib = kernels.load()
+    entry_name = "rrt_mha_wide_bwd" if route in ("wide", "wide_tf32") else "rrt_mha_bwd"
+    entry = getattr(lib, entry_name)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    ws = torch.empty(3 * b * h * s, dtype=torch.float32, device=q.device)  # m, l, Delta
+    # m, 1/l, Delta of each query row, reused by each slice in turn
+    ws = torch.empty(3 * min(b, MAX_GRID_BATCH) * h * s, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rrt_mha_bwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              key_bias.data_ptr(), g.data_ptr(), dq.data_ptr(),
-                              dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), b, s, h, d, stream)
-    if err != 0:
-        raise RuntimeError(f"mha_bwd kernel launch failed: cudaError {err} "
-                           f"at B={b} S={s} H={h} D={d} {q.dtype} ({route} route)")
-    with _count_lock:
-        if route == "wgmma":
-            mha_backward_kernel_launches += 1
-        else:
-            mha_backward_tf32_launches += 1
+        for b0, b1 in _batch_slices(b):
+            ptrs = [t[b0:b1].data_ptr() for t in (q, k, v, key_bias, g, dq, dk, dv)]
+            err = entry(_DTYPE_CODE[q.dtype], *ptrs, ws.data_ptr(), b1 - b0, s, h, d, stream)
+            kernels.check_launch(entry_name[4:], err, f"B={b1 - b0} (rows {b0}-{b1} of {b}) "
+                                 f"S={s} H={h} D={d} {q.dtype} ({route} route)")
+            with _count_lock:
+                globals()[BACKWARD_COUNTERS[route]] += 1
     return dq, dk, dv
 
 

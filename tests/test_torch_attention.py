@@ -7,8 +7,10 @@ and to the port's `mha_reference`. Tolerances are those of
 tests/test_attention.py: 1e-5 in float32, 2e-2 in bfloat16 (one bf16 ulp at
 magnitude ~2-4, where the two frameworks may round a probability or an
 output on opposite sides). The shapes include the head widths and lengths
-that only the generic CUDA route takes (D = 16, 26, 50; S = 600), and
-towers at TinyBERT_General_4L_312D's widths (D = 26) held to flax in f32.
+that only the generic CUDA route takes (D = 16, 26, 50; S = 600) and the
+wide route's (D = 257, 384), towers at TinyBERT_General_4L_312D's widths
+(D = 26) held to flax in f32, and random_for_dim(514)'s tower (2 heads of
+257) held to the JAX tower.
 The CUDA kernels themselves are held against `mha_reference` on the card
 (tests/test_torch_gpu.py, chip_smoke.py).
 """
@@ -19,8 +21,11 @@ import pytest
 import torch
 
 from review_recommender_tpu.models import bert as jbert
+from review_recommender_tpu.models import encoder as jenc
 from review_recommender_tpu.ops.pallas.attention_kernel import mha_pallas, mha_xla
 from review_recommender_tpu_torch.models import bert as tbert
+from review_recommender_tpu_torch.models import encoder as tenc
+from review_recommender_tpu_torch.models.tokenizer import HashTokenizer
 from review_recommender_tpu_torch.models.convert import params_from_flax
 from review_recommender_tpu_torch.ops import attention as tatt
 
@@ -77,17 +82,21 @@ def test_reference_bf16_matches_jax(b, s, heads, head_dim):
 
 # (head width, length): BertConfig.tiny()'s D = 16, TinyBERT-4L-312D's
 # D = 26, random_for_dim(100)'s D = 50, 600 keys (past the first kernel's
-# 512), and the widest heads, D = 192 (bge-small's width in 2 heads) and
-# 256, which the generic kernel pads to 192 / 256 columns in bf16/f16
-GENERIC_SHAPES = [(16, 64), (26, 40), (50, 70), (32, 600), (192, 40), (256, 33)]
+# 512), the widest padded heads, D = 192 (bge-small's width in 2 heads) and
+# 256, which the generic kernel pads to 192 / 256 columns in bf16/f16, and
+# the wide route's D = 257 (random_for_dim(514)) and 384 (bge-small's width
+# in one head)
+GENERIC_SHAPES = [(16, 64), (26, 40), (50, 70), (32, 600), (192, 40), (256, 33), (257, 65),
+                  (384, 40)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("head_dim,s", GENERIC_SHAPES)
 def test_reference_matches_jax_at_generic_route_shapes(dtype, head_dim, s):
-    """The plain version of both CUDA routes against the TPU kernel in
+    """The plain version of the CUDA routes against the TPU kernel in
     interpret mode and mha_xla, at the widths and lengths only the generic
-    route (and, at S = 600, the wgmma route past 512 keys) takes."""
+    route (and, at S = 600, the wgmma route past 512 keys) or the wide route
+    (D > 256) takes."""
     b, heads = 2, (2 if s > 512 else 3)
     arrs = _inputs(head_dim * 1000 + s, b, s, heads * head_dim)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
@@ -141,25 +150,72 @@ def _mha_3xtf32(q, k, v, bias, heads, mm=_mm_3xtf32):
     return (o / l).permute(0, 2, 1, 3).reshape(b, s, hd)
 
 
+def _mm_3xtf32_chunked(a: torch.Tensor, b: torch.Tensor, eq: str, kc: int = 64) -> torch.Tensor:
+    """einsum(eq, a, b) contracted over the last axis of both as the wide
+    kernels (csrc/mha_wide.cuh: chunk_product) form it: k-chunks of 64
+    columns, the small terms (lo*hi + hi*lo) and hi*hi each summed over
+    every chunk in a sum of its own, the two added at the end."""
+    small = big = 0.0
+    for c0 in range(0, a.shape[-1], kc):
+        ac, bc = a[..., c0:c0 + kc], b[..., c0:c0 + kc]
+        ah, bh = _tf32(ac), _tf32(bc)
+        al, bl = _tf32(ac - ah), _tf32(bc - bh)
+        small = small + (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl))
+        big = big + torch.einsum(eq, ah, bh)
+    return big + small
+
+
+def _mha_wide_3xtf32(q, k, v, bias, heads, mm=_mm_3xtf32, score_mm=_mm_3xtf32_chunked):
+    """csrc/mha_wide.cu's f32 arithmetic in torch: the statistics pass over
+    key tiles of 64 (scores contracted in chunks, (q . k) * scale + bias,
+    the running max and sum), then the output pass over key tiles of 32:
+    each tile's scores again, P = exp(s - m) * (1/l), P V as 3xTF32 added
+    to O tile by tile."""
+    b, s, hd = q.shape
+    d = hd // heads
+    split = lambda t: t.reshape(b, s, heads, d).permute(0, 2, 1, 3)  # (B, H, S, D)
+    qh, kh, vh = split(q), split(k), split(v)
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
+    tile = 32
+    logits = lambda k0, n: (score_mm(qh, kh[:, :, k0:k0 + n], "bhqd,bhkd->bhqk") * scale
+                            + bias[:, None, None, k0:k0 + n])
+    m = torch.full((b, heads, s, 1), float("-inf"))
+    l = torch.zeros(b, heads, s, 1)
+    for k0 in range(0, s, 2 * tile):
+        x = logits(k0, 2 * tile)
+        mx = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        l = l * torch.exp(m - mx) + torch.exp(x - mx).sum(dim=-1, keepdim=True)
+        m = mx
+    inv_l = 1.0 / l
+    o = torch.zeros(b, heads, s, d)
+    for k0 in range(0, s, tile):
+        p = torch.exp(logits(k0, tile) - m) * inv_l
+        o = o + mm(p, vh[:, :, k0:k0 + tile], "bhqk,bhkd->bhqd")
+    return o.permute(0, 2, 1, 3).reshape(b, s, hd)
+
+
 @pytest.mark.parametrize("head_dim,s", [(16, 64), (26, 40), (50, 70), (256, 129), (26, 600),
-                                        (192, 130), (129, 65)])
+                                        (192, 130), (129, 65), (384, 65), (1024, 40)])
 def test_3xtf32_split_holds_the_f32_tolerance(head_dim, s):
-    """The f32 route's 3xTF32 products and online softmax, emulated in torch
-    on the CPU, against mha_reference within the route's 1e-5 (no card is
-    needed to show that the split can hold it), a row masked but one key
-    and an all-masked row included; plain single TF32 products do not hold
-    it."""
-    b, heads = 2, (2 if s > 512 else 3)
+    """The f32 route's 3xTF32 products and softmax, emulated in torch on the
+    CPU, against mha_reference within the route's 1e-5 (no card is needed to
+    show that the split can hold it), a row masked but one key and an
+    all-masked row included; plain single TF32 products do not hold it.
+    Past 256 columns the wide kernel's order: the scores contracted in
+    chunks of 64 with the small terms and hi*hi apart, two passes."""
+    b, heads = 2, (2 if s > 512 else 1 if head_dim > 512 else 3)
     q, k, v, bias = _torch(_inputs(head_dim * 31 + s, b, s, heads * head_dim), torch.float32)
     bias[0] = -1e30
     bias[0, 1] = 0.0
     ref = tatt.mha_reference(q, k, v, bias, heads)
-    got = _mha_3xtf32(q, k, v, bias, heads)
+    emulate = _mha_wide_3xtf32 if head_dim > tatt.MAX_HEAD_DIM else _mha_3xtf32
+    got = emulate(q, k, v, bias, heads)
     assert (got - ref).abs().max().item() <= 1e-5
     mean_v = v[1].mean(dim=0)
     assert (got[1] - mean_v[None, :]).abs().max().item() <= 1e-5
-    one = _mha_3xtf32(q, k, v, bias, heads,
-                      mm=lambda a, c, eq: torch.einsum(eq, _tf32(a), _tf32(c)))
+    single = lambda a, c, eq: torch.einsum(eq, _tf32(a), _tf32(c))
+    one = (_mha_wide_3xtf32(q, k, v, bias, heads, mm=single, score_mm=single)
+           if head_dim > tatt.MAX_HEAD_DIM else _mha_3xtf32(q, k, v, bias, heads, mm=single))
     assert (one - ref).abs().max().item() > 1e-5
 
 
@@ -174,11 +230,47 @@ def test_kernel_route_by_dtype_and_head_width(dtype, d):
         assert tatt.kernel_route(torch.float32, d, s) == "generic"
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("d", [257, 320, 384, 512, 1024])
+def test_kernel_route_past_256_is_the_wide_route(dtype, d):
+    """Every dtype past 256 columns takes csrc/mha_wide.cu forward and
+    csrc/mha_wide_bwd.cu backward at every length, in the column chunks
+    the C entries use."""
+    for s in (1, 63, 65, 512, 4096):
+        assert tatt.kernel_route(dtype, d, s) == "wide"
+        assert tatt.backward_route(dtype, d, s) == ("wide_tf32" if dtype == torch.float32
+                                                    else "wide")
+    fwd, dq, dkv = tatt.wide_column_chunks(dtype, d)
+    if dtype == torch.float32:
+        assert (fwd, dq, dkv) == (192, 128, 128)
+    else:
+        assert (dq, dkv) == (192, 128)
+        assert fwd == {257: 192, 320: 192, 384: 192, 512: 256, 1024: 256}[d]
+        assert -(-d // fwd) == -(-d // 256)  # no more chunks than 256 columns each take
+
+
+@pytest.mark.parametrize("b", [1, 65_535, 65_536, 65_537, 200_000])
+def test_batch_slices_cover_any_batch(b):
+    """A batch past the kernels' grid limit (grid.z <= 65,535) launches on
+    contiguous slices of at most MAX_GRID_BATCH rows that cover it once, in
+    order."""
+    slices = tatt._batch_slices(b)
+    assert slices[0][0] == 0 and slices[-1][1] == b
+    assert all(hi - lo <= tatt.MAX_GRID_BATCH and hi > lo for lo, hi in slices)
+    assert all(a[1] == z[0] for a, z in zip(slices, slices[1:]))
+    assert len(slices) == -(-b // 65_535)
+
+
 def test_kernel_route_refusals():
-    for d in (0, 257, 512):
+    """D < 1, S < 1 and other dtypes are refused; D = 257 and 512, refused
+    before the wide kernels, take the wide route."""
+    for d in (0, -1):
         for dtype in (torch.float32, torch.bfloat16):
             with pytest.raises(ValueError, match="head dim"):
                 tatt.kernel_route(dtype, d, 16)
+    for d in (257, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert tatt.kernel_route(dtype, d, 16) == "wide"
     for dtype in (torch.float64, torch.int32, torch.float8_e4m3fn):
         with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
             tatt.kernel_route(dtype, 32, 16)
@@ -221,6 +313,25 @@ def test_tinybert_width_towers_match_flax(kind):
         got = model.eval()(*(torch.from_numpy(x) for x in (ids, mask, tt)))
     assert got.shape == ((b, 312) if kind == "biencoder" else (b,))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+def test_random_for_dim_514_tower_matches_jax():
+    """BiEncoder.random_for_dim(514) (2 heads of 257, the wide route's on
+    the card) through the port's CPU path against the JAX tower with its
+    weights carried over by params_from_flax, in f32: within 1e-4
+    (tests/test_torch_models.py's tower bound)."""
+    jbe = jenc.BiEncoder.random_for_dim(514, seed=5, dtype=jnp.float32)
+    assert (jbe.cfg.hidden_size, jbe.cfg.num_heads) == (514, 2)
+    cfg = tbert.BertConfig(**vars(jbe.cfg))
+    tbe = tenc.BiEncoder(cfg, params_from_flax(jax.tree.map(np.asarray, jbe.params), jbe.cfg,
+                                               "biencoder"),
+                         HashTokenizer(cfg.vocab_size), device="cpu", dtype=torch.float32)
+    port = tenc.BiEncoder.random_for_dim(514, seed=5, device="cpu")
+    assert (port.cfg.hidden_size, port.cfg.num_heads) == (514, 2)
+    texts = ["wireless headphones with a long battery", "t12 t345", "yellow socks"]
+    got, want = tbe.encode(texts), jbe.encode(texts)
+    assert got.shape == (3, 514)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_all_masked_rows_are_uniform():

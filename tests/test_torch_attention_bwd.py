@@ -10,17 +10,30 @@ order), 2e-2 in bf16 (one bf16 ulp at magnitude 2-4: the frameworks may
 round dP, P and the gradients on opposite sides). The kernel
 itself is held to the same function on the card (tests/test_torch_gpu.py,
 chip_smoke.py phase 15); its f32 route's arithmetic (3xTF32 products,
-log2 units, kernel A's one pass and kernel B's query tiles) is emulated
-in torch here and held to the card tests' 1e-4.
+log2 units, kernel A's one pass and kernel B's query tiles), and past 256
+columns that of csrc/mha_wide_bwd.cu (the scores contracted in chunks of
+64 columns, the statistics pass, then dQ and dK / dV from the stored
+statistics), is emulated in torch here and held to the card tests' 1e-4.
+A ContrastiveTrainer step with one head of 384 (the wide route's on the
+card) is held to the JAX trainer's step.
 """
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from review_recommender_tpu.models import bert as jbert
 from review_recommender_tpu.ops.pallas.attention_kernel import _mha_bwd
+from review_recommender_tpu.train import contrastive as jcon
+from review_recommender_tpu_torch.models.bert import BertConfig
+from review_recommender_tpu_torch.models.convert import flax_from_params, params_from_flax
 from review_recommender_tpu_torch.ops import attention as tatt
-from tests.test_torch_attention import _mm_3xtf32, _tf32
+from review_recommender_tpu_torch.train import contrastive as pcon
+from tests import torch_train_cases as C
+from tests.test_torch_attention import _mm_3xtf32, _mm_3xtf32_chunked, _tf32
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -54,7 +67,8 @@ def _assert_close(got, ref, tol, what):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s", [1, 20, 65, 130])
-@pytest.mark.parametrize("d", [16, 26, 32, 64, 192, 256])  # 192, 256: the widest heads
+# 192, 256: the widest padded heads; 257, 384: the wide route's
+@pytest.mark.parametrize("d", [16, 26, 32, 64, 192, 256, 257, 384])
 def test_backward_reference_matches_jax_mha_bwd(dtype, s, d):
     heads, b = 2, 3
     arrs = _inputs(1000 * d + s, b, s, heads * d)
@@ -111,6 +125,9 @@ def test_masked_key_gets_no_value_gradient():
     (torch.bfloat16, 1, "wgmma"), (torch.float16, 128, "wgmma"), (torch.bfloat16, 129, "wgmma"),
     (torch.float16, 256, "wgmma"), (torch.float32, 32, "tf32"), (torch.float32, 1, "tf32"),
     (torch.float32, 128, "tf32"), (torch.float32, 129, "tf32"), (torch.float32, 256, "tf32"),
+    (torch.bfloat16, 257, "wide"), (torch.float16, 384, "wide"), (torch.bfloat16, 1024, "wide"),
+    (torch.float32, 257, "wide_tf32"), (torch.float32, 384, "wide_tf32"),
+    (torch.float32, 1024, "wide_tf32"),
 ])
 def test_backward_route_table(dtype, d, route):
     assert tatt.backward_route(dtype, d, 1) == route
@@ -180,18 +197,78 @@ def _mha_bwd_3xtf32(q, k, v, bias, g, heads, mm=_mm_3xtf32):
     return join(dq), join(dk), join(dv)
 
 
+def _mha_wide_bwd_3xtf32(q, k, v, bias, g, heads, mm=_mm_3xtf32, score_mm=_mm_3xtf32_chunked):
+    """The f32 route of csrc/mha_wide_bwd.cu in torch: logits in log2
+    units, the scores S and dP contracted in chunks of 64 columns (small
+    terms and hi*hi apart), 3xTF32 gradient products. Kernel 0 walks key
+    tiles of 32: the running max m, l = sum of e = 2^(s - m) and the sum of
+    e * dP; 1/l and Delta = sum(e dP) / l. Kernel 1 walks them again: P =
+    2^(s - m) / l, dS = P (dP - Delta), dQ += dS K. Kernel 2 walks query
+    tiles of 16: P^T, dV += P^T dO, dS^T, dK += dS^T Q. Returns (dq, dk,
+    dv), (B, S, H*D)."""
+    b, s, hd = q.shape
+    d = hd // heads
+    split = lambda t: t.reshape(b, s, heads, d).permute(0, 2, 1, 3)  # (B, H, S, D)
+    qh, kh, vh, gh = split(q), split(k), split(v), split(g)
+    log2e = 1.4426950408889634
+    scale = torch.tensor(log2e, dtype=torch.float32) / torch.sqrt(torch.tensor(float(d)))
+    dscale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+    kb = (bias * log2e)[:, None, None, :]  # (B, 1, 1, S): the keys' bias, log2 units
+    bt_a, bt_b = 32, 16
+
+    def scores(k0):
+        kt, vt = kh[:, :, k0:k0 + bt_a], vh[:, :, k0:k0 + bt_a]
+        return (score_mm(qh, kt, "bhqd,bhkd->bhqk") * scale + kb[..., k0:k0 + bt_a],
+                score_mm(gh, vt, "bhqd,bhkd->bhqk"), kt)
+
+    m = torch.full((b, heads, s, 1), float("-inf"))
+    l = torch.zeros(b, heads, s, 1)
+    dl = torch.zeros(b, heads, s, 1)
+    for k0 in range(0, s, bt_a):
+        logit, dp, _kt = scores(k0)
+        mx = torch.maximum(m, logit.amax(dim=-1, keepdim=True))
+        a = torch.exp2(m - mx)
+        m = mx
+        e = torch.exp2(logit - m)
+        l = l * a + e.sum(dim=-1, keepdim=True)
+        dl = dl * a + (e * dp).sum(dim=-1, keepdim=True)
+    inv_l = 1.0 / l
+    delta = dl * inv_l
+    dq = torch.zeros(b, heads, s, d)
+    for k0 in range(0, s, bt_a):
+        logit, dp, kt = scores(k0)
+        p = torch.exp2(logit - m) * inv_l
+        dq = dq + mm(p * (dp - delta), kt, "bhqk,bhkd->bhqd")
+    dq = dq * dscale
+    dk = torch.zeros(b, heads, s, d)
+    dv = torch.zeros(b, heads, s, d)
+    for q0 in range(0, s, bt_b):
+        qt, gt = qh[:, :, q0:q0 + bt_b], gh[:, :, q0:q0 + bt_b]
+        st = score_mm(kh, qt, "bhkd,bhqd->bhkq") * scale + kb.transpose(-1, -2)
+        mt, it, dt = (t[:, :, q0:q0 + bt_b].transpose(-1, -2) for t in (m, inv_l, delta))
+        pt = torch.exp2(st - mt) * it
+        dv = dv + mm(pt, gt, "bhkq,bhqd->bhkd")
+        dst = pt * (score_mm(vh, gt, "bhkd,bhqd->bhkq") - dt)
+        dk = dk + mm(dst, qt, "bhkq,bhqd->bhkd")
+    dk = dk * dscale
+    join = lambda t: t.permute(0, 2, 1, 3).reshape(b, s, hd)
+    return join(dq), join(dk), join(dv)
+
+
 @pytest.mark.parametrize("s", [1, 65, 130])
-@pytest.mark.parametrize("d", [129, 192, 256])
+@pytest.mark.parametrize("d", [129, 192, 256, 384, 1024])
 def test_3xtf32_backward_holds_the_f32_tolerance(d, s):
     """The f32 route of csrc/mha_bwd.cu at head widths 129-256 (the key and
-    query tiles its plans take there), emulated in torch on the CPU, against
-    mha_backward_reference and JAX's _mha_bwd within the card tests' 1e-4 of
-    max(1, max |ref|), a row masked but one key and an all-masked row
-    included; single TF32 products miss that bar."""
-    heads, b = 2, 3
+    query tiles its plans take there), and of csrc/mha_wide_bwd.cu past 256
+    (chunked scores, the three kernels' order), emulated in torch on the
+    CPU, against mha_backward_reference and JAX's _mha_bwd within the card
+    tests' 1e-4 of max(1, max |ref|), a row masked but one key and an
+    all-masked row included; single TF32 products miss that bar."""
+    heads, b = (2, 3) if d <= 512 else (1, 2)
     arrs = _inputs(700 * d + s, b, s, heads * d)
     q, k, v, bias, g = _torch(arrs, torch.float32)
-    got = _mha_bwd_3xtf32(q, k, v, bias, g, heads)
+    wide = d > tatt.MAX_HEAD_DIM
+    got = (_mha_wide_bwd_3xtf32 if wide else _mha_bwd_3xtf32)(q, k, v, bias, g, heads)
     plain = tatt.mha_backward_reference(q, k, v, bias, g, heads)
     jq, jk, jv, jg = (jnp.asarray(x) for x in (arrs[0], arrs[1], arrs[2], arrs[4]))
     jax_ref = _mha_bwd(heads, True, (jq, jk, jv, jnp.asarray(arrs[3])), jg)
@@ -199,8 +276,9 @@ def test_3xtf32_backward_holds_the_f32_tolerance(d, s):
         assert torch.isfinite(x).all()
         _assert_close(x.numpy(), r.numpy(), 1e-4, name)
         _assert_close(x.numpy(), np.asarray(jr), 1e-4, name)
-    one = _mha_bwd_3xtf32(q, k, v, bias, g, heads,
-                          mm=lambda a, c, eq: torch.einsum(eq, _tf32(a), _tf32(c)))
+    single = lambda a, c, eq: torch.einsum(eq, _tf32(a), _tf32(c))
+    one = (_mha_wide_bwd_3xtf32(q, k, v, bias, g, heads, mm=single, score_mm=single) if wide
+           else _mha_bwd_3xtf32(q, k, v, bias, g, heads, mm=single))
     worst = max(float((x - r).abs().max()) / max(1.0, float(r.abs().max()))
                 for x, r in zip(one, plain))
     assert worst > 1e-4
@@ -216,21 +294,62 @@ def test_padded_head_dim(d, dp):
 
 
 def test_padded_head_dim_refuses_what_the_kernels_refuse():
+    """D < 1 is refused by every kernel; D = 257 and 512 have no padded
+    instance: the wide kernels take them in column chunks, which
+    wide_column_chunks reports (and refuses for a padded width)."""
     for d in (0, -1, 257, 512):
         with pytest.raises(ValueError, match="head dim"):
             tatt.padded_head_dim(d)
+    assert tatt.wide_column_chunks(torch.bfloat16, 257) == (192, 192, 128)
+    assert tatt.wide_column_chunks(torch.float16, 512) == (256, 192, 128)
+    assert tatt.wide_column_chunks(torch.float32, 512) == (192, 128, 128)
+    for dtype, d in ((torch.bfloat16, 256), (torch.float32, 1), (torch.float64, 384)):
+        with pytest.raises(ValueError):
+            tatt.wide_column_chunks(dtype, d)
 
 
 def test_backward_route_refuses_what_the_forward_refuses():
+    """Other dtypes, D < 1 and S < 1 are refused by both routes; D = 257,
+    refused before the wide kernels, takes the wide route both ways."""
     for dtype, d, s in ((torch.int32, 32, 8), (torch.float64, 32, 8), (torch.bfloat16, 0, 8),
-                        (torch.bfloat16, 257, 8), (torch.float32, 32, 0)):
+                        (torch.float32, 32, 0)):
         with pytest.raises(ValueError):
             tatt.backward_route(dtype, d, s)
         with pytest.raises(ValueError):
             tatt.kernel_route(dtype, d, s)
+    assert tatt.backward_route(torch.bfloat16, 257, 8) == "wide"
+    assert tatt.kernel_route(torch.bfloat16, 257, 8) == "wide"
 
 
 def test_backward_cost_model():
     b, s, h, d = 32, 256, 12, 32
     assert tatt.attention_backward_flops(b, s, h, d) == 2.5 * tatt.attention_flops(b, s, h, d)
     assert tatt.attention_backward_bytes(b, s, h, d, 2) == 7 * b * s * h * d * 2 + 4 * b * s
+
+
+def test_contrastive_step_with_one_head_of_384_matches_jax():
+    """One ContrastiveTrainer step of a 2-layer tower with one head of 384
+    (rrt train --hidden 384 --head-dim 384's geometry; the wide route on
+    the card) on the port's CPU path against the JAX trainer from the same
+    flax init carried over by params_from_flax: loss within 1e-5, every
+    gradient within tests/test_torch_train.py's 1e-5 rel / 1e-6 abs."""
+    jcfg = dataclasses.replace(C.JCFG, hidden_size=384, num_layers=2, num_heads=1,
+                               intermediate_size=384)
+    cfg = BertConfig(**vars(jcfg))
+    _, params = jbert.init_biencoder(jcfg, seed=7, dtype=jnp.float32)
+    params = jax.tree.map(np.asarray, params)
+    tc = {"learning_rate": 1e-3}
+    jtr = jcon.ContrastiveTrainer(jcfg, jax.tree.map(jnp.asarray, params),
+                                  train_cfg=jcon.TrainConfig(**tc), dtype=jnp.float32)
+    ptr = pcon.ContrastiveTrainer(cfg, params_from_flax(params, cfg, "biencoder"),
+                                  train_cfg=pcon.TrainConfig(**tc), dtype=torch.float32,
+                                  device="cpu")
+    batch = C.batch("contrastive")
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jtr._loss, has_aux=True))(
+        jtr.params, *map(jnp.asarray, batch))
+    ploss, _ = ptr._loss(*ptr._tensors(batch))
+    ploss.backward()
+    pgrads = flax_from_params({n: p.grad for n, p in ptr.model.named_parameters()}, cfg,
+                              "biencoder")
+    assert abs(ploss.item() - float(jloss)) <= 1e-5
+    C.assert_trees_close(pgrads, jax.tree.map(np.asarray, jgrads), rtol=1e-5, atol=1e-6)

@@ -15,7 +15,11 @@ the exponentials by the f32 row sum before they round the probabilities to
 the input type, as the reference does, so a probability differs from the
 reference's only where its f32 value lies within an ulp or two of a
 rounding boundary. The tensor-core route (bf16/f16 at D = 32, 64, 128) runs
-past 512 keys; the generic route takes f32/bf16/f16 at any D from 1 to 256. BM25: bitwise equal scores (tf_q
+past 512 keys; the generic route takes f32/bf16/f16 at any D from 1 to 256,
+the wide route (csrc/mha_wide.cu, csrc/mha_wide_bwd.cu) every D past 256,
+forward and backward (D = 257-1,024, S = 1-513, the column chunks each
+launch reports, a tower trained through `rrt train --hidden 384 --head-dim
+384`), and a batch past 65,535 rows runs as launches on slices. BM25: bitwise equal scores (tf_q
 sums integers; every other step is rounded alone, in the reference's order).
 Stage A: winner scores within 1e-5 (exact bf16/f32 products summed in f32 in
 another order than cuBLAS's); a winner id may differ only where the plain
@@ -175,8 +179,9 @@ def _launches():
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
     """D = 16, f32 and S = 513, refused by the first kernel, now run (the
-    generic route, the generic route, the tensor-core route past 512 keys);
-    a non-contiguous input and a head wider than 256 are refused."""
+    generic route, the generic route, the tensor-core route past 512 keys),
+    and so does a head wider than 256, refused before the wide route (one
+    launch of csrc/mha_wide.cu); a non-contiguous input is refused."""
     q, k, v, bias = _inputs(0, 2, 16, 4 * 32, torch.bfloat16, cuda)
     for args, heads, tol, route in (((q, k, v), 8, 2e-2, "generic"),  # D = 16
                                     ((q.float(), k.float(), v.float()), 4, 1e-5, "generic")):
@@ -198,9 +203,14 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     torch.cuda.synchronize()
     assert (got.float() - ref.float()).abs().max().item() <= 2e-2
     assert _launches() == (before[0] + 1, before[1])
-    wide = torch.zeros(1, 4, 257, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        tatt.mha_kernel(wide, wide, wide, torch.zeros(1, 4, device=cuda), 1)
+    wide = _inputs(2, 1, 4, 257, torch.bfloat16, cuda)[0]
+    wide_launches = tatt.mha_wide_kernel_launches
+    with torch.inference_mode():
+        got = tatt.mha_kernel(wide, wide, wide, torch.zeros(1, 4, device=cuda), 1)
+        ref = tatt.mha_reference(wide, wide, wide, torch.zeros(1, 4, device=cuda), 1)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+    assert tatt.mha_wide_kernel_launches == wide_launches + 1
     assert _launches() == (before[0] + 1, before[1])
     qg = q.clone().requires_grad_(True)
     launches, backward = tatt.mha_kernel_launches, _bwd_launches()
@@ -214,14 +224,17 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         1.0, want.float().abs().max().item())
 
 
+BWD_ROUTES = ("wgmma", "tf32", "wide", "wide_tf32")
+
+
 def _bwd_launches():
-    """The backward kernel's launches by route: (wgmma, tf32)."""
-    return (tatt.mha_backward_kernel_launches, tatt.mha_backward_tf32_launches)
+    """The backward kernels' launches by route (BWD_ROUTES' order)."""
+    return tuple(getattr(tatt, tatt.BACKWARD_COUNTERS[r]) for r in BWD_ROUTES)
 
 
 def _bwd_plus(counts, route, n=1):
     """`counts` (of _bwd_launches) with n more launches of `route`."""
-    return tuple(c + n * (r == route) for c, r in zip(counts, ("wgmma", "tf32")))
+    return tuple(c + n * (r == route) for c, r in zip(counts, BWD_ROUTES))
 
 
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -495,6 +508,119 @@ def test_f32_wide_heads_launch_the_tensor_core_instances(cuda, d, dp):
     torch.cuda.synchronize()
     assert _launches() == (before[0], before[1] + 1)
     assert _bwd_launches() == _bwd_plus(backward, "tf32")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("d", [257, 320, 384, 511, 512, 1024])
+@pytest.mark.parametrize("s", [1, 63, 65, 513])
+def test_wide_kernels_match_the_plain_versions(cuda, dtype, d, s):
+    """The wide route past 256 columns (csrc/mha_wide.cu forward,
+    csrc/mha_wide_bwd.cu backward) against mha_reference and
+    mha_backward_reference: the output within 2e-2 (bf16/f16) / 1e-5 (f32),
+    the all-masked row (batch row 2) uniform over the S keys, the
+    gradients within 2e-2 / 1e-4 of max(1, max |ref|) of the plain version
+    and of autograd through mha_reference (row 0 masked but one key); one
+    launch of each wide kernel, none of another, and the column chunks the
+    C entries report are wide_column_chunks'."""
+    from review_recommender_tpu_torch import kernels
+
+    b, heads = 3, 2 if d <= 512 else 1
+    q, k, v, bias = _inputs(d * 17 + s, b, s, heads * d, dtype, cuda)
+    bias = _masked_but_one(bias)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d + s),
+                    device=cuda).to(dtype)
+    assert tatt.kernel_route(dtype, d, s) == "wide"
+    route = tatt.backward_route(dtype, d, s)
+    before, wide, backward = _launches(), tatt.mha_wide_kernel_launches, _bwd_launches()
+    with torch.inference_mode():
+        got = tatt.multihead_attention(q, k, v, bias, heads)
+        ref = tatt.mha_reference(q, k, v, bias, heads)
+    grads = tatt._launch_bwd(q, k, v, bias, g, heads)
+    lib = kernels.load()
+    chunks = (lib.rrt_mha_wide_last_dc(), lib.rrt_mha_wide_bwd_last_dc(0),
+              lib.rrt_mha_wide_bwd_last_dc(1))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tatt.mha_reference(*leaves, bias, heads).backward(g)
+    plain = tatt.mha_backward_reference(q, k, v, bias, g, heads)
+    torch.cuda.synchronize()
+    assert chunks == tatt.wide_column_chunks(dtype, d)
+    assert _launches() == before and tatt.mha_wide_kernel_launches == wide + 1
+    assert _bwd_launches() == _bwd_plus(backward, route)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert (got.float() - ref.float()).abs().max().item() <= GENERIC_TOL[dtype]
+    mean_v = v[2].float().mean(dim=0)
+    assert (got[2].float() - mean_v[None, :]).abs().max().item() <= 2 * GENERIC_TOL[dtype]
+    _check_grads(grads, {"autograd": [t.grad for t in leaves], "plain": plain}, dtype, (d, s))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_route_through_autograd(cuda, dtype):
+    """MhaKernelFn at one head of 384: the forward is the wide kernel, the
+    backward the wide backward's route, held to autograd through
+    mha_reference and mha_backward_reference."""
+    b, s, heads, d = 4, 70, 1, 384
+    q, k, v, bias = _inputs(b * s + d, b, s, heads * d, dtype, cuda)
+    bias = _masked_but_one(bias)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d),
+                    device=cuda).to(dtype)
+    wide, backward = tatt.mha_wide_kernel_launches, _bwd_launches()
+    outs, got, refs = _grads_three_ways(q, k, v, bias, heads, g)
+    assert tatt.mha_wide_kernel_launches == wide + 1
+    assert _bwd_launches() == _bwd_plus(backward, tatt.backward_route(dtype, d, s))
+    assert (outs[0] - outs[1]).abs().max().item() <= GENERIC_TOL[dtype]
+    _check_grads(got, refs, dtype, (b, s, heads, d))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batch_past_the_grid_limit_runs_by_slices(cuda, dtype):
+    """B = 65,537 at (S, H, D) = (2, 1, 16): the forward and the backward
+    launch twice each (slices of 65,535 and 2 rows) and match their plain
+    versions."""
+    b, s, heads, d = 65_537, 2, 1, 16
+    q, k, v, bias = _inputs(65, b, s, heads * d, dtype, cuda)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda).to(dtype)
+    before, backward = _launches(), _bwd_launches()
+    with torch.inference_mode():
+        got = tatt.mha_kernel(q, k, v, bias, heads)
+        ref = tatt.mha_reference(q, k, v, bias, heads)
+    grads = tatt._launch_bwd(q, k, v, bias, g, heads)
+    plain = tatt.mha_backward_reference(q, k, v, bias, g, heads)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0], before[1] + 2)
+    assert _bwd_launches() == _bwd_plus(backward, tatt.backward_route(dtype, d, s), 2)
+    assert (got.float() - ref.float()).abs().max().item() <= GENERIC_TOL[dtype]
+    _check_grads(grads, {"plain": plain}, dtype, (b, s, heads, d))
+
+
+def test_rrt_train_with_one_head_of_384_runs_the_wide_routes(cuda, tmp_path):
+    """`rrt train --hidden 384 --head-dim 384 --layers 2` on the card: the
+    towers have one head of 384, and their steps go through the wide
+    forward and the wide backward (bf16 compute: route "wide"), no other
+    attention kernel in the backward."""
+    from review_recommender_tpu_torch.index.build import build_bundle_from_products
+    from review_recommender_tpu_torch.index.io import save_bundle
+    from review_recommender_tpu_torch.serve import cli
+    from tests.torch_bundle_cases import corpus
+
+    products, _q, emb = corpus(n_themes=4, per_theme=16, n_queries=3, dim=384)
+    rng = np.random.default_rng(2)
+    rrows = [{"sku": p["sku"], "text": " ".join(rng.choice(p["agg_text"].split(), size=8)),
+              "stars": 4.0} for p in products for _ in range(2)]
+    remb = rng.standard_normal((len(rrows), 384)).astype(np.float32)
+    save_bundle(build_bundle_from_products(products, emb, reviews=rrows, review_embeddings=remb,
+                                           doc_terms_cap=64, pad_multiple=16), tmp_path / "b")
+    wide, backward = tatt.mha_wide_kernel_launches, _bwd_launches()
+    argv = ["train", "--index-dir", str(tmp_path / "b"), "--out", str(tmp_path / "t"),
+            "--epochs", "1", "--batch-size", "8", "--max-len", "32", "--hidden", "384",
+            "--head-dim", "384", "--layers", "2", "--vocab-size", "512",
+            "--checkpoint-every", "0"]
+    assert cli.main(argv) == 0
+    torch.cuda.synchronize()
+    fwd = tatt.mha_wide_kernel_launches - wide
+    bwd = [n - m for n, m in zip(_bwd_launches(), backward)]
+    assert fwd >= 4 and bwd[BWD_ROUTES.index("wide")] >= 4, (fwd, bwd)
+    assert bwd[BWD_ROUTES.index("wide")] == sum(bwd), bwd
 
 
 def test_backward_kernel_refuses_what_it_does_not_take(cuda):
