@@ -18,7 +18,10 @@ line, and nothing is caught and passed over:
              bf16 and f32), then the tensor-core route past 512 keys (bf16
              (8, 1024, 12, 32)), the generic route's widest heads (64,
              512, 2, 192) in bf16 and f32, and the wide route's heads past
-             256 (csrc/mha_wide.cu): bge-small's width in one head (64,
+             256 (csrc/mha_wide.cu; f32 csrc/mha_wide_f32.cu, whose rows
+             also hold its backward to mha_backward_reference within 1e-4
+             and give the workspace bytes and the peak memory of a call
+             each way): bge-small's width in one head (64,
              512, 1, 384) in bf16 and f32, an odd width with a partial key
              tile (4, 200, 2, 257) in f16 (2-byte copies) and several column
              chunks (2, 64, 1, 1024) in bf16: max abs error (tolerance 2e-2
@@ -338,9 +341,10 @@ line, and nothing is caught and passed over:
              call, finite losses; (h) the same trunk in one head of 384
              (rrt train --hidden 384 --head-dim 384 --layers 12's tower):
              one bf16 and one f32 step, each counted from zero, 24 launches
-             of the wide forward (csrc/mha_wide.cu) and 24 of the wide
-             backward's route (csrc/mha_wide_bwd.cu: wide in bf16,
-             wide_tf32 in f32), no plain-version call, finite losses; both
+             of the wide forward and 24 of the wide backward's route (bf16
+             csrc/mha_wide.cu and csrc/mha_wide_bwd.cu, route wide; f32
+             both csrc/mha_wide_f32.cu, counters mha_wide_f32 and route
+             wide_tf32), no plain-version call, finite losses; both
              kernels at (64, 512, 1, 384) in bf16 and f32 (kernel, plain,
              SDPA forward and backward alone)
  20 generic_route  the towers that only the generic attention kernel
@@ -370,7 +374,8 @@ instances and mha_generic_f32_d192 and mha_bwd_tf32_d192 the f32 ones,
 which split their 64-row tiles in registers; at one head of 384, phase 19
 (h)'s and phase 20 (c)'s, mha_wide_d384 / mha_wide_f32_d384 the wide
 forward and mha_bwd_wide_d384 / mha_bwd_wide_tf32_d384 the wide backward
-in bf16 and f32) and
+in bf16 and f32, the f32 pair csrc/mha_wide_f32.cu's kernels, a call
+each) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 The script imports no jax and nothing of the JAX package.
 """
@@ -637,7 +642,9 @@ def phase_kernel(torch):
             ref = A.mha_reference(q, k, v, bias, h)
             lib = _sdpa(torch, q, k, v, bias, h)
             torch.cuda.synchronize()
-            want = {**{n: 0 for n in launched}, counters[route]: 1}
+            counter = ("mha_wide_f32" if route == "wide" and dtype == torch.float32
+                       else counters[route])
+            want = {**{n: 0 for n in launched}, counter: 1}
             check(launched == want, "kernel", f"{route} route at {(b, s, h, d, dtype_name)}: "
                   f"launches {launched}, want {want}")
             check(got.shape == ref.shape and got.dtype == dtype, "kernel",
@@ -681,12 +688,52 @@ def phase_kernel(torch):
                "bound": "compute" if flops / peak > nbytes / PEAK_HBM_BYTES
                else "memory", "exp_floor_ms": exp_floor_ms,
                "exp_floor_share": exp_floor_ms / dev, "reps": REPS}
+        if route == "wide" and dtype == torch.float32:
+            row.update(_wide_f32_check(torch, A, q, k, v, bias, h))
         emit({"phase": "kernel", **row})
         check(err <= tol, "kernel", f"max abs error {err} > {tol} at {row}")
         check(lib_err <= KERNEL_TOL, "kernel",
               f"scaled_dot_product_attention differs from the plain version by {lib_err}")
         results.append(row)
     return results
+
+
+def _wide_f32_check(torch, A, q, k, v, bias, h) -> dict:
+    """The f32 wide kernels (csrc/mha_wide_f32.cu) at a phase 3 row: the
+    backward against mha_backward_reference (1e-4 of max(1, max |ref|),
+    one call on its counter), and the workspace each direction allocates
+    beside the peak of max_memory_allocated over one call above what was
+    resident before it (the inputs and the upstream gradient)."""
+    b, s, hd = q.shape
+    d = hd // h
+    g = torch.randn(q.shape, generator=torch.Generator(device=DEV).manual_seed(7), device=DEV)
+    out = {}
+    for name, fn in (("forward", lambda: A.mha_kernel(q, k, v, bias, h)),
+                     ("backward", lambda: A._launch_bwd(q, k, v, bias, g, h))):
+        with torch.no_grad():
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _zero_counts()
+            got = fn()
+            torch.cuda.synchronize()
+            launched = _counts()
+        padded = A._wide_f32_padded(d, q, k, v, g)
+        out[f"{name}_workspace_bytes"] = 4 * A.wide_f32_workspace_floats(
+            name == "backward", b, s, h, d, padded)
+        out[f"{name}_peak_bytes_over_resident"] = torch.cuda.max_memory_allocated() - base
+        out[f"{name}_launches"] = {n: c for n, c in launched.items() if c}
+    plain = A.mha_backward_reference(q, k, v, bias, g, h)
+    rel = max(float((x - r).abs().max()) / max(1.0, float(r.abs().max()))
+              for x, r in zip(got, plain))
+    out["backward_err_over_max_ref"] = rel
+    check(out["forward_launches"] == {"mha_wide_f32": 1}
+          and out["backward_launches"] == {"mha_bwd_wide_tf32": 1}, "kernel",
+          f"f32 wide launches {out['forward_launches']} / {out['backward_launches']}")
+    check(rel <= 1e-4 and all(bool(torch.isfinite(x).all()) for x in got), "kernel",
+          f"f32 wide backward error {rel} of max(1, max |ref|) at {(b, s, h, d)}")
+    return out
 
 
 def _bench_queries(n_q, dim, vocab, n_terms=5, seed=42):
@@ -1289,6 +1336,7 @@ def _kernel_modules():
     return {"mha_fwd": (A, "mha_kernel_launches"),
             "mha_generic": (A, "mha_generic_kernel_launches"),
             "mha_wide": (A, "mha_wide_kernel_launches"),
+            "mha_wide_f32": (A, "mha_wide_f32_kernel_launches"),
             "mha_bwd": (A, "mha_backward_kernel_launches"),
             "mha_bwd_tf32": (A, "mha_backward_tf32_launches"),
             "mha_bwd_wide": (A, "mha_backward_wide_launches"),
@@ -3411,13 +3459,16 @@ def _backward_exps(b, s, h, d, dtype) -> int:
     scores: three passes (kernel A's two and kernel B's) on the wgmma
     route, two on the 3xTF32 route (its kernel A takes one pass); on
     the wgmma route past D = 128 each of kernel B's column chunks takes a
-    pass (two at D <= 192, four beyond); on the wide routes
+    pass (two at D <= 192, four beyond); on the bf16/f16 wide route
     (csrc/mha_wide_bwd.cu) the statistics pass and one a column chunk of
-    the dQ and of the dK / dV kernel."""
+    the dQ and of the dK / dV kernel; on the f32 one (csrc/mha_wide_f32.cu)
+    the score kernel's sum and the dP kernel's P, once each."""
     from review_recommender_tpu_torch.ops import attention as A
 
     route = A.backward_route(dtype, d, s)
-    if route in ("wide", "wide_tf32"):
+    if route == "wide_tf32":
+        return 2 * b * h * s * s
+    if route == "wide":
         _fwd, dq, dkv = A.wide_column_chunks(dtype, d)
         return (1 + -(-d // dq) + -(-d // dkv)) * b * h * s * s
     passes = 2 if route == "tf32" else 3
@@ -5308,23 +5359,25 @@ def _wide_head_steps(torch, card, cfg, sd, batch, heads=WIDE_HEADS):
     D = 192 the bf16 step's forwards run the generic kernel's tensor-core
     instance at 192 columns and its backwards the backward kernel's wgmma
     route; the f32 step's the generic kernel's 3xTF32 instance at 192
-    columns and the backward kernel's 3xTF32 route. At D = 384 every
-    forward runs the wide kernel (csrc/mha_wide.cu) and every backward the
-    wide backward (csrc/mha_wide_bwd.cu) on its wide (bf16) or wide_tf32
-    (f32) route. Counted, exact; no plain version; finite losses. Returns
-    the launches by kernel of each step, {"bf16": {...}, "f32": {...}}."""
+    columns and the backward kernel's 3xTF32 route. At D = 384 the bf16
+    step's forwards run csrc/mha_wide.cu and its backwards
+    csrc/mha_wide_bwd.cu (route wide); the f32 step's both run
+    csrc/mha_wide_f32.cu (mha_wide_f32 and route wide_tf32: the scores
+    computed once a call). Counted, exact; no plain version; finite
+    losses. Returns the launches by kernel of each step, {"bf16": {...},
+    "f32": {...}}."""
     from review_recommender_tpu_torch.train import ContrastiveTrainer
 
     wide = dataclasses.replace(cfg, num_heads=heads)
     head_dim = wide.hidden_size // heads
     per_step = 2 * wide.num_layers
-    fwd = "mha_wide" if head_dim > 256 else "mha_generic"
+    fwds = ("mha_wide", "mha_wide_f32") if head_dim > 256 else ("mha_generic",) * 2
     bwds = (("mha_bwd_wide", "mha_bwd_wide_tf32") if head_dim > 256
             else ("mha_bwd", "mha_bwd_tf32"))
     losses, counts, want = {}, {}, {}
     with _PlainCalls() as plain:
-        for name, dtype, bwd in (("bf16", torch.bfloat16, bwds[0]),
-                                 ("f32", torch.float32, bwds[1])):
+        for name, dtype, fwd, bwd in (("bf16", torch.bfloat16, fwds[0], bwds[0]),
+                                      ("f32", torch.float32, fwds[1], bwds[1])):
             tr = ContrastiveTrainer(wide, sd, dtype=dtype, device=DEV)
             _zero_counts()
             losses[name] = tr.train_step(*batch)["loss"]
@@ -5561,7 +5614,7 @@ def main() -> int:
         generic_launches += route_launches["mha_generic"]
         wide_fwd_launches = {"bf16": wide384_launches["bf16"]["mha_wide"]
                              + route_launches["mha_wide"],
-                             "f32": wide384_launches["f32"]["mha_wide"]}
+                             "f32": wide384_launches["f32"]["mha_wide_f32"]}
         mark("generic_route")
     except PhaseError as exc:
         emit({"phase": "failed", "error": str(exc)})
@@ -5602,28 +5655,33 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
-    # the wide kernels (csrc/mha_wide.cu, csrc/mha_wide_bwd.cu) at one head
-    # of 384 (WIDE384_SHAPE), with phase 19 (h)'s steps' launches and phase
-    # 20 (c)'s rerank forwards
+    # the wide kernels at one head of 384 (WIDE384_SHAPE), with phase 19
+    # (h)'s steps' launches and phase 20 (c)'s rerank forwards: bf16
+    # csrc/mha_wide.cu and csrc/mha_wide_bwd.cu, f32 csrc/mha_wide_f32.cu
+    # (its forward's and its backward's kernels, a call each)
     w384_bf16, w384_f32 = wide384_rows
-    for name, row, dtype, n in (("mha_wide_d384", w384_bf16, "bfloat16", wide_fwd_launches["bf16"]),
-                                ("mha_wide_f32_d384", w384_f32, "float32", wide_fwd_launches["f32"])):
+    for name, row, dtype, n, src in (
+            ("mha_wide_d384", w384_bf16, "bfloat16", wide_fwd_launches["bf16"], "mha_wide.cu"),
+            ("mha_wide_f32_d384", w384_f32, "float32", wide_fwd_launches["f32"],
+             "mha_wide_f32.cu")):
         errs = [r["max_abs_err"] for r in kernel_rows
                 if r["route"] == "wide" and r["dtype"] == dtype]
         entries.append({
-            "name": name, "route": "cuda", "source": "review_recommender_tpu_torch/csrc/mha_wide.cu",
+            "name": name, "route": "cuda", "source": f"review_recommender_tpu_torch/csrc/{src}",
             "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:64",
             "launches": n, "max_abs_err": max(errs + [row["max_abs_err"]]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
-    for name, row, n in (("mha_bwd_wide_d384", w384_bf16, wide384_launches["bf16"]["mha_bwd_wide"]),
-                         ("mha_bwd_wide_tf32_d384", w384_f32,
-                          wide384_launches["f32"]["mha_bwd_wide_tf32"])):
+    for name, row, n, src in (
+            ("mha_bwd_wide_d384", w384_bf16, wide384_launches["bf16"]["mha_bwd_wide"],
+             "mha_wide_bwd.cu"),
+            ("mha_bwd_wide_tf32_d384", w384_f32, wide384_launches["f32"]["mha_bwd_wide_tf32"],
+             "mha_wide_f32.cu")):
         entries.append({
             "name": name, "route": "cuda",
-            "source": "review_recommender_tpu_torch/csrc/mha_wide_bwd.cu",
+            "source": f"review_recommender_tpu_torch/csrc/{src}",
             "replaces": "review_recommender_tpu/ops/pallas/attention_kernel.py:142",
             "launches": n, "max_abs_err": row["backward_max_abs_err"],
             "ms": row["backward_ms"], "plain_ms": row["plain_backward_ms"],

@@ -41,7 +41,8 @@ backward saw, flash, efficient, cudnn or math; flash takes no head past
 256) and each kernel's device µs of the forward and of the backward
 (forward_kernel_us, backward_kernel_us: a profiler window of 20 calls);
 first, ptxas's registers and spill stores of each instance of the wide
-kernels (a side build with -Xptxas -v).
+kernels (a side build with -Xptxas -v: csrc/mha_wide*.cu, the f32 ones
+csrc/mha_wide_f32.cu's score, product and layout kernels).
 Each row names the routes it ran: backward_route (a checkout before bf16
 went to the tensor cores at these widths reports "fma" for both dtypes,
 one before f32 did for f32), and the padded width of the instances the
@@ -50,13 +51,16 @@ rrt_mha_generic_last_dp and rrt_mha_bwd_last_dp; null in a checkout that
 does not export them, whose f32 forward at these widths is the CUDA-core
 kernel) or, past 256 columns, the wide kernels' column chunks
 (forward_dc, backward_dc: rrt_mha_wide_last_dc and
-rrt_mha_wide_bwd_last_dc, dQ's and dK / dV's) and which of their passes
+rrt_mha_wide_bwd_last_dc, dQ's and dK / dV's; f32 in a checkout with
+csrc/mha_wide_f32.cu, rrt_mha_wide_f32_dc) and which of their passes
 kept the CTA's own rows resident in shared memory (forward_resident,
 backward_resident: bit masks, rrt_mha_wide_last_resident and
-rrt_mha_wide_bwd_last_resident). For an A/B, run it
-once with ROOT a `git archive` of the parent unpacked under build/ and
-once on this checkout, in the order parent, change, change, parent, in
-one call.
+rrt_mha_wide_bwd_last_resident; null for f32 there). With --parent
+PARENT (a `git archive` of the parent unpacked under build/) the script
+runs itself four times, in the order PARENT, ROOT, ROOT, PARENT, each in
+its own process (tags "parent" and "change"), and then prints one "ab"
+line per dtype and shape: the forward and backward device ms of each
+run, their means and change_over_parent.
 
 --kernel bm25: for each of chip_smoke.py's BM25 shapes, the packed and the
 unpacked kernel on phase 5's postings (drawn on the card by this script's
@@ -419,6 +423,15 @@ def _wide_registers(tag: str) -> None:
     kernels.build(extra_flags=("-Xptxas", "-v"))
     name = None
     for line in kernels.build_info.get("nvcc_output", "").splitlines():
+        m = re.search(r"Compiling entry function '\w*?(wide_f32_(?:score|product)_kernel)ILi(\d)E",
+                      line)
+        if m:  # csrc/mha_wide_f32.cu: score MODE 0/1, product KIND 0/1/2
+            name = f"{m.group(1)} {'MODE' if 'score' in m.group(1) else 'KIND'}={m.group(2)}"
+            continue
+        m = re.search(r"Compiling entry function '\w*?(wide_f32_\w+?_kernel)", line)
+        if m:
+            name = m.group(1)
+            continue
         m = re.search(r"Compiling entry function '(\w*mha_wide\w*)'", line)
         if m:
             k = re.search(r"(mha_wide_(?:fwd|bwd)_kernel)I(\w*?)Li(\d+)E(?:Li(\d+)E)?Lb(\d)",
@@ -469,7 +482,11 @@ def _wide_heads(torch, tag: str) -> None:
                 row["forward_dp"] = _last_dp(lib, "rrt_mha_generic_last_dp")
                 A._launch_bwd(q, k, v, bias, g, h)
                 row["backward_dp"] = _last_dp(lib, "rrt_mha_bwd_last_dp")
-                if d > 256:
+                if d > 256 and dtype == torch.float32 and hasattr(lib, "rrt_mha_wide_f32_dc"):
+                    row["forward_dc"] = _last_dp(lib, "rrt_mha_wide_f32_dc")
+                    row["backward_dc"] = [row["forward_dc"]] * 2
+                    row["forward_resident"] = row["backward_resident"] = None
+                elif d > 256:
                     row["forward_dc"] = _last_dp(lib, "rrt_mha_wide_last_dc")
                     row["forward_resident"] = _last_dp(lib, "rrt_mha_wide_last_resident")
                     A._launch_bwd(q, k, v, bias, g, h)
@@ -489,6 +506,38 @@ def _wide_heads(torch, tag: str) -> None:
                     torch, lambda: torch.autograd.grad(cs._sdpa(torch, *leaves, bias, h), leaves,
                                                        g), n=2))
             print(json.dumps({"tag": tag, "kernel": "wide_heads", **row}), flush=True)
+
+
+def _wide_heads_ab(root: Path, parent: Path) -> int:
+    """--kernel wide_heads --parent: this script on PARENT, ROOT, ROOT,
+    PARENT, a process each (their lines passed through), then an "ab" line
+    per (dtype, shape) with each run's forward and backward device ms."""
+    runs = {}
+    for tag, at in (("parent", parent), ("change", root), ("change", root), ("parent", parent)):
+        proc = subprocess.run([sys.executable, __file__, str(at), "--kernel", "wide_heads",
+                               "--tag", tag], capture_output=True, text=True)
+        sys.stdout.write(proc.stdout)
+        sys.stdout.flush()
+        if proc.returncode:
+            sys.stderr.write(proc.stderr[-4000:])
+            return proc.returncode
+        for line in proc.stdout.splitlines():
+            row = json.loads(line) if line.startswith("{") else {}
+            if "backward_ms" in row:
+                key = (row["dtype"], row["B"], row["S"], row["H"], row["D"])
+                runs.setdefault(key, {}).setdefault(tag, []).append(
+                    (row["ms"], row["backward_ms"]))
+    for (dtype, b, s, h, d), sides in runs.items():
+        if len(sides) < 2:
+            continue
+        out = {"ab": "wide_heads", "dtype": dtype, "B": b, "S": s, "H": h, "D": d}
+        for i, what in enumerate(("forward", "backward")):
+            par = [t[i] for t in sides["parent"]]
+            chg = [t[i] for t in sides["change"]]
+            out.update({f"{what}_parent_ms": par, f"{what}_change_ms": chg,
+                        f"{what}_change_over_parent": float(np.mean(chg) / np.mean(par))})
+        print(json.dumps(out), flush=True)
+    return 0
 
 
 def _featurize(torch, tag: str) -> None:
@@ -531,13 +580,16 @@ def main() -> int:
                     default="attention")
     ap.add_argument("--parent", default=None,
                     help="--kernel stage_a: a checkout whose stage-A kernels run in turns "
-                         "with ROOT's in this process")
+                         "with ROOT's in this process; --kernel wide_heads: a checkout run "
+                         "in turns with ROOT, a process each")
     ap.add_argument("--dims", type=int, nargs="+", default=None,
                     help="--kernel stage_a: only the cells of these widths")
     ap.add_argument("--phase4", action="store_true",
                     help="--kernel stage_a: chip_smoke.py phase 4's corpus in place of the cells")
     args = ap.parse_args()
     root = Path(args.root).resolve()
+    if args.kernel == "wide_heads" and args.parent:
+        return _wide_heads_ab(root, Path(args.parent).resolve())
     sys.path.insert(0, str(root))
 
     import torch

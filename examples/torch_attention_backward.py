@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The attention backward kernels (csrc/mha_bwd.cu; past 256 columns
-csrc/mha_wide_bwd.cu) on the card: their registers, their gradients
+csrc/mha_wide_bwd.cu, and csrc/mha_wide_f32.cu in f32) on the card: their registers, their gradients
 against the plain versions at the trainers' shapes and at the edge cases,
 their time beside the recompute they replaced and SDPA's backward, where
 the time goes, and an A/B against another checkout's kernel.
@@ -81,16 +81,27 @@ Lines, after the card's name and power limit:
                wide_kc1, wide_kc4  f32 above 128 columns: one or four
                               k-steps a commit group of the split products
                               (two in the kernel)
-             and copies of csrc/mha_wide_bwd.cu (D > 256), each through its
-             own rrt_mha_wide_bwd at one head of 384 ((64, 512, 1, 384),
-             the work of (64, 512, 2, 192)) in bf16 and f32, their three
-             kernels' device µs apart (wide_stats, wide_dq, wide_dkv):
+             and copies of csrc/mha_wide_bwd.cu (D > 256, bf16/f16), each
+             through its own rrt_mha_wide_bwd at one head of 384 ((64,
+             512, 1, 384), the work of (64, 512, 2, 192)) in bf16, their
+             three kernels' device µs apart (wide_stats, wide_dq,
+             wide_dkv):
                widebwd_full      the source as it is
                widebwd_no_loads  the ring's next steps' copies out
                widebwd_no_sdp    the S and dP (S^T, dP^T) products out
                widebwd_no_grad   the dQ, dK and dV products out
-               widebwd_no_split  f32: the landed sub-tiles and chunks not
-                              split into hi and lo
+             and copies of csrc/mha_wide_f32.cu (D > 256, f32), each through
+             its own rrt_mha_wide_f32_bwd at (64, 512, 1, 384), its kernels'
+             device µs apart (f32_transpose, f32_score_0, f32_score_1,
+             f32_product_1, f32_product_2):
+               widef32_full      the source as it is
+               widef32_no_loads  the producer's boxes past the ring's first
+                              fill not loaded (each stage handed over
+                              as it stands)
+               widef32_no_split  the landed B boxes' lo not formed
+               widef32_no_lo     3xTF32 down to its hi*hi products
+               widef32_no_mma    no products at all (loads, splits,
+                              softmax and stores alone)
              (every edit but the knobs leaves the results wrong)
   sass       (--sass) static SASS instructions per kernel by opcode
              (cuobjdump -sass of the "full" copy)
@@ -122,6 +133,7 @@ sys.path.insert(0, str(ROOT))
 CSRC = Path("review_recommender_tpu_torch") / "csrc" / "mha_bwd.cu"
 SRC = ROOT / CSRC
 WIDE_SRC = ROOT / "review_recommender_tpu_torch" / "csrc" / "mha_wide_bwd.cu"
+F32_SRC = ROOT / "review_recommender_tpu_torch" / "csrc" / "mha_wide_f32.cu"
 OUT = ROOT / "build" / "attention_backward"
 
 
@@ -390,17 +402,29 @@ BREAKDOWN = ["no_overlap", "no_pdl", "no_exp", "softmax_only", "no_loads", "a_on
              "a_only+no_loads", "one_warpgroup", "f32_no_lo", "f32_no_split", "f32_no_loads",
              "wide_no_loads", "wide_no_split", "wide_no_sdp", "wide_no_grad", "wide_a_only",
              "widebwd_full", "widebwd_no_loads", "widebwd_no_sdp", "widebwd_no_grad",
-             "widebwd_no_split"]
+             "widef32_full", "widef32_no_loads", "widef32_no_split", "widef32_no_lo",
+             "widef32_no_mma"]
 
 
-def _wide_cut(src: str, lines: list) -> str:
-    """csrc/mha_wide_bwd.cu with each of `lines` (whole lines, each found
-    exactly once) taken out; raises if the source moved."""
+def _wide_cut(src: str, lines: list, new: str = "") -> str:
+    """A wide source with each of `lines` (found exactly once) replaced by
+    `new` (taken out by default); raises if the source moved."""
     for line in lines:
         if src.count(line) != 1:
-            raise RuntimeError(f"{WIDE_SRC.name} changed: {line!r} found {src.count(line)} times")
-        src = src.replace(line, "")
+            raise RuntimeError(f"wide source changed: {line!r} found {src.count(line)} times")
+        src = src.replace(line, new)
     return src
+
+
+def _f32_no_loads(src: str) -> str:
+    """csrc/mha_wide_f32.cu's producers hand each stage past the ring's
+    first fill over without loading it (an arrive in place of the copies)."""
+    src = _wide_cut(src, ["        mbar_expect_tx(ring.full(s), 2 * kBox);\n"],
+                    "        if (u >= kScoreStages) { mbar_arrive(ring.full(s)); continue; }\n"
+                    "        mbar_expect_tx(ring.full(s), 2 * kBox);\n")
+    return _wide_cut(src, ["        mbar_expect_tx(ring.full(s), P::kTx);\n"],
+                     "        if (u >= P::kStages) { mbar_arrive(ring.full(s)); continue; }\n"
+                     "        mbar_expect_tx(ring.full(s), P::kTx);\n")
 
 
 WIDE_EDITS = {
@@ -408,16 +432,25 @@ WIDE_EDITS = {
     "widebwd_no_loads": lambda src: _wide_cut(
         src, ["    if (u + stages - 1 < nsteps) load_step(u + stages - 1);\n"]),
     "widebwd_no_sdp": lambda src: _wide_cut(src, [
-        "    chunk_product<T, KC>(s, s_lo, smem, base, a1, st + P::kB1, P::kLo1, j == 0, wtid);\n",
-        "    chunk_product<T, KC>(dp, dp_lo, smem, base, a2, st + P::kB2, P::kLo2, j == 0, wtid);\n"]),
+        "    chunk_product<T, KC>(s, base, a1, st + P::kB1, j == 0);\n",
+        "    chunk_product<T, KC>(dp, base, a2, st + P::kB2, j == 0);\n"]),
     "widebwd_no_grad": lambda src: _wide_cut(src, [
-        "      grad_product<T, BT>(acc1, x, base + ch, base + clo);\n",
-        "      grad_product<T, BT>(acc2, x, base + ch + P::kCTile, base + clo + P::kCTile);\n",
-        "      grad_product<T, BT>(acc1, y, base + ch, base + clo);\n"]),
-    "widebwd_no_split": lambda src: _wide_cut(src, [
-        "      if (first) split_tf32<P::kSubB>(smem + st + P::kB1, smem + P::kLo1, wtid);\n",
-        "      if (last) split_tf32<P::kSubB>(smem + st + P::kB2, smem + P::kLo2, wtid);\n",
-        "        if (j == nk - 1) split_tf32<P::kWgChunks>(smem + ch, smem + clo, wtid);\n"]),
+        "      grad_product<T, BT>(acc1, x, base + ch);\n",
+        "      grad_product<T, BT>(acc2, x, base + ch + P::kCTile);\n",
+        "      grad_product<T, BT>(acc1, y, base + ch);\n"]),
+}
+# csrc/mha_wide_f32.cu's copies
+F32_EDITS = {
+    "widef32_full": lambda src: src,
+    "widef32_no_loads": _f32_no_loads,
+    "widef32_no_split": lambda src: _wide_cut(
+        src, ["  for (int off = 16 * t; off < kBytes; off += 16 * kSplitters) {\n"],
+        "  for (int off = 16 * t; off < 0; off += 16 * kSplitters) {\n"),
+    "widef32_no_lo": lambda src: _wide_cut(src, ["  wgmma_rs_tf32(sm, lo, db, scale_d);\n",
+                                                 "  wgmma_rs_tf32(sm, hi, dblo, 1);\n"]),
+    "widef32_no_mma": lambda src: _wide_cut(src, ["  wgmma_rs_tf32(sm, lo, db, scale_d);\n",
+                                                  "  wgmma_rs_tf32(sm, hi, dblo, 1);\n",
+                                                  "  wgmma_rs_tf32(hh, hi, db, scale_d);\n"]),
 }
 
 
@@ -429,6 +462,9 @@ def variants(src: str, names: list) -> dict:
     for name in names:
         if name.startswith("widebwd"):
             out[name] = WIDE_EDITS[name](WIDE_SRC.read_text())
+            continue
+        if name.startswith("widef32"):
+            out[name] = F32_EDITS[name](F32_SRC.read_text())
             continue
         text = src
         if name != "full":
@@ -488,6 +524,11 @@ def build(texts: dict, headers: dict = None) -> dict:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
         P, I = ctypes.c_void_p, ctypes.c_int
+        if name.startswith("widef32"):
+            lib.rrt_mha_wide_f32_bwd.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
+            lib.rrt_mha_wide_f32_bwd.restype = I
+            out[name] = (lib, _ptxas_rows(log))
+            continue
         entry = lib.rrt_mha_wide_bwd if name.startswith("widebwd") else lib.rrt_mha_bwd
         entry.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P]
         entry.restype = I
@@ -507,6 +548,25 @@ def _launch(torch, lib, q, k, v, bias, g, h, entry="rrt_mha_bwd"):
                           torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{entry}: cudaError {err}")
+    return dq, dk, dv
+
+
+def _launch_f32(torch, lib, q, k, v, bias, g, h):
+    """(dq, dk, dv) from one library's rrt_mha_wide_f32_bwd, as
+    ops/attention.py's _launch_wide_f32 calls it (one slice)."""
+    from review_recommender_tpu_torch.ops import attention as A
+
+    b, s, hd = q.shape
+    d = hd // h
+    padded = A._wide_f32_padded(d, q, k, v, g)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    ws = torch.empty(A.wide_f32_workspace_floats(True, b, s, h, d, padded), device=q.device)
+    err = lib.rrt_mha_wide_f32_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                                   g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                   ws.data_ptr(), b, s, h, d, int(padded),
+                                   torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"rrt_mha_wide_f32_bwd: cudaError {err}")
     return dq, dk, dv
 
 
@@ -563,8 +623,10 @@ def _kernel_us(torch, fn, n=20) -> dict:
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         wide = re.search(r"mha_wide_bwd_kernel<[^,]+, (\d)", e.key)
+        f32 = re.search(r"wide_f32_(\w+?)_kernel(?:<(\d)>)?", e.key)
         m = re.search(r"(mha_bwd_\w*?kernel)", e.key)
         name = (("wide_stats", "wide_dq", "wide_dkv")[int(wide.group(1))] if wide
+                else "f32_" + "_".join(x for x in f32.groups() if x) if f32
                 else m.group(1) if m else None)
         if t and name:
             out[name] = out.get(name, 0.0) + t / n
@@ -608,7 +670,7 @@ def breakdown(torch, libs: dict) -> None:
     ms behind a spin, each kernel's device µs from the profiler, host µs."""
     for name, shape, (q, k, v, bias, g) in _timed_shapes(torch):
         for variant, (lib, _rows) in libs.items():
-            if variant.startswith("widebwd"):
+            if variant.startswith(("widebwd", "widef32")):
                 continue
             fam = variant.split("_")[0] if variant.startswith(("f32", "wide")) else "bf16"
             if variant not in ("full", "parent") and fam != _family(name, shape):
@@ -621,14 +683,14 @@ def breakdown(torch, libs: dict) -> None:
             if "prof" in variant:
                 print(json.dumps({"prof": variant, "D": shape[3], **_prof_cycles(torch, lib, fn)}),
                       flush=True)
-    for name in ("bfloat16", "float32"):  # the copies of csrc/mha_wide_bwd.cu
+    for name in ("bfloat16", "float32"):  # csrc/mha_wide_bwd.cu's and csrc/mha_wide_f32.cu's copies
         q, k, v, bias, g = _timing_inputs(torch, 0, *WIDE384_SHAPE, getattr(torch, name))
         for variant, (lib, _rows) in libs.items():
-            if not variant.startswith("widebwd") or (variant.endswith("split")
-                                                     and name != "float32"):
+            if not variant.startswith("widebwd" if name == "bfloat16" else "widef32"):
                 continue
-            fn = lambda lib=lib: _launch(torch, lib, q, k, v, bias, g, WIDE384_SHAPE[2],
-                                         entry="rrt_mha_wide_bwd")
+            fn = (lambda lib=lib: _launch(torch, lib, q, k, v, bias, g, WIDE384_SHAPE[2],
+                                          entry="rrt_mha_wide_bwd")) if name == "bfloat16" else (
+                lambda lib=lib: _launch_f32(torch, lib, q, k, v, bias, g, WIDE384_SHAPE[2]))
             b, s, h, d = WIDE384_SHAPE
             print(json.dumps({"breakdown": variant, "dtype": name, "B": b, "S": s, "H": h,
                               "D": d, "device_ms": _device_ms(torch, fn),
@@ -764,6 +826,10 @@ def main() -> int:
             if m:
                 brief[f"mha_wide_bwd_kernel {m.group(1)[-6:]} KIND={m.group(2)} "
                       f"DC={m.group(3)}"] = [r.get("registers"), r.get("spill_stores")]
+            m = re.search(r"(wide_f32_\w+?_kernel)(?:ILi(\d)E)?", r.get("kernel", ""))
+            if m:
+                brief[f"{m.group(1)} {m.group(2) or ''}".strip()] = [
+                    r.get("registers"), r.get("spill_stores")]
         print(json.dumps({"variant_registers": name, **brief}), flush=True)
     failed = 0
     for case in CASES:

@@ -1,6 +1,6 @@
 // Multi-head attention forward for Hopper (sm_90a) at head widths past 256:
-// softmax(Q K^T * 1/sqrt(d) + key_bias) V for f32, bf16 and f16 at any D >=
-// 257, any S >= 1.
+// softmax(Q K^T * 1/sqrt(d) + key_bias) V for bf16 and f16 at any D >= 257,
+// any S >= 1 (f32 past 256 is csrc/mha_wide_f32.cu's).
 //
 // Replaces, beside csrc/mha_fwd.cu and csrc/mha_generic.cu (which take D
 // up to 256), the TPU kernel
@@ -20,7 +20,7 @@
 //   - Two kernels a call. The statistics pass (DC = 0) takes 64 query rows
 //     of one (b, h) a CTA and walks the tiles of 64 keys, each tile's S =
 //     Q K^T contracted over the whole D in k-chunks of KC columns (128 in
-//     bf16/f16, 64 in f32) streamed through a ring (cp.async, zero-filled
+//     bf16/f16) streamed through a ring (cp.async, zero-filled
 //     past D and S); it keeps the running row max and sum and writes m and
 //     1/l to a workspace of 2 * B * H * S floats.
 //     The output pass takes 64 query rows and two chunks of DC output
@@ -37,16 +37,6 @@
 //     (products of at most 128 columns), V's chunk N-major through the
 //     transpose bit. DC = 192 or 256 (O takes DC/2 registers a thread):
 //     the fewest chunks of at most 256 columns, 192 where they hold D.
-//   - f32 as 3xTF32: each k-step's Q elements split in registers
-//     (tf32_rs3_split), K's sub-tile split in place (hi) with lo beside it,
-//     the small terms and hi*hi in accumulators of their own, summed after
-//     the contraction; logits (q . k) * scale, then + bias, each rounded
-//     alone, and expf, as the plain version. P V takes V's chunk transposed
-//     (load_vt) and split, in products of 32 columns, each in pv / pv_lo
-//     accumulators of its own added to O (csrc/mha_generic.cu's kPvCols).
-//     DC = 192; key tiles of 64 in the statistics pass, 32 in the output
-//     pass (the tiles' scores are the same values either way: each is its
-//     own sum over the same k-chunks and k-steps).
 //   - The copies from L2 bound the passes: where the CTA's own 64 rows fit
 //     in shared memory beside the ring (RES), all their sub-tiles are
 //     loaded once at the start and the ring streams the key sub-tiles
@@ -60,12 +50,11 @@
 // pass and each pair of chunks compute Q K^T again (three S products and P
 // V at D = 384), and each step's sub-tiles come from L2. With the streamed
 // own rows of the first design and one chunk a CTA the pass took 0.8945
-// ms in bf16; resident rows and paired chunks take it to 0.4016, and to
-// 1.8234 in f32 (its rows do not fit beside the f32 chunks of V), against
-// the plain version's 1.1472 / 0.9570 (examples/torch_attention_ab.py
-// --kernel wide_heads, H100 at 700 W; PERF.md).
+// ms in bf16; resident rows and paired chunks take it to 0.4016, against
+// the plain version's 1.1472 (examples/torch_attention_ab.py --kernel
+// wide_heads, H100 at 700 W; PERF.md).
 //
-// Semantics, every dtype:
+// Semantics, both dtypes:
 //   - an all-masked row (every bias -1e30) comes out uniform over the S
 //     real keys: (q.k)*scale - 1e30 == -1e30 in f32;
 //   - keys from S to the tile edge get logit -inf and zero K and V rows;
@@ -80,18 +69,15 @@ namespace {
 
 // Geometry at dtype T, output column chunk DC (0: the statistics pass) and
 // residency RES; WG warpgroups a CTA, one a column chunk (one in the
-// statistics pass). Shared memory: the f32 lo halves (K sub-tile lo | each
-// warpgroup's V^T chunk lo) | 2 side buffers by tile parity (each
-// warpgroup's chunk of V: bf16 a K-major tile of BT rows x DC columns, f32
-// V^T of DC rows x BT; then the tile's key bias) | the ring (RES: K
-// sub-tiles of BT rows, `stages` of them; else kStages of a Q sub-tile of
-// 64 rows and a K sub-tile) | RES: Q's D / 64 sub-tiles.
+// statistics pass). Shared memory: 2 side buffers by tile parity (each
+// warpgroup's chunk of V, a K-major tile of BT rows x DC columns; then the
+// tile's key bias) | the ring (RES: K sub-tiles of BT rows, `stages` of
+// them; else kStages of a Q sub-tile of 64 rows and a K sub-tile) | RES:
+// Q's D / KC sub-tiles.
 template <typename T, int DC, bool RES>
 struct FwdPlan {
-  static constexpr bool kTF32 = std::is_same<T, float>::value;
-  static constexpr int E = sizeof(T), KC = kChunkCols<T>;
-  // keys a tile (f32's output pass 32: its accumulators beside O's)
-  static constexpr int BT = kTF32 && DC > 0 ? 32 : 64;
+  static constexpr int E = sizeof(T), KC = kChunkCols;
+  static constexpr int BT = 64;  // keys a tile
   static constexpr int WG = DC > 0 ? 2 : 1;
   static constexpr int kCtaThreads = WG * kThreads;
   static constexpr int kSubA = kRows * KC * E;
@@ -101,28 +87,14 @@ struct FwdPlan {
   static constexpr int kVTile = BT * DC * E;
   static constexpr int kBias = WG * kVTile;  // the key bias in a side buffer
   static constexpr int kSide = kBias + BT * 4;
-  static constexpr int kKlo = 0, kVlo = kSubB;  // warpgroup w's V^T lo: kVlo + w kVTile
-  static constexpr int kLo = kTF32 ? kSubB + WG * kVTile : 0;
-  static constexpr int kSide0 = kLo;
+  static constexpr int kSide0 = 0;
   static constexpr int kStage0 = kSide0 + 2 * kSide;
   static constexpr int kStages = ring_stages(kStage0, kStage);  // RES: a launch argument
   static constexpr int kBytes = kStage0 + kStages * kStage;
   static int own_bytes(int D) { return RES ? (D + KC - 1) / KC * kSubA : 0; }
   static_assert(kBytes <= 232448, "shared memory of one block");
-  static_assert(kSide % 128 == 0 && kStage % 128 == 0 && kLo % 128 == 0, "tile alignment");
+  static_assert(kSide % 128 == 0 && kStage % 128 == 0, "tile alignment");
 };
-
-// f32: a tile's P V in products of this many columns, each in accumulators
-// of its own (two of 16 registers a thread beside O's DC / 2)
-constexpr int kPvCols = 32;
-
-// e^x for f32 (expf, as the plain version), 2^x for 16-bit types, whose
-// logits are in log2 units
-template <bool kTF32>
-__device__ __forceinline__ float exp_(float x) {
-  if constexpr (kTF32) return expf(x);
-  else return ex2_approx(x);
-}
 
 // Accumulator layout of wgmma m64nN (f32), per thread of the warpgroup:
 // warp w holds rows 16w..16w+15; with g = lane/4 and c = lane%4, element
@@ -135,7 +107,6 @@ mha_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     float* __restrict__ ws, int S, int H, int D, int gran, float scale,
                     int stages) {
   using P = FwdPlan<T, DC, RES>;
-  constexpr bool kTF32 = P::kTF32;
   constexpr int KC = P::KC;
   constexpr int BT = P::BT, WG = P::WG;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -187,8 +158,7 @@ mha_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       if constexpr (DC > 0) {
         const int dc = D - c0 < DC ? D - c0 : DC;
         const uint32_t vt = sd + wg * P::kVTile;
-        if constexpr (kTF32) load_vt<DC, BT>(vt, v + head + c0, HD, t * BT, S, dc, wtid);
-        else load_rows<T, DC, BT>(gran, vt, v + head + c0, HD, t * BT, S, dc, wtid);
+        load_rows<T, DC, BT>(gran, vt, v + head + c0, HD, t * BT, S, dc, wtid);
       }
       if (wg == 0) load_bias<BT>(sd + P::kBias, brow, t * BT, S, wtid);
     }
@@ -212,7 +182,7 @@ mha_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float o[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
-  float s[BT / 2], s_lo[BT / 2];
+  float s[BT / 2];
 
   for (int u = 0; u < nsteps; ++u) {
     const int t = u / nk, j = u % nk;
@@ -223,26 +193,14 @@ mha_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     cp_async_commit();
     const int st = P::kStage0 + (u % stages) * P::kStage;
     const int sd = P::kSide0 + (t % 2) * P::kSide;
-    if constexpr (kTF32) {
-      if (wg == 0) split_tf32<P::kSubB>(smem + st + P::kB, smem + P::kKlo, wtid);
-      if constexpr (DC > 0) {
-        if (j == nk - 1)
-          split_tf32<P::kVTile>(smem + sd + wg * P::kVTile, smem + P::kVlo + wg * P::kVTile,
-                                wtid);
-      }
-      fence_async_smem();
-      __syncthreads();  // hi and lo of this step are stored
-    }
     wgmma_fence();
     const int own = RES ? own_at + j * P::kSubA : st;  // Q's sub-tile j
-    chunk_product<T>(s, s_lo, smem, base, own, st + P::kB, P::kKlo, j == 0, wtid);
+    chunk_product<T>(s, base, own, st + P::kB, j == 0);
     wgmma_wait_all();
     fence_regs(s);
-    if constexpr (kTF32) fence_regs(s_lo);
     if (j < nk - 1) continue;
 
-    // ---- tile t's scores are complete: logits. f32: (q . k) * scale, then
-    // + bias, each rounded alone; 16-bit: in log2 units in one FMA ----
+    // ---- tile t's scores are complete: logits in log2 units in one FMA ----
     const float* bt = reinterpret_cast<const float*>(smem + sd + P::kBias);
 #pragma unroll
     for (int i = 0; i < BT / 8; ++i) {
@@ -250,10 +208,7 @@ mha_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float bias = (e & 1) ? bb.y : bb.x;
-        if constexpr (kTF32)
-          s[4 * i + e] = __fadd_rn(__fmul_rn(s[4 * i + e] + s_lo[4 * i + e], scale), bias);
-        else
-          s[4 * i + e] = fmaf(s[4 * i + e], scale, bias * kLog2e);
+        s[4 * i + e] = fmaf(s[4 * i + e], scale, bias * kLog2e);
       }
     }
 
@@ -268,24 +223,24 @@ mha_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       }
       mx0 = quad_max(mx0);
       mx1 = quad_max(mx1);
-      l0 *= exp_<kTF32>(m0 - mx0);
-      l1 *= exp_<kTF32>(m1 - mx1);
+      l0 *= ex2_approx(m0 - mx0);
+      l1 *= ex2_approx(m1 - mx1);
       m0 = mx0;
       m1 = mx1;
 #pragma unroll
       for (int i = 0; i < BT / 8; ++i) {
-        l0 += exp_<kTF32>(s[4 * i + 0] - m0) + exp_<kTF32>(s[4 * i + 1] - m0);
-        l1 += exp_<kTF32>(s[4 * i + 2] - m1) + exp_<kTF32>(s[4 * i + 3] - m1);
+        l0 += ex2_approx(s[4 * i + 0] - m0) + ex2_approx(s[4 * i + 1] - m0);
+        l1 += ex2_approx(s[4 * i + 2] - m1) + ex2_approx(s[4 * i + 3] - m1);
       }
-    } else if constexpr (!kTF32) {
+    } else {
       // ---- P = 2^(s - m) / l rounded to T; O += P V[:, chunk] ----
       uint32_t p[BT / 4];
 #pragma unroll
       for (int i = 0; i < BT / 8; ++i) {
-        p[2 * i] = Mma<T>::pack(exp_<kTF32>(s[4 * i + 0] - m0) * l0,
-                                exp_<kTF32>(s[4 * i + 1] - m0) * l0);
-        p[2 * i + 1] = Mma<T>::pack(exp_<kTF32>(s[4 * i + 2] - m1) * l1,
-                                    exp_<kTF32>(s[4 * i + 3] - m1) * l1);
+        p[2 * i] = Mma<T>::pack(ex2_approx(s[4 * i + 0] - m0) * l0,
+                                ex2_approx(s[4 * i + 1] - m0) * l0);
+        p[2 * i + 1] = Mma<T>::pack(ex2_approx(s[4 * i + 2] - m1) * l1,
+                                    ex2_approx(s[4 * i + 3] - m1) * l1);
       }
       // BT/16 k-steps of 16 keys; V's chunk N-major (transpose bit): LBO
       // steps 8 keys, SBO 8 columns
@@ -301,34 +256,6 @@ mha_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
-    } else {
-      // ---- f32: P = exp(s - m) / l, split; O += P V[:, chunk] as 3xTF32 in
-      // products of kPvCols columns, each in accumulators of its own ----
-      float pr[BT / 2];
-#pragma unroll
-      for (int i = 0; i < BT / 2; ++i)
-        pr[i] = exp_<kTF32>(s[i] - ((i & 2) ? m1 : m0)) * ((i & 2) ? l1 : l0);
-      uint32_t ph[BT / 2], pl[BT / 2];
-      tf32_frags<BT>(pr, ph, pl);
-      fence_regs(ph);
-      fence_regs(pl);
-#pragma unroll
-      for (int ch = 0; ch < DC / kPvCols; ++ch) {
-        float pv[kPvCols / 2], pv_lo[kPvCols / 2];
-#pragma unroll
-        for (int i = 0; i < kPvCols / 2; ++i) pv[i] = pv_lo[i] = 0.f;
-        fence_regs(pv);
-        fence_regs(pv_lo);
-        wgmma_fence();
-        const int at = wg * P::kVTile + ch * kPvCols * BT * 4;
-        tf32_rs3<BT, BT>(pv, pv_lo, ph, pl, base + sd + at, base + P::kVlo + at);
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(pv);
-        fence_regs(pv_lo);
-#pragma unroll
-        for (int i = 0; i < kPvCols / 2; ++i) o[kPvCols / 2 * ch + i] += pv[i] + pv_lo[i];
-      }
     }
   }
 
@@ -401,8 +328,7 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const float
   if (err == cudaSuccess) err = allow_smem(kout, out_bytes);
   if (err != cudaSuccess) return err;
   const int gran = granule((uintptr_t)q | (uintptr_t)k | (uintptr_t)v, D * (int)sizeof(T));
-  // f32: the plain version's f32 1/sqrt(d); 16-bit: log2(e)/sqrt(d)
-  const float scale = (std::is_same<T, float>::value ? 1.0f : kLog2e) / sqrtf((float)D);
+  const float scale = kLog2e / sqrtf((float)D);  // logits in log2 units
   const int blocks = (S + kRows - 1) / kRows, npair = (D + 2 * DC - 1) / (2 * DC);
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
@@ -431,7 +357,8 @@ cudaError_t dispatch_16(const void* q, const void* k, const void* v, const float
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float16, 2 = float32. Shapes: q, k, v, out
+// dtype: 0 = bfloat16, 1 = float16 (float32 past 256 columns is
+// csrc/mha_wide_f32.cu's rrt_mha_wide_f32). Shapes: q, k, v, out
 // (B, S, H*D) contiguous; key_bias (B, S) f32 contiguous; ws: 2 * B * H * S
 // floats of scratch (each row's m and 1/l); D >= 257 (narrower heads are
 // mha_fwd.cu's and mha_generic.cu's); B, H <= 65535. Returns a cudaError_t
@@ -447,7 +374,6 @@ extern "C" int rrt_mha_wide(int dtype, const void* q, const void* k, const void*
   switch (dtype) {
     case 0: return (int)dispatch_16<__nv_bfloat16>(q, k, v, bias, out, w, B, S, H, D, st);
     case 1: return (int)dispatch_16<__half>(q, k, v, bias, out, w, B, S, H, D, st);
-    case 2: return (int)launch_wide<float, 192>(q, k, v, bias, out, w, B, S, H, D, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

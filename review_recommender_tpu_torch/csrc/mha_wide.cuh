@@ -1,10 +1,11 @@
-// Helpers of the wide-head attention kernels (csrc/mha_wide.cu, forward;
-// csrc/mha_wide_bwd.cu, backward): head widths D > 256, which the
-// instances of csrc/mha_generic.cu and csrc/mha_bwd.cu do not take.
+// Helpers of the bf16/f16 wide-head attention kernels (csrc/mha_wide.cu,
+// forward; csrc/mha_wide_bwd.cu, backward): head widths D > 256, which the
+// instances of csrc/mha_generic.cu and csrc/mha_bwd.cu do not take (f32
+// there is csrc/mha_wide_f32.cu's, which does not use this header).
 //
 // Every wide kernel contracts Q K^T (and, in the backward, dO V^T) over
-// the whole D in k-chunks of KC columns (128 in bf16/f16, 64 in f32, whose
-// shared memory is shorter): each step of a CTA's walk
+// the whole D in k-chunks of KC columns (128, 64 in the dQ kernel): each
+// step of a CTA's walk
 // over the streamed tiles lands one 64-column sub-tile of its own 64 rows
 // and one of the streamed tile's rows in a ring in shared memory, and the
 // products of that chunk add into the score accumulators. The output (or
@@ -16,10 +17,8 @@
 // wide: row r, 16-byte chunk c at (r / 8) * 8 * KC * E + c * 128 + (r % 8)
 // * 16. Columns at and past D, and rows at and past S, are zero-filled on
 // every load (the ring's buffers are reused for every chunk). The gradient
-// and P V products read a chunk of DC columns of the streamed rows: in
-// bf16/f16 as a K-major tile of DC columns read N-major through the
-// transpose bit; in f32 transposed (load_vt), TF32 wgmma having no
-// transpose bit.
+// and P V products read a chunk of DC columns of the streamed rows as a
+// K-major tile of DC columns read N-major through the transpose bit.
 
 #pragma once
 
@@ -29,8 +28,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "tf32_wgmma.cuh"
 
 namespace {
@@ -39,8 +36,7 @@ constexpr int kThreads = 128;  // one warpgroup a CTA
 constexpr int kRows = 64;      // the CTA's own rows: wgmma's M
 // columns of a k-chunk sub-tile: a step's work (the copies from L2 bound
 // the kernels; fewer, larger steps move more bytes a step)
-template <typename T>
-constexpr int kChunkCols = sizeof(T) == 4 ? 64 : 128;
+constexpr int kChunkCols = 128;
 constexpr int kMinWideD = 257; // the wide kernels take D >= this
 constexpr float kLog2e = 1.4426950408889634f;
 // shared memory that lets two CTAs share an SM (228 KB, 1 KB reserved a CTA)
@@ -60,14 +56,11 @@ inline int resident_ring(int fixed, int stage, int own) {
   return n > kMaxRing ? kMaxRing : n;
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
@@ -363,7 +356,7 @@ __device__ __forceinline__ void load_sub_g(uint32_t dst, const T* src, long long
   }
 }
 
-template <typename T, int R, int KC = kChunkCols<T>>
+template <typename T, int R, int KC = kChunkCols>
 __device__ __forceinline__ void load_sub(int gran, uint32_t dst, const T* src, long long HD,
                                          int r0, int c0, int S, int D, int tid) {
   switch (gran) {
@@ -427,40 +420,6 @@ __device__ __forceinline__ void load_rows(int gran, uint32_t dst, const T* src, 
   }
 }
 
-// f32 rows [k0, k0 + BK) of a head's columns [0, D) (the caller offsets
-// `src` to the chunk) transposed into a K-major tile of DP rows (the
-// columns) x BK (the rows), one 4-byte copy an element. Within each group
-// of 8 rows, K position kk holds row 2*kk (kk < 4) or 2*(kk-4) + 1: the
-// order in which an m64nN accumulator hands its columns to the A registers
-// of a tf32 product (tf32_frags). Rows >= S zero-filled, columns >= D not
-// written.
-template <int DP, int BK>
-__device__ __forceinline__ void load_vt(uint32_t dst, const float* src, long long HD, int k0,
-                                        int S, int D, int tid) {
-  constexpr int kDG = DP / 8;              // 8-column groups
-  constexpr int kWd = kDG < 4 ? kDG : 4;   // warps across column groups
-  constexpr int kWk = 4 / kWd;             // warps across row groups
-  static_assert(BK / 8 >= kWk, "transposed tile rows");
-  const int warp = tid / 32, lane = tid % 32, dr = lane % 8, kc = lane / 8;
-  const int wd = warp % kWd, wk = warp / kWd;
-#pragma unroll 1
-  for (int cn = wd; cn < kDG; cn += kWd) {
-    const int d = 8 * cn + dr;
-    if (d >= D) break;
-    int row = k0 + 8 * wk + 2 * kc;
-    const float* from = src + (long long)row * HD + d;
-    uint32_t at = dst + cn * (8 * BK * 4) + 2 * wk * 128 + dr * 16 + kc * 4;
-#pragma unroll
-    for (int n = 0; n < BK / 8 / kWk; ++n) {
-      cp_async<4>(at, row < S ? from : src, row < S ? 4 : 0);
-      cp_async<4>(at + 128, row + 1 < S ? from + HD : src, row + 1 < S ? 4 : 0);
-      row += 8 * kWk;
-      from += 8 * kWk * HD;
-      at += 2 * kWk * 128;
-    }
-  }
-}
-
 // The tile's key bias; -inf for keys >= S.
 template <int BK>
 __device__ __forceinline__ void load_bias(uint32_t dst, const float* brow, int k0, int S,
@@ -475,87 +434,18 @@ __device__ __forceinline__ void load_bias(uint32_t dst, const float* brow, int k
   }
 }
 
-// N bytes of f32 at `at` split in place into hi = tf32(x), with lo =
-// tf32(x - hi) at `lo` (both rounded to nearest, ties away from zero).
-template <int N>
-__device__ __forceinline__ void split_tf32(unsigned char* at, unsigned char* lo, int tid) {
-  static_assert(N % (16 * kThreads) == 0, "whole passes");
-#pragma unroll 2
-  for (int off = 16 * tid; off < N; off += 16 * kThreads) {
-    const float4 x = *reinterpret_cast<const float4*>(at + off);
-    const uint32_t h0 = tf32_rna(x.x), h1 = tf32_rna(x.y), h2 = tf32_rna(x.z), h3 = tf32_rna(x.w);
-    *reinterpret_cast<uint4*>(at + off) = make_uint4(h0, h1, h2, h3);
-    *reinterpret_cast<uint4*>(lo + off) =
-        make_uint4(tf32_rna(x.x - __uint_as_float(h0)), tf32_rna(x.y - __uint_as_float(h1)),
-                   tf32_rna(x.z - __uint_as_float(h2)), tf32_rna(x.w - __uint_as_float(h3)));
-  }
-}
-
-// The A registers of a tf32 product from the f32 values of an m64nK
-// accumulator: k-step j's (row g, K c), (g+8, c), (g, c+4), (g+8, c+4) are
-// columns 8j+2c and 8j+2c+1 (load_vt's order), split into hi and lo.
-template <int K>
-__device__ __forceinline__ void tf32_frags(const float (&x)[K / 2], uint32_t (&hi)[K / 2],
-                                           uint32_t (&lo)[K / 2]) {
-#pragma unroll
-  for (int j = 0; j < K / 8; ++j) {
-    const float y[4] = {x[4 * j + 0], x[4 * j + 2], x[4 * j + 1], x[4 * j + 3]};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      hi[4 * j + e] = tf32_hi(y[e]);
-      lo[4 * j + e] = tf32_rna(y[e] - __uint_as_float(hi[4 * j + e]));
-    }
-  }
-}
-
-// acc_lo += lo*hi + hi*lo and acc += hi*hi over K/8 k-steps: A from
-// registers (hi, lo), B a transposed tile of BT keys (hi at `bh`, lo at
-// `blo`; 8-column groups 8 * BT * 4 bytes apart). No commit. acc and acc_lo
-// may be one array.
-template <int K, int BT, int N>
-__device__ __forceinline__ void tf32_rs3(float (&acc)[N], float (&acc_lo)[N],
-                                         const uint32_t (&hi)[K / 2], const uint32_t (&lo)[K / 2],
-                                         uint32_t bh, uint32_t blo) {
-  constexpr int G = 8 * BT * 4;
-  const uint64_t db = smem_desc(bh, 128, G), dbl = smem_desc(blo, 128, G);
-#pragma unroll
-  for (int j = 0; j < K / 8; ++j) {
-    const uint32_t a[4] = {lo[4 * j], lo[4 * j + 1], lo[4 * j + 2], lo[4 * j + 3]};
-    wgmma_rs_tf32(acc_lo, a, db + 16 * j);
-  }
-#pragma unroll
-  for (int j = 0; j < K / 8; ++j) {
-    const uint32_t a[4] = {hi[4 * j], hi[4 * j + 1], hi[4 * j + 2], hi[4 * j + 3]};
-    wgmma_rs_tf32(acc_lo, a, dbl + 16 * j);
-  }
-#pragma unroll
-  for (int j = 0; j < K / 8; ++j) {
-    const uint32_t a[4] = {hi[4 * j], hi[4 * j + 1], hi[4 * j + 2], hi[4 * j + 3]};
-    wgmma_rs_tf32(acc, a, db + 16 * j);
-  }
-}
-
 // One k-chunk's share of a score product X (64 own rows x N streamed rows)
 // over the KC columns of the landed sub-tiles: `a` the own rows' sub-tile,
-// `b` the streamed rows' (f32: hi in place, lo at `blo`). bf16/f16: SS
-// wgmma into x; f32: 3xTF32, A split in registers (tf32_rs3_split), small
-// terms into x_lo, hi*hi into x. `first`: the first chunk, which starts the
-// sums. Commits; the caller waits.
-template <typename T, int KC = kChunkCols<T>, int N>
-__device__ __forceinline__ void chunk_product(float (&x)[N], float (&x_lo)[N], unsigned char* smem,
-                                              uint32_t base, int a, int b, int blo, bool first,
-                                              int tid) {
-  if constexpr (std::is_same<T, float>::value) {
-    constexpr int G = 8 * KC * 4;
-    tf32_rs3_split<KC, 2>(x, x_lo, smem + a, smem_desc(base + b, 128, G),
-                          smem_desc(base + blo, 128, G), tid, first);
-  } else {
-    constexpr int G = 8 * KC * 2;
-    const uint64_t da = smem_desc(base + a, 128, G), db = smem_desc(base + b, 128, G);
+// `b` the streamed rows', SS wgmma into x. `first`: the first chunk, which
+// starts the sums. Commits; the caller waits.
+template <typename T, int KC = kChunkCols, int N>
+__device__ __forceinline__ void chunk_product(float (&x)[N], uint32_t base, int a, int b,
+                                              bool first) {
+  constexpr int G = 8 * KC * 2;
+  const uint64_t da = smem_desc(base + a, 128, G), db = smem_desc(base + b, 128, G);
 #pragma unroll
-    for (int j = 0; j < KC / 16; ++j) Mma<T>::qk(x, da + 16 * j, db + 16 * j, !first || j > 0);
-    wgmma_commit();
-  }
+  for (int j = 0; j < KC / 16; ++j) Mma<T>::qk(x, da + 16 * j, db + 16 * j, !first || j > 0);
+  wgmma_commit();
 }
 
 // the widest copy granule (16, 8, 4 or 2 bytes) that every row of the

@@ -1,13 +1,14 @@
 // Multi-head attention backward for Hopper (sm_90a) at head widths past
 // 256: the q, k and v gradients of softmax(Q K^T * 1/sqrt(d) + key_bias) V
-// for f32, bf16 and f16 at any D >= 257, any S >= 1.
+// for bf16 and f16 at any D >= 257, any S >= 1 (f32 past 256 is
+// csrc/mha_wide_f32.cu's).
 //
 // Replaces, beside csrc/mha_bwd.cu (which takes D up to 256), the backward
 // of the TPU kernel's custom_vjp:
 // review_recommender_tpu/ops/pallas/attention_kernel.py:_mha_bwd (:142),
 // which re-runs mha_xla under jax.vjp at any D. ops/attention.py:
-// backward_route sends D > 256 here (routes "wide": bf16/f16, "wide_tf32":
-// f32). q, k, v, dout (the gradient of the forward's output) and the
+// backward_route sends bf16/f16 at D > 256 here (route "wide"). q, k, v,
+// dout (the gradient of the forward's output) and the
 // gradients (B, S, H*D) row-major, key_bias (B, S) f32 (0 keep, -1e30 drop).
 //
 // The formula is csrc/mha_bwd.cu's (its :14-27; ops/attention.py:
@@ -37,21 +38,15 @@
 //     S^T = K Q^T and dP^T = V dO^T over the whole D, P^T and dS^T from the
 //     query rows' statistics, dV[:, c] += round_T(P^T) dO[:, c] and
 //     dK[:, c] += round_T(dS^T) Q[:, c].
-// Logits in log2 units, ex2.approx and a multiply by 1/l for every dtype,
-// as csrc/mha_bwd.cu. bf16/f16 on wgmma (S, dP from shared memory; the
-// gradient products with P or dS, rounded to T, straight from the
-// accumulators as A registers, the chunk N-major through the transpose
-// bit): streamed tiles of 64 keys (kernels 0, 1) and 32 queries (kernel
-// 2), DCA = 192, DCB = 128 (dQ 96 registers a thread; dK and dV 64 each).
-// f32 as 3xTF32 (each k-step's own-row elements split in registers, the
-// streamed sub-tiles split in place, small terms of S and dP in
-// accumulators of their own; the gradient products take the chunk
-// transposed and split, and P or dS split in registers, the three terms in
-// the gradient's accumulator, as mha_bwd.cu's wide f32 kernels): tiles of
-// 32 keys and 16 queries, DCA = DCB = 128. k-chunks of KC = 128 columns in
-// bf16/f16 kernels 0 and 2 (fewer, larger steps), 64 in f32 and in kernel
-// 1, whose chunks of K leave no room for resident rows beside 128-column
-// sub-tiles at D = 384. The copies from L2 bound every kernel (the first
+// Logits in log2 units, ex2.approx and a multiply by 1/l, as
+// csrc/mha_bwd.cu. On wgmma (S, dP from shared memory; the gradient
+// products with P or dS, rounded to T, straight from the accumulators as A
+// registers, the chunk N-major through the transpose bit): streamed tiles
+// of 64 keys (kernels 0, 1) and 32 queries (kernel 2), DCA = 192, DCB =
+// 128 (dQ 96 registers a thread; dK and dV 64 each). k-chunks of KC = 128
+// columns in kernels 0 and 2 (fewer, larger steps), 64 in kernel 1, whose
+// chunks of K leave no room for resident rows beside 128-column sub-tiles
+// at D = 384. The copies from L2 bound every kernel (the first
 // design, own rows streamed and one chunk a CTA, took 3.09 ms at (64, 512,
 // 1, 384) bf16 and 0.60 without the next steps' copies, 3.17 without the
 // S / dP products, 3.19 without the gradient products: examples/
@@ -63,9 +58,8 @@
 // CTAs an SM, 2 where one CTA is all that fits; and kernels 1 and 2 pair
 // their column chunks in one CTA, so that each streamed sub-tile serves
 // two. That takes bf16 to 1.5371 ms (0.81 without the next steps'
-// copies), f32 to 10.5369, against the recompute's 3.3719 / 3.0174
-// (examples/torch_attention_ab.py --kernel wide_heads, H100 at 700 W;
-// PERF.md).
+// copies), against the recompute's 3.3719 (examples/torch_attention_ab.py
+// --kernel wide_heads, H100 at 700 W; PERF.md).
 //
 // What bounds it on an H100 SXM (published peaks at 700 W), at (64, 512,
 // 1, 384), the work of (64, 512, 2, 192): the five products, 64.4 GFLOP at
@@ -75,7 +69,7 @@
 // in both warpgroups (bf16 at D = 384: 2 + 2 x 2 + 4 x 2 = 14 score
 // products beside the 3 gradient ones).
 //
-// Semantics, every route:
+// Semantics:
 //   - an all-masked row has equal logits, P = 1/S over the S real keys,
 //     and its gradients flow uniformly;
 //   - keys from S to the tile edge get logit -inf, P = 0 and zero K and V
@@ -93,21 +87,18 @@ namespace {
 // Geometry of kernel KIND at dtype T and gradient column chunk DC; WG
 // warpgroups a CTA, one a column chunk (one in the statistics kernel). Own
 // rows: Q and dO (KIND 0, 1) or K and V (KIND 2), 64 of them; streamed
-// rows: K and V, or Q and dO, BT a tile. Shared memory: the f32 lo halves
-// (the two streamed sub-tiles', then each warpgroup's chunks') | 2 side
-// buffers by tile parity (each warpgroup's chunks: KIND 1 K's, KIND 2 Q's
-// then dO's, bf16 K-major tiles of BT rows x DC columns, f32 transposed;
-// then the tile's key bias, or its query rows' m, 1/l and Delta) | the
-// ring of (own 1, streamed 1, own 2,
+// rows: K and V, or Q and dO, BT a tile. Shared memory: 2 side buffers by
+// tile parity (each warpgroup's chunks: KIND 1 K's, KIND 2 Q's then dO's,
+// K-major tiles of BT rows x DC columns; then the tile's key bias, or its
+// query rows' m, 1/l and Delta) | the ring of (own 1, streamed 1, own 2,
 // streamed 2) sub-tiles, kStages of them (RES: `stages` of (streamed 1,
 // streamed 2)) | RES: own 1's and own 2's D / 64 sub-tiles each.
 template <typename T, int KIND, int DC, bool RES>
 struct BwdPlan {
-  static constexpr bool kTF32 = std::is_same<T, float>::value;
   // k-chunk columns: 64 in the dQ kernel, whose chunks of K leave too
   // little shared memory for resident rows beside 128-column sub-tiles
-  static constexpr int E = sizeof(T), KC = KIND == 1 ? 64 : kChunkCols<T>;
-  static constexpr int BT = KIND == 2 ? (kTF32 ? 16 : 32) : (kTF32 ? 32 : 64);
+  static constexpr int E = sizeof(T), KC = KIND == 1 ? 64 : kChunkCols;
+  static constexpr int BT = KIND == 2 ? 32 : 64;
   static constexpr int NCHUNK = KIND == 2 ? 2 : KIND == 1 ? 1 : 0;  // chunk tiles a warpgroup
   static constexpr int WG = KIND > 0 ? 2 : 1;
   static constexpr int kCtaThreads = WG * kThreads;
@@ -120,15 +111,13 @@ struct BwdPlan {
   static constexpr int kWgChunks = NCHUNK * kCTile;  // a warpgroup's chunks in a side buffer
   static constexpr int kStat = WG * kWgChunks;  // the bias or statistics in a side buffer
   static constexpr int kSide = kStat + (KIND == 2 ? 3 : 1) * BT * 4;
-  static constexpr int kLo1 = 0, kLo2 = kSubB, kCLo = 2 * kSubB;
-  static constexpr int kLo = kTF32 ? 2 * kSubB + WG * kWgChunks : 0;
-  static constexpr int kSide0 = kLo;
+  static constexpr int kSide0 = 0;
   static constexpr int kStage0 = kSide0 + 2 * kSide + 127 - (2 * kSide + 127) % 128;
   static constexpr int kStages = ring_stages(kStage0, kStage);  // RES: a launch argument
   static constexpr int kBytes = kStage0 + kStages * kStage;
   static int own_bytes(int D) { return RES ? 2 * ((D + KC - 1) / KC) * kSubA : 0; }
   static_assert(kBytes <= 232448, "shared memory of one block");
-  static_assert(kStage % 128 == 0 && kLo % 128 == 0 && kCTile % 128 == 0, "tile alignment");
+  static_assert(kStage % 128 == 0 && kCTile % 128 == 0, "tile alignment");
 };
 
 // A tile's query statistics into shared memory: m, 1/l and Delta of rows
@@ -148,50 +137,35 @@ __device__ __forceinline__ void load_stats(uint32_t dst, const float* stats, lon
   }
 }
 
-// Rows [r0, r0 + R) of columns [c0, c0 + DC) of a head: bf16/f16 a K-major
-// tile of DC columns (read N-major through the transpose bit), f32
-// transposed (load_vt).
+// Rows [r0, r0 + R) of columns [c0, c0 + DC) of a head: a K-major tile of
+// DC columns (read N-major through the transpose bit).
 template <typename T, int DC, int R>
 __device__ __forceinline__ void load_chunk(int gran, uint32_t dst, const T* head_src, long long HD,
                                            int r0, int c0, int S, int D, int tid) {
   const int dc = D - c0 < DC ? D - c0 : DC;
-  if constexpr (std::is_same<T, float>::value)
-    load_vt<DC, R>(dst, head_src + c0, HD, r0, S, dc, tid);
-  else
-    load_rows<T, DC, R>(gran, dst, head_src + c0, HD, r0, S, dc, tid);
+  load_rows<T, DC, R>(gran, dst, head_src + c0, HD, r0, S, dc, tid);
 }
 
 // acc += A B over the BT streamed rows, A the m64nBT accumulator values x
-// (P, dS, or their transposes) in registers, B the chunk tile at `ct`
-// (f32: hi, lo at `clo`). bf16/f16: x rounded to T; f32: 3xTF32 into acc.
-// Commits and waits.
+// (P, dS, or their transposes) rounded to T in registers, B the chunk tile
+// at `ct`. Commits and waits.
 template <typename T, int BT, int NA>
 __device__ __forceinline__ void grad_product(float (&acc)[NA], const float (&x)[BT / 2],
-                                             uint32_t ct, uint32_t clo) {
-  if constexpr (std::is_same<T, float>::value) {
-    uint32_t hi[BT / 2], lo[BT / 2];
-    tf32_frags<BT>(x, hi, lo);
-    fence_regs(hi);
-    fence_regs(lo);
-    fence_regs(acc);
-    wgmma_fence();
-    tf32_rs3<BT, BT>(acc, acc, hi, lo, ct, clo);
-  } else {
-    constexpr int kGroupC = 8 * (2 * NA) * 2;  // the chunk's 8-row groups (DC = 2 NA columns)
-    uint32_t a[BT / 4];
+                                             uint32_t ct) {
+  constexpr int kGroupC = 8 * (2 * NA) * 2;  // the chunk's 8-row groups (DC = 2 NA columns)
+  uint32_t a[BT / 4];
 #pragma unroll
-    for (int i = 0; i < BT / 8; ++i) {
-      a[2 * i] = Mma<T>::pack(x[4 * i + 0], x[4 * i + 1]);
-      a[2 * i + 1] = Mma<T>::pack(x[4 * i + 2], x[4 * i + 3]);
-    }
-    fence_regs(acc);
-    fence_regs(a);
-    wgmma_fence();
+  for (int i = 0; i < BT / 8; ++i) {
+    a[2 * i] = Mma<T>::pack(x[4 * i + 0], x[4 * i + 1]);
+    a[2 * i + 1] = Mma<T>::pack(x[4 * i + 2], x[4 * i + 3]);
+  }
+  fence_regs(acc);
+  fence_regs(a);
+  wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < BT / 16; ++j) {
-      const uint32_t aj[4] = {a[4 * j], a[4 * j + 1], a[4 * j + 2], a[4 * j + 3]};
-      pv_wide<T>(acc, aj, smem_desc(ct + 2 * j * kGroupC, kGroupC, 128));
-    }
+  for (int j = 0; j < BT / 16; ++j) {
+    const uint32_t aj[4] = {a[4 * j], a[4 * j + 1], a[4 * j + 2], a[4 * j + 3]};
+    pv_wide<T>(acc, aj, smem_desc(ct + 2 * j * kGroupC, kGroupC, 128));
   }
   wgmma_commit();
   wgmma_wait_all();
@@ -209,7 +183,6 @@ mha_wide_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     T* __restrict__ g1, T* __restrict__ g2, float* __restrict__ ws, int S, int H,
                     int D, int gran, float scale, float dscale, int stages) {
   using P = BwdPlan<T, KIND, DC, RES>;
-  constexpr bool kTF32 = P::kTF32;
   constexpr int KC = P::KC;
   constexpr int BT = P::BT, WG = P::WG;
   constexpr int NA = DC > 0 ? DC / 2 : 1;
@@ -315,7 +288,7 @@ mha_wide_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int i = 0; i < NA; ++i) acc1[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < (KIND == 2 ? NA : 1); ++i) acc2[i] = 0.f;
-  float s[BT / 2], s_lo[BT / 2], dp[BT / 2], dp_lo[BT / 2];
+  float s[BT / 2], dp[BT / 2];
 
   for (int u = 0; u < nsteps; ++u) {
     const int t = u / nk, j = u % nk;
@@ -326,28 +299,15 @@ mha_wide_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     cp_async_commit();
     const int st = P::kStage0 + (u % stages) * P::kStage;
     const int sd = P::kSide0 + (t % 2) * P::kSide;
-    const int ch = sd + wg * P::kWgChunks, clo = P::kCLo + wg * P::kWgChunks;
-    if constexpr (kTF32) {
-      if (first) split_tf32<P::kSubB>(smem + st + P::kB1, smem + P::kLo1, wtid);
-      if (last) split_tf32<P::kSubB>(smem + st + P::kB2, smem + P::kLo2, wtid);
-      if constexpr (KIND > 0) {
-        if (j == nk - 1) split_tf32<P::kWgChunks>(smem + ch, smem + clo, wtid);
-      }
-      fence_async_smem();
-      __syncthreads();  // hi and lo of this step are stored
-    }
+    const int ch = sd + wg * P::kWgChunks;
     const int a1 = RES ? own_at + j * P::kSubA : st + P::kA1;  // own 1's sub-tile j
     const int a2 = RES ? own_at + (nk + j) * P::kSubA : st + P::kA2;
     wgmma_fence();
-    chunk_product<T, KC>(s, s_lo, smem, base, a1, st + P::kB1, P::kLo1, j == 0, wtid);
-    chunk_product<T, KC>(dp, dp_lo, smem, base, a2, st + P::kB2, P::kLo2, j == 0, wtid);
+    chunk_product<T, KC>(s, base, a1, st + P::kB1, j == 0);
+    chunk_product<T, KC>(dp, base, a2, st + P::kB2, j == 0);
     wgmma_wait_all();
     fence_regs(s);
     fence_regs(dp);
-    if constexpr (kTF32) {
-      fence_regs(s_lo);
-      fence_regs(dp_lo);
-    }
     if (j < nk - 1) continue;
 
     // ---- the tile's S and dP are complete: logits in log2 units, dP as the
@@ -355,9 +315,8 @@ mha_wide_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     float x[BT / 2], y[BT / 2];
 #pragma unroll
     for (int i = 0; i < BT / 2; ++i) {
-      const float sv = kTF32 ? s[i] + s_lo[i] : s[i];
-      y[i] = kTF32 ? dp[i] + dp_lo[i] : to_f32(from_f32<T>(dp[i]));
-      x[i] = sv;
+      y[i] = to_f32(from_f32<T>(dp[i]));
+      x[i] = s[i];
     }
     if constexpr (KIND < 2) {
       const float* bt = reinterpret_cast<const float*>(smem + sd + P::kStat);
@@ -406,7 +365,7 @@ mha_wide_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const float p = ex2_approx(x[i] - (hi_row ? m1 : m0)) * (hi_row ? l1 : l0);
         x[i] = p * (y[i] - (hi_row ? dl1 : dl0));
       }
-      grad_product<T, BT>(acc1, x, base + ch, base + clo);
+      grad_product<T, BT>(acc1, x, base + ch);
     } else {
       // rows are keys, columns queries: P^T = 2^(s - m_q) / l_q with the
       // key row's bias; dS^T = P^T (dP^T - Delta_q); dV[:, c] += P^T dO[:, c],
@@ -427,8 +386,8 @@ mha_wide_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
           y[4 * i + e] = p * (y[4 * i + e] - (odd ? dl.y : dl.x));
         }
       }
-      grad_product<T, BT>(acc2, x, base + ch + P::kCTile, base + clo + P::kCTile);
-      grad_product<T, BT>(acc1, y, base + ch, base + clo);
+      grad_product<T, BT>(acc2, x, base + ch + P::kCTile);
+      grad_product<T, BT>(acc1, y, base + ch);
     }
   }
 
@@ -545,12 +504,13 @@ cudaError_t launch_wide_bwd(const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float16, 2 = float32. q, k, v, dout (the
+// dtype: 0 = bfloat16, 1 = float16 (float32 past 256 columns is
+// csrc/mha_wide_f32.cu's rrt_mha_wide_f32_bwd). q, k, v, dout (the
 // gradient of the forward's output), dq, dk, dv: (B, S, H*D) contiguous;
 // key_bias (B, S) f32 contiguous; ws: 3 * B * H * S floats of scratch.
 // D >= 257 (narrower heads are mha_bwd.cu's); B, H <= 65535. Route
-// (ops/attention.py:backward_route): "wide" for bf16/f16, "wide_tf32" for
-// f32. Returns a cudaError_t (0 = launched).
+// (ops/attention.py:backward_route): "wide". Returns a cudaError_t (0 =
+// launched).
 extern "C" int rrt_mha_wide_bwd(int dtype, const void* q, const void* k, const void* v,
                                 const void* key_bias, const void* dout, void* dq, void* dk,
                                 void* dv, void* ws, int B, int S, int H, int D, void* stream) {
@@ -561,7 +521,6 @@ extern "C" int rrt_mha_wide_bwd(int dtype, const void* q, const void* k, const v
   switch (dtype) {
     case 0: return (int)launch_wide_bwd<__nv_bfloat16, 192, 128>(a);
     case 1: return (int)launch_wide_bwd<__half, 192, 128>(a);
-    case 2: return (int)launch_wide_bwd<float, 128, 128>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

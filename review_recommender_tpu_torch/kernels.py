@@ -133,6 +133,14 @@ def load() -> ctypes.CDLL:
             lib.rrt_mha_wide_bwd.restype = I
             lib.rrt_mha_wide_bwd_last_dc.argtypes = [I]
             lib.rrt_mha_wide_bwd_last_dc.restype = I
+            lib.rrt_mha_wide_f32.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
+            lib.rrt_mha_wide_f32.restype = I
+            lib.rrt_mha_wide_f32_bwd.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
+            lib.rrt_mha_wide_f32_bwd.restype = I
+            lib.rrt_mha_wide_f32_ws_floats.argtypes = [I, I, I, I, I, I]
+            lib.rrt_mha_wide_f32_ws_floats.restype = ctypes.c_longlong
+            lib.rrt_mha_wide_f32_dc.argtypes = []
+            lib.rrt_mha_wide_f32_dc.restype = I
             F = ctypes.c_float
             lib.rrt_bm25_packed.argtypes = [P, P, P, P, F, P, I, I, I, P]
             lib.rrt_bm25_packed.restype = I

@@ -12,11 +12,13 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        from 1 to 256, on the tensor cores from tiles
                        zero-padded to padded_head_dim(D): bf16/f16 in two
                        softmax passes, f32 as 3xTF32 in one online pass),
-                       "wide" = csrc/mha_wide.cu (f32, bf16 and f16 at
-                       every D past 256: a statistics pass, then one CTA a
+                       "wide" = every D past 256: bf16/f16
+                       csrc/mha_wide.cu (a statistics pass, then one CTA a
                        64-row block and pair of output column chunks, the
                        scores contracted over the whole D in chunks of 128
-                       columns, 64 in f32); any S >= 1 on all three.
+                       columns), f32 csrc/mha_wide_f32.cu (3xTF32, the
+                       logits computed once into a workspace, then the
+                       output from them); any S >= 1 on all three.
                        Together they replace the TPU kernel `_mha_kernel`,
                        which takes any float type, head width and length
   mha_kernel           the route's CUDA kernel; where a gradient is asked
@@ -28,9 +30,10 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
   backward_route       which backward kernel takes (dtype, D, S): up to
                        D = 256 csrc/mha_bwd.cu, "wgmma" (bf16/f16: wgmma,
                        products in flight during the softmax work) or
-                       "tf32" (f32: wgmma as 3xTF32); past 256
-                       csrc/mha_wide_bwd.cu, "wide" (bf16/f16) or
-                       "wide_tf32" (f32), gradient columns in chunks
+                       "tf32" (f32: wgmma as 3xTF32); past 256 "wide"
+                       (bf16/f16, csrc/mha_wide_bwd.cu) or "wide_tf32"
+                       (f32, csrc/mha_wide_f32.cu: S and dP computed
+                       once into a workspace), gradient columns in chunks
   padded_head_dim      the padded width of the generic and backward
                        kernels' instance for a head width up to 256 (the C
                        entries rrt_mha_generic_last_dp / rrt_mha_bwd_last_dp
@@ -39,7 +42,10 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        width past 256: the forward's output columns, the
                        dQ kernel's and the dK / dV kernel's a CTA (the C
                        entries rrt_mha_wide_last_dc / rrt_mha_wide_bwd_last_dc
-                       report the last launch's)
+                       report the last 16-bit launch's, rrt_mha_wide_f32_dc
+                       the f32 kernels')
+  wide_f32_workspace_floats  the f32 wide kernels' workspace (logits or
+                       P and dP, row statistics, transposed copies)
   multihead_attention  the towers' entry point: impl "auto" launches the
                        kernel for CUDA tensors and takes the reference for
                        CPU tensors (autograd through its torch ops);
@@ -55,7 +61,10 @@ TPU kernel's grid takes them, no tower has them). The gradient follows the JAX c
 (the key bias, built from the mask, gets none), but not in how: where JAX
 re-runs the plain attention under jax.vjp, MhaKernelFn's backward is the
 hand-written kernel csrc/mha_bwd.cu on CUDA tensors and
-mha_backward_reference on CPU tensors.
+mha_backward_reference on CPU tensors. The f32 wide kernels take a
+workspace that grows with B * H * S^2; their batch runs by slices whose
+workspace stays under WIDE_F32_WORKSPACE_BYTES (at least one batch row a
+slice), within the grid's slices (_batch_slices).
 """
 from __future__ import annotations
 
@@ -71,7 +80,10 @@ from review_recommender_tpu_torch import kernels
 # threads encode concurrently, so the counts are bumped under a lock.
 mha_kernel_launches = 0
 mha_generic_kernel_launches = 0
-mha_wide_kernel_launches = 0  # csrc/mha_wide.cu: a call's two kernels count one
+mha_wide_kernel_launches = 0  # csrc/mha_wide.cu (bf16/f16): a call's two kernels count one
+# csrc/mha_wide_f32.cu's forward (f32 past 256): a call's transpose, score
+# and output kernels (and pad kernels, at widths TMA cannot read) count one
+mha_wide_f32_kernel_launches = 0
 # Launches of the backward kernel (csrc/mha_bwd.cu), by route (backward_route:
 # "wgmma", "tf32"): one per kernel forward that a training step
 # differentiates. With remat (per-layer checkpointing) the backward first
@@ -79,7 +91,9 @@ mha_wide_kernel_launches = 0  # csrc/mha_wide.cu: a call's two kernels count one
 # each backward.
 mha_backward_kernel_launches = 0
 mha_backward_tf32_launches = 0
-# csrc/mha_wide_bwd.cu past D = 256: a call's three kernels count one
+# past D = 256, a call counting one: csrc/mha_wide_bwd.cu's three kernels
+# (bf16/f16); csrc/mha_wide_f32.cu's backward (f32: three transposes, the
+# score and dP kernels, the dQ and dK / dV kernels)
 mha_backward_wide_launches = 0
 mha_backward_wide_tf32_launches = 0
 _count_lock = threading.Lock()
@@ -91,6 +105,9 @@ MAX_HEAD_DIM = 256
 # the padded widths of the instances of csrc/mha_generic.cu and csrc/mha_bwd.cu
 PADDED_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 MAX_GRID_BATCH = 65535  # the kernels' grid.z: larger batches launch by slices
+# the f32 wide kernels' workspace a slice may take (tests monkeypatch it)
+WIDE_F32_WORKSPACE_BYTES = 1 << 30
+WIDE_F32_CHUNK = 128  # csrc/mha_wide_f32.cu's kDc: the output columns of a CTA
 BACKWARD_COUNTERS = {"wgmma": "mha_backward_kernel_launches",
                      "tf32": "mha_backward_tf32_launches",
                      "wide": "mha_backward_wide_launches",
@@ -146,14 +163,14 @@ def wide_column_chunks(dtype: torch.dtype, d: int) -> tuple[int, int, int]:
     """The column chunks of the wide kernels at head width d > MAX_HEAD_DIM,
     one chunk a CTA: (the forward's output columns, the dQ kernel's, the
     dK / dV kernel's). bf16/f16 forward: the fewest chunks of at most 256
-    columns, 192 wide where they hold d; backward 192 and 128. f32: 192,
-    128 and 128. A CTA takes two chunks side by side. Raises ValueError for
-    d <= MAX_HEAD_DIM or another dtype."""
+    columns, 192 wide where they hold d; backward 192 and 128, a CTA two
+    chunks side by side. f32 (csrc/mha_wide_f32.cu): 128 columns a CTA in
+    all three. Raises ValueError for d <= MAX_HEAD_DIM or another dtype."""
     _check_domain(dtype, d, 1)
     if d <= MAX_HEAD_DIM:
         raise ValueError(f"mha_kernel: head dim {d} takes a padded instance (padded_head_dim)")
     if dtype == torch.float32:
-        return 192, 128, 128
+        return WIDE_F32_CHUNK, WIDE_F32_CHUNK, WIDE_F32_CHUNK
     n = -(-d // 256)
     return (192 if d <= 192 * n else 256), 192, 128
 
@@ -247,9 +264,46 @@ def _check_kernel_args(q, k, v, key_bias, num_heads) -> tuple[int, int, int, int
     return b, s, num_heads, hd // num_heads
 
 
-def _batch_slices(b: int) -> list[tuple[int, int]]:
-    """[b0, b1) slices of at most MAX_GRID_BATCH rows that cover a batch."""
-    return [(b0, min(b, b0 + MAX_GRID_BATCH)) for b0 in range(0, b, MAX_GRID_BATCH)]
+def _batch_slices(b: int, row_bytes: int = 0) -> list[tuple[int, int]]:
+    """[b0, b1) slices that cover a batch: at most MAX_GRID_BATCH rows each
+    and, where a batch row takes `row_bytes` of workspace, at most as many
+    rows as fit WIDE_F32_WORKSPACE_BYTES, but never fewer than one."""
+    rows = MAX_GRID_BATCH
+    if row_bytes:
+        rows = max(1, min(rows, WIDE_F32_WORKSPACE_BYTES // row_bytes))
+    return [(b0, min(b, b0 + rows)) for b0 in range(0, b, rows)]
+
+
+def wide_f32_workspace_floats(backward: bool, b: int, s: int, h: int, d: int,
+                              padded: bool) -> int:
+    """Floats of workspace csrc/mha_wide_f32.cu takes for a batch of b rows
+    (its C entry rrt_mha_wide_f32_ws_floats, which the card tests check):
+    the logits (backward: P and dP) of S rows by S rounded up to 128 keys a
+    (b, h), the row statistics (m, 1/l; backward also Delta), the
+    transposed copies (V^T; backward K^T, Q^T, dO^T: D rows of those keys),
+    and, where `padded`, the rows the score kernels read copied at D rounded
+    up to 4 (forward q, k; backward q, k, v, dO). Each region is rounded up
+    to 64 floats."""
+    r64 = lambda n: -(-n // 64) * 64
+    sk = -(-s // 128) * 128
+    scores, stats, trans, rows = (2, 3, 3, 4) if backward else (1, 2, 1, 2)
+    total = scores * r64(b * h * s * sk) + r64(stats * b * h * s) + trans * r64(b * h * d * sk)
+    return total + (rows * r64(b * s * h * (-(-d // 4) * 4)) if padded else 0)
+
+
+def _wide_f32_padded(d: int, *tensors) -> bool:
+    """Whether the f32 wide kernels copy the rows first: TMA reads them in
+    place where D * 4 bytes is a multiple of 16 and every base is 16-byte
+    aligned."""
+    return d % 4 != 0 or any(t.data_ptr() % 16 for t in tensors)
+
+
+def _wide_f32_slices(backward: bool, b: int, s: int, h: int, d: int,
+                     padded: bool) -> list[tuple[int, int]]:
+    """The batch slices of the f32 wide kernels: _batch_slices at the
+    workspace of one batch row."""
+    row_bytes = 4 * wide_f32_workspace_floats(backward, 1, s, h, d, padded)
+    return _batch_slices(b, row_bytes)
 
 
 _FORWARD = {"wgmma": ("rrt_mha_fwd", "mha_kernel_launches"),
@@ -257,9 +311,37 @@ _FORWARD = {"wgmma": ("rrt_mha_fwd", "mha_kernel_launches"),
             "wide": ("rrt_mha_wide", "mha_wide_kernel_launches")}  # route -> entry, counter
 
 
+def _launch_wide_f32(q, k, v, key_bias, g, b, s, h, d, outs) -> None:
+    """csrc/mha_wide_f32.cu's forward (g None: outs = (out,)) or backward
+    (outs = (dq, dk, dv)) on CUDA f32 tensors, by workspace slices."""
+    backward = g is not None
+    padded = _wide_f32_padded(d, *((q, k, v, g) if backward else (q, k)))
+    slices = _wide_f32_slices(backward, b, s, h, d, padded)
+    n = max(b1 - b0 for b0, b1 in slices)
+    ws = torch.empty(wide_f32_workspace_floats(backward, n, s, h, d, padded),
+                     dtype=torch.float32, device=q.device)
+    entry_name = "rrt_mha_wide_f32_bwd" if backward else "rrt_mha_wide_f32"
+    entry = getattr(kernels.load(), entry_name)
+    counter = "mha_backward_wide_tf32_launches" if backward else "mha_wide_f32_kernel_launches"
+    ins = (q, k, v, key_bias, g) if backward else (q, k, v, key_bias)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        for b0, b1 in slices:
+            ptrs = [t[b0:b1].data_ptr() for t in (*ins, *outs)]
+            err = entry(*ptrs, ws.data_ptr(), b1 - b0, s, h, d, int(padded), stream)
+            kernels.check_launch(entry_name[4:], err, f"B={b1 - b0} (rows {b0}-{b1} of {b}) "
+                                 f"S={s} H={h} D={d} torch.float32")
+            with _count_lock:
+                globals()[counter] += 1
+
+
 def _launch(q, k, v, key_bias, num_heads: int) -> torch.Tensor:
     b, s, h, d = _check_kernel_args(q, k, v, key_bias, num_heads)
     route = kernel_route(q.dtype, d, s)
+    if route == "wide" and q.dtype == torch.float32:
+        out = torch.empty_like(q)
+        _launch_wide_f32(q, k, v, key_bias, None, b, s, h, d, (out,))
+        return out
     if route == "wgmma":
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:  # TMA's global address
@@ -287,7 +369,8 @@ def _launch(q, k, v, key_bias, num_heads: int) -> torch.Tensor:
 def _launch_bwd(q, k, v, key_bias, g, num_heads: int):
     """csrc/mha_bwd.cu on CUDA tensors: (dq, dk, dv) of attention at (q, k,
     v, key_bias) against the upstream gradient `g` (contiguous, q's dtype
-    and shape); csrc/mha_wide_bwd.cu past D = 256. Launches on
+    and shape); past D = 256 csrc/mha_wide_bwd.cu (bf16/f16) or
+    csrc/mha_wide_f32.cu (f32, by workspace slices). Launches on
     torch.cuda.current_stream(), by batch slices of at most MAX_GRID_BATCH
     rows; raises if a launch fails, never falls back to the reference."""
     b, s, h, d = _check_kernel_args(q, k, v, key_bias, num_heads)
@@ -297,10 +380,13 @@ def _launch_bwd(q, k, v, key_bias, g, num_heads: int):
                          f"{q.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
     if not g.is_contiguous():
         raise ValueError("mha_bwd: g must be contiguous")
-    lib = kernels.load()
-    entry_name = "rrt_mha_wide_bwd" if route in ("wide", "wide_tf32") else "rrt_mha_bwd"
-    entry = getattr(lib, entry_name)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if route == "wide_tf32":
+        _launch_wide_f32(q, k, v, key_bias, g, b, s, h, d, (dq, dk, dv))
+        return dq, dk, dv
+    lib = kernels.load()
+    entry_name = "rrt_mha_wide_bwd" if route == "wide" else "rrt_mha_bwd"
+    entry = getattr(lib, entry_name)
     # m, 1/l, Delta of each query row, reused by each slice in turn
     ws = torch.empty(3 * min(b, MAX_GRID_BATCH) * h * s, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):

@@ -150,47 +150,75 @@ def _mha_3xtf32(q, k, v, bias, heads, mm=_mm_3xtf32):
     return (o / l).permute(0, 2, 1, 3).reshape(b, s, hd)
 
 
-def _mm_3xtf32_chunked(a: torch.Tensor, b: torch.Tensor, eq: str, kc: int = 64) -> torch.Tensor:
-    """einsum(eq, a, b) contracted over the last axis of both as the wide
-    kernels (csrc/mha_wide.cuh: chunk_product) form it: k-chunks of 64
-    columns, the small terms (lo*hi + hi*lo) and hi*hi each summed over
-    every chunk in a sum of its own, the two added at the end."""
+def _trunc_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 by dropping its low 13 bits: how the tensor
+    cores read an f32 operand in shared memory (csrc/mha_wide_f32.cu's B
+    boxes and their lo = x - trunc(x))."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32_tc(a: torch.Tensor, b: torch.Tensor, eq: str) -> torch.Tensor:
+    """einsum(eq, a, b) as csrc/mha_wide_f32.cu's products form it: a (the
+    registers' operand) split hi = tf32(a), lo = tf32(a - hi) rounded; b
+    (the landed box) read as trunc(b) with lo = trunc(b - trunc(b)); the
+    small terms a_lo b_hi + a_hi b_lo, then a_hi b_hi."""
+    ah, bh = _tf32(a), _trunc_tf32(b)
+    al, bl = _tf32(a - ah), _trunc_tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + torch.einsum(eq, ah, bh)
+
+
+def _mm_3xtf32_chunked(a: torch.Tensor, b: torch.Tensor, eq: str, kc: int = 32) -> torch.Tensor:
+    """einsum(eq, a, b) contracted over the last axis of both as the f32
+    wide score kernel (csrc/mha_wide_f32.cu) forms S and dP: steps of 32
+    columns, each split as _mm_3xtf32_tc, the small terms and hi*hi each
+    summed over every step in a sum of its own, the two added at the end."""
     small = big = 0.0
     for c0 in range(0, a.shape[-1], kc):
         ac, bc = a[..., c0:c0 + kc], b[..., c0:c0 + kc]
-        ah, bh = _tf32(ac), _tf32(bc)
-        al, bl = _tf32(ac - ah), _tf32(bc - bh)
+        ah, bh = _tf32(ac), _trunc_tf32(bc)
+        al, bl = _tf32(ac - ah), _trunc_tf32(bc - bh)
         small = small + (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl))
         big = big + torch.einsum(eq, ah, bh)
     return big + small
 
 
-def _mha_wide_3xtf32(q, k, v, bias, heads, mm=_mm_3xtf32, score_mm=_mm_3xtf32_chunked):
-    """csrc/mha_wide.cu's f32 arithmetic in torch: the statistics pass over
-    key tiles of 64 (scores contracted in chunks, (q . k) * scale + bias,
-    the running max and sum), then the output pass over key tiles of 32:
-    each tile's scores again, P = exp(s - m) * (1/l), P V as 3xTF32 added
-    to O tile by tile."""
+def _wide_f32_stats(logits: torch.Tensor, tile: int = 128):
+    """The score kernel's running row max and sum over key tiles of 128
+    (the sum rescaled by exp(m_old - m_new)), and 1/l."""
+    shape = (*logits.shape[:-1], 1)
+    m = torch.full(shape, float("-inf"))
+    l = torch.zeros(shape)
+    for k0 in range(0, logits.shape[-1], tile):
+        x = logits[..., k0:k0 + tile]
+        mx = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        l = l * torch.exp(m - mx) + torch.exp(x - mx).sum(dim=-1, keepdim=True)
+        m = mx
+    return m, 1.0 / l
+
+
+def _wide_f32_logits(qh, kh, bias, d, score_mm):
+    """L = (q . k) * scale + bias, the product and the sum each rounded
+    alone, S contracted once over the whole D."""
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
+    return score_mm(qh, kh, "bhqd,bhkd->bhqk") * scale + bias[:, None, None, :]
+
+
+def _mha_wide_3xtf32(q, k, v, bias, heads, mm=_mm_3xtf32_tc, score_mm=_mm_3xtf32_chunked):
+    """csrc/mha_wide_f32.cu's forward arithmetic in torch: the score kernel
+    contracts S once (steps of 32 columns, small terms and hi*hi apart) and
+    stores the logits, with the running max and sum over key tiles of 128;
+    the output kernel forms P = exp(L - m) * (1/l) from the stored logits
+    and adds each 32-key step's P V (3xTF32, its own sum) to O in f32."""
     b, s, hd = q.shape
     d = hd // heads
     split = lambda t: t.reshape(b, s, heads, d).permute(0, 2, 1, 3)  # (B, H, S, D)
     qh, kh, vh = split(q), split(k), split(v)
-    scale = float(1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32)))
-    tile = 32
-    logits = lambda k0, n: (score_mm(qh, kh[:, :, k0:k0 + n], "bhqd,bhkd->bhqk") * scale
-                            + bias[:, None, None, k0:k0 + n])
-    m = torch.full((b, heads, s, 1), float("-inf"))
-    l = torch.zeros(b, heads, s, 1)
-    for k0 in range(0, s, 2 * tile):
-        x = logits(k0, 2 * tile)
-        mx = torch.maximum(m, x.amax(dim=-1, keepdim=True))
-        l = l * torch.exp(m - mx) + torch.exp(x - mx).sum(dim=-1, keepdim=True)
-        m = mx
-    inv_l = 1.0 / l
+    logits = _wide_f32_logits(qh, kh, bias, d, score_mm)
+    m, inv_l = _wide_f32_stats(logits)
     o = torch.zeros(b, heads, s, d)
-    for k0 in range(0, s, tile):
-        p = torch.exp(logits(k0, tile) - m) * inv_l
-        o = o + mm(p, vh[:, :, k0:k0 + tile], "bhqk,bhkd->bhqd")
+    for k0 in range(0, s, 32):
+        p = torch.exp(logits[..., k0:k0 + 32] - m) * inv_l
+        o = o + mm(p, vh[:, :, k0:k0 + 32], "bhqk,bhkd->bhqd")
     return o.permute(0, 2, 1, 3).reshape(b, s, hd)
 
 
@@ -201,8 +229,9 @@ def test_3xtf32_split_holds_the_f32_tolerance(head_dim, s):
     CPU, against mha_reference within the route's 1e-5 (no card is needed to
     show that the split can hold it), a row masked but one key and an
     all-masked row included; plain single TF32 products do not hold it.
-    Past 256 columns the wide kernel's order: the scores contracted in
-    chunks of 64 with the small terms and hi*hi apart, two passes."""
+    Past 256 columns csrc/mha_wide_f32.cu's order: the scores contracted
+    once in steps of 32 with the small terms and hi*hi apart and stored,
+    then the output from the stored logits, 32 keys a product."""
     b, heads = 2, (2 if s > 512 else 1 if head_dim > 512 else 3)
     q, k, v, bias = _torch(_inputs(head_dim * 31 + s, b, s, heads * head_dim), torch.float32)
     bias[0] = -1e30
@@ -233,16 +262,17 @@ def test_kernel_route_by_dtype_and_head_width(dtype, d):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("d", [257, 320, 384, 512, 1024])
 def test_kernel_route_past_256_is_the_wide_route(dtype, d):
-    """Every dtype past 256 columns takes csrc/mha_wide.cu forward and
-    csrc/mha_wide_bwd.cu backward at every length, in the column chunks
-    the C entries use."""
+    """Every dtype past 256 columns takes the wide route at every length:
+    bf16/f16 csrc/mha_wide.cu forward and csrc/mha_wide_bwd.cu backward,
+    f32 csrc/mha_wide_f32.cu both ways, in the column chunks the C entries
+    use."""
     for s in (1, 63, 65, 512, 4096):
         assert tatt.kernel_route(dtype, d, s) == "wide"
         assert tatt.backward_route(dtype, d, s) == ("wide_tf32" if dtype == torch.float32
                                                     else "wide")
     fwd, dq, dkv = tatt.wide_column_chunks(dtype, d)
     if dtype == torch.float32:
-        assert (fwd, dq, dkv) == (192, 128, 128)
+        assert (fwd, dq, dkv) == (128, 128, 128)  # csrc/mha_wide_f32.cu: a CTA's columns
     else:
         assert (dq, dkv) == (192, 128)
         assert fwd == {257: 192, 320: 192, 384: 192, 512: 256, 1024: 256}[d]
@@ -259,6 +289,55 @@ def test_batch_slices_cover_any_batch(b):
     assert all(hi - lo <= tatt.MAX_GRID_BATCH and hi > lo for lo, hi in slices)
     assert all(a[1] == z[0] for a, z in zip(slices, slices[1:]))
     assert len(slices) == -(-b // 65_535)
+
+
+# (backward, B, S, H, D, padded, the workspace cap in batch rows' worth or
+# None for the module's 1 GiB, the slices wanted)
+WIDE_F32_PLANS = [
+    (False, 64, 512, 1, 384, False, None, 1),  # phase 19 (h)'s shape: one slice
+    (True, 64, 512, 1, 384, False, None, 1),
+    (True, 10, 65, 2, 257, True, 3, 4),  # a small cap: several slices of 3 rows
+    (False, 7, 130, 1, 1024, False, 2.5, 4),
+    (True, 5, 33, 1, 320, False, 0.5, 5),  # a row past the cap: one row a slice
+    (False, 3, 1, 2, 511, True, 0.0, 3),
+    (False, 70_000, 1, 1, 260, False, 100_000, 2),  # and never past MAX_GRID_BATCH
+]
+
+
+@pytest.mark.parametrize("backward,b,s,h,d,padded,cap_rows,want", WIDE_F32_PLANS)
+def test_wide_f32_workspace_slices(monkeypatch, backward, b, s, h, d, padded, cap_rows, want):
+    """The f32 wide kernels' batch slices: contiguous, covering the batch
+    once in order, each slice's workspace (wide_f32_workspace_floats, 4
+    bytes a float) within WIDE_F32_WORKSPACE_BYTES unless a single row
+    passes it (then one row a slice), never more than MAX_GRID_BATCH rows;
+    the whole of (64, 512, 1, 384) in one slice of 117.7 MB forward and
+    285.6 MB backward."""
+    row = 4 * tatt.wide_f32_workspace_floats(backward, 1, s, h, d, padded)
+    if cap_rows is not None:
+        monkeypatch.setattr(tatt, "WIDE_F32_WORKSPACE_BYTES", int(cap_rows * row))
+    slices = tatt._wide_f32_slices(backward, b, s, h, d, padded)
+    assert len(slices) == want
+    assert slices[0][0] == 0 and slices[-1][1] == b
+    assert all(a[1] == z[0] for a, z in zip(slices, slices[1:]))
+    for lo, hi in slices:
+        assert 0 < hi - lo <= tatt.MAX_GRID_BATCH
+        nbytes = 4 * tatt.wide_f32_workspace_floats(backward, hi - lo, s, h, d, padded)
+        assert nbytes <= tatt.WIDE_F32_WORKSPACE_BYTES or hi - lo == 1
+    if (b, s, h, d) == (64, 512, 1, 384):
+        full = 4 * tatt.wide_f32_workspace_floats(backward, b, s, h, d, padded)
+        assert full == (285_605_888 if backward else 117_702_656)
+
+
+def test_wide_f32_rows_copied_only_where_tma_cannot_read_them():
+    """The f32 wide kernels read q, k (v, dO) in place by TMA where D is a
+    multiple of 4 and every base is 16-byte aligned, else from padded
+    copies in the workspace."""
+    x = torch.zeros(2, 3, 2 * 384)
+    assert not tatt._wide_f32_padded(384, x, x)
+    assert tatt._wide_f32_padded(257, x, x)
+    assert tatt._wide_f32_padded(384, x, x.view(-1)[1:].view(-1)[:-1])
+    assert (tatt.wide_f32_workspace_floats(False, 2, 3, 2, 257, True)
+            > tatt.wide_f32_workspace_floats(False, 2, 3, 2, 257, False))
 
 
 def test_kernel_route_refusals():

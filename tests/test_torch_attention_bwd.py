@@ -11,9 +11,9 @@ round dP, P and the gradients on opposite sides). The kernel
 itself is held to the same function on the card (tests/test_torch_gpu.py,
 chip_smoke.py phase 15); its f32 route's arithmetic (3xTF32 products,
 log2 units, kernel A's one pass and kernel B's query tiles), and past 256
-columns that of csrc/mha_wide_bwd.cu (the scores contracted in chunks of
-64 columns, the statistics pass, then dQ and dK / dV from the stored
-statistics), is emulated in torch here and held to the card tests' 1e-4.
+columns that of csrc/mha_wide_f32.cu (S and dP contracted once and stored,
+P and dS formed from them, dQ and dK / dV in steps of 32), is emulated in
+torch here and held to the card tests' 1e-4.
 A ContrastiveTrainer step with one head of 384 (the wide route's on the
 card) is held to the JAX trainer's step.
 """
@@ -33,7 +33,8 @@ from review_recommender_tpu_torch.models.convert import flax_from_params, params
 from review_recommender_tpu_torch.ops import attention as tatt
 from review_recommender_tpu_torch.train import contrastive as pcon
 from tests import torch_train_cases as C
-from tests.test_torch_attention import _mm_3xtf32, _mm_3xtf32_chunked, _tf32
+from tests.test_torch_attention import (_mm_3xtf32, _mm_3xtf32_chunked, _mm_3xtf32_tc, _tf32,
+                                        _wide_f32_logits, _wide_f32_stats)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -197,71 +198,46 @@ def _mha_bwd_3xtf32(q, k, v, bias, g, heads, mm=_mm_3xtf32):
     return join(dq), join(dk), join(dv)
 
 
-def _mha_wide_bwd_3xtf32(q, k, v, bias, g, heads, mm=_mm_3xtf32, score_mm=_mm_3xtf32_chunked):
-    """The f32 route of csrc/mha_wide_bwd.cu in torch: logits in log2
-    units, the scores S and dP contracted in chunks of 64 columns (small
-    terms and hi*hi apart), 3xTF32 gradient products. Kernel 0 walks key
-    tiles of 32: the running max m, l = sum of e = 2^(s - m) and the sum of
-    e * dP; 1/l and Delta = sum(e dP) / l. Kernel 1 walks them again: P =
-    2^(s - m) / l, dS = P (dP - Delta), dQ += dS K. Kernel 2 walks query
-    tiles of 16: P^T, dV += P^T dO, dS^T, dK += dS^T Q. Returns (dq, dk,
-    dv), (B, S, H*D)."""
+def _mha_wide_bwd_3xtf32(q, k, v, bias, g, heads, mm=_mm_3xtf32_tc,
+                         score_mm=_mm_3xtf32_chunked):
+    """csrc/mha_wide_f32.cu's backward arithmetic in torch: the score
+    kernel stores the logits L once (as the forward), with m and 1/l over
+    key tiles of 128; the dP kernel contracts dP = dO V^T once (steps of 32
+    columns, small terms and hi*hi apart), writes P = exp(L - m) * (1/l)
+    over L and Delta = sum_k P dP; the dQ kernel adds dS K over steps of 32
+    keys, the dK / dV kernel dS^T Q and P^T dO over steps of 32 queries
+    (3xTF32, the three terms in one sum), dS = P (dP - Delta); dQ and dK
+    scaled at the end. Returns (dq, dk, dv), (B, S, H*D)."""
     b, s, hd = q.shape
     d = hd // heads
     split = lambda t: t.reshape(b, s, heads, d).permute(0, 2, 1, 3)  # (B, H, S, D)
     qh, kh, vh, gh = split(q), split(k), split(v), split(g)
-    log2e = 1.4426950408889634
-    scale = torch.tensor(log2e, dtype=torch.float32) / torch.sqrt(torch.tensor(float(d)))
     dscale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
-    kb = (bias * log2e)[:, None, None, :]  # (B, 1, 1, S): the keys' bias, log2 units
-    bt_a, bt_b = 32, 16
-
-    def scores(k0):
-        kt, vt = kh[:, :, k0:k0 + bt_a], vh[:, :, k0:k0 + bt_a]
-        return (score_mm(qh, kt, "bhqd,bhkd->bhqk") * scale + kb[..., k0:k0 + bt_a],
-                score_mm(gh, vt, "bhqd,bhkd->bhqk"), kt)
-
-    m = torch.full((b, heads, s, 1), float("-inf"))
-    l = torch.zeros(b, heads, s, 1)
-    dl = torch.zeros(b, heads, s, 1)
-    for k0 in range(0, s, bt_a):
-        logit, dp, _kt = scores(k0)
-        mx = torch.maximum(m, logit.amax(dim=-1, keepdim=True))
-        a = torch.exp2(m - mx)
-        m = mx
-        e = torch.exp2(logit - m)
-        l = l * a + e.sum(dim=-1, keepdim=True)
-        dl = dl * a + (e * dp).sum(dim=-1, keepdim=True)
-    inv_l = 1.0 / l
-    delta = dl * inv_l
-    dq = torch.zeros(b, heads, s, d)
-    for k0 in range(0, s, bt_a):
-        logit, dp, kt = scores(k0)
-        p = torch.exp2(logit - m) * inv_l
-        dq = dq + mm(p * (dp - delta), kt, "bhqk,bhkd->bhqd")
-    dq = dq * dscale
-    dk = torch.zeros(b, heads, s, d)
-    dv = torch.zeros(b, heads, s, d)
-    for q0 in range(0, s, bt_b):
-        qt, gt = qh[:, :, q0:q0 + bt_b], gh[:, :, q0:q0 + bt_b]
-        st = score_mm(kh, qt, "bhkd,bhqd->bhkq") * scale + kb.transpose(-1, -2)
-        mt, it, dt = (t[:, :, q0:q0 + bt_b].transpose(-1, -2) for t in (m, inv_l, delta))
-        pt = torch.exp2(st - mt) * it
-        dv = dv + mm(pt, gt, "bhkq,bhqd->bhkd")
-        dst = pt * (score_mm(vh, gt, "bhkd,bhqd->bhkq") - dt)
-        dk = dk + mm(dst, qt, "bhkq,bhqd->bhkd")
-    dk = dk * dscale
+    logits = _wide_f32_logits(qh, kh, bias, d, score_mm)
+    m, inv_l = _wide_f32_stats(logits)
+    p = torch.exp(logits - m) * inv_l
+    dp = score_mm(gh, vh, "bhqd,bhkd->bhqk")
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq, dk, dv = (torch.zeros(b, heads, s, d) for _ in range(3))
+    for t0 in range(0, s, 32):
+        dq = dq + mm(ds[..., t0:t0 + 32], kh[:, :, t0:t0 + 32], "bhqk,bhkd->bhqd")
+        dk = dk + mm(ds[:, :, t0:t0 + 32].transpose(-1, -2), qh[:, :, t0:t0 + 32],
+                     "bhkq,bhqd->bhkd")
+        dv = dv + mm(p[:, :, t0:t0 + 32].transpose(-1, -2), gh[:, :, t0:t0 + 32],
+                     "bhkq,bhqd->bhkd")
     join = lambda t: t.permute(0, 2, 1, 3).reshape(b, s, hd)
-    return join(dq), join(dk), join(dv)
+    return join(dq * dscale), join(dk * dscale), join(dv)
 
 
 @pytest.mark.parametrize("s", [1, 65, 130])
 @pytest.mark.parametrize("d", [129, 192, 256, 384, 1024])
 def test_3xtf32_backward_holds_the_f32_tolerance(d, s):
     """The f32 route of csrc/mha_bwd.cu at head widths 129-256 (the key and
-    query tiles its plans take there), and of csrc/mha_wide_bwd.cu past 256
-    (chunked scores, the three kernels' order), emulated in torch on the
-    CPU, against mha_backward_reference and JAX's _mha_bwd within the card
+    query tiles its plans take there), and of csrc/mha_wide_f32.cu past 256
+    (S and dP once, P and dS from them, the gradient kernels' steps),
+    emulated in torch on the CPU, against mha_backward_reference and JAX's
+    _mha_bwd within the card
     tests' 1e-4 of max(1, max |ref|), a row masked but one key and an
     all-masked row included; single TF32 products miss that bar."""
     heads, b = (2, 3) if d <= 512 else (1, 2)
@@ -302,7 +278,7 @@ def test_padded_head_dim_refuses_what_the_kernels_refuse():
             tatt.padded_head_dim(d)
     assert tatt.wide_column_chunks(torch.bfloat16, 257) == (192, 192, 128)
     assert tatt.wide_column_chunks(torch.float16, 512) == (256, 192, 128)
-    assert tatt.wide_column_chunks(torch.float32, 512) == (192, 128, 128)
+    assert tatt.wide_column_chunks(torch.float32, 512) == (128, 128, 128)
     for dtype, d in ((torch.bfloat16, 256), (torch.float32, 1), (torch.float64, 384)):
         with pytest.raises(ValueError):
             tatt.wide_column_chunks(dtype, d)

@@ -16,10 +16,12 @@ the input type, as the reference does, so a probability differs from the
 reference's only where its f32 value lies within an ulp or two of a
 rounding boundary. The tensor-core route (bf16/f16 at D = 32, 64, 128) runs
 past 512 keys; the generic route takes f32/bf16/f16 at any D from 1 to 256,
-the wide route (csrc/mha_wide.cu, csrc/mha_wide_bwd.cu) every D past 256,
-forward and backward (D = 257-1,024, S = 1-513, the column chunks each
-launch reports, a tower trained through `rrt train --hidden 384 --head-dim
-384`), and a batch past 65,535 rows runs as launches on slices. BM25: bitwise equal scores (tf_q
+the wide route every D past 256 (bf16/f16 csrc/mha_wide.cu and
+csrc/mha_wide_bwd.cu, f32 csrc/mha_wide_f32.cu), forward and backward (D
+= 257-1,024, S = 1-513, the column chunks each launch reports, f32 off
+the TMA path and by workspace slices, a tower trained through `rrt train
+--hidden 384 --head-dim 384`), and a batch past 65,535 rows runs as
+launches on slices. BM25: bitwise equal scores (tf_q
 sums integers; every other step is rounded alone, in the reference's order).
 Stage A: winner scores within 1e-5 (exact bf16/f32 products summed in f32 in
 another order than cuBLAS's); a winner id may differ only where the plain
@@ -175,6 +177,11 @@ def test_kernel_matches_sdpa_at_rerank_shape(cuda):
 
 def _launches():
     return tatt.mha_kernel_launches, tatt.mha_generic_kernel_launches
+
+
+def _wide_counts():
+    """The wide forward's calls: csrc/mha_wide.cu (bf16/f16), csrc/mha_wide_f32.cu (f32)."""
+    return tatt.mha_wide_kernel_launches, tatt.mha_wide_f32_kernel_launches
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -514,14 +521,15 @@ def test_f32_wide_heads_launch_the_tensor_core_instances(cuda, d, dp):
 @pytest.mark.parametrize("d", [257, 320, 384, 511, 512, 1024])
 @pytest.mark.parametrize("s", [1, 63, 65, 513])
 def test_wide_kernels_match_the_plain_versions(cuda, dtype, d, s):
-    """The wide route past 256 columns (csrc/mha_wide.cu forward,
-    csrc/mha_wide_bwd.cu backward) against mha_reference and
-    mha_backward_reference: the output within 2e-2 (bf16/f16) / 1e-5 (f32),
-    the all-masked row (batch row 2) uniform over the S keys, the
-    gradients within 2e-2 / 1e-4 of max(1, max |ref|) of the plain version
-    and of autograd through mha_reference (row 0 masked but one key); one
-    launch of each wide kernel, none of another, and the column chunks the
-    C entries report are wide_column_chunks'."""
+    """The wide route past 256 columns (bf16/f16: csrc/mha_wide.cu forward,
+    csrc/mha_wide_bwd.cu backward; f32: csrc/mha_wide_f32.cu both ways)
+    against mha_reference and mha_backward_reference: the output within
+    2e-2 (bf16/f16) / 1e-5 (f32), the all-masked row (batch row 2) uniform
+    over the S keys, the gradients within 2e-2 / 1e-4 of max(1, max |ref|)
+    of the plain version and of autograd through mha_reference (row 0
+    masked but one key); one call of the dtype's wide kernels each way,
+    none of another, and the column chunks the C entries report are
+    wide_column_chunks'."""
     from review_recommender_tpu_torch import kernels
 
     b, heads = 3, 2 if d <= 512 else 1
@@ -531,20 +539,22 @@ def test_wide_kernels_match_the_plain_versions(cuda, dtype, d, s):
                     device=cuda).to(dtype)
     assert tatt.kernel_route(dtype, d, s) == "wide"
     route = tatt.backward_route(dtype, d, s)
-    before, wide, backward = _launches(), tatt.mha_wide_kernel_launches, _bwd_launches()
+    before, wide, backward = _launches(), _wide_counts(), _bwd_launches()
     with torch.inference_mode():
         got = tatt.multihead_attention(q, k, v, bias, heads)
         ref = tatt.mha_reference(q, k, v, bias, heads)
     grads = tatt._launch_bwd(q, k, v, bias, g, heads)
     lib = kernels.load()
-    chunks = (lib.rrt_mha_wide_last_dc(), lib.rrt_mha_wide_bwd_last_dc(0),
-              lib.rrt_mha_wide_bwd_last_dc(1))
+    f32 = dtype == torch.float32
+    chunks = ((lib.rrt_mha_wide_f32_dc(),) * 3 if f32 else
+              (lib.rrt_mha_wide_last_dc(), lib.rrt_mha_wide_bwd_last_dc(0),
+               lib.rrt_mha_wide_bwd_last_dc(1)))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     tatt.mha_reference(*leaves, bias, heads).backward(g)
     plain = tatt.mha_backward_reference(q, k, v, bias, g, heads)
     torch.cuda.synchronize()
     assert chunks == tatt.wide_column_chunks(dtype, d)
-    assert _launches() == before and tatt.mha_wide_kernel_launches == wide + 1
+    assert _launches() == before and _wide_counts() == (wide[0] + (not f32), wide[1] + f32)
     assert _bwd_launches() == _bwd_plus(backward, route)
     assert got.dtype == dtype and torch.isfinite(got.float()).all()
     assert (got.float() - ref.float()).abs().max().item() <= GENERIC_TOL[dtype]
@@ -555,20 +565,98 @@ def test_wide_kernels_match_the_plain_versions(cuda, dtype, d, s):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_wide_route_through_autograd(cuda, dtype):
-    """MhaKernelFn at one head of 384: the forward is the wide kernel, the
-    backward the wide backward's route, held to autograd through
-    mha_reference and mha_backward_reference."""
+    """MhaKernelFn at one head of 384: the forward is the dtype's wide
+    kernels, the backward the wide backward's route, held to autograd
+    through mha_reference and mha_backward_reference."""
     b, s, heads, d = 4, 70, 1, 384
     q, k, v, bias = _inputs(b * s + d, b, s, heads * d, dtype, cuda)
     bias = _masked_but_one(bias)
     g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d),
                     device=cuda).to(dtype)
-    wide, backward = tatt.mha_wide_kernel_launches, _bwd_launches()
+    wide, backward = _wide_counts(), _bwd_launches()
     outs, got, refs = _grads_three_ways(q, k, v, bias, heads, g)
-    assert tatt.mha_wide_kernel_launches == wide + 1
+    f32 = dtype == torch.float32
+    assert _wide_counts() == (wide[0] + (not f32), wide[1] + f32)
     assert _bwd_launches() == _bwd_plus(backward, tatt.backward_route(dtype, d, s))
     assert (outs[0] - outs[1]).abs().max().item() <= GENERIC_TOL[dtype]
     _check_grads(got, refs, dtype, (b, s, heads, d))
+
+
+@pytest.mark.parametrize("s", [1, 33, 64, 65, 511, 513])
+@pytest.mark.parametrize("d", [257, 320, 384, 511, 1024])
+def test_wide_f32_kernels_compute_the_scores_once(cuda, d, s):
+    """f32 past 256 columns (csrc/mha_wide_f32.cu: S and dP contracted
+    once into the workspace, the outputs and gradients from them) against
+    the plain versions: the output within 1e-5 of mha_reference, the
+    all-masked row (batch row 2) uniform over the S keys, row 0 masked but
+    one key, the gradients within 1e-4 of max(1, max |ref|) of
+    mha_backward_reference; one call each way on the f32 counters, no
+    other kernel."""
+    b, heads = 3, 2 if d <= 512 else 1
+    q, k, v, bias = _inputs(d * 7 + s, b, s, heads * d, torch.float32, cuda)
+    bias = _masked_but_one(bias)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d * s),
+                    device=cuda)
+    before, wide, backward = _launches(), _wide_counts(), _bwd_launches()
+    with torch.inference_mode():
+        got = tatt.mha_kernel(q, k, v, bias, heads)
+        ref = tatt.mha_reference(q, k, v, bias, heads)
+    grads = tatt._launch_bwd(q, k, v, bias, g, heads)
+    plain = tatt.mha_backward_reference(q, k, v, bias, g, heads)
+    torch.cuda.synchronize()
+    assert _launches() == before and _wide_counts() == (wide[0], wide[1] + 1)
+    assert _bwd_launches() == _bwd_plus(backward, "wide_tf32")
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-5
+    assert (got[2] - v[2].mean(dim=0)[None, :]).abs().max().item() <= 2e-5
+    _check_grads(grads, {"plain": plain}, torch.float32, (d, s))
+
+
+@pytest.mark.parametrize("case", ["odd_width", "misaligned", "sliced"])
+def test_wide_f32_kernels_off_the_tma_path_and_by_slices(cuda, monkeypatch, case):
+    """csrc/mha_wide_f32.cu where TMA cannot read the rows in place (H * D
+    = 771: rows of 1,028 bytes; a base 4 bytes off 16) and with the batch
+    sliced by a small monkeypatched workspace cap (two forward rows: the
+    forward in slices of 2, 2 and 1 rows, the backward, whose row takes
+    more, one row a slice): the plain versions' tolerances, one call a
+    slice on each counter."""
+    b, s, heads, d = (2, 70, 3, 257) if case == "odd_width" else (5, 65, 1, 384)
+    q, k, v, bias = _inputs(len(case), b, s, heads * d, torch.float32, cuda)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    if case == "misaligned":  # contiguous views one float into their buffers
+        q, k, v, g = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+                      for t in (q, k, v, g))
+        assert all(t.data_ptr() % 16 for t in (q, k, v, g))
+    n_fwd = n_bwd = 1
+    if case == "sliced":
+        row = 4 * tatt.wide_f32_workspace_floats(False, 1, s, heads, d, False)
+        monkeypatch.setattr(tatt, "WIDE_F32_WORKSPACE_BYTES", 2 * row)
+        n_fwd, n_bwd = 3, 5
+    assert tatt._wide_f32_padded(d, q, k, v, g) == (case != "sliced")
+    wide, backward = _wide_counts(), _bwd_launches()
+    with torch.inference_mode():
+        got = tatt.mha_kernel(q, k, v, bias, heads)
+        ref = tatt.mha_reference(q, k, v, bias, heads)
+    grads = tatt._launch_bwd(q, k, v, bias, g, heads)
+    plain = tatt.mha_backward_reference(q, k, v, bias, g, heads)
+    torch.cuda.synchronize()
+    assert _wide_counts() == (wide[0], wide[1] + n_fwd)
+    assert _bwd_launches() == _bwd_plus(backward, "wide_tf32", n_bwd)
+    assert (got - ref).abs().max().item() <= 1e-5
+    _check_grads(grads, {"plain": plain}, torch.float32, case)
+
+
+def test_wide_f32_workspace_matches_the_c_entry(cuda):
+    """ops/attention.py:wide_f32_workspace_floats, which sizes the slices,
+    against csrc/mha_wide_f32.cu's own count of what it carves."""
+    from review_recommender_tpu_torch import kernels
+
+    lib = kernels.load()
+    for b, s, h, d in ((64, 512, 1, 384), (3, 1, 2, 257), (5, 513, 3, 1024), (1, 130, 1, 511)):
+        for backward in (0, 1):
+            for padded in (0, 1):
+                assert lib.rrt_mha_wide_f32_ws_floats(backward, b, s, h, d, padded) == \
+                    tatt.wide_f32_workspace_floats(bool(backward), b, s, h, d, bool(padded))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
