@@ -18,10 +18,15 @@ line, and nothing is caught and passed over:
              bf16 and f32), then the tensor-core route past 512 keys (bf16
              (8, 1024, 12, 32)), the generic route's widest heads (64,
              512, 2, 192) in bf16 and f32, and the wide route's heads past
-             256 (csrc/mha_wide.cu; f32 csrc/mha_wide_f32.cu, whose rows
-             also hold its backward to mha_backward_reference within 1e-4
-             and give the workspace bytes and the peak memory of a call
-             each way): bge-small's width in one head (64,
+             256 (csrc/mha_wide.cu, whose bf16/f16 rows also hold its
+             backward, csrc/mha_wide_bwd.cu, to mha_backward_reference
+             within 2e-2 and give each kernel's device µs both ways, the
+             backward beside SDPA's backward alone and its bound, and how
+             each row block's scores were shared; f32
+             csrc/mha_wide_f32.cu, whose rows also hold its backward to
+             mha_backward_reference within 1e-4 and give the workspace
+             bytes and the peak memory of a call each way): bge-small's
+             width in one head (64,
              512, 1, 384) in bf16 and f32, an odd width with a partial key
              tile (4, 200, 2, 257) in f16 (2-byte copies) and several column
              chunks (2, 64, 1, 1024) in bf16: max abs error (tolerance 2e-2
@@ -690,12 +695,101 @@ def phase_kernel(torch):
                "exp_floor_share": exp_floor_ms / dev, "reps": REPS}
         if route == "wide" and dtype == torch.float32:
             row.update(_wide_f32_check(torch, A, q, k, v, bias, h))
+        elif route == "wide":
+            row.update(_wide16_check(torch, A, q, k, v, bias, h))
         emit({"phase": "kernel", **row})
         check(err <= tol, "kernel", f"max abs error {err} > {tol} at {row}")
         check(lib_err <= KERNEL_TOL, "kernel",
               f"scaled_dot_product_attention differs from the plain version by {lib_err}")
         results.append(row)
     return results
+
+
+def _kernel_device_us(torch, fn, n=10) -> dict:
+    """Device microseconds a call of fn spends in each CUDA kernel it
+    launches, by kernel name (template arguments kept: the wide kernels'
+    score and product instances differ only there), from a torch.profiler
+    window of n calls; {} where the profiler saw no device time."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if t:
+            key = re.sub(r"\(.*$", "", e.key.replace("(anonymous namespace)::", ""))[-60:]
+            out[key] = out.get(key, 0.0) + t / n
+    return out
+
+
+def _wide16_check(torch, A, q, k, v, bias, h) -> dict:
+    """The bf16/f16 wide kernels (csrc/mha_wide.cu, csrc/mha_wide_bwd.cu) at
+    a phase 3 row: each kernel's device µs, forward (score, output) and
+    backward (score, dP, dQ, dK / dV; pad copies where TMA cannot read the
+    rows), the backward's time and bound beside SDPA's backward alone, the
+    backward against mha_backward_reference (2e-2 of max(1, max |ref|), one
+    call on its counter), and how each row block's scores were shared (the
+    C entries' split: the tiles of S of one contraction, the CTAs reading
+    them back, TMA in place), with the tiles of S and dP the score kernels
+    counted over one call each way (score_contractions: each tile once)."""
+    from review_recommender_tpu_torch import kernels
+
+    b, s, hd = q.shape
+    d = hd // h
+    g = torch.randn(q.shape, generator=torch.Generator(device=DEV).manual_seed(7),
+                    device=DEV).to(q.dtype)
+    lib = kernels.load()
+    takes = (lib.rrt_mha_wide_score_tiles, lambda: lib.rrt_mha_wide_bwd_score_tiles(0),
+             lambda: lib.rrt_mha_wide_bwd_score_tiles(1))
+    out = {}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        for take in takes:  # from zero
+            take()
+        A.mha_kernel(q, k, v, bias, h)
+        A._launch_bwd(q, k, v, bias, g, h)
+        torch.cuda.synchronize()
+        tiles = lib.rrt_mha_wide_last_split(0)
+        out["score_contractions"] = [take() / tiles for take in takes]
+        out["forward_kernel_us"] = _kernel_device_us(torch, lambda: A.mha_kernel(q, k, v, bias, h))
+        out["forward_split"] = [lib.rrt_mha_wide_last_split(i) for i in range(3)]
+        out["backward_kernel_us"] = _kernel_device_us(
+            torch, lambda: A._launch_bwd(q, k, v, bias, g, h))
+        out["backward_split"] = [[lib.rrt_mha_wide_bwd_last_split(kk, i) for i in range(3)]
+                                 for kk in range(2)]
+        _zero_counts()
+        got = A._launch_bwd(q, k, v, bias, g, h)
+        torch.cuda.synchronize()
+        launched = {n: c for n, c in _counts().items() if c}
+        out["backward_device_ms"] = _median_ms(torch, lambda: A._launch_bwd(q, k, v, bias, g, h),
+                                               REPS, before=lambda: torch.cuda._sleep(SPIN_CYCLES))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        fwd = _sdpa(torch, *leaves, bias, h)
+        sdpa_bwd = lambda: torch.autograd.grad(fwd, leaves, g, retain_graph=True)
+        sdpa_bwd()
+        out["library_backward_device_ms"] = _median_ms(
+            torch, sdpa_bwd, REPS, before=lambda: torch.cuda._sleep(SPIN_CYCLES))
+    bwd_flops = A.attention_backward_flops(b, s, h, d)
+    bwd_bytes = A.attention_backward_bytes(b, s, h, d, q.element_size())
+    out["backward_bound_ms"] = max(bwd_flops / PEAK_BF16_FLOPS, bwd_bytes / PEAK_HBM_BYTES) * 1e3
+    plain = A.mha_backward_reference(q, k, v, bias, g, h)
+    rel = max(float((x.float() - r.float()).abs().max()) / max(1.0, float(r.float().abs().max()))
+              for x, r in zip(got, plain))
+    out["backward_err_over_max_ref"] = rel
+    check(launched == {"mha_bwd_wide": 1}, "kernel", f"16-bit wide backward launches {launched}")
+    check(rel <= KERNEL_TOL and all(bool(torch.isfinite(x.float()).all()) for x in got), "kernel",
+          f"16-bit wide backward error {rel} of max(1, max |ref|) at {(b, s, h, d)}")
+    check(out["score_contractions"] == [1.0, 1.0, 1.0], "kernel",
+          f"16-bit wide scores not contracted once a row block: {out}")
+    return out
 
 
 def _wide_f32_check(torch, A, q, k, v, bias, h) -> dict:
@@ -719,7 +813,7 @@ def _wide_f32_check(torch, A, q, k, v, bias, h) -> dict:
             got = fn()
             torch.cuda.synchronize()
             launched = _counts()
-        padded = A._wide_f32_padded(d, q, k, v, g)
+        padded = A._wide_padded(torch.float32, d, q, k, v, g)
         out[f"{name}_workspace_bytes"] = 4 * A.wide_f32_workspace_floats(
             name == "backward", b, s, h, d, padded)
         out[f"{name}_peak_bytes_over_resident"] = torch.cuda.max_memory_allocated() - base
@@ -3460,17 +3554,20 @@ def _backward_exps(b, s, h, d, dtype) -> int:
     route, two on the 3xTF32 route (its kernel A takes one pass); on
     the wgmma route past D = 128 each of kernel B's column chunks takes a
     pass (two at D <= 192, four beyond); on the bf16/f16 wide route
-    (csrc/mha_wide_bwd.cu) the statistics pass and one a column chunk of
-    the dQ and of the dK / dV kernel; on the f32 one (csrc/mha_wide_f32.cu)
-    the score kernel's sum and the dP kernel's P, once each."""
+    (csrc/mha_wide_bwd.cu) the two score passes and both warpgroups of
+    each dQ and dK / dV CTA that reads a row block's stored scores; on the
+    f32 one (csrc/mha_wide_f32.cu) the score kernel's sum and the dP
+    kernel's P, once each."""
     from review_recommender_tpu_torch.ops import attention as A
 
     route = A.backward_route(dtype, d, s)
     if route == "wide_tf32":
         return 2 * b * h * s * s
     if route == "wide":
-        _fwd, dq, dkv = A.wide_column_chunks(dtype, d)
-        return (1 + -(-d // dq) + -(-d // dkv)) * b * h * s * s
+        # the score kernels' two passes (m and 1/l; Delta), then both
+        # warpgroups of each CTA that reads the stored scores back
+        _fwd, (_one, nq), (_one2, nkv) = A.wide_split(dtype, d)
+        return (2 + 2 * nq + 2 * nkv) * b * h * s * s
     passes = 2 if route == "tf32" else 3
     if route == "wgmma" and d > 128:
         passes = 2 + (2 if d <= 192 else 4)

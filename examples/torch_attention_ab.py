@@ -28,7 +28,9 @@ line with the dtype and the route (ops/attention.py:kernel_route):
 --kernel wide_heads: the attention routes for head widths past 128, at
 chip_smoke.py phase 19 (g)'s WIDE_SHAPE (32, 128, 2, 192), at (64, 512,
 2, 192), at (64, 512, 1, 256), and past 256 at (64, 512, 1, 384) (phase
-19 (h)'s kernel rows) and (2, 64, 1, 1,024), in bf16 and f32: its
+19 (h)'s kernel rows), (2, 64, 1, 1,024) and (50, 287, 1, 384) (phase 20
+(c)'s rerank), in bf16 and f32, and f16 at (4, 200, 2, 257) (phase 3's
+rows that TMA cannot read in place): ROOT's chip_smoke.py's
 _training_kernel_rows (the forward kernel, csrc/mha_generic.cu at 192 or
 256 columns or csrc/mha_wide.cu past 256, against its plain version and
 SDPA's forward; the backward kernel, csrc/mha_bwd.cu or
@@ -52,10 +54,13 @@ does not export them, whose f32 forward at these widths is the CUDA-core
 kernel) or, past 256 columns, the wide kernels' column chunks
 (forward_dc, backward_dc: rrt_mha_wide_last_dc and
 rrt_mha_wide_bwd_last_dc, dQ's and dK / dV's; f32 in a checkout with
-csrc/mha_wide_f32.cu, rrt_mha_wide_f32_dc) and which of their passes
+csrc/mha_wide_f32.cu, rrt_mha_wide_f32_dc), which of their passes
 kept the CTA's own rows resident in shared memory (forward_resident,
 backward_resident: bit masks, rrt_mha_wide_last_resident and
-rrt_mha_wide_bwd_last_resident; null for f32 there). With --parent
+rrt_mha_wide_bwd_last_resident; null for f32 there), and how the 16-bit
+kernels shared each row block's scores (forward_split, backward_split:
+rrt_mha_wide_last_split and rrt_mha_wide_bwd_last_split; null in a
+checkout without them). With --parent
 PARENT (a `git archive` of the parent unpacked under build/) the script
 runs itself four times, in the order PARENT, ROOT, ROOT, PARENT, each in
 its own process (tags "parent" and "change"), and then prints one "ab"
@@ -138,10 +143,10 @@ def _median_ms(torch, fn, before=None) -> float:
     return float(np.median(times))
 
 
-def _own_chip_smoke():
-    """This checkout's chip_smoke.py, loaded by path: its BM25 shapes and
-    postings, whatever ROOT is."""
-    spec = importlib.util.spec_from_file_location("ab_chip_smoke", HERE / "chip_smoke.py")
+def _own_chip_smoke(root: Path = HERE):
+    """This checkout's chip_smoke.py (or `root`'s), loaded by path: its BM25
+    shapes and postings, whatever ROOT is."""
+    spec = importlib.util.spec_from_file_location("ab_chip_smoke", root / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -364,7 +369,10 @@ def _stage_a(torch, tag: str, parent=None, dims=None, phase4=False) -> None:
 
 
 WIDE_HEAD_SHAPES = [(32, 128, 2, 192), (64, 512, 2, 192), (64, 512, 1, 256), (64, 512, 1, 384),
-                    (2, 64, 1, 1024)]
+                    (2, 64, 1, 1024), (50, 287, 1, 384)]
+# float16 rows past 256 columns: chip_smoke.py phase 3's odd width (H * D * 2
+# = 1,028 bytes: the rows TMA cannot read in place)
+WIDE_F16_SHAPES = [(4, 200, 2, 257)]
 
 
 def _last_dp(lib, name: str):
@@ -411,6 +419,17 @@ def _sdpa_backend(names) -> str:
     return "math"
 
 
+def _split(lib, entry: str, *args):
+    """A rrt_mha_wide*_last_split reading, where the library exports it."""
+    try:
+        fn = getattr(lib, entry)
+    except AttributeError:
+        return None
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_longlong
+    return int(fn(*args))
+
+
 def _wide_registers(tag: str) -> None:
     """ptxas's registers and spills for each instance of the wide kernels
     (csrc/mha_wide*.cu), from a side build with -Xptxas -v (a library of
@@ -432,6 +451,12 @@ def _wide_registers(tag: str) -> None:
         if m:
             name = m.group(1)
             continue
+        m = re.search(r"Compiling entry function '\w*?(wide_(?:score|product)_kernel)I(\w+?)Li(\d)E",
+                      line)
+        if m:  # the 16-bit kernels: score MODE 0/1, product KIND 0/1/2
+            dtype = "bfloat16" if "bfloat16" in m.group(2) else "float16"
+            name = f"{m.group(1)} {dtype} {'MODE' if 'score' in m.group(1) else 'KIND'}={m.group(3)}"
+            continue
         m = re.search(r"Compiling entry function '(\w*mha_wide\w*)'", line)
         if m:
             k = re.search(r"(mha_wide_(?:fwd|bwd)_kernel)I(\w*?)Li(\d+)E(?:Li(\d+)E)?Lb(\d)",
@@ -451,17 +476,17 @@ def _wide_registers(tag: str) -> None:
             name = None
 
 
-def _wide_heads(torch, tag: str) -> None:
+def _wide_heads(torch, tag: str, root: Path) -> None:
     from review_recommender_tpu_torch import kernels
     from review_recommender_tpu_torch.ops import attention as A
 
-    cs = _own_chip_smoke()
+    cs = _own_chip_smoke(root)  # ROOT's rows: its backward's exponential count is its own
     _wide_registers(tag)
     lib = kernels.load()
     spin = lambda: torch.cuda._sleep(SPIN_CYCLES)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         shapes = []  # the widths ROOT's port takes (a checkout before the wide route: <= 256)
-        for shape in WIDE_HEAD_SHAPES:
+        for shape in (WIDE_F16_SHAPES if dtype == torch.float16 else WIDE_HEAD_SHAPES):
             try:
                 A.kernel_route(dtype, shape[3], shape[1])
                 shapes.append(shape)
@@ -493,6 +518,13 @@ def _wide_heads(torch, tag: str) -> None:
                     wide_bwd = lib.rrt_mha_wide_bwd_last_dc
                     row["backward_dc"] = [wide_bwd(0), wide_bwd(1)]
                     row["backward_resident"] = _last_dp(lib, "rrt_mha_wide_bwd_last_resident")
+                    # the tiles of S of one contraction, CTAs reading
+                    # them back, TMA in place (a checkout before these
+                    # entries: null)
+                    row["forward_split"] = [_split(lib, "rrt_mha_wide_last_split", i)
+                                            for i in range(3)]
+                    row["backward_split"] = [[_split(lib, "rrt_mha_wide_bwd_last_split", k, i)
+                                              for i in range(3)] for k in range(2)]
                 row["forward_kernel_us"] = _kernel_us(torch, lambda: A.mha_kernel(q, k, v, bias, h))
                 row["backward_kernel_us"] = _kernel_us(
                     torch, lambda: A._launch_bwd(q, k, v, bias, g, h))
@@ -609,8 +641,10 @@ def main() -> int:
           flush=True)
     if args.kernel == "stage_a":
         _stage_a(torch, args.tag, args.parent, args.dims, args.phase4)
+    elif args.kernel == "wide_heads":
+        _wide_heads(torch, args.tag, root)
     else:
-        {"attention": _attention, "wide_heads": _wide_heads, "bm25": _bm25,
+        {"attention": _attention, "bm25": _bm25,
          "featurize": _featurize}[args.kernel](torch, args.tag)
     return 0
 

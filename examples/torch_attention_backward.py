@@ -81,15 +81,12 @@ Lines, after the card's name and power limit:
                wide_kc1, wide_kc4  f32 above 128 columns: one or four
                               k-steps a commit group of the split products
                               (two in the kernel)
-             and copies of csrc/mha_wide_bwd.cu (D > 256, bf16/f16), each
+             and a copy of csrc/mha_wide_bwd.cu (D > 256, bf16/f16)
              through its own rrt_mha_wide_bwd at one head of 384 ((64,
-             512, 1, 384), the work of (64, 512, 2, 192)) in bf16, their
-             three kernels' device µs apart (wide_stats, wide_dq,
+             512, 1, 384), the work of (64, 512, 2, 192)) in bf16, its
+             four kernels' device µs apart (wide_score, wide_dp, wide_dq,
              wide_dkv):
                widebwd_full      the source as it is
-               widebwd_no_loads  the ring's next steps' copies out
-               widebwd_no_sdp    the S and dP (S^T, dP^T) products out
-               widebwd_no_grad   the dQ, dK and dV products out
              and copies of csrc/mha_wide_f32.cu (D > 256, f32), each through
              its own rrt_mha_wide_f32_bwd at (64, 512, 1, 384), its kernels'
              device µs apart (f32_transpose, f32_score_0, f32_score_1,
@@ -401,7 +398,7 @@ EDITS = {
 BREAKDOWN = ["no_overlap", "no_pdl", "no_exp", "softmax_only", "no_loads", "a_only",
              "a_only+no_loads", "one_warpgroup", "f32_no_lo", "f32_no_split", "f32_no_loads",
              "wide_no_loads", "wide_no_split", "wide_no_sdp", "wide_no_grad", "wide_a_only",
-             "widebwd_full", "widebwd_no_loads", "widebwd_no_sdp", "widebwd_no_grad",
+             "widebwd_full",
              "widef32_full", "widef32_no_loads", "widef32_no_split", "widef32_no_lo",
              "widef32_no_mma"]
 
@@ -427,18 +424,7 @@ def _f32_no_loads(src: str) -> str:
                      "        mbar_expect_tx(ring.full(s), P::kTx);\n")
 
 
-WIDE_EDITS = {
-    "widebwd_full": lambda src: src,
-    "widebwd_no_loads": lambda src: _wide_cut(
-        src, ["    if (u + stages - 1 < nsteps) load_step(u + stages - 1);\n"]),
-    "widebwd_no_sdp": lambda src: _wide_cut(src, [
-        "    chunk_product<T, KC>(s, base, a1, st + P::kB1, j == 0);\n",
-        "    chunk_product<T, KC>(dp, base, a2, st + P::kB2, j == 0);\n"]),
-    "widebwd_no_grad": lambda src: _wide_cut(src, [
-        "      grad_product<T, BT>(acc1, x, base + ch);\n",
-        "      grad_product<T, BT>(acc2, x, base + ch + P::kCTile);\n",
-        "      grad_product<T, BT>(acc1, y, base + ch);\n"]),
-}
+WIDE_EDITS = {"widebwd_full": lambda src: src}
 # csrc/mha_wide_f32.cu's copies
 F32_EDITS = {
     "widef32_full": lambda src: src,
@@ -529,7 +515,12 @@ def build(texts: dict, headers: dict = None) -> dict:
             lib.rrt_mha_wide_f32_bwd.restype = I
             out[name] = (lib, _ptxas_rows(log))
             continue
-        entry = lib.rrt_mha_wide_bwd if name.startswith("widebwd") else lib.rrt_mha_bwd
+        if name.startswith("widebwd"):  # its rows' head stride and copy flag beside
+            lib.rrt_mha_wide_bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]
+            lib.rrt_mha_wide_bwd.restype = I
+            out[name] = (lib, _ptxas_rows(log))
+            continue
+        entry = lib.rrt_mha_bwd
         entry.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P]
         entry.restype = I
         out[name] = (lib, _ptxas_rows(log))
@@ -539,13 +530,18 @@ def build(texts: dict, headers: dict = None) -> dict:
 def _launch(torch, lib, q, k, v, bias, g, h, entry="rrt_mha_bwd"):
     """(dq, dk, dv) from one library's rrt_mha_bwd (or rrt_mha_wide_bwd), as
     ops/attention.py's _launch_bwd calls it."""
+    from review_recommender_tpu_torch.ops import attention as A
+
     b, s, hd = q.shape
+    d = hd // h
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    ws = torch.empty(3 * b * h * s, dtype=torch.float32, device=q.device)
+    wide = entry == "rrt_mha_wide_bwd"  # rows read in place: head stride d, no copy
+    ws = torch.empty(A.wide_workspace_floats(True, b, s, h, d, False) if wide else 3 * b * h * s,
+                     dtype=torch.float32, device=q.device)
     err = getattr(lib, entry)(DTYPE_CODE[str(q.dtype).split(".")[1]], q.data_ptr(), k.data_ptr(),
                           v.data_ptr(), bias.data_ptr(), g.data_ptr(), dq.data_ptr(),
-                          dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), b, s, h, hd // h,
-                          torch.cuda.current_stream().cuda_stream)
+                          dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), b, s, h, d,
+                          *((d, 0) if wide else ()), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{entry}: cudaError {err}")
     return dq, dk, dv
@@ -553,12 +549,12 @@ def _launch(torch, lib, q, k, v, bias, g, h, entry="rrt_mha_bwd"):
 
 def _launch_f32(torch, lib, q, k, v, bias, g, h):
     """(dq, dk, dv) from one library's rrt_mha_wide_f32_bwd, as
-    ops/attention.py's _launch_wide_f32 calls it (one slice)."""
+    ops/attention.py's _launch_wide calls it (one slice)."""
     from review_recommender_tpu_torch.ops import attention as A
 
     b, s, hd = q.shape
     d = hd // h
-    padded = A._wide_f32_padded(d, q, k, v, g)
+    padded = A._wide_padded(torch.float32, d, q, k, v, g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     ws = torch.empty(A.wide_f32_workspace_floats(True, b, s, h, d, padded), device=q.device)
     err = lib.rrt_mha_wide_f32_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -622,10 +618,12 @@ def _kernel_us(torch, fn, n=20) -> dict:
     out = {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        wide = re.search(r"mha_wide_bwd_kernel<[^,]+, (\d)", e.key)
+        wide = re.search(r"wide_(score|product)_kernel<[^,]+, (\d)", e.key)
         f32 = re.search(r"wide_f32_(\w+?)_kernel(?:<(\d)>)?", e.key)
         m = re.search(r"(mha_bwd_\w*?kernel)", e.key)
-        name = (("wide_stats", "wide_dq", "wide_dkv")[int(wide.group(1))] if wide
+        wide_names = {("score", "0"): "wide_score", ("score", "1"): "wide_dp",
+                      ("product", "1"): "wide_dq", ("product", "2"): "wide_dkv"}
+        name = (wide_names.get(wide.groups()) if wide
                 else "f32_" + "_".join(x for x in f32.groups() if x) if f32
                 else m.group(1) if m else None)
         if t and name:
@@ -822,10 +820,10 @@ def main() -> int:
             if m:
                 brief[f"{m.group(1)} {m.group(2)[-6:]} DP={m.group(3)}"] = [
                     r.get("registers"), r.get("spill_stores")]
-            m = re.search(r"mha_wide_bwd_kernelI(\w*?)Li(\d)ELi(\d+)E", r.get("kernel", ""))
+            m = re.search(r"(wide_(?:score|product)_kernel)I(\w*?)Li(\d)E", r.get("kernel", ""))
             if m:
-                brief[f"mha_wide_bwd_kernel {m.group(1)[-6:]} KIND={m.group(2)} "
-                      f"DC={m.group(3)}"] = [r.get("registers"), r.get("spill_stores")]
+                brief[f"{m.group(1)} {m.group(2)[-6:]} {m.group(3)}"] = [
+                    r.get("registers"), r.get("spill_stores")]
             m = re.search(r"(wide_f32_\w+?_kernel)(?:ILi(\d)E)?", r.get("kernel", ""))
             if m:
                 brief[f"{m.group(1)} {m.group(2) or ''}".strip()] = [

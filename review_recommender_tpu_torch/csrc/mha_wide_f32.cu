@@ -8,7 +8,9 @@
 // reached through mha_pallas :92) and the backward of its custom_vjp,
 // _mha_bwd (:142), which re-runs mha_xla under jax.vjp. ops/attention.py
 // sends f32 there (kernel_route "wide", backward_route "wide_tf32"); bf16
-// and f16 past 256 columns stay in csrc/mha_wide.cu and csrc/mha_wide_bwd.cu.
+// and f16 past 256 columns are csrc/mha_wide.cu's and csrc/mha_wide_bwd.cu's,
+// whose header (csrc/mha_wide.cuh) also holds this file's mbarrier, TMA,
+// setmaxnreg and tensor-map helpers.
 // q, k, v, dout and the outputs are (B, S, H*D) row-major; key_bias (B, S)
 // f32 (0 keep, -1e30 drop).
 //
@@ -34,7 +36,8 @@
 //             dK = dS^T Q * scale and dV = P^T dO, dS = P (dP - Delta).
 //   Where D % 4 != 0 or a row tensor is not 16-byte aligned, the rows the
 //   score kernels read are first copied into rows of D rounded up to 4
-//   (pad kernel): the widths that TMA cannot describe.
+//   (csrc/mha_wide.cuh's wide_pad_kernel, which the 16-bit kernels share):
+//   the widths that TMA cannot describe.
 //
 // The score and product kernels are one Hopper shape: a CTA of 128 rows,
 // two consumer warpgroups of 64 rows and one producer warpgroup, whose
@@ -103,14 +106,7 @@
 // The kernels allocate nothing and do not synchronise; they launch on the
 // stream they are given and the C entries return cudaGetLastError().
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <initializer_list>
-
-#include "tf32_wgmma.cuh"
+#include "mha_wide.cuh"
 
 namespace {
 
@@ -128,84 +124,11 @@ constexpr int kDc = 128;                   // output columns of a product CTA
 constexpr int kKeyPad = 128;               // the workspace's key rows padded to this
 constexpr int kBox = kBlock * kKc * 4;     // a 128-row box: 16 KB
 constexpr int kSubBox = kKc * kKc * 4;     // a 32-row box: 4 KB
-constexpr int kMinWideD = 257;
 constexpr int kMaxSmem = 232448;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers, TMA, wgmma plumbing ----
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
 
 // the four warps of consumer warpgroup wg meet (named barrier 1 + wg)
 __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWg) : "memory");
-}
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// wgmma descriptor of a K-major box with 128-byte rows and the 128-byte
-// swizzle: 8-row groups 1024 bytes apart (SBO), layout type 1; a k-step of
-// 8 f32 is 32 bytes further along the row.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 // byte offset of (row r, column x < 32) in a box of 128-byte swizzled rows
@@ -259,22 +182,8 @@ __device__ __forceinline__ void mma3(float (&hh)[N], float (&sm)[N], const uint3
 }
 
 // the producer warpgroup gives registers back, the consumers take them
-__device__ __forceinline__ void producer_regs() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
-}
-__device__ __forceinline__ void consumer_regs() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+__device__ __forceinline__ void producer_regs() { setmaxnreg_dec<kProducerRegs>(); }
+__device__ __forceinline__ void consumer_regs() { setmaxnreg_inc<kConsumerRegs>(); }
 
 // The ring's barriers, 8 bytes each, after the stages: full[kStages] (the
 // boxes landed), ready[kStages] (their lo formed), empty[kStages] (both
@@ -765,61 +674,16 @@ wide_f32_transpose_kernel(const float* __restrict__ src, float* __restrict__ dst
   }
 }
 
-// rows of D f32 (B * S * H of them) copied into rows of Dst >= D, zero past
-// D: a width TMA can describe
-__global__ void wide_f32_pad_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                                    long long rows, int D, int Dst) {
-  const long long n = rows * Dst;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long r = i / Dst;
-    const int d = (int)(i - r * Dst);
-    dst[i] = d < D ? src[r * D + d] : 0.f;
-  }
-}
-
 // ---- host side ----
-
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled (CUDA 12.0 ABI), looked up through the runtime, so
-// that the library does not link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-bool encode(CUtensorMap* map, int rank, const void* ptr, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box) {
-  EncodeTiled fn = encode_tiled();
-  const cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // a (B, S, H*Dst) tensor's heads as 4-D (D, H, S, B), box 32 columns x 128
 // rows: zero past D and past S
-bool map_rows(CUtensorMap* map, const float* p, int B, int S, int H, int D, int Dst) {
+bool map_rows(CUtensorMap* map, const void* p, int B, int S, int H, int D, int Dst) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)Dst * 4, (cuuint64_t)H * Dst * 4,
                                  (cuuint64_t)S * H * Dst * 4};
   const cuuint32_t box[4] = {(cuuint32_t)kKc, 1u, (cuuint32_t)kBlock, 1u};
-  return encode(map, 4, p, dims, strides, box);
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p, dims, strides, box);
 }
 
 // (outer, rows, inner) f32, box 32 inner x box_rows rows: the scores
@@ -828,13 +692,12 @@ bool map_3d(CUtensorMap* map, const float* p, int inner, int rows, int outer, in
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)outer};
   const cuuint64_t strides[2] = {(cuuint64_t)inner * 4, (cuuint64_t)rows * inner * 4};
   const cuuint32_t box[3] = {(cuuint32_t)kKc, (cuuint32_t)box_rows, 1u};
-  return encode(map, 3, p, dims, strides, box);
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, p, dims, strides, box);
 }
 
 long long round64(long long n) { return (n + 63) / 64 * 64; }
 
 int key_pad(int S) { return (S + kKeyPad - 1) / kKeyPad * kKeyPad; }
-int row_pad(int D) { return (D + 3) / 4 * 4; }
 
 // The workspace's regions in floats (each a multiple of 64, so that every
 // region starts 256-byte aligned): scores (L, or P and dP), the row
@@ -847,7 +710,7 @@ struct Ws {
     score = round64(bh * S * key_pad(S));
     stats = round64((backward ? 3 : 2) * bh * S);
     trans = round64(bh * D * key_pad(S));
-    rows = padded ? round64((long long)B * S * H * row_pad(D)) : 0;
+    rows = padded ? round64((long long)B * S * H * row_pad(D, 4)) : 0;
     n_score = backward ? 2 : 1;
     n_trans = backward ? 3 : 1;
     n_rows = backward ? 4 : 2;
@@ -859,42 +722,10 @@ struct Ws {
   float* rows_at(float* ws, int i) const { return trans_at(ws, n_trans) + i * rows; }
 };
 
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int bytes) {
-  // set on every call: the opt-in belongs to the current device
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 bool args_ok(int B, int S, int H, int D) {
   return B > 0 && S > 0 && H > 0 && D >= kMinWideD && B <= 65535 && H <= 65535;
 }
 
-// whether TMA can read the rows in place: D * 4 bytes a multiple of 16 and
-// 16-byte aligned bases
-bool rows_in_place(int D, std::initializer_list<const void*> ptrs) {
-  if (D % 4) return false;
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
-  return true;
-}
-
-// The row tensors the score kernels read: in place, or copied into
-// padded rows of the workspace. Returns the row width Dst.
-int rows_for(const float** rows, float* ws, const Ws& w, bool padded, int n, const void* const* src,
-             int B, int S, int H, int D, cudaStream_t stream) {
-  if (!padded) {
-    for (int i = 0; i < n; ++i) rows[i] = static_cast<const float*>(src[i]);
-    return D;
-  }
-  const long long nrows = (long long)B * S * H;
-  for (int i = 0; i < n; ++i) {
-    float* dst = w.rows_at(ws, i);
-    wide_f32_pad_kernel<<<1024, 256, 0, stream>>>(static_cast<const float*>(src[i]), dst, nrows,
-                                                   D, row_pad(D));
-    rows[i] = dst;
-  }
-  return row_pad(D);
-}
 
 cudaError_t transpose(const void* src, float* dst, int B, int S, int H, int D, cudaStream_t stream) {
   const int SK = key_pad(S);
@@ -950,15 +781,16 @@ extern "C" int rrt_mha_wide_f32_dc() { return kDc; }
 extern "C" int rrt_mha_wide_f32(const void* q, const void* k, const void* v, const void* key_bias,
                                 void* out, void* ws, int B, int S, int H, int D, int padded,
                                 void* stream) {
-  if (!args_ok(B, S, H, D) || (!padded && !rows_in_place(D, {q, k})))
+  const void* src[2] = {q, k};
+  if (!args_ok(B, S, H, D) || (!padded && !rows_in_place(D, 4, src, 2)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
   const Ws lay(false, B, S, H, D, padded != 0);
   const int SK = key_pad(S);
-  const float* rows[2];
-  const void* src[2] = {q, k};
-  const int Dst = rows_for(rows, w, lay, padded != 0, 2, src, B, S, H, D, st);
+  void* const dst[2] = {lay.rows_at(w, 0), lay.rows_at(w, 1)};
+  const void* rows[2];
+  const int Dst = wide_rows<float>(rows, src, dst, 2, (long long)B * S * H, D, D, padded != 0, st);
   float* vt = lay.trans_at(w, 0);
   cudaError_t err = transpose(v, vt, B, S, H, D, st);
   if (err != cudaSuccess) return (int)err;
@@ -981,15 +813,16 @@ extern "C" int rrt_mha_wide_f32_bwd(const void* q, const void* k, const void* v,
                                     const void* key_bias, const void* dout, void* dq, void* dk,
                                     void* dv, void* ws, int B, int S, int H, int D, int padded,
                                     void* stream) {
-  if (!args_ok(B, S, H, D) || (!padded && !rows_in_place(D, {q, k, v, dout})))
+  const void* src[4] = {q, k, v, dout};
+  if (!args_ok(B, S, H, D) || (!padded && !rows_in_place(D, 4, src, 4)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
   const Ws lay(true, B, S, H, D, padded != 0);
   const int SK = key_pad(S);
-  const float* rows[4];
-  const void* src[4] = {q, k, v, dout};
-  const int Dst = rows_for(rows, w, lay, padded != 0, 4, src, B, S, H, D, st);
+  void* const dst[4] = {lay.rows_at(w, 0), lay.rows_at(w, 1), lay.rows_at(w, 2), lay.rows_at(w, 3)};
+  const void* rows[4];
+  const int Dst = wide_rows<float>(rows, src, dst, 4, (long long)B * S * H, D, D, padded != 0, st);
   float* kt = lay.trans_at(w, 0);
   float* qt = lay.trans_at(w, 1);
   float* ot = lay.trans_at(w, 2);

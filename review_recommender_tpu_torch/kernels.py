@@ -127,12 +127,20 @@ def load() -> ctypes.CDLL:
                        lib.rrt_mha_wide_bwd_last_resident):
                 fn.argtypes = []
                 fn.restype = I
-            lib.rrt_mha_wide.argtypes = [I, P, P, P, P, P, P, I, I, I, I, P]
+            lib.rrt_mha_wide.argtypes = [I, P, P, P, P, P, P, I, I, I, I, I, I, P]
             lib.rrt_mha_wide.restype = I
-            lib.rrt_mha_wide_bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, P]
+            lib.rrt_mha_wide_bwd.argtypes = [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]
             lib.rrt_mha_wide_bwd.restype = I
+            lib.rrt_mha_wide_ws_floats.argtypes = [I, I, I, I, I, I]
+            lib.rrt_mha_wide_ws_floats.restype = ctypes.c_longlong
             lib.rrt_mha_wide_bwd_last_dc.argtypes = [I]
             lib.rrt_mha_wide_bwd_last_dc.restype = I
+            for fn, args in ((lib.rrt_mha_wide_last_split, [I]),
+                             (lib.rrt_mha_wide_bwd_last_split, [I, I]),
+                             (lib.rrt_mha_wide_score_tiles, []),
+                             (lib.rrt_mha_wide_bwd_score_tiles, [I])):
+                fn.argtypes = args
+                fn.restype = ctypes.c_longlong
             lib.rrt_mha_wide_f32.argtypes = [P, P, P, P, P, P, I, I, I, I, I, P]
             lib.rrt_mha_wide_f32.restype = I
             lib.rrt_mha_wide_f32_bwd.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]

@@ -13,12 +13,13 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        zero-padded to padded_head_dim(D): bf16/f16 in two
                        softmax passes, f32 as 3xTF32 in one online pass),
                        "wide" = every D past 256: bf16/f16
-                       csrc/mha_wide.cu (a statistics pass, then one CTA a
-                       64-row block and pair of output column chunks, the
-                       scores contracted over the whole D in chunks of 128
-                       columns), f32 csrc/mha_wide_f32.cu (3xTF32, the
-                       logits computed once into a workspace, then the
-                       output from them); any S >= 1 on all three.
+                       csrc/mha_wide.cu (a score kernel contracts each row
+                       block's S once over the whole D and stores the f32
+                       logits in a workspace; an output kernel forms P
+                       from them and adds P V, a column chunk a
+                       warpgroup; TMA), f32 csrc/mha_wide_f32.cu (3xTF32,
+                       the logits computed once into a workspace, then
+                       the output from them); any S >= 1 on all three.
                        Together they replace the TPU kernel `_mha_kernel`,
                        which takes any float type, head width and length
   mha_kernel           the route's CUDA kernel; where a gradient is asked
@@ -44,6 +45,14 @@ Counterpart of `review_recommender_tpu/ops/pallas/attention_kernel.py`:
                        entries rrt_mha_wide_last_dc / rrt_mha_wide_bwd_last_dc
                        report the last 16-bit launch's, rrt_mha_wide_f32_dc
                        the f32 kernels')
+  wide_split           how the bf16/f16 wide kernels share a row block's
+                       scores: contracted once a call (the score kernels
+                       count the tiles they contract) and read back by so
+                       many CTAs of each kernel (rrt_mha_wide_last_split,
+                       rrt_mha_wide_bwd_last_split)
+  wide_workspace_floats  the bf16/f16 wide kernels' workspace (row
+                       statistics, the stored logits and dP, the rows
+                       copied where TMA cannot read them in place)
   wide_f32_workspace_floats  the f32 wide kernels' workspace (logits or
                        P and dP, row statistics, transposed copies)
   multihead_attention  the towers' entry point: impl "auto" launches the
@@ -56,15 +65,16 @@ depends on dtype and shape alone, every head width D >= 1 has one, and
 nothing falls back to the reference. A batch past the kernels' grid limit
 of 65,535 runs as launches on contiguous slices of at most 65,535 rows
 (each slice a launch, counted); more than 65,535 heads are refused (the
-TPU kernel's grid takes them, no tower has them). The gradient follows the JAX custom_vjp
+TPU kernel's grid takes them, no tower has them); the wide kernels' batch
+also runs by slices whose workspace stays under WIDE_WORKSPACE_BYTES.
+The gradient follows the JAX custom_vjp
 (attention_kernel.py:132-154) in what it returns, the q, k and v gradients
 (the key bias, built from the mask, gets none), but not in how: where JAX
 re-runs the plain attention under jax.vjp, MhaKernelFn's backward is the
 hand-written kernel csrc/mha_bwd.cu on CUDA tensors and
-mha_backward_reference on CPU tensors. The f32 wide kernels take a
-workspace that grows with B * H * S^2; their batch runs by slices whose
-workspace stays under WIDE_F32_WORKSPACE_BYTES (at least one batch row a
-slice), within the grid's slices (_batch_slices).
+mha_backward_reference on CPU tensors. The wide kernels take a workspace
+that grows with B * H * S^2 (at least one batch row a slice, within the
+grid's slices: _batch_slices).
 """
 from __future__ import annotations
 
@@ -80,7 +90,9 @@ from review_recommender_tpu_torch import kernels
 # threads encode concurrently, so the counts are bumped under a lock.
 mha_kernel_launches = 0
 mha_generic_kernel_launches = 0
-mha_wide_kernel_launches = 0  # csrc/mha_wide.cu (bf16/f16): a call's two kernels count one
+# csrc/mha_wide.cu (bf16/f16): a call's score and output kernels (and pad
+# kernels, at rows TMA cannot read) count one
+mha_wide_kernel_launches = 0
 # csrc/mha_wide_f32.cu's forward (f32 past 256): a call's transpose, score
 # and output kernels (and pad kernels, at widths TMA cannot read) count one
 mha_wide_f32_kernel_launches = 0
@@ -91,9 +103,10 @@ mha_wide_f32_kernel_launches = 0
 # each backward.
 mha_backward_kernel_launches = 0
 mha_backward_tf32_launches = 0
-# past D = 256, a call counting one: csrc/mha_wide_bwd.cu's three kernels
-# (bf16/f16); csrc/mha_wide_f32.cu's backward (f32: three transposes, the
-# score and dP kernels, the dQ and dK / dV kernels)
+# past D = 256, a call counting one: csrc/mha_wide_bwd.cu's four kernels
+# (bf16/f16: the score and dP kernels, the dQ and dK / dV kernels);
+# csrc/mha_wide_f32.cu's backward (f32: three transposes, the score and dP
+# kernels, the dQ and dK / dV kernels)
 mha_backward_wide_launches = 0
 mha_backward_wide_tf32_launches = 0
 _count_lock = threading.Lock()
@@ -105,9 +118,13 @@ MAX_HEAD_DIM = 256
 # the padded widths of the instances of csrc/mha_generic.cu and csrc/mha_bwd.cu
 PADDED_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 MAX_GRID_BATCH = 65535  # the kernels' grid.z: larger batches launch by slices
-# the f32 wide kernels' workspace a slice may take (tests monkeypatch it)
-WIDE_F32_WORKSPACE_BYTES = 1 << 30
+# the wide kernels' workspace a batch slice may take, every dtype's (tests
+# monkeypatch it)
+WIDE_WORKSPACE_BYTES = 1 << 30
 WIDE_F32_CHUNK = 128  # csrc/mha_wide_f32.cu's kDc: the output columns of a CTA
+# the bf16/f16 wide kernels' columns a warpgroup: csrc/mha_wide.cuh's
+# kChunk (the output and dQ kernels) and kChunkKV (the dK / dV kernel)
+WIDE_CHUNKS = (192, 192, 192)
 BACKWARD_COUNTERS = {"wgmma": "mha_backward_kernel_launches",
                      "tf32": "mha_backward_tf32_launches",
                      "wide": "mha_backward_wide_launches",
@@ -162,17 +179,51 @@ def padded_head_dim(d: int) -> int:
 def wide_column_chunks(dtype: torch.dtype, d: int) -> tuple[int, int, int]:
     """The column chunks of the wide kernels at head width d > MAX_HEAD_DIM,
     one chunk a CTA: (the forward's output columns, the dQ kernel's, the
-    dK / dV kernel's). bf16/f16 forward: the fewest chunks of at most 256
-    columns, 192 wide where they hold d; backward 192 and 128, a CTA two
-    chunks side by side. f32 (csrc/mha_wide_f32.cu): 128 columns a CTA in
-    all three. Raises ValueError for d <= MAX_HEAD_DIM or another dtype."""
+    dK / dV kernel's), one a warpgroup. bf16/f16: WIDE_CHUNKS, 192 each (a
+    CTA of the forward's or the dQ kernel takes two chunks, one of the dK /
+    dV kernel one: dV in one warpgroup, dK in the other; wide_split). f32
+    (csrc/mha_wide_f32.cu): 128 columns a CTA in all three. Raises
+    ValueError for d <= MAX_HEAD_DIM or another dtype."""
     _check_domain(dtype, d, 1)
     if d <= MAX_HEAD_DIM:
         raise ValueError(f"mha_kernel: head dim {d} takes a padded instance (padded_head_dim)")
     if dtype == torch.float32:
         return WIDE_F32_CHUNK, WIDE_F32_CHUNK, WIDE_F32_CHUNK
-    n = -(-d // 256)
-    return (192 if d <= 192 * n else 256), 192, 128
+    return WIDE_CHUNKS
+
+
+def wide_split(dtype: torch.dtype, d: int) -> tuple[tuple[int, int], ...]:
+    """How the bf16/f16 wide kernels (csrc/mha_wide.cu, csrc/mha_wide_bwd.cu)
+    share each 64-row block's score tiles at head width d > MAX_HEAD_DIM:
+    for the forward's output kernel, the dQ kernel and the dK / dV kernel,
+    (times a call contracts each tile of S (and dP): once, in the score
+    kernel, which counts them: rrt_mha_wide_score_tiles,
+    rrt_mha_wide_bwd_score_tiles; CTAs of the kernel that read the stored
+    tiles back: one a pair of wide_column_chunks' chunks, or a dK / dV
+    chunk). Raises ValueError where wide_column_chunks does, and for f32
+    (csrc/mha_wide_f32.cu stores the scores too, with its own chunks)."""
+    fwd, dq, dkv = wide_column_chunks(dtype, d)
+    if dtype == torch.float32:
+        raise ValueError("mha_kernel: the f32 wide kernels are csrc/mha_wide_f32.cu's")
+    return (1, -(-d // (2 * fwd))), (1, -(-d // (2 * dq))), (1, -(-d // dkv))
+
+
+def wide_workspace_floats(backward: bool, b: int, s: int, h: int, d: int, padded: bool) -> int:
+    """Floats of workspace the bf16/f16 wide kernels take for a batch of b
+    rows (csrc/mha_wide.cuh's WideWs; its C entry rrt_mha_wide_ws_floats,
+    which the card tests check): each row's m and 1/l (backward also
+    Delta), the stored logits in f32 (S rows by S rounded up to 64 keys a
+    (b, h)), in the backward dP in the input type, then, where `padded`,
+    the rows TMA reads copied at D rounded up to 8 (forward q, k, v;
+    backward also dO). Each region is rounded up to 256 bytes."""
+    r256 = lambda n: -(-n // 256) * 256
+    bhs, sk = b * h * s, -(-s // 64) * 64
+    nbytes = r256((3 if backward else 2) * bhs * 4) + r256(bhs * sk * 4)
+    if backward:
+        nbytes += r256(bhs * sk * 2)
+    if padded:
+        nbytes += (4 if backward else 3) * r256(bhs * (-(-d // 8) * 8) * 2)
+    return nbytes // 4
 
 
 def _check_domain(dtype: torch.dtype, d: int, s: int) -> None:
@@ -267,10 +318,10 @@ def _check_kernel_args(q, k, v, key_bias, num_heads) -> tuple[int, int, int, int
 def _batch_slices(b: int, row_bytes: int = 0) -> list[tuple[int, int]]:
     """[b0, b1) slices that cover a batch: at most MAX_GRID_BATCH rows each
     and, where a batch row takes `row_bytes` of workspace, at most as many
-    rows as fit WIDE_F32_WORKSPACE_BYTES, but never fewer than one."""
+    rows as fit WIDE_WORKSPACE_BYTES, but never fewer than one."""
     rows = MAX_GRID_BATCH
     if row_bytes:
-        rows = max(1, min(rows, WIDE_F32_WORKSPACE_BYTES // row_bytes))
+        rows = max(1, min(rows, WIDE_WORKSPACE_BYTES // row_bytes))
     return [(b0, min(b, b0 + rows)) for b0 in range(0, b, rows)]
 
 
@@ -291,46 +342,56 @@ def wide_f32_workspace_floats(backward: bool, b: int, s: int, h: int, d: int,
     return total + (rows * r64(b * s * h * (-(-d // 4) * 4)) if padded else 0)
 
 
-def _wide_f32_padded(d: int, *tensors) -> bool:
-    """Whether the f32 wide kernels copy the rows first: TMA reads them in
-    place where D * 4 bytes is a multiple of 16 and every base is 16-byte
-    aligned."""
-    return d % 4 != 0 or any(t.data_ptr() % 16 for t in tensors)
+def _wide_padded(dtype: torch.dtype, d: int, *tensors) -> bool:
+    """Whether the wide kernels copy the rows first: TMA reads them in place
+    where D values of `dtype` are a multiple of 16 bytes and every base is
+    16-byte aligned."""
+    return d * dtype.itemsize % 16 != 0 or any(t.data_ptr() % 16 for t in tensors)
 
 
-def _wide_f32_slices(backward: bool, b: int, s: int, h: int, d: int,
-                     padded: bool) -> list[tuple[int, int]]:
-    """The batch slices of the f32 wide kernels: _batch_slices at the
+def _wide_workspace(dtype: torch.dtype):
+    """The workspace count of the dtype's wide kernels."""
+    return wide_f32_workspace_floats if dtype == torch.float32 else wide_workspace_floats
+
+
+def _wide_slices(dtype: torch.dtype, backward: bool, b: int, s: int, h: int, d: int,
+                 padded: bool) -> list[tuple[int, int]]:
+    """The batch slices of the dtype's wide kernels: _batch_slices at the
     workspace of one batch row."""
-    row_bytes = 4 * wide_f32_workspace_floats(backward, 1, s, h, d, padded)
-    return _batch_slices(b, row_bytes)
+    return _batch_slices(b, 4 * _wide_workspace(dtype)(backward, 1, s, h, d, padded))
 
 
 _FORWARD = {"wgmma": ("rrt_mha_fwd", "mha_kernel_launches"),
-            "generic": ("rrt_mha_generic", "mha_generic_kernel_launches"),
-            "wide": ("rrt_mha_wide", "mha_wide_kernel_launches")}  # route -> entry, counter
+            "generic": ("rrt_mha_generic", "mha_generic_kernel_launches")}  # route -> entry, counter
 
 
-def _launch_wide_f32(q, k, v, key_bias, g, b, s, h, d, outs) -> None:
-    """csrc/mha_wide_f32.cu's forward (g None: outs = (out,)) or backward
-    (outs = (dq, dk, dv)) on CUDA f32 tensors, by workspace slices."""
-    backward = g is not None
-    padded = _wide_f32_padded(d, *((q, k, v, g) if backward else (q, k)))
-    slices = _wide_f32_slices(backward, b, s, h, d, padded)
+def _launch_wide(q, k, v, key_bias, g, b, s, h, d, outs) -> None:
+    """The wide kernels' forward (g None: outs = (out,)) or backward (outs =
+    (dq, dk, dv)) on CUDA tensors, by workspace slices, one workspace
+    reused by each slice in turn: bf16/f16 csrc/mha_wide.cu /
+    csrc/mha_wide_bwd.cu (their C entries take the dtype and the rows'
+    head stride), f32 csrc/mha_wide_f32.cu (whose forward reads q and k by
+    TMA, v through its transpose)."""
+    backward, f32 = g is not None, q.dtype == torch.float32
+    reads = (q, k, v, g) if backward else (q, k) if f32 else (q, k, v)
+    padded = _wide_padded(q.dtype, d, *reads)
+    slices = _wide_slices(q.dtype, backward, b, s, h, d, padded)
     n = max(b1 - b0 for b0, b1 in slices)
-    ws = torch.empty(wide_f32_workspace_floats(backward, n, s, h, d, padded),
+    ws = torch.empty(_wide_workspace(q.dtype)(backward, n, s, h, d, padded),
                      dtype=torch.float32, device=q.device)
-    entry_name = "rrt_mha_wide_f32_bwd" if backward else "rrt_mha_wide_f32"
+    entry_name = "rrt_mha_wide" + ("_f32" if f32 else "") + ("_bwd" if backward else "")
     entry = getattr(kernels.load(), entry_name)
-    counter = "mha_backward_wide_tf32_launches" if backward else "mha_wide_f32_kernel_launches"
+    counter = (BACKWARD_COUNTERS[backward_route(q.dtype, d, s)] if backward else
+               "mha_wide_f32_kernel_launches" if f32 else "mha_wide_kernel_launches")
+    head, tail = ((), (d, int(padded))) if f32 else ((_DTYPE_CODE[q.dtype],), (d, d, int(padded)))
     ins = (q, k, v, key_bias, g) if backward else (q, k, v, key_bias)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         for b0, b1 in slices:
             ptrs = [t[b0:b1].data_ptr() for t in (*ins, *outs)]
-            err = entry(*ptrs, ws.data_ptr(), b1 - b0, s, h, d, int(padded), stream)
+            err = entry(*head, *ptrs, ws.data_ptr(), b1 - b0, s, h, *tail, stream)
             kernels.check_launch(entry_name[4:], err, f"B={b1 - b0} (rows {b0}-{b1} of {b}) "
-                                 f"S={s} H={h} D={d} torch.float32")
+                                 f"S={s} H={h} D={d} {q.dtype}")
             with _count_lock:
                 globals()[counter] += 1
 
@@ -338,26 +399,20 @@ def _launch_wide_f32(q, k, v, key_bias, g, b, s, h, d, outs) -> None:
 def _launch(q, k, v, key_bias, num_heads: int) -> torch.Tensor:
     b, s, h, d = _check_kernel_args(q, k, v, key_bias, num_heads)
     route = kernel_route(q.dtype, d, s)
-    if route == "wide" and q.dtype == torch.float32:
-        out = torch.empty_like(q)
-        _launch_wide_f32(q, k, v, key_bias, None, b, s, h, d, (out,))
+    out = torch.empty_like(q)
+    if route == "wide":
+        _launch_wide(q, k, v, key_bias, None, b, s, h, d, (out,))
         return out
     if route == "wgmma":
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:  # TMA's global address
                 raise ValueError(f"mha_kernel: {name} must be 16-byte aligned")
-    lib = kernels.load()
     entry_name, counter = _FORWARD[route]
-    entry = getattr(lib, entry_name)
-    out = torch.empty_like(q)
-    # the wide route's row statistics (m, 1/l), reused by each slice in turn
-    ws = ([torch.empty(2 * min(b, MAX_GRID_BATCH) * h * s, dtype=torch.float32,
-                       device=q.device)] if route == "wide" else [])
+    entry = getattr(kernels.load(), entry_name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         for b0, b1 in _batch_slices(b):
             ptrs = [t[b0:b1].data_ptr() for t in (q, k, v, key_bias, out)]
-            ptrs += [w.data_ptr() for w in ws]
             err = entry(_DTYPE_CODE[q.dtype], *ptrs, b1 - b0, s, h, d, stream)
             kernels.check_launch(entry_name[4:], err,
                                  f"B={b1 - b0} (rows {b0}-{b1} of {b}) S={s} H={h} D={d} {q.dtype}")
@@ -369,10 +424,11 @@ def _launch(q, k, v, key_bias, num_heads: int) -> torch.Tensor:
 def _launch_bwd(q, k, v, key_bias, g, num_heads: int):
     """csrc/mha_bwd.cu on CUDA tensors: (dq, dk, dv) of attention at (q, k,
     v, key_bias) against the upstream gradient `g` (contiguous, q's dtype
-    and shape); past D = 256 csrc/mha_wide_bwd.cu (bf16/f16) or
-    csrc/mha_wide_f32.cu (f32, by workspace slices). Launches on
-    torch.cuda.current_stream(), by batch slices of at most MAX_GRID_BATCH
-    rows; raises if a launch fails, never falls back to the reference."""
+    and shape); past D = 256 the wide kernels (_launch_wide:
+    csrc/mha_wide_bwd.cu for bf16/f16, csrc/mha_wide_f32.cu for f32).
+    Launches on torch.cuda.current_stream(), by batch slices of at most
+    MAX_GRID_BATCH rows; raises if a launch fails, never falls back to the
+    reference."""
     b, s, h, d = _check_kernel_args(q, k, v, key_bias, num_heads)
     route = backward_route(q.dtype, d, s)
     if g.device != q.device or g.dtype != q.dtype or g.shape != q.shape:
@@ -381,20 +437,20 @@ def _launch_bwd(q, k, v, key_bias, g, num_heads: int):
     if not g.is_contiguous():
         raise ValueError("mha_bwd: g must be contiguous")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    if route == "wide_tf32":
-        _launch_wide_f32(q, k, v, key_bias, g, b, s, h, d, (dq, dk, dv))
+    if route in ("wide", "wide_tf32"):
+        _launch_wide(q, k, v, key_bias, g, b, s, h, d, (dq, dk, dv))
         return dq, dk, dv
-    lib = kernels.load()
-    entry_name = "rrt_mha_wide_bwd" if route == "wide" else "rrt_mha_bwd"
-    entry = getattr(lib, entry_name)
+    entry = kernels.load().rrt_mha_bwd
     # m, 1/l, Delta of each query row, reused by each slice in turn
-    ws = torch.empty(3 * min(b, MAX_GRID_BATCH) * h * s, dtype=torch.float32, device=q.device)
+    slices = _batch_slices(b)
+    n = max(b1 - b0 for b0, b1 in slices)
+    ws = torch.empty(3 * n * h * s, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        for b0, b1 in _batch_slices(b):
+        for b0, b1 in slices:
             ptrs = [t[b0:b1].data_ptr() for t in (q, k, v, key_bias, g, dq, dk, dv)]
             err = entry(_DTYPE_CODE[q.dtype], *ptrs, ws.data_ptr(), b1 - b0, s, h, d, stream)
-            kernels.check_launch(entry_name[4:], err, f"B={b1 - b0} (rows {b0}-{b1} of {b}) "
+            kernels.check_launch("mha_bwd", err, f"B={b1 - b0} (rows {b0}-{b1} of {b}) "
                                  f"S={s} H={h} D={d} {q.dtype} ({route} route)")
             with _count_lock:
                 globals()[BACKWARD_COUNTERS[route]] += 1

@@ -248,6 +248,78 @@ def test_3xtf32_split_holds_the_f32_tolerance(head_dim, s):
     assert (one - ref).abs().max().item() > 1e-5
 
 
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _wide16_logits(qh, kh, bias, d):
+    """csrc/mha_wide.cuh's score kernel in torch: S contracted once over the
+    whole D from the 16-bit inputs (each product exact in f32, summed in
+    f32), the logits in log2 units s * (log2 e / sqrt d) + bias * log2 e as
+    one f32 FMA (a single rounding: formed in f64), stored in f32."""
+    scale = np.float64(LOG2E / np.sqrt(np.float32(d), dtype=np.float32))
+    s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float()).double()
+    lb = (bias.float() * torch.tensor(LOG2E)).double()[:, None, None, :]
+    return (s * scale + lb).float()
+
+
+def _wide16_stats(logits, tile=64):
+    """The score kernel's running row max and sum of 2^(L - m) over key
+    tiles of 64 (the sum rescaled by 2^(m_old - m_new)), and 1/l."""
+    shape = (*logits.shape[:-1], 1)
+    m = torch.full(shape, float("-inf"))
+    l = torch.zeros(shape)
+    for k0 in range(0, logits.shape[-1], tile):
+        x = logits[..., k0:k0 + tile]
+        mx = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        l = l * torch.exp2(m - mx) + torch.exp2(x - mx).sum(dim=-1, keepdim=True)
+        m = mx
+    return m, 1.0 / l
+
+
+def _mha_wide16(q, k, v, bias, heads):
+    """csrc/mha_wide.cu's forward arithmetic in torch (bf16/f16 past 256
+    columns): the logits stored once, m and 1/l from them; the output
+    kernel's P = 2^(L - m) / l rounded to the input type, then each key
+    tile of 64's P V summed into O in f32, O rounded once."""
+    b, s, hd = q.shape
+    d = hd // heads
+    split = lambda t: t.reshape(b, s, heads, d).permute(0, 2, 1, 3)  # (B, H, S, D)
+    qh, kh, vh = split(q), split(k), split(v)
+    logits = _wide16_logits(qh, kh, bias, d)
+    m, inv_l = _wide16_stats(logits)
+    p = (torch.exp2(logits - m) * inv_l).to(q.dtype).float()
+    o = torch.zeros(b, heads, s, d)
+    for k0 in range(0, s, 64):
+        o = o + torch.einsum("bhqk,bhkd->bhqd", p[..., k0:k0 + 64], vh[:, :, k0:k0 + 64].float())
+    return o.to(q.dtype).permute(0, 2, 1, 3).reshape(b, s, hd)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("head_dim,s,heads", [(257, 65, 2), (384, 40, 1), (384, 130, 1)])
+def test_wide16_arithmetic_matches_jax(dtype, head_dim, s, heads):
+    """The bf16/f16 wide route's arithmetic (csrc/mha_wide.cu: S contracted
+    once and stored as f32 logits in log2 units, m and 1/l over key tiles
+    of 64, P rounded to the input type before P V), emulated in torch on
+    the CPU, against the TPU kernel in interpret mode and mha_xla at the
+    widths only that route takes, a row masked but one key and an
+    all-masked row included: within 2e-2 (the repo's 16-bit bound, one ulp
+    at magnitude 2-4); the all-masked row the mean of its V rows."""
+    b = 3
+    arrs = list(_inputs(head_dim * 7 + s, b, s, heads * head_dim))
+    arrs[3][0] = -1e30
+    arrs[3][0, 1] = 0.0
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = np.asarray(mha_pallas(*_jax(arrs, jdt), heads, interpret=True), dtype=np.float32)
+    ref_xla = np.asarray(mha_xla(*_jax(arrs, jdt), heads), dtype=np.float32)
+    q, k, v, bias = _torch(arrs, tdt)
+    got = _mha_wide16(q, k, v, bias, heads)
+    assert got.dtype == tdt and got.shape == q.shape
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(got.float().numpy(), ref_xla, rtol=2e-2, atol=2e-2)
+    mean_v = v[-1].float().mean(dim=0)
+    assert (got[-1].float() - mean_v[None, :]).abs().max().item() <= 2e-2
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [1, 16, 26, 31, 32, 33, 64, 96, 128, 129, 256])
 def test_kernel_route_by_dtype_and_head_width(dtype, d):
@@ -265,7 +337,7 @@ def test_kernel_route_past_256_is_the_wide_route(dtype, d):
     """Every dtype past 256 columns takes the wide route at every length:
     bf16/f16 csrc/mha_wide.cu forward and csrc/mha_wide_bwd.cu backward,
     f32 csrc/mha_wide_f32.cu both ways, in the column chunks the C entries
-    use."""
+    use; bf16/f16 contract each row block's scores once (wide_split)."""
     for s in (1, 63, 65, 512, 4096):
         assert tatt.kernel_route(dtype, d, s) == "wide"
         assert tatt.backward_route(dtype, d, s) == ("wide_tf32" if dtype == torch.float32
@@ -273,10 +345,17 @@ def test_kernel_route_past_256_is_the_wide_route(dtype, d):
     fwd, dq, dkv = tatt.wide_column_chunks(dtype, d)
     if dtype == torch.float32:
         assert (fwd, dq, dkv) == (128, 128, 128)  # csrc/mha_wide_f32.cu: a CTA's columns
+        with pytest.raises(ValueError, match="f32"):
+            tatt.wide_split(dtype, d)
     else:
-        assert (dq, dkv) == (192, 128)
-        assert fwd == {257: 192, 320: 192, 384: 192, 512: 256, 1024: 256}[d]
-        assert -(-d // fwd) == -(-d // 256)  # no more chunks than 256 columns each take
+        # a warpgroup's columns; the output and dQ kernels' CTAs take two
+        # chunks, the dK / dV kernel's one (dV and dK side by side)
+        assert (fwd, dq, dkv) == (192, 192, 192)
+        # each row block's S (and dP) contracted by one warpgroup, once,
+        # and read back by these CTAs
+        ctas = {257: (1, 1, 2), 320: (1, 1, 2), 384: (1, 1, 2), 512: (2, 2, 3),
+                1024: (3, 3, 6)}[d]
+        assert tatt.wide_split(dtype, d) == tuple((1, n) for n in ctas)
 
 
 @pytest.mark.parametrize("b", [1, 65_535, 65_536, 65_537, 200_000])
@@ -308,21 +387,21 @@ WIDE_F32_PLANS = [
 def test_wide_f32_workspace_slices(monkeypatch, backward, b, s, h, d, padded, cap_rows, want):
     """The f32 wide kernels' batch slices: contiguous, covering the batch
     once in order, each slice's workspace (wide_f32_workspace_floats, 4
-    bytes a float) within WIDE_F32_WORKSPACE_BYTES unless a single row
+    bytes a float) within WIDE_WORKSPACE_BYTES unless a single row
     passes it (then one row a slice), never more than MAX_GRID_BATCH rows;
     the whole of (64, 512, 1, 384) in one slice of 117.7 MB forward and
     285.6 MB backward."""
     row = 4 * tatt.wide_f32_workspace_floats(backward, 1, s, h, d, padded)
     if cap_rows is not None:
-        monkeypatch.setattr(tatt, "WIDE_F32_WORKSPACE_BYTES", int(cap_rows * row))
-    slices = tatt._wide_f32_slices(backward, b, s, h, d, padded)
+        monkeypatch.setattr(tatt, "WIDE_WORKSPACE_BYTES", int(cap_rows * row))
+    slices = tatt._wide_slices(torch.float32, backward, b, s, h, d, padded)
     assert len(slices) == want
     assert slices[0][0] == 0 and slices[-1][1] == b
     assert all(a[1] == z[0] for a, z in zip(slices, slices[1:]))
     for lo, hi in slices:
         assert 0 < hi - lo <= tatt.MAX_GRID_BATCH
         nbytes = 4 * tatt.wide_f32_workspace_floats(backward, hi - lo, s, h, d, padded)
-        assert nbytes <= tatt.WIDE_F32_WORKSPACE_BYTES or hi - lo == 1
+        assert nbytes <= tatt.WIDE_WORKSPACE_BYTES or hi - lo == 1
     if (b, s, h, d) == (64, 512, 1, 384):
         full = 4 * tatt.wide_f32_workspace_floats(backward, b, s, h, d, padded)
         assert full == (285_605_888 if backward else 117_702_656)
@@ -333,9 +412,9 @@ def test_wide_f32_rows_copied_only_where_tma_cannot_read_them():
     multiple of 4 and every base is 16-byte aligned, else from padded
     copies in the workspace."""
     x = torch.zeros(2, 3, 2 * 384)
-    assert not tatt._wide_f32_padded(384, x, x)
-    assert tatt._wide_f32_padded(257, x, x)
-    assert tatt._wide_f32_padded(384, x, x.view(-1)[1:].view(-1)[:-1])
+    assert not tatt._wide_padded(torch.float32, 384, x, x)
+    assert tatt._wide_padded(torch.float32, 257, x, x)
+    assert tatt._wide_padded(torch.float32, 384, x, x.view(-1)[1:].view(-1)[:-1])
     assert (tatt.wide_f32_workspace_floats(False, 2, 3, 2, 257, True)
             > tatt.wide_f32_workspace_floats(False, 2, 3, 2, 257, False))
 

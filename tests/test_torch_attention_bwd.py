@@ -34,10 +34,11 @@ from review_recommender_tpu_torch.ops import attention as tatt
 from review_recommender_tpu_torch.train import contrastive as pcon
 from tests import torch_train_cases as C
 from tests.test_torch_attention import (_mm_3xtf32, _mm_3xtf32_chunked, _mm_3xtf32_tc, _tf32,
-                                        _wide_f32_logits, _wide_f32_stats)
+                                        _wide16_logits, _wide16_stats, _wide_f32_logits,
+                                        _wide_f32_stats)
 
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
 
 
 def _inputs(seed, b, s, hd):
@@ -260,6 +261,56 @@ def test_3xtf32_backward_holds_the_f32_tolerance(d, s):
     assert worst > 1e-4
 
 
+def _mha_wide16_bwd(q, k, v, bias, g, heads):
+    """csrc/mha_wide_bwd.cu's arithmetic in torch (bf16/f16 past 256
+    columns): the logits stored once with m and 1/l (the forward's score
+    kernel); dP = dO V^T contracted once, rounded to the input type T and
+    stored; P = 2^(L - m) / l in f32 and Delta = sum_k P dP; dS = P (dP -
+    Delta); the gradient products from P and dS rounded to T (wgmma's A
+    registers), summed in f32 a tile of 64 at a time; dQ and dK times
+    1/sqrt(d) once, each gradient rounded to T once."""
+    b, s, hd = q.shape
+    d = hd // heads
+    split = lambda t: t.reshape(b, s, heads, d).permute(0, 2, 1, 3)  # (B, H, S, D)
+    qh, kh, vh, gh = (split(t).float() for t in (q, k, v, g))
+    logits = _wide16_logits(split(q), split(k), bias, d)
+    m, inv_l = _wide16_stats(logits)
+    p = torch.exp2(logits - m) * inv_l
+    dp = torch.einsum("bhqd,bhkd->bhqk", gh, vh).to(q.dtype).float()
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    pt = p.to(q.dtype).float()
+    dscale = float(np.float32(1.0) / np.sqrt(np.float32(d), dtype=np.float32))
+    dq, dk, dv = (torch.zeros(b, heads, s, d) for _ in range(3))
+    for k0 in range(0, s, 64):
+        sl = slice(k0, k0 + 64)
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds[..., sl], kh[:, :, sl])
+        dk = dk + torch.einsum("bhqk,bhqd->bhkd", ds[:, :, sl], qh[:, :, sl])
+        dv = dv + torch.einsum("bhqk,bhqd->bhkd", pt[:, :, sl], gh[:, :, sl])
+    merge = lambda t: t.to(q.dtype).permute(0, 2, 1, 3).reshape(b, s, hd)
+    return merge(dq * dscale), merge(dk * dscale), merge(dv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,s,heads", [(257, 65, 2), (384, 40, 1), (384, 130, 1)])
+def test_wide16_backward_arithmetic_matches_jax(dtype, d, s, heads):
+    """The bf16/f16 wide backward's arithmetic (S and dP each contracted
+    once and stored, P and dS formed from the stored tiles), emulated in
+    torch on the CPU, against JAX's _mha_bwd (jax.vjp of mha_xla) on the
+    same numpy inputs, a row masked but one key and an all-masked row
+    included: within 2e-2 of max(1, max |ref|) (the 16-bit bound of
+    tests/test_torch_attention_bwd.py)."""
+    b = 3
+    arrs = _inputs(d * 13 + s, b, s, heads * d)
+    q, k, v, bias, g = _torch(arrs, dtype)
+    got = _mha_wide16_bwd(q, k, v, bias, g, heads)
+    jq, jk, jv, jg = (jnp.asarray(x, dtype=JNP[dtype]) for x in (arrs[0], arrs[1], arrs[2], arrs[4]))
+    ref = _mha_bwd(heads, True, (jq, jk, jv, jnp.asarray(arrs[3])), jg)
+    for name, x, r in zip("qkv", got, ref[:3]):
+        assert x.dtype == dtype and x.shape == q.shape
+        _assert_close(x.float().numpy(), np.asarray(r.astype(jnp.float32)), TOL[dtype], name)
+
+
 @pytest.mark.parametrize("d,dp", [(1, 16), (16, 16), (17, 32), (26, 32), (33, 64), (64, 64),
                                   (65, 128), (128, 128), (129, 192), (192, 192), (193, 256),
                                   (256, 256)])
@@ -276,8 +327,8 @@ def test_padded_head_dim_refuses_what_the_kernels_refuse():
     for d in (0, -1, 257, 512):
         with pytest.raises(ValueError, match="head dim"):
             tatt.padded_head_dim(d)
-    assert tatt.wide_column_chunks(torch.bfloat16, 257) == (192, 192, 128)
-    assert tatt.wide_column_chunks(torch.float16, 512) == (256, 192, 128)
+    assert tatt.wide_column_chunks(torch.bfloat16, 257) == (192, 192, 192)
+    assert tatt.wide_column_chunks(torch.float16, 512) == (192, 192, 192)
     assert tatt.wide_column_chunks(torch.float32, 512) == (128, 128, 128)
     for dtype, d in ((torch.bfloat16, 256), (torch.float32, 1), (torch.float64, 384)):
         with pytest.raises(ValueError):

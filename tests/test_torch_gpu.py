@@ -18,8 +18,10 @@ rounding boundary. The tensor-core route (bf16/f16 at D = 32, 64, 128) runs
 past 512 keys; the generic route takes f32/bf16/f16 at any D from 1 to 256,
 the wide route every D past 256 (bf16/f16 csrc/mha_wide.cu and
 csrc/mha_wide_bwd.cu, f32 csrc/mha_wide_f32.cu), forward and backward (D
-= 257-1,024, S = 1-513, the column chunks each launch reports, f32 off
-the TMA path and by workspace slices, a tower trained through `rrt train
+= 257-1,024, S = 1-513, the column chunks each launch reports, the scores
+contracted once a row block (the C entries' split), 16-bit rows TMA cannot
+read copied first and bit-equal to rows it reads in place, f32 off the
+TMA path and by workspace slices, a tower trained through `rrt train
 --hidden 384 --head-dim 384`), and a batch past 65,535 rows runs as
 launches on slices. BM25: bitwise equal scores (tf_q
 sums integers; every other step is rounded alone, in the reference's order).
@@ -582,6 +584,166 @@ def test_wide_route_through_autograd(cuda, dtype):
     _check_grads(got, refs, dtype, (b, s, heads, d))
 
 
+def test_wide_16bit_kernels_contract_the_scores_once_by_tma(cuda):
+    """bf16 past 256 columns (csrc/mha_wide.cu, csrc/mha_wide_bwd.cu) at
+    (2, 512, 1, 384): one forward and one backward call contract each
+    64 x 64 tile of S (and of dP) once, counted by the score kernels
+    themselves (rrt_mha_wide_score_tiles, rrt_mha_wide_bwd_score_tiles:
+    2 * 8 * 8 tiles each, as wide_split's once and the C entries' tiles of
+    a contraction say); the stored tiles are read back by the CTAs
+    wide_split counts, in wide_column_chunks' chunks, the own rows resident
+    and the rows read in place by TMA; the workspace the C entry counts is
+    ops/attention.py's."""
+    from review_recommender_tpu_torch import kernels
+
+    b, s, heads, d = 2, 512, 1, 384
+    tiles = b * heads * (s // 64) ** 2
+    q, k, v, bias = _inputs(23, b, s, heads * d, torch.bfloat16, cuda)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(5),
+                    device=cuda).to(torch.bfloat16)
+    lib = kernels.load()
+    split = tatt.wide_split(torch.bfloat16, d)
+    fwd_dc, dq_dc, dkv_dc = tatt.wide_column_chunks(torch.bfloat16, d)
+    assert not tatt._wide_padded(torch.bfloat16, d, q, k, v, g)
+    torch.cuda.synchronize()
+    for take in (lib.rrt_mha_wide_score_tiles, lambda: lib.rrt_mha_wide_bwd_score_tiles(0),
+                 lambda: lib.rrt_mha_wide_bwd_score_tiles(1)):
+        assert take() >= 0  # the counts start from zero here
+    with torch.inference_mode():
+        got = tatt.mha_kernel(q, k, v, bias, heads)
+    torch.cuda.synchronize()
+    assert lib.rrt_mha_wide_score_tiles() == split[0][0] * tiles
+    assert tuple(lib.rrt_mha_wide_last_split(i) for i in range(3)) == (tiles, split[0][1], 1)
+    assert lib.rrt_mha_wide_last_dc() == fwd_dc and lib.rrt_mha_wide_last_resident() == 1
+    grads = tatt._launch_bwd(q, k, v, bias, g, heads)
+    torch.cuda.synchronize()
+    assert lib.rrt_mha_wide_bwd_score_tiles(0) == split[1][0] * tiles
+    assert lib.rrt_mha_wide_bwd_score_tiles(1) == split[2][0] * tiles
+    assert lib.rrt_mha_wide_score_tiles() == 0  # the backward's count is its own
+    for kernel, want in ((0, split[1]), (1, split[2])):
+        assert tuple(lib.rrt_mha_wide_bwd_last_split(kernel, i) for i in range(3)) == \
+            (tiles, want[1], 1)
+    assert (lib.rrt_mha_wide_bwd_last_dc(0), lib.rrt_mha_wide_bwd_last_dc(1)) == (dq_dc, dkv_dc)
+    assert lib.rrt_mha_wide_bwd_last_resident() == 1
+    ref = tatt.mha_reference(q, k, v, bias, heads)
+    assert (got.float() - ref.float()).abs().max().item() <= GENERIC_TOL[torch.bfloat16]
+    _check_grads(grads, {"plain": tatt.mha_backward_reference(q, k, v, bias, g, heads)},
+                 torch.bfloat16, "tma")
+    for bb, ss, hh, dd in ((64, 512, 1, 384), (3, 1, 2, 257), (5, 513, 3, 1024), (1, 130, 1, 511)):
+        for backward in (0, 1):
+            for padded in (0, 1):
+                assert lib.rrt_mha_wide_ws_floats(backward, bb, ss, hh, dd, padded) == \
+                    tatt.wide_workspace_floats(bool(backward), bb, ss, hh, dd, bool(padded))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", ["misaligned", "sliced"])
+def test_wide_16bit_kernels_off_the_tma_path_and_by_slices(cuda, monkeypatch, dtype, case):
+    """csrc/mha_wide.cu and csrc/mha_wide_bwd.cu at (5, 65, 1, 384) where
+    TMA cannot read the rows in place (a base 2 bytes off 16: the copy
+    path) and with the batch sliced by a small monkeypatched workspace cap
+    (two forward rows: the forward in slices of 2, 2 and 1 rows, the
+    backward, whose row takes more, one row a slice; one workspace reused
+    by each slice): within 2e-2 of the plain versions, one call a slice on
+    each counter, the score kernels contracting each tile of S and dP once
+    over the whole batch."""
+    from review_recommender_tpu_torch import kernels
+
+    b, s, heads, d = 5, 65, 1, 384
+    q, k, v, bias = _inputs(len(case) + 7, b, s, heads * d, dtype, cuda)
+    bias = _masked_but_one(bias)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(11),
+                    device=cuda).to(dtype)
+    if case == "misaligned":  # contiguous views one value into their buffers
+        q, k, v, g = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+                      for t in (q, k, v, g))
+        assert all(t.data_ptr() % 16 == 2 for t in (q, k, v, g))
+    n_fwd = n_bwd = 1
+    if case == "sliced":
+        row = 4 * tatt.wide_workspace_floats(False, 1, s, heads, d, False)
+        monkeypatch.setattr(tatt, "WIDE_WORKSPACE_BYTES", 2 * row)
+        n_fwd, n_bwd = 3, 5
+    assert tatt._wide_padded(dtype, d, q, k, v, g) == (case == "misaligned")
+    lib = kernels.load()
+    tiles = b * heads * 2 * 2  # two row blocks by two key tiles a (b, h)
+    torch.cuda.synchronize()
+    for take in (lib.rrt_mha_wide_score_tiles, lambda: lib.rrt_mha_wide_bwd_score_tiles(0),
+                 lambda: lib.rrt_mha_wide_bwd_score_tiles(1)):
+        assert take() >= 0
+    wide, backward = _wide_counts(), _bwd_launches()
+    with torch.inference_mode():
+        got = tatt.mha_kernel(q, k, v, bias, heads)
+        ref = tatt.mha_reference(q, k, v, bias, heads)
+    torch.cuda.synchronize()
+    assert lib.rrt_mha_wide_last_split(2) == (case != "misaligned")
+    grads = tatt._launch_bwd(q, k, v, bias, g, heads)
+    plain = tatt.mha_backward_reference(q, k, v, bias, g, heads)
+    torch.cuda.synchronize()
+    assert _wide_counts() == (wide[0] + n_fwd, wide[1])
+    assert _bwd_launches() == _bwd_plus(backward, "wide", n_bwd)
+    assert lib.rrt_mha_wide_score_tiles() == tiles
+    assert (lib.rrt_mha_wide_bwd_score_tiles(0), lib.rrt_mha_wide_bwd_score_tiles(1)) == \
+        (tiles, tiles)
+    assert (got.float() - ref.float()).abs().max().item() <= GENERIC_TOL[dtype]
+    _check_grads(grads, {"plain": plain}, dtype, case)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [257, 511])
+def test_wide_16bit_copy_path_equals_rows_tma_reads_in_place(cuda, dtype, d):
+    """D * 2 bytes not a multiple of 16: the 16-bit wide kernels copy the
+    rows into rows of D rounded up to 8 and read those by TMA; the same
+    values placed by the caller in such rows (head stride 264 / 512, read
+    in place) give bit-equal outputs and gradients through the C entries,
+    and the entries report the copy path for the first and TMA in place
+    for the second; the copy path's results are within the route's
+    tolerance of the plain versions."""
+    from review_recommender_tpu_torch import kernels
+
+    b, s, heads = 3, 70, 2
+    q, k, v, bias = _inputs(d + 3, b, s, heads * d, dtype, cuda)
+    bias = _masked_but_one(bias)
+    g = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(d),
+                    device=cuda).to(dtype)
+    lib = kernels.load()
+    code = {torch.bfloat16: 0, torch.float16: 1}[dtype]
+    ld = -(-d // 8) * 8
+    placed = []
+    for t in (q, k, v, g):
+        p = torch.zeros(b, s, heads, ld, dtype=dtype, device=cuda)
+        p[..., :d] = t.view(b, s, heads, d)
+        placed.append(p)
+    assert tatt._wide_padded(dtype, d, q, k, v, g)
+    stream = torch.cuda.current_stream().cuda_stream
+    with torch.inference_mode():
+        copied = tatt.mha_kernel(q, k, v, bias, heads)
+        torch.cuda.synchronize()
+        assert lib.rrt_mha_wide_last_split(2) == 0
+        in_place = torch.empty_like(q)
+        ws = torch.empty(tatt.wide_workspace_floats(False, b, s, heads, d, False),
+                         dtype=torch.float32, device=cuda)
+        err = lib.rrt_mha_wide(code, *(t.data_ptr() for t in placed[:3]), bias.data_ptr(),
+                               in_place.data_ptr(), ws.data_ptr(), b, s, heads, d, ld, 0, stream)
+        torch.cuda.synchronize()
+        assert err == 0 and lib.rrt_mha_wide_last_split(2) == 1
+        assert torch.equal(copied, in_place)
+        grads = tatt._launch_bwd(q, k, v, bias, g, heads)
+        torch.cuda.synchronize()
+        assert lib.rrt_mha_wide_bwd_last_split(0, 2) == 0
+        outs = [torch.empty_like(q) for _ in range(3)]
+        ws = torch.empty(tatt.wide_workspace_floats(True, b, s, heads, d, False),
+                         dtype=torch.float32, device=cuda)
+        err = lib.rrt_mha_wide_bwd(code, *(t.data_ptr() for t in placed[:3]), bias.data_ptr(),
+                                   placed[3].data_ptr(), *(t.data_ptr() for t in outs),
+                                   ws.data_ptr(), b, s, heads, d, ld, 0, stream)
+        torch.cuda.synchronize()
+        assert err == 0 and lib.rrt_mha_wide_bwd_last_split(0, 2) == 1
+        assert all(torch.equal(x, y) for x, y in zip(grads, outs))
+        ref = tatt.mha_reference(q, k, v, bias, heads)
+    assert (copied.float() - ref.float()).abs().max().item() <= GENERIC_TOL[dtype]
+    _check_grads(grads, {"plain": tatt.mha_backward_reference(q, k, v, bias, g, heads)}, dtype, d)
+
+
 @pytest.mark.parametrize("s", [1, 33, 64, 65, 511, 513])
 @pytest.mark.parametrize("d", [257, 320, 384, 511, 1024])
 def test_wide_f32_kernels_compute_the_scores_once(cuda, d, s):
@@ -630,9 +792,9 @@ def test_wide_f32_kernels_off_the_tma_path_and_by_slices(cuda, monkeypatch, case
     n_fwd = n_bwd = 1
     if case == "sliced":
         row = 4 * tatt.wide_f32_workspace_floats(False, 1, s, heads, d, False)
-        monkeypatch.setattr(tatt, "WIDE_F32_WORKSPACE_BYTES", 2 * row)
+        monkeypatch.setattr(tatt, "WIDE_WORKSPACE_BYTES", 2 * row)
         n_fwd, n_bwd = 3, 5
-    assert tatt._wide_f32_padded(d, q, k, v, g) == (case != "sliced")
+    assert tatt._wide_padded(torch.float32, d, q, k, v, g) == (case != "sliced")
     wide, backward = _wide_counts(), _bwd_launches()
     with torch.inference_mode():
         got = tatt.mha_kernel(q, k, v, bias, heads)
